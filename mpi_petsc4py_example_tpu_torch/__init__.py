@@ -1,0 +1,25 @@
+"""PyTorch + CUDA port of the JAX sparse-solver package, for NVIDIA Hopper.
+
+Mirrors the layout of ``mpi_petsc4py_example_tpu`` (the reference, which this
+package never imports): ``parallel`` (communicator, layout), ``core`` (Vec),
+``models`` (the matrix-free 3D Poisson stencil, the scipy CSR oracle), ``ops``
+(hand-written CUDA kernels in ``csrc/``, their plain PyTorch versions, the
+nvcc build), ``solvers`` (KSP, PC, the CG loop) and ``utils``.
+
+Entry points run on the card: ``DeviceComm()`` means CUDA and raises without
+it; pass ``device="cpu"`` to run on the CPU, where every kernel is replaced by
+its plain PyTorch version.
+"""
+
+from .core.vec import Vec
+from .models.poisson import poisson3d_csr
+from .models.stencil import StencilPoisson3D
+from .parallel.mesh import DeviceComm
+from .solvers.ksp import KSP
+from .solvers.pc import PC
+from .utils.convergence import ConvergedReason, SolveResult
+from .utils.options import global_options, init
+
+__all__ = ["DeviceComm", "Vec", "KSP", "PC", "StencilPoisson3D",
+           "poisson3d_csr", "ConvergedReason", "SolveResult",
+           "global_options", "init"]

@@ -1,0 +1,206 @@
+// 7-point 3D Poisson stencil kernels for Hopper (sm_90a), plain C entry points.
+//
+// What they replace (mpi_petsc4py_example_tpu/ops/pallas_stencil.py):
+//   stencil7_apply_{f32,f64} -> stencil3d_apply_pallas (:365), body _stencil_kernel (:83)
+//   stencil7_dot_{f32,f64}   -> stencil3d_dot_pallas (:394), the same body with dot_ref
+//
+// Both compute, on a z-slab u (lz, ny, nx) stored x-fastest,
+//   y = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
+// with zero fill at the x and y plane edges, and the z neighbours of the first
+// and last plane taken from the separate halo planes halo_lo / halo_hi (ny, nx).
+// The dot variant also returns sum(u * y) over the slab.  As on the TPU, no
+// concatenated extended slab is ever built: the halo planes are read where they
+// lie.
+//
+// What bounds them: HBM bytes.  Each point needs 8 flops (10 with the dot)
+// against 8 (f32) or 16 (f64) bytes moved: read u once, write y once, plus the
+// two halo planes.  The design marches each thread up a column of ZC planes,
+// keeping the z-1 / z / z+1 values in registers, so u is read from device
+// memory about once; the x and y neighbours come from L1/L2, which hold the
+// rows that neighbouring threads of the block have just loaded.
+//
+// The dot reduction is deterministic: each block writes its partial sum to a
+// scratch buffer (allocated by the caller), and a second one-block kernel sums
+// the partials in a fixed order.  No float atomics are used, so two runs on the
+// same input give the same bits and CG iteration counts do not wobble.
+//
+// This first design is simple and right.  Shared-memory plane tiling, TMA and
+// fusing the CG update chain are left to later work.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kBX = 32;   // threads along x (one warp: coalesced 128-byte rows)
+constexpr int kBY = 8;    // threads along y
+constexpr int kZC = 8;    // z-planes marched by each thread per tile
+constexpr int kThreads = kBX * kBY;
+constexpr int kSumThreads = 1024;
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// Sum of v over the block, valid in thread 0.  blockDim is a multiple of 32.
+template <typename T>
+__device__ T block_sum(T v) {
+  __shared__ T warp_sums[32];
+  const int tid = threadIdx.x + threadIdx.y * blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = (blockDim.x * blockDim.y) >> 5;
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < nwarps ? warp_sums[lane] : T(0);
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+struct Tiles {
+  int ntx, nty, ntz;
+  dim3 grid;
+};
+
+Tiles make_tiles(int lz, int ny, int nx) {
+  Tiles t;
+  t.ntx = (nx - 1) / kBX + 1;
+  t.nty = (ny - 1) / kBY + 1;
+  t.ntz = (lz - 1) / kZC + 1;
+  // gridDim.y/z are limited to 65535; the kernel loops over what lies beyond
+  t.grid = dim3(static_cast<unsigned>(t.ntx),
+                static_cast<unsigned>(t.nty < 65535 ? t.nty : 65535),
+                static_cast<unsigned>(t.ntz < 65535 ? t.ntz : 65535));
+  return t;
+}
+
+template <typename T, bool kDot>
+__global__ void __launch_bounds__(kThreads)
+stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
+                const T* __restrict__ halo_hi, T* __restrict__ y,
+                T* __restrict__ partial, int lz, int ny, int nx,
+                int ntx, int nty, int ntz) {
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  T acc = T(0);
+  // the tile loops depend on blockIdx only, so every thread of a block runs
+  // the same trip counts and reaches block_sum below
+  for (int tz = blockIdx.z; tz < ntz; tz += gridDim.z) {
+    for (int ty = blockIdx.y; ty < nty; ty += gridDim.y) {
+      for (int tx = blockIdx.x; tx < ntx; tx += gridDim.x) {
+        const int x = tx * kBX + static_cast<int>(threadIdx.x);
+        const int yy = ty * kBY + static_cast<int>(threadIdx.y);
+        if (x >= nx || yy >= ny) continue;
+        const int64_t col = static_cast<int64_t>(yy) * nx + x;
+        const int z0 = tz * kZC;
+        const int z1 = min(z0 + kZC, lz);
+        T below = z0 == 0 ? halo_lo[col] : u[(z0 - 1) * plane + col];
+        T cur = u[z0 * plane + col];
+        for (int z = z0; z < z1; ++z) {
+          const int64_t o = z * plane + col;
+          const T above = z == lz - 1 ? halo_hi[col] : u[o + plane];
+          const T xm = x > 0 ? u[o - 1] : T(0);
+          const T xp = x < nx - 1 ? u[o + 1] : T(0);
+          const T ym = yy > 0 ? u[o - nx] : T(0);
+          const T yp = yy < ny - 1 ? u[o + nx] : T(0);
+          // the plain version's order of operations, with no fused multiply-add
+          T v = mul_rn(T(6), cur);
+          v -= below;
+          v -= above;
+          v -= ym;
+          v -= yp;
+          v -= xm;
+          v -= xp;
+          y[o] = v;
+          if (kDot) acc += cur * v;
+          below = cur;
+          cur = above;
+        }
+      }
+    }
+  }
+  if (kDot) {
+    const T s = block_sum(acc);
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      partial[blockIdx.x + static_cast<int64_t>(gridDim.x) *
+                               (blockIdx.y + static_cast<int64_t>(gridDim.y) * blockIdx.z)] = s;
+    }
+  }
+}
+
+// One block: out[0] = sum of partial[0:n], always in the same order.
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+sum_partials_kernel(const T* __restrict__ partial, int64_t n, T* __restrict__ out) {
+  T acc = T(0);
+  // unrolled so the loads are issued ahead of the (still in-order) adds
+#pragma unroll 16
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) acc += partial[i];
+  const T s = block_sum(acc);
+  if (threadIdx.x == 0) out[0] = s;
+}
+
+template <typename T>
+int launch_apply(const void* u, const void* lo, const void* hi, void* y,
+                 int lz, int ny, int nx, void* stream) {
+  const Tiles t = make_tiles(lz, ny, nx);
+  stencil7_kernel<T, false><<<t.grid, dim3(kBX, kBY), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<T*>(y), nullptr, lz, ny, nx, t.ntx, t.nty, t.ntz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dot(const void* u, const void* lo, const void* hi, void* y,
+               void* partial, void* out, int lz, int ny, int nx, void* stream) {
+  const Tiles t = make_tiles(lz, ny, nx);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stencil7_kernel<T, true><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+      static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<T*>(y), static_cast<T*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int64_t nblocks = static_cast<int64_t>(t.grid.x) * t.grid.y * t.grid.z;
+  sum_partials_kernel<T><<<1, kSumThreads, 0, s>>>(static_cast<const T*>(partial), nblocks,
+                                                   static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The CUDA runtime's text for an error code returned by the entry points below.
+const char* stencil7_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Length of the partial-sum scratch buffer stencil7_dot_* needs for this shape.
+long long stencil7_dot_blocks(int lz, int ny, int nx) {
+  const Tiles t = make_tiles(lz, ny, nx);
+  return static_cast<long long>(t.grid.x) * t.grid.y * t.grid.z;
+}
+
+int stencil7_apply_f32(const void* u, const void* lo, const void* hi, void* y,
+                       int lz, int ny, int nx, void* stream) {
+  return launch_apply<float>(u, lo, hi, y, lz, ny, nx, stream);
+}
+
+int stencil7_apply_f64(const void* u, const void* lo, const void* hi, void* y,
+                       int lz, int ny, int nx, void* stream) {
+  return launch_apply<double>(u, lo, hi, y, lz, ny, nx, stream);
+}
+
+int stencil7_dot_f32(const void* u, const void* lo, const void* hi, void* y,
+                     void* partial, void* out, int lz, int ny, int nx, void* stream) {
+  return launch_dot<float>(u, lo, hi, y, partial, out, lz, ny, nx, stream);
+}
+
+int stencil7_dot_f64(const void* u, const void* lo, const void* hi, void* y,
+                     void* partial, void* out, int lz, int ny, int nx, void* stream) {
+  return launch_dot<double>(u, lo, hi, y, partial, out, lz, ny, nx, stream);
+}
+
+}  // extern "C"
