@@ -5,13 +5,21 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a, into
-``build/torch_kernels/``), holds every kernel against its plain PyTorch version
-on the card, times them, drives the port's main path (CG + Jacobi on the 7-point
-3D Poisson stencil, fp32, 128^3, rtol 1e-6, as ``bench.py`` measures it) through
-the public API with the launch counters read around it, checks the answer
-against scipy's fp64 CG, and solves a 512^3 problem (134M unknowns) with an fp64
-true-residual check on the card and the delta-method per-iteration time.
+It builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a, one process
+per source, all at once, into ``build/torch_kernels/``), holds every kernel
+against its plain PyTorch version on the card, times them, and drives the
+port's two paths through the public API with the launch counters zeroed just
+before each and read just after:
+
+* CG + Jacobi on the 7-point 3D Poisson stencil, fp32, 128^3, rtol 1e-6, as
+  ``bench.py`` measures it, checked against scipy's fp64 CG; then 512^3 (134M
+  unknowns) with an fp64 true-residual check on the card and the delta-method
+  per-iteration time;
+* CG + PC mg (the geometric-multigrid V-cycle, ``bench.py``'s second half) on
+  the same problems, with the launches of each V-cycle kernel checked against
+  the cycle count, the plain-version path, the Jacobi smoother, a profiler
+  breakdown, and the slab cycle on a 4-shard virtual mesh held against one
+  shard (fp64, 64^3).
 
 Every check raises on failure, so the exit code is 0 only when all phases
 passed. The last line of standard output is
@@ -37,9 +45,21 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet, device memory
 F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside tensor cores
 # CG+Jacobi step traffic model of bench.py:49-52 (11 vector passes/iteration)
 PASSES_PER_ITER = 11
-SOURCE = "mpi_petsc4py_example_tpu_torch/csrc/stencil7.cu"
-REPLACES = {"stencil7_apply": "mpi_petsc4py_example_tpu/ops/pallas_stencil.py:365",
-            "stencil7_dot": "mpi_petsc4py_example_tpu/ops/pallas_stencil.py:394"}
+_CSRC = "mpi_petsc4py_example_tpu_torch/csrc/"
+_PALLAS = "mpi_petsc4py_example_tpu/ops/pallas_stencil.py:"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "stencil7_apply": (_CSRC + "stencil7.cu", _PALLAS + "365"),
+    "stencil7_dot": (_CSRC + "stencil7.cu", _PALLAS + "394"),
+    "stencil7_smooth": (_CSRC + "stencil7.cu", _PALLAS + "652"),
+    "stencil7_residual": (_CSRC + "stencil7.cu", _PALLAS + "686"),
+    "stencil7_smooth0_pair": (_CSRC + "stencil7.cu", _PALLAS + "1124"),
+    "mg3d_smooth_pair": (_CSRC + "mg3d.cu", _PALLAS + "1251"),
+    "mg3d_residual_restrict": (_CSRC + "mg3d.cu", _PALLAS + "1090"),
+}
+MG_KERNELS = list(KERNELS)[2:]
+# check limits on max|kernel - plain|, relative to max|plain| (f32, f64)
+Y_TOL = {"float32": 1e-6, "float64": 1e-13}
 
 
 def check(cond, msg):
@@ -100,11 +120,15 @@ def random_slab(shape, dtype, seed):
 
 
 def phase_build():
+    """One nvcc process per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from mpi_petsc4py_example_tpu_torch.ops import build
     t0 = time.perf_counter()
-    for src in sorted(build.CSRC.glob("*.cu")):
-        build.build(src.stem)
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.nvcc_path()})")
+    names = [src.stem for src in sorted(build.CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(build.build, names))
+    log(f"build: {time.perf_counter() - t0:.2f} s for {names} "
+        f"(nvcc {build.nvcc_path()}): {[p.name for p in libs]}")
 
 
 def phase_kernel_checks():
@@ -209,9 +233,173 @@ def phase_kernel_times(n):
     return out
 
 
-def profile_solve(ksp, bv, x, label):
+def mg_kernel_calls(st, dtype, shape, seed, zero_halo_variants=False):
+    """The five V-cycle kernels and their plain versions on one random input:
+    ``{name: (kernel(), plain())}`` thunks, smooth and residual with random
+    halo planes; ``zero_halo_variants`` adds both again with None for the
+    halos (the zero-ghost instantiation the single-slab levels run), keyed
+    ``"<name> zero halos"``. residual_restrict only on even dims."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.solvers.mg import cheby_omegas
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lz, ny, nx = shape
+    mk = lambda *sh: torch.rand(sh, generator=g, device="cuda", dtype=dtype)
+    u, f = mk(lz, ny, nx), mk(lz, ny, nx)
+    lo, hi = mk(ny, nx), mk(ny, nx)
+    w = 2.0 / 3.0 / 6.0
+    w1, w2 = (c / 6.0 for c in cheby_omegas(2))
+    calls = {}
+    for suffix, (a, b) in [("", (lo, hi))] + (
+            [(" zero halos", (None, None))] if zero_halo_variants else []):
+        calls["stencil7_smooth" + suffix] = (
+            lambda a=a, b=b: st.stencil3d_smooth(u, f, a, b, w),
+            lambda a=a, b=b: st.stencil3d_smooth_plain(u, f, a, b, w))
+        calls["stencil7_residual" + suffix] = (
+            lambda a=a, b=b: st.stencil3d_residual(u, f, a, b),
+            lambda a=a, b=b: st.stencil3d_residual_plain(u, f, a, b))
+    calls["stencil7_smooth0_pair"] = (
+        lambda: st.stencil3d_smooth0_pair(f, w1, w2),
+        lambda: st.stencil3d_smooth0_pair_plain(f, w1, w2))
+    calls["mg3d_smooth_pair"] = (
+        lambda: st.stencil3d_smooth_pair(u, f, w1, w2),
+        lambda: st.stencil3d_smooth_pair_plain(u, f, w1, w2))
+    if lz % 2 == 0 and ny % 2 == 0 and nx % 2 == 0:
+        calls["mg3d_residual_restrict"] = (
+            lambda: st.stencil3d_residual_restrict(u, f),
+            lambda: st.stencil3d_residual_restrict_plain(u, f))
+    return calls
+
+
+# the slab cycle's cell: 64^3 on a 4-shard virtual mesh (phase_mg_slab)
+SLAB_N, SLAB_SHARDS = 64, 4
+
+
+def mg_path_shapes():
+    """The slabs the V-cycle kernels get on the paths this script drives:
+    every level of the single-slab cycle at 128^3, 512^3 and 64^3 (zero
+    ghosts), and the local slab of every slab-decomposed level of 64^3 over
+    4 shards (the levels whose local plane count is even, as
+    ``make_vcycle3d`` splits them; real neighbour halos). Returns
+    ``{shape: the paths that give it}``."""
+    from mpi_petsc4py_example_tpu_torch.solvers.mg import mg_levels
+    paths = {}
+    for n in (128, 512, SLAB_N):
+        for lvl in mg_levels(n, n, n):
+            paths.setdefault(lvl, []).append(f"{n}^3 level")
+    for lvl in mg_levels(SLAB_N, SLAB_N, SLAB_N)[:-1]:
+        if lvl[0] % (2 * SLAB_SHARDS):
+            break
+        local = (lvl[0] // SLAB_SHARDS,) + lvl[1:]
+        paths.setdefault(local, []).append(
+            f"{SLAB_N}^3 / {SLAB_SHARDS} shards slab")
+    return {shape: ", ".join(p) for shape, p in paths.items()}
+
+
+def phase_mg_kernel_checks():
+    """The five V-cycle kernels vs their plain versions on the card, f32 and
+    f64, at every shape the driven paths give them (:func:`mg_path_shapes`)
+    and three ragged ones; smooth and residual with random halos and with
+    zero ones at every shape. Limit: max|kernel - plain| <= Y_TOL *
+    max|plain|; the kernels repeat the plain order of operations with no FMA
+    contraction, so they are expected to agree bit for bit. Returns the
+    largest f32 errors per kernel."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    worst = {name: 0.0 for name in MG_KERNELS}
+    exact = True
+    shapes = mg_path_shapes()
+    for extra in ((100, 130, 200), (17, 9, 33), (18, 10, 66)):
+        shapes.setdefault(extra, "ragged")
+    for dtype in (torch.float32, torch.float64):
+        tol = Y_TOL[str(dtype)[6:]]
+        for i, (shape, label) in enumerate(shapes.items()):
+            calls = mg_kernel_calls(st, dtype, shape, 300 + i, True)
+            errs = {}
+            for key, (kern, plain) in calls.items():
+                ref = plain()
+                got = kern()
+                torch.cuda.synchronize()
+                scale = float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                errs[key] = err
+                exact = exact and err == 0.0
+                check(got.shape == ref.shape and err <= tol * scale,
+                      f"{key} {dtype} {shape}: max|err| {err} vs "
+                      f"{tol} * {scale}")
+                if dtype == torch.float32:
+                    name = key.split()[0]
+                    worst[name] = max(worst[name], err)
+                del ref, got
+            log(f"check {str(dtype)[6:]} {shape} ({label}): max|err| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            del calls
+            torch.cuda.empty_cache()
+    log(f"check: V-cycle kernels bit-exact with their plain versions at "
+        f"every shape and dtype: {exact}")
+    u = torch.zeros((4, 6, 8), device="cuda", dtype=torch.float32)
+    for bad in ((3, 6, 8), (4, 5, 8), (4, 6, 7)):
+        try:
+            st.stencil3d_residual_restrict(u.new_zeros(bad), u.new_zeros(bad))
+        except ValueError:
+            continue
+        raise SystemExit(f"chip_smoke: FAIL: odd dims {bad} did not raise")
+    try:
+        st.stencil3d_smooth_pair(u.half(), u.half(), 0.1, 0.1)
+    except TypeError:
+        pass
+    else:
+        raise SystemExit("chip_smoke: FAIL: fp16 smooth_pair did not raise")
+    log("check: residual_restrict raises on odd dims, fp16 raises TypeError")
+    return worst
+
+
+def mg_bound_ms(name, n, itemsize):
+    """Least time on the card for one V-cycle kernel at n^3 from the bytes it
+    must move (inputs read once, output written once) and its operations."""
+    pts, plane = n ** 3, n * n
+    nbytes, flops = {
+        # u, f in, out; two halo planes; 7 apply + sub + mul + add
+        "stencil7_smooth": ((3 * pts + 2 * plane) * itemsize, 10 * pts),
+        "stencil7_residual": ((3 * pts + 2 * plane) * itemsize, 8 * pts),
+        # f in, out; 7 apply + 2 mul + sub
+        "stencil7_smooth0_pair": (2 * pts * itemsize, 10 * pts),
+        # u, f in, out; two sweeps
+        "mg3d_smooth_pair": (3 * pts * itemsize, 20 * pts),
+        # u, f in, out/8; residual 8 + taps 6 on n/2 + n/4 + n/8 points
+        "mg3d_residual_restrict": ((2 * pts + pts // 8) * itemsize,
+                                   8 * pts + 6 * (pts // 2 + pts // 4 + pts // 8)),
+    }[name]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_mg_kernel_times(n):
+    """kernel/plain/bound times of the V-cycle kernels at n^3 f32; no single
+    PyTorch call computes any of the five, so library_ms is null."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    inner = 20 if n >= 512 else 100
+    out = {}
+    for name, (kern, plain) in mg_kernel_calls(st, torch.float32, (n, n, n),
+                                               41).items():
+        err = float((kern() - plain()).abs().max())
+        b_ms, b_by = mg_bound_ms(name, n, 4)
+        out[name] = {"ms": device_ms(kern, inner), "plain_ms": device_ms(plain, inner),
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err}
+        r = out[name]
+        log(f"time {name} {n}^3 f32: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_ms / r['ms'] * 100:.1f}% of it), no one-call library "
+            f"equivalent, max|err| {err:.3e}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_solve(ksp, bv, x, label, ops=()):
     """Device time by kernel over one solve under ``torch.profiler``, and the
-    device's idle share of the window's wall time."""
+    device's idle share of the window's wall time; for each PyTorch op named
+    in ``ops`` also the device time of all the kernels it launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     x.zero()
@@ -235,8 +423,12 @@ def profile_solve(ksp, bv, x, label):
     log(f"profile {label}: {res.iterations} iterations, wall "
         f"{wall_us / its:.1f} us/iter, device busy {busy_us / its:.1f} us/iter, "
         f"device idle share {1 - busy_us / wall_us:.3f}")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"  {us / its:9.2f} us/iter  {count // its:3d} calls/iter  {key[:90]}")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"  {us / its:9.2f} us/iter  {count / its:6.1f} calls/iter  {key[:120]}")
+    for op in ops:
+        us = sum(e.device_time_total for e in prof.key_averages() if e.key == op)
+        log(f"  {op}: {us / its:.2f} us/iter of device time, "
+            f"{us / busy_us * 100:.1f}% of the busy time")
 
 
 def make_problem(comm, nx, dtype):
@@ -269,8 +461,7 @@ def phase_main_path():
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
     nx, rtol = 128, 1e-6
     comm = pt.DeviceComm()
-    st.stencil3d_apply.launches = 0
-    st.stencil3d_dot.launches = 0
+    reset_launches()
     op, b = make_problem(comm, nx, torch.float32)
     ksp = cg_jacobi(comm, op, rtol)
     x, bv = op.get_vecs()
@@ -317,7 +508,242 @@ def phase_main_path():
         f"port rel residual {r_port / bnorm:.3e}, scipy {r_cpu / bnorm:.3e}, "
         f"parity {parity}")
     check(parity, "residual parity rule of bench.py:334 failed")
+    oracle = {"nx": nx, "b": b, "A": A, "r_cpu": r_cpu, "bnorm": bnorm}
+    return launches, oracle
+
+
+def reset_launches():
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    for wrapper in st.KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    return {name: wrapper.launches for name, wrapper in st.KERNELS.items()}
+
+
+def cg_mg(comm, op, rtol, max_it=200, smoother="chebyshev"):
+    import mpi_petsc4py_example_tpu_torch as pt
+    ksp = pt.KSP().create(comm)
+    ksp.set_operators(op)
+    ksp.set_type("cg")
+    ksp.get_pc().set_type("mg")
+    ksp.get_pc().mg_smoother = smoother
+    ksp.set_tolerances(rtol=rtol, atol=0.0, max_it=max_it)
+    return ksp
+
+
+def expected_mg_launches(nx, iterations, smoother="chebyshev"):
+    """Kernel launches of one single-slab CG + mg solve: one V-cycle at
+    set-up and one per iteration; per cycle, each level above the coarsest
+    runs smooth0_pair, residual_restrict and smooth_pair (Chebyshev) or
+    1 + 2 single sweeps (Jacobi), and the coarsest 19 sweeps."""
+    from mpi_petsc4py_example_tpu_torch.solvers.mg import mg_levels
+    cycles = iterations + 1
+    above = len(mg_levels(nx, nx, nx)) - 1
+    cheb = smoother == "chebyshev"
+    return {"stencil7_apply": 0, "stencil7_dot": iterations + 1,
+            "stencil7_smooth": (19 + (0 if cheb else 3 * above)) * cycles,
+            "stencil7_residual": 0,
+            "stencil7_smooth0_pair": above * cycles if cheb else 0,
+            "mg3d_smooth_pair": above * cycles if cheb else 0,
+            "mg3d_residual_restrict": above * cycles}
+
+
+def phase_mg_main_path(oracle):
+    """128^3 f32 CG + PC mg (Chebyshev) to rtol 1e-6 through the public API,
+    launch counters zeroed just before the solve and read just after; the
+    answer held to bench.py's parity rule against the same scipy fp64 CG
+    oracle as the Jacobi path; the plain-version path; the Jacobi smoother
+    through the options database; a profiler breakdown."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    nx, rtol = oracle["nx"], 1e-6
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    ksp = cg_mg(comm, op, rtol)
+    x, bv = op.get_vecs()
+    bv.set_global(oracle["b"])
+    torch.cuda.synchronize()
+    reset_launches()
+    res = ksp.solve(bv, x)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    want = expected_mg_launches(nx, res.iterations)
+    log(f"mg main path {nx}^3 f32 CG+mg(chebyshev): {res.iterations} "
+        f"iterations, {res.reason_name}, wall {res.wall_time * 1e3:.1f} ms "
+        f"(first solve), host syncs {res.host_syncs}, launches {launches}")
+    check(res.converged, f"mg main path did not converge: {res}")
+    check(res.host_syncs == res.iterations + 1,
+          f"host syncs {res.host_syncs} != iterations + 1")
+    check(launches == want, f"mg launches {launches} != expected {want}")
+    A, bb, bnorm = oracle["A"], oracle["b"].astype(np.float64), oracle["bnorm"]
+    r_mg = np.linalg.norm(bb - A @ x.to_numpy().astype(np.float64))
+    parity = bool(r_mg <= 10 * max(oracle["r_cpu"], rtol * bnorm))
+    log(f"mg parity vs scipy fp64 CG+jacobi: port rel residual "
+        f"{r_mg / bnorm:.3e}, scipy {oracle['r_cpu'] / bnorm:.3e}, parity {parity}")
+    check(parity, "mg: residual parity rule of bench.py:334 failed")
+    walls = []
+    for _ in range(3):
+        x.zero()
+        walls.append(ksp.solve(bv, x).wall_time)
+    warm = statistics.median(walls)
+    log(f"mg main path warm solve: median wall {warm * 1e3:.2f} ms "
+        f"(samples {[round(w * 1e3, 2) for w in walls]}), "
+        f"{warm / res.iterations * 1e3:.4f} ms/iter")
+    profile_solve(ksp, bv, x, f"{nx}^3 CG+mg converged solve",
+                  ops=("aten::einsum",))
+    # the same solve through the plain PyTorch versions, on the card
+    op.force_plain = True
+    xp, _ = op.get_vecs()
+    reset_launches()
+    plain = ksp.solve(bv, xp)
+    op.force_plain = False
+    plain_launches = sum(read_launches().values())
+    # the V-cycle kernels equal their plain versions bit for bit; the two
+    # solves differ only in how <p, A p> is summed (the dot kernel's
+    # fixed-order block partials vs torch.sum), so the iterates differ at
+    # fp32 rounding level
+    x_diff = float((x.data - xp.data).abs().max() / xp.data.abs().max())
+    log(f"mg main path with plain versions: {plain.iterations} iterations, "
+        f"{plain.reason_name}, wall {plain.wall_time * 1e3:.1f} ms, "
+        f"kernel launches {plain_launches}, max|x_kernels - x_plain| / "
+        f"max|x_plain| {x_diff:.3e} (limit 1e-5)")
+    check(plain.converged and abs(plain.iterations - res.iterations) <= 1,
+          f"plain mg iterations {plain.iterations} vs kernels {res.iterations}")
+    check(plain_launches == 0, "the plain path launched kernels")
+    check(x_diff <= 1e-5, f"kernel and plain mg iterates differ by {x_diff}")
+    # the library refuses TF32 prolongation einsums on the card
+    torch.set_float32_matmul_precision("high")
+    try:
+        ksp.solve(bv, xp)
+    except RuntimeError as e:
+        check("TF32" in str(e), f"unexpected error with TF32 on: {e}")
+    else:
+        raise SystemExit("chip_smoke: FAIL: PC mg solved with TF32 matmuls on")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    log("check: PC mg raises on the card when TF32 matmuls are enabled")
+    # the Jacobi smoother, chosen through the options database
+    pt.init(["chip_smoke", "-pc_type", "mg", "-pc_mg_smooth_type", "jacobi"])
+    try:
+        kj = pt.KSP().create(comm)
+        kj.set_operators(op)
+        kj.set_type("cg")
+        kj.set_from_options()
+        kj.set_tolerances(rtol=rtol, atol=0.0, max_it=200)
+    finally:
+        pt.global_options().clear()
+    xj, _ = op.get_vecs()
+    reset_launches()
+    rj = kj.solve(bv, xj)
+    lj = read_launches()
+    r_j = np.linalg.norm(bb - A @ xj.to_numpy().astype(np.float64))
+    log(f"mg main path, -pc_mg_smooth_type jacobi: {rj.iterations} iterations, "
+        f"{rj.reason_name}, rel residual {r_j / bnorm:.3e}, launches {lj}")
+    check(kj.get_pc().mg_smoother == "jacobi" and rj.converged,
+          f"jacobi-smoothed mg: {rj}")
+    check(r_j <= 10 * max(oracle["r_cpu"], rtol * bnorm),
+          "jacobi-smoothed mg: parity rule failed")
+    check(lj == expected_mg_launches(nx, rj.iterations, "jacobi"),
+          f"jacobi-smoothed mg launches {lj}")
     return launches
+
+
+def phase_mg_realistic():
+    """512^3 f32 CG + mg: a converged solve with the launch counts checked,
+    an fp64 true residual on the card (the f64 apply kernel), wall per
+    iteration, peak memory and a profiler breakdown."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    nx, rtol = 512, 1e-6
+    n = nx ** 3
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x_true = pt.Vec(comm, n, data=torch.rand(n, generator=g, device="cuda",
+                                             dtype=torch.float32))
+    bv = op.mult(x_true)
+    del x_true
+    x, _ = op.get_vecs()
+    ksp = cg_mg(comm, op, rtol)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = ksp.solve(bv, x)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"512^3 f32 CG+mg: {res.iterations} iterations, {res.reason_name}, "
+        f"wall {res.wall_time * 1e3:.1f} ms (first solve), host syncs "
+        f"{res.host_syncs}, peak {peak:.2f} GiB, launches {launches}")
+    check(res.converged, f"512^3 mg solve did not converge: {res}")
+    check(launches == expected_mg_launches(nx, res.iterations),
+          f"512^3 mg launches {launches}")
+    op64 = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    b64 = bv.data.double()
+    ax = op64.mult(pt.Vec(comm, n, data=x.data.double())).data
+    true_rel = float(torch.linalg.vector_norm(b64 - ax)
+                     / torch.linalg.vector_norm(b64))
+    log(f"512^3 mg fp64 true relative residual {true_rel:.3e} (limit {10 * rtol:g})")
+    check(true_rel <= 10 * rtol, f"512^3 mg true residual {true_rel}")
+    del b64, ax, op64
+    torch.cuda.empty_cache()
+    walls = []
+    for _ in range(3):
+        x.zero()
+        r = ksp.solve(bv, x)
+        walls.append(r.wall_time / r.iterations)
+    log(f"512^3 CG+mg warm: median {statistics.median(walls) * 1e3:.4f} ms/iter "
+        f"(samples {[round(w * 1e3, 4) for w in walls]}), "
+        f"{statistics.median(walls) * r.iterations * 1e3:.1f} ms per solve")
+    profile_solve(ksp, bv, x, f"{nx}^3 CG+mg converged solve",
+                  ops=("aten::einsum",))
+    del x, bv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mg_slab():
+    """The slab V-cycle: 64^3 fp64 CG + mg on a 4-shard virtual mesh against
+    one shard. Equal iterations and iterates within 1e-10: the solve does not
+    depend on the shard count. The 4-shard run is the path that launches the
+    residual kernel."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    nx, rtol = SLAB_N, 1e-8
+    A = pt.poisson3d_csr(nx)
+    b = A @ np.random.default_rng(3).random(nx ** 3)
+    out = {}
+    for ndev in (1, SLAB_SHARDS):
+        comm = pt.DeviceComm(n_devices=ndev)
+        op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+        ksp = cg_mg(comm, op, rtol)
+        x, bv = op.get_vecs()
+        bv.set_global(b)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = ksp.solve(bv, x)
+        out[ndev] = (res, x.to_numpy(), read_launches())
+        log(f"slab {nx}^3 fp64 CG+mg on {ndev} shard(s): {res.iterations} "
+            f"iterations, {res.reason_name}, wall {res.wall_time * 1e3:.1f} ms, "
+            f"launches {out[ndev][2]}")
+        check(res.converged, f"slab mg on {ndev} shards: {res}")
+    (r1, x1, _), (r4, x4, l4) = out[1], out[SLAB_SHARDS]
+    rel = float(np.linalg.norm(x4 - x1) / np.linalg.norm(x1))
+    log(f"slab: 4 shards vs 1: iterations {r4.iterations} vs {r1.iterations}, "
+        f"relative iterate difference {rel:.3e} (limit 1e-10)")
+    check(r4.iterations == r1.iterations, "slab iterations differ")
+    check(rel <= 1e-10, f"slab iterates differ by {rel}")
+    # 64^3 over 4 shards: levels 64..8 run slab-decomposed, one launch per
+    # shard for each residual and each of the 1 + 2 single sweeps; the 4^3
+    # tail is gathered and smoothed once (19 sweeps)
+    cycles = r4.iterations + 1
+    check(l4["stencil7_residual"] == 4 * 4 * cycles and
+          l4["stencil7_smooth"] == (4 * 4 * 3 + 19) * cycles,
+          f"slab launches {l4}")
+    return l4
 
 
 def phase_realistic():
@@ -329,8 +755,7 @@ def phase_realistic():
     nx, rtol = 512, 1e-6
     n = nx ** 3
     comm = pt.DeviceComm()
-    st.stencil3d_apply.launches = 0
-    st.stencil3d_dot.launches = 0
+    reset_launches()
     op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
     g = torch.Generator(device="cuda").manual_seed(7)
     x_true = pt.Vec(comm, n, data=torch.rand(n, generator=g, device="cuda",
@@ -402,24 +827,45 @@ def main():
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    # the V-cycle's prolongation einsums must run in full fp32
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on")
     phase_build()
     worst = phase_kernel_checks()
+    worst.update(phase_mg_kernel_checks())
     times = {n: phase_kernel_times(n) for n in (128, 512)}
-    launches = phase_main_path()
+    for n in (128, 512):
+        times[n].update(phase_mg_kernel_times(n))
+    # each path: counters zeroed just before, read just after
+    launches, oracle = phase_main_path()
     launches_512 = phase_realistic()
+    launches_mg = phase_mg_main_path(oracle)
+    launches_mg_512 = phase_mg_realistic()
+    launches_slab = phase_mg_slab()
 
     kernels = []
-    for name in ("stencil7_dot", "stencil7_apply"):
+    for name, (source, replaces) in KERNELS.items():
         big, small = times[512][name], times[128][name]
+        # the path whose run each kernel's launch count comes from
+        if name in ("stencil7_apply", "stencil7_dot"):
+            path, count, count_512 = ("128^3 CG+jacobi", launches[name],
+                                      launches_512[name])
+        elif name == "stencil7_residual":
+            path, count, count_512 = ("64^3 fp64 CG+mg, 4-shard slab cycle",
+                                      launches_slab[name], None)
+        else:
+            path, count, count_512 = ("128^3 CG+mg", launches_mg[name],
+                                      launches_mg_512[name])
+        check(count > 0, f"{name} was not launched on its path ({path})")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": count, "path": path,
             "max_abs_err": max(worst[name], big["max_abs_err"]),
             "ms": big["ms"], "kernel_ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
             "library_ms": big["library_ms"], "shape": [512, 512, 512],
-            "dtype": "float32", "at_128": small,
-            "launches_512": launches_512[name]})
+            "dtype": "float32", "at_128": small, "launches_512": count_512})
         if name == "stencil7_dot":
             kernels[-1]["dot_rel_err"] = worst["dot_rel"]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,20 +1,33 @@
 // 7-point 3D Poisson stencil kernels for Hopper (sm_90a), plain C entry points.
 //
-// What they replace (mpi_petsc4py_example_tpu/ops/pallas_stencil.py):
-//   stencil7_apply_{f32,f64} -> stencil3d_apply_pallas (:365), body _stencil_kernel (:83)
-//   stencil7_dot_{f32,f64}   -> stencil3d_dot_pallas (:394), the same body with dot_ref
+// What they replace (mpi_petsc4py_example_tpu/ops/pallas_stencil.py), all of
+// them _stencil_kernel (:83) with a different combine:
+//   stencil7_apply_{f32,f64}       -> stencil3d_apply_pallas (:365)
+//   stencil7_dot_{f32,f64}         -> stencil3d_dot_pallas (:394), with dot_ref
+//   stencil7_smooth_{f32,f64}      -> stencil3d_smooth_pallas (:652)
+//   stencil7_residual_{f32,f64}    -> stencil3d_residual_pallas (:686)
+//   stencil7_smooth0_pair_{f32,f64} -> stencil3d_smooth0_pair_pallas (:1124)
 //
-// Both compute, on a z-slab u (lz, ny, nx) stored x-fastest,
-//   y = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
+// All compute, on a z-slab u (lz, ny, nx) stored x-fastest,
+//   Au = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
 // with zero fill at the x and y plane edges, and the z neighbours of the first
-// and last plane taken from the separate halo planes halo_lo / halo_hi (ny, nx).
-// The dot variant also returns sum(u * y) over the slab.  As on the TPU, no
-// concatenated extended slab is ever built: the halo planes are read where they
-// lie.
+// and last plane taken from the separate halo planes halo_lo / halo_hi (ny, nx)
+// or, when both halo pointers are null, from zero (Dirichlet) planes.  That
+// choice is a template flag: a null test inside the z loop made the apply
+// ~24% slower at 512^3.  An epilogue functor then turns (u, Au) into the
+// stored value, reading f at the same offset where it needs it:
+//   apply / dot      Au                        (the dot also sums u * Au)
+//   smooth           u + w (f - Au)             one damped-Jacobi sweep
+//   residual         f - Au
+//   smooth0_pair     (w1 + w2) u - (w1 w2) Au   two sweeps from a zero guess,
+//                                               applied to u = f, zero halos
+// As on the TPU, no concatenated extended slab is ever built: the halo planes
+// are read where they lie.
 //
-// What bounds them: HBM bytes.  Each point needs 8 flops (10 with the dot)
-// against 8 (f32) or 16 (f64) bytes moved: read u once, write y once, plus the
-// two halo planes.  The design marches each thread up a column of ZC planes,
+// What bounds them: HBM bytes.  Each point needs 8 flops (10 with the dot or
+// the smooth) against 8 (f32) or 16 (f64) bytes moved for the apply: read u
+// once, write y once, plus the two halo planes; smooth and residual also read
+// f (3 passes).  The design marches each thread up a column of ZC planes,
 // keeping the z-1 / z / z+1 values in registers, so u is read from device
 // memory about once; the x and y neighbours come from L1/L2, which hold the
 // rows that neighbouring threads of the block have just loaded.
@@ -41,6 +54,34 @@ constexpr int kSumThreads = 1024;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// Epilogues: the value stored at offset o from u there and Au = (A u)[o].
+// Products go through mul_rn, so nvcc cannot contract them with the
+// following add into an FMA and every result rounds as the plain PyTorch
+// version's separate operations do.
+template <typename T>
+struct StoreAu {
+  __device__ T operator()(T, T au, int64_t) const { return au; }
+};
+
+template <typename T>
+struct Smooth {          // u + w (f - A u)
+  const T* __restrict__ f;
+  T w;
+  __device__ T operator()(T u, T au, int64_t o) const { return u + mul_rn(w, f[o] - au); }
+};
+
+template <typename T>
+struct Residual {        // f - A u
+  const T* __restrict__ f;
+  __device__ T operator()(T, T au, int64_t o) const { return f[o] - au; }
+};
+
+template <typename T>
+struct Smooth0Pair {     // (w1 + w2) f - (w1 w2) A f, the kernel run on u = f
+  T sum, prod;
+  __device__ T operator()(T u, T au, int64_t) const { return mul_rn(sum, u) - mul_rn(prod, au); }
+};
 
 // Sum of v over the block, valid in thread 0.  blockDim is a multiple of 32.
 template <typename T>
@@ -77,12 +118,12 @@ Tiles make_tiles(int lz, int ny, int nx) {
   return t;
 }
 
-template <typename T, bool kDot>
+template <typename T, bool kDot, bool kHalo, class Epilogue>
 __global__ void __launch_bounds__(kThreads)
 stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
                 const T* __restrict__ halo_hi, T* __restrict__ y,
                 T* __restrict__ partial, int lz, int ny, int nx,
-                int ntx, int nty, int ntz) {
+                int ntx, int nty, int ntz, Epilogue epi) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   T acc = T(0);
   // the tile loops depend on blockIdx only, so every thread of a block runs
@@ -96,11 +137,11 @@ stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
         const int64_t col = static_cast<int64_t>(yy) * nx + x;
         const int z0 = tz * kZC;
         const int z1 = min(z0 + kZC, lz);
-        T below = z0 == 0 ? halo_lo[col] : u[(z0 - 1) * plane + col];
+        T below = z0 == 0 ? (kHalo ? halo_lo[col] : T(0)) : u[(z0 - 1) * plane + col];
         T cur = u[z0 * plane + col];
         for (int z = z0; z < z1; ++z) {
           const int64_t o = z * plane + col;
-          const T above = z == lz - 1 ? halo_hi[col] : u[o + plane];
+          const T above = z == lz - 1 ? (kHalo ? halo_hi[col] : T(0)) : u[o + plane];
           const T xm = x > 0 ? u[o - 1] : T(0);
           const T xp = x < nx - 1 ? u[o + 1] : T(0);
           const T ym = yy > 0 ? u[o - nx] : T(0);
@@ -113,7 +154,7 @@ stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
           v -= yp;
           v -= xm;
           v -= xp;
-          y[o] = v;
+          y[o] = epi(cur, v, o);
           if (kDot) acc += cur * v;
           below = cur;
           cur = above;
@@ -142,13 +183,24 @@ sum_partials_kernel(const T* __restrict__ partial, int64_t n, T* __restrict__ ou
   if (threadIdx.x == 0) out[0] = s;
 }
 
-template <typename T>
+// Null lo and hi select the zero-halo instantiation; the caller passes both
+// planes or neither (the wrappers check).
+template <typename T, class Epilogue>
 int launch_apply(const void* u, const void* lo, const void* hi, void* y,
-                 int lz, int ny, int nx, void* stream) {
+                 int lz, int ny, int nx, void* stream, Epilogue epi) {
   const Tiles t = make_tiles(lz, ny, nx);
-  stencil7_kernel<T, false><<<t.grid, dim3(kBX, kBY), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<T*>(y), nullptr, lz, ny, nx, t.ntx, t.nty, t.ntz);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* ut = static_cast<const T*>(u);
+  const T* lot = static_cast<const T*>(lo);
+  const T* hit = static_cast<const T*>(hi);
+  if (lo != nullptr && hi != nullptr) {
+    stencil7_kernel<T, false, true, Epilogue><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+        ut, lot, hit, static_cast<T*>(y), nullptr, lz, ny, nx, t.ntx, t.nty, t.ntz, epi);
+  } else {
+    stencil7_kernel<T, false, false, Epilogue><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+        ut, nullptr, nullptr, static_cast<T*>(y), nullptr, lz, ny, nx, t.ntx, t.nty, t.ntz,
+        epi);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,9 +209,10 @@ int launch_dot(const void* u, const void* lo, const void* hi, void* y,
                void* partial, void* out, int lz, int ny, int nx, void* stream) {
   const Tiles t = make_tiles(lz, ny, nx);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stencil7_kernel<T, true><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+  stencil7_kernel<T, true, true, StoreAu<T>><<<t.grid, dim3(kBX, kBY), 0, s>>>(
       static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<T*>(y), static_cast<T*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz);
+      static_cast<T*>(y), static_cast<T*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz,
+      StoreAu<T>{});
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int64_t nblocks = static_cast<int64_t>(t.grid.x) * t.grid.y * t.grid.z;
@@ -185,12 +238,53 @@ long long stencil7_dot_blocks(int lz, int ny, int nx) {
 
 int stencil7_apply_f32(const void* u, const void* lo, const void* hi, void* y,
                        int lz, int ny, int nx, void* stream) {
-  return launch_apply<float>(u, lo, hi, y, lz, ny, nx, stream);
+  return launch_apply<float>(u, lo, hi, y, lz, ny, nx, stream, StoreAu<float>{});
 }
 
 int stencil7_apply_f64(const void* u, const void* lo, const void* hi, void* y,
                        int lz, int ny, int nx, void* stream) {
-  return launch_apply<double>(u, lo, hi, y, lz, ny, nx, stream);
+  return launch_apply<double>(u, lo, hi, y, lz, ny, nx, stream, StoreAu<double>{});
+}
+
+// out = u + w (f - A u); w is the sweep's omega / 6
+int stencil7_smooth_f32(const void* u, const void* f, const void* lo, const void* hi,
+                        void* out, int lz, int ny, int nx, double w, void* stream) {
+  return launch_apply<float>(u, lo, hi, out, lz, ny, nx, stream,
+                             Smooth<float>{static_cast<const float*>(f), static_cast<float>(w)});
+}
+
+int stencil7_smooth_f64(const void* u, const void* f, const void* lo, const void* hi,
+                        void* out, int lz, int ny, int nx, double w, void* stream) {
+  return launch_apply<double>(u, lo, hi, out, lz, ny, nx, stream,
+                              Smooth<double>{static_cast<const double*>(f), w});
+}
+
+// out = f - A u
+int stencil7_residual_f32(const void* u, const void* f, const void* lo, const void* hi,
+                          void* out, int lz, int ny, int nx, void* stream) {
+  return launch_apply<float>(u, lo, hi, out, lz, ny, nx, stream,
+                             Residual<float>{static_cast<const float*>(f)});
+}
+
+int stencil7_residual_f64(const void* u, const void* f, const void* lo, const void* hi,
+                          void* out, int lz, int ny, int nx, void* stream) {
+  return launch_apply<double>(u, lo, hi, out, lz, ny, nx, stream,
+                              Residual<double>{static_cast<const double*>(f)});
+}
+
+// out = sum f - prod (A f) with zero halo planes; sum = w1 + w2 and
+// prod = w1 w2 for the two sweeps' omega / 6, formed by the caller
+int stencil7_smooth0_pair_f32(const void* f, void* out, int lz, int ny, int nx,
+                              double sum, double prod, void* stream) {
+  return launch_apply<float>(f, nullptr, nullptr, out, lz, ny, nx, stream,
+                             Smooth0Pair<float>{static_cast<float>(sum),
+                                                static_cast<float>(prod)});
+}
+
+int stencil7_smooth0_pair_f64(const void* f, void* out, int lz, int ny, int nx,
+                              double sum, double prod, void* stream) {
+  return launch_apply<double>(f, nullptr, nullptr, out, lz, ny, nx, stream,
+                              Smooth0Pair<double>{sum, prod});
 }
 
 int stencil7_dot_f32(const void* u, const void* lo, const void* hi, void* y,

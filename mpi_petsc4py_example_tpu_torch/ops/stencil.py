@@ -1,19 +1,34 @@
-"""The 7-point stencil apply and fused apply + dot: CUDA kernels and plain versions.
+"""The 7-point stencil kernels and the V-cycle's fused passes: CUDA kernels and
+plain versions.
 
 Counterpart of ``mpi_petsc4py_example_tpu/ops/pallas_stencil.py``:
 
 * :func:`stencil3d_apply` replaces ``stencil3d_apply_pallas`` (``:365``);
-* :func:`stencil3d_dot` replaces ``stencil3d_dot_pallas`` (``:394``).
+* :func:`stencil3d_dot` replaces ``stencil3d_dot_pallas`` (``:394``);
+* :func:`stencil3d_smooth` replaces ``stencil3d_smooth_pallas`` (``:652``);
+* :func:`stencil3d_residual` replaces ``stencil3d_residual_pallas`` (``:686``);
+* :func:`stencil3d_smooth0_pair` replaces ``stencil3d_smooth0_pair_pallas``
+  (``:1124``);
+* :func:`stencil3d_smooth_pair` replaces ``stencil3d_smooth_pair_pallas``
+  (``:1251``);
+* :func:`stencil3d_residual_restrict` replaces
+  ``stencil3d_residual_restrict_pallas`` (``:1090``).
 
-Both take a z-slab ``u (lz, ny, nx)`` (x fastest) and its neighbour planes
-``halo_lo``/``halo_hi (ny, nx)``, and compute ``A u = 6u - (6 neighbours)``
-with zero fill in x and y; the dot form also returns ``sum(u * A u)`` over the
-slab (the shard's partial). The kernels are in ``csrc/stencil7.cu``.
+All take a z-slab ``u (lz, ny, nx)`` (x fastest) and compute with
+``A u = 6u - (6 neighbours)``, zero fill in x and y. The first four read the z
+neighbours of the end planes from halo planes ``halo_lo``/``halo_hi (ny, nx)``;
+apply, smooth and residual also take ``None`` for both, zero (Dirichlet)
+planes that the kernels' zero-halo instantiation never reads. The last three
+are single-slab passes with zero Dirichlet ghosts on every side.
+The first five kernels are in ``csrc/stencil7.cu`` (one kernel with an epilogue
+per function), the two that need two-deep z neighbourhoods in ``csrc/mg3d.cu``.
 
 Dispatch is by the device of ``u`` alone: a CPU tensor goes through the plain
 PyTorch version beside each kernel, a CUDA tensor launches the kernel or
 raises. There is no fallback from one to the other. Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches``. The plain versions repeat the
+kernels' order of operations, so on the card the two agree to the last bit
+(the dot's sum excepted, which adds in another order).
 """
 
 from __future__ import annotations
@@ -26,47 +41,78 @@ import torch.nn.functional as F
 from ..utils.errors import DeviceExecutionError
 from . import build
 
+# one axis of the restriction R = (1/2) P^T: the 3-axis product scales the
+# restricted residual by 4 (= h_c^2/h_f^2 under the level-independent unit
+# stencil) on top of the weight-2-per-axis adjoint, i.e. (2 s)^3 = 4
+RSCALE = 4.0 ** (1.0 / 3.0) / 2.0
+
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _INT_MAX = 2**31 - 1
-_lib = None
+_VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# C signatures of the entry points, per library, without the dtype suffix
+_SIGNATURES = {
+    "stencil7": {
+        "stencil7_apply": [_VP] * 4 + [_CI] * 3 + [_VP],
+        "stencil7_dot": [_VP] * 6 + [_CI] * 3 + [_VP],
+        "stencil7_smooth": [_VP] * 5 + [_CI] * 3 + [_CD, _VP],
+        "stencil7_residual": [_VP] * 5 + [_CI] * 3 + [_VP],
+        "stencil7_smooth0_pair": [_VP] * 2 + [_CI] * 3 + [_CD, _CD, _VP],
+    },
+    "mg3d": {
+        "mg3d_smooth_pair": [_VP] * 3 + [_CI] * 3 + [_CD, _CD, _VP],
+        "mg3d_residual_restrict": [_VP] * 3 + [_CI] * 3 + [_CD, _VP],
+    },
+}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
-def _kernels() -> ctypes.CDLL:
-    """The built ``stencil7`` library with its C signatures declared."""
-    global _lib
-    if _lib is None:
-        lib = build.load("stencil7")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for sfx in _SUFFIX.values():
-            apply_fn = getattr(lib, f"stencil7_apply_{sfx}")
-            apply_fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
-            apply_fn.restype = ci
-            dot_fn = getattr(lib, f"stencil7_dot_{sfx}")
-            dot_fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-            dot_fn.restype = ci
-        lib.stencil7_dot_blocks.argtypes = [ci, ci, ci]
-        lib.stencil7_dot_blocks.restype = ctypes.c_longlong
-        lib.stencil7_error_string.argtypes = [ci]
-        lib.stencil7_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _kernels(name: str = "stencil7") -> ctypes.CDLL:
+    """The built ``csrc/<name>.cu`` library with its C signatures declared."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = build.load(name)
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            for sfx in _SUFFIX.values():
+                fn = getattr(lib, f"{fn_name}_{sfx}")
+                fn.argtypes = argtypes
+                fn.restype = _CI
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [_CI]
+        err.restype = ctypes.c_char_p
+        if name == "stencil7":
+            lib.stencil7_dot_blocks.argtypes = [_CI, _CI, _CI]
+            lib.stencil7_dot_blocks.restype = ctypes.c_longlong
+        _libs[name] = lib
+    return lib
 
 
-def _check(u, halo_lo, halo_hi, out):
-    """Validate operands; returns ``(lz, ny, nx)``. Raises on a dtype, shape,
-    layout or device the kernel does not take (on every device, so the plain
-    path accepts exactly what the kernel accepts)."""
+def _overlaps(a, b) -> bool:
+    lo_a, lo_b = a.data_ptr(), b.data_ptr()
+    return (lo_a < lo_b + b.numel() * b.element_size()
+            and lo_b < lo_a + a.numel() * a.element_size())
+
+
+def _check(u, out=None, out_shape=None, **operands):
+    """Validate the slab ``u`` and the named operands (``f``, ``halo_lo``,
+    ``halo_hi``; the halos may be both None, zero planes); returns
+    ``(lz, ny, nx)``. Raises on a dtype, shape, layout or device the kernel
+    does not take, and on an ``out`` that overlaps an input (on every
+    device, so the plain path accepts exactly what the kernel accepts)."""
     if u.dtype not in _SUFFIX:
         raise TypeError(f"stencil kernels take float32/float64, got {u.dtype}")
     if u.dim() != 3 or min(u.shape) < 1 or max(u.shape) > _INT_MAX:
         raise ValueError(f"u must be a non-empty (lz, ny, nx) slab, got "
                          f"shape {tuple(u.shape)}")
     lz, ny, nx = u.shape
-    operands = [("u", u, (lz, ny, nx)), ("halo_lo", halo_lo, (ny, nx)),
-                ("halo_hi", halo_hi, (ny, nx))]
+    if (operands.get("halo_lo") is None) != (operands.get("halo_hi") is None):
+        raise ValueError("pass both halo planes, or None for both")
+    expect = {"f": (lz, ny, nx), "halo_lo": (ny, nx), "halo_hi": (ny, nx)}
+    items = [("u", u, (lz, ny, nx))]
+    items += [(k, t, expect[k]) for k, t in operands.items() if t is not None]
+    inputs = [t for _, t, _ in items]
     if out is not None:
-        operands.append(("out", out, (lz, ny, nx)))
-    for name, t, shape in operands:
+        items.append(("out", out, out_shape or (lz, ny, nx)))
+    for name, t, shape in items:
         if t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
         if t.dtype != u.dtype:
@@ -76,25 +122,51 @@ def _check(u, halo_lo, halo_hi, out):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if out is not None and any(_overlaps(out, t) for t in inputs):
+        raise ValueError("out must not overlap an input")
     if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stencil kernels run on cpu or cuda, not {u.device}")
     return lz, ny, nx
 
 
-def _raise_on(err: int, what: str):
+def _launch(lib_name, fn_name, u, what, *args):
+    """Call ``<fn_name>_<dtype>`` of library ``lib_name`` on ``u``'s device
+    and current stream; raises on a launch error."""
+    lib = _kernels(lib_name)
+    fn = getattr(lib, f"{fn_name}_{_SUFFIX[u.dtype]}")
+    # the runtime launches on its current device: make it u's
+    with torch.cuda.device(u.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
+        err = fn(*args, stream)
     if err != 0:
-        msg = _kernels().stencil7_error_string(err).decode()
+        msg = getattr(lib, f"{lib_name}_error_string")(err).decode()
         raise DeviceExecutionError(what, f"CUDA error {err}: {msg}")
 
 
-def _stream(u) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
+def _out(u, out, shape=None):
+    if out is not None:
+        return out
+    return torch.empty(shape, dtype=u.dtype, device=u.device) if shape \
+        else torch.empty_like(u)
+
+
+def _zero_plane(u):
+    return u.new_zeros(u.shape[1:])
+
+
+def _ptr(t):
+    """A device pointer; a ``None`` halo passes as NULL, which selects the
+    kernel's zero-halo instantiation."""
+    return None if t is None else t.data_ptr()
 
 
 # ---- plain versions (pure PyTorch; the CPU path and the card's yardstick) ----
 
 def stencil3d_apply_plain(u, halo_lo, halo_hi):
-    """``A u`` with pads and slices, as ``StencilPoisson3D._stencil7_jnp``."""
+    """``A u`` with pads and slices, as ``StencilPoisson3D._stencil7_jnp``
+    (``None`` halos are zero planes)."""
+    if halo_lo is None and halo_hi is None:
+        halo_lo = halo_hi = _zero_plane(u)
     ext = torch.cat([halo_lo[None], u, halo_hi[None]], dim=0)
     ym = F.pad(u[:, :-1, :], (0, 0, 1, 0))
     yp = F.pad(u[:, 1:, :], (0, 0, 0, 1))
@@ -109,22 +181,70 @@ def stencil3d_dot_plain(u, halo_lo, halo_hi):
     return y, (u * y).sum()
 
 
+def stencil3d_smooth_plain(u, f, halo_lo, halo_hi, w):
+    """One damped-Jacobi sweep ``u + w (f - A u)`` (``w`` is omega/6)."""
+    return u + w * (f - stencil3d_apply_plain(u, halo_lo, halo_hi))
+
+
+def stencil3d_residual_plain(u, f, halo_lo, halo_hi):
+    """The residual ``f - A u``."""
+    return f - stencil3d_apply_plain(u, halo_lo, halo_hi)
+
+
+def stencil3d_smooth0_pair_plain(f, w1, w2):
+    """Two sweeps from a zero guess with zero ghosts:
+    ``u1 = w1 f``, ``u2 = u1 + w2 (f - A u1) = (w1 + w2) f - w1 w2 (A f)``."""
+    return (w1 + w2) * f - (w1 * w2) * stencil3d_apply_plain(f, None, None)
+
+
+def stencil3d_smooth_pair_plain(u, f, w1, w2):
+    """Two sweeps ``S_w2(S_w1(u))`` with zero ghosts on every side."""
+    u1 = stencil3d_smooth_plain(u, f, None, None, w1)
+    return stencil3d_smooth_plain(u1, f, None, None, w2)
+
+
+def restrict1d(f, ax: int, lo=None, hi=None):
+    """One axis of the restriction ``R = (1/2) P^T``::
+
+        coarse[i] = s (0.75 (f[2i] + f[2i+1]) + 0.25 (f[2i-1] + f[2i+2]))
+
+    with ``s = RSCALE`` and zero ghosts; ``lo``/``hi`` (the neighbouring
+    slabs' boundary planes, ``f[-1]`` and ``f[2m]``) override the ghosts in
+    the sharded z pass. The counterpart of ``mg._r1d`` of the JAX package."""
+    sh = tuple(f.shape)
+    m = sh[ax] // 2
+    g = f.reshape(sh[:ax] + (m, 2) + sh[ax + 1:])
+    ev = g.select(ax + 1, 0)                  # f[2i]
+    od = g.select(ax + 1, 1)                  # f[2i+1]
+    if lo is None:
+        lo = torch.zeros_like(od.select(ax, 0))
+    if hi is None:
+        hi = torch.zeros_like(lo)
+    odm = torch.cat([lo.unsqueeze(ax), od.narrow(ax, 0, m - 1)], dim=ax)
+    evp = torch.cat([ev.narrow(ax, 1, m - 1), hi.unsqueeze(ax)], dim=ax)
+    return RSCALE * (0.75 * (ev + od) + 0.25 * (odm + evp))
+
+
+def stencil3d_residual_restrict_plain(u, f):
+    """``restrict(f - A u)`` with zero ghosts: the residual, then the
+    four-tap restriction along z, y and x in that order."""
+    r = stencil3d_residual_plain(u, f, None, None)
+    return restrict1d(restrict1d(restrict1d(r, 0), 1), 2)
+
+
 # ---- wrappers -----------------------------------------------------------------
 
 def stencil3d_apply(u, halo_lo, halo_hi, out=None):
     """``A u`` for the slab ``u (lz, ny, nx)`` with halo planes ``(ny, nx)``.
     Writes into ``out`` when given; returns the result."""
-    lz, ny, nx = _check(u, halo_lo, halo_hi, out)
+    lz, ny, nx = _check(u, out, halo_lo=halo_lo, halo_hi=halo_hi)
     if u.device.type == "cpu":
         y = stencil3d_apply_plain(u, halo_lo, halo_hi)
         return y if out is None else out.copy_(y)
-    y = torch.empty_like(u) if out is None else out
-    fn = getattr(_kernels(), f"stencil7_apply_{_SUFFIX[u.dtype]}")
-    # the runtime launches on its current device: make it u's
-    with torch.cuda.device(u.device):
-        err = fn(u.data_ptr(), halo_lo.data_ptr(), halo_hi.data_ptr(),
-                 y.data_ptr(), lz, ny, nx, _stream(u))
-    _raise_on(err, "stencil7_apply launch")
+    y = _out(u, out)
+    _launch("stencil7", "stencil7_apply", u, "stencil7_apply launch",
+            u.data_ptr(), _ptr(halo_lo), _ptr(halo_hi), y.data_ptr(),
+            lz, ny, nx)
     stencil3d_apply.launches += 1
     return y
 
@@ -134,26 +254,134 @@ stencil3d_apply.launches = 0
 
 def stencil3d_dot(u, halo_lo, halo_hi, out=None):
     """``(A u, sum(u * A u))`` in one pass; the sum is a 0-d tensor of
-    ``u.dtype`` on ``u``'s device. Writes ``A u`` into ``out`` when given."""
-    lz, ny, nx = _check(u, halo_lo, halo_hi, out)
+    ``u.dtype`` on ``u``'s device. Writes ``A u`` into ``out`` when given.
+    Both halo planes are required."""
+    if halo_lo is None or halo_hi is None:
+        raise ValueError("stencil3d_dot needs both halo planes")
+    lz, ny, nx = _check(u, out, halo_lo=halo_lo, halo_hi=halo_hi)
     if u.device.type == "cpu":
         y, d = stencil3d_dot_plain(u, halo_lo, halo_hi)
         return (y if out is None else out.copy_(y)), d
-    lib = _kernels()
-    y = torch.empty_like(u) if out is None else out
+    y = _out(u, out)
     # per-block partials, summed in a fixed order by the library's second
     # kernel: no float atomics, so the sum is the same on every run
-    partial = torch.empty(lib.stencil7_dot_blocks(lz, ny, nx), dtype=u.dtype,
-                          device=u.device)
+    partial = torch.empty(_kernels().stencil7_dot_blocks(lz, ny, nx),
+                          dtype=u.dtype, device=u.device)
     total = torch.empty((), dtype=u.dtype, device=u.device)
-    fn = getattr(lib, f"stencil7_dot_{_SUFFIX[u.dtype]}")
-    with torch.cuda.device(u.device):
-        err = fn(u.data_ptr(), halo_lo.data_ptr(), halo_hi.data_ptr(),
-                 y.data_ptr(), partial.data_ptr(), total.data_ptr(), lz, ny, nx,
-                 _stream(u))
-    _raise_on(err, "stencil7_dot launch")
+    _launch("stencil7", "stencil7_dot", u, "stencil7_dot launch",
+            u.data_ptr(), halo_lo.data_ptr(), halo_hi.data_ptr(), y.data_ptr(),
+            partial.data_ptr(), total.data_ptr(), lz, ny, nx)
     stencil3d_dot.launches += 1
     return y, total
 
 
 stencil3d_dot.launches = 0
+
+
+def stencil3d_smooth(u, f, halo_lo, halo_hi, w, out=None):
+    """One damped-Jacobi sweep ``u + w (f - A u)`` in one pass; ``w`` is the
+    sweep's omega/6."""
+    lz, ny, nx = _check(u, out, f=f, halo_lo=halo_lo, halo_hi=halo_hi)
+    if u.device.type == "cpu":
+        y = stencil3d_smooth_plain(u, f, halo_lo, halo_hi, w)
+        return y if out is None else out.copy_(y)
+    y = _out(u, out)
+    _launch("stencil7", "stencil7_smooth", u, "stencil7_smooth launch",
+            u.data_ptr(), f.data_ptr(), _ptr(halo_lo), _ptr(halo_hi),
+            y.data_ptr(), lz, ny, nx, float(w))
+    stencil3d_smooth.launches += 1
+    return y
+
+
+stencil3d_smooth.launches = 0
+
+
+def stencil3d_residual(u, f, halo_lo, halo_hi, out=None):
+    """The residual ``f - A u`` in one pass."""
+    lz, ny, nx = _check(u, out, f=f, halo_lo=halo_lo, halo_hi=halo_hi)
+    if u.device.type == "cpu":
+        y = stencil3d_residual_plain(u, f, halo_lo, halo_hi)
+        return y if out is None else out.copy_(y)
+    y = _out(u, out)
+    _launch("stencil7", "stencil7_residual", u, "stencil7_residual launch",
+            u.data_ptr(), f.data_ptr(), _ptr(halo_lo), _ptr(halo_hi),
+            y.data_ptr(), lz, ny, nx)
+    stencil3d_residual.launches += 1
+    return y
+
+
+stencil3d_residual.launches = 0
+
+
+def stencil3d_smooth0_pair(f, w1, w2, out=None):
+    """Two damped-Jacobi sweeps from a zero guess, zero ghosts:
+    ``(w1 + w2) f - w1 w2 (A f)`` in one pass (``w1``/``w2`` are omega/6)."""
+    lz, ny, nx = _check(f, out)
+    if f.device.type == "cpu":
+        y = stencil3d_smooth0_pair_plain(f, w1, w2)
+        return y if out is None else out.copy_(y)
+    y = _out(f, out)
+    # the coefficients are formed in double, as the plain version's Python
+    # floats are, and rounded to the dtype in the kernel
+    _launch("stencil7", "stencil7_smooth0_pair", f,
+            "stencil7_smooth0_pair launch", f.data_ptr(), y.data_ptr(),
+            lz, ny, nx, float(w1) + float(w2), float(w1) * float(w2))
+    stencil3d_smooth0_pair.launches += 1
+    return y
+
+
+stencil3d_smooth0_pair.launches = 0
+
+
+def stencil3d_smooth_pair(u, f, w1, w2, out=None):
+    """Two damped-Jacobi sweeps ``S_w2(S_w1(u))`` from a nonzero guess in one
+    pass, zero ghosts on every side (``w1``/``w2`` are omega/6). The kernel
+    takes every ``lz``: it has no chunk limit."""
+    lz, ny, nx = _check(u, out, f=f)
+    if u.device.type == "cpu":
+        y = stencil3d_smooth_pair_plain(u, f, w1, w2)
+        return y if out is None else out.copy_(y)
+    y = _out(u, out)
+    _launch("mg3d", "mg3d_smooth_pair", u, "mg3d_smooth_pair launch",
+            u.data_ptr(), f.data_ptr(), y.data_ptr(), lz, ny, nx, float(w1),
+            float(w2))
+    stencil3d_smooth_pair.launches += 1
+    return y
+
+
+stencil3d_smooth_pair.launches = 0
+
+
+def stencil3d_residual_restrict(u, f, out=None):
+    """The coarse right-hand side ``restrict(f - A u)`` of shape
+    ``(lz/2, ny/2, nx/2)`` in one pass, zero ghosts: neither the fine
+    residual nor any intermediate is written. Raises ``ValueError`` on odd
+    dims."""
+    if u.dim() == 3 and any(d % 2 for d in u.shape):
+        raise ValueError(f"fused 3-axis restriction needs even dims, got "
+                         f"{tuple(u.shape)}")
+    coarse = tuple(d // 2 for d in u.shape)
+    lz, ny, nx = _check(u, out, coarse, f=f)
+    if u.device.type == "cpu":
+        y = stencil3d_residual_restrict_plain(u, f)
+        return y if out is None else out.copy_(y)
+    y = _out(u, out, coarse)
+    _launch("mg3d", "mg3d_residual_restrict", u,
+            "mg3d_residual_restrict launch", u.data_ptr(), f.data_ptr(),
+            y.data_ptr(), lz, ny, nx, RSCALE)
+    stencil3d_residual_restrict.launches += 1
+    return y
+
+
+stencil3d_residual_restrict.launches = 0
+
+# every kernel wrapper, for code that reads or resets all launch counters
+KERNELS = {
+    "stencil7_apply": stencil3d_apply,
+    "stencil7_dot": stencil3d_dot,
+    "stencil7_smooth": stencil3d_smooth,
+    "stencil7_residual": stencil3d_residual,
+    "stencil7_smooth0_pair": stencil3d_smooth0_pair,
+    "mg3d_smooth_pair": stencil3d_smooth_pair,
+    "mg3d_residual_restrict": stencil3d_residual_restrict,
+}

@@ -11,6 +11,8 @@ a distributed vector is one padded tensor whose leading axis, viewed as
   reduction gives the same bits on every run;
 * :meth:`DeviceComm.shift` is the ring ``ppermute``: shard ``i`` receives the
   block of shard ``i - step``;
+* :meth:`DeviceComm.all_gather` is the tiled ``lax.all_gather``: the shard
+  blocks concatenated in shard order;
 * :meth:`DeviceComm.shard_map` runs a per-shard body on every shard in turn.
 
 Several devices through ``torch.distributed`` are later work.
@@ -102,6 +104,16 @@ class DeviceComm:
         """Ring shift of a shard-stacked tensor: shard ``i`` receives the block
         of shard ``i - step`` (``lax.ppermute`` with pairs ``(i, i+step)``)."""
         return torch.roll(x, shifts=step, dims=0)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole array from a shard-stacked one: ``(size, lz, ...)``
+        becomes ``(size * lz, ...)`` in shard order (``lax.all_gather`` with
+        ``tiled=True``). Every shard would receive the same array, so it is
+        made once; a view when ``x`` is contiguous."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_gather needs a leading shard axis of "
+                             f"{self.size}, got shape {tuple(x.shape)}")
+        return x.reshape((-1,) + tuple(x.shape[2:]))
 
     def shard_map(self, fn):
         """Wrap a per-shard body: ``run(*stacked)`` calls ``fn`` on the

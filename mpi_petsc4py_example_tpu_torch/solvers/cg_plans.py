@@ -6,9 +6,12 @@ with ``_dmax``/``_tol``/``_reason`` (``:108-139``). Two plan routes:
 
 * the general route: an operator apply ``A`` and a preconditioner apply ``M``
   (``z = M r`` materialized, ``rz = <r, z>``);
-* the stencil route: the fused ``Adot(p) -> (A p, <p, A p>)`` and the uniform
-  inverse diagonal ``inv_diag`` (the Jacobi apply collapses to ``z = r *
-  inv_diag`` and ``rz = inv_diag * ||r||^2``; no ``z`` vector exists).
+* the stencil route: the fused ``Adot(p) -> (A p, <p, A p>)`` with one of two
+  PC plans: the uniform inverse diagonal ``inv_diag`` (the Jacobi apply
+  collapses to ``z = r * inv_diag`` and ``rz = inv_diag * ||r||^2``; no ``z``
+  vector exists), or ``M3``, a grid-shaped preconditioner apply (the V-cycle
+  of PC ``mg``): ``z = M3(r)``, ``rz = <r, z>`` (the JAX ``M3`` route,
+  ``:374-380, :471-476``).
 
 The JAX body runs as one ``lax.while_loop`` on the device. Here the loop is
 eager PyTorch driven by the host: the scalars stay on the device, and the host
@@ -59,14 +62,16 @@ def _safe_div(num, den):
 
 
 def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
-                    Adot=None, inv_diag=None, pdot=None, pnorm=None):
+                    Adot=None, inv_diag=None, M3=None, pdot=None, pnorm=None):
     """Run the classic (two-phase) CG recurrence on shard-stacked tensors.
 
     The operator plan is ``A`` (with ``M``) or the fused ``Adot`` (with the
-    scalar ``inv_diag``); ``pdot``/``pnorm`` are the psum-reduced inner
-    product and norm. Returns ``(x, iterations, rnorm, reason, host_syncs)``
-    with ``rnorm`` a float; ``x`` is ``x0``, updated in place (the JAX
-    program donates ``x0`` the same way).
+    scalar ``inv_diag``, or with ``M3`` when it is given); ``pdot``/``pnorm``
+    are the psum-reduced inner product and norm. ``M3`` adds device work but
+    no host read: the loop still reads the host once per iteration. Returns
+    ``(x, iterations, rnorm, reason, host_syncs)`` with ``rnorm`` a float;
+    ``x`` is ``x0``, updated in place (the JAX program donates ``x0`` the
+    same way).
     """
     stencil = Adot is not None
     x = x0
@@ -76,8 +81,12 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         r = b - Adot(x)[0]
         rr0 = pdot(r, r)
         rnorm = torch.sqrt(rr0)
-        rz = rr0 * inv_diag
-        p = r * inv_diag
+        if M3 is None:
+            rz = rr0 * inv_diag
+            p = r * inv_diag
+        else:
+            p = M3(r)                # a new tensor, owned by the loop
+            rz = pdot(r, p)
         tol = torch.clamp_min(rtol * bnorm, atol)
     else:
         r = b - A(x)
@@ -106,7 +115,14 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         x.addcmul_(alpha, p)
         r.addcmul_(alpha, Ap, value=-1)
         # ---- PC apply + reduction phase 2 ----
-        if stencil:
+        if stencil and M3 is not None:
+            rr = pdot(r, r)
+            z = M3(r)
+            rz_new = pdot(r, z)
+            rn_new = torch.sqrt(rr)
+            beta = _safe_div(rz_new, rz)
+            p.mul_(beta).add_(z)                      # p = z + beta p
+        elif stencil:
             rr = pdot(r, r)
             rz_new = rr * inv_diag
             rn_new = torch.sqrt(rr)

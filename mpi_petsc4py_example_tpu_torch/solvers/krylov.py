@@ -23,28 +23,30 @@ def cg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None):
 
 
 def cg_stencil_kernel(Adot, inv_diag, pdot, pnorm, b, x0, rtol, atol, maxit,
-                      dtol=None, grid3d=None):
-    """CG fast path for uniform-diagonal stencil operators with PC none or
-    jacobi: the same recurrence as :func:`cg_kernel`, with the SpMV and
+                      dtol=None, grid3d=None, M3=None):
+    """CG fast path for uniform-diagonal stencil operators with PC none,
+    jacobi or mg: the same recurrence as :func:`cg_kernel`, with the SpMV and
     ``<p, Ap>`` in one fused kernel pass (``Adot``) and the Jacobi apply a
-    scalar multiply. The carries are grid-shaped: ``b``/``x0`` are shard-
-    stacked ``(size, lsize)`` and are viewed as ``(size,) + grid3d``."""
+    scalar multiply, or, with ``M3`` (the grid-shaped V-cycle of PC mg),
+    ``z = M3(r)`` and ``rz = <r, z>``. The carries are grid-shaped:
+    ``b``/``x0`` are shard-stacked ``(size, lsize)`` and are viewed as
+    ``(size,) + grid3d``."""
     flat = b.shape
     if grid3d is not None:
         b = b.reshape((flat[0],) + tuple(grid3d))
         x0 = x0.reshape(b.shape)
     x, *rest = _plans.classic_cg_loop(
         b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol,
-        Adot=Adot, inv_diag=inv_diag, pdot=pdot, pnorm=pnorm)
+        Adot=Adot, inv_diag=inv_diag, M3=M3, pdot=pdot, pnorm=pnorm)
     return (x.reshape(flat), *rest)
 
 
 def stencil_cg_eligible(ksp_type, pc, operator) -> bool:
     """The CG fast-path gate of the JAX ``build_ksp_program``: CG, PC
-    none/jacobi, an operator with the fused matvec-dot and a uniform
-    diagonal, and a Jacobi PC built from that same operator."""
+    none/jacobi/mg, an operator with the fused matvec-dot and a uniform
+    diagonal, and a Jacobi or mg PC built from that same operator."""
     return (ksp_type == "cg"
-            and pc.get_type() in ("none", "jacobi")
+            and pc.get_type() in ("none", "jacobi", "mg")
             and hasattr(operator, "local_matvec_dot")
             and hasattr(operator, "grid3d")
             and getattr(operator, "uniform_diagonal", None) is not None
@@ -71,12 +73,14 @@ def build_ksp_program(comm, ksp_type, pc, operator):
         matvec_dot = operator.local_matvec_dot(comm)
         inv_diag = (1.0 if pc.get_type() == "none"
                     else 1.0 / operator.uniform_diagonal)
+        # PC mg composes the V-cycle grid-shaped (None for none/jacobi)
+        pc_apply3 = pc.local_apply_grid3d(comm)
 
         def prog(b, x0, rtol, atol, dtol, maxit):
             return cg_stencil_kernel(
                 matvec_dot, inv_diag, pdot, pnorm, b.view(size, -1),
                 x0.view(size, -1), rtol, atol, maxit, dtol=dtol,
-                grid3d=operator.grid3d)
+                grid3d=operator.grid3d, M3=pc_apply3)
     else:
         spmv = operator.local_spmv(comm)
         n = operator.shape[0]

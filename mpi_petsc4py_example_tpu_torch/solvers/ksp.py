@@ -1,7 +1,7 @@
 """KSP: the Krylov solver object.
 
 The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/ksp.py``
-(``KSP``, ``:47``), reduced to what the CG slice runs: ``create``,
+(``KSP``, ``:47``), reduced to what the CG slices run: ``create``,
 ``set_type``, ``get_pc``, ``set_operators``, ``set_tolerances``,
 ``set_norm_type``, ``set_from_options`` and ``solve`` -> :class:`SolveResult`
 (petsc4py's ``KSP().create(comm)``, ``setType``, ``getPC``, ``setOperators``,
@@ -117,7 +117,8 @@ class KSP:
 
     def set_from_options(self):
         """Apply the options database: ``-ksp_type``, ``-ksp_rtol``,
-        ``-ksp_atol``, ``-ksp_max_it``, ``-ksp_norm_type``, ``-pc_type``."""
+        ``-ksp_atol``, ``-ksp_max_it``, ``-ksp_norm_type``, ``-pc_type``,
+        ``-pc_mg_smooth_type``."""
         opt = global_options()
         t = opt.get_string("ksp_type")
         if t:
@@ -131,6 +132,9 @@ class KSP:
         pct = opt.get_string("pc_type")
         if pct:
             self.get_pc().set_type(pct)
+        mst = opt.get_string("pc_mg_smooth_type")
+        if mst:                       # 'chebyshev' | 'jacobi' (solvers/mg)
+            self.get_pc().mg_smoother = mst
         return self
 
     setFromOptions = set_from_options

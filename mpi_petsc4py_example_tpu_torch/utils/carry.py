@@ -6,7 +6,9 @@ hands them over as plain values, never as JAX objects:
 
 * the geometry is the tuple ``StencilPoisson3D.program_key()`` returns,
   ``("stencil3d", nx, ny, nz, ndev)``;
-* the vectors are numpy arrays from ``Vec.to_numpy()``.
+* the vectors are numpy arrays from ``Vec.to_numpy()``;
+* the preconditioner's configuration is the tuple ``PC.program_key()``
+  returns, ``(type,)`` or ``("mg", smoother)``.
 
 The grid is parametric, so the port's communicator may have another shard
 count than the JAX mesh had (``ndev``), as long as it divides ``nz``.
@@ -44,3 +46,19 @@ def from_numpy_state(comm: DeviceComm, geometry, b, x0=None,
             raise ValueError(f"x0 must have shape ({n},), got {x0.shape}")
         xv = Vec.from_global(comm, x0, dtype=dtype, layout=op.layout)
     return op, bv, xv
+
+
+def configure_pc(pc, key):
+    """Set the port's ``pc`` to the configuration the JAX side's
+    ``PC.program_key()`` describes: ``(type,)``, or ``("mg", smoother)``
+    for the V-cycle with its smoother. Returns ``pc``."""
+    kind = str(key[0])
+    pc.set_type(kind)
+    if kind == "mg":
+        if len(key) != 2:
+            raise ValueError(f"an mg configuration is ('mg', smoother), "
+                             f"got {key!r}")
+        pc.mg_smoother = str(key[1])
+    elif len(key) != 1:
+        raise ValueError(f"cannot carry PC configuration {key!r}")
+    return pc

@@ -230,7 +230,7 @@ def test_unported_choices_raise(call):
         if call == "ksp_type":
             ksp.set_type("gmres")
         elif call == "pc_type":
-            ksp.get_pc().set_type("mg")
+            ksp.get_pc().set_type("ilu")
         else:
             ksp.set_norm_type("natural")
 
