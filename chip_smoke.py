@@ -19,7 +19,14 @@ before each and read just after:
   the same problems, with the launches of each V-cycle kernel checked against
   the cycle count, the plain-version path, the Jacobi smoother, a profiler
   breakdown, and the slab cycle on a 4-shard virtual mesh held against one
-  shard (fp64, 64^3).
+  shard (fp64, 64^3);
+* the batched multi-RHS solve ``KSP.solve_many`` (``bench.py``'s third part):
+  128^3 f32, k = 8 right-hand sides, CG + Jacobi on the fast path
+  (``stencil7_dot_many``) and on the general route (a distinct PC operator,
+  ``stencil7_apply_many``), each column checked against scipy's fp64 CG and
+  its own sequential solve; a mixed easy/hard batch (fp64); then 512^3 k = 8: the
+  delta-method per-iteration time, peak memory, and a converged solve with
+  every column's fp64 true residual on the card.
 
 Every check raises on failure, so the exit code is 0 only when all phases
 passed. The last line of standard output is
@@ -56,8 +63,12 @@ KERNELS = {
     "stencil7_smooth0_pair": (_CSRC + "stencil7.cu", _PALLAS + "1124"),
     "mg3d_smooth_pair": (_CSRC + "mg3d.cu", _PALLAS + "1251"),
     "mg3d_residual_restrict": (_CSRC + "mg3d.cu", _PALLAS + "1090"),
+    "stencil7_apply_many": (_CSRC + "stencil7.cu", _PALLAS + "591"),
+    "stencil7_dot_many": (_CSRC + "stencil7.cu", _PALLAS + "620"),
 }
-MG_KERNELS = list(KERNELS)[2:]
+MG_KERNELS = list(KERNELS)[2:7]
+MANY_KERNELS = list(KERNELS)[7:]
+K_BATCH = 8     # bench.py:322, the batched episode's k
 # check limits on max|kernel - plain|, relative to max|plain| (f32, f64)
 Y_TOL = {"float32": 1e-6, "float64": 1e-13}
 
@@ -100,12 +111,13 @@ def device_ms(fn, inner, reps=25):
     return statistics.median(times)
 
 
-def bound_ms(lz, ny, nx, itemsize, dot):
-    """Least time on the card: each input read once, each output written
-    once, over the HBM rate; operations over the fp32 rate; the larger."""
+def bound_ms(lz, ny, nx, itemsize, dot, k=1):
+    """Least time on the card for ``k`` slabs: each input read once, each
+    output written once, over the HBM rate; operations over the fp32 rate;
+    the larger."""
     n = lz * ny * nx
-    nbytes = (2 * n + 2 * ny * nx) * itemsize + (itemsize if dot else 0)
-    flops = (9 if dot else 7) * n       # 1 mul + 6 sub (+ mul, add)
+    nbytes = k * ((2 * n + 2 * ny * nx) * itemsize + (itemsize if dot else 0))
+    flops = k * (9 if dot else 7) * n   # 1 mul + 6 sub (+ mul, add)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -396,17 +408,24 @@ def phase_mg_kernel_times(n):
     return out
 
 
-def profile_solve(ksp, bv, x, label, ops=()):
-    """Device time by kernel over one solve under ``torch.profiler``, and the
-    device's idle share of the window's wall time; for each PyTorch op named
-    in ``ops`` also the device time of all the kernels it launched."""
+def zero_solve(ksp, bv, x):
+    """``ksp.solve`` from a zeroed ``x``; returns the iteration count."""
+    x.zero()
+    return ksp.solve(bv, x).iterations
+
+
+def profile_solve(run, label, ops=()):
+    """Device time by kernel over one solve, ``run()`` (which returns its
+    iteration count), under ``torch.profiler``, and the device's idle share
+    of the window's wall time; for each PyTorch op named in ``ops`` also the
+    device time of all the kernels it launched. Returns the idle share, or
+    None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    x.zero()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = ksp.solve(bv, x)
+        iterations = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side rows only (kernels, copies): the CPU op rows repeat them
@@ -418,9 +437,9 @@ def profile_solve(ksp, bv, x, label, ops=()):
     if busy_us == 0:
         log(f"profile {label}: the profiler recorded no device time "
             "(device breakdown not measured)")
-        return
-    its = max(res.iterations, 1)
-    log(f"profile {label}: {res.iterations} iterations, wall "
+        return None
+    its = max(iterations, 1)
+    log(f"profile {label}: {iterations} iterations, wall "
         f"{wall_us / its:.1f} us/iter, device busy {busy_us / its:.1f} us/iter, "
         f"device idle share {1 - busy_us / wall_us:.3f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
@@ -429,6 +448,7 @@ def profile_solve(ksp, bv, x, label, ops=()):
         us = sum(e.device_time_total for e in prof.key_averages() if e.key == op)
         log(f"  {op}: {us / its:.2f} us/iter of device time, "
             f"{us / busy_us * 100:.1f}% of the busy time")
+    return 1 - busy_us / wall_us
 
 
 def make_problem(comm, nx, dtype):
@@ -483,7 +503,7 @@ def phase_main_path():
     warm = ksp.solve(bv, x)
     log(f"main path warm solve: wall {warm.wall_time * 1e3:.1f} ms, "
         f"{warm.iterations} iterations")
-    profile_solve(ksp, bv, x, f"{nx}^3 converged solve")
+    profile_solve(lambda: zero_solve(ksp, bv, x), f"{nx}^3 converged solve")
     # the same solve through the plain PyTorch versions, on the card
     op.force_plain = True
     xp, _ = op.get_vecs()
@@ -508,7 +528,8 @@ def phase_main_path():
         f"port rel residual {r_port / bnorm:.3e}, scipy {r_cpu / bnorm:.3e}, "
         f"parity {parity}")
     check(parity, "residual parity rule of bench.py:334 failed")
-    oracle = {"nx": nx, "b": b, "A": A, "r_cpu": r_cpu, "bnorm": bnorm}
+    oracle = {"nx": nx, "b": b, "A": A, "r_cpu": r_cpu, "bnorm": bnorm,
+              "k1_ms_per_iter": warm.wall_time / warm.iterations * 1e3}
     return launches, oracle
 
 
@@ -548,7 +569,8 @@ def expected_mg_launches(nx, iterations, smoother="chebyshev"):
             "stencil7_residual": 0,
             "stencil7_smooth0_pair": above * cycles if cheb else 0,
             "mg3d_smooth_pair": above * cycles if cheb else 0,
-            "mg3d_residual_restrict": above * cycles}
+            "mg3d_residual_restrict": above * cycles,
+            "stencil7_apply_many": 0, "stencil7_dot_many": 0}
 
 
 def phase_mg_main_path(oracle):
@@ -592,8 +614,8 @@ def phase_mg_main_path(oracle):
     log(f"mg main path warm solve: median wall {warm * 1e3:.2f} ms "
         f"(samples {[round(w * 1e3, 2) for w in walls]}), "
         f"{warm / res.iterations * 1e3:.4f} ms/iter")
-    profile_solve(ksp, bv, x, f"{nx}^3 CG+mg converged solve",
-                  ops=("aten::einsum",))
+    profile_solve(lambda: zero_solve(ksp, bv, x),
+                  f"{nx}^3 CG+mg converged solve", ops=("aten::einsum",))
     # the same solve through the plain PyTorch versions, on the card
     op.force_plain = True
     xp, _ = op.get_vecs()
@@ -698,8 +720,8 @@ def phase_mg_realistic():
     log(f"512^3 CG+mg warm: median {statistics.median(walls) * 1e3:.4f} ms/iter "
         f"(samples {[round(w * 1e3, 4) for w in walls]}), "
         f"{statistics.median(walls) * r.iterations * 1e3:.1f} ms per solve")
-    profile_solve(ksp, bv, x, f"{nx}^3 CG+mg converged solve",
-                  ops=("aten::einsum",))
+    profile_solve(lambda: zero_solve(ksp, bv, x),
+                  f"{nx}^3 CG+mg converged solve", ops=("aten::einsum",))
     del x, bv
     torch.cuda.empty_cache()
     return launches
@@ -809,7 +831,395 @@ def phase_realistic():
         f"{[round(p * 1e3, 4) for p in per_iter]}), 11-pass model "
         f"{model_bytes / per / 1e9:.1f} GB/s achieved, bound "
         f"{bound * 1e3:.4f} ms/iter ({bound / per * 100:.1f}% of it)")
-    profile_solve(solvers[lo_it], bv, x, f"{nx}^3 {lo_it} fixed iterations")
+    profile_solve(lambda: zero_solve(solvers[lo_it], bv, x),
+                  f"{nx}^3 {lo_it} fixed iterations")
+    return launches
+
+
+# ---- the batched multi-RHS slice (KSP.solve_many) -----------------------------
+
+def phase_many_kernel_checks():
+    """The two batched kernels vs their plain versions on the card: f32 and
+    f64, k in {1, 3, 8}, shapes (128,128,128), (17,9,33), (4,4,4), random
+    and null (zero) halos. ``A U`` must be bit-exact with the plain version,
+    the per-column dots within the single-RHS dot's limit, and every column
+    bit-equal (``A u`` and dot) to one ``stencil7_apply``/``stencil7_dot``
+    launch on it. Returns the largest f32 errors per kernel."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    worst = {"stencil7_apply_many": 0.0, "stencil7_dot_many": 0.0,
+             "dot_many_rel": 0.0}
+    dot_tol = {torch.float32: 1e-4, torch.float64: 1e-12}
+    seed = 500
+    for dtype in (torch.float32, torch.float64):
+        for k in (1, 3, K_BATCH):
+            for shape in ((128, 128, 128), (17, 9, 33), (4, 4, 4)):
+                for halos in (True, False):
+                    seed += 1
+                    g = torch.Generator(device="cuda").manual_seed(seed)
+                    mk = lambda *sh: torch.rand(sh, generator=g, device="cuda",
+                                                dtype=dtype)
+                    U = mk(k, *shape)
+                    lo, hi = ((mk(k, *shape[1:]), mk(k, *shape[1:])) if halos
+                              else (None, None))
+                    Y = st.stencil3d_apply_many(U, lo, hi)
+                    Yd, d = st.stencil3d_dot_many(U, lo, hi)
+                    Yp, dp = st.stencil3d_dot_many_plain(U, lo, hi)
+                    e_apply = float((Y - Yp).abs().max())
+                    e_doty = float((Yd - Yp).abs().max())
+                    e_dot = float(((d - dp).abs() / dp.abs()).max())
+                    zero = U.new_zeros(shape[1:])
+                    same = True
+                    for j in range(k):
+                        lj, hj = (lo[j], hi[j]) if halos else (None, None)
+                        y1 = st.stencil3d_apply(U[j], lj, hj)
+                        y2, d2 = st.stencil3d_dot(U[j], lj if halos else zero,
+                                                  hj if halos else zero)
+                        same = (same and torch.equal(y1, Y[j])
+                                and torch.equal(y2, Yd[j])
+                                and torch.equal(d2, d[j]))
+                    torch.cuda.synchronize()
+                    label = (f"{str(dtype)[6:]} k={k} {shape} "
+                             f"{'random' if halos else 'null'} halos")
+                    log(f"check many {label}: apply max|err| {e_apply:.3e}, "
+                        f"dot y max|err| {e_doty:.3e}, dot max rel err "
+                        f"{e_dot:.3e}, columns equal single launches {same}")
+                    check(e_apply == 0.0 and e_doty == 0.0,
+                          f"many kernels not bit-exact, {label}")
+                    check(e_dot <= dot_tol[dtype], f"dot_many {label}: {e_dot}")
+                    check(same, f"a column differs from its single-RHS launch, "
+                                f"{label}")
+                    if dtype == torch.float32:
+                        worst["stencil7_apply_many"] = max(
+                            worst["stencil7_apply_many"], e_apply)
+                        worst["stencil7_dot_many"] = max(
+                            worst["stencil7_dot_many"], e_doty)
+                        worst["dot_many_rel"] = max(worst["dot_many_rel"], e_dot)
+                    del U, lo, hi, Y, Yd, d, Yp, dp
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_many_kernel_times(n, k=K_BATCH):
+    """kernel/plain/library/bound times of the batched kernels at k slabs
+    of n^3 f32; the library yardstick of the apply is cuDNN's conv3d with
+    batch k (none for the dot)."""
+    import torch
+    import torch.nn.functional as F
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(13)
+    U = torch.rand((k, n, n, n), generator=g, device="cuda")
+    lo = torch.rand((k, n, n), generator=g, device="cuda")
+    hi = torch.rand((k, n, n), generator=g, device="cuda")
+    Y = torch.empty_like(U)
+    big = n >= 512
+    inner, slow = (10, 2) if big else (50, 10)
+    reps = 10 if big else 25
+    ext = torch.cat([lo[:, None], U, hi[:, None]], dim=1)[:, None]
+    w = torch.zeros((1, 1, 3, 3, 3), device="cuda")
+    w[0, 0, 1, 1, 1] = 6.0
+    for dz, dy, dx in [(0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)]:
+        w[0, 0, dz, dy, dx] = -1.0
+    conv = lambda: F.conv3d(ext, w, padding=(0, 1, 1))
+    ref = st.stencil3d_apply_many_plain(U, lo, hi)
+    scale = float(ref.abs().max())
+    e_conv = float((conv()[:, 0] - ref).abs().max())
+    e_apply = float((st.stencil3d_apply_many(U, lo, hi, out=Y) - ref).abs().max())
+    Yd, d = st.stencil3d_dot_many(U, lo, hi)
+    e_dot = float((Yd - ref).abs().max())
+    dref = (U * ref).sum(dim=(1, 2, 3))
+    e_sum = float(((d - dref).abs() / dref.abs()).max())
+    del Yd, dref, ref
+    check(e_apply == 0.0 and e_dot == 0.0,
+          f"many kernels at {k} x {n}^3 not bit-exact: {e_apply}, {e_dot}")
+    check(e_sum <= 1e-4, f"dot_many sums at {k} x {n}^3: rel {e_sum}")
+    check(e_conv <= 1e-5 * scale, f"conv3d yardstick {k} x {n}^3: {e_conv}")
+    lib_ms = device_ms(conv, slow, reps=5 if big else reps)
+    del ext
+    torch.cuda.empty_cache()
+    out = {}
+    for name, kern, plain, dot in [
+            ("stencil7_apply_many",
+             lambda: st.stencil3d_apply_many(U, lo, hi, out=Y),
+             lambda: st.stencil3d_apply_many_plain(U, lo, hi), False),
+            ("stencil7_dot_many",
+             lambda: st.stencil3d_dot_many(U, lo, hi, out=Y),
+             lambda: st.stencil3d_dot_many_plain(U, lo, hi), True)]:
+        b_ms, b_by = bound_ms(n, n, n, 4, dot, k)
+        out[name] = {"ms": device_ms(kern, inner, reps),
+                     "plain_ms": device_ms(plain, slow, reps=5 if big else reps),
+                     "library_ms": None if dot else lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": e_dot if dot else e_apply}
+        r = out[name]
+        log(f"time {name} k={k} {n}^3 f32: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_ms / r['ms'] * 100:.1f}% of it), "
+            f"{'conv3d ' + format(lib_ms, '.4f') + ' ms' if not dot else 'no one-call library equivalent'}"
+            f", achieved {k * (2 * n**3 + 2 * n * n) * 4 / r['ms'] / 1e6:.1f} GB/s")
+        torch.cuda.empty_cache()
+    log(f"time conv3d batch {k} {n}^3: max|conv3d - plain| {e_conv:.3e}, "
+        f"dot_many sum max rel err {e_sum:.3e}")
+    del U, lo, hi, Y, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_block(comm, op, b, k=K_BATCH):
+    """bench.py:187-193 on the card: ``B = [b] + (k - 1)`` columns
+    ``A rand`` from ``default_rng(11)``; returns the host block ``(n, k)``
+    and its columns as Vecs on the card."""
+    import mpi_petsc4py_example_tpu_torch as pt
+    rng = np.random.default_rng(11)
+    cols = [b] + [op.mult(pt.Vec.from_global(
+        comm, rng.random(op.shape[0]).astype(np.float32))).to_numpy()
+        for _ in range(k - 1)]
+    B = np.stack(cols, axis=1)
+    return B, [pt.Vec.from_global(comm, c, layout=op.layout) for c in cols]
+
+
+def scipy_cg(A, b, rtol):
+    import scipy.sparse.linalg as spla
+    M = spla.LinearOperator(A.shape, matvec=lambda v: v / 6.0)
+    x, info = spla.cg(A, b, rtol=rtol, atol=0.0, maxiter=20000, M=M)
+    return x, info
+
+
+def phase_many_main_path(oracle):
+    """128^3 f32, k = 8, rtol 1e-6, CG + Jacobi through ``KSP.solve_many``
+    as bench.py's batched episode sets it up, launch counters zeroed just
+    before the solve and read just after: every column converged, held to
+    bench.py:334's parity rule against scipy's fp64 CG, within 2% of its
+    own sequential solve's iterations; ``stencil7_dot_many`` launched
+    max(iterations) + 1 times, no single-RHS kernel; host syncs 1 +
+    max(iterations); warm walls; a profiled solve."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    nx, rtol, k = oracle["nx"], 1e-6, K_BATCH
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    B, Bv = bench_block(comm, op, oracle["b"], k)
+    ksp = cg_jacobi(comm, op, rtol)
+    Xv = [op.get_vecs()[0] for _ in range(k)]
+    torch.cuda.synchronize()
+    reset_launches()
+    res = ksp.solve_many(Bv, Xv)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    its = res.iterations
+    log(f"many main path {nx}^3 f32 k={k} CG+jacobi: iterations {its}, "
+        f"{res.reason_names}, wall {res.wall_time * 1e3:.1f} ms (first "
+        f"solve), host syncs {res.host_syncs}, launches {launches}")
+    check(res.converged, f"many main path did not converge: {res}")
+    check(launches["stencil7_dot_many"] == max(its) + 1,
+          f"dot_many launches {launches['stencil7_dot_many']} != "
+          f"max(iterations) + 1")
+    check(all(v == 0 for name, v in launches.items()
+              if name != "stencil7_dot_many"),
+          f"the batched fast path launched other kernels: {launches}")
+    check(res.host_syncs == 1 + max(its),
+          f"host syncs {res.host_syncs} != 1 + max(iterations)")
+    X = np.stack([x.to_numpy() for x in Xv], axis=1)
+    walls = [ksp.solve_many(Bv, Xv).wall_time for _ in range(3)]
+    warm = statistics.median(walls)
+    per_iter = warm / max(its) * 1e3
+    k1 = oracle["k1_ms_per_iter"]
+    log(f"many main path warm: median wall {warm * 1e3:.2f} ms (samples "
+        f"{[round(w * 1e3, 2) for w in walls]}), {per_iter:.4f} ms per "
+        f"lockstep iteration, {per_iter / k:.4f} ms per RHS-iteration; k=1 "
+        f"in this run {k1:.4f} ms/iter ({k1 / (per_iter / k):.2f}x per "
+        f"RHS-iteration)")
+    host = ksp.solve_many(B)
+    log(f"many main path with host arrays in and out: wall "
+        f"{host.wall_time * 1e3:.2f} ms (placement excluded, fetch included), "
+        f"iterations {host.iterations}")
+    check(host.iterations == its, "host-array solve iterations differ")
+    idle = profile_solve(lambda: max(ksp.solve_many(Bv, Xv).iterations),
+                         f"{nx}^3 k={k} solve_many")
+    # every column against scipy's fp64 CG, and against its own sequential
+    # port solve
+    A = oracle["A"]
+    t0 = time.perf_counter()
+    seq_its, x_diff, parity = [], 0.0, True
+    for j in range(k):
+        bb = B[:, j].astype(np.float64)
+        r_cpu = oracle["r_cpu"] if j == 0 else np.linalg.norm(
+            bb - A @ scipy_cg(A, bb, rtol)[0])
+        r_port = np.linalg.norm(bb - A @ X[:, j].astype(np.float64))
+        ok = bool(r_port <= 10 * max(r_cpu, rtol * np.linalg.norm(bb)))
+        parity = parity and ok
+        x, _ = op.get_vecs()
+        sres = ksp.solve(Bv[j], x)
+        seq_its.append(sres.iterations)
+        x_diff = max(x_diff, float(np.abs(x.to_numpy() - X[:, j]).max()
+                                   / np.abs(X[:, j]).max()))
+        log(f"  column {j}: rel residual {r_port / np.linalg.norm(bb):.3e} "
+            f"(scipy {r_cpu / np.linalg.norm(bb):.3e}), parity {ok}; "
+            f"sequential {sres.iterations} vs batched {its[j]} iterations")
+    log(f"many main path: parity {parity} on all columns "
+        f"({time.perf_counter() - t0:.1f} s with the oracles); sequential "
+        f"iterations {seq_its}, batched {its}, equal {seq_its == its}; max "
+        f"|x_batched - x_seq| / max|x| {x_diff:.3e}")
+    check(parity, "many main path: residual parity rule of bench.py:334 failed")
+    check(all(abs(a - b) <= 0.02 * b for a, b in zip(its, seq_its)),
+          f"batched iterations {its} not within 2% of sequential {seq_its}")
+    ctx = {"comm": comm, "op": op, "B": B, "Bv": Bv, "iterations": its,
+           "X": X, "per_iter_ms": per_iter, "idle": idle}
+    return launches, ctx
+
+
+def phase_many_general_route(ctx):
+    """The same batch with Amat != Pmat (``set_operators(op, op_p)``, PC
+    jacobi built on a second operator): the general batched route, whose
+    operator apply is ``stencil7_apply_many``, launched max(iterations) + 1
+    times; per-column iterations within 2% of the fast path's."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm, op, Bv = ctx["comm"], ctx["op"], ctx["Bv"]
+    op_p = pt.StencilPoisson3D(comm, op.nx, dtype=op.dtype)
+    ksp = pt.KSP().create(comm)
+    ksp.set_operators(op, op_p)
+    ksp.set_type("cg")
+    ksp.get_pc().set_type("jacobi")
+    ksp.set_tolerances(rtol=1e-6, atol=0.0, max_it=20000)
+    Xv = [op.get_vecs()[0] for _ in Bv]
+    torch.cuda.synchronize()
+    reset_launches()
+    res = ksp.solve_many(Bv, Xv)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    its, fast = res.iterations, ctx["iterations"]
+    X = np.stack([x.to_numpy() for x in Xv], axis=1)
+    x_diff = float(np.abs(X - ctx["X"]).max() / np.abs(ctx["X"]).max())
+    log(f"many general route (Amat != Pmat): iterations {its} (fast path "
+        f"{fast}), {res.reason_names}, wall {res.wall_time * 1e3:.1f} ms, "
+        f"launches {launches}, max|x - x_fast| / max|x| {x_diff:.3e}")
+    check(res.converged, f"general route did not converge: {res}")
+    check(launches["stencil7_apply_many"] == max(its) + 1,
+          f"apply_many launches {launches['stencil7_apply_many']} != "
+          f"max(iterations) + 1")
+    check(all(v == 0 for name, v in launches.items()
+              if name != "stencil7_apply_many"),
+          f"the general route launched other kernels: {launches}")
+    check(all(abs(a - b) <= 0.02 * b for a, b in zip(its, fast)),
+          f"general route iterations {its} not within 2% of {fast}")
+    return launches
+
+
+def phase_many_mixed(ctx):
+    """A mixed batch on the card, fp64: column 0 the exact eigenvector
+    sin x sin x sin (a one-dimensional Krylov space), column 1 bench's b.
+    The easy column freezes within 3 iterations while the other runs on
+    (the masked-select path), and each equals its solo solve. fp64 because
+    in fp32 the eigenvector's rounding, amplified by lambda_max/lambda_min
+    (about 6600 at 128^3), leaves a 4e-4 relative residual after the first
+    step: the column is not easy there."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm, nx = ctx["comm"], ctx["op"].nx
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    v = np.sin(np.pi * np.arange(1, nx + 1) / (nx + 1))
+    cols = [pt.Vec.from_global(comm, np.kron(np.kron(v, v), v),
+                               layout=op.layout),
+            pt.Vec.from_global(comm, ctx["B"][:, 0].astype(np.float64),
+                               layout=op.layout)]
+    ksp = cg_jacobi(comm, op, 1e-6)
+    Xv = [op.get_vecs()[0] for _ in cols]
+    res = ksp.solve_many(cols, Xv)
+    solo = []
+    for j, bv in enumerate(cols):
+        x, _ = op.get_vecs()
+        r = ksp.solve(bv, x)
+        solo.append((r.iterations, float((x.data - Xv[j].data).abs().max()
+                                         / x.data.abs().max())))
+    torch.cuda.synchronize()
+    log(f"many mixed batch (fp64): iterations {res.iterations}, "
+        f"{res.reason_names}; solo (iterations, max|x_batched - x_solo| / "
+        f"max|x|) {solo}")
+    its = res.iterations
+    check(res.converged and its[0] <= 3 and its[1] > its[0] + 5,
+          f"mixed batch: {res}")
+    check(all(s[0] == i and s[1] <= 1e-12 for s, i in zip(solo, its)),
+          f"mixed batch columns differ from their solo solves: {solo}")
+
+
+def phase_many_realistic(k=K_BATCH):
+    """512^3 f32 with k = 8 columns A rand: the delta-method per-iteration
+    time of fixed-iteration (norm none) batched solves against the k x
+    11-pass bound, peak memory, then one converged solve (counters zeroed
+    before, read after) with every column's fp64 true residual computed on
+    the card through ``local_spmv_many`` in f64."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    nx, rtol = 512, 1e-6
+    n = nx ** 3
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    Bv = []
+    for _ in range(k):
+        xt = pt.Vec(comm, n, data=torch.rand(n, generator=g, device="cuda"))
+        Bv.append(op.mult(xt))
+        del xt
+    Xv = [op.get_vecs()[0] for _ in range(k)]
+    lo_it, hi_it = 20, 120
+    solvers = {m: cg_jacobi(comm, op, 0.0, max_it=m, norm_none=True)
+               for m in (lo_it, hi_it)}
+    solvers[lo_it].solve_many(Bv, Xv)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_iter = []
+    for _ in range(3):
+        walls = {}
+        for m, ksp in solvers.items():
+            t0 = time.perf_counter()
+            r = ksp.solve_many(Bv, Xv)
+            walls[m] = (time.perf_counter() - t0, max(r.iterations))
+        (w_lo, i_lo), (w_hi, i_hi) = walls[lo_it], walls[hi_it]
+        per_iter.append((w_hi - w_lo) / (i_hi - i_lo))
+    peak_fixed = torch.cuda.max_memory_allocated() / 2**30
+    per = statistics.median(per_iter)
+    bound = k * PASSES_PER_ITER * n * 4 / HBM_BYTES_PER_S
+    log(f"512^3 k={k} delta-method: {per * 1e3:.4f} ms per lockstep "
+        f"iteration (samples {[round(p * 1e3, 4) for p in per_iter]}), "
+        f"{per * 1e3 / k:.4f} ms per RHS-iteration; bound k x 11 passes "
+        f"{bound * 1e3:.4f} ms ({bound / per * 100:.1f}% of it); peak "
+        f"{peak_fixed:.2f} GiB")
+    profile_solve(lambda: max(solvers[lo_it].solve_many(Bv, Xv).iterations),
+                  f"512^3 k={k} {lo_it} fixed iterations")
+    del solvers
+    ksp = cg_jacobi(comm, op, rtol)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = ksp.solve_many(Bv, Xv)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    its = res.iterations
+    log(f"512^3 k={k} f32 CG+jacobi solve_many: iterations {its}, "
+        f"{res.reason_names}, wall {res.wall_time:.3f} s, "
+        f"{res.wall_time / max(its) * 1e3:.4f} ms per lockstep iteration, "
+        f"host syncs {res.host_syncs}, peak {peak:.2f} GiB, launches {launches}")
+    check(res.converged, f"512^3 k={k} solve did not converge: {res}")
+    check(launches["stencil7_dot_many"] == max(its) + 1,
+          f"512^3 dot_many launches {launches['stencil7_dot_many']}")
+    op64 = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    X64 = torch.stack([x.data.double().view(1, -1) for x in Xv], dim=1)
+    AX = op64.local_spmv_many(comm)(X64)
+    del X64
+    rels = []
+    for j, bv in enumerate(Bv):
+        b64 = bv.data.double()
+        rels.append(float(torch.linalg.vector_norm(b64 - AX[0, j])
+                          / torch.linalg.vector_norm(b64)))
+        del b64
+    log(f"512^3 k={k} fp64 true relative residuals {[f'{r:.3e}' for r in rels]} "
+        f"(limit {10 * rtol:g})")
+    check(all(r <= 10 * rtol for r in rels), f"512^3 k={k} true residuals {rels}")
+    del AX, Bv, Xv
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -843,6 +1253,14 @@ def main():
     launches_mg = phase_mg_main_path(oracle)
     launches_mg_512 = phase_mg_realistic()
     launches_slab = phase_mg_slab()
+    worst.update(phase_many_kernel_checks())
+    for n in (128, 512):
+        times[n].update(phase_many_kernel_times(n))
+    launches_many, many_ctx = phase_many_main_path(oracle)
+    launches_general = phase_many_general_route(many_ctx)
+    phase_many_mixed(many_ctx)
+    del many_ctx
+    launches_many_512 = phase_many_realistic()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -854,6 +1272,14 @@ def main():
         elif name == "stencil7_residual":
             path, count, count_512 = ("64^3 fp64 CG+mg, 4-shard slab cycle",
                                       launches_slab[name], None)
+        elif name == "stencil7_dot_many":
+            path, count, count_512 = (f"128^3 k={K_BATCH} solve_many CG+jacobi",
+                                      launches_many[name],
+                                      launches_many_512[name])
+        elif name == "stencil7_apply_many":
+            path, count, count_512 = (
+                f"128^3 k={K_BATCH} solve_many CG+jacobi, general route "
+                "(Amat != Pmat)", launches_general[name], None)
         else:
             path, count, count_512 = ("128^3 CG+mg", launches_mg[name],
                                       launches_mg_512[name])
@@ -864,10 +1290,13 @@ def main():
             "max_abs_err": max(worst[name], big["max_abs_err"]),
             "ms": big["ms"], "kernel_ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-            "library_ms": big["library_ms"], "shape": [512, 512, 512],
+            "library_ms": big["library_ms"],
+            "shape": ([K_BATCH] if name in MANY_KERNELS else []) + [512] * 3,
             "dtype": "float32", "at_128": small, "launches_512": count_512})
         if name == "stencil7_dot":
             kernels[-1]["dot_rel_err"] = worst["dot_rel"]
+        if name == "stencil7_dot_many":
+            kernels[-1]["dot_rel_err"] = worst["dot_many_rel"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

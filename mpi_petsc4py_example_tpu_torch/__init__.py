@@ -17,9 +17,11 @@ from .models.stencil import StencilPoisson3D
 from .parallel.mesh import DeviceComm
 from .solvers.ksp import KSP
 from .solvers.pc import PC
-from .utils.convergence import ConvergedReason, SolveResult
+from .utils.convergence import (BatchedSolveResult, ConvergedReason,
+                                SolveResult)
 from .utils.options import global_options, init
 
 __all__ = ["DeviceComm", "Vec", "KSP", "PC", "StencilPoisson3D",
            "poisson3d_csr", "ConvergedReason", "SolveResult",
+           "BatchedSolveResult",
            "global_options", "init"]

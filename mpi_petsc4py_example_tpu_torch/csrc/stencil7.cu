@@ -7,6 +7,9 @@
 //   stencil7_smooth_{f32,f64}      -> stencil3d_smooth_pallas (:652)
 //   stencil7_residual_{f32,f64}    -> stencil3d_residual_pallas (:686)
 //   stencil7_smooth0_pair_{f32,f64} -> stencil3d_smooth0_pair_pallas (:1124)
+//   stencil7_apply_many_{f32,f64}  -> stencil3d_apply_many_pallas (:591),
+//                                     body _stencil_many_kernel (:430)
+//   stencil7_dot_many_{f32,f64}    -> stencil3d_dot_many_pallas (:620)
 //
 // All compute, on a z-slab u (lz, ny, nx) stored x-fastest,
 //   Au = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
@@ -36,6 +39,18 @@
 // scratch buffer (allocated by the caller), and a second one-block kernel sums
 // the partials in a fixed order.  No float atomics are used, so two runs on the
 // same input give the same bits and CG iteration counts do not wobble.
+//
+// The many-column kernels take k slabs U (k, lz, ny, nx) and halo blocks
+// (k, ny, nx) (or null for zero halos) in one launch: grid z covers the
+// z-tiles of all k columns, column by column, and each column's slab is
+// marched exactly as the single-RHS kernel marches it (same tiles per block,
+// same order).  The
+// per-column dot writes the single kernel's partial layout for each column
+// into a (k, nblocks) scratch and sums it with one block per column, so each
+// column's A u and <u, A u> are bit-equal to one stencil7_dot launch on it.
+// The TPU kernel's VMEM chunk plan for k resident columns has no counterpart:
+// the bound is the same k (2 n + 2 planes) bytes, and the march reads each
+// column's u about once.
 //
 // This first design is simple and right.  Shared-memory plane tiling, TMA and
 // fusing the CG update chain are left to later work.
@@ -118,19 +133,21 @@ Tiles make_tiles(int lz, int ny, int nx) {
   return t;
 }
 
+// The tiles (bx + i gx, blockIdx.y + i gridDim.y, bz + i gz) of one slab,
+// the grid of one single-slab launch being (gx, gridDim.y, gz); returns the
+// block's share of sum(u * Au) when kDot. The tile loops depend on blockIdx
+// only, so every thread of a block runs the same trip counts and reaches the
+// caller's block_sum.
 template <typename T, bool kDot, bool kHalo, class Epilogue>
-__global__ void __launch_bounds__(kThreads)
-stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
-                const T* __restrict__ halo_hi, T* __restrict__ y,
-                T* __restrict__ partial, int lz, int ny, int nx,
-                int ntx, int nty, int ntz, Epilogue epi) {
+__device__ __forceinline__ T march(const T* __restrict__ u, const T* __restrict__ halo_lo,
+                                   const T* __restrict__ halo_hi, T* __restrict__ y,
+                                   int lz, int ny, int nx, int ntx, int nty, int ntz,
+                                   int bx, int gx, int bz, int gz, Epilogue epi) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   T acc = T(0);
-  // the tile loops depend on blockIdx only, so every thread of a block runs
-  // the same trip counts and reaches block_sum below
-  for (int tz = blockIdx.z; tz < ntz; tz += gridDim.z) {
+  for (int tz = bz; tz < ntz; tz += gz) {
     for (int ty = blockIdx.y; ty < nty; ty += gridDim.y) {
-      for (int tx = blockIdx.x; tx < ntx; tx += gridDim.x) {
+      for (int tx = bx; tx < ntx; tx += gx) {
         const int x = tx * kBX + static_cast<int>(threadIdx.x);
         const int yy = ty * kBY + static_cast<int>(threadIdx.y);
         if (x >= nx || yy >= ny) continue;
@@ -162,6 +179,17 @@ stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
       }
     }
   }
+  return acc;
+}
+
+template <typename T, bool kDot, bool kHalo, class Epilogue>
+__global__ void __launch_bounds__(kThreads)
+stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
+                const T* __restrict__ halo_hi, T* __restrict__ y,
+                T* __restrict__ partial, int lz, int ny, int nx,
+                int ntx, int nty, int ntz, Epilogue epi) {
+  const T acc = march<T, kDot, kHalo>(u, halo_lo, halo_hi, y, lz, ny, nx, ntx, nty, ntz,
+                                      blockIdx.x, gridDim.x, blockIdx.z, gridDim.z, epi);
   if (kDot) {
     const T s = block_sum(acc);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
@@ -171,16 +199,49 @@ stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
   }
 }
 
-// One block: out[0] = sum of partial[0:n], always in the same order.
+// k slabs in one launch, grid (gx, gy, k gz) for the single kernel's grid
+// (gx, gy, gz) of one slab: block z = j gz + bz is block (x, y, bz) of column
+// j's single-slab launch, marching the same tiles, and its partial goes to
+// partial[j nblk + (the single kernel's index)], nblk = gx gy gz.  The
+// launcher lowers gz below the single kernel's where k gz would pass the
+// 65535 cap; march's z loop then covers the rest (only the dot's summing
+// order differs from a single launch there, at lz > 524280 / k planes).
+template <typename T, bool kDot, bool kHalo>
+__global__ void __launch_bounds__(kThreads)
+stencil7_many_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
+                     const T* __restrict__ halo_hi, T* __restrict__ y,
+                     T* __restrict__ partial, int lz, int ny, int nx,
+                     int ntx, int nty, int ntz, int gz) {
+  const int j = static_cast<int>(blockIdx.z) / gz;
+  const int bz = static_cast<int>(blockIdx.z) - j * gz;
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const int64_t slab = plane * lz;
+  const T acc = march<T, kDot, kHalo>(
+      u + j * slab, kHalo ? halo_lo + j * plane : nullptr,
+      kHalo ? halo_hi + j * plane : nullptr, y + j * slab, lz, ny, nx, ntx, nty, ntz,
+      blockIdx.x, gridDim.x, bz, gz, StoreAu<T>{});
+  if (kDot) {
+    const T s = block_sum(acc);
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      const int64_t nblk = static_cast<int64_t>(gridDim.x) * gridDim.y * gz;
+      partial[j * nblk + blockIdx.x +
+              static_cast<int64_t>(gridDim.x) * (blockIdx.y + static_cast<int64_t>(gridDim.y) * bz)] = s;
+    }
+  }
+}
+
+// One block per column j: out[j] = sum of partial[j n : (j + 1) n], always in
+// the same order (the single-RHS dot launches one block).
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
 sum_partials_kernel(const T* __restrict__ partial, int64_t n, T* __restrict__ out) {
+  partial += static_cast<int64_t>(blockIdx.x) * n;
   T acc = T(0);
   // unrolled so the loads are issued ahead of the (still in-order) adds
 #pragma unroll 16
   for (int64_t i = threadIdx.x; i < n; i += blockDim.x) acc += partial[i];
   const T s = block_sum(acc);
-  if (threadIdx.x == 0) out[0] = s;
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
 // Null lo and hi select the zero-halo instantiation; the caller passes both
@@ -221,6 +282,34 @@ int launch_dot(const void* u, const void* lo, const void* hi, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// k slabs: Y = A U, and with kDot the per-column <u_j, A u_j> into out (k).
+// Null lo and hi select zero halos.  1 <= k <= 65535 (the wrappers check).
+template <typename T, bool kDot>
+int launch_many(const void* u, const void* lo, const void* hi, void* y, void* partial,
+                void* out, int k, int lz, int ny, int nx, void* stream) {
+  const Tiles t = make_tiles(lz, ny, nx);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned gz = t.grid.z * static_cast<unsigned>(k) <= 65535u
+                         ? t.grid.z : 65535u / static_cast<unsigned>(k);
+  const dim3 grid(t.grid.x, t.grid.y, gz * static_cast<unsigned>(k));
+  const T* ut = static_cast<const T*>(u);
+  T* yt = static_cast<T*>(y);
+  T* pt = static_cast<T*>(partial);
+  if (lo != nullptr && hi != nullptr) {
+    stencil7_many_kernel<T, kDot, true><<<grid, dim3(kBX, kBY), 0, s>>>(
+        ut, static_cast<const T*>(lo), static_cast<const T*>(hi), yt, pt, lz, ny, nx,
+        t.ntx, t.nty, t.ntz, static_cast<int>(gz));
+  } else {
+    stencil7_many_kernel<T, kDot, false><<<grid, dim3(kBX, kBY), 0, s>>>(
+        ut, nullptr, nullptr, yt, pt, lz, ny, nx, t.ntx, t.nty, t.ntz, static_cast<int>(gz));
+  }
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || !kDot) return err;
+  const int64_t nblk = static_cast<int64_t>(t.grid.x) * t.grid.y * gz;
+  sum_partials_kernel<T><<<k, kSumThreads, 0, s>>>(pt, nblk, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -230,7 +319,8 @@ const char* stencil7_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Length of the partial-sum scratch buffer stencil7_dot_* needs for this shape.
+// Length of the partial-sum scratch buffer stencil7_dot_* needs for this shape
+// (stencil7_dot_many_* needs k times as much).
 long long stencil7_dot_blocks(int lz, int ny, int nx) {
   const Tiles t = make_tiles(lz, ny, nx);
   return static_cast<long long>(t.grid.x) * t.grid.y * t.grid.z;
@@ -295,6 +385,30 @@ int stencil7_dot_f32(const void* u, const void* lo, const void* hi, void* y,
 int stencil7_dot_f64(const void* u, const void* lo, const void* hi, void* y,
                      void* partial, void* out, int lz, int ny, int nx, void* stream) {
   return launch_dot<double>(u, lo, hi, y, partial, out, lz, ny, nx, stream);
+}
+
+// k slabs U (k, lz, ny, nx) -> Y = A U; lo, hi are (k, ny, nx) blocks or both null
+int stencil7_apply_many_f32(const void* u, const void* lo, const void* hi, void* y,
+                            int k, int lz, int ny, int nx, void* stream) {
+  return launch_many<float, false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx, stream);
+}
+
+int stencil7_apply_many_f64(const void* u, const void* lo, const void* hi, void* y,
+                            int k, int lz, int ny, int nx, void* stream) {
+  return launch_many<double, false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx, stream);
+}
+
+// ... and out[j] = <u_j, A u_j>; partial holds k * stencil7_dot_blocks(lz, ny, nx)
+int stencil7_dot_many_f32(const void* u, const void* lo, const void* hi, void* y,
+                          void* partial, void* out, int k, int lz, int ny, int nx,
+                          void* stream) {
+  return launch_many<float, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
+}
+
+int stencil7_dot_many_f64(const void* u, const void* lo, const void* hi, void* y,
+                          void* partial, void* out, int k, int lz, int ny, int nx,
+                          void* stream) {
+  return launch_many<double, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
 }
 
 }  // extern "C"

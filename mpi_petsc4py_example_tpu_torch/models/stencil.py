@@ -7,7 +7,10 @@ applies the stencil with the kernels of :mod:`..ops.stencil`.
 
 The local closures work on shard-stacked tensors: a grid-shaped carry is
 ``(size, lz, ny, nx)`` and a flat one ``(size, lz*ny*nx)``, both views of the
-same memory as a :class:`Vec`'s padded data.
+same memory as a :class:`Vec`'s padded data. The batched (``_many``) closures
+take a block of ``k`` columns, ``(size, k, lz, ny, nx)`` grid-shaped or
+``(size, k, lz*ny*nx)`` flat: each shard's part is the contiguous
+``(k, lz, ny, nx)`` operand of the ``_many`` kernels.
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ import numpy as np
 import torch
 
 from ..core.vec import Vec
-from ..ops.stencil import (stencil3d_apply, stencil3d_apply_plain,
-                           stencil3d_dot, stencil3d_dot_plain)
+from ..ops.stencil import (stencil3d_apply, stencil3d_apply_many,
+                           stencil3d_apply_many_plain, stencil3d_apply_plain,
+                           stencil3d_dot, stencil3d_dot_many,
+                           stencil3d_dot_many_plain, stencil3d_dot_plain)
 from ..parallel.mesh import DeviceComm, torch_dtype
 from ..parallel.partition import RowLayout
 
@@ -49,6 +54,22 @@ def make_plane_exchange(comm: DeviceComm):
     return exchange
 
 
+def exchange_many(comm: DeviceComm, U):
+    """The batched halo exchange (the JAX ``_exchange_many``): for a block
+    ``U (size, k, lz, ny, nx)`` the boundary-plane blocks ``(size, k, ny,
+    nx)`` each way, one ring shift each, zero at the global Dirichlet ends.
+    With one shard both halos are boundaries: returns ``(None, None)``,
+    which the ``_many`` kernels take as zero planes, so no zero block of
+    another width can be handed to them."""
+    if comm.size == 1:
+        return None, None
+    halo_lo = comm.shift(U[:, :, -1], 1)     # plane z-1 of each column
+    halo_hi = comm.shift(U[:, :, 0], -1)     # plane z+lz of each column
+    halo_lo[0].zero_()
+    halo_hi[-1].zero_()
+    return halo_lo, halo_hi
+
+
 class StencilPoisson3D:
     """7-point 3D Poisson (Dirichlet) as a matrix-free sharded operator.
 
@@ -56,9 +77,9 @@ class StencilPoisson3D:
     are sharded in contiguous z-slabs: requires ``nz % comm.size == 0``.
     Matches :func:`..models.poisson.poisson3d_csr` exactly.
 
-    ``force_plain`` is a test switch: when True, every apply goes through the
-    plain PyTorch versions even on the card, so one run can hold the kernel
-    path against the plain one.
+    ``force_plain`` is a test switch: when True, every apply (the batched
+    ones too) goes through the plain PyTorch versions even on the card, so
+    one run can hold the kernel path against the plain one.
     """
 
     # uniform diagonal: CG's Jacobi apply collapses to z = r/6 and its
@@ -152,6 +173,43 @@ class StencilPoisson3D:
             return y, comm.psum(parts)
 
         return matvec_dot
+
+    def _many_pass(self, comm: DeviceComm, U, dot: bool):
+        """One batched kernel pass per shard over ``U (size, k, lz, ny, nx)``:
+        ``A U``, and with ``dot`` the psum of the per-column ``<u_j, A u_j>``
+        partials, shape ``(k,)``."""
+        halo_lo, halo_hi = exchange_many(comm, U)
+        Y = torch.empty_like(U)
+        parts = []
+        for i in range(comm.size):
+            lo, hi = ((None, None) if halo_lo is None
+                      else (halo_lo[i], halo_hi[i]))
+            if self.force_plain:
+                plain = stencil3d_dot_many_plain if dot \
+                    else stencil3d_apply_many_plain
+                res = plain(U[i], lo, hi)
+                Y[i].copy_(res[0] if dot else res)
+                parts.append(res[1] if dot else None)
+            elif dot:
+                parts.append(stencil3d_dot_many(U[i], lo, hi, out=Y[i])[1])
+            else:
+                stencil3d_apply_many(U[i], lo, hi, out=Y[i])
+        return (Y, comm.psum(parts)) if dot else Y
+
+    def local_spmv_many(self, comm: DeviceComm):
+        """Batched flat apply ``X (size, k, lz*ny*nx) -> A X``: one
+        ``stencil7_apply_many`` launch per shard for all ``k`` columns."""
+        def spmv(X):
+            U = X.reshape((comm.size, X.shape[1]) + self.grid3d)
+            return self._many_pass(comm, U, dot=False).reshape(X.shape)
+
+        return spmv
+
+    def local_matvec_dot_many(self, comm: DeviceComm):
+        """Fused batched ``U (size, k, lz, ny, nx) -> (A U, psum <u_j, A
+        u_j>)`` for the batched CG fast path: one ``stencil7_dot_many``
+        launch per shard; the dots are ``(k,)``."""
+        return lambda U: self._many_pass(comm, U, dot=True)
 
     # ---- Mat-compatible conveniences ----------------------------------------
     def get_vecs(self) -> tuple[Vec, Vec]:

@@ -12,16 +12,24 @@ Counterpart of ``mpi_petsc4py_example_tpu/ops/pallas_stencil.py``:
 * :func:`stencil3d_smooth_pair` replaces ``stencil3d_smooth_pair_pallas``
   (``:1251``);
 * :func:`stencil3d_residual_restrict` replaces
-  ``stencil3d_residual_restrict_pallas`` (``:1090``).
+  ``stencil3d_residual_restrict_pallas`` (``:1090``);
+* :func:`stencil3d_apply_many` replaces ``stencil3d_apply_many_pallas``
+  (``:591``);
+* :func:`stencil3d_dot_many` replaces ``stencil3d_dot_many_pallas``
+  (``:620``).
 
 All take a z-slab ``u (lz, ny, nx)`` (x fastest) and compute with
 ``A u = 6u - (6 neighbours)``, zero fill in x and y. The first four read the z
 neighbours of the end planes from halo planes ``halo_lo``/``halo_hi (ny, nx)``;
 apply, smooth and residual also take ``None`` for both, zero (Dirichlet)
 planes that the kernels' zero-halo instantiation never reads. The last three
-are single-slab passes with zero Dirichlet ghosts on every side.
-The first five kernels are in ``csrc/stencil7.cu`` (one kernel with an epilogue
-per function), the two that need two-deep z neighbourhoods in ``csrc/mg3d.cu``.
+are single-slab passes with zero Dirichlet ghosts on every side. The two
+``_many`` functions take ``k`` slabs ``U (k, lz, ny, nx)`` with halo blocks
+``(k, ny, nx)`` (or ``None`` for both) in one launch: the batched solve's
+apply and its fused per-column ``<u_j, A u_j>``.
+The first five kernels and the two ``_many`` kernels are in
+``csrc/stencil7.cu`` (one kernel with an epilogue per function), the two that
+need two-deep z neighbourhoods in ``csrc/mg3d.cu``.
 
 Dispatch is by the device of ``u`` alone: a CPU tensor goes through the plain
 PyTorch version beside each kernel, a CUDA tensor launches the kernel or
@@ -57,6 +65,8 @@ _SIGNATURES = {
         "stencil7_smooth": [_VP] * 5 + [_CI] * 3 + [_CD, _VP],
         "stencil7_residual": [_VP] * 5 + [_CI] * 3 + [_VP],
         "stencil7_smooth0_pair": [_VP] * 2 + [_CI] * 3 + [_CD, _CD, _VP],
+        "stencil7_apply_many": [_VP] * 4 + [_CI] * 4 + [_VP],
+        "stencil7_dot_many": [_VP] * 6 + [_CI] * 4 + [_VP],
     },
     "mg3d": {
         "mg3d_smooth_pair": [_VP] * 3 + [_CI] * 3 + [_CD, _CD, _VP],
@@ -92,26 +102,31 @@ def _overlaps(a, b) -> bool:
             and lo_b < lo_a + a.numel() * a.element_size())
 
 
-def _check(u, out=None, out_shape=None, **operands):
-    """Validate the slab ``u`` and the named operands (``f``, ``halo_lo``,
-    ``halo_hi``; the halos may be both None, zero planes); returns
-    ``(lz, ny, nx)``. Raises on a dtype, shape, layout or device the kernel
-    does not take, and on an ``out`` that overlaps an input (on every
-    device, so the plain path accepts exactly what the kernel accepts)."""
+def _check(u, out=None, out_shape=None, many=False, **operands):
+    """Validate the slab ``u`` (``many``: the block ``(k, lz, ny, nx)`` of
+    ``k`` slabs) and the named operands (``f``, ``halo_lo``, ``halo_hi``;
+    the halos, ``(ny, nx)`` planes or ``(k, ny, nx)`` blocks, may be both
+    None, zero planes); returns ``u.shape``. Raises on a dtype, shape,
+    layout or device the kernel does not take, and on an ``out`` that
+    overlaps an input (on every device, so the plain path accepts exactly
+    what the kernel accepts)."""
     if u.dtype not in _SUFFIX:
         raise TypeError(f"stencil kernels take float32/float64, got {u.dtype}")
-    if u.dim() != 3 or min(u.shape) < 1 or max(u.shape) > _INT_MAX:
-        raise ValueError(f"u must be a non-empty (lz, ny, nx) slab, got "
+    what = "(k, lz, ny, nx) block" if many else "(lz, ny, nx) slab"
+    if (u.dim() != 3 + many or min(u.shape) < 1
+            or max(u.shape) > _INT_MAX):
+        raise ValueError(f"u must be a non-empty {what}, got "
                          f"shape {tuple(u.shape)}")
-    lz, ny, nx = u.shape
+    full = tuple(u.shape)
+    plane = full[:-3] + full[-2:]
     if (operands.get("halo_lo") is None) != (operands.get("halo_hi") is None):
         raise ValueError("pass both halo planes, or None for both")
-    expect = {"f": (lz, ny, nx), "halo_lo": (ny, nx), "halo_hi": (ny, nx)}
-    items = [("u", u, (lz, ny, nx))]
+    expect = {"f": full, "halo_lo": plane, "halo_hi": plane}
+    items = [("u", u, full)]
     items += [(k, t, expect[k]) for k, t in operands.items() if t is not None]
     inputs = [t for _, t, _ in items]
     if out is not None:
-        items.append(("out", out, out_shape or (lz, ny, nx)))
+        items.append(("out", out, out_shape or full))
     for name, t, shape in items:
         if t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
@@ -126,7 +141,7 @@ def _check(u, out=None, out_shape=None, **operands):
         raise ValueError("out must not overlap an input")
     if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stencil kernels run on cpu or cuda, not {u.device}")
-    return lz, ny, nx
+    return full
 
 
 def _launch(lib_name, fn_name, u, what, *args):
@@ -179,6 +194,27 @@ def stencil3d_dot_plain(u, halo_lo, halo_hi):
     """``(A u, sum(u * A u))`` with the plain apply and a separate sum."""
     y = stencil3d_apply_plain(u, halo_lo, halo_hi)
     return y, (u * y).sum()
+
+
+def stencil3d_apply_many_plain(U, halo_lo, halo_hi):
+    """``A u_j`` for each slab of ``U (k, lz, ny, nx)``, with
+    :func:`stencil3d_apply_plain`'s order of operations along the last three
+    axes (``None`` halos are zero planes), so each column equals that
+    function on the column bit for bit."""
+    if halo_lo is None and halo_hi is None:
+        halo_lo = halo_hi = U.new_zeros(U.shape[:1] + U.shape[2:])
+    ext = torch.cat([halo_lo[:, None], U, halo_hi[:, None]], dim=1)
+    ym = F.pad(U[..., :-1, :], (0, 0, 1, 0))
+    yp = F.pad(U[..., 1:, :], (0, 0, 0, 1))
+    xm = F.pad(U[..., :-1], (1, 0))
+    xp = F.pad(U[..., 1:], (0, 1))
+    return 6.0 * U - ext[:, :-2] - ext[:, 2:] - ym - yp - xm - xp
+
+
+def stencil3d_dot_many_plain(U, halo_lo, halo_hi):
+    """``(A U, dots)`` with ``dots[j] = sum(u_j * A u_j)``, shape ``(k,)``."""
+    Y = stencil3d_apply_many_plain(U, halo_lo, halo_hi)
+    return Y, (U * Y).sum(dim=(1, 2, 3))
 
 
 def stencil3d_smooth_plain(u, f, halo_lo, halo_hi, w):
@@ -375,6 +411,57 @@ def stencil3d_residual_restrict(u, f, out=None):
 
 stencil3d_residual_restrict.launches = 0
 
+def _check_many(U, out, halo_lo, halo_hi):
+    """:func:`_check` for a column block; the kernels' grid takes at most
+    65535 columns."""
+    shape = _check(U, out, many=True, halo_lo=halo_lo, halo_hi=halo_hi)
+    if shape[0] > 65535:
+        raise ValueError(f"at most 65535 columns per launch, got {shape[0]}")
+    return shape
+
+
+def stencil3d_apply_many(U, halo_lo, halo_hi, out=None):
+    """``A u_j`` for the ``k`` slabs of ``U (k, lz, ny, nx)`` in one launch;
+    the halos are ``(k, ny, nx)`` blocks, or None for both (zero planes).
+    Writes into ``out`` when given; returns the result."""
+    k, lz, ny, nx = _check_many(U, out, halo_lo, halo_hi)
+    if U.device.type == "cpu":
+        Y = stencil3d_apply_many_plain(U, halo_lo, halo_hi)
+        return Y if out is None else out.copy_(Y)
+    Y = _out(U, out)
+    _launch("stencil7", "stencil7_apply_many", U, "stencil7_apply_many launch",
+            U.data_ptr(), _ptr(halo_lo), _ptr(halo_hi), Y.data_ptr(),
+            k, lz, ny, nx)
+    stencil3d_apply_many.launches += 1
+    return Y
+
+
+stencil3d_apply_many.launches = 0
+
+
+def stencil3d_dot_many(U, halo_lo, halo_hi, out=None):
+    """``(A U, dots)`` for ``U (k, lz, ny, nx)`` in one pass, ``dots[j] =
+    sum(u_j * A u_j)`` a ``(k,)`` tensor of ``U.dtype`` on ``U``'s device.
+    The halos are ``(k, ny, nx)`` blocks, or None for both. On the card each
+    column's ``A u_j`` and dot are bit-equal to one :func:`stencil3d_dot` on
+    that column (the same blocks, partials and fixed summing order)."""
+    k, lz, ny, nx = _check_many(U, out, halo_lo, halo_hi)
+    if U.device.type == "cpu":
+        Y, d = stencil3d_dot_many_plain(U, halo_lo, halo_hi)
+        return (Y if out is None else out.copy_(Y)), d
+    Y = _out(U, out)
+    partial = torch.empty(k * _kernels().stencil7_dot_blocks(lz, ny, nx),
+                          dtype=U.dtype, device=U.device)
+    dots = torch.empty(k, dtype=U.dtype, device=U.device)
+    _launch("stencil7", "stencil7_dot_many", U, "stencil7_dot_many launch",
+            U.data_ptr(), _ptr(halo_lo), _ptr(halo_hi), Y.data_ptr(),
+            partial.data_ptr(), dots.data_ptr(), k, lz, ny, nx)
+    stencil3d_dot_many.launches += 1
+    return Y, dots
+
+
+stencil3d_dot_many.launches = 0
+
 # every kernel wrapper, for code that reads or resets all launch counters
 KERNELS = {
     "stencil7_apply": stencil3d_apply,
@@ -384,4 +471,6 @@ KERNELS = {
     "stencil7_smooth0_pair": stencil3d_smooth0_pair,
     "mg3d_smooth_pair": stencil3d_smooth_pair,
     "mg3d_residual_restrict": stencil3d_residual_restrict,
+    "stencil7_apply_many": stencil3d_apply_many,
+    "stencil7_dot_many": stencil3d_dot_many,
 }

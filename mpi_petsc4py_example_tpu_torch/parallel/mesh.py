@@ -31,6 +31,12 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a ``torch.dtype`` (or of anything
+    :func:`torch_dtype` reads)."""
+    return torch.empty(0, dtype=torch_dtype(dtype)).numpy().dtype
+
+
 class DeviceComm:
     """A communicator-shaped object over ``n_devices`` virtual shards.
 
@@ -90,6 +96,27 @@ class DeviceComm:
     def host_fetch(self, x: torch.Tensor) -> np.ndarray:
         """Device tensor -> host numpy copy."""
         return x.detach().to("cpu").numpy().copy()
+
+    # ---- column blocks (the batched solve's k right-hand sides) -------------
+    # A block of k columns lives shard-stacked as (size, k, local_size): each
+    # shard's part is then contiguous column by column, the (k, lz, ny, nx)
+    # operand of the batched stencil kernels.
+    def put_cols(self, arr, dtype=None) -> torch.Tensor:
+        """Host ``(n, k)`` block -> ``(size, k, local_size)`` device tensor.
+        The transpose (and any dtype cast) is done in one pass on the host,
+        so the device receives the block in ONE copy, already laid out."""
+        arr = self.pad_rows(np.asarray(arr))
+        dt = torch_dtype(arr.dtype if dtype is None else dtype)
+        host = np.empty((self.size, arr.shape[1], arr.shape[0] // self.size),
+                        dtype=numpy_dtype(dt))
+        host[...] = arr.reshape(self.size, -1, arr.shape[1]).transpose(0, 2, 1)
+        return torch.from_numpy(host).to(self.device)
+
+    def fetch_cols(self, x: torch.Tensor, n: int) -> np.ndarray:
+        """``(size, k, local_size)`` device tensor -> host ``(n, k)`` block
+        (one copy back, transposed on the host; padding rows dropped)."""
+        h = x.detach().to("cpu").numpy()
+        return h.transpose(0, 2, 1).reshape(-1, h.shape[1])[:n]
 
     # ---- collectives over the shard axis ------------------------------------
     def psum(self, parts):

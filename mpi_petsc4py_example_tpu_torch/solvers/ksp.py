@@ -3,9 +3,11 @@
 The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/ksp.py``
 (``KSP``, ``:47``), reduced to what the CG slices run: ``create``,
 ``set_type``, ``get_pc``, ``set_operators``, ``set_tolerances``,
-``set_norm_type``, ``set_from_options`` and ``solve`` -> :class:`SolveResult`
-(petsc4py's ``KSP().create(comm)``, ``setType``, ``getPC``, ``setOperators``,
-``setFromOptions``, ``solve(b, x)``). A solve starts from a zero guess.
+``set_norm_type``, ``set_from_options``, ``solve`` -> :class:`SolveResult`
+and ``solve_many`` -> :class:`BatchedSolveResult` (petsc4py's
+``KSP().create(comm)``, ``setType``, ``getPC``, ``setOperators``,
+``setFromOptions``, ``solve(b, x)``, ``matSolve(B, X)``). A solve starts from
+a zero guess.
 """
 
 from __future__ import annotations
@@ -13,11 +15,15 @@ from __future__ import annotations
 import math
 import time
 
+import numpy as np
 import torch
 
-from ..utils.convergence import ConvergedReason, SolveResult
+from ..core.vec import Vec
+from ..parallel.mesh import numpy_dtype
+from ..utils.convergence import BatchedSolveResult, ConvergedReason, SolveResult
 from ..utils.options import global_options
-from .krylov import KSP_TYPES, build_ksp_program
+from .krylov import (KSP_TYPES, batched_pc_supported, build_ksp_program,
+                     build_ksp_program_many)
 from .pc import PC
 
 DEFAULT_RTOL = 1e-5   # PETSc's KSP default
@@ -44,7 +50,11 @@ class KSP:
         self.divtol = DEFAULT_DIVTOL
         self.max_it = DEFAULT_MAX_IT
         self._norm_type = "default"
+        # -ksp_batch_limit: at most this many columns per batched solve
+        # (0: no limit)
+        self.batch_limit = 0
         self.result = SolveResult()
+        self.result_many = BatchedSolveResult()
         if comm is not None:
             self.create(comm)
 
@@ -117,8 +127,8 @@ class KSP:
 
     def set_from_options(self):
         """Apply the options database: ``-ksp_type``, ``-ksp_rtol``,
-        ``-ksp_atol``, ``-ksp_max_it``, ``-ksp_norm_type``, ``-pc_type``,
-        ``-pc_mg_smooth_type``."""
+        ``-ksp_atol``, ``-ksp_max_it``, ``-ksp_norm_type``,
+        ``-ksp_batch_limit``, ``-pc_type``, ``-pc_mg_smooth_type``."""
         opt = global_options()
         t = opt.get_string("ksp_type")
         if t:
@@ -126,6 +136,7 @@ class KSP:
         self.rtol = opt.get_real("ksp_rtol", self.rtol)
         self.atol = opt.get_real("ksp_atol", self.atol)
         self.max_it = opt.get_int("ksp_max_it", self.max_it)
+        self.batch_limit = opt.get_int("ksp_batch_limit", self.batch_limit)
         nt = opt.get_string("ksp_norm_type")
         if nt:
             self.set_norm_type(nt)
@@ -139,31 +150,166 @@ class KSP:
 
     setFromOptions = set_from_options
 
+    def _run_tolerances(self):
+        """``(norm_none, rtol, atol, divtol)`` as the loop takes them: the
+        norm type none turns off the convergence test."""
+        if self._norm_type == "none":
+            return True, 0.0, 0.0, 0.0
+        return False, self.rtol, self.atol, self.divtol
+
     def solve(self, b, x) -> SolveResult:
         """Solve ``A x = b``; the solution is written into ``x``."""
         mat = self._mat
         if mat is None:
             raise RuntimeError("KSP.solve: no operators set")
-        norm_none = self._norm_type == "none"
-        rtol, atol, divtol = self.rtol, self.atol, self.divtol
-        if norm_none:
-            rtol, atol, divtol = 0.0, 0.0, 0.0
+        norm_none, rtol, atol, divtol = self._run_tolerances()
         prog = build_ksp_program(mat.comm, self._type, self.get_pc(), mat)
         t0 = time.perf_counter()
         xd, iters, rnorm, reason, syncs = prog(
             b.data, torch.zeros_like(b.data), rtol, atol, divtol, self.max_it)
         x.data = xd
         wall = time.perf_counter() - t0
-        # a NaN/Inf residual exits as DIVERGED_MAX_IT (NaN fails every
-        # comparison); report it as the blow-up it is. KSP_NORM_NONE has no
-        # norm to classify, and keeps breakdown visible.
-        if not norm_none and not math.isfinite(rnorm):
-            reason = ConvergedReason.DIVERGED_NANORINF
-        if norm_none and reason != ConvergedReason.DIVERGED_BREAKDOWN:
-            reason = ConvergedReason.CONVERGED_ITS
-        self.result = SolveResult(iters, rnorm, reason, wall, syncs)
+        self.result = SolveResult(iters, rnorm,
+                                  _final_reason(reason, rnorm, norm_none),
+                                  wall, syncs)
         return self.result
 
+    def solve_many(self, B, X=None) -> BatchedSolveResult:
+        """Solve ``A X = B`` for a block of ``k`` right-hand sides (PETSc's
+        ``KSPMatSolve``; JAX ``ksp.py:1471``), each from a zero guess.
+
+        ``B`` is an ``(n, k)`` host array or a list of ``k`` Vecs; ``X`` is
+        None, an ``(n, k)`` host array or a list of ``k`` Vecs, and receives
+        the solution. Returns per-column iterations, residual norms and
+        reasons; a column that converges early freezes while the others run
+        on.
+
+        CG with PC none/jacobi and norm type default/none runs the ``k``
+        recurrences in lockstep: one kernel pass per shard and one reduction
+        per phase serve every column. Other configurations (PC mg) solve the
+        columns one by one. ``batch_limit`` (``-ksp_batch_limit``) splits a
+        wider block into batched solves of at most that many columns.
+        """
+        mat = self._mat
+        if mat is None:
+            raise RuntimeError("KSP.solve_many: no operators set")
+        n = mat.shape[0]
+        b_vecs = _is_vec_list(B)
+        if isinstance(B, (list, tuple)) and not b_vecs:
+            B = np.stack([b.to_numpy() if isinstance(b, Vec)
+                          else np.asarray(b) for b in B], axis=1) \
+                if B else np.zeros((n, 0))
+        shape = (_vec_rows(B), len(B)) if b_vecs else np.shape(B)
+        if len(shape) != 2 or shape[0] != n:
+            raise ValueError(f"KSP.solve_many: B must be ({n}, nrhs), got "
+                             f"{shape}")
+        k = shape[1]
+        if k == 0:
+            raise ValueError("KSP.solve_many: empty RHS block (nrhs=0)")
+        x_vecs = isinstance(X, (list, tuple))
+        if X is None:
+            X = np.zeros((n, k), dtype=numpy_dtype(mat.dtype))
+        elif not x_vecs:
+            X = np.asarray(X)
+        x_shape = (_vec_rows(X), len(X)) if x_vecs else X.shape
+        if x_shape != tuple(shape):
+            raise ValueError(f"KSP.solve_many: X shape {x_shape} != B shape "
+                             f"{tuple(shape)}")
+        limit = int(self.batch_limit)
+        if 0 < limit < k:
+            return self._solve_many_chunked(B, X, k, limit, b_vecs, x_vecs)
+        pc = self.get_pc()
+        if not (self._type == "cg" and batched_pc_supported(pc)
+                and self._norm_type in ("default", "none")):
+            return self._solve_many_sequential(B, X, k, b_vecs, x_vecs)
+        comm = mat.comm
+        norm_none, rtol, atol, divtol = self._run_tolerances()
+        prog = build_ksp_program_many(comm, self._type, pc, mat)
+        # one placement of the block: stacked on the card from Vecs, or
+        # transposed on the host and copied once
+        Bd = (torch.stack([b.data.view(comm.size, -1) for b in B],
+                          dim=1).to(mat.dtype)
+              if b_vecs else comm.put_cols(B, mat.dtype))
+        t0 = time.perf_counter()
+        Xd, iters, rnorms, reasons, syncs = prog(
+            Bd, torch.zeros_like(Bd), rtol, atol, divtol, self.max_it)
+        if x_vecs:
+            for j, xv in enumerate(X):
+                xv.data = Xd[:, j].reshape(-1).to(xv.dtype)
+        else:
+            X[...] = comm.fetch_cols(Xd, n)
+        wall = time.perf_counter() - t0
+        reasons = [_final_reason(r, rn, norm_none)
+                   for r, rn in zip(reasons, rnorms)]
+        self.result_many = BatchedSolveResult(
+            iters, rnorms, reasons, wall, X, [[] for _ in range(k)], syncs)
+        return self.result_many
+
+    def _solve_many_chunked(self, B, X, k, limit, b_vecs, x_vecs):
+        """``-ksp_batch_limit``: ceil(k / limit) batched solves."""
+        res = BatchedSolveResult(X=X)
+        t0 = time.perf_counter()
+        for s in range(0, k, limit):
+            sl = slice(s, min(s + limit, k))
+            sub = self.solve_many(B[sl] if b_vecs else B[:, sl],
+                                  X[sl] if x_vecs else X[:, sl])
+            res.iterations += sub.iterations
+            res.residual_norms += sub.residual_norms
+            res.reasons += sub.reasons
+            res.histories += sub.histories
+            res.host_syncs += sub.host_syncs
+        res.wall_time = time.perf_counter() - t0
+        self.result_many = res
+        return res
+
+    def _solve_many_sequential(self, B, X, k, b_vecs, x_vecs):
+        """The columns one by one through :meth:`solve`, for configurations
+        without a batched kernel (PC mg); the same per-column results."""
+        mat = self._mat
+        res = BatchedSolveResult(X=X)
+        t0 = time.perf_counter()
+        for j in range(k):
+            bv = B[j] if b_vecs else Vec.from_global(
+                mat.comm, B[:, j], dtype=mat.dtype, layout=mat.layout)
+            xv = X[j] if x_vecs else Vec(mat.comm, mat.shape[0],
+                                         dtype=mat.dtype, layout=mat.layout)
+            sub = self.solve(bv, xv)
+            if not x_vecs:
+                X[:, j] = xv.to_numpy()
+            res.iterations.append(sub.iterations)
+            res.residual_norms.append(sub.residual_norm)
+            res.reasons.append(sub.reason)
+            res.histories.append([])
+            res.host_syncs += sub.host_syncs
+        res.wall_time = time.perf_counter() - t0
+        self.result_many = res
+        return res
     def __repr__(self):
         return (f"KSP(type={self._type!r}, pc={self.get_pc().get_type()!r}, "
                 f"rtol={self.rtol:g}, max_it={self.max_it})")
+
+
+def _final_reason(reason, rnorm, norm_none):
+    """The reported reason: a NaN/Inf residual exits as DIVERGED_MAX_IT (NaN
+    fails every comparison), reported as the blow-up it is; KSP_NORM_NONE
+    has no norm to classify, and keeps breakdown visible."""
+    if not norm_none and not math.isfinite(rnorm):
+        return ConvergedReason.DIVERGED_NANORINF
+    if norm_none and reason != ConvergedReason.DIVERGED_BREAKDOWN:
+        return ConvergedReason.CONVERGED_ITS
+    return reason
+
+
+def _is_vec_list(block) -> bool:
+    return (isinstance(block, (list, tuple)) and bool(block)
+            and all(isinstance(v, Vec) for v in block))
+
+
+def _vec_rows(vecs) -> int:
+    """The common length of a list of Vecs; raises ``ValueError`` when they
+    differ."""
+    rows = {v.n for v in vecs}
+    if len(rows) != 1:
+        raise ValueError(f"KSP.solve_many: the Vecs of a block must have one "
+                         f"length, got {sorted(rows)}")
+    return rows.pop()

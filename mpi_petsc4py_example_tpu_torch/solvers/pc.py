@@ -75,12 +75,29 @@ class PC:
             return make_vcycle(op.nz, op.ny, op.nx, comm=comm,
                                smoother=self.mg_smoother,
                                plain=getattr(op, "force_plain", False))
+        inv_d = self._inv_diag(comm)
+        return lambda r: r * inv_d
+
+    def _inv_diag(self, comm):
+        """The shard-stacked inverse diagonal ``(size, lsize)`` of the PC's
+        operator (0 where the diagonal is 0)."""
         if self._mat is None:
             raise RuntimeError("PC jacobi: no operator set")
         diag = self._mat.diagonal()
         inv = np.where(diag != 0, 1.0 / np.where(diag == 0, 1.0, diag), 0.0)
-        inv_d = comm.put_rows(inv, self._mat.dtype).view(comm.size, -1)
-        return lambda r: r * inv_d
+        return comm.put_rows(inv, self._mat.dtype).view(comm.size, -1)
+
+    def local_apply_many(self, comm, n: int):
+        """Batched ``Z = M R`` on ``(size, k, lsize)`` blocks (JAX
+        ``pc.py:601``): the identity for none, the inverse diagonal broadcast
+        over the column axis for jacobi, and None for mg, which has no
+        batched apply (``KSP.solve_many`` then solves column by column)."""
+        if self._type == "none":
+            return lambda R: R
+        if self._type == "mg":
+            return None
+        inv_d = self._inv_diag(comm)[:, None, :]
+        return lambda R: R * inv_d
 
     def local_apply_grid3d(self, comm):
         """Grid-shaped apply ``z = M3(r)`` on ``(size, lz, ny, nx)`` tensors

@@ -1,13 +1,14 @@
 """Solver result reporting: the KSPConvergedReason codes and ``SolveResult``.
 
-The port's copy of ``mpi_petsc4py_example_tpu/utils/convergence.py`` (the
-single-solve part), with the same PETSc-compatible integer codes, so results
-of the two packages compare field by field.
+The port's copy of ``mpi_petsc4py_example_tpu/utils/convergence.py``
+(``SolveResult`` and ``BatchedSolveResult`` without the resilience fields),
+with the same PETSc-compatible integer codes, so results of the two packages
+compare field by field.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 class ConvergedReason:
@@ -58,4 +59,53 @@ class SolveResult:
     def __repr__(self):
         return (f"SolveResult(iters={self.iterations}, "
                 f"rnorm={self.residual_norm:.3e}, {self.reason_name}, "
+                f"{self.wall_time*1e3:.1f} ms)")
+
+
+@dataclass
+class BatchedSolveResult:
+    """What ``KSP.solve_many`` reports: one entry per RHS column.
+
+    ``iterations``/``residual_norms``/``reasons`` are per-column lists (a
+    column that converges early keeps its own, smaller iteration count while
+    the others run on); ``histories`` holds k lists, empty (the port records
+    no history yet). ``X`` is the solution block the solve wrote: the
+    ``(n, nrhs)`` host array, or the list of ``Vec``s passed as ``X``.
+    ``wall_time`` covers the whole batched solve; ``host_syncs`` counts its
+    device-to-host reads (one at set-up, one per lockstep iteration).
+    """
+    iterations: list = field(default_factory=list)
+    residual_norms: list = field(default_factory=list)
+    reasons: list = field(default_factory=list)
+    wall_time: float = 0.0
+    X: object = None
+    histories: list = field(default_factory=list)
+    host_syncs: int = 0
+
+    @property
+    def nrhs(self) -> int:
+        return len(self.reasons)
+
+    @property
+    def converged(self) -> bool:
+        """True when EVERY column converged (KSPMatSolve semantics)."""
+        return bool(self.reasons) and all(r > 0 for r in self.reasons)
+
+    @property
+    def reason_names(self):
+        return [ConvergedReason.name(r) for r in self.reasons]
+
+    def per_rhs(self):
+        """Per-column :class:`SolveResult` views (shared wall time)."""
+        return [SolveResult(int(it), float(rn), int(rs), self.wall_time)
+                for it, rn, rs in zip(self.iterations, self.residual_norms,
+                                      self.reasons)]
+
+    def __repr__(self):
+        if not self.reasons:
+            return "BatchedSolveResult(empty)"
+        return (f"BatchedSolveResult(nrhs={self.nrhs}, "
+                f"iters={min(self.iterations)}-{max(self.iterations)}, "
+                f"max rnorm={max(self.residual_norms):.3e}, "
+                f"{'all converged' if self.converged else 'NOT converged'}, "
                 f"{self.wall_time*1e3:.1f} ms)")

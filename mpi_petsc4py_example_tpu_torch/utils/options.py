@@ -3,7 +3,8 @@
 The port's subset of ``mpi_petsc4py_example_tpu/utils/options.py``: the same
 argv parsing and typed getters, for the flags ``KSP.set_from_options`` reads
 (``-ksp_type``, ``-pc_type``, ``-ksp_rtol``, ``-ksp_atol``, ``-ksp_max_it``,
-``-ksp_norm_type``, ``-pc_mg_smooth_type``). Each process has one database,
+``-ksp_norm_type``, ``-ksp_batch_limit``, ``-pc_mg_smooth_type``). Each
+process has one database,
 seeded with :func:`init`.
 """
 
