@@ -17,7 +17,8 @@ before each and read just after:
   per-iteration time;
 * CG + PC mg (the geometric-multigrid V-cycle, ``bench.py``'s second half) on
   the same problems, with the launches of each V-cycle kernel checked against
-  the cycle count, the plain-version path, the Jacobi smoother, a profiler
+  the cycle count, per-level times of the two ``csrc/mg3d.cu`` kernels over
+  the 512^3 cycle, the plain-version path, the Jacobi smoother, a profiler
   breakdown, and the slab cycle on a 4-shard virtual mesh held against one
   shard (fp64, 64^3);
 * the batched multi-RHS solve ``KSP.solve_many`` (``bench.py``'s third part):
@@ -27,6 +28,11 @@ before each and read just after:
   its own sequential solve; a mixed easy/hard batch (fp64); then 512^3 k = 8: the
   delta-method per-iteration time, peak memory, and a converged solve with
   every column's fp64 true residual on the card.
+
+``python3 chip_smoke.py --mg3d`` builds the kernels and prints only the
+per-level table of the two ``csrc/mg3d.cu`` kernels and the warm CG + mg
+walls at 128^3 and 512^3 (a copy of this script placed in another checkout
+times that checkout's kernels).
 
 Every check raises on failure, so the exit code is 0 only when all phases
 passed. The last line of standard output is
@@ -307,14 +313,33 @@ def mg_path_shapes():
     return {shape: ", ".join(p) for shape, p in paths.items()}
 
 
+# shapes that straddle the 64 x 16 tiles and the z-chunks of csrc/mg3d.cu:
+# x, y = tile +- 1 for smooth_pair (+- 2 for residual_restrict's fine tile),
+# lz one or three planes past a multiple of the chunk (smooth_pair: 2 on the
+# small planes, 8 on (161, 1025); residual_restrict: 1 coarse plane, 16 on
+# (162, 642)); both staging routes in f32 and f64
+TILE_EDGE_SHAPES = ((17, 15, 63), (35, 17, 65), (19, 17, 65),
+                    (131, 161, 1025), (34, 18, 66), (66, 14, 62),
+                    (70, 18, 66), (70, 162, 642), (70, 162, 644))
+
+
+def mg3d_route(nx, itemsize):
+    """The staging route ``csrc/mg3d.cu`` takes for rows of ``nx`` elements
+    of ``itemsize`` bytes (on tensors from PyTorch's allocator, whose
+    16-byte alignment the route also needs): "vec16" (16-byte copies) or
+    "elem" (one copy per element)."""
+    return "vec16" if nx % (16 // itemsize) == 0 else "elem"
+
+
 def phase_mg_kernel_checks():
     """The five V-cycle kernels vs their plain versions on the card, f32 and
-    f64, at every shape the driven paths give them (:func:`mg_path_shapes`)
-    and three ragged ones; smooth and residual with random halos and with
-    zero ones at every shape. Limit: max|kernel - plain| <= Y_TOL *
-    max|plain|; the kernels repeat the plain order of operations with no FMA
-    contraction, so they are expected to agree bit for bit. Returns the
-    largest f32 errors per kernel."""
+    f64, at every shape the driven paths give them (:func:`mg_path_shapes`),
+    three ragged ones and :data:`TILE_EDGE_SHAPES` (each line logs the
+    ``mg3d`` kernels' staging route); smooth and residual with
+    random halos and with zero ones at every shape. The kernels repeat the
+    plain order of operations with no FMA contraction, so they must agree
+    bit for bit (checked after the per-shape limit max|kernel - plain| <=
+    Y_TOL * max|plain|). Returns the largest f32 errors per kernel."""
     import torch
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
     worst = {name: 0.0 for name in MG_KERNELS}
@@ -322,6 +347,8 @@ def phase_mg_kernel_checks():
     shapes = mg_path_shapes()
     for extra in ((100, 130, 200), (17, 9, 33), (18, 10, 66)):
         shapes.setdefault(extra, "ragged")
+    for extra in TILE_EDGE_SHAPES:
+        shapes.setdefault(extra, "tile edge")
     for dtype in (torch.float32, torch.float64):
         tol = Y_TOL[str(dtype)[6:]]
         for i, (shape, label) in enumerate(shapes.items()):
@@ -343,11 +370,13 @@ def phase_mg_kernel_checks():
                     worst[name] = max(worst[name], err)
                 del ref, got
             log(f"check {str(dtype)[6:]} {shape} ({label}): max|err| "
-                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" [mg3d route {mg3d_route(shape[2], dtype.itemsize)}]")
             del calls
             torch.cuda.empty_cache()
     log(f"check: V-cycle kernels bit-exact with their plain versions at "
         f"every shape and dtype: {exact}")
+    check(exact, "a V-cycle kernel is not bit-exact with its plain version")
     u = torch.zeros((4, 6, 8), device="cuda", dtype=torch.float32)
     for bad in ((3, 6, 8), (4, 5, 8), (4, 6, 7)):
         try:
@@ -366,9 +395,11 @@ def phase_mg_kernel_checks():
 
 
 def mg_bound_ms(name, n, itemsize):
-    """Least time on the card for one V-cycle kernel at n^3 from the bytes it
-    must move (inputs read once, output written once) and its operations."""
-    pts, plane = n ** 3, n * n
+    """Least time on the card for one V-cycle kernel at n^3 (or the shape
+    ``n``) from the bytes it must move (inputs read once, output written
+    once) and its operations."""
+    lz, ny, nx = (n, n, n) if isinstance(n, int) else n
+    pts, plane = lz * ny * nx, ny * nx
     nbytes, flops = {
         # u, f in, out; two halo planes; 7 apply + sub + mul + add
         "stencil7_smooth": ((3 * pts + 2 * plane) * itemsize, 10 * pts),
@@ -405,6 +436,86 @@ def phase_mg_kernel_times(n):
             f"{b_ms / r['ms'] * 100:.1f}% of it), no one-call library "
             f"equivalent, max|err| {err:.3e}")
     torch.cuda.empty_cache()
+    return out
+
+
+def host_us_per_call(fn, calls=50):
+    """Host time of one wrapper call, launch included, without waiting for
+    the device: the mean over ``calls`` back-to-back calls after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def phase_mg_level_times(n=512):
+    """``mg3d_smooth_pair`` and ``mg3d_residual_restrict`` at every level of
+    the n^3 cycle that runs them (n^3 down to 8^3), f32: kernel ms, bound ms,
+    % of bound and the wrapper's host us per call, on random inputs, each
+    checked bit-exact against its plain version first. Returns ``{name:
+    [row per level]}``."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    from mpi_petsc4py_example_tpu_torch.solvers.mg import mg_levels
+    out = {"mg3d_smooth_pair": [], "mg3d_residual_restrict": []}
+    for lvl in mg_levels(n, n, n)[:-1]:
+        calls = mg_kernel_calls(st, torch.float32, lvl, 61)
+        big = lvl[0] >= 256
+        for name, rows in out.items():
+            kern, plain = calls[name]
+            err = float((kern() - plain()).abs().max())
+            check(err == 0.0, f"{name} {lvl}: max|err| {err}")
+            ms = device_ms(kern, 20 if big else 100, reps=15 if big else 25)
+            b_ms, _ = mg_bound_ms(name, lvl, 4)
+            host = host_us_per_call(kern)
+            rows.append({"shape": list(lvl), "ms": ms, "bound_ms": b_ms,
+                         "pct_of_bound": b_ms / ms * 100, "host_us": host,
+                         "route": mg3d_route(lvl[2], 4)})
+            log(f"level {name} {lvl} f32: kernel {ms:.5f} ms, bound "
+                f"{b_ms:.5f} ms ({b_ms / ms * 100:.1f}% of it), host "
+                f"{host:.2f} us/call, route {mg3d_route(lvl[2], 4)}")
+        del calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mg_walls(reps=7):
+    """Warm CG + PC mg walls per iteration at 128^3 and 512^3 f32 (rtol
+    1e-6, b = A x_true as the mg phases make it): the median and the range
+    over ``reps`` solves after one warm-up, with the iterations. Returns
+    ``{n: {"ms_per_iter": ..., "samples": [...], "iterations": ...}}``."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    out = {}
+    for nx in (128, 512):
+        op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        n = nx ** 3
+        bv = op.mult(pt.Vec(comm, n, data=torch.rand(
+            n, generator=g, device="cuda", dtype=torch.float32)))
+        x, _ = op.get_vecs()
+        ksp = cg_mg(comm, op, 1e-6)
+        its = zero_solve(ksp, bv, x)
+        samples = []
+        for _ in range(reps):
+            x.zero()
+            r = ksp.solve(bv, x)
+            check(r.converged and r.iterations == its,
+                  f"{nx}^3 mg warm solve: {r}")
+            samples.append(r.wall_time / r.iterations * 1e3)
+        out[nx] = {"ms_per_iter": statistics.median(samples),
+                   "samples": samples, "iterations": its}
+        log(f"mg walls {nx}^3 f32 CG+mg: {its} iterations, warm median "
+            f"{out[nx]['ms_per_iter']:.4f} ms/iter (range "
+            f"{min(samples):.4f}-{max(samples):.4f} over {reps} solves)")
+        del op, bv, x, ksp
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1242,11 +1353,21 @@ def main():
           and torch.get_float32_matmul_precision() == "highest",
           "TF32 matmuls are on")
     phase_build()
+    if sys.argv[1:] == ["--mg3d"]:
+        # only the per-level table of the two mg3d kernels and the CG + mg
+        # warm walls, e.g. to time another checkout's csrc/ with this script
+        # copied beside it
+        print(json.dumps({"mg_levels": phase_mg_level_times(),
+                          "mg_walls": phase_mg_walls()}))
+        print(card_line())
+        return
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     worst = phase_kernel_checks()
     worst.update(phase_mg_kernel_checks())
     times = {n: phase_kernel_times(n) for n in (128, 512)}
     for n in (128, 512):
         times[n].update(phase_mg_kernel_times(n))
+    levels = phase_mg_level_times()
     # each path: counters zeroed just before, read just after
     launches, oracle = phase_main_path()
     launches_512 = phase_realistic()
@@ -1293,6 +1414,8 @@ def main():
             "library_ms": big["library_ms"],
             "shape": ([K_BATCH] if name in MANY_KERNELS else []) + [512] * 3,
             "dtype": "float32", "at_128": small, "launches_512": count_512})
+        if name in levels:
+            kernels[-1]["levels_512"] = levels[name]
         if name == "stencil7_dot":
             kernels[-1]["dot_rel_err"] = worst["dot_rel"]
         if name == "stencil7_dot_many":

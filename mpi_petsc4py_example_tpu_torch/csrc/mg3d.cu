@@ -5,52 +5,92 @@
 //   mg3d_smooth_pair_{f32,f64}       -> stencil3d_smooth_pair_pallas (:1251),
 //                                       body _double_sweep_kernel (:1157)
 //   mg3d_residual_restrict_{f32,f64} -> stencil3d_residual_restrict_pallas (:1090),
-//                                       body _resid_restrict3_kernel (:987)
+//                                       body _resid_restrict3_kernel (:987); also
+//                                       stencil3d_residual_zrestrict_pallas (:965),
+//                                       whose z-only tier this kernel covers
 //
 // Both work on a single-slab z-slab u (lz, ny, nx), x fastest, with zero
 // Dirichlet ghosts on every side (no halo planes: the V-cycle's local levels).
 // Au below is the 7-point apply 6u - (6 neighbours) in the plain order.
 //
+// Bound on the H100: device memory.  smooth_pair reads u and f and writes u2
+// (3 fine passes); residual_restrict reads u and f and writes 1/8 of a pass
+// (2.125).  Both do ~20 flop per fine point, far under the fp32 rate, but at
+// 3.35 TB/s an SM must finish about one fine point per clock, so the
+// instructions per point bound the kernels next: the design keeps them few.
+//
+// Tiles.  A block of 256 threads owns a 64 x 16 tile of fine points and one
+// z-chunk, and marches up z.  Thread (lx, g) owns the column x0 + lx and the
+// four rows y0 + 4g .. +3 of the tile: it keeps u on the planes below and at
+// z, and its results on the planes below, in registers, so each point needs
+// only its x and y neighbours from shared memory.  The tile's one-point ring
+// (164 points, the x/y taps of the tile's edge) is computed one point a
+// thread.  A 32 x 8 tile was measured in tuning runs on the H100: no faster
+// on the coarse levels and slower from 64^3 up, so there is one tile.
+//
+// Staging.  Each block stages u and f in shared memory through a ring of
+// plane windows, kAhead planes ahead of the plane in use, with cp.async; each
+// element leaves device memory once per block (the windows' rings are read
+// again by the neighbouring blocks, from L2).  A window covers x0-4 .. x0+67
+// and y0-2 .. y0+17 (the two-point ring a double sweep needs, widened in x
+// to 16-byte boundaries).  Two routes, chosen from the shape in the launcher:
+//   * "vec16": nx a multiple of 16 bytes' worth of elements and u, f 16-byte
+//     aligned (every level of the cycle): one 16-byte copy per chunk of a
+//     window row; a chunk lies wholly inside or outside the plane;
+//   * "elem": any other shape, such as (17, 9, 33): one 4- or 8-byte copy per
+//     element.
+// Window positions outside the array are stored as zeros by the thread that
+// owns them, so the ring's x = -1 and x = nx columns are zeros, never the
+// neighbouring row's end; the two routes fill the windows identically.
+//
 // smooth_pair: two damped-Jacobi sweeps, u2 = S_w2(S_w1(u)) with
-// S_w(v) = v + w (f - A v).  Sweep 2 needs u1 at the x, y and z neighbours, so a
-// block computes u1 on its (32 x 8) tile plus a one-point ring into shared
-// memory, keeps a ring of three such u1 planes while it marches up z, and
-// evaluates sweep 2 from the ring.  u1 outside the global domain is stored as
-// exactly 0 (Dirichlet ghosts stay zero through sweep 1), which is what the
-// plain version's zero fill gives.  Bound: read u and f, write u2 (3 fine
-// passes); ~20 flop/point, far under the fp32 rate.  The ring recomputes
-// sweep 1 on 34 x 10 points per 32 x 8 outputs and one extra plane at each
-// end of a z-chunk; u and f re-reads come from L1/L2.
+// S_w(v) = v + w (f - A v).  At step z a block computes u1 on plane z over
+// the tile and its ring (into a shared plane for the x/y taps, and into the
+// owner's registers), then sweep 2 on plane z-1 from the u1 planes z-2 .. z
+// it holds; f of plane z-1 comes from the owner's registers, so f is read
+// once.  u1 outside the domain is exactly 0: it is not S_w1 of the
+// zero-filled u, which is nonzero beside the boundary.  z-chunk: the longest
+// of 8, 4, 2 planes that still gives kTargetBlocks blocks (pick_chunk).
+// In tuning runs on the H100, marches of 16 to 64 planes were slower at
+// 512^3 than 8, and 4 slower again, although each chunk stages 4 extra u
+// planes; why is not measured.  The coarse levels take chunks of 2 and keep
+// their blocks (64^3: 128 blocks).
 //
 // residual_restrict: the coarse right-hand side restrict(f - A u) of shape
 // (lz/2, ny/2, nx/2), per axis
 //   c[i] = s (0.75 (r[2i] + r[2i+1]) + 0.25 (r[2i-1] + r[2i+2])),  s = RSCALE,
 // with r = 0 outside the domain (r at fine index -1 or n is 0, not f - A u
-// evaluated there).  The TPU does y/x as two MXU matmuls with the banded _tmat
-// weights; here the four taps are computed directly, in the plain version's
-// order: z first, then y, then x.  Each thread marches its patch points up
-// the fine planes, keeping r at the two planes below in registers, and writes
-// the z-restricted plane of the block's patch into shared memory; the block
-// then restricts y and x from there.  Neither the fine residual nor any
-// intermediate goes to device memory.  Bound: read u and f once, write 1/8 of
-// a pass (2.125 fine passes).
+// evaluated there).  The TPU does y/x as two MXU matmuls with the banded
+// _tmat weights; here the four taps are computed directly, in the plain
+// version's order: z first, then y, then x.  The fine tile is the 32 x 8
+// coarse tile doubled; each thread keeps r at fine planes 2k-1,
+// 2k, 2k+1 of its points in registers, and every second fine plane writes
+// the z-restricted patch (tile and ring) to shared memory, from which the
+// block restricts y and then x.  Neither the fine residual nor any
+// intermediate goes to device memory.  Coarse z-chunk: the longest of 16, 8,
+// ..., 1 coarse planes that gives kTargetBlocks blocks (512^3 and 256^3
+// march 16, 128^3 4, the coarser levels 1).
 //
 // Arithmetic: products go through __fmul_rn/__dmul_rn so nvcc cannot contract
-// them into FMAs, and every operation rounds as the plain PyTorch version's
-// separate operations do.  The kernels launch on the caller's stream, allocate
-// nothing and do not synchronise; each entry point returns cudaGetLastError().
+// them into FMAs, the six neighbours are subtracted in the plain version's
+// order (z-1, z+1, y-1, y+1, x-1, x+1), and every operation rounds as the
+// plain PyTorch version's separate operations do; a staged zero subtracts
+// exactly as the plain version's zero fill.  So both kernels agree with their
+// plain versions bit for bit.  The kernels launch on the caller's stream,
+// allocate nothing and do not synchronise; each entry point returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int kBX = 32;   // threads along x
-constexpr int kBY = 8;    // threads along y
-constexpr int kThreads = kBX * kBY;
-constexpr int kPairZC = 16;      // fine planes per smooth_pair tile
-constexpr int kRestrictKC = 4;   // coarse planes per residual_restrict tile
+constexpr int kTX = 64, kTY = 16;        // the fine tile a block owns
+constexpr int kRows = 4;                 // tile rows a thread owns
+constexpr int kAhead = 2;                // planes staged ahead of the one in use
+constexpr int kTargetBlocks = 256;      // about two blocks for each of the 132 SMs
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -60,21 +100,140 @@ struct Grid3 {
   int64_t plane;
 };
 
-// r = f - A u at (z, y, x) with zero ghosts, and 0 outside the domain.
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The geometry of the kTX x kTY tile: its staged window (WX x WY, corner
+// (y0-2, x0-4)) and its one-point-ring frame (EX x EY, corner (y0-1, x0-1)).
 template <typename T>
-__device__ __forceinline__ T residual_at(const T* __restrict__ u, const T* __restrict__ f,
-                                         const Grid3& g, int z, int y, int x) {
-  if (z < 0 || z >= g.lz || y < 0 || y >= g.ny || x < 0 || x >= g.nx) return T(0);
-  const int64_t o = z * g.plane + static_cast<int64_t>(y) * g.nx + x;
-  const T c = u[o];
-  T v = mul_rn(T(6), c);
-  v -= z > 0 ? u[o - g.plane] : T(0);
-  v -= z < g.lz - 1 ? u[o + g.plane] : T(0);
-  v -= y > 0 ? u[o - g.nx] : T(0);
-  v -= y < g.ny - 1 ? u[o + g.nx] : T(0);
-  v -= x > 0 ? u[o - 1] : T(0);
-  v -= x < g.nx - 1 ? u[o + 1] : T(0);
-  return f[o] - v;
+struct Tile {
+  static constexpr int kThreads = kTX * kTY / kRows;
+  static constexpr int WX = kTX + 8, WY = kTY + 4, NW = WX * WY;
+  static constexpr int EX = kTX + 2, EY = kTY + 2, NE = EX * EY;
+  static constexpr int NRING = 2 * EX + 2 * kTY;
+  static constexpr int RPT = (NRING + kThreads - 1) / kThreads;   // ring points a thread
+  static constexpr int kV = 16 / static_cast<int>(sizeof(T));     // elements a 16-byte chunk
+  static constexpr int NCH = NW / kV;                             // chunks a window
+  static constexpr int CPT = (NCH + kThreads - 1) / kThreads;     // chunks a thread
+  // frame (ey, ex) -> window offset
+  static __device__ __forceinline__ int win(int ey, int ex) { return (ey + 1) * WX + ex + 3; }
+  // the ring's e-th point in the frame: rows 0 and EY-1, then columns 0 and EX-1
+  static __device__ __forceinline__ void ring(int e, int& ey, int& ex) {
+    if (e < 2 * EX) {
+      ey = e < EX ? 0 : EY - 1;
+      ex = e < EX ? e : e - EX;
+    } else {
+      const int k = e - 2 * EX;
+      ey = 1 + (k >> 1);
+      ex = (k & 1) ? EX - 1 : 0;
+    }
+  }
+};
+
+// Copies plane z of an array into a window; zeros where the window leaves the
+// array.  kVec: the 16-byte route, its chunks decoded once per tile.
+template <typename T, bool kVec>
+struct Stager {
+  using G = Tile<T>;
+  static constexpr int N = kVec ? G::CPT : 1;
+  int soff[N];       // window offset of the chunk, -1 for none
+  int64_t goff[N];   // in-plane offset of its first element
+  bool inside[N];
+  int y0, x0;
+
+  __device__ __forceinline__ void init(const Grid3& g, int ty0, int tx0) {
+    y0 = ty0;
+    x0 = tx0;
+    if constexpr (kVec) {
+      constexpr int CX = G::WX / G::kV;   // chunks a window row
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        const int c = threadIdx.x + q * G::kThreads;
+        const int row = c / CX, cx = c - row * CX;
+        const int y = y0 - 2 + row, x = x0 - 4 + cx * G::kV;
+        soff[q] = c < G::NCH ? c * G::kV : -1;
+        inside[q] = y >= 0 && y < g.ny && x >= 0 && x < g.nx;
+        goff[q] = static_cast<int64_t>(y) * g.nx + x;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void plane(T* dst, const T* __restrict__ src, const Grid3& g,
+                                        int z) const {
+    const bool zin = z >= 0 && z < g.lz;
+    const T* base = src + (zin ? z * g.plane : 0);
+    if constexpr (kVec) {
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        if (soff[q] < 0) continue;
+        if (zin && inside[q]) {
+          cp_async<16>(dst + soff[q], base + goff[q]);
+        } else {
+          *reinterpret_cast<uint4*>(dst + soff[q]) = make_uint4(0, 0, 0, 0);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < G::NW; e += G::kThreads) {
+        const int ey = e / G::WX, ex = e - ey * G::WX;
+        const int y = y0 - 2 + ey, x = x0 - 4 + ex;
+        if (zin && y >= 0 && y < g.ny && x >= 0 && x < g.nx) {
+          cp_async<sizeof(T)>(dst + e, base + static_cast<int64_t>(y) * g.nx + x);
+        } else {
+          dst[e] = T(0);
+        }
+      }
+    }
+  }
+};
+
+// 6 c - (z-1) - (z+1) - (y-1) - (y+1) - (x-1) - (x+1) at offset o of a window of
+// row pitch W, from the planes below (m), at (c) and above (p).
+template <typename T, int W>
+__device__ __forceinline__ T apply_at(const T* m, const T* c, const T* p, int o) {
+  T a = mul_rn(T(6), c[o]);
+  a -= m[o];
+  a -= p[o];
+  a -= c[o - W];
+  a -= c[o + W];
+  a -= c[o - 1];
+  a -= c[o + 1];
+  return a;
+}
+
+// The same for a thread's four rows with the z taps and the centre column in
+// registers (zm, zp, cc) and the rest read from the centre plane c at window
+// offset o of row 0: a[r] = A at row r.
+template <typename T, int W>
+__device__ __forceinline__ void apply_rows(const T (&zm)[kRows], const T (&cc)[kRows],
+                                           const T (&zp)[kRows], const T* c, int o,
+                                           T (&a)[kRows]) {
+  const T ym = c[o - W], yp = c[o + kRows * W];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    T v = mul_rn(T(6), cc[r]);
+    v -= zm[r];
+    v -= zp[r];
+    v -= r == 0 ? ym : cc[r - 1];
+    v -= r == kRows - 1 ? yp : cc[r + 1];
+    v -= c[o + r * W - 1];
+    v -= c[o + r * W + 1];
+    a[r] = v;
+  }
 }
 
 // One 4-tap restriction: s (0.75 (a + b) + 0.25 (lo + hi)), the plain order.
@@ -84,128 +243,272 @@ __device__ __forceinline__ T taps(T s, T lo, T a, T b, T hi) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct PairSmem {
+  using G = Tile<T>;
+  static constexpr int NU = kAhead + 3, NF = kAhead + 1;   // u and f windows
+  static constexpr size_t kBytes = sizeof(T) * ((NU + NF) * G::NW + 2 * G::NE);
+};
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(Tile<T>::kThreads)
 smooth_pair_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restrict__ out,
-                   Grid3 g, int ntx, int nty, int ntz, T w1, T w2) {
-  constexpr int EX = kBX + 2, EY = kBY + 2, NE = EX * EY;
-  __shared__ T ring[3][EY][EX];
-  const int tid = threadIdx.x + threadIdx.y * kBX;
+                   Grid3 g, int zc, int ntx, int nty, int ntz, T w1, T w2) {
+  using G = Tile<T>;
+  using S = PairSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const su = reinterpret_cast<T*>(smem);
+  T* const sf = su + S::NU * G::NW;
+  T* const s1 = sf + S::NF * G::NW;   // u1 on planes z-1 and z, the frame
+  const int lx = threadIdx.x % kTX, ly = (threadIdx.x / kTX) * kRows;
+  const int wo = G::win(ly + 1, lx + 1);   // row 0 of this thread in a window
+  const int eo = (ly + 1) * G::EX + lx + 1;   // ... and in the frame
   for (int tz = blockIdx.z; tz < ntz; tz += gridDim.z) {
     for (int ty = blockIdx.y; ty < nty; ty += gridDim.y) {
       for (int tx = blockIdx.x; tx < ntx; tx += gridDim.x) {
-        const int x0 = tx * kBX, y0 = ty * kBY;
-        const int z0 = tz * kPairZC;
-        const int z1 = min(z0 + kPairZC, g.lz);
-        // u1 on planes z0-1 .. z1; plane zz lives in slot (zz - z0 + 1) % 3
+        const int x0 = tx * kTX, y0 = ty * kTY;
+        const int z0 = tz * zc, z1 = min(z0 + zc, g.lz);
+        Stager<T, kVec> stager;
+        stager.init(g, y0, x0);
+        // plane p of u, f, u1 lives in these slots (p >= z0-2, z0-1, z0-1)
+        auto us = [&](int p) { return su + ((p - z0 + 2) % S::NU) * G::NW; };
+        auto fs = [&](int p) { return sf + ((p - z0 + 1) % S::NF) * G::NW; };
+        auto u1s = [&](int p) { return s1 + ((p - z0 + 1) & 1) * G::NE; };
+        // u on planes z0-2 .. z1+1 and f on z0-1 .. z1; step z needs u up to
+        // z+1 and f at z, and stages u at z+1+kAhead and f at z+kAhead
+        auto stage = [&](int pu, int pf) {
+          if (pu <= z1 + 1) stager.plane(us(pu), u, g, pu);
+          if (pf <= z1) stager.plane(fs(pf), f, g, pf);
+        };
+        stager.plane(us(z0 - 2), u, g, z0 - 2);
+        stager.plane(us(z0 - 1), u, g, z0 - 1);
+        stage(z0, z0 - 1);
+        cp_commit();
+#pragma unroll
+        for (int d = 1; d < kAhead; ++d) {
+          stage(z0 + d, z0 - 1 + d);
+          cp_commit();
+        }
+        const int x = x0 + lx;
+        bool yin[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) yin[r] = x < g.nx && y0 + ly + r < g.ny;
+        // registers: u at z-1 and z; u1 at z-2, z-1, z; f at z-1 and z
+        T um[kRows], uc[kRows], u1m[kRows], u1c[kRows], u1p[kRows], fm[kRows], fc[kRows];
         for (int zz = z0 - 1; zz <= z1; ++zz) {
-          const int slot = (zz - z0 + 1) % 3;
-          for (int e = tid; e < NE; e += kThreads) {
-            const int ey = e / EX, ex = e - ey * EX;
-            const int y = y0 - 1 + ey, x = x0 - 1 + ex;
-            T v = T(0);   // the zero ghost, and anything outside the domain
-            if (zz >= 0 && zz < g.lz && y >= 0 && y < g.ny && x >= 0 && x < g.nx) {
-              const int64_t o = zz * g.plane + static_cast<int64_t>(y) * g.nx + x;
-              const T c = u[o];
-              T a = mul_rn(T(6), c);
-              a -= zz > 0 ? u[o - g.plane] : T(0);
-              a -= zz < g.lz - 1 ? u[o + g.plane] : T(0);
-              a -= y > 0 ? u[o - g.nx] : T(0);
-              a -= y < g.ny - 1 ? u[o + g.nx] : T(0);
-              a -= x > 0 ? u[o - 1] : T(0);
-              a -= x < g.nx - 1 ? u[o + 1] : T(0);
-              v = c + mul_rn(w1, f[o] - a);
+          cp_wait<kAhead - 1>();
+          __syncthreads();   // this step's planes are in; last step's readers are done
+          stage(zz + 1 + kAhead, zz + kAhead);
+          cp_commit();
+          const T *Um = us(zz - 1), *Uc = us(zz), *Up = us(zz + 1), *Fc = fs(zz);
+          T* const U1 = u1s(zz);
+          const bool zin = zz >= 0 && zz < g.lz;
+          // sweep 1: u1 on plane zz, this thread's rows
+          if (zz == z0 - 1) {
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              um[r] = Um[wo + r * G::WX];
+              uc[r] = Uc[wo + r * G::WX];
             }
-            ring[slot][ey][ex] = v;
+          }
+          T up[kRows], a[kRows];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) up[r] = Up[wo + r * G::WX];
+          apply_rows<T, G::WX>(um, uc, up, Uc, wo, a);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            fm[r] = fc[r];
+            fc[r] = Fc[wo + r * G::WX];
+            u1m[r] = u1c[r];
+            u1c[r] = u1p[r];
+            u1p[r] = zin && yin[r] ? uc[r] + mul_rn(w1, fc[r] - a[r]) : T(0);
+            U1[eo + r * G::EX] = u1p[r];
+            um[r] = uc[r];
+            uc[r] = up[r];
+          }
+          // ... and on the tile's ring (the zero ghost outside the domain)
+#pragma unroll
+          for (int q = 0; q < G::RPT; ++q) {
+            const int e = threadIdx.x + q * G::kThreads;
+            if (e < G::NRING) {
+              int ey, ex;
+              G::ring(e, ey, ex);
+              const int y = y0 - 1 + ey, xr = x0 - 1 + ex;
+              T v = T(0);
+              if (zin && y >= 0 && y < g.ny && xr >= 0 && xr < g.nx) {
+                const int o = G::win(ey, ex);
+                v = Uc[o] + mul_rn(w1, Fc[o] - apply_at<T, G::WX>(Um, Uc, Up, o));
+              }
+              U1[ey * G::EX + ex] = v;
+            }
           }
           __syncthreads();
-          // sweep 2 on plane zz - 1, from the ring's planes zz-2, zz-1, zz
-          const int zc = zz - 1;
-          const int x = x0 + static_cast<int>(threadIdx.x);
-          const int y = y0 + static_cast<int>(threadIdx.y);
-          if (zc >= z0 && x < g.nx && y < g.ny) {
-            const int sb = (zc - z0) % 3, sc = (zc - z0 + 1) % 3, sa = (zc - z0 + 2) % 3;
-            const int ly = threadIdx.y + 1, lx = threadIdx.x + 1;
-            const T c = ring[sc][ly][lx];
-            T a = mul_rn(T(6), c);
-            a -= ring[sb][ly][lx];
-            a -= ring[sa][ly][lx];
-            a -= ring[sc][ly - 1][lx];
-            a -= ring[sc][ly + 1][lx];
-            a -= ring[sc][ly][lx - 1];
-            a -= ring[sc][ly][lx + 1];
-            const int64_t o = zc * g.plane + static_cast<int64_t>(y) * g.nx + x;
-            out[o] = c + mul_rn(w2, f[o] - a);
+          // sweep 2 on plane zz - 1, z taps from registers
+          const int zo = zz - 1;
+          if (zo >= z0) {
+            apply_rows<T, G::EX>(u1m, u1c, u1p, u1s(zo), eo, a);
+            T* const dst = out + zo * g.plane + static_cast<int64_t>(y0 + ly) * g.nx + x;
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              if (yin[r]) dst[static_cast<int64_t>(r) * g.nx] = u1c[r] + mul_rn(w2, fm[r] - a[r]);
+            }
           }
-          __syncthreads();   // the next plane overwrites the oldest slot
         }
+        cp_wait<0>();
+        __syncthreads();   // the next tile restages every slot
       }
     }
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-residual_restrict_kernel(const T* __restrict__ u, const T* __restrict__ f,
-                         T* __restrict__ out, Grid3 g, int ntx, int nty, int ntz, T s) {
-  // a block makes a (kBY x kBX) tile of coarse points; its fine patch, with
-  // the one-point ring the outer taps reach, is PY x PX
-  constexpr int PX = 2 * kBX + 2, PY = 2 * kBY + 2, NP = PX * PY;
-  constexpr int NPT = (NP + kThreads - 1) / kThreads;
-  __shared__ T rz[PY][PX];    // z-restricted residual of one coarse plane
-  __shared__ T ry[kBY][PX];   // ... then y-restricted
-  const int tid = threadIdx.x + threadIdx.y * kBX;
+struct RestrictSmem {
+  using G = Tile<T>;
+  static constexpr int NU = kAhead + 3, NF = kAhead + 1;   // u and f windows
+  static constexpr size_t kBytes = sizeof(T) * ((NU + NF) * G::NW + G::NE + (kTY / 2) * G::EX);
+};
+
+// The fine tile is kTX x kTY, twice the coarse one.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(Tile<T>::kThreads)
+residual_restrict_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restrict__ out,
+                         Grid3 g, int kc, int ntx, int nty, int ntz, T s) {
+  using G = Tile<T>;
+  using S = RestrictSmem<T>;
+  constexpr int CX = kTX / 2, CY = kTY / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const su = reinterpret_cast<T*>(smem);
+  T* const sf = su + S::NU * G::NW;
+  T* const rz = sf + S::NF * G::NW;   // z-restricted residual of a coarse plane, the frame
+  T* const ry = rz + G::NE;           // ... then y-restricted, CY x EX
+  const int lx = threadIdx.x % kTX, ly = (threadIdx.x / kTX) * kRows;
+  const int wo = G::win(ly + 1, lx + 1);
+  const int eo = (ly + 1) * G::EX + lx + 1;
   const int lzc = g.lz / 2, nyc = g.ny / 2, nxc = g.nx / 2;
   const int64_t cplane = static_cast<int64_t>(nyc) * nxc;
   for (int tz = blockIdx.z; tz < ntz; tz += gridDim.z) {
     for (int ty = blockIdx.y; ty < nty; ty += gridDim.y) {
       for (int tx = blockIdx.x; tx < ntx; tx += gridDim.x) {
-        const int i0 = tx * kBX, j0 = ty * kBY;
-        const int k0 = tz * kRestrictKC;
-        const int k1 = min(k0 + kRestrictKC, lzc);
-        // r at fine planes 2k-1 and 2k for each of this thread's patch points
-        T rm[NPT], r0[NPT];
+        const int i0 = tx * CX, j0 = ty * CY;
+        const int x0 = 2 * i0, y0 = 2 * j0;
+        const int k0 = tz * kc, k1 = min(k0 + kc, lzc);
+        // r on fine planes p0 .. p1, u on p0-1 .. p1+1, f on p0 .. p1
+        const int p0 = 2 * k0 - 1, p1 = 2 * k1;
+        Stager<T, kVec> stager;
+        stager.init(g, y0, x0);
+        auto us = [&](int p) { return su + ((p - p0 + 1) % S::NU) * G::NW; };
+        auto fs = [&](int p) { return sf + ((p - p0) % S::NF) * G::NW; };
+        auto stage = [&](int pu, int pf) {
+          if (pu <= p1 + 1) stager.plane(us(pu), u, g, pu);
+          if (pf <= p1) stager.plane(fs(pf), f, g, pf);
+        };
+        stager.plane(us(p0 - 1), u, g, p0 - 1);
+        stager.plane(us(p0), u, g, p0);
+        stage(p0 + 1, p0);
+        cp_commit();
 #pragma unroll
-        for (int q = 0; q < NPT; ++q) {
-          const int p = tid + q * kThreads;
-          const int py = p / PX, px = p - py * PX;
-          const int y = 2 * j0 - 1 + py, x = 2 * i0 - 1 + px;
-          const bool in = p < NP;
-          rm[q] = in ? residual_at(u, f, g, 2 * k0 - 1, y, x) : T(0);
-          r0[q] = in ? residual_at(u, f, g, 2 * k0, y, x) : T(0);
+        for (int d = 1; d < kAhead; ++d) {
+          stage(p0 + 1 + d, p0 + d);
+          cp_commit();
         }
-        for (int k = k0; k < k1; ++k) {
+        const int x = x0 + lx;
+        bool yin[kRows];
 #pragma unroll
-          for (int q = 0; q < NPT; ++q) {
-            const int p = tid + q * kThreads;
-            if (p < NP) {
-              const int py = p / PX, px = p - py * PX;
-              const int y = 2 * j0 - 1 + py, x = 2 * i0 - 1 + px;
-              const T r1 = residual_at(u, f, g, 2 * k + 1, y, x);
-              const T r2 = residual_at(u, f, g, 2 * k + 2, y, x);
-              rz[py][px] = taps(s, rm[q], r0[q], r1, r2);
-              rm[q] = r1;
-              r0[q] = r2;
+        for (int r = 0; r < kRows; ++r) yin[r] = x < g.nx && y0 + ly + r < g.ny;
+        // u at p-1 and p; r at fine planes 2k-1, 2k, 2k+1 of this thread's
+        // rows and of its ring points
+        T um[kRows], uc[kRows];
+        T rm[kRows + G::RPT], r0[kRows + G::RPT], r1[kRows + G::RPT];
+        for (int p = p0; p <= p1; ++p) {
+          cp_wait<kAhead - 1>();
+          __syncthreads();
+          stage(p + 1 + kAhead, p + kAhead);
+          cp_commit();
+          const T *Um = us(p - 1), *Uc = us(p), *Up = us(p + 1), *Fc = fs(p);
+          const bool zin = p >= 0 && p < g.lz;
+          if (p == p0) {
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              um[r] = Um[wo + r * G::WX];
+              uc[r] = Uc[wo + r * G::WX];
+            }
+          }
+          T up[kRows], a[kRows], rn[kRows + G::RPT];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) up[r] = Up[wo + r * G::WX];
+          apply_rows<T, G::WX>(um, uc, up, Uc, wo, a);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            rn[r] = zin && yin[r] ? Fc[wo + r * G::WX] - a[r] : T(0);
+            um[r] = uc[r];
+            uc[r] = up[r];
+          }
+#pragma unroll
+          for (int q = 0; q < G::RPT; ++q) {
+            const int e = threadIdx.x + q * G::kThreads;
+            T v = T(0);   // r is 0 outside the domain
+            if (e < G::NRING) {
+              int ey, ex;
+              G::ring(e, ey, ex);
+              const int y = y0 - 1 + ey, xr = x0 - 1 + ex;
+              if (zin && y >= 0 && y < g.ny && xr >= 0 && xr < g.nx) {
+                const int o = G::win(ey, ex);
+                v = Fc[o] - apply_at<T, G::WX>(Um, Uc, Up, o);
+              }
+            }
+            rn[kRows + q] = v;
+          }
+          const int t = p - p0;
+          if (t < 3 || t % 2 == 0) {
+            // fine planes 2k-1, 2k and 2k+1 wait for 2k+2
+#pragma unroll
+            for (int q = 0; q < kRows + G::RPT; ++q) {
+              if (t == 0) rm[q] = rn[q];
+              else if (t == 1) r0[q] = rn[q];
+              else r1[q] = rn[q];
+            }
+            continue;
+          }
+          // z: coarse plane k from fine 2k-1 .. 2k+2
+#pragma unroll
+          for (int q = 0; q < kRows + G::RPT; ++q) {
+            const T c = taps(s, rm[q], r0[q], r1[q], rn[q]);
+            rm[q] = r1[q];
+            r0[q] = rn[q];
+            if (q < kRows) {
+              rz[eo + q * G::EX] = c;
+            } else {
+              const int e = threadIdx.x + (q - kRows) * G::kThreads;
+              if (e < G::NRING) {
+                int ey, ex;
+                G::ring(e, ey, ex);
+                rz[ey * G::EX + ex] = c;
+              }
             }
           }
           __syncthreads();
-          // y: coarse row jj takes patch rows 2jj .. 2jj+3 (fine 2j-1 .. 2j+2)
-          for (int c = tid; c < kBY * PX; c += kThreads) {
-            const int jj = c / PX, px = c - jj * PX;
-            ry[jj][px] = taps(s, rz[2 * jj][px], rz[2 * jj + 1][px], rz[2 * jj + 2][px],
-                              rz[2 * jj + 3][px]);
+          // y: coarse row jj takes frame rows 2jj .. 2jj+3 (fine 2j-1 .. 2j+2)
+          for (int c = threadIdx.x; c < CY * G::EX; c += G::kThreads) {
+            const int jj = c / G::EX, px = c - jj * G::EX;
+            const T* col = rz + 2 * jj * G::EX + px;
+            ry[c] = taps(s, col[0], col[G::EX], col[2 * G::EX], col[3 * G::EX]);
           }
           __syncthreads();
-          // x: coarse column ii takes patch columns 2ii .. 2ii+3
-          const int ii = threadIdx.x, jj = threadIdx.y;
-          const int i = i0 + ii, j = j0 + jj;
-          if (i < nxc && j < nyc) {
-            out[k * cplane + static_cast<int64_t>(j) * nxc + i] =
-                taps(s, ry[jj][2 * ii], ry[jj][2 * ii + 1], ry[jj][2 * ii + 2], ry[jj][2 * ii + 3]);
+          // x: coarse column ii takes frame columns 2ii .. 2ii+3
+          const int k = k0 + (t - 3) / 2;
+          for (int c = threadIdx.x; c < CY * CX; c += G::kThreads) {
+            const int jj = c / CX, ii = c - jj * CX;
+            const int i = i0 + ii, j = j0 + jj;
+            if (i < nxc && j < nyc) {
+              const T* row = ry + jj * G::EX + 2 * ii;
+              out[k * cplane + static_cast<int64_t>(j) * nxc + i] =
+                  taps(s, row[0], row[1], row[2], row[3]);
+            }
           }
-          // rz is rewritten only after the next plane's residuals, and ry
-          // only after the __syncthreads that follows them: no barrier here
+          // rz is rewritten two fine planes on, ry after the y pass that
+          // follows: both after the next step's barrier
         }
-        __syncthreads();   // the next tile rewrites rz
+        cp_wait<0>();
+        __syncthreads();   // the next tile restages every slot
       }
     }
   }
@@ -217,15 +520,77 @@ dim3 capped(int a, int b, int c) {
               static_cast<unsigned>(c < 65535 ? c : 65535));
 }
 
+// The z-chunk: the longest of longest, longest/2, ... shortest planes that
+// still gives kTargetBlocks blocks over xy_tiles tiles of a depth-plane march.
+int pick_chunk(int64_t xy_tiles, int depth, int longest, int shortest) {
+  for (int c = longest; c > shortest; c /= 2) {
+    if (xy_tiles * ((depth + c - 1) / c) >= kTargetBlocks) return c;
+  }
+  return shortest;
+}
+
+// The "vec16" staging route: rows of nx elements start on 16-byte boundaries.
+template <typename T>
+bool vec16(const void* u, const void* f, int nx) {
+  const auto bits = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(f);
+  return nx % (16 / static_cast<int>(sizeof(T))) == 0 && (bits & 15) == 0;
+}
+
+// Lifts the kernel's dynamic shared memory limit past 48 KB, once per device
+// (the bit mask keeps cudaFuncSetAttribute off the per-launch path).
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, unsigned* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit && (*done & bit)) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) *done |= bit;
+  return static_cast<int>(err);
+}
+
+template <typename T, bool kVec>
+int launch_smooth_pair_route(const T* u, const T* f, T* out, const Grid3& g, T w1, T w2,
+                             cudaStream_t stream) {
+  static unsigned configured = 0;
+  const size_t bytes = PairSmem<T>::kBytes;
+  if (const int err = allow_smem(smooth_pair_kernel<T, kVec>, bytes, &configured)) return err;
+  const int ntx = (g.nx - 1) / kTX + 1, nty = (g.ny - 1) / kTY + 1;
+  const int zc = pick_chunk(static_cast<int64_t>(ntx) * nty, g.lz, 8, 2);
+  const int ntz = (g.lz - 1) / zc + 1;
+  smooth_pair_kernel<T, kVec><<<capped(ntx, nty, ntz), Tile<T>::kThreads, bytes, stream>>>(
+      u, f, out, g, zc, ntx, nty, ntz, w1, w2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_smooth_pair(const void* u, const void* f, void* out, int lz, int ny, int nx,
                        double w1, double w2, void* stream) {
   const Grid3 g{lz, ny, nx, static_cast<int64_t>(ny) * nx};
-  const int ntx = (nx - 1) / kBX + 1, nty = (ny - 1) / kBY + 1, ntz = (lz - 1) / kPairZC + 1;
-  smooth_pair_kernel<T><<<capped(ntx, nty, ntz), dim3(kBX, kBY), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(f), static_cast<T*>(out), g,
-      ntx, nty, ntz, static_cast<T>(w1), static_cast<T>(w2));
+  const auto* tu = static_cast<const T*>(u);
+  const auto* tf = static_cast<const T*>(f);
+  auto* to = static_cast<T*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const T a = static_cast<T>(w1), b = static_cast<T>(w2);
+  return vec16<T>(u, f, nx) ? launch_smooth_pair_route<T, true>(tu, tf, to, g, a, b, st)
+                            : launch_smooth_pair_route<T, false>(tu, tf, to, g, a, b, st);
+}
+
+template <typename T, bool kVec>
+int launch_residual_restrict_route(const T* u, const T* f, T* out, const Grid3& g, T s,
+                                   cudaStream_t stream) {
+  static unsigned configured = 0;
+  const size_t bytes = RestrictSmem<T>::kBytes;
+  if (const int err = allow_smem(residual_restrict_kernel<T, kVec>, bytes, &configured)) {
+    return err;
+  }
+  const int ntx = (g.nx / 2 - 1) / (kTX / 2) + 1, nty = (g.ny / 2 - 1) / (kTY / 2) + 1;
+  const int kc = pick_chunk(static_cast<int64_t>(ntx) * nty, g.lz / 2, 16, 1);
+  const int ntz = (g.lz / 2 - 1) / kc + 1;
+  residual_restrict_kernel<T, kVec><<<capped(ntx, nty, ntz), Tile<T>::kThreads, bytes,
+                                      stream>>>(u, f, out, g, kc, ntx, nty, ntz, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,13 +598,13 @@ template <typename T>
 int launch_residual_restrict(const void* u, const void* f, void* out, int lz, int ny, int nx,
                              double rscale, void* stream) {
   const Grid3 g{lz, ny, nx, static_cast<int64_t>(ny) * nx};
-  const int ntx = (nx / 2 - 1) / kBX + 1, nty = (ny / 2 - 1) / kBY + 1;
-  const int ntz = (lz / 2 - 1) / kRestrictKC + 1;
-  residual_restrict_kernel<T><<<capped(ntx, nty, ntz), dim3(kBX, kBY), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(f), static_cast<T*>(out), g,
-      ntx, nty, ntz, static_cast<T>(rscale));
-  return static_cast<int>(cudaGetLastError());
+  const auto* tu = static_cast<const T*>(u);
+  const auto* tf = static_cast<const T*>(f);
+  auto* to = static_cast<T*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const T s = static_cast<T>(rscale);
+  return vec16<T>(u, f, nx) ? launch_residual_restrict_route<T, true>(tu, tf, to, g, s, st)
+                            : launch_residual_restrict_route<T, false>(tu, tf, to, g, s, st);
 }
 
 }  // namespace

@@ -163,6 +163,45 @@ def test_residual_restrict_matches_jnp_f64(shape):
         rtol=1e-13, atol=1e-13)
 
 
+# ---- shapes at the edges of the kernels' tiles and z-chunks, f64 -----------
+# (csrc/mg3d.cu: smooth_pair tiles 64 x 16 and 32 x 8, residual_restrict fine
+# tiles 64 x 16 and 32 x 8; x, y one past or short of a tile, lz one or three
+# planes past a chunk.) chip_smoke.py holds the kernels against these plain
+# versions at the same shapes (TILE_EDGE_SHAPES).
+
+@pytest.mark.parametrize("shape", [(17, 15, 63), (35, 17, 65), (19, 17, 65)])
+def test_smooth_pair_matches_jnp_at_tile_edges_f64(shape):
+    u, f = _arrays(shape, np.float64, 5 * sum(shape), planes=False)
+    ws = mg.cheby_omegas(2)
+    ref = jmg._smooth(jnp.asarray(u), jnp.asarray(f), 0, jmg._no_exchange,
+                      ws)
+    out = st.stencil3d_smooth_pair(*_t(u, f), ws[0] / 6.0, ws[1] / 6.0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(34, 18, 66), (66, 14, 62), (70, 18, 66)])
+def test_residual_restrict_matches_jnp_at_tile_edges_f64(shape):
+    u, f = _arrays(shape, np.float64, 7 * sum(shape), planes=False)
+    z = jnp.zeros(shape[1:], jnp.float64)
+    r = jnp.asarray(f) - JaxStencil._stencil7_jnp(jnp.asarray(u), z, z)
+    out = st.stencil3d_residual_restrict(*_t(u, f))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jmg._restrict(r)),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_residual_restrict_matches_pallas_interpret_at_tile_edge():
+    lz, ny, nx = 34, 16, 128
+    u, f = _arrays((lz, ny, nx), np.float32, 34, planes=False)
+    dt = jnp.float32
+    ref = stencil3d_residual_restrict_pallas(
+        jnp.asarray(u), jnp.asarray(f), jmg._tmat(ny, dt).T,
+        jmg._tmat(nx, dt), lz, ny, nx, jmg._RSCALE, True, None)
+    out = st.stencil3d_residual_restrict(*_t(u, f))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
 # ---- wrapper contract on the CPU --------------------------------------------
 
 def _calls():
