@@ -1,16 +1,20 @@
 """PyTorch + CUDA port of the JAX sparse-solver package, for NVIDIA Hopper.
 
 Mirrors the layout of ``mpi_petsc4py_example_tpu`` (the reference, which this
-package never imports): ``parallel`` (communicator, layout), ``core`` (Vec),
-``models`` (the matrix-free 3D Poisson stencil, the scipy CSR oracle), ``ops``
-(hand-written CUDA kernels in ``csrc/``, their plain PyTorch versions, the
-nvcc build), ``solvers`` (KSP, PC, the CG loop) and ``utils``.
+package never imports): ``parallel`` (communicator, layout, CSR row blocks),
+``core`` (Vec, the assembled Mat), ``models`` (the matrix-free 3D Poisson
+stencil, the CSR model problems), ``ops`` (hand-written CUDA kernels in
+``csrc/``, their plain PyTorch versions, the nvcc build; the ELL/DIA SpMV),
+``solvers`` (KSP, PC, the Krylov loops), ``utils``, and ``facade`` (the
+petsc4py/mpi4py facade that ``python -m mpi_petsc4py_example_tpu_torch.run``
+puts first on ``sys.path``).
 
 Entry points run on the card: ``DeviceComm()`` means CUDA and raises without
 it; pass ``device="cpu"`` to run on the CPU, where every kernel is replaced by
 its plain PyTorch version.
 """
 
+from .core.mat import Mat
 from .core.vec import Vec
 from .models.poisson import poisson3d_csr
 from .models.stencil import StencilPoisson3D
@@ -21,7 +25,7 @@ from .utils.convergence import (BatchedSolveResult, ConvergedReason,
                                 SolveResult)
 from .utils.options import global_options, init
 
-__all__ = ["DeviceComm", "Vec", "KSP", "PC", "StencilPoisson3D",
+__all__ = ["DeviceComm", "Vec", "Mat", "KSP", "PC", "StencilPoisson3D",
            "poisson3d_csr", "ConvergedReason", "SolveResult",
            "BatchedSolveResult",
            "global_options", "init"]

@@ -41,6 +41,11 @@ class Vec:
         return cls(comm, arr.shape[0], data=comm.put_rows(arr, dtype),
                    layout=layout)
 
+    def duplicate(self) -> "Vec":
+        """A zero Vec of the same layout (PETSc VecDuplicate)."""
+        return Vec(self.comm, self.n, data=torch.zeros_like(self.data),
+                   layout=self.layout)
+
     def copy(self) -> "Vec":
         return Vec(self.comm, self.n, data=self.data.clone(),
                    layout=self.layout)

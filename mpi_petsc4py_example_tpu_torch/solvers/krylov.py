@@ -1,23 +1,34 @@
 """Krylov kernels and the construction of the solve program.
 
-The port's counterpart of the CG part of
-``mpi_petsc4py_example_tpu/solvers/krylov.py``: ``cg_kernel`` (``:188``),
-``cg_stencil_kernel`` (``:220``) and the stencil-CG routing of
-``build_ksp_program`` (``:2264-2283``, ``:2369-2438``) without the guard; and
-for ``KSP.solve_many`` ``cg_kernel_many`` (``:2662``),
-``cg_stencil_kernel_many`` (``:2689``), ``batched_pc_supported`` (``:2741``)
-and ``build_ksp_program_many`` (``:2748``) without the guard, the
-true-residual epilogue and the pipelined/s-step plans.
+The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/krylov.py``:
+``cg_kernel`` (``:188``), ``cg_stencil_kernel`` (``:220``), ``bcgs_kernel``
+(``:533``), ``gmres_kernel`` (``:732``) with ``_hessenberg_lstsq``
+(``:671``) and ``_cgs2_step`` (``:716``), ``preonly_kernel`` (``:790``) and
+``build_ksp_program`` (``:2091``) with the stencil-CG fast path, the general
+route and the true-residual epilogue (``_true_res_tail``, ``:2551``), without
+the guard, monitors and null spaces; and for ``KSP.solve_many``
+``cg_kernel_many`` (``:2662``), ``cg_stencil_kernel_many`` (``:2689``),
+``batched_pc_supported`` (``:2741``) and ``build_ksp_program_many``
+(``:2748``) without the guard, the true-residual epilogue and the
+pipelined/s-step plans.
+
+The JAX loops are ``lax.while_loop``s on the device; here they are eager
+PyTorch driven by the host, with the scalars on the device and one small
+host read where the loop decides whether to go on: once per iteration for CG
+and BiCGStab, once per restart cycle for GMRES, once per refinement step for
+preonly. Every program returns the count of its host reads.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..utils.convergence import ConvergedReason as CR
 from . import cg_plans as _plans
+from .cg_plans import _dmax, _reason, _tol
 
-KSP_TYPES = ("cg",)
-
+KSP_TYPES = ("cg", "gmres", "bcgs", "preonly")
 
 def cg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None):
     """Preconditioned conjugate gradients (KSPCG) on the general route."""
@@ -73,6 +84,188 @@ def cg_stencil_kernel_many(Adot, inv_diag, pdot, pnorm, B, X0, rtol, atol,
     return (x.reshape(flat), *rest)
 
 
+def _scalars(*ts) -> list:
+    """One host read of several device scalars."""
+    return torch.stack([t.reshape(()).to(ts[0].dtype) for t in ts]).tolist()
+
+
+def _nz(d):
+    """``d`` with its zeros replaced by 1 (a guarded divisor)."""
+    return torch.where(d == 0, 1.0, d)
+
+
+def bcgs_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None):
+    """Right-preconditioned BiCGStab (KSPBCGS): the JAX body, with the loop
+    condition's ``(rn, brk)`` read once per iteration."""
+    _, tol = _tol(pnorm, b, rtol, atol)
+    x = x0
+    r = b - A(x0)
+    rhat = r
+    rnorm = pnorm(r)
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h = _scalars(rnorm, tol, dmax)
+    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+    syncs = 1
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = one
+    it, brk = 0, False
+    while rn > tol_h and rn < dmax_h and it < maxit and not brk:
+        rho_new = pdot(rhat, r)
+        brk_t = (rho_new == 0) | (omega == 0)
+        beta = torch.where(brk_t, 0.0, (rho_new / _nz(rho))
+                           * (alpha / _nz(omega)))
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = A(phat)
+        rv = pdot(rhat, v)
+        brk_t = brk_t | (rv == 0)
+        alpha = torch.where(brk_t, 0.0, rho_new / _nz(rv))
+        s = r - alpha * v
+        shat = M(s)
+        t = A(shat)
+        tt = pdot(t, t)
+        omega = torch.where(tt == 0, 0.0, pdot(t, s) / _nz(tt))
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        it += 1
+        rn, brk_h = _scalars(pnorm(r), brk_t)
+        syncs += 1
+        brk = brk_h != 0
+    return x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs
+
+
+def _hessenberg_lstsq(H, beta):
+    """``min ||beta e1 - H y||`` for the upper-Hessenberg ``H`` of shape
+    ``(m+1, m)``, by Givens rotations and back substitution: the JAX
+    function's arithmetic in numpy, in ``H``'s dtype, on the host. Returns
+    ``(y, |g[m]|)``."""
+    H = np.array(H)
+    m = H.shape[1]
+    one, zero = H.dtype.type(1), H.dtype.type(0)
+    g = np.zeros(m + 1, H.dtype)
+    g[0] = beta
+    for j in range(m):
+        a, bb = H[j, j], H[j + 1, j]
+        aa = abs(a)
+        r = np.sqrt(aa * aa + abs(bb) ** 2)
+        safe = one if r == 0 else r
+        sgn = one if aa == 0 else a / aa
+        c = one if r == 0 else aa / safe
+        s = zero if r == 0 else sgn * bb / safe
+        rj, rj1 = H[j].copy(), H[j + 1].copy()
+        H[j], H[j + 1] = c * rj + s * rj1, -s * rj + c * rj1
+        gj, gj1 = g[j], g[j + 1]
+        g[j], g[j + 1] = c * gj + s * gj1, -s * gj + c * gj1
+    y = np.zeros(m, H.dtype)
+    for i in range(m - 1, -1, -1):
+        rii = H[i, i]
+        # entries of y below i are still zero: the row product is the tail
+        s = g[i] - H[i, :m] @ y
+        y[i] = zero if rii == 0 else s / rii
+    return y, abs(g[m])
+
+
+def _cgs2_step(V, w, pmatdot, pnorm):
+    """One CGS2 orthogonalization step: project ``w`` against the basis
+    ``V (size, m+1, lsize)`` twice (classical Gram-Schmidt, re-applied).
+    Rows of ``V`` past the current column are zero. Returns ``(h, hnorm,
+    v_next)``."""
+    h1 = pmatdot(V, w)
+    w = w - torch.matmul(h1, V)
+    h2 = pmatdot(V, w)
+    w = w - torch.matmul(h2, V)
+    hnorm = pnorm(w)
+    return h1 + h2, hnorm, w / torch.where(hnorm == 0, 1.0, hnorm)
+
+
+def gmres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
+                 pmatdot=None, dtol=None):
+    """Left-preconditioned restarted GMRES (KSPGMRES), monitored in the
+    preconditioned residual norm, CGS2 Arnoldi, the small least-squares
+    problem by Givens rotations once per cycle.
+
+    The Arnoldi cycle runs on the device; its Hessenberg matrix goes to the
+    host for the least-squares solve. To read the host once per cycle, the
+    cycle after a restart is built before the read that decides whether it
+    runs: the residual norm of the new iterate and the next cycle's
+    Hessenberg matrix come in one read, and the last cycle built is thrown
+    away when the solve stops (one cycle of extra work per solve). The
+    residual a cycle starts from is the one the previous cycle ended with
+    (the JAX body recomputes the same value).
+    """
+    m = restart
+    size = b.shape[0]
+    tol = torch.clamp_min(rtol * pnorm(M(b)), atol)
+    r = M(b - A(x0))
+    rn_t = pnorm(r)
+    dmax = _dmax(rn_t, dtol)
+    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+
+    def arnoldi(r, beta):
+        V = b.new_zeros((size, m + 1) + tuple(b.shape[1:]))
+        V[:, 0] = r / torch.where(beta == 0, 1.0, beta)
+        H = b.new_zeros((m + 1, m))
+        for j in range(m):
+            h, hnorm, vnext = _cgs2_step(V, M(A(V[:, j])), pmatdot, pnorm)
+            H[:, j] = h
+            H[j + 1, j] = hnorm
+            V[:, j + 1] = vnext
+        return V, H
+
+    def read(scalars, H):
+        """The cycle's one host read: the scalars and, when another cycle
+        was built, its Hessenberg matrix."""
+        flat = torch.cat([t.reshape(1).to(b.dtype) for t in scalars]
+                         + ([H.reshape(-1)] if H is not None else []))
+        h = flat.cpu().numpy()
+        ns = len(scalars)
+        return ([float(v) for v in h[:ns]],
+                h[ns:].reshape(m + 1, m) if H is not None else None)
+
+    x, k = x0, 0
+    V, H = arnoldi(r, rn_t) if maxit > 0 else (None, None)
+    (rn, tol_h, dmax_h), H_h = read([rn_t, tol, dmax], H)
+    syncs = 1
+    while rn > tol_h and rn < dmax_h and k < maxit:
+        y, _ = _hessenberg_lstsq(H_h, H_h.dtype.type(rn))
+        x = x + torch.matmul(torch.from_numpy(y).to(b.device), V[:, :m])
+        k += m
+        r = M(b - A(x))
+        rn_t = pnorm(r)
+        V, H = arnoldi(r, rn_t) if k < maxit else (None, None)
+        (rn,), H_h = read([rn_t], H)
+        syncs += 1
+    return x, k, rn, _reason(rn, tol_h, atol_h, False, dmax_h), syncs
+
+
+def preonly_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+                   refine=False):
+    """Apply the preconditioner once (KSPPREONLY). With ``refine`` (set for
+    the direct-factor PC kinds only) iterative refinement follows while the
+    true residual keeps halving, at most 20 steps, a step that does not
+    improve being discarded: one host read per step."""
+    x = M(b)
+    if x is b:                       # PC none returns its input
+        x = b.clone()
+    r = b - A(x)
+    rn = pnorm(r).item()
+    syncs = 1
+    go, k = refine and rn > 0, 0
+    while go:
+        x2 = x + M(r)
+        r2 = b - A(x2)
+        rn2 = pnorm(r2).item()
+        syncs += 1
+        go = rn2 < 0.5 * rn and k + 1 < 20
+        if rn2 < rn:
+            x, r, rn = x2, r2, rn2
+        k += 1
+    return x, 1, rn, CR.CONVERGED_ITS, syncs
+
+
 def stencil_cg_eligible(ksp_type, pc, operator, many=False) -> bool:
     """The CG fast-path gate of the JAX ``build_ksp_program`` (``many``:
     of ``build_ksp_program_many``, ``:2823-2831``): CG, PC none/jacobi/mg
@@ -89,10 +282,18 @@ def stencil_cg_eligible(ksp_type, pc, operator, many=False) -> bool:
             and (pc.get_type() == "none" or pc._mat is operator))
 
 
-def build_ksp_program(comm, ksp_type, pc, operator):
+def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
+                      true_res=False):
     """The solve program for one configuration:
     ``prog(b, x0, rtol, atol, dtol, maxit) -> (x, it, rnorm, reason,
-    host_syncs)`` on flat padded data tensors."""
+    host_syncs)`` on flat padded data tensors.
+
+    CG with PC none/jacobi/mg on a stencil operator takes the fused fast
+    path; everything else (a :class:`..core.mat.Mat`, GMRES, BiCGStab,
+    preonly) the general route of ``operator.local_spmv`` and
+    ``pc.local_apply``. With ``true_res`` the program ends with the JAX
+    epilogue: one more product and two reductions give ``||b - A x||`` and
+    ``||b||``, appended to the result as floats (one more host read)."""
     if ksp_type not in KSP_TYPES:
         raise ValueError(f"unknown KSP type {ksp_type!r}; available: "
                          f"{list(KSP_TYPES)}")
@@ -105,6 +306,7 @@ def build_ksp_program(comm, ksp_type, pc, operator):
     def pnorm(u):
         return torch.sqrt(pdot(u, u))
 
+    spmv = operator.local_spmv(comm)
     if stencil_cg_eligible(ksp_type, pc, operator):
         matvec_dot = operator.local_matvec_dot(comm)
         inv_diag = (1.0 if pc.get_type() == "none"
@@ -114,29 +316,49 @@ def build_ksp_program(comm, ksp_type, pc, operator):
 
         def prog(b, x0, rtol, atol, dtol, maxit):
             return cg_stencil_kernel(
-                matvec_dot, inv_diag, pdot, pnorm, b.view(size, -1),
-                x0.view(size, -1), rtol, atol, maxit, dtol=dtol,
-                grid3d=operator.grid3d, M3=pc_apply3)
+                matvec_dot, inv_diag, pdot, pnorm, b, x0, rtol, atol, maxit,
+                dtol=dtol, grid3d=operator.grid3d, M3=pc_apply3)
     else:
-        spmv = operator.local_spmv(comm)
-        n = operator.shape[0]
-        pc_apply = pc.local_apply(comm, n)
+        pc_apply = pc.local_apply(comm, operator.shape[0])
+        kernel, kw = {"cg": (cg_kernel, {}),
+                      "bcgs": (bcgs_kernel, {}),
+                      "gmres": (gmres_kernel, {"restart": restart,
+                                               "pmatdot": _pmatdot(comm)}),
+                      # refinement is for the direct factorizations only
+                      "preonly": (preonly_kernel,
+                                  {"refine": pc.kind == "lu"})}[ksp_type]
 
         def prog(b, x0, rtol, atol, dtol, maxit):
-            return cg_kernel(spmv, pc_apply, pdot, pnorm, b.view(size, -1),
-                             x0.view(size, -1), rtol, atol, maxit, dtol=dtol)
+            return kernel(spmv, pc_apply, pdot, pnorm, b, x0, rtol, atol,
+                          maxit, dtol=dtol, **kw)
 
     def run(b, x0, rtol, atol, dtol, maxit):
-        x, *rest = prog(b, x0, rtol, atol, dtol, maxit)
-        return (x.reshape(-1), *rest)
+        b, x0 = b.view(size, -1), x0.view(size, -1)
+        x, it, rnorm, reason, syncs = prog(b, x0, rtol, atol, dtol, maxit)
+        out = (x.reshape(-1), it, rnorm, reason, syncs)
+        if true_res:
+            # the true residual of the returned iterate against the raw b
+            trn, bn = _scalars(pnorm(b - spmv(x)), pnorm(b))
+            out = out[:4] + (syncs + 1, trn, bn)
+        return out
 
     return run
 
 
+def _pmatdot(comm):
+    """``V (size, m+1, lsize), w (size, lsize) -> psum V_i w_i``: the
+    whole-basis projection of CGS2, one reduction."""
+    def pmatdot(V, w):
+        return comm.psum([torch.mv(V[i], w[i]) for i in range(comm.size)])
+    return pmatdot
+
+
 def batched_pc_supported(pc) -> bool:
     """Whether this PC kind has a batched apply (the ``KSP.solve_many``
-    routing test; the others fall back to per-column sequential solves)."""
-    return pc.get_type() in ("none", "jacobi")
+    routing test; the others fall back to per-column sequential solves).
+    An lu PC's kind (dense or hostlu) is known once it is set up, as
+    ``KSP.solve_many`` does first."""
+    return pc.kind in ("none", "jacobi", "bjacobi", "lu")
 
 
 def build_ksp_program_many(comm, ksp_type, pc, operator):
@@ -150,9 +372,9 @@ def build_ksp_program_many(comm, ksp_type, pc, operator):
     when the PC's operator is not the system operator. The reductions are
     one ``torch.dot`` per column and shard, exactly the single-RHS ``pdot``
     of each column, summed over the shards in shard order."""
-    if ksp_type not in KSP_TYPES:
-        raise ValueError(f"unknown KSP type {ksp_type!r}; available: "
-                         f"{list(KSP_TYPES)}")
+    if ksp_type != "cg":
+        raise ValueError(f"KSP {ksp_type!r} has no batched program; "
+                         "KSP.solve_many solves its columns one by one")
     size = comm.size
 
     def pdot(U, V):

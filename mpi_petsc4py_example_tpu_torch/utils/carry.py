@@ -4,14 +4,18 @@ This system runs no model, so its "weights" are the problem data: the
 operator's geometry and the right-hand side (and initial guess). The JAX side
 hands them over as plain values, never as JAX objects:
 
-* the geometry is the tuple ``StencilPoisson3D.program_key()`` returns,
-  ``("stencil3d", nx, ny, nz, ndev)``;
+* a stencil's geometry is the tuple ``StencilPoisson3D.program_key()``
+  returns, ``("stencil3d", nx, ny, nz, ndev)``;
+* an assembled matrix is its global host CSR triple ``Mat.host_csr`` with
+  ``Mat.shape``, as numpy;
 * the vectors are numpy arrays from ``Vec.to_numpy()``;
 * the preconditioner's configuration is the tuple ``PC.program_key()``
-  returns, ``(type,)`` or ``("mg", smoother)``.
+  returns, ``(type,)`` (none, jacobi, bjacobi, lu, cholesky) or
+  ``("mg", smoother)``.
 
-The grid is parametric, so the port's communicator may have another shard
-count than the JAX mesh had (``ndev``), as long as it divides ``nz``.
+The grid and the CSR do not depend on the shard count, so the port's
+communicator may have another shard count than the JAX mesh had (a stencil's
+``ndev`` only has to divide ``nz``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.mat import Mat
 from ..core.vec import Vec
 from ..models.stencil import StencilPoisson3D
 from ..parallel.mesh import DeviceComm
@@ -33,25 +38,39 @@ def from_numpy_state(comm: DeviceComm, geometry, b, x0=None,
         raise ValueError(f"cannot carry operator kind {kind!r}; only "
                          "'stencil3d' is ported")
     op = StencilPoisson3D(comm, int(nx), int(ny), int(nz), dtype=dtype)
+    return (op,) + _vectors(comm, op, b, x0, dtype)
+
+
+def _vectors(comm, op, b, x0, dtype):
     n = op.shape[0]
     b = np.asarray(b)
     if b.shape != (n,):
         raise ValueError(f"b must have shape ({n},), got {b.shape}")
     bv = Vec.from_global(comm, b, dtype=dtype, layout=op.layout)
     if x0 is None:
-        xv = op.get_vecs()[0]
-    else:
-        x0 = np.asarray(x0)
-        if x0.shape != (n,):
-            raise ValueError(f"x0 must have shape ({n},), got {x0.shape}")
-        xv = Vec.from_global(comm, x0, dtype=dtype, layout=op.layout)
-    return op, bv, xv
+        return bv, op.get_vecs()[0]
+    x0 = np.asarray(x0)
+    if x0.shape != (n,):
+        raise ValueError(f"x0 must have shape ({n},), got {x0.shape}")
+    return bv, Vec.from_global(comm, x0, dtype=dtype, layout=op.layout)
+
+
+def from_host_csr(comm: DeviceComm, shape, csr, b, x0=None,
+                  dtype=torch.float64):
+    """Build the port's ``(Mat, b Vec, x Vec)`` for an assembled problem the
+    JAX side described by ``Mat.shape`` and ``Mat.host_csr``
+    ``(indptr, indices, data)``; ``x`` is ``x0`` or zeros."""
+    indptr, indices, data = (np.asarray(a) for a in csr)
+    mat = Mat.from_csr(comm, tuple(int(s) for s in shape),
+                       (indptr, indices, data), dtype=dtype)
+    return (mat,) + _vectors(comm, mat, b, x0, dtype)
 
 
 def configure_pc(pc, key):
     """Set the port's ``pc`` to the configuration the JAX side's
-    ``PC.program_key()`` describes: ``(type,)``, or ``("mg", smoother)``
-    for the V-cycle with its smoother. Returns ``pc``."""
+    ``PC.program_key()`` describes: ``(type,)`` for none, jacobi, bjacobi,
+    lu or cholesky, or ``("mg", smoother)`` for the V-cycle with its
+    smoother. Returns ``pc``."""
     kind = str(key[0])
     pc.set_type(kind)
     if kind == "mg":

@@ -3,9 +3,11 @@
 The port's subset of ``mpi_petsc4py_example_tpu/utils/options.py``: the same
 argv parsing and typed getters, for the flags ``KSP.set_from_options`` reads
 (``-ksp_type``, ``-pc_type``, ``-ksp_rtol``, ``-ksp_atol``, ``-ksp_max_it``,
-``-ksp_norm_type``, ``-ksp_batch_limit``, ``-pc_mg_smooth_type``). Each
-process has one database,
-seeded with :func:`init`.
+``-ksp_norm_type``, ``-ksp_batch_limit``, ``-ksp_gmres_restart``,
+``-ksp_true_residual_check``, ``-ksp_true_residual_margin``,
+``-pc_mg_smooth_type``, ``-pc_factor_mat_solver_type``,
+``-pc_bjacobi_blocks``, ``-pc_setup_device``). Each process has one
+database, seeded with :func:`init`.
 """
 
 from __future__ import annotations
@@ -49,6 +51,12 @@ class Options:
             else:
                 i += 1
 
+    def set(self, key: str, value):
+        self._db[key.lstrip("-")] = str(value)
+
+    def has(self, key: str) -> bool:
+        return key.lstrip("-") in self._db
+
     def clear(self, key: str | None = None):
         if key is None:
             self._db.clear()
@@ -65,6 +73,12 @@ class Options:
     def get_real(self, key: str, default: float | None = None):
         v = self.get_string(key)
         return default if v is None else float(v)
+
+    def get_bool(self, key: str, default: bool = False):
+        v = self.get_string(key)
+        if v is None:
+            return default
+        return str(v).lower() not in ("0", "false", "no", "off")
 
     def __repr__(self):
         return f"Options({self._db})"

@@ -1,0 +1,510 @@
+"""The PyTorch port's assembled-matrix solves against the JAX package: CG,
+GMRES(30) and BiCGStab with PC none/jacobi/bjacobi on ``Mat`` operators,
+preonly with PC lu (dense and host sparse LU), the lu mode decision, the
+true-residual gate and the batched ``solve_many`` with bjacobi and lu.
+
+Both packages solve the same numpy problem (the JAX side on the forced
+8-device CPU mesh of ``conftest.py``, the port on its CPU virtual mesh with
+the same shard count; the matrix carried across as ``Mat.host_csr``), in
+fp64 unless stated: iterations and reasons equal, iterates within 1e-10.
+The operators are small cuts of the benchmark's assembled configurations:
+cfg1 (3D Poisson, CG), cfg3 (2D Poisson, GMRES(30) + jacobi) and cfg4
+(convection-diffusion, BiCGStab + bjacobi).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import mpi_petsc4py_example_tpu as tps  # noqa: E402
+from mpi_petsc4py_example_tpu.solvers import pc as jax_pc  # noqa: E402
+
+import mpi_petsc4py_example_tpu_torch as pt  # noqa: E402
+from mpi_petsc4py_example_tpu_torch.models.generators import (  # noqa: E402
+    convdiff2d, random_system, tridiag_family)
+from mpi_petsc4py_example_tpu_torch.models.poisson import (  # noqa: E402
+    poisson2d_csr, poisson3d_csr)
+from mpi_petsc4py_example_tpu_torch.solvers import pc as port_pc  # noqa: E402
+from mpi_petsc4py_example_tpu_torch.utils.carry import (  # noqa: E402
+    configure_pc, from_host_csr)
+
+CR = pt.ConvergedReason
+X_TOL = 1e-10
+
+OPERATORS = {
+    "cfg1": lambda: poisson3d_csr(6),
+    "cfg3": lambda: poisson2d_csr(20),
+    "cfg4": lambda: convdiff2d(16, beta=0.4),
+}
+
+
+@pytest.fixture(autouse=True)
+def clean_port_options():
+    pt.global_options().clear()
+    yield
+    pt.global_options().clear()
+
+
+def _configure(ksp, ksp_type, pc_type, rtol, max_it, gate, margin, blocks):
+    ksp.set_type(ksp_type)
+    ksp.get_pc().set_type(pc_type)
+    ksp.get_pc().bjacobi_blocks = blocks
+    ksp.set_tolerances(rtol=rtol, atol=0.0, max_it=max_it)
+    ksp.set_true_residual_check(gate)
+    ksp.true_residual_margin = margin
+    return ksp
+
+
+def _both(A, b, ndev, ksp_type, pc_type, rtol=1e-8, max_it=5000,
+          gate=False, margin=1.0, blocks=0, dtype=np.float64, options=()):
+    """Solve with the JAX package, then with the port on the carried CSR;
+    returns ``(jax_result, jax_x, port_result, port_x, jax_ksp,
+    port_ksp)``."""
+    jcomm = tps.DeviceComm(n_devices=ndev)
+    M = tps.Mat.from_scipy(jcomm, A, dtype=dtype)
+    jksp = _configure(tps.KSP().create(jcomm), ksp_type, pc_type, rtol,
+                      max_it, gate, margin, blocks)
+    jksp.set_operators(M)
+    comm = pt.DeviceComm(ndev, device="cpu")
+    m, bv, xv = from_host_csr(comm, M.shape, M.host_csr, b.astype(dtype),
+                              dtype=dtype)
+    ksp = _configure(pt.KSP().create(comm), ksp_type, pc_type, rtol,
+                     max_it, gate, margin, blocks)
+    ksp.set_operators(m)
+    if options:
+        tps.init(["prog", *options])
+        pt.init(["prog", *options])
+        jksp.set_from_options()
+        ksp.set_from_options()
+    jx, jb = M.get_vecs()
+    jb.set_global(b.astype(dtype))
+    jres = jksp.solve(jb, jx)
+    res = ksp.solve(bv, xv)
+    return jres, jx.to_numpy(), res, xv.to_numpy(), jksp, ksp
+
+
+def _assert_same(jres, jx, res, x, tol=X_TOL):
+    assert (res.iterations, res.reason) == (jres.iterations,
+                                            int(jres.reason)), (res, jres)
+    scale = max(np.abs(jx).max(), 1.0)
+    np.testing.assert_allclose(x, jx, rtol=0, atol=tol * scale)
+
+
+def _rhs(A, seed=3):
+    return np.random.default_rng(seed).standard_normal(A.shape[0])
+
+
+# ---- the Krylov methods on Mat operators -----------------------------------------
+
+CASES = [("cfg1", "cg", "none"), ("cfg1", "cg", "jacobi"),
+         ("cfg1", "cg", "bjacobi"), ("cfg3", "gmres", "jacobi"),
+         ("cfg3", "gmres", "none"), ("cfg3", "gmres", "bjacobi"),
+         ("cfg4", "bcgs", "bjacobi"), ("cfg4", "bcgs", "none"),
+         ("cfg4", "gmres", "jacobi")]
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
+@pytest.mark.parametrize("op,ksp_type,pc_type", CASES)
+def test_krylov_matches_jax(op, ksp_type, pc_type, ndev):
+    A = OPERATORS[op]()
+    jres, jx, res, x, _, ksp = _both(A, _rhs(A), ndev, ksp_type, pc_type)
+    assert res.converged
+    _assert_same(jres, jx, res, x)
+    # host reads: one at set-up, then one per iteration (CG, BiCGStab) or
+    # per restart cycle (GMRES)
+    per = ksp.restart if ksp_type == "gmres" else 1
+    assert res.host_syncs == 1 + res.iterations // per
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_bjacobi_blocks_option(ndev):
+    A = OPERATORS["cfg4"]()
+    jres, jx, res, x, jksp, ksp = _both(
+        A, _rhs(A), ndev, "bcgs", "bjacobi",
+        options=("-pc_bjacobi_blocks", str(4 * ndev)))
+    assert ksp.get_pc().bjacobi_blocks == 4 * ndev
+    assert ksp.get_pc()._arrays[0].shape == (4 * ndev, 64 // ndev,
+                                             64 // ndev)
+    _assert_same(jres, jx, res, x)
+
+
+def test_bjacobi_block_count_rules():
+    for args in ((1000, 4, 8), (20000, 1, 0), (16384, 1, 0), (90000, 2, 0)):
+        assert port_pc._bjacobi_block_count(*args) == \
+            jax_pc._bjacobi_block_count(*args)
+    assert port_pc._bjacobi_block_count(65536, 1, 0) == 32  # cfg4's split
+    for args in ((1000, 4, 6), (1000, 4, 12)):
+        with pytest.raises(ValueError):
+            port_pc._bjacobi_block_count(*args)
+
+
+@pytest.mark.parametrize("restart", [5, 12])
+def test_gmres_restart_option(restart):
+    A = OPERATORS["cfg3"]()
+    jres, jx, res, x, jksp, ksp = _both(
+        A, _rhs(A), 2, "gmres", "jacobi",
+        options=("-ksp_gmres_restart", str(restart)))
+    assert ksp.restart == jksp.restart == restart
+    assert res.iterations % restart == 0
+    _assert_same(jres, jx, res, x)
+
+
+def test_gmres_max_it_and_dtol_like_jax():
+    A = OPERATORS["cfg3"]()
+    jres, jx, res, x, _, _ = _both(A, _rhs(A), 2, "gmres", "none",
+                                   max_it=45)
+    assert res.reason == CR.DIVERGED_MAX_IT and res.iterations == 60
+    _assert_same(jres, jx, res, x)
+
+
+# ---- the true-residual gate ---------------------------------------------------
+
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_gate_reenters_like_jax(ndev):
+    """fp32 CG + jacobi on 2D Poisson: the recurrence says converged, the
+    true residual misses rtol, and one re-entry from the current iterate
+    closes the gap, in both packages."""
+    A = poisson2d_csr(64)
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    jres, jx, res, x, jksp, ksp = _both(A, b, ndev, "cg", "jacobi",
+                                        rtol=1e-6, max_it=20000, gate=True,
+                                        dtype=np.float32)
+    assert ksp._last_reentries == jksp._last_reentries == 1
+    assert (res.iterations, res.reason) == (jres.iterations,
+                                            int(jres.reason))
+    rtrue = np.linalg.norm(b - A @ x.astype(np.float64)) / np.linalg.norm(b)
+    assert res.converged and rtrue <= 1e-6 * 1.05
+    assert res.residual_norm == pytest.approx(ksp._last_true_res[0])
+
+
+@pytest.mark.parametrize("op,ksp_type,pc_type,margin", [
+    ("cfg1", "cg", "none", 0.5), ("cfg3", "gmres", "jacobi", 1.0),
+    ("cfg4", "bcgs", "bjacobi", 0.5)])
+def test_gate_on_benchmark_operators(op, ksp_type, pc_type, margin):
+    A = OPERATORS[op]()
+    b = A @ np.random.default_rng(1).random(A.shape[0])
+    jres, jx, res, x, jksp, ksp = _both(A, b, 2, ksp_type, pc_type,
+                                        rtol=1e-6, gate=True, margin=margin)
+    assert ksp._last_reentries == jksp._last_reentries
+    _assert_same(jres, jx, res, x)
+    trn, bn = ksp._last_true_res
+    np.testing.assert_allclose(trn, np.linalg.norm(b - A @ x), rtol=1e-10)
+    assert trn <= 1e-6 * bn
+    # the epilogue's reads: one more than the ungated solve
+    assert res.host_syncs == 2 + res.iterations // (
+        ksp.restart if ksp_type == "gmres" else 1)
+
+
+def test_gate_margin_stall_and_validation():
+    """A margin-tightened loop that hits max_it still reports converged
+    when the true residual meets the un-margined target (JAX
+    ``ksp.py:951-958``); margins outside (0, 1] raise."""
+    A = poisson2d_csr(48)
+    b = A @ np.random.default_rng(8).random(A.shape[0])
+    jres, jx, res, x, _, ksp = _both(A, b, 1, "cg", "jacobi", rtol=1e-6,
+                                     max_it=120, gate=True, margin=1e-3,
+                                     dtype=np.float32)
+    assert res.iterations == jres.iterations == 120
+    assert res.converged and jres.converged
+    for bad in (0.0, 1.5):
+        ksp.true_residual_margin = bad
+        with pytest.raises(ValueError, match="margin"):
+            ksp.solve(*reversed(ksp._mat.get_vecs()))
+
+
+def test_gate_options():
+    pt.init(["prog", "-ksp_true_residual_check", "-ksp_true_residual_margin",
+             "0.25", "-ksp_gmres_restart", "7", "-pc_factor_mat_solver_type",
+             "mumps", "-pc_bjacobi_blocks", "4", "-pc_setup_device", "0",
+             "-ksp_converged_reason"])
+    ksp = pt.KSP().create(pt.DeviceComm(device="cpu")).set_from_options()
+    assert ksp._true_residual_check and ksp.true_residual_margin == 0.25
+    assert ksp.restart == 7 and ksp._reason_flag
+    pc = ksp.get_pc()
+    assert (pc._factor_solver_type, pc.bjacobi_blocks, pc.setup_device) == (
+        "mumps", 4, "0")
+
+
+# ---- norm types ------------------------------------------------------------------
+
+def test_norm_type_rules_like_jax():
+    A = OPERATORS["cfg3"]()
+    comm = pt.DeviceComm(device="cpu")
+    m = pt.Mat.from_scipy(comm, A)
+    jm = tps.Mat.from_scipy(tps.DeviceComm(n_devices=1), A)
+    for ksp_type, norm, ok in (("gmres", "none", False),
+                               ("gmres", "preconditioned", True),
+                               ("gmres", "unpreconditioned", False),
+                               ("cg", "preconditioned", False),
+                               ("bcgs", "unpreconditioned", True),
+                               ("preonly", "none", True)):
+        results = []
+        for pkg, mat in ((pt, m), (tps, jm)):
+            ksp = pkg.KSP().create(mat.comm)
+            ksp.set_operators(mat)
+            ksp.set_type(ksp_type)
+            ksp.set_norm_type(norm)
+            x, b = mat.get_vecs()
+            b.set_global(np.ones(A.shape[0]))
+            try:
+                ksp.solve(b, x)
+                results.append(True)
+            except ValueError:
+                results.append(False)
+        assert results == [ok, ok], (ksp_type, norm)
+    ksp = pt.KSP()
+    ksp.set_type("gmres")
+    assert ksp.get_norm_type() == "preconditioned"
+
+
+# ---- preonly + lu and the mode decision ------------------------------------------
+
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
+def test_preonly_lu_reference_system(ndev):
+    """The reference test.py system: preonly + lu ('mumps' accepted), x
+    within 1e-12 of the JAX package's and allclose to the manufactured
+    solution."""
+    A, X, B = random_system(100, seed=42, density=0.1)
+    jcomm = tps.DeviceComm(n_devices=ndev)
+    M = tps.Mat.from_scipy(jcomm, A)
+    xs = []
+    for pkg, comm, mat in (
+            (tps, jcomm, M),
+            (pt, pt.DeviceComm(ndev, device="cpu"), None)):
+        if mat is None:
+            mat = from_host_csr(comm, M.shape, M.host_csr, B)[0]
+        ksp = pkg.KSP().create(comm)
+        ksp.set_type("preonly")
+        ksp.get_pc().set_type("lu")
+        ksp.get_pc().set_factor_solver_type("mumps")
+        ksp.set_operators(mat)
+        ksp.set_up()
+        x, b = mat.get_vecs()
+        b.set_global(B)
+        res = ksp.solve(b, x)
+        assert (res.iterations, int(res.reason)) == (1, CR.CONVERGED_ITS)
+        xs.append(x.to_numpy())
+    assert ksp.get_pc().kind == "lu" and ksp.get_pc().setup_mode == "host"
+    np.testing.assert_allclose(xs[1], xs[0], rtol=0, atol=1e-12)
+    assert np.allclose(xs[1], X)
+
+
+def test_cholesky_symmetry_refusal():
+    A = random_system(60, seed=1)[0]
+    for pkg, comm in ((tps, tps.DeviceComm(n_devices=1)),
+                      (pt, pt.DeviceComm(device="cpu"))):
+        pc = pkg.PC(comm)
+        pc.set_type("cholesky")
+        with pytest.raises(ValueError, match="symmetric"):
+            pc.set_up(pkg.Mat.from_scipy(comm, A))
+    # a symmetric operator factors, as lu
+    pc = pt.PC(pt.DeviceComm(device="cpu")).set_type("cholesky")
+    pc.set_up(pt.Mat.from_scipy(pc.comm, poisson2d_csr(6)))
+    assert pc.kind == "lu" and pc.program_key() == ("lu",)
+
+
+def _irreducible(n=1000):
+    """Random sparsity plus a shifted diagonal: nonsingular, and its RCM
+    bandwidth (≈ 680) exceeds the block cyclic-reduction cap."""
+    import scipy.sparse as sp
+    A = random_system(n, seed=42, density=0.005)[0]
+    return (A + 10.0 * sp.eye(n)).tocsr()
+
+
+MODES = {
+    "dense": (lambda: random_system(50, seed=2)[0] + 5 * _eye(50), 64),
+    "crtri": (lambda: tridiag_family(100), 64),
+    "crband": (lambda: poisson2d_csr(12), 64),
+    "crband-rcm": (lambda: _scrambled(12), 64),
+    "hostlu": (_irreducible, 512),
+}
+
+
+def _eye(n):
+    import scipy.sparse as sp
+    return sp.eye(n)
+
+
+def _scrambled(nx):
+    A = poisson2d_csr(nx)
+    p = np.random.default_rng(5).permutation(A.shape[0])
+    return A[p][:, p].tocsr()
+
+
+@pytest.mark.parametrize("case", sorted(MODES))
+def test_lu_mode_decision_like_jax(case, monkeypatch):
+    make, cap = MODES[case]
+    monkeypatch.setattr(jax_pc, "_DENSE_CAP", cap)
+    monkeypatch.setattr(port_pc, "_DENSE_CAP", cap)
+    A = make().tocsr()
+    jcomm = tps.DeviceComm(n_devices=2)
+    jpc = tps.PC(jcomm).set_type("lu")
+    jpc.set_up(tps.Mat.from_scipy(jcomm, A))
+    expected = case.split("-")[0]
+    # the dense mode's kind is 'lu'
+    assert jpc.kind == {"dense": "lu"}.get(expected, expected)
+    comm = pt.DeviceComm(2, device="cpu")
+    m = pt.Mat.from_scipy(comm, A)
+    assert port_pc.lu_mode(m) == expected
+    pc = pt.PC(comm).set_type("lu")
+    if expected in ("crtri", "crband"):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            pc.set_up(m)
+    else:
+        pc.set_up(m)
+        assert pc.kind == jpc.kind
+        assert pc.program_key() == jpc.program_key()
+
+
+@pytest.mark.parametrize("ndev", [1, 3])
+def test_hostlu_matches_jax(ndev, monkeypatch):
+    monkeypatch.setattr(jax_pc, "_DENSE_CAP", 512)
+    monkeypatch.setattr(port_pc, "_DENSE_CAP", 512)
+    A = _irreducible()
+    b = A @ np.random.default_rng(6).random(A.shape[0])
+    jres, jx, res, x, jksp, ksp = _both(A, b, ndev, "preonly", "lu")
+    assert ksp.get_pc().kind == jksp.get_pc().kind == "hostlu"
+    assert (res.iterations, res.reason) == (1, CR.CONVERGED_ITS)
+    np.testing.assert_allclose(x, jx, rtol=0, atol=1e-12 * np.abs(jx).max())
+    assert res.residual_norm == pytest.approx(jres.residual_norm, rel=1e-6,
+                                              abs=1e-12)
+    # an iterative KSP cannot apply a host factor, in either package
+    for k in (ksp, jksp):
+        k.set_type("gmres")
+        with pytest.raises(ValueError, match="host"):
+            k.solve(*reversed(k._mat.get_vecs()))
+
+
+def test_pc_setup_device_resolution():
+    comm = pt.DeviceComm(device="cpu")
+    m = pt.Mat.from_scipy(comm, convdiff2d(8))
+    pc = pt.PC(comm).set_type("bjacobi")
+    pc.set_up(m)
+    assert pc.setup_mode == "host"
+    pc.setup_device = "1"
+    with pytest.raises(NotImplementedError, match="on-device"):
+        pc.set_up(m)
+    pc.setup_device = "gpu"
+    with pytest.raises(ValueError, match="pc_setup_device"):
+        pc.set_up(m)
+    pc.set_type("lu").setup_device = "1"
+    with pytest.raises(NotImplementedError):
+        pc.set_up(m)
+
+
+def test_factor_pcs_refuse_matrix_free():
+    comm = pt.DeviceComm(device="cpu")
+    op = pt.StencilPoisson3D(comm, 4)
+    for t in ("bjacobi", "lu"):
+        with pytest.raises(ValueError, match="assembled"):
+            pt.PC(comm).set_type(t).set_up(op)
+
+
+def test_pc_rebuilds_after_mutation():
+    """A mutated Mat bumps its counter and the PC sets up again, as in the
+    JAX package."""
+    A = OPERATORS["cfg4"]()
+    b = _rhs(A)
+    jcomm = tps.DeviceComm(n_devices=2)
+    M = tps.Mat.from_scipy(jcomm, A)
+    comm = pt.DeviceComm(2, device="cpu")
+    m = from_host_csr(comm, M.shape, M.host_csr, b)[0]
+    out = []
+    for pkg, mat in ((tps, M), (pt, m)):
+        ksp = _configure(pkg.KSP().create(mat.comm), "bcgs", "bjacobi",
+                         1e-8, 2000, False, 1.0, 0)
+        ksp.set_operators(mat)
+        x, bv = mat.get_vecs()
+        bv.set_global(b)
+        ksp.solve(bv, x)
+        mat.shift(2.0)
+        x.zero()
+        res = ksp.solve(bv, x)
+        out.append((res.iterations, int(res.reason), x.to_numpy()))
+    assert out[0][:2] == out[1][:2]
+    np.testing.assert_allclose(out[1][2], out[0][2], rtol=0, atol=X_TOL)
+
+
+# ---- batched solves -------------------------------------------------------------
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+@pytest.mark.parametrize("pc_type", ["bjacobi", "lu"])
+def test_solve_many_batched_like_jax(pc_type, ndev):
+    A = poisson2d_csr(12)
+    B = np.random.default_rng(ndev).standard_normal((A.shape[0], 3))
+    jcomm = tps.DeviceComm(n_devices=ndev)
+    M = tps.Mat.from_scipy(jcomm, A)
+    comm = pt.DeviceComm(ndev, device="cpu")
+    m = from_host_csr(comm, M.shape, M.host_csr, B[:, 0])[0]
+    out = []
+    for pkg, mat in ((tps, M), (pt, m)):
+        ksp = _configure(pkg.KSP().create(mat.comm), "cg", pc_type, 1e-8,
+                         2000, False, 1.0, 0)
+        ksp.set_operators(mat)
+        out.append(ksp.solve_many(B))
+    jres, res = out
+    assert res.iterations == list(np.asarray(jres.iterations))
+    assert res.reasons == [int(r) for r in jres.reasons]
+    np.testing.assert_allclose(res.X, np.asarray(jres.X), rtol=0,
+                               atol=X_TOL * np.abs(jres.X).max())
+    # the batched route: one read at set-up, one per lockstep iteration
+    assert res.host_syncs == 1 + max(res.iterations)
+    # each column equals its own sequential solve
+    ksp = _configure(pt.KSP().create(comm), "cg", pc_type, 1e-8, 2000,
+                     False, 1.0, 0)
+    ksp.set_operators(m)
+    for j in range(3):
+        x, b = m.get_vecs()
+        b.set_global(B[:, j])
+        single = ksp.solve(b, x)
+        assert single.iterations == res.iterations[j]
+        np.testing.assert_allclose(x.to_numpy(), res.X[:, j], rtol=0,
+                                   atol=1e-13 * np.abs(res.X).max())
+
+
+def test_solve_many_sequential_fallbacks():
+    """GMRES, BiCGStab, a gated solve and host LU solve column by column,
+    each column equal to its single solve."""
+    A = OPERATORS["cfg4"]()
+    B = np.random.default_rng(9).standard_normal((A.shape[0], 2))
+    comm = pt.DeviceComm(2, device="cpu")
+    m = pt.Mat.from_scipy(comm, A)
+    for ksp_type, gate in (("gmres", False), ("bcgs", False), ("cg", True)):
+        ksp = _configure(pt.KSP().create(comm), ksp_type, "jacobi", 1e-8,
+                         2000, gate, 1.0, 0)
+        ksp.set_operators(m)
+        res = ksp.solve_many(B)
+        for j in range(2):
+            x, b = m.get_vecs()
+            b.set_global(B[:, j])
+            single = ksp.solve(b, x)
+            assert single.iterations == res.iterations[j]
+            np.testing.assert_array_equal(x.to_numpy(), res.X[:, j])
+
+
+# ---- carrying an assembled problem ------------------------------------------------
+
+@pytest.mark.parametrize("key", [("none",), ("jacobi",), ("bjacobi",),
+                                 ("lu",), ("cholesky",)])
+def test_configure_pc_from_jax_key(key):
+    jcomm = tps.DeviceComm(n_devices=1)
+    A = poisson2d_csr(5)
+    jpc = tps.PC(jcomm).set_type(key[0])
+    jpc.set_up(tps.Mat.from_scipy(jcomm, A))
+    pc = configure_pc(pt.PC(pt.DeviceComm(device="cpu")), jpc.program_key())
+    pc.set_up(pt.Mat.from_scipy(pc.comm, A))
+    assert pc.program_key() == jpc.program_key()
+
+
+def test_from_host_csr_validates_vectors():
+    comm = pt.DeviceComm(device="cpu")
+    A = poisson2d_csr(4)
+    csr = (A.indptr, A.indices, A.data)
+    m, b, x = from_host_csr(comm, A.shape, csr, np.ones(16), np.arange(16.))
+    np.testing.assert_array_equal(x.to_numpy(), np.arange(16.))
+    assert (m.to_scipy() != A).nnz == 0
+    with pytest.raises(ValueError, match="b must"):
+        from_host_csr(comm, A.shape, csr, np.ones(15))
+    with pytest.raises(ValueError, match="x0 must"):
+        from_host_csr(comm, A.shape, csr, np.ones(16), np.ones(3))
