@@ -36,9 +36,18 @@ before each and read just after:
   BiCGStab + block Jacobi, each with the true-residual gate and an fp64 host
   check); the ELL route (a permuted 64^3 Poisson); ``solve_many`` with block
   Jacobi; the reference ``test.py`` flow through the port's runner and
-  facade at -n 1 and -n 4; and a dense f64 direct solve at n = 4096.
+  facade at -n 1 and -n 4; and a dense f64 direct solve at n = 4096;
+* the eigensolver (``EPS``, Krylov-Schur; its operator applies are
+  ``stencil7_apply``'s): the 128^3 fp64 stencil (2,097,152 rows), nev 1,
+  the largest magnitude and the smallest real at ncv 16 and 32, against
+  the closed form 6 -+ 6 cos(pi/129), with the launches of the apply kernel
+  checked against the restart count and a profile per restart; the plain
+  path at 32^3; the assembled 128^3 matrix (DIA); NHEP on convdiff2d(64)
+  against numpy's eigenvalues; and the reference ``test2.py`` flow through
+  the runner at -n 1 and -n 4.
 
-``python3 chip_smoke.py --mg3d`` builds the kernels and prints only the
+``python3 chip_smoke.py --eps`` builds the kernels, checks them and runs only
+the eigensolver phases. ``python3 chip_smoke.py --mg3d`` builds the kernels and prints only the
 per-level table of the two ``csrc/mg3d.cu`` kernels and the warm CG + mg
 walls at 128^3 and 512^3 (a copy of this script placed in another checkout
 times that checkout's kernels).
@@ -1741,6 +1750,319 @@ def phase_aij_reference_flow(n_dense=4096):
     return {"pc_setup_s": setup, "solve_s": res.wall_time, "max_err": err}
 
 
+# ---- the eigensolver slice (EPS Krylov-Schur, ST) -----------------------------
+
+EPS_NX = 128          # 2,097,152 rows, fp64
+EPS_MAX_IT = 400      # 128^3 needs more than the default 100 restarts
+
+
+def stencil_extremes(nx):
+    """The largest and smallest eigenvalues of the 7-point Dirichlet
+    Laplacian on nx^3, in closed form: 6 -+ 6 cos(pi/(nx+1))."""
+    c = float(np.cos(np.pi / (nx + 1)))
+    return 6.0 + 6.0 * c, 6.0 - 6.0 * c
+
+
+def eps_hep(comm, op, which, ncv=16, max_it=EPS_MAX_IT, tol=1e-8, nev=1):
+    import mpi_petsc4py_example_tpu_torch as pt
+    E = pt.EPS().create(comm).set_operators(op).set_problem_type("hep")
+    E.set_which_eigenpairs(which).set_dimensions(nev=nev, ncv=ncv)
+    return E.set_tolerances(tol=tol, max_it=max_it)
+
+
+def expected_eps_applies(ncv, restarts, nev=1):
+    """Operator applies of one Krylov-Schur solve: ncv for the first
+    factorization, ncv - k_keep for each restart after it (k_keep =
+    min(max(nev, ncv // 2), ncv - 1), the JAX package's eps.py:1302)."""
+    k_keep = min(max(nev, ncv // 2), ncv - 1)
+    return ncv + (restarts - 1) * (ncv - k_keep)
+
+
+def eps_basis_bound_ms(ncv, n, itemsize=8, nev=1):
+    """The least time of one restart's basis passes: each of its ncv -
+    k_keep CGS2 steps j reads the j+1 built rows of the basis twice for its
+    projections and twice for its updates, over the HBM rate."""
+    k = min(max(nev, ncv // 2), ncv - 1)
+    rows = (ncv * (ncv + 1) - k * (k + 1)) // 2
+    return 4 * rows * n * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def eps_solve_counted(E):
+    """One solve with the launch counters zeroed just before and read just
+    after; ``(launches, wall_s)``."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    E.solve()
+    torch.cuda.synchronize()
+    return read_launches(), time.perf_counter() - t0
+
+
+def phase_eps_apply_times(nx=EPS_NX):
+    """``stencil7_apply`` at the EPS path's shape and dtype (one 128^3 fp64
+    slab): kernel, plain and conv3d times and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    u, lo, hi = random_slab((nx, nx, nx), torch.float64, 21)
+    y = torch.empty_like(u)
+    ref = st.stencil3d_apply_plain(u, lo, hi)
+    err = float((st.stencil3d_apply(u, lo, hi, out=y) - ref).abs().max())
+    check(err <= 1e-13 * float(ref.abs().max()), f"apply {nx}^3 f64: {err}")
+    ext = torch.cat([lo[None], u, hi[None]])[None, None]
+    w = torch.zeros((1, 1, 3, 3, 3), device="cuda", dtype=torch.float64)
+    w[0, 0, 1, 1, 1] = 6.0
+    for dz, dy, dx in [(0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1),
+                       (1, 1, 0), (1, 1, 2)]:
+        w[0, 0, dz, dy, dx] = -1.0
+    conv = lambda: F.conv3d(ext, w, padding=(0, 1, 1))
+    b_ms, b_by = bound_ms(nx, nx, nx, 8, False)
+    out = {"ms": device_ms(lambda: st.stencil3d_apply(u, lo, hi, out=y), 100),
+           "plain_ms": device_ms(lambda: st.stencil3d_apply_plain(u, lo, hi),
+                                 100),
+           "library_ms": device_ms(conv, 20), "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": err}
+    log(f"time stencil7_apply {nx}^3 f64 (the EPS path's shape): kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, conv3d "
+        f"{out['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"max|err| {err:.3e}")
+    del u, lo, hi, y, ref, ext
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_eps_main(nx=EPS_NX):
+    """Krylov-Schur on the 128^3 fp64 stencil, nev 1, tol 1e-8, max_it 400,
+    the largest magnitude and the smallest real, at ncv 16 (the default)
+    and ncv 32: each eigenvalue against its closed form within 1e-9
+    relative, compute_error(0) <= 1e-6, host reads = restarts + 1, and the
+    ``stencil7_apply`` launches of the solve equal to
+    ``expected_eps_applies`` (compute_error adds exactly one); then the
+    warm wall and a profiled solve (device busy per restart, idle share,
+    the share of the basis products)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    hi, lo = stencil_extremes(nx)
+    out, total = {}, 0
+    for ncv in (16, 32):
+        basis_ms = eps_basis_bound_ms(ncv, nx ** 3)
+        log(f"eps {nx}^3 ncv {ncv}: the basis passes of one restart move "
+            f"{basis_ms * HBM_BYTES_PER_S / 1e12:.2f} GB, bound "
+            f"{basis_ms:.3f} ms")
+        for which, want in (("largest_magnitude", hi), ("smallest_real", lo)):
+            E = eps_hep(comm, op, which, ncv=ncv)
+            torch.cuda.reset_peak_memory_stats()
+            launches, wall = eps_solve_counted(E)
+            restarts, res = E.get_iteration_number(), E.result
+            lam = E.get_eigenvalue(0)
+            rel = abs(lam.real - want) / abs(want)
+            applies = expected_eps_applies(ncv, restarts)
+            reset_launches()
+            err = E.compute_error(0)
+            err_launches = read_launches()["stencil7_apply"]
+            log(f"eps {nx}^3 f64 {which} ncv {ncv}: {restarts} restarts, "
+                f"nconv {E.get_converged()}, {res.reason_name}, lambda "
+                f"{lam.real!r} (closed form {want!r}, rel err {rel:.3e}), "
+                f"compute_error {err:.3e}, host syncs {res.host_syncs}, "
+                f"wall {wall:.3f} s ({wall / restarts * 1e3:.3f} ms/restart),"
+                f" stencil7_apply launches {launches['stencil7_apply']} "
+                f"(expected {applies}) + {err_launches} for compute_error, "
+                f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            check(res.converged and E.get_converged() >= 1,
+                  f"eps {which} ncv {ncv} did not converge: {res}")
+            check(rel <= 1e-9, f"eps {which} ncv {ncv}: lambda rel err {rel}")
+            check(err <= 1e-6, f"eps {which} ncv {ncv}: compute_error {err}")
+            check(res.host_syncs == restarts + 1,
+                  f"eps host syncs {res.host_syncs} != restarts + 1")
+            check(launches["stencil7_apply"] == applies,
+                  f"eps apply launches {launches['stencil7_apply']} != "
+                  f"{applies}")
+            check(err_launches == 1, "compute_error did not apply once")
+            check(sum(launches.values()) == launches["stencil7_apply"],
+                  f"eps launched other kernels: {launches}")
+            total += launches["stencil7_apply"]
+            E.solve()           # warm
+            warm = E.result.wall_time
+            log(f"eps {which} ncv {ncv} warm: wall {warm:.3f} s, "
+                f"{warm / restarts * 1e3:.3f} ms/restart, "
+                f"{warm / (applies) * 1e3:.4f} ms per factorization step")
+            # a window of the first 10 restarts: the steady per-restart
+            # cost, without the profiler's post-processing of every restart
+            E.set_tolerances(max_it=10)
+            idle = profile_solve(
+                lambda E=E: E.solve().get_iteration_number(),
+                f"eps {nx}^3 {which} ncv {ncv} (per restart)",
+                ops=("aten::mv", "aten::matmul", "aten::copy_"))
+            E.set_tolerances(max_it=EPS_MAX_IT)
+            out[(which, ncv)] = {"restarts": restarts, "wall_s": wall,
+                                 "warm_s": warm, "idle": idle,
+                                 "lambda": lam.real,
+                                 "launches": launches["stencil7_apply"]}
+    return total, out
+
+
+def phase_eps_plain(nx=32):
+    """The plain path on the card (``force_plain``) at 32^3 fp64: the same
+    restarts as the kernel path, the eigenvalue within 1e-12, and no kernel
+    launched."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    for which in ("largest_magnitude", "smallest_real"):
+        E = eps_hep(comm, op, which)
+        launches, _ = eps_solve_counted(E)
+        its, lam = E.get_iteration_number(), E.get_eigenvalue(0).real
+        op.force_plain = True
+        try:
+            plain_launches, _ = eps_solve_counted(E)
+        finally:
+            op.force_plain = False
+        p_its, p_lam = E.get_iteration_number(), E.get_eigenvalue(0).real
+        log(f"eps {nx}^3 {which}: kernel path {its} restarts, lambda "
+            f"{lam!r}, {launches['stencil7_apply']} launches; plain path "
+            f"{p_its} restarts, lambda {p_lam!r}, "
+            f"{sum(plain_launches.values())} launches")
+        check(p_its == its and abs(p_lam - lam) <= 1e-12 * abs(lam),
+              f"eps plain path {p_its}, {p_lam} vs {its}, {lam}")
+        check(sum(plain_launches.values()) == 0,
+              "the plain eps path launched kernels")
+        check(launches["stencil7_apply"] == expected_eps_applies(16, its),
+              "eps 32^3 kernel path launches")
+
+
+def phase_eps_aij(stencil_restarts, nx=EPS_NX):
+    """The assembled 128^3 Poisson matrix (DIA route), the largest
+    magnitude: the closed form within 1e-9 and restarts within one of the
+    stencil's."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    m, assembly = assemble(comm, pt.poisson3d_csr(nx), torch.float64)
+    check(m.spmv_route(comm) == "dia-gathered", "128^3 f64 AIJ not on DIA")
+    E = eps_hep(comm, m, "largest_magnitude")
+    launches, wall = eps_solve_counted(E)
+    its, lam = E.get_iteration_number(), E.get_eigenvalue(0).real
+    want = stencil_extremes(nx)[0]
+    rel = abs(lam - want) / want
+    log(f"eps aij {nx}^3 f64 largest_magnitude: {its} restarts (stencil "
+        f"{stencil_restarts}), lambda {lam!r} (rel err {rel:.3e}), wall "
+        f"{wall:.3f} s ({wall / its * 1e3:.3f} ms/restart), host syncs "
+        f"{E.result.host_syncs}, assembly {assembly:.3f} s, kernel launches "
+        f"{sum(launches.values())}")
+    check(E.result.converged and rel <= 1e-9, f"eps aij: {lam} vs {want}")
+    check(abs(its - stencil_restarts) <= 1,
+          f"eps aij restarts {its} vs stencil {stencil_restarts}")
+    del m
+    torch.cuda.empty_cache()
+
+
+def nhep_oracle(nx=64, beta=0.3):
+    """``numpy.linalg.eigvals`` of the dense ``convdiff2d(nx)`` (about 20 s
+    on the host), started in a thread so that the phases that time nothing
+    on the host run meanwhile; ``phase_eps_nhep`` joins it."""
+    import threading
+    from mpi_petsc4py_example_tpu_torch.models.generators import convdiff2d
+    A = convdiff2d(nx, beta=beta)
+    oracle = {"A": A, "nx": nx, "beta": beta}
+
+    def run():
+        t0 = time.perf_counter()
+        oracle["lam"] = np.linalg.eigvals(A.toarray())
+        oracle["seconds"] = time.perf_counter() - t0
+
+    oracle["thread"] = threading.Thread(target=run, daemon=True)
+    oracle["thread"].start()
+    return oracle
+
+
+def phase_eps_nhep(oracle):
+    """Krylov-Schur on the unsymmetric convection-diffusion operator
+    convdiff2d(64) (cfg4's family), NHEP, the largest real part, against
+    ``numpy.linalg.eigvals`` of the dense matrix within 1e-8 relative. Its
+    eigenvalue is ill-conditioned (the operator is far from normal), so the
+    residual tolerance that bounds it is 1e-12; the default 1e-8 run is
+    logged beside it."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    A = oracle["A"]
+    comm = pt.DeviceComm()
+    m = pt.Mat.from_scipy(comm, A, dtype=torch.float64)
+    oracle["thread"].join()
+    lam_all, t_eig = oracle["lam"], oracle["seconds"]
+    want = complex(lam_all[np.argmax(lam_all.real)])
+    nx, beta = oracle["nx"], oracle["beta"]
+    c = float(np.cos(np.pi / (nx + 1)))
+    closed = 4 + 2 * float(np.sqrt(1 - beta * beta)) * c + 2 * c
+    for tol in (1e-8, 1e-12):
+        E = pt.EPS().create(comm).set_operators(m).set_problem_type("nhep")
+        E.set_which_eigenpairs("largest_real").set_tolerances(
+            tol=tol, max_it=EPS_MAX_IT)
+        launches, wall = eps_solve_counted(E)
+        lam = E.get_eigenvalue(0)
+        rel = abs(lam - want) / abs(want)
+        log(f"eps nhep convdiff2d({nx}) largest_real tol {tol:g}: "
+            f"{E.get_iteration_number()} restarts, {E.result.reason_name}, "
+            f"lambda {lam!r}, numpy eigvals {want!r} ({t_eig:.1f} s; "
+            f"closed form {closed!r}), rel err {rel:.3e}, compute_error "
+            f"{E.compute_error(0):.3e}, wall {wall:.3f} s")
+        check(E.result.converged, f"nhep tol {tol}: {E.result}")
+    check(rel <= 1e-8, f"nhep convdiff2d: lambda rel err {rel}")
+
+
+def phase_eps_reference_flow():
+    """The reference test2.py flow through the port's runner and facade on
+    the card at -n 1 and -n 4: the printed eigenvalue within 1e-8 relative
+    of eigvalsh(tridiag_family(100)) (cfg2's eigenvalue_rel_err limit,
+    benchmarks/run_all.py:493)."""
+    from mpi_petsc4py_example_tpu_torch.models.generators import (
+        tridiag_family)
+    root = os.path.dirname(os.path.abspath(__file__))
+    driver = os.path.join(root, "mpi_petsc4py_example_tpu_torch", "facade",
+                          "drivers", "eigensolve.py")
+    lam = np.linalg.eigvalsh(tridiag_family(100).toarray())
+    want = float(lam[np.argmax(np.abs(lam))])
+    for n in (1, 4):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "mpi_petsc4py_example_tpu_torch.run", "-n",
+                            str(n), driver], capture_output=True, text=True,
+                           timeout=600, cwd=root)
+        wall = time.perf_counter() - t0
+        got = [complex(line.split("Eigenvalue:")[1].strip())
+               for line in r.stdout.splitlines() if "Eigenvalue:" in line]
+        log(f"test2.py flow -n {n} on the card: rc {r.returncode}, printed "
+            f"{got}, eigvalsh {want!r}, process wall {wall:.1f} s (a dense "
+            f"host eigensolve ran beside it)")
+        check(r.returncode == 0 and len(got) == 1
+              and abs(got[0].real - want) <= 1e-8 * abs(want),
+              f"test2.py flow -n {n}: {r.stdout[-500:]} {r.stderr[-2000:]}")
+
+
+def phase_eps():
+    """Every phase of the eigensolver slice; the stencil7_apply launches of
+    the 128^3 runs and the kernel's fp64 128^3 times."""
+    t0 = time.perf_counter()
+    times = phase_eps_apply_times()
+    launches, runs = phase_eps_main()
+    t1 = time.perf_counter()
+    phase_eps_aij(runs[("largest_magnitude", 16)]["restarts"])
+    t2 = time.perf_counter()
+    # the dense host eigensolve runs beside the phases that time nothing
+    # on the host
+    oracle = nhep_oracle()
+    phase_eps_plain()
+    phase_eps_reference_flow()
+    phase_eps_nhep(oracle)
+    log(f"eigensolver phases: {time.perf_counter() - t0:.1f} s (128^3 "
+        f"stencil {t1 - t0:.1f} s, 128^3 AIJ {t2 - t1:.1f} s, the rest "
+        f"{time.perf_counter() - t2:.1f} s)")
+    return launches, times
+
+
 def main():
     try:
         import torch
@@ -1766,6 +2088,13 @@ def main():
         # copied beside it
         print(json.dumps({"mg_levels": phase_mg_level_times(),
                           "mg_walls": phase_mg_walls()}))
+        print(card_line())
+        return
+    if sys.argv[1:] == ["--eps"]:
+        # only the eigensolver slice's phases
+        check(phase_kernel_checks() is not None, "kernel checks")
+        launches_eps, _ = phase_eps()
+        check(launches_eps > 0, "stencil7_apply never launched on the EPS path")
         print(card_line())
         return
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
@@ -1800,6 +2129,8 @@ def main():
     phase_aij_many()
     phase_aij_reference_flow()
     log(f"assembled-matrix phases: {time.perf_counter() - t_aij:.1f} s")
+    # the eigensolver slice: its operator applies are stencil7_apply's
+    launches_eps, apply_f64 = phase_eps()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1836,6 +2167,10 @@ def main():
             kernels[-1]["levels_512"] = levels[name]
         if name == "stencil7_dot":
             kernels[-1]["dot_rel_err"] = worst["dot_rel"]
+        if name == "stencil7_apply":
+            # the eigensolver path: 128^3 fp64 Krylov-Schur, four solves
+            kernels[-1]["launches_eps"] = launches_eps
+            kernels[-1]["eps_128_f64"] = apply_f64
         if name == "stencil7_dot_many":
             kernels[-1]["dot_rel_err"] = worst["dot_many_rel"]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,19 +1,20 @@
-"""Run a petsc4py/mpi4py driver on the port under N virtual ranks: the
-port's ``mpirun``.
+"""Run a petsc4py/slepc4py/mpi4py driver on the port under N virtual ranks:
+the port's ``mpirun``.
 
 Usage::
 
     python -m mpi_petsc4py_example_tpu_torch.run [-n N] [--device cpu] \\
         driver.py [driver arguments]
 
-The port's facade (``facade/``: ``petsc4py``, ``mpi4py``) leads
-``sys.path``, so the driver's ``import petsc4py`` and ``from mpi4py import
-MPI`` resolve to it. N threads each execute the driver as ``__main__`` with
-a thread-local rank; point-to-point and collective calls rendezvous in the
-process, and the device work runs once, on the rank-0 thread, over a
-``DeviceComm`` of N shards. The device is the card (CUDA), which must be
-present, unless ``--device cpu`` is given. The exit code is 1 when any rank
-raised.
+The port's facade (``facade/``: ``petsc4py``, ``slepc4py``, ``mpi4py``,
+``petsc_funcs``) leads ``sys.path``, ahead of the driver's own directory, so
+the driver's ``import petsc4py``, ``from slepc4py import SLEPc``, ``from
+mpi4py import MPI`` and ``import petsc_funcs`` resolve to it. N threads
+each execute the driver as ``__main__`` with a thread-local rank;
+point-to-point and collective calls rendezvous in the process, and the
+device work runs once, on the rank-0 thread, over a ``DeviceComm`` of N
+shards. The device is the card (CUDA), which must be present, unless
+``--device cpu`` is given. The exit code is 1 when any rank raised.
 """
 
 from __future__ import annotations

@@ -50,9 +50,7 @@ class KSP:
 
     def __init__(self, comm=None):
         self.comm = None
-        # the port's default type stays cg, its first slice's; PETSc's (and
-        # the JAX package's) default is gmres
-        self._type = "cg"
+        self._type = "gmres"          # PETSc's default
         self._pc: PC | None = None
         self._mat = None
         self.rtol = DEFAULT_RTOL

@@ -443,20 +443,29 @@ def _build_host_splu(mat, pc_type: str):
     return splu(A64), A64
 
 
+def dense_inverse_padded(comm, M, dtype, too_large: str):
+    """The explicit inverse of the host sparse matrix ``M``, made on the host
+    in fp64, zero-padded to the communicator's padded size, on the device in
+    ``dtype``: what PC lu (dense) and the factoring ST transformations apply
+    as one matrix product, replicated. Past ``_DENSE_CAP`` rows it raises
+    ``ValueError(too_large)``."""
+    import scipy.linalg
+    n = M.shape[0]
+    if n > _DENSE_CAP:
+        raise ValueError(too_large)
+    n_pad = comm.padded_size(n)
+    inv_pad = np.zeros((n_pad, n_pad), dtype=np.float64)
+    inv_pad[:n, :n] = scipy.linalg.inv(M.toarray().astype(np.float64))
+    return _ship_blocks(comm, inv_pad, dtype)[0]
+
+
 def _build_dense_lu(mat, setup_device: str = "auto"):
     """The padded explicit inverse of the whole operator, factored on the
     host in fp64 (the host path of JAX ``_build_dense_lu``, ``:1330-1338``);
     the device applies it as one matrix product, replicated."""
-    import scipy.linalg
     _require_assembled(mat, "lu")
     _want_device_setup(setup_device)
-    comm = mat.comm
-    n = mat.shape[0]
-    if n > _DENSE_CAP:
-        raise ValueError(f"PC 'lu' densifies general operators; n={n} is "
-                         "too large")
-    n_pad = comm.padded_size(n)
-    inv = scipy.linalg.inv(mat.to_scipy().toarray().astype(np.float64))
-    inv_pad = np.zeros((n_pad, n_pad), dtype=np.float64)
-    inv_pad[:n, :n] = inv
-    return _ship_blocks(comm, inv_pad, mat.dtype)
+    return (dense_inverse_padded(
+        mat.comm, mat.to_scipy(), mat.dtype,
+        f"PC 'lu' densifies general operators; n={mat.shape[0]} is too "
+        "large"),)

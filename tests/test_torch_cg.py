@@ -282,12 +282,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           if n.split(".")[0] in forbidden]
     sources = _port_sources()
     assert len(sources) > 15
-    # the facade and the runner are port files too
+    # the facade, its drivers, the runner and the eigensolver are port
+    # files too
     names = {p.relative_to(REPO).as_posix() for p in sources}
     assert {"mpi_petsc4py_example_tpu_torch/run.py",
             "mpi_petsc4py_example_tpu_torch/facade/petsc4py/PETSc.py",
             "mpi_petsc4py_example_tpu_torch/facade/mpi4py/MPI.py",
-            "mpi_petsc4py_example_tpu_torch/facade/drivers/solve_linear.py"
+            "mpi_petsc4py_example_tpu_torch/facade/drivers/solve_linear.py",
+            "mpi_petsc4py_example_tpu_torch/facade/drivers/eigensolve.py",
+            "mpi_petsc4py_example_tpu_torch/facade/slepc4py/__init__.py",
+            "mpi_petsc4py_example_tpu_torch/facade/slepc4py/SLEPc.py",
+            "mpi_petsc4py_example_tpu_torch/facade/petsc_funcs.py",
+            "mpi_petsc4py_example_tpu_torch/solvers/eps.py",
+            "mpi_petsc4py_example_tpu_torch/solvers/st.py",
             } <= names
     assert not offenders, offenders
 

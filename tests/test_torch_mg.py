@@ -156,6 +156,7 @@ def test_mg_beats_jacobi_and_matches_the_csr_oracle():
     its = {}
     for pc_type in ("mg", "jacobi"):
         ksp = pt.KSP().create(comm)
+        ksp.set_type("cg")
         ksp.set_operators(op)
         ksp.get_pc().set_type(pc_type)
         ksp.set_tolerances(rtol=1e-8)
@@ -354,6 +355,7 @@ def test_general_route_mg_matches_the_fast_path():
     out = {}
     for name, A in (("fast", op), ("general", flat_op)):
         ksp = pt.KSP().create(comm)
+        ksp.set_type("cg")
         ksp.set_operators(A)
         ksp.get_pc().set_type("mg")
         ksp.set_tolerances(rtol=1e-10)
