@@ -44,10 +44,21 @@ before each and read just after:
   checked against the restart count and a profile per restart; the plain
   path at 32^3; the assembled 128^3 matrix (DIA); NHEP on convdiff2d(64)
   against numpy's eigenvalues; and the reference ``test2.py`` flow through
-  the runner at -n 1 and -n 4.
+  the runner at -n 1 and -n 4;
+* mixed-precision refinement (``RefinedKSP``) with the bfloat16
+  instantiations of the four Krylov kernels: each held bit for bit against
+  its plain version (128^3, an odd multi-tile shape, k = 1/3/8) and timed
+  at 128^3 and 512^3 beside cuDNN's bf16 conv3d; 512^3 CG + Jacobi at bf16
+  against f32 (delta method, profile, peak memory, fp64 true residual); the
+  refined solves that launch each bf16 kernel (32^3 single-RHS and 64^3
+  k = 8, fast path and general route; 64^3 single-RHS, where bf16
+  refinement is at the edge of contraction); and cfg11 of
+  ``benchmarks/run_all.py`` at 128^3 (inner bf16/f32/f64 on the stencil and
+  on the assembled Mat, rtol 1e-10, against scipy's fp64 CG).
 
-``python3 chip_smoke.py --eps`` builds the kernels, checks them and runs only
-the eigensolver phases. ``python3 chip_smoke.py --mg3d`` builds the kernels and prints only the
+``python3 chip_smoke.py --refine`` builds the kernels and runs only the
+mixed-precision phases. ``python3 chip_smoke.py --eps`` builds the kernels,
+checks them and runs only the eigensolver phases. ``python3 chip_smoke.py --mg3d`` builds the kernels and prints only the
 per-level table of the two ``csrc/mg3d.cu`` kernels and the warm CG + mg
 walls at 128^3 and 512^3 (a copy of this script placed in another checkout
 times that checkout's kernels).
@@ -206,13 +217,14 @@ def phase_kernel_checks():
     u, lo, hi = random_slab((128, 128, 128), torch.float32, 7)
     sums = {float(st.stencil3d_dot(u, lo, hi)[1]) for _ in range(5)}
     check(len(sums) == 1, f"dot not deterministic across runs: {sums}")
-    for bad in (torch.bfloat16, torch.float16):
-        try:
-            st.stencil3d_apply(u.to(bad), lo.to(bad), hi.to(bad))
-        except TypeError:
-            continue
+    bad = torch.float16           # bfloat16 has its own kernels (--refine)
+    try:
+        st.stencil3d_apply(u.to(bad), lo.to(bad), hi.to(bad))
+    except TypeError:
+        pass
+    else:
         raise SystemExit(f"chip_smoke: FAIL: {bad} on CUDA did not raise")
-    log("check: dot deterministic over 5 runs; bf16/fp16 raise TypeError")
+    log("check: dot deterministic over 5 runs; fp16 raises TypeError")
     return worst
 
 
@@ -665,8 +677,7 @@ def phase_main_path():
 
 def reset_launches():
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
-    for wrapper in st.KERNELS.values():
-        wrapper.launches = 0
+    st.reset_launches()
 
 
 def read_launches():
@@ -2063,6 +2074,483 @@ def phase_eps():
     return launches, times
 
 
+# ---- the mixed-precision refinement slice (RefinedKSP, bf16 storage) ----------
+
+REFINE_RTOL = 1e-10               # cfg11's rtol (benchmarks/run_all.py:1221)
+BF16_NAMES = {"stencil7_apply": "stencil7_apply_bf16",
+              "stencil7_dot": "stencil7_dot_bf16",
+              "stencil7_apply_many": "stencil7_apply_many_bf16",
+              "stencil7_dot_many": "stencil7_dot_many_bf16"}
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| of two bf16 tensors, in fp32."""
+    return float((a.float() - b.float()).abs().max())
+
+
+def read_bf16_launches():
+    """The bfloat16 instantiations' launch counters, by kernel name."""
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    return {BF16_NAMES[name]: st.KERNELS[name].launches_bf16
+            for name in BF16_NAMES}
+
+
+def phase_bf16_kernel_checks():
+    """The four bfloat16 kernels against their plain versions on the card:
+    128^3, an odd multi-tile (37, 45, 131), random and zero halos, k in
+    {1, 3, 8} for the batched two. ``A u`` must be bit-equal, the dots
+    within 1e-5 relative and fp32; each column of a batched launch
+    bit-equal to a single launch on it; float16 raises. Returns the largest
+    errors per kernel."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    bf = torch.bfloat16
+    worst = {name: 0.0 for name in BF16_NAMES.values()}
+    worst["dot_rel"] = worst["dot_many_rel"] = 0.0
+    seed = 900
+    for shape in ((128, 128, 128), (37, 45, 131)):
+        for halos in (True, False):
+            seed += 1
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            mk = lambda *sh: torch.rand(sh, generator=g, device="cuda").to(bf)
+            u = mk(*shape)
+            lo, hi = ((mk(*shape[1:]), mk(*shape[1:])) if halos else
+                      (torch.zeros(shape[1:], device="cuda", dtype=bf),) * 2)
+            y = st.stencil3d_apply(u, lo if halos else None,
+                                   hi if halos else None)
+            yd, d = st.stencil3d_dot(u, lo, hi)
+            yp, dp = st.stencil3d_dot_plain(u, lo, hi)
+            torch.cuda.synchronize()
+            e_dot = abs(float(d) - float(dp)) / abs(float(dp))
+            label = f"{shape} {'random' if halos else 'zero'} halos"
+            log(f"check bf16 {label}: apply bit-equal {torch.equal(y, yp)}, "
+                f"dot y bit-equal {torch.equal(yd, yp)}, dot rel err "
+                f"{e_dot:.3e} ({d.dtype})")
+            check(y.dtype == yd.dtype == bf and d.dtype == torch.float32,
+                  f"bf16 dtypes {y.dtype} {yd.dtype} {d.dtype}")
+            for name, got in (("stencil7_apply_bf16", y),
+                              ("stencil7_dot_bf16", yd)):
+                worst[name] = max(worst[name], max_abs_diff(got, yp))
+            check(torch.equal(y, yp) and torch.equal(yd, yp),
+                  f"bf16 apply/dot not bit-equal to plain, {label}")
+            check(e_dot <= 1e-5, f"bf16 dot {label}: rel {e_dot}")
+            worst["dot_rel"] = max(worst["dot_rel"], e_dot)
+            for k in (1, 3, K_BATCH):
+                U = mk(k, *shape)
+                blo, bhi = ((mk(k, *shape[1:]), mk(k, *shape[1:])) if halos
+                            else (None, None))
+                Y = st.stencil3d_apply_many(U, blo, bhi)
+                Yd, dm = st.stencil3d_dot_many(U, blo, bhi)
+                Yp, dmp = st.stencil3d_dot_many_plain(U, blo, bhi)
+                e_many = float(((dm - dmp).abs() / dmp.abs()).max())
+                same = True
+                for j in range(k):
+                    lj, hj = ((blo[j], bhi[j]) if halos else
+                              (torch.zeros_like(U[j, 0]),) * 2)
+                    y2, d2 = st.stencil3d_dot(U[j], lj, hj)
+                    same = same and torch.equal(y2, Yd[j]) and torch.equal(
+                        d2, dm[j])
+                torch.cuda.synchronize()
+                log(f"check bf16 many k={k} {label}: apply bit-equal "
+                    f"{torch.equal(Y, Yp)}, dot y bit-equal "
+                    f"{torch.equal(Yd, Yp)}, dot max rel err {e_many:.3e}, "
+                    f"columns equal single launches {same}")
+                check(Y.dtype == bf and dm.dtype == torch.float32,
+                      f"bf16 many dtypes {Y.dtype} {dm.dtype}")
+                for name, got in (("stencil7_apply_many_bf16", Y),
+                                  ("stencil7_dot_many_bf16", Yd)):
+                    worst[name] = max(worst[name], max_abs_diff(got, Yp))
+                check(torch.equal(Y, Yp) and torch.equal(Yd, Yp),
+                      f"bf16 many kernels not bit-equal, k={k} {label}")
+                check(e_many <= 1e-5, f"bf16 dot_many k={k} {label}: {e_many}")
+                check(same, f"bf16 column differs from a single launch, "
+                            f"k={k} {label}")
+                worst["dot_many_rel"] = max(worst["dot_many_rel"], e_many)
+                del U, blo, bhi, Y, Yd, dm, Yp, dmp
+            del u, lo, hi, y, yd, d, yp, dp
+    torch.cuda.empty_cache()
+    u = torch.ones(4, 6, 10, device="cuda", dtype=torch.float16)
+    for fn in (st.stencil3d_apply, st.stencil3d_dot):
+        try:
+            fn(u, u[0].clone(), u[0].clone())
+        except TypeError:
+            continue
+        raise SystemExit(f"chip_smoke: FAIL: float16 on CUDA did not raise "
+                         f"in {fn.__name__}")
+    log("check bf16: float16 raises TypeError")
+    return worst
+
+
+def phase_bf16_kernel_times(n, k=K_BATCH):
+    """kernel/plain/library/bound times of the four bfloat16 kernels at n^3
+    (k x n^3 for the batched two). The library yardstick of the applies is
+    cuDNN's conv3d in bfloat16 (batch k for the batched apply); the dots
+    have none. The bound counts 2 bytes a point read and written, and the
+    dots' fp32 partials."""
+    import torch
+    import torch.nn.functional as F
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    bf = torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(17)
+    big = n >= 512
+    out = {}
+    w = torch.zeros((1, 1, 3, 3, 3), device="cuda", dtype=bf)
+    w[0, 0, 1, 1, 1] = 6.0
+    for dz, dy, dx in [(0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                       (1, 1, 2)]:
+        w[0, 0, dz, dy, dx] = -1.0
+    for cols in (1, k):
+        mk = lambda *sh: torch.rand(sh, generator=g, device="cuda").to(bf)
+        U = mk(cols, n, n, n)
+        lo, hi = mk(cols, n, n), mk(cols, n, n)
+        Y = torch.empty_like(U)
+        ref = st.stencil3d_apply_many_plain(U, lo, hi)
+        scale = float(ref.float().abs().max())
+        ext = torch.cat([lo[:, None], U, hi[:, None]], dim=1)[:, None]
+        conv = lambda: F.conv3d(ext, w, padding=(0, 1, 1))
+        e_conv = float((conv()[:, 0].float() - ref.float()).abs().max())
+        del ref
+        slow = 2 if big else 10
+        reps_slow = 5 if big else 25
+        lib_ms = device_ms(conv, slow, reps=reps_slow)
+        del ext
+        torch.cuda.empty_cache()
+        if cols == 1:
+            u, l1, h1, y = U[0], lo[0], hi[0], Y[0]
+            cases = [("stencil7_apply_bf16",
+                      lambda: st.stencil3d_apply(u, l1, h1, out=y),
+                      lambda: st.stencil3d_apply_plain(u, l1, h1), False),
+                     ("stencil7_dot_bf16",
+                      lambda: st.stencil3d_dot(u, l1, h1, out=y),
+                      lambda: st.stencil3d_dot_plain(u, l1, h1), True)]
+        else:
+            cases = [("stencil7_apply_many_bf16",
+                      lambda: st.stencil3d_apply_many(U, lo, hi, out=Y),
+                      lambda: st.stencil3d_apply_many_plain(U, lo, hi), False),
+                     ("stencil7_dot_many_bf16",
+                      lambda: st.stencil3d_dot_many(U, lo, hi, out=Y),
+                      lambda: st.stencil3d_dot_many_plain(U, lo, hi), True)]
+        for name, kern, plain, dot in cases:
+            res = kern()
+            got = res[0] if dot else res
+            want = plain()
+            err = max_abs_diff(got, want[0] if dot else want)
+            check(err == 0.0, f"{name} at {cols} x {n}^3 not bit-equal to "
+                              f"its plain version: {err}")
+            del want
+            b_ms, b_by = bound_ms(n, n, n, 2, False, cols)
+            if dot:                       # + the fp32 partial per column
+                b_ms += cols * 4 / HBM_BYTES_PER_S * 1e3
+            inner = (20 if cols == 1 else 10) if big else 100
+            out[name] = {"ms": device_ms(kern, inner, 10 if big else 25),
+                         "plain_ms": device_ms(plain, slow, reps=reps_slow),
+                         "library_ms": None if dot else lib_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": err}
+            r = out[name]
+            log(f"time {name} {cols} x {n}^3 bf16: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"{b_ms / r['ms'] * 100:.1f}% of it), "
+                f"{'conv3d bf16 ' + format(lib_ms, '.4f') + ' ms' if not dot else 'no one-call library equivalent'}"
+                f", achieved {cols * (2 * n**3 + 2 * n * n) * 2 / r['ms'] / 1e6:.1f} GB/s")
+            torch.cuda.empty_cache()
+        log(f"time conv3d bf16 batch {cols} {n}^3: max|conv3d - plain| "
+            f"{e_conv:.3e} (max|y| {scale:.3e})")
+        del U, lo, hi, Y
+        torch.cuda.empty_cache()
+    return out
+
+
+def refined(comm, A, prec, inner_op=None, rtol=REFINE_RTOL):
+    import mpi_petsc4py_example_tpu_torch as pt
+    rk = pt.RefinedKSP().create(comm)
+    rk.set_inner_precision(prec)
+    rk.set_operators(A, inner_op=inner_op)
+    rk.set_type("cg")
+    rk.get_pc().set_type("jacobi")
+    rk.set_tolerances(rtol=rtol)
+    return rk
+
+
+def cfg11_problem(nx):
+    """cfg11's system (benchmarks/run_all.py:1222-1224): 3D Poisson, b = A u
+    with u uniform from default_rng(0), fp64."""
+    import mpi_petsc4py_example_tpu_torch as pt
+    A = pt.poisson3d_csr(nx).astype(np.float64).tocsr()
+    u = np.random.default_rng(0).random(A.shape[0])
+    return A, A @ u
+
+
+def refine_outcome(A, b, x, res, rk):
+    """The check rule of a refined solve: converged at 1.05 rtol (parity),
+    or stopped by the stagnation guard (breakdown); returns which."""
+    rel = true_relres(A, x, b)
+    if res.converged:
+        check(rel <= 1.05 * rk.rtol, f"converged with relres {rel}")
+        return "parity", rel
+    check(res.reason == -5, f"refined solve ended with reason {res.reason}")
+    return "breakdown", rel
+
+
+def inner_delta(comm, op, b):
+    """The delta method on the inner CG + Jacobi alone (norm type none, 20
+    and 220 iterations): the inner solve's ms per iteration."""
+    import mpi_petsc4py_example_tpu_torch as pt
+    bv = pt.Vec.from_global(comm, b, dtype=op.dtype, layout=op.layout)
+    x, _ = op.get_vecs()
+    solvers = {m: cg_jacobi(comm, op, 0.0, max_it=m, norm_none=True)
+               for m in (20, 220)}
+    per, _ = delta_per_iter(solvers, bv, x)
+    return per
+
+
+def phase_refine_cfg11(nx=128):
+    """cfg11 at 128^3 (benchmarks/run_all.py:1187-1300): CG + Jacobi inside
+    fp64 refinement at rtol 1e-10, inner bf16/f32/f64, on the stencil inner
+    operator (the bf16 kernels' path) and on the assembled Mat (cfg11 as
+    written). Per run: reason, steps, inner iterations, fp64 relres, warm
+    wall, the inner delta-method ms/iteration and the bf16 dot launches
+    (counters zeroed just before, read just after; on the stencil they must
+    be the inner iterations plus one per step). f32 and f64 must reach 1.05
+    rtol, as scipy's fp64 CG + Jacobi does; bf16 prints parity or
+    DIVERGED_BREAKDOWN (the JAX package stagnates here on the CPU)."""
+    import scipy.sparse.linalg as spla
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    A, b = cfg11_problem(nx)
+    comm = pt.DeviceComm()
+    t0 = time.perf_counter()
+    M = spla.LinearOperator(A.shape, matvec=lambda v: v / 6.0)
+    x_cpu, info = spla.cg(A, b, rtol=REFINE_RTOL, atol=0.0, maxiter=40000,
+                          M=M)
+    cpu_rel = true_relres(A, x_cpu, b)
+    log(f"refine {nx}^3 scipy fp64 CG+jacobi oracle: info {info}, relres "
+        f"{cpu_rel:.3e}, {time.perf_counter() - t0:.1f} s")
+    check(cpu_rel <= 1.05 * REFINE_RTOL, f"scipy oracle relres {cpu_rel}")
+    runs, launches_path = {}, {}
+    for operator in ("stencil", "assembled"):
+        for prec in ("bf16", "f32", "f64"):
+            from mpi_petsc4py_example_tpu_torch.utils.dtypes import (
+                inner_precision_dtype)
+            dt = inner_precision_dtype(prec)
+            op = (pt.StencilPoisson3D(comm, nx, dtype=dt)
+                  if operator == "stencil" else None)
+            t_set = time.perf_counter()
+            rk = refined(comm, A, prec, op)
+            t_set = time.perf_counter() - t_set
+            torch.cuda.synchronize()
+            st.reset_launches()
+            x, res = rk.solve(b)
+            torch.cuda.synchronize()
+            launches = read_bf16_launches()
+            outcome, rel = refine_outcome(A, b, x, res, rk)
+            warm = rk.solve(b)[1].wall_time
+            per = inner_delta(comm, rk._inner_op, b)
+            dots = launches["stencil7_dot_bf16"]
+            x_diff = float(np.abs(x - x_cpu).max() / np.abs(x_cpu).max())
+            log(f"refine {nx}^3 {operator} {prec}: {outcome}, reason "
+                f"{res.reason}, {rk.refine_steps} steps, {res.iterations} "
+                f"inner iterations, fp64 relres {rel:.3e}, max|x - "
+                f"x_scipy|/max|x| {x_diff:.3e}, wall {res.wall_time:.3f} s "
+                f"(warm {warm:.3f} s), inner {per * 1e3:.4f} ms/iter "
+                f"(delta method), set-up {t_set:.2f} s, bf16 dot launches "
+                f"{dots}")
+            if prec != "bf16":
+                check(outcome == "parity",
+                      f"{operator} {prec} refinement missed rtol: {res}")
+            if operator == "stencil" and prec == "bf16":
+                check(dots == res.iterations + rk.refine_steps,
+                      f"bf16 dot launches {dots} != inner iterations "
+                      f"{res.iterations} + steps {rk.refine_steps}")
+                launches_path = launches
+            else:
+                check(dots == 0, f"bf16 dot launched on {operator} {prec}")
+            runs[(operator, prec)] = {
+                "outcome": outcome, "reason": res.reason,
+                "steps": rk.refine_steps, "inner_iterations": res.iterations,
+                "relres": rel, "wall_s": res.wall_time, "warm_wall_s": warm,
+                "inner_ms_per_iter": per * 1e3}
+            del rk, op
+            torch.cuda.empty_cache()
+    return launches_path, runs
+
+
+def phase_refine_routes(nx=64, nx_single=32, k=K_BATCH):
+    """Every bf16 kernel on a path: the refined single-RHS solve on the
+    stencil fast path (``stencil7_dot_bf16``) and on the general route,
+    Amat != Pmat (``stencil7_apply_bf16``) at ``nx_single``^3, and the
+    refined ``solve_many`` with k columns on the fast path
+    (``stencil7_dot_many_bf16``) and on the general route
+    (``stencil7_apply_many_bf16``) at nx^3, all on cfg11's system. Counters
+    are zeroed just before each solve and read just after; each launch count
+    equals the inner iterations plus one per outer step, and every column
+    reaches 1.05 rtol. Last, the single-RHS fast path at nx^3, where bf16
+    refinement is at the edge of contraction: parity or the stagnation
+    guard, printed (ROADMAP Queue C)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    bf = torch.bfloat16
+    comm = pt.DeviceComm()
+    out, missed = {}, []
+    for route, many, size in (("general", False, nx_single),
+                              ("fast", True, nx), ("general", True, nx),
+                              ("fast", False, nx_single), ("fast", False, nx)):
+        A, b = cfg11_problem(size)
+        op = pt.StencilPoisson3D(comm, size, dtype=bf)
+        rk = refined(comm, A, "bf16", op)
+        if route == "general":
+            rk.inner.set_operators(op, pt.StencilPoisson3D(comm, size,
+                                                           dtype=bf))
+        name = (("stencil7_dot" if route == "fast" else "stencil7_apply")
+                + ("_many" if many else "") + "_bf16")
+        if many:
+            rng = np.random.default_rng(11)
+            B = np.stack([b] + [A @ rng.random(A.shape[0])
+                                for _ in range(k - 1)], axis=1)
+        torch.cuda.synchronize()
+        st.reset_launches()
+        if many:
+            X, res = rk.solve_many(B)
+            rels = [true_relres(A, X[:, j], B[:, j]) for j in range(k)]
+        else:
+            x, res = rk.solve(b)
+            rels = [true_relres(A, x, b)]
+        torch.cuda.synchronize()
+        launches = read_bf16_launches()
+        label = (f"refine {size}^3 bf16 "
+                 f"{'solve_many k=' + str(k) if many else 'solve'} "
+                 f"{route} route")
+        edge = name in out               # the second single fast-path run
+        outcome = ("parity" if res.converged
+                   and max(rels) <= 1.05 * REFINE_RTOL else
+                   "breakdown" if res.reason == -5 else "missed")
+        log(f"{label}: {outcome}, reason {res.reason}, {rk.refine_steps} "
+            f"steps, {res.iterations} inner iterations, fp64 relres "
+            f"{[float(f'{r:.3e}') for r in rels]}, wall "
+            f"{res.wall_time:.3f} s, launches {launches}")
+        check(launches[name] > 0, f"{name} never launched ({label})")
+        check(launches[name] == res.iterations + rk.refine_steps,
+              f"{name} launches {launches[name]} != inner iterations "
+              f"{res.iterations} + steps {rk.refine_steps} ({label})")
+        check(all(v == 0 for key, v in launches.items() if key != name),
+              f"{label} launched other bf16 kernels: {launches}")
+        if edge:
+            check(outcome != "missed", f"{label}: {res}, {rels}")
+            out["edge"] = {"size": size, "outcome": outcome,
+                           "reason": res.reason, "steps": rk.refine_steps,
+                           "inner_iterations": res.iterations,
+                           "relres": rels[0]}
+        else:
+            if outcome != "parity":
+                missed.append(f"{label}: reason {res.reason}, relres {rels}")
+            out[name] = {"launches": launches[name],
+                         "path": label.removeprefix("refine ")}
+        del rk, op
+        torch.cuda.empty_cache()
+    # every route has run (and logged) before a miss fails the phase
+    check(not missed, f"refined bf16 solves missed rtol: {missed}")
+    return out
+
+
+def phase_bf16_inner_512(nx=512):
+    """CG + Jacobi on the 512^3 stencil alone, bf16 storage against f32: the
+    delta-method ms per iteration against the 11-pass bound (2 and 4 bytes
+    a pass), a profile of 20 fixed iterations (device time by kernel), peak
+    memory, and a solve to the bf16 floor (rtol 4 x 2^-7) with its fp64
+    true residual on the card."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    n = nx ** 3
+    comm = pt.DeviceComm()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x_true = torch.rand(n, generator=g, device="cuda")
+    op32 = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    b32 = op32.mult(pt.Vec(comm, n, data=x_true))
+    del x_true
+    rtol = 4 * 2.0 ** -7
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        op = pt.StencilPoisson3D(comm, nx, dtype=dtype)
+        bv = pt.Vec(comm, n, data=b32.data.to(dtype))
+        x, _ = op.get_vecs()
+        ksp = cg_jacobi(comm, op, rtol)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = ksp.solve(bv, x)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        op64 = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+        b64 = bv.data.double()
+        ax = op64.mult(pt.Vec(comm, n, data=x.data.double())).data
+        true_rel = float(torch.linalg.vector_norm(b64 - ax)
+                         / torch.linalg.vector_norm(b64))
+        del op64, b64, ax
+        torch.cuda.empty_cache()
+        solvers = {m: cg_jacobi(comm, op, 0.0, max_it=m, norm_none=True)
+                   for m in (20, 220)}
+        torch.cuda.reset_peak_memory_stats()
+        per, samples = delta_per_iter(solvers, bv, x)
+        peak_fixed = torch.cuda.max_memory_allocated() / 2 ** 30
+        idle = profile_solve(lambda: zero_solve(solvers[20], bv, x),
+                             f"512^3 {name} 20 fixed iterations")
+        bound = PASSES_PER_ITER * n * dtype.itemsize / HBM_BYTES_PER_S
+        log(f"512^3 {name} CG+jacobi to rtol {rtol:g}: {res.iterations} "
+            f"iterations, {res.reason_name}, fp64 true relres {true_rel:.3e}, "
+            f"peak {peak:.2f} GiB; delta method {per * 1e3:.4f} ms/iter "
+            f"(samples {[round(p * 1e3, 4) for p in samples]}), 11-pass bound "
+            f"{bound * 1e3:.4f} ms ({bound / per * 100:.1f}% of it), peak "
+            f"{peak_fixed:.2f} GiB in the fixed-iteration solves")
+        check(res.converged, f"512^3 {name} solve: {res}")
+        check(true_rel <= 10 * rtol, f"512^3 {name} true residual {true_rel}")
+        out[name] = {"ms_per_iter": per * 1e3, "bound_ms": bound * 1e3,
+                     "iterations": res.iterations, "true_relres": true_rel,
+                     "peak_gib": max(peak, peak_fixed), "idle_share": idle}
+        del op, bv, x, ksp, solvers
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_refine():
+    """Every phase of the mixed-precision slice; returns the bf16 kernels'
+    entries for the kernels record."""
+    t0 = time.perf_counter()
+    worst = phase_bf16_kernel_checks()
+    times = {n: phase_bf16_kernel_times(n) for n in (128, 512)}
+    t1 = time.perf_counter()
+    inner_512 = phase_bf16_inner_512()
+    routes = phase_refine_routes()
+    t2 = time.perf_counter()
+    launches_dot, runs = phase_refine_cfg11()
+    log(f"mixed-precision phases: {time.perf_counter() - t0:.1f} s (kernels "
+        f"{t1 - t0:.1f} s, 512^3 and routes {t2 - t1:.1f} s, 128^3 "
+        f"refinement {time.perf_counter() - t2:.1f} s)")
+    entries = []
+    for base, name in BF16_NAMES.items():
+        big, small = times[512][name], times[128][name]
+        path = routes[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": KERNELS[base][0],
+            "replaces": KERNELS[base][1], "launches": path["launches"],
+            "path": path["path"],
+            "max_abs_err": max(worst[name], big["max_abs_err"],
+                               small["max_abs_err"]),
+            "ms": big["ms"], "kernel_ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": big["library_ms"],
+            "shape": ([K_BATCH] if "many" in name else []) + [512] * 3,
+            "dtype": "bfloat16", "at_128": small})
+        if name == "stencil7_dot_bf16":
+            entries[-1]["dot_rel_err"] = worst["dot_rel"]
+            entries[-1]["launches_cfg11_128"] = launches_dot[name]
+        if name == "stencil7_dot_many_bf16":
+            entries[-1]["dot_rel_err"] = worst["dot_many_rel"]
+    return entries, {"cfg11": {f"{o} {p}": r for (o, p), r in runs.items()},
+                     "inner_512": inner_512, "edge_64": routes["edge"]}
+
+
 def main():
     try:
         import torch
@@ -2095,6 +2583,12 @@ def main():
         check(phase_kernel_checks() is not None, "kernel checks")
         launches_eps, _ = phase_eps()
         check(launches_eps > 0, "stencil7_apply never launched on the EPS path")
+        print(card_line())
+        return
+    if sys.argv[1:] == ["--refine"]:
+        # only the mixed-precision slice's phases
+        entries, refine = phase_refine()
+        print(json.dumps({"kernels": entries, "refine": refine}))
         print(card_line())
         return
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
@@ -2131,6 +2625,8 @@ def main():
     log(f"assembled-matrix phases: {time.perf_counter() - t_aij:.1f} s")
     # the eigensolver slice: its operator applies are stencil7_apply's
     launches_eps, apply_f64 = phase_eps()
+    # the mixed-precision slice: the bfloat16 instantiations of four kernels
+    bf16_entries, _ = phase_refine()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2173,6 +2669,10 @@ def main():
             kernels[-1]["eps_128_f64"] = apply_f64
         if name == "stencil7_dot_many":
             kernels[-1]["dot_rel_err"] = worst["dot_many_rel"]
+    for entry in bf16_entries:
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on "
+                                     f"its path ({entry['path']})")
+    kernels += bf16_entries
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

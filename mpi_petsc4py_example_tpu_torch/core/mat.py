@@ -17,6 +17,12 @@ the factor PCs (bjacobi, lu) and the queries.
 port's virtual mesh: banded DIA with a ``halo``-row exchange between
 neighbouring shards, gathered DIA, and ELL (gathered input, one gather of
 ``x``). Not ported yet: the transpose product, null spaces, ``astype``.
+
+Storage is fp32, fp64 or bfloat16. A bfloat16 Mat rounds the CSR values to
+bfloat16 once, with torch's cast, when it is built (the JAX package's
+``np.asarray(data, dtype=bfloat16)``, ``mat.py:100-115``); its host CSR then
+holds those rounded values as fp32, which is exact, so the PCs set up from
+the operator's own values, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -91,13 +97,13 @@ class Mat:
         detect and convert DIA, then place every device array. The parts of
         the time land in ``assembly_breakdown`` (the placement is synced
         before its stamp)."""
-        accum_dtype(torch_dtype(dtype))
-        np_dt = numpy_dtype(dtype)
+        dt = torch_dtype(dtype)
+        accum_dtype(dt)
         nrows, ncols = int(size[0]), int(size[1])
         t0 = time.perf_counter()
         indptr = np.asarray(csr[0], dtype=np.int64)
         indices = np.asarray(csr[1], dtype=np.int32)
-        data = np.asarray(csr[2], dtype=np_dt)
+        data = _storage_values(csr[2], dt)
         if len(indptr) != nrows + 1:
             raise ValueError(f"malformed CSR: {len(indptr) - 1} rows for "
                              f"shape {(nrows, ncols)}")
@@ -121,10 +127,10 @@ class Mat:
                 offsets = None
         t3 = time.perf_counter()
         ell_cols = comm.put_rows(cols)
-        ell_vals = comm.put_rows(vals)
+        ell_vals = comm.put_rows(vals, dt)
         # DIA goes to the card diagonal-major, transposed on the host
         dia_t = (None if dia is None else torch.tensor(
-            comm.pad_rows(dia).T, device=comm.device))
+            comm.pad_rows(dia).T, dtype=dt, device=comm.device))
         if comm.device.type == "cuda":
             torch.cuda.synchronize(comm.device)
         t4 = time.perf_counter()
@@ -255,7 +261,7 @@ class Mat:
             self.dia_vals = self.dia_vals * float(alpha)
         if self.host_csr is not None:
             ip, ix, dv = self.host_csr
-            self.host_csr = (ip, ix, dv * alpha)
+            self.host_csr = (ip, ix, _storage_values(dv * alpha, self.dtype))
         self._state += 1
         return self
 
@@ -446,6 +452,16 @@ class Mat:
     def __repr__(self):
         return (f"Mat(shape={self.shape}, K={self.K}, "
                 f"devices={self.comm.size}, dtype={self.dtype})")
+
+
+def _storage_values(data, dtype: torch.dtype) -> np.ndarray:
+    """The CSR values as stored in ``dtype``, on the host: a numpy array of
+    ``dtype``, or for bfloat16 the values rounded once by torch's cast and
+    held as fp32 (an fp64 value rounds through fp32, as ``ml_dtypes`` rounds
+    it)."""
+    if dtype != torch.bfloat16:
+        return np.asarray(data, dtype=numpy_dtype(dtype))
+    return torch.tensor(np.asarray(data), dtype=dtype).float().numpy()
 
 
 def coo_to_csr(shape, rows, cols, vals, mode: str = "insert"):

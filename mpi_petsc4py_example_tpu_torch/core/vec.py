@@ -4,7 +4,9 @@ The port's counterpart of ``mpi_petsc4py_example_tpu/core/vec.py`` (``Vec``).
 Storage is a flat tensor of length ``comm.padded_size(n)``, whose view
 ``(comm.size, comm.local_size(n))`` is the shard axis; the user-visible
 ownership ranges live in a :class:`RowLayout`. The BLAS-1 methods update
-``data`` in place where JAX rebinds a new array.
+``data`` in place where JAX rebinds a new array. A bfloat16 Vec travels to
+and from the host as float32, and its norm and dot accumulate in the fp32
+reduce channel (``utils/dtypes.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ..parallel.mesh import DeviceComm, torch_dtype
 from ..parallel.partition import RowLayout
+from ..utils.dtypes import reduce_dtype
 
 
 class Vec:
@@ -55,11 +58,17 @@ class Vec:
         return self.data.dtype
 
     def set_global(self, arr):
+        """Place a host array in this Vec's dtype (a bfloat16 Vec rounds it
+        with torch's cast)."""
         self.data = self.comm.put_rows(np.asarray(arr), self.data.dtype)
 
     def to_numpy(self) -> np.ndarray:
-        """Gather to host, dropping padding."""
+        """Gather to host, dropping padding (bfloat16 as float32)."""
         return self.comm.host_fetch(self.data)[: self.n]
+
+    def _reduce_view(self) -> torch.Tensor:
+        """``data`` in the reduce dtype (a copy for bfloat16 only)."""
+        return self.data.to(reduce_dtype(self.data.dtype))
 
     def zero(self):
         self.data.zero_()
@@ -67,11 +76,11 @@ class Vec:
 
     def norm(self) -> float:
         """2-norm (padding entries are zero, so the padded array is exact)."""
-        return float(torch.linalg.vector_norm(self.data))
+        return float(torch.linalg.vector_norm(self._reduce_view()))
 
     def dot(self, other: "Vec") -> float:
         """PETSc VecDot(self, other) for real vectors."""
-        return float(torch.dot(self.data, other.data))
+        return float(torch.dot(self._reduce_view(), other._reduce_view()))
 
     def axpy(self, alpha: float, other: "Vec"):
         """self += alpha * other."""

@@ -10,6 +10,9 @@
 //   stencil7_apply_many_{f32,f64}  -> stencil3d_apply_many_pallas (:591),
 //                                     body _stencil_many_kernel (:430)
 //   stencil7_dot_many_{f32,f64}    -> stencil3d_dot_many_pallas (:620)
+//   stencil7_{apply,dot,apply_many,dot_many}_bf16 -> the bfloat16-storage
+//                                     instantiations of the same four TPU
+//                                     kernels (_compute_dtype :46)
 //
 // All compute, on a z-slab u (lz, ny, nx) stored x-fastest,
 //   Au = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
@@ -52,9 +55,21 @@
 // the bound is the same k (2 n + 2 planes) bytes, and the march reads each
 // column's u about once.
 //
-// This first design is simple and right.  Shared-memory plane tiling, TMA and
-// fusing the CG update chain are left to later work.
+// bfloat16 storage (the mixed-precision plan's inner solves) runs the same
+// march with an fp32 accumulator type: each loaded value is lifted with
+// __bfloat162float, the 7-term sum is formed in fp32 in the plain version's
+// order (6 u is exact in fp32 for a bf16 u, and no multiply meets an add, so
+// nothing contracts), and the result is rounded once with
+// __float2bfloat16_rn.  As on the TPU (pallas_stencil.py:237), the dot sums
+// u * Au in fp32 from the UNROUNDED fp32 Au, and its partials and total are
+// fp32.  For float and double the accumulator type is the storage type, and
+// lift/narrow are identities, so their code is unchanged.  The bf16 apply
+// moves 4 bytes a point against fp32's 8: the bound halves.
+//
+// This first design is simple and right.  Shared-memory plane tiling, TMA,
+// paired bf16 loads and fusing the CG update chain are left to later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -70,7 +85,32 @@ constexpr int kSumThreads = 1024;
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-// Epilogues: the value stored at offset o from u there and Au = (A u)[o].
+// The arithmetic type of a storage type: fp32 for bfloat16, else itself.
+template <typename T>
+struct AccOf {
+  using type = T;
+};
+template <>
+struct AccOf<__nv_bfloat16> {
+  using type = float;
+};
+template <typename T>
+using acc_t = typename AccOf<T>::type;
+
+// A stored value in the arithmetic type, and back (rounded to nearest even).
+__device__ __forceinline__ float lift(float v) { return v; }
+__device__ __forceinline__ double lift(double v) { return v; }
+__device__ __forceinline__ float lift(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T narrow(acc_t<T> v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Epilogues: the value stored at offset o from u there and Au = (A u)[o],
+// in the arithmetic type (only StoreAu is instantiated for bfloat16).
 // Products go through mul_rn, so nvcc cannot contract them with the
 // following add into an FMA and every result rounds as the plain PyTorch
 // version's separate operations do.
@@ -135,16 +175,18 @@ Tiles make_tiles(int lz, int ny, int nx) {
 
 // The tiles (bx + i gx, blockIdx.y + i gridDim.y, bz + i gz) of one slab,
 // the grid of one single-slab launch being (gx, gridDim.y, gz); returns the
-// block's share of sum(u * Au) when kDot. The tile loops depend on blockIdx
-// only, so every thread of a block runs the same trip counts and reaches the
-// caller's block_sum.
+// block's share of sum(u * Au) when kDot, in the arithmetic type A. The
+// tile loops depend on blockIdx only, so every thread of a block runs the
+// same trip counts and reaches the caller's block_sum.
 template <typename T, bool kDot, bool kHalo, class Epilogue>
-__device__ __forceinline__ T march(const T* __restrict__ u, const T* __restrict__ halo_lo,
-                                   const T* __restrict__ halo_hi, T* __restrict__ y,
-                                   int lz, int ny, int nx, int ntx, int nty, int ntz,
-                                   int bx, int gx, int bz, int gz, Epilogue epi) {
+__device__ __forceinline__ acc_t<T> march(const T* __restrict__ u,
+                                          const T* __restrict__ halo_lo,
+                                          const T* __restrict__ halo_hi, T* __restrict__ y,
+                                          int lz, int ny, int nx, int ntx, int nty, int ntz,
+                                          int bx, int gx, int bz, int gz, Epilogue epi) {
+  using A = acc_t<T>;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  T acc = T(0);
+  A acc = A(0);
   for (int tz = bz; tz < ntz; tz += gz) {
     for (int ty = blockIdx.y; ty < nty; ty += gridDim.y) {
       for (int tx = bx; tx < ntx; tx += gx) {
@@ -154,24 +196,26 @@ __device__ __forceinline__ T march(const T* __restrict__ u, const T* __restrict_
         const int64_t col = static_cast<int64_t>(yy) * nx + x;
         const int z0 = tz * kZC;
         const int z1 = min(z0 + kZC, lz);
-        T below = z0 == 0 ? (kHalo ? halo_lo[col] : T(0)) : u[(z0 - 1) * plane + col];
-        T cur = u[z0 * plane + col];
+        A below = z0 == 0 ? (kHalo ? lift(halo_lo[col]) : A(0))
+                          : lift(u[(z0 - 1) * plane + col]);
+        A cur = lift(u[z0 * plane + col]);
         for (int z = z0; z < z1; ++z) {
           const int64_t o = z * plane + col;
-          const T above = z == lz - 1 ? (kHalo ? halo_hi[col] : T(0)) : u[o + plane];
-          const T xm = x > 0 ? u[o - 1] : T(0);
-          const T xp = x < nx - 1 ? u[o + 1] : T(0);
-          const T ym = yy > 0 ? u[o - nx] : T(0);
-          const T yp = yy < ny - 1 ? u[o + nx] : T(0);
+          const A above = z == lz - 1 ? (kHalo ? lift(halo_hi[col]) : A(0))
+                                      : lift(u[o + plane]);
+          const A xm = x > 0 ? lift(u[o - 1]) : A(0);
+          const A xp = x < nx - 1 ? lift(u[o + 1]) : A(0);
+          const A ym = yy > 0 ? lift(u[o - nx]) : A(0);
+          const A yp = yy < ny - 1 ? lift(u[o + nx]) : A(0);
           // the plain version's order of operations, with no fused multiply-add
-          T v = mul_rn(T(6), cur);
+          A v = mul_rn(A(6), cur);
           v -= below;
           v -= above;
           v -= ym;
           v -= yp;
           v -= xm;
           v -= xp;
-          y[o] = epi(cur, v, o);
+          y[o] = narrow<T>(epi(cur, v, o));
           if (kDot) acc += cur * v;
           below = cur;
           cur = above;
@@ -186,12 +230,13 @@ template <typename T, bool kDot, bool kHalo, class Epilogue>
 __global__ void __launch_bounds__(kThreads)
 stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
                 const T* __restrict__ halo_hi, T* __restrict__ y,
-                T* __restrict__ partial, int lz, int ny, int nx,
+                acc_t<T>* __restrict__ partial, int lz, int ny, int nx,
                 int ntx, int nty, int ntz, Epilogue epi) {
-  const T acc = march<T, kDot, kHalo>(u, halo_lo, halo_hi, y, lz, ny, nx, ntx, nty, ntz,
-                                      blockIdx.x, gridDim.x, blockIdx.z, gridDim.z, epi);
+  const acc_t<T> acc = march<T, kDot, kHalo>(u, halo_lo, halo_hi, y, lz, ny, nx, ntx, nty,
+                                             ntz, blockIdx.x, gridDim.x, blockIdx.z,
+                                             gridDim.z, epi);
   if (kDot) {
-    const T s = block_sum(acc);
+    const acc_t<T> s = block_sum(acc);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
       partial[blockIdx.x + static_cast<int64_t>(gridDim.x) *
                                (blockIdx.y + static_cast<int64_t>(gridDim.y) * blockIdx.z)] = s;
@@ -210,18 +255,18 @@ template <typename T, bool kDot, bool kHalo>
 __global__ void __launch_bounds__(kThreads)
 stencil7_many_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
                      const T* __restrict__ halo_hi, T* __restrict__ y,
-                     T* __restrict__ partial, int lz, int ny, int nx,
+                     acc_t<T>* __restrict__ partial, int lz, int ny, int nx,
                      int ntx, int nty, int ntz, int gz) {
   const int j = static_cast<int>(blockIdx.z) / gz;
   const int bz = static_cast<int>(blockIdx.z) - j * gz;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t slab = plane * lz;
-  const T acc = march<T, kDot, kHalo>(
+  const acc_t<T> acc = march<T, kDot, kHalo>(
       u + j * slab, kHalo ? halo_lo + j * plane : nullptr,
       kHalo ? halo_hi + j * plane : nullptr, y + j * slab, lz, ny, nx, ntx, nty, ntz,
-      blockIdx.x, gridDim.x, bz, gz, StoreAu<T>{});
+      blockIdx.x, gridDim.x, bz, gz, StoreAu<acc_t<T>>{});
   if (kDot) {
-    const T s = block_sum(acc);
+    const acc_t<T> s = block_sum(acc);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
       const int64_t nblk = static_cast<int64_t>(gridDim.x) * gridDim.y * gz;
       partial[j * nblk + blockIdx.x +
@@ -265,28 +310,32 @@ int launch_apply(const void* u, const void* lo, const void* hi, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// partial and out hold the arithmetic type acc_t<T> (fp32 for bfloat16)
 template <typename T>
 int launch_dot(const void* u, const void* lo, const void* hi, void* y,
                void* partial, void* out, int lz, int ny, int nx, void* stream) {
+  using A = acc_t<T>;
   const Tiles t = make_tiles(lz, ny, nx);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stencil7_kernel<T, true, true, StoreAu<T>><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+  stencil7_kernel<T, true, true, StoreAu<A>><<<t.grid, dim3(kBX, kBY), 0, s>>>(
       static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<T*>(y), static_cast<T*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz,
-      StoreAu<T>{});
+      static_cast<T*>(y), static_cast<A*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz,
+      StoreAu<A>{});
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int64_t nblocks = static_cast<int64_t>(t.grid.x) * t.grid.y * t.grid.z;
-  sum_partials_kernel<T><<<1, kSumThreads, 0, s>>>(static_cast<const T*>(partial), nblocks,
-                                                   static_cast<T*>(out));
+  sum_partials_kernel<A><<<1, kSumThreads, 0, s>>>(static_cast<const A*>(partial), nblocks,
+                                                   static_cast<A*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// k slabs: Y = A U, and with kDot the per-column <u_j, A u_j> into out (k).
-// Null lo and hi select zero halos.  1 <= k <= 65535 (the wrappers check).
+// k slabs: Y = A U, and with kDot the per-column <u_j, A u_j> into out (k),
+// partial and out in acc_t<T>.  Null lo and hi select zero halos.
+// 1 <= k <= 65535 (the wrappers check).
 template <typename T, bool kDot>
 int launch_many(const void* u, const void* lo, const void* hi, void* y, void* partial,
                 void* out, int k, int lz, int ny, int nx, void* stream) {
+  using A = acc_t<T>;
   const Tiles t = make_tiles(lz, ny, nx);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned gz = t.grid.z * static_cast<unsigned>(k) <= 65535u
@@ -294,7 +343,7 @@ int launch_many(const void* u, const void* lo, const void* hi, void* y, void* pa
   const dim3 grid(t.grid.x, t.grid.y, gz * static_cast<unsigned>(k));
   const T* ut = static_cast<const T*>(u);
   T* yt = static_cast<T*>(y);
-  T* pt = static_cast<T*>(partial);
+  A* pt = static_cast<A*>(partial);
   if (lo != nullptr && hi != nullptr) {
     stencil7_many_kernel<T, kDot, true><<<grid, dim3(kBX, kBY), 0, s>>>(
         ut, static_cast<const T*>(lo), static_cast<const T*>(hi), yt, pt, lz, ny, nx,
@@ -306,7 +355,7 @@ int launch_many(const void* u, const void* lo, const void* hi, void* y, void* pa
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || !kDot) return err;
   const int64_t nblk = static_cast<int64_t>(t.grid.x) * t.grid.y * gz;
-  sum_partials_kernel<T><<<k, kSumThreads, 0, s>>>(pt, nblk, static_cast<T*>(out));
+  sum_partials_kernel<A><<<k, kSumThreads, 0, s>>>(pt, nblk, static_cast<A*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -409,6 +458,30 @@ int stencil7_dot_many_f64(const void* u, const void* lo, const void* hi, void* y
                           void* partial, void* out, int k, int lz, int ny, int nx,
                           void* stream) {
   return launch_many<double, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
+}
+
+// The bfloat16-storage instantiations: bf16 u, halos and Au, fp32
+// arithmetic, and (the dots) fp32 partial and out.
+int stencil7_apply_bf16(const void* u, const void* lo, const void* hi, void* y,
+                        int lz, int ny, int nx, void* stream) {
+  return launch_apply<__nv_bfloat16>(u, lo, hi, y, lz, ny, nx, stream, StoreAu<float>{});
+}
+
+int stencil7_dot_bf16(const void* u, const void* lo, const void* hi, void* y,
+                      void* partial, void* out, int lz, int ny, int nx, void* stream) {
+  return launch_dot<__nv_bfloat16>(u, lo, hi, y, partial, out, lz, ny, nx, stream);
+}
+
+int stencil7_apply_many_bf16(const void* u, const void* lo, const void* hi, void* y,
+                             int k, int lz, int ny, int nx, void* stream) {
+  return launch_many<__nv_bfloat16, false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx,
+                                           stream);
+}
+
+int stencil7_dot_many_bf16(const void* u, const void* lo, const void* hi, void* y,
+                           void* partial, void* out, int k, int lz, int ny, int nx,
+                           void* stream) {
+  return launch_many<__nv_bfloat16, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
 }
 
 }  // extern "C"

@@ -11,6 +11,10 @@ same memory as a :class:`Vec`'s padded data. The batched (``_many``) closures
 take a block of ``k`` columns, ``(size, k, lz, ny, nx)`` grid-shaped or
 ``(size, k, lz*ny*nx)`` flat: each shard's part is the contiguous
 ``(k, lz, ny, nx)`` operand of the ``_many`` kernels.
+
+With ``dtype=torch.bfloat16`` (the mixed-precision plan's storage) the slabs
+and halo planes stay bfloat16 and the fused dots carry their fp32 partials
+(the kernels' reduce dtype) through the shard sum.
 """
 
 from __future__ import annotations

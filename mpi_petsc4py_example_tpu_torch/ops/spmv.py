@@ -19,8 +19,10 @@ that each diagonal is one contiguous stream; the batched products take and
 return column blocks as ``(k, rows)``, again the transpose of the JAX
 ``(rows, k)``.
 
-Storage is fp32 or fp64 only: sub-f32 storage (the JAX package's bf16 plan)
-raises ``NotImplementedError`` until the port's mixed-precision slice.
+Storage is fp32, fp64 or bfloat16 (the mixed-precision plan's storage): a
+bfloat16 product accumulates every tap or diagonal in fp32 and rounds once at
+the end, as the JAX package's do (``accum_dtype``, ``:25-35``). Other storage
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,28 +30,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_STORAGE = (torch.float32, torch.float64)
+_STORAGE = (torch.float32, torch.float64, torch.bfloat16)
 
 
 def accum_dtype(dtype):
-    """The accumulation dtype of a product in ``dtype`` storage: None, since
-    the port's fp32/fp64 storage accumulates natively. Other storage raises
-    ``NotImplementedError`` (the JAX package's bf16 storage accumulates in
-    fp32; the port brings it with its mixed-precision slice)."""
+    """The accumulation dtype of a product in ``dtype`` storage: fp32 for
+    bfloat16, None for fp32/fp64 (they accumulate natively). Other storage
+    raises ``NotImplementedError``: the port takes bfloat16 (the
+    mixed-precision plan's storage), float32 and float64."""
     if dtype not in _STORAGE:
         raise NotImplementedError(
             f"{dtype} storage is not ported: the port's SpMV and PC applies "
-            "take float32/float64 (bf16 storage comes with the port's "
-            "mixed-precision slice)")
-    return None
+            "take float32/float64 and bfloat16, the mixed-precision plan's "
+            "storage")
+    return torch.float32 if dtype == torch.bfloat16 else None
 
 
 def widened_einsum(spec, a, b):
-    """``torch.einsum(spec, a, b)`` after :func:`accum_dtype`'s storage check
-    on the first operand: the one contraction the SpMV and the PC factor
-    applies share."""
-    accum_dtype(a.dtype)
-    return torch.einsum(spec, a, b)
+    """``torch.einsum(spec, a, b)`` with :func:`accum_dtype`'s discipline:
+    bfloat16 operands contract in fp32 and the result is rounded once to the
+    first operand's dtype (JAX ``widened_einsum``, ``:38-49``); the one
+    contraction the SpMV and the PC factor applies share."""
+    acc = accum_dtype(a.dtype)
+    if acc is None:
+        return torch.einsum(spec, a, b)
+    return torch.einsum(spec, a.to(acc), b.to(acc)).to(a.dtype)
 
 
 def csr_to_ell(indptr, indices, data, ncols_pad_to: int | None = None):
@@ -94,17 +99,19 @@ def dia_rows(dia, offsets, xp, start: int, lrows: int):
     """``sum_d dia[d] * xp[..., start + offsets[d] : ... + lrows]``: the
     shifted-slice sum every DIA product reduces to. ``xp`` carries the rows
     on its last axis with enough zero padding that every slice is in range;
-    ``dia[d]`` broadcasts against a slice."""
-    accum_dtype(dia.dtype)
+    ``dia[d]`` broadcasts against a slice. Under bfloat16 the sum runs in an
+    fp32 buffer (each product exact, each add rounded to fp32) and is
+    rounded once to bfloat16 at the end (JAX ``dia_spmv_local``, ``:167``)."""
+    acc = accum_dtype(dia.dtype)
     y = None
     for d, off in enumerate(offsets):
         s = start + int(off)
         seg = xp[..., s:s + lrows]
         if y is None:
-            y = dia[d] * seg
+            y = (dia[d] if acc is None else dia[d].to(acc)) * seg
         else:
             y.addcmul_(dia[d], seg)
-    return y
+    return y if acc is None else y.to(dia.dtype)
 
 
 def dia_spmv_local(dia, offsets, x_full, row_offset, halo):

@@ -18,6 +18,16 @@ Counterpart of ``mpi_petsc4py_example_tpu/ops/pallas_stencil.py``:
 * :func:`stencil3d_dot_many` replaces ``stencil3d_dot_many_pallas``
   (``:620``).
 
+The four kernels of the Krylov loops (apply, dot and their ``_many`` twins)
+take float32, float64 and bfloat16 storage, as the TPU kernels take float32
+and bfloat16; the V-cycle's five take float32 and float64. Under bfloat16
+(the storage of the mixed-precision plan, ``solvers/cg_plans.py``) each
+loaded value is lifted to fp32, the 7-term sum is formed in fp32 and the
+result rounded once to bfloat16 (the TPU kernels' ``_compute_dtype``,
+``:46``); the dots sum ``u * A u`` in fp32 from the unrounded fp32 ``A u``
+(``:237``, ``:552``) and return fp32 scalars (the reduce dtype, ``:417-420``),
+as the plain versions do.
+
 All take a z-slab ``u (lz, ny, nx)`` (x fastest) and compute with
 ``A u = 6u - (6 neighbours)``, zero fill in x and y. The first four read the z
 neighbours of the end planes from halo planes ``halo_lo``/``halo_hi (ny, nx)``;
@@ -46,6 +56,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.dtypes import reduce_dtype
 from ..utils.errors import DeviceExecutionError
 from . import build
 
@@ -54,7 +65,13 @@ from . import build
 # stencil) on top of the weight-2-per-axis adjoint, i.e. (2 s)^3 = 4
 RSCALE = 4.0 ** (1.0 / 3.0) / 2.0
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+# the storage dtypes of the V-cycle's kernels (the JAX V-cycle names no
+# bfloat16 path)
+_VCYCLE_DTYPES = (torch.float32, torch.float64)
+# the entry points with a bfloat16 instantiation
+_BF16_KERNELS = ("stencil7_apply", "stencil7_dot", "stencil7_apply_many",
+                 "stencil7_dot_many")
 _INT_MAX = 2**31 - 1
 _VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures of the entry points, per library, without the dtype suffix
@@ -82,7 +99,9 @@ def _kernels(name: str = "stencil7") -> ctypes.CDLL:
     if lib is None:
         lib = build.load(name)
         for fn_name, argtypes in _SIGNATURES[name].items():
-            for sfx in _SUFFIX.values():
+            for dtype, sfx in _SUFFIX.items():
+                if dtype == torch.bfloat16 and fn_name not in _BF16_KERNELS:
+                    continue
                 fn = getattr(lib, f"{fn_name}_{sfx}")
                 fn.argtypes = argtypes
                 fn.restype = _CI
@@ -102,16 +121,18 @@ def _overlaps(a, b) -> bool:
             and lo_b < lo_a + a.numel() * a.element_size())
 
 
-def _check(u, out=None, out_shape=None, many=False, **operands):
+def _check(u, out=None, out_shape=None, many=False, dtypes=_VCYCLE_DTYPES,
+           **operands):
     """Validate the slab ``u`` (``many``: the block ``(k, lz, ny, nx)`` of
     ``k`` slabs) and the named operands (``f``, ``halo_lo``, ``halo_hi``;
     the halos, ``(ny, nx)`` planes or ``(k, ny, nx)`` blocks, may be both
-    None, zero planes); returns ``u.shape``. Raises on a dtype, shape,
-    layout or device the kernel does not take, and on an ``out`` that
-    overlaps an input (on every device, so the plain path accepts exactly
-    what the kernel accepts)."""
-    if u.dtype not in _SUFFIX:
-        raise TypeError(f"stencil kernels take float32/float64, got {u.dtype}")
+    None, zero planes); returns ``u.shape``. Raises on a dtype (outside
+    ``dtypes``), shape, layout or device the kernel does not take, and on an
+    ``out`` that overlaps an input (on every device, so the plain path
+    accepts exactly what the kernel accepts)."""
+    if u.dtype not in dtypes:
+        names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"this stencil kernel takes {names}, got {u.dtype}")
     what = "(k, lz, ny, nx) block" if many else "(lz, ny, nx) slab"
     if (u.dim() != 3 + many or min(u.shape) < 1
             or max(u.shape) > _INT_MAX):
@@ -158,6 +179,14 @@ def _launch(lib_name, fn_name, u, what, *args):
         raise DeviceExecutionError(what, f"CUDA error {err}: {msg}")
 
 
+def _count(wrapper, dtype):
+    """One launch of ``wrapper``'s kernel: ``launches`` counts every
+    instantiation, ``launches_bf16`` the bfloat16 one."""
+    wrapper.launches += 1
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+
+
 def _out(u, out, shape=None):
     if out is not None:
         return out
@@ -177,9 +206,13 @@ def _ptr(t):
 
 # ---- plain versions (pure PyTorch; the CPU path and the card's yardstick) ----
 
-def stencil3d_apply_plain(u, halo_lo, halo_hi):
-    """``A u`` with pads and slices, as ``StencilPoisson3D._stencil7_jnp``
-    (``None`` halos are zero planes)."""
+def _lift(*ts):
+    """The operands in the arithmetic dtype (fp32 copies for bfloat16;
+    ``None`` halos stay ``None``)."""
+    return [t if t is None else t.to(reduce_dtype(t.dtype)) for t in ts]
+
+
+def _apply_body(u, halo_lo, halo_hi):
     if halo_lo is None and halo_hi is None:
         halo_lo = halo_hi = _zero_plane(u)
     ext = torch.cat([halo_lo[None], u, halo_hi[None]], dim=0)
@@ -190,17 +223,7 @@ def stencil3d_apply_plain(u, halo_lo, halo_hi):
     return 6.0 * u - ext[:-2] - ext[2:] - ym - yp - xm - xp
 
 
-def stencil3d_dot_plain(u, halo_lo, halo_hi):
-    """``(A u, sum(u * A u))`` with the plain apply and a separate sum."""
-    y = stencil3d_apply_plain(u, halo_lo, halo_hi)
-    return y, (u * y).sum()
-
-
-def stencil3d_apply_many_plain(U, halo_lo, halo_hi):
-    """``A u_j`` for each slab of ``U (k, lz, ny, nx)``, with
-    :func:`stencil3d_apply_plain`'s order of operations along the last three
-    axes (``None`` halos are zero planes), so each column equals that
-    function on the column bit for bit."""
+def _apply_many_body(U, halo_lo, halo_hi):
     if halo_lo is None and halo_hi is None:
         halo_lo = halo_hi = U.new_zeros(U.shape[:1] + U.shape[2:])
     ext = torch.cat([halo_lo[:, None], U, halo_hi[:, None]], dim=1)
@@ -211,10 +234,36 @@ def stencil3d_apply_many_plain(U, halo_lo, halo_hi):
     return 6.0 * U - ext[:, :-2] - ext[:, 2:] - ym - yp - xm - xp
 
 
+def stencil3d_apply_plain(u, halo_lo, halo_hi):
+    """``A u`` with pads and slices, as ``StencilPoisson3D._stencil7_jnp``
+    (``None`` halos are zero planes). bfloat16 is lifted to fp32, computed
+    in the same order and rounded once."""
+    y = _apply_body(*_lift(u, halo_lo, halo_hi))
+    return y.to(u.dtype)
+
+
+def stencil3d_dot_plain(u, halo_lo, halo_hi):
+    """``(A u, sum(u * A u))`` with the plain apply and a separate sum; under
+    bfloat16 the sum is fp32, taken from the unrounded fp32 ``A u``."""
+    u32, lo, hi = _lift(u, halo_lo, halo_hi)
+    y = _apply_body(u32, lo, hi)
+    return y.to(u.dtype), (u32 * y).sum()
+
+
+def stencil3d_apply_many_plain(U, halo_lo, halo_hi):
+    """``A u_j`` for each slab of ``U (k, lz, ny, nx)``, with
+    :func:`stencil3d_apply_plain`'s order of operations along the last three
+    axes (``None`` halos are zero planes), so each column equals that
+    function on the column bit for bit."""
+    return _apply_many_body(*_lift(U, halo_lo, halo_hi)).to(U.dtype)
+
+
 def stencil3d_dot_many_plain(U, halo_lo, halo_hi):
-    """``(A U, dots)`` with ``dots[j] = sum(u_j * A u_j)``, shape ``(k,)``."""
-    Y = stencil3d_apply_many_plain(U, halo_lo, halo_hi)
-    return Y, (U * Y).sum(dim=(1, 2, 3))
+    """``(A U, dots)`` with ``dots[j] = sum(u_j * A u_j)``, shape ``(k,)``
+    (fp32 from the unrounded ``A U`` under bfloat16)."""
+    U32, lo, hi = _lift(U, halo_lo, halo_hi)
+    Y = _apply_many_body(U32, lo, hi)
+    return Y.to(U.dtype), (U32 * Y).sum(dim=(1, 2, 3))
 
 
 def stencil3d_smooth_plain(u, f, halo_lo, halo_hi, w):
@@ -273,7 +322,8 @@ def stencil3d_residual_restrict_plain(u, f):
 def stencil3d_apply(u, halo_lo, halo_hi, out=None):
     """``A u`` for the slab ``u (lz, ny, nx)`` with halo planes ``(ny, nx)``.
     Writes into ``out`` when given; returns the result."""
-    lz, ny, nx = _check(u, out, halo_lo=halo_lo, halo_hi=halo_hi)
+    lz, ny, nx = _check(u, out, dtypes=_SUFFIX, halo_lo=halo_lo,
+                        halo_hi=halo_hi)
     if u.device.type == "cpu":
         y = stencil3d_apply_plain(u, halo_lo, halo_hi)
         return y if out is None else out.copy_(y)
@@ -281,37 +331,33 @@ def stencil3d_apply(u, halo_lo, halo_hi, out=None):
     _launch("stencil7", "stencil7_apply", u, "stencil7_apply launch",
             u.data_ptr(), _ptr(halo_lo), _ptr(halo_hi), y.data_ptr(),
             lz, ny, nx)
-    stencil3d_apply.launches += 1
+    _count(stencil3d_apply, u.dtype)
     return y
 
 
-stencil3d_apply.launches = 0
-
-
 def stencil3d_dot(u, halo_lo, halo_hi, out=None):
-    """``(A u, sum(u * A u))`` in one pass; the sum is a 0-d tensor of
-    ``u.dtype`` on ``u``'s device. Writes ``A u`` into ``out`` when given.
-    Both halo planes are required."""
+    """``(A u, sum(u * A u))`` in one pass; the sum is a 0-d tensor of the
+    reduce dtype (``u.dtype``, fp32 for bfloat16) on ``u``'s device. Writes
+    ``A u`` into ``out`` when given. Both halo planes are required."""
     if halo_lo is None or halo_hi is None:
         raise ValueError("stencil3d_dot needs both halo planes")
-    lz, ny, nx = _check(u, out, halo_lo=halo_lo, halo_hi=halo_hi)
+    lz, ny, nx = _check(u, out, dtypes=_SUFFIX, halo_lo=halo_lo,
+                        halo_hi=halo_hi)
     if u.device.type == "cpu":
         y, d = stencil3d_dot_plain(u, halo_lo, halo_hi)
         return (y if out is None else out.copy_(y)), d
     y = _out(u, out)
     # per-block partials, summed in a fixed order by the library's second
     # kernel: no float atomics, so the sum is the same on every run
+    acc = reduce_dtype(u.dtype)
     partial = torch.empty(_kernels().stencil7_dot_blocks(lz, ny, nx),
-                          dtype=u.dtype, device=u.device)
-    total = torch.empty((), dtype=u.dtype, device=u.device)
+                          dtype=acc, device=u.device)
+    total = torch.empty((), dtype=acc, device=u.device)
     _launch("stencil7", "stencil7_dot", u, "stencil7_dot launch",
             u.data_ptr(), halo_lo.data_ptr(), halo_hi.data_ptr(), y.data_ptr(),
             partial.data_ptr(), total.data_ptr(), lz, ny, nx)
-    stencil3d_dot.launches += 1
+    _count(stencil3d_dot, u.dtype)
     return y, total
-
-
-stencil3d_dot.launches = 0
 
 
 def stencil3d_smooth(u, f, halo_lo, halo_hi, w, out=None):
@@ -329,9 +375,6 @@ def stencil3d_smooth(u, f, halo_lo, halo_hi, w, out=None):
     return y
 
 
-stencil3d_smooth.launches = 0
-
-
 def stencil3d_residual(u, f, halo_lo, halo_hi, out=None):
     """The residual ``f - A u`` in one pass."""
     lz, ny, nx = _check(u, out, f=f, halo_lo=halo_lo, halo_hi=halo_hi)
@@ -344,9 +387,6 @@ def stencil3d_residual(u, f, halo_lo, halo_hi, out=None):
             y.data_ptr(), lz, ny, nx)
     stencil3d_residual.launches += 1
     return y
-
-
-stencil3d_residual.launches = 0
 
 
 def stencil3d_smooth0_pair(f, w1, w2, out=None):
@@ -366,9 +406,6 @@ def stencil3d_smooth0_pair(f, w1, w2, out=None):
     return y
 
 
-stencil3d_smooth0_pair.launches = 0
-
-
 def stencil3d_smooth_pair(u, f, w1, w2, out=None):
     """Two damped-Jacobi sweeps ``S_w2(S_w1(u))`` from a nonzero guess in one
     pass, zero ghosts on every side (``w1``/``w2`` are omega/6). The kernel
@@ -383,9 +420,6 @@ def stencil3d_smooth_pair(u, f, w1, w2, out=None):
             float(w2))
     stencil3d_smooth_pair.launches += 1
     return y
-
-
-stencil3d_smooth_pair.launches = 0
 
 
 def stencil3d_residual_restrict(u, f, out=None):
@@ -408,13 +442,11 @@ def stencil3d_residual_restrict(u, f, out=None):
     stencil3d_residual_restrict.launches += 1
     return y
 
-
-stencil3d_residual_restrict.launches = 0
-
 def _check_many(U, out, halo_lo, halo_hi):
     """:func:`_check` for a column block; the kernels' grid takes at most
     65535 columns."""
-    shape = _check(U, out, many=True, halo_lo=halo_lo, halo_hi=halo_hi)
+    shape = _check(U, out, many=True, dtypes=_SUFFIX, halo_lo=halo_lo,
+                   halo_hi=halo_hi)
     if shape[0] > 65535:
         raise ValueError(f"at most 65535 columns per launch, got {shape[0]}")
     return shape
@@ -432,16 +464,14 @@ def stencil3d_apply_many(U, halo_lo, halo_hi, out=None):
     _launch("stencil7", "stencil7_apply_many", U, "stencil7_apply_many launch",
             U.data_ptr(), _ptr(halo_lo), _ptr(halo_hi), Y.data_ptr(),
             k, lz, ny, nx)
-    stencil3d_apply_many.launches += 1
+    _count(stencil3d_apply_many, U.dtype)
     return Y
-
-
-stencil3d_apply_many.launches = 0
 
 
 def stencil3d_dot_many(U, halo_lo, halo_hi, out=None):
     """``(A U, dots)`` for ``U (k, lz, ny, nx)`` in one pass, ``dots[j] =
-    sum(u_j * A u_j)`` a ``(k,)`` tensor of ``U.dtype`` on ``U``'s device.
+    sum(u_j * A u_j)`` a ``(k,)`` tensor of the reduce dtype (``U.dtype``,
+    fp32 for bfloat16) on ``U``'s device.
     The halos are ``(k, ny, nx)`` blocks, or None for both. On the card each
     column's ``A u_j`` and dot are bit-equal to one :func:`stencil3d_dot` on
     that column (the same blocks, partials and fixed summing order)."""
@@ -450,19 +480,19 @@ def stencil3d_dot_many(U, halo_lo, halo_hi, out=None):
         Y, d = stencil3d_dot_many_plain(U, halo_lo, halo_hi)
         return (Y if out is None else out.copy_(Y)), d
     Y = _out(U, out)
+    acc = reduce_dtype(U.dtype)
     partial = torch.empty(k * _kernels().stencil7_dot_blocks(lz, ny, nx),
-                          dtype=U.dtype, device=U.device)
-    dots = torch.empty(k, dtype=U.dtype, device=U.device)
+                          dtype=acc, device=U.device)
+    dots = torch.empty(k, dtype=acc, device=U.device)
     _launch("stencil7", "stencil7_dot_many", U, "stencil7_dot_many launch",
             U.data_ptr(), _ptr(halo_lo), _ptr(halo_hi), Y.data_ptr(),
             partial.data_ptr(), dots.data_ptr(), k, lz, ny, nx)
-    stencil3d_dot_many.launches += 1
+    _count(stencil3d_dot_many, U.dtype)
     return Y, dots
 
-
-stencil3d_dot_many.launches = 0
-
 # every kernel wrapper, for code that reads or resets all launch counters
+# (``launches``; the four with a bfloat16 instantiation also count its
+# launches alone in ``launches_bf16``)
 KERNELS = {
     "stencil7_apply": stencil3d_apply,
     "stencil7_dot": stencil3d_dot,
@@ -474,3 +504,12 @@ KERNELS = {
     "stencil7_apply_many": stencil3d_apply_many,
     "stencil7_dot_many": stencil3d_dot_many,
 }
+for _wrapper in KERNELS.values():
+    _wrapper.launches = 0
+    _wrapper.launches_bf16 = 0
+
+
+def reset_launches():
+    """Set every launch counter to 0."""
+    for wrapper in KERNELS.values():
+        wrapper.launches = wrapper.launches_bf16 = 0

@@ -32,9 +32,21 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def numpy_dtype(dtype) -> np.dtype:
-    """The numpy dtype of a ``torch.dtype`` (or of anything
-    :func:`torch_dtype` reads)."""
-    return torch.empty(0, dtype=torch_dtype(dtype)).numpy().dtype
+    """The numpy dtype host arrays of ``dtype`` travel in (for a
+    ``torch.dtype`` or anything :func:`torch_dtype` reads): the same dtype,
+    or float32 for bfloat16, which numpy lacks and float32 holds exactly."""
+    dt = torch_dtype(dtype)
+    if dt == torch.bfloat16:
+        return np.dtype(np.float32)
+    return torch.empty(0, dtype=dt).numpy().dtype
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """A host numpy view of a CPU tensor; bfloat16 values come back as
+    float32 (:func:`numpy_dtype`)."""
+    if x.dtype == torch.bfloat16:
+        x = x.to(torch.float32)
+    return x.numpy()
 
 
 class DeviceComm:
@@ -88,14 +100,16 @@ class DeviceComm:
 
     def put_rows(self, arr, dtype=None) -> torch.Tensor:
         """Host array -> padded device tensor (always a copy: later writes to
-        ``arr`` never reach the device data)."""
+        ``arr`` never reach the device data). A bfloat16 target is rounded
+        by torch's cast, once from the host values (an fp64 value rounds
+        through fp32, as ``ml_dtypes`` rounds it)."""
         arr = self.pad_rows(np.asarray(arr))
         dt = torch_dtype(arr.dtype if dtype is None else dtype)
         return torch.tensor(arr, dtype=dt, device=self.device)
 
     def host_fetch(self, x: torch.Tensor) -> np.ndarray:
-        """Device tensor -> host numpy copy."""
-        return x.detach().to("cpu").numpy().copy()
+        """Device tensor -> host numpy copy (bfloat16 as float32)."""
+        return to_host(x.detach().to("cpu")).copy()
 
     # ---- column blocks (the batched solve's k right-hand sides) -------------
     # A block of k columns lives shard-stacked as (size, k, local_size): each
@@ -104,18 +118,20 @@ class DeviceComm:
     def put_cols(self, arr, dtype=None) -> torch.Tensor:
         """Host ``(n, k)`` block -> ``(size, k, local_size)`` device tensor.
         The transpose (and any dtype cast) is done in one pass on the host,
-        so the device receives the block in ONE copy, already laid out."""
+        so the device receives the block in ONE copy, already laid out (a
+        bfloat16 block travels as float32 and is rounded on arrival)."""
         arr = self.pad_rows(np.asarray(arr))
         dt = torch_dtype(arr.dtype if dtype is None else dtype)
         host = np.empty((self.size, arr.shape[1], arr.shape[0] // self.size),
                         dtype=numpy_dtype(dt))
         host[...] = arr.reshape(self.size, -1, arr.shape[1]).transpose(0, 2, 1)
-        return torch.from_numpy(host).to(self.device)
+        return torch.from_numpy(host).to(device=self.device, dtype=dt)
 
     def fetch_cols(self, x: torch.Tensor, n: int) -> np.ndarray:
         """``(size, k, local_size)`` device tensor -> host ``(n, k)`` block
-        (one copy back, transposed on the host; padding rows dropped)."""
-        h = x.detach().to("cpu").numpy()
+        (one copy back, transposed on the host; padding rows dropped;
+        bfloat16 as float32)."""
+        h = to_host(x.detach().to("cpu"))
         return h.transpose(0, 2, 1).reshape(-1, h.shape[1])[:n]
 
     # ---- collectives over the shard axis ------------------------------------

@@ -1,9 +1,11 @@
 """The classic CG recurrence, assembled from an operator plan and a PC plan.
 
-The port's counterpart of the unguarded, uniform-precision part of
+The port's counterpart of the unguarded part of
 ``mpi_petsc4py_example_tpu/solvers/cg_plans.py``: ``classic_cg_loop`` (``:326``)
-with ``_dmax``/``_tol``/``_reason`` (``:108-139``) and the batching plan
-``ManyBatch`` (``:236-257``; one RHS needs no plan). Two plan routes:
+with ``_dmax``/``_tol``/``_reason`` (``:108-139``), the batching plan
+``ManyBatch`` (``:236-257``; one RHS needs no plan) and the precision plan
+``PrecisionPlan``/``precision_plan``/``_stc`` (``:48-100``). Two plan
+routes:
 
 * the general route: an operator apply ``A`` and a preconditioner apply ``M``
   (``z = M r`` materialized, ``rz = <r, z>``);
@@ -34,6 +36,15 @@ reach another. While every column is active the selects would pick the new
 state everywhere, so the updates then run in place; once a column has frozen
 each update is computed into a scratch block and selected into the carry.
 Either way an active column's arithmetic is the single-RHS loop's, op for op.
+
+With a mixed :class:`PrecisionPlan` (bfloat16 storage, fp32 reduce) the
+vector carries x/r/p/z stay bfloat16, the reductions lift their operands to
+fp32 (the program builder's ``pdot``/``pnorm``), and alpha/beta/rz and the
+norms stay fp32. Every update that mixes in an fp32 scalar is computed in
+fp32 and rounded once to bfloat16 (JAX ``st_(x + al * p)``, ``:367``,
+``:376``, ``:459-460``, ``:469``, ``:480``, ``:497``); eager PyTorch would
+round ``al * p`` to bfloat16 before the add. Uniform plans run the loop
+exactly as before.
 """
 
 from __future__ import annotations
@@ -42,7 +53,65 @@ import math
 
 import torch
 
+from ..parallel.mesh import torch_dtype
 from ..utils.convergence import ConvergedReason as CR
+from ..utils.dtypes import reduce_dtype
+
+
+class PrecisionPlan:
+    """The precision axis of a plan: ``storage`` is the operator/PC/iterate
+    dtype, ``reduce`` the dot-product and norm dtype. With ``storage ==
+    reduce`` (fp32/fp64) both hooks are identities; the mixed plan
+    (bfloat16 storage, fp32 reduce) rounds each vector update to storage
+    (:meth:`store`) and lifts reduction operands (:meth:`up`)."""
+
+    def __init__(self, storage, reduce=None):
+        self.storage = torch_dtype(storage)
+        self.reduce = (torch_dtype(reduce) if reduce is not None
+                       else reduce_dtype(self.storage))
+        self.mixed = self.reduce != self.storage
+
+    def store(self, v):
+        """``v`` in the storage dtype (identity for uniform plans)."""
+        return v.to(self.storage) if self.mixed else v
+
+    def up(self, v):
+        """``v`` in the reduce dtype (identity for uniform plans)."""
+        return v.to(self.reduce) if self.mixed else v
+
+    def key(self):
+        """The ``(storage, reduce)`` fingerprint, with the JAX package's
+        dtype names."""
+        return tuple(str(d).removeprefix("torch.")
+                     for d in (self.storage, self.reduce))
+
+    def __repr__(self):
+        return "PrecisionPlan(storage={}, reduce={})".format(*self.key())
+
+
+def precision_plan(storage, reduce=None) -> PrecisionPlan:
+    """The precision plan for an operator's storage dtype (the reduce dtype
+    defaults to ``utils.dtypes.reduce_dtype``: fp32 for bfloat16, the
+    storage dtype otherwise)."""
+    return PrecisionPlan(storage, reduce)
+
+
+def _stc(prec):
+    """The store-channel cast of a plan (identity without a mixed one)."""
+    if prec is not None and prec.mixed:
+        return prec.store
+    return lambda v: v
+
+
+def _lifted_axpy(y, a, v, out=None):
+    """``out = store(up(y) + a * up(v))`` for a reduce-dtype scalar (or
+    broadcast column of scalars) ``a``: the product and the sum in the
+    reduce dtype, one rounding to ``y``'s storage dtype; ``out`` defaults
+    to ``y`` (in place). Three passes: lift ``v``, one fp32 ``addcmul``
+    reading ``y`` where it lies, round."""
+    t = v.to(a.dtype, copy=True)
+    torch.addcmul(y, t, a, out=t)
+    return (y if out is None else out).copy_(t)
 
 
 def _dmax(rnorm0, dtol):
@@ -99,7 +168,7 @@ def _live(rn, tol, dmax, it, maxit, brk):
 
 def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
                     Adot=None, inv_diag=None, M3=None, pdot=None, pnorm=None,
-                    bp=None):
+                    bp=None, prec=None):
     """Run the classic (two-phase) CG recurrence on shard-stacked tensors.
 
     The operator plan is ``A`` (with ``M``) or the fused ``Adot`` (with the
@@ -111,9 +180,14 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
     ``rnorm`` is a float, with :class:`ManyBatch` the middle three are
     per-column lists (``pdot``/``pnorm`` then return ``(k,)`` tensors and
     ``M3`` is not taken). ``x`` is ``x0``, updated in place (the JAX program
-    donates ``x0`` the same way).
+    donates ``x0`` the same way). ``prec`` is the :class:`PrecisionPlan`
+    (None: uniform); under a mixed plan ``pdot``/``pnorm`` must lift their
+    operands to its reduce dtype, and ``M3`` is not taken (PC mg raises on
+    bfloat16 storage).
     """
     stencil = Adot is not None
+    mixed = prec is not None and prec.mixed
+    st_ = _stc(prec)
     x = x0
     # ---- init: initial residual + the plan's init reductions ----------------
     if stencil:
@@ -123,7 +197,7 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         rnorm = torch.sqrt(rr0)
         if M3 is None:
             rz = rr0 * inv_diag
-            p = r * inv_diag
+            p = st_(prec.up(r) * inv_diag) if mixed else r * inv_diag
         else:
             p = M3(r)                # a new tensor, owned by the loop
             rz = pdot(r, p)
@@ -135,12 +209,13 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         bnorm, tol = _tol(pnorm, b, rtol, atol)
         rnorm = pnorm(r)
     dmax = _dmax(rnorm, dtol)
-    # the tolerances compare in the operator's dtype, as on the device
-    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+    # the tolerances compare in the norms' dtype, as on the device (the
+    # operator's, or the reduce dtype under a mixed plan)
+    atol_h = torch.tensor(atol, dtype=rnorm.dtype).item()
     if bp is not None:
         return _lockstep(bp, x, r, p, rz, rnorm, tol, dmax, atol_h, maxit,
                          A=A, M=M, Adot=Adot, inv_diag=inv_diag, pdot=pdot,
-                         pnorm=pnorm)
+                         pnorm=pnorm, prec=prec if mixed else None)
     rn, tol_h, dmax_h = torch.stack([rnorm, tol, dmax]).tolist()
     syncs = 1
     it, brk = 0, False
@@ -156,8 +231,12 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
             Ap = A(p)
             pAp = pdot(p, Ap)
         alpha = _safe_div(rz, pAp)
-        x.addcmul_(alpha, p)
-        r.addcmul_(alpha, Ap, value=-1)
+        if mixed:
+            _lifted_axpy(x, alpha, p)
+            _lifted_axpy(r, -alpha, Ap)
+        else:
+            x.addcmul_(alpha, p)
+            r.addcmul_(alpha, Ap, value=-1)
         # ---- PC apply + reduction phase 2 ----
         if stencil and M3 is not None:
             rr = pdot(r, r)
@@ -166,6 +245,14 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
             rn_new = torch.sqrt(rr)
             beta = _safe_div(rz_new, rz)
             p.mul_(beta).add_(z)                      # p = z + beta p
+        elif stencil and mixed:
+            r32 = prec.up(r)                          # lifted once
+            rr = pdot(r32, r32)
+            rz_new = rr * inv_diag
+            rn_new = torch.sqrt(rr)
+            beta = _safe_div(rz_new, rz)
+            # z = r/d, rounded to storage, then p = z + beta p
+            _lifted_axpy(st_(r32.mul_(inv_diag)), beta, p, out=p)
         elif stencil:
             rr = pdot(r, r)
             rz_new = rr * inv_diag
@@ -177,7 +264,10 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
             rz_new = pdot(r, z)
             rn_new = pnorm(r)
             beta = _safe_div(rz_new, rz)
-            p.mul_(beta).add_(z)
+            if mixed:
+                _lifted_axpy(z, beta, p, out=p)
+            else:
+                p.mul_(beta).add_(z)
         rz = rz_new
         it += 1
         # the one host read of the iteration: the loop condition's scalars
@@ -188,10 +278,10 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
 
 
 def _lockstep(bp, x, r, p, rz, rn, tol, dmax, atol_h, maxit, *, A, M, Adot,
-              inv_diag, pdot, pnorm):
+              inv_diag, pdot, pnorm, prec=None):
     """The :class:`ManyBatch` loop of :func:`classic_cg_loop`, from the
     initialized per-column state (JAX ``classic_cg_loop`` under
-    ``ManyBatch``, ``:426-503``)."""
+    ``ManyBatch``, ``:426-503``); ``prec`` is a mixed plan or None."""
     stencil = Adot is not None
     dt = rn.dtype
     it = torch.zeros(rn.shape, dtype=torch.int64, device=rn.device)
@@ -225,22 +315,34 @@ def _lockstep(bp, x, r, p, rz, rn, tol, dmax, atol_h, maxit, *, A, M, Adot,
             pAp = pdot(p, Ap)
         brk |= cont & (pAp == 0)
         al = bp.ex(_safe_div(rz, pAp))
-        update(x, lambda o: torch.addcmul(x, al, p, out=o))
-        update(r, lambda o: torch.addcmul(r, al, Ap, value=-1, out=o))
+        if prec is not None:
+            update(x, lambda o: _lifted_axpy(x, al, p, out=o))
+            update(r, lambda o: _lifted_axpy(r, -al, Ap, out=o))
+        else:
+            update(x, lambda o: torch.addcmul(x, al, p, out=o))
+            update(r, lambda o: torch.addcmul(r, al, Ap, value=-1, out=o))
         # ---- PC apply + reduction phase 2 ----
         if stencil:
-            rr = pdot(r, r)
+            r32 = r if prec is None else prec.up(r)   # lifted once
+            rr = pdot(r32, r32)
             rz_new = rr * inv_diag
             rn_new = torch.sqrt(rr)
             beta = bp.ex(_safe_div(rz_new, rz))
-            update(p, lambda o: torch.mul(p, beta, out=o).add_(
-                r, alpha=inv_diag))
+            if prec is not None:              # z = r/d, rounded
+                z = prec.store(r32.mul_(inv_diag))
+                update(p, lambda o: _lifted_axpy(z, beta, p, out=o))
+            else:
+                update(p, lambda o: torch.mul(p, beta, out=o).add_(
+                    r, alpha=inv_diag))
         else:
             z = M(r)
             rz_new = pdot(r, z)
             rn_new = pnorm(r)
             beta = bp.ex(_safe_div(rz_new, rz))
-            update(p, lambda o: torch.mul(p, beta, out=o).add_(z))
+            if prec is not None:
+                update(p, lambda o: _lifted_axpy(z, beta, p, out=o))
+            else:
+                update(p, lambda o: torch.mul(p, beta, out=o).add_(z))
         rz = torch.where(cont, rz_new, rz)
         rn = torch.where(cont, rn_new, rn)
         it += cont

@@ -17,6 +17,12 @@ PyTorch driven by the host, with the scalars on the device and one small
 host read where the loop decides whether to go on: once per iteration for CG
 and BiCGStab, once per restart cycle for GMRES, once per refinement step for
 preonly. Every program returns the count of its host reads.
+
+Both builders take the precision plan from the operator's dtype (JAX
+``:2177-2186``, ``:2796-2798``): under bfloat16 storage the reductions lift
+their operands to fp32 (``:2341-2346``) and the CG loops run the mixed plan;
+KSP types without a mixed-precision body (gmres, bcgs) raise, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -30,15 +36,16 @@ from .cg_plans import _dmax, _reason, _tol
 
 KSP_TYPES = ("cg", "gmres", "bcgs", "preonly")
 
-def cg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None):
+def cg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+              prec=None):
     """Preconditioned conjugate gradients (KSPCG) on the general route."""
     return _plans.classic_cg_loop(
         b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol,
-        A=A, M=M, pdot=pdot, pnorm=pnorm)
+        A=A, M=M, pdot=pdot, pnorm=pnorm, prec=prec)
 
 
 def cg_stencil_kernel(Adot, inv_diag, pdot, pnorm, b, x0, rtol, atol, maxit,
-                      dtol=None, grid3d=None, M3=None):
+                      dtol=None, grid3d=None, M3=None, prec=None):
     """CG fast path for uniform-diagonal stencil operators with PC none,
     jacobi or mg: the same recurrence as :func:`cg_kernel`, with the SpMV and
     ``<p, Ap>`` in one fused kernel pass (``Adot``) and the Jacobi apply a
@@ -52,11 +59,13 @@ def cg_stencil_kernel(Adot, inv_diag, pdot, pnorm, b, x0, rtol, atol, maxit,
         x0 = x0.reshape(b.shape)
     x, *rest = _plans.classic_cg_loop(
         b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol,
-        Adot=Adot, inv_diag=inv_diag, M3=M3, pdot=pdot, pnorm=pnorm)
+        Adot=Adot, inv_diag=inv_diag, M3=M3, pdot=pdot, pnorm=pnorm,
+        prec=prec)
     return (x.reshape(flat), *rest)
 
 
-def cg_kernel_many(A, M, pdot, pnorm, B, X0, rtol, atol, maxit, dtol=None):
+def cg_kernel_many(A, M, pdot, pnorm, B, X0, rtol, atol, maxit, dtol=None,
+                   prec=None):
     """Batched preconditioned CG on the general route: ``k`` independent
     recurrences in lockstep over a ``(size, k, lsize)`` block, each
     column's arithmetic that of :func:`cg_kernel`, with per-column masked
@@ -65,11 +74,12 @@ def cg_kernel_many(A, M, pdot, pnorm, B, X0, rtol, atol, maxit, dtol=None):
     on the port's fixed-order shard sum is the same two reductions."""
     return _plans.classic_cg_loop(
         b=B, x0=X0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol,
-        A=A, M=M, pdot=pdot, pnorm=pnorm, bp=_plans.ManyBatch("cols"))
+        A=A, M=M, pdot=pdot, pnorm=pnorm, bp=_plans.ManyBatch("cols"),
+        prec=prec)
 
 
 def cg_stencil_kernel_many(Adot, inv_diag, pdot, pnorm, B, X0, rtol, atol,
-                           maxit, dtol=None, grid3d=None):
+                           maxit, dtol=None, grid3d=None, prec=None):
     """Batched twin of :func:`cg_stencil_kernel`: the block ``(size, k,
     lsize)`` is viewed as the slabs ``(size, k) + grid3d`` (no copy), the
     SpMV and the per-column ``<p_j, A p_j>`` run in one fused pass per shard
@@ -80,7 +90,7 @@ def cg_stencil_kernel_many(Adot, inv_diag, pdot, pnorm, B, X0, rtol, atol,
     x, *rest = _plans.classic_cg_loop(
         b=B.reshape(shape), x0=X0.reshape(shape), rtol=rtol, atol=atol,
         maxit=maxit, dtol=dtol, Adot=Adot, inv_diag=inv_diag, pdot=pdot,
-        pnorm=pnorm, bp=_plans.ManyBatch("slabs"))
+        pnorm=pnorm, bp=_plans.ManyBatch("slabs"), prec=prec)
     return (x.reshape(flat), *rest)
 
 
@@ -298,14 +308,18 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
         raise ValueError(f"unknown KSP type {ksp_type!r}; available: "
                          f"{list(KSP_TYPES)}")
     size = comm.size
+    prec = _precision(ksp_type, operator)
+    up = prec.up
 
     def pdot(u, v):
-        return comm.psum([torch.dot(u[i].reshape(-1), v[i].reshape(-1))
+        return comm.psum([torch.dot(up(u[i]).reshape(-1),
+                                    up(v[i]).reshape(-1))
                           for i in range(size)])
 
     def pnorm(u):
         return torch.sqrt(pdot(u, u))
 
+    plan = {"prec": prec} if prec.mixed else {}
     spmv = operator.local_spmv(comm)
     if stencil_cg_eligible(ksp_type, pc, operator):
         matvec_dot = operator.local_matvec_dot(comm)
@@ -317,10 +331,10 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
         def prog(b, x0, rtol, atol, dtol, maxit):
             return cg_stencil_kernel(
                 matvec_dot, inv_diag, pdot, pnorm, b, x0, rtol, atol, maxit,
-                dtol=dtol, grid3d=operator.grid3d, M3=pc_apply3)
+                dtol=dtol, grid3d=operator.grid3d, M3=pc_apply3, **plan)
     else:
         pc_apply = pc.local_apply(comm, operator.shape[0])
-        kernel, kw = {"cg": (cg_kernel, {}),
+        kernel, kw = {"cg": (cg_kernel, plan),
                       "bcgs": (bcgs_kernel, {}),
                       "gmres": (gmres_kernel, {"restart": restart,
                                                "pmatdot": _pmatdot(comm)}),
@@ -343,6 +357,23 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
         return out
 
     return run
+
+
+def _precision(ksp_type, operator):
+    """The operator's precision plan; raises ``ValueError`` for a mixed plan
+    under a KSP type without a mixed-precision body (JAX
+    ``krylov.py:2177-2185``: the port's cg and the loop-free preonly take
+    one)."""
+    prec = _plans.precision_plan(operator.dtype)
+    if prec.mixed and ksp_type not in ("cg", "preonly"):
+        raise ValueError(
+            f"sub-f32 storage ({prec.key()[0]}) solves are assembled by the "
+            f"mixed-precision CG plans; KSP {ksp_type!r} has no "
+            "precision-plan body — use cg (typically under RefinedKSP fp64 "
+            "refinement), or f32 storage. The JAX package has none for it "
+            "either; its pipecg/sstep/richardson bodies come with ROADMAP.md "
+            "Queue A item 5")
+    return prec
 
 
 def _pmatdot(comm):
@@ -376,16 +407,20 @@ def build_ksp_program_many(comm, ksp_type, pc, operator):
         raise ValueError(f"KSP {ksp_type!r} has no batched program; "
                          "KSP.solve_many solves its columns one by one")
     size = comm.size
+    prec = _precision(ksp_type, operator)
+    up = prec.up
 
     def pdot(U, V):
         return comm.psum([
-            torch.stack([torch.dot(U[i, j].reshape(-1), V[i, j].reshape(-1))
+            torch.stack([torch.dot(up(U[i, j]).reshape(-1),
+                                   up(V[i, j]).reshape(-1))
                          for j in range(U.shape[1])])
             for i in range(size)])
 
     def pnorm(U):
         return torch.sqrt(pdot(U, U))
 
+    plan = {"prec": prec} if prec.mixed else {}
     if stencil_cg_eligible(ksp_type, pc, operator, many=True):
         matvec_dot = operator.local_matvec_dot_many(comm)
         inv_diag = (1.0 if pc.get_type() == "none"
@@ -394,7 +429,7 @@ def build_ksp_program_many(comm, ksp_type, pc, operator):
         def prog(B, X0, rtol, atol, dtol, maxit):
             return cg_stencil_kernel_many(
                 matvec_dot, inv_diag, pdot, pnorm, B, X0, rtol, atol, maxit,
-                dtol=dtol, grid3d=operator.grid3d)
+                dtol=dtol, grid3d=operator.grid3d, **plan)
         return prog
     pc_apply = pc.local_apply_many(comm, operator.shape[0])
     if pc_apply is None:
@@ -404,5 +439,5 @@ def build_ksp_program_many(comm, ksp_type, pc, operator):
 
     def prog(B, X0, rtol, atol, dtol, maxit):
         return cg_kernel_many(spmv, pc_apply, pdot, pnorm, B, X0, rtol, atol,
-                              maxit, dtol=dtol)
+                              maxit, dtol=dtol, **plan)
     return prog

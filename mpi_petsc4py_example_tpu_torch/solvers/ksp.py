@@ -9,6 +9,10 @@ The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/ksp.py``
 ``setOperators``, ``setFromOptions``, ``setUp``, ``solve(b, x)``,
 ``matSolve(B, X)``). A solve starts from a zero guess; only the re-entries
 of the true-residual gate start from the current iterate.
+
+A bfloat16 operator runs the mixed-precision plan (``solvers/cg_plans.py``):
+its tolerance scalars travel in ``utils.dtypes.tolerance_dtype``, fp32 (JAX
+``ksp.py:734-738``), and its host blocks as float32.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..core.vec import Vec
 from ..parallel.mesh import numpy_dtype
 from ..utils.convergence import BatchedSolveResult, ConvergedReason, SolveResult
+from ..utils.dtypes import tolerance_dtype
 from ..utils.options import global_options
 from .krylov import (KSP_TYPES, batched_pc_supported, build_ksp_program,
                      build_ksp_program_many)
@@ -293,7 +298,8 @@ class KSP:
         x0 = (x.data.clone() if _guess_nonzero
               else torch.zeros_like(b.data))
         t0 = time.perf_counter()
-        out = prog(b.data, x0, rtol * margin, atol * margin, divtol,
+        out = prog(b.data, x0, *_tolerances(mat.dtype, rtol * margin,
+                                            atol * margin, divtol),
                    self.max_it)
         xd, iters, rnorm, reason, syncs = out[:5]
         x.data = xd
@@ -437,7 +443,8 @@ class KSP:
               if b_vecs else comm.put_cols(B, mat.dtype))
         t0 = time.perf_counter()
         Xd, iters, rnorms, reasons, syncs = prog(
-            Bd, torch.zeros_like(Bd), rtol, atol, divtol, self.max_it)
+            Bd, torch.zeros_like(Bd), *_tolerances(mat.dtype, rtol, atol,
+                                                   divtol), self.max_it)
         if x_vecs:
             for j, xv in enumerate(X):
                 xv.data = Xd[:, j].reshape(-1).to(xv.dtype)
@@ -492,6 +499,13 @@ class KSP:
     def __repr__(self):
         return (f"KSP(type={self._type!r}, pc={self.get_pc().get_type()!r}, "
                 f"rtol={self.rtol:g}, max_it={self.max_it})")
+
+
+def _tolerances(dtype, *values) -> list:
+    """The tolerance scalars as the loop takes them: each rounded to the
+    operator's ``tolerance_dtype`` (the value its arithmetic uses anyway)."""
+    tdt = tolerance_dtype(dtype)
+    return [torch.tensor(v, dtype=tdt).item() for v in values]
 
 
 def _final_reason(reason, rnorm, norm_none):

@@ -23,6 +23,13 @@ host in fp64, as the JAX package does off a TPU:
 ``-pc_setup_device``: ``auto`` resolves to the host (the JAX package inverts
 on the device only on a TPU); ``1`` raises until the port's on-device
 inversion lands.
+
+On a bfloat16 operator (the mixed-precision plan's storage) jacobi stores its
+inverse diagonal in bfloat16, and bjacobi/lu store their factors in bfloat16
+and contract in fp32 (``ops.spmv.widened_einsum``), as the JAX package does
+(``pc.py:474-483``, ``:618-632``). PC ``mg`` raises there: the JAX package
+runs its V-cycle at bfloat16 through jnp, and the port's V-cycle kernels take
+float32/float64 only (``ROADMAP.md`` Queue A item 5).
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import numpy as np
 import torch
 
 from ..ops.spmv import widened_einsum
-from ..parallel.mesh import numpy_dtype
+from ..parallel.mesh import numpy_dtype, torch_dtype
+from ..utils.dtypes import is_low_precision, real_eps
 from .mg import make_vcycle, make_vcycle3d
 
 PC_TYPES = ("none", "jacobi", "bjacobi", "lu", "cholesky", "mg")
@@ -168,6 +176,10 @@ class PC:
     def _inv_diag(self, mat):
         comm = mat.comm
         diag = mat.diagonal()
+        if is_low_precision(mat.dtype):
+            # the JAX package divides in the diagonal's own bfloat16
+            # arithmetic (an fp32 quotient, rounded once): so does this
+            diag = diag.astype(np.float32)
         inv = np.where(diag != 0, 1.0 / np.where(diag == 0, 1.0, diag), 0.0)
         return comm.put_rows(inv, mat.dtype).view(comm.size, -1)
 
@@ -181,6 +193,12 @@ class PC:
             raise ValueError(
                 "PC 'mg' is the geometric multigrid V-cycle for "
                 "structured stencil operators (models.StencilPoisson3D)")
+        if is_low_precision(op.dtype):
+            raise NotImplementedError(
+                f"PC 'mg' on {op.dtype} storage is not ported: the V-cycle "
+                "kernels take float32/float64 (ROADMAP.md Queue A item 5 "
+                "brings the bfloat16 V-cycle); use pc 'jacobi', or f32 "
+                "inner precision")
         return op
 
     # ---- the applies the Krylov loops run -------------------------------------
@@ -290,7 +308,7 @@ def _require_symmetric(mat):
     S = mat.to_scipy()
     D = (S - S.T).tocsr()
     scale = abs(S).max() or 1.0
-    rel = max(1e-10, 100 * float(np.finfo(numpy_dtype(mat.dtype)).eps))
+    rel = max(1e-10, 100 * real_eps(mat.dtype))
     if D.nnz and abs(D).max() > rel * scale:
         raise ValueError("PC 'cholesky' needs a symmetric (Hermitian) "
                          "operator — use pc 'lu' for unsymmetric matrices")
@@ -364,9 +382,10 @@ def _dense_diag_blocks(A, n: int, bs: int, nblocks: int, dt) -> np.ndarray:
 
 def _ship_blocks(comm, blocks: np.ndarray, dtype):
     """The block stack on the device in the operator's dtype (shard ``i``
-    owns blocks ``i * nb`` to ``(i + 1) * nb - 1``)."""
+    owns blocks ``i * nb`` to ``(i + 1) * nb - 1``; bfloat16 rounded from
+    the host values through fp32, as ``ml_dtypes`` rounds them)."""
     return (torch.tensor(blocks.astype(numpy_dtype(dtype)),
-                         device=comm.device),)
+                         dtype=torch_dtype(dtype), device=comm.device),)
 
 
 def _build_bjacobi(mat, blocks: int = 0, setup_device: str = "auto"):

@@ -16,6 +16,11 @@ hands them over as plain values, never as JAX objects:
 The grid and the CSR do not depend on the shard count, so the port's
 communicator may have another shard count than the JAX mesh had (a stencil's
 ``ndev`` only has to divide ``nz``).
+
+A ``dtype`` of ``torch.bfloat16`` builds the port's bfloat16 problem. The JAX
+package's bfloat16 arrays (``ml_dtypes``, which the port does not import)
+are read through float32, which holds them exactly; fp64 values are rounded
+by torch's cast, as ``ml_dtypes`` rounds them.
 """
 
 from __future__ import annotations
@@ -41,15 +46,22 @@ def from_numpy_state(comm: DeviceComm, geometry, b, x0=None,
     return (op,) + _vectors(comm, op, b, x0, dtype)
 
 
+def _host(a) -> np.ndarray:
+    """``a`` as a numpy array of a native dtype: an ``ml_dtypes`` array
+    (numpy kind 'V') through float32, exactly."""
+    a = np.asarray(a)
+    return a if a.dtype.kind in "biufc" else a.astype(np.float32)
+
+
 def _vectors(comm, op, b, x0, dtype):
     n = op.shape[0]
-    b = np.asarray(b)
+    b = _host(b)
     if b.shape != (n,):
         raise ValueError(f"b must have shape ({n},), got {b.shape}")
     bv = Vec.from_global(comm, b, dtype=dtype, layout=op.layout)
     if x0 is None:
         return bv, op.get_vecs()[0]
-    x0 = np.asarray(x0)
+    x0 = _host(x0)
     if x0.shape != (n,):
         raise ValueError(f"x0 must have shape ({n},), got {x0.shape}")
     return bv, Vec.from_global(comm, x0, dtype=dtype, layout=op.layout)
@@ -60,7 +72,7 @@ def from_host_csr(comm: DeviceComm, shape, csr, b, x0=None,
     """Build the port's ``(Mat, b Vec, x Vec)`` for an assembled problem the
     JAX side described by ``Mat.shape`` and ``Mat.host_csr``
     ``(indptr, indices, data)``; ``x`` is ``x0`` or zeros."""
-    indptr, indices, data = (np.asarray(a) for a in csr)
+    indptr, indices, data = (_host(a) for a in csr)
     mat = Mat.from_csr(comm, tuple(int(s) for s in shape),
                        (indptr, indices, data), dtype=dtype)
     return (mat,) + _vectors(comm, mat, b, x0, dtype)

@@ -6,8 +6,10 @@ argv parsing and typed getters, for the flags ``KSP.set_from_options`` reads
 ``-ksp_norm_type``, ``-ksp_batch_limit``, ``-ksp_gmres_restart``,
 ``-ksp_true_residual_check``, ``-ksp_true_residual_margin``,
 ``-pc_mg_smooth_type``, ``-pc_factor_mat_solver_type``,
-``-pc_bjacobi_blocks``, ``-pc_setup_device``). Each process has one
-database, seeded with :func:`init`.
+``-pc_bjacobi_blocks``, ``-pc_setup_device``) and the flags
+``RefinedKSP.set_from_options`` reads (``-ksp_inner_precision``,
+``-ksp_refine_max``, ``-ksp_refine_inner_rtol``, ``-ksp_megasolve``). Each
+process has one database, seeded with :func:`init`.
 """
 
 from __future__ import annotations

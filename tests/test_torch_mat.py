@@ -266,7 +266,8 @@ def test_assembly_breakdown_keys_equal_jax():
                          _csr(A)).assembly_breakdown)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+# bfloat16 storage is taken (tests/test_torch_mixed_precision.py)
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float16])
 def test_sub_f32_storage_raises(dtype):
     with pytest.raises(NotImplementedError, match="mixed-precision"):
         Mat.from_scipy(pt.DeviceComm(1, device="cpu"), poisson2d_csr(4),
