@@ -46,10 +46,15 @@ before each and read just after:
   against numpy's eigenvalues; and the reference ``test2.py`` flow through
   the runner at -n 1 and -n 4;
 * mixed-precision refinement (``RefinedKSP``) with the bfloat16
-  instantiations of the four Krylov kernels: each held bit for bit against
-  its plain version (128^3, an odd multi-tile shape, k = 1/3/8) and timed
-  at 128^3 and 512^3 beside cuDNN's bf16 conv3d; 512^3 CG + Jacobi at bf16
-  against f32 (delta method, profile, peak memory, fp64 true residual); the
+  instantiations of the four Krylov kernels (one kernel of their own, two
+  routes): each held bit for bit against its plain version (128^3, an odd
+  multi-tile shape, the kernel's tile edges, 32^3 and 64^3, k = 1/3/8, the
+  route of every launch logged, misaligned copies through the element
+  route), timed at 128^3 and 512^3 beside cuDNN's bf16 conv3d and profiled
+  at 512^3 (the march apart from the dots' partial sums); 512^3 CG +
+  Jacobi at bf16 against f32 (delta method, profile, peak memory, fp64 true
+  residual), and the same with k = 8 through ``solve_many`` (delta method,
+  the kernel's share of device time, peak memory); the
   refined solves that launch each bf16 kernel (32^3 single-RHS and 64^3
   k = 8, fast path and general route; 64^3 single-RHS, where bf16
   refinement is at the edge of contraction); and cfg11 of
@@ -57,11 +62,15 @@ before each and read just after:
   on the assembled Mat, rtol 1e-10, against scipy's fp64 CG).
 
 ``python3 chip_smoke.py --refine`` builds the kernels and runs only the
-mixed-precision phases. ``python3 chip_smoke.py --eps`` builds the kernels,
-checks them and runs only the eigensolver phases. ``python3 chip_smoke.py --mg3d`` builds the kernels and prints only the
-per-level table of the two ``csrc/mg3d.cu`` kernels and the warm CG + mg
-walls at 128^3 and 512^3 (a copy of this script placed in another checkout
-times that checkout's kernels).
+mixed-precision phases. ``python3 chip_smoke.py --kernels`` builds the
+kernels, prints each one's registers and spills (ptxas), checks every one
+against its plain version and times it, and solves nothing.
+``python3 chip_smoke.py --eps`` builds the kernels, checks them and runs
+only the eigensolver phases. ``python3 chip_smoke.py --mg3d`` builds the
+kernels and prints only the per-level table of the two ``csrc/mg3d.cu``
+kernels and the warm CG + mg walls at 128^3 and 512^3. A copy of this
+script placed in another checkout runs that checkout's kernels, so
+``--kernels`` and ``--mg3d`` compare two trees in turns on one card.
 
 Every check raises on failure, so the exit code is 0 only when all phases
 passed. The last line of standard output is
@@ -176,6 +185,44 @@ def phase_build():
         libs = list(pool.map(build.build, names))
     log(f"build: {time.perf_counter() - t0:.2f} s for {names} "
         f"(nvcc {build.nvcc_path()}): {[p.name for p in libs]}")
+
+
+def phase_kernel_resources():
+    """Registers, spills and static shared memory of every kernel of
+    ``csrc/*.cu``, as ptxas reports them (``nvcc -Xptxas -v`` with the
+    build's flags, into a throw-away object). Returns {kernel: line}."""
+    import re
+    import tempfile
+    from mpi_petsc4py_example_tpu_torch.ops import build
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+    out = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run(
+                [build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-o",
+                 os.path.join(tmp, "k.o"), str(src)],
+                capture_output=True, text=True, check=True)
+        name = None
+        for line in proc.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                out[name] = ""
+            elif name and ("registers" in line or "spill" in line):
+                out[name] += line.split(":", 1)[-1].strip() + "; "
+    filt = os.path.join(os.path.dirname(build.nvcc_path()), "cu++filt")
+    names = list(out)
+    if os.access(filt, os.X_OK):
+        shown = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    else:
+        shown = names
+    for name, pretty in zip(names, shown):
+        pretty = pretty.replace("<unnamed>::", "").removeprefix("void ")
+        # the template arguments, without the parameter list
+        pretty = pretty.split(">(")[0] + ">" if ">(" in pretty else pretty
+        log(f"resources {pretty}: {out[name]}")
+    return out
 
 
 def phase_kernel_checks():
@@ -555,12 +602,15 @@ def zero_solve(ksp, bv, x):
     return ksp.solve(bv, x).iterations
 
 
-def profile_solve(run, label, ops=()):
+def profile_solve(run, label, ops=(), kernels=(), out=None):
     """Device time by kernel over one solve, ``run()`` (which returns its
     iteration count), under ``torch.profiler``, and the device's idle share
     of the window's wall time; for each PyTorch op named in ``ops`` also the
-    device time of all the kernels it launched. Returns the idle share, or
-    None when the profiler saw no device time."""
+    device time of all the kernels it launched, and the share of the busy
+    time of the CUDA kernels whose names hold any of the strings in
+    ``kernels`` (into ``out["kernel_share"]``, with the busy us per
+    iteration, when ``out`` is a dict). Returns the idle share, or None when
+    the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -589,6 +639,14 @@ def profile_solve(run, label, ops=()):
         us = sum(e.device_time_total for e in prof.key_averages() if e.key == op)
         log(f"  {op}: {us / its:.2f} us/iter of device time, "
             f"{us / busy_us * 100:.1f}% of the busy time")
+    if kernels:
+        us = sum(r[1] for r in rows if any(k in r[0] for k in kernels))
+        log(f"  kernels {list(kernels)}: {us / its:.2f} us/iter, "
+            f"{us / busy_us * 100:.1f}% of the busy time")
+        if out is not None:
+            out.update(kernel_share=us / busy_us,
+                       kernel_us_per_iter=us / its,
+                       busy_us_per_iter=busy_us / its)
     return 1 - busy_us / wall_us
 
 
@@ -2095,20 +2153,50 @@ def read_bf16_launches():
             for name in BF16_NAMES}
 
 
+# the shapes of phase_bf16_kernel_checks: 128^3; an odd multi-tile slab
+# (218,115 points, so at k = 3 every other column is 2-byte aligned); the
+# bf16 kernel's tile edges, a warp's 8-point runs spanning nx = 256 (255, 256,
+# 257), one row past a block's 2048 points (ny = 9 at nx = 256, ny = 33 at nx
+# = 64); a tiny odd slab; and the refinement's 32^3 and 64^3 paths
+BF16_CHECK_SHAPES = ((128, 128, 128), (37, 45, 131), (4, 9, 255), (4, 9, 256),
+                     (4, 9, 257), (3, 33, 64), (3, 5, 7), (32, 32, 32),
+                     (64, 64, 64))
+
+
+def bf16_route_of(st, u, lo, hi, y):
+    """The bf16 kernel's route for this launch, as the library reports it
+    (a checkout without ``bf16_route`` has one route)."""
+    route = getattr(st, "bf16_route", None)
+    return route(u, lo, hi, y) if route else "one"
+
+
+def misaligned_copy(t):
+    """``t``'s values in a tensor whose data starts 2 bytes past a 16-byte
+    boundary (the bf16 kernel's element route at any nx)."""
+    import torch
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_bf16_kernel_checks():
-    """The four bfloat16 kernels against their plain versions on the card:
-    128^3, an odd multi-tile (37, 45, 131), random and zero halos, k in
-    {1, 3, 8} for the batched two. ``A u`` must be bit-equal, the dots
-    within 1e-5 relative and fp32; each column of a batched launch
-    bit-equal to a single launch on it; float16 raises. Returns the largest
-    errors per kernel."""
+    """The four bfloat16 kernels against their plain versions on the card,
+    at ``BF16_CHECK_SHAPES``, random and zero halos, k in {1, 3, 8} for the
+    batched two. ``A u`` must be bit-equal, the dots within 1e-5 relative
+    and fp32; each column of a batched launch bit-equal (``A u`` and dot) to
+    a single launch on it; every launch's route is logged, and at each shape
+    a launch on misaligned copies of the inputs (the element route) must give
+    the same bits and dots as the aligned one; float16 raises. Returns the
+    largest errors per kernel."""
     import torch
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
     bf = torch.bfloat16
     worst = {name: 0.0 for name in BF16_NAMES.values()}
     worst["dot_rel"] = worst["dot_many_rel"] = 0.0
     seed = 900
-    for shape in ((128, 128, 128), (37, 45, 131)):
+    routes = set()
+    for shape in BF16_CHECK_SHAPES:
         for halos in (True, False):
             seed += 1
             g = torch.Generator(device="cuda").manual_seed(seed)
@@ -2120,12 +2208,19 @@ def phase_bf16_kernel_checks():
                                    hi if halos else None)
             yd, d = st.stencil3d_dot(u, lo, hi)
             yp, dp = st.stencil3d_dot_plain(u, lo, hi)
+            um, lom, him = (misaligned_copy(t) for t in (u, lo, hi))
+            ym, dm1 = st.stencil3d_dot(um, lom, him)
             torch.cuda.synchronize()
             e_dot = abs(float(d) - float(dp)) / abs(float(dp))
+            route = bf16_route_of(st, u, lo, hi, yd)
+            route_m = bf16_route_of(st, um, lom, him, ym)
+            routes |= {route, route_m}
+            same_m = torch.equal(ym, yd) and torch.equal(dm1, d)
             label = f"{shape} {'random' if halos else 'zero'} halos"
-            log(f"check bf16 {label}: apply bit-equal {torch.equal(y, yp)}, "
-                f"dot y bit-equal {torch.equal(yd, yp)}, dot rel err "
-                f"{e_dot:.3e} ({d.dtype})")
+            log(f"check bf16 {label}, route {route}: apply bit-equal "
+                f"{torch.equal(y, yp)}, dot y bit-equal {torch.equal(yd, yp)}, "
+                f"dot rel err {e_dot:.3e} ({d.dtype}); misaligned inputs "
+                f"(route {route_m}) give the same bits and dot {same_m}")
             check(y.dtype == yd.dtype == bf and d.dtype == torch.float32,
                   f"bf16 dtypes {y.dtype} {yd.dtype} {d.dtype}")
             for name, got in (("stencil7_apply_bf16", y),
@@ -2134,6 +2229,7 @@ def phase_bf16_kernel_checks():
             check(torch.equal(y, yp) and torch.equal(yd, yp),
                   f"bf16 apply/dot not bit-equal to plain, {label}")
             check(e_dot <= 1e-5, f"bf16 dot {label}: rel {e_dot}")
+            check(same_m, f"bf16 dot on misaligned inputs differs, {label}")
             worst["dot_rel"] = max(worst["dot_rel"], e_dot)
             for k in (1, 3, K_BATCH):
                 U = mk(k, *shape)
@@ -2151,8 +2247,10 @@ def phase_bf16_kernel_checks():
                     same = same and torch.equal(y2, Yd[j]) and torch.equal(
                         d2, dm[j])
                 torch.cuda.synchronize()
-                log(f"check bf16 many k={k} {label}: apply bit-equal "
-                    f"{torch.equal(Y, Yp)}, dot y bit-equal "
+                route = bf16_route_of(st, U, blo, bhi, Yd)
+                routes.add(route)
+                log(f"check bf16 many k={k} {label}, route {route}: apply "
+                    f"bit-equal {torch.equal(Y, Yp)}, dot y bit-equal "
                     f"{torch.equal(Yd, Yp)}, dot max rel err {e_many:.3e}, "
                     f"columns equal single launches {same}")
                 check(Y.dtype == bf and dm.dtype == torch.float32,
@@ -2167,8 +2265,10 @@ def phase_bf16_kernel_checks():
                             f"k={k} {label}")
                 worst["dot_many_rel"] = max(worst["dot_many_rel"], e_many)
                 del U, blo, bhi, Y, Yd, dm, Yp, dmp
-            del u, lo, hi, y, yd, d, yp, dp
+            del u, lo, hi, y, yd, d, yp, dp, um, lom, him, ym, dm1
     torch.cuda.empty_cache()
+    if hasattr(st, "bf16_route"):
+        check(routes == {"vec16", "elem"}, f"bf16 routes checked: {routes}")
     u = torch.ones(4, 6, 10, device="cuda", dtype=torch.float16)
     for fn in (st.stencil3d_apply, st.stencil3d_dot):
         try:
@@ -2177,7 +2277,8 @@ def phase_bf16_kernel_checks():
             continue
         raise SystemExit(f"chip_smoke: FAIL: float16 on CUDA did not raise "
                          f"in {fn.__name__}")
-    log("check bf16: float16 raises TypeError")
+    log(f"check bf16: routes {sorted(routes)} checked; float16 raises "
+        f"TypeError")
     return worst
 
 
@@ -2257,6 +2358,63 @@ def phase_bf16_kernel_times(n, k=K_BATCH):
             torch.cuda.empty_cache()
         log(f"time conv3d bf16 batch {cols} {n}^3: max|conv3d - plain| "
             f"{e_conv:.3e} (max|y| {scale:.3e})")
+        del U, lo, hi, Y
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_kernel_profile(n=512, k=K_BATCH, launches=20):
+    """``launches`` calls of each bfloat16 wrapper at n^3 (k x n^3 for the
+    batched two) under ``torch.profiler``: device us per call by CUDA kernel,
+    so the stencil march and ``sum_partials_kernel`` of the dots are read
+    apart. Returns {wrapper: {kernel: us per call}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(23)
+    mk = lambda *sh: torch.rand(sh, generator=g, device="cuda").to(bf)
+    out = {}
+    for cols in (1, k):
+        U, lo, hi = mk(cols, n, n, n), mk(cols, n, n), mk(cols, n, n)
+        Y = torch.empty_like(U)
+        if cols == 1:
+            u, l1, h1, y = U[0], lo[0], hi[0], Y[0]
+            cases = {"stencil7_apply_bf16":
+                     lambda: st.stencil3d_apply(u, l1, h1, out=y),
+                     "stencil7_dot_bf16":
+                     lambda: st.stencil3d_dot(u, l1, h1, out=y)}
+        else:
+            cases = {"stencil7_apply_many_bf16":
+                     lambda: st.stencil3d_apply_many(U, lo, hi, out=Y),
+                     "stencil7_dot_many_bf16":
+                     lambda: st.stencil3d_dot_many(U, lo, hi, out=Y)}
+        for name, fn in cases.items():
+            fn()
+            torch.cuda.synchronize()
+            # a second window where the first recorded no device time, as
+            # the profiler now and then does after earlier profiles
+            for _ in range(2):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(launches):
+                        fn()
+                    torch.cuda.synchronize()
+                rows = {e.key: e.self_device_time_total / launches
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.self_device_time_total > 0}
+                if rows:
+                    break
+            out[name] = rows
+            shape = f"{cols} x {n}^3" if cols > 1 else f"{n}^3"
+            if not rows:
+                log(f"profile {name} {shape}: the profiler recorded no "
+                    "device time (not measured)")
+                continue
+            log(f"profile {name} {shape}, {launches} launches: device "
+                f"{sum(rows.values()):.2f} us/call; " + "; ".join(
+                    f"{key[:90]} {us:.2f} us" for key, us in
+                    sorted(rows.items(), key=lambda r: -r[1])))
         del U, lo, hi, Y
         torch.cuda.empty_cache()
     return out
@@ -2513,14 +2671,81 @@ def phase_bf16_inner_512(nx=512):
     return out
 
 
+def phase_bf16_many_512(nx=512, k=K_BATCH):
+    """The batched twin of ``phase_bf16_inner_512``: CG + Jacobi on the 512^3
+    stencil with k right-hand sides through ``KSP.solve_many``, bf16 storage
+    against f32 in the same run: the delta method over 20 and 220 fixed
+    lockstep iterations against the k x 11-pass bound (2 and 4 bytes a
+    pass), one profiled 20-iteration window giving the stencil kernels'
+    share of device time (``stencil7_dot_many`` and its partial sums, the
+    only stencil kernels of the fast path), and peak memory."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    n = nx ** 3
+    comm = pt.DeviceComm()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    op32 = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    B32 = []
+    for _ in range(k):
+        xt = pt.Vec(comm, n, data=torch.rand(n, generator=g, device="cuda"))
+        B32.append(op32.mult(xt).data)
+        del xt
+    del op32
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        op = pt.StencilPoisson3D(comm, nx, dtype=dtype)
+        Bv = [pt.Vec(comm, n, data=b.to(dtype)) for b in B32]
+        Xv = [op.get_vecs()[0] for _ in range(k)]
+        solvers = {m: cg_jacobi(comm, op, 0.0, max_it=m, norm_none=True)
+                   for m in (20, 220)}
+        solvers[20].solve_many(Bv, Xv)                # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_iter = []
+        for _ in range(2):      # two pairs: their spread was 0.2% (H100)
+            walls = {}
+            for m, ksp in solvers.items():
+                t0 = time.perf_counter()
+                r = ksp.solve_many(Bv, Xv)
+                walls[m] = (time.perf_counter() - t0, max(r.iterations))
+            (w_lo, i_lo), (w_hi, i_hi) = walls[20], walls[220]
+            per_iter.append((w_hi - w_lo) / (i_hi - i_lo))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per = statistics.median(per_iter)
+        prof = {}
+        idle = profile_solve(
+            lambda: max(solvers[20].solve_many(Bv, Xv).iterations),
+            f"512^3 k={k} {name} solve_many, 20 fixed iterations",
+            kernels=("stencil7_", "sum_partials_kernel"), out=prof)
+        bound = k * PASSES_PER_ITER * n * dtype.itemsize / HBM_BYTES_PER_S
+        log(f"512^3 k={k} {name} CG+jacobi solve_many: delta method "
+            f"{per * 1e3:.4f} ms per lockstep iteration (samples "
+            f"{[round(p * 1e3, 4) for p in per_iter]}), "
+            f"{per * 1e3 / k:.4f} ms per RHS-iteration; bound k x 11 passes "
+            f"{bound * 1e3:.4f} ms ({bound / per * 100:.1f}% of it); stencil "
+            f"kernels {prof.get('kernel_share', float('nan')) * 100:.1f}% of "
+            f"device time; peak {peak:.2f} GiB")
+        check(peak < 80, f"512^3 k={k} {name} peak {peak} GiB")
+        out[name] = {"ms_per_iter": per * 1e3, "bound_ms": bound * 1e3,
+                     "peak_gib": peak, "idle_share": idle, **prof}
+        del op, Bv, Xv, solvers
+        torch.cuda.empty_cache()
+    del B32
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_refine():
     """Every phase of the mixed-precision slice; returns the bf16 kernels'
     entries for the kernels record."""
     t0 = time.perf_counter()
     worst = phase_bf16_kernel_checks()
     times = {n: phase_bf16_kernel_times(n) for n in (128, 512)}
+    profile = phase_bf16_kernel_profile()
     t1 = time.perf_counter()
     inner_512 = phase_bf16_inner_512()
+    many_512 = phase_bf16_many_512()
     routes = phase_refine_routes()
     t2 = time.perf_counter()
     launches_dot, runs = phase_refine_cfg11()
@@ -2548,7 +2773,8 @@ def phase_refine():
         if name == "stencil7_dot_many_bf16":
             entries[-1]["dot_rel_err"] = worst["dot_many_rel"]
     return entries, {"cfg11": {f"{o} {p}": r for (o, p), r in runs.items()},
-                     "inner_512": inner_512, "edge_64": routes["edge"]}
+                     "inner_512": inner_512, "many_512": many_512,
+                     "kernel_profile_512": profile, "edge_64": routes["edge"]}
 
 
 def main():
@@ -2583,6 +2809,27 @@ def main():
         check(phase_kernel_checks() is not None, "kernel checks")
         launches_eps, _ = phase_eps()
         check(launches_eps > 0, "stencil7_apply never launched on the EPS path")
+        print(card_line())
+        return
+    if sys.argv[1:] == ["--kernels"]:
+        # every kernel's resources, against its plain version, and its
+        # times, no solve; e.g. to compare another checkout's csrc/ with this
+        # script copied beside it
+        phase_kernel_resources()
+        phase_kernel_checks()
+        phase_mg_kernel_checks()
+        phase_many_kernel_checks()
+        phase_bf16_kernel_checks()
+        times = {}
+        for n in (128, 512):
+            times[n] = phase_kernel_times(n)
+            times[n].update(phase_mg_kernel_times(n))
+            times[n].update(phase_many_kernel_times(n))
+            times[n].update(phase_bf16_kernel_times(n))
+        times[128]["stencil7_apply f64"] = phase_eps_apply_times()
+        phase_bf16_kernel_profile()
+        print(json.dumps({"kernel_ms": {n: {name: r["ms"] for name, r in t.items()}
+                                        for n, t in times.items()}}))
         print(card_line())
         return
     if sys.argv[1:] == ["--refine"]:

@@ -12,7 +12,8 @@
 //   stencil7_dot_many_{f32,f64}    -> stencil3d_dot_many_pallas (:620)
 //   stencil7_{apply,dot,apply_many,dot_many}_bf16 -> the bfloat16-storage
 //                                     instantiations of the same four TPU
-//                                     kernels (_compute_dtype :46)
+//                                     kernels (_compute_dtype :46); one kernel
+//                                     of its own, below
 //
 // All compute, on a z-slab u (lz, ny, nx) stored x-fastest,
 //   Au = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
@@ -55,24 +56,17 @@
 // the bound is the same k (2 n + 2 planes) bytes, and the march reads each
 // column's u about once.
 //
-// bfloat16 storage (the mixed-precision plan's inner solves) runs the same
-// march with an fp32 accumulator type: each loaded value is lifted with
-// __bfloat162float, the 7-term sum is formed in fp32 in the plain version's
-// order (6 u is exact in fp32 for a bf16 u, and no multiply meets an add, so
-// nothing contracts), and the result is rounded once with
-// __float2bfloat16_rn.  As on the TPU (pallas_stencil.py:237), the dot sums
-// u * Au in fp32 from the UNROUNDED fp32 Au, and its partials and total are
-// fp32.  For float and double the accumulator type is the storage type, and
-// lift/narrow are identities, so their code is unchanged.  The bf16 apply
-// moves 4 bytes a point against fp32's 8: the bound halves.
-//
-// This first design is simple and right.  Shared-memory plane tiling, TMA,
-// paired bf16 loads and fusing the CG update chain are left to later work.
+// This first design is simple and right.  Shared-memory plane tiling, TMA and
+// fusing the CG update chain are left to later work.  bfloat16 storage has a
+// kernel of its own (the last section): through this march, one 2-byte point
+// a thread would halve the bytes each load moves and double the instructions
+// a byte, so that kernel loads runs of 8 points as 16-byte vectors.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -85,32 +79,7 @@ constexpr int kSumThreads = 1024;
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-// The arithmetic type of a storage type: fp32 for bfloat16, else itself.
-template <typename T>
-struct AccOf {
-  using type = T;
-};
-template <>
-struct AccOf<__nv_bfloat16> {
-  using type = float;
-};
-template <typename T>
-using acc_t = typename AccOf<T>::type;
-
-// A stored value in the arithmetic type, and back (rounded to nearest even).
-__device__ __forceinline__ float lift(float v) { return v; }
-__device__ __forceinline__ double lift(double v) { return v; }
-__device__ __forceinline__ float lift(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T narrow(acc_t<T> v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Epilogues: the value stored at offset o from u there and Au = (A u)[o],
-// in the arithmetic type (only StoreAu is instantiated for bfloat16).
+// Epilogues: the value stored at offset o from u there and Au = (A u)[o].
 // Products go through mul_rn, so nvcc cannot contract them with the
 // following add into an FMA and every result rounds as the plain PyTorch
 // version's separate operations do.
@@ -175,18 +144,16 @@ Tiles make_tiles(int lz, int ny, int nx) {
 
 // The tiles (bx + i gx, blockIdx.y + i gridDim.y, bz + i gz) of one slab,
 // the grid of one single-slab launch being (gx, gridDim.y, gz); returns the
-// block's share of sum(u * Au) when kDot, in the arithmetic type A. The
-// tile loops depend on blockIdx only, so every thread of a block runs the
-// same trip counts and reaches the caller's block_sum.
+// block's share of sum(u * Au) when kDot. The tile loops depend on blockIdx
+// only, so every thread of a block runs the same trip counts and reaches the
+// caller's block_sum.
 template <typename T, bool kDot, bool kHalo, class Epilogue>
-__device__ __forceinline__ acc_t<T> march(const T* __restrict__ u,
-                                          const T* __restrict__ halo_lo,
-                                          const T* __restrict__ halo_hi, T* __restrict__ y,
-                                          int lz, int ny, int nx, int ntx, int nty, int ntz,
-                                          int bx, int gx, int bz, int gz, Epilogue epi) {
-  using A = acc_t<T>;
+__device__ __forceinline__ T march(const T* __restrict__ u, const T* __restrict__ halo_lo,
+                                   const T* __restrict__ halo_hi, T* __restrict__ y,
+                                   int lz, int ny, int nx, int ntx, int nty, int ntz,
+                                   int bx, int gx, int bz, int gz, Epilogue epi) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  A acc = A(0);
+  T acc = T(0);
   for (int tz = bz; tz < ntz; tz += gz) {
     for (int ty = blockIdx.y; ty < nty; ty += gridDim.y) {
       for (int tx = bx; tx < ntx; tx += gx) {
@@ -196,26 +163,24 @@ __device__ __forceinline__ acc_t<T> march(const T* __restrict__ u,
         const int64_t col = static_cast<int64_t>(yy) * nx + x;
         const int z0 = tz * kZC;
         const int z1 = min(z0 + kZC, lz);
-        A below = z0 == 0 ? (kHalo ? lift(halo_lo[col]) : A(0))
-                          : lift(u[(z0 - 1) * plane + col]);
-        A cur = lift(u[z0 * plane + col]);
+        T below = z0 == 0 ? (kHalo ? halo_lo[col] : T(0)) : u[(z0 - 1) * plane + col];
+        T cur = u[z0 * plane + col];
         for (int z = z0; z < z1; ++z) {
           const int64_t o = z * plane + col;
-          const A above = z == lz - 1 ? (kHalo ? lift(halo_hi[col]) : A(0))
-                                      : lift(u[o + plane]);
-          const A xm = x > 0 ? lift(u[o - 1]) : A(0);
-          const A xp = x < nx - 1 ? lift(u[o + 1]) : A(0);
-          const A ym = yy > 0 ? lift(u[o - nx]) : A(0);
-          const A yp = yy < ny - 1 ? lift(u[o + nx]) : A(0);
+          const T above = z == lz - 1 ? (kHalo ? halo_hi[col] : T(0)) : u[o + plane];
+          const T xm = x > 0 ? u[o - 1] : T(0);
+          const T xp = x < nx - 1 ? u[o + 1] : T(0);
+          const T ym = yy > 0 ? u[o - nx] : T(0);
+          const T yp = yy < ny - 1 ? u[o + nx] : T(0);
           // the plain version's order of operations, with no fused multiply-add
-          A v = mul_rn(A(6), cur);
+          T v = mul_rn(T(6), cur);
           v -= below;
           v -= above;
           v -= ym;
           v -= yp;
           v -= xm;
           v -= xp;
-          y[o] = narrow<T>(epi(cur, v, o));
+          y[o] = epi(cur, v, o);
           if (kDot) acc += cur * v;
           below = cur;
           cur = above;
@@ -230,13 +195,12 @@ template <typename T, bool kDot, bool kHalo, class Epilogue>
 __global__ void __launch_bounds__(kThreads)
 stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
                 const T* __restrict__ halo_hi, T* __restrict__ y,
-                acc_t<T>* __restrict__ partial, int lz, int ny, int nx,
+                T* __restrict__ partial, int lz, int ny, int nx,
                 int ntx, int nty, int ntz, Epilogue epi) {
-  const acc_t<T> acc = march<T, kDot, kHalo>(u, halo_lo, halo_hi, y, lz, ny, nx, ntx, nty,
-                                             ntz, blockIdx.x, gridDim.x, blockIdx.z,
-                                             gridDim.z, epi);
+  const T acc = march<T, kDot, kHalo>(u, halo_lo, halo_hi, y, lz, ny, nx, ntx, nty, ntz,
+                                      blockIdx.x, gridDim.x, blockIdx.z, gridDim.z, epi);
   if (kDot) {
-    const acc_t<T> s = block_sum(acc);
+    const T s = block_sum(acc);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
       partial[blockIdx.x + static_cast<int64_t>(gridDim.x) *
                                (blockIdx.y + static_cast<int64_t>(gridDim.y) * blockIdx.z)] = s;
@@ -255,18 +219,18 @@ template <typename T, bool kDot, bool kHalo>
 __global__ void __launch_bounds__(kThreads)
 stencil7_many_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
                      const T* __restrict__ halo_hi, T* __restrict__ y,
-                     acc_t<T>* __restrict__ partial, int lz, int ny, int nx,
+                     T* __restrict__ partial, int lz, int ny, int nx,
                      int ntx, int nty, int ntz, int gz) {
   const int j = static_cast<int>(blockIdx.z) / gz;
   const int bz = static_cast<int>(blockIdx.z) - j * gz;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t slab = plane * lz;
-  const acc_t<T> acc = march<T, kDot, kHalo>(
+  const T acc = march<T, kDot, kHalo>(
       u + j * slab, kHalo ? halo_lo + j * plane : nullptr,
       kHalo ? halo_hi + j * plane : nullptr, y + j * slab, lz, ny, nx, ntx, nty, ntz,
-      blockIdx.x, gridDim.x, bz, gz, StoreAu<acc_t<T>>{});
+      blockIdx.x, gridDim.x, bz, gz, StoreAu<T>{});
   if (kDot) {
-    const acc_t<T> s = block_sum(acc);
+    const T s = block_sum(acc);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
       const int64_t nblk = static_cast<int64_t>(gridDim.x) * gridDim.y * gz;
       partial[j * nblk + blockIdx.x +
@@ -310,32 +274,28 @@ int launch_apply(const void* u, const void* lo, const void* hi, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// partial and out hold the arithmetic type acc_t<T> (fp32 for bfloat16)
 template <typename T>
 int launch_dot(const void* u, const void* lo, const void* hi, void* y,
                void* partial, void* out, int lz, int ny, int nx, void* stream) {
-  using A = acc_t<T>;
   const Tiles t = make_tiles(lz, ny, nx);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stencil7_kernel<T, true, true, StoreAu<A>><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+  stencil7_kernel<T, true, true, StoreAu<T>><<<t.grid, dim3(kBX, kBY), 0, s>>>(
       static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<T*>(y), static_cast<A*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz,
-      StoreAu<A>{});
+      static_cast<T*>(y), static_cast<T*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz,
+      StoreAu<T>{});
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int64_t nblocks = static_cast<int64_t>(t.grid.x) * t.grid.y * t.grid.z;
-  sum_partials_kernel<A><<<1, kSumThreads, 0, s>>>(static_cast<const A*>(partial), nblocks,
-                                                   static_cast<A*>(out));
+  sum_partials_kernel<T><<<1, kSumThreads, 0, s>>>(static_cast<const T*>(partial), nblocks,
+                                                   static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// k slabs: Y = A U, and with kDot the per-column <u_j, A u_j> into out (k),
-// partial and out in acc_t<T>.  Null lo and hi select zero halos.
-// 1 <= k <= 65535 (the wrappers check).
+// k slabs: Y = A U, and with kDot the per-column <u_j, A u_j> into out (k).
+// Null lo and hi select zero halos.  1 <= k <= 65535 (the wrappers check).
 template <typename T, bool kDot>
 int launch_many(const void* u, const void* lo, const void* hi, void* y, void* partial,
                 void* out, int k, int lz, int ny, int nx, void* stream) {
-  using A = acc_t<T>;
   const Tiles t = make_tiles(lz, ny, nx);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned gz = t.grid.z * static_cast<unsigned>(k) <= 65535u
@@ -343,7 +303,7 @@ int launch_many(const void* u, const void* lo, const void* hi, void* y, void* pa
   const dim3 grid(t.grid.x, t.grid.y, gz * static_cast<unsigned>(k));
   const T* ut = static_cast<const T*>(u);
   T* yt = static_cast<T*>(y);
-  A* pt = static_cast<A*>(partial);
+  T* pt = static_cast<T*>(partial);
   if (lo != nullptr && hi != nullptr) {
     stencil7_many_kernel<T, kDot, true><<<grid, dim3(kBX, kBY), 0, s>>>(
         ut, static_cast<const T*>(lo), static_cast<const T*>(hi), yt, pt, lz, ny, nx,
@@ -355,7 +315,304 @@ int launch_many(const void* u, const void* lo, const void* hi, void* y, void* pa
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || !kDot) return err;
   const int64_t nblk = static_cast<int64_t>(t.grid.x) * t.grid.y * gz;
-  sum_partials_kernel<A><<<k, kSumThreads, 0, s>>>(pt, nblk, static_cast<A*>(out));
+  sum_partials_kernel<T><<<k, kSumThreads, 0, s>>>(pt, nblk, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bfloat16 storage: runs of kV points a thread -----------------------------
+//
+// One kernel for the four bf16 entry points: the batched apply and dot with k
+// columns, and the single-RHS pair as its k = 1 launches, so a column of a
+// batched launch and a single launch on it march the same tiles and write the
+// same partials (their A u and dot are bit-equal by construction, at every
+// shape).  The plane is cut by its flat index p = y nx + x: a block of
+// kRunThreads threads owns kRunPoints consecutive points of it (whole rows,
+// or several blocks a row), thread t the run p0 + t kV .. + kV - 1, and the
+// block marches up a chunk of zc planes.  Per plane a thread reads the run
+// above (loaded two or three planes ahead, kRing, so the next planes' loads
+// are in flight while it computes), the runs at y - 1 and y + 1 (rows of the
+// plane in use that neighbouring threads and blocks load, so L1 and L2 serve
+// them), and its two x neighbours from the neighbouring lanes by shuffles:
+// one point each, loaded only at the warp's two ends.  The z - 1 / z / z + 1
+// values stay in registers.  Two routes, chosen in the launcher
+// (stencil7_bf16_route):
+//   * "vec16": nx a multiple of kV and every pointer 16-byte aligned (then
+//     every column, halo plane and row is): one 16-byte load or store a run,
+//     which never leaves its row;
+//   * "elem": any other shape, such as (37, 45, 131), or a misaligned view:
+//     kV 2-byte loads a run, which may cross rows; each point's edges come
+//     from bit masks made once a tile.
+// Both compute the same sums in the same order, so they give the same bits.
+// The z-chunk zc (8, 4, 2 or 1 planes) is the longest that still gives
+// kRunTarget blocks for ONE slab (zc = 8 from 128^3 up, 1 at 64^3): it
+// depends on the shape alone, never on k.  k is grid z, so no cap on k
+// z-chunks is needed (k <= 65535, the wrappers check).
+//
+// Arithmetic: each point is lifted to fp32 (bits << 16, as __bfloat162float),
+// the sum is 6 u by __fmul_rn, then minus z-1, z+1, y-1, y+1, x-1, x+1 (the
+// plain version's order, a missing neighbour subtracting 0), rounded once to
+// bf16 (round to nearest even).  The dot sums u * Au from the UNROUNDED fp32
+// Au (pallas_stencil.py:237) with __fmaf_rn in a fixed order: per thread over
+// z and its run, then block_sum, one fp32 partial a block, and
+// sum_partials_kernel per column.  Bound: 4 bytes a point (read u, write Au).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kV = 8;                         // bf16 points a thread owns: 16 bytes
+constexpr int kRunThreads = 256;
+constexpr int kRunPoints = kV * kRunThreads;  // in-plane points a block owns
+// the least blocks of one slab the z-chunk is cut for; more, shorter marches
+// (512 or 1024) measured slower at 128^3 in tuning runs on the H100, and the
+// same at 512^3
+constexpr int kRunTarget = 128;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct RunTiles {
+  int64_t nch;    // run chunks a plane
+  int zc, ntz;    // planes a block marches, z-chunks a slab
+  dim3 grid;      // one slab's grid: x chunks, y z-chunks (the kernel loops past the caps)
+};
+
+RunTiles make_run_tiles(int lz, int ny, int nx) {
+  RunTiles t;
+  t.nch = (static_cast<int64_t>(ny) * nx - 1) / kRunPoints + 1;
+  t.zc = 8;
+  while (t.zc > 1 && t.nch * ((lz - 1) / t.zc + 1) < kRunTarget) t.zc /= 2;
+  t.ntz = (lz - 1) / t.zc + 1;
+  t.grid = dim3(static_cast<unsigned>(t.nch < 2147483647 ? t.nch : 2147483647),
+                static_cast<unsigned>(t.ntz < 65535 ? t.ntz : 65535), 1);
+  return t;
+}
+
+bool run_vec16(int nx, const void* u, const void* lo, const void* hi, const void* y) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(lo) |
+                         reinterpret_cast<uintptr_t>(hi) | reinterpret_cast<uintptr_t>(y);
+  return nx % kV == 0 && bits % 16 == 0;
+}
+
+// A run of kV stored points as it is loaded (through the read-only path: no
+// launch writes what it reads), lifted to fp32, and stored; m has bit i set
+// where point i exists (the vec16 route: all bits or none).
+template <bool kVec>
+struct RunIO;
+
+template <>
+struct RunIO<true> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ Raw load(const bf16* s, unsigned m) {
+    return m ? __ldg(reinterpret_cast<const uint4*>(s)) : zero();
+  }
+  static __device__ __forceinline__ void lift(const Raw& w, float (&v)[kV]) {
+    const unsigned q[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {          // point 2i is the low half of word i
+      v[2 * i] = __uint_as_float(q[i] << 16);
+      v[2 * i + 1] = __uint_as_float(q[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ unsigned pack2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    unsigned r;
+    memcpy(&r, &h, sizeof(r));
+    return r;
+  }
+  static __device__ __forceinline__ void store(bf16* d, const float (&v)[kV], unsigned m) {
+    if (m) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                                                pack2(v[4], v[5]), pack2(v[6], v[7]));
+    }
+  }
+};
+
+template <>
+struct RunIO<false> {
+  struct Raw {
+    bf16 e[kV];
+  };
+  static __device__ __forceinline__ Raw zero() {
+    Raw r;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) r.e[i] = __ushort_as_bfloat16(0);
+    return r;
+  }
+  static __device__ __forceinline__ Raw load(const bf16* s, unsigned m) {
+    Raw r = zero();
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (m >> i & 1u) r.e[i] = __ldg(s + i);
+    }
+    return r;
+  }
+  static __device__ __forceinline__ void lift(const Raw& w, float (&v)[kV]) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) v[i] = __bfloat162float(w.e[i]);
+  }
+  static __device__ __forceinline__ void store(bf16* d, const float (&v)[kV], unsigned m) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (m >> i & 1u) d[i] = __float2bfloat16_rn(v[i]);
+    }
+  }
+};
+
+// The run starting at in-plane point p over planes z0 .. z1-1 of one slab;
+// adds the run's share of sum(u * Au) to acc when kDot.  Every thread of the
+// block calls it with the same z0, z1 (the shuffles need the whole warp).
+template <bool kDot, bool kHalo, bool kVec>
+__device__ __forceinline__ void march_run(const bf16* __restrict__ u,
+                                          const bf16* __restrict__ halo_lo,
+                                          const bf16* __restrict__ halo_hi,
+                                          bf16* __restrict__ y, int lz, int ny, int nx,
+                                          int64_t p, int z0, int z1, float& acc) {
+  using IO = RunIO<kVec>;
+  using Raw = typename IO::Raw;
+  // runs above in flight: three for the apply, two for the dot, whose
+  // accumulator takes registers (the faster of 2, 3 and 4 for each in
+  // tuning runs on the H100; 4 was slower for both)
+  constexpr int kRing = kDot ? 2 : 3;
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  // bit i: point p + i lies in the plane (in), and has an x-1 (xm), x+1
+  // (xp), y-1 (ym), y+1 (yp) neighbour
+  unsigned in = 0, xm = 0, xp = 0, ym = 0, yp = 0;
+  if (p < plane) {
+    int64_t row = p / nx;
+    int x = static_cast<int>(p - row * nx);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (i > 0 && ++x == nx) {     // the elem route's runs may cross rows
+        x = 0;
+        ++row;
+      }
+      if (p + i < plane) {
+        in |= 1u << i;
+        xm |= static_cast<unsigned>(x > 0) << i;
+        xp |= static_cast<unsigned>(x < nx - 1) << i;
+        ym |= static_cast<unsigned>(row > 0) << i;
+        yp |= static_cast<unsigned>(row < ny - 1) << i;
+      }
+    }
+  }
+  // plane q's run: u, a halo plane, or none (zeros)
+  auto load = [&](int q) -> Raw {
+    const bf16* s = q < 0 ? (kHalo ? halo_lo + p : nullptr)
+                  : q >= lz ? (kHalo ? halo_hi + p : nullptr)
+                            : u + q * plane + p;
+    return s ? IO::load(s, in) : IO::zero();
+  };
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  float b[kV], c[kV];
+  IO::lift(load(z0 - 1), b);
+  IO::lift(load(z0), c);
+  // a ring of the runs above: slot s holds the plane step z0 + s (mod kRing)
+  // reads as z + 1, reloaded kRing planes ahead as soon as it is read.  The
+  // steps are unrolled by kRing, so the slots stay registers with no copies
+  // (a copy would wait for its load).
+  Raw ring[kRing];
+#pragma unroll
+  for (int s = 0; s < kRing; ++s) ring[s] = z0 + s < z1 ? load(z0 + 1 + s) : IO::zero();
+  for (int zb = z0; zb < z1; zb += kRing) {
+#pragma unroll
+    for (int s = 0; s < kRing; ++s) {
+      const int z = zb + s;
+      if (z >= z1) break;
+      float a[kV], vym[kV], vyp[kV];
+      IO::lift(ring[s], a);
+      ring[s] = z + kRing < z1 ? load(z + 1 + kRing) : IO::zero();
+      const bf16* uc = u + z * plane + p;
+      IO::lift(IO::load(uc - nx, ym), vym);
+      IO::lift(IO::load(uc + nx, yp), vyp);
+      // the x neighbours of the run's ends: the neighbouring lanes' end
+      // points, loaded where the warp ends
+      float xl = __shfl_up_sync(kFull, c[kV - 1], 1);
+      float xr = __shfl_down_sync(kFull, c[0], 1);
+      if (lane == 0 && (xm & 1u)) xl = __bfloat162float(__ldg(uc - 1));
+      if (lane == 31 && (xp >> (kV - 1) & 1u)) xr = __bfloat162float(__ldg(uc + kV));
+      float v[kV];
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        // on the vec16 route only a run's first and last points can miss an
+        // x neighbour
+        const bool has_l = (kVec && i > 0) || (xm >> i & 1u);
+        const bool has_r = (kVec && i < kV - 1) || (xp >> i & 1u);
+        float t = __fmul_rn(6.0f, c[i]);
+        t -= b[i];
+        t -= a[i];
+        t -= vym[i];
+        t -= vyp[i];
+        t -= has_l ? (i == 0 ? xl : c[i - 1]) : 0.0f;
+        t -= has_r ? (i == kV - 1 ? xr : c[i + 1]) : 0.0f;
+        v[i] = t;
+        if (kDot) acc = __fmaf_rn(c[i], t, acc);
+      }
+      IO::store(y + z * plane + p, v, in);
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        b[i] = c[i];
+        c[i] = a[i];
+      }
+    }
+  }
+}
+
+// Y = A U for k slabs (grid z = column j), the dot's per-block partial into
+// partial[j nblk + block], nblk = gridDim.x gridDim.y: one stencil7_dot_bf16
+// launch's layout for each column.
+template <bool kDot, bool kHalo, bool kVec>
+__global__ void __launch_bounds__(kRunThreads)
+stencil7_run_kernel(const bf16* __restrict__ u, const bf16* __restrict__ halo_lo,
+                    const bf16* __restrict__ halo_hi, bf16* __restrict__ y,
+                    float* __restrict__ partial, int lz, int ny, int nx, int64_t nch,
+                    int zc, int ntz) {
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const int64_t j = blockIdx.z;
+  u += j * plane * lz;
+  y += j * plane * lz;
+  if (kHalo) {
+    halo_lo += j * plane;
+    halo_hi += j * plane;
+  }
+  float acc = 0.0f;
+  for (int tz = blockIdx.y; tz < ntz; tz += gridDim.y) {
+    const int z0 = tz * zc, z1 = min(z0 + zc, lz);
+    for (int64_t ch = blockIdx.x; ch < nch; ch += gridDim.x) {
+      march_run<kDot, kHalo, kVec>(u, halo_lo, halo_hi, y, lz, ny, nx,
+                                   ch * kRunPoints + static_cast<int64_t>(threadIdx.x) * kV,
+                                   z0, z1, acc);
+    }
+  }
+  if (kDot) {
+    const float s = block_sum(acc);
+    if (threadIdx.x == 0) {
+      partial[j * gridDim.x * gridDim.y + blockIdx.x +
+              static_cast<int64_t>(gridDim.x) * blockIdx.y] = s;
+    }
+  }
+}
+
+// k bf16 slabs: Y = A U and, with kDot, out[j] = <u_j, A u_j> (fp32 partial
+// and out).  Null lo and hi select zero halos.  1 <= k <= 65535.
+template <bool kDot>
+int launch_run(const void* u, const void* lo, const void* hi, void* y, void* partial,
+               void* out, int k, int lz, int ny, int nx, void* stream) {
+  using Kernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, float*, int, int, int,
+                          int64_t, int, int);
+  const RunTiles t = make_run_tiles(lz, ny, nx);
+  const bool vec = run_vec16(nx, u, lo, hi, y);
+  const Kernel kernel = lo != nullptr && hi != nullptr
+                            ? (vec ? stencil7_run_kernel<kDot, true, true>
+                                   : stencil7_run_kernel<kDot, true, false>)
+                            : (vec ? stencil7_run_kernel<kDot, false, true>
+                                   : stencil7_run_kernel<kDot, false, false>);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(t.grid.x, t.grid.y, static_cast<unsigned>(k)), kRunThreads, 0, s>>>(
+      static_cast<const bf16*>(u), static_cast<const bf16*>(lo), static_cast<const bf16*>(hi),
+      static_cast<bf16*>(y), static_cast<float*>(partial), lz, ny, nx, t.nch, t.zc, t.ntz);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || !kDot) return err;
+  const int64_t nblk = static_cast<int64_t>(t.grid.x) * t.grid.y;
+  sum_partials_kernel<float><<<k, kSumThreads, 0, s>>>(static_cast<const float*>(partial), nblk,
+                                                       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -460,28 +717,39 @@ int stencil7_dot_many_f64(const void* u, const void* lo, const void* hi, void* y
   return launch_many<double, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
 }
 
-// The bfloat16-storage instantiations: bf16 u, halos and Au, fp32
-// arithmetic, and (the dots) fp32 partial and out.
+// The bfloat16-storage entry points: bf16 u, halos and Au, fp32 arithmetic,
+// fp32 partial and out.  The single-RHS pair is the k = 1 launch of the
+// batched kernel; stencil7_dot_blocks_bf16 sizes their partial scratch.
+long long stencil7_dot_blocks_bf16(int lz, int ny, int nx) {
+  const RunTiles t = make_run_tiles(lz, ny, nx);
+  return static_cast<long long>(t.grid.x) * t.grid.y;
+}
+
+// 1 when a bf16 launch on these pointers takes the vec16 route, 0 for elem
+int stencil7_bf16_route(int nx, const void* u, const void* lo, const void* hi, const void* y) {
+  return run_vec16(nx, u, lo, hi, y) ? 1 : 0;
+}
+
 int stencil7_apply_bf16(const void* u, const void* lo, const void* hi, void* y,
                         int lz, int ny, int nx, void* stream) {
-  return launch_apply<__nv_bfloat16>(u, lo, hi, y, lz, ny, nx, stream, StoreAu<float>{});
+  return launch_run<false>(u, lo, hi, y, nullptr, nullptr, 1, lz, ny, nx, stream);
 }
 
 int stencil7_dot_bf16(const void* u, const void* lo, const void* hi, void* y,
                       void* partial, void* out, int lz, int ny, int nx, void* stream) {
-  return launch_dot<__nv_bfloat16>(u, lo, hi, y, partial, out, lz, ny, nx, stream);
+  return launch_run<true>(u, lo, hi, y, partial, out, 1, lz, ny, nx, stream);
 }
 
 int stencil7_apply_many_bf16(const void* u, const void* lo, const void* hi, void* y,
                              int k, int lz, int ny, int nx, void* stream) {
-  return launch_many<__nv_bfloat16, false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx,
-                                           stream);
+  return launch_run<false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx, stream);
 }
 
+// partial holds k * stencil7_dot_blocks_bf16(lz, ny, nx)
 int stencil7_dot_many_bf16(const void* u, const void* lo, const void* hi, void* y,
                            void* partial, void* out, int k, int lz, int ny, int nx,
                            void* stream) {
-  return launch_many<__nv_bfloat16, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
+  return launch_run<true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
 }
 
 }  // extern "C"

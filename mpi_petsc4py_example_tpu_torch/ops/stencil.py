@@ -38,8 +38,10 @@ are single-slab passes with zero Dirichlet ghosts on every side. The two
 ``(k, ny, nx)`` (or ``None`` for both) in one launch: the batched solve's
 apply and its fused per-column ``<u_j, A u_j>``.
 The first five kernels and the two ``_many`` kernels are in
-``csrc/stencil7.cu`` (one kernel with an epilogue per function), the two that
-need two-deep z neighbourhoods in ``csrc/mg3d.cu``.
+``csrc/stencil7.cu`` (one kernel with an epilogue per function; the four
+bfloat16 instantiations are one kernel of their own, whose single-RHS pair
+is its k = 1 launch, on a 16-byte or an element route, :func:`bf16_route`),
+the two that need two-deep z neighbourhoods in ``csrc/mg3d.cu``.
 
 Dispatch is by the device of ``u`` alone: a CPU tensor goes through the plain
 PyTorch version beside each kernel, a CUDA tensor launches the kernel or
@@ -109,8 +111,11 @@ def _kernels(name: str = "stencil7") -> ctypes.CDLL:
         err.argtypes = [_CI]
         err.restype = ctypes.c_char_p
         if name == "stencil7":
-            lib.stencil7_dot_blocks.argtypes = [_CI, _CI, _CI]
-            lib.stencil7_dot_blocks.restype = ctypes.c_longlong
+            for fn in (lib.stencil7_dot_blocks, lib.stencil7_dot_blocks_bf16):
+                fn.argtypes = [_CI, _CI, _CI]
+                fn.restype = ctypes.c_longlong
+            lib.stencil7_bf16_route.argtypes = [_CI] + [_VP] * 4
+            lib.stencil7_bf16_route.restype = _CI
         _libs[name] = lib
     return lib
 
@@ -185,6 +190,26 @@ def _count(wrapper, dtype):
     wrapper.launches += 1
     if dtype == torch.bfloat16:
         wrapper.launches_bf16 += 1
+
+
+def _dot_partials(lib, dtype, k, lz, ny, nx) -> int:
+    """Length of the partial-sum scratch of a dot launch on ``k`` slabs of
+    ``(lz, ny, nx)``: ``k`` times one slab's blocks, whose tiling is the
+    bfloat16 kernel's own under bfloat16 (``lib`` is the loaded
+    ``stencil7`` library)."""
+    blocks = (lib.stencil7_dot_blocks_bf16 if dtype == torch.bfloat16
+              else lib.stencil7_dot_blocks)
+    return k * blocks(lz, ny, nx)
+
+
+def bf16_route(u, halo_lo, halo_hi, out) -> str:
+    """The route a bfloat16 launch on these CUDA tensors takes
+    (``stencil7_bf16_route``): ``"vec16"``, 16-byte runs, when ``nx`` is a
+    multiple of 8 and every pointer 16-byte aligned; else ``"elem"``."""
+    vec = _kernels().stencil7_bf16_route(u.shape[-1], u.data_ptr(),
+                                         _ptr(halo_lo), _ptr(halo_hi),
+                                         out.data_ptr())
+    return "vec16" if vec else "elem"
 
 
 def _out(u, out, shape=None):
@@ -350,7 +375,7 @@ def stencil3d_dot(u, halo_lo, halo_hi, out=None):
     # per-block partials, summed in a fixed order by the library's second
     # kernel: no float atomics, so the sum is the same on every run
     acc = reduce_dtype(u.dtype)
-    partial = torch.empty(_kernels().stencil7_dot_blocks(lz, ny, nx),
+    partial = torch.empty(_dot_partials(_kernels(), u.dtype, 1, lz, ny, nx),
                           dtype=acc, device=u.device)
     total = torch.empty((), dtype=acc, device=u.device)
     _launch("stencil7", "stencil7_dot", u, "stencil7_dot launch",
@@ -481,7 +506,7 @@ def stencil3d_dot_many(U, halo_lo, halo_hi, out=None):
         return (Y if out is None else out.copy_(Y)), d
     Y = _out(U, out)
     acc = reduce_dtype(U.dtype)
-    partial = torch.empty(k * _kernels().stencil7_dot_blocks(lz, ny, nx),
+    partial = torch.empty(_dot_partials(_kernels(), U.dtype, k, lz, ny, nx),
                           dtype=acc, device=U.device)
     dots = torch.empty(k, dtype=acc, device=U.device)
     _launch("stencil7", "stencil7_dot_many", U, "stencil7_dot_many launch",
