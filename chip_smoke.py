@@ -59,10 +59,21 @@ before each and read just after:
   k = 8, fast path and general route; 64^3 single-RHS, where bf16
   refinement is at the edge of contraction); and cfg11 of
   ``benchmarks/run_all.py`` at 128^3 (inner bf16/f32/f64 on the stencil and
-  on the assembled Mat, rtol 1e-10, against scipy's fp64 CG).
+  on the assembled Mat, rtol 1e-10, against scipy's fp64 CG);
+* the direct solves past the dense cap (no kernel of their own: the cyclic
+  reduction sweeps and the set-up inverses are torch operations): PC lu in
+  the ``crtri`` mode on the 1D Laplacian at n = 2^20 and the ``test2.py``
+  family at n = 100,000, in the ``crband`` mode on a pentadiagonal at n =
+  2^20 set up on the card and on the host, bandwidth 8 at n = 100,000, a
+  randomly permuted 160^2 Poisson through RCM and a refined f32 case, each
+  fp64 relres <= 1e-10 (f32: 5e-6) and each apply timed against its bytes
+  bound with its torch operations; PC sor/ssor/ilu/icc/asm under GMRES(30) on 4
+  shards; cfg4 and the dense lu above run their PC set-up on the card
+  (``-pc_setup_device auto``) and on the host (``0``).
 
 ``python3 chip_smoke.py --refine`` builds the kernels and runs only the
-mixed-precision phases. ``python3 chip_smoke.py --kernels`` builds the
+mixed-precision phases. ``python3 chip_smoke.py --direct`` runs only the
+direct-solve phases, cfg4, the ``test.py`` flow and the dense lu. ``python3 chip_smoke.py --kernels`` builds the
 kernels, prints each one's registers and spills (ptxas), checks every one
 against its plain version and times it, and solves nothing.
 ``python3 chip_smoke.py --eps`` builds the kernels, checks them and runs
@@ -1679,7 +1690,8 @@ def phase_aij_cfg4(nx=256):
     """cfg4 (benchmarks/run_all.py:521-549): BiCGStab + block Jacobi on
     256^2 convection-diffusion (beta 0.4), f32, rtol 1e-6, the gate with
     the benchmark's margin 0.5; the auto-split gives 32 blocks of 2048,
-    inverted on the host."""
+    inverted on the card under -pc_setup_device auto and on the host under
+    0, one solve each."""
     import torch
     import mpi_petsc4py_example_tpu_torch as pt
     from mpi_petsc4py_example_tpu_torch.models.generators import convdiff2d
@@ -1689,35 +1701,46 @@ def phase_aij_cfg4(nx=256):
     b = manufactured(A)
     m, assembly = assemble(comm, A, torch.float32)
     bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
-    ksp = aij_ksp(comm, m, "bcgs", "bjacobi", rtol, gate=True, margin=0.5)
-    t0 = time.perf_counter()
-    ksp.set_up()
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    pc = ksp.get_pc()
-    blocks = tuple(pc._arrays[0].shape)
-    x, _ = m.get_vecs()
-    first = ksp.solve(bv, x)
-    res = ksp.solve(bv, x)
-    rel = true_relres(A, x.to_numpy(), b)
-    apply = pc.local_apply(comm, A.shape[0])
-    r = torch.rand(1, A.shape[0], device=comm.device)
-    ms = device_ms(lambda: apply(r), inner=10)
-    bound = (pc._arrays[0].numel() + 2 * A.shape[0]) * 4 / HBM_BYTES_PER_S
-    log(f"cfg4 {nx}^2 f32 BCGS+bjacobi gate(0.5): {res.iterations} "
-        f"iterations, {res.reason_name}, re-entries {ksp._last_reentries}, "
-        f"fp64 true rel residual {rel:.3e}, wall {res.wall_time * 1e3:.2f} ms"
-        f" ({res.wall_time / res.iterations * 1e3:.4f} ms/iter; first solve "
-        f"{first.wall_time * 1e3:.1f} ms), host syncs {res.host_syncs}, PC "
-        f"setup {setup:.3f} s (mode {pc.setup_mode}, blocks {blocks}), "
-        f"assembly {assembly:.3f} s {m.assembly_breakdown}; bjacobi apply "
-        f"{ms:.4f} ms vs bound {bound * 1e3:.4f} ms")
-    check(pc.setup_mode == "host"
-          and (nx != 256 or blocks == (32, 2048, 2048)),
-          f"cfg4 PC set-up {pc.setup_mode} {blocks}")
-    check(res.converged and rel <= 1.05 * rtol, f"cfg4: {res}, {rel}")
-    return {"iterations": res.iterations, "true_relres": rel,
-            "pc_setup_s": setup, "reentries": ksp._last_reentries}
+    out = {}
+    for placement, mode in (("auto", "device"), ("0", "host")):
+        ksp = aij_ksp(comm, m, "bcgs", "bjacobi", rtol, gate=True,
+                      margin=0.5)
+        pc = ksp.get_pc()
+        pc.setup_device = placement
+        t0 = time.perf_counter()
+        ksp.set_up()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        blocks = tuple(pc._arrays[0].shape)
+        x, _ = m.get_vecs()
+        first = ksp.solve(bv, x)
+        res = ksp.solve(bv, x)
+        rel = true_relres(A, x.to_numpy(), b)
+        apply = pc.local_apply(comm, A.shape[0])
+        r = torch.rand(1, A.shape[0], device=comm.device)
+        ms = device_ms(lambda: apply(r), inner=10)
+        bound = (pc._arrays[0].numel() + 2 * A.shape[0]) * 4 \
+            / HBM_BYTES_PER_S
+        log(f"cfg4 {nx}^2 f32 BCGS+bjacobi gate(0.5), -pc_setup_device "
+            f"{placement}: {res.iterations} iterations, {res.reason_name}, "
+            f"re-entries {ksp._last_reentries}, fp64 true rel residual "
+            f"{rel:.3e}, wall {res.wall_time * 1e3:.2f} ms "
+            f"({res.wall_time / res.iterations * 1e3:.4f} ms/iter; first "
+            f"solve {first.wall_time * 1e3:.1f} ms), host syncs "
+            f"{res.host_syncs}, PC setup {setup:.3f} s (mode "
+            f"{pc.setup_mode} {pc.setup_breakdown}, blocks {blocks}), "
+            f"assembly {assembly:.3f} s {m.assembly_breakdown}; bjacobi "
+            f"apply {ms:.4f} ms vs bound {bound * 1e3:.4f} ms")
+        check(pc.setup_mode == mode
+              and (nx != 256 or blocks == (32, 2048, 2048)),
+              f"cfg4 PC set-up {placement}: {pc.setup_mode} {blocks}")
+        check(res.converged and rel <= 1.05 * rtol,
+              f"cfg4 ({placement}): {res}, {rel}")
+        out[placement] = {"iterations": res.iterations, "true_relres": rel,
+                          "pc_setup_s": setup,
+                          "breakdown": pc.setup_breakdown,
+                          "reentries": ksp._last_reentries}
+    return out
 
 
 def phase_aij_many(nx=256, k=K_BATCH):
@@ -1773,7 +1796,8 @@ def phase_aij_reference_flow(n_dense=4096):
     """The reference test.py flow through the port's runner and facade on
     the card (-n 1 and -n 4, preonly + lu + 'mumps', must print True); then
     a dense direct solve in f64 at n = 4096 (random_system(4096, seed 42,
-    density 0.01), preonly + lu) with np.allclose(x, X)."""
+    density 0.01), preonly + lu) with np.allclose(x, X), set up on the card
+    (-pc_setup_device auto) and on the host (0)."""
     import torch
     import mpi_petsc4py_example_tpu_torch as pt
     from mpi_petsc4py_example_tpu_torch.models.generators import random_system
@@ -1795,28 +1819,38 @@ def phase_aij_reference_flow(n_dense=4096):
     A, X, B = random_system(n_dense, seed=42, density=0.01)
     comm = pt.DeviceComm()
     m, assembly = assemble(comm, A, torch.float64)
-    ksp = pt.KSP().create(comm)
-    ksp.set_operators(m)
-    ksp.set_type("preonly")
-    ksp.get_pc().set_type("lu")
-    ksp.get_pc().set_factor_solver_type("mumps")
-    t0 = time.perf_counter()
-    ksp.set_up()
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    x, b = m.get_vecs()
-    b.set_global(B)
-    res = ksp.solve(b, x)
-    ok = bool(np.allclose(x.to_numpy(), X))
-    err = float(np.abs(x.to_numpy() - X).max())
-    log(f"dense direct f64 n={n_dense}: route {m.spmv_route(comm)}, lu mode "
-        f"{ksp.get_pc().kind}, PC setup {setup:.3f} s "
-        f"({ksp.get_pc().setup_mode}), solve {res.wall_time * 1e3:.2f} ms "
-        f"(host syncs {res.host_syncs}, refinement included), residual "
-        f"{res.residual_norm:.3e}, max|x - X| {err:.3e}, allclose {ok}, "
-        f"assembly {assembly:.3f} s")
-    check(ok, f"n={n_dense} direct solve: np.allclose(x, X) is False")
-    return {"pc_setup_s": setup, "solve_s": res.wall_time, "max_err": err}
+    runs = {}
+    for placement, mode in (("auto", "device"), ("0", "host")):
+        ksp = pt.KSP().create(comm)
+        ksp.set_operators(m)
+        ksp.set_type("preonly")
+        pc = ksp.get_pc()
+        pc.set_type("lu")
+        pc.set_factor_solver_type("mumps")
+        pc.setup_device = placement
+        t0 = time.perf_counter()
+        ksp.set_up()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        x, b = m.get_vecs()
+        b.set_global(B)
+        res = ksp.solve(b, x)
+        ok = bool(np.allclose(x.to_numpy(), X))
+        err = float(np.abs(x.to_numpy() - X).max())
+        log(f"dense direct f64 n={n_dense}, -pc_setup_device {placement}: "
+            f"route {m.spmv_route(comm)}, lu mode {pc.kind}, PC setup "
+            f"{setup:.3f} s ({pc.setup_mode} {pc.setup_breakdown}), solve "
+            f"{res.wall_time * 1e3:.2f} ms (host syncs {res.host_syncs}, "
+            f"refinement included), residual {res.residual_norm:.3e}, "
+            f"max|x - X| {err:.3e}, allclose {ok}, assembly {assembly:.3f} s")
+        check(pc.kind == "lu" and pc.setup_mode == mode,
+              f"n={n_dense} lu set-up {placement}: {pc.kind} "
+              f"{pc.setup_mode}")
+        check(ok, f"n={n_dense} direct solve ({placement}): "
+                  "np.allclose(x, X) is False")
+        runs[placement] = {"pc_setup_s": setup, "solve_s": res.wall_time,
+                          "max_err": err, "breakdown": pc.setup_breakdown}
+    return runs
 
 
 # ---- the eigensolver slice (EPS Krylov-Schur, ST) -----------------------------
@@ -2777,6 +2811,237 @@ def phase_refine():
                      "kernel_profile_512": profile, "edge_64": routes["edge"]}
 
 
+# ---- the direct solves past the dense cap, PC set-up on the card, block PCs ---
+
+DIRECT_RTOL = 1e-10     # tests/test_tridiag.py's and test_bpcr_device.py's
+
+
+def apply_operations(fn):
+    """The torch operations one ``fn()`` call runs that launch work on the
+    device (views excluded), counted at the dispatcher: one launch each,
+    except that cuBLAS may split a large batched product into several.
+    (``torch.profiler``'s kernel count was exact as the first profiler
+    session of a process and undercounted after the earlier phases'.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def cr_apply_record(pc, comm, n):
+    """The cyclic-reduction apply of a set-up PC lu on a random vector:
+    device ms (CUDA events), the bytes bound (every sweep array, the
+    reduced diagonal or its block inverses, the rhs read once and the
+    solution written once, over the HBM rate; the operations, 2 multiply-adds
+    per coefficient, are far below the fp64 rate), and the torch operations
+    one apply runs (3 S + 1)."""
+    import torch
+    arrs = pc._arrays
+    item = arrs[0].element_size()
+    nbytes = sum(a.numel() for a in arrs[:3]) * item + 2 * n * item
+    nbytes += sum(a.numel() * a.element_size() for a in arrs[3:])
+    apply = pc.local_apply(comm, n)
+    r = torch.rand(comm.size, comm.local_size(n), device=comm.device,
+                   dtype=arrs[0].dtype)
+    return {"ms": device_ms(lambda: apply(r), inner=5, reps=11),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": apply_operations(lambda: apply(r)),
+            "sweeps": int(arrs[0].shape[0])}
+
+
+def direct_solve(comm, A, dtype, placement="auto", pc_type="lu"):
+    """preonly + PC lu on ``A`` (b = A x, x from default_rng(11)): the PC
+    set-up seconds (synced), the first and a warm solve, the warm one's fp64
+    true relative residual on the host, and the PC."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    x_true = np.random.default_rng(11).random(A.shape[0])
+    b = (A @ x_true).astype(dtype)
+    m, _ = assemble(comm, A, torch.float64 if dtype == np.float64
+                    else torch.float32)
+    ksp = pt.KSP().create(comm)
+    ksp.set_operators(m)
+    ksp.set_type("preonly")
+    pc = ksp.get_pc()
+    pc.set_type(pc_type)
+    pc.set_factor_solver_type("mumps")
+    pc.setup_device = placement
+    t0 = time.perf_counter()
+    ksp.set_up()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    x, bv = m.get_vecs()
+    bv.set_global(b)
+    first = ksp.solve(bv, x)
+    res = ksp.solve(bv, x)
+    rel = true_relres(A, x.to_numpy(), b)
+    return {"setup_s": setup, "solve_ms": res.wall_time * 1e3,
+            "first_solve_ms": first.wall_time * 1e3,
+            "refine_steps": res.host_syncs - 1, "true_relres": rel,
+            "mode": pc.kind, "setup_mode": pc.setup_mode,
+            "breakdown": pc.setup_breakdown, "arrays": len(pc._arrays),
+            "converged": res.converged}, pc, m
+
+
+def log_direct(label, r, apply=None):
+    log(f"{label}: mode {r['mode']}, {r['arrays']} arrays, set-up "
+        f"{r['setup_s']:.3f} s ({r['setup_mode']} {r['breakdown']}), warm "
+        f"solve {r['solve_ms']:.2f} ms (first {r['first_solve_ms']:.2f}) "
+        f"with {r['refine_steps']} refinement steps, "
+        f"fp64 true rel residual {r['true_relres']:.3e}"
+        + ("" if apply is None else
+           f"; apply {apply['ms']:.4f} ms vs bound {apply['bound_ms']:.4f} "
+           f"ms ({apply['bound_ms'] / apply['ms'] * 100:.1f}%), "
+           f"{apply['operations']} torch operations, S = "
+           f"{apply['sweeps']}"))
+
+
+def laplace1d(n):
+    import scipy.sparse as sp
+    return sp.diags([np.full(n - 1, -1.0), np.full(n, 2.0),
+                     np.full(n - 1, -1.0)], [-1, 0, 1], format="csr")
+
+
+def pentadiag(n, d1=-1.0, d2=-0.5, main=4.0):
+    import scipy.sparse as sp
+    return sp.diags([np.full(n - 2, d2), np.full(n - 1, d1), np.full(n, main),
+                     np.full(n - 1, d1), np.full(n - 2, d2)],
+                    [-2, -1, 0, 1, 2], format="csr")
+
+
+def phase_direct_crtri(n_lap=1 << 20, n_test2=100_000):
+    """PC lu in the crtri mode (parallel cyclic reduction), fp64, preonly,
+    -pc_setup_device auto: the 1D Laplacian at n = 2^20 and the test2.py
+    family at n = 100,000 (tests/test_tridiag.py:116-143), relres <= 1e-10;
+    the apply against its bytes bound, with its operations (3 S + 1)."""
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.models.generators import tridiag_family
+    comm = pt.DeviceComm()
+    out = {}
+    for label, A in ((f"laplace1d n={n_lap}", laplace1d(n_lap)),
+                     (f"test2 family n={n_test2}", tridiag_family(n_test2))):
+        r, pc, _ = direct_solve(comm, A, np.float64)
+        apply = cr_apply_record(pc, comm, A.shape[0])
+        log_direct(f"crtri {label} f64", r, apply)
+        check(r["mode"] == "crtri" and r["true_relres"] <= DIRECT_RTOL,
+              f"crtri {label}: {r}")
+        out[label] = dict(r, apply=apply)
+    return out
+
+
+def phase_direct_crband(n_penta=1 << 20, n_band=100_000, nx_rcm=160,
+                        n_f32=17_000):
+    """PC lu in the crband mode (block cyclic reduction): pentadiagonal at n =
+    2^20 set up on the card (auto) and on the host (0) in one call;
+    bandwidth 8 at n = 100,000; a randomly permuted 160^2 2D Poisson through
+    RCM (5 arrays); all fp64, relres <= 1e-10; then the n = 17,000
+    pentadiagonal in f32 with preonly's refinement, relres <= 5e-6
+    (tests/test_tridiag.py:189-221, tests/test_bpcr_device.py:128-134)."""
+    import scipy.sparse as sp
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson2d_csr
+    comm = pt.DeviceComm()
+    out = {}
+    A = pentadiag(n_penta)
+    for placement, mode in (("auto", "device"), ("0", "host")):
+        r, pc, _ = direct_solve(comm, A, np.float64, placement)
+        apply = cr_apply_record(pc, comm, A.shape[0]) \
+            if placement == "auto" else None
+        log_direct(f"crband pentadiagonal n={n_penta} f64, "
+                   f"-pc_setup_device {placement}", r, apply)
+        check(r["mode"] == "crband" and r["setup_mode"] == mode
+              and r["true_relres"] <= DIRECT_RTOL,
+              f"crband n={n_penta} ({placement}): {r}")
+        out[f"penta {n_penta} {placement}"] = dict(r, apply=apply)
+    del A, pc
+    rng = np.random.default_rng(13)
+    n = n_band
+    offs = [o for o in range(-8, 9) if o != 0]
+    cases = [(f"bandwidth 8 n={n}", (sp.diags(
+        [0.1 * (rng.random(n - abs(o)) - 0.5) for o in offs], offs)
+        + 3.0 * sp.eye(n)).tocsr(), 3)]
+    P = poisson2d_csr(nx_rcm).tocsr()
+    p = np.random.default_rng(2).permutation(P.shape[0])
+    cases.append((f"permuted poisson2d {nx_rcm}^2 via RCM", P[p][:, p].tocsr(),
+                  5))
+    for label, A, narrays in cases:
+        r, pc, _ = direct_solve(comm, A, np.float64)
+        apply = cr_apply_record(pc, comm, A.shape[0])
+        log_direct(f"crband {label} f64", r, apply)
+        check(r["mode"] == "crband" and r["arrays"] == narrays
+              and r["setup_mode"] == "device"
+              and r["true_relres"] <= DIRECT_RTOL, f"crband {label}: {r}")
+        out[label] = dict(r, apply=apply, band=int(pc._arrays[0].shape[-1]))
+    A = pentadiag(n_f32)
+    r, _, _ = direct_solve(comm, A, np.float32)
+    log_direct(f"crband pentadiagonal n={n_f32} f32 (refined)", r)
+    check(r["mode"] == "crband" and r["setup_mode"] == "device"
+          and r["true_relres"] <= 5e-6, f"crband f32: {r}")
+    out[f"penta {n_f32} f32"] = r
+    return out
+
+
+def phase_block_pcs(nx=64, ndev=4):
+    """PC sor/ssor/ilu/icc/asm under GMRES(30), f32, rtol 1e-6, on 4 virtual
+    shards of a 64^2 2D Poisson and of cfg4's convection-diffusion at 64^2
+    (beta 0.4): iterations, reason and the fp64 true relres, each
+    converged."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.models.generators import convdiff2d
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson2d_csr
+    rtol = 1e-6
+    comm = pt.DeviceComm(ndev)
+    out = {}
+    for name, A in (("poisson2d", poisson2d_csr(nx)),
+                    ("cfg4", convdiff2d(nx, beta=0.4))):
+        b = manufactured(A)
+        m, _ = assemble(comm, A, torch.float32)
+        bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
+        for pc_type in ("sor", "ssor", "ilu", "icc", "asm"):
+            ksp = aij_ksp(comm, m, "gmres", pc_type, rtol)
+            t0 = time.perf_counter()
+            ksp.set_up()
+            setup = time.perf_counter() - t0
+            x, _ = m.get_vecs()
+            res = ksp.solve(bv, x)
+            rel = true_relres(A, x.to_numpy(), b)
+            log(f"block PC {pc_type} on {name} {nx}^2 f32, {ndev} shards, "
+                f"GMRES(30): {res.iterations} iterations, {res.reason_name}, "
+                f"fp64 true rel residual {rel:.3e}, set-up {setup:.3f} s, "
+                f"solve {res.wall_time * 1e3:.2f} ms")
+            check(res.converged and rel <= 10 * rtol,
+                  f"{pc_type} on {name}: {res}, {rel}")
+            out[f"{pc_type} {name}"] = {"iterations": res.iterations,
+                                        "reason": res.reason_name,
+                                        "true_relres": rel}
+    return out
+
+
+def phase_direct():
+    """Every phase of the direct-solve and PC set-up slice (no kernel of its
+    own: its sweeps and inverses are torch operations)."""
+    t0 = time.perf_counter()
+    crtri = phase_direct_crtri()
+    t1 = time.perf_counter()
+    crband = phase_direct_crband()
+    t2 = time.perf_counter()
+    blocks = phase_block_pcs()
+    log(f"direct-solve phases: {time.perf_counter() - t0:.1f} s (crtri "
+        f"{t1 - t0:.1f} s, crband {t2 - t1:.1f} s, block PCs "
+        f"{time.perf_counter() - t2:.1f} s)")
+    return {"crtri": crtri, "crband": crband, "block_pcs": blocks}
+
+
 def main():
     try:
         import torch
@@ -2832,6 +3097,15 @@ def main():
                                         for n, t in times.items()}}))
         print(card_line())
         return
+    if sys.argv[1:] == ["--direct"]:
+        # only the direct-solve and PC set-up slice's phases, with the two
+        # assembled cells whose set-up it moves to the card
+        direct = phase_direct()
+        direct["cfg4"] = phase_aij_cfg4()
+        direct["dense_lu"] = phase_aij_reference_flow()
+        print(json.dumps({"direct": direct}))
+        print(card_line())
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -2874,6 +3148,8 @@ def main():
     launches_eps, apply_f64 = phase_eps()
     # the mixed-precision slice: the bfloat16 instantiations of four kernels
     bf16_entries, _ = phase_refine()
+    # the direct solves past the dense cap and the block PCs: no kernel
+    phase_direct()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -340,7 +340,8 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
                                                "pmatdot": _pmatdot(comm)}),
                       # refinement is for the direct factorizations only
                       "preonly": (preonly_kernel,
-                                  {"refine": pc.kind == "lu"})}[ksp_type]
+                                  {"refine": pc.kind in ("lu", "crtri",
+                                                         "crband")})}[ksp_type]
 
         def prog(b, x0, rtol, atol, dtol, maxit):
             return kernel(spmv, pc_apply, pdot, pnorm, b, x0, rtol, atol,
@@ -387,7 +388,7 @@ def _pmatdot(comm):
 def batched_pc_supported(pc) -> bool:
     """Whether this PC kind has a batched apply (the ``KSP.solve_many``
     routing test; the others fall back to per-column sequential solves).
-    An lu PC's kind (dense or hostlu) is known once it is set up, as
+    An lu PC's kind (its factor mode) is known once it is set up, as
     ``KSP.solve_many`` does first."""
     return pc.kind in ("none", "jacobi", "bjacobi", "lu")
 

@@ -184,7 +184,9 @@ class KSP:
         ``-ksp_atol``, ``-ksp_divtol``, ``-ksp_max_it``,
         ``-ksp_gmres_restart``, ``-ksp_norm_type``, ``-ksp_batch_limit``,
         ``-ksp_true_residual_check``, ``-ksp_true_residual_margin``,
-        ``-ksp_converged_reason``, ``-pc_type``, ``-pc_factor_mat_solver_type``, ``-pc_bjacobi_blocks``,
+        ``-ksp_converged_reason``, ``-pc_type``,
+        ``-pc_factor_mat_solver_type``, ``-pc_bjacobi_blocks``,
+        ``-pc_sor_omega``, ``-pc_asm_overlap``, ``-pc_factor_fill``,
         ``-pc_setup_device``, ``-pc_mg_smooth_type``."""
         opt = global_options()
         t = opt.get_string("ksp_type")
@@ -214,6 +216,9 @@ class KSP:
             pc.set_factor_solver_type(fst)
         pc.bjacobi_blocks = opt.get_int("pc_bjacobi_blocks",
                                         pc.bjacobi_blocks)
+        pc.sor_omega = opt.get_real("pc_sor_omega", pc.sor_omega)
+        pc.asm_overlap = opt.get_int("pc_asm_overlap", pc.asm_overlap)
+        pc.factor_fill = opt.get_real("pc_factor_fill", pc.factor_fill)
         sd = opt.get_string("pc_setup_device")
         if sd:
             pc.setup_device = sd

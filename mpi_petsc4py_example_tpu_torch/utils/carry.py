@@ -10,8 +10,10 @@ hands them over as plain values, never as JAX objects:
   ``Mat.shape``, as numpy;
 * the vectors are numpy arrays from ``Vec.to_numpy()``;
 * the preconditioner's configuration is the tuple ``PC.program_key()``
-  returns, ``(type,)`` (none, jacobi, bjacobi, lu, cholesky) or
-  ``("mg", smoother)``.
+  returns, ``(type,)`` (none, jacobi, bjacobi, sor, ssor, ilu, icc, lu,
+  cholesky), ``("asm", overlap)`` or ``("mg", smoother)``; the tunables that
+  key does not hold (``sor_omega``, ``factor_fill``, ``bjacobi_blocks``,
+  ``setup_device``) travel as keyword values.
 
 The grid and the CSR do not depend on the shard count, so the port's
 communicator may have another shard count than the JAX mesh had (a stencil's
@@ -78,18 +80,29 @@ def from_host_csr(comm: DeviceComm, shape, csr, b, x0=None,
     return (mat,) + _vectors(comm, mat, b, x0, dtype)
 
 
-def configure_pc(pc, key):
+def configure_pc(pc, key, **tunables):
     """Set the port's ``pc`` to the configuration the JAX side's
-    ``PC.program_key()`` describes: ``(type,)`` for none, jacobi, bjacobi,
-    lu or cholesky, or ``("mg", smoother)`` for the V-cycle with its
-    smoother. Returns ``pc``."""
+    ``PC.program_key()`` describes, with ``tunables`` (any of
+    ``sor_omega``, ``factor_fill``, ``bjacobi_blocks``, ``setup_device``)
+    set on it. Returns ``pc``."""
     kind = str(key[0])
     pc.set_type(kind)
-    if kind == "mg":
+    if kind in ("mg", "asm"):
         if len(key) != 2:
-            raise ValueError(f"an mg configuration is ('mg', smoother), "
+            raise ValueError(f"an {kind} configuration is ({kind!r}, value), "
                              f"got {key!r}")
-        pc.mg_smoother = str(key[1])
+        if kind == "mg":
+            pc.mg_smoother = str(key[1])
+        else:
+            pc.asm_overlap = int(key[1])
     elif len(key) != 1:
         raise ValueError(f"cannot carry PC configuration {key!r}")
+    for name, value in tunables.items():
+        if name not in _TUNABLES:
+            raise ValueError(f"cannot carry PC tunable {name!r}; carried: "
+                             f"{_TUNABLES}")
+        setattr(pc, name, value)
     return pc
+
+
+_TUNABLES = ("sor_omega", "factor_fill", "bjacobi_blocks", "setup_device")

@@ -12,6 +12,7 @@ Each function takes a ``torch.dtype`` or anything numpy reads as a dtype
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import torch_dtype
@@ -33,6 +34,13 @@ def inner_precision_dtype(name: str) -> torch.dtype:
             return dtype
     raise ValueError(
         f"unknown inner precision {name!r}; choose from bf16/f32/f64")
+
+
+def host_dtype(dtype):
+    """The host fp64-precision counterpart of ``dtype`` that host-side
+    factorizations run in: complex128 for complex dtypes, float64 otherwise
+    (JAX ``utils/dtypes.py:24``)."""
+    return np.complex128 if torch_dtype(dtype).is_complex else np.float64
 
 
 def is_low_precision(dtype) -> bool:

@@ -230,7 +230,7 @@ def test_unported_choices_raise(call):
         if call == "ksp_type":
             ksp.set_type("tfqmr")
         elif call == "pc_type":
-            ksp.get_pc().set_type("ilu")
+            ksp.get_pc().set_type("hypre")   # in neither package
         else:
             ksp.set_norm_type("natural")
 
@@ -296,6 +296,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_petsc4py_example_tpu_torch/solvers/eps.py",
             "mpi_petsc4py_example_tpu_torch/solvers/st.py",
             "mpi_petsc4py_example_tpu_torch/solvers/refine.py",
+            "mpi_petsc4py_example_tpu_torch/solvers/tridiag.py",
             "mpi_petsc4py_example_tpu_torch/utils/dtypes.py",
             } <= names
     assert not offenders, offenders
