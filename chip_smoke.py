@@ -69,8 +69,24 @@ before each and read just after:
   fp64 relres <= 1e-10 (f32: 5e-6) and each apply timed against its bytes
   bound with its torch operations; PC sor/ssor/ilu/icc/asm under GMRES(30) on 4
   shards; cfg4 and the dense lu above run their PC set-up on the card
-  (``-pc_setup_device auto``) and on the host (``0``).
+  (``-pc_setup_device auto``) and on the host (``0``);
+* the KSP/PC/Mat/Vec surface (no kernel of its own: the transpose product,
+  the null-space projection and the composite apply are torch operations):
+  the monitored 128^3 f32 stencil CG (history, host syncs and
+  ``stencil7_dot`` launches equal with and without the monitor, ms/iter
+  both ways) and its warm start from a perturbed solution; the gated k = 8
+  ``solve_many`` (``stencil7_dot_many``, one ``stencil7_apply_many`` per
+  pass for the epilogue); a ``ShellMat`` whose ``mult`` is the stencil's
+  ``stencil7_apply`` (CG within 2% of the stencil's iterations, one launch
+  per apply, then cgne and lsqr); the 128^3 fp64 Neumann AIJ with a
+  constant null space against the Dirichlet one; ``mult_transpose`` on the
+  128^3 AIJ and on ``convdiff2d(1024)`` against its bytes bound and
+  ``torch.sparse``, with bicg, cgne and lsqr there; composite and shell PCs
+  under FGMRES (advanced.py's 24^2, and 64^2 on 1 and 4 shards); the 128^3
+  AIJ through the PETSc binary format; and ``facade/drivers/advanced.py``.
 
+``python3 chip_smoke.py --surface`` builds the kernels, checks the four the
+surface slice launches, and runs only its phases.
 ``python3 chip_smoke.py --refine`` builds the kernels and runs only the
 mixed-precision phases. ``python3 chip_smoke.py --direct`` runs only the
 direct-solve phases, cfg4, the ``test.py`` flow and the dense lu. ``python3 chip_smoke.py --kernels`` builds the
@@ -3042,6 +3058,500 @@ def phase_direct():
     return {"crtri": crtri, "crband": crband, "block_pcs": blocks}
 
 
+# ---- the KSP/PC/Mat/Vec surface (slice 10): monitors and warm starts, the
+# gated solve_many, ShellMat, null spaces, transpose products, composite and
+# shell PCs, PETSc binary I/O, the advanced.py flow --------------------------
+
+SURFACE_NX = 128
+
+
+def timed_solves(ksp, bv, x, reps=3):
+    """ms per iteration of ``reps`` warm solves from zero (host clock; each
+    solve ends in its last host read): the median, and the samples."""
+    samples = []
+    for _ in range(reps):
+        x.zero()
+        t0 = time.perf_counter()
+        res = ksp.solve(bv, x)
+        samples.append((time.perf_counter() - t0) / max(res.iterations, 1)
+                       * 1e3)
+    return statistics.median(samples), samples
+
+
+def phase_surface_monitor(nx=SURFACE_NX, rtol=1e-6):
+    """The monitored, warm-started 128^3 f32 stencil CG + Jacobi: the history
+    (iterations + 1 entries, the last the result's norm), host syncs and
+    ``stencil7_dot`` launches equal with and without the monitor (launches =
+    iterations + 1: the fast path stays on), ms/iter in both modes in turns,
+    and a solve from a perturbed solution with the initial guess nonzero."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
+    runs = {}
+    for mode in ("plain", "monitored"):
+        ksp = cg_jacobi(comm, op, rtol)
+        seen = []
+        if mode == "monitored":
+            ksp.set_monitor(lambda k, it, rn: seen.append((it, rn)))
+            ksp.set_convergence_history()
+        x, _ = op.get_vecs()
+        reset_launches()
+        res = ksp.solve(bv, x)
+        runs[mode] = (ksp, res, read_launches(), x, seen)
+    (k0, r0, l0, _, _), (k1, r1, l1, x1, seen) = runs["plain"], \
+        runs["monitored"]
+    hist = k1.get_convergence_history()
+    its = r1.iterations
+    log(f"surface monitor {nx}^3 f32 CG+jacobi: {its} iterations "
+        f"({r1.reason_name}), host syncs {r1.host_syncs} monitored / "
+        f"{r0.host_syncs} not, stencil7_dot launches {l1['stencil7_dot']} / "
+        f"{l0['stencil7_dot']}, history {len(hist)} entries, last "
+        f"{hist[-1]:.6e} vs result {r1.residual_norm:.6e}")
+    check(r1.converged and its == r0.iterations, "monitored CG differs")
+    check(len(hist) == its + 1 and hist[-1] == r1.residual_norm,
+          "history is not iterations + 1 entries ending at the result")
+    check([i for i, _ in seen] == list(range(its + 1)), "monitor order")
+    check(r1.host_syncs == r0.host_syncs == its + 1,
+          "a monitor changed the host syncs")
+    check(l1["stencil7_dot"] == l0["stencil7_dot"] == its + 1,
+          "the monitored solve left the stencil7_dot fast path")
+    # ms/iter of both modes in turns: plain, monitored, monitored, plain
+    per = {"plain": [], "monitored": []}
+    for mode in ("plain", "monitored", "monitored", "plain"):
+        ksp, _, _, x, _ = runs[mode]
+        per[mode] += timed_solves(ksp, bv, x, reps=2)[1]
+    ms = {m: statistics.median(s) for m, s in per.items()}
+    log(f"surface monitor ms/iter (warm, host clock): plain {ms['plain']:.4f}"
+        f" {[round(s, 4) for s in per['plain']]}, monitored "
+        f"{ms['monitored']:.4f} {[round(s, 4) for s in per['monitored']]}")
+    # warm start from a perturbed solution
+    xs = x1.to_numpy().astype(np.float64)
+    rng = np.random.default_rng(11)
+    x0 = xs + 1e-3 * np.abs(xs).max() * rng.standard_normal(xs.shape)
+    k1.set_initial_guess_nonzero(True)
+    xw = pt.Vec.from_global(comm, x0, dtype=torch.float32)
+    reset_launches()
+    warm = k1.solve(bv, xw)
+    lw = read_launches()
+    log(f"surface warm start: {warm.iterations} iterations from a 1e-3 "
+        f"perturbed solution ({warm.reason_name}) against {its} from zero, "
+        f"stencil7_dot launches {lw['stencil7_dot']}")
+    check(warm.converged and warm.iterations < its,
+          "the warm start did not save iterations")
+    check(lw["stencil7_dot"] == warm.iterations + 1, "warm start launches")
+    return {"iterations": its, "host_syncs": r1.host_syncs,
+            "stencil7_dot_launches": l1["stencil7_dot"],
+            "ms_per_iter": ms, "warm_start_iterations": warm.iterations,
+            "history_entries": len(hist)}
+
+
+def phase_surface_gated_many(nx=SURFACE_NX, k=K_BATCH, rtol=1e-5):
+    """The gated k = 8 ``solve_many`` at 128^3 f32: the batched fast path
+    (``stencil7_dot_many``) with the per-column true-residual epilogue (one
+    ``stencil7_apply_many`` per pass), against the ungated solve in the same
+    run; each column's fp64 true residual on the host. rtol 1e-5 keeps off
+    fp32's floor at 128^3."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    rng = np.random.default_rng(12)
+    B = np.stack([b] + [op.mult(pt.Vec.from_global(
+        comm, rng.random(nx ** 3).astype(np.float32))).to_numpy()
+        for _ in range(k - 1)], axis=1)
+    out = {}
+    for gate in (False, True):
+        ksp = cg_jacobi(comm, op, rtol)
+        ksp.set_true_residual_check(gate)
+        reset_launches()
+        res = ksp.solve_many(B)
+        la = read_launches()
+        out[gate] = (res, la, ksp._last_reentries)
+    (r0, l0, _), (r1, l1, reentries) = out[False], out[True]
+    A = pt.poisson3d_csr(nx).astype(np.float64)
+    relres = [true_relres(A, r1.X[:, j], B[:, j]) for j in range(k)]
+    log(f"surface gated solve_many {nx}^3 f32 k={k} rtol {rtol:g}: "
+        f"iterations {r1.iterations} (ungated {r0.iterations}), reasons "
+        f"{r1.reason_names}, re-entries {reentries}, host syncs "
+        f"{r1.host_syncs} (ungated {r0.host_syncs}), launches dot_many "
+        f"{l1['stencil7_dot_many']} / apply_many {l1['stencil7_apply_many']}"
+        f" (ungated {l0['stencil7_dot_many']} / {l0['stencil7_apply_many']})"
+        f", fp64 true relres max {max(relres):.3e}")
+    check(r1.converged, "gated solve_many did not converge")
+    check(max(relres) <= 1.05 * rtol, "a gated column misses rtol")
+    check(l1["stencil7_apply_many"] == 1 + reentries,
+          "one apply_many per pass (the epilogue)")
+    check(l1["stencil7_dot_many"] >= max(r1.iterations) + 1,
+          "gated solve_many left the dot_many fast path")
+    check(l0["stencil7_dot_many"] == max(r0.iterations) + 1
+          and l0["stencil7_apply_many"] == 0, "ungated launches")
+    check(r1.host_syncs >= max(r1.iterations) + 2, "gated host syncs")
+    return {"iterations": r1.iterations, "reentries": reentries,
+            "stencil7_dot_many_launches": l1["stencil7_dot_many"],
+            "stencil7_apply_many_launches": l1["stencil7_apply_many"],
+            "max_true_relres": max(relres)}
+
+
+def stencil_shell(comm, nx, transpose=True):
+    """The 7-point stencil as a ``ShellMat``: its ``mult`` is one
+    ``stencil7_apply`` launch through ``ops/stencil.py``'s wrapper on the
+    whole vector, with zero (Dirichlet) halo planes; diagonal 6."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    zero = torch.zeros((nx, nx), dtype=torch.float32, device=comm.device)
+
+    def mult(v):
+        return st.stencil3d_apply(v.view(nx, nx, nx), zero, zero).view(-1)
+
+    return pt.ShellMat(comm, nx ** 3, mult,
+                       mult_transpose=mult if transpose else None,
+                       diagonal=np.full(nx ** 3, 6.0), dtype=torch.float32)
+
+
+def phase_surface_shell(stencil_its, stencil_ms, nx=SURFACE_NX, rtol=1e-6,
+                        max_it=400):
+    """The ShellMat that wraps the 128^3 stencil: CG + Jacobi within 2% of
+    the stencil's own iterations in this run, one ``stencil7_apply`` launch
+    per operator apply, ms/iter against the stencil's (the gather and
+    re-slice of ``full_vector_local_apply``); then cgne and lsqr on it, its
+    ``mult_transpose`` the same apply."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    S = stencil_shell(comm, nx)
+    bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
+    ksp = cg_jacobi(comm, S, rtol)
+    x, _ = S.get_vecs()
+    reset_launches()
+    res = ksp.solve(bv, x)
+    la = read_launches()
+    its = res.iterations
+    ms, samples = timed_solves(ksp, bv, x)
+    log(f"surface shell {nx}^3 f32 CG+jacobi: {its} iterations "
+        f"({res.reason_name}; stencil {stencil_its}), stencil7_apply "
+        f"launches {la['stencil7_apply']} (applies: iterations + 1), "
+        f"{ms:.4f} ms/iter warm {[round(s, 4) for s in samples]} against "
+        f"the stencil's {stencil_ms:.4f}")
+    check(res.converged, "shell CG did not converge")
+    check(abs(its - stencil_its) <= 0.02 * stencil_its,
+          f"shell iterations {its} vs stencil {stencil_its}")
+    check(la["stencil7_apply"] == its + 1, "one stencil7_apply per apply")
+    A = pt.poisson3d_csr(nx).astype(np.float64)
+    out = {"iterations": its, "ms_per_iter": ms,
+           "stencil7_apply_launches": la["stencil7_apply"]}
+    for ksp_type, pc_type in (("cgne", "jacobi"), ("lsqr", "none")):
+        k2 = pt.KSP().create(comm)
+        k2.set_operators(S)
+        k2.set_type(ksp_type)
+        k2.get_pc().set_type(pc_type)
+        k2.set_tolerances(rtol=rtol, atol=0.0, max_it=max_it)
+        x2, _ = S.get_vecs()
+        reset_launches()
+        t0 = time.perf_counter()
+        r2 = k2.solve(bv, x2)
+        wall = time.perf_counter() - t0
+        l2 = read_launches()
+        rr = true_relres(A, x2.to_numpy(), b)
+        log(f"surface shell {ksp_type}+{pc_type}: {r2.iterations} iterations"
+            f" ({r2.reason_name}, max_it {max_it}), fp64 relres {rr:.3e}, "
+            f"{wall / max(r2.iterations, 1) * 1e3:.4f} ms/iter, "
+            f"stencil7_apply launches {l2['stencil7_apply']}")
+        check(np.isfinite(rr) and rr < 1.0, f"{ksp_type} on the shell")
+        out[ksp_type] = {"iterations": r2.iterations, "reason": r2.reason,
+                         "relres": rr,
+                         "stencil7_apply_launches": l2["stencil7_apply"]}
+    return out
+
+
+def neumann3d_csr(nx):
+    """The 7-point Poisson with pure Neumann boundaries: the Dirichlet
+    operator with each row's missing neighbours taken off its diagonal
+    (singular; null space the constant)."""
+    import scipy.sparse as sp
+    import mpi_petsc4py_example_tpu_torch as pt
+    A = pt.poisson3d_csr(nx).astype(np.float64).tocsr()
+    return (A - sp.diags(A @ np.ones(A.shape[0]))).tocsr(), A
+
+
+def phase_surface_nullspace(nx=SURFACE_NX, rtol=1e-8):
+    """The 128^3 Neumann Poisson as an fp64 AIJ (DIA route) with a constant
+    ``NullSpace`` and a compatible right-hand side, CG + Jacobi: fp64 true
+    residual <= 10 rtol ||b||, mean zero to 1e-10 relative, ms/iter against
+    the Dirichlet AIJ of the same size (the two projections per
+    iteration). Returns the Dirichlet matrix, its right-hand side and
+    iterations for the binary I/O phase."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    AN, AD = neumann3d_csr(nx)
+    n = AN.shape[0]
+    ns = pt.NullSpace(constant=True)
+    b = ns.remove(np.random.default_rng(13).random(n))
+    out = {}
+    for name, A in (("neumann", AN), ("dirichlet", AD)):
+        M, assembly = assemble(comm, A, torch.float64)
+        if name == "neumann":
+            M.set_nullspace(ns)
+        ksp = aij_ksp(comm, M, "cg", "jacobi", rtol)
+        bv = pt.Vec.from_global(comm, b, dtype=torch.float64)
+        x, _ = M.get_vecs()
+        res = ksp.solve(bv, x)
+        xh = x.to_numpy()
+        rr = true_relres(A, xh, b)
+        ms, samples = timed_solves(ksp, bv, x)
+        out[name] = {"iterations": res.iterations, "relres": rr,
+                     "ms_per_iter": ms, "assembly_s": assembly,
+                     "route": M.spmv_route(comm), "mean": float(xh.mean()),
+                     "max_abs": float(np.abs(xh).max())}
+        log(f"surface {name} {nx}^3 fp64 AIJ CG+jacobi: {res.iterations} "
+            f"iterations ({res.reason_name}), route {M.spmv_route(comm)}, "
+            f"fp64 relres {rr:.3e}, mean(x) {xh.mean():.3e} (max|x| "
+            f"{np.abs(xh).max():.3e}), {ms:.4f} ms/iter warm "
+            f"{[round(s, 4) for s in samples]}, assembly {assembly:.3f} s")
+        check(res.converged, f"{name} did not converge")
+        check(rr <= 10 * rtol, f"{name}: fp64 true residual {rr}")
+        if name == "neumann":
+            check(abs(xh.mean()) <= 1e-10 * np.abs(xh).max(),
+                  "Neumann solution is not mean-free")
+        del M, ksp, bv, x
+    torch.cuda.empty_cache()
+    return out, (AD, b, out["dirichlet"]["iterations"])
+
+
+def transpose_times(comm, A, dtype):
+    """Device ms of one ``Mat.mult_transpose`` product (``local_spmv_t``),
+    its bound (CSR values and column indices and both vectors once, over
+    the HBM rate) and one ``torch.sparse`` CSR product with ``A^T``."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    M = pt.Mat.from_scipy(comm, A, dtype=dtype)
+    n = A.shape[0]
+    x = torch.rand(n, device=comm.device, dtype=dtype)
+    spmv_t = M.local_spmv_t(comm)
+    xs = x.view(comm.size, -1)
+    ms = device_ms(lambda: spmv_t(xs), inner=20)
+    item = torch.empty(0, dtype=dtype).element_size()
+    nbytes = A.nnz * (item + 4) + 2 * n * item
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    C = A.T.tocsr()
+    Ct = torch.sparse_csr_tensor(
+        torch.from_numpy(C.indptr.astype(np.int64)),
+        torch.from_numpy(C.indices.astype(np.int64)),
+        torch.from_numpy(C.data.astype(np.float64 if item == 8
+                                       else np.float32)),
+        size=C.shape).to(comm.device)
+    lib = device_ms(lambda: Ct @ x, inner=20)
+    y = spmv_t(xs).reshape(-1)[:n]
+    ref = Ct @ x
+    err = float((y - ref).abs().max() / ref.abs().max())
+    again = spmv_t(xs).reshape(-1)[:n]
+    check(torch.equal(y, again), "mult_transpose is not deterministic")
+    check(err <= 1e-13 if item == 8 else err <= 1e-6,
+          f"mult_transpose vs torch.sparse: {err}")
+    return M, {"route": M.spmv_route(comm), "ms": ms, "bound_ms": bound,
+               "bytes": nbytes, "library_ms": lib, "rel_err": err}
+
+
+def phase_surface_transpose(AD, nx2=1024, rtol=1e-6):
+    """``mult_transpose`` on the 128^3 AIJ and on the unsymmetric 1024^2
+    convection-diffusion (fp64, DIA route), against the operator-bytes
+    bound and ``torch.sparse``; then bicg, cgne and lsqr on the
+    convection-diffusion operator: iterations, reason, fp64 relres."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.models.generators import convdiff2d
+    comm = pt.DeviceComm()
+    out = {}
+    C = convdiff2d(nx2).astype(np.float64).tocsr()
+    nx = round(AD.shape[0] ** (1 / 3))
+    for name, A in ((f"aij{nx}^3", AD), (f"convdiff{nx2}^2", C)):
+        M, t = transpose_times(comm, A, torch.float64)
+        out[name] = t
+        log(f"surface mult_transpose {name} fp64 ({t['route']}): "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bytes'] / 1e6:.1f} MB; {t['bound_ms'] / t['ms'] * 100:.1f}%"
+            f" of it), torch.sparse CSR A^T {t['library_ms']:.4f} ms, "
+            f"rel diff {t['rel_err']:.2e}")
+    b = C @ np.random.default_rng(14).random(C.shape[0])
+    bv = pt.Vec.from_global(comm, b, dtype=torch.float64)
+    for ksp_type, pc_type, max_it in (("bicg", "jacobi", 5000),
+                                      ("cgne", "jacobi", 500),
+                                      ("lsqr", "none", 500)):
+        ksp = aij_ksp(comm, M, ksp_type, pc_type, rtol, max_it=max_it)
+        x, _ = M.get_vecs()
+        t0 = time.perf_counter()
+        res = ksp.solve(bv, x)
+        wall = time.perf_counter() - t0
+        rr = true_relres(C, x.to_numpy(), b)
+        log(f"surface {ksp_type}+{pc_type} convdiff{nx2} fp64: "
+            f"{res.iterations} iterations ({res.reason_name}, max_it "
+            f"{max_it}), fp64 relres {rr:.3e}, wall {wall:.2f} s "
+            f"({wall / max(res.iterations, 1) * 1e3:.4f} ms/iter)")
+        check(np.isfinite(rr) and rr < 1.0, f"{ksp_type} on convdiff")
+        check(not res.converged or rr <= 10 * rtol,
+              f"{ksp_type}: converged but the fp64 relres is {rr}")
+        out[ksp_type] = {"iterations": res.iterations, "reason": res.reason,
+                         "relres": rr, "ms_per_iter":
+                         wall / max(res.iterations, 1) * 1e3}
+    return out
+
+
+def phase_surface_composite(sizes=(24, 64)):
+    """Composite (jacobi, sor) and shell PCs under FGMRES: advanced.py's
+    scenario 2 at its own size (24^2 Laplacian plus a variable diagonal,
+    rtol 1e-10), and at 64^2 on 1 and 4 shards, multiplicative and additive,
+    with the composite apply's device ms. (256^2 is out of reach: one
+    shard's SOR block, 65,536^2, is past the dense cap in both packages,
+    and on 4 shards the four 16,384^2 blocks are a host fp64 inversion of
+    minutes.)"""
+    import scipy.sparse as sp
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.facade.drivers.advanced import (
+        laplacian2d)
+    out = []
+    for nx in sizes:
+        n = nx * nx
+        A = (laplacian2d(nx) + sp.diags(1.0 + np.arange(n) / n)).tocsr()
+        b = A @ np.random.default_rng(7).random(n)
+        for ndev in ((1,) if nx == sizes[0] else (1, 4)):
+            comm = pt.DeviceComm(ndev)
+            M = pt.Mat.from_scipy(comm, A)
+            for kind in ("multiplicative", "additive", "shell"):
+                if nx == sizes[0] and kind != "multiplicative":
+                    continue
+                pc = pt.PC(comm)
+                if kind == "shell":
+                    d = torch.tensor(A.diagonal(), device=comm.device)
+                    pc.set_type("shell").set_shell_apply(lambda r: r / d)
+                else:
+                    pc.set_type("composite").set_composite_type(kind)
+                    pc.set_composite_pcs("jacobi", "sor")
+                ksp = pt.KSP().create(comm)
+                ksp.set_operators(M)
+                ksp.set_type("fgmres")
+                ksp.set_pc(pc)
+                rtol = 1e-10 if nx == sizes[0] else 1e-8
+                ksp.set_tolerances(rtol=rtol, max_it=5000)
+                x, bv = M.get_vecs()
+                bv.set_global(b)
+                t0 = time.perf_counter()
+                res = ksp.solve(bv, x)
+                wall = time.perf_counter() - t0
+                rr = true_relres(A, x.to_numpy(), b)
+                apply = pc.local_apply(comm, n)
+                r = torch.rand(ndev, comm.local_size(n), device=comm.device,
+                               dtype=torch.float64)
+                ms = device_ms(lambda: apply(r), inner=20)
+                log(f"surface fgmres+{kind} {nx}^2 on {ndev} shard(s): "
+                    f"{res.iterations} iterations ({res.reason_name}), "
+                    f"fp64 relres {rr:.3e}, wall {wall:.3f} s, PC apply "
+                    f"{ms:.4f} ms")
+                check(res.converged and rr <= 10 * rtol,
+                      f"fgmres+{kind} at {nx}^2")
+                out.append({"nx": nx, "shards": ndev, "pc": kind,
+                            "iterations": res.iterations, "relres": rr,
+                            "apply_ms": ms})
+    return out
+
+
+def phase_surface_petsc_io(AD, b, its_orig, rtol=1e-8):
+    """PETSc binary I/O of the 128^3 fp64 AIJ (14.58 M nonzeros) and its
+    right-hand side, Mat then Vec in one file under ``build/``: write and
+    load seconds (host clock; the load's device placement synced) against
+    ``Mat.from_scipy``'s assembly, and the loaded system solves in the
+    original's iterations."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "petsc_io")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "system.petsc")
+    try:
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            pt.petsc_io.write_mat(f, AD)
+            pt.petsc_io.write_vec(f, b)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            A2 = pt.petsc_io.read_mat(f)
+            t_read = time.perf_counter() - t0
+            M = pt.Mat.from_scipy(comm, A2, dtype=torch.float64)
+            bv = pt.Vec.from_global(comm, pt.petsc_io.read_vec(f),
+                                    dtype=torch.float64)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    _, t_assembly = assemble(comm, AD, torch.float64)
+    ksp = aij_ksp(comm, M, "cg", "jacobi", rtol)
+    x, _ = M.get_vecs()
+    res = ksp.solve(bv, x)
+    nx = round(AD.shape[0] ** (1 / 3))
+    log(f"surface petsc_io {nx}^3 fp64 AIJ ({AD.nnz} nonzeros, {size / 1e6:.1f}"
+        f" MB file): write {t_write:.3f} s, read {t_read:.3f} s, load (read"
+        f" + assembly + placement) {t_load:.3f} s, against Mat.from_scipy's "
+        f"{t_assembly:.3f} s; the loaded system: {res.iterations} iterations"
+        f" ({res.reason_name}) against the original's {its_orig}")
+    check((A2 != AD).nnz == 0, "the binary round trip changed the matrix")
+    check(res.iterations == its_orig, "the loaded system solves differently")
+    return {"bytes": size, "write_s": t_write, "read_s": t_read,
+            "load_s": t_load, "assembly_s": t_assembly,
+            "iterations": res.iterations}
+
+
+def phase_surface_advanced():
+    """``facade/drivers/advanced.py`` on the card: three converged scenarios,
+    the errors of 1 and 3 at most 1e-8."""
+    import contextlib
+    import io
+    from mpi_petsc4py_example_tpu_torch.facade.drivers import advanced
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = advanced.main(["advanced.py"])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"surface advanced.py: {line}")
+    errs = [float(line.split("max err")[1]) for line in lines
+            if "max err" in line]
+    check(rc == 0 and len(lines) == 3
+          and all("CONVERGED" in line for line in lines),
+          "advanced.py did not converge in its three scenarios")
+    check(len(errs) == 2 and max(errs) <= 1e-8, f"advanced.py errors {errs}")
+    log(f"surface advanced.py: {wall:.2f} s")
+    return {"lines": lines, "wall_s": wall}
+
+
+def phase_surface():
+    """Every phase of the KSP/PC/Mat/Vec surface slice."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"monitor": phase_surface_monitor()}
+    out["gated_many"] = phase_surface_gated_many()
+    out["shell"] = phase_surface_shell(
+        out["monitor"]["iterations"], out["monitor"]["ms_per_iter"]["plain"])
+    out["nullspace"], (AD, b, its) = phase_surface_nullspace()
+    out["transpose"] = phase_surface_transpose(AD)
+    out["petsc_io"] = phase_surface_petsc_io(AD, b, its)
+    del AD, b
+    torch.cuda.empty_cache()
+    out["composite"] = phase_surface_composite()
+    out["advanced"] = phase_surface_advanced()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"surface phases: {out['wall_s']:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3106,6 +3616,14 @@ def main():
         print(json.dumps({"direct": direct}))
         print(card_line())
         return
+    if sys.argv[1:] == ["--surface"]:
+        # only the KSP/PC/Mat/Vec surface slice's phases, behind the checks
+        # of the four kernels they launch
+        phase_kernel_checks()
+        phase_many_kernel_checks()
+        print(json.dumps({"surface": phase_surface()}, default=float))
+        print(card_line())
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -3150,6 +3668,20 @@ def main():
     bf16_entries, _ = phase_refine()
     # the direct solves past the dense cap and the block PCs: no kernel
     phase_direct()
+    # the KSP/PC/Mat/Vec surface: its new paths launch rows 1, 2, 9 and 10
+    surface = phase_surface()
+    surface_launches = {
+        "stencil7_dot": (surface["monitor"]["stencil7_dot_launches"],
+                         "128^3 CG+jacobi, monitored"),
+        "stencil7_apply": (surface["shell"]["stencil7_apply_launches"],
+                           "128^3 ShellMat wrapping the stencil, CG+jacobi"),
+        "stencil7_dot_many": (
+            surface["gated_many"]["stencil7_dot_many_launches"],
+            f"128^3 k={K_BATCH} solve_many with the true-residual gate"),
+        "stencil7_apply_many": (
+            surface["gated_many"]["stencil7_apply_many_launches"],
+            f"128^3 k={K_BATCH} solve_many gate's epilogue"),
+    }
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3192,6 +3724,11 @@ def main():
             kernels[-1]["eps_128_f64"] = apply_f64
         if name == "stencil7_dot_many":
             kernels[-1]["dot_rel_err"] = worst["dot_many_rel"]
+        if name in surface_launches:
+            count_s, path_s = surface_launches[name]
+            check(count_s > 0, f"{name} was not launched on {path_s}")
+            kernels[-1]["launches_surface"] = count_s
+            kernels[-1]["path_surface"] = path_s
     for entry in bf16_entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on "
                                      f"its path ({entry['path']})")

@@ -16,7 +16,14 @@ the factor PCs (bjacobi, lu) and the queries.
 ``(size, lsize)`` tensors, through the three routes of the JAX package on the
 port's virtual mesh: banded DIA with a ``halo``-row exchange between
 neighbouring shards, gathered DIA, and ELL (gathered input, one gather of
-``x``). Not ported yet: the transpose product, null spaces, ``astype``.
+``x``). :meth:`Mat.local_spmv_t` is the transpose product (JAX
+``mat.py:552``): on the banded DIA route each shard accumulates its rows'
+contributions over the ``±halo`` column window and ships the two spills to
+its neighbours; on the gathered DIA route the window spans the whole vector;
+on ELL it is one scatter-add of every stored entry, which
+``index_put_(accumulate=True)`` sums in a fixed order on either device. A
+null space (``core/nullspace.py``) rides on the Mat and the solve program
+projects with it.
 
 Storage is fp32, fp64 or bfloat16. A bfloat16 Mat rounds the CSR values to
 bfloat16 once, with torch's cast, when it is built (the JAX package's
@@ -76,6 +83,7 @@ class Mat:
         self.dia_vals = None              # (D, n_pad), the DIA route's values
         self.dia_offsets: tuple[int, ...] = ()
         self.assembly_breakdown: dict = {}
+        self.nullspace = None             # core.nullspace.NullSpace or None
 
     # ---- constructors ------------------------------------------------------
     @classmethod
@@ -167,6 +175,22 @@ class Mat:
                                 **m.assembly_breakdown}
         return m
 
+    def astype(self, dtype) -> "Mat":
+        """The same values in another storage dtype, converted once from the
+        host CSR (JAX ``mat.py:158``); the null space rides along. Like the
+        JAX package, and unlike ``ndarray.astype``, the same dtype returns
+        ``self``: use :meth:`duplicate` for an independent copy."""
+        dt = torch_dtype(dtype)
+        if dt == self.dtype:
+            return self
+        if self.host_csr is not None:
+            m = Mat.from_csr(self.comm, self.shape, self.host_csr, dtype=dt)
+        else:
+            m = Mat.from_scipy(self.comm, self.to_scipy(), dtype=dt)
+        if self.nullspace is not None:
+            m.set_nullspace(self.nullspace)
+        return m
+
     # ---- PETSc-Mat-shaped API ----------------------------------------------
     def set_up(self):
         return self
@@ -200,6 +224,21 @@ class Mat:
         mk = lambda: Vec(self.comm, self.shape[0], dtype=self.dtype,
                          layout=self.layout)
         return mk(), mk()
+
+    # ---- null space (PETSc MatSetNullSpace) --------------------------------
+    def set_nullspace(self, nullspace):
+        """Attach a :class:`..core.nullspace.NullSpace`: KSP then projects
+        the right-hand side and every operator and PC output onto its
+        complement (compatible singular systems)."""
+        self.nullspace = nullspace
+        return self
+
+    setNullSpace = set_nullspace
+
+    def get_nullspace(self):
+        return self.nullspace
+
+    getNullSpace = get_nullspace
 
     # ---- assembled-matrix algebra ------------------------------------------
     def _replace_from_scipy(self, S):
@@ -333,6 +372,18 @@ class Mat:
         y.data = ypad
         return y
 
+    def mult_transpose(self, x: Vec, y: Vec | None = None) -> Vec:
+        """``y = A^T x`` (PETSc MatMultTranspose) through
+        :meth:`local_spmv_t`."""
+        comm = self.comm
+        ypad = self.local_spmv_t(comm)(x.data.view(comm.size, -1)).reshape(-1)
+        if y is None:
+            return Vec(comm, self.shape[0], data=ypad, layout=self.layout)
+        y.data = ypad
+        return y
+
+    multTranspose = mult_transpose
+
     def diagonal(self) -> np.ndarray:
         """The global diagonal on the host (PC jacobi's input)."""
         if self.host_csr is not None:
@@ -443,6 +494,75 @@ class Mat:
             return back(ell_spmv_local_many(self.ell_cols, self.ell_vals,
                                             full(X)))
         return spmv
+
+    def local_spmv_t(self, comm: DeviceComm):
+        """``spmv_t(x (size, lsize)) -> A^T x`` (JAX ``mat.py:552``), square
+        operators only. Each route sums the same products as the JAX
+        package's, in a fixed order:
+
+        * DIA, purely diagonal: the product is local;
+        * DIA, banded (every diagonal reaches at most the neighbouring
+          shard): each shard adds ``dia[d] * x`` into its ``±halo`` window,
+          diagonal by diagonal, and the two spills go to the neighbours
+          (one open-chain shift each way, zeros at the global ends);
+        * DIA, gathered: the same window over the whole vector;
+        * ELL: one scatter-add of ``vals * x`` into the columns, in row
+          order (``index_put_`` with ``accumulate=True``, deterministic on
+          the CPU and on CUDA).
+        """
+        if self.shape[0] != self.shape[1]:
+            raise ValueError(
+                "local_spmv_t supports square operators only (output is "
+                f"row-partitioned like the input); shape={self.shape}")
+        size, lsize = comm.size, comm.local_size(self.shape[0])
+        n_pad = size * lsize
+        if self.dia_vals is None:
+            cols = self.ell_cols.reshape(-1).long()
+            vals = self.ell_vals
+
+            def spmv_t(x):
+                contrib = (vals * x.reshape(-1, 1)).reshape(-1)
+                y = torch.zeros(n_pad, dtype=vals.dtype, device=vals.device)
+                return y.index_put_((cols,), contrib,
+                                    accumulate=True).view(size, lsize)
+            return spmv_t
+        offsets, halo = self.dia_offsets, self._halo()
+        acc = accum_dtype(self.dtype) or self.dtype
+
+        def window(dia, x, rows):
+            """``(..., rows + 2 halo)``: each diagonal's products added at
+            its offset, diagonal by diagonal."""
+            win = torch.zeros(x.shape[:-1] + (rows + 2 * halo,), dtype=acc,
+                              device=x.device)
+            for d, off in enumerate(offsets):
+                s = halo + int(off)
+                win[..., s:s + rows].addcmul_(dia[d].to(acc), x.to(acc))
+            return win
+
+        if halo == 0:
+            dia = self.dia_vals.view(len(offsets), size, lsize)
+            return lambda x: (dia[0] * x)
+        if size > 1 and halo <= lsize:
+            dia = self.dia_vals.view(len(offsets), size, lsize)
+
+            def spmv_t(x):
+                win = window(dia, x, lsize)
+                y = win[:, halo:halo + lsize].clone()
+                # shard i's right spill belongs to shard i + 1, its left
+                # spill to shard i - 1
+                from_left = comm.shift(win[:, halo + lsize:], 1)
+                from_right = comm.shift(win[:, :halo], -1)
+                from_left[0].zero_()
+                from_right[-1].zero_()
+                y[:, :halo] += from_left
+                y[:, lsize - halo:] += from_right
+                return y.to(self.dtype)
+            return spmv_t
+
+        def spmv_t(x):
+            win = window(self.dia_vals, comm.all_gather(x), n_pad)
+            return win[halo:halo + n_pad].to(self.dtype).view(size, lsize)
+        return spmv_t
 
     def program_key(self):
         if self.dia_vals is not None:

@@ -1,12 +1,16 @@
 """petsc4py-shaped facade over the PyTorch port.
 
-The port's counterpart of the part of ``compat/petsc4py/PETSc.py`` that the
-reference ``test.py`` flow and the benchmark's assembled-matrix
-configurations touch: ``InsertMode``; ``Vec`` (``setArray``, ``array``,
-``getArray``, ``norm``, ``set``, ``duplicate``, ``copy``); ``Mat``
-(``createAIJ``, the ``setSizes``/``setValues``/assembly flow, ``getVecs``,
-``getDiagonal``, ``mult``, ``getSize``, ``getOwnershipRange``); ``KSP``,
-``PC`` and ``Options``.
+The port's counterpart of ``compat/petsc4py/PETSc.py``: ``InsertMode``;
+``Vec`` (``setArray``, ``array``, ``getArray``, ``norm``, ``set``,
+``duplicate``, ``copy``, ``dot``, ``scale``, ``axpy``, ``view``,
+``load``); ``Mat`` (``createAIJ``, the ``setSizes``/``setValues``/assembly
+flow, ``createShell``, ``getVecs``, ``getDiagonal``, ``mult``,
+``multTranspose``, ``zeroRows``, ``setNullSpace``/``getNullSpace``,
+``view``, ``load``, ``getSize``, ``getOwnershipRange``); ``Viewer`` (the
+PETSc binary file viewer); ``NullSpace``; ``KSP`` (with monitors, the
+convergence history and a nonzero initial guess); ``PC`` (with
+``shell`` and ``composite``) and ``Options``. A shell's ``mult`` and a PC
+shell's apply are torch callables on the whole vector.
 
 Collective semantics under virtual ranks (the runner's ``-n N``):
 constructors and ``solve`` are rendezvous points. Every rank contributes its
@@ -16,6 +20,8 @@ MPIAIJ path behaves over real MPI.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 
@@ -150,6 +156,52 @@ class Vec:
         self._comm._collective("vec_copy", None, build)
         return other
 
+    def dot(self, other):
+        return self._core.dot(other._core)
+
+    def scale(self, alpha):
+        def build(_):
+            self._core.scale(alpha)
+            return True
+        self._comm._collective("vec_scale", (float(alpha),), build)
+
+    def axpy(self, alpha, other):
+        def build(_):
+            self._core.axpy(alpha, other._core)
+            return True
+        self._comm._collective("vec_axpy", (float(alpha),), build)
+
+    def view(self, viewer=None):
+        """Write to a binary Viewer (VecView, collective), or print a
+        summary."""
+        if isinstance(viewer, Viewer):
+            viewer._check_mode(read=False)
+
+            def build(_):
+                _pt.petsc_io.save_vec(viewer.handle, self._core)
+                viewer.handle.flush()
+                return True
+            self._comm._collective("vec_view_binary", None, build)
+            return
+        if self._comm.Get_rank() == 0:
+            print(repr(self._core), file=sys.stderr)
+
+    def load(self, viewer):
+        """VecLoad: fill this Vec from a PETSc binary Vec (collective)."""
+        viewer._check_mode(read=True)
+
+        def build(_):
+            arr = _pt.petsc_io.read_vec(viewer.handle)
+            if arr.shape[0] != self._core.n:
+                raise ValueError(
+                    f"VecLoad size mismatch: file has {arr.shape[0]} "
+                    f"entries, Vec has {self._core.n} (PETSc errors on "
+                    "this too)")
+            self._core.set_global(arr)
+            return True
+        self._comm._collective("vec_load_binary", None, build)
+        return self
+
     def destroy(self):
         return self
 
@@ -255,6 +307,26 @@ class Mat:
             "mat_createaij", (rank, tuple(np.asarray(a) for a in csr)), build)
         return self
 
+    def createShell(self, size, mult, mult_transpose=None, diagonal=None,
+                    comm=None):
+        """MatCreateShell: a matrix-free operator from a torch ``mult`` on
+        the whole vector (collective)."""
+        comm = _mpi_comm(comm)
+        self._comm = comm
+        if np.isscalar(size):
+            size = (int(size), int(size))
+
+        def build(_):
+            core = _pt.ShellMat(comm.device_comm, size, mult,
+                                mult_transpose=mult_transpose,
+                                diagonal=diagonal)
+            return core, _UnevenLayout(
+                RowLayout(size[0], comm.Get_size()).count)
+
+        self._core, self._layout = comm._collective("mat_createshell", None,
+                                                    build)
+        return self
+
     # ---- assembly ---------------------------------------------------------
     def setUp(self):
         return self
@@ -345,8 +417,152 @@ class Mat:
             return True
         self._comm._collective("mat_mult", None, build)
 
+    def multTranspose(self, x: Vec, y: Vec):
+        def build(_):
+            self._core.mult_transpose(x.core, y.core)
+            return True
+        self._comm._collective("mat_mult_t", None, build)
+
     def norm(self, norm_type="frobenius"):
         return self._core.norm(norm_type)
+
+    def zeroRows(self, rows, diag=1.0, x=None, b=None):
+        """MatZeroRows (collective): one thread changes the shared Mat."""
+        rows = tuple(int(r) for r in np.atleast_1d(rows))
+
+        def build(_):
+            self._core.zero_rows(list(rows), diag=diag,
+                                 x=x.core if isinstance(x, Vec) else x,
+                                 b=b.core if isinstance(b, Vec) else b)
+            return True
+
+        self._comm._collective("mat_zerorows", (rows, float(diag)), build)
+        return self
+
+    def setNullSpace(self, ns):
+        """MatSetNullSpace (collective): KSP then solves the compatible
+        singular system by projection."""
+        core_ns = ns.core if isinstance(ns, NullSpace) else ns
+
+        def build(_):
+            self._core.set_nullspace(core_ns)
+            return True
+
+        self._comm._collective("mat_setnullspace", None, build)
+
+    def getNullSpace(self):
+        return self._core.get_nullspace()
+
+    def view(self, viewer=None):
+        """Write to a binary Viewer (MatView, collective), or print a
+        summary."""
+        if isinstance(viewer, Viewer):
+            viewer._check_mode(read=False)
+
+            def build(_):
+                _pt.petsc_io.save_mat(viewer.handle, self._core)
+                viewer.handle.flush()
+                return True
+            self._comm._collective("mat_view_binary", None, build)
+            return
+        if self._comm.Get_rank() == 0:
+            print(repr(self._core), file=sys.stderr)
+
+    def load(self, viewer):
+        """MatLoad: read a PETSc binary Mat (collective)."""
+        viewer._check_mode(read=True)
+        comm = self._comm or _MPI.COMM_WORLD
+        self._comm = comm
+
+        def build(_):
+            core = _pt.petsc_io.load_mat(viewer.handle, comm.device_comm)
+            return core, _UnevenLayout(
+                RowLayout(core.shape[0], comm.Get_size()).count)
+
+        self._core, self._layout = comm._collective("mat_load", None, build)
+        return self
+
+    def destroy(self):
+        return self
+
+    @property
+    def core(self):
+        return self._core
+
+
+class Viewer:
+    """The PETSc binary file viewer (PetscViewerBinaryOpen): the file stays
+    open across objects, so several ``view`` calls write one file in turn
+    and several ``load`` calls read it back in order (``utils/petsc_io.py``
+    documents the byte layout)."""
+
+    def __init__(self):
+        self.path = None
+        self.mode = "r"
+        self._file = None
+
+    def createBinary(self, name, mode="r", comm=None):
+        if self._file is not None:      # reuse: close the old file first
+            self._file.close()
+            self._file = None
+        self.path = str(name)
+        self.mode = str(mode).lower()
+        if self.mode not in ("r", "w", "a"):
+            raise ValueError(f"unknown viewer mode {mode!r}")
+        return self
+
+    @property
+    def handle(self):
+        """The open file, its cursor kept between objects."""
+        if self._file is None:
+            if self.path is None:
+                raise RuntimeError(
+                    "Viewer has no file — call createBinary(path, mode) "
+                    "first")
+            self._file = open(self.path,
+                              {"r": "rb", "w": "wb", "a": "ab"}[self.mode])
+        return self._file
+
+    def _check_mode(self, read: bool):
+        if self.path is None:
+            raise RuntimeError(
+                "Viewer has no file — call createBinary(path, mode) first")
+        if read and self.mode != "r":
+            raise ValueError(
+                f"viewer opened with mode {self.mode!r} cannot be read "
+                "(PETSc raises on this too)")
+        if not read and self.mode == "r":
+            raise ValueError(
+                "viewer opened read-only cannot be written "
+                "(PETSc raises on this too)")
+
+    def destroy(self):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+        return self
+
+    def flush(self):
+        """Flush the buffered writes; the file and its cursor stay."""
+        if self._file is not None and self.mode != "r":
+            self._file.flush()
+        return self
+
+
+class NullSpace:
+    """Null-space handle (fronts the port's ``NullSpace``)."""
+
+    def __init__(self):
+        self._core = None
+
+    def create(self, constant=False, vectors=(), comm=None):
+        vecs = [v.core.to_numpy() if isinstance(v, Vec) else np.asarray(v)
+                for v in vectors]
+        self._core = _pt.NullSpace(constant=constant, vectors=vecs)
+        return self
+
+    def test(self, mat):
+        return self._core.test(mat.core if isinstance(mat, Mat) else mat)
 
     def destroy(self):
         return self
@@ -375,6 +591,18 @@ class PC:
     def getFactorSolverType(self):
         return self._core._factor_solver_type
 
+    def setShellApply(self, fn):
+        self._core.set_shell_apply(fn)
+
+    def setCompositeType(self, ctype):
+        self._core.set_composite_type(ctype)
+
+    def setCompositePCs(self, *types):
+        self._core.set_composite_pcs(*types)
+
+    def getCompositePC(self, i):
+        return PC(self._core.get_composite_pc(i))
+
     def setFromOptions(self):
         pass
 
@@ -387,6 +615,7 @@ class KSP:
         NONE = 0
         PRECONDITIONED = 1
         UNPRECONDITIONED = 2
+        NATURAL = 3
 
     def __init__(self):
         self._core = _pt.KSP()
@@ -413,6 +642,9 @@ class KSP:
     def setTolerances(self, rtol=None, atol=None, divtol=None, max_it=None):
         self._core.set_tolerances(rtol=rtol, atol=atol, divtol=divtol,
                                   max_it=max_it)
+
+    def setInitialGuessNonzero(self, flag):
+        self._core.set_initial_guess_nonzero(flag)
 
     def setNormType(self, norm_type):
         self._core.set_norm_type(norm_type)
@@ -452,6 +684,18 @@ class KSP:
 
     def getConvergedReason(self):
         return self._core.get_converged_reason()
+
+    def getTolerances(self):
+        return self._core.get_tolerances()
+
+    def setMonitor(self, cb):
+        self._core.set_monitor(cb)
+
+    def setConvergenceHistory(self, length=None, reset=False):
+        self._core.set_convergence_history(length=length, reset=reset)
+
+    def getConvergenceHistory(self):
+        return self._core.get_convergence_history()
 
     def destroy(self):
         return self

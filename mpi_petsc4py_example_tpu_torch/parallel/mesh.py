@@ -15,6 +15,9 @@ a distributed vector is one padded tensor whose leading axis, viewed as
   blocks concatenated in shard order;
 * :meth:`DeviceComm.shard_map` runs a per-shard body on every shard in turn.
 
+:func:`full_vector_local_apply` lifts a callable on the whole vector (a
+``ShellMat``'s ``mult``, a PC shell's apply) to the shard-stacked form.
+
 Several devices through ``torch.distributed`` are later work.
 """
 
@@ -165,3 +168,22 @@ class DeviceComm:
         def run(*stacked):
             return [fn(*(a[i] for a in stacked)) for i in range(self.size)]
         return run
+
+
+def full_vector_local_apply(fn, comm: DeviceComm, n: int):
+    """Lift ``y = fn(x)`` on the whole unpadded length-``n`` vector to a
+    shard-stacked apply (JAX ``parallel/mesh.py:329``): ``apply(x (size,
+    lsize)) -> y (size, lsize)`` all-gathers the shards, applies ``fn`` to
+    the first ``n`` entries, zero-pads the result and hands each shard its
+    rows. On the virtual mesh every shard's rows come from the one call."""
+    lsize = comm.local_size(n)
+    n_pad = lsize * comm.size
+
+    def apply(x):
+        x_full = comm.all_gather(x)
+        y = fn(x_full[:n] if n_pad != n else x_full)
+        if n_pad != n:
+            y = torch.nn.functional.pad(y, (0, n_pad - n))
+        return y.reshape(comm.size, lsize)
+
+    return apply

@@ -166,9 +166,15 @@ def _live(rn, tol, dmax, it, maxit, brk):
     return (rn > tol) & (rn < dmax) & (it < maxit) & ~brk
 
 
+def _nat(rz):
+    """KSP_NORM_NATURAL: ``sqrt <r, M r>``, the scalar the recurrence
+    carries (JAX ``cg_plans._nat``)."""
+    return torch.sqrt(torch.clamp_min(rz, 0.0))
+
+
 def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
                     Adot=None, inv_diag=None, M3=None, pdot=None, pnorm=None,
-                    bp=None, prec=None):
+                    bp=None, prec=None, monitor=None, natural=False):
     """Run the classic (two-phase) CG recurrence on shard-stacked tensors.
 
     The operator plan is ``A`` (with ``M``) or the fused ``Adot`` (with the
@@ -184,6 +190,14 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
     (None: uniform); under a mixed plan ``pdot``/``pnorm`` must lift their
     operands to its reduce dtype, and ``M3`` is not taken (PC mg raises on
     bfloat16 storage).
+
+    ``monitor`` is called on the host with each residual norm the loop
+    reads anyway, in order: ``monitor(it, rn)`` for iterations ``0..it``
+    with one RHS, ``monitor(j, it_j, rn_j)`` for each column that took the
+    step with :class:`ManyBatch`; it adds no host read. ``natural`` (the
+    general route only) monitors ``sqrt <r, M r>`` instead of ``||r||``,
+    with the tolerance relative to its initial value and a negative
+    ``<r, M r>`` a breakdown (JAX ``:394-403``, ``:494-500``).
     """
     stencil = Adot is not None
     mixed = prec is not None and prec.mixed
@@ -206,8 +220,12 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         r = b - A(x)
         p = M(r).clone()            # M may return r itself (PC none)
         rz = pdot(r, p)
-        bnorm, tol = _tol(pnorm, b, rtol, atol)
-        rnorm = pnorm(r)
+        if natural:
+            rnorm = _nat(rz)
+            tol = torch.clamp_min(rtol * rnorm, atol)
+        else:
+            bnorm, tol = _tol(pnorm, b, rtol, atol)
+            rnorm = pnorm(r)
     dmax = _dmax(rnorm, dtol)
     # the tolerances compare in the norms' dtype, as on the device (the
     # operator's, or the reduce dtype under a mixed plan)
@@ -215,10 +233,15 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
     if bp is not None:
         return _lockstep(bp, x, r, p, rz, rnorm, tol, dmax, atol_h, maxit,
                          A=A, M=M, Adot=Adot, inv_diag=inv_diag, pdot=pdot,
-                         pnorm=pnorm, prec=prec if mixed else None)
-    rn, tol_h, dmax_h = torch.stack([rnorm, tol, dmax]).tolist()
+                         pnorm=pnorm, prec=prec if mixed else None,
+                         monitor=monitor)
+    rn, tol_h, dmax_h, rz_h = torch.stack(
+        [rnorm, tol, dmax, rz.to(rnorm.dtype)]).tolist()
     syncs = 1
-    it, brk = 0, False
+    # a negative <r, M r> leaves the natural norm undefined: breakdown
+    it, brk = 0, natural and rz_h < 0
+    if monitor is not None:
+        monitor(0, rn)
 
     def active():
         return rn > tol_h and rn < dmax_h and it < maxit and not brk
@@ -262,7 +285,7 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         else:
             z = M(r)
             rz_new = pdot(r, z)
-            rn_new = pnorm(r)
+            rn_new = _nat(rz_new) if natural else pnorm(r)
             beta = _safe_div(rz_new, rz)
             if mixed:
                 _lifted_axpy(z, beta, p, out=p)
@@ -271,14 +294,17 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         rz = rz_new
         it += 1
         # the one host read of the iteration: the loop condition's scalars
-        rn, pAp_h = torch.stack([rn_new, pAp]).tolist()
+        rn, pAp_h, rz_h = torch.stack(
+            [rn_new, pAp, rz.to(rn_new.dtype)]).tolist()
         syncs += 1
-        brk = brk or pAp_h == 0
+        brk = brk or pAp_h == 0 or (natural and rz_h < 0)
+        if monitor is not None:
+            monitor(it, rn)
     return x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs
 
 
 def _lockstep(bp, x, r, p, rz, rn, tol, dmax, atol_h, maxit, *, A, M, Adot,
-              inv_diag, pdot, pnorm, prec=None):
+              inv_diag, pdot, pnorm, prec=None, monitor=None):
     """The :class:`ManyBatch` loop of :func:`classic_cg_loop`, from the
     initialized per-column state (JAX ``classic_cg_loop`` under
     ``ManyBatch``, ``:426-503``); ``prec`` is a mixed plan or None."""
@@ -293,6 +319,9 @@ def _lockstep(bp, x, r, p, rz, rn, tol, dmax, atol_h, maxit, *, A, M, Adot,
     k = len(rn_h)
     it_h, brk_h = [0] * k, [0.0] * k
     scratch = None
+    if monitor is not None:
+        for j in range(k):
+            monitor(j, 0, rn_h[j])
 
     while any(cont_h):
         masked = not all(cont_h)
@@ -346,12 +375,17 @@ def _lockstep(bp, x, r, p, rz, rn, tol, dmax, atol_h, maxit, *, A, M, Adot,
         rz = torch.where(cont, rz_new, rz)
         rn = torch.where(cont, rn_new, rn)
         it += cont
+        stepped = cont_h
         it_h = [i + int(c) for i, c in zip(it_h, cont_h)]
         cont = _live(rn, tol, dmax, it, maxit, brk)
         # the one host read of the iteration
         rn_h, cont_h, brk_h = torch.stack(
             [rn, cont.to(dt), brk.to(dt)]).tolist()
         syncs += 1
+        if monitor is not None:
+            for j in range(k):
+                if stepped[j]:
+                    monitor(j, it_h[j], rn_h[j])
     reasons = [_reason(rn_h[j], tol_h[j], atol_h, brk_h[j], dmax_h[j])
                for j in range(k)]
     return x, it_h, rn_h, reasons, syncs

@@ -1,23 +1,36 @@
 """KSP: the Krylov solver object.
 
 The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/ksp.py``
-(``KSP``, ``:47``): ``create``, ``set_type`` (cg, gmres, bcgs, preonly),
-``get_pc``, ``set_operators``, ``set_tolerances``, ``set_norm_type``,
-``set_true_residual_check``, ``set_from_options``, ``set_up``, ``solve`` ->
+(``KSP``, ``:47``): ``create``, ``set_type`` (cg, gmres, fgmres, bcgs,
+preonly, lsqr, bicg, cgne), ``get_pc``/``set_pc``, ``set_operators``/
+``get_operators``, ``set_tolerances``/``get_tolerances``,
+``set_norm_type`` (natural for cg), ``set_initial_guess_nonzero``,
+``set_monitor``, ``set_convergence_history``, ``set_true_residual_check``,
+``set_from_options``, ``set_up``, ``view``, ``solve`` ->
 :class:`SolveResult` and ``solve_many`` -> :class:`BatchedSolveResult`
 (petsc4py's ``KSP().create(comm)``, ``setType``, ``getPC``,
 ``setOperators``, ``setFromOptions``, ``setUp``, ``solve(b, x)``,
-``matSolve(B, X)``). A solve starts from a zero guess; only the re-entries
-of the true-residual gate start from the current iterate.
+``matSolve(B, X)``). A solve starts from zero unless the initial guess is
+marked nonzero; the re-entries of the true-residual gate start from the
+current iterate.
 
-A bfloat16 operator runs the mixed-precision plan (``solvers/cg_plans.py``):
-its tolerance scalars travel in ``utils.dtypes.tolerance_dtype``, fp32 (JAX
-``ksp.py:734-738``), and its host blocks as float32.
+Monitors (``set_monitor``, ``-ksp_monitor``, the convergence history) are
+called on the host with each residual norm the loop reads anyway, in
+order, as ``(ksp, iteration, rnorm)``: per iteration, or per restart cycle
+for gmres/fgmres, the iteration-0 norm included. They add no host read;
+one that raises ends the solve with its exception.
+
+A null space on the operator (``Mat.set_nullspace``) is projected out in
+the solve program (``solvers/krylov.py``). A bfloat16 operator runs the
+mixed-precision plan (``solvers/cg_plans.py``): its tolerance scalars travel
+in ``utils.dtypes.tolerance_dtype``, fp32 (JAX ``ksp.py:734-738``), and its
+host blocks as float32.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 
 import numpy as np
@@ -28,8 +41,8 @@ from ..parallel.mesh import numpy_dtype
 from ..utils.convergence import BatchedSolveResult, ConvergedReason, SolveResult
 from ..utils.dtypes import tolerance_dtype
 from ..utils.options import global_options
-from .krylov import (KSP_TYPES, batched_pc_supported, build_ksp_program,
-                     build_ksp_program_many)
+from .krylov import (NATURAL_TYPES, batched_pc_supported, build_ksp_program,
+                     build_ksp_program_many, check_ksp_type)
 from .pc import PC
 
 DEFAULT_RTOL = 1e-5   # PETSc's KSP default
@@ -37,17 +50,20 @@ DEFAULT_ATOL = 1e-50
 DEFAULT_DIVTOL = 1e5  # PETSc's KSP dtol default (DIVERGED_DTOL trigger)
 DEFAULT_MAX_IT = 10000
 
-# petsc4py's integer KSP.NormType values; 'natural' is not ported
-_NORM_TYPES = ("default", "none", "preconditioned", "unpreconditioned")
+# petsc4py's integer KSP.NormType values
+_NORM_TYPES = ("default", "none", "preconditioned", "unpreconditioned",
+               "natural")
 _NORM_BY_INT = {-1: "default", 0: "none", 1: "preconditioned",
-                2: "unpreconditioned"}
+                2: "unpreconditioned", 3: "natural"}
 # the norm each loop monitors (fixed in its recurrence)
 _KERNEL_NORMS = {"gmres": "preconditioned", "preonly": "none"}
 # restarted solvers advance a whole cycle at a time: no fixed-iteration
 # contract (norm type 'none') for them
-_CYCLE_GRANULAR = ("gmres",)
+_CYCLE_GRANULAR = ("gmres", "fgmres")
 # re-entries of the true-residual gate before it reports a failure
 _MAX_REENTRIES = 3
+# petsc4py's default cap on the convergence history
+_HISTORY_LENGTH = 10000
 
 
 class KSP:
@@ -76,6 +92,15 @@ class KSP:
         self._last_true_res = None
         self._last_reentries = 0
         self._reason_flag = False     # -ksp_converged_reason
+        self._view_flag = False       # -ksp_view
+        self._monitor_flag = False    # -ksp_monitor
+        self._monitors = []           # set_monitor callbacks
+        self._initial_guess_nonzero = False
+        # set_convergence_history: the list (None: off), its cap, and
+        # whether each solve clears it
+        self._history = None
+        self._history_length = _HISTORY_LENGTH
+        self._history_reset = False
         self.result = SolveResult()
         self.result_many = BatchedSolveResult()
         if comm is not None:
@@ -87,11 +112,9 @@ class KSP:
         return self
 
     def set_type(self, ksp_type: str):
-        ksp_type = str(ksp_type).lower()
-        if ksp_type not in KSP_TYPES:
-            raise ValueError(f"unknown KSP type {ksp_type!r}; available: "
-                             f"{list(KSP_TYPES)}")
-        self._type = ksp_type
+        """The Krylov type; the JAX package's types that are not ported
+        raise ``NotImplementedError`` naming ROADMAP.md Queue A item 5."""
+        self._type = check_ksp_type(str(ksp_type).lower())
         return self
 
     setType = set_type
@@ -107,6 +130,10 @@ class KSP:
         return self._pc
 
     getPC = get_pc
+
+    def set_pc(self, pc: PC):
+        self._pc = pc
+        return self
 
     def set_operators(self, A, P_mat=None):
         self._mat = A
@@ -129,6 +156,88 @@ class KSP:
         return self
 
     setTolerances = set_tolerances
+
+    def get_tolerances(self):
+        """``(rtol, atol, divtol, max_it)`` (petsc4py's getTolerances)."""
+        return (self.rtol, self.atol, self.divtol, self.max_it)
+
+    getTolerances = get_tolerances
+
+    def get_operators(self):
+        """``(A, P)``: the operator and the preconditioning matrix; raises
+        before ``set_operators``, as petsc4py does."""
+        if self._mat is None:
+            raise RuntimeError("KSP.get_operators: no operators set")
+        return (self._mat, self.get_pc()._mat)
+
+    getOperators = get_operators
+
+    def set_initial_guess_nonzero(self, flag: bool):
+        """Start the next solves from the ``x`` passed in (``X`` for
+        ``solve_many``) instead of zero."""
+        self._initial_guess_nonzero = bool(flag)
+        return self
+
+    setInitialGuessNonzero = set_initial_guess_nonzero
+
+    def set_monitor(self, cb):
+        """Add ``cb(ksp, iteration, rnorm)``, called with every residual
+        norm the solve reads (``-ksp_monitor``'s slot)."""
+        self._monitors.append(cb)
+        return self
+
+    setMonitor = set_monitor
+
+    def set_convergence_history(self, length: int | None = None,
+                                reset: bool = False):
+        """KSPSetResidualHistory: record the residual norms of the next
+        solves, the iteration-0 norm included (``iterations + 1`` entries
+        a solve; one per restart cycle for gmres/fgmres). ``length`` caps
+        the record (petsc4py's 10000 by default); ``reset`` clears it at
+        each solve, otherwise it accumulates. Calling again starts a new
+        record."""
+        self._history = []
+        self._history_length = (_HISTORY_LENGTH if length is None
+                                else int(length))
+        self._history_reset = bool(reset)
+        return self
+
+    setConvergenceHistory = set_convergence_history
+
+    def get_convergence_history(self) -> np.ndarray:
+        """The recorded residual norms, oldest first."""
+        return np.asarray(self._history or [], dtype=float)
+
+    getConvergenceHistory = get_convergence_history
+
+    def _monitor_list(self) -> list:
+        """The callbacks a solve delivers to, in the JAX package's order:
+        the user monitors, ``-ksp_monitor``'s printout when there are none,
+        the history record."""
+        mons = list(self._monitors)
+        if self._monitor_flag and not self._monitors:
+            mons.append(lambda ksp, k, rn: print(
+                f"  {int(k):4d} KSP Residual norm {float(rn):.12e}"))
+        if self._history is not None:
+            def record(_ksp, _it, rn):
+                if len(self._history) < self._history_length:
+                    self._history.append(float(rn))
+            mons.append(record)
+        return mons
+
+    def view(self, file=None):
+        """Print the solver configuration (``-ksp_view``)."""
+        file = file or sys.stdout
+        pc = self.get_pc()
+        print(f"KSP Object: type={self._type}\n"
+              f"  tolerances: rtol={self.rtol:g}, atol={self.atol:g}, "
+              f"divtol={self.divtol:g}, max_it={self.max_it}\n"
+              f"  norm type: {self.get_norm_type()}\n"
+              f"  gmres restart: {self.restart}\n"
+              f"  PC Object: type={pc.get_type()}, "
+              f"factor solver: {pc._factor_solver_type}\n"
+              f"  mesh devices: {self.comm.size if self.comm else '?'}",
+              file=file)
 
     def set_norm_type(self, norm_type):
         if isinstance(norm_type, int):
@@ -155,6 +264,14 @@ class KSP:
         norm raises."""
         t = self._norm_type
         if t == "default":
+            return
+        if t == "natural":
+            if self._type not in NATURAL_TYPES:
+                raise ValueError(
+                    f"norm type 'natural' is available for KSP "
+                    f"{list(NATURAL_TYPES)}, whose recurrence carries "
+                    f"sqrt <r, M r>; {self._type!r} does not — use "
+                    "'default'")
             return
         if t == "none":
             if self._type in _CYCLE_GRANULAR:
@@ -184,10 +301,11 @@ class KSP:
         ``-ksp_atol``, ``-ksp_divtol``, ``-ksp_max_it``,
         ``-ksp_gmres_restart``, ``-ksp_norm_type``, ``-ksp_batch_limit``,
         ``-ksp_true_residual_check``, ``-ksp_true_residual_margin``,
-        ``-ksp_converged_reason``, ``-pc_type``,
-        ``-pc_factor_mat_solver_type``, ``-pc_bjacobi_blocks``,
+        ``-ksp_converged_reason``, ``-ksp_monitor``, ``-ksp_view``,
+        ``-pc_type``, ``-pc_factor_mat_solver_type``, ``-pc_bjacobi_blocks``,
         ``-pc_sor_omega``, ``-pc_asm_overlap``, ``-pc_factor_fill``,
-        ``-pc_setup_device``, ``-pc_mg_smooth_type``."""
+        ``-pc_setup_device``, ``-pc_mg_smooth_type``,
+        ``-pc_composite_type``, ``-pc_composite_pcs`` (comma-separated)."""
         opt = global_options()
         t = opt.get_string("ksp_type")
         if t:
@@ -207,6 +325,8 @@ class KSP:
             "ksp_true_residual_margin", self.true_residual_margin)
         self._reason_flag = opt.get_bool("ksp_converged_reason",
                                          self._reason_flag)
+        self._monitor_flag = opt.get_bool("ksp_monitor", self._monitor_flag)
+        self._view_flag = opt.get_bool("ksp_view", self._view_flag)
         pc = self.get_pc()
         pct = opt.get_string("pc_type")
         if pct:
@@ -225,6 +345,13 @@ class KSP:
         mst = opt.get_string("pc_mg_smooth_type")
         if mst:                       # 'chebyshev' | 'jacobi' (solvers/mg)
             pc.mg_smoother = mst
+        ct = opt.get_string("pc_composite_type")
+        if ct:
+            pc.set_composite_type(ct)
+        cp = opt.get_string("pc_composite_pcs")
+        if cp:
+            pc.set_composite_pcs(*[t.strip() for t in cp.split(",")
+                                   if t.strip()])
         return self
 
     setFromOptions = set_from_options
@@ -270,20 +397,35 @@ class KSP:
                 "would stop looser than rtol and defeat the gate")
         return margin
 
-    def solve(self, b, x, *, _rtol=None, _atol=None, _guess_nonzero=False,
-              _no_reenter=False) -> SolveResult:
+    def solve(self, b, x, *, _rtol=None, _atol=None, _guess_nonzero=None,
+              _no_reenter=False, _mon_offset=0) -> SolveResult:
         """Solve ``A x = b``; the solution is written into ``x``. The
         underscore arguments are the true-residual gate's re-entry: other
-        tolerances, and the current ``x`` as the initial guess. With
-        ``-ksp_converged_reason`` the outcome is printed, as PETSc does."""
-        res = self._solve(b, x, _rtol, _atol, _guess_nonzero, _no_reenter)
-        if self._reason_flag and not _no_reenter:
-            verb = "converged" if res.converged else "did not converge"
-            print(f"Linear solve {verb} due to {res.reason_name} "
-                  f"iterations {res.iterations}")
+        tolerances, the current ``x`` as the initial guess, and the
+        iterations already spent, by which the monitors' iteration numbers
+        are offset. With ``-ksp_converged_reason`` the outcome is printed,
+        and with ``-ksp_view`` the configuration, as PETSc does."""
+        res = self._solve(b, x, _rtol, _atol, _guess_nonzero, _no_reenter,
+                          _mon_offset)
+        if not _no_reenter:
+            if self._view_flag:
+                self.view()
+            if self._reason_flag:
+                verb = "converged" if res.converged else "did not converge"
+                print(f"Linear solve {verb} due to {res.reason_name} "
+                      f"iterations {res.iterations}")
         return res
 
-    def _solve(self, b, x, _rtol, _atol, _guess_nonzero, _no_reenter):
+    def _nullspace_basis(self, mat):
+        """The operator's null-space basis on its device, or None (no null
+        space, or an empty one: JAX ``ksp.py:684``)."""
+        ns = getattr(mat, "nullspace", None)
+        if ns is None or ns.dim == 0:
+            return None
+        return ns.device_array(mat.comm, mat.shape[0], mat.dtype)
+
+    def _solve(self, b, x, _rtol, _atol, _guess_nonzero, _no_reenter,
+               _mon_offset):
         mat = self._mat
         if mat is None:
             raise RuntimeError("KSP.solve: no operators set")
@@ -292,15 +434,28 @@ class KSP:
         pc = self.get_pc()
         if pc.kind == "hostlu":
             return self._solve_hostlu(b, x)
+        if self._history is not None and self._history_reset:
+            self._history.clear()
         norm_none, rtol, atol, divtol = self._run_tolerances()
         if _rtol is not None:
             rtol, atol = _rtol, _atol
+        guess_nonzero = (self._initial_guess_nonzero if _guess_nonzero is None
+                         else _guess_nonzero)
         gate = (self._true_residual_check and self._type != "preonly"
                 and not norm_none)
         margin = self._margin() if gate else 1.0
+        monitors = self._monitor_list()
+        monitor = None
+        if monitors:
+            def monitor(it, rn):
+                for m in monitors:
+                    m(self, it + _mon_offset, rn)
         prog = build_ksp_program(mat.comm, self._type, pc, mat,
-                                 restart=self.restart, true_res=gate)
-        x0 = (x.data.clone() if _guess_nonzero
+                                 restart=self.restart, true_res=gate,
+                                 nullspace=self._nullspace_basis(mat),
+                                 monitor=monitor,
+                                 natural=self._norm_type == "natural")
+        x0 = (x.data.clone() if guess_nonzero
               else torch.zeros_like(b.data))
         t0 = time.perf_counter()
         out = prog(b.data, x0, *_tolerances(mat.dtype, rtol * margin,
@@ -326,10 +481,10 @@ class KSP:
                                       ConvergedReason.CONVERGED_RTOL, wall,
                                       syncs)
         if not _no_reenter and self.result.converged:
-            self._reenter(b, x, target, true_rn, rnorm)
+            self._reenter(b, x, target, true_rn, rnorm, _mon_offset)
         return self.result
 
-    def _reenter(self, b, x, target, trn, last_mon_rn):
+    def _reenter(self, b, x, target, trn, last_mon_rn, mon_offset):
         """The gate (JAX ``ksp.py:971-1031``): while the true residual misses
         ``target``, solve again from the current iterate, at most
         ``_MAX_REENTRIES`` times; the result sums the iterations."""
@@ -344,15 +499,17 @@ class KSP:
                                           total[1], total[2])
                 break
             attempts += 1
-            # a preconditioned-norm loop exits on its own norm: map the
-            # unpreconditioned target through the ratio seen at this iterate
+            # a loop on the preconditioned or natural norm exits on its own
+            # norm: map the unpreconditioned target through the ratio seen
+            # at this iterate
             sub_atol = target
-            if (self.get_norm_type() == "preconditioned"
+            if (self.get_norm_type() in ("preconditioned", "natural")
                     and math.isfinite(last_mon_rn) and last_mon_rn > 0
                     and trn > 0):
                 sub_atol = target * last_mon_rn / trn
             sub = self.solve(b, x, _rtol=0.0, _atol=sub_atol,
-                             _guess_nonzero=True, _no_reenter=True)
+                             _guess_nonzero=True, _no_reenter=True,
+                             _mon_offset=mon_offset + total[0])
             total = [total[0] + sub.iterations, total[1] + sub.wall_time,
                      total[2] + sub.host_syncs]
             last_mon_rn = sub.residual_norm
@@ -387,19 +544,25 @@ class KSP:
 
     def solve_many(self, B, X=None) -> BatchedSolveResult:
         """Solve ``A X = B`` for a block of ``k`` right-hand sides (PETSc's
-        ``KSPMatSolve``; JAX ``ksp.py:1471``), each from a zero guess.
+        ``KSPMatSolve``; JAX ``ksp.py:1471``), each from a zero guess, or
+        from ``X`` with ``set_initial_guess_nonzero(True)``.
 
         ``B`` is an ``(n, k)`` host array or a list of ``k`` Vecs; ``X`` is
         None, an ``(n, k)`` host array or a list of ``k`` Vecs, and receives
-        the solution. Returns per-column iterations, residual norms and
-        reasons; a column that converges early freezes while the others run
-        on.
+        the solution. Returns per-column iterations, residual norms, reasons
+        and, when monitoring, histories; a column that converges early
+        freezes while the others run on.
 
-        CG with PC none/jacobi/bjacobi/lu (dense) and norm type
-        default/none runs the ``k`` recurrences in lockstep: one operator
-        pass and one reduction per phase serve every column. Other
-        configurations (PC mg or host LU, GMRES/BiCGStab/preonly, the
-        true-residual gate) solve the columns one by one. ``batch_limit``
+        CG with PC none/jacobi/bjacobi/lu (dense), no null space and norm
+        type default/none runs the ``k`` recurrences in lockstep: one
+        operator pass and one reduction per phase serve every column. With
+        ``-ksp_true_residual_check`` the program's epilogue returns every
+        column's ``||b_j - A x_j||`` and ``||b_j||``; the columns whose true
+        residual misses ``max(rtol ||b_j||, atol)`` send the whole block
+        back in from the current ``X``, where the columns that already meet
+        their tolerance freeze at once (JAX ``:1588-1630``). Other
+        configurations (PC mg, shell or composite, host LU, the other KSP
+        types, a null space) solve the columns one by one. ``batch_limit``
         (``-ksp_batch_limit``) splits a wider block into batched solves of
         at most that many columns.
         """
@@ -436,31 +599,109 @@ class KSP:
         pc = self.get_pc()
         if not (self._type == "cg" and batched_pc_supported(pc)
                 and self._norm_type in ("default", "none")
-                and not self._true_residual_check):
+                and self._nullspace_basis(mat) is None
+                and hasattr(mat, "local_spmv_many")):
             return self._solve_many_sequential(B, X, k, b_vecs, x_vecs)
         comm = mat.comm
         norm_none, rtol, atol, divtol = self._run_tolerances()
-        prog = build_ksp_program_many(comm, self._type, pc, mat)
-        # one placement of the block: stacked on the card from Vecs, or
+        gate = self._true_residual_check and not norm_none
+        margin = self._margin() if gate else 1.0
+        monitored = bool(self._monitor_list())
+        histories = [[] for _ in range(k)]
+
+        def record(j, it, rn):
+            histories[j].append(float(rn))
+
+        prog = build_ksp_program_many(comm, self._type, pc, mat,
+                                      true_res=gate,
+                                      monitor=record if monitored else None)
+        # one placement of each block: stacked on the card from Vecs, or
         # transposed on the host and copied once
-        Bd = (torch.stack([b.data.view(comm.size, -1) for b in B],
-                          dim=1).to(mat.dtype)
-              if b_vecs else comm.put_cols(B, mat.dtype))
+        place = lambda blk, is_vecs: (
+            torch.stack([v.data.view(comm.size, -1) for v in blk],
+                        dim=1).to(mat.dtype)
+            if is_vecs else comm.put_cols(blk, mat.dtype))
+        Bd = place(B, b_vecs)
+        tols = _tolerances(mat.dtype, rtol * margin, atol * margin, divtol)
         t0 = time.perf_counter()
-        Xd, iters, rnorms, reasons, syncs = prog(
-            Bd, torch.zeros_like(Bd), *_tolerances(mat.dtype, rtol, atol,
-                                                   divtol), self.max_it)
+        Xd = (place(X, x_vecs) if self._initial_guess_nonzero
+              else torch.zeros_like(Bd))
+        out = prog(Bd, Xd, *tols, self.max_it)
+        Xd, iters, rnorms, reasons, syncs = out[:5]
+        reasons = [_final_reason(r, rn, norm_none)
+                   for r, rn in zip(reasons, rnorms)]
+        self._last_reentries = 0
+        if gate:
+            Xd, iters, rnorms, reasons, syncs = self._gate_many(
+                comm, pc, mat, Bd, Xd, iters, rnorms, reasons, syncs,
+                out[5], out[6], rtol, atol, tols)
         if x_vecs:
             for j, xv in enumerate(X):
                 xv.data = Xd[:, j].reshape(-1).to(xv.dtype)
         else:
             X[...] = comm.fetch_cols(Xd, n)
         wall = time.perf_counter() - t0
-        reasons = [_final_reason(r, rn, norm_none)
-                   for r, rn in zip(reasons, rnorms)]
+        if monitored:
+            self._replay_many(histories)
         self.result_many = BatchedSolveResult(
-            iters, rnorms, reasons, wall, X, [[] for _ in range(k)], syncs)
+            iters, rnorms, reasons, wall, X, histories, syncs)
         return self.result_many
+
+    def _gate_many(self, comm, pc, mat, Bd, Xd, iters, rnorms, reasons,
+                   syncs, trn, bn, rtol, atol, tols):
+        """The per-column true-residual gate of a batched solve (JAX
+        ``ksp.py:1776-1875``): a column that claims convergence must meet
+        ``max(rtol ||b_j||, atol)`` in its true residual; while one misses,
+        the whole block re-enters from the current ``X`` (at most
+        ``_MAX_REENTRIES`` times) and the passes' iterations add up per
+        column. A column whose loop stopped short of the margin-tightened
+        tolerance but whose true residual meets the target has converged."""
+        k = len(iters)
+        iters, rnorms, reasons = list(iters), list(rnorms), list(reasons)
+        target = [max(rtol * v, atol) for v in bn]
+        prog2 = None
+        while True:
+            for j in range(k):
+                if (reasons[j] <= 0
+                        and reasons[j] != ConvergedReason.DIVERGED_BREAKDOWN
+                        and math.isfinite(trn[j]) and trn[j] <= target[j]):
+                    reasons[j] = ConvergedReason.CONVERGED_RTOL
+                    rnorms[j] = float(trn[j])
+            bad = [j for j in range(k) if reasons[j] > 0
+                   and not (math.isfinite(trn[j]) and trn[j] <= target[j])]
+            if not bad:
+                break
+            if self._last_reentries == _MAX_REENTRIES:
+                for j in bad:
+                    reasons[j] = ConvergedReason.DIVERGED_MAX_IT
+                    rnorms[j] = float(trn[j])
+                break
+            self._last_reentries += 1
+            if prog2 is None:
+                prog2 = build_ksp_program_many(comm, self._type, pc, mat,
+                                               true_res=True)
+            Xd, it2, rn2, rs2, s2, trn, bn = prog2(Bd, Xd, *tols,
+                                                   self.max_it)
+            syncs += s2
+            target = [max(rtol * v, atol) for v in bn]
+            for j in range(k):
+                iters[j] += it2[j]
+                rnorms[j] = float(rn2[j])
+                reasons[j] = (ConvergedReason.DIVERGED_NANORINF
+                              if not math.isfinite(rnorms[j]) else rs2[j])
+        return Xd, iters, rnorms, reasons, syncs
+
+    def _replay_many(self, histories):
+        """Deliver a batched solve's per-column residual norms to the
+        monitors and the history, column after column (the JAX replay,
+        ``ksp.py:1744-1768``)."""
+        if self._history is not None and self._history_reset:
+            self._history.clear()
+        monitors = self._monitor_list()
+        for hist in histories:
+            for it, rn in enumerate(hist):
+                for m in monitors:
+                    m(self, it, rn)
 
     def _solve_many_chunked(self, B, X, k, limit, b_vecs, x_vecs):
         """``-ksp_batch_limit``: ceil(k / limit) batched solves."""
@@ -481,26 +722,32 @@ class KSP:
 
     def _solve_many_sequential(self, B, X, k, b_vecs, x_vecs):
         """The columns one by one through :meth:`solve`, for configurations
-        without a batched kernel (PC mg); the same per-column results."""
+        without a batched program; the same per-column results, and each
+        column's own slice of the history when one is recorded."""
         mat = self._mat
         res = BatchedSolveResult(X=X)
         t0 = time.perf_counter()
         for j in range(k):
             bv = B[j] if b_vecs else Vec.from_global(
                 mat.comm, B[:, j], dtype=mat.dtype, layout=mat.layout)
-            xv = X[j] if x_vecs else Vec(mat.comm, mat.shape[0],
-                                         dtype=mat.dtype, layout=mat.layout)
+            xv = X[j] if x_vecs else Vec.from_global(
+                mat.comm, X[:, j], dtype=mat.dtype, layout=mat.layout)
+            prev = len(self._history) if self._history is not None else 0
             sub = self.solve(bv, xv)
             if not x_vecs:
                 X[:, j] = xv.to_numpy()
             res.iterations.append(sub.iterations)
             res.residual_norms.append(sub.residual_norm)
             res.reasons.append(sub.reason)
-            res.histories.append([])
+            res.histories.append(
+                [] if self._history is None else
+                [float(v) for v in self._history[
+                    0 if self._history_reset else prev:]])
             res.host_syncs += sub.host_syncs
         res.wall_time = time.perf_counter() - t0
         self.result_many = res
         return res
+
     def __repr__(self):
         return (f"KSP(type={self._type!r}, pc={self.get_pc().get_type()!r}, "
                 f"rtol={self.rtol:g}, max_it={self.max_it})")

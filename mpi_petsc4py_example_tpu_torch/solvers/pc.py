@@ -1,5 +1,6 @@
 """Preconditioners: PC ``none``, ``jacobi``, ``bjacobi``, ``sor``, ``ssor``,
-``ilu``, ``icc``, ``asm``, ``lu``, ``cholesky`` and ``mg``.
+``ilu``, ``icc``, ``asm``, ``lu``, ``cholesky``, ``mg``, ``shell`` and
+``composite``.
 
 The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/pc.py`` (``PC``,
 ``:67``). On a uniform-diagonal stencil operator the CG fast path never calls
@@ -35,6 +36,12 @@ plus two Newton steps behind the JAX package's quality gate; a gate or probe
 that fails sends the set-up to the host, ``setup_mode`` says which ran, and
 an exception on the device propagates.
 
+The user PCs: ``shell`` applies a torch callable on the whole vector
+(``set_shell_apply``; lifted like a ``ShellMat``'s ``mult``), ``composite``
+combines child PCs, additive (``z = sum_i M_i r``) or multiplicative (``z <-
+z + M_i (r - A z)`` over the PC operator's product). :meth:`PC.local_apply_transpose`
+is PETSc's PCApplyTranspose, the shadow preconditioner of KSP bicg.
+
 On a bfloat16 operator (the mixed-precision plan's storage) jacobi stores its
 inverse diagonal in bfloat16, and the block and lu factors are stored in
 bfloat16 and contract in fp32 (``ops.spmv.widened_einsum``), as the JAX
@@ -45,6 +52,7 @@ kernels take float32/float64 only (``ROADMAP.md`` Queue A item 5).
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
@@ -52,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.spmv import widened_einsum
-from ..parallel.mesh import numpy_dtype, torch_dtype
+from ..parallel.mesh import full_vector_local_apply, numpy_dtype, torch_dtype
 from ..utils.dtypes import host_dtype, is_low_precision, real_eps
 from .mg import make_vcycle, make_vcycle3d
 from .tridiag import (banded_to_blocks, bpcr_apply, bpcr_setup,
@@ -60,9 +68,13 @@ from .tridiag import (banded_to_blocks, bpcr_apply, bpcr_setup,
                       polished_inverse)
 
 PC_TYPES = ("none", "jacobi", "bjacobi", "lu", "cholesky", "mg",
-            "sor", "ssor", "ilu", "icc", "asm")
+            "sor", "ssor", "ilu", "icc", "asm", "shell", "composite")
 # the JAX package's other types, and the ROADMAP.md Queue A item each awaits
-_UNPORTED = {"gamg": 7, "amg": 7, "shell": 3, "composite": 3}
+_UNPORTED = {"gamg": 7, "amg": 7}
+_COMPOSITE_TYPES = ("additive", "multiplicative")
+# shell applies are numbered, so two PCs with different functions never
+# share a program key (as ShellMat's are)
+_shell_uid = itertools.count(1)
 # the kinds whose applies are per-shard dense blocks, as bjacobi's
 _BLOCK_TYPES = ("sor", "ssor", "ilu", "icc")
 
@@ -101,6 +113,13 @@ class PC:
         self.setup_mode = None        # 'device' | 'host' once a factor PC
                                       # is set up
         self.setup_breakdown = None   # device set-up: extract_s, invert_s
+        # PC shell: the user's apply (and transpose) on the whole vector
+        self._shell_apply = None
+        self._shell_apply_t = None
+        self._shell_uid = 0
+        # PC composite: the children and how they combine
+        self.composite_type = "additive"   # PETSc's PC_COMPOSITE_ADDITIVE
+        self._sub_pcs: list[PC] = []
 
     def set_type(self, pc_type: str):
         pc_type = str(pc_type).lower()
@@ -130,6 +149,69 @@ class PC:
         return self
 
     setFactorSolverType = set_factor_solver_type
+
+    # ---- PC shell ---------------------------------------------------------------
+    def set_shell_apply(self, fn):
+        """PCShellSetApply: ``z = fn(r)`` on the whole global residual, a
+        tensor on the communicator's device."""
+        self._shell_apply = fn
+        self._shell_uid = next(_shell_uid)
+        self._built_for = None
+        return self
+
+    setShellApply = set_shell_apply
+
+    def set_shell_apply_transpose(self, fn):
+        """PCShellSetApplyTranspose: ``z = fn(r)`` for ``M^T`` (KSP bicg with
+        a shell PC)."""
+        self._shell_apply_t = fn
+        self._shell_uid = next(_shell_uid)
+        self._built_for = None
+        return self
+
+    setShellApplyTranspose = set_shell_apply_transpose
+
+    # ---- PC composite -----------------------------------------------------------
+    def set_composite_type(self, ctype: str):
+        """'additive' (``z = sum_i M_i r``) or 'multiplicative' (each child
+        corrects the residual of the sum so far, through the operator)."""
+        ctype = str(ctype).lower()
+        if ctype not in _COMPOSITE_TYPES:
+            raise ValueError(f"unknown composite type {ctype!r}; "
+                             f"available: {_COMPOSITE_TYPES}")
+        if ctype != self.composite_type:
+            self.composite_type = ctype
+            self._built_for = None
+        return self
+
+    setCompositeType = set_composite_type
+
+    def set_composite_pcs(self, *types):
+        """Replace the children with new PCs of the given types
+        (PCCompositeAddPCType, once per type)."""
+        if len(types) == 1 and isinstance(types[0], (list, tuple)):
+            types = tuple(types[0])
+        self._sub_pcs = []
+        for t in types:
+            self.add_composite_pc(t)
+        return self
+
+    setCompositePCs = set_composite_pcs
+
+    def add_composite_pc(self, pc_type: str) -> "PC":
+        child = PC(self.comm)
+        child.set_type(pc_type)
+        self._sub_pcs.append(child)
+        self._built_for = None
+        return child
+
+    addCompositePC = add_composite_pc
+
+    def get_composite_pc(self, i: int) -> "PC":
+        """Child ``i``; tune its options before ``set_up``."""
+        return self._sub_pcs[i]
+
+    getCompositePC = get_composite_pc
 
     def set_operators(self, mat):
         if mat is not self._mat:
@@ -164,7 +246,24 @@ class PC:
                 int(s) for s in self._arrays[0].shape[:3])
         if k == "mg":
             return ("mg", self.mg_smoother)
+        if k == "shell":
+            return ("shell", self._shell_uid)
+        if k == "composite":
+            # the multiplicative apply runs the operator's product
+            mat_key = (self._mat.program_key()
+                       if (self.composite_type == "multiplicative"
+                           and self._mat is not None) else ())
+            return (("composite", self.composite_type, mat_key)
+                    + tuple(c.program_key() for c in self._sub_pcs))
         return (k,)
+
+    def _tunables_key(self) -> tuple:
+        """Every setting the built PC depends on, recursively through the
+        composite children: the rebuild part of the set-up key."""
+        return (self._type, self.bjacobi_blocks, self.sor_omega,
+                self.asm_overlap, self.factor_fill, self.setup_device,
+                self.mg_smoother, self._shell_uid, self.composite_type,
+                tuple(c._tunables_key() for c in self._sub_pcs))
 
     # ---- set-up ---------------------------------------------------------------
     def set_up(self, mat=None):
@@ -175,9 +274,7 @@ class PC:
         mat = self._mat
         if mat is None:
             raise RuntimeError("PC.set_up: no operator set")
-        key = (mat, getattr(mat, "_state", 0), self._type,
-               self.bjacobi_blocks, self.sor_omega, self.asm_overlap,
-               self.factor_fill, self.setup_device, self.mg_smoother)
+        key = (mat, getattr(mat, "_state", 0), self._tunables_key())
         if self._built_for == key:
             return self
         self._hostlu = None
@@ -198,6 +295,18 @@ class PC:
             self._arrays = _build_asm(mat, self.asm_overlap)
         elif t in ("lu", "cholesky"):
             self._set_up_factor(mat, t)
+        elif t == "shell":
+            if self._shell_apply is None:
+                raise RuntimeError(
+                    "PC 'shell' has no apply function — call "
+                    "set_shell_apply(fn) first")
+        elif t == "composite":
+            if not self._sub_pcs:
+                raise RuntimeError(
+                    "PC 'composite' has no children — call "
+                    "set_composite_pcs('jacobi', 'sor', ...) first")
+            for child in self._sub_pcs:
+                child.set_up(mat)
         self._built_for = key
         return self
 
@@ -290,12 +399,86 @@ class PC:
             return self._asm_apply(comm, n)
         if k in ("crtri", "crband"):
             return self._cr_apply(comm, n)
+        if k == "shell":
+            return full_vector_local_apply(self._shell_apply, comm, n)
+        if k == "composite":
+            return self._composite_apply(comm, n)
         minv = self._arrays[0]              # lu: (n_pad, n_pad), replicated
 
         def apply(r):
             return widened_einsum("ij,j->i", minv,
                                   comm.all_gather(r)).view(r.shape)
         return apply
+
+    def _composite_apply(self, comm, n):
+        """PC composite (JAX ``pc.py:562-590``): additive sums the
+        children's applies; multiplicative runs them in turn, each on the
+        residual ``r - A z`` of the sum so far (the first on ``r``)."""
+        subs = [c.local_apply(comm, n) for c in self._sub_pcs]
+        if self.composite_type == "additive":
+            def apply(r):
+                z = torch.zeros_like(r)
+                for ap in subs:
+                    z = z + ap(r)
+                return z
+            return apply
+        spmv = self._mat.local_spmv(comm)
+
+        def apply(r):
+            z = None
+            for ap in subs:
+                z = ap(r) if z is None else z + ap(r - spmv(z))
+            return z
+        return apply
+
+    def local_apply_transpose(self, comm, n: int):
+        """``z = M^T r`` on shard-stacked tensors (PETSc's PCApplyTranspose,
+        the shadow preconditioner of KSP bicg; JAX ``pc.py:659``), or None
+        when the kind has none. The diagonal kinds and the V-cycle are
+        symmetric and reuse the forward apply, as does cholesky's
+        cyclic-reduction solve; bjacobi and its block kinds and dense lu
+        transpose their explicit inverses; composite additive sums its
+        children's transposes; shell takes ``set_shell_apply_transpose``'s
+        function. asm, lu's cyclic-reduction modes and composite
+        multiplicative have none."""
+        if self._type not in ("none", "mg"):
+            self.set_up()
+        k = self.kind
+        if k in ("none", "jacobi", "mg"):
+            return self.local_apply(comm, n)
+        if k in ("crtri", "crband") and self._type == "cholesky":
+            return self.local_apply(comm, n)
+        if k == "bjacobi":
+            binv = self._arrays[0]
+            nblk, bs = binv.shape[0], binv.shape[1]
+
+            def apply_t(r):
+                return widened_einsum("bij,bi->bj", binv,
+                                      r.reshape(nblk, bs)).view(r.shape)
+            return apply_t
+        if k == "lu":
+            minv = self._arrays[0]
+
+            def apply_t(r):
+                return widened_einsum("ji,j->i", minv,
+                                      comm.all_gather(r)).view(r.shape)
+            return apply_t
+        if k == "shell":
+            if self._shell_apply_t is None:
+                return None
+            return full_vector_local_apply(self._shell_apply_t, comm, n)
+        if k == "composite" and self.composite_type == "additive":
+            subs = [c.local_apply_transpose(comm, n) for c in self._sub_pcs]
+            if any(ap is None for ap in subs):
+                return None
+
+            def apply_t(r):
+                z = torch.zeros_like(r)
+                for ap in subs:
+                    z = z + ap(r)
+                return z
+            return apply_t
+        return None
 
     def _asm_apply(self, comm, n):
         """Restricted additive Schwarz (JAX ``pc.py:485-507``): shard ``i``

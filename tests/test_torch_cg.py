@@ -225,14 +225,24 @@ def test_set_from_options_subset():
 
 @pytest.mark.parametrize("call", ["ksp_type", "pc_type", "norm_type"])
 def test_unported_choices_raise(call):
+    """A choice in neither package raises ``ValueError``; a JAX KSP type the
+    port has not ported yet raises ``NotImplementedError`` naming its Queue
+    A item; the natural norm is cg's only, as in the JAX package."""
     ksp = pt.KSP().create(pt.DeviceComm(device="cpu"))
-    with pytest.raises(ValueError):
-        if call == "ksp_type":
+    if call == "ksp_type":
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
             ksp.set_type("tfqmr")
-        elif call == "pc_type":
+        with pytest.raises(ValueError):
+            ksp.set_type("nosuchtype")
+    elif call == "pc_type":
+        with pytest.raises(ValueError):
             ksp.get_pc().set_type("hypre")   # in neither package
-        else:
-            ksp.set_norm_type("natural")
+    else:
+        with pytest.raises(ValueError):
+            ksp.set_norm_type("nosuchnorm")
+        ksp.set_type("gmres").set_norm_type("natural")
+        with pytest.raises(ValueError, match="natural"):
+            ksp._check_norm_type()
 
 
 def test_solve_without_operators_raises():
@@ -282,8 +292,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           if n.split(".")[0] in forbidden]
     sources = _port_sources()
     assert len(sources) > 15
-    # the facade, its drivers, the runner and the eigensolver are port
-    # files too
+    # the facade, its drivers, the runner, the eigensolver and the
+    # shell/null-space/binary-I/O modules are port files too
     names = {p.relative_to(REPO).as_posix() for p in sources}
     assert {"mpi_petsc4py_example_tpu_torch/run.py",
             "mpi_petsc4py_example_tpu_torch/facade/petsc4py/PETSc.py",
@@ -298,6 +308,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_petsc4py_example_tpu_torch/solvers/refine.py",
             "mpi_petsc4py_example_tpu_torch/solvers/tridiag.py",
             "mpi_petsc4py_example_tpu_torch/utils/dtypes.py",
+            "mpi_petsc4py_example_tpu_torch/core/shell.py",
+            "mpi_petsc4py_example_tpu_torch/core/nullspace.py",
+            "mpi_petsc4py_example_tpu_torch/utils/petsc_io.py",
+            "mpi_petsc4py_example_tpu_torch/facade/drivers/advanced.py",
             } <= names
     assert not offenders, offenders
 

@@ -360,3 +360,195 @@ class TestLiteralReferenceDrivers:
         lam = eigenvalues(r.stdout)
         want = _tridiag_spectrum()[0]
         assert lam and abs(lam[0].real - want) <= 1e-8 * abs(want)
+
+
+# ---- the KSP/PC/Mat/Vec surface: shells, composites, null spaces, binary I/O ----
+
+ADVANCED = DRIVERS / "advanced.py"
+
+
+def test_advanced_flow_prints_what_the_jax_example_prints(monkeypatch,
+                                                          capsys):
+    """Scenarios 1-3 of ``examples/advanced.py`` (a ShellMat, composite
+    jacobi+sor under FGMRES, a PETSc binary round trip): the port's driver
+    prints the JAX example's lines, reasons, iteration counts and errors;
+    the errors are at most 1e-8."""
+    import runpy
+    monkeypatch.setattr(sys, "argv", ["advanced.py"])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_path(str(REPO / "examples" / "advanced.py"),
+                       run_name="__main__")
+    assert done.value.code == 0
+    jax_lines = capsys.readouterr().out.strip().splitlines()[:3]
+    from mpi_petsc4py_example_tpu_torch.facade.drivers import advanced
+    assert advanced.main(["advanced.py"], device="cpu") == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines == jax_lines
+    assert all("CONVERGED" in line for line in lines)
+    errs = [float(line.split("max err")[1]) for line in lines
+            if "max err" in line]
+    assert len(errs) == 2 and max(errs) <= 1e-8
+
+
+def test_advanced_flow_refuses_without_cuda():
+    """Without ``--device cpu`` the driver runs on the card, and refuses on
+    a machine without one."""
+    r = subprocess.run([sys.executable, str(ADVANCED)], capture_output=True,
+                       text=True, cwd=REPO, timeout=300,
+                       env={k: v for k, v in os.environ.items()
+                            if k != "PYTHONPATH"} | {"PYTHONPATH": str(REPO)})
+    if torch.cuda.is_available():
+        assert r.returncode == 0 and r.stdout.count("CONVERGED") == 3
+    else:
+        assert r.returncode != 0 and "no CUDA" in r.stderr
+
+
+SURFACE_API = textwrap.dedent("""
+    import os
+    import sys
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import petsc4py
+    petsc4py.init(sys.argv)
+    from mpi4py import MPI
+    from petsc4py import PETSc
+
+    comm = MPI.COMM_WORLD
+    rank, size = comm.Get_rank(), comm.Get_size()
+    tmp = sys.argv[1]
+    n = 30
+    main = 2 * np.ones(n)
+    main[0] = main[-1] = 1.0
+    N = sp.diags([-np.ones(n - 1), main, -np.ones(n - 1)], [-1, 0, 1]).tocsr()
+    A = (N + sp.diags([0.3 * np.ones(n - 1)], [1]) + sp.eye(n)).tocsr()
+    base, extra = divmod(n, size)
+    counts = [base + (r < extra) for r in range(size)]
+    rs = sum(counts[:rank])
+    re = rs + counts[rank]
+    csr = (A.indptr[rs:re + 1] - A.indptr[rs],
+           A.indices[A.indptr[rs]:A.indptr[re]],
+           A.data[A.indptr[rs]:A.indptr[re]])
+    a = PETSc.Mat().createAIJ(comm=comm, size=A.shape, csr=csr)
+    x, b = a.getVecs()
+    b.set(1.0)
+    y = b.duplicate()
+    # Vec dot/scale/axpy, Mat multTranspose
+    assert abs(b.dot(b) - n) < 1e-12
+    b.scale(2.0)
+    y.axpy(0.5, b)
+    assert np.allclose(y.array, 1.0)
+    a.multTranspose(y, x)
+    assert np.allclose(x.array, (A.T @ np.ones(n))[rs:re])
+
+    # a shell with the same product solves like the assembled matrix
+    Ad = torch.tensor(A.toarray())
+    s = PETSc.Mat().createShell(n, lambda v: Ad @ v,
+                                mult_transpose=lambda v: Ad.T @ v,
+                                diagonal=A.diagonal(), comm=comm)
+    xs, bs = s.getVecs()
+    bs.set(1.0)
+    ksp = PETSc.KSP().create(comm)
+    ksp.setOperators(s)
+    ksp.setType("bicg")
+    ksp.getPC().setType("jacobi")
+    ksp.setTolerances(rtol=1e-10)
+    assert ksp.getTolerances()[0] == 1e-10
+    seen = []
+    ksp.setMonitor(lambda k, it, rn: seen.append(it))
+    ksp.setConvergenceHistory()
+    ksp.solve(bs, xs)
+    its = ksp.getIterationNumber()
+    assert ksp.getConvergedReason() > 0
+    if rank == 0:        # rank 0's KSP runs the solve and its monitors
+        assert seen == list(range(its + 1))
+    assert len(ksp.getConvergenceHistory()) == its + 1
+    X = np.empty(n) if rank == 0 else None
+    comm.Gatherv(xs.array, X)
+    if rank == 0:
+        assert np.allclose(A @ X, np.ones(n), atol=1e-8)
+
+    # warm start: the converged x takes no iteration
+    ksp.setInitialGuessNonzero(True)
+    ksp.solve(bs, xs)
+    assert ksp.getIterationNumber() == 0
+
+    # PC shell and composite
+    ksp2 = PETSc.KSP().create(comm)
+    ksp2.setOperators(a)
+    ksp2.setType("fgmres")
+    pc = ksp2.getPC()
+    pc.setType("composite")
+    pc.setCompositeType("multiplicative")
+    pc.setCompositePCs("jacobi", "sor")
+    assert pc.getCompositePC(1).getType() == "sor"
+    x.set(0.0)
+    b.set(1.0)
+    ksp2.solve(b, x)
+    assert ksp2.getConvergedReason() > 0
+    pc.setType("shell")
+    d = torch.tensor(A.diagonal())
+    pc.setShellApply(lambda r: r / d)
+    x.set(0.0)
+    ksp2.solve(b, x)
+    assert ksp2.getConvergedReason() > 0
+
+    # a null space on the singular Neumann operator
+    na = PETSc.Mat().createAIJ(
+        comm=comm, size=N.shape,
+        csr=(N.indptr[rs:re + 1] - N.indptr[rs],
+             N.indices[N.indptr[rs]:N.indptr[re]],
+             N.data[N.indptr[rs]:N.indptr[re]]))
+    ns = PETSc.NullSpace().create(constant=True, comm=comm)
+    assert ns.test(na)
+    na.setNullSpace(ns)
+    assert na.getNullSpace().dim == 1      # rank 0's, set collectively
+    ksp3 = PETSc.KSP().create(comm)
+    ksp3.setOperators(na)
+    ksp3.setType("cg")
+    ksp3.setTolerances(rtol=1e-10)
+    xn, bn = na.getVecs()
+    bn.setArray((np.arange(n) - (n - 1) / 2.0)[rs:re])
+    ksp3.solve(bn, xn)
+    assert ksp3.getConvergedReason() > 0
+    Xn = np.empty(n) if rank == 0 else None
+    comm.Gatherv(xn.array, Xn)
+    if rank == 0:
+        assert abs(Xn.mean()) < 1e-10
+
+    # binary round trip through a Viewer: Mat then Vec in one file
+    path = os.path.join(tmp, "sys.petsc")
+    vw = PETSc.Viewer().createBinary(path, "w", comm=comm)
+    a.view(vw)
+    b.view(vw)
+    vw.destroy()
+    vr = PETSc.Viewer().createBinary(path, "r", comm=comm)
+    a2 = PETSc.Mat().create(comm)
+    a2.load(vr)
+    b2 = a2.getVecs()[1]
+    b2.load(vr)
+    vr.destroy()
+    assert abs(a2.core.to_scipy() - A).max() == 0
+    assert np.all(b2.array == 1.0)
+
+    # zeroRows with x and b
+    x.set(3.0)
+    a2.zeroRows([0, n - 1], diag=2.0, x=x, b=b2)
+    if rank == 0:
+        assert b2.array[0] == 6.0
+    if rank == 0:
+        print("surface ok", size)
+""")
+
+
+@pytest.mark.parametrize("nranks", [1, 4])
+def test_facade_surface_api(nranks, tmp_path):
+    """Vec dot/scale/axpy/view/load, Mat createShell/multTranspose/
+    setNullSpace/zeroRows/view/load, Viewer, NullSpace, PC shell/composite
+    and KSP setMonitor/setConvergenceHistory/setInitialGuessNonzero/
+    getTolerances, on one rank and on four uneven row blocks."""
+    script = tmp_path / "surface_api.py"
+    script.write_text(SURFACE_API)
+    r = run(script, nranks, str(tmp_path), timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert f"surface ok {nranks}" in r.stdout
