@@ -83,10 +83,23 @@ before each and read just after:
   128^3 AIJ and on ``convdiff2d(1024)`` against its bytes bound and
   ``torch.sparse``, with bicg, cgne and lsqr there; composite and shell PCs
   under FGMRES (advanced.py's 24^2, and 64^2 on 1 and 4 shards); the 128^3
-  AIJ through the PETSc binary format; and ``facade/drivers/advanced.py``.
+  AIJ through the PETSc binary format; and ``facade/drivers/advanced.py``;
+* the process communicator (``ProcessComm`` on ``torch.distributed``; no
+  kernel of its own, every kernel launches per local shard): 128^3 f32 CG +
+  Jacobi on NCCL, 1 process x 4 shards, and on gloo, 2 processes x 2
+  shards, each against ``DeviceComm(4)`` bit for bit (with the
+  ``stencil7_dot`` launches, ms/iter and the us of one psum); k = 8
+  ``solve_many`` at 128^3 (fast path and general route) and 64^3 fp64 CG +
+  mg on gloo 2 x 2; 512^3 on gloo 2 x 1 against ``DeviceComm(2)`` (equal
+  iterations, fp64 true residual, ms/iter with the host copies: one card
+  shared by two processes, not scaling); the ``test.py`` flow through
+  ``run.py --procs`` at -n 1 (NCCL), 2 and 4 (gloo).
 
 ``python3 chip_smoke.py --surface`` builds the kernels, checks the four the
-surface slice launches, and runs only its phases.
+surface slice launches, and runs only its phases. ``python3 chip_smoke.py
+--procs`` runs the kernel checks and the process communicator's phases;
+``python3 chip_smoke.py --procs-cards``, on a host of several cards, runs
+one rank per card over NCCL against ``DeviceComm(cards)`` on one.
 ``python3 chip_smoke.py --refine`` builds the kernels and runs only the
 mixed-precision phases. ``python3 chip_smoke.py --direct`` runs only the
 direct-solve phases, cfg4, the ``test.py`` flow and the dense lu. ``python3 chip_smoke.py --kernels`` builds the
@@ -3552,6 +3565,313 @@ def phase_surface():
     return out
 
 
+# ---- the process communicator (one process per rank, torch.distributed) ----
+
+PROCS_RTOL = 1e-6
+
+
+def start_ranks(nprocs, args):
+    """Start ``python -m mpi_petsc4py_example_tpu_torch.run -n nprocs
+    --procs args`` from the checkout's root; :func:`finish_ranks` waits."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "mpi_petsc4py_example_tpu_torch.run", "-n",
+                             str(nprocs), "--procs", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=root)
+    return proc, (nprocs, args), time.perf_counter()
+
+
+def finish_ranks(started, timeout=900):
+    """``(stdout, wall seconds)`` of a :func:`start_ranks` run; raises when
+    a rank failed (the runner then stopped the others)."""
+    proc, (nprocs, args), t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0, f"run -n {nprocs} --procs {args}: rc "
+                                f"{proc.returncode}\n{out[-1000:]}"
+                                f"\n{err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def run_ranks(nprocs, args, timeout=900):
+    return finish_ranks(start_ranks(nprocs, args), timeout)
+
+
+def parity_launch(nprocs, cases, backend=None):
+    """The cases of ``facade/drivers/parity.py`` on ``nprocs`` rank
+    processes on the card; returns each case's results and the launch's
+    wall time."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, "mpi_petsc4py_example_tpu_torch", "facade",
+                          "drivers", "parity.py")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cases.json")
+        with open(path, "w") as f:
+            json.dump(cases, f)
+        _, wall = run_ranks(nprocs, (["--backend", backend] if backend
+                                     else []) + [script, path,
+                                                 os.path.join(tmp, "out")])
+        return {c["name"]: dict(np.load(os.path.join(tmp, "out",
+                                                     c["name"] + ".npz")))
+                for c in cases}, wall
+
+
+def procs_reference(cases, nshards):
+    """The same cases on ``DeviceComm(nshards)`` in this process."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.facade.drivers.parity import run_case
+    comm = pt.DeviceComm(nshards)
+    out = {c["name"]: run_case(comm, c) for c in cases}
+    torch.cuda.empty_cache()
+    return out
+
+
+def procs_compare(label, got, want, bits=True):
+    """Equal iterations and reasons; the iterate bit for bit (``bits``) or
+    its largest difference reported."""
+    its = [int(v) for v in np.atleast_1d(got["its"])]
+    its_ref = [int(v) for v in np.atleast_1d(want["its"])]
+    reasons = [int(v) for v in np.atleast_1d(got["reason"])]
+    check(its == its_ref, f"{label}: iterations {its} != {its_ref}")
+    check(reasons == [int(v) for v in np.atleast_1d(want["reason"])]
+          and all(r > 0 for r in reasons), f"{label}: reasons {reasons}")
+    diff = (float(np.abs(got["x"].astype(np.float64)
+                         - want["x"].astype(np.float64)).max())
+            if "x" in got else None)
+    if bits:
+        check(np.array_equal(got["x"], want["x"]),
+              f"{label}: iterate differs from the virtual mesh's by {diff}")
+    return its, diff
+
+
+def ms_per_iter(res) -> float:
+    its = np.atleast_1d(res["its"])
+    return float(res["wall_s"]) / max(int(its.max()), 1) * 1e3
+
+
+def phase_procs():
+    """The process communicator on the card (``--procs``): (a) one process
+    over NCCL holding 4 shards against DeviceComm(4), 128^3 f32 CG + jacobi;
+    (b) two processes over gloo on the one card, 2 shards each, against
+    DeviceComm(4): 128^3 f32 CG + jacobi, solve_many k = 8 at 128^3 (fast
+    path and general route), CG + mg at 64^3 fp64, cfg4 BiCGStab + bjacobi
+    (set up on the card; within 1e-12); (c) 512^3 f32 CG +
+    jacobi on 2 processes x 1 shard against DeviceComm(2): one card shared
+    by two processes, not scaling; (d) the test.py flow through
+    ``run.py --procs`` at -n 1 over NCCL and -n 2, -n 4 over gloo."""
+    card = card_line()
+    t_all = time.perf_counter()
+    out = {"card": card}
+    # solved twice, the second timed: a rank process starts cold
+    cg128 = dict(kind="cg", grid=[128] * 3, pc="jacobi", dtype="f32",
+                 rtol=PROCS_RTOL, time_psum=True, repeat=2)
+    # (a) one process, NCCL, world size 1, 4 local shards
+    case_a = dict(cg128, name="a_cg128", local_shards=4)
+    ref = procs_reference([case_a], 4)["a_cg128"]
+    got, wall = parity_launch(1, [case_a])
+    got = got["a_cg128"]
+    its, _ = procs_compare("(a) 128^3 CG+jacobi, nccl 1 x 4", got, ref)
+    check(str(got["backend"]) == "nccl", f"(a) backend {got['backend']}")
+    dots = int(got["launches_stencil3d_dot"])
+    check(dots == 4 * (its[0] + 1),
+          f"(a) stencil7_dot launches {dots} != 4 local shards x "
+          f"({its[0]} iterations + 1)")
+    out["a"] = {"iterations": its[0], "stencil7_dot_launches": dots,
+                "ms_per_iter": ms_per_iter(got),
+                "ms_per_iter_virtual": ms_per_iter(ref),
+                "psum_us": float(got["psum_us"]),
+                "psum_us_virtual": float(ref["psum_us"]),
+                "launch_wall_s": wall}
+    log(f"procs (a) nccl, 1 process x 4 shards, 128^3 f32 CG+jacobi: "
+        f"{its[0]} iterations (= DeviceComm(4), x bit-equal), "
+        f"stencil7_dot {dots} = 4 x (its + 1), "
+        f"{out['a']['ms_per_iter']:.4f} ms/iter vs "
+        f"{out['a']['ms_per_iter_virtual']:.4f} on DeviceComm(4); psum "
+        f"{out['a']['psum_us']:.1f} us vs {out['a']['psum_us_virtual']:.1f} "
+        f"us (ended by a host read); {card}")
+    # (b) two processes over gloo, 2 shards each, against DeviceComm(4);
+    # (c) rides the same launch: 512^3 on 2 processes x 1 shard
+    cases_b = [dict(cg128, name="b_cg128", local_shards=2),
+               dict(kind="many", name="b_many_fast", grid=[128] * 3,
+                    pc="jacobi", dtype="f32", rtol=PROCS_RTOL, k=K_BATCH,
+                    route="fast", local_shards=2),
+               dict(kind="many", name="b_many_general", grid=[128] * 3,
+                    pc="jacobi", dtype="f32", rtol=PROCS_RTOL, k=K_BATCH,
+                    route="general", local_shards=2),
+               dict(kind="cg", name="b_mg64", grid=[64] * 3, pc="mg",
+                    dtype="f64", rtol=1e-8, local_shards=2),
+               # PC bjacobi set up on the card, each process its blocks
+               dict(kind="aij", name="b_cfg4_bjacobi", op="cfg4",
+                    ksp="bcgs", pc="bjacobi", local_shards=2)]
+    case_c = dict(kind="cg", name="c_cg512", grid=[512] * 3, pc="jacobi",
+                  dtype="f32", rtol=PROCS_RTOL, local_shards=1,
+                  true_res=True, keep_x=False, time_psum=True)
+    refs = procs_reference(cases_b, 4)
+    ref_c = procs_reference([case_c], 2)["c_cg512"]
+    got, wall = parity_launch(2, cases_b + [case_c], backend="gloo")
+    out["b"] = {"launch_wall_s": wall}
+    for c in cases_b:
+        g, r = got[c["name"]], refs[c["name"]]
+        # a batch of 2 blocks against 4: the card's batched inverse may
+        # round them differently; held within 1e-12, the diff reported
+        aij = c["kind"] == "aij"
+        its, diff = procs_compare(f"(b) {c['name']}, gloo 2 x 2", g, r,
+                                  bits=not aij)
+        if aij:
+            scale = max(float(np.abs(r["x"]).max()), 1.0)
+            check(diff <= 1e-12 * scale, f"(b) {c['name']}: x differs by "
+                                         f"{diff}")
+        check(str(g["backend"]) == "gloo", f"(b) backend {g['backend']}")
+        launched = {k[len("launches_"):]: int(v) for k, v in g.items()
+                    if k.startswith("launches_") and int(v)}
+        out["b"][c["name"]] = {
+            "iterations": its, "x_max_diff": diff,
+            "ms_per_iter": ms_per_iter(g), "ms_per_iter_virtual":
+            ms_per_iter(r), "host_copies": int(g["host_copies_total"]),
+            "launches": launched}
+        psum = ""
+        if "psum_us" in g:
+            out["b"][c["name"]].update(
+                psum_us=float(g["psum_us"]),
+                psum_host_us=float(g["psum_host_us"]),
+                psum_us_virtual=float(r["psum_us"]))
+            psum = (f"psum {float(g['psum_us']):.1f} us (host tensors on "
+                    f"the same gloo group {float(g['psum_host_us']):.1f} "
+                    f"us) vs {float(r['psum_us']):.1f} us, ")
+        log(f"procs (b) gloo, 2 processes x 2 shards, {c['name']}: "
+            f"iterations {its} (= DeviceComm(4), x max diff {diff}), "
+            f"{out['b'][c['name']]['ms_per_iter']:.4f} ms/iter vs "
+            f"{out['b'][c['name']]['ms_per_iter_virtual']:.4f} on "
+            f"DeviceComm(4), {psum}gloo host copies "
+            f"{int(g['host_copies_total'])}, launches of rank 0 {launched}; "
+            f"{card}")
+    g = got["c_cg512"]
+    its, _ = procs_compare("(c) 512^3 CG+jacobi, gloo 2 x 1", g, ref_c,
+                           bits=False)
+    true_res, bnorm = float(g["true_res"]), float(g["bnorm"])
+    check(true_res <= 10 * PROCS_RTOL * bnorm,
+          f"(c) fp64 true residual {true_res} > 10 rtol ||b|| "
+          f"({10 * PROCS_RTOL * bnorm})")
+    plane_bytes = 512 * 512 * 4
+    out["c"] = {"iterations": its[0], "true_res": true_res, "bnorm": bnorm,
+                "ms_per_iter": ms_per_iter(g),
+                "ms_per_iter_virtual": ms_per_iter(ref_c),
+                "host_copies": int(g["host_copies"]),
+                "psum_us": float(g["psum_us"]),
+                "psum_host_us": float(g["psum_host_us"]),
+                "psum_us_virtual": float(ref_c["psum_us"]),
+                "halo_bytes_per_exchange": 2 * plane_bytes}
+    log(f"procs (c) gloo, 2 processes x 1 shard on ONE card (shared, not "
+        f"scaling), 512^3 f32 CG+jacobi: {its[0]} iterations (= "
+        f"DeviceComm(2)), fp64 true residual {true_res:.3e} <= 10 rtol "
+        f"||b|| = {10 * PROCS_RTOL * bnorm:.3e}, "
+        f"{out['c']['ms_per_iter']:.4f} ms/iter with "
+        f"{out['c']['host_copies']} gloo host copies on rank 0 "
+        f"({out['c']['host_copies'] / max(its[0], 1):.1f}/iter) vs "
+        f"{out['c']['ms_per_iter_virtual']:.4f} ms/iter on DeviceComm(2); "
+        f"psum {out['c']['psum_us']:.1f} us (host tensors on the same gloo "
+        f"group {out['c']['psum_host_us']:.1f} us) vs "
+        f"{out['c']['psum_us_virtual']:.1f} us; halo {2 * plane_bytes} B "
+        f"per exchange; {card}")
+    # (d) the test.py flow through the runner's process mode
+    root = os.path.dirname(os.path.abspath(__file__))
+    driver = os.path.join(root, "mpi_petsc4py_example_tpu_torch", "facade",
+                          "drivers", "solve_linear.py")
+    out["d"] = {}
+    # the three launches at once: 7 rank processes share the card
+    runs = [(n, backend, start_ranks(n, ["--backend", backend, driver]))
+            for n, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo"))]
+    for n, backend, started in runs:
+        stdout, wall = finish_ranks(started)
+        printed = stdout.strip().splitlines()
+        check(printed == ["True"], f"(d) test.py flow -n {n} --procs "
+                                   f"--backend {backend}: {stdout[-500:]}")
+        out["d"][f"n{n}_{backend}"] = wall
+        log(f"procs (d) test.py flow -n {n} --procs --backend {backend}: "
+            f"printed True, {wall:.1f} s (processes included, the three "
+            f"launches at once); {card}")
+    log(f"procs phases: {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def phase_procs_cards():
+    """``--procs-cards``, on a host of several cards: one rank process per
+    card over NCCL (its all-gathers and ring ``batch_isend_irecv`` across
+    cards), 1 shard each, against ``DeviceComm(cards)`` on card 0: 128^3
+    f32 CG + jacobi (psum and ms/iter), ``solve_many`` k = 8 at 128^3, CG +
+    mg at 64^3 fp64, the AIJ cfg3 GMRES(30) + jacobi and cfg4 BiCGStab +
+    bjacobi, and the test.py flow. One shard per process turns the
+    shard-batched products of the AIJ path (bjacobi's blocks, GMRES's basis
+    updates) into unbatched ones, which cuBLAS rounds differently: those
+    iterates are held within 1e-12, the stencil ones bit for bit."""
+    import torch
+    cards = torch.cuda.device_count()
+    check(cards >= 2, f"--procs-cards needs 2 cards or more, found {cards}")
+    card = card_line()
+    cases = [dict(kind="cg", name="cg128", grid=[128] * 3, pc="jacobi",
+                  dtype="f32", rtol=PROCS_RTOL, time_psum=True, repeat=2),
+             dict(kind="many", name="many128", grid=[128] * 3, pc="jacobi",
+                  dtype="f32", rtol=PROCS_RTOL, k=K_BATCH, route="fast"),
+             dict(kind="cg", name="mg64", grid=[64] * 3, pc="mg",
+                  dtype="f64", rtol=1e-8),
+             dict(kind="aij", name="cfg3_gmres", op="cfg3", ksp="gmres",
+                  pc="jacobi"),
+             dict(kind="aij", name="cfg4_bcgs", op="cfg4", ksp="bcgs",
+                  pc="bjacobi"),
+             dict(kind="comm", name="comm", n=1000)]
+    cases = [dict(c, local_shards=1) for c in cases]
+    refs = procs_reference(cases, cards)
+    got, wall = parity_launch(cards, cases, backend="nccl")
+    out = {"card": card, "cards": cards, "launch_wall_s": wall}
+    for c in cases:
+        g, r = got[c["name"]], refs[c["name"]]
+        check(str(g["backend"]) == "nccl", f"backend {g['backend']}")
+        if c["kind"] == "comm":
+            for key in ("put_fetch", "psum", "pmax", "shift_up", "shift_down",
+                        "open_up", "open_down", "all_gather", "cols"):
+                check(np.array_equal(g[key], r[key]),
+                      f"--procs-cards: {key} differs across {cards} cards")
+            log(f"procs-cards: every collective equal to DeviceComm({cards})"
+                f" over NCCL on {cards} cards; {card}")
+            continue
+        aij = c["kind"] == "aij"
+        its, diff = procs_compare(f"--procs-cards {c['name']}", g, r,
+                                  bits=not aij)
+        if aij:
+            scale = max(float(np.abs(r["x"]).max()), 1.0)
+            check(diff <= 1e-12 * scale, f"{c['name']}: x differs by {diff}")
+        out[c["name"]] = {"iterations": its, "x_max_diff": diff,
+                          "ms_per_iter": ms_per_iter(g),
+                          "ms_per_iter_virtual": ms_per_iter(r)}
+        if "psum_us" in g:
+            out[c["name"]].update(psum_us=float(g["psum_us"]),
+                                  psum_us_virtual=float(r["psum_us"]))
+        log(f"procs-cards NCCL {cards} x 1, {c['name']}: iterations {its} (= "
+            f"DeviceComm({cards}) on one card), x max diff {diff}, "
+            f"{out[c['name']]['ms_per_iter']:.4f} ms/iter vs "
+            f"{out[c['name']]['ms_per_iter_virtual']:.4f}; "
+            + (f"psum {float(g['psum_us']):.1f} us vs "
+               f"{float(r['psum_us']):.1f} us; " if "psum_us" in g else "")
+            + card)
+    root = os.path.dirname(os.path.abspath(__file__))
+    driver = os.path.join(root, "mpi_petsc4py_example_tpu_torch", "facade",
+                          "drivers", "solve_linear.py")
+    stdout, wall = run_ranks(cards, ["--backend", "nccl", driver])
+    check(stdout.strip().splitlines() == ["True"],
+          f"test.py flow -n {cards} over NCCL: {stdout[-500:]}")
+    out["testpy_wall_s"] = wall
+    log(f"procs-cards test.py flow -n {cards} --procs (NCCL): printed True, "
+        f"{wall:.1f} s; {card}")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3624,6 +3944,25 @@ def main():
         print(json.dumps({"surface": phase_surface()}, default=float))
         print(card_line())
         return
+    if sys.argv[1:] == ["--procs"]:
+        # only the process communicator's phases, behind the kernel checks
+        phase_kernel_checks()
+        phase_mg_kernel_checks()
+        phase_many_kernel_checks()
+        print(json.dumps({"procs": phase_procs()}))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--procs-cards"]:
+        # one rank per card over NCCL, on a host of several cards
+        print(json.dumps({"procs_cards": phase_procs_cards()}))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -3670,6 +4009,9 @@ def main():
     phase_direct()
     # the KSP/PC/Mat/Vec surface: its new paths launch rows 1, 2, 9 and 10
     surface = phase_surface()
+    # the process communicator: rows 1-10 per local shard in rank processes
+    procs = phase_procs()
+    print(json.dumps({"procs": procs}))
     surface_launches = {
         "stencil7_dot": (surface["monitor"]["stencil7_dot_launches"],
                          "128^3 CG+jacobi, monitored"),

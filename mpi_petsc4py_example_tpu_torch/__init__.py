@@ -15,7 +15,9 @@ facade that ``python -m mpi_petsc4py_example_tpu_torch.run`` puts first on
 
 Entry points run on the card: ``DeviceComm()`` means CUDA and raises without
 it; pass ``device="cpu"`` to run on the CPU, where every kernel is replaced by
-its plain PyTorch version.
+its plain PyTorch version. ``init_multihost()`` joins a ``torch.distributed``
+group and returns a ``ProcessComm``, the same mesh with one process per
+rank (``python -m mpi_petsc4py_example_tpu_torch.run -n N --procs``).
 """
 
 from .core.mat import Mat
@@ -24,7 +26,7 @@ from .core.shell import ShellMat
 from .core.vec import Vec
 from .models.poisson import poisson3d_csr
 from .models.stencil import StencilPoisson3D
-from .parallel.mesh import DeviceComm
+from .parallel.mesh import DeviceComm, ProcessComm, init_multihost
 from .solvers.cg_plans import PrecisionPlan, precision_plan
 from .solvers.eps import EPS
 from .solvers.ksp import KSP
@@ -36,7 +38,8 @@ from .utils.convergence import (BatchedSolveResult, ConvergedReason,
 from .utils import petsc_io
 from .utils.options import global_options, init
 
-__all__ = ["DeviceComm", "Vec", "Mat", "ShellMat", "NullSpace", "KSP", "PC",
+__all__ = ["DeviceComm", "ProcessComm", "init_multihost",
+           "Vec", "Mat", "ShellMat", "NullSpace", "KSP", "PC",
            "EPS", "ST", "petsc_io",
            "RefinedKSP", "PrecisionPlan", "precision_plan",
            "StencilPoisson3D",

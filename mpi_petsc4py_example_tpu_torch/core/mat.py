@@ -43,7 +43,8 @@ from ..ops.spmv import (accum_dtype, csr_diag, csr_find_diagonals,
                         csr_to_dia, csr_to_ell, dia_rows, dia_spmv_local,
                         dia_spmv_local_many, ell_spmv_local,
                         ell_spmv_local_many)
-from ..parallel.mesh import DeviceComm, numpy_dtype, torch_dtype
+from ..parallel.mesh import (DeviceComm, numpy_dtype, require_single_process,
+                             torch_dtype)
 from ..parallel.partition import RowLayout, concat_csr_blocks
 from .vec import Vec
 
@@ -138,7 +139,7 @@ class Mat:
         ell_vals = comm.put_rows(vals, dt)
         # DIA goes to the card diagonal-major, transposed on the host
         dia_t = (None if dia is None else torch.tensor(
-            comm.pad_rows(dia).T, dtype=dt, device=comm.device))
+            comm.local_rows(dia).T, dtype=dt, device=comm.device))
         if comm.device.type == "cuda":
             torch.cuda.synchronize(comm.device)
         t4 = time.perf_counter()
@@ -359,7 +360,12 @@ class Mat:
 
     # ---- operator application ----------------------------------------------
     def mult_padded(self, x_padded: torch.Tensor) -> torch.Tensor:
-        """``A x`` on the padded flat data of a Vec."""
+        """``A x`` on the padded flat data of a Vec (this process's rows
+        on a process comm, through :meth:`local_spmv`)."""
+        comm = self.comm
+        if comm.multiprocess:
+            return self.local_spmv(comm)(
+                x_padded.view(comm.local_shards, -1)).reshape(-1)
         if self.dia_vals is not None:
             return dia_spmv_local(self.dia_vals, self.dia_offsets, x_padded,
                                   0, self._halo())
@@ -376,7 +382,8 @@ class Mat:
         """``y = A^T x`` (PETSc MatMultTranspose) through
         :meth:`local_spmv_t`."""
         comm = self.comm
-        ypad = self.local_spmv_t(comm)(x.data.view(comm.size, -1)).reshape(-1)
+        ypad = self.local_spmv_t(comm)(
+            x.data.view(comm.local_shards, -1)).reshape(-1)
         if y is None:
             return Vec(comm, self.shape[0], data=ypad, layout=self.layout)
         y.data = ypad
@@ -428,16 +435,14 @@ class Mat:
         below prepended and the ``halo`` first rows of the shard above
         appended: one open-chain shift each way, zeros at the global ends
         (the JAX ``ppermute`` pair of ``mat.py:459-469``)."""
-        left = comm.shift(x[..., -halo:], 1)
-        right = comm.shift(x[..., :halo], -1)
-        left[0].zero_()
-        right[-1].zero_()
-        return torch.cat([left, x, right], dim=-1)
+        return torch.cat([comm.shift_open(x[..., -halo:], 1), x,
+                          comm.shift_open(x[..., :halo], -1)], dim=-1)
 
     def local_spmv(self, comm: DeviceComm):
-        """``spmv(x (size, lsize)) -> A x``, one of three routes (see
-        :meth:`spmv_route`)."""
-        size, lsize = comm.size, comm.local_size(self.shape[0])
+        """``spmv(x (local_shards, lsize)) -> A x``, one of three routes
+        (see :meth:`spmv_route`), on this process's rows."""
+        size, lsize = comm.local_shards, comm.local_size(self.shape[0])
+        row0 = comm.local_row_range(self.shape[0])[0]
         route = self.spmv_route(comm)
         if route == "dia-banded":
             offsets, halo = self.dia_offsets, self._halo()
@@ -452,7 +457,7 @@ class Mat:
 
             def spmv(x):
                 return dia_spmv_local(self.dia_vals, offsets,
-                                      comm.all_gather(x), 0,
+                                      comm.all_gather(x), row0,
                                       halo).view(size, lsize)
             return spmv
 
@@ -462,16 +467,18 @@ class Mat:
         return spmv
 
     def local_spmv_many(self, comm: DeviceComm):
-        """Batched ``spmv(X (size, k, lsize)) -> A X``, the routes of
-        :meth:`local_spmv`: one exchange or one gather for all ``k``
+        """Batched ``spmv(X (local_shards, k, lsize)) -> A X``, the routes
+        of :meth:`local_spmv`: one exchange or one gather for all ``k``
         columns."""
-        size, lsize = comm.size, comm.local_size(self.shape[0])
+        size, lsize = comm.local_shards, comm.local_size(self.shape[0])
+        row0 = comm.local_row_range(self.shape[0])[0]
         route = self.spmv_route(comm)
 
-        def full(X):                     # (size, k, lsize) -> (k, n_pad)
-            return X.transpose(0, 1).reshape(X.shape[1], -1)
+        def full(X):                     # (L, k, lsize) -> (k, n_pad)
+            G = comm.gather_shards(X)
+            return G.transpose(0, 1).reshape(X.shape[1], -1)
 
-        def back(Y):                     # (k, n_pad) -> (size, k, lsize)
+        def back(Y):                     # (k, L * lsize) -> (L, k, lsize)
             return Y.view(Y.shape[0], size, lsize).transpose(0, 1)
 
         if route == "dia-banded":
@@ -487,7 +494,7 @@ class Mat:
 
             def spmv(X):
                 return back(dia_spmv_local_many(self.dia_vals, offsets,
-                                                full(X), 0, halo))
+                                                full(X), row0, halo))
             return spmv
 
         def spmv(X):
@@ -510,6 +517,8 @@ class Mat:
           order (``index_put_`` with ``accumulate=True``, deterministic on
           the CPU and on CUDA).
         """
+        require_single_process(comm, "the transpose product "
+                                     "(Mat.mult_transpose)")
         if self.shape[0] != self.shape[1]:
             raise ValueError(
                 "local_spmv_t supports square operators only (output is "

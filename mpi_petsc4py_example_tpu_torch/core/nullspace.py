@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.mesh import torch_dtype
+from ..parallel.mesh import require_single_process, torch_dtype
 
 
 class NullSpace:
@@ -68,6 +68,7 @@ class NullSpace:
         """The ``(k, n_pad)`` orthonormal basis on ``comm``'s device in
         ``dtype``, zero in the padding (made once per communicator, size and
         dtype)."""
+        require_single_process(comm, "NullSpace")
         dt = torch_dtype(dtype)
         key = (comm, n, dt)
         if self._built is not None and self._built[0] == key:

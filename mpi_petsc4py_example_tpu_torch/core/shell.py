@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import (DeviceComm, full_vector_local_apply,
+                             require_single_process,
                              torch_dtype)
 from ..parallel.partition import RowLayout
 from .vec import Vec
@@ -38,6 +39,7 @@ class ShellMat:
 
     def __init__(self, comm: DeviceComm, shape, mult, mult_transpose=None,
                  diagonal=None, dtype=torch.float64):
+        require_single_process(comm, "ShellMat")
         self.comm = comm
         if np.isscalar(shape):
             shape = (int(shape), int(shape))

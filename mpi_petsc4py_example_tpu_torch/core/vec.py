@@ -1,8 +1,10 @@
 """Distributed vector: one padded tensor on the communicator's device.
 
 The port's counterpart of ``mpi_petsc4py_example_tpu/core/vec.py`` (``Vec``).
-Storage is a flat tensor of length ``comm.padded_size(n)``, whose view
-``(comm.size, comm.local_size(n))`` is the shard axis; the user-visible
+Storage is a flat tensor of this process's padded rows,
+``comm.local_padded_size(n)`` long (``padded_size(n)`` on the virtual mesh),
+whose view ``(comm.local_shards, comm.local_size(n))`` is the shard axis;
+the user-visible
 ownership ranges live in a :class:`RowLayout`. The BLAS-1 methods update
 ``data`` in place where JAX rebinds a new array. A bfloat16 Vec travels to
 and from the host as float32, and its reductions accumulate in the fp32
@@ -36,11 +38,11 @@ class Vec:
         self.n = int(n)
         self.layout = layout or RowLayout(self.n, comm.size)
         if data is None:
-            data = torch.zeros(comm.padded_size(self.n),
+            data = torch.zeros(comm.local_padded_size(self.n),
                                dtype=torch_dtype(dtype), device=comm.device)
-        elif data.shape != (comm.padded_size(self.n),):
+        elif data.shape != (comm.local_padded_size(self.n),):
             raise ValueError(f"Vec data must have shape "
-                             f"({comm.padded_size(self.n)},), got "
+                             f"({comm.local_padded_size(self.n)},), got "
                              f"{tuple(data.shape)}")
         self.data = data
 
@@ -75,9 +77,9 @@ class Vec:
 
     def _reduce_view(self) -> torch.Tensor:
         """``data`` in the reduce dtype (a copy for bfloat16 only), viewed
-        shard-stacked as ``(size, local_size)``."""
+        shard-stacked as ``(local_shards, local_size)``."""
         return self.data.to(reduce_dtype(self.data.dtype)).view(
-            self.comm.size, -1)
+            self.comm.local_shards, -1)
 
     def _psum(self, fn) -> float:
         """``fn`` of each shard's block, summed in shard order."""
@@ -127,7 +129,9 @@ class Vec:
         if t in ("1", "one"):
             return self._psum(lambda u: u.abs().sum())
         if t in ("inf", "infinity"):
-            return float(self._reduce_view().abs().max())
+            v = self._reduce_view()
+            return float(self.comm.pmax([v[i].abs().max()
+                                         for i in range(v.shape[0])]))
         raise ValueError(f"unknown norm type {norm_type!r}")
 
     def dot(self, other: "Vec") -> float:
@@ -143,16 +147,31 @@ class Vec:
     def mean(self) -> float:
         return self.sum() / self.n
 
+    def _logical(self) -> torch.Tensor:
+        """The logical entries of the whole vector: the device data on the
+        virtual mesh, gathered to every process's device on a process
+        comm."""
+        if not self.comm.multiprocess:
+            return self.data[: self.n]
+        return self.comm.all_gather(self.data.view(
+            self.comm.local_shards, -1))[: self.n]
+
+    def _held(self) -> int:
+        """How many of this process's rows are logical entries (the rest
+        are padding)."""
+        start, stop = self.comm.local_row_range(self.n)
+        return max(0, min(self.n, stop) - start)
+
     def min(self) -> tuple[int, float]:
         """``(index, value)`` of the smallest logical entry (petsc4py's
         ``vec.min()``)."""
-        v = self.data[: self.n]
+        v = self._logical()
         i = int(torch.argmin(v))
         return i, float(v[i])
 
     def max(self) -> tuple[int, float]:
         """``(index, value)`` of the largest logical entry."""
-        v = self.data[: self.n]
+        v = self._logical()
         i = int(torch.argmax(v))
         return i, float(v[i])
 
@@ -182,7 +201,7 @@ class Vec:
 
     def shift(self, alpha: float):
         """self += alpha on the logical entries (the padding stays zero)."""
-        self.data[: self.n] += alpha
+        self.data[: self._held()] += alpha
         return self
 
     def pointwise_mult(self, a: "Vec", b: "Vec"):
@@ -209,8 +228,10 @@ class Vec:
         return nrm
 
     def set_value(self, i: int, v: float):
-        """Point insert by global index."""
-        self.data[int(i)] = v
+        """Point insert by global index (on the process that holds it)."""
+        start, stop = self.comm.local_row_range(self.n)
+        if start <= int(i) < stop:
+            self.data[int(i) - start] = v
         return self
 
     setValue = set_value
@@ -218,7 +239,7 @@ class Vec:
     def set(self, alpha: float):
         """self[:] = alpha on the logical entries (PETSc VecSet)."""
         self.data.zero_()
-        self.data[: self.n] = alpha
+        self.data[: self._held()] = alpha
         return self
 
     def __len__(self):

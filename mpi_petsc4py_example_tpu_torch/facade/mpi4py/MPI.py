@@ -11,16 +11,27 @@ mpi4py (``from mpi4py import MPI``; ``comm.Get_rank``, ``send/recv``,
   process. The device work happens once, on the rank-0 thread, over the
   port's virtual mesh (``Comm.device_comm``): threads emulate MPI control
   flow, the mesh does the data parallelism.
+* Process mode (``run -n N --procs driver.py``): N processes of a
+  ``torch.distributed`` group, one per rank (:class:`ProcessContext`).
+  Point-to-point and collective calls move pickled host objects over a gloo
+  group, which exists even when the device group is NCCL; in a collective
+  every rank runs the build, SPMD-style, on its own objects, and
+  ``Comm.device_comm`` is the :class:`ProcessComm` of one shard per rank.
+  A message carries its tag, and a receive takes the oldest message of its
+  source and tag: one that arrives before its receive waits in a buffer, as
+  MPI matches tags.
 
 ``Gatherv`` uses the true per-rank counts (unlike bare-buffer mpi4py, whose
 equal-block assumption misassembles uneven partitions).
 
-``Comm.device_comm`` is a :class:`DeviceComm` with one shard per rank on the
-device the runner was given (``--device``; the card when it was not given).
+``Comm.device_comm`` is a :class:`DeviceComm` (threads) or
+:class:`ProcessComm` (processes) with one shard per rank on the device the
+runner was given (``--device``; the card when it was not given).
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 
@@ -91,14 +102,84 @@ class VirtualContext:
         return result
 
 
-_context: VirtualContext | None = None
+class _ObjectChannel:
+    """One direction and tag between two ranks of a
+    :class:`ProcessContext`: the queue-shaped ``put``/``get`` of
+    :meth:`VirtualContext.chan`."""
+
+    def __init__(self, ctx, src: int, dst: int, tag):
+        self._ctx, self._src, self._dst, self._tag = ctx, src, dst, tag
+
+    def put(self, obj):
+        import torch.distributed as dist
+        dist.send_object_list([(self._tag, obj)], dst=self._dst,
+                              group=self._ctx.group)
+
+    def get(self):
+        return self._ctx.take(self._src, self._tag)
+
+
+class _GroupBarrier:
+    def __init__(self, group):
+        self._group = group
+
+    def wait(self):
+        import torch.distributed as dist
+        dist.barrier(group=self._group)
+
+
+class ProcessContext:
+    """N ranks as the N processes of a joined ``torch.distributed`` group,
+    fronting ``device_comm`` (a :class:`ProcessComm`). Host objects travel
+    pickled over gloo: the default group when it is gloo, else a gloo group
+    made over the same ranks."""
+
+    def __init__(self, device_comm):
+        import torch.distributed as dist
+        self.device_comm = device_comm
+        self.nprocs = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.group = (None if dist.get_backend() == "gloo"
+                      else dist.new_group(backend="gloo"))
+        self.barrier = _GroupBarrier(self.group)
+        # (source, tag) -> messages that arrived before their receive
+        self._early: dict = collections.defaultdict(collections.deque)
+
+    def chan(self, src: int, dst: int, tag) -> _ObjectChannel:
+        return _ObjectChannel(self, src, dst, tag)
+
+    def take(self, src: int, tag):
+        """The oldest message from ``src`` with ``tag``: from the buffer,
+        else received, buffering any other tag's messages on the way."""
+        import torch.distributed as dist
+        early = self._early[(src, tag)]
+        if early:
+            return early.popleft()
+        while True:
+            box = [None]
+            dist.recv_object_list(box, src=src, group=self.group)
+            got, obj = box[0]
+            if got == tag:
+                return obj
+            self._early[(src, got)].append(obj)
+
+    def collective(self, name: str, contribution, build, root: int = 0):
+        """Every rank's contribution goes to every rank, and every rank
+        runs ``build(list_by_rank)`` on its own objects (SPMD)."""
+        import torch.distributed as dist
+        data = [None] * self.nprocs
+        dist.all_gather_object(data, contribution, group=self.group)
+        return build(data)
+
+
+_context: VirtualContext | ProcessContext | None = None
 # the device of Comm.device_comm: None is the card (the runner's --device)
 _device = None
 _device_comms: dict = {}
 _device_comms_lock = threading.Lock()
 
 
-def _set_context(ctx: VirtualContext | None):
+def _set_context(ctx: VirtualContext | ProcessContext | None):
     global _context
     _context = ctx
 
@@ -122,7 +203,7 @@ class Comm:
     """COMM_WORLD-shaped communicator."""
 
     @property
-    def _ctx(self) -> VirtualContext | None:
+    def _ctx(self) -> VirtualContext | ProcessContext | None:
         return _context
 
     # ---- rank info ----------------------------------------------------------
@@ -146,7 +227,10 @@ class Comm:
     @property
     def device_comm(self):
         """The port's :class:`DeviceComm` this communicator fronts (one shard
-        per rank, on the runner's device), made once per size and device."""
+        per rank, on the runner's device), made once per size and device;
+        in process mode the group's :class:`ProcessComm`."""
+        if isinstance(self._ctx, ProcessContext):
+            return self._ctx.device_comm
         from mpi_petsc4py_example_tpu_torch import DeviceComm
         key = (self.Get_size(), _device)
         with _device_comms_lock:
@@ -224,7 +308,7 @@ class Comm:
         return ctx.collective("allreduce", value, lambda data: sum(data))
 
     # ---- helpers -------------------------------------------------------------
-    def _require_ctx(self, what: str) -> VirtualContext:
+    def _require_ctx(self, what: str) -> VirtualContext | ProcessContext:
         ctx = self._ctx
         if ctx is None:
             raise RuntimeError(

@@ -16,7 +16,15 @@ Collective semantics under virtual ranks (the runner's ``-n N``):
 constructors and ``solve`` are rendezvous points. Every rank contributes its
 local block or arrives at the call, the rank-0 thread performs the one
 operation on the port's virtual mesh, and all ranks share the result, as the
-MPIAIJ path behaves over real MPI.
+MPIAIJ path behaves over real MPI. Under rank processes (``-n N --procs``)
+every rank receives every contribution and runs the same operation on its
+own objects over the ``ProcessComm`` (SPMD), each placing only its rows;
+prints stay on rank 0, and the binary viewer raises there (``ROADMAP.md``
+Queue A item 4b). There ``Vec.getArray``/``array`` is collective too, unlike
+PETSc's local ``VecGetArray``: a rank's block of the user's layout may lie
+in another process's device rows, so every rank calls it and uses its block
+as it likes (``if rank == 0: print(x.getArray())`` waits for the other
+ranks until the group's timeout).
 """
 
 from __future__ import annotations
@@ -109,6 +117,8 @@ class Vec:
         self._comm._collective("vec_setarray", (rank, local), build)
 
     def getArray(self):
+        """This rank's block, as a host copy (collective under rank
+        processes: every rank calls it)."""
         rs, re = self._layout.range(self._rank)
         return self._core.to_numpy()[rs:re]
 

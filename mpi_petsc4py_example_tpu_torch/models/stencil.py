@@ -5,12 +5,14 @@ The port's counterpart of ``mpi_petsc4py_example_tpu/models/stencil.py``
 contiguous z-planes, needs only its two neighbouring planes (the halo), and
 applies the stencil with the kernels of :mod:`..ops.stencil`.
 
-The local closures work on shard-stacked tensors: a grid-shaped carry is
-``(size, lz, ny, nx)`` and a flat one ``(size, lz*ny*nx)``, both views of the
-same memory as a :class:`Vec`'s padded data. The batched (``_many``) closures
-take a block of ``k`` columns, ``(size, k, lz, ny, nx)`` grid-shaped or
-``(size, k, lz*ny*nx)`` flat: each shard's part is the contiguous
-``(k, lz, ny, nx)`` operand of the ``_many`` kernels.
+The local closures work on shard-stacked tensors of this process's
+``L = comm.local_shards`` shards: a grid-shaped carry is ``(L, lz, ny, nx)``
+and a flat one ``(L, lz*ny*nx)``, both views of the same memory as a
+:class:`Vec`'s padded data. The batched (``_many``) closures take a block of
+``k`` columns, ``(L, k, lz, ny, nx)`` grid-shaped or ``(L, k, lz*ny*nx)``
+flat: each shard's part is the contiguous ``(k, lz, ny, nx)`` operand of the
+``_many`` kernels. The Dirichlet ends of the halo exchange are the global
+first and last shards (``DeviceComm.shift_open``).
 
 With ``dtype=torch.bfloat16`` (the mixed-precision plan's storage) the slabs
 and halo planes stay bfloat16 and the fused dots carry their fp32 partials
@@ -34,8 +36,8 @@ from ..parallel.partition import RowLayout
 def make_plane_exchange(comm: DeviceComm):
     """Boundary z-plane halo exchange along the slab ring.
 
-    ``exchange(u (size, lz, ny, nx)) -> (halo_lo, halo_hi)``, each
-    ``(size, ny, nx)``: shard ``i`` gets plane ``lz-1`` of shard ``i-1`` below
+    ``exchange(u (L, lz, ny, nx)) -> (halo_lo, halo_hi)``, each
+    ``(L, ny, nx)``: shard ``i`` gets plane ``lz-1`` of shard ``i-1`` below
     and plane ``0`` of shard ``i+1`` above (one ring shift each way), with zero
     planes at the global Dirichlet boundaries. With one shard both halos are
     boundaries, so both are zero planes, kept from call to call.
@@ -49,29 +51,23 @@ def make_plane_exchange(comm: DeviceComm):
                 zeros[key] = torch.zeros((1,) + tuple(u.shape[2:]),
                                          dtype=u.dtype, device=u.device)
             return zeros[key], zeros[key]
-        halo_lo = comm.shift(u[:, -1], 1)    # plane z-1 from the shard below
-        halo_hi = comm.shift(u[:, 0], -1)    # plane z+lz from the shard above
-        halo_lo[0].zero_()
-        halo_hi[-1].zero_()
-        return halo_lo, halo_hi
+        # plane z-1 from the shard below, plane z+lz from the shard above
+        return comm.shift_open(u[:, -1], 1), comm.shift_open(u[:, 0], -1)
 
     return exchange
 
 
 def exchange_many(comm: DeviceComm, U):
     """The batched halo exchange (the JAX ``_exchange_many``): for a block
-    ``U (size, k, lz, ny, nx)`` the boundary-plane blocks ``(size, k, ny,
+    ``U (L, k, lz, ny, nx)`` the boundary-plane blocks ``(L, k, ny,
     nx)`` each way, one ring shift each, zero at the global Dirichlet ends.
     With one shard both halos are boundaries: returns ``(None, None)``,
     which the ``_many`` kernels take as zero planes, so no zero block of
     another width can be handed to them."""
     if comm.size == 1:
         return None, None
-    halo_lo = comm.shift(U[:, :, -1], 1)     # plane z-1 of each column
-    halo_hi = comm.shift(U[:, :, 0], -1)     # plane z+lz of each column
-    halo_lo[0].zero_()
-    halo_hi[-1].zero_()
-    return halo_lo, halo_hi
+    # planes z-1 and z+lz of each column
+    return comm.shift_open(U[:, :, -1], 1), comm.shift_open(U[:, :, 0], -1)
 
 
 class StencilPoisson3D:
@@ -122,10 +118,10 @@ class StencilPoisson3D:
     _stencil7 = staticmethod(stencil3d_apply_plain)
 
     def _grid(self, v):
-        return v.reshape((self.comm.size,) + self.grid3d)
+        return v.reshape((self.comm.local_shards,) + self.grid3d)
 
     def local_apply_grid3(self, comm: DeviceComm):
-        """Grid-shaped apply ``u (size, lz, ny, nx) -> A u``."""
+        """Grid-shaped apply ``u (L, lz, ny, nx) -> A u``."""
         exchange = make_plane_exchange(comm)
         plain = self.force_plain
 
@@ -146,7 +142,7 @@ class StencilPoisson3D:
         return apply3
 
     def local_spmv(self, comm: DeviceComm):
-        """Flat apply ``x (size, lz*ny*nx) -> A x``: the grid apply behind
+        """Flat apply ``x (L, lz*ny*nx) -> A x``: the grid apply behind
         two reshapes (views, no copies)."""
         apply3 = self.local_apply_grid3(comm)
 
@@ -156,7 +152,7 @@ class StencilPoisson3D:
         return spmv
 
     def local_matvec_dot(self, comm: DeviceComm):
-        """Fused ``u (size, lz, ny, nx) -> (A u, psum <u, A u>)`` for the CG
+        """Fused ``u (L, lz, ny, nx) -> (A u, psum <u, A u>)`` for the CG
         fast path, grid-shaped in and out: one kernel pass per shard."""
         exchange = make_plane_exchange(comm)
         plain = self.force_plain
@@ -179,13 +175,13 @@ class StencilPoisson3D:
         return matvec_dot
 
     def _many_pass(self, comm: DeviceComm, U, dot: bool):
-        """One batched kernel pass per shard over ``U (size, k, lz, ny, nx)``:
+        """One batched kernel pass per shard over ``U (L, k, lz, ny, nx)``:
         ``A U``, and with ``dot`` the psum of the per-column ``<u_j, A u_j>``
         partials, shape ``(k,)``."""
         halo_lo, halo_hi = exchange_many(comm, U)
         Y = torch.empty_like(U)
         parts = []
-        for i in range(comm.size):
+        for i in range(comm.local_shards):
             lo, hi = ((None, None) if halo_lo is None
                       else (halo_lo[i], halo_hi[i]))
             if self.force_plain:
@@ -201,16 +197,16 @@ class StencilPoisson3D:
         return (Y, comm.psum(parts)) if dot else Y
 
     def local_spmv_many(self, comm: DeviceComm):
-        """Batched flat apply ``X (size, k, lz*ny*nx) -> A X``: one
+        """Batched flat apply ``X (L, k, lz*ny*nx) -> A X``: one
         ``stencil7_apply_many`` launch per shard for all ``k`` columns."""
         def spmv(X):
-            U = X.reshape((comm.size, X.shape[1]) + self.grid3d)
+            U = X.reshape((comm.local_shards, X.shape[1]) + self.grid3d)
             return self._many_pass(comm, U, dot=False).reshape(X.shape)
 
         return spmv
 
     def local_matvec_dot_many(self, comm: DeviceComm):
-        """Fused batched ``U (size, k, lz, ny, nx) -> (A U, psum <u_j, A
+        """Fused batched ``U (L, k, lz, ny, nx) -> (A U, psum <u_j, A
         u_j>)`` for the batched CG fast path: one ``stencil7_dot_many``
         launch per shard; the dots are ``(k,)``."""
         return lambda U: self._many_pass(comm, U, dot=True)
@@ -227,7 +223,7 @@ class StencilPoisson3D:
     def mult(self, x: Vec, y: Vec | None = None) -> Vec:
         """``y = A x``."""
         data = self.local_spmv(self.comm)(
-            x.data.view(self.comm.size, -1)).reshape(-1)
+            x.data.view(self.comm.local_shards, -1)).reshape(-1)
         if y is None:
             return Vec(self.comm, self.shape[0], data=data, layout=self.layout)
         y.data = data

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..core.vec import Vec
-from ..parallel.mesh import numpy_dtype
+from ..parallel.mesh import numpy_dtype, require_single_process
 from ..utils.convergence import SolveResult
 from ..utils.options import global_options
 from .krylov import _cgs2_step, _pmatdot
@@ -164,6 +164,7 @@ class EPS:
 
     # ---- lifecycle / configuration -----------------------------------------
     def create(self, comm=None):
+        require_single_process(comm, "EPS")
         self.comm = comm
         return self
 
@@ -351,6 +352,7 @@ class EPS:
         mat = self._mat
         if mat is None:
             raise RuntimeError("EPS.solve: no operators set")
+        require_single_process(mat.comm, "EPS")
         if self._bmat is not None and \
                 self._problem_type != EPSProblemType.GHEP:
             raise ValueError("two operators were set; problem type must be "

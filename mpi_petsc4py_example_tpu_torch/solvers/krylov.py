@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import require_single_process
 from ..utils.convergence import ConvergedReason as CR
 from . import cg_plans as _plans
 from .cg_plans import _dmax, _reason, _tol
@@ -528,7 +529,7 @@ def make_projector(comm, basis, prec):
     one batched product gives every shard's ``(k,)`` partial of ``Q v``,
     summed in shard order, and one product takes the component out. A
     mixed plan projects in its reduce dtype and rounds back to storage."""
-    size = comm.size
+    size = comm.local_shards
     k = basis.shape[0]
     Q = prec.up(basis).view(k, size, -1)
     Qs = Q.transpose(0, 1).contiguous()            # (size, k, lsize)
@@ -568,7 +569,11 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
     ``||b - A x||`` and ``||b||``, appended to the result as floats (one
     more host read)."""
     check_ksp_type(ksp_type)
-    size = comm.size
+    if ksp_type in _NEEDS_TRANSPOSE:
+        require_single_process(comm, f"KSP {ksp_type!r}")
+    if nullspace is not None:
+        require_single_process(comm, "a null space (NullSpace)")
+    size = comm.local_shards
     n = operator.shape[0]
     prec = _precision(ksp_type, operator)
     up = prec.up
@@ -691,7 +696,8 @@ def _pmatdot(comm):
     """``V (size, m+1, lsize), w (size, lsize) -> psum V_i w_i``: the
     whole-basis projection of CGS2, one reduction."""
     def pmatdot(V, w):
-        return comm.psum([torch.mv(V[i], w[i]) for i in range(comm.size)])
+        return comm.psum([torch.mv(V[i], w[i])
+                          for i in range(comm.local_shards)])
     return pmatdot
 
 
@@ -725,7 +731,7 @@ def build_ksp_program_many(comm, ksp_type, pc, operator, true_res=False,
     if ksp_type != "cg":
         raise ValueError(f"KSP {ksp_type!r} has no batched program; "
                          "KSP.solve_many solves its columns one by one")
-    size = comm.size
+    size = comm.local_shards
     prec = _precision(ksp_type, operator)
     up = prec.up
 

@@ -64,6 +64,16 @@ _CYCLE_GRANULAR = ("gmres", "fgmres")
 _MAX_REENTRIES = 3
 # petsc4py's default cap on the convergence history
 _HISTORY_LENGTH = 10000
+# the JAX flags whose modes would change a solve the port runs, and are not
+# ported: the attribute, its flag and the ROADMAP.md Queue A item that
+# brings the mode. A solve with one of them on raises.
+_UNPORTED_MODES = (
+    ("abft", "ksp_abft", 6),
+    ("residual_replacement", "ksp_residual_replacement", 6),
+    ("megasolve", "ksp_megasolve", 5),
+    ("megasolve_stencil_fastpath", "ksp_megasolve_stencil_fastpath", 5),
+    ("reduction_auto", "ksp_reduction_auto", 5),
+)
 
 
 class KSP:
@@ -101,6 +111,26 @@ class KSP:
         self._history = None
         self._history_length = _HISTORY_LENGTH
         self._history_reset = False
+        self._prefix = ""             # set_options_prefix
+        # the JAX flags of the modes the port lacks (_UNPORTED_MODES)
+        self.abft = False
+        self.residual_replacement = 0
+        self.megasolve = False
+        self.megasolve_stencil_fastpath = False
+        self.reduction_auto = False
+        # read and stored as the JAX package stores them: each only
+        # parameterises a type or mode the port lacks, which raises when
+        # chosen. -ksp_unroll only reschedules XLA's loop (JAX
+        # ksp.py:62-70) and has no effect here.
+        self.abft_tol = 256.0
+        self.lgmres_augment = 2
+        self.bcgsl_ell = 2
+        self.unroll = 1
+        self.pipeline_auto_replacement = 0
+        self.sstep_s = 4
+        self.sstep_max_replacements = 3
+        self.sstep_auto_replacement = 0
+        self.reduction_probe_refresh = False
         self.result = SolveResult()
         self.result_many = BatchedSolveResult()
         if comm is not None:
@@ -215,7 +245,7 @@ class KSP:
         the user monitors, ``-ksp_monitor``'s printout when there are none,
         the history record."""
         mons = list(self._monitors)
-        if self._monitor_flag and not self._monitors:
+        if self._monitor_flag and not self._monitors and self._prints():
             mons.append(lambda ksp, k, rn: print(
                 f"  {int(k):4d} KSP Residual norm {float(rn):.12e}"))
         if self._history is not None:
@@ -224,6 +254,11 @@ class KSP:
                     self._history.append(float(rn))
             mons.append(record)
         return mons
+
+    def _prints(self) -> bool:
+        """Whether this process prints: rank 0 of a process comm, always
+        on the virtual mesh."""
+        return getattr(self.comm, "rank", 0) == 0
 
     def view(self, file=None):
         """Print the solver configuration (``-ksp_view``)."""
@@ -296,59 +331,104 @@ class KSP:
 
     setTrueResidualCheck = set_true_residual_check
 
+    def set_options_prefix(self, prefix: str):
+        """Read this KSP's (and its PC's) flags as ``-<prefix>ksp_...``
+        (JAX ``ksp.py:345``)."""
+        self._prefix = prefix or ""
+        return self
+
+    setOptionsPrefix = set_options_prefix
+
+    def get_options_prefix(self) -> str:
+        return self._prefix
+
+    getOptionsPrefix = get_options_prefix
+
     def set_from_options(self):
-        """Apply the options database: ``-ksp_type``, ``-ksp_rtol``,
-        ``-ksp_atol``, ``-ksp_divtol``, ``-ksp_max_it``,
-        ``-ksp_gmres_restart``, ``-ksp_norm_type``, ``-ksp_batch_limit``,
+        """Apply the options database under the options prefix (JAX
+        ``ksp.py:392-472``): ``-ksp_type``, ``-ksp_rtol``, ``-ksp_atol``,
+        ``-ksp_divtol``, ``-ksp_max_it``, ``-ksp_gmres_restart``,
+        ``-ksp_norm_type``, ``-ksp_batch_limit``,
         ``-ksp_true_residual_check``, ``-ksp_true_residual_margin``,
         ``-ksp_converged_reason``, ``-ksp_monitor``, ``-ksp_view``,
         ``-pc_type``, ``-pc_factor_mat_solver_type``, ``-pc_bjacobi_blocks``,
         ``-pc_sor_omega``, ``-pc_asm_overlap``, ``-pc_factor_fill``,
         ``-pc_setup_device``, ``-pc_mg_smooth_type``,
-        ``-pc_composite_type``, ``-pc_composite_pcs`` (comma-separated)."""
+        ``-pc_composite_type``, ``-pc_composite_pcs`` (comma-separated).
+
+        The flags of the JAX modes the port lacks are read too: a solve with
+        ``-ksp_abft``, ``-ksp_residual_replacement``, ``-ksp_megasolve``,
+        ``-ksp_megasolve_stencil_fastpath`` or ``-ksp_reduction_auto`` on
+        raises ``NotImplementedError``; ``-ksp_abft_tol``,
+        ``-ksp_lgmres_augment``, ``-ksp_bcgsl_ell``, ``-ksp_sstep_*``,
+        ``-ksp_pipeline_auto_replacement``, ``-ksp_reduction_probe_refresh``,
+        ``-pc_gamg_threshold``, ``-pc_gamg_coarse_eq_limit`` and
+        ``-pc_mg_levels`` parameterise types the port lacks and are stored;
+        ``-ksp_unroll`` is stored and has no effect."""
         opt = global_options()
-        t = opt.get_string("ksp_type")
+        p = self._prefix
+        t = opt.get_string(p + "ksp_type")
         if t:
             self.set_type(t)
-        self.rtol = opt.get_real("ksp_rtol", self.rtol)
-        self.atol = opt.get_real("ksp_atol", self.atol)
-        self.divtol = opt.get_real("ksp_divtol", self.divtol)
-        self.max_it = opt.get_int("ksp_max_it", self.max_it)
-        self.restart = opt.get_int("ksp_gmres_restart", self.restart)
-        self.batch_limit = opt.get_int("ksp_batch_limit", self.batch_limit)
-        nt = opt.get_string("ksp_norm_type")
+        self.rtol = opt.get_real(p + "ksp_rtol", self.rtol)
+        self.atol = opt.get_real(p + "ksp_atol", self.atol)
+        self.divtol = opt.get_real(p + "ksp_divtol", self.divtol)
+        self.max_it = opt.get_int(p + "ksp_max_it", self.max_it)
+        self.restart = opt.get_int(p + "ksp_gmres_restart", self.restart)
+        self.batch_limit = opt.get_int(p + "ksp_batch_limit",
+                                       self.batch_limit)
+        nt = opt.get_string(p + "ksp_norm_type")
         if nt:
             self.set_norm_type(nt)
         self._true_residual_check = opt.get_bool(
-            "ksp_true_residual_check", self._true_residual_check)
+            p + "ksp_true_residual_check", self._true_residual_check)
         self.true_residual_margin = opt.get_real(
-            "ksp_true_residual_margin", self.true_residual_margin)
-        self._reason_flag = opt.get_bool("ksp_converged_reason",
+            p + "ksp_true_residual_margin", self.true_residual_margin)
+        for attr, flag, _item in _UNPORTED_MODES:
+            read = (opt.get_int if attr == "residual_replacement"
+                    else opt.get_bool)
+            setattr(self, attr, read(p + flag, getattr(self, attr)))
+        self.abft_tol = opt.get_real(p + "ksp_abft_tol", self.abft_tol)
+        for attr in ("lgmres_augment", "bcgsl_ell", "unroll",
+                     "pipeline_auto_replacement", "sstep_s",
+                     "sstep_max_replacements", "sstep_auto_replacement"):
+            setattr(self, attr, opt.get_int(p + "ksp_" + attr,
+                                            getattr(self, attr)))
+        self.reduction_probe_refresh = opt.get_bool(
+            p + "ksp_reduction_probe_refresh", self.reduction_probe_refresh)
+        self._reason_flag = opt.get_bool(p + "ksp_converged_reason",
                                          self._reason_flag)
-        self._monitor_flag = opt.get_bool("ksp_monitor", self._monitor_flag)
-        self._view_flag = opt.get_bool("ksp_view", self._view_flag)
+        self._monitor_flag = opt.get_bool(p + "ksp_monitor",
+                                          self._monitor_flag)
+        self._view_flag = opt.get_bool(p + "ksp_view", self._view_flag)
         pc = self.get_pc()
-        pct = opt.get_string("pc_type")
+        pct = opt.get_string(p + "pc_type")
         if pct:
             pc.set_type(pct)
-        fst = opt.get_string("pc_factor_mat_solver_type")
+        fst = opt.get_string(p + "pc_factor_mat_solver_type")
         if fst:
             pc.set_factor_solver_type(fst)
-        pc.bjacobi_blocks = opt.get_int("pc_bjacobi_blocks",
+        pc.bjacobi_blocks = opt.get_int(p + "pc_bjacobi_blocks",
                                         pc.bjacobi_blocks)
-        pc.sor_omega = opt.get_real("pc_sor_omega", pc.sor_omega)
-        pc.asm_overlap = opt.get_int("pc_asm_overlap", pc.asm_overlap)
-        pc.factor_fill = opt.get_real("pc_factor_fill", pc.factor_fill)
-        sd = opt.get_string("pc_setup_device")
+        pc.sor_omega = opt.get_real(p + "pc_sor_omega", pc.sor_omega)
+        pc.asm_overlap = opt.get_int(p + "pc_asm_overlap", pc.asm_overlap)
+        pc.factor_fill = opt.get_real(p + "pc_factor_fill", pc.factor_fill)
+        pc.gamg_threshold = opt.get_real(p + "pc_gamg_threshold",
+                                         pc.gamg_threshold)
+        pc.gamg_coarse_size = opt.get_int(p + "pc_gamg_coarse_eq_limit",
+                                          pc.gamg_coarse_size)
+        pc.gamg_max_levels = opt.get_int(p + "pc_mg_levels",
+                                         pc.gamg_max_levels)
+        sd = opt.get_string(p + "pc_setup_device")
         if sd:
             pc.setup_device = sd
-        mst = opt.get_string("pc_mg_smooth_type")
+        mst = opt.get_string(p + "pc_mg_smooth_type")
         if mst:                       # 'chebyshev' | 'jacobi' (solvers/mg)
             pc.mg_smoother = mst
-        ct = opt.get_string("pc_composite_type")
+        ct = opt.get_string(p + "pc_composite_type")
         if ct:
             pc.set_composite_type(ct)
-        cp = opt.get_string("pc_composite_pcs")
+        cp = opt.get_string(p + "pc_composite_pcs")
         if cp:
             pc.set_composite_pcs(*[t.strip() for t in cp.split(",")
                                    if t.strip()])
@@ -356,10 +436,22 @@ class KSP:
 
     setFromOptions = set_from_options
 
+    def _check_modes(self):
+        """Raise ``NotImplementedError`` when a mode the port lacks is on
+        (``_UNPORTED_MODES``), naming the Queue A item that brings it."""
+        for attr, flag, item in _UNPORTED_MODES:
+            if getattr(self, attr):
+                raise NotImplementedError(
+                    f"-{self._prefix}{flag}: this mode of the JAX package is "
+                    f"not ported (ROADMAP.md Queue A item {item}); unset it "
+                    "to run the plain solve")
+
     def set_up(self):
-        """Set up the PC on its operator (the factor PCs factor here)."""
+        """Set up the PC on its operator (the factor PCs factor here).
+        Raises first when a mode the port lacks was asked for."""
         if self._mat is None:
             raise RuntimeError("KSP.set_up: no operators set")
+        self._check_modes()
         pc = self.get_pc()
         pc.set_up(pc._mat if pc._mat is not None else self._mat)
         return self
@@ -407,7 +499,7 @@ class KSP:
         and with ``-ksp_view`` the configuration, as PETSc does."""
         res = self._solve(b, x, _rtol, _atol, _guess_nonzero, _no_reenter,
                           _mon_offset)
-        if not _no_reenter:
+        if not _no_reenter and self._prints():
             if self._view_flag:
                 self.view()
             if self._reason_flag:
@@ -618,7 +710,7 @@ class KSP:
         # one placement of each block: stacked on the card from Vecs, or
         # transposed on the host and copied once
         place = lambda blk, is_vecs: (
-            torch.stack([v.data.view(comm.size, -1) for v in blk],
+            torch.stack([v.data.view(comm.local_shards, -1) for v in blk],
                         dim=1).to(mat.dtype)
             if is_vecs else comm.put_cols(blk, mat.dtype))
         Bd = place(B, b_vecs)

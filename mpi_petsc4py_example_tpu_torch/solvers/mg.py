@@ -20,8 +20,8 @@ banded ``torch.einsum`` products with the ``_tmat`` weights, outside any kernel,
 as the JAX package leaves it to XLA; it needs full fp32 matmuls (TF32 off,
 PyTorch's default), and the cycle raises on the card when TF32 is on.
 
-Distribution: the cycle takes shard-stacked ``(size, lz, ny, nx)`` tensors,
-the CG loop's carries. With one shard the cycle is local. With more, each
+Distribution: the cycle takes shard-stacked ``(local_shards, lz, ny, nx)``
+tensors, the CG loop's carries. With one shard the cycle is local. With more, each
 level whose local plane count is even runs slab-decomposed: every sweep,
 residual, restriction and prolongation takes the neighbouring shards'
 boundary planes through the plane exchange of ``models/stencil.py``, with
@@ -236,9 +236,11 @@ def mg_levels(nz: int, ny: int, nx: int, min_dim: int = 4):
 def make_vcycle3d(nz: int, ny: int, nx: int, pre: int = 2, post: int = 2,
                   coarse_iters: int = 20, comm=None,
                   smoother: str = "chebyshev", plain: bool = False):
-    """Return ``cycle(r (size, lz, ny, nx)) -> z`` approximating ``A^-1 r``
-    on shard-stacked tensors (``size = comm.size``, 1 without ``comm``), the
-    grid shape of the stencil-CG loop's carries.
+    """Return ``cycle(r (L, lz, ny, nx)) -> z`` approximating ``A^-1 r``
+    on shard-stacked tensors of this process's ``L = comm.local_shards``
+    shards of ``size = comm.size`` (both 1 without ``comm``), the grid shape
+    of the stencil-CG loop's carries. Below the slab levels every process
+    cycles the gathered coarse grid and keeps its own shards' slabs.
 
     ``smoother``: ``'chebyshev'`` (default) runs the pre/post sweeps with
     the Chebyshev-root omega schedule of :func:`cheby_omegas`; ``'jacobi'``
@@ -255,6 +257,8 @@ def make_vcycle3d(nz: int, ny: int, nx: int, pre: int = 2, post: int = 2,
                          "available: 'chebyshev', 'jacobi'")
     ops = PLAIN_OPS if plain else KERNEL_OPS
     size = 1 if comm is None else comm.size
+    first, count = (0, 1) if comm is None else (comm.shard_offset,
+                                                 comm.local_shards)
 
     def local_cycle(f, li: int):
         if li == len(levels) - 1:
@@ -292,7 +296,8 @@ def make_vcycle3d(nz: int, ny: int, nx: int, pre: int = 2, post: int = 2,
             # tail: gather the (tiny) coarse grid, cycle it locally, and
             # hand each shard its slab of the correction
             e_full = local_cycle(comm.all_gather(f), li)
-            return e_full.reshape((size, -1) + tuple(e_full.shape[1:]))
+            return e_full.reshape((size, -1) + tuple(e_full.shape[1:]))[
+                first:first + count]
         u = _smooth0(f, pre, slab, omega=pre_w, ops=ops)
         lo, hi = slab.exchange(u)
         r = slab.map(ops.residual, u, f, lo, hi)
@@ -309,14 +314,14 @@ def make_vcycle(nz: int, ny: int, nx: int, pre: int = 2, post: int = 2,
                 coarse_iters: int = 20, comm=None,
                 smoother: str = "chebyshev", plain: bool = False):
     """Flat-vector wrapper over :func:`make_vcycle3d`:
-    ``vcycle(r (size, lz*ny*nx)) -> z`` (the generic PC-apply shape)."""
+    ``vcycle(r (L, lz*ny*nx)) -> z`` (the generic PC-apply shape)."""
     cycle = make_vcycle3d(nz, ny, nx, pre=pre, post=post,
                           coarse_iters=coarse_iters, comm=comm,
                           smoother=smoother, plain=plain)
-    size = 1 if comm is None else comm.size
+    size, count = (1, 1) if comm is None else (comm.size, comm.local_shards)
 
     def vcycle(r_flat):
-        return cycle(r_flat.reshape(size, nz // size, ny, nx)).reshape(
+        return cycle(r_flat.reshape(count, nz // size, ny, nx)).reshape(
             r_flat.shape)
 
     return vcycle

@@ -60,7 +60,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.spmv import widened_einsum
-from ..parallel.mesh import full_vector_local_apply, numpy_dtype, torch_dtype
+from ..parallel.mesh import (full_vector_local_apply, numpy_dtype,
+                             require_single_process, to_host, torch_dtype)
 from ..utils.dtypes import host_dtype, is_low_precision, real_eps
 from .mg import make_vcycle, make_vcycle3d
 from .tridiag import (banded_to_blocks, bpcr_apply, bpcr_setup,
@@ -113,6 +114,12 @@ class PC:
         self.setup_mode = None        # 'device' | 'host' once a factor PC
                                       # is set up
         self.setup_breakdown = None   # device set-up: extract_s, invert_s
+        # PC gamg's tunables (-pc_gamg_threshold, -pc_gamg_coarse_eq_limit,
+        # -pc_mg_levels), stored for the JAX package's gamg, which the port
+        # lacks (set_type('gamg') raises)
+        self.gamg_threshold = 0.0
+        self.gamg_coarse_size = 64
+        self.gamg_max_levels = 10
         # PC shell: the user's apply (and transpose) on the whole vector
         self._shell_apply = None
         self._shell_apply_t = None
@@ -281,6 +288,8 @@ class PC:
         self.setup_mode = None
         self.setup_breakdown = None
         t = self._type
+        if t in _BLOCK_TYPES + ("asm", "shell", "composite"):
+            require_single_process(mat.comm, f"PC {t!r}")
         # jacobi's inverse diagonal is made when an apply first needs it:
         # the stencil fast path never does
         self._arrays = ()
@@ -318,6 +327,8 @@ class PC:
         if t == "cholesky":
             _require_symmetric(mat)
         mode, bw, perm, A_perm = _lu_plan(mat)
+        if mode in ("crtri", "crband"):
+            require_single_process(mat.comm, f"PC {t!r} in mode {mode!r}")
         self._factor_mode = mode
         self.setup_mode = "host"
         if mode == "dense":
@@ -346,7 +357,7 @@ class PC:
             # arithmetic (an fp32 quotient, rounded once): so does this
             diag = diag.astype(np.float32)
         inv = np.where(diag != 0, 1.0 / np.where(diag == 0, 1.0, diag), 0.0)
-        return comm.put_rows(inv, mat.dtype).view(comm.size, -1)
+        return comm.put_rows(inv, mat.dtype).view(comm.local_shards, -1)
 
     def _mg_operator(self):
         """The operator the V-cycle is built for; raises ``ValueError`` when
@@ -542,7 +553,7 @@ class PC:
         if k == "jacobi":
             inv_d = self._jacobi_inverse()[:, None, :]
             return lambda R: R * inv_d
-        size, lsize = comm.size, comm.local_size(n)
+        size, lsize = comm.local_shards, comm.local_size(n)
         if k == "bjacobi":
             binv = self._arrays[0]
             nb, bs = binv.shape[0] // size, binv.shape[1]
@@ -628,13 +639,14 @@ def _want_device_setup(device, dtype, setup_device, f64_ok: bool = False
     return dt == torch.float32 or (f64_ok and dt == torch.float64)
 
 
-def _per_device_inverse(A, n, lsize, ndev, block_inv, host_dt=np.float64):
+def _per_device_inverse(A, n, lsize, ndev, block_inv, host_dt=np.float64,
+                        first: int = 0):
     """``(ndev, lsize, lsize)`` stack of ``block_inv`` of the diagonal
-    blocks of the host CSR ``A``; padding rows get identity, so padded
-    vector slots pass through unchanged."""
+    blocks ``first ... first + ndev - 1`` of the host CSR ``A``; padding
+    rows get identity, so padded vector slots pass through unchanged."""
     inv = np.zeros((ndev, lsize, lsize), dtype=host_dt)
     for d in range(ndev):
-        rs, re = d * lsize, min((d + 1) * lsize, n)
+        rs, re = (first + d) * lsize, min((first + d + 1) * lsize, n)
         inv[d] = np.eye(lsize)
         if rs < n:
             m = re - rs
@@ -701,7 +713,8 @@ def _build_bjacobi(mat, blocks: int = 0, setup_device: str = "auto"):
     device-resident ELL (:func:`_ell_diag_blocks`) and inverted there
     (:func:`_device_inverse`); otherwise, or when the quality gate rejects
     that inverse, fp64 LAPACK on the host inverts them, from the already
-    extracted stack in the second case."""
+    extracted stack in the second case. Each process builds the blocks of
+    its own shards."""
     import scipy.linalg
     _require_assembled(mat, "bjacobi")
     comm = mat.comm
@@ -716,17 +729,19 @@ def _build_bjacobi(mat, blocks: int = 0, setup_device: str = "auto"):
     host_dt = host_dtype(mat.dtype)
     if _want_device_setup(comm.device, mat.dtype, setup_device, f64_ok=True):
         t0 = time.perf_counter()
-        blk = _ell_diag_blocks(mat.ell_cols, mat.ell_vals, bs, n)
+        blk = _ell_diag_blocks(mat.ell_cols, mat.ell_vals, bs, n,
+                               comm.local_row_range(n)[0])
         t1 = _synced(comm.device)
         inv = _device_inverse(blk)
         if inv is not None:
             return (inv,), "device", _breakdown(t0, t1, comm.device)
         inv = np.stack([scipy.linalg.inv(b.astype(host_dt))
-                        for b in comm.host_fetch(blk)])
+                        for b in to_host(blk.detach().cpu())])
     else:
         inv = _per_device_inverse(
-            mat.to_scipy().tocsr(), n, bs, comm.size * nb,
-            lambda B: scipy.linalg.inv(B.toarray().astype(host_dt)))
+            mat.to_scipy().tocsr(), n, bs, comm.local_shards * nb,
+            lambda B: scipy.linalg.inv(B.toarray().astype(host_dt)),
+            first=comm.shard_offset * nb)
     return (_to_device(comm, inv, mat.dtype),), "host", None
 
 
@@ -770,25 +785,27 @@ def _device_inverse(B: torch.Tensor):
     return X
 
 
-def _ell_diag_blocks(cols, vals, bs: int, n: int) -> torch.Tensor:
-    """``(n_pad, K)`` ELL -> ``(n_pad / bs, bs, bs)`` dense diagonal-block
-    stack on the ELL's device (JAX ``pc.py:1355``). Off-block entries add
-    into a dump block that is dropped; ELL padding slots hold 0, so their
-    adds change nothing; padding rows get identity diagonals."""
-    n_pad, K = cols.shape
-    M = n_pad // bs
+def _ell_diag_blocks(cols, vals, bs: int, n: int,
+                     row0: int = 0) -> torch.Tensor:
+    """``(rows, K)`` ELL of the global rows ``row0 ... row0 + rows - 1``
+    -> ``(rows / bs, bs, bs)`` dense diagonal-block stack on the ELL's
+    device (JAX ``pc.py:1355``). Off-block entries add into a dump block
+    that is dropped; ELL padding slots hold 0, so their adds change
+    nothing; padding rows get identity diagonals."""
+    rows, K = cols.shape
+    M = rows // bs
     dev = cols.device
-    r = torch.arange(n_pad, device=dev)[:, None].expand(n_pad, K)
+    r = torch.arange(rows, device=dev)[:, None].expand(rows, K)
     blk = r // bs
-    cc = cols.long() - blk * bs
-    inside = (cc >= 0) & (cc < bs) & (r < n)
+    cc = cols.long() - row0 - blk * bs
+    inside = (cc >= 0) & (cc < bs) & (r + row0 < n)
     blk_s = torch.where(inside, blk, M)
     X = torch.zeros((M + 1, bs, bs), dtype=vals.dtype, device=dev)
     X.index_put_((blk_s.reshape(-1), (r % bs).reshape(-1),
                   torch.where(inside, cc, 0).reshape(-1)),
                  torch.where(inside, vals, 0).reshape(-1), accumulate=True)
     X = X[:M]
-    i = torch.arange(n, n_pad, device=dev)
+    i = torch.arange(min(max(n - row0, 0), rows), rows, device=dev)
     X[i // bs, i % bs, i % bs] = 1
     return X
 
@@ -1019,12 +1036,14 @@ def _build_banded_bcr(mat, bw: int, perm=None, A_perm=None,
     return out, mode, timings
 
 
-def dense_inverse_padded(comm, M, dtype, too_large: str):
+def dense_inverse_padded(comm, M, dtype, too_large: str,
+                         local: bool = False):
     """The explicit inverse of the host sparse matrix ``M``, made on the host
     in fp64, zero-padded to the communicator's padded size, on the device in
     ``dtype``: what PC lu (dense, host set-up) and the factoring ST
-    transformations apply as one matrix product, replicated. Past
-    ``_DENSE_CAP`` rows it raises ``ValueError(too_large)``."""
+    transformations apply as one matrix product, replicated, or with
+    ``local`` only this process's rows of it. Past ``_DENSE_CAP`` rows it
+    raises ``ValueError(too_large)``."""
     import scipy.linalg
     n = M.shape[0]
     if n > _DENSE_CAP:
@@ -1032,7 +1051,8 @@ def dense_inverse_padded(comm, M, dtype, too_large: str):
     n_pad = comm.padded_size(n)
     inv_pad = np.zeros((n_pad, n_pad), dtype=np.float64)
     inv_pad[:n, :n] = scipy.linalg.inv(M.toarray().astype(np.float64))
-    return _to_device(comm, inv_pad, dtype)
+    return _to_device(comm, comm.local_rows(inv_pad) if local else inv_pad,
+                      dtype)
 
 
 def _build_dense_lu(mat, setup_device: str = "auto"):
@@ -1048,12 +1068,17 @@ def _build_dense_lu(mat, setup_device: str = "auto"):
     if _want_device_setup(comm.device, mat.dtype, setup_device,
                           f64_ok=True):
         t0 = time.perf_counter()
-        Ad = _densify_ell(mat.ell_cols, mat.ell_vals, n)
+        K = mat.ell_cols.shape[1]
+        Ad = _densify_ell(
+            comm.all_gather(mat.ell_cols.view(comm.local_shards, -1, K)),
+            comm.all_gather(mat.ell_vals.view(comm.local_shards, -1, K)), n)
         t1 = _synced(comm.device)
         X = _device_inverse_dense(Ad, n)
         if X is not None:
-            return (X,), "device", _breakdown(t0, t1, comm.device)
+            start, stop = comm.local_row_range(n)
+            return (X[start:stop],), "device", _breakdown(t0, t1,
+                                                          comm.device)
     return (dense_inverse_padded(
         comm, mat.to_scipy(), mat.dtype,
-        f"PC 'lu' densifies general operators; n={n} is too large"),), \
-        "host", None
+        f"PC 'lu' densifies general operators; n={n} is too large",
+        local=True),), "host", None

@@ -29,7 +29,7 @@ import time
 import numpy as np
 
 from ..core.mat import Mat
-from ..parallel.mesh import DeviceComm
+from ..parallel.mesh import DeviceComm, require_single_process
 from ..utils.convergence import ConvergedReason, SolveResult
 from ..utils.dtypes import inner_precision_dtype, real_eps
 from ..utils.options import global_options
@@ -70,6 +70,7 @@ class RefinedKSP:
         self.result = SolveResult()
 
     def create(self, comm=None):
+        require_single_process(comm, "RefinedKSP")
         self.comm = comm
         self.inner.create(comm)
         return self
@@ -92,19 +93,24 @@ class RefinedKSP:
         return inner_precision_dtype(self.inner_precision)
 
     def set_from_options(self):
-        """Apply the options database: ``-ksp_inner_precision``,
+        """Apply the options database under the inner KSP's options prefix
+        (JAX ``refine.py:112``): ``-ksp_inner_precision``,
         ``-ksp_refine_max`` (outer-step cap), ``-ksp_refine_inner_rtol``
         (per-correction inner target) and ``-ksp_megasolve``, then the inner
         KSP's own flags (``-ksp_type``, ``-pc_type``, ...)."""
         opt = global_options()
-        ip = opt.get_string("ksp_inner_precision")
+        p = self.inner.get_options_prefix()
+        ip = opt.get_string(p + "ksp_inner_precision")
         if ip:
             self.set_inner_precision(ip)
-        self.max_refine = opt.get_int("ksp_refine_max", self.max_refine)
-        self.inner_rtol = opt.get_real("ksp_refine_inner_rtol",
+        self.max_refine = opt.get_int(p + "ksp_refine_max", self.max_refine)
+        self.inner_rtol = opt.get_real(p + "ksp_refine_inner_rtol",
                                        self.inner_rtol)
-        self.megasolve = opt.get_bool("ksp_megasolve", self.megasolve)
+        self.megasolve = opt.get_bool(p + "ksp_megasolve", self.megasolve)
         self.inner.set_from_options()
+        # the refinement loop is the megasolve slot: the inner KSP must not
+        # also take it (JAX refine.py:119-122)
+        self.inner.megasolve = False
         return self
 
     setFromOptions = set_from_options
@@ -122,6 +128,7 @@ class RefinedKSP:
         if self.comm is None:
             self.create(DeviceComm())       # the card, as an entry point
         if inner_op is not None:
+            require_single_process(inner_op.comm, "RefinedKSP")
             self._inner_op = inner_op
             self._mat_lp = None
         else:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import require_single_process
 from ..utils.options import global_options
 from .pc import _DENSE_CAP, dense_inverse_padded
 
@@ -149,6 +150,7 @@ class STOperator:
     protocol (``local_spmv(comm)`` -> ``spmv(x (size, lsize))``)."""
 
     def __init__(self, A, B, st_type: str, sigma: float, nu: float = 0.0):
+        require_single_process(A.comm, "ST")
         if st_type in ("sinvert", "cayley") and not hasattr(A, "to_scipy"):
             raise ValueError(
                 f"ST {st_type!r} needs an assembled matrix (Mat): "

@@ -17,7 +17,9 @@ hands them over as plain values, never as JAX objects:
 
 The grid and the CSR do not depend on the shard count, so the port's
 communicator may have another shard count than the JAX mesh had (a stencil's
-``ndev`` only has to divide ``nz``).
+``ndev`` only has to divide ``nz``). On a ``ProcessComm`` every process is
+handed the same host arrays and places only its own rows, the JAX ``_put``
+model.
 
 A ``dtype`` of ``torch.bfloat16`` builds the port's bfloat16 problem. The JAX
 package's bfloat16 arrays (``ml_dtypes``, which the port does not import)

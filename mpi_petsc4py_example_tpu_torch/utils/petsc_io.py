@@ -33,6 +33,7 @@ import torch
 
 from ..core.mat import Mat
 from ..core.vec import Vec
+from ..parallel.mesh import require_single_process
 
 MAT_FILE_CLASSID = 1211216
 VEC_FILE_CLASSID = 1211214
@@ -215,6 +216,7 @@ def _real_only(scalar: str):
 
 def save_mat(path, mat) -> None:
     """``MatView(mat, binary_viewer)``: write an assembled Mat."""
+    require_single_process(mat.comm, "petsc_io")
     write_mat(path, mat.to_scipy())
 
 
@@ -222,12 +224,14 @@ def load_mat(path, comm, dtype=None, scalar: str = "real"):
     """``MatLoad``: read a PETSc binary Mat into a row-sharded Mat on
     ``comm`` (float64 unless ``dtype`` says otherwise)."""
     _real_only(scalar)
+    require_single_process(comm, "petsc_io")
     A = read_mat(path, scalar=scalar)
     return Mat.from_scipy(comm, A, dtype=dtype or torch.float64)
 
 
 def save_vec(path, vec) -> None:
     """``VecView(vec, binary_viewer)``."""
+    require_single_process(vec.comm, "petsc_io")
     write_vec(path, vec.to_numpy())
 
 
@@ -235,5 +239,6 @@ def load_vec(path, comm, dtype=None, scalar: str = "real"):
     """``VecLoad``: read a PETSc binary Vec into a row-sharded Vec on
     ``comm``."""
     _real_only(scalar)
+    require_single_process(comm, "petsc_io")
     arr = read_vec(path, scalar=scalar)
     return Vec.from_global(comm, arr, dtype=dtype)

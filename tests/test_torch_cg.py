@@ -312,6 +312,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_petsc4py_example_tpu_torch/core/nullspace.py",
             "mpi_petsc4py_example_tpu_torch/utils/petsc_io.py",
             "mpi_petsc4py_example_tpu_torch/facade/drivers/advanced.py",
+            "mpi_petsc4py_example_tpu_torch/parallel/mesh.py",
+            "mpi_petsc4py_example_tpu_torch/facade/drivers/parity.py",
             } <= names
     assert not offenders, offenders
 

@@ -504,3 +504,147 @@ def test_from_host_csr_validates_vectors():
         from_host_csr(comm, A.shape, csr, np.ones(15))
     with pytest.raises(ValueError, match="x0 must"):
         from_host_csr(comm, A.shape, csr, np.ones(16), np.ones(3))
+
+
+# ---- the options prefix and the flags of the modes the port lacks ----------
+
+@pytest.fixture
+def clean_jax_options():
+    tps.global_options().clear()
+    yield
+    tps.global_options().clear()
+
+
+def _port_cfg3(ksp_type="cg", pc_type="jacobi", prefix=""):
+    A = OPERATORS["cfg3"]()
+    comm = pt.DeviceComm(4, device="cpu")
+    m, bv, xv = from_host_csr(comm, A.shape, (A.indptr, A.indices, A.data),
+                              _rhs(A))
+    ksp = pt.KSP().create(comm).set_options_prefix(prefix)
+    ksp.set_operators(m)
+    ksp.set_type(ksp_type)
+    ksp.get_pc().set_type(pc_type)
+    ksp.set_tolerances(rtol=1e-8, atol=0.0)
+    return ksp, bv, xv
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["-ksp_abft"], 6), (["-ksp_residual_replacement", "10"], 6),
+    (["-ksp_megasolve"], 5), (["-ksp_megasolve_stencil_fastpath"], 5),
+    (["-ksp_reduction_auto"], 5)])
+def test_unported_mode_flag_raises_naming_its_item(flag, item):
+    pt.init(["prog", *flag])
+    ksp, bv, xv = _port_cfg3()
+    ksp.set_from_options()
+    with pytest.raises(NotImplementedError,
+                       match=f"Queue A item {item}") as err:
+        ksp.solve(bv, xv)
+    assert flag[0] in str(err.value)
+    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
+        ksp.solve_many(np.ones((bv.n, 2)))
+
+
+STORED = [("ksp_abft_tol", "64", "abft_tol", None),
+          ("ksp_lgmres_augment", "3", "lgmres_augment", None),
+          ("ksp_bcgsl_ell", "4", "bcgsl_ell", None),
+          ("ksp_sstep_s", "8", "sstep_s", None),
+          ("ksp_sstep_max_replacements", "5", "sstep_max_replacements",
+           None),
+          ("ksp_sstep_auto_replacement", "20", "sstep_auto_replacement",
+           None),
+          ("ksp_pipeline_auto_replacement", "25",
+           "pipeline_auto_replacement", None),
+          ("ksp_reduction_probe_refresh", None, "reduction_probe_refresh",
+           None),
+          ("ksp_unroll", "4", "unroll", None),
+          ("pc_gamg_threshold", "0.05", "gamg_threshold", "pc"),
+          ("pc_gamg_coarse_eq_limit", "100", "gamg_coarse_size", "pc"),
+          ("pc_mg_levels", "3", "gamg_max_levels", "pc")]
+
+
+@pytest.mark.parametrize("flag,value,attr,owner", STORED,
+                         ids=[s[0] for s in STORED])
+def test_stored_flag_is_read_as_jax_reads_it(clean_jax_options, flag, value,
+                                             attr, owner):
+    argv = ["prog", "-" + flag] + ([value] if value is not None else [])
+    tps.init(argv)
+    pt.init(argv)
+    jksp = tps.KSP().create(tps.DeviceComm(n_devices=1)).set_from_options()
+    ksp = pt.KSP().create(pt.DeviceComm(device="cpu")).set_from_options()
+    jobj = jksp.get_pc() if owner else jksp
+    obj = ksp.get_pc() if owner else ksp
+    assert getattr(obj, attr) == getattr(jobj, attr)
+    assert getattr(obj, attr) != getattr(
+        (pt.KSP().create(pt.DeviceComm(device="cpu")).get_pc() if owner
+         else pt.KSP()), attr)
+    # the flag only parameterises a mode the port lacks: a solve runs
+    solver, bv, xv = _port_cfg3()
+    solver.set_from_options()
+    assert solver.solve(bv, xv).reason == CR.CONVERGED_RTOL
+
+
+def test_ksp_unroll_changes_nothing():
+    ksp, bv, xv = _port_cfg3("gmres")
+    ref = ksp.solve(bv, xv)
+    x_ref = xv.to_numpy()
+    pt.init(["prog", "-ksp_unroll", "8"])
+    ksp2, bv2, xv2 = _port_cfg3("gmres")
+    ksp2.set_from_options()
+    assert ksp2.unroll == 8
+    res = ksp2.solve(bv2, xv2)
+    assert (res.iterations, res.reason) == (ref.iterations, ref.reason)
+    np.testing.assert_array_equal(xv2.to_numpy(), x_ref)
+
+
+def test_prefixed_options_match_jax(clean_jax_options):
+    """``-sub_`` flags reach the prefixed KSP and its PC, as in the JAX
+    package; the unprefixed ones do not."""
+    opts = ["prog", "-sub_ksp_type", "gmres", "-sub_pc_type", "bjacobi",
+            "-sub_ksp_rtol", "1e-6", "-sub_ksp_gmres_restart", "20",
+            "-ksp_type", "bcgs", "-pc_type", "none"]
+    tps.init(opts)
+    pt.init(opts)
+    A = OPERATORS["cfg3"]()
+    b = _rhs(A)
+    jcomm = tps.DeviceComm(n_devices=4)
+    M = tps.Mat.from_scipy(jcomm, A)
+    jksp = tps.KSP().create(jcomm)
+    jksp.set_options_prefix("sub_")
+    jksp.set_operators(M)
+    jksp.set_from_options()
+    jx, jb = M.get_vecs()
+    jb.set_global(b)
+    jres = jksp.solve(jb, jx)
+    ksp, bv, xv = _port_cfg3("cg", "none", prefix="sub_")
+    ksp.set_from_options()
+    assert ksp.get_options_prefix() == "sub_"
+    assert (ksp.get_type(), ksp.get_pc().get_type(), ksp.rtol,
+            ksp.restart) == ("gmres", "bjacobi", 1e-6, 20)
+    res = ksp.solve(bv, xv)
+    _assert_same(jres, jx.to_numpy(), res, xv.to_numpy())
+
+
+def test_prefixed_refined_ksp_reads_the_inner_prefix(clean_jax_options):
+    """RefinedKSP reads its flags under the inner KSP's prefix (JAX
+    ``refine.py:112``), and the inner KSP never takes the megasolve slot."""
+    from mpi_petsc4py_example_tpu.solvers.refine import (
+        RefinedKSP as JaxRefinedKSP)
+    opts = ["prog", "-in_ksp_inner_precision", "f32", "-in_ksp_refine_max",
+            "7", "-in_ksp_refine_inner_rtol", "1e-3", "-in_ksp_type", "cg",
+            "-in_pc_type", "jacobi", "-in_ksp_megasolve",
+            "-ksp_refine_max", "2"]
+    tps.init(opts)
+    pt.init(opts)
+    jrk = JaxRefinedKSP().create(tps.DeviceComm(n_devices=1))
+    jrk.inner.set_options_prefix("in_")
+    jrk.set_from_options()
+    rk = pt.RefinedKSP().create(pt.DeviceComm(device="cpu"))
+    rk.inner.set_options_prefix("in_")
+    rk.set_from_options()
+    got = (rk.inner_precision, rk.max_refine, rk.inner_rtol, rk.megasolve,
+           rk.inner.megasolve, rk.inner.get_type(),
+           rk.inner.get_pc().get_type())
+    want = (jrk.inner_precision, jrk.max_refine, jrk.inner_rtol,
+            jrk.megasolve, jrk.inner.megasolve, jrk.inner.get_type(),
+            jrk.inner.get_pc().get_type())
+    assert got == want == ("f32", 7, 1e-3, True, False, "cg", "jacobi")
