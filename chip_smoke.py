@@ -92,8 +92,14 @@ before each and read just after:
   ``solve_many`` at 128^3 (fast path and general route) and 64^3 fp64 CG +
   mg on gloo 2 x 2; 512^3 on gloo 2 x 1 against ``DeviceComm(2)`` (equal
   iterations, fp64 true residual, ms/iter with the host copies: one card
-  shared by two processes, not scaling); the ``test.py`` flow through
-  ``run.py --procs`` at -n 1 (NCCL), 2 and 4 (gloo).
+  shared by two processes, not scaling); the rest of the stack on both
+  (the 128^3 fp64 Krylov-Schur of the eigensolver phases, with its
+  restarts, lambda against the closed form, ``stencil7_apply`` launches per
+  local shard, ms, psums and shifts per restart; on gloo also cfg11's
+  refinement at 128^3 with f32 and bf16 inner solves, the 128^3 Neumann AIJ
+  with a null space, CGNE on ``convdiff2d(1024)`` and PC lu crtri at 2^20);
+  the ``test.py`` and ``test2.py`` flows through ``run.py --procs`` at -n 1
+  (NCCL), 2 and 4 (gloo).
 
 ``python3 chip_smoke.py --surface`` builds the kernels, checks the four the
 surface slice launches, and runs only its phases. ``python3 chip_smoke.py
@@ -3656,16 +3662,130 @@ def ms_per_iter(res) -> float:
     return float(res["wall_s"]) / max(int(its.max()), 1) * 1e3
 
 
+# the 128^3 fp64 Krylov-Schur of the eigensolver phases, on a process comm
+EPS_PROCS = dict(kind="eps", op="stencil", grid=[EPS_NX] * 3, tol=1e-8,
+                 ncv=16, max_it=EPS_MAX_IT)
+
+
+def bits_or_close(label, got, want, key="x", tol=1e-12):
+    """``(bit-equal, max diff)`` of ``got[key]`` against ``want[key]``;
+    where the bits differ the values must agree within ``tol`` of their
+    scale."""
+    g, w = np.asarray(got[key]), np.asarray(want[key])
+    same = np.array_equal(g, w)
+    diff = float(np.abs(g - w).max()) if g.size else 0.0
+    scale = max(float(np.abs(w).max()), 1.0) if w.size else 1.0
+    check(same or diff <= tol * scale,
+          f"{label}: {key} differs from the virtual mesh's by {diff}")
+    return same, diff
+
+
+def procs_eps(label, got, ref, local_shards, card):
+    """The 128^3 EPS on a process comm against ``DeviceComm`` in this
+    process: restarts and reason equal, lambda within 1e-9 of the closed
+    form, the pairs bit for bit (or within 1e-12, reported), and
+    ``stencil7_apply`` launched ``local_shards`` times the Krylov-Schur
+    count; ms, psums and ring shifts per restart."""
+    restarts = int(got["its"])
+    check(restarts == int(ref["its"]) and int(got["reason"]) ==
+          int(ref["reason"]) > 0,
+          f"{label}: restarts {restarts} reason {int(got['reason'])} != "
+          f"{int(ref['its'])} {int(ref['reason'])}")
+    want = stencil_extremes(EPS_NX)[0]
+    lam = float(np.real(got["lam"][0]))
+    rel = abs(lam - want) / want
+    check(rel <= 1e-9, f"{label}: lambda {lam!r} rel err {rel} vs the "
+                       "closed form")
+    lam_bits, lam_diff = bits_or_close(label, got, ref, "lam")
+    vec_bits, vec_diff = bits_or_close(label, got, ref, "x")
+    applies = int(got["launches_stencil3d_apply"])
+    formula = expected_eps_applies(EPS_PROCS["ncv"], restarts)
+    check(applies == local_shards * formula,
+          f"{label}: stencil7_apply launches {applies} != {local_shards} "
+          f"x {formula}")
+    out = {"restarts": restarts, "lambda": lam, "rel_err": rel,
+           "lambda_bits": lam_bits, "lambda_diff": lam_diff,
+           "vector_bits": vec_bits, "vector_diff": vec_diff,
+           "launches": applies, "formula": formula,
+           "ms_per_restart": float(got["wall_s"]) / restarts * 1e3,
+           "ms_per_restart_virtual": float(ref["wall_s"]) / restarts * 1e3,
+           "psums_per_restart": int(got["calls_psum"]) / restarts,
+           "shifts_per_restart": int(got["calls_shift"]) / restarts,
+           "host_copies": int(got["host_copies_total"])}
+    log(f"{label}, 128^3 fp64 Krylov-Schur ncv 16: {restarts} "
+        f"restarts (= DeviceComm), lambda {lam!r} (closed form {want!r}, "
+        f"rel err {rel:.3e}), lambda bit-equal {lam_bits} (diff "
+        f"{lam_diff:.3e}), vector bit-equal {vec_bits} (diff "
+        f"{vec_diff:.3e}), stencil7_apply {applies} = {local_shards} x "
+        f"{formula}, {out['ms_per_restart']:.3f} ms/restart vs "
+        f"{out['ms_per_restart_virtual']:.3f} on DeviceComm, "
+        f"{out['psums_per_restart']:.2f} psums + "
+        f"{out['shifts_per_restart']:.2f} shifts per restart, host copies "
+        f"{out['host_copies']}; {card}")
+    return out
+
+
+def procs_stack(label, got, ref, card, extra=""):
+    """A refinement, null-space, transpose or direct case on a process comm
+    against ``DeviceComm``: iterations, reason (and outer steps) equal, the
+    iterate bit for bit or within 1e-12 (reported)."""
+    for key in ("its", "reason", "steps", "pc_kind"):
+        if key in ref:
+            check(str(got[key]) == str(ref[key]),
+                  f"{label}: {key} {got[key]} != {ref[key]}")
+    bits, diff = bits_or_close(label, got, ref)
+    its = int(got["its"])
+    out = {"iterations": its, "reason": int(got["reason"]),
+           "x_bits": bits, "x_diff": diff, "ms_per_iter": ms_per_iter(got),
+           "ms_per_iter_virtual": ms_per_iter(ref),
+           "host_copies": int(got["host_copies_total"]),
+           "launches": {k[len("launches_"):]: int(v) for k, v in got.items()
+                        if k.startswith("launches_") and int(v)}}
+    log(f"{label}: {its} iterations, reason {out['reason']} (= "
+        f"DeviceComm), x bit-equal {bits} (diff {diff:.3e}), "
+        f"{out['ms_per_iter']:.4f} ms/iter vs "
+        f"{out['ms_per_iter_virtual']:.4f}, launches of rank 0 "
+        f"{out['launches']}{extra}; {card}")
+    return out
+
+
+def refine_relres(x):
+    """cfg11's fp64 relative residual of the 128^3 refinement case (its
+    right-hand side as the parity driver makes it)."""
+    import mpi_petsc4py_example_tpu_torch as pt
+    A = pt.poisson3d_csr(EPS_NX).astype(np.float64).tocsr()
+    b = A @ np.random.default_rng(4).random(A.shape[0])
+    return true_relres(A, x, b)
+
+
+def test2_line_ok(stdout) -> bool:
+    """The test2.py flow printed one eigenvalue line, the largest
+    eigenvalue of its matrix within 1e-9."""
+    from mpi_petsc4py_example_tpu_torch.models.generators import \
+        tridiag_family
+    lines = stdout.strip().splitlines()
+    if len(lines) != 1 or not lines[0].startswith("Eigenvalue: "):
+        return False
+    lam = np.linalg.eigvalsh(tridiag_family(100).toarray())
+    want = float(lam[np.argmax(np.abs(lam))])
+    return abs(complex(lines[0].split()[1]) - want) <= 1e-9 * abs(want)
+
+
 def phase_procs():
     """The process communicator on the card (``--procs``): (a) one process
     over NCCL holding 4 shards against DeviceComm(4), 128^3 f32 CG + jacobi;
     (b) two processes over gloo on the one card, 2 shards each, against
     DeviceComm(4): 128^3 f32 CG + jacobi, solve_many k = 8 at 128^3 (fast
     path and general route), CG + mg at 64^3 fp64, cfg4 BiCGStab + bjacobi
-    (set up on the card; within 1e-12); (c) 512^3 f32 CG +
-    jacobi on 2 processes x 1 shard against DeviceComm(2): one card shared
-    by two processes, not scaling; (d) the test.py flow through
-    ``run.py --procs`` at -n 1 over NCCL and -n 2, -n 4 over gloo."""
+    (set up on the card; within 1e-12), and the rest of the stack: the
+    128^3 fp64 Krylov-Schur (also in (a)), cfg11's RefinedKSP at 128^3
+    with f32 and bf16 inner solves, the 128^3 fp64 Neumann AIJ with a
+    constant NullSpace, CGNE + jacobi on convdiff2d(1024) and PC lu crtri
+    at 2^20 (each bit for bit, or within 1e-12, reported); (c) 512^3 f32
+    CG + jacobi on 2 processes x 1 shard against DeviceComm(2): one card
+    shared by two processes, not scaling; (d) the test.py and test2.py
+    flows through ``run.py --procs`` at -n 1 over NCCL and -n 2, -n 4 over
+    gloo."""
     card = card_line()
     t_all = time.perf_counter()
     out = {"card": card}
@@ -3674,9 +3794,11 @@ def phase_procs():
                  rtol=PROCS_RTOL, time_psum=True, repeat=2)
     # (a) one process, NCCL, world size 1, 4 local shards
     case_a = dict(cg128, name="a_cg128", local_shards=4)
-    ref = procs_reference([case_a], 4)["a_cg128"]
-    got, wall = parity_launch(1, [case_a])
-    got = got["a_cg128"]
+    eps_a = dict(EPS_PROCS, name="a_eps128", local_shards=4)
+    refs_a = procs_reference([case_a, eps_a], 4)
+    ref = refs_a["a_cg128"]
+    got_a, wall = parity_launch(1, [case_a, eps_a])
+    got = got_a["a_cg128"]
     its, _ = procs_compare("(a) 128^3 CG+jacobi, nccl 1 x 4", got, ref)
     check(str(got["backend"]) == "nccl", f"(a) backend {got['backend']}")
     dots = int(got["launches_stencil3d_dot"])
@@ -3696,6 +3818,8 @@ def phase_procs():
         f"{out['a']['ms_per_iter_virtual']:.4f} on DeviceComm(4); psum "
         f"{out['a']['psum_us']:.1f} us vs {out['a']['psum_us_virtual']:.1f} "
         f"us (ended by a host read); {card}")
+    out["a"]["eps"] = procs_eps("procs (a) nccl 1 x 4", got_a["a_eps128"],
+                                refs_a["a_eps128"], 4, card)
     # (b) two processes over gloo, 2 shards each, against DeviceComm(4);
     # (c) rides the same launch: 512^3 on 2 processes x 1 shard
     cases_b = [dict(cg128, name="b_cg128", local_shards=2),
@@ -3710,12 +3834,25 @@ def phase_procs():
                # PC bjacobi set up on the card, each process its blocks
                dict(kind="aij", name="b_cfg4_bjacobi", op="cfg4",
                     ksp="bcgs", pc="bjacobi", local_shards=2)]
+    # the rest of the stack on the same launch (ROADMAP item 4b)
+    stack_b = [dict(EPS_PROCS, name="b_eps128", local_shards=2)] + [
+        dict(kind="refine", name=f"b_refine_{prec}", grid=[EPS_NX] * 3,
+             prec=prec, rtol=1e-10, local_shards=2)
+        for prec in ("f32", "bf16")] + [
+        dict(kind="aij", name="b_neumann128", op="neumann128", ksp="cg",
+             pc="jacobi", nullspace=True, rtol=1e-8, local_shards=2),
+        dict(kind="aij", name="b_cgne_convdiff1024", op="convdiff1024",
+             ksp="cgne", pc="jacobi", rtol=1e-6, max_it=300,
+             local_shards=2),
+        dict(kind="aij", name="b_lu_crtri_2p20", op="tri2p20",
+             ksp="preonly", pc="lu", local_shards=2)]
     case_c = dict(kind="cg", name="c_cg512", grid=[512] * 3, pc="jacobi",
                   dtype="f32", rtol=PROCS_RTOL, local_shards=1,
                   true_res=True, keep_x=False, time_psum=True)
-    refs = procs_reference(cases_b, 4)
+    refs = procs_reference(cases_b + stack_b, 4)
     ref_c = procs_reference([case_c], 2)["c_cg512"]
-    got, wall = parity_launch(2, cases_b + [case_c], backend="gloo")
+    got, wall = parity_launch(2, cases_b + stack_b + [case_c],
+                              backend="gloo")
     out["b"] = {"launch_wall_s": wall}
     for c in cases_b:
         g, r = got[c["name"]], refs[c["name"]]
@@ -3752,6 +3889,31 @@ def phase_procs():
             f"DeviceComm(4), {psum}gloo host copies "
             f"{int(g['host_copies_total'])}, launches of rank 0 {launched}; "
             f"{card}")
+    one = "gloo on ONE card: a comparison, not scaling"
+    out["b"]["eps"] = procs_eps(f"procs (b) gloo 2 x 2 ({one})",
+                                got["b_eps128"],
+                                refs["b_eps128"], 2, card)
+    for c in stack_b[1:]:
+        g, r = got[c["name"]], refs[c["name"]]
+        extra = ""
+        if c["kind"] == "refine":
+            rr = refine_relres(g["x"])
+            extra = (f", {int(g['steps'])} outer steps, fp64 relres "
+                     f"{rr:.3e}")
+            if c["prec"] == "f32":
+                check(rr <= 1.05e-10, f"{c['name']}: fp64 relres {rr}")
+            else:
+                check(int(g["launches_stencil3d_dot_bf16"]) > 0,
+                      f"{c['name']}: row 1b never launched")
+        if c.get("op") == "neumann128":
+            mean = float(np.mean(g["x"]))
+            extra = f", mean(x) {mean:.3e}"
+            check(abs(mean) <= 1e-10 * float(np.abs(g["x"]).max()),
+                  "procs Neumann solution is not mean-free")
+        out["b"][c["name"]] = procs_stack(
+            f"procs (b) gloo 2 x 2 {c['name']} ({one})", g, r, card, extra)
+        if c["kind"] == "refine":
+            out["b"][c["name"]]["relres"] = rr
     g = got["c_cg512"]
     its, _ = procs_compare("(c) 512^3 CG+jacobi, gloo 2 x 1", g, ref_c,
                            bits=False)
@@ -3780,23 +3942,29 @@ def phase_procs():
         f"group {out['c']['psum_host_us']:.1f} us) vs "
         f"{out['c']['psum_us_virtual']:.1f} us; halo {2 * plane_bytes} B "
         f"per exchange; {card}")
-    # (d) the test.py flow through the runner's process mode
-    root = os.path.dirname(os.path.abspath(__file__))
-    driver = os.path.join(root, "mpi_petsc4py_example_tpu_torch", "facade",
-                          "drivers", "solve_linear.py")
+    # (d) the test.py and test2.py flows through the runner's process mode
+    drivers = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "mpi_petsc4py_example_tpu_torch", "facade",
+                           "drivers")
+    flows = {"test.py": (os.path.join(drivers, "solve_linear.py"),
+                         lambda stdout: stdout.strip().splitlines()
+                         == ["True"]),
+             "test2.py": (os.path.join(drivers, "eigensolve.py"),
+                          test2_line_ok)}
     out["d"] = {}
-    # the three launches at once: 7 rank processes share the card
-    runs = [(n, backend, start_ranks(n, ["--backend", backend, driver]))
+    # the six launches at once: 14 rank processes share the card
+    runs = [(flow, n, backend,
+             start_ranks(n, ["--backend", backend, flows[flow][0]]))
+            for flow in flows
             for n, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo"))]
-    for n, backend, started in runs:
+    for flow, n, backend, started in runs:
         stdout, wall = finish_ranks(started)
-        printed = stdout.strip().splitlines()
-        check(printed == ["True"], f"(d) test.py flow -n {n} --procs "
-                                   f"--backend {backend}: {stdout[-500:]}")
-        out["d"][f"n{n}_{backend}"] = wall
-        log(f"procs (d) test.py flow -n {n} --procs --backend {backend}: "
-            f"printed True, {wall:.1f} s (processes included, the three "
-            f"launches at once); {card}")
+        check(flows[flow][1](stdout), f"(d) {flow} flow -n {n} --procs "
+                                      f"--backend {backend}: {stdout[-500:]}")
+        out["d"][f"{flow}_n{n}_{backend}"] = wall
+        log(f"procs (d) {flow} flow -n {n} --procs --backend {backend}: "
+            f"printed {stdout.strip().splitlines()}, {wall:.1f} s "
+            f"(processes included, the six launches at once); {card}")
     log(f"procs phases: {time.perf_counter() - t_all:.1f} s")
     return out
 
@@ -3807,7 +3975,8 @@ def phase_procs_cards():
     cards), 1 shard each, against ``DeviceComm(cards)`` on card 0: 128^3
     f32 CG + jacobi (psum and ms/iter), ``solve_many`` k = 8 at 128^3, CG +
     mg at 64^3 fp64, the AIJ cfg3 GMRES(30) + jacobi and cfg4 BiCGStab +
-    bjacobi, and the test.py flow. One shard per process turns the
+    bjacobi, the 128^3 fp64 Krylov-Schur, and the test.py and test2.py
+    flows. One shard per process turns the
     shard-batched products of the AIJ path (bjacobi's blocks, GMRES's basis
     updates) into unbatched ones, which cuBLAS rounds differently: those
     iterates are held within 1e-12, the stencil ones bit for bit."""
@@ -3825,7 +3994,8 @@ def phase_procs_cards():
                   pc="jacobi"),
              dict(kind="aij", name="cfg4_bcgs", op="cfg4", ksp="bcgs",
                   pc="bjacobi"),
-             dict(kind="comm", name="comm", n=1000)]
+             dict(kind="comm", name="comm", n=1000),
+             dict(EPS_PROCS, name="eps128")]
     cases = [dict(c, local_shards=1) for c in cases]
     refs = procs_reference(cases, cards)
     got, wall = parity_launch(cards, cases, backend="nccl")
@@ -3840,6 +4010,10 @@ def phase_procs_cards():
                       f"--procs-cards: {key} differs across {cards} cards")
             log(f"procs-cards: every collective equal to DeviceComm({cards})"
                 f" over NCCL on {cards} cards; {card}")
+            continue
+        if c["kind"] == "eps":
+            out["eps"] = procs_eps(f"procs-cards NCCL {cards} x 1", g, r, 1,
+                                   card)
             continue
         aij = c["kind"] == "aij"
         its, diff = procs_compare(f"--procs-cards {c['name']}", g, r,
@@ -3869,6 +4043,13 @@ def phase_procs_cards():
     out["testpy_wall_s"] = wall
     log(f"procs-cards test.py flow -n {cards} --procs (NCCL): printed True, "
         f"{wall:.1f} s; {card}")
+    stdout, wall = run_ranks(cards, ["--backend", "nccl", os.path.join(
+        os.path.dirname(driver), "eigensolve.py")])
+    check(test2_line_ok(stdout),
+          f"test2.py flow -n {cards} over NCCL: {stdout[-500:]}")
+    out["test2py_wall_s"] = wall
+    log(f"procs-cards test2.py flow -n {cards} --procs (NCCL): printed "
+        f"{stdout.strip()}, {wall:.1f} s; {card}")
     return out
 
 
@@ -4064,6 +4245,11 @@ def main():
             # the eigensolver path: 128^3 fp64 Krylov-Schur, four solves
             kernels[-1]["launches_eps"] = launches_eps
             kernels[-1]["eps_128_f64"] = apply_f64
+            # the same Krylov-Schur on the process comm (NCCL, 1 process x
+            # 4 shards): this process's launches
+            kernels[-1]["launches_procs"] = procs["a"]["eps"]["launches"]
+            kernels[-1]["path_procs"] = ("128^3 fp64 Krylov-Schur ncv 16, "
+                                         "ProcessComm NCCL 1 x 4")
         if name == "stencil7_dot_many":
             kernels[-1]["dot_rel_err"] = worst["dot_many_rel"]
         if name in surface_launches:

@@ -13,15 +13,16 @@ with at most ``max(2K, 8)`` occupied diagonals also gets its DIA values,
 the factor PCs (bjacobi, lu) and the queries.
 
 :meth:`Mat.local_spmv` is the product the Krylov loops run on shard-stacked
-``(size, lsize)`` tensors, through the three routes of the JAX package on the
-port's virtual mesh: banded DIA with a ``halo``-row exchange between
+``(local_shards, lsize)`` tensors, through the three routes of the JAX
+package: banded DIA with a ``halo``-row exchange between
 neighbouring shards, gathered DIA, and ELL (gathered input, one gather of
 ``x``). :meth:`Mat.local_spmv_t` is the transpose product (JAX
 ``mat.py:552``): on the banded DIA route each shard accumulates its rows'
 contributions over the ``±halo`` column window and ships the two spills to
-its neighbours; on the gathered DIA route the window spans the whole vector;
-on ELL it is one scatter-add of every stored entry, which
-``index_put_(accumulate=True)`` sums in a fixed order on either device. A
+its neighbours; on the gathered DIA route and on ELL each shard adds its
+rows' products into a full-length partial (ELL by
+``index_put_(accumulate=True)``, which sums in a fixed order on either
+device) and the partials are summed in shard order, as the JAX ``psum``. A
 null space (``core/nullspace.py``) rides on the Mat and the solve program
 projects with it.
 
@@ -43,8 +44,7 @@ from ..ops.spmv import (accum_dtype, csr_diag, csr_find_diagonals,
                         csr_to_dia, csr_to_ell, dia_rows, dia_spmv_local,
                         dia_spmv_local_many, ell_spmv_local,
                         ell_spmv_local_many)
-from ..parallel.mesh import (DeviceComm, numpy_dtype, require_single_process,
-                             torch_dtype)
+from ..parallel.mesh import DeviceComm, numpy_dtype, torch_dtype
 from ..parallel.partition import RowLayout, concat_csr_blocks
 from .vec import Vec
 
@@ -503,74 +503,85 @@ class Mat:
         return spmv
 
     def local_spmv_t(self, comm: DeviceComm):
-        """``spmv_t(x (size, lsize)) -> A^T x`` (JAX ``mat.py:552``), square
-        operators only. Each route sums the same products as the JAX
-        package's, in a fixed order:
+        """``spmv_t(x (local_shards, lsize)) -> A^T x`` on this process's
+        rows (JAX ``mat.py:552``), square operators only. Each route sums
+        the JAX package's products in a fixed order:
 
         * DIA, purely diagonal: the product is local;
         * DIA, banded (every diagonal reaches at most the neighbouring
           shard): each shard adds ``dia[d] * x`` into its ``±halo`` window,
-          diagonal by diagonal, and the two spills go to the neighbours
-          (one open-chain shift each way, zeros at the global ends);
-        * DIA, gathered: the same window over the whole vector;
-        * ELL: one scatter-add of ``vals * x`` into the columns, in row
-          order (``index_put_`` with ``accumulate=True``, deterministic on
-          the CPU and on CUDA).
+          diagonal by diagonal, and the two spills go to the neighbouring
+          shards (one open-chain shift each way, zeros at the global ends);
+        * DIA, gathered: each shard's window, placed at its rows in a
+          full-length partial;
+        * ELL: each shard's scatter-add of ``vals * x`` into the columns of
+          a full-length partial, in row order (``index_put_`` with
+          ``accumulate=True``, deterministic on the CPU and on CUDA).
+
+        The full-length partials of the last two are summed over the shards
+        in global shard order (``comm.psum``: never ``all_reduce``), as the
+        JAX ``psum`` of each shard's buffer, and each process keeps its
+        rows.
         """
-        require_single_process(comm, "the transpose product "
-                                     "(Mat.mult_transpose)")
         if self.shape[0] != self.shape[1]:
             raise ValueError(
                 "local_spmv_t supports square operators only (output is "
                 f"row-partitioned like the input); shape={self.shape}")
-        size, lsize = comm.size, comm.local_size(self.shape[0])
-        n_pad = size * lsize
+        shards, lsize = comm.local_shards, comm.local_size(self.shape[0])
+        n_pad = comm.size * lsize
+        start, stop = comm.local_row_range(self.shape[0])
         if self.dia_vals is None:
-            cols = self.ell_cols.reshape(-1).long()
             vals = self.ell_vals
+            # shard s scatters into the s-th partial: one index_put_
+            cols = (self.ell_cols.view(shards, -1).long()
+                    + n_pad * torch.arange(shards, device=vals.device)[:, None]
+                    ).reshape(-1)
 
             def spmv_t(x):
                 contrib = (vals * x.reshape(-1, 1)).reshape(-1)
-                y = torch.zeros(n_pad, dtype=vals.dtype, device=vals.device)
-                return y.index_put_((cols,), contrib,
-                                    accumulate=True).view(size, lsize)
+                parts = torch.zeros(shards * n_pad, dtype=vals.dtype,
+                                    device=vals.device)
+                parts.index_put_((cols,), contrib, accumulate=True)
+                y = comm.psum(list(parts.view(shards, n_pad)))
+                return y[start:stop].view(shards, lsize)
             return spmv_t
         offsets, halo = self.dia_offsets, self._halo()
         acc = accum_dtype(self.dtype) or self.dtype
+        dia = self.dia_vals.view(len(offsets), shards, lsize)
 
-        def window(dia, x, rows):
-            """``(..., rows + 2 halo)``: each diagonal's products added at
-            its offset, diagonal by diagonal."""
-            win = torch.zeros(x.shape[:-1] + (rows + 2 * halo,), dtype=acc,
+        def window(x):
+            """``(local_shards, lsize + 2 halo)``: each diagonal's products
+            added at its offset, diagonal by diagonal."""
+            win = torch.zeros((shards, lsize + 2 * halo), dtype=acc,
                               device=x.device)
             for d, off in enumerate(offsets):
                 s = halo + int(off)
-                win[..., s:s + rows].addcmul_(dia[d].to(acc), x.to(acc))
+                win[:, s:s + lsize].addcmul_(dia[d].to(acc), x.to(acc))
             return win
 
         if halo == 0:
-            dia = self.dia_vals.view(len(offsets), size, lsize)
             return lambda x: (dia[0] * x)
-        if size > 1 and halo <= lsize:
-            dia = self.dia_vals.view(len(offsets), size, lsize)
-
+        if comm.size > 1 and halo <= lsize:
             def spmv_t(x):
-                win = window(dia, x, lsize)
+                win = window(x)
                 y = win[:, halo:halo + lsize].clone()
                 # shard i's right spill belongs to shard i + 1, its left
                 # spill to shard i - 1
-                from_left = comm.shift(win[:, halo + lsize:], 1)
-                from_right = comm.shift(win[:, :halo], -1)
-                from_left[0].zero_()
-                from_right[-1].zero_()
-                y[:, :halo] += from_left
-                y[:, lsize - halo:] += from_right
+                y[:, :halo] += comm.shift_open(win[:, halo + lsize:], 1)
+                y[:, lsize - halo:] += comm.shift_open(win[:, :halo], -1)
                 return y.to(self.dtype)
             return spmv_t
+        row0 = comm.shard_offset * lsize
 
         def spmv_t(x):
-            win = window(self.dia_vals, comm.all_gather(x), n_pad)
-            return win[halo:halo + n_pad].to(self.dtype).view(size, lsize)
+            win = window(x)
+            parts = torch.zeros((shards, n_pad + 2 * halo), dtype=acc,
+                                device=x.device)
+            for i in range(shards):
+                r0 = row0 + i * lsize
+                parts[i, r0:r0 + lsize + 2 * halo] = win[i]
+            y = comm.psum(list(parts))[halo + start:halo + stop]
+            return y.to(self.dtype).view(shards, lsize)
         return spmv_t
 
     def program_key(self):

@@ -9,8 +9,9 @@ initial guess and every operator and preconditioner output
 (``solvers/krylov.py``), with one reduction of the ``(k, n)`` basis against
 the vector.
 
-The basis is orthonormalized on the host (QR) once per size and placed on
-the communicator's device as a ``(k, n_pad)`` tensor, zero in the padding.
+The basis is orthonormalized on the host (QR) once per size, on every
+process, and each process places its rows on the communicator's device as a
+``(k, local_padded)`` tensor, zero in the padding.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.mesh import require_single_process, torch_dtype
+from ..parallel.mesh import torch_dtype
 
 
 class NullSpace:
@@ -65,18 +66,17 @@ class NullSpace:
         return Q.T
 
     def device_array(self, comm, n: int, dtype) -> torch.Tensor:
-        """The ``(k, n_pad)`` orthonormal basis on ``comm``'s device in
-        ``dtype``, zero in the padding (made once per communicator, size and
-        dtype)."""
-        require_single_process(comm, "NullSpace")
+        """This process's rows ``(k, local_padded)`` of the orthonormal
+        basis on ``comm``'s device in ``dtype``, zero in the padding (the
+        whole ``(k, n_pad)`` basis on the virtual mesh; made once per
+        communicator, size and dtype)."""
         dt = torch_dtype(dtype)
         key = (comm, n, dt)
         if self._built is not None and self._built[0] == key:
             return self._built[1]
         Q = self.basis_host(n)
-        Qp = np.zeros((Q.shape[0], comm.padded_size(n)))
-        Qp[:, :n] = Q
-        arr = torch.tensor(Qp, dtype=dt, device=comm.device)
+        arr = torch.tensor(np.ascontiguousarray(comm.local_rows(Q.T).T),
+                           dtype=dt, device=comm.device)
         self._built = (key, arr)
         return arr
 

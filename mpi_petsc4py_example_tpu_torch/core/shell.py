@@ -5,7 +5,9 @@ The port's counterpart of ``mpi_petsc4py_example_tpu/core/shell.py``
 whole unpadded global vector. The solve program lifts it to the
 shard-stacked form with :func:`..parallel.mesh.full_vector_local_apply`
 (gather the shards, apply, hand each shard its rows), so it composes with
-every KSP type and preconditioner an assembled :class:`.mat.Mat` does.
+every KSP type and preconditioner an assembled :class:`.mat.Mat` does; on a
+communicator of several processes every process applies the callable to
+the whole vector and keeps its rows.
 Operators with a sharding-aware structure (a stencil's neighbour halos)
 implement the operator protocol instead, as
 :class:`..models.stencil.StencilPoisson3D` does.
@@ -18,9 +20,7 @@ import itertools
 import numpy as np
 import torch
 
-from ..parallel.mesh import (DeviceComm, full_vector_local_apply,
-                             require_single_process,
-                             torch_dtype)
+from ..parallel.mesh import DeviceComm, full_vector_local_apply, torch_dtype
 from ..parallel.partition import RowLayout
 from .vec import Vec
 
@@ -39,7 +39,6 @@ class ShellMat:
 
     def __init__(self, comm: DeviceComm, shape, mult, mult_transpose=None,
                  diagonal=None, dtype=torch.float64):
-        require_single_process(comm, "ShellMat")
         self.comm = comm
         if np.isscalar(shape):
             shape = (int(shape), int(shape))
@@ -77,7 +76,7 @@ class ShellMat:
 
     def _apply(self, fn, x: Vec, y: Vec | None) -> Vec:
         ypad = full_vector_local_apply(fn, self.comm, self.shape[0])(
-            x.data.view(self.comm.size, -1)).reshape(-1)
+            x.data.view(self.comm.local_shards, -1)).reshape(-1)
         if y is None:
             return Vec(self.comm, self.shape[0], data=ypad,
                        layout=self.layout)

@@ -18,6 +18,11 @@ Run::
 
 It runs on the card unless ``--device cpu`` is given; the options after it
 seed the options database, which scenario 1's ``set_from_options`` reads.
+Under the port's runner (``python -m mpi_petsc4py_example_tpu_torch.run -n
+N [--procs] [--device cpu] advanced.py``) it runs on the runner's device
+communicator: with thread ranks the rank-0 thread runs the tour on the mesh
+of all N shards, with rank processes every rank runs it on its shards of
+the ``ProcessComm``; rank 0 alone prints, so both print the same lines.
 """
 
 import os
@@ -37,11 +42,15 @@ def laplacian2d(nx):
     return (sp.kron(sp.eye(nx), T) + sp.kron(T, sp.eye(nx))).tocsr()
 
 
-def main(argv=None, device=None):
-    """Run the three scenarios on ``device`` (None: the card); returns 0."""
+def main(argv=None, device=None, comm=None, verbose=True):
+    """Run the three scenarios on ``comm`` (default: one shard on
+    ``device``, None being the card), printing their lines when
+    ``verbose``; returns 0."""
     argv = list(sys.argv if argv is None else argv)
     pt.init(argv)
-    comm = pt.DeviceComm(device=device)
+    if comm is None:
+        comm = pt.DeviceComm(device=device)
+    print_ = print if verbose else (lambda *a, **k: None)
     nx = 24
     n = nx * nx
     A = laplacian2d(nx)
@@ -65,7 +74,7 @@ def main(argv=None, device=None):
     x, bv = S.get_vecs()
     bv.set_global(b)
     res = ksp.solve(bv, x)
-    print(f"1. shell operator: {res.reason_name} in {res.iterations} its, "
+    print_(f"1. shell operator: {res.reason_name} in {res.iterations} its, "
           f"max err {np.abs(x.to_numpy() - x_true).max():.2e}")
 
     # -- 2. composite preconditioning ---------------------------------------
@@ -82,7 +91,7 @@ def main(argv=None, device=None):
     x2, b2 = M.get_vecs()
     b2.set_global(b)
     res2 = ksp2.solve(b2, x2)
-    print(f"2. composite(jacobi,sor): {res2.reason_name} in "
+    print_(f"2. composite(jacobi,sor): {res2.reason_name} in "
           f"{res2.iterations} its")
 
     # -- 3. PETSc binary round trip -----------------------------------------
@@ -103,14 +112,27 @@ def main(argv=None, device=None):
     x3, b3 = M3.get_vecs()
     b3.set_global(b2h)
     res3 = ksp3.solve(b3, x3)
-    print(f"3. petsc-binary round trip: {res3.reason_name}, "
+    print_(f"3. petsc-binary round trip: {res3.reason_name}, "
           f"max err {np.abs(x3.to_numpy() - x_true).max():.2e}")
     return 0
 
 
+def _runner_world():
+    """``MPI.COMM_WORLD`` of the port's MPI facade when the runner (``run.py``)
+    executes this script, which imports the facade first; None otherwise."""
+    world = getattr(sys.modules.get("mpi4py.MPI"), "COMM_WORLD", None)
+    return world if hasattr(world, "device_comm") else None
+
+
 if __name__ == "__main__":
-    args = sys.argv[1:]
-    dev = None
-    if args[:2] == ["--device", "cpu"]:
-        dev, args = "cpu", args[2:]
-    sys.exit(main([sys.argv[0]] + args, device=dev))
+    world = _runner_world()
+    if world is None:
+        args = sys.argv[1:]
+        dev = None
+        if args[:2] == ["--device", "cpu"]:
+            dev, args = "cpu", args[2:]
+        sys.exit(main([sys.argv[0]] + args, device=dev))
+    # no sys.exit under the runner: a rank thread's exit counts as a failure
+    rank, dc = world.Get_rank(), world.device_comm
+    if dc.multiprocess or rank == 0:
+        main(sys.argv, comm=dc, verbose=rank == 0)

@@ -21,30 +21,84 @@ the reference, made with the same thread settings as the workers.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 import mpi_petsc4py_example_tpu_torch as pt
-from mpi_petsc4py_example_tpu_torch.models.generators import (convdiff2d,
-                                                              random_system)
-from mpi_petsc4py_example_tpu_torch.models.poisson import (poisson2d_csr,
+from mpi_petsc4py_example_tpu_torch.models.generators import (
+    convdiff2d, random_system, tridiag_family)
+from mpi_petsc4py_example_tpu_torch.models.poisson import (poisson1d_csr,
+                                                           poisson2d_csr,
                                                            poisson3d_csr)
 from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+from mpi_petsc4py_example_tpu_torch.solvers import pc as pc_mod
 
-# the assembled operators of the AIJ cases (small cuts of the benchmark's
-# cfg1/cfg3/cfg4 and the reference test.py system)
+def _far_diagonals(n: int = 100):
+    """A diagonally dominant unsymmetric DIA matrix whose outer diagonals
+    (+-40) reach past the neighbouring shard: the gathered DIA route."""
+    return sp.diags([np.full(n - 40, -0.3), np.full(n - 1, -1.0),
+                     np.full(n, 6.0), np.full(n - 1, -1.2),
+                     np.full(n - 40, 0.5)], [-40, -1, 0, 1, 40],
+                    format="csr")
+
+
+def _neumann2d(nx: int):
+    """The pure-Neumann 5-point Laplacian on an nx x nx grid: singular, its
+    null space the constant vector."""
+    A = poisson2d_csr(nx).tolil()
+    A.setdiag(0.0)
+    A = A.tocsr()
+    return (A - sp.diags(np.asarray(A.sum(axis=1)).ravel())).tocsr()
+
+
+def _neumann3d(nx: int):
+    """The 7-point Poisson with pure Neumann boundaries on an nx^3 grid:
+    each row's missing neighbours taken off its diagonal (singular, its
+    null space the constant vector)."""
+    A = poisson3d_csr(nx).tocsr()
+    return (A - sp.diags(A @ np.ones(A.shape[0]))).tocsr()
+
+
+def _mass(n: int):
+    """An SPD diagonal mass matrix, the B of the generalized cases."""
+    return sp.diags(1.0 + np.arange(n) / n, format="csr")
+
+
+# the assembled operators of the AIJ, EPS and refinement cases: small cuts of
+# the benchmark's cfg1/cfg3/cfg4, the reference test.py and test2.py
+# systems, and the shapes that reach each route of the products and of PC
+# lu (a tridiagonal and a band, past a lowered dense cap)
 AIJ_OPERATORS = {
     "cfg1": lambda: poisson3d_csr(6),
     "cfg3": lambda: poisson2d_csr(20),
     "cfg4": lambda: convdiff2d(16, beta=0.4),
     "testpy": lambda: random_system(100)[0],
+    "test2": lambda: tridiag_family(100),
+    "p2d8": lambda: poisson2d_csr(8),
+    "mass64": lambda: _mass(64),
+    "p1d120": lambda: poisson1d_csr(120),
+    "tri": lambda: poisson1d_csr(4096),
+    "band": lambda: poisson2d_csr(32),
+    "far": _far_diagonals,
+    "neumann": lambda: _neumann2d(16),
+    # well conditioned, for the transpose types: banded DIA and ELL
+    "cd12": lambda: (convdiff2d(12, beta=0.3) + 4.0 * sp.eye(144)).tocsr(),
+    "ell64": lambda: (sp.random(64, 64, density=0.1, random_state=5)
+                      + 4.0 * sp.eye(64)).tocsr(),
+    # the card's sizes
+    "neumann128": lambda: _neumann3d(128),
+    "convdiff1024": lambda: convdiff2d(1024),
+    "tri2p20": lambda: poisson1d_csr(1 << 20),
 }
-_DTYPES = {"f64": torch.float64, "f32": torch.float32}
+_DTYPES = {"f64": torch.float64, "f32": torch.float32,
+           "bf16": torch.bfloat16}
 
 
 def rhs(n: int, seed: int, k: int | None = None) -> np.ndarray:
@@ -58,12 +112,23 @@ def _sync(comm):
         torch.cuda.synchronize(comm.device)
 
 
+_BF16_WRAPPERS = ("stencil3d_dot", "stencil3d_apply", "stencil3d_dot_many",
+                  "stencil3d_apply_many")
+
+
 def _counts() -> dict:
-    return {name: getattr(st, name).launches for name in (
-        "stencil3d_dot", "stencil3d_apply", "stencil3d_dot_many",
-        "stencil3d_apply_many", "stencil3d_smooth", "stencil3d_residual",
-        "stencil3d_smooth0_pair", "stencil3d_smooth_pair",
-        "stencil3d_residual_restrict")}
+    out = {name: getattr(st, name).launches for name in _BF16_WRAPPERS + (
+        "stencil3d_smooth", "stencil3d_residual", "stencil3d_smooth0_pair",
+        "stencil3d_smooth_pair", "stencil3d_residual_restrict")}
+    out.update({f"{name}_bf16": getattr(st, name).launches_bf16
+                for name in _BF16_WRAPPERS})
+    return out
+
+
+def _launched(before: dict) -> dict:
+    """``launches_<wrapper>``: the launches since ``before``."""
+    after = _counts()
+    return {f"launches_{k}": after[k] - before[k] for k in after}
 
 
 def _stencil_ksp(comm, case, op):
@@ -115,11 +180,10 @@ def _case_cg(comm, case):
         copies = getattr(comm, "host_copies", 0)
         res = ksp.solve(b, x)
         _sync(comm)
-        after = _counts()
         out = {"its": res.iterations, "reason": int(res.reason),
                "rnorm": res.residual_norm, "wall_s": res.wall_time,
-               "host_copies": getattr(comm, "host_copies", 0) - copies}
-        out.update({f"launches_{k}": after[k] - before[k] for k in after})
+               "host_copies": getattr(comm, "host_copies", 0) - copies,
+               **_launched(before)}
     if case.get("true_res"):
         out["true_res"], out["bnorm"] = _true_residual(comm, geometry, b, x)
     if case.get("time_psum"):
@@ -150,31 +214,209 @@ def _case_many(comm, case):
     before = _counts()
     res = ksp.solve_many(B)
     _sync(comm)
-    after = _counts()
-    out = {"its": np.asarray(res.iterations),
-           "reason": np.asarray([int(r) for r in res.reasons]),
-           "x": np.asarray(res.X), "wall_s": res.wall_time}
-    out.update({f"launches_{k}": after[k] - before[k] for k in after})
-    return out
+    return {"its": np.asarray(res.iterations),
+            "reason": np.asarray([int(r) for r in res.reasons]),
+            "x": np.asarray(res.X), "wall_s": res.wall_time,
+            **_launched(before)}
+
+
+class _DenseCap:
+    """PC lu's dense cap lowered to ``cap`` rows while a case runs, so that
+    a small operator takes the cyclic-reduction modes (None: unchanged)."""
+
+    def __init__(self, cap):
+        self.cap, self.saved = cap, pc_mod._DENSE_CAP
+
+    def __enter__(self):
+        if self.cap is not None:
+            pc_mod._DENSE_CAP = int(self.cap)
+
+    def __exit__(self, *exc):
+        pc_mod._DENSE_CAP = self.saved
+
+
+def shell_mat(comm, A, dtype=torch.float64):
+    """A ``ShellMat`` applying the scipy matrix ``A`` densely on the whole
+    vector (and its transpose), with its diagonal for PC jacobi."""
+    Ad = torch.tensor(A.toarray(), dtype=dtype, device=comm.device)
+    return pt.ShellMat(comm, A.shape, lambda v: Ad @ v,
+                       mult_transpose=lambda v: Ad.T @ v,
+                       diagonal=np.asarray(A.diagonal()), dtype=dtype)
+
+
+def shell_pc_apply(comm, A, dtype=torch.float64):
+    """A PC shell's apply on the whole vector: the inverse diagonal of
+    ``A``, a torch callable."""
+    d = torch.tensor(1.0 / A.diagonal(), dtype=dtype, device=comm.device)
+    return lambda r: d * r
+
+
+def aij_rhs(case, A) -> np.ndarray:
+    """The case's right-hand side; with a null space, made compatible."""
+    b = rhs(A.shape[0], case.get("seed", 3))
+    if case.get("nullspace"):
+        b = b - b.mean()
+    return b
+
+
+def _setup_pc(comm, pc, case, A):
+    """The case's ``pc`` with its shell apply or composite children."""
+    pc.set_type(case["pc"])
+    pc.setup_device = case.get("setup_device", "auto")
+    if case["pc"] == "shell":
+        pc.set_shell_apply(shell_pc_apply(comm, A))
+    if case["pc"] == "composite":
+        pc.set_composite_type(case.get("ctype", "additive"))
+        pc.set_composite_pcs(*case["children"])
 
 
 def _case_aij(comm, case):
     A = AIJ_OPERATORS[case["op"]]()
-    mat = pt.Mat.from_scipy(comm, A)
+    op = (shell_mat(comm, A) if case.get("shellmat")
+          else pt.Mat.from_scipy(comm, A))
+    if case.get("nullspace"):
+        op.set_nullspace(pt.NullSpace(constant=True))
     ksp = pt.KSP().create(comm)
     ksp.set_type(case["ksp"])
-    ksp.get_pc().set_type(case["pc"])
-    ksp.get_pc().setup_device = case.get("setup_device", "auto")
+    _setup_pc(comm, ksp.get_pc(), case, A)
     ksp.set_tolerances(rtol=case.get("rtol", 1e-8), atol=0.0,
                        max_it=case.get("max_it", 5000))
     ksp.set_true_residual_check(case.get("gate", False))
+    ksp.set_operators(op)
+    x, b = op.get_vecs()
+    b.set_global(aij_rhs(case, A))
+    with _DenseCap(case.get("dense_cap")):
+        res = ksp.solve(b, x)
+    out = {"its": res.iterations, "reason": int(res.reason),
+           "x": x.to_numpy(), "wall_s": res.wall_time,
+           "pc_kind": ksp.get_pc().kind}
+    if not case.get("shellmat"):
+        out["route"] = op.spmv_route(comm)
+    return out
+
+
+def _case_mult_t(comm, case):
+    """``A^T v`` through ``Mat.mult_transpose`` on a seeded ``v``."""
+    A = AIJ_OPERATORS[case["op"]]()
+    mat = pt.Mat.from_scipy(comm, A)
+    v = pt.Vec.from_global(comm, rhs(A.shape[0], case.get("seed", 5)))
+    return {"x": mat.mult_transpose(v).to_numpy(),
+            "route": mat.spmv_route(comm)}
+
+
+def _case_io(comm, case):
+    """A PETSc binary round trip: the operator and a right-hand side saved
+    to one file (rank 0 writes), loaded back on every process and solved."""
+    A = AIJ_OPERATORS[case["op"]]()
+    path = os.path.join(case["dir"], case["name"] + ".petsc")
+    b = pt.Vec.from_global(comm, rhs(A.shape[0], case.get("seed", 3)))
+    if comm.rank == 0:
+        os.makedirs(case["dir"], exist_ok=True)
+    # rank 0 alone opens the file; the saves end at a barrier
+    with (open(path, "wb") if comm.rank == 0
+          else contextlib.nullcontext()) as f:
+        pt.petsc_io.save_mat(f, pt.Mat.from_scipy(comm, A))
+        pt.petsc_io.save_vec(f, b)
+    with open(path, "rb") as f:
+        mat = pt.petsc_io.load_mat(f, comm)
+        bl = pt.petsc_io.load_vec(f, comm)
+    ksp = pt.KSP().create(comm)
+    ksp.set_type(case["ksp"])
+    ksp.get_pc().set_type(case["pc"])
+    ksp.set_tolerances(rtol=case.get("rtol", 1e-8), atol=0.0, max_it=5000)
     ksp.set_operators(mat)
-    x, b = mat.get_vecs()
-    b.set_global(rhs(A.shape[0], case.get("seed", 3)))
-    res = ksp.solve(b, x)
+    x = mat.get_vecs()[0]
+    res = ksp.solve(bl, x)
     return {"its": res.iterations, "reason": int(res.reason),
-            "x": x.to_numpy(), "route": mat.spmv_route(comm),
-            "wall_s": res.wall_time}
+            "x": x.to_numpy(), "pc_kind": ksp.get_pc().kind,
+            "loaded_equal": bool(
+                (abs(mat.to_scipy() - A) > 0).nnz == 0
+                and np.array_equal(bl.to_numpy(), b.to_numpy()))}
+
+
+def _eps_operator(comm, name, case):
+    if name == "stencil":
+        return pt.StencilPoisson3D(comm, *case["grid"], dtype=torch.float64)
+    return pt.Mat.from_scipy(comm, AIJ_OPERATORS[name]())
+
+
+def configure_eps(E, case):
+    """``case``'s eigensolver settings on ``E``, an EPS of either package
+    (their setters are the same); returns ``E``."""
+    E.set_problem_type(case.get("ptype", "hep"))
+    E.set_type(case.get("eps_type", "krylovschur"))
+    if case.get("which"):
+        E.set_which_eigenpairs(case["which"])
+    E.set_dimensions(nev=case.get("nev"), ncv=case.get("ncv"))
+    E.set_tolerances(tol=case.get("tol"), max_it=case.get("max_it"))
+    if case.get("target") is not None:
+        E.set_target(case["target"])
+    if case.get("st"):
+        E.get_st().set_type(case["st"])
+    if case.get("shift") is not None:
+        E.get_st().set_shift(case["shift"])
+    if case.get("antishift") is not None:
+        E.get_st().set_antishift(case["antishift"])
+    return E
+
+
+def _case_eps(comm, case):
+    """An eigensolve: restarts, reason, nconv, the stored pairs, each
+    pair's ``compute_error`` (collective) and the operator's launches."""
+    A = _eps_operator(comm, case["op"], case)
+    B = _eps_operator(comm, case["bop"], case) if case.get("bop") else None
+    E = configure_eps(pt.EPS().create(comm).set_operators(A, B), case)
+    _sync(comm)
+    before, calls = _counts(), dict(comm.collectives)
+    E.solve()
+    _sync(comm)
+    out = {"its": E.get_iteration_number(), "reason": int(E.result.reason),
+           "nconv": E.get_converged(), "lam": np.asarray(E._eigenvalues),
+           "x": np.asarray(E._eigenvectors), "wall_s": E.result.wall_time,
+           "host_syncs": E.result.host_syncs}
+    out.update({f"calls_{k}": v - calls[k]
+                for k, v in comm.collectives.items()})
+    out.update(_launched(before))
+    out["err"] = np.asarray([E.compute_error(i)
+                             for i in range(len(E._eigenvalues))])
+    return out
+
+
+def refine_rhs(case, A) -> np.ndarray:
+    """The refinement case's right-hand side ``A x`` for a seeded ``x``;
+    with ``k``, the ``(n, k)`` block of its scaled and shifted copies."""
+    b = A @ np.random.default_rng(case.get("seed", 4)).random(A.shape[0])
+    if not case.get("k"):
+        return b
+    return np.stack([b * (j + 1) + j for j in range(case["k"])], axis=1)
+
+
+def _case_refine(comm, case):
+    """``RefinedKSP``: the fp64 outer loop around an inner CG at ``prec``,
+    on the stencil (``grid``) or an assembled operator (``op``); ``k``
+    columns go through ``solve_many``."""
+    dt = _DTYPES[case.get("prec", "f32")]
+    if case.get("grid"):
+        A = poisson3d_csr(*case["grid"])
+        inner = pt.StencilPoisson3D(comm, *case["grid"], dtype=dt)
+    else:
+        A, inner = AIJ_OPERATORS[case["op"]](), None
+    rk = pt.RefinedKSP().create(comm)
+    rk.set_inner_precision(case.get("prec", "f32"))
+    rk.set_operators(A, inner_op=inner)
+    rk.set_type("cg")
+    rk.get_pc().set_type(case.get("pc", "jacobi"))
+    rk.set_tolerances(rtol=case.get("rtol", 1e-10))
+    b = refine_rhs(case, A)
+    _sync(comm)
+    before = _counts()
+    x, res = rk.solve_many(b) if case.get("k") else rk.solve(b)
+    _sync(comm)
+    out = {"its": res.iterations, "reason": int(res.reason), "x": x,
+           "steps": rk.refine_steps, "rnorm": res.residual_norm,
+           "wall_s": res.wall_time}
+    out.update(_launched(before))
+    return out
 
 
 def _case_comm(comm, case):
@@ -202,67 +444,9 @@ def _case_comm(comm, case):
     }
 
 
-def _out_of_slice(comm):
-    """What the rest of the stack does on ``comm``: each entry is the
-    ``NotImplementedError`` it raised, or 'ran'; any other error ends the
-    run."""
-    from mpi_petsc4py_example_tpu_torch.solvers.pc import PC
-    from mpi_petsc4py_example_tpu_torch.solvers.st import STOperator
-    A = poisson2d_csr(8)
-    mat = pt.Mat.from_scipy(comm, A)
-
-    def ksp_of(ksp_type, pc_type="none"):
-        ksp = pt.KSP().create(comm)
-        ksp.set_type(ksp_type)
-        ksp.get_pc().set_type(pc_type)
-        ksp.set_operators(mat)
-        x, b = mat.get_vecs()
-        b.set_global(np.ones(A.shape[0]))
-        return lambda: ksp.solve(b, x)
-
-    def pc_of(pc_type):
-        pc = PC(comm)
-        pc.set_type(pc_type)
-        if pc_type == "shell":
-            pc.set_shell_apply(lambda r: r)
-        if pc_type == "composite":
-            pc.set_composite_pcs("jacobi", "jacobi")
-        return lambda: pc.set_up(mat)
-
-    def with_nullspace():
-        m = pt.Mat.from_scipy(comm, A)
-        m.set_nullspace(pt.NullSpace(constant=True))
-        ksp = pt.KSP().create(comm)
-        ksp.set_type("cg")
-        ksp.set_operators(m)
-        x, b = m.get_vecs()
-        return ksp.solve(b, x)
-
-    attempts = {
-        "EPS": lambda: pt.EPS().create(comm),
-        "RefinedKSP": lambda: pt.RefinedKSP().create(comm),
-        "ShellMat": lambda: pt.ShellMat(comm, A.shape[0], lambda x: x),
-        "NullSpace": with_nullspace,
-        "mult_transpose": lambda: mat.mult_transpose(mat.get_vecs()[0]),
-        "petsc_io": lambda: pt.petsc_io.save_vec(os.devnull,
-                                                 mat.get_vecs()[0]),
-        "ST": lambda: STOperator(mat, None, "shift", 1.0),
-    }
-    attempts.update({f"KSP {t}": ksp_of(t) for t in ("lsqr", "bicg", "cgne")})
-    attempts.update({f"PC {t}": pc_of(t) for t in (
-        "sor", "ssor", "ilu", "icc", "asm", "shell", "composite")})
-    out = {}
-    for name, fn in attempts.items():
-        try:
-            fn()
-            out[name] = "ran"
-        except NotImplementedError as err:
-            out[name] = f"NotImplementedError: {err}"
-    return out
-
-
 _KINDS = {"cg": _case_cg, "many": _case_many, "aij": _case_aij,
-          "comm": _case_comm}
+          "comm": _case_comm, "eps": _case_eps, "refine": _case_refine,
+          "mult_t": _case_mult_t, "io": _case_io}
 
 
 def run_case(comm, case: dict) -> dict:
@@ -274,10 +458,21 @@ def run_case(comm, case: dict) -> dict:
     ``repeat`` solves again and reports the last, ``time_psum`` adds
     :func:`psum_us`, and for gloo on the card also ``psum_host_us``, the
     same group's psum of host tensors), 'many' (``solve_many``
-    of ``k`` columns, ``route`` 'fast' or 'general') or 'aij' (``ksp``
+    of ``k`` columns, ``route`` 'fast' or 'general'), 'aij' (``ksp``
     with ``pc`` on the assembled operator ``op`` of
     :data:`AIJ_OPERATORS`; ``gate`` turns on the true-residual gate,
-    ``setup_device`` is the PC's ``-pc_setup_device``)."""
+    ``setup_device`` is the PC's ``-pc_setup_device``, ``dense_cap``
+    lowers PC lu's dense cap, ``shellmat`` wraps the operator in a
+    :func:`shell_mat`, ``nullspace`` attaches the constant null space;
+    ``pc`` 'shell' applies :func:`shell_pc_apply`, 'composite' combines
+    ``children`` by ``ctype``), 'mult_t' (``A^T v`` of ``op``), 'io' (a
+    PETSc binary round trip of ``op`` through the directory ``dir``, then
+    ``ksp`` with ``pc``), 'eps' (an eigensolve of ``op``, the stencil on
+    ``grid`` when ``op`` is 'stencil', with ``bop`` as B, ``ptype``,
+    ``eps_type``, ``which``, ``nev``, ``ncv``, ``tol``, ``max_it``,
+    ``target``, ``st``, ``shift``, ``antishift``) or 'refine'
+    (``RefinedKSP`` at inner precision ``prec`` on the stencil of ``grid``
+    or on ``op``, CG with ``pc``; ``k`` columns through ``solve_many``)."""
     return _KINDS[case["kind"]](comm, case)
 
 
@@ -303,17 +498,13 @@ def main(argv) -> int:
     rank = base.rank
     os.makedirs(opts.out, exist_ok=True)
     for case in cases:
-        if case["kind"] == "out_of_slice":
-            res = {k: np.asarray(v)
-                   for k, v in _out_of_slice(base).items()}
-        else:
-            comm = (base if opts.virtual else
-                    pt.ProcessComm(case.get("local_shards", 1), base.device))
-            t0 = time.perf_counter()
-            res = run_case(comm, case)
-            res["case_wall_s"] = time.perf_counter() - t0
-            res["host_copies_total"] = getattr(comm, "host_copies", 0)
-            res["backend"] = getattr(comm, "backend", "none")
+        comm = (base if opts.virtual else
+                pt.ProcessComm(case.get("local_shards", 1), base.device))
+        t0 = time.perf_counter()
+        res = run_case(comm, case)
+        res["case_wall_s"] = time.perf_counter() - t0
+        res["host_copies_total"] = getattr(comm, "host_copies", 0)
+        res["backend"] = getattr(comm, "backend", "none")
         res["jax_imported"] = any(m.split(".")[0] in ("jax", "jaxlib")
                                   for m in sys.modules)
         if rank == 0:

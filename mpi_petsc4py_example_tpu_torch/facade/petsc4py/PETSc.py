@@ -19,8 +19,9 @@ operation on the port's virtual mesh, and all ranks share the result, as the
 MPIAIJ path behaves over real MPI. Under rank processes (``-n N --procs``)
 every rank receives every contribution and runs the same operation on its
 own objects over the ``ProcessComm`` (SPMD), each placing only its rows;
-prints stay on rank 0, and the binary viewer raises there (``ROADMAP.md``
-Queue A item 4b). There ``Vec.getArray``/``array`` is collective too, unlike
+prints stay on rank 0, the binary viewer's ``view`` writes from rank 0
+(every rank calls it) and ``load`` reads on every rank. There
+``Vec.getArray``/``array`` is collective too, unlike
 PETSc's local ``VecGetArray``: a rank's block of the user's layout may lie
 in another process's device rows, so every rank calls it and uses its block
 as it likes (``if rank == 0: print(x.getArray())`` waits for the other
@@ -188,8 +189,8 @@ class Vec:
             viewer._check_mode(read=False)
 
             def build(_):
-                _pt.petsc_io.save_vec(viewer.handle, self._core)
-                viewer.handle.flush()
+                _pt.petsc_io.save_vec(_writer(viewer, self._core),
+                                      self._core)
                 return True
             self._comm._collective("vec_view_binary", None, build)
             return
@@ -470,8 +471,8 @@ class Mat:
             viewer._check_mode(read=False)
 
             def build(_):
-                _pt.petsc_io.save_mat(viewer.handle, self._core)
-                viewer.handle.flush()
+                _pt.petsc_io.save_mat(_writer(viewer, self._core),
+                                      self._core)
                 return True
             self._comm._collective("mat_view_binary", None, build)
             return
@@ -498,6 +499,13 @@ class Mat:
     @property
     def core(self):
         return self._core
+
+
+def _writer(viewer, core):
+    """The viewer's file on rank 0 of ``core``'s communicator, which alone
+    writes (``utils/petsc_io.py``); None elsewhere, where the file is never
+    opened."""
+    return viewer.handle if core.comm.rank == 0 else None
 
 
 class Viewer:
@@ -666,7 +674,8 @@ class KSP:
         self._core.set_from_options()
 
     def setUp(self):
-        """Collective: the rank-0 thread sets the PC up (factors)."""
+        """Collective: the rank-0 thread sets the PC up (factors) under
+        thread ranks; every rank sets up its shards under rank processes."""
         comm = self._comm or _MPI.COMM_WORLD
 
         def build(_):
@@ -676,8 +685,10 @@ class KSP:
         self._core = comm._collective("ksp_setup", None, build)
 
     def solve(self, b: Vec, x: Vec):
-        """Collective: the rank-0 thread runs the solve; its solver context
-        (iterations, residual, reason) is shared by all ranks."""
+        """Collective: under thread ranks the rank-0 thread runs the solve
+        and all ranks share its solver context (iterations, residual,
+        reason); under rank processes every rank runs it on its shards and
+        holds the same context."""
         comm = self._comm or _MPI.COMM_WORLD
 
         def build(_):

@@ -2,11 +2,15 @@
 
 The port's counterpart of the EPS and ST part of ``compat/slepc4py/SLEPc.py``
 (the surface of ``petsc_funcs.py:13-20`` and ``test2.py:88-96``). ``solve``
-is a rendezvous under virtual ranks: the rank-0 thread runs the eigensolve
-on the port's virtual mesh and every rank shares its solver context. The
+is collective. Under thread ranks (the runner's ``-n N``) the rank-0 thread
+runs the eigensolve on the port's virtual mesh and every rank shares its
+solver context; under rank processes (``-n N --procs``) every rank runs it
+on its shards of the ``ProcessComm`` (SPMD) and holds the same pairs. The
 queries, ``getEigenpair`` included, read host-replicated results and make no
 collective call, so a driver may call them on one rank only, as the
-reference ``test2.py`` does under ``if rank == 0``.
+reference ``test2.py`` does under ``if rank == 0``; ``computeError`` is
+collective under rank processes (the operator's product and one
+reduction), so every rank calls it.
 """
 
 from __future__ import annotations
@@ -132,8 +136,10 @@ class EPS:
         self._core.set_from_options()
 
     def solve(self):
-        """Collective: the rank-0 thread runs the eigensolve; its solver
-        context (pairs, restarts, reason) is shared by all ranks."""
+        """Collective: under thread ranks the rank-0 thread runs the
+        eigensolve and all ranks share its solver context (pairs, restarts,
+        reason); under rank processes every rank runs it on its shards and
+        holds the same context."""
         comm = self._comm or _MPI.COMM_WORLD
 
         def build(_):
@@ -163,6 +169,8 @@ class EPS:
         return self._core.get_error_estimate(i)
 
     def computeError(self, i, etype="relative"):
+        """Collective under rank processes: every rank calls it (one
+        product of the operator and one reduction)."""
         return self._core.compute_error(i, etype)
 
     def destroy(self):

@@ -50,9 +50,6 @@ import torch.distributed as dist
 
 # a dead peer ends a process-group run after this long instead of hanging it
 TIMEOUT_S = 300.0
-# what a module of the rest of the stack raises on a process communicator
-ITEM_4B = ("ROADMAP.md Queue A item 4b: the rest of the stack on the "
-           "process communicator")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -78,15 +75,6 @@ def to_host(x: torch.Tensor) -> np.ndarray:
     if x.dtype == torch.bfloat16:
         x = x.to(torch.float32)
     return x.numpy()
-
-
-def require_single_process(comm, what: str):
-    """Raise ``NotImplementedError`` when ``comm`` spans several processes:
-    ``what`` is not yet brought onto the process communicator."""
-    if comm is not None and comm.nprocs > 1:
-        raise NotImplementedError(
-            f"{what} does not run on a communicator of "
-            f"{comm.nprocs} processes yet ({ITEM_4B})")
 
 
 def _resolve_device(device) -> torch.device:
@@ -119,6 +107,8 @@ class DeviceComm:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
         self.device = device
         self._size = int(n_devices)
+        # calls of each collective, for the logs (the same on either comm)
+        self.collectives = {"psum": 0, "shift": 0, "all_gather": 0}
 
     @property
     def size(self) -> int:
@@ -259,6 +249,7 @@ class DeviceComm:
         """Sum per-shard partials (a sequence, one per local shard) in
         global shard order: the analog of ``MPI_Allreduce(SUM)``, with a
         fixed order."""
+        self.collectives["psum"] += 1
         total = parts[0]
         for p in parts[1:]:
             total = total + p
@@ -275,6 +266,7 @@ class DeviceComm:
     def shift(self, x: torch.Tensor, step: int = 1) -> torch.Tensor:
         """Ring shift of a shard-stacked tensor: shard ``i`` receives the block
         of shard ``i - step`` (``lax.ppermute`` with pairs ``(i, i+step)``)."""
+        self.collectives["shift"] += 1
         return torch.roll(x, shifts=step, dims=0)
 
     def shift_open(self, x: torch.Tensor, step: int) -> torch.Tensor:
@@ -296,8 +288,13 @@ class DeviceComm:
             raise ValueError(f"all_gather needs a leading shard axis of "
                              f"{self.local_shards}, got shape "
                              f"{tuple(x.shape)}")
+        self.collectives["all_gather"] += 1
         x = self.gather_shards(x)
         return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    def barrier(self):
+        """Return once every process has reached it (nothing to wait for
+        on the virtual mesh)."""
 
     def shard_map(self, fn):
         """Wrap a per-shard body: ``run(*stacked)`` calls ``fn`` on the
@@ -406,15 +403,23 @@ class ProcessComm(DeviceComm):
         return total
 
     def psum(self, parts):
+        self.collectives["psum"] += 1
         return self._fold(parts, torch.add)
 
     def pmax(self, parts):
         return self._fold(parts, torch.maximum)
 
+    def barrier(self):
+        """One all-gather of a scalar, read on the host: no process returns
+        before every process has called it (on either backend)."""
+        if self._nprocs > 1:
+            self.gather_shards(torch.zeros(1, device=self.device)).cpu()
+
     def shift(self, x: torch.Tensor, step: int = 1) -> torch.Tensor:
         """The ring shift across processes: a roll inside the local stack,
         and the edge block swapped with the neighbouring ranks
         (``batch_isend_irecv``). Steps of ``±1`` only."""
+        self.collectives["shift"] += 1
         y = torch.roll(x, shifts=step, dims=0)
         if self._nprocs == 1:
             return y

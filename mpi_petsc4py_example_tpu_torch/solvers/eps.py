@@ -13,10 +13,12 @@ Types (``set_type`` / ``-eps_type``):
 * ``krylovschur``: thick-restart Arnoldi/Lanczos (Krylov-Schur), the JAX
   host loop (``_solve_krylovschur``, ``:1293``, from ``:1347``). The
   factorization steps ``k..ncv-1`` run on the device as CGS2 steps on a
-  shard-stacked basis ``(size, ncv+1, lsize)`` with no host read inside;
-  the projected matrix ``H`` comes to the host once per restart for the
-  small eigenproblem and the restart decision (numpy), and the basis is
-  compressed to the kept Ritz/Schur directions on the device. The JAX
+  shard-stacked basis ``(local_shards, ncv+1, lsize)`` with no host read
+  inside; the projected matrix ``H``, whose entries are reductions and so
+  the same on every process, comes to the host once per restart for the
+  small eigenproblem and the restart decision (numpy, on every process),
+  and the basis is compressed to the kept Ritz/Schur directions on the
+  device. The JAX
   package's fused whole-solve HEP program (``:383``) is not ported: the port
   runs this loop at every size, one host read per restart and one to
   extract the eigenvectors.
@@ -34,9 +36,13 @@ x = lambda B x`` run on the transformed operator, with every inner product
 of the factorization in the B-inner product for GHEP, and the Ritz values
 mapped back.
 
-Extraction is host-replicated: ``get_eigenpair`` reads stored host arrays
-and makes no collective call, so a driver may call it on one rank only, as
-the reference ``test2.py`` does.
+On a communicator of several processes (``ProcessComm``) every process
+runs the solve on its shards (SPMD) and takes the same decisions from the
+same ``H``; the Ritz vectors are gathered once at the end. Extraction is
+host-replicated: ``get_eigenpair`` reads stored host arrays and makes no
+collective call, so a driver may call it on one rank only, as the reference
+``test2.py`` does. ``compute_error`` is collective: the operator's product
+and one ``psum`` of the residual's local rows.
 """
 
 from __future__ import annotations
@@ -47,10 +53,10 @@ import numpy as np
 import torch
 
 from ..core.vec import Vec
-from ..parallel.mesh import numpy_dtype, require_single_process
+from ..parallel.mesh import numpy_dtype
 from ..utils.convergence import SolveResult
 from ..utils.options import global_options
-from .krylov import _cgs2_step, _pmatdot
+from .krylov import _cgs2_step, _pmatdot, shardwise_matmul
 from .mg import _tf32_allowed
 from .st import ST
 
@@ -94,7 +100,7 @@ def _inner_products(comm, inner):
     ``sqrt(<u, B u>)``, one reduction over the shards each."""
     pmatdot = _pmatdot(comm)
     b_apply = inner.local_spmv(comm) if inner is not None else None
-    size = comm.size
+    size = comm.local_shards
 
     def pnorm(u):
         bu = b_apply(u) if b_apply is not None else u
@@ -109,8 +115,9 @@ def _inner_products(comm, inner):
 def _facto_steps(spmv, pmatdot, pnorm, V, H, k, ncv):
     """The CGS2 Arnoldi/Lanczos continuation (the JAX ``_facto_steps``,
     ``:123``): normalize ``V[:, k]``, then run steps ``k..ncv-1`` on the
-    basis ``V (size, ncv+1, lsize)`` and ``H (ncv+1, ncv)`` in place, on the
-    device, with no host read.
+    basis ``V (local_shards, ncv+1, lsize)`` and ``H (ncv+1, ncv)`` in
+    place (``H`` the same on every process: its entries are reductions), on
+    the device, with no host read.
 
     Step ``j`` projects against the ``j+1`` rows already built and no more:
     the JAX program projects against all ``ncv+1`` rows, whose rows past
@@ -164,7 +171,6 @@ class EPS:
 
     # ---- lifecycle / configuration -----------------------------------------
     def create(self, comm=None):
-        require_single_process(comm, "EPS")
         self.comm = comm
         return self
 
@@ -352,7 +358,6 @@ class EPS:
         mat = self._mat
         if mat is None:
             raise RuntimeError("EPS.solve: no operators set")
-        require_single_process(mat.comm, "EPS")
         if self._bmat is not None and \
                 self._problem_type != EPSProblemType.GHEP:
             raise ValueError("two operators were set; problem type must be "
@@ -505,7 +510,7 @@ class EPS:
         k_keep = int(min(max(nev, ncv // 2), ncv - 1))
         dtype = op.dtype
         np_dtype = numpy_dtype(dtype)
-        size = comm.size
+        size = comm.local_shards
         if (comm.device.type == "cuda" and dtype == torch.float32
                 and _tf32_allowed()):
             raise RuntimeError(
@@ -577,19 +582,20 @@ class EPS:
             S_dev = torch.tensor(np.ascontiguousarray(S_keep.T),
                                  dtype=dtype, device=comm.device)
             V_new = torch.empty_like(V)
-            V_new[:, :k] = torch.matmul(S_dev, V[:, :ncv])
+            V_new[:, :k] = shardwise_matmul(S_dev, V[:, :ncv])
             V_new[:, k] = V[:, ncv]
             V = V_new
 
         count = max(nev, 1)
-        lam, vecs = self._extract(V, S, lam_t, order, n, count)
+        lam, vecs = self._extract(comm, V, S, lam_t, order, n, count)
         syncs += 1
         self._store(lam, vecs, rel[:count], nconv, restarts)
         return syncs
 
-    def _extract(self, V, S, lam_t, order, n, count):
+    def _extract(self, comm, V, S, lam_t, order, n, count):
         """The ``count`` most wanted Ritz vectors ``(count, n)``, normalized,
-        made on the device from the basis and read in one host copy, and
+        made on the device from this process's shards of the basis and
+        gathered in one ``gather_shards`` (every process gets them all), and
         their mapped-back eigenvalues."""
         ncv = S.shape[0]
         take = order[:count]
@@ -597,7 +603,8 @@ class EPS:
         parts = [St.real] + ([St.imag] if np.iscomplexobj(St) else [])
         coef = torch.tensor(np.ascontiguousarray(np.concatenate(parts)),
                             dtype=V.dtype, device=V.device)
-        Y = torch.matmul(coef, V[:, :ncv])               # (size, rows, lsize)
+        # (local_shards, rows, lsize), then (size, rows, lsize)
+        Y = comm.gather_shards(shardwise_matmul(coef, V[:, :ncv]))
         Y = Y.transpose(0, 1).reshape(coef.shape[0], -1)  # (rows, n_pad)
         Yh = Y.cpu().numpy().astype(np.float64)[:, :n]
         vecs = Yh[:count] + (1j * Yh[count:] if len(parts) == 2 else 0.0)
@@ -661,29 +668,45 @@ class EPS:
         """EPSComputeError: the true residual ``||A v - lambda v||`` (``||A v
         - lambda B v||`` for GHEP) of the i-th pair, with the stored
         operators; ``'relative'`` (SLEPc's default) divides by
-        ``|lambda|``."""
+        ``|lambda|``. Collective on a communicator of several processes:
+        each product runs on this process's rows, and the squared norm of
+        the residual's rows is summed over the shards in shard order (one
+        ``psum``), in fp64."""
         lam = complex(self._eigenvalues[i])
         vec = np.asarray(self._eigenvectors[i])
         A = self._mat
         if A is None:
             raise RuntimeError("compute_error: no operators set")
+        comm = A.comm
+        shards = comm.local_shards
+
+        def rows(v):
+            """This process's shards of the host vector ``v``, fp64."""
+            return torch.tensor(comm.local_rows(v), dtype=torch.float64,
+                                device=comm.device).view(shards, -1)
 
         def apply(op, v):
-            vv = Vec.from_global(self.comm, v, dtype=op.dtype)
-            return np.asarray(op.mult(vv).to_numpy(), dtype=np.float64)
+            vv = Vec.from_global(comm, v, dtype=op.dtype)
+            return op.mult(vv).data.view(shards, -1).to(torch.float64)
 
         # real operators: the real and imaginary parts apart (complex pairs
         # arise for NHEP only)
         vr, vi = np.real(vec), np.imag(vec)
+        complex_pair = bool(np.any(vi))
         Avr = apply(A, vr)
-        Avi = apply(A, vi) if np.any(vi) else np.zeros_like(Avr)
+        Avi = apply(A, vi) if complex_pair else torch.zeros_like(Avr)
         if self._bmat is not None:
             Bvr = apply(self._bmat, vr)
-            Bvi = apply(self._bmat, vi) if np.any(vi) else np.zeros_like(Bvr)
+            Bvi = (apply(self._bmat, vi) if complex_pair
+                   else torch.zeros_like(Bvr))
         else:
-            Bvr, Bvi = vr, vi
-        r = (Avr + 1j * Avi) - lam * (Bvr + 1j * Bvi)
-        err = float(np.linalg.norm(r))
+            Bvr, Bvi = rows(vr), rows(vi)
+        # r = A v - lambda B v, its real and imaginary parts
+        rr = Avr - (lam.real * Bvr - lam.imag * Bvi)
+        ri = Avi - (lam.real * Bvi + lam.imag * Bvr)
+        sq = comm.psum([torch.dot(rr[s], rr[s]) + torch.dot(ri[s], ri[s])
+                        for s in range(shards)])
+        err = float(torch.sqrt(sq))
         t = str(error_type).lower()
         if t in ("relative", "eps_error_relative"):
             return err / max(abs(lam), np.finfo(np.float64).tiny)

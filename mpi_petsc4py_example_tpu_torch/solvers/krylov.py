@@ -35,7 +35,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.mesh import require_single_process
 from ..utils.convergence import ConvergedReason as CR
 from . import cg_plans as _plans
 from .cg_plans import _dmax, _reason, _tol
@@ -221,15 +220,23 @@ def _hessenberg_lstsq(H, beta):
     return y, abs(g[m])
 
 
+def shardwise_matmul(a, V):
+    """``a @ V[i]`` for each local shard ``i`` of ``V (local_shards, ...)``,
+    one product per shard: the same shapes on any split of the shards over
+    processes, so the same bits (a batched product's rounding may depend
+    on its batch count)."""
+    return torch.stack([torch.matmul(a, V[i]) for i in range(V.shape[0])])
+
+
 def _cgs2_step(V, w, pmatdot, pnorm):
     """One CGS2 orthogonalization step: project ``w`` against the basis
-    ``V (size, m+1, lsize)`` twice (classical Gram-Schmidt, re-applied).
-    Rows of ``V`` past the current column are zero. Returns ``(h, hnorm,
-    v_next)``."""
+    ``V (local_shards, m+1, lsize)`` twice (classical Gram-Schmidt,
+    re-applied). Rows of ``V`` past the current column are zero. Returns
+    ``(h, hnorm, v_next)``."""
     h1 = pmatdot(V, w)
-    w = w - torch.matmul(h1, V)
+    w = w - shardwise_matmul(h1, V)
     h2 = pmatdot(V, w)
-    w = w - torch.matmul(h2, V)
+    w = w - shardwise_matmul(h2, V)
     hnorm = pnorm(w)
     return h1 + h2, hnorm, w / torch.where(hnorm == 0, 1.0, hnorm)
 
@@ -301,7 +308,7 @@ def gmres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
         return V, H
 
     def update(x, y, basis):
-        x = x + torch.matmul(y, basis[0][:, :m])
+        x = x + shardwise_matmul(y, basis[0][:, :m])
         return x, M(b - A(x))
 
     return _restarted_cycles(cycle, update, b, x0, r, rn_t, tol,
@@ -337,7 +344,7 @@ def fgmres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
         return Z, H
 
     def update(x, y, basis):
-        x = x + torch.matmul(y, basis[0])
+        x = x + shardwise_matmul(y, basis[0])
         return x, b - A(x)
 
     return _restarted_cycles(cycle, update, b, x0, r, rn_t, tol,
@@ -524,21 +531,21 @@ def stencil_cg_eligible(ksp_type, pc, operator, many=False,
 
 
 def make_projector(comm, basis, prec):
-    """``project(v (size, lsize)) -> v - Q^T (Q v)`` for the orthonormal
-    null-space basis ``basis (k, n_pad)`` (JAX ``krylov.py:2527-2532``):
-    one batched product gives every shard's ``(k,)`` partial of ``Q v``,
-    summed in shard order, and one product takes the component out. A
-    mixed plan projects in its reduce dtype and rounds back to storage."""
+    """``project(v (local_shards, lsize)) -> v - Q^T (Q v)`` for this
+    process's rows ``basis (k, local_padded)`` of the orthonormal null-space
+    basis (JAX ``krylov.py:2527-2532``):
+    one product per shard gives its ``(k,)`` partial of ``Q v``, summed in
+    shard order, and one product per shard takes the component out (the
+    same shapes on any split of the shards over processes). A mixed plan
+    projects in its reduce dtype and rounds back to storage."""
     size = comm.local_shards
     k = basis.shape[0]
-    Q = prec.up(basis).view(k, size, -1)
-    Qs = Q.transpose(0, 1).contiguous()            # (size, k, lsize)
+    Qs = prec.up(basis).view(k, size, -1).transpose(0, 1).contiguous()
 
     def project(v):
-        vu = prec.up(v)
-        parts = torch.bmm(Qs, vu.reshape(size, -1, 1))[..., 0]
-        c = comm.psum(list(parts))                 # (k,)
-        out = vu - torch.einsum("k,ksl->sl", c, Q).view(v.shape)
+        vu = prec.up(v).reshape(size, -1)
+        c = comm.psum([torch.mv(Qs[i], vu[i]) for i in range(size)])  # (k,)
+        out = (vu - shardwise_matmul(c, Qs)).view(v.shape)
         return out.to(v.dtype) if prec.mixed else out
 
     return project
@@ -559,9 +566,10 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
     ``operator.local_spmv_t`` (bicg ``pc.local_apply_transpose`` too), and
     raise ``ValueError`` where the operator or PC has none.
 
-    ``nullspace`` is the ``(k, n_pad)`` orthonormal basis of the operator's
-    null space, or None: the program then projects ``b`` and ``x0`` and the
-    outputs of ``A`` and ``M``, and for the transpose types the inputs of
+    ``nullspace`` is this process's rows ``(k, local_padded)`` of the
+    orthonormal basis of the operator's null space, or None: the program
+    then projects ``b`` and ``x0`` and the outputs of ``A`` and ``M``, and
+    for the transpose types the inputs of
     ``A^T`` and ``M^T`` (the adjoint of ``v -> P A v`` is ``w -> A^T P w``;
     JAX ``:2486-2509``). ``monitor(it, rn)`` receives every residual norm
     the loop reads, in order. With ``true_res`` the program ends with the
@@ -569,10 +577,6 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
     ``||b - A x||`` and ``||b||``, appended to the result as floats (one
     more host read)."""
     check_ksp_type(ksp_type)
-    if ksp_type in _NEEDS_TRANSPOSE:
-        require_single_process(comm, f"KSP {ksp_type!r}")
-    if nullspace is not None:
-        require_single_process(comm, "a null space (NullSpace)")
     size = comm.local_shards
     n = operator.shape[0]
     prec = _precision(ksp_type, operator)

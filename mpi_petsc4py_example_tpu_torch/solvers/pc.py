@@ -28,6 +28,12 @@ The factor PCs work on an assembled :class:`..core.mat.Mat`:
   sparsity) factors with scipy's SuperLU and applies on the host under KSP
   preonly.
 
+On a communicator of several processes (``ProcessComm``) each process
+builds the blocks and windows of its own shards; the lu set-ups run on every
+process from the global host CSR (SPMD), dense lu keeping its rows of the
+inverse and the cyclic-reduction modes the whole factor, whose sweeps run on
+the gathered vector before each process keeps its rows.
+
 ``-pc_setup_device`` ('auto' | '1' | '0') places the set-up of bjacobi, dense
 lu and crband: '1' on the communicator's device, '0' on the host in fp64,
 'auto' on the device when it is CUDA and the operator is fp32 or fp64 (see
@@ -60,8 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.spmv import widened_einsum
-from ..parallel.mesh import (full_vector_local_apply, numpy_dtype,
-                             require_single_process, to_host, torch_dtype)
+from ..parallel.mesh import (full_vector_local_apply, numpy_dtype, to_host,
+                             torch_dtype)
 from ..utils.dtypes import host_dtype, is_low_precision, real_eps
 from .mg import make_vcycle, make_vcycle3d
 from .tridiag import (banded_to_blocks, bpcr_apply, bpcr_setup,
@@ -288,8 +294,6 @@ class PC:
         self.setup_mode = None
         self.setup_breakdown = None
         t = self._type
-        if t in _BLOCK_TYPES + ("asm", "shell", "composite"):
-            require_single_process(mat.comm, f"PC {t!r}")
         # jacobi's inverse diagonal is made when an apply first needs it:
         # the stencil fast path never does
         self._arrays = ()
@@ -327,8 +331,6 @@ class PC:
         if t == "cholesky":
             _require_symmetric(mat)
         mode, bw, perm, A_perm = _lu_plan(mat)
-        if mode in ("crtri", "crband"):
-            require_single_process(mat.comm, f"PC {t!r} in mode {mode!r}")
         self._factor_mode = mode
         self.setup_mode = "host"
         if mode == "dense":
@@ -468,11 +470,14 @@ class PC:
                                       r.reshape(nblk, bs)).view(r.shape)
             return apply_t
         if k == "lu":
-            minv = self._arrays[0]
+            # the transpose needs every row of the inverse: a process comm
+            # gathers them once (the virtual mesh holds them all already)
+            minv = comm.gather_shards(self._arrays[0])
+            start, stop = comm.local_row_range(n)
 
             def apply_t(r):
-                return widened_einsum("ji,j->i", minv,
-                                      comm.all_gather(r)).view(r.shape)
+                return widened_einsum("ji,j->i", minv, comm.all_gather(r))[
+                    start:stop].view(r.shape)
             return apply_t
         if k == "shell":
             if self._shell_apply_t is None:
@@ -513,9 +518,11 @@ class PC:
         """The cyclic-reduction solve (JAX ``pc.py:516-552``) on the gathered
         vector: its first ``n`` rows, permuted when RCM reordered the
         operator (``P A P^T y = P r``, ``x = P^T y``), zero-padded back to
-        the shard layout."""
+        the shard layout; every process solves the whole system and keeps
+        its rows."""
         arrs = self._arrays
         n_pad = comm.padded_size(n)
+        start, stop = comm.local_row_range(n)
         if self.kind == "crtri":
             def solve(d):
                 return pcr_apply(d, *arrs)
@@ -535,7 +542,7 @@ class PC:
             x = solve(comm.all_gather(r)[:n])
             if n_pad > n:           # padding slots pass through as zero
                 x = F.pad(x, (0, n_pad - n))
-            return x.view(r.shape)
+            return x[start:stop].view(r.shape)
         return apply
 
     def local_apply_many(self, comm, n: int):
@@ -566,11 +573,11 @@ class PC:
                 return Z.view(size, nb, bs, cols).permute(0, 3, 1, 2) \
                     .reshape(R.shape)
             return apply
-        minv = self._arrays[0]
+        minv = self._arrays[0]                 # this process's rows
 
         def apply(R):
             cols = R.shape[1]
-            Rf = R.transpose(1, 2).reshape(-1, cols)     # (n_pad, k)
+            Rf = comm.all_gather(R.transpose(1, 2))      # (n_pad, k)
             Z = widened_einsum("ij,jc->ic", minv, Rf)
             return Z.view(size, lsize, cols).transpose(1, 2).contiguous()
         return apply
@@ -871,8 +878,8 @@ def _build_block_ssor(mat, omega: float):
              @ (Dw + np.triu(Ad, 1)) / (2.0 - omega))
         return scipy.linalg.inv(M)
 
-    inv = _per_device_inverse(A, n, lsize, mat.comm.size, ssor_inv,
-                              host_dt=host_dt)
+    inv = _per_device_inverse(A, n, lsize, mat.comm.local_shards, ssor_inv,
+                              host_dt=host_dt, first=mat.comm.shard_offset)
     return (_to_device(mat.comm, inv, mat.dtype),)
 
 
@@ -894,15 +901,16 @@ def _build_block_ilu(mat, fill: float):
         except RuntimeError:        # singular pivot: the exact inverse
             return scipy.linalg.inv(Ad.toarray())
 
-    inv = _per_device_inverse(A, n, lsize, mat.comm.size, ilu_inv,
-                              host_dt=host_dt)
+    inv = _per_device_inverse(A, n, lsize, mat.comm.local_shards, ilu_inv,
+                              host_dt=host_dt, first=mat.comm.shard_offset)
     return (_to_device(mat.comm, inv, mat.dtype),)
 
 
 def _build_asm(mat, overlap: int):
     """Restricted additive Schwarz windows (JAX ``pc.py:1097``): each shard's
     rows widened by ``overlap`` on each side, inverted on the host in fp64;
-    window rows outside the matrix are identity."""
+    window rows outside the matrix are identity. Each process builds the
+    windows of its own shards."""
     import scipy.linalg
     ov = int(overlap)
     if ov < 0:
@@ -912,12 +920,12 @@ def _build_asm(mat, overlap: int):
         raise ValueError(
             f"asm overlap {ov} exceeds the local block size {lsize} "
             "(halo exchange is single-neighbor)")
-    ndev = mat.comm.size
+    ndev, first = mat.comm.local_shards, mat.comm.shard_offset
     w = lsize + 2 * ov
     host_dt = host_dtype(mat.dtype)
     inv = np.zeros((ndev, w, w), dtype=host_dt)
     for d in range(ndev):
-        rs = d * lsize - ov
+        rs = (first + d) * lsize - ov
         block = np.eye(w, dtype=host_dt)
         lo, hi = max(rs, 0), min(rs + w, n)
         if lo < hi:

@@ -12,6 +12,11 @@ accuracy contract, ``rtol`` against the fp64 residual, does not depend on the
 inner precision; a bf16 inner solve takes more, cheaper, outer steps. The
 per-step inner target is floored at a few storage epsilons.
 
+On a communicator of several processes every process holds the fp64 system
+and runs the host residual on it (replicated, SPMD); the correction comes
+back through one collective read (``Vec.to_numpy``) per outer step, and the
+inner KSP runs on the process's shards.
+
 Refinement contracts only while ``cond(A) * eps_storage`` stays small enough
 for the corrections to keep reducing the residual; the stagnation guard
 (``0.9 * rnorm``) ends the loop with ``DIVERGED_BREAKDOWN`` when they stop
@@ -29,7 +34,7 @@ import time
 import numpy as np
 
 from ..core.mat import Mat
-from ..parallel.mesh import DeviceComm, require_single_process
+from ..parallel.mesh import DeviceComm
 from ..utils.convergence import ConvergedReason, SolveResult
 from ..utils.dtypes import inner_precision_dtype, real_eps
 from ..utils.options import global_options
@@ -70,7 +75,6 @@ class RefinedKSP:
         self.result = SolveResult()
 
     def create(self, comm=None):
-        require_single_process(comm, "RefinedKSP")
         self.comm = comm
         self.inner.create(comm)
         return self
@@ -128,7 +132,6 @@ class RefinedKSP:
         if self.comm is None:
             self.create(DeviceComm())       # the card, as an entry point
         if inner_op is not None:
-            require_single_process(inner_op.comm, "RefinedKSP")
             self._inner_op = inner_op
             self._mat_lp = None
         else:

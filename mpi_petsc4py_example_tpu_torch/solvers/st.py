@@ -17,9 +17,10 @@ orthogonalizes in.
 
 The inverses are dense, made on the host in fp64 under the cap of the JAX
 package (``_dense_inverse_padded``, ``:153``; here PC lu's
-``dense_inverse_padded``), zero-padded to the communicator's padded size and
-applied on the device with one ``torch.matmul`` against the gathered
-vector. Forward products use the operator's own ``local_spmv``.
+``dense_inverse_padded``), zero-padded to the communicator's padded size;
+each process keeps its rows and applies them on the device with one
+``torch.matmul`` against the gathered vector. Forward products use the
+operator's own ``local_spmv``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.mesh import require_single_process
 from ..utils.options import global_options
 from .pc import _DENSE_CAP, dense_inverse_padded
 
@@ -137,20 +137,22 @@ class ST:
 
 
 def _dense_inverse(comm, M, n, dtype):
+    """This process's rows of the padded dense inverse of ``M``."""
     return dense_inverse_padded(
         comm, M, dtype,
         f"ST 'sinvert'/generalized solve densifies the operator; n={n} is "
         f"too large for the host factorization path (cap {_DENSE_CAP}): "
-        "use ST 'shift' with an iterative which")
+        "use ST 'shift' with an iterative which", local=True)
 
 
 class STOperator:
     """The transformed operator: ``A - sI``, ``(A - sI)^-1``, ``B^-1 A -
     sI``, ``(A - sB)^-1 B`` or the Cayley forms, on the port's operator
-    protocol (``local_spmv(comm)`` -> ``spmv(x (size, lsize))``)."""
+    protocol (``local_spmv(comm)`` -> ``spmv(x (local_shards, lsize))``).
+    Every process factors the global host matrix (SPMD) and keeps its rows
+    of the inverse."""
 
     def __init__(self, A, B, st_type: str, sigma: float, nu: float = 0.0):
-        require_single_process(A.comm, "ST")
         if st_type in ("sinvert", "cayley") and not hasattr(A, "to_scipy"):
             raise ValueError(
                 f"ST {st_type!r} needs an assembled matrix (Mat): "
@@ -186,11 +188,12 @@ class STOperator:
                                         self.dtype)
 
     def local_spmv(self, comm):
-        size = comm.size
+        shards = comm.local_shards
 
         def matinv_apply(minv, x):
-            # the gathered vector, one matmul, this shard's rows of each
-            return torch.matmul(minv, comm.all_gather(x)).view(size, -1)
+            # this process's rows of the inverse times the gathered vector:
+            # its shards' rows of the product
+            return torch.matmul(minv, comm.all_gather(x)).view(shards, -1)
 
         b_spmv = self.B.local_spmv(comm) if self.B is not None else None
         if self.st_type == "cayley":

@@ -22,6 +22,10 @@ seekable streamed reads alike. Loading rejects ``--with-64-bit-indices``
 files. ``load_mat``/``load_vec`` build the port's ``Mat``/``Vec``, which
 hold real scalars only: ``scalar='complex'`` raises ``NotImplementedError``
 there (complex scalars are ROADMAP.md Queue A item 5).
+
+On a communicator of several processes ``save_mat``/``save_vec`` are
+collective (rank 0 writes, then a barrier) and ``load_mat``/``load_vec``
+read the file on every process, each placing its rows.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ import torch
 
 from ..core.mat import Mat
 from ..core.vec import Vec
-from ..parallel.mesh import require_single_process
 
 MAT_FILE_CLASSID = 1211216
 VEC_FILE_CLASSID = 1211214
@@ -214,31 +217,43 @@ def _real_only(scalar: str):
             "with read_mat/read_vec(scalar='complex') on the host")
 
 
+def _save(comm, path, write, obj) -> None:
+    """Rank 0 writes (and flushes an open file), then every process meets
+    at a barrier, so a load that follows on any rank reads the whole file:
+    PETSc's binary viewer writes from rank 0 too. ``path`` is used on rank
+    0 only."""
+    if comm.rank == 0:
+        write(path, obj)
+        if hasattr(path, "flush"):
+            path.flush()
+    comm.barrier()
+
+
 def save_mat(path, mat) -> None:
-    """``MatView(mat, binary_viewer)``: write an assembled Mat."""
-    require_single_process(mat.comm, "petsc_io")
-    write_mat(path, mat.to_scipy())
+    """``MatView(mat, binary_viewer)``: write an assembled Mat. Collective:
+    every process calls it; the host CSR is the global one on every
+    process (or gathered, for a Mat built without it) and rank 0 writes."""
+    _save(mat.comm, path, write_mat, mat.to_scipy())
 
 
 def load_mat(path, comm, dtype=None, scalar: str = "real"):
     """``MatLoad``: read a PETSc binary Mat into a row-sharded Mat on
-    ``comm`` (float64 unless ``dtype`` says otherwise)."""
+    ``comm`` (float64 unless ``dtype`` says otherwise). Every process reads
+    the whole file and places its rows, as ``Mat.from_csr`` does."""
     _real_only(scalar)
-    require_single_process(comm, "petsc_io")
     A = read_mat(path, scalar=scalar)
     return Mat.from_scipy(comm, A, dtype=dtype or torch.float64)
 
 
 def save_vec(path, vec) -> None:
-    """``VecView(vec, binary_viewer)``."""
-    require_single_process(vec.comm, "petsc_io")
-    write_vec(path, vec.to_numpy())
+    """``VecView(vec, binary_viewer)``. Collective: the values are gathered
+    on every process (``Vec.to_numpy``) and rank 0 writes."""
+    _save(vec.comm, path, write_vec, vec.to_numpy())
 
 
 def load_vec(path, comm, dtype=None, scalar: str = "real"):
     """``VecLoad``: read a PETSc binary Vec into a row-sharded Vec on
-    ``comm``."""
+    ``comm``; every process reads the file and places its rows."""
     _real_only(scalar)
-    require_single_process(comm, "petsc_io")
     arr = read_vec(path, scalar=scalar)
     return Vec.from_global(comm, arr, dtype=dtype)

@@ -11,9 +11,23 @@ within 1e-12) and within 1e-10 of the JAX package's. JAX cannot itself run
 multi-process here (``tests/test_multihost.py`` skips under jaxlib 0.4.x),
 so the parity is against both packages' virtual meshes.
 
-Also: every collective of the communicator, the ``test.py`` flow through
-``run.py --procs``, a failing rank, the NCCL rank check, and the modules
-outside the slice, which raise on a communicator of several processes.
+The rest of the stack rides the same launch: EPS and ST (krylovschur,
+lanczos, lapack; HEP, GHEP, NHEP; shift, sinvert, cayley), RefinedKSP
+(stencil and assembled, f64/f32/bf16 inner, ``solve_many``), PC
+sor/ssor/ilu/icc/asm/shell/composite and lu/cholesky in the
+cyclic-reduction modes (the dense cap lowered to 64 rows, in the JAX
+package too), ShellMat, NullSpace, KSP lsqr/bicg/cgne, the transpose
+product on each of its routes and a PETSc binary round trip. Each is held
+bit for bit against ``DeviceComm(4, "cpu")``, and against the JAX package's
+4-device mesh: iterations, restarts and reasons equal, values within 1e-10
+(eigenvectors up to sign; the f32 and bf16 refinements within the bands of
+``tests/test_torch_refine.py``, their rounding being the storage
+precision's).
+
+Also: every collective of the communicator, the ``test.py`` flow, the
+``test2.py`` flow and the advanced tour through ``run.py --procs`` (stdout
+equal to thread mode's), ``getEigenpair`` on rank 0 alone, a failing rank
+and the NCCL rank check.
 """
 
 import json
@@ -33,17 +47,20 @@ import jax.numpy as jnp  # noqa: E402
 import mpi_petsc4py_example_tpu as tps  # noqa: E402
 from mpi_petsc4py_example_tpu.models.stencil import (  # noqa: E402
     StencilPoisson3D as JaxStencil)
+from mpi_petsc4py_example_tpu.solvers import pc as jax_pc  # noqa: E402
 
 import mpi_petsc4py_example_tpu_torch as pt  # noqa: E402
 from mpi_petsc4py_example_tpu_torch.parallel import mesh  # noqa: E402
 from mpi_petsc4py_example_tpu_torch.facade.drivers.parity import (  # noqa: E402
-    AIJ_OPERATORS, rhs)
+    AIJ_OPERATORS, aij_rhs, configure_eps, refine_rhs, rhs)
+from mpi_petsc4py_example_tpu_torch.models.poisson import (  # noqa: E402
+    poisson3d_csr)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PARITY = (REPO / "mpi_petsc4py_example_tpu_torch" / "facade" / "drivers"
           / "parity.py")
-DRIVER = (REPO / "mpi_petsc4py_example_tpu_torch" / "facade" / "drivers"
-          / "solve_linear.py")
+DRIVERS = REPO / "mpi_petsc4py_example_tpu_torch" / "facade" / "drivers"
+DRIVER = DRIVERS / "solve_linear.py"
 X_TOL = 1e-10
 LAUNCH_TIMEOUT_S = 400
 
@@ -74,10 +91,79 @@ SOLVE_CASES = CG_CASES + MG_CASES + MANY_CASES + AIJ_CASES
 COMM_CASE = dict(name="comm", kind="comm", n=37)
 COLLECTIVES = ["put_fetch", "psum", "pmax", "shift_up", "shift_down",
                "open_up", "open_down", "all_gather", "cols", "replicated"]
-OUT_OF_SLICE = ["EPS", "RefinedKSP", "ShellMat", "NullSpace",
-                "mult_transpose", "petsc_io", "ST", "KSP lsqr", "KSP bicg",
-                "KSP cgne", "PC sor", "PC ssor", "PC ilu", "PC icc",
-                "PC asm", "PC shell", "PC composite"]
+# the rest of the stack on the process communicator, fp64 unless a
+# refinement's inner precision says otherwise
+EPS_CASES = [
+    dict(name="eps_krylovschur_stencil16", kind="eps", op="stencil",
+         grid=[16, 16, 16]),
+    dict(name="eps_lanczos_test2", kind="eps", op="test2",
+         eps_type="lanczos", nev=4, ncv=12, tol=1e-9),
+    dict(name="eps_lapack_ghep", kind="eps", op="p2d8", bop="mass64",
+         ptype="ghep", eps_type="lapack", nev=3, which="smallest_real"),
+    dict(name="eps_krylovschur_ghep", kind="eps", op="p2d8", bop="mass64",
+         ptype="ghep", nev=2, tol=1e-9),
+    dict(name="eps_st_sinvert", kind="eps", op="p1d120", st="sinvert",
+         which="target_magnitude", target=0.0, tol=1e-10),
+    dict(name="eps_st_cayley", kind="eps", op="p1d120", st="cayley",
+         shift=0.0, antishift=1.0, which="target_magnitude", target=0.0,
+         tol=1e-10),
+    dict(name="eps_st_sinvert_ghep", kind="eps", op="p2d8", bop="mass64",
+         ptype="ghep", st="sinvert", which="target_magnitude", target=0.0,
+         tol=1e-9),
+    dict(name="eps_nhep_cfg4", kind="eps", op="cfg4", ptype="nhep", nev=2,
+         which="largest_real")]
+REFINE_CASES = [
+    dict(name="refine_cfg1_f64", kind="refine", op="cfg1", prec="f64"),
+    dict(name="refine_stencil_f32", kind="refine", grid=[16, 16, 16],
+         prec="f32"),
+    dict(name="refine_stencil_bf16", kind="refine", grid=[8, 8, 8],
+         prec="bf16"),
+    dict(name="refine_many_f32", kind="refine", grid=[16, 16, 16],
+         prec="f32", k=3)]
+PC_CASES = [
+    dict(name="pc_sor", kind="aij", op="cfg3", ksp="gmres", pc="sor"),
+    dict(name="pc_ssor", kind="aij", op="cfg4", ksp="bcgs", pc="ssor"),
+    dict(name="pc_ilu", kind="aij", op="cfg4", ksp="bcgs", pc="ilu"),
+    dict(name="pc_icc", kind="aij", op="cfg1", ksp="cg", pc="icc"),
+    dict(name="pc_asm", kind="aij", op="cfg3", ksp="gmres", pc="asm"),
+    dict(name="pc_shell", kind="aij", op="cfg1", ksp="cg", pc="shell"),
+    dict(name="pc_composite_additive", kind="aij", op="cfg3", ksp="gmres",
+         pc="composite", children=["jacobi", "sor"]),
+    dict(name="pc_composite_multiplicative", kind="aij", op="cfg4",
+         ksp="fgmres", pc="composite", ctype="multiplicative",
+         children=["jacobi", "sor"]),
+    dict(name="pc_lu_crtri", kind="aij", op="tri", ksp="preonly", pc="lu",
+         dense_cap=64),
+    dict(name="pc_cholesky_crtri_gmres", kind="aij", op="tri", ksp="gmres",
+         pc="cholesky", dense_cap=64),
+    dict(name="pc_lu_crband", kind="aij", op="band", ksp="preonly",
+         pc="lu", dense_cap=64),
+    dict(name="pc_lu_crband_device_setup", kind="aij", op="band",
+         ksp="preonly", pc="lu", dense_cap=64, setup_device="1")]
+SURFACE_CASES = [
+    dict(name="shellmat_cg_jacobi", kind="aij", op="cfg3", ksp="cg",
+         pc="jacobi", shellmat=True),
+    dict(name="shellmat_lsqr", kind="aij", op="cd12", ksp="lsqr", pc="none",
+         shellmat=True),
+    dict(name="nullspace_cg", kind="aij", op="neumann", ksp="cg",
+         pc="jacobi", nullspace=True),
+    dict(name="nullspace_gmres", kind="aij", op="neumann", ksp="gmres",
+         pc="none", nullspace=True),
+    dict(name="ksp_lsqr_dia_banded", kind="aij", op="cd12", ksp="lsqr",
+         pc="none"),
+    dict(name="ksp_bicg_dia_banded", kind="aij", op="cfg4", ksp="bicg",
+         pc="jacobi"),
+    dict(name="ksp_cgne_ell", kind="aij", op="ell64", ksp="cgne",
+         pc="none"),
+    dict(name="ksp_bicg_dia_gathered", kind="aij", op="far", ksp="bicg",
+         pc="bjacobi"),
+    dict(name="ksp_bicg_lu", kind="aij", op="cfg4", ksp="bicg", pc="lu"),
+    dict(name="mult_t_dia_banded", kind="mult_t", op="cfg4"),
+    dict(name="mult_t_ell", kind="mult_t", op="ell64"),
+    dict(name="mult_t_dia_gathered", kind="mult_t", op="far"),
+    dict(name="petsc_io_roundtrip", kind="io", op="cfg4", ksp="bcgs",
+         pc="jacobi")]
+STACK_CASES = EPS_CASES + REFINE_CASES + PC_CASES + SURFACE_CASES
 
 
 def _env():
@@ -93,12 +179,18 @@ def _runner(*args, timeout=LAUNCH_TIMEOUT_S):
         timeout=timeout)
 
 
+def _io_dir(cases, path):
+    """The cases with the binary round trip's directory set."""
+    return [dict(c, dir=str(path)) if c["kind"] == "io" else c
+            for c in cases]
+
+
 @pytest.fixture(scope="module")
 def worker_results(tmp_path_factory):
     """One launch of 2 processes x 2 local shards for every case."""
     tmp = tmp_path_factory.mktemp("procs")
-    cases = [dict(c, local_shards=2) for c in SOLVE_CASES + [COMM_CASE]]
-    cases.append(dict(name="out_of_slice", kind="out_of_slice"))
+    cases = [dict(c, local_shards=2) for c in _io_dir(
+        SOLVE_CASES + [COMM_CASE] + STACK_CASES, tmp / "io")]
     (tmp / "cases.json").write_text(json.dumps(cases))
     proc = _runner("-n", "2", "--procs", "--device", "cpu", str(PARITY),
                    str(tmp / "cases.json"), str(tmp / "out"))
@@ -113,7 +205,7 @@ def virtual(tmp_path_factory):
     the workers' thread settings (LAPACK's inverses and the CPU's products
     may round differently on another thread count)."""
     tmp = tmp_path_factory.mktemp("virtual")
-    cases = SOLVE_CASES + [COMM_CASE]
+    cases = _io_dir(SOLVE_CASES + [COMM_CASE] + STACK_CASES, tmp / "io")
     (tmp / "cases.json").write_text(json.dumps(cases))
     proc = subprocess.run(
         [sys.executable, str(PARITY), str(tmp / "cases.json"),
@@ -209,13 +301,169 @@ def test_workers_import_no_jax(worker_results):
     assert not any(bool(r["jax_imported"]) for r in worker_results.values())
 
 
-# ---- the rest of the stack raises on several processes ----------------------
+# ---- the rest of the stack: the port's virtual mesh and the JAX package -----
 
-@pytest.mark.parametrize("what", OUT_OF_SLICE)
-def test_out_of_slice_raises_naming_item_4b(worker_results, what):
-    msg = str(worker_results["out_of_slice"][what])
-    assert msg.startswith("NotImplementedError"), msg
-    assert "Queue A item 4b" in msg
+_SCALARS = ("its", "reason", "nconv", "steps", "route", "pc_kind",
+            "loaded_equal")
+
+
+@pytest.mark.parametrize("case", STACK_CASES, ids=lambda c: c["name"])
+def test_stack_case_matches_virtual_mesh(worker_results, virtual, case):
+    """Iterations, restarts, reasons and the route taken equal; every
+    result array (iterate, eigenpairs, errors) bit for bit."""
+    got, want = worker_results[case["name"]], virtual(case)
+    for key in _SCALARS:
+        if key in want:
+            assert str(got[key]) == str(want[key]), key
+    if "reason" in want:
+        assert _reasons(got)[0] > 0
+    for key in ("x", "lam", "err"):
+        if key in want:
+            np.testing.assert_array_equal(got[key], want[key])
+    if case["kind"] == "io":
+        assert bool(got["loaded_equal"])
+    launched = {k: int(v) for k, v in got.items()
+                if k.startswith("launches_")}
+    assert launched == {k: int(v) for k, v in want.items()
+                        if k.startswith("launches_")}
+    calls = {k: int(v) for k, v in got.items() if k.startswith("calls_")}
+    assert calls == {k: int(v) for k, v in want.items()
+                     if k.startswith("calls_")}
+
+
+def _jax_op(comm, case, name, dtype=jnp.float64):
+    if name == "stencil":
+        return JaxStencil(comm, *case["grid"], dtype=dtype)
+    return tps.Mat.from_scipy(comm, AIJ_OPERATORS[name]())
+
+
+def _jax_eps(comm, case):
+    A = _jax_op(comm, case, case["op"])
+    B = _jax_op(comm, case, case["bop"]) if case.get("bop") else None
+    E = tps.EPS().create(comm)
+    E.set_operators(A, B)
+    configure_eps(E, case).solve()
+    return E
+
+
+def _jax_shell_mat(comm, A):
+    Ad = jnp.asarray(A.toarray())
+    return tps.ShellMat(comm, A.shape, lambda v: Ad @ v,
+                        mult_transpose=lambda v: Ad.T @ v,
+                        diagonal=np.asarray(A.diagonal()))
+
+
+def _jax_aij(comm, case, A, tmp_path):
+    if case["kind"] == "io":
+        path = tmp_path / "system.petsc"
+        with open(path, "wb") as f:
+            tps.petsc_io.write_mat(f, A)
+            tps.petsc_io.write_vec(f, rhs(A.shape[0], 3))
+        with open(path, "rb") as f:
+            op = tps.petsc_io.load_mat(f, comm)
+            b = tps.petsc_io.load_vec(f, comm).to_numpy()
+    else:
+        op = (_jax_shell_mat(comm, A) if case.get("shellmat")
+              else tps.Mat.from_scipy(comm, A))
+        b = aij_rhs(case, A)
+    if case.get("nullspace"):
+        op.set_nullspace(tps.NullSpace(constant=True))
+    ksp = tps.KSP().create(comm)
+    ksp.set_type(case["ksp"])
+    pc = ksp.get_pc()
+    pc.set_type(case["pc"])
+    pc.setup_device = case.get("setup_device", "auto")
+    if case["pc"] == "shell":
+        d = jnp.asarray(1.0 / A.diagonal())
+        pc.set_shell_apply(lambda r: d * r)
+    if case["pc"] == "composite":
+        pc.set_composite_type(case.get("ctype", "additive"))
+        pc.set_composite_pcs(*case["children"])
+    ksp.set_tolerances(rtol=case.get("rtol", 1e-8), atol=0.0, max_it=5000)
+    ksp.set_operators(op)
+    x, bv = op.get_vecs()
+    bv.set_global(b)
+    res = ksp.solve(bv, x)
+    return res.iterations, int(res.reason), x.to_numpy(), pc
+
+
+def _jax_refine(comm, case):
+    dt = {"f64": jnp.float64, "f32": jnp.float32,
+          "bf16": jnp.bfloat16}[case["prec"]]
+    if case.get("grid"):
+        A = poisson3d_csr(*case["grid"])
+        inner = JaxStencil(comm, *case["grid"], dtype=dt)
+    else:
+        A, inner = AIJ_OPERATORS[case["op"]](), None
+    rk = tps.RefinedKSP().create(comm)
+    rk.set_inner_precision(case["prec"])
+    rk.set_operators(A, inner_op=inner)
+    rk.set_type("cg")
+    rk.get_pc().set_type("jacobi")
+    rk.set_tolerances(rtol=1e-10)
+    b = refine_rhs(case, A)
+    x, res = rk.solve_many(b) if case.get("k") else rk.solve(b)
+    return rk.refine_steps, res, np.asarray(x)
+
+
+def _assert_close(got, want):
+    scale = max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=X_TOL * scale)
+
+
+@pytest.mark.parametrize("case", STACK_CASES, ids=lambda c: c["name"])
+def test_stack_case_matches_jax_4_devices(worker_results, case, tmp_path,
+                                          monkeypatch):
+    """The JAX package's 4-device mesh on the same problem: iterations,
+    restarts and reasons equal, values within 1e-10 (eigenvectors up to
+    sign, at the 1e-8 of ``tests/test_torch_eps.py`` where a pair is only
+    converged to ``tol``; the f32/bf16 refinements within the bands of
+    ``tests/test_torch_refine.py``)."""
+    got = worker_results[case["name"]]
+    comm = tps.DeviceComm(n_devices=4)
+    if case["kind"] == "eps":
+        monkeypatch.setenv("TPU_SOLVE_EPS_FUSED", "0")   # the host loop
+        E = _jax_eps(comm, case)
+        assert (int(got["its"]), int(got["nconv"]), int(got["reason"])) == (
+            E.get_iteration_number(), E.get_converged(),
+            int(E.result.reason))
+        lam = np.asarray(E._eigenvalues)
+        np.testing.assert_allclose(got["lam"], lam, rtol=X_TOL, atol=0)
+        for i in range(min(E.get_converged(), len(lam))):
+            vj, vp = np.asarray(E._eigenvectors[i]), got["x"][i]
+            s = np.vdot(vp, vj)
+            np.testing.assert_allclose(vp * (s / abs(s)), vj, rtol=0,
+                                       atol=1e-8)
+            assert abs(got["err"][i] - E.compute_error(i)) <= X_TOL
+        return
+    if case["kind"] == "refine":
+        steps, res, x = _jax_refine(comm, case)
+        assert int(got["reason"]) == int(res.reason) > 0
+        its, xp = int(got["its"]), got["x"]
+        if case["prec"] == "f64":
+            assert (int(got["steps"]), its) == (steps, res.iterations)
+            _assert_close(xp, x)
+        elif case["prec"] == "f32":
+            assert int(got["steps"]) == steps
+            assert abs(its - res.iterations) <= steps
+            assert np.linalg.norm(xp - x) <= 1e-9 * np.linalg.norm(x)
+        else:
+            assert abs(int(got["steps"]) - steps) <= 1
+            assert abs(its - res.iterations) <= 0.1 * res.iterations
+        return
+    A = AIJ_OPERATORS[case["op"]]()
+    if case["kind"] == "mult_t":
+        M = tps.Mat.from_scipy(comm, A)
+        v = tps.Vec.from_global(comm, rhs(A.shape[0], 5))
+        _assert_close(got["x"], M.mult_transpose(v).to_numpy())
+        _assert_close(got["x"], A.T @ rhs(A.shape[0], 5))
+        return
+    if case.get("dense_cap"):
+        monkeypatch.setattr(jax_pc, "_DENSE_CAP", case["dense_cap"])
+    its, reason, x, pc = _jax_aij(comm, case, A, tmp_path)
+    assert (int(got["its"]), int(got["reason"])) == (its, reason)
+    assert str(got["pc_kind"]) == pc.kind
+    _assert_close(got["x"], x)
 
 
 # ---- the runner's process mode ------------------------------------------------
@@ -226,6 +474,83 @@ def test_testpy_flow_prints_true(nprocs):
                    str(DRIVER))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.split() == ["True"]
+
+
+@pytest.mark.parametrize("nprocs", [2, 4])
+@pytest.mark.parametrize("driver", ["eigensolve.py", "advanced.py"])
+def test_driver_under_procs_prints_as_threads(driver, nprocs):
+    """The ``test2.py`` flow (its eigenvalue lines) and the advanced tour
+    print under rank processes what they print under thread ranks."""
+    threads = _runner("-n", str(nprocs), "--device", "cpu",
+                      str(DRIVERS / driver))
+    procs = _runner("-n", str(nprocs), "--procs", "--device", "cpu",
+                    str(DRIVERS / driver))
+    assert threads.returncode == 0, threads.stderr[-4000:]
+    assert procs.returncode == 0, procs.stderr[-4000:]
+    assert procs.stdout == threads.stdout
+    lines = threads.stdout.splitlines()
+    if driver == "eigensolve.py":     # the largest of test2.py's matrix
+        assert len(lines) == 1
+        assert abs(complex(lines[0].split()[1]) - 558.404220547427) < 1e-9
+    else:
+        assert [ln.split(" ")[0] for ln in lines] == ["1.", "2.", "3."]
+
+
+EIGENPAIR_DRIVER = """\
+import sys
+import numpy as np
+import slepc4py
+slepc4py.init(sys.argv)
+from mpi4py import MPI
+from petsc4py import PETSc
+from slepc4py import SLEPc
+comm = MPI.COMM_WORLD
+rank, nprocs = comm.Get_rank(), comm.Get_size()
+n = 40
+rs, re = rank * n // nprocs, (rank + 1) * n // nprocs
+rows = np.arange(rs, re)
+indptr = [0]
+indices, data = [], []
+for i in rows:
+    for j, v in ((i - 1, -1.0), (i, 2.0), (i + 1, -1.0)):
+        if 0 <= j < n:
+            indices.append(j)
+            data.append(v)
+    indptr.append(len(indices))
+A = PETSc.Mat().createAIJ(comm=comm, size=(n, n),
+                          csr=(np.array(indptr), np.array(indices),
+                               np.array(data)))
+A.assemble()
+E = SLEPc.EPS().create(comm=comm)
+E.setOperators(A)
+E.setProblemType(SLEPc.EPS.ProblemType.HEP)
+E.solve()
+vr, vi = A.getVecs()
+if rank == 0:                    # rank 0 alone: no collective call
+    lam = E.getEigenpair(0, vr, vi)
+    print(f"{lam.real:.12f} {E.getEigenvalue(0).real:.12f}")
+err = E.computeError(0)          # collective: every rank
+comm.barrier()
+if rank == 0:
+    print(err < 1e-8)
+"""
+
+
+def test_get_eigenpair_on_rank0_alone_does_not_hang(tmp_path):
+    """``getEigenpair`` reads host-replicated pairs: rank 0 calls it alone
+    while the other rank goes on to the next collective, and the run ends
+    well inside the group's timeout; ``computeError`` is collective."""
+    script = tmp_path / "eigenpair.py"
+    script.write_text(EIGENPAIR_DRIVER)
+    t0 = time.monotonic()
+    proc = _runner("-n", "2", "--procs", "--device", "cpu", str(script),
+                   timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert time.monotonic() - t0 < 60 < mesh.TIMEOUT_S
+    lam, again, ok = proc.stdout.split()
+    want = 2 + 2 * np.cos(np.pi / 41)
+    assert lam == again and abs(float(lam) - want) <= 1e-9 * want
+    assert ok == "True"
 
 
 TAGS_DRIVER = """\
