@@ -99,9 +99,21 @@ before each and read just after:
   refinement at 128^3 with f32 and bf16 inner solves, the 128^3 Neumann AIJ
   with a null space, CGNE on ``convdiff2d(1024)`` and PC lu crtri at 2^20);
   the ``test.py`` and ``test2.py`` flows through ``run.py --procs`` at -n 1
-  (NCCL), 2 and 4 (gloo).
+  (NCCL), 2 and 4 (gloo), and the 128^3 f32 CG + Jacobi as cg, pipecg and
+  sstep s = 4 on both (psums and shifts an iteration);
+* the Krylov types of ROADMAP Queue A item 5 (no kernel of their own; they
+  launch rows 1, 2, 9, 2b and 9b): every type at 128^3 f32 with PC jacobi
+  beside cg (iterations, reason, the fp64 true relres held to bench.py's
+  parity rule where the JAX package reaches rtol in f32, warm ms/iter, host
+  syncs, launches, the plain-version path), pipecg also in fp64, richardson
+  and chebyshev at max_it 2000 and on 32^3 fp64; cg, pipecg and sstep s = 4
+  at 512^3 (delta method against the passes counted from the code, peak
+  memory); k = 8 ``solve_many`` with pipecg and sstep (each column against
+  its single solve); bf16 pipecg, sstep and richardson, single and k = 8;
+  cfg4 with the unsymmetric types and cfg3 with lgmres beside gmres(30).
 
-``python3 chip_smoke.py --surface`` builds the kernels, checks the four the
+``python3 chip_smoke.py --ksp-types`` builds the kernels, checks the ones
+the Krylov types launch and runs only their phases. ``python3 chip_smoke.py --surface`` builds the kernels, checks the four the
 surface slice launches, and runs only its phases. ``python3 chip_smoke.py
 --procs`` runs the kernel checks and the process communicator's phases;
 ``python3 chip_smoke.py --procs-cards``, on a host of several cards, runs
@@ -3639,15 +3651,16 @@ def procs_reference(cases, nshards):
     return out
 
 
-def procs_compare(label, got, want, bits=True):
-    """Equal iterations and reasons; the iterate bit for bit (``bits``) or
-    its largest difference reported."""
+def procs_compare(label, got, want, bits=True, converged=True):
+    """Equal iterations and reasons (positive, with ``converged``); the
+    iterate bit for bit (``bits``) or its largest difference reported."""
     its = [int(v) for v in np.atleast_1d(got["its"])]
     its_ref = [int(v) for v in np.atleast_1d(want["its"])]
     reasons = [int(v) for v in np.atleast_1d(got["reason"])]
     check(its == its_ref, f"{label}: iterations {its} != {its_ref}")
     check(reasons == [int(v) for v in np.atleast_1d(want["reason"])]
-          and all(r > 0 for r in reasons), f"{label}: reasons {reasons}")
+          and (all(r > 0 for r in reasons) or not converged),
+          f"{label}: reasons {reasons}")
     diff = (float(np.abs(got["x"].astype(np.float64)
                          - want["x"].astype(np.float64)).max())
             if "x" in got else None)
@@ -3660,6 +3673,57 @@ def procs_compare(label, got, want, bits=True):
 def ms_per_iter(res) -> float:
     its = np.atleast_1d(res["its"])
     return float(res["wall_s"]) / max(int(its.max()), 1) * 1e3
+
+
+def plan_cases(base, prefix, local_shards):
+    """The 128^3 f32 CG + Jacobi case ``base`` as cg, pipecg and sstep s = 4
+    (ROADMAP item 5.2): one reduction an iteration, or a block; max_it 400
+    (unguarded f32 pipecg does not reach rtol, as in the JAX package, and
+    f32 sstep's count turns on rounding: on 4 shards it may not)."""
+    return [dict(base, name=f"{prefix}_{label}", ksp=t, max_it=400,
+                 local_shards=local_shards, time_psum=False, **attrs)
+            for label, t, attrs in (("plan_cg", "cg", {}),
+                                    ("plan_pipecg", "pipecg", {}),
+                                    ("plan_sstep4", "sstep",
+                                     {"sstep_s": 4}))]
+
+
+def procs_plans(label, got, refs, cases, card):
+    """cg/pipecg/sstep on a process comm against ``DeviceComm``: equal
+    iterations and reasons, x bit for bit, psums and ring shifts an
+    iteration (``comm.collectives``), ms an iteration against the
+    virtual mesh's."""
+    out = {}
+    for c in cases:
+        g, r = got[c["name"]], refs[c["name"]]
+        # unguarded f32 pipecg and sstep may stop at max_it: reported
+        its, _ = procs_compare(f"{label} {c['name']}", g, r,
+                               converged=c["ksp"] == "cg")
+        it = max(its[0], 1)
+        psums = int(g["calls_psum"]) / it
+        shifts = int(g["calls_shift"]) / it
+        check(int(g["calls_psum"]) == int(r["calls_psum"])
+              and int(g["calls_shift"]) == int(r["calls_shift"]),
+              f"{label} {c['name']}: collectives differ from DeviceComm's")
+        if c["ksp"] == "pipecg":
+            check(int(g["calls_psum"]) == its[0] + 3,
+                  f"{label} pipecg: {int(g['calls_psum'])} psums for "
+                  f"{its[0]} iterations")
+        out[c["name"]] = {"iterations": its[0],
+                          "reason": int(np.atleast_1d(g["reason"])[0]),
+                          "psums_per_iter": psums,
+                          "shifts_per_iter": shifts,
+                          "host_syncs": int(g["host_syncs"]),
+                          "ms_per_iter": ms_per_iter(g),
+                          "ms_per_iter_virtual": ms_per_iter(r)}
+        log(f"procs {label} {c['name']}: {its[0]} iterations, reason "
+            f"{out[c['name']]['reason']} (= DeviceComm, x bit-equal), "
+            f"{psums:.3f} psums and {shifts:.3f} shifts an iteration, host "
+            f"syncs {int(g['host_syncs'])}, "
+            f"{out[c['name']]['ms_per_iter']:.4f} ms/iter vs "
+            f"{out[c['name']]['ms_per_iter_virtual']:.4f} on the virtual "
+            f"mesh; {card}")
+    return out
 
 
 # the 128^3 fp64 Krylov-Schur of the eigensolver phases, on a process comm
@@ -3795,9 +3859,10 @@ def phase_procs():
     # (a) one process, NCCL, world size 1, 4 local shards
     case_a = dict(cg128, name="a_cg128", local_shards=4)
     eps_a = dict(EPS_PROCS, name="a_eps128", local_shards=4)
-    refs_a = procs_reference([case_a, eps_a], 4)
+    plans_a = plan_cases(cg128, "a", 4)
+    refs_a = procs_reference([case_a, eps_a] + plans_a, 4)
     ref = refs_a["a_cg128"]
-    got_a, wall = parity_launch(1, [case_a, eps_a])
+    got_a, wall = parity_launch(1, [case_a, eps_a] + plans_a)
     got = got_a["a_cg128"]
     its, _ = procs_compare("(a) 128^3 CG+jacobi, nccl 1 x 4", got, ref)
     check(str(got["backend"]) == "nccl", f"(a) backend {got['backend']}")
@@ -3820,6 +3885,8 @@ def phase_procs():
         f"us (ended by a host read); {card}")
     out["a"]["eps"] = procs_eps("procs (a) nccl 1 x 4", got_a["a_eps128"],
                                 refs_a["a_eps128"], 4, card)
+    out["a"]["plans"] = procs_plans("(a) nccl 1 x 4", got_a, refs_a,
+                                    plans_a, card)
     # (b) two processes over gloo, 2 shards each, against DeviceComm(4);
     # (c) rides the same launch: 512^3 on 2 processes x 1 shard
     cases_b = [dict(cg128, name="b_cg128", local_shards=2),
@@ -3849,9 +3916,10 @@ def phase_procs():
     case_c = dict(kind="cg", name="c_cg512", grid=[512] * 3, pc="jacobi",
                   dtype="f32", rtol=PROCS_RTOL, local_shards=1,
                   true_res=True, keep_x=False, time_psum=True)
-    refs = procs_reference(cases_b + stack_b, 4)
+    plans_b = plan_cases(cg128, "b", 2)
+    refs = procs_reference(cases_b + stack_b + plans_b, 4)
     ref_c = procs_reference([case_c], 2)["c_cg512"]
-    got, wall = parity_launch(2, cases_b + stack_b + [case_c],
+    got, wall = parity_launch(2, cases_b + stack_b + plans_b + [case_c],
                               backend="gloo")
     out["b"] = {"launch_wall_s": wall}
     for c in cases_b:
@@ -3890,6 +3958,8 @@ def phase_procs():
             f"{int(g['host_copies_total'])}, launches of rank 0 {launched}; "
             f"{card}")
     one = "gloo on ONE card: a comparison, not scaling"
+    out["b"]["plans"] = procs_plans(f"(b) gloo 2 x 2 ({one})", got, refs,
+                                    plans_b, card)
     out["b"]["eps"] = procs_eps(f"procs (b) gloo 2 x 2 ({one})",
                                 got["b_eps128"],
                                 refs["b_eps128"], 2, card)
@@ -3997,9 +4067,12 @@ def phase_procs_cards():
              dict(kind="comm", name="comm", n=1000),
              dict(EPS_PROCS, name="eps128")]
     cases = [dict(c, local_shards=1) for c in cases]
-    refs = procs_reference(cases, cards)
-    got, wall = parity_launch(cards, cases, backend="nccl")
+    plans = plan_cases(cases[0], "cards", 1)
+    refs = procs_reference(cases + plans, cards)
+    got, wall = parity_launch(cards, cases + plans, backend="nccl")
     out = {"card": card, "cards": cards, "launch_wall_s": wall}
+    out["plans"] = procs_plans(f"--procs-cards NCCL {cards} x 1", got, refs,
+                               plans, card)
     for c in cases:
         g, r = got[c["name"]], refs[c["name"]]
         check(str(g["backend"]) == "nccl", f"backend {g['backend']}")
@@ -4050,6 +4123,423 @@ def phase_procs_cards():
     out["test2py_wall_s"] = wall
     log(f"procs-cards test2.py flow -n {cards} --procs (NCCL): printed "
         f"{stdout.strip()}, {wall:.1f} s; {card}")
+    return out
+
+
+# ---- the Krylov types of ROADMAP Queue A item 5 (--ksp-types) ---------------
+
+KSP_RTOL = 1e-6
+# the 128^3 f32 runs beside cg: (label, type, KSP attributes, parity). The
+# parity rule is asserted where the JAX package reaches rtol in f32 too
+# (ROADMAP.md Queue C): unguarded pipecg and fbcgsr stagnate or diverge in
+# f32 there, and sstep's s = 8 monomial basis (~kappa^4) loses f32; they run
+# to KSP_MAX_IT_REPORTED and are reported. minres and symmlq judge their
+# reason on the f32 true residual, which may sit just above rtol.
+KSP_TYPE_RUNS = [
+    ("cg", "cg", {}, True), ("pipecg", "pipecg", {}, False),
+    ("sstep s=4", "sstep", {"sstep_s": 4}, True),
+    ("sstep s=8", "sstep", {"sstep_s": 8}, False),
+    ("cr", "cr", {}, True), ("fcg", "fcg", {}, True),
+    ("minres", "minres", {}, True), ("symmlq", "symmlq", {}, True),
+    ("gcr", "gcr", {}, True), ("cgs", "cgs", {}, True),
+    ("tfqmr", "tfqmr", {}, True), ("bcgsl", "bcgsl", {}, True),
+    ("fbcgs", "fbcgs", {}, True), ("fbcgsr", "fbcgsr", {}, False)]
+KSP_MAX_IT = 2000
+# the cap of the runs that stagnate in f32 (reported, not held to rtol)
+KSP_MAX_IT_REPORTED = 1000
+# vector passes an iteration of the f32 Jacobi solves at 512^3, counted from
+# the code (each operand read once, each result written once; the stencil
+# apply 2): cg's fast path 14 (Adot 2, x and r updates 3 each, <r, r> 1,
+# p = r/d + beta p 5); pipecg's fast path 33 (the fused dots 5, m = w/d 2,
+# n = A m 2, V's four addcmul rows 12, S's one addcmul over four rows 12);
+# sstep s = 4, a block of 4 (the basis: 7 applies 14, 8 Jacobi applies 24,
+# 17 row copies 34; the Gram read 19; three combinations 9 + 1 and two
+# updates 3: 39), 131 / 4
+KSP_PASSES = {"cg": 14, "pipecg": 33, "sstep": 131 / 4}
+
+
+def ksp_solver(comm, op, ksp_type, rtol=KSP_RTOL, max_it=20000,
+               pc="jacobi", norm_none=False, **attrs):
+    import mpi_petsc4py_example_tpu_torch as pt
+    ksp = pt.KSP().create(comm)
+    ksp.set_operators(op)
+    ksp.set_type(ksp_type)
+    ksp.get_pc().set_type(pc)
+    ksp.set_tolerances(rtol=rtol, atol=0.0, max_it=max_it)
+    for k, v in attrs.items():
+        setattr(ksp, k, v)
+    if norm_none:
+        ksp.set_norm_type("none")
+    return ksp
+
+
+def card_relres(comm, nx, b_data, x_data):
+    """The fp64 true relative residual of ``x`` on the card, with the fp64
+    stencil (columns of a ``(1, k, n)`` block each their own)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    op64 = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    n = nx ** 3
+    X = x_data.double().reshape(-1, n)
+    B = b_data.double().reshape(-1, n)
+    out = []
+    for j in range(X.shape[0]):
+        ax = op64.mult(pt.Vec(comm, n, data=X[j].contiguous())).data
+        out.append(float(torch.linalg.vector_norm(B[j] - ax)
+                         / torch.linalg.vector_norm(B[j])))
+    return out
+
+
+def phase_ksp_types_128(card, oracle=None):
+    """128^3 f32 stencil, PC jacobi, rtol 1e-6 (bench.py's headline): every
+    type of KSP_TYPE_RUNS beside cg, counters zeroed just before each
+    solve, the fp64 true relres against scipy's fp64 CG (bench.py:334), the
+    warm ms an iteration, host syncs, launches of rows 1 and 2, and the
+    plain-version path's iterations (within 2%); pipecg also in fp64 (it
+    converges there, with the parity rule); richardson and chebyshev at
+    max_it 2000 (Jacobi's spectral radius cos(pi/129) keeps them from rtol)
+    and on 32^3 fp64, where both converge. ``oracle`` is the main path's
+    (its scipy residual for the same ``b``), or None to solve it here."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    nx = 128
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    if oracle is not None and oracle["nx"] == nx:
+        r_sc = oracle["r_cpu"] / oracle["bnorm"]
+    else:
+        A = pt.poisson3d_csr(nx).astype(np.float64)
+        t0 = time.perf_counter()
+        x_cpu, info = scipy_cg(A, b.astype(np.float64), KSP_RTOL)
+        bb = b.astype(np.float64)
+        r_sc = float(np.linalg.norm(bb - A @ x_cpu) / np.linalg.norm(bb))
+        log(f"ksp-types: scipy fp64 CG+jacobi oracle at {nx}^3: info "
+            f"{info}, relres {r_sc:.3e} ({time.perf_counter() - t0:.1f} s)")
+    limit = 10 * max(r_sc, KSP_RTOL)
+    out = {"scipy_relres": r_sc}
+    runs = [(lbl, t, a, par, torch.float32) for lbl, t, a, par in
+            KSP_TYPE_RUNS] + [("pipecg fp64", "pipecg", {}, True,
+                               torch.float64),
+                              ("cg fp64", "cg", {}, True, torch.float64)]
+    ops = {torch.float32: op}
+    for label, t, attrs, parity, dt in runs:
+        if dt not in ops:
+            ops[dt] = pt.StencilPoisson3D(comm, nx, dtype=dt)
+        o = ops[dt]
+        ksp = ksp_solver(comm, o, t, max_it=KSP_MAX_IT if parity
+                         else KSP_MAX_IT_REPORTED, **attrs)
+        x, bv = o.get_vecs()
+        bv.set_global(b)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = ksp.solve(bv, x)
+        launches = {"stencil7_apply": st.stencil3d_apply.launches,
+                    "stencil7_dot": st.stencil3d_dot.launches}
+        rel = card_relres(comm, nx, bv.data, x.data)[0]
+        x.zero()
+        warm = ksp.solve(bv, x)
+        o.force_plain = True
+        xp, _ = o.get_vecs()
+        plain = ksp.solve(bv, xp)
+        o.force_plain = False
+        ms = warm.wall_time / max(warm.iterations, 1) * 1e3
+        out[label] = {"iterations": res.iterations, "reason": res.reason_name,
+                      "relres": rel, "ms_per_iter": ms,
+                      "host_syncs": res.host_syncs, "launches": launches,
+                      "plain_iterations": plain.iterations}
+        log(f"ksp-types {nx}^3 {str(dt)[6:]} {label}+jacobi: "
+            f"{res.iterations} iterations, {res.reason_name}, fp64 true "
+            f"relres {rel:.3e} (scipy {r_sc:.3e}, limit {limit:.1e}"
+            f"{'' if parity else ', reported'}), warm {ms:.4f} ms/iter, "
+            f"host syncs {res.host_syncs}, launches {launches}, plain path "
+            f"{plain.iterations} iterations; {card}")
+        check(abs(plain.iterations - res.iterations)
+              <= 0.02 * res.iterations,
+              f"ksp-types {label}: plain path {plain.iterations} vs kernels "
+              f"{res.iterations}")
+        if parity:
+            check(rel <= limit, f"ksp-types {label}: relres {rel} > {limit}")
+        if t == "cg":
+            check(launches["stencil7_dot"] == res.iterations + 1,
+                  f"ksp-types {label}: dot launches {launches}")
+        else:
+            check(launches["stencil7_apply"] > 0 and
+                  launches["stencil7_dot"] == 0,
+                  f"ksp-types {label}: launches {launches}")
+        if t == "pipecg":
+            check(launches["stencil7_apply"] == res.iterations + 3,
+                  f"ksp-types pipecg: apply launches {launches} != "
+                  f"iterations + 3")
+            check(res.host_syncs == res.iterations + 2,
+                  f"pipecg host syncs {res.host_syncs}")
+        if t == "sstep":
+            blocks = res.host_syncs - 2
+            s = attrs["sstep_s"]
+            check(launches["stencil7_apply"] == 2 + (2 * s - 1) * blocks,
+                  f"ksp-types {label}: apply launches {launches} != 2 + "
+                  f"{2 * s - 1} x {blocks} blocks")
+            out[label]["blocks"] = blocks
+    # the stationary types
+    for t in ("richardson", "chebyshev"):
+        ksp = ksp_solver(comm, op, t, max_it=KSP_MAX_IT)
+        x, bv = op.get_vecs()
+        bv.set_global(b)
+        reset_launches()
+        res = ksp.solve(bv, x)
+        apply = st.stencil3d_apply.launches
+        rel = card_relres(comm, nx, bv.data, x.data)[0]
+        o32 = pt.StencilPoisson3D(comm, 32, dtype=torch.float64)
+        b32 = o32.mult(pt.Vec.from_global(
+            comm, np.random.default_rng(7).random(32 ** 3))).data
+        k32 = ksp_solver(comm, o32, t, max_it=6000)
+        x32, bv32 = o32.get_vecs()
+        bv32.data = b32.clone()
+        r32 = k32.solve(bv32, x32)
+        rel32 = card_relres(comm, 32, b32, x32.data)[0]
+        out[t] = {"iterations": res.iterations, "reason": res.reason_name,
+                  "relres": rel, "stencil7_apply": apply,
+                  "ms_per_iter": res.wall_time / res.iterations * 1e3,
+                  "at_32_f64": [r32.iterations, r32.reason_name, rel32]}
+        log(f"ksp-types {nx}^3 f32 {t}+jacobi, max_it {KSP_MAX_IT}: "
+            f"{res.iterations} iterations, {res.reason_name}, fp64 true "
+            f"relres {rel:.3e}, {out[t]['ms_per_iter']:.4f} ms/iter, "
+            f"stencil7_apply {apply}; 32^3 fp64: {r32.iterations} "
+            f"iterations, {r32.reason_name}, relres {rel32:.3e}; {card}")
+        check(apply > 0, f"{t}: stencil7_apply never launched")
+        check(r32.converged and rel32 <= 10 * KSP_RTOL,
+              f"{t} at 32^3 fp64: {r32}, relres {rel32}")
+    return out
+
+
+def phase_ksp_types_512(card):
+    """512^3 f32 (cfg5's grid), PC jacobi, rtol 1e-6: cg, pipecg and sstep
+    s = 4 to rtol or max_it 600 (fp64 true relres; cg's held to 10 rtol,
+    the other two, which stagnate in f32, reported), then the delta-method
+    ms an iteration against the passes counted from the code over the
+    11-pass bound; host syncs, launches, peak memory."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    nx = 512
+    n = nx ** 3
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bv = op.mult(pt.Vec(comm, n, data=torch.rand(
+        n, generator=g, device="cuda", dtype=torch.float32)))
+    x, _ = op.get_vecs()
+    pass_ms = n * 4 / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for label, t, attrs in (("cg", "cg", {}), ("pipecg", "pipecg", {}),
+                            ("sstep s=4", "sstep", {"sstep_s": 4})):
+        ksp = ksp_solver(comm, op, t, max_it=600 if t != "cg" else 1200,
+                         **attrs)
+        x.zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = ksp.solve(bv, x)
+        launches = {"stencil7_apply": st.stencil3d_apply.launches,
+                    "stencil7_dot": st.stencil3d_dot.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rel = card_relres(comm, nx, bv.data, x.data)[0]
+        torch.cuda.empty_cache()
+        solvers = {m: ksp_solver(comm, op, t, 0.0, max_it=m, norm_none=True,
+                                 **attrs) for m in (20, 220)}
+        per, samples = delta_per_iter(solvers, bv, x)
+        passes = KSP_PASSES[t]
+        bound = passes * pass_ms
+        out[label] = {"iterations": res.iterations, "reason": res.reason_name,
+                      "relres": rel, "ms_per_iter": per * 1e3,
+                      "samples_ms": [s * 1e3 for s in samples],
+                      "host_syncs": res.host_syncs, "launches": launches,
+                      "peak_gib": peak, "passes": passes,
+                      "passes_bound_ms": bound}
+        log(f"ksp-types 512^3 f32 {label}+jacobi: {res.iterations} "
+            f"iterations, {res.reason_name}, fp64 true relres {rel:.3e}, "
+            f"delta method {per * 1e3:.4f} ms/iter (samples "
+            f"{[round(s * 1e3, 4) for s in samples]}), {passes:.2f} passes "
+            f"an iteration counted from the code: bound {bound:.4f} ms "
+            f"({bound / (per * 1e3) * 100:.1f}% of it reached; the 11-pass "
+            f"bound {11 * pass_ms:.4f}), host syncs {res.host_syncs}, "
+            f"launches {launches}, peak {peak:.2f} GiB; {card}")
+        check(launches["stencil7_apply"] + launches["stencil7_dot"] > 0,
+              f"512^3 {label}: no kernel launched")
+        if t == "cg":
+            check(res.converged and rel <= 10 * KSP_RTOL,
+                  f"512^3 {label}: {res}, relres {rel}")
+    out["pipecg_over_cg"] = (out["pipecg"]["ms_per_iter"]
+                             / out["cg"]["ms_per_iter"])
+    out["sstep_over_cg"] = (out["sstep s=4"]["ms_per_iter"]
+                            / out["cg"]["ms_per_iter"])
+    return out
+
+
+def phase_ksp_types_many(card, k=K_BATCH):
+    """128^3 f32, k = 8 right-hand sides (bench.py's batched block) through
+    ``solve_many`` with pipecg and sstep s = 4, PC jacobi on the operator:
+    counters zeroed just before; every column's fp64 true relres (the
+    parity rule against scipy's CG, whose own stopping test holds its
+    residual at rtol), row 9 launches per lockstep, each column's
+    iterations within 2% of its single solve."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    nx = 128
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    B, cols = bench_block(comm, op, b, k)
+    out = {}
+    for label, t, attrs, parity in (("pipecg", "pipecg", {}, False),
+                                    ("sstep s=4", "sstep", {"sstep_s": 4},
+                                     True)):
+        ksp = ksp_solver(comm, op, t, max_it=KSP_MAX_IT if parity
+                         else KSP_MAX_IT_REPORTED, **attrs)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = ksp.solve_many(B)
+        many = st.stencil3d_apply_many.launches
+        single = st.stencil3d_apply.launches
+        X = torch.tensor(res.X.T.copy(), device="cuda")
+        rels = card_relres(comm, nx, torch.tensor(B.T.copy(), device="cuda"),
+                           X)
+        seq = []
+        for j, bj in enumerate(cols):
+            x, _ = op.get_vecs()
+            seq.append(ksp.solve(bj, x).iterations)
+        lock = max(res.iterations)
+        out[label] = {"iterations": res.iterations, "sequential": seq,
+                      "reasons": [int(r) for r in res.reasons],
+                      "relres": rels, "stencil7_apply_many": many,
+                      "lockstep_iterations": lock,
+                      "host_syncs": res.host_syncs,
+                      "ms_per_lockstep": res.wall_time / lock * 1e3}
+        log(f"ksp-types {nx}^3 f32 k={k} solve_many {label}+jacobi: "
+            f"iterations {res.iterations} (sequential {seq}), reasons "
+            f"{out[label]['reasons']}, fp64 true relres "
+            f"{[f'{r:.2e}' for r in rels]}, stencil7_apply_many {many} "
+            f"({many / lock:.3f} a lockstep iteration), stencil7_apply "
+            f"{single}, host syncs {res.host_syncs}, "
+            f"{out[label]['ms_per_lockstep']:.4f} ms a lockstep; {card}")
+        check(many > 0 and single == 0,
+              f"k={k} {label}: launches many {many} single {single}")
+        for j in range(k):
+            check(abs(seq[j] - res.iterations[j]) <= 0.02 * seq[j],
+                  f"k={k} {label} column {j}: {res.iterations[j]} vs "
+                  f"sequential {seq[j]}")
+            if parity:
+                check(rels[j] <= 10 * KSP_RTOL,
+                      f"k={k} {label} column {j}: relres {rels[j]}")
+        if t == "pipecg":
+            check(many == lock + 3, f"pipecg k={k}: apply_many {many} != "
+                                    f"lockstep iterations + 3")
+    return out
+
+
+def phase_ksp_types_bf16(card, k=K_BATCH):
+    """bf16 storage at 128^3 (fp32 reductions), rtol 4 eps_bf16: pipecg (its
+    fast path, row 2b), sstep s = 4 and richardson (row 2b), and pipecg and
+    sstep with k = 8 through ``solve_many`` (row 9b): reasons, iterations
+    and launches. Unguarded bf16 pipecg may stagnate, as in the JAX package
+    (its drift bound is the guard, item 6): reported."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    nx, rtol = 128, 4 * 2.0 ** -7
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.bfloat16)
+    out = {}
+    for label, t, attrs in (("pipecg", "pipecg", {}),
+                            ("sstep s=4", "sstep", {"sstep_s": 4}),
+                            ("richardson", "richardson", {})):
+        ksp = ksp_solver(comm, op, t, rtol=rtol, max_it=KSP_MAX_IT, **attrs)
+        x, bv = op.get_vecs()
+        bv.set_global(b)
+        reset_launches()
+        res = ksp.solve(bv, x)
+        row2b = st.stencil3d_apply.launches_bf16
+        rel = card_relres(comm, nx, bv.data, x.data)[0]
+        out[label] = {"iterations": res.iterations, "reason": res.reason_name,
+                      "relres": rel, "stencil7_apply_bf16": row2b}
+        log(f"ksp-types {nx}^3 bf16 {label}+jacobi rtol {rtol:g}: "
+            f"{res.iterations} iterations, {res.reason_name}, fp64 true "
+            f"relres {rel:.3e}, row 2b launches {row2b}; {card}")
+        check(row2b > 0, f"bf16 {label}: row 2b never launched")
+    B, _ = bench_block(comm, op, b, k)
+    for label, t, attrs in (("pipecg k=8", "pipecg", {}),
+                            ("sstep s=4 k=8", "sstep", {"sstep_s": 4})):
+        ksp = ksp_solver(comm, op, t, rtol=rtol, max_it=KSP_MAX_IT, **attrs)
+        reset_launches()
+        res = ksp.solve_many(B)
+        row9b = st.stencil3d_apply_many.launches_bf16
+        out[label] = {"iterations": res.iterations,
+                      "reasons": [int(r) for r in res.reasons],
+                      "stencil7_apply_many_bf16": row9b}
+        log(f"ksp-types {nx}^3 bf16 {label} solve_many: iterations "
+            f"{res.iterations}, reasons {out[label]['reasons']}, row 9b "
+            f"launches {row9b}; {card}")
+        check(row9b > 0, f"bf16 {label}: row 9b never launched")
+    return out
+
+
+def phase_ksp_types_aij(card):
+    """cfg4 (``convdiff2d(256, beta=0.4)``, PC bjacobi, f32, rtol 1e-6;
+    benchmarks/run_all.py:521-549) with the unsymmetric types, and cfg3
+    (``poisson2d(512)``, PC jacobi, :497-518) with lgmres beside
+    gmres(30): iterations, fp64 true relres and warm wall."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.models.generators import convdiff2d
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson2d_csr
+    comm = pt.DeviceComm()
+    out = {"cfg4": {}, "cfg3": {}}
+    for cfg, A, pc, runs in (
+            ("cfg4", convdiff2d(256, beta=0.4), "bjacobi",
+             [("bcgs", "bcgs", {}), ("fbcgs", "fbcgs", {}),
+              ("fbcgsr", "fbcgsr", {}), ("bcgsl ell=2", "bcgsl", {}),
+              ("bcgsl ell=3", "bcgsl", {"bcgsl_ell": 3}),
+              ("cgs", "cgs", {}), ("tfqmr", "tfqmr", {}), ("gcr", "gcr", {}),
+              ("lgmres", "lgmres", {})]),
+            ("cfg3", poisson2d_csr(512), "jacobi",
+             [("gmres(30)", "gmres", {}), ("lgmres(30, 2)", "lgmres", {})])):
+        b = manufactured(A)
+        m, _ = assemble(comm, A, torch.float32)
+        bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
+        for label, t, attrs in runs:
+            # fbcgsr stagnates in f32 on cfg4: capped
+            ksp = ksp_solver(comm, m, t, pc=pc, max_it=40000 if cfg == "cfg3"
+                             else KSP_MAX_IT, **attrs)
+            x, _ = m.get_vecs()
+            first = ksp.solve(bv, x)
+            x.zero()
+            res = ksp.solve(bv, x)
+            rel = true_relres(A, x.to_numpy(), b)
+            out[cfg][label] = {"iterations": res.iterations,
+                               "reason": res.reason_name, "relres": rel,
+                               "wall_s": res.wall_time,
+                               "host_syncs": res.host_syncs}
+            log(f"ksp-types {cfg} f32 {label}+{pc}: {res.iterations} "
+                f"iterations, {res.reason_name}, fp64 true relres "
+                f"{rel:.3e}, wall {res.wall_time:.3f} s (first "
+                f"{first.wall_time:.3f} s), host syncs {res.host_syncs}; "
+                f"{card}")
+            check(res.iterations > 0, f"{cfg} {label}: no iteration")
+    return out
+
+
+def phase_ksp_types(oracle=None):
+    """The Krylov types of ROADMAP Queue A item 5 (5.1 and 5.2) on the card;
+    no kernel of their own: they launch rows 1, 2, 9, 2b and 9b."""
+    card = card_line()
+    t0 = time.perf_counter()
+    out = {"card": card, "128": phase_ksp_types_128(card, oracle),
+           "512": phase_ksp_types_512(card),
+           "many": phase_ksp_types_many(card),
+           "bf16": phase_ksp_types_bf16(card),
+           "aij": phase_ksp_types_aij(card)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"ksp-types phases: {out['wall_s']:.1f} s")
     return out
 
 
@@ -4144,6 +4634,18 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--ksp-types"]:
+        # only the Krylov types' phases, behind the checks of the kernels
+        # they launch (rows 1, 2, 9, 2b and 9b)
+        phase_kernel_checks()
+        phase_many_kernel_checks()
+        phase_bf16_kernel_checks()
+        print(json.dumps({"ksp_types": phase_ksp_types()}, default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -4193,6 +4695,22 @@ def main():
     # the process communicator: rows 1-10 per local shard in rank processes
     procs = phase_procs()
     print(json.dumps({"procs": procs}))
+    # the Krylov types of item 5: rows 1, 2, 9, 2b and 9b
+    ksp_types = phase_ksp_types(oracle)
+    print(json.dumps({"ksp_types": ksp_types}, default=float))
+    ksp_launches = {
+        "stencil7_apply": (
+            ksp_types["128"]["pipecg"]["launches"]["stencil7_apply"],
+            f"128^3 f32 pipecg+jacobi (max_it {KSP_MAX_IT_REPORTED})"),
+        "stencil7_apply_many": (
+            ksp_types["many"]["pipecg"]["stencil7_apply_many"],
+            f"128^3 f32 k={K_BATCH} solve_many pipecg+jacobi"),
+        "stencil7_apply_bf16": (
+            ksp_types["bf16"]["pipecg"]["stencil7_apply_bf16"],
+            "128^3 bf16 pipecg+jacobi"),
+        "stencil7_apply_many_bf16": (
+            ksp_types["bf16"]["pipecg k=8"]["stencil7_apply_many_bf16"],
+            f"128^3 bf16 k={K_BATCH} solve_many pipecg+jacobi")}
     surface_launches = {
         "stencil7_dot": (surface["monitor"]["stencil7_dot_launches"],
                          "128^3 CG+jacobi, monitored"),
@@ -4257,6 +4775,13 @@ def main():
             check(count_s > 0, f"{name} was not launched on {path_s}")
             kernels[-1]["launches_surface"] = count_s
             kernels[-1]["path_surface"] = path_s
+    for entry in kernels + bf16_entries:
+        if entry["name"] in ksp_launches:
+            count_k, path_k = ksp_launches[entry["name"]]
+            check(count_k > 0, f"{entry['name']} was not launched on "
+                               f"{path_k}")
+            entry["launches_ksp_types"] = count_k
+            entry["path_ksp_types"] = path_k
     for entry in bf16_entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on "
                                      f"its path ({entry['path']})")

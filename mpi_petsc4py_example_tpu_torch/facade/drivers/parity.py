@@ -125,15 +125,35 @@ def _counts() -> dict:
     return out
 
 
+def _called(comm, before: dict) -> dict:
+    """``calls_<collective>``: the communicator's calls since ``before``."""
+    return {f"calls_{k}": v - before[k] for k, v in comm.collectives.items()}
+
+
 def _launched(before: dict) -> dict:
     """``launches_<wrapper>``: the launches since ``before``."""
     after = _counts()
     return {f"launches_{k}": after[k] - before[k] for k in after}
 
 
+# a case's Krylov parameters: key -> the KSP attribute it sets
+_KSP_PARAMS = {"sstep_s": "sstep_s", "restart": "restart",
+               "aug": "lgmres_augment", "ell": "bcgsl_ell"}
+
+
+def configure_ksp(ksp, case):
+    """``case``'s KSP type (``ksp``, default cg) and its parameters
+    (``sstep_s``, ``restart``, ``aug``, ``ell``) on ``ksp``, a KSP of
+    either package (their attributes are the same); returns ``ksp``."""
+    ksp.set_type(case.get("ksp", "cg"))
+    for key, attr in _KSP_PARAMS.items():
+        if key in case:
+            setattr(ksp, attr, int(case[key]))
+    return ksp
+
+
 def _stencil_ksp(comm, case, op):
-    ksp = pt.KSP().create(comm)
-    ksp.set_type("cg")
+    ksp = configure_ksp(pt.KSP().create(comm), case)
     ksp.get_pc().set_type(case.get("pc", "jacobi"))
     ksp.set_tolerances(rtol=case.get("rtol", 1e-8), atol=0.0,
                        max_it=case.get("max_it", 10000))
@@ -176,14 +196,15 @@ def _case_cg(comm, case):
     for rep in range(int(case.get("repeat", 1))):
         x = op.get_vecs()[0]
         _sync(comm)
-        before = _counts()
+        before, calls = _counts(), dict(comm.collectives)
         copies = getattr(comm, "host_copies", 0)
         res = ksp.solve(b, x)
         _sync(comm)
         out = {"its": res.iterations, "reason": int(res.reason),
                "rnorm": res.residual_norm, "wall_s": res.wall_time,
+               "host_syncs": res.host_syncs,
                "host_copies": getattr(comm, "host_copies", 0) - copies,
-               **_launched(before)}
+               **_launched(before), **_called(comm, calls)}
     if case.get("true_res"):
         out["true_res"], out["bnorm"] = _true_residual(comm, geometry, b, x)
     if case.get("time_psum"):
@@ -211,13 +232,14 @@ def _case_many(comm, case):
                                                    dtype=dt))
     ksp = _stencil_ksp(comm, case, op)
     _sync(comm)
-    before = _counts()
+    before, calls = _counts(), dict(comm.collectives)
     res = ksp.solve_many(B)
     _sync(comm)
     return {"its": np.asarray(res.iterations),
             "reason": np.asarray([int(r) for r in res.reasons]),
             "x": np.asarray(res.X), "wall_s": res.wall_time,
-            **_launched(before)}
+            "host_syncs": res.host_syncs, **_launched(before),
+            **_called(comm, calls)}
 
 
 class _DenseCap:
@@ -276,8 +298,7 @@ def _case_aij(comm, case):
           else pt.Mat.from_scipy(comm, A))
     if case.get("nullspace"):
         op.set_nullspace(pt.NullSpace(constant=True))
-    ksp = pt.KSP().create(comm)
-    ksp.set_type(case["ksp"])
+    ksp = configure_ksp(pt.KSP().create(comm), case)
     _setup_pc(comm, ksp.get_pc(), case, A)
     ksp.set_tolerances(rtol=case.get("rtol", 1e-8), atol=0.0,
                        max_it=case.get("max_it", 5000))
@@ -453,13 +474,14 @@ def run_case(comm, case: dict) -> dict:
     """Run ``case`` on ``comm`` and return its results as plain values.
 
     ``case["kind"]`` is 'comm' (every collective on a seeded vector of
-    ``n`` rows), 'cg' (stencil CG on ``grid`` with ``pc`` none/jacobi/mg,
+    ``n`` rows), 'cg' (a stencil solve on ``grid`` with ``pc``
+    none/jacobi/mg, KSP ``ksp``, CG by default,
     ``dtype`` f64/f32, ``rtol``; ``true_res`` adds the fp64 true residual,
     ``repeat`` solves again and reports the last, ``time_psum`` adds
     :func:`psum_us`, and for gloo on the card also ``psum_host_us``, the
     same group's psum of host tensors), 'many' (``solve_many``
-    of ``k`` columns, ``route`` 'fast' or 'general'), 'aij' (``ksp``
-    with ``pc`` on the assembled operator ``op`` of
+    of ``k`` columns, ``route`` 'fast' or 'general', KSP ``ksp``), 'aij'
+    (``ksp`` with ``pc`` on the assembled operator ``op`` of
     :data:`AIJ_OPERATORS`; ``gate`` turns on the true-residual gate,
     ``setup_device`` is the PC's ``-pc_setup_device``, ``dense_cap``
     lowers PC lu's dense cap, ``shellmat`` wraps the operator in a
@@ -472,7 +494,11 @@ def run_case(comm, case: dict) -> dict:
     ``eps_type``, ``which``, ``nev``, ``ncv``, ``tol``, ``max_it``,
     ``target``, ``st``, ``shift``, ``antishift``) or 'refine'
     (``RefinedKSP`` at inner precision ``prec`` on the stencil of ``grid``
-    or on ``op``, CG with ``pc``; ``k`` columns through ``solve_many``)."""
+    or on ``op``, CG with ``pc``; ``k`` columns through ``solve_many``).
+    The solve kinds take the Krylov parameters ``sstep_s``, ``restart``,
+    ``aug`` and ``ell`` (:func:`configure_ksp`), and 'cg' and 'many' report
+    the solve's host syncs and its collective calls (``calls_psum``,
+    ``calls_shift``, ...)."""
     return _KINDS[case["kind"]](comm, case)
 
 

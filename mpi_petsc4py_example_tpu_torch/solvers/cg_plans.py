@@ -1,11 +1,14 @@
-"""The classic CG recurrence, assembled from an operator plan and a PC plan.
+"""The CG recurrences, assembled from an operator plan and a PC plan.
 
 The port's counterpart of the unguarded part of
 ``mpi_petsc4py_example_tpu/solvers/cg_plans.py``: ``classic_cg_loop`` (``:326``)
 with ``_dmax``/``_tol``/``_reason`` (``:108-139``), the batching plan
-``ManyBatch`` (``:236-257``; one RHS needs no plan) and the precision plan
-``PrecisionPlan``/``precision_plan``/``_stc`` (``:48-100``). Two plan
-routes:
+``ManyBatch`` (``:236-257``; one RHS needs no plan), the precision plan
+``PrecisionPlan``/``precision_plan``/``_stc`` (``:48-100``), and the
+single-reduction plans of the end of this module, ``pipelined_cg_loop``
+(``:614``) and ``sstep_cg_loop`` (``:854``) with ``_sstep_shift``
+(``:840``), each for one RHS and under ``ManyBatch``. The classic loop's
+two plan routes:
 
 * the general route: an operator apply ``A`` and a preconditioner apply ``M``
   (``z = M r`` materialized, ``rz = <r, z>``);
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import torch_dtype
@@ -389,3 +393,329 @@ def _lockstep(bp, x, r, p, rz, rn, tol, dmax, atol_h, maxit, *, A, M, Adot,
     reasons = [_reason(rn_h[j], tol_h[j], atol_h, brk_h[j], dmax_h[j])
                for j in range(k)]
     return x, it_h, rn_h, reasons, syncs
+
+
+def _mix_axpy(prec, c, v, a, out=None):
+    """``store(c + a * v)`` (JAX ``st_(c + a * v)``) into ``out`` (a new
+    tensor when None; it may be ``c`` or ``v``): with a mixed plan
+    :func:`_lifted_axpy`, otherwise one ``addcmul``. ``a`` is a reduce-dtype
+    scalar or a broadcast block of scalars."""
+    if out is None:
+        out = torch.empty_like(c)
+    if prec is not None and prec.mixed:
+        return _lifted_axpy(c, a, v, out=out)
+    return torch.addcmul(c, v, a, out=out)
+
+
+def pipelined_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
+                      pnorm=None, fused=None, bp=None, monitor=None,
+                      prec=None):
+    """The pipelined (single-reduction) CG recurrence of Ghysels and
+    Vanroose, unguarded (JAX ``pipelined_cg_loop``, ``:614``, without the
+    ``guard`` branches, which are ROADMAP.md Queue A item 6).
+
+    Every inner product of an iteration, ``gamma = <r, u>``, ``delta = <w,
+    u>`` and the monitored ``||r||^2``, comes from the current vectors in
+    ONE reduction, ``fused(r, u, w) -> (gamma, delta, rr)`` (one ``psum`` of
+    a stacked partial per shard); the next applies ``m = M w``, ``n = A m``
+    do not wait for it. The state ``S = [w, u, r, x]`` and the directions
+    ``V = [z, q, s, p]`` are each one tensor: ``V = [n, m, w, u] + beta V``
+    row by row, then ``S += alpha sgn V`` in one pass (``sgn`` subtracts
+    from w/u/r and adds to x). The monitored norm lags one iteration, so
+    iterations run one higher than classic CG's.
+
+    One host read at set-up, one per iteration (the loop condition's
+    ``rn`` and breakdown flag), one at the end for the exact final residual
+    ``||b - A x||``, which the result reports while the reason is judged on
+    the norm the loop tested. ``x0`` receives the iterate. With
+    :class:`ManyBatch` the scalars are per column, a frozen column keeps
+    its state through ``torch.where`` selects (JAX ``_lockstep``
+    discipline), and the middle three results are per-column lists. A mixed
+    :class:`PrecisionPlan` keeps the scalars in its reduce dtype and rounds
+    each updated row to storage once."""
+    mixed = prec is not None and prec.mixed
+    sdt = prec.reduce if mixed else b.dtype
+    r = b - A(x0)
+    bnorm = pnorm(b)
+    tol = torch.clamp_min(rtol * bnorm, atol)
+    u = M(r)
+    w = A(u)
+    rn0 = pnorm(r)
+    dmax = _dmax(rn0, dtol)
+    atol_h = torch.tensor(atol, dtype=rn0.dtype).item()
+    S = torch.stack([w, u, r, x0])      # copies: u may be r itself
+    V = torch.zeros_like(S)
+    gamma = torch.zeros(rn0.shape, dtype=sdt, device=b.device)
+    alpha = torch.zeros_like(gamma)
+    sgn = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=sdt,
+                       device=b.device).reshape((4,) + (1,) * b.ndim)
+    many = bp is not None
+    if many:
+        it_t = torch.zeros(rn0.shape, dtype=torch.int64, device=b.device)
+        brk_t = torch.zeros(rn0.shape, dtype=torch.bool, device=b.device)
+        cont = _live(rn0, tol, dmax, it_t, maxit, brk_t)
+        rn_h, tol_h, dmax_h, cont_h = torch.stack(
+            [rn0, tol, dmax, cont.to(rn0.dtype)]).tolist()
+        k = len(rn_h)
+        it_h, brk_h = [0] * k, [0.0] * k
+        rn = rn0
+        if monitor is not None:
+            for j in range(k):
+                monitor(j, 0, rn_h[j])
+    else:
+        rn_h, tol_h, dmax_h = torch.stack([rn0, tol, dmax]).tolist()
+        cont_h = [rn_h > tol_h and rn_h < dmax_h and maxit > 0]
+        it_h, brk_h = 0, False
+        if monitor is not None:
+            monitor(0, rn_h)
+    syncs = 1
+
+    while any(cont_h):
+        masked = many and not all(cont_h)
+        w, u, r = S[0], S[1], S[2]
+        g_new, delta, rr = fused(r, u, w)
+        m = M(w)
+        n = A(m)
+        first = gamma == 0
+        beta = torch.where(first, 0.0, g_new / torch.where(first, 1.0,
+                                                            gamma))
+        aold = torch.where(alpha == 0, 1.0, alpha)
+        denom = torch.where(first, delta, delta - beta * g_new / aold)
+        a_new = torch.where(denom == 0, 0.0,
+                            g_new / torch.where(denom == 0, 1.0, denom))
+        be = bp.ex(beta) if many else beta
+        al = bp.ex(a_new) if many else a_new
+        if masked:
+            cm = bp.ex(cont)
+            Vn = torch.stack([_mix_axpy(prec, c, V[i], be)
+                              for i, c in enumerate((n, m, w, u))])
+            V = torch.where(cm, Vn, V)
+            S = torch.where(cm, _mix_axpy(prec, S, V, al * sgn), S)
+        else:
+            for i, c in enumerate((n, m, w, u)):
+                _mix_axpy(prec, c, V[i], be, out=V[i])
+            _mix_axpy(prec, S, V, al * sgn, out=S)
+        rn_new = torch.sqrt(torch.clamp_min(rr, 0.0))
+        if many:
+            brk_t = brk_t | (cont & (denom == 0))
+            rn = torch.where(cont, rn_new, rn)
+            gamma = torch.where(cont, g_new, gamma)
+            alpha = torch.where(cont, a_new, alpha)
+            it_t = it_t + cont
+            stepped = cont_h
+            it_h = [i + int(c) for i, c in zip(it_h, cont_h)]
+            cont = _live(rn, tol, dmax, it_t, maxit, brk_t)
+            rn_h, cont_h, brk_h = torch.stack(
+                [rn, cont.to(rn.dtype), brk_t.to(rn.dtype)]).tolist()
+            if monitor is not None:
+                for j in range(k):
+                    if stepped[j]:
+                        monitor(j, it_h[j], rn_h[j])
+        else:
+            gamma, alpha = g_new, a_new
+            it_h += 1
+            rn_h, brk_n = torch.stack(
+                [rn_new, (denom == 0).to(rn_new.dtype)]).tolist()
+            brk_h = brk_h or brk_n != 0
+            cont_h = [rn_h > tol_h and rn_h < dmax_h and it_h < maxit
+                      and not brk_h]
+            if monitor is not None:
+                monitor(it_h, rn_h)
+        syncs += 1
+    x = x0.copy_(S[3])
+    # the monitored norm lags one iteration: report the exact final residual
+    true = pnorm(b - A(x)).tolist()
+    syncs += 1
+    if many:
+        reasons = [_reason(rn_h[j], tol_h[j], atol_h, brk_h[j], dmax_h[j])
+                   for j in range(k)]
+        return x, it_h, true, reasons, syncs
+    return x, it_h, true, _reason(rn_h, tol_h, atol_h, brk_h, dmax_h), syncs
+
+
+# the s-step plan's coordinate-resolution floor and its rationale: JAX
+# cg_plans.py:190-197 (_SSTEP_RR_FLOOR)
+_SSTEP_RR_FLOOR = 256.0
+
+
+def sstep_shift(s: int, m: int) -> np.ndarray:
+    """The coordinate shift of ``(MA)`` over the two monomial sub-bases
+    (JAX ``_sstep_shift``, ``:840``): column ``i`` of the p-chain maps to
+    ``i+1`` (``i < s``), column ``i`` of the z-chain likewise (``i <
+    s-1``)."""
+    S = np.zeros((m, m))
+    for i in range(s):
+        S[i + 1, i] = 1.0
+    for i in range(s - 1):
+        S[s + 2 + i, s + 1 + i] = 1.0
+    return S
+
+
+def _sstep_coefficients(E, s, tol, dmax, maxit, it, rn, cont, brk,
+                        monitor=None):
+    """The ``s`` CG iterations of one block as coefficient recurrences in
+    basis coordinates (JAX ``sstep_cg_loop``, ``:1048-1107``), in numpy on
+    the host from the block's Gram matrix ``E (2m+1, 2m+1[, k])``, which
+    every process holds (the same bits, so the same answer on every rank).
+    Scalars are numpy arrays: 0-d for one RHS, ``(k,)`` per column; a
+    column block runs each column's recurrences as one RHS's. Returns
+    ``(chat, phat, it, rn, brk)``; ``monitor(j, it, rn)`` hears each step a
+    column takes (``j`` None for one RHS)."""
+    if E.ndim == 3:
+        # each column's block laid out as one RHS's: numpy's products
+        # round a strided operand differently
+        cols = [_sstep_coefficients(
+            np.ascontiguousarray(E[..., j]), s, tol[j], dmax[j], maxit,
+            it[j], rn[j], cont[j],
+            brk[j], None if monitor is None else
+            (lambda _j, i, v, j=j: monitor(j, i, v)))
+            for j in range(E.shape[2])]
+        return tuple(np.stack(v, axis=-1) for v in zip(*cols))
+    m = 2 * s + 1
+    dt = E.dtype.type
+    Sm = sstep_shift(s, m).astype(E.dtype)
+
+    def cmat(G, v):
+        return G @ v
+
+    def cdot(u, v):
+        return np.sum(u * v, axis=0)
+
+    def onehot(i):
+        v = np.zeros(m, E.dtype)
+        v[i] = 1
+        return v
+
+    G1, G2 = E[0:m, m:2 * m], E[m:2 * m, m:2 * m]
+    g0, w0, rr0 = E[0:m, 2 * m], E[m:2 * m, 2 * m], E[2 * m, 2 * m]
+    G1H = np.swapaxes(G1, 0, 1)
+    zero, one = dt(0), dt(1)
+
+    def rz_of(zh, ch):
+        return cdot(g0, zh) - cdot(ch, cmat(G1H, zh))
+
+    phat, zhat, chat = onehot(0), onehot(s + 1), np.zeros(m, E.dtype)
+    rz = rz_of(zhat, chat)
+    rr0p = np.maximum(rr0, zero)
+    # the block-start refresh: rr0 is summed directly, not a difference
+    rn = np.where(cont, np.sqrt(rr0p), rn).astype(E.dtype)
+    rr_floor = _SSTEP_RR_FLOOR * m * np.finfo(E.dtype).eps * rr0p
+    rn_floor = np.sqrt(rr_floor)
+    a = cont & (rn > tol)
+    for _ in range(s):
+        pAp = cdot(phat, cmat(G1, phat))
+        brk_j = a & (pAp == 0)
+        brk = brk | brk_j
+        a = a & ~brk_j
+        alpha = np.where(pAp == 0, zero, rz / np.where(pAp == 0, one, pAp))
+        chat = np.where(a, chat + alpha * phat, chat)
+        zhat = np.where(a, zhat - alpha * cmat(Sm, phat), zhat)
+        rz_new = rz_of(zhat, chat)
+        rr_new = (rr0 - dt(2) * cdot(chat, w0) + cdot(chat, cmat(G2, chat)))
+        floor_hit = rr_new <= rr_floor
+        rn_new = np.maximum(np.sqrt(np.maximum(rr_new, zero)), rn_floor)
+        beta = np.where(rz == 0, zero, rz_new / np.where(rz == 0, one, rz))
+        phat = np.where(a, zhat + beta * phat, phat)
+        rz = np.where(a, rz_new, rz)
+        rn = np.where(a, rn_new, rn)
+        it = it + a.astype(it.dtype)
+        if monitor is not None and a:
+            monitor(None, int(it), float(rn))
+        a = a & ~floor_hit & (rn > tol) & (rn < dmax) & (it < maxit)
+    return chat, phat, it, rn, brk
+
+
+def sstep_cg_loop(*, b, x0, rtol, atol, maxit, s, gram, combine, A=None,
+                  M=None, pnorm=None, dtol=None, bp=None, monitor=None,
+                  prec=None):
+    """s-step (communication-avoiding) CG, unguarded (JAX ``sstep_cg_loop``,
+    ``:854``, without the ``guard`` branches: Queue A item 6).
+
+    Each block advances CG by ``s`` iterations around ONE reduction: from
+    the carried ``(p, r)`` it builds the preconditioned monomial chains
+    ``[p, (MA)p, ..., (MA)^s p]`` and ``[z, ..., (MA)^(s-1) z]`` (``z = M
+    r``) and their A-images (``2s-1`` operator and ``2s`` PC applies, no
+    reduction), stores them with ``r`` as the rows of ``C (size, 2m+1,
+    ...)`` (``m = 2s+1``), and ``gram(C)`` reduces the Gram matrix of the
+    rows in one ``psum`` of a stacked partial per shard. The host reads it
+    (the block's one read), runs the ``s`` iterations as coefficient
+    recurrences (:func:`_sstep_coefficients`), and three basis combinations
+    ``combine(coef, rows)`` materialize ``(x, r, p)`` on the device.
+
+    Host reads: one at set-up, one per block, one for the exact final
+    residual the result reports (the reason is judged on the recurrence
+    norm). With :class:`ManyBatch` every column has its own basis and
+    coefficients, the one Gram reduction serves them all, and a frozen
+    column keeps its state."""
+    st_ = _stc(prec)
+    mixed = prec is not None and prec.mixed
+    up = prec.up if mixed else (lambda v: v)
+    s = int(s)
+    if s < 1:
+        raise ValueError(f"-ksp_sstep_s must be >= 1, got {s}")
+    m = 2 * s + 1
+    many = bp is not None
+    r = b - A(x0)
+    bnorm = pnorm(b)
+    tol = torch.clamp_min(rtol * bnorm, atol)
+    rn0 = pnorm(r)
+    p = M(r)
+    dmax = _dmax(rn0, dtol)
+    atol_h = torch.tensor(atol, dtype=rn0.dtype).item()
+    rn_h, tol_h, dmax_h = (np.asarray(v) for v in torch.stack(
+        [rn0, tol, dmax]).cpu().numpy())
+    syncs = 1
+    it = np.zeros(rn_h.shape, np.int64)
+    brk = np.zeros(rn_h.shape, bool)
+    # monitor(j, it, rn) for a column block, monitor(it, rn) for one RHS
+    mon = None
+    if monitor is not None:
+        mon = monitor if many else (lambda _j, i, v: monitor(i, v))
+        for j, v in enumerate(np.atleast_1d(rn_h)):
+            mon(j, 0, float(v))
+    x = x0
+    # the basis rows and r, shard-major: C[:, :m] = V_Z, C[:, m:2m] = A V_Z
+    C = b.new_zeros((b.shape[0], 2 * m + 1) + tuple(b.shape[1:]))
+
+    def active():
+        return (rn_h > tol_h) & (rn_h < dmax_h) & (it < maxit) & ~brk
+
+    cont = active()
+    while cont.any():
+        C[:, 0] = p
+        for i in range(s):                  # p-chain and its A-images
+            t = A(C[:, i])
+            C[:, m + i] = t
+            C[:, i + 1] = st_(M(t))
+        C[:, s + 1] = st_(M(r))             # z-chain and its A-images
+        for i in range(s - 1):
+            t = A(C[:, s + 1 + i])
+            C[:, m + s + 1 + i] = t
+            C[:, s + 2 + i] = st_(M(t))
+        C[:, 2 * m] = r
+        E = gram(up(C)).cpu().numpy()
+        syncs += 1
+        chat, phat, it, rn_h, brk = _sstep_coefficients(
+            E, s, tol_h, dmax_h, maxit, it, rn_h, cont, brk, mon)
+        ch = torch.from_numpy(chat).to(C.device)
+        ph = torch.from_numpy(phat).to(C.device)
+        x_new = st_(up(x) + combine(ch, up(C[:, :m])))
+        r_new = st_(up(r) - combine(ch, up(C[:, m:2 * m])))
+        p_new = st_(combine(ph, up(C[:, :m])))
+        if many and not cont.all():
+            cm = bp.ex(torch.from_numpy(cont).to(C.device))
+            x_new = torch.where(cm, x_new, x)
+            r_new = torch.where(cm, r_new, r)
+            p_new = torch.where(cm, p_new, p)
+        x, r, p = x_new, r_new, p_new
+        cont = active()
+    true = pnorm(b - A(x)).tolist()
+    syncs += 1
+    if many:
+        reasons = [_reason(float(rn_h[j]), float(tol_h[j]), atol_h,
+                           bool(brk[j]), float(dmax_h[j]))
+                   for j in range(len(rn_h))]
+        return x, [int(v) for v in it], true, reasons, syncs
+    return (x, int(it), true,
+            _reason(float(rn_h), float(tol_h), atol_h, bool(brk),
+                    float(dmax_h)), syncs)

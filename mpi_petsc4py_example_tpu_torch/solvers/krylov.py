@@ -1,36 +1,51 @@
 """Krylov kernels and the construction of the solve program.
 
 The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/krylov.py``:
-``cg_kernel`` (``:188``), ``cg_stencil_kernel`` (``:220``), ``bcgs_kernel``
-(``:533``), ``gmres_kernel`` (``:732``) with ``_hessenberg_lstsq``
-(``:671``) and ``_cgs2_step`` (``:716``), ``fgmres_kernel`` (``:1165``),
-``preonly_kernel`` (``:790``), the transpose types ``lsqr_kernel``
-(``:1415``), ``bicg_kernel`` (``:1471``) and ``cgne_kernel`` (``:1589``), and
-``build_ksp_program`` (``:2091``) with the stencil-CG fast path, the general
-route, the null-space projection (``:2320-2335``, ``:2524-2538``) and the
-true-residual epilogue (``_true_res_tail``, ``:2551``), without the guard;
-and for ``KSP.solve_many`` ``cg_kernel_many`` (``:2662``),
-``cg_stencil_kernel_many`` (``:2689``), ``batched_pc_supported``
-(``:2741``) and ``build_ksp_program_many`` (``:2748``) with the
-true-residual epilogue, without the guard and the pipelined/s-step plans.
+every kernel of its ``KSP_KERNELS`` (``:1999-2025``), namely ``cg_kernel``
+(``:188``), ``cg_stencil_kernel`` (``:220``), ``bcgs_kernel`` (``:533``, also
+``fbcgs``), ``fbcgsr_kernel`` (``:582``), ``gmres_kernel`` (``:732``) with
+``_hessenberg_lstsq`` (``:671``) and ``_cgs2_step`` (``:716``),
+``preonly_kernel`` (``:790``), ``richardson_kernel`` (``:840``),
+``minres_kernel`` (``:868``), ``chebyshev_kernel`` (``:946``), the pipelined
+and s-step kernels (``:1004-1162``, on ``cg_plans``), ``fgmres_kernel``
+(``:1165``), ``cgs_kernel`` (``:1221``), ``tfqmr_kernel`` (``:1280``),
+``cr_kernel`` (``:1356``), the transpose types ``lsqr_kernel`` (``:1415``),
+``bicg_kernel`` (``:1471``) and ``cgne_kernel`` (``:1589``), ``gcr_kernel``
+(``:1532``), ``symmlq_kernel`` (``:1637``), ``fcg_kernel`` (``:1746``),
+``lgmres_kernel`` (``:1820``) and ``bcgsl_kernel`` (``:1891``); and
+``build_ksp_program`` (``:2091``) with the stencil-CG and pipelined-CG fast
+paths, the general route, the null-space projection (``:2320-2335``,
+``:2524-2538``) and the true-residual epilogue (``_true_res_tail``,
+``:2551``), without the guard; and for ``KSP.solve_many``
+``cg_kernel_many`` (``:2662``), ``cg_stencil_kernel_many`` (``:2689``), the
+batched pipelined and s-step kernels, ``batched_pc_supported`` (``:2741``)
+and ``build_ksp_program_many`` (``:2748``) with the true-residual epilogue,
+without the guard. The guarded loops are ROADMAP.md Queue A item 6.
 
 The JAX loops are ``lax.while_loop``s on the device; here they are eager
 PyTorch driven by the host, with the scalars on the device and one small
 host read where the loop decides whether to go on: once per iteration for
-CG, BiCGStab, BiCG, CGNE and LSQR (LSQR reads once more for its true
-residual), once per restart cycle for GMRES and FGMRES, once per refinement
-step for preonly. Every program returns the count of its host reads. A
-monitor receives the residual norms those reads bring, in order, so
-monitoring adds no read: the JAX package records the same values in its
-in-program history buffer and replays them after the solve.
+most types, once per restart cycle for GMRES, FGMRES and LGMRES, once per
+outer step of ``ell`` iterations for BiCGStab(ell), once per block for
+s-step CG, once per refinement step for preonly. The types whose result
+reports the exact final ``||b - A x||`` (cgs, tfqmr, minres, symmlq,
+bcgsl, fbcgsr, pipecg, sstep; LSQR) read once more after the loop, where the
+JAX program returns it with its one result fetch. Every program returns the
+count of its host reads. A monitor receives the residual norms those reads
+bring, in order, so monitoring adds no read: the JAX package records the
+same values in its in-program history buffer and replays them after the
+solve.
 
 Both builders take the precision plan from the operator's dtype (JAX
 ``:2177-2186``, ``:2796-2798``): under bfloat16 storage the reductions lift
-their operands to fp32 (``:2341-2346``) and the CG loops run the mixed plan;
-KSP types without a mixed-precision body raise, as in the JAX package.
+their operands to fp32 (``:2341-2346``) and the CG-family loops run the
+mixed plan; richardson's body needs none; the other types raise, as in the
+JAX package.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -39,27 +54,26 @@ from ..utils.convergence import ConvergedReason as CR
 from . import cg_plans as _plans
 from .cg_plans import _dmax, _reason, _tol
 
-KSP_TYPES = ("cg", "gmres", "fgmres", "bcgs", "preonly", "lsqr", "bicg",
-             "cgne")
-# the JAX package's other types (krylov.py:1999-2025): ROADMAP.md Queue A
-# item 5 brings them
-UNPORTED_TYPES = ("pipecg", "sstep", "cgs", "tfqmr", "cr", "minres",
-                  "chebyshev", "richardson", "gcr", "symmlq", "fcg",
-                  "lgmres", "bcgsl", "fbcgs", "fbcgsr")
+# the JAX package's KSP_KERNELS (krylov.py:1999-2025), every one ported
+KSP_TYPES = ("cg", "pipecg", "sstep", "bcgs", "gmres", "fgmres", "cgs",
+             "tfqmr", "cr", "lsqr", "minres", "chebyshev", "preonly",
+             "richardson", "bicg", "gcr", "cgne", "symmlq", "fcg", "lgmres",
+             "bcgsl", "fbcgs", "fbcgsr")
 # the types that need the transpose product A^T v (operator.local_spmv_t)
 _NEEDS_TRANSPOSE = ("lsqr", "bicg", "cgne")
-# the types whose recurrence carries the natural norm sqrt <r, M r>
-NATURAL_TYPES = ("cg",)
+# the types whose recurrence carries the natural norm: cg/fcg sqrt <r, M r>,
+# cr sqrt <r~, A r~> of its preconditioned residual (JAX :2035)
+NATURAL_TYPES = ("cg", "fcg", "cr")
+# the types with a body for sub-f32 storage (JAX :2179): the plan-built CG
+# family and the loop-free preonly/richardson bodies
+MIXED_TYPES = ("cg", "pipecg", "sstep", "preonly", "richardson")
+# the types that keep a basis of restart vectors
+_RESTARTED = ("gmres", "fgmres", "gcr", "fcg", "lgmres")
 
 
 def check_ksp_type(ksp_type: str) -> str:
-    """``ksp_type`` if the port runs it; ``NotImplementedError`` naming
-    Queue A item 5 for the JAX package's other types, ``ValueError`` for a
-    type neither package has."""
-    if ksp_type in UNPORTED_TYPES:
-        raise NotImplementedError(
-            f"KSP {ksp_type!r} is not ported yet (ROADMAP.md Queue A item "
-            f"5); available: {list(KSP_TYPES)}")
+    """``ksp_type`` if it is one of the JAX package's types; ``ValueError``
+    for a type neither package has."""
     if ksp_type not in KSP_TYPES:
         raise ValueError(f"unknown KSP type {ksp_type!r}; available: "
                          f"{list(KSP_TYPES)}")
@@ -128,6 +142,75 @@ def cg_stencil_kernel_many(Adot, inv_diag, pdot, pnorm, B, X0, rtol, atol,
     return (x.reshape(flat), *rest)
 
 
+
+def pipecg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, fused=None,
+                  dtol=None, prec=None, monitor=None):
+    """Pipelined single-reduction CG (Ghysels and Vanroose; KSPPIPECG; JAX
+    ``:1004``) on the general route: ``fused(r, u, w)`` reduces ``<r, u>``,
+    ``<w, u>`` and ``||r||^2`` in one ``psum``, and the next applies do not
+    depend on it (:func:`cg_plans.pipelined_cg_loop`)."""
+    return _plans.pipelined_cg_loop(
+        b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol, A=A, M=M,
+        pnorm=pnorm, fused=fused, monitor=monitor, prec=prec)
+
+
+def pipecg_stencil_kernel(A3, inv_diag, pnorm, fused, b, x0, rtol, atol,
+                          maxit, dtol=None, grid3d=None, prec=None,
+                          monitor=None):
+    """The pipelined-CG fast path for uniform-diagonal stencil operators
+    with PC none/jacobi (JAX ``:1049``): grid-shaped carries, the plain
+    grid apply ``A3`` (``StencilPoisson3D.local_apply_grid3``, the
+    ``stencil7_apply`` kernel on the card) and the Jacobi apply ``m = w
+    inv_diag``, still one reduction an iteration (the fused matvec-dot is
+    not used: its dot would be a second)."""
+    flat = b.shape
+    if grid3d is not None:
+        b = b.reshape((flat[0],) + tuple(grid3d))
+        x0 = x0.reshape(b.shape)
+    if prec is not None and prec.mixed:
+        M = lambda r: (prec.up(r) * inv_diag).to(prec.storage)
+    else:
+        M = lambda r: r * inv_diag
+    x, *rest = _plans.pipelined_cg_loop(
+        b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol, A=A3, M=M,
+        pnorm=pnorm, fused=fused, monitor=monitor, prec=prec)
+    return (x.reshape(flat), *rest)
+
+
+def pipecg_kernel_many(A, M, pdot, pnorm, B, X0, rtol, atol, maxit,
+                       fused=None, dtol=None, prec=None, monitor=None):
+    """Batched pipelined CG (JAX ``:1075``): ``k`` lockstep recurrences on a
+    ``(size, k, lsize)`` block, every column's three dots in the one
+    reduction of the iteration."""
+    return _plans.pipelined_cg_loop(
+        b=B, x0=X0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol, A=A, M=M,
+        pnorm=pnorm, fused=fused, bp=_plans.ManyBatch("cols"),
+        monitor=monitor, prec=prec)
+
+
+def sstep_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, s=4,
+                 gram=None, combine=None, dtol=None, prec=None,
+                 monitor=None):
+    """s-step communication-avoiding CG (JAX ``:1102``): ``s`` iterations a
+    block around one Gram reduction (:func:`cg_plans.sstep_cg_loop`)."""
+    return _plans.sstep_cg_loop(
+        b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol, s=s,
+        gram=gram, combine=combine, A=A, M=M, pnorm=pnorm, monitor=monitor,
+        prec=prec)
+
+
+def sstep_kernel_many(A, M, pdot, pnorm, B, X0, rtol, atol, maxit, s=4,
+                      gram=None, combine=None, dtol=None, prec=None,
+                      monitor=None):
+    """Batched s-step CG (JAX ``:1138``): per-column bases and
+    coefficients, every column's Gram block in the one reduction of the
+    block."""
+    return _plans.sstep_cg_loop(
+        b=B, x0=X0, rtol=rtol, atol=atol, maxit=maxit, dtol=dtol, s=s,
+        gram=gram, combine=combine, A=A, M=M, pnorm=pnorm,
+        bp=_plans.ManyBatch("cols"), monitor=monitor, prec=prec)
+
+
 def _scalars(*ts) -> list:
     """One host read of several device scalars."""
     return torch.stack([t.reshape(()).to(ts[0].dtype) for t in ts]).tolist()
@@ -187,6 +270,673 @@ def bcgs_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
         brk = brk_h != 0
         _mon(monitor, it, rn)
     return x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs
+
+
+def _open(rnorm, tol, dmax, atol, monitor, *flags):
+    """The set-up read of a loop: ``(rn, tol, dmax, atol)`` on the host (and
+    the given device flags as bools), with the iteration-0 monitor call."""
+    vals = _scalars(rnorm, tol, dmax, *flags)
+    atol_h = torch.tensor(atol, dtype=rnorm.dtype).item()
+    _mon(monitor, 0, vals[0])
+    return vals[:3] + [atol_h] + [v != 0 for v in vals[3:]]
+
+
+def _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+    return rn > tol_h and rn < dmax_h and it < maxit and not brk
+
+
+def _step_read(rn_t, brk_t):
+    """The one host read of an iteration: ``(rn, brk)``."""
+    rn, brk = _scalars(rn_t, brk_t)
+    return rn, brk != 0
+
+
+def fbcgsr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+                  monitor=None, preduce=None):
+    """Flexible BiCGStab with its reductions merged (KSPFBCGSR; JAX
+    ``:582``): one reduction for ``<r^, v>`` and one fused reduction,
+    ``preduce([(t, s), (t, t), (r^, t), (s, s)])`` (one ``psum`` of a
+    stacked partial per shard), for the rest; the next rho and ``||r||``
+    come from scalar identities. One read of ``(rn, brk)`` per iteration;
+    the result reports the exact final ``||b - A x||`` (one more read)
+    and the reason is judged on the norm the loop tested."""
+    _, tol = _tol(pnorm, b, rtol, atol)
+    r = b - A(x0)
+    rhat = r
+    rnorm = pnorm(r)
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h, atol_h = _open(rnorm, tol, dmax, atol, monitor)
+    syncs = 1
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    eps = torch.finfo(b.dtype).eps
+    x, p, v = x0, torch.zeros_like(b), torch.zeros_like(b)
+    rho, rho_cur, alpha, omega = one, rnorm * rnorm, one, one
+    it, brk = 0, False
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        brk_t = (rho_cur == 0) | (omega == 0)
+        beta = torch.where(brk_t, 0.0, (rho_cur / _nz(rho))
+                           * (alpha / _nz(omega)))
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = A(phat)
+        rv = pdot(rhat, v)                            # reduction phase 1
+        brk_t = brk_t | (rv == 0)
+        alpha = torch.where(brk_t, 0.0, rho_cur / _nz(rv))
+        s = r - alpha * v
+        shat = M(s)
+        t = A(shat)
+        # reduction phase 2: the remaining dots in one fused psum
+        ts, tt, rt, ss = preduce([(t, s), (t, t), (rhat, t), (s, s)])
+        omega = torch.where(tt == 0, 0.0, ts / _nz(tt))
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rn2 = ss - 2 * (omega * ts) + omega.abs() ** 2 * tt
+        rn_t = torch.sqrt(torch.maximum(rn2, eps * ss))
+        rho, rho_cur = rho_cur, (rho_cur - alpha * rv) - omega * rt
+        it += 1
+        rn, brk = _step_read(rn_t, brk_t)
+        syncs += 1
+        _mon(monitor, it, rn)
+    rn_true = pnorm(b - A(x)).item()
+    return (x, it, rn_true, _reason(rn, tol_h, atol_h, brk, dmax_h),
+            syncs + 1)
+
+
+def richardson_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit,
+                      dtol=None, monitor=None):
+    """Preconditioned Richardson iteration (KSPRICHARDSON; JAX ``:840``,
+    whose ``scale`` no caller sets), ``x += M r`` with the true residual
+    each step. Its body needs no
+    precision plan: under bfloat16 storage the update rounds to storage and
+    only the norms lift to fp32, as in the JAX package. One read per
+    iteration."""
+    _, tol = _tol(pnorm, b, rtol, atol)
+    r = b - A(x0)
+    rnorm = pnorm(r)
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h, atol_h = _open(rnorm, tol, dmax, atol, monitor)
+    syncs, x, it = 1, x0, 0
+    while _live_h(rn, tol_h, dmax_h, it, maxit, False):
+        x = x + M(r)
+        r = b - A(x)
+        it += 1
+        rn = pnorm(r).item()
+        syncs += 1
+        _mon(monitor, it, rn)
+    return x, it, rn, _reason(rn, tol_h, atol_h, False, dmax_h), syncs
+
+
+def cgs_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+               monitor=None):
+    """Conjugate Gradient Squared (KSPCGS; JAX ``:1221``),
+    right-preconditioned: the correction solves ``(A M) y = r0`` and ``x =
+    x0 + M y`` once at the end, so the monitored residual is the true one.
+    One read per iteration, one more for the final ``||b - A x||``."""
+    _, tol = _tol(pnorm, b, rtol, atol)
+    op = lambda v: A(M(v))
+    r = b - A(x0)
+    rtilde = r
+    rnorm = pnorm(r)
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h, atol_h = _open(rnorm, tol, dmax, atol, monitor)
+    syncs = 1
+    y = p = q = torch.zeros_like(b)
+    rho = torch.ones((), dtype=b.dtype, device=b.device)
+    it, brk = 0, False
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        rho_new = pdot(rtilde, r)
+        brk_t = rho_new == 0
+        beta = torch.where(brk_t, 0.0, rho_new / _nz(rho))
+        u = r + beta * q
+        p = u + beta * (q + beta * p)
+        v = op(p)
+        sigma = pdot(rtilde, v)
+        brk_t = brk_t | (sigma == 0)
+        alpha = torch.where(brk_t, 0.0, rho_new / _nz(sigma))
+        q = u - alpha * v
+        uq = u + q
+        y = y + alpha * uq
+        r = r - alpha * op(uq)
+        rho = rho_new
+        it += 1
+        rn, brk = _step_read(pnorm(r), brk_t)
+        syncs += 1
+        _mon(monitor, it, rn)
+    x = x0 + M(y)
+    rn_true = pnorm(b - A(x)).item()
+    return (x, it, rn_true, _reason(rn, tol_h, atol_h, brk, dmax_h),
+            syncs + 1)
+
+
+def tfqmr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+                 monitor=None):
+    """Transpose-free QMR (Freund; KSPTFQMR; JAX ``:1280``),
+    right-preconditioned on ``(A M) y = r0``: the loop monitors the
+    quasi-residual bound ``tau sqrt(2k+1)``, read once per (double)
+    iteration; the exact residual is read once after the loop."""
+    _, tol = _tol(pnorm, b, rtol, atol)
+    op = lambda v: A(M(v))
+    r0 = b - A(x0)
+    rstar = r0
+    tau = pnorm(r0)
+    dmax = _dmax(tau, dtol)
+    rn, tol_h, dmax_h, atol_h = _open(tau, tol, dmax, atol, monitor)
+    syncs = 1
+    u1 = op(r0)
+    y, w, y1, v = torch.zeros_like(b), r0, r0, u1
+    d = torch.zeros_like(b)
+    theta = torch.zeros((), dtype=tau.dtype, device=b.device)
+    eta = torch.zeros((), dtype=b.dtype, device=b.device)
+    rho = pdot(rstar, r0)
+    it, brk = 0, False
+
+    def half(yj, uj, alpha, w, d, theta, tau, eta, y):
+        w = w - alpha * uj
+        d = yj + (theta ** 2 * eta / _nz(alpha)) * d
+        theta = pnorm(w) / _nz(tau)
+        c2 = 1.0 / (1.0 + theta * theta)
+        tau = tau * theta * torch.sqrt(c2)
+        eta = c2 * alpha
+        return w, d, theta, tau, eta, y + eta * d
+
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        sigma = pdot(rstar, v)
+        brk_t = sigma == 0
+        alpha = torch.where(brk_t, 0.0, rho / _nz(sigma))
+        y2 = y1 - alpha * v
+        u2 = op(y2)
+        w, d, theta, tau, eta, y = half(y1, u1, alpha, w, d, theta, tau,
+                                        eta, y)
+        w, d, theta, tau, eta, y = half(y2, u2, alpha, w, d, theta, tau,
+                                        eta, y)
+        rho_new = pdot(rstar, w)
+        brk_t = brk_t | (rho == 0)
+        beta = rho_new / _nz(rho)
+        y1 = w + beta * y2
+        u1 = op(y1)
+        v = u1 + beta * (u2 + beta * v)
+        rho = rho_new
+        it += 1
+        # the quasi-residual bound after 2 it half-steps
+        rn, brk = _step_read(tau * math.sqrt(2.0 * it + 1.0), brk_t)
+        syncs += 1
+        _mon(monitor, it, rn)
+    x = x0 + M(y)
+    rn_true = pnorm(b - A(x)).item()
+    return (x, it, rn_true, _reason(rn, tol_h, atol_h, brk, dmax_h),
+            syncs + 1)
+
+
+def cr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+              monitor=None, natural=False):
+    """Preconditioned conjugate residuals (KSPCR; JAX ``:1356``) for
+    symmetric ``A`` and SPD ``M``, monitored in the preconditioned residual
+    norm, or with ``natural`` in ``sqrt <r~, A r~>`` of the preconditioned
+    residual (relative to its initial value; a negative value is a
+    breakdown). One read per iteration."""
+    r = M(b - A(x0))
+    p, w = r, A(r)
+    q = w
+    rho = pdot(r, w)
+    if natural:
+        rnorm = _plans._nat(rho)
+        tol = torch.clamp_min(rtol * rnorm, atol)
+        brk0 = rho < 0
+    else:
+        tol = torch.clamp_min(rtol * pnorm(M(b)), atol)
+        rnorm = pnorm(r)
+        brk0 = rnorm <= -1.0
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h, atol_h, brk = _open(rnorm, tol, dmax, atol, monitor,
+                                           brk0)
+    syncs, x, it = 1, x0, 0
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        Mq = M(q)
+        qMq = pdot(q, Mq)
+        brk_t = qMq == 0
+        alpha = torch.where(brk_t, 0.0, rho / _nz(qMq))
+        x = x + alpha * p
+        r = r - alpha * Mq
+        w = A(r)
+        rho_new = pdot(r, w)
+        if natural:
+            brk_t = brk_t | (rho_new < 0)
+        beta = torch.where(rho == 0, 0.0, rho_new / _nz(rho))
+        p = r + beta * p
+        q = w + beta * q
+        rho = rho_new
+        it += 1
+        rn, brk = _step_read(_plans._nat(rho) if natural else pnorm(r),
+                             brk_t)
+        syncs += 1
+        _mon(monitor, it, rn)
+    return x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs
+
+
+def minres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+                  monitor=None):
+    """MINRES (Paige and Saunders; KSPMINRES; JAX ``:868``) for symmetric,
+    possibly indefinite ``A`` with an SPD ``M``: the Lanczos scalars and the
+    Givens rotations of the tridiagonal's QR stay on the device (the same
+    arithmetic on every rank), and the loop reads its estimate ``|phibar|
+    ||r0|| / beta1`` once per iteration. The result and its reason use the
+    exact final residual (one more read)."""
+    _, tol = _tol(pnorm, b, rtol, atol)
+    r1 = b - A(x0)
+    y = M(r1)
+    beta1 = torch.sqrt(torch.clamp_min(pdot(r1, y), 0.0))
+    rnorm0 = pnorm(r1)
+    dmax = _dmax(rnorm0, dtol)
+    scale = rnorm0 / _nz(beta1)
+    rn, tol_h, dmax_h, atol_h, brk = _open(rnorm0, tol, dmax, atol, monitor,
+                                           beta1 < 0)
+    syncs = 1
+    sc = lambda v: torch.full((), v, dtype=beta1.dtype, device=b.device)
+    x, r2, w, w2 = x0, r1, torch.zeros_like(b), torch.zeros_like(b)
+    beta_old, beta, dbar, epsln = sc(1.0), beta1, sc(0.0), sc(0.0)
+    phibar, cs, sn = beta1, sc(-1.0), sc(0.0)
+    it = 0
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        safe_b = _nz(beta)
+        v = y / safe_b
+        yv = A(v)
+        if it > 0:
+            yv = yv - (beta / _nz(beta_old)) * r1
+        else:
+            yv = yv - torch.zeros_like(beta) * r1
+        alfa = pdot(v, yv)
+        yv = yv - (alfa / safe_b) * r2
+        y = M(yv)
+        beta_new = torch.sqrt(torch.clamp_min(pdot(yv, y), 0.0))
+        # the QR of the tridiagonal by Givens rotations
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta_new
+        dbar = -cs * beta_new
+        gamma = torch.sqrt(gbar * gbar + beta_new * beta_new)
+        gamma = torch.where(gamma == 0, 1e-30, gamma)
+        cs = gbar / gamma
+        sn = beta_new / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = (v - oldeps * w1 - delta * w2) / gamma
+        x = x + phi * w
+        r1, r2 = r2, yv
+        beta_old, beta = beta, beta_new
+        it += 1
+        rn = (phibar.abs() * scale).item()
+        syncs += 1
+        _mon(monitor, it, rn)
+    rn_true = pnorm(b - A(x)).item()
+    return (x, it, rn_true, _reason(rn_true, tol_h, atol_h, brk, dmax_h),
+            syncs + 1)
+
+
+def symmlq_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+                  monitor=None):
+    """SYMMLQ (Paige and Saunders; KSPSYMMLQ; JAX ``:1637``) for symmetric
+    indefinite ``A`` with an SPD ``M``: the LQ companion of MINRES, its
+    plane rotations on the device, monitoring the CG-point residual
+    estimate (one read per iteration) and moving to the CG point on exit.
+    The result and its reason use the exact final residual (one more
+    read)."""
+    _, tol = _tol(pnorm, b, rtol, atol)
+    r0 = b - A(x0)
+    rnorm0 = pnorm(r0)
+    dmax = _dmax(rnorm0, dtol)
+    y = M(r0)
+    beta1sq = pdot(r0, y)
+    beta1 = torch.sqrt(torch.clamp_min(beta1sq, 0.0))
+    safe_b1 = _nz(beta1)
+    v = y / safe_b1
+    y2 = A(v)
+    alfa = pdot(v, y2)
+    y2 = y2 - (alfa / safe_b1) * r0
+    r2 = y2
+    y3 = M(r2)
+    betasq = pdot(r2, y3)
+    beta = torch.sqrt(torch.clamp_min(betasq, 0.0))
+    # the recurrence norms are M-weighted: the test runs on ||r||
+    scale = rnorm0 / safe_b1
+    rn, tol_h, dmax_h, atol_h, brk = _open(rnorm0, tol, dmax, atol, monitor,
+                                           (beta1sq < 0) | (betasq < 0))
+    syncs = 1
+    sc = lambda val: torch.full((), val, dtype=beta1.dtype, device=b.device)
+    x, w, r1, yk = torch.zeros_like(b), torch.zeros_like(b), r0, y3
+    oldb, gbar, dbar = beta1, alfa, beta
+    rhs1, rhs2, snprod, bstep = beta1, sc(0.0), sc(1.0), sc(0.0)
+    it = 0
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        beta_c = beta
+        safe_beta = _nz(beta_c)
+        v = yk / safe_beta
+        yv = A(v)
+        yv = yv - (beta_c / _nz(oldb)) * r1
+        alfa = pdot(v, yv)
+        yv = yv - (alfa / safe_beta) * r2
+        r1, r2 = r2, yv
+        yk = M(r2)
+        oldb = beta_c
+        betasq = pdot(r2, yk)
+        brk_t = betasq < 0
+        beta = torch.sqrt(torch.clamp_min(betasq, 0.0))
+        # the plane rotation of the tridiagonal's LQ factorization
+        gamma = torch.sqrt(gbar ** 2 + oldb ** 2)
+        gamma = torch.where(gamma == 0, 1e-30, gamma)
+        cs = gbar / gamma
+        sn = oldb / gamma
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        # the LQ point
+        z = rhs1 / gamma
+        x = x + (z * cs) * w + (z * sn) * v
+        w = sn * w - cs * v
+        bstep = snprod * cs * z + bstep
+        snprod = snprod * sn
+        rhs1 = rhs2 - delta * z
+        rhs2 = -epsln * z
+        # the CG-point residual estimate of the convergence test
+        qrnorm = snprod * beta1
+        cgnorm = qrnorm * beta / torch.where(gbar == 0, 1e-30, gbar).abs()
+        it += 1
+        rn, brk_n = _step_read(cgnorm * scale, brk_t)
+        brk = brk or brk_n
+        syncs += 1
+        _mon(monitor, it, rn)
+    if it > 0:
+        # the LQ point moved to the CG point, plus the component along v1
+        # (an initial guess that already converged comes back untouched)
+        zbar = rhs1 / _nz(gbar)
+        bstep = snprod * zbar + bstep
+        xc = x + zbar * w
+        x = x0 + (xc + (bstep / safe_b1) * y)
+    else:
+        x = x0 + torch.zeros_like(b)
+    rn_true = pnorm(b - A(x)).item()
+    return (x, it, rn_true, _reason(rn_true, tol_h, atol_h, brk, dmax_h),
+            syncs + 1)
+
+
+def gcr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
+               pmatdot=None, dtol=None, monitor=None):
+    """Restarted GCR (KSPGCR; JAX ``:1532``), flexible: the pairs ``(v =
+    A z, z = M r)`` are stored in ``(local_shards, restart, lsize)``
+    buffers, cleared at each restart; the projection against them is one
+    ``psum`` of the whole basis and one product per shard. One read per
+    iteration."""
+    m = restart
+    _, tol = _tol(pnorm, b, rtol, atol)
+    r = b - A(x0)
+    rnorm = pnorm(r)
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h, atol_h = _open(rnorm, tol, dmax, atol, monitor)
+    syncs, x, it, brk = 1, x0, 0, False
+    V = b.new_zeros((b.shape[0], m) + tuple(b.shape[1:]))
+    Z = torch.zeros_like(V)
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        slot = it % m
+        if slot == 0:                  # a restart clears the direction set
+            V.zero_()
+            Z.zero_()
+        z = M(r)
+        v = A(z)
+        c = pmatdot(V, v)
+        v = v - shardwise_matmul(c, V)
+        z = z - shardwise_matmul(c, Z)
+        nv = pnorm(v)
+        brk_t = nv == 0
+        v = v / _nz(nv)
+        z = z / _nz(nv)
+        alpha = pdot(v, r)
+        x = x + alpha * z
+        r = r - alpha * v
+        V[:, slot] = v
+        Z[:, slot] = z
+        it += 1
+        rn, brk = _step_read(pnorm(r), brk_t)
+        syncs += 1
+        _mon(monitor, it, rn)
+    return x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs
+
+
+def fcg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
+               pmatdot=None, dtol=None, monitor=None, natural=False):
+    """Truncated flexible CG (Notay; KSPFCG; JAX ``:1746``): each direction
+    is A-orthogonalized against a sliding window of the last ``restart``
+    pairs ``(p, A p)``, one ``psum`` of the window and one product per
+    shard. ``natural`` monitors ``sqrt <r, M r>`` (relative to its initial
+    value; a negative value is a breakdown), carrying ``z = M r`` to the
+    next iteration. One read per iteration."""
+    m = restart
+    r = b - A(x0)
+    if natural:
+        z = M(r)
+        rz0 = pdot(r, z)
+        rnorm = _plans._nat(rz0)
+        tol = torch.clamp_min(rtol * rnorm, atol)
+        brk0 = rz0 < 0
+    else:
+        z = None                      # applied at the top of each body
+        _, tol = _tol(pnorm, b, rtol, atol)
+        rnorm = pnorm(r)
+        brk0 = rnorm <= -1.0
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h, atol_h, brk = _open(rnorm, tol, dmax, atol, monitor,
+                                           brk0)
+    syncs, x, it = 1, x0, 0
+    P = b.new_zeros((b.shape[0], m) + tuple(b.shape[1:]))
+    AP = torch.zeros_like(P)
+    eta = b.new_zeros(m)
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        slot = it % m
+        if not natural:
+            z = M(r)
+        c = pmatdot(AP, z)
+        coef = torch.where(eta != 0, c / _nz(eta), 0.0)
+        p = z - shardwise_matmul(coef, P)
+        Ap = A(p)
+        pAp = pdot(p, Ap)
+        brk_t = pAp == 0
+        alpha = torch.where(brk_t, 0.0, pdot(p, r) / _nz(pAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        P[:, slot] = p
+        AP[:, slot] = Ap
+        eta[slot] = pAp
+        if natural:
+            z = M(r)
+            rz = pdot(r, z)
+            brk_t = brk_t | (rz < 0)
+            rn_t = _plans._nat(rz)
+        else:
+            rn_t = pnorm(r)
+        it += 1
+        rn, brk = _step_read(rn_t, brk_t)
+        syncs += 1
+        _mon(monitor, it, rn)
+    return x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs
+
+
+def lgmres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
+                  aug=2, pmatdot=None, dtol=None, monitor=None):
+    """LGMRES (Baker, Jessup and Manteuffel; KSPLGMRES; JAX ``:1820``):
+    GMRES(restart) whose cycle space is augmented with the ``aug`` latest
+    error approximations (the normalized corrections of earlier cycles;
+    zero until filled), left-preconditioned, CGS2 Arnoldi, one host read per
+    cycle of ``restart + aug`` steps (:func:`_restarted_cycles`). ``aug <=
+    0`` is GMRES(restart)."""
+    if aug <= 0:
+        return gmres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit,
+                            restart=restart, pmatdot=pmatdot, dtol=dtol,
+                            monitor=monitor)
+    m = restart
+    s = m + aug
+    size = b.shape[0]
+    tol = torch.clamp_min(rtol * pnorm(M(b)), atol)
+    r = M(b - A(x0))
+    rn_t = pnorm(r)
+    # the augmentation vectors, newest first
+    Z = [b.new_zeros((size, aug) + tuple(b.shape[1:]))]
+
+    def cycle(r, beta):
+        V = b.new_zeros((size, s + 1) + tuple(b.shape[1:]))
+        W = b.new_zeros((size, s) + tuple(b.shape[1:]))
+        V[:, 0] = r / torch.where(beta == 0, 1.0, beta)
+        H = b.new_zeros((s + 1, s))
+        for j in range(s):
+            W[:, j] = V[:, j] if j < m else Z[0][:, j - m]
+            h, hnorm, vnext = _cgs2_step(V, M(A(W[:, j])), pmatdot, pnorm)
+            H[:, j] = h
+            H[j + 1, j] = hnorm
+            V[:, j + 1] = vnext
+        return W, H
+
+    def update(x, y, basis):
+        dx = shardwise_matmul(y, basis[0])
+        x = x + dx
+        ndx = pnorm(dx)
+        Z[0] = torch.cat([(dx / torch.where(ndx == 0, 1.0, ndx))[:, None],
+                          Z[0][:, :-1]], dim=1)
+        return x, M(b - A(x))
+
+    return _restarted_cycles(cycle, update, b, x0, r, rn_t, tol,
+                             _dmax(rn_t, dtol), atol, maxit, s, monitor,
+                             pnorm)
+
+
+def bcgsl_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, ell=2,
+                 dtol=None, monitor=None):
+    """BiCGStab(ell) (Sleijpen and Fokkema; KSPBCGSL; JAX ``:1891``),
+    right-preconditioned on ``(A M) y = r0``: ``ell`` BiCG steps and an
+    ``ell``-degree minimal-residual update an outer iteration, the small
+    ``ell x ell`` minimization in device scalars (the same arithmetic on
+    every rank). One read per outer iteration (``ell`` iterations), one
+    more for the final ``||b - A x||``."""
+    L = int(ell)
+    if L < 1:
+        raise ValueError(f"-ksp_bcgsl_ell must be >= 1, got {L}")
+    _, tol = _tol(pnorm, b, rtol, atol)
+    op = lambda v: A(M(v))
+    r0 = b - A(x0)
+    rtilde = r0
+    rnorm = pnorm(r0)
+    dmax = _dmax(rnorm, dtol)
+    rn, tol_h, dmax_h, atol_h = _open(rnorm, tol, dmax, atol, monitor)
+    syncs = 1
+    sc = lambda v: torch.full((), v, dtype=b.dtype, device=b.device)
+    zero = torch.zeros_like(b)
+    R = [r0] + [zero] * L
+    U = [zero] * (L + 1)
+    y = zero
+    rho0, alpha, omega = sc(1.0), sc(0.0), sc(1.0)
+    rn_t = rnorm
+    it, brk = 0, False
+    while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
+        y_old, rn_old = y, rn_t
+        brk_t = torch.zeros((), dtype=torch.bool, device=b.device)
+        rho0 = -omega * rho0
+        # ---- the BiCG part ----
+        for j in range(L):
+            rho1 = pdot(R[j], rtilde)
+            brk_t = brk_t | (rho0 == 0)
+            beta = alpha * rho1 / _nz(rho0)
+            rho0 = rho1
+            for i in range(j + 1):
+                U[i] = R[i] - beta * U[i]
+            U[j + 1] = op(U[j])
+            gam = pdot(U[j + 1], rtilde)
+            brk_t = brk_t | (gam == 0)
+            alpha = rho0 / _nz(gam)
+            for i in range(j + 1):
+                R[i] = R[i] - alpha * U[i + 1]
+            R[j + 1] = op(R[j])
+            y = y + alpha * U[0]
+        # ---- the MR part: min ||R0 - [R1..RL] g|| by modified Gram-Schmidt
+        tau = [[sc(0.0)] * (L + 1) for _ in range(L + 1)]
+        sigma = [sc(0.0)] * (L + 1)
+        gamma_p = [sc(0.0)] * (L + 1)
+        for j in range(1, L + 1):
+            for i in range(1, j):
+                tau[i][j] = pdot(R[j], R[i]) / _nz(sigma[i])
+                R[j] = R[j] - tau[i][j] * R[i]
+            sigma[j] = pdot(R[j], R[j])
+            brk_t = brk_t | (sigma[j] == 0)
+            gamma_p[j] = pdot(R[0], R[j]) / _nz(sigma[j])
+        gamma = [sc(0.0)] * (L + 1)
+        gamma_pp = [sc(0.0)] * (L + 1)
+        gamma[L] = gamma_p[L]
+        omega = gamma[L]
+        brk_t = brk_t | (omega == 0)
+        for j in range(L - 1, 0, -1):
+            gamma[j] = gamma_p[j] - sum(
+                (tau[j][i] * gamma[i] for i in range(j + 1, L + 1)),
+                sc(0.0))
+        for j in range(1, L):
+            gamma_pp[j] = gamma[j + 1] + sum(
+                (tau[j][i] * gamma[i + 1] for i in range(j + 1, L)),
+                sc(0.0))
+        # ---- the update ----
+        y = y + gamma[1] * R[0]
+        R[0] = R[0] - gamma_p[L] * R[L]
+        U[0] = U[0] - gamma[L] * U[L]
+        for j in range(1, L):
+            U[0] = U[0] - gamma[j] * U[j]
+            y = y + gamma_pp[j] * R[j]
+            R[0] = R[0] - gamma_p[j] * R[j]
+        # a breakdown freezes the iterate (the updates after it are garbage)
+        y = torch.where(brk_t, y_old, y)
+        rn_t = torch.where(brk_t, rn_old, pnorm(R[0]))
+        it += L
+        rn, brk = _step_read(rn_t, brk_t)
+        syncs += 1
+        _mon(monitor, it, rn)
+    x = x0 + M(y)
+    rn_true = pnorm(b - A(x)).item()
+    return (x, it, rn_true, _reason(rn, tol_h, atol_h, brk, dmax_h),
+            syncs + 1)
+
+
+def chebyshev_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
+                     monitor=None):
+    """Chebyshev iteration (KSPCHEBYSHEV; JAX ``:946``) on ``M^-1 A`` with
+    PETSc's default bounds ``[0.1, 1.1] lmax``, ``lmax`` from 10 power
+    iterations on the device (no read); the iteration itself needs no
+    reduction but the monitored ``||r||``, read once per iteration."""
+    bnorm, tol = _tol(pnorm, b, rtol, atol)
+    tiny = 1e-30
+    v = b / torch.clamp_min(bnorm, tiny)
+    for _ in range(10):
+        w = M(A(v))
+        v = w / torch.clamp_min(pnorm(w), tiny)
+    lam_max = pdot(v, M(A(v))) / torch.clamp_min(pdot(v, v), tiny)
+    emax, emin = 1.1 * lam_max, 0.1 * lam_max
+    theta = (emax + emin) / 2.0
+    delta = (emax - emin) / 2.0
+    sigma = theta / delta
+    r = b - A(x0)
+    z = M(r)
+    rnorm = pnorm(r)
+    dmax = _dmax(rnorm, dtol)
+    rho = 1.0 / sigma
+    d = z / theta
+    rn, tol_h, dmax_h, atol_h = _open(rnorm, tol, dmax, atol, monitor)
+    syncs, x, it = 1, x0, 0
+    while _live_h(rn, tol_h, dmax_h, it, maxit, False):
+        x = x + d
+        r = r - A(d)
+        z = M(r)
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * z
+        rho = rho_new
+        it += 1
+        rn = pnorm(r).item()
+        syncs += 1
+        _mon(monitor, it, rn)
+    return x, it, rn, _reason(rn, tol_h, atol_h, False, dmax_h), syncs
 
 
 def _hessenberg_lstsq(H, beta):
@@ -511,6 +1261,21 @@ def cgne_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, At=None,
     return x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs
 
 
+# the JAX KSP_KERNELS (krylov.py:1999-2025); fbcgs is BiCGStab, already
+# right-preconditioned (flexible by construction), as in the JAX package
+KSP_KERNELS = {
+    "cg": cg_kernel, "pipecg": pipecg_kernel, "sstep": sstep_kernel,
+    "bcgs": bcgs_kernel, "gmres": gmres_kernel, "fgmres": fgmres_kernel,
+    "cgs": cgs_kernel, "tfqmr": tfqmr_kernel, "cr": cr_kernel,
+    "lsqr": lsqr_kernel, "minres": minres_kernel,
+    "chebyshev": chebyshev_kernel, "preonly": preonly_kernel,
+    "richardson": richardson_kernel, "bicg": bicg_kernel,
+    "gcr": gcr_kernel, "cgne": cgne_kernel, "symmlq": symmlq_kernel,
+    "fcg": fcg_kernel, "lgmres": lgmres_kernel, "bcgsl": bcgsl_kernel,
+    "fbcgs": bcgs_kernel, "fbcgsr": fbcgsr_kernel,
+}
+
+
 def stencil_cg_eligible(ksp_type, pc, operator, many=False,
                         nullspace=None, natural=False) -> bool:
     """The CG fast-path gate of the JAX ``build_ksp_program`` (``:2264``;
@@ -525,7 +1290,21 @@ def stencil_cg_eligible(ksp_type, pc, operator, many=False,
             and nullspace is None and not natural
             and pc.get_type() in kinds
             and hasattr(operator, dot)
-            and hasattr(operator, "grid3d")
+            and _on_stencil(pc, operator))
+
+
+def stencil_pipe_eligible(ksp_type, pc, operator, nullspace=None) -> bool:
+    """The pipelined-CG fast-path gate (JAX ``:2289-2298``): pipecg with no
+    null space, PC none/jacobi built on the operator itself, a grid apply
+    and a uniform diagonal."""
+    return (ksp_type == "pipecg" and nullspace is None
+            and pc.get_type() in ("none", "jacobi")
+            and hasattr(operator, "local_apply_grid3")
+            and _on_stencil(pc, operator))
+
+
+def _on_stencil(pc, operator) -> bool:
+    return (hasattr(operator, "grid3d")
             and getattr(operator, "uniform_diagonal", None) is not None
             and (pc.get_type() == "none" or pc._mat is operator))
 
@@ -551,20 +1330,81 @@ def make_projector(comm, basis, prec):
     return project
 
 
+def fused_dots(comm, up, cols=False):
+    """``fdots(pairs) -> (len(pairs)[, k])``: the local dots of every pair
+    ``(u, v)`` of shard-stacked tensors, stacked per shard and summed in ONE
+    ``psum`` (JAX ``cg_plans.fuse_psum``): the one reduction of a pipelined
+    CG iteration and fbcgsr's second phase. ``cols``: per column of
+    ``(size, k, lsize)`` blocks, each column's dot as the single-RHS one."""
+    size = comm.local_shards
+
+    def dot(u, v):
+        return torch.dot(up(u).reshape(-1), up(v).reshape(-1))
+
+    def fdots(pairs):
+        if cols:
+            parts = [torch.stack([torch.stack([dot(u[i, j], v[i, j])
+                                               for j in range(u.shape[1])])
+                                  for u, v in pairs])
+                     for i in range(size)]
+        else:
+            parts = [torch.stack([dot(u[i], v[i]) for u, v in pairs])
+                     for i in range(size)]
+        return comm.psum(parts)
+
+    return fdots
+
+
+def gram_psum(comm, cols=False):
+    """``gram(C) -> E``: the Gram matrix of the rows of ``C (size, q,
+    lsize)`` (``cols``: ``(size, q, k, lsize)``, one ``(q, q)`` block per
+    column, returned as ``(q, q, k)``), one product per shard and column and
+    ONE ``psum`` of the stacked partials: the s-step block's reduction (JAX
+    ``cg_plans.fuse_gram_psum``). A column's block is the product a
+    single-RHS solve makes: a batched product may accumulate its long sums
+    in another order, which the monomial basis' conditioning magnifies."""
+    def gram(C):
+        if cols:
+            parts = [torch.stack([C[i, :, j] @ C[i, :, j].T
+                                  for j in range(C.shape[2])], dim=-1)
+                     for i in range(C.shape[0])]
+        else:
+            parts = [C[i] @ C[i].T for i in range(C.shape[0])]
+        return comm.psum(parts)
+
+    return gram
+
+
+def _combine(coef, rows):
+    """``sum_a coef[a] rows[:, a]`` per shard of ``rows (size, m, ...)``:
+    one product per shard (``coef (m,)``), and for a column block
+    (``coef (m, k)``, ``rows (size, m, k, L)``) one per shard and column,
+    the single-RHS product."""
+    c = coef.to(rows.dtype)
+    if c.dim() == 1:
+        return shardwise_matmul(c, rows)
+    return torch.stack([torch.stack([torch.matmul(c[:, j], rows[i, :, j])
+                                     for j in range(c.shape[1])])
+                        for i in range(rows.shape[0])])
+
+
 def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
                       true_res=False, nullspace=None, monitor=None,
-                      natural=False):
+                      natural=False, aug=2, ell=2, sstep_s=4):
     """The solve program for one configuration:
     ``prog(b, x0, rtol, atol, dtol, maxit) -> (x, it, rnorm, reason,
     host_syncs)`` on flat padded data tensors.
 
     CG with PC none/jacobi/mg on a stencil operator takes the fused fast
-    path; everything else (a :class:`..core.mat.Mat` or
+    path, and pipecg with PC none/jacobi the pipelined one (the grid apply
+    and the scalar Jacobi); everything else (a :class:`..core.mat.Mat` or
     :class:`..core.shell.ShellMat`, the other types, a null space, the
     natural norm) the general route of ``operator.local_spmv`` and
     ``pc.local_apply``. lsqr, bicg and cgne also take
     ``operator.local_spmv_t`` (bicg ``pc.local_apply_transpose`` too), and
-    raise ``ValueError`` where the operator or PC has none.
+    raise ``ValueError`` where the operator or PC has none. ``restart``
+    parameterises gmres/fgmres/gcr/fcg/lgmres, ``aug`` lgmres, ``ell``
+    bcgsl and ``sstep_s`` sstep (JAX ``:2211-2218``).
 
     ``nullspace`` is this process's rows ``(k, local_padded)`` of the
     orthonormal basis of the operator's null space, or None: the program
@@ -596,6 +1436,11 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
     spmv = operator.local_spmv(comm)
     project = (make_projector(comm, nullspace, prec)
                if nullspace is not None else None)
+    fdots = fused_dots(comm, up)
+
+    def fused(r, u, w):
+        return tuple(fdots([(r, u), (w, u), (r, r)]))
+
     if stencil_cg_eligible(ksp_type, pc, operator, nullspace=nullspace,
                            natural=natural):
         matvec_dot = operator.local_matvec_dot(comm)
@@ -609,26 +1454,43 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
                 matvec_dot, inv_diag, pdot, pnorm, b, x0, rtol, atol, maxit,
                 dtol=dtol, grid3d=operator.grid3d, M3=pc_apply3, **plan,
                 **mon)
+    elif stencil_pipe_eligible(ksp_type, pc, operator, nullspace):
+        apply3 = operator.local_apply_grid3(comm)
+        inv_diag = (1.0 if pc.get_type() == "none"
+                    else 1.0 / operator.uniform_diagonal)
+
+        def prog(b, x0, rtol, atol, dtol, maxit):
+            return pipecg_stencil_kernel(
+                apply3, inv_diag, pnorm, fused, b, x0, rtol, atol, maxit,
+                dtol=dtol, grid3d=operator.grid3d, **plan, **mon)
     else:
         pc_apply = pc.local_apply(comm, n)
         A, M = spmv, pc_apply
         if project is not None:
             A = lambda v: project(spmv(v))
             M = lambda r: project(pc_apply(r))
-        kernel, kw = {
-            "cg": (cg_kernel, dict(plan, natural=natural)),
-            "bcgs": (bcgs_kernel, {}),
-            "gmres": (gmres_kernel, {"restart": restart,
-                                     "pmatdot": _pmatdot(comm)}),
-            "fgmres": (fgmres_kernel, {"restart": restart,
-                                       "pmatdot": _pmatdot(comm)}),
-            "lsqr": (lsqr_kernel, {}),
-            "bicg": (bicg_kernel, {}),
-            "cgne": (cgne_kernel, {}),
+        kernel = KSP_KERNELS[ksp_type]
+        kw = {}
+        if ksp_type in _RESTARTED:
+            kw = {"restart": restart, "pmatdot": _pmatdot(comm)}
+            if ksp_type == "lgmres":
+                kw["aug"] = aug
+        elif ksp_type == "bcgsl":
+            kw = {"ell": ell}
+        elif ksp_type == "fbcgsr":
+            kw = {"preduce": fdots}
+        elif ksp_type == "pipecg":
+            kw = dict(plan, fused=fused)
+        elif ksp_type == "sstep":
+            kw = dict(plan, s=max(1, int(sstep_s)), gram=gram_psum(comm),
+                      combine=_combine)
+        elif ksp_type == "cg":
+            kw = dict(plan, natural=natural)
+        elif ksp_type == "preonly":
             # refinement is for the direct factorizations only
-            "preonly": (preonly_kernel,
-                        {"refine": pc.kind in ("lu", "crtri", "crband")}),
-        }[ksp_type]
+            kw = {"refine": pc.kind in ("lu", "crtri", "crband")}
+        if ksp_type in NATURAL_TYPES[1:]:
+            kw["natural"] = natural
         if ksp_type != "preonly":       # preonly records no history
             kw = dict(kw, **mon)
         if ksp_type in _NEEDS_TRANSPOSE:
@@ -681,18 +1543,17 @@ def _transpose_applies(comm, ksp_type, pc, operator, project) -> dict:
 
 def _precision(ksp_type, operator):
     """The operator's precision plan; raises ``ValueError`` for a mixed plan
-    under a KSP type without a mixed-precision body (JAX
-    ``krylov.py:2177-2185``: the port's cg and the loop-free preonly take
-    one)."""
+    under a KSP type without a body for it (JAX ``krylov.py:2177-2185``:
+    the CG family, which the plans build, and the loop-free
+    preonly/richardson bodies take one)."""
     prec = _plans.precision_plan(operator.dtype)
-    if prec.mixed and ksp_type not in ("cg", "preonly"):
+    if prec.mixed and ksp_type not in MIXED_TYPES:
         raise ValueError(
             f"sub-f32 storage ({prec.key()[0]}) solves are assembled by the "
             f"mixed-precision CG plans; KSP {ksp_type!r} has no "
-            "precision-plan body — use cg (typically under RefinedKSP fp64 "
-            "refinement), or f32 storage. The JAX package has none for it "
-            "either; its pipecg/sstep/richardson bodies come with ROADMAP.md "
-            "Queue A item 5")
+            "precision-plan body — use cg/pipecg/sstep (typically under "
+            "RefinedKSP fp64 refinement), richardson, or f32 storage, as in "
+            "the JAX package")
     return prec
 
 
@@ -713,18 +1574,23 @@ def batched_pc_supported(pc) -> bool:
     return pc.kind in ("none", "jacobi", "bjacobi", "lu")
 
 
+BATCHED_TYPES = ("cg", "pipecg", "sstep")
+
+
 def build_ksp_program_many(comm, ksp_type, pc, operator, true_res=False,
-                           monitor=None):
+                           monitor=None, sstep_s=4):
     """The batched solve program:
     ``prog(B, X0, rtol, atol, dtol, maxit) -> (X, iters, rnorms, reasons,
     host_syncs)`` on ``(size, k, lsize)`` blocks, with per-column lists.
 
-    Both routes of the JAX builder: the stencil fast path (CG, PC
+    The routes of the JAX builder: the stencil fast path (CG, PC
     none/jacobi built on the system operator) and the general route
     (``local_spmv_many`` + ``PC.local_apply_many``), which the stencil takes
-    when the PC's operator is not the system operator. The reductions are
-    one ``torch.dot`` per column and shard, exactly the single-RHS ``pdot``
-    of each column, summed over the shards in shard order.
+    when the PC's operator is not the system operator, and which pipecg and
+    sstep always take (JAX ``:2916-2929``: one fused reduction an iteration
+    for every column, one Gram reduction a block). The reductions are one
+    ``torch.dot`` per column and shard, exactly the single-RHS ``pdot`` of
+    each column, summed over the shards in shard order.
 
     With ``true_res`` the program ends with the JAX epilogue for every
     column (``:2920-2935``): one batched product ``A X`` (on the stencil one
@@ -732,7 +1598,7 @@ def build_ksp_program_many(comm, ksp_type, pc, operator, true_res=False,
     ``||b_j - A x_j||`` and ``||b_j||``, appended as two lists (one more
     host read). ``monitor(j, it, rn)`` receives each column's residual
     norms as the loop reads them."""
-    if ksp_type != "cg":
+    if ksp_type not in BATCHED_TYPES:
         raise ValueError(f"KSP {ksp_type!r} has no batched program; "
                          "KSP.solve_many solves its columns one by one")
     size = comm.local_shards
@@ -765,11 +1631,21 @@ def build_ksp_program_many(comm, ksp_type, pc, operator, true_res=False,
         if pc_apply is None:
             raise ValueError(f"pc {pc.get_type()!r} has no batched apply; "
                              "KSP.solve_many solves its columns one by one")
+        if ksp_type == "pipecg":
+            fdots = fused_dots(comm, up, cols=True)
+            kernel = pipecg_kernel_many
+            kw = {"fused": lambda R, U, W: tuple(
+                fdots([(R, U), (W, U), (R, R)]))}
+        elif ksp_type == "sstep":
+            kernel = sstep_kernel_many
+            kw = {"s": max(1, int(sstep_s)),
+                  "gram": gram_psum(comm, cols=True), "combine": _combine}
+        else:
+            kernel, kw = cg_kernel_many, {}
 
         def prog(B, X0, rtol, atol, dtol, maxit):
-            return cg_kernel_many(spmv, pc_apply, pdot, pnorm, B, X0, rtol,
-                                  atol, maxit, dtol=dtol, monitor=monitor,
-                                  **plan)
+            return kernel(spmv, pc_apply, pdot, pnorm, B, X0, rtol, atol,
+                          maxit, dtol=dtol, monitor=monitor, **kw, **plan)
     if not true_res:
         return prog
 

@@ -1,10 +1,10 @@
 """KSP: the Krylov solver object.
 
 The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/ksp.py``
-(``KSP``, ``:47``): ``create``, ``set_type`` (cg, gmres, fgmres, bcgs,
-preonly, lsqr, bicg, cgne), ``get_pc``/``set_pc``, ``set_operators``/
+(``KSP``, ``:47``): ``create``, ``set_type`` (every type of the JAX
+``KSP_KERNELS``), ``get_pc``/``set_pc``, ``set_operators``/
 ``get_operators``, ``set_tolerances``/``get_tolerances``,
-``set_norm_type`` (natural for cg), ``set_initial_guess_nonzero``,
+``set_norm_type`` (natural for cg/fcg/cr), ``set_initial_guess_nonzero``,
 ``set_monitor``, ``set_convergence_history``, ``set_true_residual_check``,
 ``set_from_options``, ``set_up``, ``view``, ``solve`` ->
 :class:`SolveResult` and ``solve_many`` -> :class:`BatchedSolveResult`
@@ -16,9 +16,16 @@ current iterate.
 
 Monitors (``set_monitor``, ``-ksp_monitor``, the convergence history) are
 called on the host with each residual norm the loop reads anyway, in
-order, as ``(ksp, iteration, rnorm)``: per iteration, or per restart cycle
-for gmres/fgmres, the iteration-0 norm included. They add no host read;
+order, as ``(ksp, iteration, rnorm)``: per iteration, per restart cycle
+for gmres/fgmres/lgmres, or per ``ell`` steps for bcgsl, the iteration-0
+norm included. They add no host read;
 one that raises ends the solve with its exception.
+
+The silent-corruption guard (``-ksp_abft``, ``-ksp_residual_replacement``,
+and for pipecg/sstep ``-ksp_pipeline_auto_replacement``/
+``-ksp_sstep_auto_replacement``) is ROADMAP.md Queue A item 6: a solve that
+would arm it raises naming that item and its flag, and never runs the
+unguarded loop in its place.
 
 A null space on the operator (``Mat.set_nullspace``) is projected out in
 the solve program (``solvers/krylov.py``). A bfloat16 operator runs the
@@ -41,8 +48,9 @@ from ..parallel.mesh import numpy_dtype
 from ..utils.convergence import BatchedSolveResult, ConvergedReason, SolveResult
 from ..utils.dtypes import tolerance_dtype
 from ..utils.options import global_options
-from .krylov import (NATURAL_TYPES, batched_pc_supported, build_ksp_program,
-                     build_ksp_program_many, check_ksp_type)
+from .krylov import (BATCHED_TYPES, NATURAL_TYPES, batched_pc_supported,
+                     build_ksp_program, build_ksp_program_many,
+                     check_ksp_type)
 from .pc import PC
 
 DEFAULT_RTOL = 1e-5   # PETSc's KSP default
@@ -55,11 +63,19 @@ _NORM_TYPES = ("default", "none", "preconditioned", "unpreconditioned",
                "natural")
 _NORM_BY_INT = {-1: "default", 0: "none", 1: "preconditioned",
                 2: "unpreconditioned", 3: "natural"}
-# the norm each loop monitors (fixed in its recurrence)
-_KERNEL_NORMS = {"gmres": "preconditioned", "preonly": "none"}
-# restarted solvers advance a whole cycle at a time: no fixed-iteration
-# contract (norm type 'none') for them
-_CYCLE_GRANULAR = ("gmres", "fgmres")
+# the norm each loop monitors (fixed in its recurrence; JAX ksp.py:274)
+_KERNEL_NORMS = {"gmres": "preconditioned", "lgmres": "preconditioned",
+                 "cr": "preconditioned", "symmlq": "unpreconditioned",
+                 "preonly": "none"}
+# restarted solvers advance a whole cycle at a time, bcgsl ell steps: no
+# fixed-iteration contract (norm type 'none') for them (JAX ksp.py:312)
+_CYCLE_GRANULAR = ("gmres", "fgmres", "lgmres", "bcgsl")
+# the replacement interval pipecg and sstep arm when
+# -ksp_residual_replacement is unset (JAX ksp.py:520-531): the guard, item 6
+_AUTO_REPLACEMENT = {
+    "pipecg": ("pipeline_auto_replacement", "ksp_pipeline_auto_replacement",
+               6),
+    "sstep": ("sstep_auto_replacement", "ksp_sstep_auto_replacement", 6)}
 # re-entries of the true-residual gate before it reports a failure
 _MAX_REENTRIES = 3
 # petsc4py's default cap on the convergence history
@@ -118,18 +134,20 @@ class KSP:
         self.megasolve = False
         self.megasolve_stencil_fastpath = False
         self.reduction_auto = False
-        # read and stored as the JAX package stores them: each only
-        # parameterises a type or mode the port lacks, which raises when
-        # chosen. -ksp_unroll only reschedules XLA's loop (JAX
-        # ksp.py:62-70) and has no effect here.
-        self.abft_tol = 256.0
-        self.lgmres_augment = 2
-        self.bcgsl_ell = 2
-        self.unroll = 1
+        self.lgmres_augment = 2       # -ksp_lgmres_augment
+        self.bcgsl_ell = 2            # -ksp_bcgsl_ell
+        self.sstep_s = 4              # -ksp_sstep_s: the s-step block size
+        # the replacement interval of pipecg/sstep when
+        # -ksp_residual_replacement is unset: it arms the guard (item 6)
         self.pipeline_auto_replacement = 0
-        self.sstep_s = 4
-        self.sstep_max_replacements = 3
         self.sstep_auto_replacement = 0
+        # read and stored as the JAX package stores them: each only
+        # parameterises a mode the port lacks (the guard, the reduction
+        # probe), which raises when chosen. -ksp_unroll only reschedules
+        # XLA's loop (JAX ksp.py:62-70) and has no effect here.
+        self.abft_tol = 256.0
+        self.unroll = 1
+        self.sstep_max_replacements = 3
         self.reduction_probe_refresh = False
         self.result = SolveResult()
         self.result_many = BatchedSolveResult()
@@ -142,8 +160,8 @@ class KSP:
         return self
 
     def set_type(self, ksp_type: str):
-        """The Krylov type; the JAX package's types that are not ported
-        raise ``NotImplementedError`` naming ROADMAP.md Queue A item 5."""
+        """The Krylov type: any of the JAX package's ``KSP_KERNELS``; a type
+        neither package has raises ``ValueError``."""
         self._type = check_ksp_type(str(ksp_type).lower())
         return self
 
@@ -312,8 +330,9 @@ class KSP:
             if self._type in _CYCLE_GRANULAR:
                 raise ValueError(
                     f"norm type 'none' is unavailable for KSP {self._type!r} "
-                    "(iterations advance a whole restart cycle at a time, so "
-                    "a fixed max_it contract cannot hold)")
+                    "(iterations advance a whole restart cycle, or ell steps "
+                    "for bcgsl, at a time, so a fixed max_it contract cannot "
+                    "hold)")
             return
         have = _KERNEL_NORMS.get(self._type, "unpreconditioned")
         if t != have:
@@ -351,6 +370,7 @@ class KSP:
         ``-ksp_norm_type``, ``-ksp_batch_limit``,
         ``-ksp_true_residual_check``, ``-ksp_true_residual_margin``,
         ``-ksp_converged_reason``, ``-ksp_monitor``, ``-ksp_view``,
+        ``-ksp_lgmres_augment``, ``-ksp_bcgsl_ell``, ``-ksp_sstep_s``,
         ``-pc_type``, ``-pc_factor_mat_solver_type``, ``-pc_bjacobi_blocks``,
         ``-pc_sor_omega``, ``-pc_asm_overlap``, ``-pc_factor_fill``,
         ``-pc_setup_device``, ``-pc_mg_smooth_type``,
@@ -359,12 +379,14 @@ class KSP:
         The flags of the JAX modes the port lacks are read too: a solve with
         ``-ksp_abft``, ``-ksp_residual_replacement``, ``-ksp_megasolve``,
         ``-ksp_megasolve_stencil_fastpath`` or ``-ksp_reduction_auto`` on
-        raises ``NotImplementedError``; ``-ksp_abft_tol``,
-        ``-ksp_lgmres_augment``, ``-ksp_bcgsl_ell``, ``-ksp_sstep_*``,
-        ``-ksp_pipeline_auto_replacement``, ``-ksp_reduction_probe_refresh``,
-        ``-pc_gamg_threshold``, ``-pc_gamg_coarse_eq_limit`` and
-        ``-pc_mg_levels`` parameterise types the port lacks and are stored;
-        ``-ksp_unroll`` is stored and has no effect."""
+        raises ``NotImplementedError``, and so does a pipecg solve with
+        ``-ksp_pipeline_auto_replacement`` or an sstep solve with
+        ``-ksp_sstep_auto_replacement`` above 0 (they arm the guard);
+        ``-ksp_abft_tol``, ``-ksp_sstep_max_replacements``,
+        ``-ksp_reduction_probe_refresh``, ``-pc_gamg_threshold``,
+        ``-pc_gamg_coarse_eq_limit`` and ``-pc_mg_levels`` parameterise modes
+        the port lacks and are stored; ``-ksp_unroll`` is stored and has no
+        effect."""
         opt = global_options()
         p = self._prefix
         t = opt.get_string(p + "ksp_type")
@@ -436,10 +458,30 @@ class KSP:
 
     setFromOptions = set_from_options
 
+    def _effective_replacement(self) -> int:
+        """The replacement interval a solve arms (JAX ``ksp.py:520``):
+        ``-ksp_residual_replacement`` when set, else pipecg's
+        ``-ksp_pipeline_auto_replacement`` or sstep's
+        ``-ksp_sstep_auto_replacement``."""
+        if self.residual_replacement > 0:
+            return int(self.residual_replacement)
+        if self._type in _AUTO_REPLACEMENT:
+            return int(getattr(self, _AUTO_REPLACEMENT[self._type][0]))
+        return 0
+
+    def _guard_requested(self) -> bool:
+        """Whether a solve would arm the silent-corruption guard (JAX
+        ``ksp.py:533``)."""
+        return bool(self.abft or self._effective_replacement() > 0)
+
     def _check_modes(self):
         """Raise ``NotImplementedError`` when a mode the port lacks is on
-        (``_UNPORTED_MODES``), naming the Queue A item that brings it."""
-        for attr, flag, item in _UNPORTED_MODES:
+        (``_UNPORTED_MODES``, or the guard armed by pipecg's or sstep's
+        automatic replacement), naming the Queue A item that brings it."""
+        modes = list(_UNPORTED_MODES)
+        if self._guard_requested() and self._type in _AUTO_REPLACEMENT:
+            modes.append(_AUTO_REPLACEMENT[self._type])
+        for attr, flag, item in modes:
             if getattr(self, attr):
                 raise NotImplementedError(
                     f"-{self._prefix}{flag}: this mode of the JAX package is "
@@ -546,7 +588,9 @@ class KSP:
                                  restart=self.restart, true_res=gate,
                                  nullspace=self._nullspace_basis(mat),
                                  monitor=monitor,
-                                 natural=self._norm_type == "natural")
+                                 natural=self._norm_type == "natural",
+                                 aug=self.lgmres_augment,
+                                 ell=self.bcgsl_ell, sstep_s=self.sstep_s)
         x0 = (x.data.clone() if guess_nonzero
               else torch.zeros_like(b.data))
         t0 = time.perf_counter()
@@ -645,9 +689,10 @@ class KSP:
         and, when monitoring, histories; a column that converges early
         freezes while the others run on.
 
-        CG with PC none/jacobi/bjacobi/lu (dense), no null space and norm
-        type default/none runs the ``k`` recurrences in lockstep: one
-        operator pass and one reduction per phase serve every column. With
+        CG, pipecg and sstep with PC none/jacobi/bjacobi/lu (dense), no
+        null space and norm type default/none run the ``k`` recurrences in
+        lockstep: one operator pass and one reduction per phase (pipecg:
+        per iteration; sstep: per block) serve every column. With
         ``-ksp_true_residual_check`` the program's epilogue returns every
         column's ``||b_j - A x_j||`` and ``||b_j||``; the columns whose true
         residual misses ``max(rtol ||b_j||, atol)`` send the whole block
@@ -689,7 +734,7 @@ class KSP:
         self._check_norm_type()
         self.set_up()
         pc = self.get_pc()
-        if not (self._type == "cg" and batched_pc_supported(pc)
+        if not (self._type in BATCHED_TYPES and batched_pc_supported(pc)
                 and self._norm_type in ("default", "none")
                 and self._nullspace_basis(mat) is None
                 and hasattr(mat, "local_spmv_many")):
@@ -706,7 +751,8 @@ class KSP:
 
         prog = build_ksp_program_many(comm, self._type, pc, mat,
                                       true_res=gate,
-                                      monitor=record if monitored else None)
+                                      monitor=record if monitored else None,
+                                      sstep_s=self.sstep_s)
         # one placement of each block: stacked on the card from Vecs, or
         # transposed on the host and copied once
         place = lambda blk, is_vecs: (
@@ -771,7 +817,8 @@ class KSP:
             self._last_reentries += 1
             if prog2 is None:
                 prog2 = build_ksp_program_many(comm, self._type, pc, mat,
-                                               true_res=True)
+                                               true_res=True,
+                                               sstep_s=self.sstep_s)
             Xd, it2, rn2, rs2, s2, trn, bn = prog2(Bd, Xd, *tols,
                                                    self.max_it)
             syncs += s2

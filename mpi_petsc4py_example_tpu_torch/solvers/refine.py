@@ -36,7 +36,7 @@ import numpy as np
 from ..core.mat import Mat
 from ..parallel.mesh import DeviceComm
 from ..utils.convergence import ConvergedReason, SolveResult
-from ..utils.dtypes import inner_precision_dtype, real_eps
+from ..utils.dtypes import inner_precision_dtype, is_low_precision, real_eps
 from ..utils.options import global_options
 from .ksp import KSP
 
@@ -162,10 +162,24 @@ class RefinedKSP:
 
     # ---- the Wilkinson loop ------------------------------------------------
     def _arm_inner_guards(self):
-        """Nothing to arm: the JAX package bounds the recurrence drift of
-        its pipelined (``pipecg``) and s-step (``sstep``) inner solves here,
-        and neither type is in the port's ``KSP_TYPES`` (ROADMAP Queue A
-        item 5)."""
+        """Arm the inner KSP's drift bounds as the JAX package does
+        (``refine.py:177-201``): a pipecg inner on sub-f32 storage, with no
+        replacement set, gets ``-ksp_pipeline_auto_replacement 25`` (its u/w
+        recurrences drift with the storage epsilon), and an sstep inner at
+        any precision ``-ksp_sstep_auto_replacement 25`` (the monomial
+        basis' conditioning can stall the correction solves). Both arm the
+        guarded loops, ROADMAP.md Queue A item 6, so those inner solves
+        raise ``NotImplementedError`` naming it; a pipecg inner at f32/f64
+        runs unguarded, as in the JAX package."""
+        if (self.inner.get_type() == "pipecg"
+                and is_low_precision(self.inner_dtype)
+                and self.inner.residual_replacement == 0
+                and self.inner.pipeline_auto_replacement == 0):
+            self.inner.pipeline_auto_replacement = 25
+        if (self.inner.get_type() == "sstep"
+                and self.inner.residual_replacement == 0
+                and self.inner.sstep_auto_replacement == 0):
+            self.inner.sstep_auto_replacement = 25
 
     def _effective_inner_rtol(self) -> float:
         """The per-correction target the inner solve runs at:

@@ -223,15 +223,26 @@ def test_set_from_options_subset():
     assert (res.iterations, res.reason) == (7, CR.CONVERGED_ITS)
 
 
+# a port-side copy of the keys of the JAX package's KSP_KERNELS
+# (solvers/krylov.py:1999-2025)
+JAX_KSP_TYPES = ("cg", "pipecg", "sstep", "bcgs", "gmres", "fgmres", "cgs",
+                 "tfqmr", "cr", "lsqr", "minres", "chebyshev", "preonly",
+                 "richardson", "bicg", "gcr", "cgne", "symmlq", "fcg",
+                 "lgmres", "bcgsl", "fbcgs", "fbcgsr")
+
+
 @pytest.mark.parametrize("call", ["ksp_type", "pc_type", "norm_type"])
 def test_unported_choices_raise(call):
-    """A choice in neither package raises ``ValueError``; a JAX KSP type the
-    port has not ported yet raises ``NotImplementedError`` naming its Queue
-    A item; the natural norm is cg's only, as in the JAX package."""
+    """A choice in neither package raises ``ValueError``, and every KSP type
+    of the JAX package is accepted (the last ones landed with ROADMAP.md
+    Queue A item 5); the natural norm is cg/fcg/cr's only, as in the JAX
+    package."""
     ksp = pt.KSP().create(pt.DeviceComm(device="cpu"))
     if call == "ksp_type":
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            ksp.set_type("tfqmr")
+        from mpi_petsc4py_example_tpu.solvers.krylov import KSP_KERNELS
+        assert set(JAX_KSP_TYPES) == set(KSP_KERNELS)
+        for t in JAX_KSP_TYPES:
+            assert ksp.set_type(t).get_type() == t
         with pytest.raises(ValueError):
             ksp.set_type("nosuchtype")
     elif call == "pc_type":

@@ -531,7 +531,10 @@ def _port_cfg3(ksp_type="cg", pc_type="jacobi", prefix=""):
 @pytest.mark.parametrize("flag,item", [
     (["-ksp_abft"], 6), (["-ksp_residual_replacement", "10"], 6),
     (["-ksp_megasolve"], 5), (["-ksp_megasolve_stencil_fastpath"], 5),
-    (["-ksp_reduction_auto"], 5)])
+    (["-ksp_reduction_auto"], 5),
+    # the automatic replacement of pipecg and sstep arms the guard
+    (["-ksp_pipeline_auto_replacement", "10", "-ksp_type", "pipecg"], 6),
+    (["-ksp_sstep_auto_replacement", "10", "-ksp_type", "sstep"], 6)])
 def test_unported_mode_flag_raises_naming_its_item(flag, item):
     pt.init(["prog", *flag])
     ksp, bv, xv = _port_cfg3()
@@ -648,3 +651,41 @@ def test_prefixed_refined_ksp_reads_the_inner_prefix(clean_jax_options):
             jrk.megasolve, jrk.inner.megasolve, jrk.inner.get_type(),
             jrk.inner.get_pc().get_type())
     assert got == want == ("f32", 7, 1e-3, True, False, "cg", "jacobi")
+
+
+@pytest.mark.parametrize("prec,ksp_type,raises", [
+    ("bf16", "pipecg", True), ("f32", "sstep", True), ("bf16", "sstep", True),
+    ("f64", "pipecg", False), ("f32", "pipecg", False)])
+def test_refined_ksp_arms_the_inner_guards_like_jax(prec, ksp_type, raises):
+    """``RefinedKSP._arm_inner_guards`` (JAX ``refine.py:177-201``): a bf16
+    pipecg inner gets ``-ksp_pipeline_auto_replacement 25`` and an sstep
+    inner at any precision ``-ksp_sstep_auto_replacement 25``, which arm the
+    guarded loops (Queue A item 6), so those solves raise naming it; a
+    pipecg inner at f32/f64 runs unguarded."""
+    from mpi_petsc4py_example_tpu.solvers.refine import (
+        RefinedKSP as JaxRefinedKSP)
+    A = poisson2d_csr(12)
+    b = A @ np.ones(A.shape[0])
+    jrk = JaxRefinedKSP().create(tps.DeviceComm(n_devices=1))
+    jrk.set_inner_precision(prec)
+    jrk.set_type(ksp_type)
+    jrk._arm_inner_guards()
+    rk = pt.RefinedKSP().create(pt.DeviceComm(2, device="cpu"))
+    rk.set_inner_precision(prec)
+    rk.set_operators(A)
+    rk.set_type(ksp_type)
+    rk.get_pc().set_type("jacobi")
+    rk.set_tolerances(rtol=1e-10)
+    if raises:
+        with pytest.raises(NotImplementedError,
+                           match="Queue A item 6") as err:
+            rk.solve(b)
+        flag = ("-ksp_pipeline_auto_replacement" if ksp_type == "pipecg"
+                else "-ksp_sstep_auto_replacement")
+        assert flag in str(err.value)
+    else:
+        x, res = rk.solve(b)
+        assert res.converged
+        np.testing.assert_allclose(x, np.ones(A.shape[0]), rtol=1e-8)
+    for attr in ("pipeline_auto_replacement", "sstep_auto_replacement"):
+        assert getattr(rk.inner, attr) == getattr(jrk.inner, attr)

@@ -52,7 +52,7 @@ from mpi_petsc4py_example_tpu.solvers import pc as jax_pc  # noqa: E402
 import mpi_petsc4py_example_tpu_torch as pt  # noqa: E402
 from mpi_petsc4py_example_tpu_torch.parallel import mesh  # noqa: E402
 from mpi_petsc4py_example_tpu_torch.facade.drivers.parity import (  # noqa: E402
-    AIJ_OPERATORS, aij_rhs, configure_eps, refine_rhs, rhs)
+    AIJ_OPERATORS, aij_rhs, configure_eps, configure_ksp, refine_rhs, rhs)
 from mpi_petsc4py_example_tpu_torch.models.poisson import (  # noqa: E402
     poisson3d_csr)
 
@@ -87,7 +87,22 @@ AIJ_CASES = [dict(name=f"aij_{ksp}_{pc}", kind="aij", op=op, ksp=ksp, pc=pc)
          ksp="preonly", pc="lu", setup_device="1"),
     dict(name="aij_preonly_lu", kind="aij", op="testpy", ksp="preonly",
          pc="lu")]
-SOLVE_CASES = CG_CASES + MG_CASES + MANY_CASES + AIJ_CASES
+# the Krylov types of Queue A item 5: pipelined and s-step CG (their one
+# reduction an iteration or a block), batched too, TFQMR and LGMRES
+KSP_CASES = [
+    dict(name="ksp_pipecg_16", kind="cg", grid=[16, 16, 16], pc="jacobi",
+         ksp="pipecg"),
+    dict(name="ksp_sstep4_16", kind="cg", grid=[16, 16, 16], pc="jacobi",
+         ksp="sstep", sstep_s=4),
+    dict(name="ksp_pipecg_many", kind="many", grid=[16, 16, 16],
+         pc="jacobi", k=3, route="fast", ksp="pipecg"),
+    dict(name="ksp_sstep4_many", kind="many", grid=[16, 16, 16],
+         pc="jacobi", k=3, route="fast", ksp="sstep", sstep_s=4),
+    dict(name="aij_tfqmr_bjacobi", kind="aij", op="cfg4", ksp="tfqmr",
+         pc="bjacobi"),
+    dict(name="aij_lgmres_jacobi", kind="aij", op="cfg4", ksp="lgmres",
+         pc="jacobi", restart=10, aug=2)]
+SOLVE_CASES = CG_CASES + MG_CASES + MANY_CASES + AIJ_CASES + KSP_CASES
 COMM_CASE = dict(name="comm", kind="comm", n=37)
 COLLECTIVES = ["put_fetch", "psum", "pmax", "shift_up", "shift_down",
                "open_up", "open_down", "all_gather", "cols", "replicated"]
@@ -225,14 +240,14 @@ def _jax(case):
     if case["kind"] == "aij":
         A = AIJ_OPERATORS[case["op"]]()
         op = tps.Mat.from_scipy(comm, A)
-        ksp.set_type(case["ksp"])
+        configure_ksp(ksp, case)
         ksp.set_tolerances(rtol=1e-8, atol=0.0, max_it=5000)
         ksp.set_true_residual_check(case.get("gate", False))
         b = rhs(A.shape[0], 3)
     else:
         grid = case["grid"]
         op = JaxStencil(comm, *grid, dtype=jnp.float64)
-        ksp.set_type("cg")
+        configure_ksp(ksp, case)
         ksp.set_tolerances(rtol=1e-8, atol=0.0, max_it=10000)
         b = rhs(op.shape[0], 0, case.get("k"))
     pmat = (JaxStencil(comm, *case["grid"], dtype=jnp.float64)
@@ -285,6 +300,26 @@ def test_solve_matches_virtual_mesh(worker_results, virtual, case):
         np.testing.assert_array_equal(got["x"], want["x"])
     if case["kind"] == "aij":
         assert str(got["route"]) == str(want["route"])
+
+
+@pytest.mark.parametrize("case", [c for c in KSP_CASES
+                                  if c["kind"] in ("cg", "many")],
+                         ids=lambda c: c["name"])
+def test_plan_reductions_match_virtual_mesh(worker_results, virtual, case):
+    """pipecg and sstep issue the same collectives and host reads on 2
+    processes as on the virtual mesh: two psums at start-up, one an
+    iteration (pipecg) or a block (sstep), one for the final residual."""
+    got, want = worker_results[case["name"]], virtual(case)
+    calls = {k: int(v) for k, v in got.items() if k.startswith("calls_")}
+    assert calls == {k: int(v) for k, v in want.items()
+                     if k.startswith("calls_")}
+    assert int(got["host_syncs"]) == int(want["host_syncs"])
+    its = max(_its(got))
+    if case["ksp"] == "pipecg":
+        assert calls["calls_psum"] == 3 + its
+    else:
+        assert -(-its // 4) <= calls["calls_psum"] - 3 <= its
+    assert int(got["host_syncs"]) == calls["calls_psum"] - 1
 
 
 @pytest.mark.parametrize("case", SOLVE_CASES, ids=lambda c: c["name"])

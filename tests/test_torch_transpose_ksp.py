@@ -27,8 +27,6 @@ from mpi_petsc4py_example_tpu.models.stencil import (  # noqa: E402
 import mpi_petsc4py_example_tpu_torch as pt  # noqa: E402
 from mpi_petsc4py_example_tpu_torch.models.generators import (  # noqa: E402
     convdiff2d)
-from mpi_petsc4py_example_tpu_torch.solvers.krylov import (  # noqa: E402
-    UNPORTED_TYPES)
 
 SHARDS = [1, 2, 4, 8]
 X_TOL = 1e-10
@@ -232,16 +230,22 @@ def test_bicg_refuses_a_pc_without_transpose_like_jax():
             ksp.solve(bv, x)
 
 
-@pytest.mark.parametrize("ksp_type", UNPORTED_TYPES)
+# the JAX types Queue A item 5 brought (item 5.1's and 5.2's)
+ITEM_5_TYPES = ("pipecg", "sstep", "cgs", "tfqmr", "cr", "minres",
+                "chebyshev", "richardson", "gcr", "symmlq", "fcg", "lgmres",
+                "bcgsl", "fbcgs", "fbcgsr")
+
+
+@pytest.mark.parametrize("ksp_type", ITEM_5_TYPES)
 def test_unported_ksp_types_name_item_5(ksp_type):
-    """Each JAX type the port lacks is a JAX type, and the port refuses it
-    naming the Queue A item that brings it."""
+    """Each JAX type of Queue A item 5 is a JAX type, and the port, which
+    refused it naming that item before the item landed, now accepts it by
+    name and through ``-ksp_type``."""
     assert tps.KSP().set_type(ksp_type).get_type() == ksp_type
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        pt.KSP().set_type(ksp_type)
+    assert pt.KSP().set_type(ksp_type).get_type() == ksp_type
     pt.init(["prog", "-ksp_type", ksp_type])
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        pt.KSP().create(pt.DeviceComm(1, device="cpu")).set_from_options()
+    ksp = pt.KSP().create(pt.DeviceComm(1, device="cpu")).set_from_options()
+    assert ksp.get_type() == ksp_type
 
 
 def test_unknown_ksp_type_is_a_value_error():
