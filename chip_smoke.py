@@ -112,12 +112,34 @@ before each and read just after:
   its single solve); bf16 pipecg, sstep and richardson, single and k = 8;
   cfg4 with the unsymmetric types and cfg3 with lgmres beside gmres(30).
 
-``python3 chip_smoke.py --ksp-types`` builds the kernels, checks the ones
+* the bf16 V-cycle and the fused program (``--megasolve``): rows 3b-6b
+  (``stencil7_{smooth,residual,smooth0_pair}_bf16``, ``mg3d_smooth_pair_bf16``)
+  bit for bit against their plain versions at every level shape of the
+  driven cycles and at tile edges, on both routes, the pair against two
+  smooth launches, timed at 128^3 and 512^3 against their bytes bounds;
+  PC mg under refinement at 128^3 (cfg11's problem, bf16 and f32 inner,
+  host loop and fused, V-cycle launches against the formula); cfg13 of
+  ``benchmarks/run_all.py`` at 128^3 (fused against the host loop, cold
+  and warm walls, replays, host reads, masked steps); ``KSP
+  -ksp_megasolve`` at 128^3 f32 (cg fast path, cg + mg, pipecg, sstep, a
+  k = 8 block; ms/iter fused against unfused, the idle share); every
+  captured run bit-equal to an uncaptured one; the fused cases on NCCL 1 x 4
+  (captured) and gloo 2 x 2 (uncaptured) bit-equal to ``DeviceComm(4)``;
+  and ``-ksp_reduction_auto``'s latencies, ranking and choice on
+  ``DeviceComm(1)``, ``DeviceComm(4)``, NCCL 1 x 4 and gloo 2 x 2.
+
+``python3 chip_smoke.py --megasolve`` builds the kernels and runs only the
+phases of the last item. ``python3 chip_smoke.py --ksp-types`` builds the kernels, checks the ones
 the Krylov types launch and runs only their phases. ``python3 chip_smoke.py --surface`` builds the kernels, checks the four the
 surface slice launches, and runs only its phases. ``python3 chip_smoke.py
 --procs`` runs the kernel checks and the process communicator's phases;
 ``python3 chip_smoke.py --procs-cards``, on a host of several cards, runs
 one rank per card over NCCL against ``DeviceComm(cards)`` on one.
+``python3 chip_smoke.py --nccl-capture``, on a host of several cards,
+diagnoses CUDA graph capture of the process communicator's collectives
+over NCCL, stage by stage, each stage's hang ending in a dump of its
+rank's stacks (``phase_nccl_capture``); ``--nccl-capture-release`` drops
+the graphs before the ranks' teardown.
 ``python3 chip_smoke.py --refine`` builds the kernels and runs only the
 mixed-precision phases. ``python3 chip_smoke.py --direct`` runs only the
 direct-solve phases, cfg4, the ``test.py`` flow and the dense lu. ``python3 chip_smoke.py --kernels`` builds the
@@ -4543,6 +4565,733 @@ def phase_ksp_types(oracle=None):
     return out
 
 
+# ---- the bf16 V-cycle kernels and the fused megasolve (--megasolve) ---------
+
+# the V-cycle's bfloat16 instantiations (rows 3b-6b), by f32 kernel name
+BF16_VCYCLE = {"stencil7_smooth": "stencil7_smooth_bf16",
+               "stencil7_residual": "stencil7_residual_bf16",
+               "stencil7_smooth0_pair": "stencil7_smooth0_pair_bf16",
+               "mg3d_smooth_pair": "mg3d_smooth_pair_bf16"}
+# the passes each moves (2 bytes a point): smooth, residual and the pair
+# read u and f and write the result; smooth0_pair reads f, writes u
+VCYCLE_PASSES = {"stencil7_smooth_bf16": 3, "stencil7_residual_bf16": 3,
+                 "stencil7_smooth0_pair_bf16": 2, "mg3d_smooth_pair_bf16": 3}
+# shapes past the mg3d tiles and the bf16 runs, beside the cycle's levels
+VCYCLE_EDGE_SHAPES = ((17, 15, 63), (35, 17, 65), (37, 45, 131), (4, 9, 255),
+                      (3, 5, 7))
+
+
+def read_vcycle_bf16_launches():
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    return {bf: st.KERNELS[name].launches_bf16
+            for name, bf in BF16_VCYCLE.items()}
+
+
+def vcycle_bf16_calls(st, u, f, lo, hi):
+    """``{name: (kernel(), plain())}`` of rows 3b-6b on these bf16 inputs
+    (smooth and residual with the halos given, None for zero planes)."""
+    from mpi_petsc4py_example_tpu_torch.solvers.mg import cheby_omegas
+    w = 2.0 / 3.0 / 6.0
+    w1, w2 = (c / 6.0 for c in cheby_omegas(2))
+    return {
+        "stencil7_smooth_bf16": (
+            lambda: st.stencil3d_smooth(u, f, lo, hi, w),
+            lambda: st.stencil3d_smooth_plain(u, f, lo, hi, w)),
+        "stencil7_residual_bf16": (
+            lambda: st.stencil3d_residual(u, f, lo, hi),
+            lambda: st.stencil3d_residual_plain(u, f, lo, hi)),
+        "stencil7_smooth0_pair_bf16": (
+            lambda: st.stencil3d_smooth0_pair(f, w1, w2),
+            lambda: st.stencil3d_smooth0_pair_plain(f, w1, w2)),
+        "mg3d_smooth_pair_bf16": (
+            lambda: st.stencil3d_smooth_pair(u, f, w1, w2),
+            lambda: st.stencil3d_smooth_pair_plain(u, f, w1, w2)),
+        "two sweeps": (
+            lambda: st.stencil3d_smooth_pair(u, f, w1, w2),
+            lambda: st.stencil3d_smooth(st.stencil3d_smooth(
+                u, f, None, None, w1), f, None, None, w2))}
+
+
+def phase_vcycle_bf16_checks():
+    """Rows 3b-6b against their plain versions on the card, bit for bit
+    (as ``phase_bf16_kernel_checks`` holds rows 1b-10b), at every shape the
+    driven V-cycles give them (``mg_path_shapes``) and at tile edges, with
+    random and zero halos, on aligned inputs and on misaligned copies (the
+    element routes); and ``mg3d_smooth_pair_bf16`` against two
+    ``stencil7_smooth_bf16`` launches. Every launch's route is logged.
+    Returns the largest differences (all 0 when the checks pass)."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    bf = torch.bfloat16
+    worst = {name: 0.0 for name in VCYCLE_PASSES}
+    shapes = list(mg_path_shapes()) + list(VCYCLE_EDGE_SHAPES)
+    routes = set()
+    seed = 3000
+    for shape in shapes:
+        for halos in (True, False):
+            seed += 1
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            mk = lambda *sh: (torch.rand(sh, generator=g, device="cuda")
+                              - 0.5).to(bf)
+            u, f = mk(*shape), mk(*shape)
+            lo, hi = ((mk(*shape[1:]), mk(*shape[1:])) if halos
+                      else (None, None))
+            for aligned in (True, False):
+                args = ((u, f, lo, hi) if aligned else tuple(
+                    None if t is None else misaligned_copy(t)
+                    for t in (u, f, lo, hi)))
+                calls = vcycle_bf16_calls(st, *args)
+                res = {}
+                for name, (kern, plain) in calls.items():
+                    got, want = kern(), plain()
+                    res[name] = (torch.equal(got, want),
+                                 max_abs_diff(got, want))
+                    if name in worst:
+                        worst[name] = max(worst[name], res[name][1])
+                torch.cuda.synchronize()
+                out = torch.empty_like(args[0])
+                route = (st.bf16_route(args[0], args[2], args[3], out,
+                                       args[1]),
+                         mg3d_route(shape[-1], 2) if aligned else "elem")
+                routes.add(route)
+                label = (f"{shape} {'random' if halos else 'zero'} halos, "
+                         f"{'aligned' if aligned else 'misaligned'}")
+                log(f"check bf16 vcycle {label}, routes stencil7 {route[0]}"
+                    f" / mg3d {route[1]}: " + ", ".join(
+                        f"{k} {'bit-equal' if v[0] else 'DIFF ' + str(v[1])}"
+                        for k, v in res.items()))
+                check(all(v[0] for v in res.values()),
+                      f"bf16 V-cycle kernels differ, {label}: {res}")
+            del u, f, lo, hi
+    torch.cuda.empty_cache()
+    check({r[0] for r in routes} == {"vec16", "elem"}
+          and {r[1] for r in routes} == {"vec16", "elem"},
+          f"bf16 V-cycle routes checked: {routes}")
+    h = torch.ones(4, 6, 10, device="cuda", dtype=torch.float16)
+    for fn in (lambda: st.stencil3d_smooth(h, h, None, None, 0.1),
+               lambda: st.stencil3d_residual_restrict(h.to(bf), h.to(bf))):
+        try:
+            fn()
+        except TypeError:
+            continue
+        raise SystemExit("chip_smoke: FAIL: a V-cycle kernel took a dtype "
+                         "it has no instantiation for")
+    log(f"check bf16 vcycle: {len(shapes)} shapes, routes {sorted(routes)}; "
+        "float16 and a bf16 residual_restrict raise TypeError")
+    return worst
+
+
+def phase_vcycle_bf16_times(n):
+    """Rows 3b-6b at n^3 with zero halos (the single-slab levels' launch):
+    kernel and plain times, the bytes bound (``VCYCLE_PASSES`` x n^3 x 2
+    bytes over the HBM rate; the fp32 operations, about 10 a point, bound
+    lower), no library call (cuDNN's conv3d computes none of these
+    epilogues)."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    g = torch.Generator(device="cuda").manual_seed(41)
+    mk = lambda *sh: torch.rand(sh, generator=g, device="cuda").to(
+        torch.bfloat16)
+    u, f = mk(n, n, n), mk(n, n, n)
+    big = n >= 512
+    out = {}
+    for name, (kern, plain) in vcycle_bf16_calls(st, u, f, None,
+                                                 None).items():
+        if name not in VCYCLE_PASSES:
+            continue
+        err = max_abs_diff(kern(), plain())
+        check(err == 0.0, f"{name} at {n}^3 not bit-equal: {err}")
+        t_bytes = VCYCLE_PASSES[name] * n ** 3 * 2 / HBM_BYTES_PER_S
+        t_ops = 10 * n ** 3 / F32_FLOPS_PER_S
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        out[name] = {"ms": device_ms(kern, 20 if big else 100,
+                                     10 if big else 25),
+                     "plain_ms": device_ms(plain, 2 if big else 10,
+                                           reps=5 if big else 25),
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err}
+        r = out[name]
+        log(f"time {name} {n}^3 bf16: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_ms / r['ms'] * 100:.1f}% of it), no one-call library "
+            "equivalent")
+    del u, f
+    torch.cuda.empty_cache()
+    return out
+
+
+def vcycle_launches(nx, cycles, bf16):
+    """Launches of ``cycles`` single-slab V-cycles at nx^3: each level
+    above the coarsest runs smooth0_pair, then residual_restrict (f32) or
+    residual (bf16), then smooth_pair; the coarsest 19 smooth sweeps."""
+    from mpi_petsc4py_example_tpu_torch.solvers.mg import mg_levels
+    above = len(mg_levels(nx, nx, nx)) - 1
+    out = {"stencil7_smooth": 19 * cycles,
+           "stencil7_smooth0_pair": above * cycles,
+           "mg3d_smooth_pair": above * cycles}
+    out["stencil7_residual" if bf16 else "mg3d_residual_restrict"] = \
+        above * cycles
+    return out
+
+
+def refined_mg(comm, A, prec, nx, fused):
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.utils.dtypes import (
+        inner_precision_dtype)
+    rk = pt.RefinedKSP().create(comm)
+    rk.set_inner_precision(prec)
+    rk.set_operators(A, inner_op=pt.StencilPoisson3D(
+        comm, nx, dtype=inner_precision_dtype(prec)),
+        outer_op=(pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+                  if fused else None))
+    rk.set_type("cg")
+    rk.get_pc().set_type("mg")
+    rk.set_tolerances(rtol=REFINE_RTOL)
+    rk.megasolve = fused
+    return rk
+
+
+def phase_mg_bf16_refine(nx=128):
+    """PC mg under refinement at 128^3 on cfg11's problem, rtol 1e-10: the
+    inner CG + mg at bf16 (rows 3b-6b) and at f32 (rows 3-7), host loop and
+    fused program. Counters zeroed just before each solve, read just after:
+    the host loop's V-cycle launches equal one cycle per inner iteration
+    and one per outer step; the fused program's one per masked step
+    (``chunks x MEGASOLVE_CHUNK``) and one per inner set-up (1 + steps).
+    Reported: reason, outer steps, inner iterations, fp64 relres, warm
+    wall, replays, host reads, masked steps."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    A, b = cfg11_problem(nx)
+    comm = pt.DeviceComm()
+    out, launches_path = {}, {}
+    for prec in ("bf16", "f32"):
+        for fused in (False, True):
+            rk = refined_mg(comm, A, prec, nx, fused)
+            rk.solve(b)                     # set-up, capture
+            torch.cuda.synchronize()
+            st.reset_launches()
+            t0 = time.perf_counter()
+            x, res = rk.solve(b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_launches()
+            got_bf16 = read_vcycle_bf16_launches()
+            rel = true_relres(A, x, b)
+            label = (f"refine {nx}^3 {prec} cg+mg "
+                     f"{'fused' if fused else 'host loop'}")
+            if fused:
+                chunks = res.replays - 1 - res.megasolve_steps
+                cycles = (chunks * ms.MEGASOLVE_CHUNK + 1
+                          + res.megasolve_steps)
+                extra = (f", {res.replays} replays, {res.host_syncs} host "
+                         f"reads, {res.masked_steps} masked steps, graph "
+                         f"{res.graph}")
+            else:
+                cycles = res.iterations + rk.refine_steps
+                extra = ""
+            want = vcycle_launches(nx, cycles, prec == "bf16")
+            seen = (got_bf16 if prec == "bf16"
+                    else {kk: got[kk] for kk in want})
+            if prec == "bf16":
+                ok = all(seen[BF16_VCYCLE[kk]] == v
+                         for kk, v in want.items())
+                check(got["mg3d_residual_restrict"] == 0,
+                      f"{label}: residual_restrict launched at bf16")
+            else:
+                ok = all(got[k] == v for k, v in want.items())
+                check(not any(got_bf16.values()),
+                      f"{label}: bf16 kernels launched at f32")
+            log(f"{label}: reason {res.reason}, {rk.refine_steps} steps, "
+                f"{res.iterations} inner iterations, fp64 relres {rel:.3e}, "
+                f"warm wall {wall:.3f} s{extra}; V-cycle launches {seen} "
+                f"against {cycles} cycles x per-cycle formula {want}: {ok}")
+            check(ok, f"{label}: V-cycle launches off the formula")
+            check(res.converged and rel <= 1.05 * REFINE_RTOL,
+                  f"{label}: {res}, relres {rel}")
+            out[f"{prec} {'fused' if fused else 'host'}"] = {
+                "reason": res.reason, "steps": rk.refine_steps,
+                "inner_iterations": res.iterations, "relres": rel,
+                "warm_wall_s": wall, "host_reads": res.host_syncs,
+                "replays": getattr(res, "replays", None),
+                "masked_steps": getattr(res, "masked_steps", None),
+                "launches": seen}
+            if prec == "bf16" and not fused:
+                launches_path = dict(got_bf16)
+            del rk
+            ms.clear_cache()
+            torch.cuda.empty_cache()
+    return launches_path, out
+
+
+def phase_cfg13(nx=128):
+    """cfg13 of ``benchmarks/run_all.py`` (:1387) at 128^3: RefinedKSP CG +
+    Jacobi on the assembled operator (the fp64 outer Mat assembled from the
+    host CSR), inner bf16 and f32, rtol 1e-10, fused against the host loop.
+    Per run: steps, iterations, reason, fp64 relres; cold wall (the fused
+    program built and captured) and warm wall (best of 3); host reads,
+    replays, masked steps; the fused run's iterate equals an uncaptured
+    run's bit for bit. f32 reaches 1e-10 both ways; bf16 (conditioning
+    limited at 128^3) agrees fused and unfused, as cfg13's gate says."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    A = pt.poisson3d_csr(nx).astype(np.float64).tocsr()
+    x_true = np.random.default_rng(0).random(A.shape[0])
+    b = A @ x_true
+    comm = pt.DeviceComm()
+    out = {}
+    for prec in ("bf16", "f32"):
+        row = {}
+        for fused in (False, True):
+            rk = refined(comm, A, prec)
+            rk.megasolve = fused
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, res = rk.solve(b)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            warm = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                x, res = rk.solve(b)
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+            rel = true_relres(A, x, b)
+            r = {"reason": res.reason, "steps": rk.refine_steps,
+                 "iterations": res.iterations, "relres": rel,
+                 "cold_wall_s": cold, "warm_wall_s": min(warm),
+                 "host_reads": res.host_syncs}
+            extra = ""
+            if fused:
+                prog = ms.build_megasolve_program(
+                    comm, "cg", rk.get_pc(), rk._inner_op,
+                    rk._outer_operator())
+                prog.capture = False
+                t0 = time.perf_counter()
+                x_eager, res_e = rk.solve(b)
+                torch.cuda.synchronize()
+                eager_wall = time.perf_counter() - t0
+                prog.capture = True
+                same = bool(np.array_equal(x_eager, x))
+                r.update(replays=res.replays, masked_steps=res.masked_steps,
+                         graph=res.graph, uncaptured_wall_s=eager_wall,
+                         captured_equals_uncaptured=same)
+                extra = (f", {res.replays} replays, {res.masked_steps} "
+                         f"masked steps, graph {res.graph}; uncaptured "
+                         f"{eager_wall:.3f} s, bit-equal {same}")
+                check(res.graph and not res_e.graph
+                      and res_e.replays == res.replays,
+                      f"cfg13 {prec}: the check runs did not run captured "
+                      f"then uncaptured ({res.graph}, {res_e.graph})")
+                check(same and res_e.iterations == res.iterations,
+                      f"cfg13 {prec}: captured and uncaptured differ")
+            log(f"cfg13 {nx}^3 {prec} cg+jacobi "
+                f"{'fused' if fused else 'host loop'}: reason {res.reason}, "
+                f"{rk.refine_steps} steps, {res.iterations} inner "
+                f"iterations, fp64 relres {rel:.3e}, cold {cold:.3f} s, warm "
+                f"{min(warm):.3f} s, {res.host_syncs} host reads{extra}")
+            row["fused" if fused else "host"] = r
+            del rk
+            ms.clear_cache()
+            torch.cuda.empty_cache()
+        h, f = row["host"], row["fused"]
+        if prec == "f32":
+            check(h["relres"] <= 1.05 * REFINE_RTOL
+                  and f["relres"] <= 1.05 * REFINE_RTOL,
+                  f"cfg13 f32 missed rtol: {row}")
+        else:
+            check(h["reason"] == f["reason"]
+                  and abs(h["steps"] - f["steps"]) <= 1,
+                  f"cfg13 bf16 fused and unfused disagree: {row}")
+        out[prec] = row
+    return out
+
+
+def phase_ksp_megasolve(nx=128, k=K_BATCH):
+    """``KSP -ksp_megasolve`` at 128^3 f32, rtol 1e-6 (bench.py's problem):
+    cg + jacobi on the stencil fast path, cg + mg, pipecg, sstep s = 4 and
+    a k = 8 block of cg + jacobi, fused against unfused in one call (pipecg
+    and sstep at max_it 400: unguarded f32 pipecg does not reach 1e-6 here,
+    as in the JAX package, and is reported, not required to): warm
+    ms/iter (best of 3), replays, host reads, masked steps, the stencil
+    kernels' launches a solve (counters zeroed just before, read just
+    after; a replay adds its captured launches), the captured iterate
+    against an uncaptured run's bit for bit, and the device idle share of
+    a profiled fused and unfused solve of cg + jacobi."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    B = np.stack([b] + [op.mult(pt.Vec.from_global(
+        comm, rng.random(nx ** 3).astype(np.float32))).to_numpy()
+        for _ in range(k - 1)], axis=1)
+    out = {}
+    for label, ksp_type, pc, attrs, many in (
+            ("cg+jacobi fast path", "cg", "jacobi",
+             {"megasolve_stencil_fastpath": True}, False),
+            ("cg+mg", "cg", "mg", {}, False),
+            ("pipecg+jacobi", "pipecg", "jacobi", {"max_it": 400}, False),
+            ("sstep4+jacobi", "sstep", "jacobi",
+             {"sstep_s": 4, "max_it": 400}, False),
+            (f"cg+jacobi k={k}", "cg", "jacobi",
+             {"megasolve_stencil_fastpath": True}, True)):
+        row = {}
+        for fused in (False, True):
+            ksp = ksp_solver(comm, op, ksp_type, pc=pc, megasolve=fused,
+                             **attrs)
+            x, _ = op.get_vecs()
+            X = np.zeros_like(B)
+
+            def run():
+                if many:
+                    return ksp.solve_many(B, X)
+                x.zero()
+                return ksp.solve(bv, x)
+            run()                           # set-up, capture
+            torch.cuda.synchronize()
+            st.reset_launches()
+            res = run()
+            torch.cuda.synchronize()
+            launches = {kk: v for kk, v in read_launches().items() if v}
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            its = max(res.iterations) if many else res.iterations
+            reasons = res.reasons if many else [res.reason]
+            r = {"iterations": res.iterations, "reasons": reasons,
+                 "ms_per_iter": min(walls) / max(its, 1) * 1e3,
+                 "wall_s": min(walls), "host_reads": res.host_syncs,
+                 "launches": launches}
+            extra = ""
+            if fused:
+                prog = ksp._megasolve_program(many_k=k if many else None)
+                x_graph = (X.copy() if many else x.to_numpy())
+                prog.capture = False
+                res_e = run()
+                torch.cuda.synchronize()
+                prog.capture = True
+                x_eager = X.copy() if many else x.to_numpy()
+                same = bool(np.array_equal(x_graph, x_eager))
+                r.update(replays=res.replays, masked_steps=res.masked_steps,
+                         steps=res.megasolve_steps, graph=res.graph,
+                         captured_equals_uncaptured=same)
+                extra = (f", {res.megasolve_steps} steps, {res.replays} "
+                         f"replays, {res.masked_steps} masked steps, graph "
+                         f"{res.graph}, captured == uncaptured {same}")
+                check(res.graph and not res_e.graph
+                      and res_e.replays == res.replays,
+                      f"{label}: the check runs did not run captured then "
+                      f"uncaptured ({res.graph}, {res_e.graph})")
+                check(same and res_e.iterations == res.iterations,
+                      f"{label}: captured run differs from uncaptured")
+            log(f"megasolve {nx}^3 f32 {label} "
+                f"{'fused' if fused else 'unfused'}: {res.iterations} "
+                f"iterations, {reasons}, {r['ms_per_iter']:.4f} ms/iter "
+                f"(warm best of 3), {res.host_syncs} host reads, launches "
+                f"{launches}{extra}")
+            check(ksp_type == "pipecg" or all(rr > 0 for rr in reasons),
+                  f"{label}: {reasons}")
+            if label.startswith("cg+jacobi fast") and not many:
+                r["idle_share"] = profile_solve(
+                    lambda: run().iterations,
+                    f"128^3 f32 cg+jacobi {'fused' if fused else 'unfused'}")
+            row["fused" if fused else "unfused"] = r
+            del ksp
+            ms.clear_cache()
+            torch.cuda.empty_cache()
+        out[label] = row
+    return out
+
+
+def phase_autoselect_local():
+    """``-ksp_reduction_auto`` on ``DeviceComm(1)`` and ``DeviceComm(4)``
+    at 128^3 f32 CG + Jacobi: the measured psum and apply latencies, the
+    ranking and the choice (the probe refreshed: this run's numbers)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.solvers import autoselect
+    out = {}
+    for shards in (1, 4):
+        comm = pt.DeviceComm(shards)
+        op, _ = make_problem(comm, 128, torch.float32)
+        pc = pt.PC(comm).set_type("jacobi")
+        pc.set_operators(op)
+        rep = autoselect.select_reduction_plan(comm, op, pc, refresh=True)
+        out[f"DeviceComm({shards})"] = rep.as_dict()
+        log(f"autoselect DeviceComm({shards}) 128^3 f32 cg+jacobi: psum "
+            f"{rep.psum_us:.2f} us, apply {rep.apply_us:.2f} us, choice "
+            f"{rep.ksp_type} s={rep.s}; ranking " + ", ".join(
+                f"{r['ksp_type']}{r['s'] or ''} {r['model_cost_us']:.1f} us"
+                for r in rep.ranking))
+    return out
+
+
+def megasolve_procs_cases(nx=128):
+    """The parity cases of the fused program on a process communicator at
+    nx^3 f32: CG + Jacobi on the fast path, pipecg, sstep s = 4 and an f32
+    refinement with PC mg; and the ``-ksp_reduction_auto`` case, whose
+    choice's solve is reported (where pipecg wins, f32 pipecg stops at
+    max_it here, as in the JAX package)."""
+    base = dict(kind="cg", grid=[nx] * 3, pc="jacobi", dtype="f32",
+                rtol=1e-6, megasolve=True, keep_x=True)
+    cases = [dict(base, name="fused_cg", fastpath=True),
+             dict(base, name="fused_pipecg", ksp="pipecg", max_it=400),
+             dict(base, name="fused_sstep4", ksp="sstep", sstep_s=4,
+                  max_it=400),
+             dict(kind="refine", name="fused_refine_mg", grid=[nx] * 3,
+                  prec="f32", pc="mg", megasolve=True)]
+    auto = dict(base, name="auto", megasolve=False, reduction_auto=True,
+                max_it=400)
+    return cases, auto
+
+
+def megasolve_procs_check(label, got, ref, cases, auto, captured):
+    """Each fused case bit-equal to the virtual mesh's, with its steps and
+    replays, CUDA graphs where ``captured``; the autoselect case's
+    latencies, ranking and choice. Returns the rows."""
+    rows = {}
+    for c in cases:
+        g, r = got[c["name"]], ref[c["name"]]
+        procs_compare(f"megasolve {label} {c['name']}", g, r,
+                      converged=c["name"] != "fused_pipecg")
+        graph = bool(g["graph"])
+        check(graph == captured, f"{label} {c['name']}: graph {graph}")
+        check(int(g["steps"]) == int(r["steps"])
+              and int(g["replays"]) == int(r["replays"]),
+              f"{label} {c['name']}: steps/replays differ")
+        rows[c["name"]] = {"its": int(np.atleast_1d(g["its"]).max()),
+                           "steps": int(g["steps"]),
+                           "replays": int(g["replays"]), "graph": graph,
+                           "wall_s": float(g["wall_s"])}
+        log(f"megasolve {label} {c['name']}: {rows[c['name']]['its']} "
+            f"iterations, {int(g['steps'])} steps, {int(g['replays'])} "
+            f"replays, graph {graph}, wall {float(g['wall_s']):.3f} s; "
+            f"bit-equal to the virtual mesh")
+    a = got[auto["name"]]
+    row = {"psum_us": float(a["psum_us"]), "apply_us": float(a["apply_us"]),
+           "choice": str(a["auto_type"]), "s": int(a["auto_s"]),
+           "ranking": json.loads(str(a["ranking"])),
+           "its": int(np.atleast_1d(a["its"])[0]),
+           "reason": int(np.atleast_1d(a["reason"])[0])}
+    log(f"autoselect {label} 128^3 f32 cg+jacobi: psum {row['psum_us']:.2f} "
+        f"us, apply {row['apply_us']:.2f} us, choice {row['choice']} "
+        f"s={row['s']} ({row['its']} iterations, reason {row['reason']}); "
+        "ranking " + ", ".join(f"{r['ksp_type']}{r['s'] or ''} "
+                               f"{r['model_cost_us']:.1f} us"
+                               for r in row["ranking"]))
+    check(row["reason"] > 0 or row["choice"] == "pipecg",
+          f"{label} reduction_auto solve: {row}")
+    rows["autoselect"] = row
+    return rows
+
+
+def phase_megasolve_procs(nx=128):
+    """The fused program and ``-ksp_reduction_auto`` on the process
+    communicator (``megasolve_procs_cases``): NCCL 1 x 4 (captured) and gloo
+    2 x 2 (uncaptured), each bit-equal to ``DeviceComm(4)``; then the
+    reduction probe and choice on both."""
+    cases, auto = megasolve_procs_cases(nx)
+    out = {}
+    ref = procs_reference(cases, 4)
+    for label, nprocs, local, backend in (("nccl 1x4", 1, 4, "nccl"),
+                                          ("gloo 2x2", 2, 2, "gloo")):
+        got, wall = parity_launch(
+            nprocs, [dict(c, local_shards=local) for c in cases + [auto]],
+            backend)
+        out[label] = megasolve_procs_check(label, got, ref, cases, auto,
+                                           backend == "nccl")
+        out[label]["launch_wall_s"] = wall
+    return out
+
+
+NCCL_CAPTURE_DRIVER = """\
+import faulthandler
+import functools
+import gc
+import sys
+import time
+
+import numpy as np
+import torch
+from mpi4py import MPI
+
+import mpi_petsc4py_example_tpu_torch as pt
+
+mode, stage_s, release = sys.argv[1], float(sys.argv[2]), sys.argv[3] == "1"
+if mode != "global":
+    torch.cuda.graph = functools.partial(torch.cuda.graph,
+                                         capture_error_mode=mode)
+comm = pt.ProcessComm(1, MPI.COMM_WORLD.device_comm.device)
+rank, P = comm.rank, comm.nprocs
+
+
+def stage(name, fn):
+    faulthandler.dump_traceback_later(stage_s, exit=True)
+    t0 = time.perf_counter()
+    ok = bool(fn())
+    torch.cuda.synchronize()
+    faulthandler.cancel_dump_traceback_later()
+    print(f"rank {rank} stage {name}: {'ok' if ok else 'WRONG'} "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not ok:
+        sys.exit(3)
+
+
+def graph_of(fn):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    for _ in range(3):
+        g.replay()
+    return out
+
+
+v = torch.full((1,), float(rank + 1), device=comm.device)
+want = float(P * (P + 1) // 2)
+stage("eager psum", lambda: float(comm.psum([v[0]])) == want)
+stage("captured psum", lambda: float(graph_of(
+    lambda: comm.psum([v[0]]))) == want)
+x = torch.full((1, 4), float(rank), device=comm.device)
+stage("captured shift", lambda: float(graph_of(
+    lambda: comm.shift(x, 1))[0, 0]) == float((rank - 1) % P))
+
+
+def fused():
+    op = pt.StencilPoisson3D(comm, 32, dtype=torch.float32)
+    ksp = pt.KSP().create(comm)
+    ksp.set_operators(op)
+    ksp.set_type("cg")
+    ksp.get_pc().set_type("jacobi")
+    ksp.set_tolerances(rtol=1e-4, max_it=500)
+    ksp.megasolve = ksp.megasolve_stencil_fastpath = True
+    ksp.set_up()
+    ksp._megasolve_program().capture = True   # off across processes
+    xv, bv = op.get_vecs()
+    bv.set_global(np.ones(op.shape[0], dtype=np.float32))
+    res = ksp.solve(bv, xv)
+    return res.graph and res.converged
+
+
+stage("fused cg captured", fused)
+if release:
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve
+
+    def drop():
+        megasolve.clear_cache()
+        gc.collect()
+        return True
+    stage("graphs released", drop)
+# the runner's teardown (destroy_process_group, the interpreter's exit):
+# one that does not end in stage_s seconds dumps its stack
+faulthandler.dump_traceback_later(stage_s, exit=True)
+"""
+
+
+def phase_nccl_capture(modes=("global", "thread_local"), release=False,
+                       stage_s=30):
+    """``--nccl-capture``, on a host of several cards: whether CUDA graphs
+    capture the process communicator's collectives over NCCL, one rank per
+    card, stage by stage: an eager psum, a captured psum (all-gather and
+    fold), a captured ring shift (``batch_isend_irecv``), and a 32^3 fused
+    CG captured across the processes (which the port does not do); with
+    ``release`` the graphs are then dropped (the program cache cleared).
+    A stage, or the rank's teardown after the last, that does not end in
+    ``stage_s`` seconds dumps every thread's stack and ends its rank. Runs
+    each capture error mode of ``modes`` in turn until one ends cleanly,
+    and logs each run's stage lines and the end of its standard error.
+    A diagnosis: it reports and checks nothing."""
+    import signal
+    import tempfile
+    import torch
+    cards = torch.cuda.device_count()
+    check(cards >= 2, f"--nccl-capture needs 2 cards or more, found {cards}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"card": card_line(), "cards": cards}
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "nccl_capture.py")
+        with open(script, "w") as f:
+            f.write(NCCL_CAPTURE_DRIVER)
+        for mode in modes:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "mpi_petsc4py_example_tpu_torch.run",
+                 "-n", str(cards), "--procs", "--backend", "nccl", script,
+                 mode, str(stage_s), "1" if release else "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=root, start_new_session=True,
+                env=dict(os.environ, NCCL_DEBUG="WARN"))
+            try:
+                so, se = proc.communicate(timeout=4 * stage_s + 60)
+                rc = proc.returncode
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                so, se = proc.communicate()
+                rc = "killed"
+            stages = [ln for ln in so.splitlines() if " stage " in ln]
+            out[mode] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                         "stages": stages}
+            log(f"nccl capture, mode {mode}: rc {rc}, "
+                f"{time.perf_counter() - t0:.1f} s; " + "; ".join(stages))
+            for ln in se.splitlines()[-40:]:
+                log(f"  {mode} stderr: {ln}")
+            if rc == 0:
+                break
+    return out
+
+
+def phase_megasolve():
+    """Every phase of this slice: rows 3b-6b, PC mg under refinement, cfg13,
+    KSP megasolve, the process communicator and the reduction plan
+    selection. Returns the kernels' entries and the results."""
+    t0 = time.perf_counter()
+    worst = phase_vcycle_bf16_checks()
+    times = {n: phase_vcycle_bf16_times(n) for n in (128, 512)}
+    t1 = time.perf_counter()
+    launches, refine = phase_mg_bf16_refine()
+    cfg13 = phase_cfg13()
+    ksp = phase_ksp_megasolve()
+    t2 = time.perf_counter()
+    auto = phase_autoselect_local()
+    procs = phase_megasolve_procs()
+    log(f"megasolve phases: {time.perf_counter() - t0:.1f} s (kernels "
+        f"{t1 - t0:.1f} s, solves {t2 - t1:.1f} s, autoselect and procs "
+        f"{time.perf_counter() - t2:.1f} s)")
+    entries = []
+    base = {bf: f32 for f32, bf in BF16_VCYCLE.items()}
+    for name in VCYCLE_PASSES:
+        big, small = times[512][name], times[128][name]
+        entries.append({
+            "name": name, "route": "cuda", "source": KERNELS[base[name]][0],
+            "replaces": KERNELS[base[name]][1], "launches": launches[name],
+            "path": "128^3 RefinedKSP bf16 cg+mg (cfg11's problem), host loop",
+            "max_abs_err": max(worst[name], big["max_abs_err"],
+                               small["max_abs_err"]),
+            "ms": big["ms"], "kernel_ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": big["library_ms"],
+            "shape": [512] * 3, "dtype": "bfloat16", "at_128": small})
+    return entries, {"refine_mg": refine, "cfg13": cfg13,
+                     "ksp_megasolve": ksp, "autoselect": auto,
+                     "procs": procs}
+
+
 def main():
     try:
         import torch
@@ -4634,6 +5383,17 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--nccl-capture"]:
+        # a diagnosis of CUDA graph capture over NCCL, one rank per card
+        print(json.dumps({"nccl_capture": phase_nccl_capture()}))
+        print(card_line())
+        return
+    if sys.argv[1:] == ["--nccl-capture-release"]:
+        # the same, the graphs dropped before the ranks' teardown
+        print(json.dumps({"nccl_capture": phase_nccl_capture(
+            modes=("global",), release=True, stage_s=15)}))
+        print(card_line())
+        return
     if sys.argv[1:] == ["--ksp-types"]:
         # only the Krylov types' phases, behind the checks of the kernels
         # they launch (rows 1, 2, 9, 2b and 9b)
@@ -4641,6 +5401,17 @@ def main():
         phase_many_kernel_checks()
         phase_bf16_kernel_checks()
         print(json.dumps({"ksp_types": phase_ksp_types()}, default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--megasolve"]:
+        # only this slice's phases: rows 3b-6b, PC mg under bf16
+        # refinement, the fused program and the reduction plan selection
+        entries, mega = phase_megasolve()
+        print(json.dumps({"megasolve": mega}, default=float))
+        print(json.dumps({"kernels": entries}))
         print(card_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4698,6 +5469,9 @@ def main():
     # the Krylov types of item 5: rows 1, 2, 9, 2b and 9b
     ksp_types = phase_ksp_types(oracle)
     print(json.dumps({"ksp_types": ksp_types}, default=float))
+    # the bf16 V-cycle (rows 3b-6b), the fused program, -ksp_reduction_auto
+    vcycle_entries, mega = phase_megasolve()
+    print(json.dumps({"megasolve": mega}, default=float))
     ksp_launches = {
         "stencil7_apply": (
             ksp_types["128"]["pipecg"]["launches"]["stencil7_apply"],
@@ -4785,7 +5559,8 @@ def main():
     for entry in bf16_entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on "
                                      f"its path ({entry['path']})")
-    kernels += bf16_entries
+    kernels += bf16_entries + vcycle_entries
+    check(len(kernels) == 17, f"{len(kernels)} kernel entries, not 17")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,6 +4,8 @@
 // What they replace (mpi_petsc4py_example_tpu/ops/pallas_stencil.py):
 //   mg3d_smooth_pair_{f32,f64}       -> stencil3d_smooth_pair_pallas (:1251),
 //                                       body _double_sweep_kernel (:1157)
+//   mg3d_smooth_pair_bf16            -> the same TPU kernel at bfloat16 storage,
+//                                       as the TPU V-cycle runs it (mg.py _smooth)
 //   mg3d_residual_restrict_{f32,f64} -> stencil3d_residual_restrict_pallas (:1090),
 //                                       body _resid_restrict3_kernel (:987); also
 //                                       stencil3d_residual_zrestrict_pallas (:965),
@@ -32,8 +34,8 @@
 // plane windows, kAhead planes ahead of the plane in use, with cp.async; each
 // element leaves device memory once per block (the windows' rings are read
 // again by the neighbouring blocks, from L2).  A window covers x0-4 .. x0+67
-// and y0-2 .. y0+17 (the two-point ring a double sweep needs, widened in x
-// to 16-byte boundaries).  Two routes, chosen from the shape in the launcher:
+// (bf16: x0-8 .. x0+71) and y0-2 .. y0+17 (the two-point ring a double sweep
+// needs, widened in x to 16-byte boundaries).  Two routes, chosen from the shape in the launcher:
 //   * "vec16": nx a multiple of 16 bytes' worth of elements and u, f 16-byte
 //     aligned (every level of the cycle): one 16-byte copy per chunk of a
 //     window row; a chunk lies wholly inside or outside the plane;
@@ -71,6 +73,18 @@
 // ..., 1 coarse planes that gives kTargetBlocks blocks (512^3 and 256^3
 // march 16, 128^3 4, the coarser levels 1).
 //
+// bfloat16 (smooth_pair only; the TPU V-cycle never runs residual_restrict at
+// bfloat16, mg.py _mm_ok): the windows stage bf16 (half the bytes, 8 elements
+// a 16-byte chunk, so the window starts at x0-8 to keep chunks aligned), each
+// staged value is lifted to fp32, and both sweeps compute in fp32.  u1 is
+// rounded to bf16 where it is made (the frame and the owner's registers hold
+// the rounded values), and u2 once at the store.  So the pair equals two
+// stencil7_smooth_bf16 sweeps bit for bit.  The TPU's _double_sweep_kernel
+// (pallas_stencil.py:1157) computes in the storage dtype instead (six, u1 and
+// u2 at :1174, :1208, :1217), every operation rounding to bf16; the port keeps
+// the rounding of two row-3b sweeps, its check on the card.  The bf16 elem
+// route copies 2-byte elements with plain loads (cp.async moves 4, 8 or 16).
+//
 // Arithmetic: products go through __fmul_rn/__dmul_rn so nvcc cannot contract
 // them into FMAs, the six neighbours are subtracted in the plain version's
 // order (z-1, z+1, y-1, y+1, x-1, x+1), and every operation rounds as the
@@ -80,6 +94,7 @@
 // allocate nothing and do not synchronise; each entry point returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -94,6 +109,32 @@ constexpr int kTargetBlocks = 256;      // about two blocks for each of the 132 
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// A staged value in the arithmetic type (bf16 -> fp32 exactly), and a result
+// in the storage type (bf16: round to nearest even).
+__device__ __forceinline__ float lift(float v) { return v; }
+__device__ __forceinline__ double lift(double v) { return v; }
+__device__ __forceinline__ float lift(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename S>
+struct Narrow {
+  template <typename T>
+  static __device__ __forceinline__ S to(T v) { return v; }
+};
+
+template <>
+struct Narrow<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 to(float v) { return __float2bfloat16_rn(v); }
+};
+
+// v rounded to the storage type S and lifted back
+template <typename S, typename T>
+__device__ __forceinline__ T rounded(T v) { return lift(Narrow<S>::to(v)); }
+
+template <typename S>
+__device__ __forceinline__ S zero_of() { return S(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() { return __ushort_as_bfloat16(0); }
 
 struct Grid3 {
   int lz, ny, nx;
@@ -118,20 +159,24 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The geometry of the kTX x kTY tile: its staged window (WX x WY, corner
-// (y0-2, x0-4)) and its one-point-ring frame (EX x EY, corner (y0-1, x0-1)).
+// The geometry of the kTX x kTY tile of storage type T: its staged window
+// (WX x WY, corner (y0-2, x0-PADX)) and its one-point-ring frame (EX x EY,
+// corner (y0-1, x0-1)).  PADX is 4, or one 16-byte chunk of bf16 (8).
 template <typename T>
 struct Tile {
   static constexpr int kThreads = kTX * kTY / kRows;
-  static constexpr int WX = kTX + 8, WY = kTY + 4, NW = WX * WY;
+  static constexpr int kV = 16 / static_cast<int>(sizeof(T));     // elements a 16-byte chunk
+  static constexpr int PADX = kV > 4 ? kV : 4;
+  static constexpr int WX = kTX + 2 * PADX, WY = kTY + 4, NW = WX * WY;
   static constexpr int EX = kTX + 2, EY = kTY + 2, NE = EX * EY;
   static constexpr int NRING = 2 * EX + 2 * kTY;
   static constexpr int RPT = (NRING + kThreads - 1) / kThreads;   // ring points a thread
-  static constexpr int kV = 16 / static_cast<int>(sizeof(T));     // elements a 16-byte chunk
   static constexpr int NCH = NW / kV;                             // chunks a window
   static constexpr int CPT = (NCH + kThreads - 1) / kThreads;     // chunks a thread
   // frame (ey, ex) -> window offset
-  static __device__ __forceinline__ int win(int ey, int ex) { return (ey + 1) * WX + ex + 3; }
+  static __device__ __forceinline__ int win(int ey, int ex) {
+    return (ey + 1) * WX + ex + PADX - 1;
+  }
   // the ring's e-th point in the frame: rows 0 and EY-1, then columns 0 and EX-1
   static __device__ __forceinline__ void ring(int e, int& ey, int& ex) {
     if (e < 2 * EX) {
@@ -165,7 +210,7 @@ struct Stager {
       for (int q = 0; q < N; ++q) {
         const int c = threadIdx.x + q * G::kThreads;
         const int row = c / CX, cx = c - row * CX;
-        const int y = y0 - 2 + row, x = x0 - 4 + cx * G::kV;
+        const int y = y0 - 2 + row, x = x0 - G::PADX + cx * G::kV;
         soff[q] = c < G::NCH ? c * G::kV : -1;
         inside[q] = y >= 0 && y < g.ny && x >= 0 && x < g.nx;
         goff[q] = static_cast<int64_t>(y) * g.nx + x;
@@ -190,11 +235,16 @@ struct Stager {
     } else {
       for (int e = threadIdx.x; e < G::NW; e += G::kThreads) {
         const int ey = e / G::WX, ex = e - ey * G::WX;
-        const int y = y0 - 2 + ey, x = x0 - 4 + ex;
+        const int y = y0 - 2 + ey, x = x0 - G::PADX + ex;
         if (zin && y >= 0 && y < g.ny && x >= 0 && x < g.nx) {
-          cp_async<sizeof(T)>(dst + e, base + static_cast<int64_t>(y) * g.nx + x);
+          const T* s = base + static_cast<int64_t>(y) * g.nx + x;
+          if constexpr (sizeof(T) >= 4) {
+            cp_async<sizeof(T)>(dst + e, s);
+          } else {
+            dst[e] = *s;
+          }
         } else {
-          dst[e] = T(0);
+          dst[e] = zero_of<T>();
         }
       }
     }
@@ -202,27 +252,27 @@ struct Stager {
 };
 
 // 6 c - (z-1) - (z+1) - (y-1) - (y+1) - (x-1) - (x+1) at offset o of a window of
-// row pitch W, from the planes below (m), at (c) and above (p).
-template <typename T, int W>
-__device__ __forceinline__ T apply_at(const T* m, const T* c, const T* p, int o) {
-  T a = mul_rn(T(6), c[o]);
-  a -= m[o];
-  a -= p[o];
-  a -= c[o - W];
-  a -= c[o + W];
-  a -= c[o - 1];
-  a -= c[o + 1];
+// row pitch W, from the planes below (m), at (c) and above (p), in type T.
+template <typename T, int W, typename P>
+__device__ __forceinline__ T apply_at(const P* m, const P* c, const P* p, int o) {
+  T a = mul_rn(T(6), lift(c[o]));
+  a -= lift(m[o]);
+  a -= lift(p[o]);
+  a -= lift(c[o - W]);
+  a -= lift(c[o + W]);
+  a -= lift(c[o - 1]);
+  a -= lift(c[o + 1]);
   return a;
 }
 
 // The same for a thread's four rows with the z taps and the centre column in
 // registers (zm, zp, cc) and the rest read from the centre plane c at window
 // offset o of row 0: a[r] = A at row r.
-template <typename T, int W>
+template <typename T, int W, typename P>
 __device__ __forceinline__ void apply_rows(const T (&zm)[kRows], const T (&cc)[kRows],
-                                           const T (&zp)[kRows], const T* c, int o,
+                                           const T (&zp)[kRows], const P* c, int o,
                                            T (&a)[kRows]) {
-  const T ym = c[o - W], yp = c[o + kRows * W];
+  const T ym = lift(c[o - W]), yp = lift(c[o + kRows * W]);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     T v = mul_rn(T(6), cc[r]);
@@ -230,8 +280,8 @@ __device__ __forceinline__ void apply_rows(const T (&zm)[kRows], const T (&cc)[k
     v -= zp[r];
     v -= r == 0 ? ym : cc[r - 1];
     v -= r == kRows - 1 ? yp : cc[r + 1];
-    v -= c[o + r * W - 1];
-    v -= c[o + r * W + 1];
+    v -= lift(c[o + r * W - 1]);
+    v -= lift(c[o + r * W + 1]);
     a[r] = v;
   }
 }
@@ -242,23 +292,25 @@ __device__ __forceinline__ T taps(T s, T lo, T a, T b, T hi) {
   return mul_rn(s, mul_rn(T(0.75), a + b) + mul_rn(T(0.25), lo + hi));
 }
 
-template <typename T>
+// S: the storage type (windows), T: the arithmetic type (the u1 frame)
+template <typename S, typename T>
 struct PairSmem {
-  using G = Tile<T>;
+  using G = Tile<S>;
   static constexpr int NU = kAhead + 3, NF = kAhead + 1;   // u and f windows
-  static constexpr size_t kBytes = sizeof(T) * ((NU + NF) * G::NW + 2 * G::NE);
+  static constexpr size_t kBytes = sizeof(S) * (NU + NF) * G::NW + sizeof(T) * 2 * G::NE;
 };
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(Tile<T>::kThreads)
-smooth_pair_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restrict__ out,
+template <typename Sto, typename T, bool kVec>
+__global__ void __launch_bounds__(Tile<Sto>::kThreads)
+smooth_pair_kernel(const Sto* __restrict__ u, const Sto* __restrict__ f, Sto* __restrict__ out,
                    Grid3 g, int zc, int ntx, int nty, int ntz, T w1, T w2) {
-  using G = Tile<T>;
-  using S = PairSmem<T>;
+  using G = Tile<Sto>;
+  using S = PairSmem<Sto, T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const su = reinterpret_cast<T*>(smem);
-  T* const sf = su + S::NU * G::NW;
-  T* const s1 = sf + S::NF * G::NW;   // u1 on planes z-1 and z, the frame
+  Sto* const su = reinterpret_cast<Sto*>(smem);
+  Sto* const sf = su + S::NU * G::NW;
+  // u1 on planes z-1 and z, the frame (values rounded to Sto)
+  T* const s1 = reinterpret_cast<T*>(sf + S::NF * G::NW);
   const int lx = threadIdx.x % kTX, ly = (threadIdx.x / kTX) * kRows;
   const int wo = G::win(ly + 1, lx + 1);   // row 0 of this thread in a window
   const int eo = (ly + 1) * G::EX + lx + 1;   // ... and in the frame
@@ -267,7 +319,7 @@ smooth_pair_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restri
       for (int tx = blockIdx.x; tx < ntx; tx += gridDim.x) {
         const int x0 = tx * kTX, y0 = ty * kTY;
         const int z0 = tz * zc, z1 = min(z0 + zc, g.lz);
-        Stager<T, kVec> stager;
+        Stager<Sto, kVec> stager;
         stager.init(g, y0, x0);
         // plane p of u, f, u1 lives in these slots (p >= z0-2, z0-1, z0-1)
         auto us = [&](int p) { return su + ((p - z0 + 2) % S::NU) * G::NW; };
@@ -299,28 +351,28 @@ smooth_pair_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restri
           __syncthreads();   // this step's planes are in; last step's readers are done
           stage(zz + 1 + kAhead, zz + kAhead);
           cp_commit();
-          const T *Um = us(zz - 1), *Uc = us(zz), *Up = us(zz + 1), *Fc = fs(zz);
+          const Sto *Um = us(zz - 1), *Uc = us(zz), *Up = us(zz + 1), *Fc = fs(zz);
           T* const U1 = u1s(zz);
           const bool zin = zz >= 0 && zz < g.lz;
           // sweep 1: u1 on plane zz, this thread's rows
           if (zz == z0 - 1) {
 #pragma unroll
             for (int r = 0; r < kRows; ++r) {
-              um[r] = Um[wo + r * G::WX];
-              uc[r] = Uc[wo + r * G::WX];
+              um[r] = lift(Um[wo + r * G::WX]);
+              uc[r] = lift(Uc[wo + r * G::WX]);
             }
           }
           T up[kRows], a[kRows];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) up[r] = Up[wo + r * G::WX];
+          for (int r = 0; r < kRows; ++r) up[r] = lift(Up[wo + r * G::WX]);
           apply_rows<T, G::WX>(um, uc, up, Uc, wo, a);
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
             fm[r] = fc[r];
-            fc[r] = Fc[wo + r * G::WX];
+            fc[r] = lift(Fc[wo + r * G::WX]);
             u1m[r] = u1c[r];
             u1c[r] = u1p[r];
-            u1p[r] = zin && yin[r] ? uc[r] + mul_rn(w1, fc[r] - a[r]) : T(0);
+            u1p[r] = zin && yin[r] ? rounded<Sto>(uc[r] + mul_rn(w1, fc[r] - a[r])) : T(0);
             U1[eo + r * G::EX] = u1p[r];
             um[r] = uc[r];
             uc[r] = up[r];
@@ -336,7 +388,8 @@ smooth_pair_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restri
               T v = T(0);
               if (zin && y >= 0 && y < g.ny && xr >= 0 && xr < g.nx) {
                 const int o = G::win(ey, ex);
-                v = Uc[o] + mul_rn(w1, Fc[o] - apply_at<T, G::WX>(Um, Uc, Up, o));
+                v = rounded<Sto>(lift(Uc[o]) +
+                                 mul_rn(w1, lift(Fc[o]) - apply_at<T, G::WX>(Um, Uc, Up, o)));
               }
               U1[ey * G::EX + ex] = v;
             }
@@ -346,10 +399,13 @@ smooth_pair_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restri
           const int zo = zz - 1;
           if (zo >= z0) {
             apply_rows<T, G::EX>(u1m, u1c, u1p, u1s(zo), eo, a);
-            T* const dst = out + zo * g.plane + static_cast<int64_t>(y0 + ly) * g.nx + x;
+            Sto* const dst = out + zo * g.plane + static_cast<int64_t>(y0 + ly) * g.nx + x;
 #pragma unroll
             for (int r = 0; r < kRows; ++r) {
-              if (yin[r]) dst[static_cast<int64_t>(r) * g.nx] = u1c[r] + mul_rn(w2, fm[r] - a[r]);
+              if (yin[r]) {
+                dst[static_cast<int64_t>(r) * g.nx] =
+                    Narrow<Sto>::to(u1c[r] + mul_rn(w2, fm[r] - a[r]));
+              }
             }
           }
         }
@@ -551,31 +607,34 @@ int allow_smem(Kernel kernel, size_t bytes, unsigned* done) {
   return static_cast<int>(err);
 }
 
-template <typename T, bool kVec>
-int launch_smooth_pair_route(const T* u, const T* f, T* out, const Grid3& g, T w1, T w2,
+template <typename S, typename T, bool kVec>
+int launch_smooth_pair_route(const S* u, const S* f, S* out, const Grid3& g, T w1, T w2,
                              cudaStream_t stream) {
   static unsigned configured = 0;
-  const size_t bytes = PairSmem<T>::kBytes;
-  if (const int err = allow_smem(smooth_pair_kernel<T, kVec>, bytes, &configured)) return err;
+  const size_t bytes = PairSmem<S, T>::kBytes;
+  if (const int err = allow_smem(smooth_pair_kernel<S, T, kVec>, bytes, &configured)) {
+    return err;
+  }
   const int ntx = (g.nx - 1) / kTX + 1, nty = (g.ny - 1) / kTY + 1;
   const int zc = pick_chunk(static_cast<int64_t>(ntx) * nty, g.lz, 8, 2);
   const int ntz = (g.lz - 1) / zc + 1;
-  smooth_pair_kernel<T, kVec><<<capped(ntx, nty, ntz), Tile<T>::kThreads, bytes, stream>>>(
+  smooth_pair_kernel<S, T, kVec><<<capped(ntx, nty, ntz), Tile<S>::kThreads, bytes, stream>>>(
       u, f, out, g, zc, ntx, nty, ntz, w1, w2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// S: the storage type, T: the arithmetic type (S, or fp32 for bf16)
+template <typename S, typename T = S>
 int launch_smooth_pair(const void* u, const void* f, void* out, int lz, int ny, int nx,
                        double w1, double w2, void* stream) {
   const Grid3 g{lz, ny, nx, static_cast<int64_t>(ny) * nx};
-  const auto* tu = static_cast<const T*>(u);
-  const auto* tf = static_cast<const T*>(f);
-  auto* to = static_cast<T*>(out);
+  const auto* tu = static_cast<const S*>(u);
+  const auto* tf = static_cast<const S*>(f);
+  auto* to = static_cast<S*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   const T a = static_cast<T>(w1), b = static_cast<T>(w2);
-  return vec16<T>(u, f, nx) ? launch_smooth_pair_route<T, true>(tu, tf, to, g, a, b, st)
-                            : launch_smooth_pair_route<T, false>(tu, tf, to, g, a, b, st);
+  return vec16<S>(u, f, nx) ? launch_smooth_pair_route<S, T, true>(tu, tf, to, g, a, b, st)
+                            : launch_smooth_pair_route<S, T, false>(tu, tf, to, g, a, b, st);
 }
 
 template <typename T, bool kVec>
@@ -625,6 +684,12 @@ int mg3d_smooth_pair_f32(const void* u, const void* f, void* out, int lz, int ny
 int mg3d_smooth_pair_f64(const void* u, const void* f, void* out, int lz, int ny, int nx,
                          double w1, double w2, void* stream) {
   return launch_smooth_pair<double>(u, f, out, lz, ny, nx, w1, w2, stream);
+}
+
+// bf16 u, f, out; fp32 sweeps, u1 rounded to bf16 between them
+int mg3d_smooth_pair_bf16(const void* u, const void* f, void* out, int lz, int ny, int nx,
+                          double w1, double w2, void* stream) {
+  return launch_smooth_pair<__nv_bfloat16, float>(u, f, out, lz, ny, nx, w1, w2, stream);
 }
 
 // out (lz/2, ny/2, nx/2) = restrict(f - A u); lz, ny, nx even (the caller checks).

@@ -14,6 +14,13 @@
 //                                     instantiations of the same four TPU
 //                                     kernels (_compute_dtype :46); one kernel
 //                                     of its own, below
+//   stencil7_{smooth,residual,smooth0_pair}_bf16 -> the bfloat16 instantiations
+//                                     of stencil3d_smooth_pallas,
+//                                     stencil3d_residual_pallas and
+//                                     stencil3d_smooth0_pair_pallas, which the
+//                                     TPU V-cycle runs at bfloat16 storage
+//                                     (mg.py _sweep, _residual, _smooth0);
+//                                     the same bf16 kernel with an epilogue
 //
 // All compute, on a z-slab u (lz, ny, nx) stored x-fastest,
 //   Au = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
@@ -343,6 +350,10 @@ int launch_many(const void* u, const void* lo, const void* hi, void* y, void* pa
 //     kV 2-byte loads a run, which may cross rows; each point's edges come
 //     from bit masks made once a tile.
 // Both compute the same sums in the same order, so they give the same bits.
+// The V-cycle's three bf16 entry points run the same march with an epilogue
+// (RunSmooth, RunResidual, RunSmooth0Pair below): f's run at the point is
+// loaded where the epilogue reads it (one more stream of 2 bytes a point) and
+// the stored value is the epilogue's fp32 result, rounded once.
 // The z-chunk zc (8, 4, 2 or 1 planes) is the longest that still gives
 // kRunTarget blocks for ONE slab (zc = 8 from 128^3 up, 1 at 64^3): it
 // depends on the shape alone, never on k.  k is grid z, so no cap on k
@@ -351,10 +362,16 @@ int launch_many(const void* u, const void* lo, const void* hi, void* y, void* pa
 // Arithmetic: each point is lifted to fp32 (bits << 16, as __bfloat162float),
 // the sum is 6 u by __fmul_rn, then minus z-1, z+1, y-1, y+1, x-1, x+1 (the
 // plain version's order, a missing neighbour subtracting 0), rounded once to
-// bf16 (round to nearest even).  The dot sums u * Au from the UNROUNDED fp32
+// bf16 (round to nearest even), or first turned by the epilogue in fp32
+// (u + w (f - Au), f - Au, sum u - prod Au, each product by __fmul_rn, as the
+// f32 epilogues) and then rounded once: the TPU kernel's cdt = fp32
+// arithmetic (pallas_stencil.py:111), and the plain versions' lift-compute-
+// round.  The dot sums u * Au from the UNROUNDED fp32
 // Au (pallas_stencil.py:237) with __fmaf_rn in a fixed order: per thread over
 // z and its run, then block_sum, one fp32 partial a block, and
-// sum_partials_kernel per column.  Bound: 4 bytes a point (read u, write Au).
+// sum_partials_kernel per column.  Bound: 4 bytes a point (read u, write Au);
+// the V-cycle passes 6 (smooth, residual: read u and f, write out) or 4
+// (smooth0_pair: read f, write out).
 
 using bf16 = __nv_bfloat16;
 
@@ -384,11 +401,41 @@ RunTiles make_run_tiles(int lz, int ny, int nx) {
   return t;
 }
 
-bool run_vec16(int nx, const void* u, const void* lo, const void* hi, const void* y) {
+bool run_vec16(int nx, const void* u, const void* lo, const void* hi, const void* y,
+               const void* f) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(lo) |
-                         reinterpret_cast<uintptr_t>(hi) | reinterpret_cast<uintptr_t>(y);
+                         reinterpret_cast<uintptr_t>(hi) | reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(f);
   return nx % kV == 0 && bits % 16 == 0;
 }
+
+// The stored value from the fp32 centre u, the fp32 A u and f's point (read
+// only when kF); every product by __fmul_rn, so no FMA contracts it.
+struct RunAu {
+  static constexpr bool kF = false;
+  __device__ float operator()(float, float au, float) const { return au; }
+};
+
+struct RunSmooth {         // u + w (f - A u)
+  static constexpr bool kF = true;
+  float w;
+  __device__ float operator()(float u, float au, float f) const {
+    return u + __fmul_rn(w, f - au);
+  }
+};
+
+struct RunResidual {       // f - A u
+  static constexpr bool kF = true;
+  __device__ float operator()(float, float au, float f) const { return f - au; }
+};
+
+struct RunSmooth0Pair {    // (w1 + w2) f - (w1 w2) A f, the kernel run on u = f
+  static constexpr bool kF = false;
+  float sum, prod;
+  __device__ float operator()(float u, float au, float) const {
+    return __fmul_rn(sum, u) - __fmul_rn(prod, au);
+  }
+};
 
 // A run of kV stored points as it is loaded (through the read-only path: no
 // launch writes what it reads), lifted to fp32, and stored; m has bit i set
@@ -459,12 +506,14 @@ struct RunIO<false> {
 // The run starting at in-plane point p over planes z0 .. z1-1 of one slab;
 // adds the run's share of sum(u * Au) to acc when kDot.  Every thread of the
 // block calls it with the same z0, z1 (the shuffles need the whole warp).
-template <bool kDot, bool kHalo, bool kVec>
+template <bool kDot, bool kHalo, bool kVec, class Epi>
 __device__ __forceinline__ void march_run(const bf16* __restrict__ u,
                                           const bf16* __restrict__ halo_lo,
                                           const bf16* __restrict__ halo_hi,
+                                          const bf16* __restrict__ f,
                                           bf16* __restrict__ y, int lz, int ny, int nx,
-                                          int64_t p, int z0, int z1, float& acc) {
+                                          int64_t p, int z0, int z1, float& acc,
+                                          Epi epi) {
   using IO = RunIO<kVec>;
   using Raw = typename IO::Raw;
   // runs above in flight: three for the apply, two for the dot, whose
@@ -528,6 +577,13 @@ __device__ __forceinline__ void march_run(const bf16* __restrict__ u,
       float xr = __shfl_down_sync(kFull, c[0], 1);
       if (lane == 0 && (xm & 1u)) xl = __bfloat162float(__ldg(uc - 1));
       if (lane == 31 && (xp >> (kV - 1) & 1u)) xr = __bfloat162float(__ldg(uc + kV));
+      float fv[kV];
+      if constexpr (Epi::kF) {
+        IO::lift(IO::load(f + z * plane + p, in), fv);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kV; ++i) fv[i] = 0.0f;
+      }
       float v[kV];
 #pragma unroll
       for (int i = 0; i < kV; ++i) {
@@ -542,7 +598,7 @@ __device__ __forceinline__ void march_run(const bf16* __restrict__ u,
         t -= vyp[i];
         t -= has_l ? (i == 0 ? xl : c[i - 1]) : 0.0f;
         t -= has_r ? (i == kV - 1 ? xr : c[i + 1]) : 0.0f;
-        v[i] = t;
+        v[i] = epi(c[i], t, fv[i]);
         if (kDot) acc = __fmaf_rn(c[i], t, acc);
       }
       IO::store(y + z * plane + p, v, in);
@@ -558,16 +614,17 @@ __device__ __forceinline__ void march_run(const bf16* __restrict__ u,
 // Y = A U for k slabs (grid z = column j), the dot's per-block partial into
 // partial[j nblk + block], nblk = gridDim.x gridDim.y: one stencil7_dot_bf16
 // launch's layout for each column.
-template <bool kDot, bool kHalo, bool kVec>
+template <bool kDot, bool kHalo, bool kVec, class Epi>
 __global__ void __launch_bounds__(kRunThreads)
 stencil7_run_kernel(const bf16* __restrict__ u, const bf16* __restrict__ halo_lo,
-                    const bf16* __restrict__ halo_hi, bf16* __restrict__ y,
-                    float* __restrict__ partial, int lz, int ny, int nx, int64_t nch,
-                    int zc, int ntz) {
+                    const bf16* __restrict__ halo_hi, const bf16* __restrict__ f,
+                    bf16* __restrict__ y, float* __restrict__ partial, int lz, int ny, int nx,
+                    int64_t nch, int zc, int ntz, Epi epi) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t j = blockIdx.z;
   u += j * plane * lz;
   y += j * plane * lz;
+  if (Epi::kF) f += j * plane * lz;
   if (kHalo) {
     halo_lo += j * plane;
     halo_hi += j * plane;
@@ -576,9 +633,9 @@ stencil7_run_kernel(const bf16* __restrict__ u, const bf16* __restrict__ halo_lo
   for (int tz = blockIdx.y; tz < ntz; tz += gridDim.y) {
     const int z0 = tz * zc, z1 = min(z0 + zc, lz);
     for (int64_t ch = blockIdx.x; ch < nch; ch += gridDim.x) {
-      march_run<kDot, kHalo, kVec>(u, halo_lo, halo_hi, y, lz, ny, nx,
+      march_run<kDot, kHalo, kVec>(u, halo_lo, halo_hi, f, y, lz, ny, nx,
                                    ch * kRunPoints + static_cast<int64_t>(threadIdx.x) * kV,
-                                   z0, z1, acc);
+                                   z0, z1, acc, epi);
     }
   }
   if (kDot) {
@@ -591,23 +648,26 @@ stencil7_run_kernel(const bf16* __restrict__ u, const bf16* __restrict__ halo_lo
 }
 
 // k bf16 slabs: Y = A U and, with kDot, out[j] = <u_j, A u_j> (fp32 partial
-// and out).  Null lo and hi select zero halos.  1 <= k <= 65535.
-template <bool kDot>
+// and out); or, with an epilogue and k = 1, the V-cycle's passes (f null
+// unless Epi::kF).  Null lo and hi select zero halos.  1 <= k <= 65535.
+template <bool kDot, class Epi = RunAu>
 int launch_run(const void* u, const void* lo, const void* hi, void* y, void* partial,
-               void* out, int k, int lz, int ny, int nx, void* stream) {
-  using Kernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, float*, int, int, int,
-                          int64_t, int, int);
+               void* out, int k, int lz, int ny, int nx, void* stream, const void* f = nullptr,
+               Epi epi = Epi{}) {
+  using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, float*,
+                          int, int, int, int64_t, int, int, Epi);
   const RunTiles t = make_run_tiles(lz, ny, nx);
-  const bool vec = run_vec16(nx, u, lo, hi, y);
+  const bool vec = run_vec16(nx, u, lo, hi, y, f);
   const Kernel kernel = lo != nullptr && hi != nullptr
-                            ? (vec ? stencil7_run_kernel<kDot, true, true>
-                                   : stencil7_run_kernel<kDot, true, false>)
-                            : (vec ? stencil7_run_kernel<kDot, false, true>
-                                   : stencil7_run_kernel<kDot, false, false>);
+                            ? (vec ? stencil7_run_kernel<kDot, true, true, Epi>
+                                   : stencil7_run_kernel<kDot, true, false, Epi>)
+                            : (vec ? stencil7_run_kernel<kDot, false, true, Epi>
+                                   : stencil7_run_kernel<kDot, false, false, Epi>);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<dim3(t.grid.x, t.grid.y, static_cast<unsigned>(k)), kRunThreads, 0, s>>>(
       static_cast<const bf16*>(u), static_cast<const bf16*>(lo), static_cast<const bf16*>(hi),
-      static_cast<bf16*>(y), static_cast<float*>(partial), lz, ny, nx, t.nch, t.zc, t.ntz);
+      static_cast<const bf16*>(f), static_cast<bf16*>(y), static_cast<float*>(partial), lz, ny,
+      nx, t.nch, t.zc, t.ntz, epi);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || !kDot) return err;
   const int64_t nblk = static_cast<int64_t>(t.grid.x) * t.grid.y;
@@ -726,8 +786,10 @@ long long stencil7_dot_blocks_bf16(int lz, int ny, int nx) {
 }
 
 // 1 when a bf16 launch on these pointers takes the vec16 route, 0 for elem
-int stencil7_bf16_route(int nx, const void* u, const void* lo, const void* hi, const void* y) {
-  return run_vec16(nx, u, lo, hi, y) ? 1 : 0;
+// (f: the V-cycle passes' right-hand side, null for the others)
+int stencil7_bf16_route(int nx, const void* u, const void* lo, const void* hi, const void* y,
+                        const void* f) {
+  return run_vec16(nx, u, lo, hi, y, f) ? 1 : 0;
 }
 
 int stencil7_apply_bf16(const void* u, const void* lo, const void* hi, void* y,
@@ -750,6 +812,29 @@ int stencil7_dot_many_bf16(const void* u, const void* lo, const void* hi, void* 
                            void* partial, void* out, int k, int lz, int ny, int nx,
                            void* stream) {
   return launch_run<true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
+}
+
+// The V-cycle's bf16 passes: bf16 u, f, halos (or both null) and out, fp32
+// arithmetic rounded once at the store.  out = u + w (f - A u):
+int stencil7_smooth_bf16(const void* u, const void* f, const void* lo, const void* hi,
+                         void* out, int lz, int ny, int nx, double w, void* stream) {
+  return launch_run<false>(u, lo, hi, out, nullptr, nullptr, 1, lz, ny, nx, stream, f,
+                           RunSmooth{static_cast<float>(w)});
+}
+
+// out = f - A u
+int stencil7_residual_bf16(const void* u, const void* f, const void* lo, const void* hi,
+                           void* out, int lz, int ny, int nx, void* stream) {
+  return launch_run<false>(u, lo, hi, out, nullptr, nullptr, 1, lz, ny, nx, stream, f,
+                           RunResidual{});
+}
+
+// out = sum f - prod (A f) with zero halo planes
+int stencil7_smooth0_pair_bf16(const void* f, void* out, int lz, int ny, int nx, double sum,
+                               double prod, void* stream) {
+  return launch_run<false>(f, nullptr, nullptr, out, nullptr, nullptr, 1, lz, ny, nx, stream,
+                           nullptr,
+                           RunSmooth0Pair{static_cast<float>(sum), static_cast<float>(prod)});
 }
 
 }  // extern "C"

@@ -121,7 +121,9 @@ def _counts() -> dict:
         "stencil3d_smooth", "stencil3d_residual", "stencil3d_smooth0_pair",
         "stencil3d_smooth_pair", "stencil3d_residual_restrict")}
     out.update({f"{name}_bf16": getattr(st, name).launches_bf16
-                for name in _BF16_WRAPPERS})
+                for name in _BF16_WRAPPERS + (
+                    "stencil3d_smooth", "stencil3d_residual",
+                    "stencil3d_smooth0_pair", "stencil3d_smooth_pair")})
     return out
 
 
@@ -158,7 +160,29 @@ def _stencil_ksp(comm, case, op):
     ksp.set_tolerances(rtol=case.get("rtol", 1e-8), atol=0.0,
                        max_it=case.get("max_it", 10000))
     ksp.set_operators(op, case.get("pmat"))
+    ksp.megasolve = bool(case.get("megasolve", False))
+    ksp.megasolve_stencil_fastpath = bool(case.get("fastpath", False))
+    ksp.reduction_auto = bool(case.get("reduction_auto", False))
     return ksp
+
+
+def _fused(res) -> dict:
+    """A fused solve's outer steps, replays, masked steps and whether CUDA
+    graphs ran (nothing for an unfused solve)."""
+    if not hasattr(res, "megasolve_steps"):
+        return {}
+    return {"steps": res.megasolve_steps, "replays": res.replays,
+            "masked_steps": res.masked_steps, "graph": res.graph}
+
+
+def _reduction_report(ksp) -> dict:
+    """``-ksp_reduction_auto``'s choice and the latencies it came from."""
+    rep = ksp._reduction_report
+    if rep is None:
+        return {}
+    return {"auto_type": rep.ksp_type, "auto_s": rep.s,
+            "psum_us": rep.psum_us, "apply_us": rep.apply_us,
+            "ranking": json.dumps(rep.ranking)}
 
 
 def _true_residual(comm, geometry, b, x):
@@ -204,7 +228,8 @@ def _case_cg(comm, case):
                "rnorm": res.residual_norm, "wall_s": res.wall_time,
                "host_syncs": res.host_syncs,
                "host_copies": getattr(comm, "host_copies", 0) - copies,
-               **_launched(before), **_called(comm, calls)}
+               **_launched(before), **_called(comm, calls), **_fused(res),
+               **_reduction_report(ksp)}
     if case.get("true_res"):
         out["true_res"], out["bnorm"] = _true_residual(comm, geometry, b, x)
     if case.get("time_psum"):
@@ -239,7 +264,7 @@ def _case_many(comm, case):
             "reason": np.asarray([int(r) for r in res.reasons]),
             "x": np.asarray(res.X), "wall_s": res.wall_time,
             "host_syncs": res.host_syncs, **_launched(before),
-            **_called(comm, calls)}
+            **_called(comm, calls), **_fused(res)}
 
 
 class _DenseCap:
@@ -415,16 +440,22 @@ def refine_rhs(case, A) -> np.ndarray:
 def _case_refine(comm, case):
     """``RefinedKSP``: the fp64 outer loop around an inner CG at ``prec``,
     on the stencil (``grid``) or an assembled operator (``op``); ``k``
-    columns go through ``solve_many``."""
+    columns go through ``solve_many``; ``megasolve`` runs the fused program
+    (on the stencil with an fp64 stencil as the outer operator)."""
     dt = _DTYPES[case.get("prec", "f32")]
+    outer = None
     if case.get("grid"):
         A = poisson3d_csr(*case["grid"])
         inner = pt.StencilPoisson3D(comm, *case["grid"], dtype=dt)
+        if case.get("megasolve"):
+            outer = pt.StencilPoisson3D(comm, *case["grid"],
+                                        dtype=torch.float64)
     else:
         A, inner = AIJ_OPERATORS[case["op"]](), None
     rk = pt.RefinedKSP().create(comm)
+    rk.megasolve = bool(case.get("megasolve", False))
     rk.set_inner_precision(case.get("prec", "f32"))
-    rk.set_operators(A, inner_op=inner)
+    rk.set_operators(A, inner_op=inner, outer_op=outer)
     rk.set_type("cg")
     rk.get_pc().set_type(case.get("pc", "jacobi"))
     rk.set_tolerances(rtol=case.get("rtol", 1e-10))
@@ -435,7 +466,8 @@ def _case_refine(comm, case):
     _sync(comm)
     out = {"its": res.iterations, "reason": int(res.reason), "x": x,
            "steps": rk.refine_steps, "rnorm": res.residual_norm,
-           "wall_s": res.wall_time}
+           "wall_s": res.wall_time, "host_syncs": res.host_syncs,
+           **_fused(res)}
     out.update(_launched(before))
     return out
 
@@ -498,7 +530,11 @@ def run_case(comm, case: dict) -> dict:
     The solve kinds take the Krylov parameters ``sstep_s``, ``restart``,
     ``aug`` and ``ell`` (:func:`configure_ksp`), and 'cg' and 'many' report
     the solve's host syncs and its collective calls (``calls_psum``,
-    ``calls_shift``, ...)."""
+    ``calls_shift``, ...). ``megasolve`` (with ``fastpath``) sends 'cg',
+    'many' and 'refine' through the fused program, which adds ``steps``,
+    ``replays``, ``masked_steps`` and ``graph``; ``reduction_auto`` on 'cg'
+    lets ``-ksp_reduction_auto`` choose the type and adds its report
+    (``auto_type``, ``auto_s``, ``psum_us``, ``apply_us``, ``ranking``)."""
     return _KINDS[case["kind"]](comm, case)
 
 

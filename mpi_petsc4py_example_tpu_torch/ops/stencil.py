@@ -20,13 +20,19 @@ Counterpart of ``mpi_petsc4py_example_tpu/ops/pallas_stencil.py``:
 
 The four kernels of the Krylov loops (apply, dot and their ``_many`` twins)
 take float32, float64 and bfloat16 storage, as the TPU kernels take float32
-and bfloat16; the V-cycle's five take float32 and float64. Under bfloat16
-(the storage of the mixed-precision plan, ``solvers/cg_plans.py``) each
-loaded value is lifted to fp32, the 7-term sum is formed in fp32 and the
-result rounded once to bfloat16 (the TPU kernels' ``_compute_dtype``,
-``:46``); the dots sum ``u * A u`` in fp32 from the unrounded fp32 ``A u``
-(``:237``, ``:552``) and return fp32 scalars (the reduce dtype, ``:417-420``),
-as the plain versions do.
+and bfloat16; so do the V-cycle's smooth, residual, smooth0_pair and
+smooth_pair, which the TPU V-cycle runs at bfloat16 storage
+(``pallas_supported``, ``:721``, is True for bfloat16 there), while
+residual_restrict takes float32 and float64 (the TPU V-cycle at bfloat16
+never reaches it: ``mg._mm_ok`` is False there). Under bfloat16 (the
+storage of the mixed-precision plan, ``solvers/cg_plans.py``) each loaded
+value is lifted to fp32, the 7-term sum and the epilogue are formed in fp32
+and the result rounded once to bfloat16 (the TPU kernels' ``_compute_dtype``,
+``:46``); smooth_pair rounds its first sweep to bfloat16 too, so it equals
+two smooth sweeps bit for bit (the TPU's ``_double_sweep_kernel`` computes
+in bfloat16 throughout: ``ROADMAP.md`` Queue C). The dots sum ``u * A u``
+in fp32 from the unrounded fp32 ``A u`` (``:237``, ``:552``) and return fp32
+scalars (the reduce dtype, ``:417-420``), as the plain versions do.
 
 All take a z-slab ``u (lz, ny, nx)`` (x fastest) and compute with
 ``A u = 6u - (6 neighbours)``, zero fill in x and y. The first four read the z
@@ -40,7 +46,8 @@ apply and its fused per-column ``<u_j, A u_j>``.
 The first five kernels and the two ``_many`` kernels are in
 ``csrc/stencil7.cu`` (one kernel with an epilogue per function; the four
 bfloat16 instantiations are one kernel of their own, whose single-RHS pair
-is its k = 1 launch, on a 16-byte or an element route, :func:`bf16_route`),
+is its k = 1 launch, on a 16-byte or an element route, :func:`bf16_route`;
+the V-cycle's three bfloat16 passes are the same kernel with an epilogue),
 the two that need two-deep z neighbourhoods in ``csrc/mg3d.cu``.
 
 Dispatch is by the device of ``u`` alone: a CPU tensor goes through the plain
@@ -68,12 +75,13 @@ from . import build
 RSCALE = 4.0 ** (1.0 / 3.0) / 2.0
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
-# the storage dtypes of the V-cycle's kernels (the JAX V-cycle names no
-# bfloat16 path)
+# the storage dtypes of residual_restrict (the TPU V-cycle reaches its kernel
+# at float32 only; bfloat16 restricts after the residual pass)
 _VCYCLE_DTYPES = (torch.float32, torch.float64)
 # the entry points with a bfloat16 instantiation
 _BF16_KERNELS = ("stencil7_apply", "stencil7_dot", "stencil7_apply_many",
-                 "stencil7_dot_many")
+                 "stencil7_dot_many", "stencil7_smooth", "stencil7_residual",
+                 "stencil7_smooth0_pair", "mg3d_smooth_pair")
 _INT_MAX = 2**31 - 1
 _VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures of the entry points, per library, without the dtype suffix
@@ -114,7 +122,7 @@ def _kernels(name: str = "stencil7") -> ctypes.CDLL:
             for fn in (lib.stencil7_dot_blocks, lib.stencil7_dot_blocks_bf16):
                 fn.argtypes = [_CI, _CI, _CI]
                 fn.restype = ctypes.c_longlong
-            lib.stencil7_bf16_route.argtypes = [_CI] + [_VP] * 4
+            lib.stencil7_bf16_route.argtypes = [_CI] + [_VP] * 5
             lib.stencil7_bf16_route.restype = _CI
         _libs[name] = lib
     return lib
@@ -202,13 +210,14 @@ def _dot_partials(lib, dtype, k, lz, ny, nx) -> int:
     return k * blocks(lz, ny, nx)
 
 
-def bf16_route(u, halo_lo, halo_hi, out) -> str:
-    """The route a bfloat16 launch on these CUDA tensors takes
-    (``stencil7_bf16_route``): ``"vec16"``, 16-byte runs, when ``nx`` is a
-    multiple of 8 and every pointer 16-byte aligned; else ``"elem"``."""
+def bf16_route(u, halo_lo, halo_hi, out, f=None) -> str:
+    """The route a bfloat16 launch of ``csrc/stencil7.cu`` on these CUDA
+    tensors takes (``stencil7_bf16_route``; ``f`` the V-cycle passes'
+    right-hand side): ``"vec16"``, 16-byte runs, when ``nx`` is a multiple
+    of 8 and every pointer 16-byte aligned; else ``"elem"``."""
     vec = _kernels().stencil7_bf16_route(u.shape[-1], u.data_ptr(),
                                          _ptr(halo_lo), _ptr(halo_hi),
-                                         out.data_ptr())
+                                         out.data_ptr(), _ptr(f))
     return "vec16" if vec else "elem"
 
 
@@ -292,23 +301,30 @@ def stencil3d_dot_many_plain(U, halo_lo, halo_hi):
 
 
 def stencil3d_smooth_plain(u, f, halo_lo, halo_hi, w):
-    """One damped-Jacobi sweep ``u + w (f - A u)`` (``w`` is omega/6)."""
-    return u + w * (f - stencil3d_apply_plain(u, halo_lo, halo_hi))
+    """One damped-Jacobi sweep ``u + w (f - A u)`` (``w`` is omega/6);
+    bfloat16 is lifted to fp32, computed and rounded once."""
+    u32, f32, lo, hi = _lift(u, f, halo_lo, halo_hi)
+    return (u32 + w * (f32 - _apply_body(u32, lo, hi))).to(u.dtype)
 
 
 def stencil3d_residual_plain(u, f, halo_lo, halo_hi):
-    """The residual ``f - A u``."""
-    return f - stencil3d_apply_plain(u, halo_lo, halo_hi)
+    """The residual ``f - A u`` (bfloat16: fp32, rounded once)."""
+    u32, f32, lo, hi = _lift(u, f, halo_lo, halo_hi)
+    return (f32 - _apply_body(u32, lo, hi)).to(u.dtype)
 
 
 def stencil3d_smooth0_pair_plain(f, w1, w2):
     """Two sweeps from a zero guess with zero ghosts:
-    ``u1 = w1 f``, ``u2 = u1 + w2 (f - A u1) = (w1 + w2) f - w1 w2 (A f)``."""
-    return (w1 + w2) * f - (w1 * w2) * stencil3d_apply_plain(f, None, None)
+    ``u1 = w1 f``, ``u2 = u1 + w2 (f - A u1) = (w1 + w2) f - w1 w2 (A f)``
+    (bfloat16: fp32, rounded once)."""
+    (f32,) = _lift(f)
+    return ((w1 + w2) * f32
+            - (w1 * w2) * _apply_body(f32, None, None)).to(f.dtype)
 
 
 def stencil3d_smooth_pair_plain(u, f, w1, w2):
-    """Two sweeps ``S_w2(S_w1(u))`` with zero ghosts on every side."""
+    """Two sweeps ``S_w2(S_w1(u))`` with zero ghosts on every side (each
+    sweep rounded to bfloat16 under bfloat16 storage)."""
     u1 = stencil3d_smooth_plain(u, f, None, None, w1)
     return stencil3d_smooth_plain(u1, f, None, None, w2)
 
@@ -388,7 +404,8 @@ def stencil3d_dot(u, halo_lo, halo_hi, out=None):
 def stencil3d_smooth(u, f, halo_lo, halo_hi, w, out=None):
     """One damped-Jacobi sweep ``u + w (f - A u)`` in one pass; ``w`` is the
     sweep's omega/6."""
-    lz, ny, nx = _check(u, out, f=f, halo_lo=halo_lo, halo_hi=halo_hi)
+    lz, ny, nx = _check(u, out, dtypes=_SUFFIX, f=f, halo_lo=halo_lo,
+                        halo_hi=halo_hi)
     if u.device.type == "cpu":
         y = stencil3d_smooth_plain(u, f, halo_lo, halo_hi, w)
         return y if out is None else out.copy_(y)
@@ -396,13 +413,14 @@ def stencil3d_smooth(u, f, halo_lo, halo_hi, w, out=None):
     _launch("stencil7", "stencil7_smooth", u, "stencil7_smooth launch",
             u.data_ptr(), f.data_ptr(), _ptr(halo_lo), _ptr(halo_hi),
             y.data_ptr(), lz, ny, nx, float(w))
-    stencil3d_smooth.launches += 1
+    _count(stencil3d_smooth, u.dtype)
     return y
 
 
 def stencil3d_residual(u, f, halo_lo, halo_hi, out=None):
     """The residual ``f - A u`` in one pass."""
-    lz, ny, nx = _check(u, out, f=f, halo_lo=halo_lo, halo_hi=halo_hi)
+    lz, ny, nx = _check(u, out, dtypes=_SUFFIX, f=f, halo_lo=halo_lo,
+                        halo_hi=halo_hi)
     if u.device.type == "cpu":
         y = stencil3d_residual_plain(u, f, halo_lo, halo_hi)
         return y if out is None else out.copy_(y)
@@ -410,24 +428,24 @@ def stencil3d_residual(u, f, halo_lo, halo_hi, out=None):
     _launch("stencil7", "stencil7_residual", u, "stencil7_residual launch",
             u.data_ptr(), f.data_ptr(), _ptr(halo_lo), _ptr(halo_hi),
             y.data_ptr(), lz, ny, nx)
-    stencil3d_residual.launches += 1
+    _count(stencil3d_residual, u.dtype)
     return y
 
 
 def stencil3d_smooth0_pair(f, w1, w2, out=None):
     """Two damped-Jacobi sweeps from a zero guess, zero ghosts:
     ``(w1 + w2) f - w1 w2 (A f)`` in one pass (``w1``/``w2`` are omega/6)."""
-    lz, ny, nx = _check(f, out)
+    lz, ny, nx = _check(f, out, dtypes=_SUFFIX)
     if f.device.type == "cpu":
         y = stencil3d_smooth0_pair_plain(f, w1, w2)
         return y if out is None else out.copy_(y)
     y = _out(f, out)
     # the coefficients are formed in double, as the plain version's Python
-    # floats are, and rounded to the dtype in the kernel
+    # floats are, and rounded to the arithmetic dtype in the kernel
     _launch("stencil7", "stencil7_smooth0_pair", f,
             "stencil7_smooth0_pair launch", f.data_ptr(), y.data_ptr(),
             lz, ny, nx, float(w1) + float(w2), float(w1) * float(w2))
-    stencil3d_smooth0_pair.launches += 1
+    _count(stencil3d_smooth0_pair, f.dtype)
     return y
 
 
@@ -435,7 +453,7 @@ def stencil3d_smooth_pair(u, f, w1, w2, out=None):
     """Two damped-Jacobi sweeps ``S_w2(S_w1(u))`` from a nonzero guess in one
     pass, zero ghosts on every side (``w1``/``w2`` are omega/6). The kernel
     takes every ``lz``: it has no chunk limit."""
-    lz, ny, nx = _check(u, out, f=f)
+    lz, ny, nx = _check(u, out, dtypes=_SUFFIX, f=f)
     if u.device.type == "cpu":
         y = stencil3d_smooth_pair_plain(u, f, w1, w2)
         return y if out is None else out.copy_(y)
@@ -443,7 +461,7 @@ def stencil3d_smooth_pair(u, f, w1, w2, out=None):
     _launch("mg3d", "mg3d_smooth_pair", u, "mg3d_smooth_pair launch",
             u.data_ptr(), f.data_ptr(), y.data_ptr(), lz, ny, nx, float(w1),
             float(w2))
-    stencil3d_smooth_pair.launches += 1
+    _count(stencil3d_smooth_pair, u.dtype)
     return y
 
 
@@ -516,7 +534,7 @@ def stencil3d_dot_many(U, halo_lo, halo_hi, out=None):
     return Y, dots
 
 # every kernel wrapper, for code that reads or resets all launch counters
-# (``launches``; the four with a bfloat16 instantiation also count its
+# (``launches``; the eight with a bfloat16 instantiation also count its
 # launches alone in ``launches_bf16``)
 KERNELS = {
     "stencil7_apply": stencil3d_apply,

@@ -192,8 +192,8 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
     ``M3`` is not taken). ``x`` is ``x0``, updated in place (the JAX program
     donates ``x0`` the same way). ``prec`` is the :class:`PrecisionPlan`
     (None: uniform); under a mixed plan ``pdot``/``pnorm`` must lift their
-    operands to its reduce dtype, and ``M3`` is not taken (PC mg raises on
-    bfloat16 storage).
+    operands to its reduce dtype, and the ``M3`` route (PC mg) updates the
+    bfloat16 carries as the other routes do.
 
     ``monitor`` is called on the host with each residual norm the loop
     reads anyway, in order: ``monitor(it, rn)`` for iterations ``0..it``
@@ -271,7 +271,10 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
             rz_new = pdot(r, z)
             rn_new = torch.sqrt(rr)
             beta = _safe_div(rz_new, rz)
-            p.mul_(beta).add_(z)                      # p = z + beta p
+            if mixed:                                 # rounded once
+                _lifted_axpy(z, beta, p, out=p)
+            else:
+                p.mul_(beta).add_(z)                  # p = z + beta p
         elif stencil and mixed:
             r32 = prec.up(r)                          # lifted once
             rr = pdot(r32, r32)
@@ -719,3 +722,346 @@ def sstep_cg_loop(*, b, x0, rtol, atol, maxit, s, gram, combine, A=None,
     return (x, int(it), true,
             _reason(float(rn_h), float(tol_h), atol_h, bool(brk),
                     float(dmax_h)), syncs)
+
+
+# ---- device-resident plan steps (the fused megasolve's inner loops) ----------
+#
+# The loops above read the host once per iteration to decide whether to go on.
+# The fused whole-solve program (``solvers/megasolve.py``) runs the same
+# recurrences as MASKED steps with no host read: a :class:`DevicePlan` holds
+# ``init(b) -> state``, a dict of device tensors, and ``step(state) ->
+# state``, which computes every update and keeps a frozen recurrence (or
+# column) by ``torch.where`` selects, never by a multiply with a zero gate,
+# so a frozen step leaves every carry bit-equal and inf/NaN cannot leak in
+# (JAX ``classic_cg_loop``'s ``jnp.where(cm, ...)``, ``cg_plans.py:448-480``).
+# A live step's arithmetic is the eager loop's, op for op. The tolerance
+# scalars are device tensors (``rtol``, ``atol``, ``dtol`` of the reduce
+# dtype, ``maxit`` int64): nothing in a step reads the host or makes a host
+# copy, so a CUDA graph can capture it.
+
+
+class DevicePlan:
+    """A masked-step recurrence: ``init(b)`` (from a zero guess) returns the
+    state dict, ``step(state)`` one masked iteration (s-step: one block) as
+    a new dict, ``live(state)`` the per-recurrence continue mask, and
+    ``result(state)`` ``(x, it, reason)`` as device tensors. ``state["ls"]``
+    counts the steps in which some recurrence was live."""
+
+    def __init__(self, init, step, live, result):
+        self.init, self.step, self.live, self.result = init, step, live, result
+
+
+def _dmax_dev(rnorm0, dtol):
+    """:func:`_dmax` for a device ``dtol``: ``dtol * rnorm0``, and no
+    ceiling where ``dtol <= 0``."""
+    return torch.where(dtol > 0, dtol * rnorm0,
+                       torch.full_like(rnorm0, math.inf))
+
+
+def _reason_dev(rn, tol, atol, brk, dmax):
+    """:func:`_reason` on device tensors (per column under a batch plan)."""
+    return torch.where(
+        brk, CR.DIVERGED_BREAKDOWN,
+        torch.where(rn <= tol,
+                    torch.where(rn <= atol, CR.CONVERGED_ATOL,
+                                CR.CONVERGED_RTOL),
+                    torch.where(rn >= dmax, CR.DIVERGED_DTOL,
+                                CR.DIVERGED_MAX_IT))).to(torch.int32)
+
+
+def _zero_counts(rn):
+    it = torch.zeros(rn.shape, dtype=torch.int64, device=rn.device)
+    return it, torch.zeros(rn.shape, dtype=torch.bool, device=rn.device)
+
+
+def _live_steps(st, cont):
+    return st["ls"] + cont.any().to(torch.int64)
+
+
+def _finish(x, st):
+    return x, st["it"], _reason_dev(st["rn"], st["tol"], st["atol"],
+                                    st["brk"], st["dmax"])
+
+
+def classic_cg_device(*, rtol, atol, maxit, dtol, A=None, M=None, Adot=None,
+                      inv_diag=None, pdot=None, pnorm=None, bp=None,
+                      prec=None) -> DevicePlan:
+    """The classic CG recurrence as a :class:`DevicePlan`, on the general
+    route (``A``, ``M``) or the stencil route (``Adot`` with the scalar
+    ``inv_diag``), one RHS or a :class:`ManyBatch` block: the arithmetic of
+    :func:`classic_cg_loop` and its ``_lockstep``, with every update
+    selected by the continue mask."""
+    stencil = Adot is not None
+    mixed = prec is not None and prec.mixed
+    st_ = _stc(prec)
+    ex = bp.ex if bp is not None else (lambda s: s)
+
+    def init(b):
+        x = torch.zeros_like(b)
+        if stencil:
+            bnorm = pnorm(b)
+            r = b - Adot(x)[0]
+            rr0 = pdot(r, r)
+            rn = torch.sqrt(rr0)
+            rz = rr0 * inv_diag
+            p = st_(prec.up(r) * inv_diag) if mixed else r * inv_diag
+            tol = torch.clamp_min(rtol * bnorm, atol)
+        else:
+            r = b - A(x)
+            p = M(r).clone()
+            rz = pdot(r, p)
+            _, tol = _tol(pnorm, b, rtol, atol)
+            rn = pnorm(r)
+        it, brk = _zero_counts(rn)
+        return dict(x=x, r=r, p=p, rz=rz, rn=rn, tol=tol,
+                    atol=torch.zeros_like(rn) + atol, dmax=_dmax_dev(rn, dtol),
+                    it=it, brk=brk, ls=it.new_zeros(()))
+
+    def live(st):
+        return _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
+                     st["brk"])
+
+    def axpy(y, a, v):
+        # store(up(y) + a up(v)) under a mixed plan, else y + a v (addcmul)
+        return _mix_axpy(prec, y, v, a)
+
+    def step(st):
+        cont = live(st)
+        cm = ex(cont)
+        x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
+        if stencil:
+            Ap, pAp = Adot(p)
+        else:
+            Ap = A(p)
+            pAp = pdot(p, Ap)
+        brk = st["brk"] | (cont & (pAp == 0))
+        al = ex(_safe_div(rz, pAp))
+        x = torch.where(cm, axpy(x, al, p), x)
+        r = torch.where(cm, axpy(r, -al, Ap), r)
+        if stencil:
+            r32 = prec.up(r) if mixed else r
+            rr = pdot(r32, r32)
+            rz_new = rr * inv_diag
+            rn_new = torch.sqrt(rr)
+            beta = ex(_safe_div(rz_new, rz))
+            if mixed:
+                pn = _lifted_axpy(st_(r32 * inv_diag), beta, p,
+                                  out=torch.empty_like(p))
+            else:
+                pn = torch.mul(p, beta).add_(r, alpha=inv_diag)
+        else:
+            z = M(r)
+            rz_new = pdot(r, z)
+            rn_new = pnorm(r)
+            beta = ex(_safe_div(rz_new, rz))
+            pn = (_lifted_axpy(z, beta, p, out=torch.empty_like(p)) if mixed
+                  else torch.mul(p, beta).add_(z))
+        return dict(st, x=x, r=r, p=torch.where(cm, pn, p),
+                    rz=torch.where(cont, rz_new, rz),
+                    rn=torch.where(cont, rn_new, st["rn"]),
+                    it=st["it"] + cont, brk=brk, ls=_live_steps(st, cont))
+
+    return DevicePlan(init, step, live, lambda st: _finish(st["x"], st))
+
+
+def pipelined_cg_device(*, rtol, atol, maxit, dtol, A, M, pnorm, fused,
+                        bp=None, prec=None) -> DevicePlan:
+    """The pipelined CG recurrence of :func:`pipelined_cg_loop` as a
+    :class:`DevicePlan` (one RHS or a :class:`ManyBatch` block): the masked
+    branch of that loop's update, for every step."""
+    mixed = prec is not None and prec.mixed
+    ex = bp.ex if bp is not None else (lambda s: s)
+    consts = {}
+
+    def init(b):
+        sdt = prec.reduce if mixed else b.dtype
+        x0 = torch.zeros_like(b)
+        r = b - A(x0)
+        bnorm = pnorm(b)
+        tol = torch.clamp_min(rtol * bnorm, atol)
+        u = M(r)
+        w = A(u)
+        rn0 = pnorm(r)
+        S = torch.stack([w, u, r, x0])
+        if "sgn" not in consts:
+            consts["sgn"] = torch.tensor(
+                [-1.0, -1.0, -1.0, 1.0], dtype=sdt,
+                device=b.device).reshape((4,) + (1,) * b.ndim)
+        it, brk = _zero_counts(rn0)
+        gamma = torch.zeros(rn0.shape, dtype=sdt, device=b.device)
+        return dict(S=S, V=torch.zeros_like(S), gamma=gamma,
+                    alpha=torch.zeros_like(gamma), rn=rn0, tol=tol,
+                    atol=torch.zeros_like(rn0) + atol,
+                    dmax=_dmax_dev(rn0, dtol), it=it, brk=brk,
+                    ls=it.new_zeros(()))
+
+    def live(st):
+        return _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
+                     st["brk"])
+
+    def step(st):
+        cont = live(st)
+        cm = ex(cont)
+        S, V, gamma, alpha = st["S"], st["V"], st["gamma"], st["alpha"]
+        w, u, r = S[0], S[1], S[2]
+        g_new, delta, rr = fused(r, u, w)
+        m = M(w)
+        n = A(m)
+        first = gamma == 0
+        beta = torch.where(first, 0.0,
+                           g_new / torch.where(first, 1.0, gamma))
+        aold = torch.where(alpha == 0, 1.0, alpha)
+        denom = torch.where(first, delta, delta - beta * g_new / aold)
+        a_new = torch.where(denom == 0, 0.0,
+                            g_new / torch.where(denom == 0, 1.0, denom))
+        be, al = ex(beta), ex(a_new)
+        Vn = torch.stack([_mix_axpy(prec, c, V[i], be)
+                          for i, c in enumerate((n, m, w, u))])
+        V = torch.where(cm, Vn, V)
+        S = torch.where(cm, _mix_axpy(prec, S, V, al * consts["sgn"]), S)
+        rn_new = torch.sqrt(torch.clamp_min(rr, 0.0))
+        return dict(st, S=S, V=V, gamma=torch.where(cont, g_new, gamma),
+                    alpha=torch.where(cont, a_new, alpha),
+                    rn=torch.where(cont, rn_new, st["rn"]),
+                    it=st["it"] + cont,
+                    brk=st["brk"] | (cont & (denom == 0)),
+                    ls=_live_steps(st, cont))
+
+    return DevicePlan(init, step, live, lambda st: _finish(st["S"][3], st))
+
+
+def _sstep_coefficients_dev(E, s, Sm, tol, dmax, maxit, it, rn, cont, brk):
+    """:func:`_sstep_coefficients` as device tensor operations in the Gram
+    matrix's dtype, with no host read (the JAX program runs it in-program,
+    ``cg_plans.py:1048-1107``): ``E (q, q)`` for one RHS or ``(q, q, k)``
+    for a column block, whose columns run as a batch. ``Sm`` is the
+    :func:`sstep_shift` matrix on the device. Returns ``(chat, phat, it, rn,
+    brk)``, the coefficients ``(m,)`` or ``(m, k)``."""
+    single = E.dim() == 2
+    Eb = E[None] if single else E.permute(2, 0, 1)
+    tol, dmax, it, rn, cont, brk = (t.reshape(-1)
+                                    for t in (tol, dmax, it, rn, cont, brk))
+    m = 2 * s + 1
+    dt = E.dtype
+    k = Eb.shape[0]
+
+    def cmat(G, v):
+        return torch.matmul(G, v[..., None])[..., 0]
+
+    def cdot(u, v):
+        return (u * v).sum(-1)
+
+    def onehot(i):
+        v = torch.zeros((k, m), dtype=dt, device=E.device)
+        v[:, i] = 1
+        return v
+
+    G1, G2 = Eb[:, 0:m, m:2 * m], Eb[:, m:2 * m, m:2 * m]
+    g0, w0, rr0 = Eb[:, 0:m, 2 * m], Eb[:, m:2 * m, 2 * m], Eb[:, 2 * m, 2 * m]
+    G1H = G1.transpose(1, 2)
+
+    def rz_of(zh, ch):
+        return cdot(g0, zh) - cdot(ch, cmat(G1H, zh))
+
+    phat, zhat = onehot(0), onehot(s + 1)
+    chat = torch.zeros((k, m), dtype=dt, device=E.device)
+    rz = rz_of(zhat, chat)
+    rr0p = torch.clamp_min(rr0, 0.0)
+    rn = torch.where(cont, torch.sqrt(rr0p), rn)
+    rr_floor = _SSTEP_RR_FLOOR * m * torch.finfo(dt).eps * rr0p
+    rn_floor = torch.sqrt(rr_floor)
+    a = cont & (rn > tol)
+    for _ in range(s):
+        pAp = cdot(phat, cmat(G1, phat))
+        brk_j = a & (pAp == 0)
+        brk = brk | brk_j
+        a = a & ~brk_j
+        alpha = torch.where(pAp == 0, 0.0,
+                            rz / torch.where(pAp == 0, 1.0, pAp))
+        am = a[:, None]
+        chat = torch.where(am, chat + alpha[:, None] * phat, chat)
+        zhat = torch.where(am, zhat - alpha[:, None] * cmat(Sm, phat), zhat)
+        rz_new = rz_of(zhat, chat)
+        rr_new = rr0 - 2.0 * cdot(chat, w0) + cdot(chat, cmat(G2, chat))
+        floor_hit = rr_new <= rr_floor
+        rn_new = torch.maximum(torch.sqrt(torch.clamp_min(rr_new, 0.0)),
+                               rn_floor)
+        beta = torch.where(rz == 0, 0.0, rz_new / torch.where(rz == 0, 1.0,
+                                                              rz))
+        phat = torch.where(am, zhat + beta[:, None] * phat, phat)
+        rz = torch.where(a, rz_new, rz)
+        rn = torch.where(a, rn_new, rn)
+        it = it + a
+        a = a & ~floor_hit & (rn > tol) & (rn < dmax) & (it < maxit)
+    if single:
+        return chat[0], phat[0], it[0], rn[0], brk[0]
+    return chat.T, phat.T, it, rn, brk
+
+
+def sstep_cg_device(*, rtol, atol, maxit, dtol, s, A, M, pnorm, gram,
+                    combine, bp=None, prec=None) -> DevicePlan:
+    """The s-step CG recurrence of :func:`sstep_cg_loop` as a
+    :class:`DevicePlan`: one step is one block of ``s`` iterations around
+    the one Gram reduction, its coefficient recurrences on the device
+    (:func:`_sstep_coefficients_dev`)."""
+    st_ = _stc(prec)
+    mixed = prec is not None and prec.mixed
+    up = prec.up if mixed else (lambda v: v)
+    ex = bp.ex if bp is not None else (lambda s_: s_)
+    s = int(s)
+    if s < 1:
+        raise ValueError(f"-ksp_sstep_s must be >= 1, got {s}")
+    m = 2 * s + 1
+    consts = {}
+
+    def init(b):
+        x = torch.zeros_like(b)
+        r = b - A(x)
+        bnorm = pnorm(b)
+        tol = torch.clamp_min(rtol * bnorm, atol)
+        rn0 = pnorm(r)
+        p = M(r)
+        if "Sm" not in consts:
+            consts["Sm"] = torch.from_numpy(sstep_shift(s, m)).to(
+                dtype=rn0.dtype, device=b.device)
+        it, brk = _zero_counts(rn0)
+        return dict(x=x, r=r, p=p, rn=rn0, tol=tol,
+                    atol=torch.zeros_like(rn0) + atol,
+                    dmax=_dmax_dev(rn0, dtol), it=it, brk=brk,
+                    ls=it.new_zeros(()))
+
+    def live(st):
+        return _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
+                     st["brk"])
+
+    def step(st):
+        cont = live(st)
+        x, r, p = st["x"], st["r"], st["p"]
+        C = p.new_zeros((p.shape[0], 2 * m + 1) + tuple(p.shape[1:]))
+        C[:, 0] = p
+        for i in range(s):
+            t = A(C[:, i])
+            C[:, m + i] = t
+            C[:, i + 1] = st_(M(t))
+        C[:, s + 1] = st_(M(r))
+        for i in range(s - 1):
+            t = A(C[:, s + 1 + i])
+            C[:, m + s + 1 + i] = t
+            C[:, s + 2 + i] = st_(M(t))
+        C[:, 2 * m] = r
+        E = gram(up(C))
+        chat, phat, it, rn, brk = _sstep_coefficients_dev(
+            E, s, consts["Sm"], st["tol"], st["dmax"], maxit, st["it"],
+            st["rn"], cont, st["brk"])
+        cm = ex(cont)
+        x_new = st_(up(x) + combine(chat, up(C[:, :m])))
+        r_new = st_(up(r) - combine(chat, up(C[:, m:2 * m])))
+        p_new = st_(combine(phat, up(C[:, :m])))
+        return dict(st, x=torch.where(cm, x_new, x),
+                    r=torch.where(cm, r_new, r), p=torch.where(cm, p_new, p),
+                    rn=rn.reshape(st["rn"].shape),
+                    it=it.reshape(st["it"].shape),
+                    brk=brk.reshape(st["brk"].shape),
+                    ls=_live_steps(st, cont))
+
+    return DevicePlan(init, step, live, lambda st: _finish(st["x"], st))

@@ -1330,6 +1330,31 @@ def make_projector(comm, basis, prec):
     return project
 
 
+def shard_dots(comm, lift, cols=False):
+    """``(pdot, pnorm)``: the dot of two shard-stacked tensors as one dot
+    per shard of the ``lift``-ed entries, summed in shard order by ONE
+    ``psum``, and the norm it gives. ``cols``: per column of ``(size, k,
+    lsize)`` blocks, each column's dot as the single-RHS one. The
+    reductions of the unfused programs and of the fused one
+    (``solvers/megasolve.py``), which must agree bit for bit."""
+    size = comm.local_shards
+
+    def dot(u, v):
+        return torch.dot(lift(u).reshape(-1), lift(v).reshape(-1))
+
+    def pdot(U, V):
+        if cols:
+            return comm.psum([torch.stack([dot(U[i, j], V[i, j])
+                                           for j in range(U.shape[1])])
+                              for i in range(size)])
+        return comm.psum([dot(U[i], V[i]) for i in range(size)])
+
+    def pnorm(U):
+        return torch.sqrt(pdot(U, U))
+
+    return pdot, pnorm
+
+
 def fused_dots(comm, up, cols=False):
     """``fdots(pairs) -> (len(pairs)[, k])``: the local dots of every pair
     ``(u, v)`` of shard-stacked tensors, stacked per shard and summed in ONE
@@ -1421,14 +1446,7 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
     n = operator.shape[0]
     prec = _precision(ksp_type, operator)
     up = prec.up
-
-    def pdot(u, v):
-        return comm.psum([torch.dot(up(u[i]).reshape(-1),
-                                    up(v[i]).reshape(-1))
-                          for i in range(size)])
-
-    def pnorm(u):
-        return torch.sqrt(pdot(u, u))
+    pdot, pnorm = shard_dots(comm, up)
 
     natural = natural and ksp_type in NATURAL_TYPES
     plan = {"prec": prec} if prec.mixed else {}
@@ -1601,19 +1619,9 @@ def build_ksp_program_many(comm, ksp_type, pc, operator, true_res=False,
     if ksp_type not in BATCHED_TYPES:
         raise ValueError(f"KSP {ksp_type!r} has no batched program; "
                          "KSP.solve_many solves its columns one by one")
-    size = comm.local_shards
     prec = _precision(ksp_type, operator)
     up = prec.up
-
-    def pdot(U, V):
-        return comm.psum([
-            torch.stack([torch.dot(up(U[i, j]).reshape(-1),
-                                   up(V[i, j]).reshape(-1))
-                         for j in range(U.shape[1])])
-            for i in range(size)])
-
-    def pnorm(U):
-        return torch.sqrt(pdot(U, U))
+    pdot, pnorm = shard_dots(comm, up, cols=True)
 
     plan = {"prec": prec} if prec.mixed else {}
     spmv = operator.local_spmv_many(comm)

@@ -27,6 +27,18 @@ and for pipecg/sstep ``-ksp_pipeline_auto_replacement``/
 would arm it raises naming that item and its flag, and never runs the
 unguarded loop in its place.
 
+``-ksp_megasolve`` routes an eligible cg/pipecg/sstep solve (and
+``solve_many`` block) through the fused program of ``solvers/megasolve.py``,
+replayed as captured CUDA graphs on the card, with the true-residual gate
+in-program (``GATE_REFINE_MAX`` steps); ``-ksp_megasolve_stencil_fastpath``
+gives its inner CG the stencil fused-dot loop. The routing rule is the JAX
+package's (``_megasolve_eligible``): other types, a null space, monitors or
+a history, a norm type other than the default, ``-ksp_unroll`` above 1 and
+host LU run the unfused path. ``-ksp_reduction_auto`` re-routes a
+cg/pipecg/sstep solve to the reduction plan that ``solvers/autoselect.py``
+picks from this communicator's measured latencies, once per operator and
+mesh, at ``set_up``.
+
 A null space on the operator (``Mat.set_nullspace``) is projected out in
 the solve program (``solvers/krylov.py``). A bfloat16 operator runs the
 mixed-precision plan (``solvers/cg_plans.py``): its tolerance scalars travel
@@ -86,10 +98,10 @@ _HISTORY_LENGTH = 10000
 _UNPORTED_MODES = (
     ("abft", "ksp_abft", 6),
     ("residual_replacement", "ksp_residual_replacement", 6),
-    ("megasolve", "ksp_megasolve", 5),
-    ("megasolve_stencil_fastpath", "ksp_megasolve_stencil_fastpath", 5),
-    ("reduction_auto", "ksp_reduction_auto", 5),
 )
+# the boolean flags of the ported modes: the fused program and the reduction
+# plan selection
+_MODE_FLAGS = ("megasolve", "megasolve_stencil_fastpath", "reduction_auto")
 
 
 class KSP:
@@ -131,9 +143,14 @@ class KSP:
         # the JAX flags of the modes the port lacks (_UNPORTED_MODES)
         self.abft = False
         self.residual_replacement = 0
+        # -ksp_megasolve, -ksp_megasolve_stencil_fastpath: the fused program
+        # (solvers/megasolve.py); -ksp_reduction_auto: the reduction plan
+        # chosen from measured latencies (solvers/autoselect.py)
         self.megasolve = False
         self.megasolve_stencil_fastpath = False
         self.reduction_auto = False
+        self._reduction_report = None
+        self._autoselect_key = None
         self.lgmres_augment = 2       # -ksp_lgmres_augment
         self.bcgsl_ell = 2            # -ksp_bcgsl_ell
         self.sstep_s = 4              # -ksp_sstep_s: the s-step block size
@@ -141,10 +158,12 @@ class KSP:
         # -ksp_residual_replacement is unset: it arms the guard (item 6)
         self.pipeline_auto_replacement = 0
         self.sstep_auto_replacement = 0
-        # read and stored as the JAX package stores them: each only
-        # parameterises a mode the port lacks (the guard, the reduction
-        # probe), which raises when chosen. -ksp_unroll only reschedules
-        # XLA's loop (JAX ksp.py:62-70) and has no effect here.
+        # read and stored as the JAX package stores them: -ksp_abft_tol and
+        # -ksp_sstep_max_replacements parameterise the guard, which raises
+        # when chosen; -ksp_reduction_probe_refresh re-measures the
+        # reduction probe of -ksp_reduction_auto. -ksp_unroll only
+        # reschedules XLA's loop (JAX ksp.py:62-70) and has no effect here
+        # but the megasolve routing, which it turns off as in JAX.
         self.abft_tol = 256.0
         self.unroll = 1
         self.sstep_max_replacements = 3
@@ -376,17 +395,19 @@ class KSP:
         ``-pc_setup_device``, ``-pc_mg_smooth_type``,
         ``-pc_composite_type``, ``-pc_composite_pcs`` (comma-separated).
 
-        The flags of the JAX modes the port lacks are read too: a solve with
-        ``-ksp_abft``, ``-ksp_residual_replacement``, ``-ksp_megasolve``,
-        ``-ksp_megasolve_stencil_fastpath`` or ``-ksp_reduction_auto`` on
-        raises ``NotImplementedError``, and so does a pipecg solve with
+        ``-ksp_megasolve``, ``-ksp_megasolve_stencil_fastpath``,
+        ``-ksp_reduction_auto`` and ``-ksp_reduction_probe_refresh`` choose
+        the fused program and the reduction plan selection (module
+        docstring). The flags of the JAX modes the port lacks are read too:
+        a solve with ``-ksp_abft`` or ``-ksp_residual_replacement`` on raises
+        ``NotImplementedError``, and so does a pipecg solve with
         ``-ksp_pipeline_auto_replacement`` or an sstep solve with
         ``-ksp_sstep_auto_replacement`` above 0 (they arm the guard);
         ``-ksp_abft_tol``, ``-ksp_sstep_max_replacements``,
-        ``-ksp_reduction_probe_refresh``, ``-pc_gamg_threshold``,
-        ``-pc_gamg_coarse_eq_limit`` and ``-pc_mg_levels`` parameterise modes
-        the port lacks and are stored; ``-ksp_unroll`` is stored and has no
-        effect."""
+        ``-pc_gamg_threshold``, ``-pc_gamg_coarse_eq_limit`` and
+        ``-pc_mg_levels`` parameterise modes the port lacks and are stored;
+        ``-ksp_unroll`` is stored (above 1 it keeps a solve off the fused
+        program, as in JAX)."""
         opt = global_options()
         p = self._prefix
         t = opt.get_string(p + "ksp_type")
@@ -410,6 +431,9 @@ class KSP:
             read = (opt.get_int if attr == "residual_replacement"
                     else opt.get_bool)
             setattr(self, attr, read(p + flag, getattr(self, attr)))
+        for attr in _MODE_FLAGS:
+            setattr(self, attr, opt.get_bool(p + "ksp_" + attr,
+                                             getattr(self, attr)))
         self.abft_tol = opt.get_real(p + "ksp_abft_tol", self.abft_tol)
         for attr in ("lgmres_augment", "bcgsl_ell", "unroll",
                      "pipeline_auto_replacement", "sstep_s",
@@ -489,14 +513,42 @@ class KSP:
                     "to run the plain solve")
 
     def set_up(self):
-        """Set up the PC on its operator (the factor PCs factor here).
-        Raises first when a mode the port lacks was asked for."""
+        """Set up the PC on its operator (the factor PCs factor here), then,
+        with ``-ksp_reduction_auto``, choose the reduction plan. Raises
+        first when a mode the port lacks was asked for."""
         if self._mat is None:
             raise RuntimeError("KSP.set_up: no operators set")
         self._check_modes()
         pc = self.get_pc()
         pc.set_up(pc._mat if pc._mat is not None else self._mat)
+        if self.reduction_auto:
+            # after the PC set-up: the apply probe runs the real operator
+            # and PC apply
+            self._autoselect_reduction()
         return self
+
+    def _autoselect_reduction(self):
+        """``-ksp_reduction_auto`` (JAX ``ksp.py:487-517``): pick classic,
+        pipelined or s-step CG (with its ``s``) from the measured latency of
+        one reduction on this communicator and of one operator + PC apply
+        (``solvers/autoselect.py``). Runs once per (operator, mesh); only a
+        cg/pipecg/sstep starting type is re-routed. The report stays on the
+        KSP as ``_reduction_report``."""
+        if self._type not in ("cg", "pipecg", "sstep"):
+            return
+        mat = self._mat
+        key = (id(mat), getattr(mat, "_state", 0), id(mat.comm))
+        if self._autoselect_key == key:
+            return
+        from . import autoselect
+        report = autoselect.select_reduction_plan(
+            mat.comm, mat, self.get_pc(),
+            refresh=self.reduction_probe_refresh)
+        self._type = report.ksp_type
+        if report.ksp_type == "sstep":
+            self.sstep_s = int(report.s)
+        self._reduction_report = report
+        self._autoselect_key = key
 
     setUp = set_up
 
@@ -575,6 +627,11 @@ class KSP:
             rtol, atol = _rtol, _atol
         guess_nonzero = (self._initial_guess_nonzero if _guess_nonzero is None
                          else _guess_nonzero)
+        # -ksp_megasolve: the fused program, the true-residual gate
+        # in-program (solvers/megasolve.py); other configurations run the
+        # unfused path below (JAX ksp.py:650-656)
+        if self._megasolve_eligible():
+            return self._solve_megasolve(b, x, rtol, atol, guess_nonzero)
         gate = (self._true_residual_check and self._type != "preonly"
                 and not norm_none)
         margin = self._margin() if gate else 1.0
@@ -655,6 +712,104 @@ class KSP:
             self.result = SolveResult(total[0], trn, reason, total[1],
                                       total[2])
             self._last_reentries = attempts
+
+    # ---- megasolve: the fused whole-solve path --------------------------------
+    def _megasolve_eligible(self, many: bool = False) -> bool:
+        """Route this solve through the fused program (JAX ``ksp.py:1165``)?
+        Any configuration without a fused equivalent (non-CG types, a null
+        space, monitors or a history, a norm type other than the default,
+        ``unroll`` above 1, host LU) runs the unfused path: JAX's routing
+        rule, not a fallback on failure."""
+        if not self.megasolve or self._mat is None:
+            return False
+        if self._nullspace_basis(self._mat) is not None:
+            return False
+        if self._norm_type != "default" or self.unroll != 1:
+            return False
+        if self._monitors or self._monitor_flag or self._history is not None:
+            return False
+        from .megasolve import megasolve_supported
+        return megasolve_supported(self._type, self.get_pc(), self._mat,
+                                   nrhs=2 if many else None)
+
+    def _megasolve_program(self, many_k=None):
+        from .megasolve import (build_megasolve_program,
+                                build_megasolve_program_many,
+                                megasolve_stencil_supported)
+        mat, pc = self._mat, self.get_pc()
+        sf = (self.megasolve_stencil_fastpath
+              and megasolve_stencil_supported(self._type, pc, mat,
+                                              nrhs=many_k))
+        if many_k is None:
+            return build_megasolve_program(mat.comm, self._type, pc, mat,
+                                           sstep_s=self.sstep_s,
+                                           stencil_fastpath=sf)
+        return build_megasolve_program_many(mat.comm, self._type, pc, mat,
+                                            nrhs=many_k,
+                                            sstep_s=self.sstep_s,
+                                            stencil_fastpath=sf)
+
+    def _megasolve_run(self, prog, b, x0, rtol, atol):
+        """One fused solve with the uniform-gate semantics: the unfused
+        gate's step cap and its DIVERGED_MAX_IT for a drift stall (an inner
+        breakdown still reports DIVERGED_BREAKDOWN)."""
+        from .megasolve import GATE_REFINE_MAX
+        t0 = time.perf_counter()
+        # the program holds the scalars in the operator's tolerance dtype
+        res = prog(b, x0, rtol, atol, rtol, self.divtol, self.max_it,
+                   GATE_REFINE_MAX, ConvergedReason.DIVERGED_MAX_IT)
+        self._last_reentries = 0      # in-program re-entries are no host
+        #                               gate re-entries
+        return res, time.perf_counter() - t0
+
+    def _solve_megasolve(self, b, x, rtol, atol, guess_nonzero):
+        """The ``-ksp_megasolve`` path (JAX ``ksp.py:1188``): the fused
+        program re-enters the CG recurrence from the TRUE residual until
+        ``max(rtol ||b||, atol)`` passes, so the reported norm is the
+        verified ``||b - A x||``. The result also carries the outer steps
+        (``megasolve_steps``), the graph replays, the masked inner steps
+        and whether CUDA graphs ran."""
+        mat = self._mat
+        L = mat.comm.local_shards
+        prog = self._megasolve_program()
+        x0 = x.data.view(L, -1).to(mat.dtype) if guess_nonzero else None
+        res, wall = self._megasolve_run(prog, b.data.view(L, -1), x0, rtol,
+                                        atol)
+        x.data = res.x.reshape(-1)
+        reason = res.reason
+        if not math.isfinite(res.rnorm):
+            reason = ConvergedReason.DIVERGED_NANORINF
+        self.result = SolveResult(res.iters, res.rnorm, int(reason), wall,
+                                  res.host_reads)
+        _megasolve_stats(self.result, res)
+        return self.result
+
+    def _solve_many_megasolve(self, Bd, X, n, x_vecs):
+        """The batched fused path (JAX ``ksp.py:1336``): the whole block's
+        gate recurrence in one fused program, per-column results as the
+        unfused batched path reports them."""
+        mat = self._mat
+        comm = mat.comm
+        prog = self._megasolve_program(many_k=int(Bd.shape[1]))
+        X0 = None
+        if self._initial_guess_nonzero:
+            X0 = (torch.stack([v.data.view(comm.local_shards, -1) for v in X],
+                              dim=1).to(mat.dtype)
+                  if x_vecs else comm.put_cols(X, mat.dtype))
+        res, wall = self._megasolve_run(prog, Bd, X0, self.rtol, self.atol)
+        if x_vecs:
+            for j, xv in enumerate(X):
+                xv.data = res.x[:, j].reshape(-1).to(xv.dtype)
+        else:
+            X[...] = comm.fetch_cols(res.x, n)
+        reasons = [ConvergedReason.DIVERGED_NANORINF
+                   if not math.isfinite(rn) else int(r)
+                   for rn, r in zip(res.rnorm, res.reason)]
+        self.result_many = BatchedSolveResult(
+            list(res.iters), list(res.rnorm), reasons, wall, X,
+            [[] for _ in reasons], res.host_reads)
+        _megasolve_stats(self.result_many, res)
+        return self.result_many
 
     def _solve_hostlu(self, b, x) -> SolveResult:
         """Direct solve through the PC's host sparse-LU factor (JAX
@@ -740,6 +895,11 @@ class KSP:
                 and hasattr(mat, "local_spmv_many")):
             return self._solve_many_sequential(B, X, k, b_vecs, x_vecs)
         comm = mat.comm
+        if self._megasolve_eligible(many=True):
+            Bd = (torch.stack([v.data.view(comm.local_shards, -1) for v in B],
+                              dim=1).to(mat.dtype)
+                  if b_vecs else comm.put_cols(B, mat.dtype))
+            return self._solve_many_megasolve(Bd, X, n, x_vecs)
         norm_none, rtol, atol, divtol = self._run_tolerances()
         gate = self._true_residual_check and not norm_none
         margin = self._margin() if gate else 1.0
@@ -897,6 +1057,16 @@ def _tolerances(dtype, *values) -> list:
     operator's ``tolerance_dtype`` (the value its arithmetic uses anyway)."""
     tdt = tolerance_dtype(dtype)
     return [torch.tensor(v, dtype=tdt).item() for v in values]
+
+
+def _megasolve_stats(result, res):
+    """A fused solve's extra fields on its result: the outer steps, the
+    graph replays (uncaptured runs of the pieces where no graph ran), the
+    masked inner steps, and whether CUDA graphs ran."""
+    result.megasolve_steps = res.steps
+    result.replays = res.replays
+    result.masked_steps = res.masked_steps
+    result.graph = res.graph
 
 
 def _final_reason(reason, rnorm, norm_none):

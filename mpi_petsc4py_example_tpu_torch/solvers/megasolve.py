@@ -1,0 +1,549 @@
+"""Megasolve: the whole refinement (or true-residual gate) loop on the device,
+replayed as captured CUDA graphs.
+
+The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/megasolve.py``.
+The JAX module composes the CG plan loops into ONE device program per
+request class::
+
+    outer loop over the refinement recurrence (the outer dtype, fp64 under
+    refinement, the operator's own when the operator is shared)
+      r_lp  = r in the inner dtype
+      dx    = inner CG plan loop (A_lp dx = r_lp), from zero
+      x    += up(dx)
+      r     = b - A_out x                   # the TRUE residual
+      exit: ||r|| <= max(rtol ||b||, atol), a stagnation guard, refine_max
+
+so a ``RefinedKSP.solve`` (and ``solve_many`` block) is one dispatch, and the
+returned iterate is verified by construction: the exit gate IS the true
+residual. With the operator shared (``outer_op`` None) the same program is
+the uniform-precision gate: ``KSP.solve`` re-enters from the true residual
+in-program (``GATE_REFINE_MAX`` steps). The inner plan is a
+:class:`..solvers.cg_plans.DevicePlan`: classic CG (general route, or the
+stencil fused-dot fast path with ``stencil_fastpath``), pipelined CG or
+s-step CG, one RHS or a ``ManyBatch`` block, and the PC is whatever
+``pc.local_apply`` closes over, the V-cycle of PC mg included.
+
+**The port's analog of one dispatch.** A JAX while-loop has no counterpart
+that a CUDA graph can hold without conditional nodes, so the program runs in
+pieces whose device state lives in static buffers: ``start`` (the outer
+set-up and the first inner set-up), ``chunk`` (``MEGASOLVE_CHUNK`` masked
+inner steps; a step past an inner loop's end changes no carry, it is
+counted in ``masked_steps``) and ``outer`` (the correction, the true
+residual, the guard and the next inner set-up). On a CUDA tensor each piece
+is captured once as a ``torch.cuda.CUDAGraph`` (after a warm-up run on a
+side stream, whose effect on the state is undone) and a solve replays
+them; between replays the host reads ONE small flag tensor (is the inner
+loop live, is the outer loop live). A solve costs ``1 + steps (chunks +
+1)`` replays and as many reads, plus one read of the result, where the
+eager loops read the host once per iteration. On a CPU tensor the same
+pieces run uncaptured: that is the plain version the tests hold against
+the JAX package. ``DeviceComm`` and a NCCL ``ProcessComm`` of one process
+are captured: only communicators of one process. gloo cannot be captured,
+so on a gloo communicator the pieces run uncaptured on every device; so
+they do on a NCCL ``ProcessComm`` of several processes, whose captured
+graphs ran on four cards but kept the ranks from leaving the process group
+while they lived (``ROADMAP.md`` Queue C). The choice is made from the
+communicator alone, and ``MegasolveResult.graph`` says which ran. A capture or replay that fails raises; nothing re-runs it
+eagerly.
+
+The kernel wrappers count launches in Python, which a replay does not run:
+a capture records each piece's launches and collectives (and undoes the
+counts the capture pass made), and each replay adds them to
+``ops.stencil`` counters and ``comm.collectives``.
+
+The graph captures the operator's and the PC's tensors by address. The
+program cache key carries the JAX key's parts (``megasolve.py:242-246``),
+the ``data_ptr`` of every tensor the operator and the PC hold, and the
+operator and mutation counter the PC was built from (jacobi's inverse
+diagonal made before the key is read), so a rebuilt operator or PC gets a
+new program and a repeated solve the same one; a cached program keeps the
+tensors its closures read alive, so an address it captured is never
+reused under it.
+
+The guarded modes (``abft``, ``abft_pc``, ``rr``) are ROADMAP.md Queue A
+item 6 and raise. ``torch.cond`` under capture (CUDA graph conditional
+nodes) could skip the masked steps; it needs the ctypes launches as
+traceable custom ops, and is left to a later PR (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..ops import stencil as _st
+from ..utils.convergence import ConvergedReason as CR
+from ..utils.dtypes import reduce_dtype, tolerance_dtype
+from . import cg_plans as _plans
+from .krylov import (_combine, batched_pc_supported, fused_dots, gram_psum,
+                     shard_dots)
+
+#: KSP types with a fused whole-solve program (the plan-built CG family)
+MEGASOLVE_TYPES = ("cg", "pipecg", "sstep")
+
+#: outer refinement-step cap of the uniform-precision (gate-fusion) path:
+#: the first full solve + the unfused gate's 3 re-entries
+GATE_REFINE_MAX = 4
+
+#: masked inner steps a ``chunk`` replay runs: more steps a replay means
+#: fewer host reads, and more masked steps past the inner loop's end
+MEGASOLVE_CHUNK = 8
+
+_CACHE: dict = {}
+
+
+def clear_cache():
+    """Drop every cached program (and its CUDA graphs and their memory)."""
+    _CACHE.clear()
+
+
+def megasolve_supported(ksp_type: str, pc, operator,
+                        nrhs: int | None = None) -> bool:
+    """Whether this (type, PC, operator) configuration has a fused
+    whole-solve program (JAX ``megasolve.py:93``): the KSP routing test;
+    ineligible configurations run the unfused path. Batched (``nrhs``)
+    programs also need a batched PC apply."""
+    if ksp_type not in MEGASOLVE_TYPES:
+        return False
+    if pc.kind == "hostlu":
+        return False
+    if not hasattr(operator, "local_spmv"):
+        return False
+    if nrhs is not None and not batched_pc_supported(pc):
+        return False
+    return True
+
+
+def megasolve_stencil_supported(ksp_type: str, pc, operator,
+                                nrhs: int | None = None,
+                                guard: bool = False) -> bool:
+    """Whether the fused inner loop can take the stencil fused-dot fast path
+    (``-ksp_megasolve_stencil_fastpath``; JAX ``megasolve.py:114``): CG, PC
+    none or a jacobi built on the operator itself, an operator with the
+    fused matvec-dot (batched: its ``_many`` twin), a grid and a uniform
+    diagonal. PC mg stays on the general plan."""
+    if ksp_type != "cg" or guard:
+        return False
+    if operator.dtype.is_complex:
+        return False
+    if pc.get_type() not in ("none", "jacobi"):
+        return False
+    if pc.get_type() == "jacobi" and getattr(pc, "_mat", None) is not operator:
+        return False
+    need = ["local_matvec_dot", "grid3d"]
+    if nrhs is not None:
+        need.append("local_matvec_dot_many")
+    if not all(hasattr(operator, h) for h in need):
+        return False
+    return getattr(operator, "uniform_diagonal", None) is not None
+
+
+def _operators_compatible(inner_op, outer_op) -> None:
+    if tuple(outer_op.shape) != tuple(inner_op.shape):
+        raise ValueError(
+            f"megasolve: outer operator shape {tuple(outer_op.shape)} != "
+            f"inner {tuple(inner_op.shape)}: both precisions of the SAME "
+            "operator are required (the outer op supplies the exact "
+            "residual)")
+
+
+def _reason_outer(conv, rn, atol, brk, ibrk, stag_reason):
+    """The outer exit code (JAX ``megasolve.py:150``): converged means the
+    TRUE residual met the target; a stagnation exit whose last inner solve
+    broke down reports DIVERGED_BREAKDOWN, plain stagnation ``stag_reason``
+    (DIVERGED_BREAKDOWN for refinement, DIVERGED_MAX_IT for the gate), and
+    the step cap DIVERGED_MAX_IT."""
+    return torch.where(
+        conv, torch.where(rn <= atol, CR.CONVERGED_ATOL, CR.CONVERGED_RTOL),
+        torch.where(brk,
+                    torch.where(ibrk, CR.DIVERGED_BREAKDOWN, stag_reason),
+                    CR.DIVERGED_MAX_IT)).to(torch.int32)
+
+
+@dataclass
+class MegasolveResult:
+    """What one fused solve returns: the iterate (the program's own output
+    buffer, flat), the outer step count, the inner iterations summed over
+    the steps (per column for a block), the final true residual norm(s),
+    the reason(s), and what the solve cost: host reads (flag reads and the
+    result read), graph replays (or uncaptured runs of the pieces), the
+    masked inner steps, and whether CUDA graphs ran."""
+    x: torch.Tensor
+    steps: int
+    iters: object
+    rnorm: object
+    reason: object
+    host_reads: int
+    replays: int
+    masked_steps: int
+    graph: bool
+
+
+def _tensor_ptrs(obj) -> tuple:
+    """The ``data_ptr`` of every tensor ``obj`` holds as an attribute (or in
+    a tuple/list attribute): the addresses a captured graph reads."""
+    out = []
+    for v in vars(obj).values():
+        items = v if isinstance(v, (tuple, list)) else (v,)
+        out += [t.data_ptr() for t in items if isinstance(t, torch.Tensor)]
+    return tuple(out)
+
+
+def _pc_state(pc) -> tuple:
+    """What the PC's device data was built from, as the cache key sees it:
+    its operator and that operator's mutation counter, the address of every
+    tensor it holds, and the same for every child (a composite's). The
+    data an apply makes lazily (jacobi's inverse diagonal) is made first,
+    so that a solve's key holds the addresses its program captures."""
+    if pc.kind == "jacobi" and pc._mat is not None:
+        pc.set_up()._jacobi_inverse()
+    mat = pc._mat
+    return ((id(mat), getattr(mat, "_state", 0), _tensor_ptrs(pc))
+            + tuple(_pc_state(c) for c in pc._sub_pcs))
+
+
+def _counters(comm) -> dict:
+    """Every launch counter of ``ops.stencil`` and every collective count
+    of ``comm``, by name."""
+    out = {("launches", k): w.launches for k, w in _st.KERNELS.items()}
+    out.update({("launches_bf16", k): w.launches_bf16
+                for k, w in _st.KERNELS.items()})
+    out.update({("coll", k): v for k, v in comm.collectives.items()})
+    return out
+
+
+def _set_counters(comm, values: dict):
+    for (kind, name), v in values.items():
+        if kind == "coll":
+            comm.collectives[name] = v
+        else:
+            setattr(_st.KERNELS[name], kind, v)
+
+
+def _capturable(comm) -> bool:
+    """CUDA graphs on a CUDA device, in one process (no collective crosses
+    processes), and never over gloo (whose collectives go through the host
+    and cannot be captured)."""
+    return (comm.device.type == "cuda" and comm.nprocs == 1
+            and getattr(comm, "backend", "nccl") != "gloo")
+
+
+class MegasolveProgram:
+    """The fused solve for one configuration (built by
+    :func:`build_megasolve_program` or :func:`build_megasolve_program_many`).
+
+    ``prog(b, x0, rtol, atol, inner_rtol, dtol, maxit, refine_max,
+    stag_reason) -> MegasolveResult``: ``b``/``x0`` are shard-stacked
+    ``(local_shards, lsize)`` tensors of the outer dtype (``(local_shards,
+    k, lsize)`` blocks when batched; ``x0`` None from zero), the rest host
+    scalars, which travel to static device buffers before each solve, so
+    that changing them never re-captures."""
+
+    def __init__(self, comm, A_out, onorm, in_dt, out_dt, shape, many, chunk):
+        self.comm = comm
+        self.A_out, self.onorm = A_out, onorm
+        self.in_dt, self.out_dt = in_dt, out_dt
+        # the inner plan and the views between the flat outer layout and
+        # the plan's (set by ``_build``, which reads self.scal first)
+        self.plan = self.to_inner = self.from_inner = None
+        self.many, self.chunk = many, int(chunk)
+        self.capture = _capturable(comm)
+        dev = comm.device
+        otdt = tolerance_dtype(out_dt)
+        itdt = tolerance_dtype(in_dt)
+        rn_shape = (shape[1],) if many else ()
+        z = lambda dt, sh=(): torch.zeros(sh, dtype=dt, device=dev)
+        # the runtime scalars, refilled before each solve
+        self.scal = dict(rtol=z(otdt), atol=z(otdt), irtol=z(itdt),
+                         dtol=z(itdt), maxit=z(torch.int64),
+                         rmax=z(torch.int64), stag=z(torch.int32),
+                         iatol=z(itdt, rn_shape))
+        rdt = reduce_dtype(out_dt)
+        self.out = dict(b=z(out_dt, shape), x=z(out_dt, shape),
+                        r=z(out_dt, shape), rn=z(rdt, rn_shape),
+                        tol=z(rdt, rn_shape), it=z(torch.int64),
+                        ii=z(torch.int64, rn_shape),
+                        brk=z(torch.bool, rn_shape),
+                        ibrk=z(torch.bool, rn_shape),
+                        lsum=z(torch.int64))
+        self.flags = z(torch.int32, (2,))
+        self.inner = None              # the inner plan's state, static
+        self.graphs, self.captured = {}, {}
+
+    # ---- the three pieces ---------------------------------------------------
+    def _ex(self, s):
+        return s[:, None] if self.many else s
+
+    def _active(self):
+        o = self.out
+        return (o["rn"] > o["tol"]) & ~o["brk"]
+
+    def _set_flags(self):
+        o = self.out
+        olive = self._active().any() & (o["it"] < self.scal["rmax"])
+        ilive = self.plan.live(self.inner).any() & olive
+        self.flags.copy_(torch.stack([ilive, olive]).to(torch.int32))
+
+    def _init_inner(self):
+        st = self.plan.init(self.to_inner(self.out["r"].to(self.in_dt)))
+        if self.inner is None:
+            self.inner = {k: v.clone() for k, v in st.items()}
+        else:
+            for k, v in st.items():
+                self.inner[k].copy_(v)
+
+    def _start(self):
+        o, s = self.out, self.scal
+        tol = torch.maximum(s["rtol"] * self.onorm(o["b"]), s["atol"])
+        r = o["b"] - self.A_out(o["x"])
+        o["r"].copy_(r)
+        o["rn"].copy_(self.onorm(r))
+        o["tol"].copy_(tol)
+        s["iatol"].copy_(tol)
+        for k in ("it", "ii", "brk", "ibrk", "lsum"):
+            o[k].zero_()
+        self._init_inner()
+        self._set_flags()
+
+    def _chunk(self):
+        st = dict(self.inner)
+        for _ in range(self.chunk):
+            st = self.plan.step(st)
+        for k, v in st.items():
+            self.inner[k].copy_(v)
+        self._set_flags()
+
+    def _outer(self):
+        o = self.out
+        act = self._active()
+        dx, it_i, reason_i = self.plan.result(self.inner)
+        x = o["x"]
+        x_new = torch.where(self._ex(act),
+                            x + self.from_inner(dx).to(self.out_dt), x)
+        r_new = o["b"] - self.A_out(x_new)
+        rn_new = self.onorm(r_new)
+        # the stagnation guard (RefinedKSP semantics): a correction the
+        # inner precision cannot resolve stops the recurrence
+        stag = act & (rn_new > o["tol"]) & (rn_new >= 0.9 * o["rn"])
+        o["ii"].add_(torch.where(act, it_i, 0))
+        o["lsum"].add_(self.inner["ls"])
+        o["ibrk"].logical_or_(stag & (reason_i == CR.DIVERGED_BREAKDOWN))
+        o["brk"].logical_or_(stag)
+        o["it"].add_(1)
+        x.copy_(x_new)
+        o["r"].copy_(r_new)
+        o["rn"].copy_(rn_new)
+        self._init_inner()
+        self._set_flags()
+
+    # ---- replay / uncaptured run ------------------------------------------------
+    def _static(self):
+        return (list(self.scal.values()) + list(self.out.values())
+                + [self.flags] + list((self.inner or {}).values()))
+
+    def _capture(self, name, fn):
+        dev = self.comm.device
+        saved = [t.clone() for t in self._static()]
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()                       # warm-up: caches, handles, libraries
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for t, v in zip(self._static(), saved):
+            t.copy_(v)
+        before = _counters(self.comm)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        after = _counters(self.comm)
+        self.captured[name] = {k: after[k] - v for k, v in before.items()
+                               if after[k] != v}
+        _set_counters(self.comm, before)     # the capture launched nothing
+        self.graphs[name] = g
+        return g
+
+    def _run(self, name, fn):
+        if not self.capture:
+            fn()
+            return
+        g = self.graphs.get(name) or self._capture(name, fn)
+        g.replay()
+        now = _counters(self.comm)
+        _set_counters(self.comm, {k: now[k] + d
+                                  for k, d in self.captured[name].items()})
+
+    def __call__(self, b, x0, rtol, atol, inner_rtol, dtol, maxit,
+                 refine_max, stag_reason) -> MegasolveResult:
+        s, o = self.scal, self.out
+        for k, v in (("rtol", rtol), ("atol", atol), ("irtol", inner_rtol),
+                     ("dtol", dtol), ("maxit", maxit), ("rmax", refine_max),
+                     ("stag", stag_reason)):
+            s[k].fill_(v)
+        o["b"].copy_(b)
+        if x0 is None:
+            o["x"].zero_()
+        else:
+            o["x"].copy_(x0)
+        self._run("start", self._start)
+        ilive, olive = self.flags.tolist()
+        reads = runs = 1
+        chunks = 0
+        while olive:
+            while ilive:
+                self._run("chunk", self._chunk)
+                chunks += 1
+                ilive, olive = self.flags.tolist()
+                reads, runs = reads + 1, runs + 1
+            self._run("outer", self._outer)
+            ilive, olive = self.flags.tolist()
+            reads, runs = reads + 1, runs + 1
+        conv = o["rn"] <= o["tol"]
+        reason = _reason_outer(conv, o["rn"], s["atol"], o["brk"], o["ibrk"],
+                               s["stag"])
+        head = torch.stack([o["it"], o["lsum"]]).double()
+        vals = torch.cat([head, o["ii"].reshape(-1).double(),
+                          o["rn"].reshape(-1).double(),
+                          reason.reshape(-1).double()]).tolist()
+        reads += 1
+        steps, lsum = int(vals[0]), int(vals[1])
+        k = (len(vals) - 2) // 3
+        ii = [int(v) for v in vals[2:2 + k]]
+        rn = vals[2 + k:2 + 2 * k]
+        rs = [int(v) for v in vals[2 + 2 * k:]]
+        if not self.many:
+            ii, rn, rs = ii[0], rn[0], rs[0]
+        return MegasolveResult(
+            x=o["x"].clone(), steps=steps, iters=ii, rnorm=rn, reason=rs,
+            host_reads=reads, replays=runs,
+            masked_steps=chunks * self.chunk - lsum, graph=self.capture)
+
+
+def _check_guard(abft, abft_pc, rr):
+    if abft or abft_pc or rr:
+        raise NotImplementedError(
+            "megasolve: the silent-corruption guard (-ksp_abft, "
+            "-ksp_residual_replacement, the auto-replacement flags) is not "
+            "ported (ROADMAP.md Queue A item 6)")
+
+
+def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
+           abft_pc=False, rr=False, sstep_s=4, stencil_fastpath=False,
+           chunk=MEGASOLVE_CHUNK):
+    """The program for one configuration, built or from the cache; ``chunk``
+    other than ``MEGASOLVE_CHUNK`` is for tests that hold the masked steps
+    to changing no bit."""
+    _check_guard(abft, abft_pc, rr)
+    many = nrhs is not None
+    if not megasolve_supported(ksp_type, pc, inner_op, nrhs=nrhs):
+        raise ValueError(f"megasolve: KSP {ksp_type!r} with pc "
+                         f"{pc.get_type()!r} on {type(inner_op).__name__} "
+                         "has no fused program")
+    shared = outer_op is None or outer_op is inner_op
+    out_op = inner_op if shared else outer_op
+    _operators_compatible(inner_op, out_op)
+    n = inner_op.shape[0]
+    in_dt, out_dt = inner_op.dtype, out_op.dtype
+    if in_dt.is_complex != out_dt.is_complex:
+        raise ValueError("megasolve: inner/outer operators must agree on "
+                         "real vs complex scalars")
+    prec = _plans.precision_plan(in_dt)
+    sstep_k = max(1, int(sstep_s)) if ksp_type == "sstep" else 0
+    stencil_k = bool(stencil_fastpath)
+    if stencil_k and not megasolve_stencil_supported(ksp_type, pc, inner_op,
+                                                     nrhs=nrhs):
+        raise ValueError(
+            "megasolve: stencil fast path requested for an ineligible "
+            "(type, PC, operator) configuration; gate the routing on "
+            "megasolve_stencil_supported")
+    key = (id(comm), ksp_type, pc.program_key(), pc._tunables_key(), id(pc),
+           n, prec.key(), str(out_dt), shared, nrhs, id(inner_op),
+           id(out_op), inner_op.program_key(), out_op.program_key(),
+           getattr(inner_op, "_state", 0), getattr(out_op, "_state", 0),
+           getattr(inner_op, "force_plain", False), sstep_k, stencil_k,
+           int(chunk), _tensor_ptrs(inner_op), _tensor_ptrs(out_op),
+           () if stencil_k else _pc_state(pc))
+    prog = _CACHE.get(key)
+    if prog is not None:
+        return prog
+
+    size = comm.local_shards
+    up = prec.up
+    out_rdt = reduce_dtype(out_dt)
+    ou = (lambda v: v.to(out_rdt)) if out_rdt != out_dt else (lambda v: v)
+    cols = (int(nrhs),) if many else ()
+    shape = (size,) + cols + (comm.local_size(n),)
+
+    # the reductions of the unfused programs; the outer norm in the outer
+    # reduce dtype (JAX ``onorm``)
+    pdot, pnorm = shard_dots(comm, up, cols=many)
+    onorm = shard_dots(comm, ou, cols=many)[1]
+    A_out = (out_op.local_spmv_many(comm) if many
+             else out_op.local_spmv(comm))
+    flat = lambda v: v.reshape(shape)
+    to_inner = flat
+    prog = MegasolveProgram(comm, A_out, onorm, in_dt, out_dt, shape, many,
+                            chunk)
+    s = prog.scal
+    kw = dict(rtol=s["irtol"], atol=s["iatol"], maxit=s["maxit"],
+              dtol=s["dtol"], prec=prec if prec.mixed else None,
+              bp=_plans.ManyBatch("slabs" if stencil_k else "cols")
+              if many else None)
+    if stencil_k:
+        grid = (size,) + cols + tuple(inner_op.grid3d)
+        to_inner = lambda v: v.reshape(grid)
+        plan = _plans.classic_cg_device(
+            Adot=(inner_op.local_matvec_dot_many(comm) if many
+                  else inner_op.local_matvec_dot(comm)),
+            inv_diag=(1.0 if pc.get_type() == "none"
+                      else 1.0 / inner_op.uniform_diagonal),
+            pdot=pdot, pnorm=pnorm, **kw)
+    else:
+        A = (inner_op.local_spmv_many(comm) if many
+             else inner_op.local_spmv(comm))
+        M = pc.local_apply_many(comm, n) if many else pc.local_apply(comm, n)
+        if ksp_type == "pipecg":
+            fd = fused_dots(comm, up, cols=many)
+            plan = _plans.pipelined_cg_device(
+                A=A, M=M, pnorm=pnorm,
+                fused=lambda r, u, w: tuple(fd([(r, u), (w, u), (r, r)])),
+                **kw)
+        elif ksp_type == "sstep":
+            plan = _plans.sstep_cg_device(
+                s=sstep_k, A=A, M=M, pnorm=pnorm,
+                gram=gram_psum(comm, cols=many), combine=_combine, **kw)
+        else:
+            plan = _plans.classic_cg_device(A=A, M=M, pdot=pdot,
+                                            pnorm=pnorm, **kw)
+    prog.plan, prog.to_inner, prog.from_inner = plan, to_inner, flat
+    _CACHE[key] = prog
+    return prog
+
+
+def build_megasolve_program(comm, ksp_type, pc, inner_op, outer_op=None, *,
+                            abft=False, abft_pc=False, rr=False, sstep_s=4,
+                            stencil_fastpath=False) -> MegasolveProgram:
+    """The fused single-RHS program for this configuration, built or taken
+    from the cache (JAX ``megasolve.py:179``). ``outer_op`` None (or the
+    inner operator) shares the operands: the uniform-precision gate.
+    ``stencil_fastpath`` asks for the stencil fused-dot inner loop and
+    raises ``ValueError`` where it is not eligible (JAX ``:236-241``); the
+    guard arguments raise ``NotImplementedError`` naming Queue A item 6."""
+    return _build(comm, ksp_type, pc, inner_op, outer_op, nrhs=None,
+                  abft=abft, abft_pc=abft_pc, rr=rr, sstep_s=sstep_s,
+                  stencil_fastpath=stencil_fastpath)
+
+
+def build_megasolve_program_many(comm, ksp_type, pc, inner_op, outer_op=None,
+                                 *, nrhs, abft=False, abft_pc=False, rr=False,
+                                 sstep_s=4, stencil_fastpath=False
+                                 ) -> MegasolveProgram:
+    """The batched fused program (JAX ``megasolve.py:478``): ``nrhs``
+    refinement recurrences in lockstep over a ``(local_shards, nrhs,
+    lsize)`` block, with per-column freezing at both levels (a column whose
+    true residual meets its target freezes in the outer recurrence, and its
+    inner loop, whose target is floored at that tolerance, at once) and
+    per-column stagnation (JAX ``:499-508``)."""
+    return _build(comm, ksp_type, pc, inner_op, outer_op, nrhs=int(nrhs),
+                  abft=abft, abft_pc=abft_pc, rr=rr, sstep_s=sstep_s,
+                  stencil_fastpath=stencil_fastpath)

@@ -31,6 +31,17 @@ gathered (:meth:`DeviceComm.all_gather`) and cycled locally. Slab and local
 cycles compute the same arithmetic up to summation order, so solves do not
 depend on the shard count.
 
+bfloat16 storage (PC mg under bf16 refinement) follows the route the TPU
+takes at bfloat16, where ``pallas_supported`` holds and ``_mm_ok`` does not:
+the sweeps run the bfloat16 ``smooth``/``smooth0_pair``/``smooth_pair``
+kernels, the coarse right-hand side is the bfloat16 ``residual`` kernel
+followed by the per-axis restriction (``restrict1d``) in plain torch, and
+the prolongation ``u + P e`` runs the einsum transfers; both transfers are
+lifted to fp32 and rounded once to bfloat16 (the TPU computes them in
+bfloat16 jnp: ``ROADMAP.md`` Queue C). The fp32 einsums need TF32 off as
+above. The slab levels run the bfloat16 ``smooth``/``residual`` kernels with
+halo planes, as the f32 slab levels run theirs.
+
 The JAX package gates its Pallas paths on TPU tiling and TPU f64
 (``pallas_supported``, ``fullrestrict_supported``, ``_mm_ok``); none of that
 applies here. Dispatch is by device alone: a CPU tensor takes each kernel's
@@ -214,15 +225,32 @@ def _tf32_allowed() -> bool:
 
 
 def _check_fp32_matmul(t):
-    """The einsum transfers are matmuls: on the card, fp32 ones must run in
-    full fp32 (PyTorch's default), or the cycle loses precision and its
-    symmetry while restriction inside the kernel stays exact."""
-    if t.is_cuda and t.dtype == torch.float32 and _tf32_allowed():
+    """The einsum transfers are matmuls: on the card, fp32 ones (those of an
+    fp32 cycle, and the lifted ones of a bfloat16 cycle) must run in full
+    fp32 (PyTorch's default), or the cycle loses precision and its symmetry
+    while restriction inside the kernel stays exact."""
+    if (t.is_cuda and t.dtype in (torch.float32, torch.bfloat16)
+            and _tf32_allowed()):
         raise RuntimeError(
             "PC mg needs full-precision fp32 matmuls on CUDA for its "
             "prolongation einsums; TF32 is enabled (set "
             "torch.backends.cuda.matmul.fp32_precision = 'ieee', or "
             "torch.set_float32_matmul_precision('highest'))")
+
+
+def _restrict_lifted(r, lo=None, hi=None):
+    """The bfloat16 cycle's restriction: ``restrict1d`` along z (with the
+    neighbouring slabs' boundary planes), y and x in fp32, rounded once."""
+    r32, lo32, hi32 = (None if t is None else t.float() for t in (r, lo, hi))
+    c = _st.restrict1d(r32, 0, lo32, hi32)
+    return _st.restrict1d(_st.restrict1d(c, 1), 2).to(r.dtype)
+
+
+def _correct_lifted(u, e, lo=None, hi=None):
+    """The bfloat16 cycle's coarse-grid correction ``u + P e``: the einsum
+    prolongation and the add in fp32, rounded once."""
+    e32, lo32, hi32 = (None if t is None else t.float() for t in (e, lo, hi))
+    return (u.float() + _prolong_mm(e32, lo32, hi32)).to(u.dtype)
 
 
 def mg_levels(nz: int, ny: int, nx: int, min_dim: int = 4):
@@ -246,6 +274,8 @@ def make_vcycle3d(nz: int, ny: int, nx: int, pre: int = 2, post: int = 2,
     the Chebyshev-root omega schedule of :func:`cheby_omegas`; ``'jacobi'``
     keeps the fixed omega = 2/3. ``plain`` sends every fused pass to its
     plain PyTorch version (a test switch for holding kernels against them).
+    The cycle's route follows the dtype of ``r``: float32/float64 as the
+    module docstring says, bfloat16 the TPU's bfloat16 route.
     """
     levels = mg_levels(nz, ny, nx)
     if smoother == "chebyshev":
@@ -264,10 +294,17 @@ def make_vcycle3d(nz: int, ny: int, nx: int, pre: int = 2, post: int = 2,
         if li == len(levels) - 1:
             return _smooth0(f, coarse_iters, None, ops=ops)
         u = _smooth0(f, pre, None, omega=pre_w, ops=ops)
-        # the coarse right-hand side restrict(f - A u) in one pass; every
-        # level above the coarsest has even dims (mg_levels)
-        e_c = local_cycle(ops.residual_restrict(u, f), li + 1)
-        u = u + _prolong_mm(e_c)
+        if f.dtype == torch.bfloat16:
+            # the residual pass, then the restriction and the correction
+            # lifted to fp32
+            r = ops.residual(u, f, None, None)
+            e_c = local_cycle(_restrict_lifted(r), li + 1)
+            u = _correct_lifted(u, e_c)
+        else:
+            # the coarse right-hand side restrict(f - A u) in one pass;
+            # every level above the coarsest has even dims (mg_levels)
+            e_c = local_cycle(ops.residual_restrict(u, f), li + 1)
+            u = u + _prolong_mm(e_c)
         return _smooth(u, f, post, None, omega=post_w, ops=ops)
 
     def checked(cycle):
@@ -298,13 +335,18 @@ def make_vcycle3d(nz: int, ny: int, nx: int, pre: int = 2, post: int = 2,
             e_full = local_cycle(comm.all_gather(f), li)
             return e_full.reshape((size, -1) + tuple(e_full.shape[1:]))[
                 first:first + count]
+        bf16 = f.dtype == torch.bfloat16
         u = _smooth0(f, pre, slab, omega=pre_w, ops=ops)
         lo, hi = slab.exchange(u)
         r = slab.map(ops.residual, u, f, lo, hi)
         rlo, rhi = slab.exchange(r)
-        e_c = slab_cycle(slab.map(_restrict_mm, r, rlo, rhi), li + 1)
+        restrict = _restrict_lifted if bf16 else _restrict_mm
+        e_c = slab_cycle(slab.map(restrict, r, rlo, rhi), li + 1)
         elo, ehi = slab.exchange(e_c)
-        u = u + slab.map(_prolong_mm, e_c, elo, ehi)
+        if bf16:
+            u = slab.map(_correct_lifted, u, e_c, elo, ehi)
+        else:
+            u = u + slab.map(_prolong_mm, e_c, elo, ehi)
         return _smooth(u, f, post, slab, omega=post_w, ops=ops)
 
     return checked(lambda r: slab_cycle(r, 0))

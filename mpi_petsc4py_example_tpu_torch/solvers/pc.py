@@ -51,9 +51,10 @@ is PETSc's PCApplyTranspose, the shadow preconditioner of KSP bicg.
 On a bfloat16 operator (the mixed-precision plan's storage) jacobi stores its
 inverse diagonal in bfloat16, and the block and lu factors are stored in
 bfloat16 and contract in fp32 (``ops.spmv.widened_einsum``), as the JAX
-package does (``pc.py:474-483``, ``:618-632``). PC ``mg`` raises there: the
-JAX package runs its V-cycle at bfloat16 through jnp, and the port's V-cycle
-kernels take float32/float64 only (``ROADMAP.md`` Queue A item 5).
+package does (``pc.py:474-483``, ``:618-632``). PC ``mg`` runs its V-cycle
+in bfloat16 there, on the route the TPU takes at bfloat16 storage: the
+bfloat16 smooth/residual/smooth-pair kernels, with the transfers lifted to
+fp32 (``solvers/mg.py``).
 """
 
 from __future__ import annotations
@@ -371,12 +372,6 @@ class PC:
             raise ValueError(
                 "PC 'mg' is the geometric multigrid V-cycle for "
                 "structured stencil operators (models.StencilPoisson3D)")
-        if is_low_precision(op.dtype):
-            raise NotImplementedError(
-                f"PC 'mg' on {op.dtype} storage is not ported: the V-cycle "
-                "kernels take float32/float64 (ROADMAP.md Queue A item 5 "
-                "brings the bfloat16 V-cycle); use pc 'jacobi', or f32 "
-                "inner precision")
         return op
 
     # ---- the applies the Krylov loops run -------------------------------------

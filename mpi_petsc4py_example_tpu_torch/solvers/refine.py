@@ -22,9 +22,16 @@ for the corrections to keep reducing the residual; the stagnation guard
 (``0.9 * rnorm``) ends the loop with ``DIVERGED_BREAKDOWN`` when they stop
 doing so.
 
-Not ported: the fused one-dispatch refinement program (``-ksp_megasolve``,
-JAX ``solvers/megasolve.py``) raises ``NotImplementedError``; its telemetry
-spans wait for the port's telemetry (ROADMAP Queue A item 6).
+``-ksp_megasolve`` runs the whole refinement recurrence as the fused program
+of ``solvers/megasolve.py`` (replayed as captured CUDA graphs on the card):
+the fp64 true residual on the device through the outer operator, the
+explicit ``outer_op``, the inner Mat itself at fp64 inner precision, or an
+fp64 Mat assembled from the host CSR when first needed. The routing is the
+JAX package's (``_megasolve_available``): a custom inner operator without an
+``outer_op``, a null space, monitors or a history on the inner KSP, a norm
+type other than the default, and the types and PCs without a fused program
+run the host loop. Its telemetry spans wait for the port's telemetry
+(ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -33,12 +40,15 @@ import time
 
 import numpy as np
 
+import torch
+
 from ..core.mat import Mat
+from ..core.vec import Vec
 from ..parallel.mesh import DeviceComm
 from ..utils.convergence import ConvergedReason, SolveResult
 from ..utils.dtypes import inner_precision_dtype, is_low_precision, real_eps
 from ..utils.options import global_options
-from .ksp import KSP
+from .ksp import KSP, _megasolve_stats
 
 #: tightest per-correction inner target the storage precision can resolve:
 #: a handful of eps (bf16 ~3e-2, f32 ~5e-7)
@@ -67,10 +77,12 @@ class RefinedKSP:
         self.atol = 0.0
         self.max_refine = 20
         self.inner_precision = "f32"
-        self.megasolve = False        # -ksp_megasolve (not ported: raises)
+        self.megasolve = False        # -ksp_megasolve: the fused program
         self._A_host = None
         self._mat_lp: Mat | None = None
         self._inner_op = None
+        self._outer_op = None
+        self._mat_outer: Mat | None = None
         self.refine_steps = 0
         self.result = SolveResult()
 
@@ -123,12 +135,13 @@ class RefinedKSP:
         """``A_scipy``: the fp64 scipy sparse matrix (kept for the exact
         residuals). ``inner_op``: an operator already built at the inner
         precision (matrix-free stencils); by default an assembled Mat at
-        :attr:`inner_dtype`. ``outer_op`` (the fused program's fp64 device
-        operator) is accepted for the JAX signature and unused: the port's
-        refinement computes its residuals on the host."""
-        del outer_op
+        :attr:`inner_dtype`. ``outer_op``: the fp64 device operator the
+        fused program (``-ksp_megasolve``) takes its true residuals with
+        (the host loop computes them with scipy)."""
         A = A_scipy.tocsr()
         self._A_host = A
+        self._outer_op = outer_op
+        self._mat_outer = None
         if self.comm is None:
             self.create(DeviceComm())       # the card, as an entry point
         if inner_op is not None:
@@ -192,13 +205,117 @@ class RefinedKSP:
     def _check_mode(self):
         if self._A_host is None:
             raise RuntimeError("RefinedKSP.solve: no operators set")
-        if self.megasolve:
-            raise NotImplementedError(
-                "-ksp_megasolve: the fused one-dispatch refinement program "
-                "(the JAX package's solvers/megasolve.py) is not ported; "
-                "ROADMAP.md Queue A item 5 brings it (a captured CUDA graph "
-                "of the refinement loop). Unset -ksp_megasolve to run the "
-                "host refinement loop")
+
+    # ---- megasolve: the fused refinement program --------------------------------
+    def _outer_operator(self):
+        """The fp64 device operator of the fused program's true residual
+        (JAX ``refine.py:216``): the explicit ``outer_op``, the inner Mat at
+        fp64 inner precision, or an fp64 Mat assembled from the host CSR
+        when first needed; None for a custom inner operator without an
+        ``outer_op``."""
+        if self._outer_op is not None:
+            return self._outer_op
+        if self._mat_lp is None:
+            return None
+        if self.inner_dtype == torch.float64:
+            return self._mat_lp
+        if self._mat_outer is None:
+            self._mat_outer = Mat.from_scipy(self.comm, self._A_host,
+                                             dtype=torch.float64)
+        return self._mat_outer
+
+    def _megasolve_available(self, many: bool = False) -> bool:
+        """Route through the fused program (JAX ``refine.py:234``)? The
+        routing rule of ``KSP._megasolve_eligible``, plus an outer
+        operator."""
+        if not self.megasolve or self._inner_op is None:
+            return False
+        ksp = self.inner
+        if ksp._nullspace_basis(self._inner_op) is not None:
+            return False
+        if ksp._monitors or ksp._monitor_flag or ksp._history is not None:
+            return False
+        if ksp._norm_type != "default" or ksp.unroll != 1:
+            return False
+        from .megasolve import megasolve_supported
+        if not megasolve_supported(ksp.get_type(), ksp.get_pc(),
+                                   self._inner_op,
+                                   nrhs=2 if many else None):
+            return False
+        return self._outer_operator() is not None
+
+    def _run_fused(self, B, many):
+        """The fused refinement on the fp64 vector or ``(n, k)`` block
+        ``B``: one program with the refinement semantics (the storage-eps
+        floored inner target, the inner iteration cap, ``max_refine``
+        steps, DIVERGED_BREAKDOWN on stagnation)."""
+        from .megasolve import (build_megasolve_program,
+                                build_megasolve_program_many)
+        ksp, op = self.inner, self._inner_op
+        outer = self._outer_operator()
+        comm = op.comm
+        ksp.set_up()
+        self._arm_inner_guards()
+        ksp._check_modes()            # an armed guard raises (item 6)
+        pc = ksp.get_pc()
+        out_op = None if outer is op else outer
+        if many:
+            prog = build_megasolve_program_many(
+                comm, ksp.get_type(), pc, op, out_op, nrhs=B.shape[1],
+                sstep_s=ksp.sstep_s)
+            b = comm.put_cols(B, torch.float64)
+        else:
+            prog = build_megasolve_program(comm, ksp.get_type(), pc, op,
+                                           out_op, sstep_s=ksp.sstep_s)
+            b = Vec.from_global(comm, B, dtype=torch.float64,
+                                layout=outer.layout).data.view(
+                                    comm.local_shards, -1)
+        t0 = time.perf_counter()
+        res = prog(b, None, self.rtol, self.atol,
+                   self._effective_inner_rtol(), ksp.divtol, _INNER_MAX_IT,
+                   self.max_refine, ConvergedReason.DIVERGED_BREAKDOWN)
+        return res, outer, time.perf_counter() - t0
+
+    def _solve_fused(self, b):
+        """One fused program from the refinement loop to the verified answer
+        (JAX ``refine.py:257``); the results as :meth:`solve` reports
+        them."""
+        res, outer, wall = self._run_fused(b, many=False)
+        x = Vec(outer.comm, outer.shape[0], data=res.x.reshape(-1),
+                layout=outer.layout).to_numpy()
+        reason = res.reason
+        if not np.isfinite(res.rnorm):
+            reason = ConvergedReason.DIVERGED_NANORINF
+        self.refine_steps = res.steps
+        self.result = SolveResult(res.iters, float(res.rnorm), int(reason),
+                                  wall, res.host_reads)
+        _megasolve_stats(self.result, res)
+        return x, self.result
+
+    def _solve_many_fused(self, B):
+        """The fused block refinement (JAX ``refine.py:370``): per-column
+        freezing at both levels; the result reports the most inner
+        iterations of a column, the worst column's residual and one
+        reason for the block."""
+        res, outer, wall = self._run_fused(B, many=True)
+        X = outer.comm.fetch_cols(res.x, outer.shape[0])
+        rn = np.asarray(res.rnorm, dtype=float)
+        reasons = np.asarray(res.reason)
+        conv = np.isfinite(rn) & (reasons > 0)
+        if conv.all():
+            reason = ConvergedReason.CONVERGED_RTOL
+        elif not np.all(np.isfinite(rn)):
+            reason = ConvergedReason.DIVERGED_NANORINF
+        elif np.all(reasons[~conv] == ConvergedReason.DIVERGED_BREAKDOWN):
+            reason = ConvergedReason.DIVERGED_BREAKDOWN
+        else:
+            reason = ConvergedReason.DIVERGED_MAX_IT
+        self.refine_steps = res.steps
+        self.result = SolveResult(int(max(res.iters, default=0)),
+                                  float(rn.max(initial=0.0)), int(reason),
+                                  wall, res.host_reads)
+        _megasolve_stats(self.result, res)
+        return X, self.result
 
     def _start(self):
         """Inner tolerances for a solve: the floored target and the
@@ -214,6 +331,8 @@ class RefinedKSP:
         self._check_mode()
         A = self._A_host
         b = np.asarray(b, dtype=np.float64)
+        if self._megasolve_available():
+            return self._solve_fused(b)
         bnorm = np.linalg.norm(b)
         tol = max(self.rtol * bnorm, self.atol)
         x = np.zeros_like(b)
@@ -274,6 +393,8 @@ class RefinedKSP:
         if B.ndim != 2:
             raise ValueError(f"solve_many needs an (n, nrhs) block, got "
                              f"{B.shape}")
+        if self._megasolve_available(many=True):
+            return self._solve_many_fused(B)
         bnorm = np.linalg.norm(B, axis=0)
         tol = np.maximum(self.rtol * bnorm, self.atol)
         X = np.zeros_like(B)
@@ -313,3 +434,4 @@ class RefinedKSP:
     def _mat32(self):
         """The inner Mat (historical name from the fp32-only scheme)."""
         return self._mat_lp
+

@@ -153,5 +153,13 @@ def test_bf16_route_asks_the_library(monkeypatch, route, name):
     U = torch.zeros(2, 3, 4, 16, dtype=torch.bfloat16)
     Y = torch.empty_like(U)
     assert st.bf16_route(U, None, None, Y) == name
+    # the last pointer is the V-cycle passes' right-hand side f (none here)
     assert lib.calls == [("stencil7_bf16_route",
-                          (16, U.data_ptr(), None, None, Y.data_ptr()))]
+                          (16, U.data_ptr(), None, None, Y.data_ptr(),
+                           None))]
+    F = torch.empty_like(U)
+    lib.calls.clear()
+    assert st.bf16_route(U, None, None, Y, F) == name
+    assert lib.calls == [("stencil7_bf16_route",
+                          (16, U.data_ptr(), None, None, Y.data_ptr(),
+                           F.data_ptr()))]

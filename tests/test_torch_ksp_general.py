@@ -530,8 +530,6 @@ def _port_cfg3(ksp_type="cg", pc_type="jacobi", prefix=""):
 
 @pytest.mark.parametrize("flag,item", [
     (["-ksp_abft"], 6), (["-ksp_residual_replacement", "10"], 6),
-    (["-ksp_megasolve"], 5), (["-ksp_megasolve_stencil_fastpath"], 5),
-    (["-ksp_reduction_auto"], 5),
     # the automatic replacement of pipecg and sstep arms the guard
     (["-ksp_pipeline_auto_replacement", "10", "-ksp_type", "pipecg"], 6),
     (["-ksp_sstep_auto_replacement", "10", "-ksp_type", "sstep"], 6)])

@@ -249,8 +249,14 @@ def test_residual_restrict_raises_on_odd_dims(shape):
 def test_new_wrappers_reject_what_the_kernels_do_not_take(bad, exc):
     u, f = _t(*_arrays((4, 6, 10), np.float32, 2, planes=False))
     out = None
+    extra = []
     if bad == "bf16":
-        u, f = u.to(torch.bfloat16), f.to(torch.bfloat16)
+        # bfloat16 reaches the sweeps, the residual and the pairs (the TPU
+        # V-cycle runs them at bfloat16 storage); the fused restriction
+        # refuses it, and every V-cycle pass refuses float16
+        ub, fb = u.to(torch.bfloat16), f.to(torch.bfloat16)
+        extra = [lambda: st.stencil3d_residual_restrict(ub, fb)]
+        u, f = u.to(torch.float16), f.to(torch.float16)
     elif bad == "f_shape":
         f = f[:2].contiguous()
     elif bad == "f_dtype":
@@ -275,6 +281,6 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(bad, exc):
               lambda: st.stencil3d_residual(u, f, lo, hi, out=out)]
     if bad in ("bf16", "out_alias", "out_shape"):
         calls.append(lambda: st.stencil3d_smooth0_pair(u, 0.1, 0.2, out=out))
-    for call in calls:
+    for call in calls + extra:
         with pytest.raises(exc):
             call()

@@ -255,11 +255,18 @@ def test_other_dtypes_raise(bad):
 
 
 def test_vcycle_kernels_stay_f32_f64():
+    """The fused residual-restriction stays float32/float64 (the TPU V-cycle
+    reaches it at float32 only); the sweeps, the residual and the pairs take
+    bfloat16 too (``tests/test_torch_mg_bf16.py``), and no V-cycle pass
+    takes float16."""
     u = torch.ones(4, 6, 10, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32/float64"):
-        st.stencil3d_smooth(u, u, None, None, 0.1)
-    with pytest.raises(TypeError):
         st.stencil3d_residual_restrict(u, u)
+    h = torch.ones(4, 6, 10, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32/float64/bfloat16"):
+        st.stencil3d_smooth(h, h, None, None, 0.1)
+    with pytest.raises(TypeError, match="float32/float64/bfloat16"):
+        st.stencil3d_smooth_pair(h, h, 0.1, 0.2)
 
 
 def test_reset_launches_zeroes_both_counters():
@@ -542,17 +549,25 @@ def test_mixed_plan_scalars_stay_f32():
     assert x.dtype == torch.bfloat16
 
 
-def test_pc_mg_raises_on_bf16_storage():
+def test_pc_mg_solves_on_bf16_storage():
+    """PC mg on a bfloat16 stencil runs the bfloat16 V-cycle (it raised
+    before the port had one): the iterate stays bfloat16, the cycle's
+    bfloat16 passes take their plain versions on the CPU, and the solve
+    reaches a tolerance bfloat16 can resolve."""
     comm = pt.DeviceComm(1, device="cpu")
     op = pt.StencilPoisson3D(comm, 8, dtype=torch.bfloat16)
     ksp = pt.KSP().create(comm)
     ksp.set_operators(op)
     ksp.set_type("cg")
     ksp.get_pc().set_type("mg")
+    ksp.set_tolerances(rtol=0.05)
     x, b = op.get_vecs()
     b.set_global(np.ones(512))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ksp.solve(b, x)
+    res = ksp.solve(b, x)
+    assert res.converged and x.dtype == torch.bfloat16
+    A = poisson3d_csr(8)
+    xh = x.to_numpy().astype(np.float64)
+    assert np.linalg.norm(1.0 - A @ xh) <= 0.1 * np.sqrt(512)
 
 
 @pytest.mark.parametrize("pc_type", ["bjacobi", "lu"])

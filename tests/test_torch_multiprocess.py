@@ -179,6 +179,21 @@ SURFACE_CASES = [
     dict(name="petsc_io_roundtrip", kind="io", op="cfg4", ksp="bcgs",
          pc="jacobi")]
 STACK_CASES = EPS_CASES + REFINE_CASES + PC_CASES + SURFACE_CASES
+# the fused program (-ksp_megasolve; uncaptured on gloo) and the reduction
+# plan selection (-ksp_reduction_auto)
+FUSED_CASES = [
+    dict(name="fused_cg_fast", kind="cg", grid=[16, 16, 16], pc="jacobi",
+         megasolve=True, fastpath=True),
+    dict(name="fused_pipecg", kind="cg", grid=[16, 16, 16], pc="jacobi",
+         ksp="pipecg", megasolve=True),
+    dict(name="fused_sstep4", kind="cg", grid=[16, 16, 16], pc="jacobi",
+         ksp="sstep", sstep_s=4, megasolve=True),
+    dict(name="fused_many", kind="many", grid=[16, 16, 16], pc="jacobi",
+         k=3, route="fast", megasolve=True, fastpath=True),
+    dict(name="fused_refine_f32_mg", kind="refine", grid=[16, 16, 16],
+         prec="f32", pc="mg", megasolve=True)]
+AUTO_CASE = dict(name="reduction_auto", kind="cg", grid=[16, 16, 16],
+                 pc="jacobi", reduction_auto=True)
 
 
 def _env():
@@ -187,10 +202,10 @@ def _env():
     return dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
 
 
-def _runner(*args, timeout=LAUNCH_TIMEOUT_S):
+def _runner(*args, timeout=LAUNCH_TIMEOUT_S, **env):
     return subprocess.run(
         [sys.executable, "-m", "mpi_petsc4py_example_tpu_torch.run", *args],
-        cwd=REPO, env=_env(), capture_output=True, text=True,
+        cwd=REPO, env=dict(_env(), **env), capture_output=True, text=True,
         timeout=timeout)
 
 
@@ -205,10 +220,13 @@ def worker_results(tmp_path_factory):
     """One launch of 2 processes x 2 local shards for every case."""
     tmp = tmp_path_factory.mktemp("procs")
     cases = [dict(c, local_shards=2) for c in _io_dir(
-        SOLVE_CASES + [COMM_CASE] + STACK_CASES, tmp / "io")]
+        SOLVE_CASES + [COMM_CASE] + STACK_CASES + FUSED_CASES + [AUTO_CASE],
+        tmp / "io")]
     (tmp / "cases.json").write_text(json.dumps(cases))
+    # -ksp_reduction_auto's probe cache goes to the test's directory
     proc = _runner("-n", "2", "--procs", "--device", "cpu", str(PARITY),
-                   str(tmp / "cases.json"), str(tmp / "out"))
+                   str(tmp / "cases.json"), str(tmp / "out"),
+                   XDG_CACHE_HOME=str(tmp / "cache"))
     assert proc.returncode == 0, proc.stderr[-4000:]
     return {c["name"]: dict(np.load(tmp / "out" / f"{c['name']}.npz"))
             for c in cases}
@@ -220,7 +238,8 @@ def virtual(tmp_path_factory):
     the workers' thread settings (LAPACK's inverses and the CPU's products
     may round differently on another thread count)."""
     tmp = tmp_path_factory.mktemp("virtual")
-    cases = _io_dir(SOLVE_CASES + [COMM_CASE] + STACK_CASES, tmp / "io")
+    cases = _io_dir(SOLVE_CASES + [COMM_CASE] + STACK_CASES + FUSED_CASES,
+                    tmp / "io")
     (tmp / "cases.json").write_text(json.dumps(cases))
     proc = subprocess.run(
         [sys.executable, str(PARITY), str(tmp / "cases.json"),
@@ -330,6 +349,137 @@ def test_solve_matches_jax_4_devices(worker_results, case):
     assert _reasons(got) == reasons
     scale = max(np.abs(x).max(), 1.0)
     np.testing.assert_allclose(got["x"], x, rtol=0, atol=X_TOL * scale)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=lambda c: c["name"])
+def test_fused_case_matches_virtual_mesh(worker_results, virtual, case):
+    """The fused program on 2 gloo processes (uncaptured: gloo cannot be
+    captured) against the virtual mesh: steps, replays, masked steps,
+    iterations and reasons equal, the iterate bit for bit."""
+    got, want = worker_results[case["name"]], virtual(case)
+    for key in ("its", "reason", "steps", "replays", "masked_steps",
+                "host_syncs"):
+        np.testing.assert_array_equal(got[key], want[key])
+    assert not bool(got["graph"]) and all(r > 0 for r in _reasons(got))
+    np.testing.assert_array_equal(got["x"], want["x"])
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=lambda c: c["name"])
+def test_fused_case_matches_jax_4_devices(worker_results, case):
+    """The JAX package's fused program on its 4-device mesh: the outer
+    steps, iterations and reasons equal, the iterate within 1e-10 (the f32
+    refinement within 1e-9)."""
+    got = worker_results[case["name"]]
+    comm = tps.DeviceComm(n_devices=4)
+    grid = case["grid"]
+    if case["kind"] == "refine":
+        rk = tps.RefinedKSP().create(comm)
+        rk.megasolve = True
+        rk.set_inner_precision(case["prec"])
+        A = poisson3d_csr(*grid)
+        rk.set_operators(A, inner_op=JaxStencil(comm, *grid,
+                                                dtype=jnp.float32),
+                         outer_op=JaxStencil(comm, *grid, dtype=jnp.float64))
+        rk.set_type("cg")
+        rk.get_pc().set_type(case["pc"])
+        rk.set_tolerances(rtol=1e-10)
+        x, res = rk.solve(refine_rhs(case, A))
+        assert (int(got["steps"]), int(got["its"]), int(got["reason"])) == (
+            rk.refine_steps, res.iterations, int(res.reason))
+        assert np.linalg.norm(got["x"] - x) <= 1e-9 * np.linalg.norm(x)
+        return
+    op = JaxStencil(comm, *grid, dtype=jnp.float64)
+    ksp = configure_ksp(tps.KSP().create(comm), case)
+    ksp.set_tolerances(rtol=1e-8, atol=0.0, max_it=10000)
+    ksp.set_operators(op)
+    ksp.get_pc().set_type(case["pc"])
+    ksp.megasolve = True
+    ksp.megasolve_stencil_fastpath = case.get("fastpath", False)
+    b = rhs(op.shape[0], 0, case.get("k"))
+    if case["kind"] == "many":
+        res = ksp.solve_many(b)
+        its, reasons, x = (list(res.iterations),
+                           [int(r) for r in res.reasons], np.asarray(res.X))
+    else:
+        xv, bv = op.get_vecs()
+        bv.set_global(b)
+        res = ksp.solve(bv, xv)
+        its, reasons, x = [res.iterations], [int(res.reason)], xv.to_numpy()
+    assert (_its(got), _reasons(got), int(got["steps"])) == (
+        its, reasons, res.megasolve_steps)
+    _assert_close(got["x"], x)
+
+
+def test_reduction_auto_on_two_processes(worker_results):
+    """-ksp_reduction_auto on the gloo group: the probe measures the real
+    collective; the choice is the JAX model's on the reported latencies,
+    and the solve it picked converges."""
+    from mpi_petsc4py_example_tpu.solvers import autoselect as jauto
+    got = worker_results["reduction_auto"]
+    psum_us, apply_us = float(got["psum_us"]), float(got["apply_us"])
+    assert psum_us > 0 and apply_us > 0
+    ranking = json.loads(str(got["ranking"]))
+    assert ranking == jauto.rank_reduction_plans(psum_us, apply_us)
+    cg_cost = next(r["model_cost_us"] for r in ranking
+                   if r["ksp_type"] == "cg")
+    best = ranking[0]
+    if best["ksp_type"] != "cg" and best["model_cost_us"] > 0.75 * cg_cost:
+        best = {"ksp_type": "cg", "s": 0}
+    assert (str(got["auto_type"]), int(got["auto_s"])) == (
+        best["ksp_type"], best["s"])
+    assert _reasons(got)[0] > 0
+
+
+PLANTED_DRIVER = """\
+import sys
+import numpy as np
+from mpi4py import MPI
+import mpi_petsc4py_example_tpu_torch as pt
+from mpi_petsc4py_example_tpu_torch.solvers import autoselect
+rank = MPI.COMM_WORLD.Get_rank()
+# alone, rank 0 would keep cg (psum 1 us, apply 10 us) and rank 1 would
+# take sstep s = 8 (psum 100 us, apply 11 us)
+autoselect.probe_psum_latency_us = (
+    lambda comm, chain=256, refresh=False: ((1.0, 100.0)[rank], False))
+autoselect.measure_apply_latency_us = (
+    lambda comm, op, pc, chain=16: 10.0 + rank)
+comm = pt.ProcessComm(2, MPI.COMM_WORLD.device_comm.device)
+op = pt.StencilPoisson3D(comm, 16)
+ksp = pt.KSP().create(comm)
+ksp.set_operators(op)
+ksp.set_type("cg")
+ksp.get_pc().set_type("jacobi")
+ksp.set_tolerances(rtol=1e-8, max_it=500)
+ksp.reduction_auto = True
+x, b = op.get_vecs()
+b.set_global(np.random.default_rng(0).random(op.shape[0]))
+res = ksp.solve(b, x)
+rep = ksp._reduction_report
+with open(f"{sys.argv[1]}/rank{rank}.txt", "w") as f:
+    f.write(f"{rep.ksp_type} {rep.s} {rep.psum_us} {rep.apply_us} "
+            f"{res.iterations} {int(res.reason)}")
+"""
+
+
+def test_reduction_auto_ranks_agree_on_planted_latencies(tmp_path):
+    """Each process measures its own latencies; planted so that each alone
+    would choose another plan (cg against sstep s = 8, whose collectives do
+    not match), both rank the largest of each and run the same plan, and
+    the solve ends converged well inside the group's timeout."""
+    script = tmp_path / "planted.py"
+    script.write_text(PLANTED_DRIVER)
+    t0 = time.monotonic()
+    proc = _runner("-n", "2", "--procs", "--device", "cpu", str(script),
+                   str(tmp_path), timeout=120,
+                   XDG_CACHE_HOME=str(tmp_path / "cache"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert time.monotonic() - t0 < 60 < mesh.TIMEOUT_S
+    rows = [(tmp_path / f"rank{r}.txt").read_text().split() for r in (0, 1)]
+    assert rows[0] == rows[1]
+    kind, s, psum_us, apply_us, its, reason = rows[0]
+    assert (kind, int(s), float(psum_us), float(apply_us)) == (
+        "sstep", 8, 100.0, 11.0)
+    assert int(its) > 0 and int(reason) > 0
 
 
 def test_workers_import_no_jax(worker_results):

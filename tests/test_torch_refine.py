@@ -315,17 +315,25 @@ def test_non_cg_types_raise_at_bf16_like_jax(ksp_type):
     assert "cg/pipecg/sstep" in str(err.value)
 
 
-def test_megasolve_raises_naming_its_queue_item():
+def test_megasolve_runs_the_fused_refinement():
+    """-ksp_megasolve (it raised before the port had the fused program):
+    with an assembled bf16 inner Mat the outer fp64 Mat is assembled from
+    the host CSR, and the single and block solves run the fused program
+    (``tests/test_torch_megasolve.py`` holds it against the JAX package)."""
     comm = pt.DeviceComm(1, device="cpu")
     pt.global_options().set("ksp_megasolve", "true")
     rk = pt.RefinedKSP().create(comm).set_from_options()
     assert rk.megasolve
     A = _banded_matrix(32)
     _configure(rk, A, "bf16", None)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        rk.solve(np.ones(32))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        rk.solve_many(np.ones((32, 2)))
+    assert rk._outer_operator().dtype == torch.float64
+    x, res = rk.solve(np.ones(32))
+    assert res.reason == CR.CONVERGED_RTOL
+    assert res.megasolve_steps == rk.refine_steps >= 1
+    assert _rel(A, x, np.ones(32)) <= 1.05 * RTOL
+    X, res = rk.solve_many(np.ones((32, 2)))
+    assert res.reason == CR.CONVERGED_RTOL and res.megasolve_steps >= 1
+    assert _rel(A, X[:, 1], np.ones(32)) <= 1.05 * RTOL
 
 
 def test_solve_without_operators_raises():
