@@ -116,7 +116,8 @@ before each and read just after:
   (``stencil7_{smooth,residual,smooth0_pair}_bf16``, ``mg3d_smooth_pair_bf16``)
   bit for bit against their plain versions at every level shape of the
   driven cycles and at tile edges, on both routes, the pair against two
-  smooth launches, timed at 128^3 and 512^3 against their bytes bounds;
+  smooth launches, timed at 128^3 and 512^3 against their bytes bounds and
+  the pair in turns with the two smooth launches it fuses;
   PC mg under refinement at 128^3 (cfg11's problem, bf16 and f32 inner,
   host loop and fused, V-cycle launches against the formula); cfg13 of
   ``benchmarks/run_all.py`` at 128^3 (fused against the host loop, cold
@@ -147,8 +148,9 @@ kernels, prints each one's registers and spills (ptxas), checks every one
 against its plain version and times it, and solves nothing.
 ``python3 chip_smoke.py --eps`` builds the kernels, checks them and runs
 only the eigensolver phases. ``python3 chip_smoke.py --mg3d`` builds the
-kernels and prints only the per-level table of the two ``csrc/mg3d.cu``
-kernels and the warm CG + mg walls at 128^3 and 512^3. A copy of this
+kernels and prints only the per-level table of the ``csrc/mg3d.cu`` kernels
+(the two f32 ones and the bf16 pair over the levels of the 512^3 and 128^3
+cycles) and the warm CG + mg walls at 128^3 and 512^3. A copy of this
 script placed in another checkout runs that checkout's kernels, so
 ``--kernels`` and ``--mg3d`` compare two trees in turns on one card.
 
@@ -612,32 +614,48 @@ def host_us_per_call(fn, calls=50):
 
 def phase_mg_level_times(n=512):
     """``mg3d_smooth_pair`` and ``mg3d_residual_restrict`` at every level of
-    the n^3 cycle that runs them (n^3 down to 8^3), f32: kernel ms, bound ms,
-    % of bound and the wrapper's host us per call, on random inputs, each
-    checked bit-exact against its plain version first. Returns ``{name:
-    [row per level]}``."""
+    the n^3 cycle that runs them (n^3 down to 8^3), f32, and beside them the
+    bf16 pair (row 6b; the levels of the 128^3 cycle are the lower ones):
+    kernel ms, bound ms, % of bound and the wrapper's host us per call, on
+    random inputs, each checked bit-exact against its plain version first.
+    Returns ``{name: [row per level]}``."""
     import torch
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
     from mpi_petsc4py_example_tpu_torch.solvers.mg import mg_levels
-    out = {"mg3d_smooth_pair": [], "mg3d_residual_restrict": []}
+    out = {"mg3d_smooth_pair": [], "mg3d_residual_restrict": [],
+           "mg3d_smooth_pair_bf16": []}
+    t0 = time.perf_counter()
+    secs = {name: 0.0 for name in out}
     for lvl in mg_levels(n, n, n)[:-1]:
         calls = mg_kernel_calls(st, torch.float32, lvl, 61)
+        g = torch.Generator(device="cuda").manual_seed(62)
+        u16, f16 = ((torch.rand(lvl, generator=g, device="cuda") - 0.5).to(
+            torch.bfloat16) for _ in range(2))
+        calls["mg3d_smooth_pair_bf16"] = vcycle_bf16_calls(
+            st, u16, f16, None, None)["mg3d_smooth_pair_bf16"]
         big = lvl[0] >= 256
         for name, rows in out.items():
+            t_row = time.perf_counter()
             kern, plain = calls[name]
-            err = float((kern() - plain()).abs().max())
+            err = max_abs_diff(kern(), plain())
             check(err == 0.0, f"{name} {lvl}: max|err| {err}")
             ms = device_ms(kern, 20 if big else 100, reps=15 if big else 25)
-            b_ms, _ = mg_bound_ms(name, lvl, 4)
+            size = 2 if name.endswith("bf16") else 4
+            b_ms, _ = mg_bound_ms(name.removesuffix("_bf16"), lvl, size)
             host = host_us_per_call(kern)
+            route = mg3d_route(lvl[2], size)
             rows.append({"shape": list(lvl), "ms": ms, "bound_ms": b_ms,
                          "pct_of_bound": b_ms / ms * 100, "host_us": host,
-                         "route": mg3d_route(lvl[2], 4)})
-            log(f"level {name} {lvl} f32: kernel {ms:.5f} ms, bound "
-                f"{b_ms:.5f} ms ({b_ms / ms * 100:.1f}% of it), host "
-                f"{host:.2f} us/call, route {mg3d_route(lvl[2], 4)}")
-        del calls
+                         "route": route})
+            log(f"level {name} {lvl} {'bf16' if size == 2 else 'f32'}: "
+                f"kernel {ms:.5f} ms, bound {b_ms:.5f} ms "
+                f"({b_ms / ms * 100:.1f}% of it), host {host:.2f} us/call, "
+                f"route {route}")
+            secs[name] += time.perf_counter() - t_row
+        del calls, u16, f16
         torch.cuda.empty_cache()
+    log(f"level times: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
     return out
 
 
@@ -4576,9 +4594,16 @@ BF16_VCYCLE = {"stencil7_smooth": "stencil7_smooth_bf16",
 # read u and f and write the result; smooth0_pair reads f, writes u
 VCYCLE_PASSES = {"stencil7_smooth_bf16": 3, "stencil7_residual_bf16": 3,
                  "stencil7_smooth0_pair_bf16": 2, "mg3d_smooth_pair_bf16": 3}
-# shapes past the mg3d tiles and the bf16 runs, beside the cycle's levels
+# shapes past the mg3d tiles and the bf16 runs, beside the cycle's levels;
+# for the bf16 pair's 64 x 32 tile, its runs of 4 and its z-chunks: nx one
+# short of and one past the tile (63, 65), odd (131, 7), not a whole number
+# of runs (66: the elem route), a multiple of 8 short of a tile (72: vec16
+# with a part tile); ny one short of and one past the tile (31, 33); lz one
+# past a 128-plane chunk on a plane of 144 tiles, where the grid keeps that
+# chunk and stages 2 planes ahead (129 planes)
 VCYCLE_EDGE_SHAPES = ((17, 15, 63), (35, 17, 65), (37, 45, 131), (4, 9, 255),
-                      (3, 5, 7))
+                      (3, 5, 7), (19, 31, 64), (18, 33, 72), (9, 33, 66),
+                      (129, 257, 1024))
 
 
 def read_vcycle_bf16_launches():
@@ -4618,16 +4643,21 @@ def phase_vcycle_bf16_checks():
     driven V-cycles give them (``mg_path_shapes``) and at tile edges, with
     random and zero halos, on aligned inputs and on misaligned copies (the
     element routes); and ``mg3d_smooth_pair_bf16`` against two
-    ``stencil7_smooth_bf16`` launches. Every launch's route is logged.
-    Returns the largest differences (all 0 when the checks pass)."""
+    ``stencil7_smooth_bf16`` launches. The references are computed once
+    per shape and halo kind, from the aligned inputs. Every launch's route
+    is logged. Returns the largest differences (all 0 when the checks
+    pass)."""
     import torch
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
     bf = torch.bfloat16
+    t0 = time.perf_counter()
     worst = {name: 0.0 for name in VCYCLE_PASSES}
     shapes = list(mg_path_shapes()) + list(VCYCLE_EDGE_SHAPES)
     routes = set()
     seed = 3000
+    secs = {}
     for shape in shapes:
+        t_shape = time.perf_counter()
         for halos in (True, False):
             seed += 1
             g = torch.Generator(device="cuda").manual_seed(seed)
@@ -4636,14 +4666,16 @@ def phase_vcycle_bf16_checks():
             u, f = mk(*shape), mk(*shape)
             lo, hi = ((mk(*shape[1:]), mk(*shape[1:])) if halos
                       else (None, None))
+            wants = {name: plain() for name, (_, plain) in
+                     vcycle_bf16_calls(st, u, f, lo, hi).items()}
             for aligned in (True, False):
                 args = ((u, f, lo, hi) if aligned else tuple(
                     None if t is None else misaligned_copy(t)
                     for t in (u, f, lo, hi)))
                 calls = vcycle_bf16_calls(st, *args)
                 res = {}
-                for name, (kern, plain) in calls.items():
-                    got, want = kern(), plain()
+                for name, (kern, _) in calls.items():
+                    got, want = kern(), wants[name]
                     res[name] = (torch.equal(got, want),
                                  max_abs_diff(got, want))
                     if name in worst:
@@ -4662,7 +4694,9 @@ def phase_vcycle_bf16_checks():
                         for k, v in res.items()))
                 check(all(v[0] for v in res.values()),
                       f"bf16 V-cycle kernels differ, {label}: {res}")
-            del u, f, lo, hi
+            del u, f, lo, hi, wants
+        torch.cuda.synchronize()
+        secs[shape] = time.perf_counter() - t_shape
     torch.cuda.empty_cache()
     check({r[0] for r in routes} == {"vec16", "elem"}
           and {r[1] for r in routes} == {"vec16", "elem"},
@@ -4677,7 +4711,9 @@ def phase_vcycle_bf16_checks():
         raise SystemExit("chip_smoke: FAIL: a V-cycle kernel took a dtype "
                          "it has no instantiation for")
     log(f"check bf16 vcycle: {len(shapes)} shapes, routes {sorted(routes)}; "
-        "float16 and a bf16 residual_restrict raise TypeError")
+        "float16 and a bf16 residual_restrict raise TypeError; "
+        f"{time.perf_counter() - t0:.1f} s, of which the edge shapes "
+        + ", ".join(f"{sh} {secs[sh]:.2f} s" for sh in VCYCLE_EDGE_SHAPES))
     return worst
 
 
@@ -4695,8 +4731,8 @@ def phase_vcycle_bf16_times(n):
     u, f = mk(n, n, n), mk(n, n, n)
     big = n >= 512
     out = {}
-    for name, (kern, plain) in vcycle_bf16_calls(st, u, f, None,
-                                                 None).items():
+    calls = vcycle_bf16_calls(st, u, f, None, None)
+    for name, (kern, plain) in calls.items():
         if name not in VCYCLE_PASSES:
             continue
         err = max_abs_diff(kern(), plain())
@@ -4716,7 +4752,20 @@ def phase_vcycle_bf16_times(n):
             f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
             f"{b_ms / r['ms'] * 100:.1f}% of it), no one-call library "
             "equivalent")
-    del u, f
+    # the pair against the two row-3b launches it fuses, in turns
+    pair, two = calls["two sweeps"]
+    pair_ms, two_ms = [], []
+    for _ in range(2):
+        pair_ms.append(device_ms(pair, 20 if big else 100, 10 if big else 25))
+        two_ms.append(device_ms(two, 10 if big else 50, 10 if big else 25))
+    r = out["mg3d_smooth_pair_bf16"]
+    r["two_3b_ms"] = statistics.median(two_ms)
+    r["pair_turns_ms"] = pair_ms
+    log(f"time mg3d_smooth_pair_bf16 {n}^3 against two stencil7_smooth_bf16 "
+        f"launches, in turns: pair {pair_ms} ms, two sweeps {two_ms} ms "
+        f"({(1 - statistics.median(pair_ms) / r['two_3b_ms']) * 100:.1f}% "
+        "under)")
+    del u, f, calls
     torch.cuda.empty_cache()
     return out
 
@@ -4761,7 +4810,8 @@ def phase_mg_bf16_refine(nx=128):
     and one per outer step; the fused program's one per masked step
     (``chunks x MEGASOLVE_CHUNK``) and one per inner set-up (1 + steps).
     Reported: reason, outer steps, inner iterations, fp64 relres, warm
-    wall, replays, host reads, masked steps."""
+    wall, replays, host reads, masked steps; each fused iterate is held bit
+    for bit against the same program run uncaptured."""
     import torch
     import mpi_petsc4py_example_tpu_torch as pt
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
@@ -4788,9 +4838,28 @@ def phase_mg_bf16_refine(nx=128):
                 chunks = res.replays - 1 - res.megasolve_steps
                 cycles = (chunks * ms.MEGASOLVE_CHUNK + 1
                           + res.megasolve_steps)
+                # the same program uncaptured: the replayed kernels (rows
+                # 3b-6b at bf16) must give the eager run's iterate
+                prog = ms.build_megasolve_program(
+                    comm, "cg", rk.get_pc(), rk._inner_op,
+                    rk._outer_operator())
+                prog.capture = False
+                t_e = time.perf_counter()
+                x_eager, res_e = rk.solve(b)
+                torch.cuda.synchronize()
+                t_e = time.perf_counter() - t_e
+                prog.capture = True
+                same = bool(np.array_equal(x_eager, x))
+                check(res.graph and not res_e.graph
+                      and res_e.replays == res.replays,
+                      f"{label}: the check runs did not run captured then "
+                      f"uncaptured ({res.graph}, {res_e.graph})")
+                check(same and res_e.iterations == res.iterations,
+                      f"{label}: captured and uncaptured differ")
                 extra = (f", {res.replays} replays, {res.host_syncs} host "
                          f"reads, {res.masked_steps} masked steps, graph "
-                         f"{res.graph}")
+                         f"{res.graph}, captured == uncaptured {same} (the "
+                         f"uncaptured run {t_e:.2f} s)")
             else:
                 cycles = res.iterations + rk.refine_steps
                 extra = ""
@@ -5287,6 +5356,8 @@ def phase_megasolve():
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"],
             "shape": [512] * 3, "dtype": "bfloat16", "at_128": small})
+        if "two_3b_ms" in big:
+            entries[-1]["two_3b_ms"] = big["two_3b_ms"]
     return entries, {"refine_mg": refine, "cfg13": cfg13,
                      "ksp_megasolve": ksp, "autoselect": auto,
                      "procs": procs}

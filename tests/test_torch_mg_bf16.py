@@ -27,6 +27,8 @@ Tolerances, with their reasons:
   iterations equal.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -54,6 +56,12 @@ from mpi_petsc4py_example_tpu_torch.utils.dtypes import (  # noqa: E402
 
 EPS = 2.0 ** -7
 SHAPES = [(8, 12, 16), (16, 16, 16)]     # (lz, ny, nx)
+# the edges of the bf16 pair kernel's 64 x 32 tile and its runs of 4 points
+# (csrc/mg3d.cu), as chip_smoke.py's VCYCLE_EDGE_SHAPES gives them to the
+# kernel on the card: ny one short of and one past the tile, nx a multiple of
+# 8 short of a tile, nx not a whole number of runs (the card also takes
+# (129, 257, 1024), one plane past a 128-plane z-chunk)
+EDGE_SHAPES = [(19, 31, 64), (18, 33, 72), (9, 33, 66)]
 OMEGAS = jmg.cheby_omegas(2)
 CR = pt.ConvergedReason
 
@@ -89,6 +97,7 @@ def _apply64(u, lo, hi):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _cases(shape):
     """``{name: (port plain output, JAX output, fp64 value, roundings)}``."""
     u64, u = _bf16(shape, 1)
@@ -119,7 +128,7 @@ def _cases(shape):
     }
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 @pytest.mark.parametrize("kind", ["smooth", "residual", "smooth_pair",
                                   "smooth0_pair"])
 def test_bf16_plain_passes_match_jax(kind, shape):
@@ -132,7 +141,7 @@ def test_bf16_plain_passes_match_jax(kind, shape):
     assert np.abs(got - exact).max() <= roundings * EPS * np.abs(exact).max()
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_bf16_pair_is_two_sweeps_bit_for_bit(shape):
     _, u = _bf16(shape, 5)
     _, f = _bf16(shape, 6)

@@ -164,10 +164,11 @@ def test_residual_restrict_matches_jnp_f64(shape):
 
 
 # ---- shapes at the edges of the kernels' tiles and z-chunks, f64 -----------
-# (csrc/mg3d.cu: smooth_pair tiles 64 x 16 and 32 x 8, residual_restrict fine
-# tiles 64 x 16 and 32 x 8; x, y one past or short of a tile, lz one or three
-# planes past a chunk.) chip_smoke.py holds the kernels against these plain
-# versions at the same shapes (TILE_EDGE_SHAPES).
+# (csrc/mg3d.cu: the f32/f64 smooth_pair tile 64 x 16, the bf16 pair's 64 x
+# 32 (its edges: tests/test_torch_mg_bf16.py), residual_restrict's fine tile
+# 64 x 16; x, y one past or short of a tile, lz one or three planes past a
+# chunk.) chip_smoke.py holds the kernels against these plain versions at the
+# same shapes (TILE_EDGE_SHAPES, VCYCLE_EDGE_SHAPES for the bf16 pair).
 
 @pytest.mark.parametrize("shape", [(17, 15, 63), (35, 17, 65), (19, 17, 65)])
 def test_smooth_pair_matches_jnp_at_tile_edges_f64(shape):
