@@ -152,7 +152,12 @@ kernels and prints only the per-level table of the ``csrc/mg3d.cu`` kernels
 (the two f32 ones and the bf16 pair over the levels of the 512^3 and 128^3
 cycles) and the warm CG + mg walls at 128^3 and 512^3. A copy of this
 script placed in another checkout runs that checkout's kernels, so
-``--kernels`` and ``--mg3d`` compare two trees in turns on one card.
+``--kernels``, ``--mg3d`` and ``--stencil7`` compare two trees in turns on
+one card. ``python3 chip_smoke.py --stencil7`` builds the kernels and runs
+only rows 1, 2, 9 and 10: their checks against the plain versions, their
+times at 128^3 and 512^3 in f32 and f64 with their bounds, the kernels one
+dot call launches, and the 128^3 f32 CG + Jacobi ms/iter unfused and fused
+with the 512^3 delta-method ms/iter.
 
 Every check raises on failure, so the exit code is 0 only when all phases
 passed. The last line of standard output is
@@ -307,53 +312,133 @@ def phase_kernel_resources():
     return out
 
 
+# the shapes of phase_kernel_checks: the main paths' 128^3 and 512^3, small
+# and odd planes, and the edges of the run kernel behind the f32/f64 dots:
+# 128^2 planes one plane past an 8-plane z-chunk (lz = 129), nx one short of
+# and one past a multiple of a run (4 f32 points, 2 f64) and of a block's run
+# width (1024 f32 points, 512 f64), and a plane of a single row
+KERNEL_CHECK_SHAPES = ((128, 128, 128), (3, 7, 33), (1, 8, 128),
+                       (100, 130, 200), (512, 512, 512), (129, 128, 128),
+                       (9, 5, 127), (9, 5, 129), (3, 2, 511), (3, 2, 513),
+                       (3, 2, 1023), (3, 2, 1025), (17, 1, 256))
+
+
+def dot_route_of(st, u, lo, hi, y):
+    """The route of a dot launch on these tensors, as the library reports
+    it (a checkout without ``dot_route`` has one route)."""
+    route = getattr(st, "dot_route", None)
+    return route(u, lo, hi, y) if route else "one"
+
+
+def dot_blocks(st, dtype, shape):
+    """The dot's partials a column at this shape (the library of a checkout
+    older than the one-launch dots has one count for f32 and f64)."""
+    lib = st._kernels()
+    fn = getattr(lib, f"stencil7_dot_blocks_{st._SUFFIX[dtype]}", None)
+    return (fn or lib.stencil7_dot_blocks)(*shape)
+
+
 def phase_kernel_checks():
-    """Kernel vs plain on the card, f32 and f64. The shapes give the dot's
-    fixed-order partial sum 1024 partials (128^3, one per summing thread), a
-    few (the small planes), 1547 (a ragged multiple of the 1024 summing
-    threads) and 65536 (512^3). Returns the largest f32 errors per kernel."""
+    """Rows 1 and 2 (the dot and the apply) against their plain versions on
+    the card, f32 and f64, at ``KERNEL_CHECK_SHAPES``: ``A u`` bit-exact,
+    the dot within 1e-4 (f32) or 1e-12 (f64) relative, and on misaligned
+    copies of the inputs (the dot's element route) the same ``A u`` and the
+    same sum bit for bit; every dot launch's route and partial count
+    logged. Then the dot's determinism: one sum over 5 eager runs and over a
+    CUDA graph's capture and 3 replays of row 1 and row 10 (k = 8), which
+    also shows that the fold's ticket counters are left at zero. Returns
+    the largest f32 errors per kernel."""
     import torch
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    t0 = time.perf_counter()
     worst = {"stencil7_apply": 0.0, "stencil7_dot": 0.0, "dot_rel": 0.0}
     limits = {torch.float32: (1e-6, 1e-4), torch.float64: (1e-13, 1e-12)}
     for dtype, (y_tol, dot_tol) in limits.items():
-        for i, shape in enumerate([(128, 128, 128), (3, 7, 33), (1, 8, 128),
-                                   (100, 130, 200), (512, 512, 512)]):
+        for i, shape in enumerate(KERNEL_CHECK_SHAPES):
             u, lo, hi = random_slab(shape, dtype, 100 + i)
             ref = st.stencil3d_apply_plain(u, lo, hi)
             y = st.stencil3d_apply(u, lo, hi)
             yd, d = st.stencil3d_dot(u, lo, hi)
             dref = (u * ref).sum()
+            um, lom, him = (misaligned_copy(t) for t in (u, lo, hi))
+            ym = misaligned_copy(torch.zeros_like(u))
+            _, dm = st.stencil3d_dot(um, lom, him, out=ym)
             torch.cuda.synchronize()
             scale = float(ref.abs().max())
             e_apply = float((y - ref).abs().max())
             e_dot_y = float((yd - ref).abs().max())
             e_dot = abs(float(d) - float(dref)) / abs(float(dref))
+            routes = (dot_route_of(st, u, lo, hi, yd),
+                      dot_route_of(st, um, lom, him, ym))
+            same = bool(torch.equal(ym, yd) and torch.equal(dm, d))
             log(f"check {str(dtype)[6:]} {shape}: apply max|err| {e_apply:.3e}, "
                 f"dot y max|err| {e_dot_y:.3e}, dot rel err {e_dot:.3e} "
-                f"(max|y| {scale:.3e}, {st._kernels().stencil7_dot_blocks(*shape)} "
-                f"partials)")
+                f"(max|y| {scale:.3e}, {dot_blocks(st, dtype, shape)} "
+                f"partials, route {routes[0]}; misaligned copies, route "
+                f"{routes[1]}: the same y and sum {same})")
             check(e_apply <= y_tol * scale, f"apply {dtype} {shape}: {e_apply}")
             check(e_dot_y <= y_tol * scale, f"dot y {dtype} {shape}: {e_dot_y}")
             check(e_dot <= dot_tol, f"dot sum {dtype} {shape}: rel {e_dot}")
+            check(same, f"dot on misaligned copies differs, {dtype} {shape}")
             if dtype == torch.float32:
                 worst["stencil7_apply"] = max(worst["stencil7_apply"], e_apply)
                 worst["stencil7_dot"] = max(worst["stencil7_dot"], e_dot_y)
                 worst["dot_rel"] = max(worst["dot_rel"], e_dot)
-            del u, lo, hi, ref, y, yd, d, dref
+            del u, lo, hi, ref, y, yd, d, dref, um, lom, him, ym, dm
         torch.cuda.empty_cache()
-    # the dot is deterministic: no atomics, fixed-order partial sums
-    u, lo, hi = random_slab((128, 128, 128), torch.float32, 7)
-    sums = {float(st.stencil3d_dot(u, lo, hi)[1]) for _ in range(5)}
-    check(len(sums) == 1, f"dot not deterministic across runs: {sums}")
+    t1 = time.perf_counter()
+    # the dot is deterministic: no float atomics, a fixed-order sum of the
+    # partials, whichever block finishes last
+    for dtype in (torch.float32, torch.float64):
+        u, lo, hi = random_slab((128, 128, 128), dtype, 7)
+        U = torch.stack([u] * K_BATCH)
+        LO, HI = torch.stack([lo] * K_BATCH), torch.stack([hi] * K_BATCH)
+        y, Y = torch.empty_like(u), torch.empty_like(U)
+        eager = [st.stencil3d_dot(u, lo, hi, out=y)[1].clone() for _ in range(5)]
+        eager_many = [st.stencil3d_dot_many(U, LO, HI, out=Y)[1].clone()
+                      for _ in range(5)]
+        check(all(torch.equal(e, eager[0]) for e in eager),
+              f"dot not deterministic across runs ({dtype}): {eager}")
+        check(all(torch.equal(e, eager_many[0]) for e in eager_many)
+              and bool((eager_many[0] == eager[0]).all()),
+              f"dot_many not deterministic or not equal to the single dot "
+              f"({dtype})")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):          # warm-up outside the capture
+            st.stencil3d_dot(u, lo, hi, out=y)
+            st.stencil3d_dot_many(U, LO, HI, out=Y)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _, d_graph = st.stencil3d_dot(u, lo, hi, out=y)
+            _, d_many_graph = st.stencil3d_dot_many(U, LO, HI, out=Y)
+        replays = []
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append((d_graph.clone(), d_many_graph.clone()))
+        after = st.stencil3d_dot(u, lo, hi, out=y)[1]
+        same = (all(torch.equal(a, eager[0]) and torch.equal(b, eager_many[0])
+                    for a, b in replays) and torch.equal(after, eager[0]))
+        log(f"check {str(dtype)[6:]} 128^3: dot {float(eager[0])!r} over 5 "
+            f"eager runs, dot_many k={K_BATCH} the same in every column, and "
+            f"over a graph's 3 replays and an eager run after them: the same "
+            f"bits {same}")
+        check(same, f"dot under graph replay differs ({dtype})")
+        del graph, u, lo, hi, U, LO, HI, y, Y, d_graph, d_many_graph
+    torch.cuda.empty_cache()
     bad = torch.float16           # bfloat16 has its own kernels (--refine)
+    u, lo, hi = random_slab((8, 8, 8), torch.float32, 7)
     try:
         st.stencil3d_apply(u.to(bad), lo.to(bad), hi.to(bad))
     except TypeError:
         pass
     else:
         raise SystemExit(f"chip_smoke: FAIL: {bad} on CUDA did not raise")
-    log("check: dot deterministic over 5 runs; fp16 raises TypeError")
+    log(f"check: fp16 raises TypeError; rows 1-2 checks {t1 - t0:.1f} s at "
+        f"{len(KERNEL_CHECK_SHAPES)} shapes, determinism and graph replays "
+        f"{time.perf_counter() - t1:.1f} s")
     return worst
 
 
@@ -408,6 +493,176 @@ def phase_kernel_times(n):
     del u, lo, hi, y, ext, ref, yd, d
     torch.cuda.empty_cache()
     return out
+
+
+def row_times(n, dtype, k=K_BATCH):
+    """Kernel ms of rows 2 and 1 (apply, dot) at n^3 and of rows 9 and 10
+    (apply_many, dot_many) at k x n^3 in ``dtype``, each beside its bytes
+    bound and the share of it reached (CUDA events, ``device_ms``)."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    big = n >= 512
+    u, lo, hi = random_slab((n, n, n), dtype, 11)
+    y = torch.empty_like(u)
+    cases = [("stencil7_apply", 1, lambda: st.stencil3d_apply(u, lo, hi, out=y)),
+             ("stencil7_dot", 1, lambda: st.stencil3d_dot(u, lo, hi, out=y))]
+    out = {}
+    for kk in (1, k):
+        if kk > 1:
+            del u, lo, hi, y
+            g = torch.Generator(device="cuda").manual_seed(13)
+            mk = lambda *sh: torch.rand(sh, generator=g, device="cuda", dtype=dtype)
+            U, LO, HI = mk(k, n, n, n), mk(k, n, n), mk(k, n, n)
+            Y = torch.empty_like(U)
+            cases = [("stencil7_apply_many", k,
+                      lambda: st.stencil3d_apply_many(U, LO, HI, out=Y)),
+                     ("stencil7_dot_many", k,
+                      lambda: st.stencil3d_dot_many(U, LO, HI, out=Y))]
+        for name, kk_, fn in cases:
+            b_ms, b_by = bound_ms(n, n, n, itemsize, name.startswith("stencil7_dot"), kk_)
+            ms = device_ms(fn, (10 if kk_ > 1 else 20) if big else 100,
+                           reps=10 if big else 25)
+            out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "pct_of_bound": b_ms / ms * 100}
+            log(f"time {name} {str(dtype)[6:]} {'' if kk_ == 1 else f'{kk_} x '}"
+                f"{n}^3: kernel {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"{b_ms / ms * 100:.1f}% of it")
+    del U, LO, HI, Y
+    torch.cuda.empty_cache()
+    return out
+
+
+def dot_kernels_per_call(dtype, n=128, k=K_BATCH, calls=20):
+    """The CUDA kernels one ``stencil3d_dot`` call (n^3) and one
+    ``stencil3d_dot_many`` call (k x n^3) launch, by name, from a
+    ``torch.profiler`` window over ``calls`` calls of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    u, lo, hi = random_slab((n, n, n), dtype, 3)
+    U = torch.stack([u] * k)
+    LO, HI = torch.stack([lo] * k), torch.stack([hi] * k)
+    out = {}
+    for label, fn in (("dot", lambda: st.stencil3d_dot(u, lo, hi)),
+                      ("dot_many", lambda: st.stencil3d_dot_many(U, LO, HI))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key[:60]: e.count / calls for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0}
+        out[label] = rows
+        log(f"profile {label} {str(dtype)[6:]}: kernels a call {rows}")
+    return out
+
+
+def stencil7_main_path(nx=128, big=512):
+    """The 128^3 f32 CG + Jacobi (bench.py's problem, rtol 1e-6) warm
+    ms/iter unfused and fused (``-ksp_megasolve``, best of 3 solves) with the
+    dot launches of the unfused solve, and the 512^3 delta-method ms/iter
+    (20 and 220 fixed iterations, median of 3)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
+    out = {}
+    for fused in (False, True):
+        ksp = ksp_solver(comm, op, "cg", rtol=1e-6, megasolve=fused,
+                         megasolve_stencil_fastpath=True)
+        x, _ = op.get_vecs()
+
+        def run():
+            x.zero()
+            return ksp.solve(bv, x)
+        run()
+        torch.cuda.synchronize()
+        st.reset_launches()
+        res = run()
+        torch.cuda.synchronize()
+        dots = st.stencil3d_dot.launches
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        label = "fused" if fused else "unfused"
+        out[label] = {"iterations": res.iterations, "reason": res.reason,
+                      "ms_per_iter": min(walls) / res.iterations * 1e3,
+                      "dot_launches": dots}
+        log(f"stencil7 main path {nx}^3 f32 cg+jacobi {label}: "
+            f"{res.iterations} iterations, {res.reason_name}, "
+            f"{out[label]['ms_per_iter']:.4f} ms/iter (warm best of 3), "
+            f"stencil7_dot launches {dots}")
+        check(res.converged, f"{nx}^3 {label} solve did not converge")
+        check(fused or dots == res.iterations + 1,
+              f"dot launches {dots} != iterations + 1")
+        del ksp
+        ms.clear_cache()
+    del op, bv
+    torch.cuda.empty_cache()
+    n = big ** 3
+    op = pt.StencilPoisson3D(comm, big, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bv = op.mult(pt.Vec(comm, n, data=torch.rand(n, generator=g, device="cuda")))
+    x, _ = op.get_vecs()
+    solvers = {m: cg_jacobi(comm, op, 0.0, max_it=m, norm_none=True)
+               for m in (20, 220)}
+    per_iter = []
+    for _ in range(3):
+        walls = {}
+        for m, k in solvers.items():
+            x.zero()
+            t0 = time.perf_counter()
+            r = k.solve(bv, x)
+            walls[m] = (time.perf_counter() - t0, r.iterations)
+        per_iter.append((walls[220][0] - walls[20][0])
+                        / (walls[220][1] - walls[20][1]))
+    out["delta_512"] = statistics.median(per_iter) * 1e3
+    log(f"stencil7 main path {big}^3 f32 cg+jacobi delta method: "
+        f"{out['delta_512']:.4f} ms/iter (samples "
+        f"{[round(p * 1e3, 4) for p in per_iter]})")
+    del op, bv, x, solvers
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stencil7():
+    """``--stencil7``: rows 1, 2, 9 and 10 against their plain versions
+    (``phase_kernel_checks``, ``phase_many_kernel_checks``), their times at
+    128^3 and 512^3 in f32 and f64 (k = 8 for rows 9-10), the kernels a dot
+    call launches, and the main path's ms/iter."""
+    import torch
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    t0 = time.perf_counter()
+    worst = phase_kernel_checks()
+    worst.update(phase_many_kernel_checks())
+    t1 = time.perf_counter()
+    times = {f"{n} {str(dtype)[6:]}": row_times(n, dtype)
+             for n in (128, 512) for dtype in (torch.float32, torch.float64)}
+    per_call = {str(dtype)[6:]: dot_kernels_per_call(dtype)
+                for dtype in (torch.float32, torch.float64)}
+    if hasattr(st, "dot_route"):
+        # the one-launch dots: one kernel a call, no second summing launch
+        for dt, rows in per_call.items():
+            for label, kernels in rows.items():
+                check(sum(kernels.values()) == 1
+                      and not any("sum_partials" in name for name in kernels),
+                      f"{label} {dt}: kernels a call {kernels}")
+    t2 = time.perf_counter()
+    main = stencil7_main_path()
+    log(f"stencil7 phases: checks {t1 - t0:.1f} s, times {t2 - t1:.1f} s, "
+        f"main path {time.perf_counter() - t2:.1f} s")
+    return {"worst": worst, "times": times, "kernels_per_call": per_call,
+            "main_path": main}
 
 
 def mg_kernel_calls(st, dtype, shape, seed, zero_halo_variants=False):
@@ -1137,20 +1392,24 @@ def phase_realistic():
 
 def phase_many_kernel_checks():
     """The two batched kernels vs their plain versions on the card: f32 and
-    f64, k in {1, 3, 8}, shapes (128,128,128), (17,9,33), (4,4,4), random
-    and null (zero) halos. ``A U`` must be bit-exact with the plain version,
-    the per-column dots within the single-RHS dot's limit, and every column
-    bit-equal (``A u`` and dot) to one ``stencil7_apply``/``stencil7_dot``
-    launch on it. Returns the largest f32 errors per kernel."""
+    f64, k in {1, 3, 8, 16}, shapes (128,128,128), (17,9,33), (4,4,4) and
+    two edges of the dots' run kernel (128^2 planes one plane past a z-chunk,
+    nx one short of a run), random and null (zero) halos. ``A U`` must be
+    bit-exact with the plain version, the per-column dots within the
+    single-RHS dot's limit, and every column bit-equal (``A u`` and dot) to
+    one ``stencil7_apply``/``stencil7_dot`` launch on it. Returns the
+    largest f32 errors per kernel."""
     import torch
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
     worst = {"stencil7_apply_many": 0.0, "stencil7_dot_many": 0.0,
              "dot_many_rel": 0.0}
     dot_tol = {torch.float32: 1e-4, torch.float64: 1e-12}
     seed = 500
+    t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
-        for k in (1, 3, K_BATCH):
-            for shape in ((128, 128, 128), (17, 9, 33), (4, 4, 4)):
+        for k in (1, 3, K_BATCH, 16):
+            for shape in ((128, 128, 128), (17, 9, 33), (4, 4, 4),
+                          (129, 128, 128), (9, 5, 127)):
                 for halos in (True, False):
                     seed += 1
                     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1194,6 +1453,7 @@ def phase_many_kernel_checks():
                         worst["dot_many_rel"] = max(worst["dot_many_rel"], e_dot)
                     del U, lo, hi, Y, Yd, d, Yp, dp
         torch.cuda.empty_cache()
+    log(f"check many: {time.perf_counter() - t0:.1f} s")
     return worst
 
 
@@ -5388,6 +5648,13 @@ def main():
         # copied beside it
         print(json.dumps({"mg_levels": phase_mg_level_times(),
                           "mg_walls": phase_mg_walls()}))
+        print(card_line())
+        return
+    if sys.argv[1:] == ["--stencil7"]:
+        # only rows 1, 2, 9 and 10: checks, times in f32 and f64, the main
+        # path's ms/iter; e.g. to time another checkout's csrc/ with this
+        # script copied beside it
+        print(json.dumps({"stencil7": phase_stencil7()}, default=float))
         print(card_line())
         return
     if sys.argv[1:] == ["--eps"]:

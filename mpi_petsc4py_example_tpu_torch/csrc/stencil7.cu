@@ -12,15 +12,17 @@
 //   stencil7_dot_many_{f32,f64}    -> stencil3d_dot_many_pallas (:620)
 //   stencil7_{apply,dot,apply_many,dot_many}_bf16 -> the bfloat16-storage
 //                                     instantiations of the same four TPU
-//                                     kernels (_compute_dtype :46); one kernel
-//                                     of its own, below
+//                                     kernels (_compute_dtype :46)
 //   stencil7_{smooth,residual,smooth0_pair}_bf16 -> the bfloat16 instantiations
 //                                     of stencil3d_smooth_pallas,
 //                                     stencil3d_residual_pallas and
 //                                     stencil3d_smooth0_pair_pallas, which the
 //                                     TPU V-cycle runs at bfloat16 storage
 //                                     (mg.py _sweep, _residual, _smooth0);
-//                                     the same bf16 kernel with an epilogue
+//                                     the bf16 apply with an epilogue
+// The dots of every dtype and everything at bf16 run the run kernel of the
+// last section (16-byte runs a thread); the f32/f64 applies and V-cycle
+// passes run the march below.
 //
 // All compute, on a z-slab u (lz, ny, nx) stored x-fastest,
 //   Au = 6 u - u[z-1] - u[z+1] - u[y-1] - u[y+1] - u[x-1] - u[x+1]
@@ -41,39 +43,32 @@
 // What bounds them: HBM bytes.  Each point needs 8 flops (10 with the dot or
 // the smooth) against 8 (f32) or 16 (f64) bytes moved for the apply: read u
 // once, write y once, plus the two halo planes; smooth and residual also read
-// f (3 passes).  The design marches each thread up a column of ZC planes,
+// f (3 passes).  The march gives each thread one x column of ZC planes,
 // keeping the z-1 / z / z+1 values in registers, so u is read from device
 // memory about once; the x and y neighbours come from L1/L2, which hold the
 // rows that neighbouring threads of the block have just loaded.
 //
-// The dot reduction is deterministic: each block writes its partial sum to a
-// scratch buffer (allocated by the caller), and a second one-block kernel sums
-// the partials in a fixed order.  No float atomics are used, so two runs on the
-// same input give the same bits and CG iteration counts do not wobble.
-//
-// The many-column kernels take k slabs U (k, lz, ny, nx) and halo blocks
+// The many-column applies take k slabs U (k, lz, ny, nx) and halo blocks
 // (k, ny, nx) (or null for zero halos) in one launch: grid z covers the
 // z-tiles of all k columns, column by column, and each column's slab is
 // marched exactly as the single-RHS kernel marches it (same tiles per block,
-// same order).  The
-// per-column dot writes the single kernel's partial layout for each column
-// into a (k, nblocks) scratch and sums it with one block per column, so each
-// column's A u and <u, A u> are bit-equal to one stencil7_dot launch on it.
-// The TPU kernel's VMEM chunk plan for k resident columns has no counterpart:
-// the bound is the same k (2 n + 2 planes) bytes, and the march reads each
-// column's u about once.
+// same order), so each column's A u is bit-equal to one stencil7_apply launch
+// on it.  The TPU kernel's VMEM chunk plan for k resident columns has no
+// counterpart: the bound is the same k (2 n + 2 planes) bytes, and the march
+// reads each column's u about once.
 //
-// This first design is simple and right.  Shared-memory plane tiling, TMA and
-// fusing the CG update chain are left to later work.  bfloat16 storage has a
-// kernel of its own (the last section): through this march, one 2-byte point
-// a thread would halve the bytes each load moves and double the instructions
-// a byte, so that kernel loads runs of 8 points as 16-byte vectors.
+// The dots are deterministic: no float atomics, and a fixed order of summing
+// the per-block partials (the run kernel's section says how), so two runs on
+// the same input give the same bits and CG iteration counts do not wobble.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -85,6 +80,8 @@ constexpr int kSumThreads = 1024;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // Epilogues: the value stored at offset o from u there and Au = (A u)[o].
 // Products go through mul_rn, so nvcc cannot contract them with the
@@ -150,17 +147,13 @@ Tiles make_tiles(int lz, int ny, int nx) {
 }
 
 // The tiles (bx + i gx, blockIdx.y + i gridDim.y, bz + i gz) of one slab,
-// the grid of one single-slab launch being (gx, gridDim.y, gz); returns the
-// block's share of sum(u * Au) when kDot. The tile loops depend on blockIdx
-// only, so every thread of a block runs the same trip counts and reaches the
-// caller's block_sum.
-template <typename T, bool kDot, bool kHalo, class Epilogue>
-__device__ __forceinline__ T march(const T* __restrict__ u, const T* __restrict__ halo_lo,
-                                   const T* __restrict__ halo_hi, T* __restrict__ y,
-                                   int lz, int ny, int nx, int ntx, int nty, int ntz,
-                                   int bx, int gx, int bz, int gz, Epilogue epi) {
+// the grid of one single-slab launch being (gx, gridDim.y, gz).
+template <typename T, bool kHalo, class Epilogue>
+__device__ __forceinline__ void march(const T* __restrict__ u, const T* __restrict__ halo_lo,
+                                      const T* __restrict__ halo_hi, T* __restrict__ y,
+                                      int lz, int ny, int nx, int ntx, int nty, int ntz,
+                                      int bx, int gx, int bz, int gz, Epilogue epi) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
-  T acc = T(0);
   for (int tz = bz; tz < ntz; tz += gz) {
     for (int ty = blockIdx.y; ty < nty; ty += gridDim.y) {
       for (int tx = bx; tx < ntx; tx += gx) {
@@ -188,66 +181,44 @@ __device__ __forceinline__ T march(const T* __restrict__ u, const T* __restrict_
           v -= xm;
           v -= xp;
           y[o] = epi(cur, v, o);
-          if (kDot) acc += cur * v;
           below = cur;
           cur = above;
         }
       }
     }
   }
-  return acc;
 }
 
-template <typename T, bool kDot, bool kHalo, class Epilogue>
+template <typename T, bool kHalo, class Epilogue>
 __global__ void __launch_bounds__(kThreads)
 stencil7_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
-                const T* __restrict__ halo_hi, T* __restrict__ y,
-                T* __restrict__ partial, int lz, int ny, int nx,
+                const T* __restrict__ halo_hi, T* __restrict__ y, int lz, int ny, int nx,
                 int ntx, int nty, int ntz, Epilogue epi) {
-  const T acc = march<T, kDot, kHalo>(u, halo_lo, halo_hi, y, lz, ny, nx, ntx, nty, ntz,
-                                      blockIdx.x, gridDim.x, blockIdx.z, gridDim.z, epi);
-  if (kDot) {
-    const T s = block_sum(acc);
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-      partial[blockIdx.x + static_cast<int64_t>(gridDim.x) *
-                               (blockIdx.y + static_cast<int64_t>(gridDim.y) * blockIdx.z)] = s;
-    }
-  }
+  march<T, kHalo>(u, halo_lo, halo_hi, y, lz, ny, nx, ntx, nty, ntz, blockIdx.x, gridDim.x,
+                  blockIdx.z, gridDim.z, epi);
 }
 
 // k slabs in one launch, grid (gx, gy, k gz) for the single kernel's grid
 // (gx, gy, gz) of one slab: block z = j gz + bz is block (x, y, bz) of column
-// j's single-slab launch, marching the same tiles, and its partial goes to
-// partial[j nblk + (the single kernel's index)], nblk = gx gy gz.  The
-// launcher lowers gz below the single kernel's where k gz would pass the
-// 65535 cap; march's z loop then covers the rest (only the dot's summing
-// order differs from a single launch there, at lz > 524280 / k planes).
-template <typename T, bool kDot, bool kHalo>
+// j's single-slab launch, marching the same tiles.  The launcher lowers gz
+// below the single kernel's where k gz would pass the 65535 cap; march's z
+// loop then covers the rest.
+template <typename T, bool kHalo>
 __global__ void __launch_bounds__(kThreads)
 stencil7_many_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
-                     const T* __restrict__ halo_hi, T* __restrict__ y,
-                     T* __restrict__ partial, int lz, int ny, int nx,
+                     const T* __restrict__ halo_hi, T* __restrict__ y, int lz, int ny, int nx,
                      int ntx, int nty, int ntz, int gz) {
   const int j = static_cast<int>(blockIdx.z) / gz;
   const int bz = static_cast<int>(blockIdx.z) - j * gz;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t slab = plane * lz;
-  const T acc = march<T, kDot, kHalo>(
-      u + j * slab, kHalo ? halo_lo + j * plane : nullptr,
-      kHalo ? halo_hi + j * plane : nullptr, y + j * slab, lz, ny, nx, ntx, nty, ntz,
-      blockIdx.x, gridDim.x, bz, gz, StoreAu<T>{});
-  if (kDot) {
-    const T s = block_sum(acc);
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-      const int64_t nblk = static_cast<int64_t>(gridDim.x) * gridDim.y * gz;
-      partial[j * nblk + blockIdx.x +
-              static_cast<int64_t>(gridDim.x) * (blockIdx.y + static_cast<int64_t>(gridDim.y) * bz)] = s;
-    }
-  }
+  march<T, kHalo>(u + j * slab, kHalo ? halo_lo + j * plane : nullptr,
+                  kHalo ? halo_hi + j * plane : nullptr, y + j * slab, lz, ny, nx, ntx, nty,
+                  ntz, blockIdx.x, gridDim.x, bz, gz, StoreAu<T>{});
 }
 
 // One block per column j: out[j] = sum of partial[j n : (j + 1) n], always in
-// the same order (the single-RHS dot launches one block).
+// the same order (the bf16 dots' second launch).
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
 sum_partials_kernel(const T* __restrict__ partial, int64_t n, T* __restrict__ out) {
@@ -271,38 +242,20 @@ int launch_apply(const void* u, const void* lo, const void* hi, void* y,
   const T* lot = static_cast<const T*>(lo);
   const T* hit = static_cast<const T*>(hi);
   if (lo != nullptr && hi != nullptr) {
-    stencil7_kernel<T, false, true, Epilogue><<<t.grid, dim3(kBX, kBY), 0, s>>>(
-        ut, lot, hit, static_cast<T*>(y), nullptr, lz, ny, nx, t.ntx, t.nty, t.ntz, epi);
+    stencil7_kernel<T, true, Epilogue><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+        ut, lot, hit, static_cast<T*>(y), lz, ny, nx, t.ntx, t.nty, t.ntz, epi);
   } else {
-    stencil7_kernel<T, false, false, Epilogue><<<t.grid, dim3(kBX, kBY), 0, s>>>(
-        ut, nullptr, nullptr, static_cast<T*>(y), nullptr, lz, ny, nx, t.ntx, t.nty, t.ntz,
-        epi);
+    stencil7_kernel<T, false, Epilogue><<<t.grid, dim3(kBX, kBY), 0, s>>>(
+        ut, nullptr, nullptr, static_cast<T*>(y), lz, ny, nx, t.ntx, t.nty, t.ntz, epi);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// k slabs: Y = A U.  Null lo and hi select zero halos.  1 <= k <= 65535 (the
+// wrappers check).
 template <typename T>
-int launch_dot(const void* u, const void* lo, const void* hi, void* y,
-               void* partial, void* out, int lz, int ny, int nx, void* stream) {
-  const Tiles t = make_tiles(lz, ny, nx);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stencil7_kernel<T, true, true, StoreAu<T>><<<t.grid, dim3(kBX, kBY), 0, s>>>(
-      static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<T*>(y), static_cast<T*>(partial), lz, ny, nx, t.ntx, t.nty, t.ntz,
-      StoreAu<T>{});
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const int64_t nblocks = static_cast<int64_t>(t.grid.x) * t.grid.y * t.grid.z;
-  sum_partials_kernel<T><<<1, kSumThreads, 0, s>>>(static_cast<const T*>(partial), nblocks,
-                                                   static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// k slabs: Y = A U, and with kDot the per-column <u_j, A u_j> into out (k).
-// Null lo and hi select zero halos.  1 <= k <= 65535 (the wrappers check).
-template <typename T, bool kDot>
-int launch_many(const void* u, const void* lo, const void* hi, void* y, void* partial,
-                void* out, int k, int lz, int ny, int nx, void* stream) {
+int launch_apply_many(const void* u, const void* lo, const void* hi, void* y, int k, int lz,
+                      int ny, int nx, void* stream) {
   const Tiles t = make_tiles(lz, ny, nx);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned gz = t.grid.z * static_cast<unsigned>(k) <= 65535u
@@ -310,79 +263,108 @@ int launch_many(const void* u, const void* lo, const void* hi, void* y, void* pa
   const dim3 grid(t.grid.x, t.grid.y, gz * static_cast<unsigned>(k));
   const T* ut = static_cast<const T*>(u);
   T* yt = static_cast<T*>(y);
-  T* pt = static_cast<T*>(partial);
   if (lo != nullptr && hi != nullptr) {
-    stencil7_many_kernel<T, kDot, true><<<grid, dim3(kBX, kBY), 0, s>>>(
-        ut, static_cast<const T*>(lo), static_cast<const T*>(hi), yt, pt, lz, ny, nx,
+    stencil7_many_kernel<T, true><<<grid, dim3(kBX, kBY), 0, s>>>(
+        ut, static_cast<const T*>(lo), static_cast<const T*>(hi), yt, lz, ny, nx,
         t.ntx, t.nty, t.ntz, static_cast<int>(gz));
   } else {
-    stencil7_many_kernel<T, kDot, false><<<grid, dim3(kBX, kBY), 0, s>>>(
-        ut, nullptr, nullptr, yt, pt, lz, ny, nx, t.ntx, t.nty, t.ntz, static_cast<int>(gz));
+    stencil7_many_kernel<T, false><<<grid, dim3(kBX, kBY), 0, s>>>(
+        ut, nullptr, nullptr, yt, lz, ny, nx, t.ntx, t.nty, t.ntz, static_cast<int>(gz));
   }
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || !kDot) return err;
-  const int64_t nblk = static_cast<int64_t>(t.grid.x) * t.grid.y * gz;
-  sum_partials_kernel<T><<<k, kSumThreads, 0, s>>>(pt, nblk, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bfloat16 storage: runs of kV points a thread -----------------------------
+// ---- the run kernel: 16-byte runs a thread ------------------------------------
 //
-// One kernel for the four bf16 entry points: the batched apply and dot with k
-// columns, and the single-RHS pair as its k = 1 launches, so a column of a
-// batched launch and a single launch on it march the same tiles and write the
-// same partials (their A u and dot are bit-equal by construction, at every
-// shape).  The plane is cut by its flat index p = y nx + x: a block of
-// kRunThreads threads owns kRunPoints consecutive points of it (whole rows,
-// or several blocks a row), thread t the run p0 + t kV .. + kV - 1, and the
-// block marches up a chunk of zc planes.  Per plane a thread reads the run
-// above (loaded two or three planes ahead, kRing, so the next planes' loads
-// are in flight while it computes), the runs at y - 1 and y + 1 (rows of the
-// plane in use that neighbouring threads and blocks load, so L1 and L2 serve
-// them), and its two x neighbours from the neighbouring lanes by shuffles:
-// one point each, loaded only at the warp's two ends.  The z - 1 / z / z + 1
-// values stay in registers.  Two routes, chosen in the launcher
-// (stencil7_bf16_route):
+// One kernel for the dots of every dtype (the batched dot with k columns, the
+// single-RHS dot as its k = 1 launch) and for the bf16 applies and V-cycle
+// passes: a column of a batched launch and a single launch on it march the
+// same tiles and write the same partials, so their A u and dot are bit-equal
+// by construction, at every shape.  A thread owns kV = 16 / sizeof(T)
+// consecutive points of a plane (8 bf16, 4 f32, 2 f64).  The plane is cut by
+// its flat index p = y nx + x: a block of kRunThreads threads owns the
+// kRunThreads kV consecutive points of a chunk (whole rows, or several blocks
+// a row), thread t the run p0 + t kV .. + kV - 1, and the block marches up a
+// z-chunk of zc planes.  Per plane a thread reads the run above (loaded
+// kRing planes ahead, so the next planes' loads are in flight while it
+// computes), the runs at y - 1 and y + 1 (rows of the plane in use that
+// neighbouring threads and blocks load, so L1 and L2 serve them), and its two
+// x neighbours from the neighbouring lanes by shuffles: one point each,
+// loaded only at the warp's two ends.  The z - 1 / z / z + 1 values stay in
+// registers.  Two routes, chosen in the launcher (run_vec16):
 //   * "vec16": nx a multiple of kV and every pointer 16-byte aligned (then
 //     every column, halo plane and row is): one 16-byte load or store a run,
 //     which never leaves its row;
 //   * "elem": any other shape, such as (37, 45, 131), or a misaligned view:
-//     kV 2-byte loads a run, which may cross rows; each point's edges come
-//     from bit masks made once a tile.
+//     kV loads a run, which may cross rows; each point's edges come from bit
+//     masks made once a tile.
 // Both compute the same sums in the same order, so they give the same bits.
 // The V-cycle's three bf16 entry points run the same march with an epilogue
 // (RunSmooth, RunResidual, RunSmooth0Pair below): f's run at the point is
 // loaded where the epilogue reads it (one more stream of 2 bytes a point) and
 // the stored value is the epilogue's fp32 result, rounded once.
-// The z-chunk zc (8, 4, 2 or 1 planes) is the longest that still gives
-// kRunTarget blocks for ONE slab (zc = 8 from 128^3 up, 1 at 64^3): it
-// depends on the shape alone, never on k.  k is grid z, so no cap on k
-// z-chunks is needed (k <= 65535, the wrappers check).
+// The z-chunk zc (kZMax, halved down to 1) is the longest that still gives
+// kTarget blocks for ONE slab: it depends on the shape alone, never on k.
+// k is grid z, so no cap on k z-chunks is needed (k <= 65535, the wrappers
+// check).
 //
-// Arithmetic: each point is lifted to fp32 (bits << 16, as __bfloat162float),
-// the sum is 6 u by __fmul_rn, then minus z-1, z+1, y-1, y+1, x-1, x+1 (the
-// plain version's order, a missing neighbour subtracting 0), rounded once to
-// bf16 (round to nearest even), or first turned by the epilogue in fp32
-// (u + w (f - Au), f - Au, sum u - prod Au, each product by __fmul_rn, as the
-// f32 epilogues) and then rounded once: the TPU kernel's cdt = fp32
-// arithmetic (pallas_stencil.py:111), and the plain versions' lift-compute-
-// round.  The dot sums u * Au from the UNROUNDED fp32
-// Au (pallas_stencil.py:237) with __fmaf_rn in a fixed order: per thread over
-// z and its run, then block_sum, one fp32 partial a block, and
-// sum_partials_kernel per column.  Bound: 4 bytes a point (read u, write Au);
-// the V-cycle passes 6 (smooth, residual: read u and f, write out) or 4
-// (smooth0_pair: read f, write out).
+// Arithmetic, in C (fp32 for bf16 and f32, fp64 for f64): each point is
+// lifted to C (bf16: bits << 16, as __bfloat162float), the sum is 6 u by
+// mul_rn, then minus z-1, z+1, y-1, y+1, x-1, x+1 (the plain version's order,
+// a missing neighbour subtracting 0), stored (bf16: rounded once to nearest
+// even), or first turned by the epilogue in fp32 (u + w (f - Au), f - Au,
+// sum u - prod Au, each product by __fmul_rn, as the f32 epilogues) and then
+// rounded once: the TPU kernel's cdt = fp32 arithmetic (pallas_stencil.py:111),
+// and the plain versions' lift-compute-round.  The dot sums u * Au from the
+// unrounded C Au (pallas_stencil.py:237) with fma_rn in a fixed order: per
+// thread over z and its run, then block_sum, one C partial a block.  The f32
+// and f64 dots fold the partials in the same launch (fold, below: the last
+// block of a column to finish sums them in a fixed order, so the result does
+// not depend on which block that is); the bf16 dots sum them with
+// sum_partials_kernel, one block a column.  Bound: 2 sizeof(T) bytes a point
+// (read u, write Au); the V-cycle passes 6 (smooth, residual: read u and f,
+// write out) or 4 (smooth0_pair: read f, write out) at bf16.
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kV = 8;                         // bf16 points a thread owns: 16 bytes
 constexpr int kRunThreads = 256;
-constexpr int kRunPoints = kV * kRunThreads;  // in-plane points a block owns
-// the least blocks of one slab the z-chunk is cut for; more, shorter marches
-// (512 or 1024) measured slower at 128^3 in tuning runs on the H100, and the
-// same at 512^3
-constexpr int kRunTarget = 128;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Per storage dtype: the arithmetic type C, the points a thread owns, the
+// longest z-chunk, the least blocks of one slab the chunk is cut for, and the
+// runs above in flight (for the dot, or for the apply: only bf16 applies run
+// this kernel).  The values are the fastest of tuning runs on the H100:
+// bf16: more, shorter marches (512 or 1024 blocks) measured slower at 128^3
+// and the same at 512^3; 2 runs in flight for the dot, whose accumulator
+// takes registers, 3 for the apply (4 was slower for both).  f32 and f64
+// dots: 1 run in flight (f32: 2-4 runs 4-11% slower at 512^3; f64: 2 and 3
+// runs 8% and 14% slower at 512^3, 3 by a third at 128^3); 4-, 16- or
+// 32-plane chunks 4-38% slower; capping a column's blocks at 512-4096 (each
+// looping over tiles, so the fold has fewer partials to sum) 2-35% slower
+// at 512^3.
+template <typename T>
+struct Run;
+
+template <>
+struct Run<bf16> {
+  using C = float;
+  static constexpr int kV = 8, kZMax = 8, kTarget = 128;
+  __host__ __device__ static constexpr int ring(bool dot) { return dot ? 2 : 3; }
+};
+
+template <>
+struct Run<float> {
+  using C = float;
+  static constexpr int kV = 4, kZMax = 8, kTarget = 128;
+  __host__ __device__ static constexpr int ring(bool) { return 1; }
+};
+
+template <>
+struct Run<double> {
+  using C = double;
+  static constexpr int kV = 2, kZMax = 8, kTarget = 128;
+  __host__ __device__ static constexpr int ring(bool) { return 1; }
+};
 
 struct RunTiles {
   int64_t nch;    // run chunks a plane
@@ -390,30 +372,38 @@ struct RunTiles {
   dim3 grid;      // one slab's grid: x chunks, y z-chunks (the kernel loops past the caps)
 };
 
+template <typename T>
 RunTiles make_run_tiles(int lz, int ny, int nx) {
+  constexpr int kPoints = kRunThreads * Run<T>::kV;
   RunTiles t;
-  t.nch = (static_cast<int64_t>(ny) * nx - 1) / kRunPoints + 1;
-  t.zc = 8;
-  while (t.zc > 1 && t.nch * ((lz - 1) / t.zc + 1) < kRunTarget) t.zc /= 2;
+  t.nch = (static_cast<int64_t>(ny) * nx - 1) / kPoints + 1;
+  t.zc = Run<T>::kZMax;
+  while (t.zc > 1 && t.nch * ((lz - 1) / t.zc + 1) < Run<T>::kTarget) t.zc /= 2;
   t.ntz = (lz - 1) / t.zc + 1;
-  t.grid = dim3(static_cast<unsigned>(t.nch < 2147483647 ? t.nch : 2147483647),
-                static_cast<unsigned>(t.ntz < 65535 ? t.ntz : 65535), 1);
+  // within gridDim's limits (2^31 - 1 in x, 65535 in y), and a column's
+  // blocks below 2^32 (the fold's ticket is 32 bits); the kernel loops over
+  // the tiles past them
+  const int64_t gx = std::min<int64_t>(t.nch, INT_MAX);
+  const int64_t gy = std::min<int64_t>({t.ntz, 65535, UINT_MAX / gx});
+  t.grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), 1);
   return t;
 }
 
+template <typename T>
 bool run_vec16(int nx, const void* u, const void* lo, const void* hi, const void* y,
                const void* f) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(lo) |
                          reinterpret_cast<uintptr_t>(hi) | reinterpret_cast<uintptr_t>(y) |
                          reinterpret_cast<uintptr_t>(f);
-  return nx % kV == 0 && bits % 16 == 0;
+  return nx % Run<T>::kV == 0 && bits % 16 == 0;
 }
 
-// The stored value from the fp32 centre u, the fp32 A u and f's point (read
-// only when kF); every product by __fmul_rn, so no FMA contracts it.
+// The stored value from the centre u, A u and f's point (read only when kF);
+// every product by __fmul_rn, so no FMA contracts it.
 struct RunAu {
   static constexpr bool kF = false;
-  __device__ float operator()(float, float au, float) const { return au; }
+  template <typename C>
+  __device__ C operator()(C, C au, C) const { return au; }
 };
 
 struct RunSmooth {         // u + w (f - A u)
@@ -437,14 +427,47 @@ struct RunSmooth0Pair {    // (w1 + w2) f - (w1 w2) A f, the kernel run on u = f
   }
 };
 
+// One stored point lifted to C, and a C value stored (bf16: rounded once).
+__device__ __forceinline__ float lift1(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float lift1(float v) { return v; }
+__device__ __forceinline__ double lift1(double v) { return v; }
+__device__ __forceinline__ void store1(bf16* d, float v) { *d = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(float* d, float v) { *d = v; }
+__device__ __forceinline__ void store1(double* d, double v) { *d = v; }
+template <typename T>
+__device__ __forceinline__ T zero1() { return T(0); }
+template <>
+__device__ __forceinline__ bf16 zero1<bf16>() { return __ushort_as_bfloat16(0); }
+
 // A run of kV stored points as it is loaded (through the read-only path: no
-// launch writes what it reads), lifted to fp32, and stored; m has bit i set
+// launch writes what it reads), lifted to C, and stored; m has bit i set
 // where point i exists (the vec16 route: all bits or none).
-template <bool kVec>
+template <typename T, bool kVec>
 struct RunIO;
 
-template <>
-struct RunIO<true> {
+template <typename T>        // vec16, f32 and f64: the run is one 16-byte vector
+struct RunIO<T, true> {
+  static constexpr int kV = Run<T>::kV;
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ Raw load(const T* s, unsigned m) {
+    return m ? __ldg(reinterpret_cast<const uint4*>(s)) : zero();
+  }
+  static __device__ __forceinline__ void lift(const Raw& w, T (&v)[kV]) {
+    memcpy(v, &w, sizeof(w));
+  }
+  static __device__ __forceinline__ void store(T* d, const T (&v)[kV], unsigned m) {
+    if (m) {
+      Raw w;
+      memcpy(&w, v, sizeof(w));
+      *reinterpret_cast<uint4*>(d) = w;
+    }
+  }
+};
+
+template <>                  // vec16, bf16: 8 points as 4 words, lifted in pairs
+struct RunIO<bf16, true> {
+  static constexpr int kV = Run<bf16>::kV;
   using Raw = uint4;
   static __device__ __forceinline__ Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
   static __device__ __forceinline__ Raw load(const bf16* s, unsigned m) {
@@ -472,18 +495,20 @@ struct RunIO<true> {
   }
 };
 
-template <>
-struct RunIO<false> {
+template <typename T>        // elem: kV loads and stores a run
+struct RunIO<T, false> {
+  static constexpr int kV = Run<T>::kV;
+  using C = typename Run<T>::C;
   struct Raw {
-    bf16 e[kV];
+    T e[kV];
   };
   static __device__ __forceinline__ Raw zero() {
     Raw r;
 #pragma unroll
-    for (int i = 0; i < kV; ++i) r.e[i] = __ushort_as_bfloat16(0);
+    for (int i = 0; i < kV; ++i) r.e[i] = zero1<T>();
     return r;
   }
-  static __device__ __forceinline__ Raw load(const bf16* s, unsigned m) {
+  static __device__ __forceinline__ Raw load(const T* s, unsigned m) {
     Raw r = zero();
 #pragma unroll
     for (int i = 0; i < kV; ++i) {
@@ -491,14 +516,14 @@ struct RunIO<false> {
     }
     return r;
   }
-  static __device__ __forceinline__ void lift(const Raw& w, float (&v)[kV]) {
+  static __device__ __forceinline__ void lift(const Raw& w, C (&v)[kV]) {
 #pragma unroll
-    for (int i = 0; i < kV; ++i) v[i] = __bfloat162float(w.e[i]);
+    for (int i = 0; i < kV; ++i) v[i] = lift1(w.e[i]);
   }
-  static __device__ __forceinline__ void store(bf16* d, const float (&v)[kV], unsigned m) {
+  static __device__ __forceinline__ void store(T* d, const C (&v)[kV], unsigned m) {
 #pragma unroll
     for (int i = 0; i < kV; ++i) {
-      if (m >> i & 1u) d[i] = __float2bfloat16_rn(v[i]);
+      if (m >> i & 1u) store1(d + i, v[i]);
     }
   }
 };
@@ -506,20 +531,19 @@ struct RunIO<false> {
 // The run starting at in-plane point p over planes z0 .. z1-1 of one slab;
 // adds the run's share of sum(u * Au) to acc when kDot.  Every thread of the
 // block calls it with the same z0, z1 (the shuffles need the whole warp).
-template <bool kDot, bool kHalo, bool kVec, class Epi>
-__device__ __forceinline__ void march_run(const bf16* __restrict__ u,
-                                          const bf16* __restrict__ halo_lo,
-                                          const bf16* __restrict__ halo_hi,
-                                          const bf16* __restrict__ f,
-                                          bf16* __restrict__ y, int lz, int ny, int nx,
-                                          int64_t p, int z0, int z1, float& acc,
-                                          Epi epi) {
-  using IO = RunIO<kVec>;
+template <typename T, bool kDot, bool kHalo, bool kVec, class Epi>
+__device__ __forceinline__ void march_run(const T* __restrict__ u,
+                                          const T* __restrict__ halo_lo,
+                                          const T* __restrict__ halo_hi,
+                                          const T* __restrict__ f,
+                                          T* __restrict__ y, int lz, int ny, int nx,
+                                          int64_t p, int z0, int z1,
+                                          typename Run<T>::C& acc, Epi epi) {
+  using C = typename Run<T>::C;
+  using IO = RunIO<T, kVec>;
   using Raw = typename IO::Raw;
-  // runs above in flight: three for the apply, two for the dot, whose
-  // accumulator takes registers (the faster of 2, 3 and 4 for each in
-  // tuning runs on the H100; 4 was slower for both)
-  constexpr int kRing = kDot ? 2 : 3;
+  constexpr int kV = Run<T>::kV;
+  constexpr int kRing = Run<T>::ring(kDot);
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   // bit i: point p + i lies in the plane (in), and has an x-1 (xm), x+1
   // (xp), y-1 (ym), y+1 (yp) neighbour
@@ -544,13 +568,13 @@ __device__ __forceinline__ void march_run(const bf16* __restrict__ u,
   }
   // plane q's run: u, a halo plane, or none (zeros)
   auto load = [&](int q) -> Raw {
-    const bf16* s = q < 0 ? (kHalo ? halo_lo + p : nullptr)
-                  : q >= lz ? (kHalo ? halo_hi + p : nullptr)
-                            : u + q * plane + p;
+    const T* s = q < 0 ? (kHalo ? halo_lo + p : nullptr)
+               : q >= lz ? (kHalo ? halo_hi + p : nullptr)
+                         : u + q * plane + p;
     return s ? IO::load(s, in) : IO::zero();
   };
   const int lane = static_cast<int>(threadIdx.x) & 31;
-  float b[kV], c[kV];
+  C b[kV], c[kV];
   IO::lift(load(z0 - 1), b);
   IO::lift(load(z0), c);
   // a ring of the runs above: slot s holds the plane step z0 + s (mod kRing)
@@ -565,41 +589,41 @@ __device__ __forceinline__ void march_run(const bf16* __restrict__ u,
     for (int s = 0; s < kRing; ++s) {
       const int z = zb + s;
       if (z >= z1) break;
-      float a[kV], vym[kV], vyp[kV];
+      C a[kV], vym[kV], vyp[kV];
       IO::lift(ring[s], a);
       ring[s] = z + kRing < z1 ? load(z + 1 + kRing) : IO::zero();
-      const bf16* uc = u + z * plane + p;
+      const T* uc = u + z * plane + p;
       IO::lift(IO::load(uc - nx, ym), vym);
       IO::lift(IO::load(uc + nx, yp), vyp);
       // the x neighbours of the run's ends: the neighbouring lanes' end
       // points, loaded where the warp ends
-      float xl = __shfl_up_sync(kFull, c[kV - 1], 1);
-      float xr = __shfl_down_sync(kFull, c[0], 1);
-      if (lane == 0 && (xm & 1u)) xl = __bfloat162float(__ldg(uc - 1));
-      if (lane == 31 && (xp >> (kV - 1) & 1u)) xr = __bfloat162float(__ldg(uc + kV));
-      float fv[kV];
+      C xl = __shfl_up_sync(kFull, c[kV - 1], 1);
+      C xr = __shfl_down_sync(kFull, c[0], 1);
+      if (lane == 0 && (xm & 1u)) xl = lift1(__ldg(uc - 1));
+      if (lane == 31 && (xp >> (kV - 1) & 1u)) xr = lift1(__ldg(uc + kV));
+      C fv[kV];
       if constexpr (Epi::kF) {
         IO::lift(IO::load(f + z * plane + p, in), fv);
       } else {
 #pragma unroll
-        for (int i = 0; i < kV; ++i) fv[i] = 0.0f;
+        for (int i = 0; i < kV; ++i) fv[i] = C(0);
       }
-      float v[kV];
+      C v[kV];
 #pragma unroll
       for (int i = 0; i < kV; ++i) {
         // on the vec16 route only a run's first and last points can miss an
         // x neighbour
         const bool has_l = (kVec && i > 0) || (xm >> i & 1u);
         const bool has_r = (kVec && i < kV - 1) || (xp >> i & 1u);
-        float t = __fmul_rn(6.0f, c[i]);
+        C t = mul_rn(C(6), c[i]);
         t -= b[i];
         t -= a[i];
         t -= vym[i];
         t -= vyp[i];
-        t -= has_l ? (i == 0 ? xl : c[i - 1]) : 0.0f;
-        t -= has_r ? (i == kV - 1 ? xr : c[i + 1]) : 0.0f;
+        t -= has_l ? (i == 0 ? xl : c[i - 1]) : C(0);
+        t -= has_r ? (i == kV - 1 ? xr : c[i + 1]) : C(0);
         v[i] = epi(c[i], t, fv[i]);
-        if (kDot) acc = __fmaf_rn(c[i], t, acc);
+        if (kDot) acc = fma_rn(c[i], t, acc);
       }
       IO::store(y + z * plane + p, v, in);
 #pragma unroll
@@ -611,15 +635,59 @@ __device__ __forceinline__ void march_run(const bf16* __restrict__ u,
   }
 }
 
-// Y = A U for k slabs (grid z = column j), the dot's per-block partial into
-// partial[j nblk + block], nblk = gridDim.x gridDim.y: one stencil7_dot_bf16
-// launch's layout for each column.
-template <bool kDot, bool kHalo, bool kVec, class Epi>
+// A ticket: an atomic add with acquire-release semantics at device scope
+// (what cuda::atomic_ref<unsigned, cuda::thread_scope_device>::fetch_add(1,
+// cuda::memory_order_acq_rel) emits).  It publishes the calling thread's
+// earlier writes with the ticket, and lets it see every write published
+// before the tickets drawn ahead of it.  (__threadfence before and after a
+// relaxed atomicAdd measured 3.5% slower at 128^3 in tuning runs on the H100,
+// the same at 512^3.)
+__device__ __forceinline__ unsigned take_ticket(unsigned* ticket) {
+  unsigned t;
+  asm volatile("atom.acq_rel.gpu.add.u32 %0, [%1], 1;" : "=r"(t) : "l"(ticket) : "memory");
+  return t;
+}
+
+// The dot's fold in the launch: each block has written its partial to part
+// (nblk of them, one column's) from thread 0, which then draws a ticket from
+// the column's counter.  The block that draws the last ticket (__syncthreads
+// passes thread 0's view on to it) reads all nblk partials from L2 and sums
+// them in a fixed order (thread t the partials t, t + kRunThreads, ..., then
+// block_sum), whichever block it is, writes *out and sets the counter back
+// to zero, so it is zero at the next launch on the stream (also a graph's
+// replay: the counter is the caller's, zeroed once, not per-call scratch).
+// No float atomics.  (Summing the partials in a second launch, as the bf16
+// dots do, measured 14% slower at 128^3 in tuning runs on the H100 (row 10:
+// 7%), and at 512^3 0.6% faster (row 10: 3% slower).)
+template <typename C>
+__device__ __forceinline__ void fold(const C* part, unsigned nblk, unsigned* ticket, C* out) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) last = take_ticket(ticket) == nblk - 1;
+  __syncthreads();
+  if (!last) return;
+  C a = C(0);
+#pragma unroll 8
+  for (unsigned i = threadIdx.x; i < nblk; i += kRunThreads) a += __ldcg(part + i);
+  const C total = block_sum(a);
+  if (threadIdx.x == 0) {
+    *out = total;
+    *ticket = 0u;
+  }
+}
+
+// Y = A U for k slabs (grid z = column j); with kDot the per-block partial
+// goes to partial[j nblk + block], nblk = gridDim.x gridDim.y: one single
+// launch's layout for each column, and the f32/f64 dots fold column j's
+// into out[j] (tickets[j] its counter).
+template <typename T, bool kDot, bool kHalo, bool kVec, class Epi>
 __global__ void __launch_bounds__(kRunThreads)
-stencil7_run_kernel(const bf16* __restrict__ u, const bf16* __restrict__ halo_lo,
-                    const bf16* __restrict__ halo_hi, const bf16* __restrict__ f,
-                    bf16* __restrict__ y, float* __restrict__ partial, int lz, int ny, int nx,
-                    int64_t nch, int zc, int ntz, Epi epi) {
+stencil7_run_kernel(const T* __restrict__ u, const T* __restrict__ halo_lo,
+                    const T* __restrict__ halo_hi, const T* __restrict__ f,
+                    T* __restrict__ y, typename Run<T>::C* __restrict__ partial,
+                    unsigned* __restrict__ tickets, typename Run<T>::C* __restrict__ out,
+                    int lz, int ny, int nx, int64_t nch, int zc, int ntz, Epi epi) {
+  using C = typename Run<T>::C;
+  constexpr int kPoints = kRunThreads * Run<T>::kV;
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   const int64_t j = blockIdx.z;
   u += j * plane * lz;
@@ -629,51 +697,61 @@ stencil7_run_kernel(const bf16* __restrict__ u, const bf16* __restrict__ halo_lo
     halo_lo += j * plane;
     halo_hi += j * plane;
   }
-  float acc = 0.0f;
+  C acc = C(0);
   for (int tz = blockIdx.y; tz < ntz; tz += gridDim.y) {
     const int z0 = tz * zc, z1 = min(z0 + zc, lz);
     for (int64_t ch = blockIdx.x; ch < nch; ch += gridDim.x) {
-      march_run<kDot, kHalo, kVec>(u, halo_lo, halo_hi, f, y, lz, ny, nx,
-                                   ch * kRunPoints + static_cast<int64_t>(threadIdx.x) * kV,
-                                   z0, z1, acc, epi);
+      march_run<T, kDot, kHalo, kVec>(u, halo_lo, halo_hi, f, y, lz, ny, nx,
+                                      ch * kPoints + static_cast<int64_t>(threadIdx.x) *
+                                                         Run<T>::kV,
+                                      z0, z1, acc, epi);
     }
   }
   if (kDot) {
-    const float s = block_sum(acc);
-    if (threadIdx.x == 0) {
-      partial[j * gridDim.x * gridDim.y + blockIdx.x +
-              static_cast<int64_t>(gridDim.x) * blockIdx.y] = s;
-    }
+    const C s = block_sum(acc);
+    const unsigned nblk = gridDim.x * gridDim.y;
+    C* part = partial + j * nblk;
+    if (threadIdx.x == 0) part[blockIdx.x + gridDim.x * blockIdx.y] = s;
+    if constexpr (!std::is_same<T, bf16>::value) fold(part, nblk, tickets + j, out + j);
   }
 }
 
-// k bf16 slabs: Y = A U and, with kDot, out[j] = <u_j, A u_j> (fp32 partial
-// and out); or, with an epilogue and k = 1, the V-cycle's passes (f null
-// unless Epi::kF).  Null lo and hi select zero halos.  1 <= k <= 65535.
-template <bool kDot, class Epi = RunAu>
+// k slabs: Y = A U and, with kDot, out[j] = <u_j, A u_j> (partial and out in
+// C; tickets, k counters at zero, for the f32/f64 fold, null for bf16); or,
+// with an epilogue and k = 1, the bf16 V-cycle's passes (f null unless
+// Epi::kF).  Null lo and hi select zero halos.  1 <= k <= 65535.
+template <typename T, bool kDot, class Epi = RunAu>
 int launch_run(const void* u, const void* lo, const void* hi, void* y, void* partial,
-               void* out, int k, int lz, int ny, int nx, void* stream, const void* f = nullptr,
-               Epi epi = Epi{}) {
-  using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, float*,
-                          int, int, int, int64_t, int, int, Epi);
-  const RunTiles t = make_run_tiles(lz, ny, nx);
-  const bool vec = run_vec16(nx, u, lo, hi, y, f);
+               void* tickets, void* out, int k, int lz, int ny, int nx, void* stream,
+               const void* f = nullptr, Epi epi = Epi{}) {
+  using C = typename Run<T>::C;
+  using Kernel = void (*)(const T*, const T*, const T*, const T*, T*, C*, unsigned*, C*, int,
+                          int, int, int64_t, int, int, Epi);
+  const RunTiles t = make_run_tiles<T>(lz, ny, nx);
+  const bool vec = run_vec16<T>(nx, u, lo, hi, y, f);
   const Kernel kernel = lo != nullptr && hi != nullptr
-                            ? (vec ? stencil7_run_kernel<kDot, true, true, Epi>
-                                   : stencil7_run_kernel<kDot, true, false, Epi>)
-                            : (vec ? stencil7_run_kernel<kDot, false, true, Epi>
-                                   : stencil7_run_kernel<kDot, false, false, Epi>);
+                            ? (vec ? stencil7_run_kernel<T, kDot, true, true, Epi>
+                                   : stencil7_run_kernel<T, kDot, true, false, Epi>)
+                            : (vec ? stencil7_run_kernel<T, kDot, false, true, Epi>
+                                   : stencil7_run_kernel<T, kDot, false, false, Epi>);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<dim3(t.grid.x, t.grid.y, static_cast<unsigned>(k)), kRunThreads, 0, s>>>(
-      static_cast<const bf16*>(u), static_cast<const bf16*>(lo), static_cast<const bf16*>(hi),
-      static_cast<const bf16*>(f), static_cast<bf16*>(y), static_cast<float*>(partial), lz, ny,
-      nx, t.nch, t.zc, t.ntz, epi);
+      static_cast<const T*>(u), static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<const T*>(f), static_cast<T*>(y), static_cast<C*>(partial),
+      static_cast<unsigned*>(tickets), static_cast<C*>(out), lz, ny, nx, t.nch, t.zc, t.ntz,
+      epi);
   const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || !kDot) return err;
+  if (err != 0 || !kDot || !std::is_same<T, bf16>::value) return err;
   const int64_t nblk = static_cast<int64_t>(t.grid.x) * t.grid.y;
   sum_partials_kernel<float><<<k, kSumThreads, 0, s>>>(static_cast<const float*>(partial), nblk,
                                                        static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+long long run_blocks(int lz, int ny, int nx) {
+  const RunTiles t = make_run_tiles<T>(lz, ny, nx);
+  return static_cast<long long>(t.grid.x) * t.grid.y;
 }
 
 }  // namespace
@@ -685,11 +763,27 @@ const char* stencil7_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Length of the partial-sum scratch buffer stencil7_dot_* needs for this shape
-// (stencil7_dot_many_* needs k times as much).
-long long stencil7_dot_blocks(int lz, int ny, int nx) {
-  const Tiles t = make_tiles(lz, ny, nx);
-  return static_cast<long long>(t.grid.x) * t.grid.y * t.grid.z;
+// Length of the partial-sum scratch buffer stencil7_dot_<dtype> needs for
+// this shape (stencil7_dot_many_<dtype> needs k times as much).
+long long stencil7_dot_blocks_f32(int lz, int ny, int nx) { return run_blocks<float>(lz, ny, nx); }
+long long stencil7_dot_blocks_f64(int lz, int ny, int nx) { return run_blocks<double>(lz, ny, nx); }
+long long stencil7_dot_blocks_bf16(int lz, int ny, int nx) { return run_blocks<bf16>(lz, ny, nx); }
+
+// 1 when a run-kernel launch on these pointers takes the vec16 route, 0 for
+// elem (f: the bf16 V-cycle passes' right-hand side, null for the others)
+int stencil7_run_route_f32(int nx, const void* u, const void* lo, const void* hi,
+                           const void* y) {
+  return run_vec16<float>(nx, u, lo, hi, y, nullptr) ? 1 : 0;
+}
+
+int stencil7_run_route_f64(int nx, const void* u, const void* lo, const void* hi,
+                           const void* y) {
+  return run_vec16<double>(nx, u, lo, hi, y, nullptr) ? 1 : 0;
+}
+
+int stencil7_bf16_route(int nx, const void* u, const void* lo, const void* hi, const void* y,
+                        const void* f) {
+  return run_vec16<bf16>(nx, u, lo, hi, y, f) ? 1 : 0;
 }
 
 int stencil7_apply_f32(const void* u, const void* lo, const void* hi, void* y,
@@ -743,98 +837,93 @@ int stencil7_smooth0_pair_f64(const void* f, void* out, int lz, int ny, int nx,
                               Smooth0Pair<double>{sum, prod});
 }
 
-int stencil7_dot_f32(const void* u, const void* lo, const void* hi, void* y,
-                     void* partial, void* out, int lz, int ny, int nx, void* stream) {
-  return launch_dot<float>(u, lo, hi, y, partial, out, lz, ny, nx, stream);
+// y = A u and *out = <u, A u> in one launch; partial holds
+// stencil7_dot_blocks_<dtype>(lz, ny, nx), tickets one unsigned counter that
+// is zero (and is zero again when the launch ends)
+int stencil7_dot_f32(const void* u, const void* lo, const void* hi, void* y, void* partial,
+                     void* tickets, void* out, int lz, int ny, int nx, void* stream) {
+  return launch_run<float, true>(u, lo, hi, y, partial, tickets, out, 1, lz, ny, nx, stream);
 }
 
-int stencil7_dot_f64(const void* u, const void* lo, const void* hi, void* y,
-                     void* partial, void* out, int lz, int ny, int nx, void* stream) {
-  return launch_dot<double>(u, lo, hi, y, partial, out, lz, ny, nx, stream);
+int stencil7_dot_f64(const void* u, const void* lo, const void* hi, void* y, void* partial,
+                     void* tickets, void* out, int lz, int ny, int nx, void* stream) {
+  return launch_run<double, true>(u, lo, hi, y, partial, tickets, out, 1, lz, ny, nx, stream);
 }
 
 // k slabs U (k, lz, ny, nx) -> Y = A U; lo, hi are (k, ny, nx) blocks or both null
 int stencil7_apply_many_f32(const void* u, const void* lo, const void* hi, void* y,
                             int k, int lz, int ny, int nx, void* stream) {
-  return launch_many<float, false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx, stream);
+  return launch_apply_many<float>(u, lo, hi, y, k, lz, ny, nx, stream);
 }
 
 int stencil7_apply_many_f64(const void* u, const void* lo, const void* hi, void* y,
                             int k, int lz, int ny, int nx, void* stream) {
-  return launch_many<double, false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx, stream);
+  return launch_apply_many<double>(u, lo, hi, y, k, lz, ny, nx, stream);
 }
 
-// ... and out[j] = <u_j, A u_j>; partial holds k * stencil7_dot_blocks(lz, ny, nx)
+// ... and out[j] = <u_j, A u_j> in the same launch; partial holds
+// k * stencil7_dot_blocks_<dtype>(lz, ny, nx), tickets k counters at zero
 int stencil7_dot_many_f32(const void* u, const void* lo, const void* hi, void* y,
-                          void* partial, void* out, int k, int lz, int ny, int nx,
-                          void* stream) {
-  return launch_many<float, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
+                          void* partial, void* tickets, void* out, int k, int lz, int ny,
+                          int nx, void* stream) {
+  return launch_run<float, true>(u, lo, hi, y, partial, tickets, out, k, lz, ny, nx, stream);
 }
 
 int stencil7_dot_many_f64(const void* u, const void* lo, const void* hi, void* y,
-                          void* partial, void* out, int k, int lz, int ny, int nx,
-                          void* stream) {
-  return launch_many<double, true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
+                          void* partial, void* tickets, void* out, int k, int lz, int ny,
+                          int nx, void* stream) {
+  return launch_run<double, true>(u, lo, hi, y, partial, tickets, out, k, lz, ny, nx, stream);
 }
 
 // The bfloat16-storage entry points: bf16 u, halos and Au, fp32 arithmetic,
-// fp32 partial and out.  The single-RHS pair is the k = 1 launch of the
-// batched kernel; stencil7_dot_blocks_bf16 sizes their partial scratch.
-long long stencil7_dot_blocks_bf16(int lz, int ny, int nx) {
-  const RunTiles t = make_run_tiles(lz, ny, nx);
-  return static_cast<long long>(t.grid.x) * t.grid.y;
-}
-
-// 1 when a bf16 launch on these pointers takes the vec16 route, 0 for elem
-// (f: the V-cycle passes' right-hand side, null for the others)
-int stencil7_bf16_route(int nx, const void* u, const void* lo, const void* hi, const void* y,
-                        const void* f) {
-  return run_vec16(nx, u, lo, hi, y, f) ? 1 : 0;
-}
-
+// fp32 partial and out (summed by a second launch).  The single-RHS pair is
+// the k = 1 launch of the batched kernel.
 int stencil7_apply_bf16(const void* u, const void* lo, const void* hi, void* y,
                         int lz, int ny, int nx, void* stream) {
-  return launch_run<false>(u, lo, hi, y, nullptr, nullptr, 1, lz, ny, nx, stream);
+  return launch_run<bf16, false>(u, lo, hi, y, nullptr, nullptr, nullptr, 1, lz, ny, nx,
+                                 stream);
 }
 
 int stencil7_dot_bf16(const void* u, const void* lo, const void* hi, void* y,
                       void* partial, void* out, int lz, int ny, int nx, void* stream) {
-  return launch_run<true>(u, lo, hi, y, partial, out, 1, lz, ny, nx, stream);
+  return launch_run<bf16, true>(u, lo, hi, y, partial, nullptr, out, 1, lz, ny, nx, stream);
 }
 
 int stencil7_apply_many_bf16(const void* u, const void* lo, const void* hi, void* y,
                              int k, int lz, int ny, int nx, void* stream) {
-  return launch_run<false>(u, lo, hi, y, nullptr, nullptr, k, lz, ny, nx, stream);
+  return launch_run<bf16, false>(u, lo, hi, y, nullptr, nullptr, nullptr, k, lz, ny, nx,
+                                 stream);
 }
 
 // partial holds k * stencil7_dot_blocks_bf16(lz, ny, nx)
 int stencil7_dot_many_bf16(const void* u, const void* lo, const void* hi, void* y,
                            void* partial, void* out, int k, int lz, int ny, int nx,
                            void* stream) {
-  return launch_run<true>(u, lo, hi, y, partial, out, k, lz, ny, nx, stream);
+  return launch_run<bf16, true>(u, lo, hi, y, partial, nullptr, out, k, lz, ny, nx, stream);
 }
 
 // The V-cycle's bf16 passes: bf16 u, f, halos (or both null) and out, fp32
 // arithmetic rounded once at the store.  out = u + w (f - A u):
 int stencil7_smooth_bf16(const void* u, const void* f, const void* lo, const void* hi,
                          void* out, int lz, int ny, int nx, double w, void* stream) {
-  return launch_run<false>(u, lo, hi, out, nullptr, nullptr, 1, lz, ny, nx, stream, f,
-                           RunSmooth{static_cast<float>(w)});
+  return launch_run<bf16, false>(u, lo, hi, out, nullptr, nullptr, nullptr, 1, lz, ny, nx,
+                                 stream, f, RunSmooth{static_cast<float>(w)});
 }
 
 // out = f - A u
 int stencil7_residual_bf16(const void* u, const void* f, const void* lo, const void* hi,
                            void* out, int lz, int ny, int nx, void* stream) {
-  return launch_run<false>(u, lo, hi, out, nullptr, nullptr, 1, lz, ny, nx, stream, f,
-                           RunResidual{});
+  return launch_run<bf16, false>(u, lo, hi, out, nullptr, nullptr, nullptr, 1, lz, ny, nx,
+                                 stream, f, RunResidual{});
 }
 
 // out = sum f - prod (A f) with zero halo planes
 int stencil7_smooth0_pair_bf16(const void* f, void* out, int lz, int ny, int nx, double sum,
                                double prod, void* stream) {
-  return launch_run<false>(f, nullptr, nullptr, out, nullptr, nullptr, 1, lz, ny, nx, stream,
-                           nullptr,
-                           RunSmooth0Pair{static_cast<float>(sum), static_cast<float>(prod)});
+  return launch_run<bf16, false>(f, nullptr, nullptr, out, nullptr, nullptr, nullptr, 1, lz,
+                                 ny, nx, stream, nullptr,
+                                 RunSmooth0Pair{static_cast<float>(sum),
+                                                static_cast<float>(prod)});
 }
 
 }  // extern "C"

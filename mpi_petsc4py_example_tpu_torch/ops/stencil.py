@@ -44,11 +44,14 @@ are single-slab passes with zero Dirichlet ghosts on every side. The two
 ``(k, ny, nx)`` (or ``None`` for both) in one launch: the batched solve's
 apply and its fused per-column ``<u_j, A u_j>``.
 The first five kernels and the two ``_many`` kernels are in
-``csrc/stencil7.cu`` (one kernel with an epilogue per function; the four
-bfloat16 instantiations are one kernel of their own, whose single-RHS pair
-is its k = 1 launch, on a 16-byte or an element route, :func:`bf16_route`;
-the V-cycle's three bfloat16 passes are the same kernel with an epilogue),
-the two that need two-deep z neighbourhoods in ``csrc/mg3d.cu``.
+``csrc/stencil7.cu``: the f32/f64 applies and V-cycle passes one march with
+an epilogue per function; the dots of every dtype and the bfloat16 applies
+one run kernel of 16-byte runs, whose single-RHS launch is its k = 1 launch,
+on a 16-byte or an element route (:func:`dot_route`, :func:`bf16_route`),
+and the V-cycle's three bfloat16 passes that kernel with an epilogue. The
+f32/f64 dots sum their per-block partials in the same launch (a ticket
+counter a column, :func:`_tickets`), the bfloat16 dots in a second one. The
+two that need two-deep z neighbourhoods are in ``csrc/mg3d.cu``.
 
 Dispatch is by the device of ``u`` alone: a CPU tensor goes through the plain
 PyTorch version beside each kernel, a CUDA tensor launches the kernel or
@@ -100,7 +103,16 @@ _SIGNATURES = {
         "mg3d_residual_restrict": [_VP] * 3 + [_CI] * 3 + [_CD, _VP],
     },
 }
+# the f32/f64 dots fold their sum in the launch: one more pointer than the
+# bfloat16 ones, the ticket counters, after the partial-sum scratch
+_FOLD_DTYPES = (torch.float32, torch.float64)
+_FOLD_SIGNATURES = {"stencil7_dot": [_VP] * 7 + [_CI] * 3 + [_VP],
+                    "stencil7_dot_many": [_VP] * 7 + [_CI] * 4 + [_VP]}
 _libs: dict[str, ctypes.CDLL] = {}
+# the fold's ticket counters (one a column, up to the 65535 columns of a
+# launch), per device; see _tickets
+_TICKETS: dict[int, torch.Tensor] = {}
+_CAPTURED_TICKETS: list[torch.Tensor] = []
 
 
 def _kernels(name: str = "stencil7") -> ctypes.CDLL:
@@ -113,15 +125,21 @@ def _kernels(name: str = "stencil7") -> ctypes.CDLL:
                 if dtype == torch.bfloat16 and fn_name not in _BF16_KERNELS:
                     continue
                 fn = getattr(lib, f"{fn_name}_{sfx}")
-                fn.argtypes = argtypes
+                fold = fn_name in _FOLD_SIGNATURES and dtype in _FOLD_DTYPES
+                fn.argtypes = _FOLD_SIGNATURES[fn_name] if fold else argtypes
                 fn.restype = _CI
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [_CI]
         err.restype = ctypes.c_char_p
         if name == "stencil7":
-            for fn in (lib.stencil7_dot_blocks, lib.stencil7_dot_blocks_bf16):
+            for sfx in _SUFFIX.values():
+                fn = getattr(lib, f"stencil7_dot_blocks_{sfx}")
                 fn.argtypes = [_CI, _CI, _CI]
                 fn.restype = ctypes.c_longlong
+            for dtype in _FOLD_DTYPES:
+                fn = getattr(lib, f"stencil7_run_route_{_SUFFIX[dtype]}")
+                fn.argtypes = [_CI] + [_VP] * 4
+                fn.restype = _CI
             lib.stencil7_bf16_route.argtypes = [_CI] + [_VP] * 5
             lib.stencil7_bf16_route.restype = _CI
         _libs[name] = lib
@@ -202,12 +220,60 @@ def _count(wrapper, dtype):
 
 def _dot_partials(lib, dtype, k, lz, ny, nx) -> int:
     """Length of the partial-sum scratch of a dot launch on ``k`` slabs of
-    ``(lz, ny, nx)``: ``k`` times one slab's blocks, whose tiling is the
-    bfloat16 kernel's own under bfloat16 (``lib`` is the loaded
-    ``stencil7`` library)."""
-    blocks = (lib.stencil7_dot_blocks_bf16 if dtype == torch.bfloat16
-              else lib.stencil7_dot_blocks)
+    ``(lz, ny, nx)``: ``k`` times one slab's blocks, whose tiling depends on
+    the dtype (``lib`` is the loaded ``stencil7`` library)."""
+    blocks = getattr(lib, f"stencil7_dot_blocks_{_SUFFIX[dtype]}")
     return k * blocks(lz, ny, nx)
+
+
+def _tickets(u) -> torch.Tensor:
+    """The ticket counters of the f32/f64 dots' fold on ``u``'s device:
+    65535 zeros, made once. Each launch's last block sets its columns'
+    counters back to 0, so they are zero at every launch that follows it in
+    stream order, also at a CUDA graph's replay (a captured launch keeps
+    this buffer's address). Launches on one device share them, so dots on
+    two streams must not run at once (the port launches on one stream).
+    Made under a capture, where the zero fill runs only at replays, the
+    buffer stays the graph's own and the cache is left for eager work."""
+    index = u.device.index
+    t = _TICKETS.get(index)
+    if t is None:
+        with torch.cuda.device(u.device):
+            t = torch.zeros(65535, dtype=torch.int32, device=u.device)
+            if torch.cuda.is_current_stream_capturing():
+                _CAPTURED_TICKETS.append(t)
+            else:
+                torch.cuda.current_stream(u.device).synchronize()
+                _TICKETS[index] = t
+    return t
+
+
+def _launch_dot(fn_name, u, halo_lo, halo_hi, y, out, *dims):
+    """One dot launch, ``dims`` being ``(lz, ny, nx)`` or ``(k, lz, ny,
+    nx)``: the partial-sum scratch in ``out``'s dtype, and under f32/f64 the
+    ticket counters of the fold, which sums the partials in the same launch
+    (bfloat16 sums them in a second one, inside the library)."""
+    lib = _kernels()
+    k = dims[0] if len(dims) == 4 else 1
+    partial = torch.empty(_dot_partials(lib, u.dtype, k, *dims[-3:]),
+                          dtype=out.dtype, device=u.device)
+    tickets = ([_tickets(u).data_ptr()] if u.dtype in _FOLD_DTYPES else [])
+    _launch("stencil7", fn_name, u, f"{fn_name} launch", u.data_ptr(),
+            _ptr(halo_lo), _ptr(halo_hi), y.data_ptr(), partial.data_ptr(),
+            *tickets, out.data_ptr(), *dims)
+
+
+def dot_route(u, halo_lo, halo_hi, out) -> str:
+    """The route a dot launch of ``csrc/stencil7.cu`` on these CUDA tensors
+    takes: ``"vec16"``, 16-byte runs, when ``nx`` is a multiple of the
+    points in 16 bytes (4 f32, 2 f64, 8 bf16) and every pointer is 16-byte
+    aligned; else ``"elem"``."""
+    if u.dtype == torch.bfloat16:
+        return bf16_route(u, halo_lo, halo_hi, out)
+    route = getattr(_kernels(), f"stencil7_run_route_{_SUFFIX[u.dtype]}")
+    vec = route(u.shape[-1], u.data_ptr(), _ptr(halo_lo), _ptr(halo_hi),
+                out.data_ptr())
+    return "vec16" if vec else "elem"
 
 
 def bf16_route(u, halo_lo, halo_hi, out, f=None) -> str:
@@ -388,15 +454,10 @@ def stencil3d_dot(u, halo_lo, halo_hi, out=None):
         y, d = stencil3d_dot_plain(u, halo_lo, halo_hi)
         return (y if out is None else out.copy_(y)), d
     y = _out(u, out)
-    # per-block partials, summed in a fixed order by the library's second
-    # kernel: no float atomics, so the sum is the same on every run
-    acc = reduce_dtype(u.dtype)
-    partial = torch.empty(_dot_partials(_kernels(), u.dtype, 1, lz, ny, nx),
-                          dtype=acc, device=u.device)
-    total = torch.empty((), dtype=acc, device=u.device)
-    _launch("stencil7", "stencil7_dot", u, "stencil7_dot launch",
-            u.data_ptr(), halo_lo.data_ptr(), halo_hi.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), total.data_ptr(), lz, ny, nx)
+    # per-block partials, summed in a fixed order: no float atomics, so the
+    # sum is the same on every run
+    total = torch.empty((), dtype=reduce_dtype(u.dtype), device=u.device)
+    _launch_dot("stencil7_dot", u, halo_lo, halo_hi, y, total, lz, ny, nx)
     _count(stencil3d_dot, u.dtype)
     return y, total
 
@@ -523,13 +584,9 @@ def stencil3d_dot_many(U, halo_lo, halo_hi, out=None):
         Y, d = stencil3d_dot_many_plain(U, halo_lo, halo_hi)
         return (Y if out is None else out.copy_(Y)), d
     Y = _out(U, out)
-    acc = reduce_dtype(U.dtype)
-    partial = torch.empty(_dot_partials(_kernels(), U.dtype, k, lz, ny, nx),
-                          dtype=acc, device=U.device)
-    dots = torch.empty(k, dtype=acc, device=U.device)
-    _launch("stencil7", "stencil7_dot_many", U, "stencil7_dot_many launch",
-            U.data_ptr(), _ptr(halo_lo), _ptr(halo_hi), Y.data_ptr(),
-            partial.data_ptr(), dots.data_ptr(), k, lz, ny, nx)
+    dots = torch.empty(k, dtype=reduce_dtype(U.dtype), device=U.device)
+    _launch_dot("stencil7_dot_many", U, halo_lo, halo_hi, Y, dots, k, lz, ny,
+                nx)
     _count(stencil3d_dot_many, U.dtype)
     return Y, dots
 

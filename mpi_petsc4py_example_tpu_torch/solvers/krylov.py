@@ -896,8 +896,15 @@ def bcgsl_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, ell=2,
         _mon(monitor, it, rn)
     x = x0 + M(y)
     rn_true = pnorm(b - A(x)).item()
-    return (x, it, rn_true, _reason(rn, tol_h, atol_h, brk, dmax_h),
-            syncs + 1)
+    reason = _reason(rn, tol_h, atol_h, brk, dmax_h)
+    if reason > 0:
+        # judged on the true residual: under a (near-)exact PC the first
+        # BiCG step leaves R[0] at rounding noise and the recurrence meets
+        # the tolerance on a wrong answer (ROADMAP.md Queue C, port-side
+        # choices); the JAX kernel judges the recurrence
+        reason = (CR.DIVERGED_BREAKDOWN if rn_true > tol_h
+                  else _reason(rn_true, tol_h, atol_h, False, dmax_h))
+    return x, it, rn_true, reason, syncs + 1
 
 
 def chebyshev_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,

@@ -11,16 +11,31 @@ argv parsing and typed getters, for the flags ``KSP.set_from_options`` reads
 ``-pc_setup_device``, ...: ``KSP.set_from_options`` lists them all) and the
 flags ``RefinedKSP.set_from_options`` reads (``-ksp_inner_precision``,
 ``-ksp_refine_max``, ``-ksp_refine_inner_rtol``, ``-ksp_megasolve``). Each
-process has one database, seeded with :func:`init`.
+process has one database, built at its first use from the ``TPU_SOLVE_<KEY>``
+environment variables and seeded with :func:`init`.
 """
 
 from __future__ import annotations
 
+import os
+
+_ENV_PREFIX = "TPU_SOLVE_"
+
+
 class Options:
-    """A PETSc-style string->string options database."""
+    """A PETSc-style string->string options database, seeded from the
+    environment as the JAX package's is (``utils/options.py`` ``load_env``):
+    ``TPU_SOLVE_KSP_TYPE=bcgs`` sets ``ksp_type``, for every variable but
+    ``TPU_SOLVE_BACKEND``; argv parsed later overrides."""
 
     def __init__(self):
         self._db: dict[str, str] = {}
+        self.load_env()
+
+    def load_env(self):
+        for k, v in os.environ.items():
+            if k.startswith(_ENV_PREFIX) and k != _ENV_PREFIX + "BACKEND":
+                self._db[k[len(_ENV_PREFIX):].lower()] = v
 
     def parse_argv(self, argv):
         """Parse ``-key value`` / ``-key`` (boolean) pairs, PETSc style.
@@ -88,14 +103,18 @@ class Options:
         return f"Options({self._db})"
 
 
-_global_options = Options()
+_global_options: Options | None = None
 
 
 def global_options() -> Options:
-    """The process's options database."""
+    """The process's options database, built at the first call (so it
+    reads the environment as it is then, not at import)."""
+    global _global_options
+    if _global_options is None:
+        _global_options = Options()
     return _global_options
 
 
 def init(argv=None):
     """Seed the options database from argv (``petsc4py.init`` equivalent)."""
-    _global_options.parse_argv(argv)
+    global_options().parse_argv(argv)

@@ -11,8 +11,10 @@ package's: ``A u`` bit for bit against ``_stencil7_jnp`` on each column and
 against the Pallas kernels in interpret mode where the shape tiles (nx =
 128); the fp32 dots within 1e-6 of the fp64 value of the same sum (as
 ``tests/test_torch_mixed_precision.py`` holds them). The dot's scratch is
-sized from the bfloat16 kernel's own block count, checked with a stand-in
-library. Inputs come from ``np.random.default_rng``, rounded to bfloat16 once.
+sized from each dtype's own block count, its route asked of the library,
+and the f32/f64 dots pass the fold's ticket counters, checked with a
+stand-in library. Inputs come from ``np.random.default_rng``, rounded to
+bfloat16 once.
 """
 
 import numpy as np
@@ -113,16 +115,20 @@ def test_bf16_many_match_pallas_interpret_at_tile_edges(kind, shape):
 
 
 class _StandInLibrary:
-    """The two block counts of ``csrc/stencil7.cu``, recording each call,
-    and its route query."""
+    """The block counts of ``csrc/stencil7.cu``, one a dtype, recording
+    each call, and its route query."""
 
     def __init__(self, route=1):
         self.calls = []
         self.route = route
 
-    def stencil7_dot_blocks(self, lz, ny, nx):
-        self.calls.append(("stencil7_dot_blocks", (lz, ny, nx)))
+    def stencil7_dot_blocks_f32(self, lz, ny, nx):
+        self.calls.append(("stencil7_dot_blocks_f32", (lz, ny, nx)))
         return 7
+
+    def stencil7_dot_blocks_f64(self, lz, ny, nx):
+        self.calls.append(("stencil7_dot_blocks_f64", (lz, ny, nx)))
+        return 5
 
     def stencil7_dot_blocks_bf16(self, lz, ny, nx):
         self.calls.append(("stencil7_dot_blocks_bf16", (lz, ny, nx)))
@@ -132,12 +138,20 @@ class _StandInLibrary:
         self.calls.append(("stencil7_bf16_route", (nx,) + ptrs))
         return self.route
 
+    def stencil7_run_route_f32(self, nx, *ptrs):
+        self.calls.append(("stencil7_run_route_f32", (nx,) + ptrs))
+        return self.route
+
+    def stencil7_run_route_f64(self, nx, *ptrs):
+        self.calls.append(("stencil7_run_route_f64", (nx,) + ptrs))
+        return self.route
+
 
 @pytest.mark.parametrize("k", [1, 8])
 @pytest.mark.parametrize("dtype,entry,blocks", [
     (torch.bfloat16, "stencil7_dot_blocks_bf16", 3),
-    (torch.float32, "stencil7_dot_blocks", 7),
-    (torch.float64, "stencil7_dot_blocks", 7)], ids=["bf16", "f32", "f64"])
+    (torch.float32, "stencil7_dot_blocks_f32", 7),
+    (torch.float64, "stencil7_dot_blocks_f64", 5)], ids=["bf16", "f32", "f64"])
 def test_dot_scratch_takes_its_dtypes_block_count(monkeypatch, dtype, entry,
                                                   blocks, k):
     lib = _StandInLibrary()
@@ -163,3 +177,53 @@ def test_bf16_route_asks_the_library(monkeypatch, route, name):
     assert lib.calls == [("stencil7_bf16_route",
                           (16, U.data_ptr(), None, None, Y.data_ptr(),
                            F.data_ptr()))]
+
+
+@pytest.mark.parametrize("dtype,entry", [
+    (torch.float32, "stencil7_run_route_f32"),
+    (torch.float64, "stencil7_run_route_f64"),
+    (torch.bfloat16, "stencil7_bf16_route")], ids=["f32", "f64", "bf16"])
+def test_dot_route_asks_the_library(monkeypatch, dtype, entry):
+    lib = _StandInLibrary(0)
+    monkeypatch.setattr(st, "_libs", {"stencil7": lib})
+    U = torch.zeros(2, 3, 4, 12, dtype=dtype)
+    lo, hi = torch.zeros(2, 4, 12, dtype=dtype), torch.zeros(2, 4, 12,
+                                                             dtype=dtype)
+    Y = torch.empty_like(U)
+    assert st.dot_route(U, lo, hi, Y) == "elem"
+    ptrs = (U.data_ptr(), lo.data_ptr(), hi.data_ptr(), Y.data_ptr())
+    assert lib.calls == [(entry, (12,) + ptrs
+                          + ((None,) if dtype == torch.bfloat16 else ()))]
+
+
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16], ids=["f32", "f64", "bf16"])
+def test_dot_launch_passes_the_fold_counters(monkeypatch, dtype, k):
+    """A dot launch's C arguments: the partial-sum scratch sized from the
+    dtype's block count, in the reduce dtype; under f32/f64 the fold's ticket
+    counters right after it (one launch sums the partials), under bf16
+    none (a second launch in the library sums them)."""
+    lib = _StandInLibrary()
+    monkeypatch.setattr(st, "_libs", {"stencil7": lib})
+    tickets = torch.zeros(65535, dtype=torch.int32)
+    monkeypatch.setattr(st, "_tickets", lambda u: tickets)
+    seen = []
+    monkeypatch.setattr(st, "_launch", lambda *a: seen.append(a))
+    shape = (4, 9, 256) if k is None else (k, 4, 9, 256)
+    U = torch.zeros(shape, dtype=dtype)
+    Y = torch.empty_like(U)
+    out = torch.empty(() if k is None else (k,),
+                      dtype=torch.float32 if dtype == torch.bfloat16 else dtype)
+    dims = shape if k else (4, 9, 256)
+    name = "stencil7_dot" if k is None else "stencil7_dot_many"
+    st._launch_dot(name, U, None, None, Y, out, *dims)
+    ((lib_name, fn_name, u, what, *args),) = seen
+    assert (lib_name, fn_name, u is U, what) == ("stencil7", name, True,
+                                                 f"{name} launch")
+    fold = [tickets.data_ptr()] if dtype != torch.bfloat16 else []
+    assert args[:4] == [U.data_ptr(), None, None, Y.data_ptr()]
+    assert args[5:] == fold + [out.data_ptr(), *dims]
+    entry = f"stencil7_dot_blocks_{st._SUFFIX[dtype]}"
+    assert lib.calls == [(entry, (4, 9, 256))]
+

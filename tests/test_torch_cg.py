@@ -223,6 +223,30 @@ def test_set_from_options_subset():
     assert (res.iterations, res.reason) == (7, CR.CONVERGED_ITS)
 
 
+def test_env_seeding(monkeypatch):
+    """``TPU_SOLVE_<KEY>`` variables seed the options database as in the
+    JAX package (``tests/test_aux.py`` ``test_env_seeding``): the key
+    lower-cased, every variable but ``TPU_SOLVE_BACKEND``, argv overriding;
+    the process's database reads them at its first use, so
+    ``KSP.set_from_options`` picks ``bcgs``."""
+    from mpi_petsc4py_example_tpu.utils.options import Options as JaxOptions
+    from mpi_petsc4py_example_tpu_torch.utils import options
+    monkeypatch.setenv("TPU_SOLVE_KSP_TYPE", "bcgs")
+    monkeypatch.setenv("TPU_SOLVE_KSP_RTOL", "1e-7")
+    monkeypatch.setenv("TPU_SOLVE_BACKEND", "cpu")
+    o, jo = options.Options(), JaxOptions()
+    for key in ("ksp_type", "ksp_rtol", "backend"):
+        assert o.get_string(key) == jo.get_string(key)
+    assert (o.get_string("ksp_type"), o.get_real("ksp_rtol")) == ("bcgs", 1e-7)
+    assert not o.has("backend")
+    monkeypatch.setattr(options, "_global_options", None)
+    ksp = pt.KSP().create(pt.DeviceComm(device="cpu")).set_from_options()
+    assert (ksp.get_type(), ksp.rtol) == ("bcgs", 1e-7)
+    pt.init(["prog", "-ksp_type", "cg"])
+    assert pt.KSP().create(pt.DeviceComm(device="cpu")) \
+        .set_from_options().get_type() == "cg"
+
+
 # a port-side copy of the keys of the JAX package's KSP_KERNELS
 # (solvers/krylov.py:1999-2025)
 JAX_KSP_TYPES = ("cg", "pipecg", "sstep", "bcgs", "gmres", "fgmres", "cgs",

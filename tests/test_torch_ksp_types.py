@@ -79,6 +79,8 @@ OPERATORS = {
     "indefinite": lambda: (poisson2d_csr(12) - 3.0 * sp.eye(144)).tocsr(),
     "indefinite_mild": lambda: (poisson2d_csr(12)
                                 - 0.5 * sp.eye(144)).tocsr(),
+    "p2d10": lambda: poisson2d_csr(10),
+    "cd10": lambda: convdiff2d(10, beta=0.3),
 }
 
 
@@ -449,6 +451,30 @@ def test_bcgsl_ell_must_be_positive():
     x, b = m.get_vecs()
     with pytest.raises(ValueError, match="bcgsl_ell"):
         ksp.solve(b, x)
+
+
+@pytest.mark.parametrize("ndev", [1, 2])
+@pytest.mark.parametrize("pc_type", ["lu", "asm"])
+@pytest.mark.parametrize("name", ["p2d10", "cd10"])
+def test_bcgsl_reason_judged_on_the_true_residual(name, pc_type, ndev):
+    """Under a (near-)exact PC bcgsl's first BiCG step can leave its
+    recurrence residual at rounding noise on a wrong iterate, and the loop
+    stops there (ROADMAP.md Queue C, port-side choices): a positive reason
+    implies that the true residual meets ``max(rtol ||b||, atol)``. On
+    ``convdiff2d`` with PC lu the JAX package breaks down, and so does the
+    port."""
+    A = OPERATORS[name]()
+    b = A @ np.linspace(1.0, 2.0, A.shape[0])
+    _, M, m = _mat_pair(name, ndev, b)
+    res, x, ksp = _solve(m, b, "bcgsl", pc_type, {}, 5000)
+    assert res.host_syncs == expected_syncs(ksp, res)
+    true_res = np.linalg.norm(b - A @ x)
+    assert res.residual_norm == pytest.approx(true_res, rel=1e-6)
+    if res.reason > 0:
+        assert true_res <= 1.01 * RTOL * np.linalg.norm(b), (res, true_res)
+    if (name, pc_type) == ("cd10", "lu"):
+        jres, _, _ = _solve(M, b, "bcgsl", pc_type, {}, 5000)
+        assert res.reason == int(jres.reason) == CR.DIVERGED_BREAKDOWN
 
 
 # ---- precision -------------------------------------------------------------------
