@@ -127,10 +127,24 @@ before each and read just after:
   captured run bit-equal to an uncaptured one; the fused cases on NCCL 1 x 4
   (captured) and gloo 2 x 2 (uncaptured) bit-equal to ``DeviceComm(4)``;
   and ``-ksp_reduction_auto``'s latencies, ranking and choice on
-  ``DeviceComm(1)``, ``DeviceComm(4)``, NCCL 1 x 4 and gloo 2 x 2.
+  ``DeviceComm(1)``, ``DeviceComm(4)``, NCCL 1 x 4 and gloo 2 x 2;
+* complex scalars (``--complex``; no kernel of their own: the JAX
+  package's complex operators never reach a Pallas kernel): the Helmholtz
+  driver's operator at nx = 1024 (1,048,576 unknowns), complex128 GMRES(30)
+  and BiCGStab + Jacobi at rtol 1e-10 (the example's ``allclose`` check,
+  fp64 true relres) and complex64 GMRES at 1e-5; the 128^3 Laplacian with
+  phased x-bonds (Hermitian, complex128 DIA): CG + Jacobi unfused and with
+  ``-ksp_megasolve`` (captured bit-equal to uncaptured), and Krylov-Schur
+  against 6 + 6 cos(pi/129); the 1D phase Laplacian + 0.5 at 2^20 rows by
+  preonly + cholesky on the crtri route; each beside its real twin (ms per
+  iteration, restart or apply) in the same call; and, in the process
+  phases, complex GMRES at nx = 128 on NCCL 1 x 4 and gloo 2 x 2 bit for
+  bit against ``DeviceComm(4)``.
 
 ``python3 chip_smoke.py --megasolve`` builds the kernels and runs only the
-phases of the last item. ``python3 chip_smoke.py --ksp-types`` builds the kernels, checks the ones
+phases of the bf16 V-cycle and fused-program item. ``python3 chip_smoke.py
+--complex`` runs only the complex-scalar phase. ``python3 chip_smoke.py
+--ksp-types`` builds the kernels, checks the ones
 the Krylov types launch and runs only their phases. ``python3 chip_smoke.py --surface`` builds the kernels, checks the four the
 surface slice launches, and runs only its phases. ``python3 chip_smoke.py
 --procs`` runs the kernel checks and the process communicator's phases;
@@ -1543,6 +1557,43 @@ def scipy_cg(A, b, rtol):
     return x, info
 
 
+def oracle_residual(nx, b, rtol):
+    """``||b - A x||`` of scipy's fp64 CG + Jacobi on the ``nx^3`` Poisson
+    matrix: one column's oracle, run in a worker process of its own."""
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson3d_csr
+    A = poisson3d_csr(nx).astype(np.float64)
+    return float(np.linalg.norm(b - A @ scipy_cg(A, b, rtol)[0]))
+
+
+def parallel_oracles(nx, cols, rtol):
+    """:func:`oracle_residual` of each column of ``cols`` (a dict), one
+    spawned worker process a column, all at once: the oracles are
+    single-threaded host solves of ~15 s each at 128^3."""
+    import concurrent.futures
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    # one BLAS thread a worker (the workers share the host's cores); the
+    # variables are read when a worker starts, and restored here after
+    saved = {k: os.environ.get(k) for k in _ONE_THREAD}
+    os.environ.update(_ONE_THREAD)
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=len(cols), mp_context=ctx) as pool:
+            futs = {j: pool.submit(oracle_residual, nx, b, rtol)
+                    for j, b in cols.items()}
+            return {j: f.result() for j, f in futs.items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+_ONE_THREAD = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                "MKL_NUM_THREADS")}
+
+
 def phase_many_main_path(oracle):
     """128^3 f32, k = 8, rtol 1e-6, CG + Jacobi through ``KSP.solve_many``
     as bench.py's batched episode sets it up, launch counters zeroed just
@@ -1599,10 +1650,11 @@ def phase_many_main_path(oracle):
     A = oracle["A"]
     t0 = time.perf_counter()
     seq_its, x_diff, parity = [], 0.0, True
+    r_cols = parallel_oracles(nx, {j: B[:, j].astype(np.float64)
+                                   for j in range(1, k)}, rtol)
     for j in range(k):
         bb = B[:, j].astype(np.float64)
-        r_cpu = oracle["r_cpu"] if j == 0 else np.linalg.norm(
-            bb - A @ scipy_cg(A, bb, rtol)[0])
+        r_cpu = oracle["r_cpu"] if j == 0 else r_cols[j]
         r_port = np.linalg.norm(bb - A @ X[:, j].astype(np.float64))
         ok = bool(r_port <= 10 * max(r_cpu, rtol * np.linalg.norm(bb)))
         parity = parity and ok
@@ -4160,9 +4212,10 @@ def phase_procs():
     case_a = dict(cg128, name="a_cg128", local_shards=4)
     eps_a = dict(EPS_PROCS, name="a_eps128", local_shards=4)
     plans_a = plan_cases(cg128, "a", 4)
-    refs_a = procs_reference([case_a, eps_a] + plans_a, 4)
+    cx_a = complex_procs_cases(4, "a")
+    refs_a = procs_reference([case_a, eps_a] + plans_a + cx_a, 4)
     ref = refs_a["a_cg128"]
-    got_a, wall = parity_launch(1, [case_a, eps_a] + plans_a)
+    got_a, wall = parity_launch(1, [case_a, eps_a] + plans_a + cx_a)
     got = got_a["a_cg128"]
     its, _ = procs_compare("(a) 128^3 CG+jacobi, nccl 1 x 4", got, ref)
     check(str(got["backend"]) == "nccl", f"(a) backend {got['backend']}")
@@ -4187,6 +4240,8 @@ def phase_procs():
                                 refs_a["a_eps128"], 4, card)
     out["a"]["plans"] = procs_plans("(a) nccl 1 x 4", got_a, refs_a,
                                     plans_a, card)
+    out["a"]["complex"] = complex_procs_check("(a) nccl 1 x 4", got_a,
+                                              refs_a, cx_a, card)
     # (b) two processes over gloo, 2 shards each, against DeviceComm(4);
     # (c) rides the same launch: 512^3 on 2 processes x 1 shard
     cases_b = [dict(cg128, name="b_cg128", local_shards=2),
@@ -4217,10 +4272,11 @@ def phase_procs():
                   dtype="f32", rtol=PROCS_RTOL, local_shards=1,
                   true_res=True, keep_x=False, time_psum=True)
     plans_b = plan_cases(cg128, "b", 2)
-    refs = procs_reference(cases_b + stack_b + plans_b, 4)
+    cx_b = complex_procs_cases(2, "b")
+    refs = procs_reference(cases_b + stack_b + plans_b + cx_b, 4)
     ref_c = procs_reference([case_c], 2)["c_cg512"]
-    got, wall = parity_launch(2, cases_b + stack_b + plans_b + [case_c],
-                              backend="gloo")
+    got, wall = parity_launch(2, cases_b + stack_b + plans_b + cx_b
+                              + [case_c], backend="gloo")
     out["b"] = {"launch_wall_s": wall}
     for c in cases_b:
         g, r = got[c["name"]], refs[c["name"]]
@@ -4260,6 +4316,8 @@ def phase_procs():
     one = "gloo on ONE card: a comparison, not scaling"
     out["b"]["plans"] = procs_plans(f"(b) gloo 2 x 2 ({one})", got, refs,
                                     plans_b, card)
+    out["b"]["complex"] = complex_procs_check(f"(b) gloo 2 x 2 ({one})",
+                                              got, refs, cx_b, card)
     out["b"]["eps"] = procs_eps(f"procs (b) gloo 2 x 2 ({one})",
                                 got["b_eps128"],
                                 refs["b_eps128"], 2, card)
@@ -5585,6 +5643,393 @@ def phase_nccl_capture(modes=("global", "thread_local"), release=False,
     return out
 
 
+COMPLEX_THETA = 0.3       # the x-bond phase of the Hermitian Laplacians
+COMPLEX_NX = 1024         # Helmholtz 2D, 1,048,576 unknowns
+COMPLEX_LAP_NX = 128      # the 3D phase Laplacian, 2,097,152 rows
+COMPLEX_CR_N = 1 << 20    # the 1D phase Laplacian for cyclic reduction
+
+
+def phase_laplacian(A, theta=COMPLEX_THETA):
+    """``A`` (a Dirichlet Laplacian, x-fastest) with every x-bond given the
+    phase ``e^{i theta}``: ``-e^{i theta}`` on the first superdiagonal,
+    ``-e^{-i theta}`` on the first subdiagonal. A diagonal unitary gauge
+    makes it similar to ``A``: the same spectrum, Hermitian, genuinely
+    complex."""
+    import scipy.sparse as sp
+    C = A.tocoo().astype(np.complex128)
+    d = C.col - C.row
+    C.data[d == 1] *= np.exp(1j * theta)
+    C.data[d == -1] *= np.exp(-1j * theta)
+    return sp.csr_matrix(C)
+
+
+def complex_case(label, ksp, bv, x, A, b, twin=None, x_true=None,
+                 twin_rtol=None, profile=0):
+    """Solve twice (the second warm and timed), then the real twin (the same
+    sparsity in the real dtype of the same width, with ``rtol`` 0 and the
+    complex solve's iteration count, or ``twin_rtol``, warm) for its
+    ms/iteration; with ``profile`` a profiled solve of that many
+    iterations of each (the complex solver is left at that count). Returns the
+    case's record: iterations, reason, fp64 true relres, warm wall,
+    ms/iteration, host syncs, the twin's ms/iteration and the ratio, with
+    the timed solve's iterate on the host."""
+    import torch
+    t_case = time.perf_counter()
+    x.zero()
+    ksp.solve(bv, x)
+    torch.cuda.synchronize()
+    x.zero()
+    t0 = time.perf_counter()
+    res = ksp.solve(bv, x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    xh = x.to_numpy()
+    its = max(res.iterations, 1)
+    rec = {"iterations": res.iterations, "reason": int(res.reason),
+           "relres": float(np.linalg.norm(b - A @ xh) / np.linalg.norm(b)),
+           "wall_s": wall, "ms_per_iter": wall / its * 1e3,
+           "host_syncs": res.host_syncs}
+    if x_true is not None:
+        rec["allclose"] = bool(np.allclose(xh, x_true, atol=1e-6))
+    if twin is not None:
+        tksp, tbv, tx = twin
+        if twin_rtol is None:
+            tksp.set_tolerances(rtol=0.0, atol=0.0, max_it=res.iterations)
+        else:
+            tksp.set_tolerances(rtol=twin_rtol, atol=0.0)
+        for _ in range(2):
+            tx.zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tres = tksp.solve(tbv, tx)
+            torch.cuda.synchronize()
+        twall = time.perf_counter() - t0
+        rec.update(twin_iterations=tres.iterations,
+                   twin_ms_per_iter=twall / max(tres.iterations, 1) * 1e3,
+                   twin_dtype=str(tx.dtype).removeprefix("torch."))
+        rec["ratio"] = rec["ms_per_iter"] / rec["twin_ms_per_iter"]
+    if profile:
+        # a short window of ``profile`` iterations each: the profiler's
+        # post-processing grows with the events it recorded
+        for name, (k, bb, xx) in (("complex", (ksp, bv, x)),
+                                  ("twin", twin or (ksp, bv, x))):
+            k.set_tolerances(rtol=0.0, atol=0.0, max_it=profile)
+
+            def run(k=k, bb=bb, xx=xx):
+                xx.zero()
+                return k.solve(bb, xx).iterations
+            rec[f"idle_share_{name}"] = profile_solve(
+                run, f"{label}, {name}, {profile} iterations")
+    log(f"complex {label}: {res.iterations} iterations, reason "
+        f"{rec['reason']}, fp64 true relres {rec['relres']:.3e}, warm wall "
+        f"{wall:.4f} s, {rec['ms_per_iter']:.4f} ms/iter, {res.host_syncs} "
+        f"host syncs"
+        + (f", allclose(x, x_true, atol=1e-6) {rec['allclose']}"
+           if x_true is not None else "")
+        + (f"; {rec['twin_dtype']} twin {rec['twin_ms_per_iter']:.4f} "
+           f"ms/iter over {rec['twin_iterations']} iterations, ratio "
+           f"{rec['ratio']:.3f}" if twin is not None else "")
+        + f"; case {time.perf_counter() - t_case:.1f} s; {card_line()}")
+    return rec, xh
+
+
+def device_busy_ms(fn, calls=5):
+    """The device time of one ``fn()`` call: the kernels' and copies' self
+    time under ``torch.profiler`` over ``calls`` calls, divided by
+    ``calls`` (no host launch cost in it); None when the profiler saw no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us > 0 else None
+
+
+def phase_complex():
+    """Complex scalars on the card (``--complex``; no kernel on this path:
+    the JAX package's complex operators never reach ``pl.pallas_call``, so
+    the products are the port's torch ELL/DIA routes and the PC applies):
+
+    * the Helmholtz driver's operator ``-Delta_h - (1.5 + 0.5i) I`` at nx =
+      1024 (1,048,576 unknowns, DIA), complex128 GMRES(30) + Jacobi at rtol
+      1e-10 (the example's ``allclose`` check and the fp64 true relres <=
+      10 rtol), BiCGStab + Jacobi on it, and complex64 GMRES at rtol 1e-5
+      (fp64 true relres <= 10 rtol, which meets bench.py's parity rule);
+    * the 128^3 7-point Laplacian with its x-bonds phased by ``e^{0.3i}``
+      (Hermitian, similar to the real one), through ``Mat.from_scipy``
+      (DIA, complex128): CG + Jacobi at rtol 1e-6 unfused and with
+      ``-ksp_megasolve`` (iterations and reasons equal, the captured iterate
+      bit-equal to an uncaptured run), a profile of each, and Krylov-Schur
+      (largest magnitude, nev 1, ncv 16, tol 1e-8) against the closed form
+      6 + 6 cos(pi/129) within 1e-9, ``compute_error`` <= 1e-6;
+    * the 1D phase Laplacian plus 0.5 at 2^20 rows, preonly + cholesky on the
+      crtri route, fp64 true relres <= 1e-10, the apply against its bytes
+      bound;
+
+    each beside its real twin (the same sparsity, float64 for complex128 and
+    float32 for complex64) in this call. The stencil kernels' counters must
+    not move: nothing complex reaches them."""
+    import scipy.sparse as sp
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.facade.drivers import helmholtz
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson3d_csr
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    from mpi_petsc4py_example_tpu_torch.solvers import krylov
+    t_all = time.perf_counter()
+    comm = pt.DeviceComm()
+    out = {"card": card_line()}
+    # the real path is unchanged: on real tensors on the card torch.vdot is
+    # torch.dot bit for bit, and so the program's shard-summed dot
+    g = torch.Generator(device="cuda").manual_seed(17)
+    comm4 = pt.DeviceComm(4)
+    for dt in (torch.float32, torch.float64):
+        u, v = (torch.rand(4, COMPLEX_LAP_NX ** 3 // 4, generator=g,
+                           device="cuda", dtype=dt) for _ in range(2))
+        pdot = krylov.shard_dots(comm4, lambda t: t)[0]
+        same = (torch.equal(torch.vdot(u[0], v[0]), torch.dot(u[0], v[0]))
+                and torch.equal(pdot(u, v), u[0].dot(v[0]) + u[1].dot(v[1])
+                                + u[2].dot(v[2]) + u[3].dot(v[3])))
+        check(same, f"vdot differs from dot on real {dt} tensors")
+    log(f"complex: on real float32/float64 tensors of {COMPLEX_LAP_NX}^3 "
+        "torch.vdot == torch.dot and the 4-shard pdot == the torch.dot sum, "
+        "bit for bit")
+    reset_launches()
+
+    def solver(mat, ksp_type, pc_type, rtol, max_it=5000, mega=False):
+        ksp = aij_ksp(comm, mat, ksp_type, pc_type, rtol, max_it=max_it)
+        ksp.megasolve = mega
+        return ksp
+
+    # ---- Helmholtz 2D, nx = 1024 --------------------------------------------
+    t0 = time.perf_counter()
+    A = helmholtz.helmholtz2d(COMPLEX_NX)
+    x_true, b = helmholtz.manufactured(A)
+    M, asm_s = assemble(comm, A, torch.complex128)
+    # the float64 twin: the same five diagonals, the definite Laplacian
+    # + 1.5 I (no breakdown when it runs to a fixed iteration count)
+    Ar = (A.real + 3.0 * sp.eye(A.shape[0])).tocsr()
+    Mr, _ = assemble(comm, Ar, torch.float64)
+    check(M.spmv_route(comm) != "ell", "Helmholtz: not on a DIA route")
+    x, bv = M.get_vecs()
+    bv.set_global(b)
+    xr, bvr = Mr.get_vecs()
+    bvr.set_global(Ar @ np.random.default_rng(42).random(A.shape[0]))
+    log(f"complex Helmholtz {COMPLEX_NX}^2: assembled in {asm_s:.2f} s "
+        f"(complex128, {M.spmv_route(comm)}, {len(M.dia_offsets)} "
+        f"diagonals), with its float64 twin in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for ksp_type in ("gmres", "bcgs"):
+        rec, _ = complex_case(
+            f"Helmholtz {COMPLEX_NX}^2 complex128 {ksp_type}+jacobi rtol "
+            "1e-10", solver(M, ksp_type, "jacobi", 1e-10), bv, x, A, b,
+            twin=(solver(Mr, ksp_type, "jacobi", 0.0), bvr, xr),
+            x_true=x_true, profile=30)
+        check(rec["reason"] > 0 and rec["allclose"]
+              and rec["relres"] <= 1e-9,
+              f"Helmholtz {ksp_type}: {rec}")
+        out[f"helmholtz_{ksp_type}"] = rec
+    M64 = M.astype(torch.complex64)
+    Mr32 = Mr.astype(torch.float32)
+    x64, bv64 = M64.get_vecs()
+    bv64.set_global(b)
+    xr32, bvr32 = Mr32.get_vecs()
+    bvr32.set_global(bvr.to_numpy())
+    rec, _ = complex_case(
+        f"Helmholtz {COMPLEX_NX}^2 complex64 gmres+jacobi rtol 1e-5",
+        solver(M64, "gmres", "jacobi", 1e-5), bv64, x64, A, b,
+        twin=(solver(Mr32, "gmres", "jacobi", 0.0), bvr32, xr32))
+    check(rec["reason"] > 0 and rec["relres"] <= 10 * 1e-5,
+          f"Helmholtz complex64: {rec}")
+    out["helmholtz_gmres_c64"] = rec
+    del M, Mr, M64, Mr32, x, bv, xr, bvr, x64, bv64, xr32, bvr32
+    torch.cuda.empty_cache()
+    out["helmholtz_s"] = time.perf_counter() - t0
+
+    # ---- the 128^3 phase Laplacian ---------------------------------------
+    t0 = time.perf_counter()
+    L = poisson3d_csr(COMPLEX_LAP_NX)
+    A = phase_laplacian(L)
+    M, asm_s = assemble(comm, A, torch.complex128)
+    Mr, _ = assemble(comm, L, torch.float64)
+    check(M.dia_offsets and len(M.dia_offsets) == 7,
+          f"phase Laplacian: DIA offsets {M.dia_offsets}")
+    rng = np.random.default_rng(7)
+    xt = rng.random(A.shape[0]) + 1j * rng.random(A.shape[0])
+    b = A @ xt
+    x, bv = M.get_vecs()
+    bv.set_global(b)
+    xr, bvr = Mr.get_vecs()
+    bvr.set_global(L @ xt.real)
+    log(f"complex phase Laplacian {COMPLEX_LAP_NX}^3: assembled in "
+        f"{asm_s:.2f} s (complex128, {M.spmv_route(comm)}, offsets "
+        f"{M.dia_offsets})")
+    log(f"complex phase Laplacian: set up in {time.perf_counter() - t0:.1f} "
+        "s")
+    unf = solver(M, "cg", "jacobi", 1e-6)
+    rec_u, x_unf = complex_case(
+        f"phase Laplacian {COMPLEX_LAP_NX}^3 complex128 cg+jacobi unfused",
+        unf, bv, x, A, b, twin=(solver(Mr, "cg", "jacobi", 0.0), bvr, xr),
+        profile=30)
+    fused = solver(M, "cg", "jacobi", 1e-6, mega=True)
+    rec_f, x_graph = complex_case(
+        f"phase Laplacian {COMPLEX_LAP_NX}^3 complex128 cg+jacobi "
+        "-ksp_megasolve", fused, bv, x, A, b,
+        twin=(solver(Mr, "cg", "jacobi", 1e-6, mega=True), bvr, xr),
+        twin_rtol=1e-6)
+    graph = fused.result.graph
+    prog = fused._megasolve_program()
+    prog.capture = False
+    x.zero()
+    res_e = fused.solve(bv, x)
+    torch.cuda.synchronize()
+    prog.capture = True
+    same = bool(np.array_equal(x_graph, x.to_numpy()))
+    check(graph and not res_e.graph,
+          "phase Laplacian: the fused runs were not captured, then "
+          "uncaptured")
+    check(rec_u["reason"] > 0 and rec_u["iterations"] == rec_f["iterations"]
+          and rec_u["reason"] == rec_f["reason"] and same
+          and res_e.iterations == rec_f["iterations"],
+          f"phase Laplacian: unfused {rec_u}, fused {rec_f}, captured == "
+          f"uncaptured {same}")
+    rec_f.update(captured_equals_uncaptured=same,
+                 fused_vs_unfused_max_diff=float(np.abs(x_graph
+                                                        - x_unf).max()))
+    log(f"complex phase Laplacian: fused iterations = unfused "
+        f"({rec_f['iterations']}), captured iterate == uncaptured {same}, "
+        f"fused vs unfused max diff {rec_f['fused_vs_unfused_max_diff']:.3e}")
+    log(f"complex phase Laplacian: CG done at {time.perf_counter() - t0:.1f} "
+        "s")
+    out["laplacian_cg_unfused"] = rec_u
+    out["laplacian_cg_fused"] = rec_f
+    del unf, fused, prog
+    ms.clear_cache()
+    # Krylov-Schur, largest magnitude, against the closed form
+    lam_exact = 6.0 + 6.0 * np.cos(np.pi / (COMPLEX_LAP_NX + 1))
+    eps_rec = {}
+    for label, mat in (("complex128", M), ("float64 twin", Mr)):
+        E = pt.EPS().create(comm)
+        E.set_operators(mat)
+        E.set_problem_type("hep")
+        E.set_dimensions(nev=1, ncv=16)
+        E.set_tolerances(tol=1e-8, max_it=EPS_MAX_IT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        E.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        lam = E.get_eigenvalue(0)
+        restarts = E.get_iteration_number()
+        r = {"restarts": restarts, "nconv": E.get_converged(),
+             "lambda": [lam.real, lam.imag],
+             "rel_err": abs(lam - lam_exact) / lam_exact,
+             "compute_error": E.compute_error(0), "wall_s": wall,
+             "ms_per_restart": wall / max(restarts, 1) * 1e3}
+        log(f"complex EPS {COMPLEX_LAP_NX}^3 phase Laplacian {label}: "
+            f"{restarts} restarts, nconv {r['nconv']}, lambda {lam}, rel err "
+            f"{r['rel_err']:.3e} vs 6 + 6 cos(pi/129), compute_error "
+            f"{r['compute_error']:.3e}, {wall:.3f} s, "
+            f"{r['ms_per_restart']:.3f} ms/restart; {card_line()}")
+        check(r["nconv"] >= 1 and r["rel_err"] <= 1e-9
+              and r["compute_error"] <= 1e-6, f"EPS {label}: {r}")
+        eps_rec[label.split()[0]] = r
+    eps_rec["ratio"] = (eps_rec["complex128"]["ms_per_restart"]
+                        / eps_rec["float64"]["ms_per_restart"])
+    out["laplacian_eps"] = eps_rec
+    del M, Mr, x, bv, xr, bvr, E
+    torch.cuda.empty_cache()
+    out["laplacian_s"] = time.perf_counter() - t0
+
+    # ---- cyclic reduction, 2^20 rows ----------------------------------------
+    t0 = time.perf_counter()
+    n = COMPLEX_CR_N
+    L1 = (laplace1d(n) + 0.5 * sp.eye(n)).tocsr()
+    A = phase_laplacian(L1)
+    cr = {}
+    for label, mat_A, dt in (("complex128", A, torch.complex128),
+                             ("float64 twin", L1, torch.float64)):
+        m, _ = assemble(comm, mat_A, dt)
+        ksp = aij_ksp(comm, m, "preonly", "cholesky", 1e-10)
+        t1 = time.perf_counter()
+        ksp.set_up()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t1
+        rng = np.random.default_rng(11)
+        xt = rng.random(n) + (1j * rng.random(n) if dt.is_complex else 0.0)
+        b = mat_A @ xt
+        x, bv = m.get_vecs()
+        bv.set_global(b)
+        ksp.solve(bv, x)
+        res = ksp.solve(bv, x)
+        pc = ksp.get_pc()
+        rel = float(np.linalg.norm(b - mat_A @ x.to_numpy())
+                    / np.linalg.norm(b))
+        apply = cr_apply_record(pc, comm, n)
+        cr_fn = pc.local_apply(comm, n)
+        r_in = torch.rand(comm.size, comm.local_size(n), device=comm.device,
+                          dtype=dt)
+        apply["busy_ms"] = device_busy_ms(lambda: cr_fn(r_in))
+        r = {"mode": pc.kind, "setup_s": setup, "relres": rel,
+             "solve_ms": res.wall_time * 1e3, "host_syncs": res.host_syncs,
+             "apply": apply}
+        log(f"complex crtri 2^20 phase Laplacian + 0.5 {label}: mode "
+            f"{pc.kind}, set-up {setup:.3f} s, warm solve "
+            f"{r['solve_ms']:.2f} ms, {res.host_syncs} host syncs, fp64 true "
+            f"relres {rel:.3e}; apply {apply['ms']:.4f} ms (device busy "
+            f"{apply['busy_ms']} ms, profiler) vs bound "
+            f"{apply['bound_ms']:.4f} ms, {apply['operations']} torch "
+            f"operations; {card_line()}")
+        check(pc.kind == "crtri" and rel <= 1e-10, f"crtri {label}: {r}")
+        cr[label.split()[0]] = r
+        del m, ksp, x, bv, pc
+        torch.cuda.empty_cache()
+    c_apply, r_apply = cr["complex128"]["apply"], cr["float64"]["apply"]
+    cr["ratio"] = c_apply["ms"] / r_apply["ms"]
+    if c_apply["busy_ms"] and r_apply["busy_ms"]:
+        cr["busy_ratio"] = c_apply["busy_ms"] / r_apply["busy_ms"]
+    out["crtri"] = cr
+    out["crtri_s"] = time.perf_counter() - t0
+    launched = {k: v for k, v in read_launches().items() if v}
+    check(not launched, f"a stencil kernel ran on the complex path: "
+                        f"{launched}")
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"complex phases: {out['seconds']:.1f} s (Helmholtz "
+        f"{out['helmholtz_s']:.1f}, phase Laplacian {out['laplacian_s']:.1f}, "
+        f"crtri {out['crtri_s']:.1f})")
+    return out
+
+
+def complex_procs_cases(local_shards, prefix):
+    """The complex cases of the process phases: Helmholtz at nx = 128,
+    complex128 GMRES(30) + Jacobi, rtol 1e-10."""
+    return [dict(kind="aij", name=f"{prefix}_helmholtz128_gmres",
+                 op="helmholtz128", dtype="c128", ksp="gmres", pc="jacobi",
+                 rtol=1e-10, local_shards=local_shards)]
+
+
+def complex_procs_check(label, got, refs, cases, card):
+    """Each complex case bit for bit against ``DeviceComm(4)``."""
+    out = {}
+    for c in cases:
+        g, r = got[c["name"]], refs[c["name"]]
+        its, _ = procs_compare(f"{label} {c['name']}", g, r)
+        check(np.iscomplexobj(g["x"]), f"{label}: the iterate is not complex")
+        out[c["name"]] = {"iterations": its, "ms_per_iter": ms_per_iter(g),
+                          "ms_per_iter_virtual": ms_per_iter(r)}
+        log(f"procs {label} {c['name']}: {its} iterations (= DeviceComm(4)), "
+            f"x bit-equal, {out[c['name']]['ms_per_iter']:.4f} ms/iter vs "
+            f"{out[c['name']]['ms_per_iter_virtual']:.4f} on DeviceComm(4); "
+            f"{card}")
+    return out
+
+
 def phase_megasolve():
     """Every phase of this slice: rows 3b-6b, PC mg under refinement, cfg13,
     KSP megasolve, the process communicator and the reduction plan
@@ -5755,6 +6200,14 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--complex"]:
+        # only the complex-scalar slice's phase (no kernel on its path)
+        print(json.dumps({"complex": phase_complex()}, default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -5762,12 +6215,20 @@ def main():
         print(card_line())
         return
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    t_phase = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        log(f"timeline: {label} ended at {now - t_start:.1f} s "
+            f"({now - t_phase[0]:.1f} s)")
+        t_phase[0] = now
     worst = phase_kernel_checks()
     worst.update(phase_mg_kernel_checks())
     times = {n: phase_kernel_times(n) for n in (128, 512)}
     for n in (128, 512):
         times[n].update(phase_mg_kernel_times(n))
     levels = phase_mg_level_times()
+    lap("kernel checks and times")
     # each path: counters zeroed just before, read just after
     launches, oracle = phase_main_path()
     launches_512 = phase_realistic()
@@ -5782,6 +6243,7 @@ def main():
     phase_many_mixed(many_ctx)
     del many_ctx
     launches_many_512 = phase_many_realistic()
+    lap("stencil, mg and batched paths")
     # the assembled-matrix slice: no kernel of its own (its products are
     # torch index and slice ops), so no counter to read
     t_aij = time.perf_counter()
@@ -5793,23 +6255,35 @@ def main():
     phase_aij_many()
     phase_aij_reference_flow()
     log(f"assembled-matrix phases: {time.perf_counter() - t_aij:.1f} s")
+    lap("assembled matrices")
     # the eigensolver slice: its operator applies are stencil7_apply's
     launches_eps, apply_f64 = phase_eps()
+    lap("eigensolver")
     # the mixed-precision slice: the bfloat16 instantiations of four kernels
     bf16_entries, _ = phase_refine()
+    lap("mixed precision")
     # the direct solves past the dense cap and the block PCs: no kernel
     phase_direct()
+    lap("direct solves")
     # the KSP/PC/Mat/Vec surface: its new paths launch rows 1, 2, 9 and 10
     surface = phase_surface()
+    lap("surface")
     # the process communicator: rows 1-10 per local shard in rank processes
     procs = phase_procs()
     print(json.dumps({"procs": procs}))
+    lap("process communicator")
     # the Krylov types of item 5: rows 1, 2, 9, 2b and 9b
     ksp_types = phase_ksp_types(oracle)
     print(json.dumps({"ksp_types": ksp_types}, default=float))
+    lap("Krylov types")
     # the bf16 V-cycle (rows 3b-6b), the fused program, -ksp_reduction_auto
     vcycle_entries, mega = phase_megasolve()
     print(json.dumps({"megasolve": mega}, default=float))
+    lap("bf16 V-cycle and fused program")
+    # complex scalars (item 5.6): no kernel on the path, none may launch
+    complex_ = phase_complex()
+    print(json.dumps({"complex": complex_}, default=float))
+    lap("complex scalars")
     ksp_launches = {
         "stencil7_apply": (
             ksp_types["128"]["pipecg"]["launches"]["stencil7_apply"],

@@ -28,7 +28,7 @@ from .models.poisson import poisson3d_csr
 from .models.stencil import StencilPoisson3D
 from .parallel.mesh import DeviceComm, ProcessComm, init_multihost
 from .solvers.cg_plans import PrecisionPlan, precision_plan
-from .solvers.eps import EPS
+from .solvers.eps import EPS, SVD
 from .solvers.ksp import KSP
 from .solvers.pc import PC
 from .solvers.refine import RefinedKSP
@@ -40,7 +40,7 @@ from .utils.options import global_options, init
 
 __all__ = ["DeviceComm", "ProcessComm", "init_multihost",
            "Vec", "Mat", "ShellMat", "NullSpace", "KSP", "PC",
-           "EPS", "ST", "petsc_io",
+           "EPS", "ST", "SVD", "petsc_io",
            "RefinedKSP", "PrecisionPlan", "precision_plan",
            "StencilPoisson3D",
            "poisson3d_csr", "ConvergedReason", "SolveResult",

@@ -26,7 +26,10 @@ device) and the partials are summed in shard order, as the JAX ``psum``. A
 null space (``core/nullspace.py``) rides on the Mat and the solve program
 projects with it.
 
-Storage is fp32, fp64 or bfloat16. A bfloat16 Mat rounds the CSR values to
+Storage is fp32, fp64, complex64, complex128 or bfloat16. A complex Mat
+keeps PETSc's complex-build conventions: :meth:`mult_transpose` is the
+plain transpose ``A^T``, never the adjoint, and :meth:`scale` takes a
+complex factor. A bfloat16 Mat rounds the CSR values to
 bfloat16 once, with torch's cast, when it is built (the JAX package's
 ``np.asarray(data, dtype=bfloat16)``, ``mat.py:100-115``); its host CSR then
 holds those rounded values as fp32, which is exact, so the PCs set up from
@@ -43,7 +46,7 @@ import torch
 from ..ops.spmv import (accum_dtype, csr_diag, csr_find_diagonals,
                         csr_to_dia, csr_to_ell, dia_rows, dia_spmv_local,
                         dia_spmv_local_many, ell_spmv_local,
-                        ell_spmv_local_many)
+                        ell_spmv_local_many, index_put_acc_)
 from ..parallel.mesh import DeviceComm, numpy_dtype, torch_dtype
 from ..parallel.partition import RowLayout, concat_csr_blocks
 from .vec import Vec
@@ -293,12 +296,15 @@ class Mat:
         return self._replace_from_scipy(
             self.to_scipy() + float(alpha) * X.to_scipy())
 
-    def scale(self, alpha: float) -> "Mat":
-        """A <- alpha A, on the device arrays and the host CSR in place."""
+    def scale(self, alpha) -> "Mat":
+        """A <- alpha A, on the device arrays and the host CSR in place;
+        ``alpha`` is first cast to the storage scalar (JAX
+        ``self.dtype.type(alpha)``), so a complex Mat takes a complex
+        factor."""
         alpha = numpy_dtype(self.dtype).type(alpha)
-        self.ell_vals = self.ell_vals * float(alpha)
+        self.ell_vals = self.ell_vals * alpha.item()
         if self.dia_vals is not None:
-            self.dia_vals = self.dia_vals * float(alpha)
+            self.dia_vals = self.dia_vals * alpha.item()
         if self.host_csr is not None:
             ip, ix, dv = self.host_csr
             self.host_csr = (ip, ix, _storage_values(dv * alpha, self.dtype))
@@ -516,7 +522,8 @@ class Mat:
           full-length partial;
         * ELL: each shard's scatter-add of ``vals * x`` into the columns of
           a full-length partial, in row order (``index_put_`` with
-          ``accumulate=True``, deterministic on the CPU and on CUDA).
+          ``accumulate=True``, deterministic on the CPU and on CUDA; on
+          complex values over ``view_as_real``, ``ops.spmv.index_put_acc_``).
 
         The full-length partials of the last two are summed over the shards
         in global shard order (``comm.psum``: never ``all_reduce``), as the
@@ -541,7 +548,7 @@ class Mat:
                 contrib = (vals * x.reshape(-1, 1)).reshape(-1)
                 parts = torch.zeros(shards * n_pad, dtype=vals.dtype,
                                     device=vals.device)
-                parts.index_put_((cols,), contrib, accumulate=True)
+                index_put_acc_(parts, (cols,), contrib)
                 y = comm.psum(list(parts.view(shards, n_pad)))
                 return y[start:stop].view(shards, lsize)
             return spmv_t

@@ -13,7 +13,12 @@ reduce channel (``utils/dtypes.py``).
 Every reduction (``norm``, ``dot``, ``sum``, ``mean``) is a per-shard
 partial summed by :meth:`DeviceComm.psum` in shard order, so it gives the
 same bits on every run; ``min``/``max`` look at the logical entries only,
-never the zero padding.
+never the zero padding. A complex Vec follows PETSc's complex build:
+``dot`` is ``other^H self`` and returns a ``complex``, the norms are real
+``float``s, ``sum`` and ``mean`` are ``complex``, and ``min``/``max`` order
+the entries as numpy does (by real part, then imaginary part) and return
+the real part of the entry they find, as the JAX package's host
+``argmin``/``argmax`` and ``float`` do.
 """
 
 from __future__ import annotations
@@ -26,6 +31,12 @@ import torch
 from ..parallel.mesh import DeviceComm, torch_dtype
 from ..parallel.partition import RowLayout
 from ..utils.dtypes import reduce_dtype
+
+
+def _scalar(t: torch.Tensor):
+    """A 0-d reduction as a Python ``complex`` for complex tensors, else a
+    ``float``."""
+    return complex(t) if t.is_complex() else float(t)
 
 
 class Vec:
@@ -81,10 +92,11 @@ class Vec:
         return self.data.to(reduce_dtype(self.data.dtype)).view(
             self.comm.local_shards, -1)
 
-    def _psum(self, fn) -> float:
-        """``fn`` of each shard's block, summed in shard order."""
+    def _psum(self, fn):
+        """``fn`` of each shard's block, summed in shard order (a ``complex``
+        when ``fn`` gives complex partials, else a ``float``)."""
         v = self._reduce_view()
-        return float(self.comm.psum([fn(v[i]) for i in range(v.shape[0])]))
+        return _scalar(self.comm.psum([fn(v[i]) for i in range(v.shape[0])]))
 
     # ---- PETSc-shaped local views -------------------------------------------
     def set_array(self, local, rank: int = 0):
@@ -125,7 +137,7 @@ class Vec:
         value."""
         t = str(norm_type).lower()
         if t in ("2", "fro", "frobenius"):
-            return math.sqrt(self._psum(lambda u: torch.dot(u, u)))
+            return math.sqrt(self._psum(lambda u: torch.vdot(u, u).real))
         if t in ("1", "one"):
             return self._psum(lambda u: u.abs().sum())
         if t in ("inf", "infinity"):
@@ -134,17 +146,21 @@ class Vec:
                                          for i in range(v.shape[0])]))
         raise ValueError(f"unknown norm type {norm_type!r}")
 
-    def dot(self, other: "Vec") -> float:
-        """PETSc VecDot(self, other) for real vectors."""
+    def dot(self, other: "Vec"):
+        """PETSc VecDot(self, other) = ``other^H self``: the conjugate is on
+        the SECOND argument (numpy's ``np.vdot(u, v)`` conjugates the first,
+        so it equals ``v.dot(u)`` here); a ``complex`` for complex vectors
+        (JAX ``core/vec.py:114``). On real vectors ``torch.vdot`` is
+        ``torch.dot``, bit for bit."""
         w = other._reduce_view()
         v = self._reduce_view()
-        return float(self.comm.psum([torch.dot(v[i], w[i])
-                                     for i in range(v.shape[0])]))
+        return _scalar(self.comm.psum([torch.vdot(w[i], v[i])
+                                       for i in range(v.shape[0])]))
 
-    def sum(self) -> float:
+    def sum(self):
         return self._psum(torch.sum)
 
-    def mean(self) -> float:
+    def mean(self):
         return self.sum() / self.n
 
     def _logical(self) -> torch.Tensor:
@@ -166,14 +182,16 @@ class Vec:
         """``(index, value)`` of the smallest logical entry (petsc4py's
         ``vec.min()``)."""
         v = self._logical()
-        i = int(torch.argmin(v))
-        return i, float(v[i])
+        i = int(torch.argmin(v) if not v.is_complex()
+                else _lex_arg(v, torch.min, torch.argmin, math.inf))
+        return i, float(v[i].real)
 
     def max(self) -> tuple[int, float]:
         """``(index, value)`` of the largest logical entry."""
         v = self._logical()
-        i = int(torch.argmax(v))
-        return i, float(v[i])
+        i = int(torch.argmax(v) if not v.is_complex()
+                else _lex_arg(v, torch.max, torch.argmax, -math.inf))
+        return i, float(v[i].real)
 
     def axpy(self, alpha: float, other: "Vec"):
         """self += alpha * other."""
@@ -244,6 +262,15 @@ class Vec:
 
     def __len__(self):
         return self.n
+
+
+def _lex_arg(v, pick, arg, fill):
+    """The first index of the entry numpy's complex ordering (real part,
+    then imaginary part) puts at the end ``pick``/``arg`` choose: among
+    the entries whose real part is the extreme one, the first with the
+    extreme imaginary part."""
+    tie = v.real == pick(v.real)
+    return arg(torch.where(tie, v.imag, torch.full_like(v.imag, fill)))
 
 
 def _safe_div(num, den):

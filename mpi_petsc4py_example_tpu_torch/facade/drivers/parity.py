@@ -32,6 +32,8 @@ import scipy.sparse as sp
 import torch
 
 import mpi_petsc4py_example_tpu_torch as pt
+from mpi_petsc4py_example_tpu_torch.facade.drivers.helmholtz import (
+    helmholtz2d)
 from mpi_petsc4py_example_tpu_torch.models.generators import (
     convdiff2d, random_system, tridiag_family)
 from mpi_petsc4py_example_tpu_torch.models.poisson import (poisson1d_csr,
@@ -96,9 +98,12 @@ AIJ_OPERATORS = {
     "neumann128": lambda: _neumann3d(128),
     "convdiff1024": lambda: convdiff2d(1024),
     "tri2p20": lambda: poisson1d_csr(1 << 20),
+    # complex128: the Helmholtz driver's operator
+    "helmholtz128": lambda: helmholtz2d(128),
+    "helmholtz12": lambda: helmholtz2d(12),
 }
 _DTYPES = {"f64": torch.float64, "f32": torch.float32,
-           "bf16": torch.bfloat16}
+           "bf16": torch.bfloat16, "c128": torch.complex128}
 
 
 def rhs(n: int, seed: int, k: int | None = None) -> np.ndarray:
@@ -299,8 +304,12 @@ def shell_pc_apply(comm, A, dtype=torch.float64):
 
 
 def aij_rhs(case, A) -> np.ndarray:
-    """The case's right-hand side; with a null space, made compatible."""
+    """The case's right-hand side (complex for a complex ``dtype``: the
+    seeded real part plus ``1j`` times the next seed's); with a null space,
+    made compatible."""
     b = rhs(A.shape[0], case.get("seed", 3))
+    if _DTYPES[case.get("dtype", "f64")].is_complex:
+        b = b + 1j * rhs(A.shape[0], case.get("seed", 3) + 1)
     if case.get("nullspace"):
         b = b - b.mean()
     return b
@@ -320,7 +329,8 @@ def _setup_pc(comm, pc, case, A):
 def _case_aij(comm, case):
     A = AIJ_OPERATORS[case["op"]]()
     op = (shell_mat(comm, A) if case.get("shellmat")
-          else pt.Mat.from_scipy(comm, A))
+          else pt.Mat.from_scipy(comm, A,
+                                 dtype=_DTYPES[case.get("dtype", "f64")]))
     if case.get("nullspace"):
         op.set_nullspace(pt.NullSpace(constant=True))
     ksp = configure_ksp(pt.KSP().create(comm), case)
@@ -514,7 +524,8 @@ def run_case(comm, case: dict) -> dict:
     same group's psum of host tensors), 'many' (``solve_many``
     of ``k`` columns, ``route`` 'fast' or 'general', KSP ``ksp``), 'aij'
     (``ksp`` with ``pc`` on the assembled operator ``op`` of
-    :data:`AIJ_OPERATORS`; ``gate`` turns on the true-residual gate,
+    :data:`AIJ_OPERATORS`, in ``dtype`` f64 or c128, whose right-hand
+    side is then complex; ``gate`` turns on the true-residual gate,
     ``setup_device`` is the PC's ``-pc_setup_device``, ``dense_cap``
     lowers PC lu's dense cap, ``shellmat`` wraps the operator in a
     :func:`shell_mat`, ``nullspace`` attaches the constant null space;

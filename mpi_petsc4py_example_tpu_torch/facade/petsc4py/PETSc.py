@@ -198,11 +198,14 @@ class Vec:
             print(repr(self._core), file=sys.stderr)
 
     def load(self, viewer):
-        """VecLoad: fill this Vec from a PETSc binary Vec (collective)."""
+        """VecLoad: fill this Vec from a PETSc binary Vec (collective). A
+        complex Vec reads the complex-build layout: as in PETSc, where the
+        build's scalar type decides the file format."""
         viewer._check_mode(read=True)
+        scalar = "complex" if self._core.dtype.is_complex else "real"
 
         def build(_):
-            arr = _pt.petsc_io.read_vec(viewer.handle)
+            arr = _pt.petsc_io.read_vec(viewer.handle, scalar=scalar)
             if arr.shape[0] != self._core.n:
                 raise ValueError(
                     f"VecLoad size mismatch: file has {arr.shape[0]} "
@@ -479,14 +482,17 @@ class Mat:
         if self._comm.Get_rank() == 0:
             print(repr(self._core), file=sys.stderr)
 
-    def load(self, viewer):
-        """MatLoad: read a PETSc binary Mat (collective)."""
+    def load(self, viewer, scalar: str = "real"):
+        """MatLoad: read a PETSc binary Mat (collective); ``scalar='complex'``
+        reads a complex-build file into a complex128 Mat (the file carries
+        no flag)."""
         viewer._check_mode(read=True)
         comm = self._comm or _MPI.COMM_WORLD
         self._comm = comm
 
         def build(_):
-            core = _pt.petsc_io.load_mat(viewer.handle, comm.device_comm)
+            core = _pt.petsc_io.load_mat(viewer.handle, comm.device_comm,
+                                         scalar=scalar)
             return core, _UnevenLayout(
                 RowLayout(core.shape[0], comm.Get_size()).count)
 

@@ -17,6 +17,11 @@ first and last shards (``DeviceComm.shift_open``).
 With ``dtype=torch.bfloat16`` (the mixed-precision plan's storage) the slabs
 and halo planes stay bfloat16 and the fused dots carry their fp32 partials
 (the kernels' reduce dtype) through the shard sum.
+
+A complex operator raises, naming ROADMAP.md Queue A item 5.8: no stencil
+kernel (nor its plain version) takes complex, and the TPU route never ran
+one (the JAX package's jnp body does take complex). Complex operators are
+assembled ``Mat``s.
 """
 
 from __future__ import annotations
@@ -70,6 +75,17 @@ def exchange_many(comm: DeviceComm, U):
     return comm.shift_open(U[:, :, -1], 1), comm.shift_open(U[:, :, 0], -1)
 
 
+def check_stencil_dtype(dtype: torch.dtype) -> None:
+    """Raise ``NotImplementedError`` for a complex stencil: the kernels and
+    their plain versions take f32/f64/bf16, and the complex stencil is
+    ROADMAP.md Queue A item 5.8."""
+    if dtype.is_complex:
+        raise NotImplementedError(
+            f"StencilPoisson3D in {dtype} is not ported "
+            "(ROADMAP.md Queue A item 5.8): no stencil kernel takes complex "
+            "values; assemble the operator as a Mat (Mat.from_scipy) instead")
+
+
 class StencilPoisson3D:
     """7-point 3D Poisson (Dirichlet) as a matrix-free sharded operator.
 
@@ -98,6 +114,7 @@ class StencilPoisson3D:
         n = self.nx * self.ny * self.nz
         self.shape = (n, n)
         self._dtype = torch_dtype(dtype)
+        check_stencil_dtype(self._dtype)
         self.layout = RowLayout(n, comm.size)
         self.lz = self.nz // comm.size   # local z-planes per shard
         self.force_plain = False

@@ -19,10 +19,11 @@ that each diagonal is one contiguous stream; the batched products take and
 return column blocks as ``(k, rows)``, again the transpose of the JAX
 ``(rows, k)``.
 
-Storage is fp32, fp64 or bfloat16 (the mixed-precision plan's storage): a
-bfloat16 product accumulates every tap or diagonal in fp32 and rounds once at
-the end, as the JAX package's do (``accum_dtype``, ``:25-35``). Other storage
-raises ``NotImplementedError``.
+Storage is fp32, fp64, complex64, complex128 or bfloat16 (the
+mixed-precision plan's storage): a bfloat16 product accumulates every tap or
+diagonal in fp32 and rounds once at the end, as the JAX package's do
+(``accum_dtype``, ``:25-35``); the others accumulate natively. Other storage
+raises ``NotImplementedError``. The host conversions keep complex values.
 """
 
 from __future__ import annotations
@@ -30,19 +31,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_STORAGE = (torch.float32, torch.float64, torch.bfloat16)
+_STORAGE = (torch.float32, torch.float64, torch.complex64, torch.complex128,
+            torch.bfloat16)
 
 
 def accum_dtype(dtype):
     """The accumulation dtype of a product in ``dtype`` storage: fp32 for
-    bfloat16, None for fp32/fp64 (they accumulate natively). Other storage
-    raises ``NotImplementedError``: the port takes bfloat16 (the
-    mixed-precision plan's storage), float32 and float64."""
+    bfloat16, None for fp32/fp64/complex64/complex128 (they accumulate
+    natively). Other storage raises ``NotImplementedError``: the port takes
+    bfloat16 (the mixed-precision plan's storage), float32, float64,
+    complex64 and complex128."""
     if dtype not in _STORAGE:
         raise NotImplementedError(
             f"{dtype} storage is not ported: the port's SpMV and PC applies "
-            "take float32/float64 and bfloat16, the mixed-precision plan's "
-            "storage")
+            "take float32/float64, complex64/complex128 and bfloat16, the "
+            "mixed-precision plan's storage")
     return torch.float32 if dtype == torch.bfloat16 else None
 
 
@@ -171,3 +174,17 @@ def csr_diag(indptr, indices, data, n):
     hit = np.asarray(indices) == rows
     diag[rows[hit]] = np.asarray(data)[hit]
     return diag
+
+
+def index_put_acc_(dst, indices, values):
+    """``dst.index_put_(indices, values, accumulate=True)``, and for complex
+    ``dst`` the same over ``torch.view_as_real``: the real and imaginary
+    parts scatter-add as two interleaved real lanes, each in the order the
+    real accumulate sums in, so either part's bits are those of a real
+    scatter-add of that part (CUDA's accumulating ``index_put_`` on complex
+    tensors is not relied on). Returns ``dst``."""
+    if not dst.is_complex():
+        return dst.index_put_(indices, values, accumulate=True)
+    torch.view_as_real(dst).index_put_(indices, torch.view_as_real(values),
+                                       accumulate=True)
+    return dst

@@ -21,7 +21,9 @@ The collectives keep their meaning, and give the same bits on either:
 
 * :meth:`DeviceComm.psum` sums per-shard partials in global shard order (a
   process comm all-gathers the partials and folds them in that order,
-  never ``all_reduce``, whose order NCCL does not fix);
+  never ``all_reduce``, whose order NCCL does not fix); complex partials
+  cross processes as their (re, im) pairs (``view_as_real``), so the fold
+  is the same on every backend;
 * :meth:`DeviceComm.shift` is the ring ``ppermute``: shard ``i`` receives
   the block of shard ``i - step``; :meth:`DeviceComm.shift_open` is the
   open chain, zeros entering at the global ends;
@@ -378,6 +380,11 @@ class ProcessComm(DeviceComm):
     def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
         if self._nprocs == 1:
             return x
+        if x.is_complex():
+            # complex payloads travel as their (re, im) pairs: the bits
+            # arrive unchanged on either backend
+            return torch.view_as_complex(
+                self.gather_shards(torch.view_as_real(x.contiguous())))
         w = self._out(x)
         if self.backend == "nccl":
             out = torch.empty((self._nprocs * w.shape[0],)
@@ -418,7 +425,12 @@ class ProcessComm(DeviceComm):
     def shift(self, x: torch.Tensor, step: int = 1) -> torch.Tensor:
         """The ring shift across processes: a roll inside the local stack,
         and the edge block swapped with the neighbouring ranks
-        (``batch_isend_irecv``). Steps of ``±1`` only."""
+        (``batch_isend_irecv``). Steps of ``±1`` only; complex blocks
+        travel as their (re, im) pairs."""
+        if x.is_complex() and self._nprocs > 1:
+            return torch.view_as_complex(
+                self.shift(torch.view_as_real(x.contiguous()), step)
+                .contiguous())
         self.collectives["shift"] += 1
         y = torch.roll(x, shifts=step, dims=0)
         if self._nprocs == 1:

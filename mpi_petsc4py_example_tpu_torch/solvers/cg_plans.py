@@ -48,6 +48,13 @@ fp32 and rounded once to bfloat16 (JAX ``st_(x + al * p)``, ``:367``,
 ``:376``, ``:459-460``, ``:469``, ``:480``, ``:497``); eager PyTorch would
 round ``al * p`` to bfloat16 before the add. Uniform plans run the loop
 exactly as before.
+
+Complex operators run the same loops: the reductions conjugate their first
+operand (the program builder's ``pdot``), the norms, tolerances and
+every converged-reason comparison stay real (:func:`_re` of a scalar the
+recurrence knows is real, JAX ``jnp.real``), and the s-step Gram matrix is
+``conj(C) C^T`` (JAX ``:1003-1005``). On real tensors each of these is the
+identity, bit for bit.
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ import torch
 
 from ..parallel.mesh import torch_dtype
 from ..utils.convergence import ConvergedReason as CR
-from ..utils.dtypes import reduce_dtype
+from ..utils.dtypes import real_dtype, reduce_dtype
 
 
 class PrecisionPlan:
@@ -170,10 +177,23 @@ def _live(rn, tol, dmax, it, maxit, brk):
     return (rn > tol) & (rn < dmax) & (it < maxit) & ~brk
 
 
+def _re(t):
+    """The real part of a scalar the recurrence knows to be real (a norm's
+    square, ``<r, M r>`` of a Hermitian ``M``), itself for a real tensor
+    (JAX ``jnp.real``)."""
+    return t.real if t.is_complex() else t
+
+
+def _zero_flag(t):
+    """A real tensor that is 0 exactly where ``t`` is: ``t`` itself when
+    real, ``|t|`` when complex (for the host reads of breakdown tests)."""
+    return t.abs() if t.is_complex() else t
+
+
 def _nat(rz):
     """KSP_NORM_NATURAL: ``sqrt <r, M r>``, the scalar the recurrence
     carries (JAX ``cg_plans._nat``)."""
-    return torch.sqrt(torch.clamp_min(rz, 0.0))
+    return torch.sqrt(torch.clamp_min(_re(rz), 0.0))
 
 
 def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
@@ -240,7 +260,7 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
                          pnorm=pnorm, prec=prec if mixed else None,
                          monitor=monitor)
     rn, tol_h, dmax_h, rz_h = torch.stack(
-        [rnorm, tol, dmax, rz.to(rnorm.dtype)]).tolist()
+        [rnorm, tol, dmax, _re(rz).to(rnorm.dtype)]).tolist()
     syncs = 1
     # a negative <r, M r> leaves the natural norm undefined: breakdown
     it, brk = 0, natural and rz_h < 0
@@ -302,7 +322,8 @@ def classic_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
         it += 1
         # the one host read of the iteration: the loop condition's scalars
         rn, pAp_h, rz_h = torch.stack(
-            [rn_new, pAp, rz.to(rn_new.dtype)]).tolist()
+            [rn_new, _zero_flag(pAp).to(rn_new.dtype),
+             _re(rz).to(rn_new.dtype)]).tolist()
         syncs += 1
         brk = brk or pAp_h == 0 or (natural and rz_h < 0)
         if monitor is not None:
@@ -450,7 +471,7 @@ def pipelined_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
     V = torch.zeros_like(S)
     gamma = torch.zeros(rn0.shape, dtype=sdt, device=b.device)
     alpha = torch.zeros_like(gamma)
-    sgn = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=sdt,
+    sgn = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=real_dtype(sdt),
                        device=b.device).reshape((4,) + (1,) * b.ndim)
     many = bp is not None
     if many:
@@ -498,7 +519,7 @@ def pipelined_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
             for i, c in enumerate((n, m, w, u)):
                 _mix_axpy(prec, c, V[i], be, out=V[i])
             _mix_axpy(prec, S, V, al * sgn, out=S)
-        rn_new = torch.sqrt(torch.clamp_min(rr, 0.0))
+        rn_new = torch.sqrt(torch.clamp_min(_re(rr), 0.0))
         if many:
             brk_t = brk_t | (cont & (denom == 0))
             rn = torch.where(cont, rn_new, rn)
@@ -576,13 +597,14 @@ def _sstep_coefficients(E, s, tol, dmax, maxit, it, rn, cont, brk,
         return tuple(np.stack(v, axis=-1) for v in zip(*cols))
     m = 2 * s + 1
     dt = E.dtype.type
+    rdt = np.real(E[:1, :1]).dtype
     Sm = sstep_shift(s, m).astype(E.dtype)
 
     def cmat(G, v):
         return G @ v
 
     def cdot(u, v):
-        return np.sum(u * v, axis=0)
+        return np.sum(np.conj(u) * v, axis=0)
 
     def onehot(i):
         v = np.zeros(m, E.dtype)
@@ -590,8 +612,8 @@ def _sstep_coefficients(E, s, tol, dmax, maxit, it, rn, cont, brk,
         return v
 
     G1, G2 = E[0:m, m:2 * m], E[m:2 * m, m:2 * m]
-    g0, w0, rr0 = E[0:m, 2 * m], E[m:2 * m, 2 * m], E[2 * m, 2 * m]
-    G1H = np.swapaxes(G1, 0, 1)
+    g0, w0, rr0 = E[0:m, 2 * m], E[m:2 * m, 2 * m], np.real(E[2 * m, 2 * m])
+    G1H = np.conj(np.swapaxes(G1, 0, 1))
     zero, one = dt(0), dt(1)
 
     def rz_of(zh, ch):
@@ -599,10 +621,10 @@ def _sstep_coefficients(E, s, tol, dmax, maxit, it, rn, cont, brk,
 
     phat, zhat, chat = onehot(0), onehot(s + 1), np.zeros(m, E.dtype)
     rz = rz_of(zhat, chat)
-    rr0p = np.maximum(rr0, zero)
+    rr0p = np.maximum(rr0, rdt.type(0))
     # the block-start refresh: rr0 is summed directly, not a difference
-    rn = np.where(cont, np.sqrt(rr0p), rn).astype(E.dtype)
-    rr_floor = _SSTEP_RR_FLOOR * m * np.finfo(E.dtype).eps * rr0p
+    rn = np.where(cont, np.sqrt(rr0p), rn).astype(rdt)
+    rr_floor = _SSTEP_RR_FLOOR * m * np.finfo(rdt).eps * rr0p
     rn_floor = np.sqrt(rr_floor)
     a = cont & (rn > tol)
     for _ in range(s):
@@ -614,9 +636,11 @@ def _sstep_coefficients(E, s, tol, dmax, maxit, it, rn, cont, brk,
         chat = np.where(a, chat + alpha * phat, chat)
         zhat = np.where(a, zhat - alpha * cmat(Sm, phat), zhat)
         rz_new = rz_of(zhat, chat)
-        rr_new = (rr0 - dt(2) * cdot(chat, w0) + cdot(chat, cmat(G2, chat)))
+        rr_new = (rr0 - rdt.type(2) * np.real(cdot(chat, w0))
+                  + np.real(cdot(chat, cmat(G2, chat))))
         floor_hit = rr_new <= rr_floor
-        rn_new = np.maximum(np.sqrt(np.maximum(rr_new, zero)), rn_floor)
+        rn_new = np.maximum(np.sqrt(np.maximum(rr_new, rdt.type(0))),
+                            rn_floor)
         beta = np.where(rz == 0, zero, rz_new / np.where(rz == 0, one, rz))
         phat = np.where(a, zhat + beta * phat, phat)
         rz = np.where(a, rz_new, rz)
@@ -836,8 +860,14 @@ def classic_cg_device(*, rtol, atol, maxit, dtol, A=None, M=None, Adot=None,
             pAp = pdot(p, Ap)
         brk = st["brk"] | (cont & (pAp == 0))
         al = ex(_safe_div(rz, pAp))
-        x = torch.where(cm, axpy(x, al, p), x)
-        r = torch.where(cm, axpy(r, -al, Ap), r)
+        if mixed:
+            x = torch.where(cm, axpy(x, al, p), x)
+            r = torch.where(cm, axpy(r, -al, Ap), r)
+        else:
+            # the unfused loop's operations, operand for operand: a complex
+            # product of -alpha can round apart from the negated product
+            x = torch.where(cm, torch.addcmul(x, al, p), x)
+            r = torch.where(cm, torch.addcmul(r, al, Ap, value=-1), r)
         if stencil:
             r32 = prec.up(r) if mixed else r
             rr = pdot(r32, r32)
@@ -885,7 +915,7 @@ def pipelined_cg_device(*, rtol, atol, maxit, dtol, A, M, pnorm, fused,
         S = torch.stack([w, u, r, x0])
         if "sgn" not in consts:
             consts["sgn"] = torch.tensor(
-                [-1.0, -1.0, -1.0, 1.0], dtype=sdt,
+                [-1.0, -1.0, -1.0, 1.0], dtype=real_dtype(sdt),
                 device=b.device).reshape((4,) + (1,) * b.ndim)
         it, brk = _zero_counts(rn0)
         gamma = torch.zeros(rn0.shape, dtype=sdt, device=b.device)
@@ -919,7 +949,7 @@ def pipelined_cg_device(*, rtol, atol, maxit, dtol, A, M, pnorm, fused,
                           for i, c in enumerate((n, m, w, u))])
         V = torch.where(cm, Vn, V)
         S = torch.where(cm, _mix_axpy(prec, S, V, al * consts["sgn"]), S)
-        rn_new = torch.sqrt(torch.clamp_min(rr, 0.0))
+        rn_new = torch.sqrt(torch.clamp_min(_re(rr), 0.0))
         return dict(st, S=S, V=V, gamma=torch.where(cont, g_new, gamma),
                     alpha=torch.where(cont, a_new, alpha),
                     rn=torch.where(cont, rn_new, st["rn"]),
@@ -949,7 +979,7 @@ def _sstep_coefficients_dev(E, s, Sm, tol, dmax, maxit, it, rn, cont, brk):
         return torch.matmul(G, v[..., None])[..., 0]
 
     def cdot(u, v):
-        return (u * v).sum(-1)
+        return (u.conj() * v).sum(-1)
 
     def onehot(i):
         v = torch.zeros((k, m), dtype=dt, device=E.device)
@@ -957,8 +987,9 @@ def _sstep_coefficients_dev(E, s, Sm, tol, dmax, maxit, it, rn, cont, brk):
         return v
 
     G1, G2 = Eb[:, 0:m, m:2 * m], Eb[:, m:2 * m, m:2 * m]
-    g0, w0, rr0 = Eb[:, 0:m, 2 * m], Eb[:, m:2 * m, 2 * m], Eb[:, 2 * m, 2 * m]
-    G1H = G1.transpose(1, 2)
+    g0, w0 = Eb[:, 0:m, 2 * m], Eb[:, m:2 * m, 2 * m]
+    rr0 = _re(Eb[:, 2 * m, 2 * m])
+    G1H = G1.transpose(1, 2).conj()
 
     def rz_of(zh, ch):
         return cdot(g0, zh) - cdot(ch, cmat(G1H, zh))
@@ -968,7 +999,7 @@ def _sstep_coefficients_dev(E, s, Sm, tol, dmax, maxit, it, rn, cont, brk):
     rz = rz_of(zhat, chat)
     rr0p = torch.clamp_min(rr0, 0.0)
     rn = torch.where(cont, torch.sqrt(rr0p), rn)
-    rr_floor = _SSTEP_RR_FLOOR * m * torch.finfo(dt).eps * rr0p
+    rr_floor = _SSTEP_RR_FLOOR * m * torch.finfo(real_dtype(dt)).eps * rr0p
     rn_floor = torch.sqrt(rr_floor)
     a = cont & (rn > tol)
     for _ in range(s):
@@ -982,7 +1013,8 @@ def _sstep_coefficients_dev(E, s, Sm, tol, dmax, maxit, it, rn, cont, brk):
         chat = torch.where(am, chat + alpha[:, None] * phat, chat)
         zhat = torch.where(am, zhat - alpha[:, None] * cmat(Sm, phat), zhat)
         rz_new = rz_of(zhat, chat)
-        rr_new = rr0 - 2.0 * cdot(chat, w0) + cdot(chat, cmat(G2, chat))
+        rr_new = (rr0 - 2.0 * _re(cdot(chat, w0))
+                  + _re(cdot(chat, cmat(G2, chat))))
         floor_hit = rr_new <= rr_floor
         rn_new = torch.maximum(torch.sqrt(torch.clamp_min(rr_new, 0.0)),
                                rn_floor)
@@ -1022,8 +1054,10 @@ def sstep_cg_device(*, rtol, atol, maxit, dtol, s, A, M, pnorm, gram,
         rn0 = pnorm(r)
         p = M(r)
         if "Sm" not in consts:
+            # in the Gram matrix's dtype (complex for a complex operator)
             consts["Sm"] = torch.from_numpy(sstep_shift(s, m)).to(
-                dtype=rn0.dtype, device=b.device)
+                dtype=torch.promote_types(rn0.dtype, b.dtype),
+                device=b.device)
         it, brk = _zero_counts(rn0)
         return dict(x=x, r=r, p=p, rn=rn0, tol=tol,
                     atol=torch.zeros_like(rn0) + atol,

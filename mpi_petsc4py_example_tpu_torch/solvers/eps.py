@@ -29,7 +29,16 @@ Types (``set_type`` / ``-eps_type``):
   the small-n oracle.
 
 ``arnoldi``, ``power``, ``subspace``, ``lobpcg`` and ``gd`` are not ported
-yet: ``set_type`` raises ``NotImplementedError`` for them.
+yet: ``set_type`` raises ``NotImplementedError`` for them, and so does
+constructing an :class:`SVD` (ROADMAP.md Queue A item 7).
+
+Complex operators (complex64/complex128) follow SLEPc's complex build, as
+the JAX package does: the factorization's projections conjugate the basis,
+the projected matrix ``H`` is complex (Hermitian for HEP/GHEP, solved by
+``eigh``; NHEP restarts on the complex, triangular Schur form, which has no
+2 x 2 blocks), the Ritz vectors are complex, ``get_eigenpair`` fills ``vr``
+with the whole complex vector and zeroes ``vi``, and ``compute_error``
+applies the operator to the complex vector.
 
 Spectral transformations (:mod:`.st`) and generalized Hermitian problems ``A
 x = lambda B x`` run on the transformed operator, with every inner product
@@ -54,6 +63,7 @@ import torch
 
 from ..core.vec import Vec
 from ..parallel.mesh import numpy_dtype
+from ..utils.dtypes import host_dtype, is_complex
 from ..utils.convergence import SolveResult
 from ..utils.options import global_options
 from .krylov import _cgs2_step, _pmatdot, shardwise_matmul
@@ -104,7 +114,7 @@ def _inner_products(comm, inner):
 
     def pnorm(u):
         bu = b_apply(u) if b_apply is not None else u
-        return torch.sqrt(comm.psum([torch.dot(u[i], bu[i])
+        return torch.sqrt(comm.psum([torch.vdot(u[i], bu[i]).real
                                      for i in range(size)]))
 
     if b_apply is None:
@@ -404,12 +414,13 @@ class EPS:
                 self._problem_type == EPSProblemType.GHEP
                 and not hasattr(self._bmat, "to_scipy")):
             raise ValueError("EPS 'lapack' needs assembled matrices (Mat)")
-        A = mat.to_scipy().toarray().astype(np.float64)
+        host_dt = host_dtype(mat.dtype)
+        A = mat.to_scipy().toarray().astype(host_dt)
         if self._problem_type == EPSProblemType.GHEP:
-            B = self._bmat.to_scipy().toarray().astype(np.float64)
+            B = self._bmat.to_scipy().toarray().astype(host_dt)
             lam, V = sla.eigh(A, B)
         elif self._problem_type == EPSProblemType.HEP:
-            lam, V = np.linalg.eigh((A + A.T) / 2.0)
+            lam, V = np.linalg.eigh((A + A.conj().T) / 2.0)
         else:
             lam, V = np.linalg.eig(A)
         if self.st.get_type() == "sinvert":
@@ -530,7 +541,7 @@ class EPS:
             _facto_steps(spmv, pmatdot, pnorm, V, H, k, ncv)
             # the one host read per restart: the small projected matrix (the
             # basis stays on the device)
-            Hh = H.cpu().numpy().astype(np.float64)
+            Hh = H.cpu().numpy().astype(host_dtype(dtype))
             syncs += 1
             beta, lam_t, S, order, rel, nconv = self._rayleigh_ritz(
                 Hh, ncv, nev, hermitian)
@@ -557,10 +568,17 @@ class EPS:
                     lam = self.st.back_transform(np.asarray(re + 1j * im))
                     return bool(self._metric(lam) >= thresh - 1e-12)
 
-                # the real Schur form, wanted eigenvalues first (the JAX
-                # _ordered_schur, :2048); LAPACK keeps 2x2 blocks whole, so
-                # sdim may differ from k by one
-                T, Z, sdim = scipy.linalg.schur(Hm, output="real", sort=want)
+                # the Schur form, wanted eigenvalues first (the JAX
+                # _ordered_schur, :2048): real, where LAPACK keeps 2x2
+                # blocks whole, so sdim may differ from k by one; complex
+                # (triangular) for a complex H
+                if np.iscomplexobj(Hm):
+                    T, Z, sdim = scipy.linalg.schur(
+                        Hm, output="complex",
+                        sort=lambda lam: want(lam.real, lam.imag))
+                else:
+                    T, Z, sdim = scipy.linalg.schur(Hm, output="real",
+                                                    sort=want)
                 k = int(min(max(sdim, 1), ncv - 1))
                 # never cut through a 2x2 (complex-pair) block: T[k, k-1] != 0
                 # couples rows k-1 and k, and cutting there would break the
@@ -600,13 +618,16 @@ class EPS:
         ncv = S.shape[0]
         take = order[:count]
         St = S[:, take].T
-        parts = [St.real] + ([St.imag] if np.iscomplexobj(St) else [])
+        # a complex basis takes the complex coefficients; a real one their
+        # real and imaginary parts apart (complex pairs of NHEP)
+        parts = ([St] if V.is_complex() else
+                 [St.real] + ([St.imag] if np.iscomplexobj(St) else []))
         coef = torch.tensor(np.ascontiguousarray(np.concatenate(parts)),
                             dtype=V.dtype, device=V.device)
         # (local_shards, rows, lsize), then (size, rows, lsize)
         Y = comm.gather_shards(shardwise_matmul(coef, V[:, :ncv]))
         Y = Y.transpose(0, 1).reshape(coef.shape[0], -1)  # (rows, n_pad)
-        Yh = Y.cpu().numpy().astype(np.float64)[:, :n]
+        Yh = Y.cpu().numpy().astype(host_dtype(V.dtype))[:, :n]
         vecs = Yh[:count] + (1j * Yh[count:] if len(parts) == 2 else 0.0)
         nrm = np.linalg.norm(vecs, axis=1, keepdims=True)
         nrm[nrm == 0] = 1.0
@@ -648,9 +669,16 @@ class EPS:
     def get_eigenpair(self, i: int, vr: Vec | None = None,
                       vi: Vec | None = None):
         """Fill ``vr``/``vi`` with the real and imaginary parts of the i-th
-        eigenvector and return its eigenvalue. Host-replicated: no
+        eigenvector and return its eigenvalue; a complex ``vr`` takes the
+        whole complex eigenvector and ``vi`` is zeroed (slepc4py's
+        complex build, JAX ``eps.py:1975``). Host-replicated: no
         collective call, so one rank alone may call it."""
         vec = self._eigenvectors[i]
+        if vr is not None and is_complex(vr.dtype):
+            vr.set_global(vec)
+            if vi is not None:
+                vi.set_global(np.zeros_like(vec))
+            return complex(self._eigenvalues[i])
         if vr is not None:
             vr.set_global(np.real(vec))
         if vi is not None:
@@ -671,7 +699,8 @@ class EPS:
         ``|lambda|``. Collective on a communicator of several processes:
         each product runs on this process's rows, and the squared norm of
         the residual's rows is summed over the shards in shard order (one
-        ``psum``), in fp64."""
+        ``psum``), in fp64 (complex128 for a complex operator, applied to
+        the complex vector itself)."""
         lam = complex(self._eigenvalues[i])
         vec = np.asarray(self._eigenvectors[i])
         A = self._mat
@@ -680,14 +709,25 @@ class EPS:
         comm = A.comm
         shards = comm.local_shards
 
+        wide = torch.complex128 if A.dtype.is_complex else torch.float64
+
         def rows(v):
             """This process's shards of the host vector ``v``, fp64."""
-            return torch.tensor(comm.local_rows(v), dtype=torch.float64,
+            return torch.tensor(comm.local_rows(v), dtype=wide,
                                 device=comm.device).view(shards, -1)
 
         def apply(op, v):
             vv = Vec.from_global(comm, v, dtype=op.dtype)
-            return op.mult(vv).data.view(shards, -1).to(torch.float64)
+            return op.mult(vv).data.view(shards, -1).to(wide)
+
+        if A.dtype.is_complex:
+            Av = apply(A, vec)
+            Bv = apply(self._bmat, vec) if self._bmat is not None \
+                else rows(vec)
+            r = Av - lam * Bv
+            sq = comm.psum([torch.vdot(r[s], r[s]).real
+                            for s in range(shards)])
+            return self._error(float(torch.sqrt(sq)), lam, error_type)
 
         # real operators: the real and imaginary parts apart (complex pairs
         # arise for NHEP only)
@@ -706,7 +746,10 @@ class EPS:
         ri = Avi - (lam.real * Bvi + lam.imag * Bvr)
         sq = comm.psum([torch.dot(rr[s], rr[s]) + torch.dot(ri[s], ri[s])
                         for s in range(shards)])
-        err = float(torch.sqrt(sq))
+        return self._error(float(torch.sqrt(sq)), lam, error_type)
+
+    @staticmethod
+    def _error(err, lam, error_type):
         t = str(error_type).lower()
         if t in ("relative", "eps_error_relative"):
             return err / max(abs(lam), np.finfo(np.float64).tiny)
@@ -719,3 +762,13 @@ class EPS:
     def __repr__(self):
         return (f"EPS(type={self._type!r}, problem={self._problem_type!r}, "
                 f"nev={self.nev}, which={self._which!r}, tol={self.tol})")
+
+
+class SVD:
+    """SLEPc's SVD object, not ported yet (ROADMAP.md Queue A item 7, real
+    and complex alike): constructing one raises ``NotImplementedError``."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SVD is not ported yet (ROADMAP.md Queue A item 7); the JAX "
+            "package's SVD, complex included, has no counterpart in the port")

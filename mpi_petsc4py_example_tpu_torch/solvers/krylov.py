@@ -41,6 +41,15 @@ Both builders take the precision plan from the operator's dtype (JAX
 their operands to fp32 (``:2341-2346``) and the CG-family loops run the
 mixed plan; richardson's body needs none; the other types raise, as in the
 JAX package.
+
+Every type runs on complex64/complex128 operators with the JAX package's
+complex arithmetic (``:2083-2085``): the reductions are Hermitian inner
+products (``torch.vdot`` per shard, conjugating the first operand), the
+Arnoldi projections conjugate the basis, GMRES's Givens rotations are
+complex, BiCG's shadow recurrence takes the conjugated coefficients, the
+transpose types run on the adjoint ``A^H v = conj(A^T conj(v))`` (and
+``M^H``), and the norms, tolerances and reason tests stay real. On real
+tensors each of these is the real operation, bit for bit.
 """
 
 from __future__ import annotations
@@ -51,8 +60,9 @@ import numpy as np
 import torch
 
 from ..utils.convergence import ConvergedReason as CR
+from ..utils.dtypes import real_dtype
 from . import cg_plans as _plans
-from .cg_plans import _dmax, _reason, _tol
+from .cg_plans import _dmax, _re, _reason, _tol
 
 # the JAX package's KSP_KERNELS (krylov.py:1999-2025), every one ported
 KSP_TYPES = ("cg", "pipecg", "sstep", "bcgs", "gmres", "fgmres", "cgs",
@@ -216,6 +226,12 @@ def _scalars(*ts) -> list:
     return torch.stack([t.reshape(()).to(ts[0].dtype) for t in ts]).tolist()
 
 
+def _atol_h(atol, dtype) -> float:
+    """``atol`` as the loop compares it: rounded to the real scalar of
+    ``dtype`` (a complex operator's tolerances are real)."""
+    return torch.tensor(atol, dtype=real_dtype(dtype)).item()
+
+
 def _nz(d):
     """``d`` with its zeros replaced by 1 (a guarded divisor)."""
     return torch.where(d == 0, 1.0, d)
@@ -237,7 +253,7 @@ def bcgs_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
     rnorm = pnorm(r)
     dmax = _dmax(rnorm, dtol)
     rn, tol_h, dmax_h = _scalars(rnorm, tol, dmax)
-    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+    atol_h = _atol_h(atol, b.dtype)
     syncs = 1
     one = torch.ones((), dtype=b.dtype, device=b.device)
     p = torch.zeros_like(b)
@@ -276,7 +292,7 @@ def _open(rnorm, tol, dmax, atol, monitor, *flags):
     """The set-up read of a loop: ``(rn, tol, dmax, atol)`` on the host (and
     the given device flags as bools), with the iteration-0 monitor call."""
     vals = _scalars(rnorm, tol, dmax, *flags)
-    atol_h = torch.tensor(atol, dtype=rnorm.dtype).item()
+    atol_h = _atol_h(atol, rnorm.dtype)
     _mon(monitor, 0, vals[0])
     return vals[:3] + [atol_h] + [v != 0 for v in vals[3:]]
 
@@ -308,9 +324,10 @@ def fbcgsr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
     rn, tol_h, dmax_h, atol_h = _open(rnorm, tol, dmax, atol, monitor)
     syncs = 1
     one = torch.ones((), dtype=b.dtype, device=b.device)
-    eps = torch.finfo(b.dtype).eps
+    eps = torch.finfo(real_dtype(b.dtype)).eps
     x, p, v = x0, torch.zeros_like(b), torch.zeros_like(b)
-    rho, rho_cur, alpha, omega = one, rnorm * rnorm, one, one
+    # rho_cur = (r^, r0) = ||r0||^2, real, typed as the operator's scalar
+    rho, rho_cur, alpha, omega = one, (rnorm * rnorm).to(b.dtype), one, one
     it, brk = 0, False
     while _live_h(rn, tol_h, dmax_h, it, maxit, brk):
         brk_t = (rho_cur == 0) | (omega == 0)
@@ -330,8 +347,11 @@ def fbcgsr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
         omega = torch.where(tt == 0, 0.0, ts / _nz(tt))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
-        rn2 = ss - 2 * (omega * ts) + omega.abs() ** 2 * tt
-        rn_t = torch.sqrt(torch.maximum(rn2, eps * ss))
+        # ||s - omega t||^2 = (s,s) - 2 Re(conj(omega) (t,s)) + |omega|^2
+        # (t,t) with the Hermitian inner product (JAX :643-648)
+        rn2 = (_re(ss) - 2 * _re(omega.conj() * ts)
+               + omega.abs() ** 2 * _re(tt))
+        rn_t = torch.sqrt(torch.maximum(rn2, eps * _re(ss)))
         rho, rho_cur = rho_cur, (rho_cur - alpha * rv) - omega * rt
         it += 1
         rn, brk = _step_read(rn_t, brk_t)
@@ -481,7 +501,7 @@ def cr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
     if natural:
         rnorm = _plans._nat(rho)
         tol = torch.clamp_min(rtol * rnorm, atol)
-        brk0 = rho < 0
+        brk0 = _re(rho) < 0
     else:
         tol = torch.clamp_min(rtol * pnorm(M(b)), atol)
         rnorm = pnorm(r)
@@ -500,7 +520,7 @@ def cr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
         w = A(r)
         rho_new = pdot(r, w)
         if natural:
-            brk_t = brk_t | (rho_new < 0)
+            brk_t = brk_t | (_re(rho_new) < 0)
         beta = torch.where(rho == 0, 0.0, rho_new / _nz(rho))
         p = r + beta * p
         q = w + beta * q
@@ -524,7 +544,9 @@ def minres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
     _, tol = _tol(pnorm, b, rtol, atol)
     r1 = b - A(x0)
     y = M(r1)
-    beta1 = torch.sqrt(torch.clamp_min(pdot(r1, y), 0.0))
+    # Hermitian A and SPD M: every Lanczos and rotation scalar is real,
+    # carried real-typed (complex vectors, real scalars; JAX :880-884)
+    beta1 = torch.sqrt(torch.clamp_min(_re(pdot(r1, y)), 0.0))
     rnorm0 = pnorm(r1)
     dmax = _dmax(rnorm0, dtol)
     scale = rnorm0 / _nz(beta1)
@@ -544,10 +566,10 @@ def minres_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
             yv = yv - (beta / _nz(beta_old)) * r1
         else:
             yv = yv - torch.zeros_like(beta) * r1
-        alfa = pdot(v, yv)
+        alfa = _re(pdot(v, yv))
         yv = yv - (alfa / safe_b) * r2
         y = M(yv)
-        beta_new = torch.sqrt(torch.clamp_min(pdot(yv, y), 0.0))
+        beta_new = torch.sqrt(torch.clamp_min(_re(pdot(yv, y)), 0.0))
         # the QR of the tridiagonal by Givens rotations
         oldeps = epsln
         delta = cs * dbar + sn * alfa
@@ -587,16 +609,17 @@ def symmlq_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
     rnorm0 = pnorm(r0)
     dmax = _dmax(rnorm0, dtol)
     y = M(r0)
-    beta1sq = pdot(r0, y)
+    # real-typed Lanczos scalars, as in minres (JAX :1650-1667)
+    beta1sq = _re(pdot(r0, y))
     beta1 = torch.sqrt(torch.clamp_min(beta1sq, 0.0))
     safe_b1 = _nz(beta1)
     v = y / safe_b1
     y2 = A(v)
-    alfa = pdot(v, y2)
+    alfa = _re(pdot(v, y2))
     y2 = y2 - (alfa / safe_b1) * r0
     r2 = y2
     y3 = M(r2)
-    betasq = pdot(r2, y3)
+    betasq = _re(pdot(r2, y3))
     beta = torch.sqrt(torch.clamp_min(betasq, 0.0))
     # the recurrence norms are M-weighted: the test runs on ||r||
     scale = rnorm0 / safe_b1
@@ -614,12 +637,12 @@ def symmlq_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
         v = yk / safe_beta
         yv = A(v)
         yv = yv - (beta_c / _nz(oldb)) * r1
-        alfa = pdot(v, yv)
+        alfa = _re(pdot(v, yv))
         yv = yv - (alfa / safe_beta) * r2
         r1, r2 = r2, yv
         yk = M(r2)
         oldb = beta_c
-        betasq = pdot(r2, yk)
+        betasq = _re(pdot(r2, yk))
         brk_t = betasq < 0
         beta = torch.sqrt(torch.clamp_min(betasq, 0.0))
         # the plane rotation of the tridiagonal's LQ factorization
@@ -718,7 +741,7 @@ def fcg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
         rz0 = pdot(r, z)
         rnorm = _plans._nat(rz0)
         tol = torch.clamp_min(rtol * rnorm, atol)
-        brk0 = rz0 < 0
+        brk0 = _re(rz0) < 0
     else:
         z = None                      # applied at the top of each body
         _, tol = _tol(pnorm, b, rtol, atol)
@@ -750,7 +773,7 @@ def fcg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, restart=30,
         if natural:
             z = M(r)
             rz = pdot(r, z)
-            brk_t = brk_t | (rz < 0)
+            brk_t = brk_t | (_re(rz) < 0)
             rn_t = _plans._nat(rz)
         else:
             rn_t = pnorm(r)
@@ -919,7 +942,7 @@ def chebyshev_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
     for _ in range(10):
         w = M(A(v))
         v = w / torch.clamp_min(pnorm(w), tiny)
-    lam_max = pdot(v, M(A(v))) / torch.clamp_min(pdot(v, v), tiny)
+    lam_max = pdot(v, M(A(v))) / torch.clamp_min(_re(pdot(v, v)), tiny)
     emax, emin = 1.1 * lam_max, 0.1 * lam_max
     theta = (emax + emin) / 2.0
     delta = (emax - emin) / 2.0
@@ -949,8 +972,10 @@ def chebyshev_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, dtol=None,
 def _hessenberg_lstsq(H, beta):
     """``min ||beta e1 - H y||`` for the upper-Hessenberg ``H`` of shape
     ``(m+1, m)``, by Givens rotations and back substitution: the JAX
-    function's arithmetic in numpy, in ``H``'s dtype, on the host. Returns
-    ``(y, |g[m]|)``."""
+    function's arithmetic in numpy, in ``H``'s dtype, on the host. The
+    rotations are complex-capable (JAX ``:683-694``): ``c`` real, ``s =
+    sgn(a) conj(b) / r``, applied as ``[c, s; -conj(s), c]``, the textbook
+    real rotation when ``conj`` is the identity. Returns ``(y, |g[m]|)``."""
     H = np.array(H)
     m = H.shape[1]
     one, zero = H.dtype.type(1), H.dtype.type(0)
@@ -963,11 +988,12 @@ def _hessenberg_lstsq(H, beta):
         safe = one if r == 0 else r
         sgn = one if aa == 0 else a / aa
         c = one if r == 0 else aa / safe
-        s = zero if r == 0 else sgn * bb / safe
+        s = zero if r == 0 else sgn * np.conj(bb) / safe
+        sc = np.conj(s)
         rj, rj1 = H[j].copy(), H[j + 1].copy()
-        H[j], H[j + 1] = c * rj + s * rj1, -s * rj + c * rj1
+        H[j], H[j + 1] = c * rj + s * rj1, -sc * rj + c * rj1
         gj, gj1 = g[j], g[j + 1]
-        g[j], g[j + 1] = c * gj + s * gj1, -s * gj + c * gj1
+        g[j], g[j + 1] = c * gj + s * gj1, -sc * gj + c * gj1
     y = np.zeros(m, H.dtype)
     for i in range(m - 1, -1, -1):
         rii = H[i, i]
@@ -1011,7 +1037,7 @@ def _restarted_cycles(cycle, update, b, x0, r, rn_t, tol, dmax, atol,
     solve stops (one cycle of extra work per solve). The residual a cycle
     starts from is the one the previous cycle ended with (the JAX body
     recomputes the same value). ``pnorm`` is the program's norm."""
-    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+    atol_h = _atol_h(atol, b.dtype)
 
     def read(scalars, H):
         """The cycle's one host read: the scalars and, when another cycle
@@ -1020,7 +1046,7 @@ def _restarted_cycles(cycle, update, b, x0, r, rn_t, tol, dmax, atol,
                          + ([H.reshape(-1)] if H is not None else []))
         h = flat.cpu().numpy()
         ns = len(scalars)
-        return ([float(v) for v in h[:ns]],
+        return ([float(np.real(v)) for v in h[:ns]],
                 h[ns:].reshape(m + 1, m) if H is not None else None)
 
     x, k = x0, 0
@@ -1154,7 +1180,7 @@ def lsqr_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, At=None,
     dmax = _dmax(beta, dtol)
     x, rhobar, phibar = x0, alfa, beta
     ph, tol_h, dmax_h = _scalars(phibar, tol, dmax)
-    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+    atol_h = _atol_h(atol, b.dtype)
     syncs = 1
     it, brk = 0, False
     _mon(monitor, 0, ph)
@@ -1200,7 +1226,7 @@ def bicg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, At=None,
     rnorm = pnorm(r)
     dmax = _dmax(rnorm, dtol)
     rn, tol_h, dmax_h = _scalars(rnorm, tol, dmax)
-    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+    atol_h = _atol_h(atol, b.dtype)
     syncs = 1
     x = x0
     it, brk = 0, False
@@ -1213,13 +1239,15 @@ def bicg_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, At=None,
         alpha = torch.where(brk_t, 0.0, rho / _nz(pq))
         x = x + alpha * p
         r = r - alpha * q
-        rt = rt - alpha * qt
+        # the shadow sequence takes the conjugated coefficients (PETSc's
+        # Hermitian-variant complex BiCG, JAX :1512, :1519)
+        rt = rt - alpha.conj() * qt
         z = M(r)
         zt = Mt(rt)
         rho_new = pdot(rt, z)
         beta = torch.where(rho == 0, 0.0, rho_new / _nz(rho))
         p = z + beta * p
-        pt = zt + beta * pt
+        pt = zt + beta.conj() * pt
         rho = rho_new
         it += 1
         rn, brk_h = _scalars(pnorm(r), brk_t)
@@ -1242,7 +1270,7 @@ def cgne_kernel(A, M, pdot, pnorm, b, x0, rtol, atol, maxit, At=None,
     rnorm = pnorm(r)
     dmax = _dmax(rnorm, dtol)
     rn, tol_h, dmax_h = _scalars(rnorm, tol, dmax)
-    atol_h = torch.tensor(atol, dtype=b.dtype).item()
+    atol_h = _atol_h(atol, b.dtype)
     syncs = 1
     x = x0
     it, brk = 0, False
@@ -1339,15 +1367,17 @@ def make_projector(comm, basis, prec):
 
 def shard_dots(comm, lift, cols=False):
     """``(pdot, pnorm)``: the dot of two shard-stacked tensors as one dot
-    per shard of the ``lift``-ed entries, summed in shard order by ONE
-    ``psum``, and the norm it gives. ``cols``: per column of ``(size, k,
+    per shard of the ``lift``-ed entries (``torch.vdot``, conjugating the
+    first; ``torch.dot`` bit for bit on real tensors), summed in shard
+    order by ONE ``psum``, and the real norm it gives. ``cols``: per
+    column of ``(size, k,
     lsize)`` blocks, each column's dot as the single-RHS one. The
     reductions of the unfused programs and of the fused one
     (``solvers/megasolve.py``), which must agree bit for bit."""
     size = comm.local_shards
 
     def dot(u, v):
-        return torch.dot(lift(u).reshape(-1), lift(v).reshape(-1))
+        return torch.vdot(lift(u).reshape(-1), lift(v).reshape(-1))
 
     def pdot(U, V):
         if cols:
@@ -1357,7 +1387,7 @@ def shard_dots(comm, lift, cols=False):
         return comm.psum([dot(U[i], V[i]) for i in range(size)])
 
     def pnorm(U):
-        return torch.sqrt(pdot(U, U))
+        return torch.sqrt(_re(pdot(U, U)))
 
     return pdot, pnorm
 
@@ -1371,7 +1401,7 @@ def fused_dots(comm, up, cols=False):
     size = comm.local_shards
 
     def dot(u, v):
-        return torch.dot(up(u).reshape(-1), up(v).reshape(-1))
+        return torch.vdot(up(u).reshape(-1), up(v).reshape(-1))
 
     def fdots(pairs):
         if cols:
@@ -1392,16 +1422,17 @@ def gram_psum(comm, cols=False):
     lsize)`` (``cols``: ``(size, q, k, lsize)``, one ``(q, q)`` block per
     column, returned as ``(q, q, k)``), one product per shard and column and
     ONE ``psum`` of the stacked partials: the s-step block's reduction (JAX
-    ``cg_plans.fuse_gram_psum``). A column's block is the product a
+    ``cg_plans.fuse_gram_psum``), ``conj(C) C^T`` for complex rows. A
+    column's block is the product a
     single-RHS solve makes: a batched product may accumulate its long sums
     in another order, which the monomial basis' conditioning magnifies."""
     def gram(C):
         if cols:
-            parts = [torch.stack([C[i, :, j] @ C[i, :, j].T
+            parts = [torch.stack([C[i, :, j].conj() @ C[i, :, j].T
                                   for j in range(C.shape[2])], dim=-1)
                      for i in range(C.shape[0])]
         else:
-            parts = [C[i] @ C[i].T for i in range(C.shape[0])]
+            parts = [C[i].conj() @ C[i].T for i in range(C.shape[0])]
         return comm.psum(parts)
 
     return gram
@@ -1550,7 +1581,12 @@ def _transpose_applies(comm, ksp_type, pc, operator, project) -> dict:
             f"{type(operator).__name__} provides no local_spmv_t")
     spmv_t = operator.local_spmv_t(comm)
     proj = project if project is not None else (lambda v: v)
-    kw = {"At": lambda v: spmv_t(proj(v))}
+    # complex scalars need the adjoint, not the transpose (JAX
+    # :2529-2544): A^H v = conj(A^T conj(v)), M^H r = conj(M^T conj(r))
+    cx = operator.dtype.is_complex
+    adj = ((lambda f: (lambda v: f(proj(v).conj()).conj())) if cx
+           else (lambda f: (lambda v: f(proj(v)))))
+    kw = {"At": adj(spmv_t)}
     if ksp_type == "bicg":
         pc_apply_t = pc.local_apply_transpose(comm, operator.shape[0])
         if pc_apply_t is None:
@@ -1562,7 +1598,7 @@ def _transpose_applies(comm, ksp_type, pc, operator, project) -> dict:
                 "cyclic-reduction mode has no transpose), composite-additive "
                 "of those, and shell with set_shell_apply_transpose; or use "
                 "bcgs/gmres for general preconditioning")
-        kw["Mt"] = lambda r: pc_apply_t(proj(r))
+        kw["Mt"] = adj(pc_apply_t)
     return kw
 
 
@@ -1583,10 +1619,14 @@ def _precision(ksp_type, operator):
 
 
 def _pmatdot(comm):
-    """``V (size, m+1, lsize), w (size, lsize) -> psum V_i w_i``: the
-    whole-basis projection of CGS2, one reduction."""
+    """``V (size, m+1, lsize), w (size, lsize) -> psum conj(V_i) w_i``:
+    the whole-basis projection of CGS2, one reduction (the basis
+    conjugated, JAX ``:2497-2499``), computed as ``conj(V_i conj(w_i))``:
+    ``torch.mv`` resolves a conjugated operand into a copy, which for the
+    basis would be ``m+1`` vectors a call, for ``w`` one. ``conj`` is the
+    identity on real tensors."""
     def pmatdot(V, w):
-        return comm.psum([torch.mv(V[i], w[i])
+        return comm.psum([torch.mv(V[i], w[i].conj()).conj()
                           for i in range(comm.local_shards)])
     return pmatdot
 

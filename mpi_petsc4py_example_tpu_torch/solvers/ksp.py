@@ -58,7 +58,7 @@ import torch
 from ..core.vec import Vec
 from ..parallel.mesh import numpy_dtype
 from ..utils.convergence import BatchedSolveResult, ConvergedReason, SolveResult
-from ..utils.dtypes import tolerance_dtype
+from ..utils.dtypes import host_dtype, tolerance_dtype
 from ..utils.options import global_options
 from .krylov import (BATCHED_TYPES, NATURAL_TYPES, batched_pc_supported,
                      build_ksp_program, build_ksp_program_many,
@@ -825,7 +825,7 @@ class KSP:
         factor, A64 = self.get_pc()._hostlu
         self._last_reentries = 0
         t0 = time.perf_counter()
-        bh = np.asarray(b.to_numpy(), dtype=np.float64)
+        bh = np.asarray(b.to_numpy(), dtype=host_dtype(self._mat.dtype))
         xh = factor.solve(bh)
         x.set_global(xh.astype(numpy_dtype(self._mat.dtype)))
         rnorm = float(np.linalg.norm(bh - A64 @ xh))

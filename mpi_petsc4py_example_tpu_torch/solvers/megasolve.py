@@ -46,6 +46,10 @@ while they lived (``ROADMAP.md`` Queue C). The choice is made from the
 communicator alone, and ``MegasolveResult.graph`` says which ran. A capture or replay that fails raises; nothing re-runs it
 eagerly.
 
+A complex operator takes the general plan (its stencil fast path stays off,
+JAX ``megasolve.py:127``), with the conjugating reductions of the unfused
+programs and real outer norms and targets (``utils.dtypes.tolerance_dtype``).
+
 The kernel wrappers count launches in Python, which a replay does not run:
 a capture records each piece's launches and collectives (and undoes the
 counts the capture pass made), and each replay adds them to
@@ -259,7 +263,8 @@ class MegasolveProgram:
                          dtol=z(itdt), maxit=z(torch.int64),
                          rmax=z(torch.int64), stag=z(torch.int32),
                          iatol=z(itdt, rn_shape))
-        rdt = reduce_dtype(out_dt)
+        # the outer norm and target: real, also for a complex operator
+        rdt = tolerance_dtype(out_dt)
         self.out = dict(b=z(out_dt, shape), x=z(out_dt, shape),
                         r=z(out_dt, shape), rn=z(rdt, rn_shape),
                         tol=z(rdt, rn_shape), it=z(torch.int64),

@@ -55,6 +55,13 @@ package does (``pc.py:474-483``, ``:618-632``). PC ``mg`` runs its V-cycle
 in bfloat16 there, on the route the TPU takes at bfloat16 storage: the
 bfloat16 smooth/residual/smooth-pair kernels, with the transfers lifted to
 fp32 (``solvers/mg.py``).
+
+On a complex operator the host factorizations run in complex128
+(``utils.dtypes.host_dtype``; JAX ``pc.py:1169``), the card's set-up
+inverts complex blocks behind the same gate, cholesky requires a Hermitian
+operator (a complex-symmetric one raises ``ValueError``) and its
+cyclic-reduction transpose apply is ``conj(M(conj(r)))`` (JAX
+``pc.py:688-695``); gamg/amg raise as for real operators.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.spmv import widened_einsum
+from ..ops.spmv import index_put_acc_, widened_einsum
 from ..parallel.mesh import (full_vector_local_apply, numpy_dtype, to_host,
                              torch_dtype)
 from ..utils.dtypes import host_dtype, is_low_precision, real_eps
@@ -448,14 +455,20 @@ class PC:
         transpose their explicit inverses; composite additive sums its
         children's transposes; shell takes ``set_shell_apply_transpose``'s
         function. asm, lu's cyclic-reduction modes and composite
-        multiplicative have none."""
+        multiplicative have none. On a complex operator this is the plain
+        transpose ``M^T``; the Krylov loops make the adjoint from it."""
         if self._type not in ("none", "mg"):
             self.set_up()
         k = self.kind
         if k in ("none", "jacobi", "mg"):
             return self.local_apply(comm, n)
         if k in ("crtri", "crband") and self._type == "cholesky":
-            return self.local_apply(comm, n)
+            # cholesky's operator is symmetric, or Hermitian when complex:
+            # M^T = conj(M), so M^T r = conj(M(conj(r))) (JAX pc.py:688-695)
+            fwd = self.local_apply(comm, n)
+            if self._mat is not None and self._mat.dtype.is_complex:
+                return lambda r: fwd(r.conj()).conj()
+            return fwd
         if k == "bjacobi":
             binv = self._arrays[0]
             nblk, bs = binv.shape[0], binv.shape[1]
@@ -606,11 +619,12 @@ def _require_assembled(mat, pc_name: str):
 
 
 def _require_symmetric(mat):
-    """PC cholesky needs a symmetric operator (JAX ``pc.py:271-286``), to a
-    tolerance that scales with the operator's dtype."""
+    """PC cholesky needs a symmetric (complex: Hermitian) operator (JAX
+    ``pc.py:271-286``), to a tolerance that scales with the operator's
+    dtype: a complex-symmetric, non-Hermitian matrix is refused."""
     _require_assembled(mat, "cholesky")
     S = mat.to_scipy()
-    D = (S - S.T).tocsr()
+    D = (S - S.conj().T).tocsr()
     scale = abs(S).max() or 1.0
     rel = max(1e-10, 100 * real_eps(mat.dtype))
     if D.nnz and abs(D).max() > rel * scale:
@@ -623,10 +637,13 @@ def _want_device_setup(device, dtype, setup_device, f64_ok: bool = False
     """Resolve ``-pc_setup_device`` for a communicator on ``device`` (a
     ``torch.device``) and an operator of ``dtype`` (JAX ``pc.py:883-908``,
     with CUDA in the TPU's place): '0' is the host, '1' the device program
-    on either device; 'auto' is the device on CUDA for float32, or float64
-    when the caller passes ``f64_ok`` (bjacobi, dense lu and block PCR all
-    do: CUDA has a native fp64 LU), and the host otherwise (on the CPU the
-    device program would be host LAPACK again; bfloat16 has no LU)."""
+    on either device; 'auto' is the device on CUDA for float32 and
+    complex64, or float64 and complex128 when the caller passes ``f64_ok``
+    (bjacobi, dense lu and block PCR all do: CUDA has native fp64 and
+    complex128 LUs), and the host otherwise (on the CPU the device program
+    would be host LAPACK again; bfloat16 has no LU). The JAX package keeps
+    complex off 'auto' only because its TPU runtime has no complex
+    support."""
     s = str(setup_device).lower()
     if s in ("0", "false", "host", "no"):
         return False
@@ -638,7 +655,8 @@ def _want_device_setup(device, dtype, setup_device, f64_ok: bool = False
     if torch.device(device).type != "cuda":
         return False
     dt = torch_dtype(dtype)
-    return dt == torch.float32 or (f64_ok and dt == torch.float64)
+    return (dt in (torch.float32, torch.complex64)
+            or (f64_ok and dt in (torch.float64, torch.complex128)))
 
 
 def _per_device_inverse(A, n, lsize, ndev, block_inv, host_dt=np.float64,
@@ -743,7 +761,7 @@ def _build_bjacobi(mat, blocks: int = 0, setup_device: str = "auto"):
         inv = _per_device_inverse(
             mat.to_scipy().tocsr(), n, bs, comm.local_shards * nb,
             lambda B: scipy.linalg.inv(B.toarray().astype(host_dt)),
-            first=comm.shard_offset * nb)
+            host_dt=host_dt, first=comm.shard_offset * nb)
     return (_to_device(comm, inv, mat.dtype),), "host", None
 
 
@@ -803,9 +821,9 @@ def _ell_diag_blocks(cols, vals, bs: int, n: int,
     inside = (cc >= 0) & (cc < bs) & (r + row0 < n)
     blk_s = torch.where(inside, blk, M)
     X = torch.zeros((M + 1, bs, bs), dtype=vals.dtype, device=dev)
-    X.index_put_((blk_s.reshape(-1), (r % bs).reshape(-1),
-                  torch.where(inside, cc, 0).reshape(-1)),
-                 torch.where(inside, vals, 0).reshape(-1), accumulate=True)
+    index_put_acc_(X, (blk_s.reshape(-1), (r % bs).reshape(-1),
+                       torch.where(inside, cc, 0).reshape(-1)),
+                   torch.where(inside, vals, 0).reshape(-1))
     X = X[:M]
     i = torch.arange(min(max(n - row0, 0), rows), rows, device=dev)
     X[i // bs, i % bs, i % bs] = 1
@@ -819,8 +837,8 @@ def _densify_ell(cols, vals, n: int) -> torch.Tensor:
     dev = cols.device
     X = torch.zeros((n_pad, n_pad), dtype=vals.dtype, device=dev)
     rows = torch.arange(n_pad, device=dev)[:, None].expand(n_pad, K)
-    X.index_put_((rows.reshape(-1), cols.long().reshape(-1)),
-                 vals.reshape(-1), accumulate=True)
+    index_put_acc_(X, (rows.reshape(-1), cols.long().reshape(-1)),
+                   vals.reshape(-1))
     i = torch.arange(n, n_pad, device=dev)
     X[i, i] = 1
     return X
@@ -987,7 +1005,7 @@ def _build_host_splu(mat, pc_type: str):
     irreducible-sparsity mode; applied by ``KSP._solve_hostlu``."""
     from scipy.sparse.linalg import splu
     _require_assembled(mat, pc_type)
-    A64 = mat.to_scipy().astype(np.float64).tocsc()
+    A64 = mat.to_scipy().astype(host_dtype(mat.dtype)).tocsc()
     return splu(A64), A64
 
 
@@ -1052,8 +1070,9 @@ def dense_inverse_padded(comm, M, dtype, too_large: str,
     if n > _DENSE_CAP:
         raise ValueError(too_large)
     n_pad = comm.padded_size(n)
-    inv_pad = np.zeros((n_pad, n_pad), dtype=np.float64)
-    inv_pad[:n, :n] = scipy.linalg.inv(M.toarray().astype(np.float64))
+    host_dt = host_dtype(dtype)
+    inv_pad = np.zeros((n_pad, n_pad), dtype=host_dt)
+    inv_pad[:n, :n] = scipy.linalg.inv(M.toarray().astype(host_dt))
     return _to_device(comm, comm.local_rows(inv_pad) if local else inv_pad,
                       dtype)
 

@@ -26,7 +26,9 @@ they are made once at set-up and every solve only streams them.
   eager PyTorch would not).
 
 PCR is pivotless: it is exact for diagonally dominant / SPD systems and runs
-in fp64 by default; KSP preonly's refinement steps polish the rest.
+in fp64 by default; KSP preonly's refinement steps polish the rest. A
+complex operator is set up in complex128 (``utils.dtypes.host_dtype``) on
+either side, and its sweeps run in its own complex dtype.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..ops.spmv import index_put_acc_
 from ..parallel.mesh import torch_dtype
 from ..utils.dtypes import host_dtype, real_eps
 
@@ -89,7 +92,8 @@ def _cast_probe_error(apply, rhs, factors, dtype) -> float:
     dt = torch_dtype(dtype)
     cast = [torch.from_numpy(np.ascontiguousarray(a)).to(dt)
             for a in (rhs,) + tuple(factors)]
-    x = apply(cast[0].reshape(-1), *cast[1:]).to(torch.float64)
+    x = apply(cast[0].reshape(-1), *cast[1:]).to(
+        torch.complex128 if dt.is_complex else torch.float64)
     if not bool(torch.isfinite(x).all()):
         return float("inf")
     return float((x - 1.0).abs().max())
@@ -436,7 +440,7 @@ def bpcr_setup_device_csr(A_csr, b: int, comm, dtype, timings=None):
     lin = np.concatenate([
         _flat_index(N, b, delta + 1, bi, row - bi * b, col - bj * b),
         _flat_index(N, b, 1, pad_r // b, pad_r % b, pad_r % b)])
-    vals = np.concatenate([np.asarray(coo.data, np.float64),
+    vals = np.concatenate([np.asarray(coo.data, host_dtype(A_csr.dtype)),
                            np.ones(pad_r.size)])
     t1 = time.perf_counter()
     out = _bpcr_device_factor(comm, dtype, N, b, vals, lin)
@@ -454,10 +458,11 @@ def bpcr_setup_device(Ab, Bb, Cb, comm, dtype):
     B0 = np.asarray(Bb)
     if B0.shape[0] == 0:
         raise ValueError("bpcr_setup_device: empty system")
-    T = np.stack([np.asarray(Ab), B0, np.asarray(Cb)]).astype(np.float64)
+    host_dt = host_dtype(dt)
+    T = np.stack([np.asarray(Ab), B0, np.asarray(Cb)]).astype(host_dt)
     T[0, 0] = 0.0
     T[2, -1] = 0.0
-    T = torch.from_numpy(T).to(dt).to(torch.float64).numpy()
+    T = torch.from_numpy(T).to(dt).to(torch_dtype(host_dt)).numpy()
     d, bi, rr, cc = np.nonzero(T)
     N, b = B0.shape[0], B0.shape[1]
     return _bpcr_device_factor(comm, dt, N, b, T[d, bi, rr, cc],
@@ -504,12 +509,11 @@ def _bpcr_device_factor(comm, dtype, N: int, b: int, vals, lin):
     the device, or ``None`` with a ``RuntimeWarning`` when a probe fails."""
     dev = comm.device
     dt = torch_dtype(dtype)
-    cdt = torch.float64
+    cdt = torch_dtype(host_dtype(dt))          # complex128 for complex
     S = _sweeps(N)
     T = torch.zeros(3 * N * b * b, dtype=cdt, device=dev)
-    T.index_put_((torch.from_numpy(lin).to(dev).long(),),
-                  torch.from_numpy(np.asarray(vals, np.float64)).to(dev),
-                  accumulate=True)
+    index_put_acc_(T, (torch.from_numpy(lin).to(dev).long(),),
+                   torch.from_numpy(np.asarray(vals)).to(dev, cdt))
     A, B, C = T.view(3, N, b, b).unbind(0)
     d1 = (A + B + C).sum(-1).reshape(-1)          # A · ones, the probe rhs
     eye = torch.eye(b, dtype=cdt, device=dev)
@@ -538,7 +542,7 @@ def _bpcr_device_factor(comm, dtype, N: int, b: int, vals, lin):
     q64 = _probe(al, ga, binv, d1)
     q64 = torch.where(finite, q64, torch.full_like(q64, float("inf")))
     out = (al.to(dt), ga.to(dt), binv.to(dt))
-    qc = _probe(*out, d1.to(dt)).to(cdt) if dt != cdt else q64
+    qc = _probe(*out, d1.to(dt)).to(q64.dtype) if dt != cdt else q64
     q64, qc = torch.stack([q64, qc]).tolist()     # the one host read
     if not (np.isfinite(q64) and np.isfinite(qc)) \
             or q64 > PROBE_GATE or qc > CAST_PROBE_GATE:

@@ -36,11 +36,25 @@ def inner_precision_dtype(name: str) -> torch.dtype:
         f"unknown inner precision {name!r}; choose from bf16/f32/f64")
 
 
+def is_complex(dtype) -> bool:
+    """True for complex64/complex128 (a ``torch.dtype`` or anything numpy
+    reads as a dtype; JAX ``utils/dtypes.py:18``)."""
+    return torch_dtype(dtype).is_complex
+
+
+def real_dtype(dtype) -> torch.dtype:
+    """The real scalar dtype of ``dtype``: float32 for complex64, float64
+    for complex128, ``dtype`` itself for a real one. Norms, tolerances and
+    the converged-reason comparisons of a complex solve travel in it."""
+    dt = torch_dtype(dtype)
+    return dt.to_real() if dt.is_complex else dt
+
+
 def host_dtype(dtype):
     """The host fp64-precision counterpart of ``dtype`` that host-side
     factorizations run in: complex128 for complex dtypes, float64 otherwise
     (JAX ``utils/dtypes.py:24``)."""
-    return np.complex128 if torch_dtype(dtype).is_complex else np.float64
+    return np.complex128 if is_complex(dtype) else np.float64
 
 
 def is_low_precision(dtype) -> bool:
@@ -60,12 +74,10 @@ def reduce_dtype(storage) -> torch.dtype:
 def tolerance_dtype(storage) -> torch.dtype:
     """The real scalar dtype tolerances and norms travel in: the real
     counterpart of the reduce dtype (fp32 under bf16 storage)."""
-    rdt = reduce_dtype(storage)
-    return rdt.to_real() if rdt.is_complex else rdt
+    return real_dtype(reduce_dtype(storage))
 
 
 def real_eps(dtype) -> float:
     """Machine epsilon of the real scalar of ``dtype`` (2^-7 for
     bfloat16, as ``ml_dtypes.finfo`` gives it)."""
-    dt = torch_dtype(dtype)
-    return float(torch.finfo(dt.to_real() if dt.is_complex else dt).eps)
+    return float(torch.finfo(real_dtype(dtype)).eps)

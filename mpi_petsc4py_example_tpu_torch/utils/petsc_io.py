@@ -19,9 +19,8 @@ host readers take ``scalar='real'|'complex'`` (the file carries no flag);
 a real-scalar read of a complex-build file is detected by its leftover
 payload and raises, pointing at ``scalar='complex'``, for path loads and
 seekable streamed reads alike. Loading rejects ``--with-64-bit-indices``
-files. ``load_mat``/``load_vec`` build the port's ``Mat``/``Vec``, which
-hold real scalars only: ``scalar='complex'`` raises ``NotImplementedError``
-there (complex scalars are ROADMAP.md Queue A item 5).
+files. ``load_mat``/``load_vec`` build the port's ``Mat``/``Vec``; with
+``scalar='complex'`` a Mat defaults to complex128, as in the JAX package.
 
 On a communicator of several processes ``save_mat``/``save_vec`` are
 collective (rank 0 writes, then a barrier) and ``load_mat``/``load_vec``
@@ -208,15 +207,6 @@ def read_mat(path, scalar: str = "real"):
 
 # ---- the port's Mat and Vec ------------------------------------------------
 
-def _real_only(scalar: str):
-    _scalar_dtype(scalar)
-    if scalar == "complex":
-        raise NotImplementedError(
-            "complex scalars are not ported (ROADMAP.md Queue A item 5): the "
-            "port's Mat and Vec hold bfloat16/float32/float64; read the file "
-            "with read_mat/read_vec(scalar='complex') on the host")
-
-
 def _save(comm, path, write, obj) -> None:
     """Rank 0 writes (and flushes an open file), then every process meets
     at a barrier, so a load that follows on any rank reads the whole file:
@@ -238,11 +228,12 @@ def save_mat(path, mat) -> None:
 
 def load_mat(path, comm, dtype=None, scalar: str = "real"):
     """``MatLoad``: read a PETSc binary Mat into a row-sharded Mat on
-    ``comm`` (float64 unless ``dtype`` says otherwise). Every process reads
-    the whole file and places its rows, as ``Mat.from_csr`` does."""
-    _real_only(scalar)
+    ``comm`` (float64, complex128 for ``scalar='complex'``, unless
+    ``dtype`` says otherwise). Every process reads the whole file and places
+    its rows, as ``Mat.from_csr`` does."""
     A = read_mat(path, scalar=scalar)
-    return Mat.from_scipy(comm, A, dtype=dtype or torch.float64)
+    default = torch.complex128 if scalar == "complex" else torch.float64
+    return Mat.from_scipy(comm, A, dtype=dtype or default)
 
 
 def save_vec(path, vec) -> None:
@@ -253,7 +244,7 @@ def save_vec(path, vec) -> None:
 
 def load_vec(path, comm, dtype=None, scalar: str = "real"):
     """``VecLoad``: read a PETSc binary Vec into a row-sharded Vec on
-    ``comm``; every process reads the file and places its rows."""
-    _real_only(scalar)
+    ``comm`` (in the file's scalar unless ``dtype`` says otherwise); every
+    process reads the file and places its rows."""
     arr = read_vec(path, scalar=scalar)
     return Vec.from_global(comm, arr, dtype=dtype)

@@ -199,12 +199,28 @@ def test_load_on_the_shards_and_solve_like_jax(ndev, tmp_path):
 
 
 def test_load_f32_and_refuse_complex_naming_item_5(tmp_path):
+    """Since item 5.6 landed the device loads take complex-build files
+    (complex128 by default); a complex read of a real-build file is the
+    layout error the host reader reports."""
     p = tmp_path / "m.petsc"
     pio.write_mat(p, poisson2d(3))
     comm = pt.DeviceComm(2, device="cpu")
     assert pio.load_mat(p, comm, dtype=torch.float32).dtype == torch.float32
-    for load in (pio.load_mat, pio.load_vec):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            load(p, comm, scalar="complex")
+    pr = tmp_path / "r.petsc"
+    pio.write_vec(pr, np.arange(9.0))
+    for load, path in ((pio.load_mat, p), (pio.load_vec, pr)):
+        with pytest.raises(ValueError, match="truncated"):
+            load(path, comm, scalar="complex")
+    pc = tmp_path / "c.petsc"
+    A = (poisson2d(3) * (1.0 + 0.5j)).tocsr()
+    pio.write_mat(pc, A)
+    M = pio.load_mat(pc, comm, scalar="complex")
+    assert M.dtype == torch.complex128
+    np.testing.assert_array_equal(M.to_scipy().toarray(), A.toarray())
+    pv = tmp_path / "v.petsc"
+    pio.write_vec(pv, np.arange(9) * (1.0 - 2.0j))
+    v = pio.load_vec(pv, comm, scalar="complex")
+    assert v.dtype == torch.complex128
+    np.testing.assert_array_equal(v.to_numpy(), np.arange(9) * (1.0 - 2.0j))
     with pytest.raises(ValueError, match="scalar must be"):
         pio.load_mat(p, comm, scalar="quaternion")
