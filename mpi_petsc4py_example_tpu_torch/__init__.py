@@ -18,15 +18,26 @@ it; pass ``device="cpu"`` to run on the CPU, where every kernel is replaced by
 its plain PyTorch version. ``init_multihost()`` joins a ``torch.distributed``
 group and returns a ``ProcessComm``, the same mesh with one process per
 rank (``python -m mpi_petsc4py_example_tpu_torch.run -n N --procs``).
+
+``resilience`` holds fault injection, the silent-corruption guard's ABFT
+checksums, ``resilient_solve``, ``KSPFallbackChain`` and the elastic
+shrink; ``utils.checkpoint`` the mesh-portable checkpoints.
 """
 
 from .core.mat import Mat
 from .core.nullspace import NullSpace
 from .core.shell import ShellMat
 from .core.vec import Vec
-from .models.poisson import poisson3d_csr
+from .models.poisson import poisson2d_ell, poisson3d_csr, poisson3d_ell
 from .models.stencil import StencilPoisson3D
-from .parallel.mesh import DeviceComm, ProcessComm, init_multihost
+from .parallel.mesh import (DeviceComm, ProcessComm, as_comm,
+                            get_default_comm, init_multihost,
+                            set_default_comm)
+from .parallel.partition import (RowLayout, concat_csr_blocks,
+                                 ownership_range, partition_csr,
+                                 row_partition, slice_csr_block)
+from . import resilience
+from .resilience.faults import HealthMonitor, inject_faults
 from .solvers.cg_plans import PrecisionPlan, precision_plan
 from .solvers.eps import EPS, SVD
 from .solvers.ksp import KSP
@@ -34,15 +45,32 @@ from .solvers.pc import PC
 from .solvers.refine import RefinedKSP
 from .solvers.st import ST
 from .utils.convergence import (BatchedSolveResult, ConvergedReason,
-                                SolveResult)
-from .utils import petsc_io
-from .utils.options import global_options, init
+                                RecoveryEvent, SolveResult)
+from .utils.errors import DeviceExecutionError, SilentCorruptionError
+from .utils import checkpoint, petsc_io
+from .utils.options import Options, global_options, init
 
 __all__ = ["DeviceComm", "ProcessComm", "init_multihost",
+           "get_default_comm", "set_default_comm", "as_comm",
+           "RowLayout", "row_partition", "ownership_range",
+           "slice_csr_block", "partition_csr", "concat_csr_blocks",
            "Vec", "Mat", "ShellMat", "NullSpace", "KSP", "PC",
-           "EPS", "ST", "SVD", "petsc_io",
+           "EPS", "ST", "SVD", "petsc_io", "checkpoint",
            "RefinedKSP", "PrecisionPlan", "precision_plan",
            "StencilPoisson3D",
-           "poisson3d_csr", "ConvergedReason", "SolveResult",
+           "poisson3d_csr", "poisson3d_ell", "poisson2d_ell",
+           "ConvergedReason", "RecoveryEvent", "SolveResult",
            "BatchedSolveResult",
-           "global_options", "init"]
+           "DeviceExecutionError", "SilentCorruptionError",
+           "Options", "global_options", "init",
+           "resilience", "inject_faults", "HealthMonitor", "RetryPolicy",
+           "resilient_solve", "resilient_solve_many", "KSPFallbackChain",
+           "ElasticPolicy"]
+
+
+def __getattr__(name):
+    # the resilience wrappers load on first use (JAX __init__.py:108-113)
+    if name in ("RetryPolicy", "resilient_solve", "resilient_solve_many",
+                "KSPFallbackChain", "ElasticPolicy"):
+        return getattr(resilience, name)
+    raise AttributeError(name)

@@ -507,9 +507,57 @@ def _case_comm(comm, case):
     }
 
 
+def _case_sdc(comm, case):
+    """The silent-corruption guard under an injected fault: the stencil CG
+    of ``grid`` (``ksp`` cg/pipecg/sstep, ``pc``, ``dtype``, ``rtol``) with
+    ``-ksp_abft`` and ``-ksp_residual_replacement rr``, the fault ``spec``
+    armed; the detection (detector, iteration, the rolled-back iterate),
+    then ``resilient_solve``'s recovery (iterations, attempts, the events,
+    the final iterate). ``k`` columns go through ``solve_many`` and
+    ``resilient_solve_many`` instead."""
+    from mpi_petsc4py_example_tpu_torch.resilience import faults
+    geometry = tuple(case["grid"])
+    dt = _DTYPES[case.get("dtype", "f64")]
+    op = pt.StencilPoisson3D(comm, *geometry, dtype=dt)
+    n = op.shape[0]
+    k = case.get("k")
+    B = rhs(n, case.get("seed", 0), k)
+    ksp = _stencil_ksp(comm, case, op)
+    ksp.abft = True
+    ksp.residual_replacement = int(case.get("rr", 8))
+    policy = pt.RetryPolicy(sleep=lambda _d: None)
+    out = {}
+    with faults.inject_faults(case["spec"]):
+        try:
+            if k:
+                ksp.solve_many(B, np.zeros((n, k)))
+            else:
+                x = op.get_vecs()[0]
+                ksp.solve(pt.Vec.from_global(comm, B, dtype=dt), x)
+        except pt.SilentCorruptionError as e:
+            out.update(detector=e.detector, det_it=e.iteration,
+                       x_rollback=(x.to_numpy() if not k else 0))
+    # the same fault again, now under the resilient wrapper
+    with faults.inject_faults(case["spec"]):
+        if k:
+            X = np.zeros((n, k))
+            res = pt.resilient_solve_many(ksp, B, X, policy)
+            out["x"] = X
+        else:
+            b = pt.Vec.from_global(comm, B, dtype=dt)
+            x = op.get_vecs()[0]
+            res = pt.resilient_solve(ksp, b, x, policy)
+            out["x"] = x.to_numpy()
+    out.update(its=np.asarray(res.iterations), attempts=res.attempts,
+               sdc=res.sdc_detections,
+               events=json.dumps([(e.kind, e.attempt, e.detector)
+                                  for e in res.recovery_events]))
+    return out
+
+
 _KINDS = {"cg": _case_cg, "many": _case_many, "aij": _case_aij,
           "comm": _case_comm, "eps": _case_eps, "refine": _case_refine,
-          "mult_t": _case_mult_t, "io": _case_io}
+          "mult_t": _case_mult_t, "io": _case_io, "sdc": _case_sdc}
 
 
 def run_case(comm, case: dict) -> dict:
@@ -537,7 +585,9 @@ def run_case(comm, case: dict) -> dict:
     ``eps_type``, ``which``, ``nev``, ``ncv``, ``tol``, ``max_it``,
     ``target``, ``st``, ``shift``, ``antishift``) or 'refine'
     (``RefinedKSP`` at inner precision ``prec`` on the stencil of ``grid``
-    or on ``op``, CG with ``pc``; ``k`` columns through ``solve_many``).
+    or on ``op``, CG with ``pc``; ``k`` columns through ``solve_many``) or
+    'sdc' (:func:`_case_sdc`: the guarded stencil solve under the fault
+    ``spec``, its detection and ``resilient_solve``'s recovery).
     The solve kinds take the Krylov parameters ``sstep_s``, ``restart``,
     ``aug`` and ``ell`` (:func:`configure_ksp`), and 'cg' and 'many' report
     the solve's host syncs and its collective calls (``calls_psum``,

@@ -237,6 +237,72 @@ class StencilPoisson3D:
     def diagonal(self) -> np.ndarray:
         return np.full(self.shape[0], self.uniform_diagonal)
 
+    def with_comm(self, comm: DeviceComm) -> "StencilPoisson3D":
+        """The same operator on another communicator: the matrix-free
+        elastic-rebuild hook (JAX ``stencil.py:291``; ``resilience/
+        elastic.py``). ``nz`` must divide the new shard count."""
+        return StencilPoisson3D(comm, self.nx, self.ny, self.nz,
+                                dtype=self._dtype)
+
+    def assemble(self):
+        """Nothing to assemble: matrix-free (JAX ``stencil.py:332``)."""
+        return self
+
+    @property
+    def assembled(self) -> bool:
+        return True
+
+    @staticmethod
+    def _boundary_counts(n: int) -> np.ndarray:
+        """Per index along one axis, the neighbours missing there: 1 at each
+        end (2 when the axis has one point), 0 inside."""
+        c = np.zeros(n)
+        c[0] += 1.0
+        c[n - 1] += 1.0
+        return c
+
+    def column_checksum_host(self) -> np.ndarray:
+        """ABFT column checksum ``c = A^T 1`` (``resilience/abft.py``): the
+        stencil is symmetric, so ``c = A 1 = 6 - (neighbours present)``,
+        the integers 0-3, zero inside and positive on the six boundary
+        shells (JAX ``stencil.py:309-320``). Built from three 1-D boundary
+        counts, not from meshgrids: the same values, exact in every storage
+        dtype."""
+        cz, cy, cx = (self._boundary_counts(k)
+                      for k in (self.nz, self.ny, self.nx))
+        return (cz[:, None, None] + cy[None, :, None]
+                + cx[None, None, :]).reshape(-1)
+
+    def checksum_boundary(self, comm: DeviceComm) -> list:
+        """Per local shard, the flat local indices of the boundary points,
+        each listed once per boundary shell it lies on (corners and edges
+        repeat): the sum of ``u`` over them is each shard's partial of
+        ``<c, u>`` with the column checksum (:meth:`column_checksum_host`;
+        ``c`` is zero inside), and the sum of ``|u|`` over them that of
+        ``sum |c u|``. The global first and last z-planes belong to the
+        first and last shards; every shard has its y and x faces. About
+        ``2 lz (nx + ny) + nx ny`` indices a shard: the guarded stencil CG
+        reads only these, not the whole grid."""
+        lz, ny, nx = self.grid3d
+        z = np.arange(lz)[:, None, None]
+        y = np.arange(ny)[None, :, None]
+        x = np.arange(nx)[None, None, :]
+        ends = lambda k: np.array([0, k - 1])
+        yf = (z * ny + ends(ny)[None, :, None]) * nx + x
+        xf = (z * ny + y) * nx + ends(nx)[None, None, :]
+        plane = (y * nx + x)[0]
+        out = []
+        for i in range(comm.local_shards):
+            g = comm.shard_offset + i
+            parts = [yf.ravel(), xf.ravel()]
+            if g == 0:
+                parts.append(plane.ravel())
+            if g == comm.size - 1:
+                parts.append(plane.ravel() + (lz - 1) * ny * nx)
+            out.append(torch.from_numpy(np.concatenate(parts)).to(
+                comm.device))
+        return out
+
     def mult(self, x: Vec, y: Vec | None = None) -> Vec:
         """``y = A x``."""
         data = self.local_spmv(self.comm)(

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..resilience import faults as _faults
+
 # a dead peer ends a process-group run after this long instead of hanging it
 TIMEOUT_S = 300.0
 
@@ -101,14 +103,27 @@ class DeviceComm:
     ``device=None`` means the card (``cuda``) and raises ``RuntimeError`` when
     CUDA is absent; the CPU is used only when the caller asks for it with
     ``device="cpu"``.
+
+    ``device_ids`` names the shards for the fault layer
+    (``resilience/faults.py``: ``device.lost``, the lost registry), the
+    analog of the JAX mesh's device ids: ``0 ... n_devices - 1`` unless a
+    rebuild onto surviving shards gives others (``resilience/elastic.py``).
+    Placements onto a mesh holding a lost id raise (``comm.put``), as in
+    JAX.
     """
 
-    def __init__(self, n_devices: int = 1, device=None):
+    def __init__(self, n_devices: int = 1, device=None, device_ids=None):
         device = _resolve_device(device)
         if int(n_devices) < 1:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
         self.device = device
         self._size = int(n_devices)
+        ids = (tuple(range(self._size)) if device_ids is None
+               else tuple(int(i) for i in device_ids))
+        if len(ids) != self._size:
+            raise ValueError(f"{len(ids)} device ids for {self._size} "
+                             "shards")
+        self.device_ids = ids
         # calls of each collective, for the logs (the same on either comm)
         self.collectives = {"psum": 0, "shift": 0, "all_gather": 0}
 
@@ -197,22 +212,43 @@ class DeviceComm:
         bfloat16 target is rounded by torch's cast, once from the host
         values (an fp64 value rounds through fp32, as ``ml_dtypes`` rounds
         it)."""
+        self._check_put()
         arr = np.asarray(arr)
         dt = torch_dtype(arr.dtype if dtype is None else dtype)
         return torch.tensor(self.local_rows(arr), dtype=dt,
                             device=self.device)
 
+    def _check_put(self):
+        """The ``comm.put`` fault point and the lost-device guard of every
+        placement (JAX ``mesh.py:205-206``)."""
+        _faults.check("comm.put")
+        _faults.check_lost(self.device_ids)
+
     def put_replicated(self, arr, dtype=None) -> torch.Tensor:
         """Host array -> the whole array on this process's device (JAX
         ``mesh.py:261``, the analog of ``bcast``)."""
+        self._check_put()
         arr = np.asarray(arr)
         dt = torch_dtype(arr.dtype if dtype is None else dtype)
         return torch.tensor(arr, dtype=dt, device=self.device)
 
     def host_fetch(self, x: torch.Tensor) -> np.ndarray:
         """Row-sharded device tensor -> the whole padded host array on every
-        process (bfloat16 as float32)."""
-        return to_host(self.gather_shards(x.detach()).to("cpu")).copy()
+        process (bfloat16 as float32). The ``comm.fetch`` fault point
+        (JAX ``mesh.py:280``): ``unavailable`` raises, ``drop`` zeroes the
+        result, ``corrupt`` makes its first element NaN."""
+        out = to_host(self.gather_shards(x.detach()).to("cpu")).copy()
+        fault = _faults.triggered("comm.fetch")
+        if fault is not None:
+            if fault.kind == "unavailable":
+                raise fault.error()
+            if fault.kind == "drop":
+                out[...] = 0
+            elif out.size:
+                flat = out.reshape(-1)
+                flat[0] = (np.nan if np.issubdtype(out.dtype, np.inexact)
+                           else ~flat[0])
+        return out
 
     # ---- column blocks (the batched solve's k right-hand sides) -------------
     # A block of k columns lives shard-stacked as (local_shards, k,
@@ -224,6 +260,7 @@ class DeviceComm:
         is done in one pass on the host, so the device receives the block
         in ONE copy, already laid out (a bfloat16 block travels as float32
         and is rounded on arrival)."""
+        self._check_put()
         arr = self.pad_rows(np.asarray(arr))
         dt = torch_dtype(arr.dtype if dtype is None else dtype)
         lsize, k = arr.shape[0] // self.size, arr.shape[1]
@@ -451,6 +488,39 @@ class ProcessComm(DeviceComm):
             req.wait()
         y[slot].copy_(self._back(inbox))
         return y
+
+
+_default_comm = None
+
+
+def get_default_comm() -> DeviceComm:
+    """The process-wide default communicator (JAX ``mesh.py:373``): one
+    shard on the card, built at the first call (raises without CUDA, as
+    every entry point does), or what :func:`set_default_comm` set."""
+    global _default_comm
+    if _default_comm is None:
+        _default_comm = DeviceComm()
+    return _default_comm
+
+
+def set_default_comm(comm: DeviceComm | None):
+    """Set (or, with None, reset) the default communicator."""
+    global _default_comm
+    _default_comm = comm
+
+
+def as_comm(comm) -> DeviceComm:
+    """``None`` (the default communicator), a communicator, or a facade
+    communicator carrying one (``device_comm``), as a communicator (JAX
+    ``mesh.py:386``)."""
+    if comm is None:
+        return get_default_comm()
+    if isinstance(comm, DeviceComm):
+        return comm
+    dc = getattr(comm, "device_comm", None)
+    if dc is not None:
+        return as_comm(dc)
+    raise TypeError(f"cannot interpret {comm!r} as a DeviceComm")
 
 
 def resolve_backend(backend: str | None, device_type: str,

@@ -37,7 +37,7 @@ collective solve's) and all rank the same numbers. The JAX package runs
 one controller and has no such step.
 
 The JAX module also sets a telemetry gauge; the port's telemetry is ROADMAP
-Queue A item 6, and the numbers stay on the :class:`SelectionReport`.
+Queue A item 6.2, and the numbers stay on the :class:`SelectionReport`.
 """
 
 from __future__ import annotations

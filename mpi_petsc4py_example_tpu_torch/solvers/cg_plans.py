@@ -1,14 +1,17 @@
 """The CG recurrences, assembled from an operator plan and a PC plan.
 
-The port's counterpart of the unguarded part of
-``mpi_petsc4py_example_tpu/solvers/cg_plans.py``: ``classic_cg_loop`` (``:326``)
+The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/cg_plans.py``:
+``classic_cg_loop`` (``:326``)
 with ``_dmax``/``_tol``/``_reason`` (``:108-139``), the batching plan
 ``ManyBatch`` (``:236-257``; one RHS needs no plan), the precision plan
 ``PrecisionPlan``/``precision_plan``/``_stc`` (``:48-100``), and the
 single-reduction plans of the end of this module, ``pipelined_cg_loop``
 (``:614``) and ``sstep_cg_loop`` (``:854``) with ``_sstep_shift``
-(``:840``), each for one RHS and under ``ManyBatch``. The classic loop's
-two plan routes:
+(``:840``), each for one RHS and under ``ManyBatch``; their ``guard``
+branches are the guarded loops of the second half of the module
+(``guarded_cg_loop``, ``guarded_pipelined_loop``, ``guarded_sstep_loop``,
+with the SDC codes and ``_det4``, ``:167-215``). The classic loop's two
+plan routes:
 
 * the general route: an operator apply ``A`` and a preconditioner apply ``M``
   (``z = M r`` materialized, ``rz = <r, z>``);
@@ -435,8 +438,8 @@ def pipelined_cg_loop(*, b, x0, rtol, atol, maxit, dtol=None, A=None, M=None,
                       pnorm=None, fused=None, bp=None, monitor=None,
                       prec=None):
     """The pipelined (single-reduction) CG recurrence of Ghysels and
-    Vanroose, unguarded (JAX ``pipelined_cg_loop``, ``:614``, without the
-    ``guard`` branches, which are ROADMAP.md Queue A item 6).
+    Vanroose, unguarded (JAX ``pipelined_cg_loop``, ``:614``; its ``guard``
+    branches are :func:`guarded_pipelined_loop`).
 
     Every inner product of an iteration, ``gamma = <r, u>``, ``delta = <w,
     u>`` and the monitored ``||r||^2``, comes from the current vectors in
@@ -656,7 +659,7 @@ def sstep_cg_loop(*, b, x0, rtol, atol, maxit, s, gram, combine, A=None,
                   M=None, pnorm=None, dtol=None, bp=None, monitor=None,
                   prec=None):
     """s-step (communication-avoiding) CG, unguarded (JAX ``sstep_cg_loop``,
-    ``:854``, without the ``guard`` branches: Queue A item 6).
+    ``:854``; its ``guard`` branches are :func:`guarded_sstep_loop`).
 
     Each block advances CG by ``s`` iterations around ONE reduction: from
     the carried ``(p, r)`` it builds the preconditioned monomial chains
@@ -746,6 +749,683 @@ def sstep_cg_loop(*, b, x0, rtol, atol, maxit, s, gram, combine, A=None,
     return (x, int(it), true,
             _reason(float(rn_h), float(tol_h), atol_h, bool(brk),
                     float(dmax_h)), syncs)
+
+
+# ---- the silent-corruption guard (JAX cg_plans.py:165-215) ------------------
+#
+# The guarded loops below are the ``guard`` branches of the JAX
+# classic/pipelined/s-step plans (``:509-595``, ``:774-805``, ``:1120-1200``).
+# A guard bundle ``g`` (built by ``solvers/krylov.py``) folds the ABFT
+# partials into the reductions the loop already makes and supplies the
+# replacement's plain-reduction verifier; the loops add the NaN and
+# monotonicity sentinels, the periodic true-residual replacement with its
+# drift gate, and the rollback target ``xv``, the last verified iterate.
+# Every loop returns ``(x, it, rnorm, reason, host_syncs, det, rrc, xv)``:
+# ``det`` the first detector code (per column under :class:`ManyBatch`),
+# ``rrc`` the replacements that passed.
+
+(SDC_NONE, SDC_ABFT, SDC_ABFT_PC, SDC_DRIFT, SDC_NAN, SDC_MONO,
+ SDC_DEMOTE) = range(7)
+SDC_DETECTOR_NAMES = {SDC_ABFT: "abft", SDC_ABFT_PC: "abft_pc",
+                      SDC_DRIFT: "drift", SDC_NAN: "nan",
+                      SDC_MONO: "monotonic",
+                      # not a corruption: the s-step drift gate spent its
+                      # basis-restart budget; the host demotes to classic CG
+                      SDC_DEMOTE: "sstep_demote"}
+
+# a residual norm this far above the best seen is beyond any healthy CG
+# transient (bounded by sqrt(cond(A)))
+_SDC_MONO_FACTOR = 1e4
+# drift gate: recurrence-vs-true relative mismatch beyond this fraction, plus
+# a rounding floor of _SDC_DRIFT_FLOOR_EPS * eps * ||b||, flags SDC
+_SDC_DRIFT_REL = 0.25
+_SDC_DRIFT_FLOOR_EPS = 1024.0
+# s-step stagnation gate: a replacement check that finds less than this
+# reduction of the TRUE residual since the last one declares the basis
+# ineffective at this s
+_SSTEP_STALL_FACTOR = 0.9
+
+
+def _det4_host(badA, badM, badnan, badmono) -> int:
+    """First-detector-wins code of one recurrence (JAX ``_det4``)."""
+    if badA:
+        return SDC_ABFT
+    if badM:
+        return SDC_ABFT_PC
+    if badnan:
+        return SDC_NAN
+    if badmono:
+        return SDC_MONO
+    return SDC_NONE
+
+
+def _det4(badA, badM, badnan, badmono):
+    """:func:`_det4_host` per column, on bool tensors (or numpy arrays)."""
+    lib = torch if isinstance(badnan, torch.Tensor) else np
+    code = lib.where(badmono, SDC_MONO, SDC_NONE)
+    code = lib.where(badnan, SDC_NAN, code)
+    code = lib.where(badM, SDC_ABFT_PC, code)
+    return lib.where(badA, SDC_ABFT, code)
+
+
+def _flags(*vals):
+    """One host read of scalars and flags (tensors, or None for a check
+    that does not exist, read as 0)."""
+    ts = [v for v in vals if isinstance(v, torch.Tensor)]
+    dt = _re(ts[0]).dtype
+    stacked = torch.stack([
+        (_re(v).to(dt).reshape(()) if isinstance(v, torch.Tensor)
+         else torch.tensor(0.0 if v is None else float(v), dtype=dt,
+                           device=ts[0].device)) for v in vals])
+    return stacked.tolist()
+
+
+def _read_step(rn, pAp, chkA, chkM, te):
+    """The one host read of a guarded classic step: ``rn``, the breakdown
+    flag and the two ABFT verdicts, judged on the host from the phases'
+    check sums (:func:`_bad4`). Complex check sums are judged on the
+    device."""
+    rows = [rn.reshape(1), _zero_flag(pAp).to(rn.dtype).reshape(1)]
+    for chk in (chkA, chkM):
+        if chk is None:
+            continue
+        if chk.is_complex():
+            rows.append(_bad4(chk, te).to(rn.dtype).reshape(1))
+        else:
+            rows.append(chk.to(rn.dtype))
+    vals = torch.cat(rows).tolist()
+    rn_h, pz = vals[0], vals[1]
+    flags, i = [], 2
+    for chk in (chkA, chkM):
+        if chk is None:
+            flags.append(False)
+        elif chk.is_complex():
+            flags.append(vals[i] != 0)
+            i += 1
+        else:
+            a, c, sa, sc = vals[i:i + 4]
+            flags.append(abs(a - c) > te * (sa + sc))
+            i += 4
+    return rn_h, pz, flags[0], flags[1]
+
+
+def _bad4(chk, te):
+    """The device verdict of a phase's check sums ``chk = [Σ y, <c, x>,
+    Σ|y|, Σ|c x|]`` (a row each; per column under a block): ``|Σ y -
+    <c, x>| > tol eps (Σ|y| + Σ|c x|)``, ``te`` being ``tol eps``."""
+    return torch.abs(chk[0] - chk[1]) > te * (_re(chk[2]) + _re(chk[3]))
+
+
+def guarded_cg_loop(*, b, x0, rtol, atol, maxit, g, dtol=None, A=None,
+                    M=None, Adot=None, inv_diag=None, bp=None, prec=None,
+                    monitor=None):
+    """The classic CG recurrence with the silent-corruption guard (JAX
+    ``classic_cg_loop`` with ``guard``, ``:326-611``).
+
+    Routes: the general one (``A``, ``M``; the guard's ``g.p1`` stacks the
+    operator ABFT partials with ``<p, A p>``, ``g.p2`` the PC's with ``<r,
+    z>`` and ``||r||^2``), and the stencil one (``Adot`` with the scalar
+    ``inv_diag``: the fused kernel's ``<p, A p>`` stays its own, and
+    ``g.p2_stencil`` stacks the operator partials with ``||r||^2``), for one
+    RHS; a :class:`ManyBatch` block takes the general route with per-column
+    detection (JAX ``cg_kernel_many_guarded``). The arithmetic of a clean
+    step is :func:`classic_cg_loop`'s. Every ``g.rr_n`` iterations a clean,
+    unconverged recurrence replaces its residual with the true ``b - A x``
+    (``g.A_rr``, ``g.M_rr``; verified by a plain reduction), restarts its
+    direction, and promotes ``x`` to the verified iterate; a recurrence
+    norm more than 25% off the true one is a ``drift`` detection."""
+    if bp is not None:
+        return _guarded_cg_many(bp, b=b, x0=x0, rtol=rtol, atol=atol,
+                                maxit=maxit, g=g, dtol=dtol, A=A, M=M,
+                                prec=prec, monitor=monitor)
+    stencil = Adot is not None
+    mixed = prec is not None and prec.mixed
+    st_ = _stc(prec)
+    x = x0
+    xv = x0.clone()
+    if stencil:
+        r = b - Adot(x)[0]
+        bnorm, rr0, badA0 = g.init(b, r, x)
+        rnorm = torch.sqrt(rr0)
+        rz = rr0 * inv_diag
+        p = st_(prec.up(r) * inv_diag) if mixed else r * inv_diag
+        badM0 = None
+    else:
+        r = b - A(x)
+        bnorm, badA0 = g.init(b, r, x)
+        z = M(r)
+        rz, rn2, chkM0 = g.p2(r, z)
+        badM0 = None if chkM0 is None else _bad4(chkM0, g.te)
+        rnorm = torch.sqrt(torch.clamp_min(_re(rn2), 0.0))
+        p = z.clone()                      # M may return r itself
+    tol = torch.clamp_min(rtol * bnorm, atol)
+    dmax = _dmax(rnorm, dtol)
+    atol_h = torch.tensor(atol, dtype=rnorm.dtype).item()
+    rn, tol_h, dmax_h, bn_h, fA, fM = _flags(rnorm, tol, dmax, bnorm,
+                                             badA0, badM0)
+    syncs = 1
+    drift_floor = _SDC_DRIFT_FLOOR_EPS * g.eps * bn_h
+    it, brk, rrc, rnb = 0, False, 0, rn
+    det = _det4_host(fA, fM, not math.isfinite(rn), False)
+    if monitor is not None:
+        monitor(0, rn)
+    while (rn > tol_h and rn < dmax_h and it < maxit and not brk
+           and det == SDC_NONE):
+        # ---- operator apply + reduction phase 1 ----
+        if stencil:
+            Ap, pAp = Adot(p)
+            chkA = None
+        else:
+            Ap = A(p)
+            pAp, chkA = g.p1(p, Ap)
+        alpha = _safe_div(rz, pAp)
+        if mixed:
+            _lifted_axpy(x, alpha, p)
+            _lifted_axpy(r, -alpha, Ap)
+        else:
+            x.addcmul_(alpha, p)
+            r.addcmul_(alpha, Ap, value=-1)
+        # ---- PC apply + reduction phase 2 (with the ABFT partials) ----
+        chkM = None
+        if stencil:
+            rr, chkA = g.p2_stencil(r, p, Ap)
+            rz_new = rr * inv_diag
+            rn_new = torch.sqrt(rr)
+            beta = _safe_div(rz_new, rz)
+            if mixed:
+                _lifted_axpy(st_(prec.up(r) * inv_diag), beta, p, out=p)
+            else:
+                p.mul_(beta).add_(r, alpha=inv_diag)
+        else:
+            z = M(r)
+            rz_new, rn2, chkM = g.p2(r, z)
+            rn_new = torch.sqrt(torch.clamp_min(_re(rn2), 0.0))
+            beta = _safe_div(rz_new, rz)
+            if mixed:
+                _lifted_axpy(z, beta, p, out=p)
+            else:
+                p.mul_(beta).add_(z)
+        rz = rz_new
+        it += 1
+        # the one host read of the iteration: the norm and the check sums
+        rn, pz, fA, fM = _read_step(rn_new, pAp, chkA, chkM, g.te)
+        syncs += 1
+        brk = brk or pz == 0
+        finite = math.isfinite(rn)
+        det = _det4_host(fA, fM, not finite,
+                         finite and rn > _SDC_MONO_FACTOR * rnb)
+        if finite:
+            rnb = min(rnb, rn)
+        if (det == SDC_NONE and g.rr_n > 0 and it % g.rr_n == 0
+                and rn > tol_h):
+            # ---- periodic true-residual replacement + drift gate ----
+            rt = b - g.A_rr(x)
+            if stencil:
+                rtn2 = torch.clamp_min(g.vnorm2(rt), 0.0)
+                rzt = None
+            else:
+                zt = g.M_rr(rt)
+                rtn2, rzt = g.vpair(rt, zt)
+                rtn2 = torch.clamp_min(rtn2, 0.0)
+            rtn_t = torch.sqrt(rtn2)
+            rtn = rtn_t.item()
+            syncs += 1
+            if abs(rtn - rn) > _SDC_DRIFT_REL * (rtn + rn) + drift_floor:
+                det = SDC_DRIFT
+            else:
+                r = rt
+                if stencil:
+                    p = (st_(prec.up(rt) * inv_diag) if mixed
+                         else rt * inv_diag)
+                    rz = rtn2 * inv_diag
+                else:
+                    p = zt.clone()
+                    rz = rzt
+                rn = rtn
+                xv.copy_(x)
+                rrc += 1
+        if monitor is not None:
+            monitor(it, rn)
+    return (x, it, rn, _reason(rn, tol_h, atol_h, brk, dmax_h), syncs, det,
+            rrc, xv)
+
+
+def _guarded_cg_many(bp, *, b, x0, rtol, atol, maxit, g, dtol, A, M, prec,
+                     monitor):
+    """:func:`guarded_cg_loop` on a column block (general route): every
+    guard decision per column, a detected column frozen with its code
+    (sticky) while the clean ones go on; the replacement (every ``g.rr_n``
+    lockstep steps) recomputes the whole block and takes only the active,
+    clean columns that pass the drift gate (JAX ``:520-595`` under
+    ``ManyBatch``)."""
+    dev = b.device
+    mixed = prec is not None and prec.mixed
+    x, xv = x0, x0.clone()
+    r = b - A(x)
+    bnorm, badA0 = g.init(b, r, x)
+    z = M(r).clone()
+    rz, rn2, chkM0 = g.p2(r, z)
+    badM0 = None if chkM0 is None else _bad4(chkM0, g.te)
+    rn = torch.sqrt(torch.clamp_min(_re(rn2), 0.0))
+    p = z.clone()
+    tol = torch.clamp_min(rtol * bnorm, atol)
+    dmax = _dmax(rn, dtol)
+    atol_h = torch.tensor(atol, dtype=rn.dtype).item()
+    false = torch.zeros(rn.shape, dtype=torch.bool, device=dev)
+    it = torch.zeros(rn.shape, dtype=torch.int64, device=dev)
+    brk = false.clone()
+    det = _det4(false if badA0 is None else badA0,
+                false if badM0 is None else badM0, ~torch.isfinite(rn),
+                false)
+    rrc = torch.zeros_like(it)
+    rnb = rn.clone()
+    drift_floor = _SDC_DRIFT_FLOOR_EPS * g.eps * bnorm
+    cont = _live(rn, tol, dmax, it, maxit, brk) & (det == SDC_NONE)
+    rn_h, tol_h, dmax_h, cont_h = torch.stack(
+        [rn, tol, dmax, cont.to(rn.dtype)]).tolist()
+    syncs, ks, k = 1, 0, len(rn_h)
+    it_h = [0] * k
+    if monitor is not None:
+        for j in range(k):
+            monitor(j, 0, rn_h[j])
+    while any(cont_h):
+        cm = bp.ex(cont)
+        Ap = A(p)
+        pAp, chkA = g.p1(p, Ap)
+        badA = None if chkA is None else _bad4(chkA, g.te)
+        brk = brk | (cont & (pAp == 0))
+        al = bp.ex(_safe_div(rz, pAp))
+        x = torch.where(cm, _mix_axpy(prec, x, p, al), x)
+        r = torch.where(cm, _mix_axpy(prec, r, Ap, -al), r)
+        z = torch.where(cm, M(r), z)
+        rz_new, rn2, chkM = g.p2(r, z)
+        badM = None if chkM is None else _bad4(chkM, g.te)
+        rn_new = torch.sqrt(torch.clamp_min(_re(rn2), 0.0))
+        beta = bp.ex(_safe_div(rz_new, rz))
+        # p = z + beta p, rounded as _lockstep rounds it
+        p = torch.where(cm, _mix_axpy(prec, z, p, beta) if mixed
+                        else torch.mul(p, beta).add_(z), p)
+        rz = torch.where(cont, rz_new, rz)
+        rn = torch.where(cont, rn_new, rn)
+        it = it + cont
+        fin = torch.isfinite(rn)
+        badnan = cont & ~fin
+        badmono = cont & fin & (rn > _SDC_MONO_FACTOR * rnb)
+        rnb = torch.where(cont & fin, torch.minimum(rnb, rn), rnb)
+        det = torch.where(det == SDC_NONE,
+                          _det4(false if badA is None else cont & badA,
+                                false if badM is None else cont & badM,
+                                badnan, badmono), det)
+        ks += 1
+        if g.rr_n > 0 and ks % g.rr_n == 0:
+            clean = det == SDC_NONE
+            rt = b - g.A_rr(x)
+            zt = g.M_rr(rt)
+            rtn2, rzt = g.vpair(rt, zt)
+            rtn = torch.sqrt(torch.clamp_min(rtn2, 0.0))
+            drift = (torch.abs(rtn - rn)
+                     > _SDC_DRIFT_REL * (rtn + rn) + drift_floor)
+            ok = cont & clean & ~drift
+            okm = bp.ex(ok)
+            r = torch.where(okm, rt, r)
+            z = torch.where(okm, zt, z)
+            p = torch.where(okm, zt, p)
+            rz = torch.where(ok, rzt, rz)
+            rn = torch.where(ok, rtn, rn)
+            xv = torch.where(okm, x, xv)
+            rrc = rrc + ok
+            det = torch.where((det == SDC_NONE) & cont & clean & drift,
+                              SDC_DRIFT, det)
+        stepped = cont_h
+        it_h = [i + int(c) for i, c in zip(it_h, cont_h)]
+        cont = _live(rn, tol, dmax, it, maxit, brk) & (det == SDC_NONE)
+        rn_h, cont_h = torch.stack([rn, cont.to(rn.dtype)]).tolist()
+        syncs += 1
+        if monitor is not None:
+            for j in range(k):
+                if stepped[j]:
+                    monitor(j, it_h[j], rn_h[j])
+    brk_h, det_h, rrc_h = torch.stack(
+        [brk.to(torch.int64), det, rrc]).tolist()
+    reasons = [_reason(rn_h[j], tol_h[j], atol_h, brk_h[j], dmax_h[j])
+               for j in range(k)]
+    return x, it_h, rn_h, reasons, syncs, det_h, rrc_h, xv
+
+
+def guarded_pipelined_loop(*, b, x0, rtol, atol, maxit, g, dtol=None, A=None,
+                           M=None, bp=None, prec=None, monitor=None):
+    """Pipelined CG with the guard (JAX ``pipelined_cg_loop`` with ``guard``,
+    ``:614-836``), one RHS or a :class:`ManyBatch` block.
+
+    The ONE reduction of an iteration, ``g.fused(r, u, w, chk)``, also sums
+    the ABFT partials ``chk`` of the PREVIOUS body's fresh applies ``m = M
+    w``, ``n = A m`` (``g.chk_parts``, carried one iteration), so detection
+    lags one iteration and the reduction count stays one. The replacement
+    refills the whole pipeline from the true residual (``r = b - A x``, ``u
+    = M r``, ``w = A u``), zeroes the direction recurrences, and gates drift
+    against the CURRENT recurrence residual (``g.vpair2``); the result
+    reports the exact final residual through the plain verifier
+    (``g.A_final``, ``g.vnorm2``)."""
+    mixed = prec is not None and prec.mixed
+    sdt = prec.reduce if mixed else b.dtype
+    many = bp is not None
+    ex = bp.ex if many else (lambda s: s)
+    dev = b.device
+    r = b - A(x0)
+    bnorm, badA0 = g.init(b, r, x0)
+    tol = torch.clamp_min(rtol * bnorm, atol)
+    u = M(r)
+    w = A(u)
+    rn = g.pnorm(r)
+    dmax = _dmax(rn, dtol)
+    atol_h = torch.tensor(atol, dtype=rn.dtype).item()
+    S = torch.stack([w, u, r, x0])
+    V = torch.zeros_like(S)
+    gamma = torch.zeros(rn.shape, dtype=sdt, device=dev)
+    alpha = torch.zeros_like(gamma)
+    sgn = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=real_dtype(sdt),
+                       device=dev).reshape((4,) + (1,) * b.ndim)
+    false = torch.zeros(rn.shape, dtype=torch.bool, device=dev)
+    it = torch.zeros(rn.shape, dtype=torch.int64, device=dev)
+    brk = false.clone()
+    det = _det4(false if badA0 is None else badA0, false,
+                ~torch.isfinite(rn), false)
+    rrc = torch.zeros_like(it)
+    xv = x0.clone()
+    rnb = rn.clone()
+    drift_floor = _SDC_DRIFT_FLOOR_EPS * g.eps * bnorm
+    chk = g.chk_init(r, u, w)
+    cont = _live(rn, tol, dmax, it, maxit, brk) & (det == SDC_NONE)
+    rn_h, tol_h, dmax_h, cont_h = (np.atleast_1d(v).tolist() for v in
+                                   torch.stack([rn, tol, dmax,
+                                                cont.to(rn.dtype)]).cpu()
+                                   .numpy())
+    syncs, ks, k = 1, 0, len(rn_h)
+    it_h = [0] * k
+    if monitor is not None:
+        for j in range(k):
+            (monitor(j, 0, rn_h[j]) if many else monitor(0, rn_h[j]))
+    while any(cont_h):
+        masked = not all(cont_h)
+        cm = ex(cont)
+        w, u, r = S[0], S[1], S[2]
+        g_new, delta, rr, badA, badM = g.fused(r, u, w, chk)
+        m = M(w)
+        n = A(m)
+        chk = g.chk_parts(m, n, w)
+        first = gamma == 0
+        beta = torch.where(first, 0.0,
+                           g_new / torch.where(first, 1.0, gamma))
+        aold = torch.where(alpha == 0, 1.0, alpha)
+        denom = torch.where(first, delta, delta - beta * g_new / aold)
+        a_new = torch.where(denom == 0, 0.0,
+                            g_new / torch.where(denom == 0, 1.0, denom))
+        be, al = ex(beta), ex(a_new)
+        if masked:
+            Vn = torch.stack([_mix_axpy(prec, c, V[i], be)
+                              for i, c in enumerate((n, m, w, u))])
+            V = torch.where(cm, Vn, V)
+            S = torch.where(cm, _mix_axpy(prec, S, V, al * sgn), S)
+        else:
+            for i, c in enumerate((n, m, w, u)):
+                _mix_axpy(prec, c, V[i], be, out=V[i])
+            _mix_axpy(prec, S, V, al * sgn, out=S)
+        rn_new = torch.sqrt(torch.clamp_min(_re(rr), 0.0))
+        brk = brk | (cont & (denom == 0))
+        rn = torch.where(cont, rn_new, rn)
+        gamma = torch.where(cont, g_new, gamma)
+        alpha = torch.where(cont, a_new, alpha)
+        it = it + cont
+        fin = torch.isfinite(rn)
+        badnan = cont & ~fin
+        badmono = cont & fin & (rn > _SDC_MONO_FACTOR * rnb)
+        rnb = torch.where(cont & fin, torch.minimum(rnb, rn), rnb)
+        det = torch.where(det == SDC_NONE,
+                          _det4(false if badA is None else cont & badA,
+                                false if badM is None else cont & badM,
+                                badnan, badmono), det)
+        ks += 1
+        if many:
+            want = g.rr_n > 0 and ks % g.rr_n == 0
+        else:
+            # one RHS: the interval runs on the iteration count, and an
+            # unconverged clean recurrence only (JAX :757-758)
+            want = g.rr_n > 0 and (it_h[0] + 1) % g.rr_n == 0
+        if want:
+            clean = det == SDC_NONE
+            base = cont & clean if many else clean & (rn > tol)
+            x = S[3]
+            rt = b - g.A_rr(x)
+            ut = g.M_rr(rt)
+            wt = g.A_rr2(ut)
+            rtn2, rc2 = g.vpair2(rt, S[2])
+            rtn = torch.sqrt(torch.clamp_min(rtn2, 0.0))
+            rcur = torch.sqrt(torch.clamp_min(rc2, 0.0))
+            drift = (torch.abs(rtn - rcur)
+                     > _SDC_DRIFT_REL * (rtn + rcur) + drift_floor)
+            ok = base & ~drift
+            okm = ex(ok)
+            S = torch.where(okm, torch.stack([wt, ut, rt, x]), S)
+            V = torch.where(okm, 0.0, V)
+            gamma = torch.where(ok, 0.0, gamma)
+            alpha = torch.where(ok, 0.0, alpha)
+            rn = torch.where(ok, rtn, rn)
+            xv = torch.where(okm, x, xv)
+            rrc = rrc + ok
+            det = torch.where((det == SDC_NONE) & base & drift, SDC_DRIFT,
+                              det)
+        stepped = cont_h
+        it_h = [i + int(c) for i, c in zip(it_h, cont_h)]
+        cont = _live(rn, tol, dmax, it, maxit, brk) & (det == SDC_NONE)
+        rn_h, cont_h = (np.atleast_1d(v).tolist() for v in torch.stack(
+            [rn, cont.to(rn.dtype)]).cpu().numpy())
+        syncs += 1
+        if monitor is not None:
+            for j in range(k):
+                if stepped[j]:
+                    (monitor(j, it_h[j], rn_h[j]) if many
+                     else monitor(it_h[j], rn_h[j]))
+    x = x0.copy_(S[3])
+    # the monitored norm lags one iteration: the exact final residual,
+    # through the plain-reduction verifier
+    true = torch.sqrt(torch.clamp_min(g.vnorm2(b - g.A_final(x)), 0.0))
+    brk_h, det_h, rrc_h = (np.atleast_1d(v).tolist() for v in torch.stack(
+        [brk.to(torch.int64), det.to(torch.int64), rrc]).cpu().numpy())
+    true_h = np.atleast_1d(true.cpu().numpy()).tolist()
+    syncs += 1
+    reasons = [_reason(rn_h[j], tol_h[j], atol_h, brk_h[j], dmax_h[j])
+               for j in range(k)]
+    if many:
+        return x, it_h, true_h, reasons, syncs, det_h, rrc_h, xv
+    return (x, it_h[0], true_h[0], reasons[0], syncs, det_h[0], rrc_h[0],
+            xv)
+
+
+def _sstep_guard_flags(outs, g, s, m, many):
+    """The ABFT verdicts of an s-block from the reduced guard partials
+    (numpy, JAX ``:1024-1050``): ``(badA, badM)``, each None when its
+    checksum is absent. Only the chain columns with an A-image are
+    checked; the PC channel checks each basis column against the M apply
+    that made it (column 0, the carried ``p``, against itself)."""
+    thr = lambda scale: g.abft_tol * g.eps * scale
+    w_valid = np.zeros((m,), bool)
+    w_valid[0:s] = True
+    w_valid[s + 1:2 * s] = True
+    vm = w_valid[:, None] if many else w_valid
+    i = 0
+    badA = badM = None
+    if g.cs is not None:
+        sW, cV, aW, aCV = outs[i:i + 4]
+        i += 4
+        badA = np.any((np.abs(sW - cV) > thr(np.real(aW) + np.real(aCV)))
+                      & vm, axis=0)
+    if g.csM is not None:
+        sV, cW, aV, aCW, cr, acr = outs[i:i + 6]
+        exp = np.concatenate([sV[0:1], cW[0:s], cr[None], cW[s + 1:2 * s]],
+                             axis=0)
+        aexp = np.concatenate([aV[0:1], aCW[0:s], acr[None],
+                               aCW[s + 1:2 * s]], axis=0)
+        badM = np.any(np.abs(sV - exp) > thr(np.real(aV) + np.real(aexp)),
+                      axis=0)
+    return badA, badM
+
+
+def guarded_sstep_loop(*, b, x0, rtol, atol, maxit, s, g, combine, max_repl,
+                       A=None, M=None, dtol=None, bp=None, monitor=None,
+                       prec=None):
+    """s-step CG with the guard (JAX ``sstep_cg_loop`` with ``guard``,
+    ``:854-1213``), one RHS or a :class:`ManyBatch` block.
+
+    The basis build's applies are checked through their column sums, folded
+    into the block's ONE reduction with the Gram matrix (``g.greduce(C,
+    Bw_valid)``), and judged on the host with the coefficients
+    (:func:`_sstep_guard_flags`). The sentinels watch the exact block-start
+    norm. With a replacement interval (``g.rr_n`` iterations, every
+    ``ceil(rr_n / s)`` blocks) the gate compares the TRUE residual with the
+    last check's: a stall (less than 10% progress) or a NaN/blow-up of the
+    block-start norm restarts the recurrence from the true residual (an
+    anomaly first rolls back to the verified iterate), at most ``max_repl``
+    times; past that budget the code is ``SDC_DEMOTE`` and the host
+    continues with classic CG."""
+    st_ = _stc(prec)
+    mixed = prec is not None and prec.mixed
+    up = prec.up if mixed else (lambda v: v)
+    s = int(s)
+    if s < 1:
+        raise ValueError(f"-ksp_sstep_s must be >= 1, got {s}")
+    m = 2 * s + 1
+    many = bp is not None
+    dev = b.device
+    r = b - A(x0)
+    bnorm, badA0 = g.init(b, r, x0)
+    tol = torch.clamp_min(rtol * bnorm, atol)
+    rn0 = g.pnorm(r)
+    p = M(r)
+    dmax = _dmax(rn0, dtol)
+    atol_h = torch.tensor(atol, dtype=rn0.dtype).item()
+    rows = [rn0, tol, dmax, bnorm]
+    if badA0 is not None:
+        rows.append(badA0.to(rn0.dtype))
+    host = torch.stack(rows).cpu().numpy()
+    rn_h, tol_h, dmax_h, bn_h = (np.asarray(v) for v in host[:4])
+    fA0 = host[4] != 0 if badA0 is not None else np.zeros(rn_h.shape, bool)
+    syncs = 1
+    it = np.zeros(rn_h.shape, np.int64)
+    brk = np.zeros(rn_h.shape, bool)
+    det = np.asarray(_det4(fA0, np.zeros_like(fA0), ~np.isfinite(rn_h),
+                           np.zeros_like(fA0)))
+    rrc = np.zeros(rn_h.shape, np.int64)
+    drc = np.zeros(rn_h.shape, np.int64)
+    rnb = rn_h.copy()
+    rn_rr = rn_h.copy()
+    gated = g.rr_n > 0
+    ungated = not gated
+    interval = max((g.rr_n + s - 1) // s, 1)
+    ks = 0
+    mon = None
+    if monitor is not None:
+        mon = monitor if many else (lambda _j, i, v: monitor(i, v))
+        for j, v in enumerate(np.atleast_1d(rn_h)):
+            mon(j, 0, float(v))
+    x, xv = x0, x0.clone()
+    C = b.new_zeros((b.shape[0], 2 * m + 1) + tuple(b.shape[1:]))
+
+    def active():
+        return ((rn_h > tol_h) & (rn_h < dmax_h) & (it < maxit) & ~brk
+                & (det == SDC_NONE))
+
+    def dmask(a):
+        return bp.ex(torch.from_numpy(np.asarray(a)).to(dev)) if many \
+            else bool(a)
+
+    def sel(a, new, old):
+        if not many:
+            return new if a else old
+        return torch.where(dmask(a), new, old)
+
+    cont = active()
+    while cont.any():
+        C[:, 0] = p
+        for i in range(s):                  # p-chain and its A-images
+            t = A(C[:, i])
+            C[:, m + i] = t
+            C[:, i + 1] = st_(M(t))
+        C[:, s + 1] = st_(M(r))             # z-chain and its A-images
+        for i in range(s - 1):
+            t = A(C[:, s + 1 + i])
+            C[:, m + s + 1 + i] = t
+            C[:, s + 2 + i] = st_(M(t))
+        C[:, 2 * m] = r
+        E, outs = g.greduce(up(C))
+        syncs += 1
+        badA, badM = _sstep_guard_flags(outs, g, s, m, many)
+        rr0 = np.real(E[2 * m, 2 * m])
+        rn_bs = np.where(cont, np.sqrt(np.maximum(rr0, 0.0)), rn_h)
+        chat, phat, it, rn_h, brk = _sstep_coefficients(
+            E, s, tol_h, dmax_h, maxit, it, rn_h, cont, brk, mon)
+        ch = torch.from_numpy(chat).to(dev)
+        ph = torch.from_numpy(phat).to(dev)
+        x_new = st_(up(x) + combine(ch, up(C[:, :m])))
+        r_new = st_(up(r) - combine(ch, up(C[:, m:2 * m])))
+        p_new = st_(combine(ph, up(C[:, :m])))
+        if many and not cont.all():
+            x_new = sel(cont, x_new, x)
+            r_new = sel(cont, r_new, r)
+            p_new = sel(cont, p_new, p)
+        fin = np.isfinite(rn_bs)
+        badnan = cont & ~fin
+        with np.errstate(invalid="ignore"):
+            badmono = cont & fin & (rn_bs > _SDC_MONO_FACTOR * rnb)
+        rnb = np.where(cont & fin, np.minimum(rnb, rn_bs), rnb)
+        fA = (cont & badA) if badA is not None else np.zeros_like(cont)
+        fM = (cont & badM) if badM is not None else np.zeros_like(cont)
+        det = np.where(det == SDC_NONE,
+                       _det4(fA, fM, badnan & ungated, badmono & ungated),
+                       det)
+        ks += 1
+        clean = det == SDC_NONE
+        anomaly = (badnan | badmono) & gated & clean
+        do_rr = ((np.any(cont & clean) and gated and ks % interval == 0)
+                 or np.any(anomaly))
+        x, r, p = x_new, r_new, p_new
+        if do_rr:
+            xr = sel(anomaly, xv, x)
+            rt = b - g.A_rr(xr)
+            zt = g.M_rr(rt)
+            rtn2, _rzt = g.vpair(rt, zt)
+            rtn = np.sqrt(np.maximum(
+                np.asarray(rtn2.cpu().numpy(), dtype=rn_h.dtype), 0.0))
+            syncs += 1
+            stall = anomaly | ((rtn > tol_h)
+                               & (rtn >= _SSTEP_STALL_FACTOR * rn_rr))
+            base = cont & clean
+            ok = base & ~stall
+            restart = base & stall & (drc < max_repl)
+            demote = base & stall & (drc >= max_repl)
+            take = ok | restart
+            x_prev = x
+            x = sel(anomaly, xv, x)
+            r = sel(take, st_(rt), r)
+            p = sel(take, st_(zt), p)
+            rn_h = np.where(ok | restart | demote, rtn, rn_h)
+            xv = sel(ok, x_prev, xv)
+            rrc = rrc + ok
+            drc = drc + restart
+            rn_rr = np.where(ok | restart, rtn, rn_rr)
+            det = np.where((det == SDC_NONE) & demote, SDC_DEMOTE, det)
+        cont = active()
+    true = torch.sqrt(torch.clamp_min(g.vnorm2(b - g.A_final(x)), 0.0))
+    true_h = np.atleast_1d(true.cpu().numpy()).tolist()
+    syncs += 1
+    if many:
+        reasons = [_reason(float(rn_h[j]), float(tol_h[j]), atol_h,
+                           bool(brk[j]), float(dmax_h[j]))
+                   for j in range(len(rn_h))]
+        return (x, [int(v) for v in it], true_h, reasons, syncs,
+                [int(v) for v in det], [int(v) for v in rrc], xv)
+    return (x, int(it), true_h[0],
+            _reason(float(rn_h), float(tol_h), atol_h, bool(brk),
+                    float(dmax_h)), syncs, int(det), int(rrc), xv)
 
 
 # ---- device-resident plan steps (the fused megasolve's inner loops) ----------

@@ -64,7 +64,9 @@ import torch
 from ..core.vec import Vec
 from ..parallel.mesh import numpy_dtype
 from ..utils.dtypes import host_dtype, is_complex
+from ..resilience import faults as _faults
 from ..utils.convergence import SolveResult
+from ..utils.errors import wrap_device_errors
 from ..utils.options import global_options
 from .krylov import _cgs2_step, _pmatdot, shardwise_matmul
 from .mg import _tf32_allowed
@@ -364,10 +366,12 @@ class EPS:
         return np.argsort(-finite, kind="stable")
 
     # ---- solve --------------------------------------------------------------
+    @wrap_device_errors("EPSSolve")
     def solve(self):
         mat = self._mat
         if mat is None:
             raise RuntimeError("EPS.solve: no operators set")
+        _faults.check("eps.solve")    # an injectable pre-solve failure
         if self._bmat is not None and \
                 self._problem_type != EPSProblemType.GHEP:
             raise ValueError("two operators were set; problem type must be "

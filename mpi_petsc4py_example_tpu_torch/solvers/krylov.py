@@ -16,11 +16,14 @@ and s-step kernels (``:1004-1162``, on ``cg_plans``), ``fgmres_kernel``
 ``build_ksp_program`` (``:2091``) with the stencil-CG and pipelined-CG fast
 paths, the general route, the null-space projection (``:2320-2335``,
 ``:2524-2538``) and the true-residual epilogue (``_true_res_tail``,
-``:2551``), without the guard; and for ``KSP.solve_many``
+``:2551``); and for ``KSP.solve_many``
 ``cg_kernel_many`` (``:2662``), ``cg_stencil_kernel_many`` (``:2689``), the
 batched pipelined and s-step kernels, ``batched_pc_supported`` (``:2741``)
-and ``build_ksp_program_many`` (``:2748``) with the true-residual epilogue,
-without the guard. The guarded loops are ROADMAP.md Queue A item 6.
+and ``build_ksp_program_many`` (``:2748``) with the true-residual epilogue.
+The guard's bundles and programs (``GUARDED_TYPES``, ``_make_guard``,
+``_make_pipe_guard``, ``_make_sstep_guard``, ``:265-540``, the program
+wiring ``:2332-2446``, ``:2870-2914``) are :func:`build_guarded_program` at
+the end of the module.
 
 The JAX loops are ``lax.while_loop``s on the device; here they are eager
 PyTorch driven by the host, with the scalars on the device and one small
@@ -55,10 +58,13 @@ tensors each of these is the real operation, bit for bit.
 from __future__ import annotations
 
 import math
+import types
 
 import numpy as np
 import torch
 
+from ..resilience import abft as _abft
+from ..resilience import faults as _faults
 from ..utils.convergence import ConvergedReason as CR
 from ..utils.dtypes import real_dtype
 from . import cg_plans as _plans
@@ -1451,6 +1457,29 @@ def _combine(coef, rows):
                         for i in range(rows.shape[0])])
 
 
+class _SitePsum:
+    """A communicator whose ``psum`` calls are the program's reduction sites
+    in order (``init``, then the loop body's in turn), each with the
+    ``comm.psum`` fault of its site (``resilience/faults.py``); everything
+    else is the communicator's own."""
+
+    def __init__(self, comm, sites, init, body):
+        self._comm, self._sites = comm, sites
+        self._init, self._body = list(init), list(body)
+        self._count = 0
+
+    def __getattr__(self, name):
+        return getattr(self._comm, name)
+
+    def psum(self, parts):
+        k = self._count
+        self._count += 1
+        name = (self._init[k] if k < len(self._init) else
+                self._body[(k - len(self._init)) % len(self._body)])
+        return _abft.corrupt_psum(self._sites.hit(name),
+                                  self._comm.psum(parts), parts)
+
+
 def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
                       true_res=False, nullspace=None, monitor=None,
                       natural=False, aug=2, ell=2, sstep_s=4):
@@ -1484,9 +1513,35 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
     n = operator.shape[0]
     prec = _precision(ksp_type, operator)
     up = prec.up
-    pdot, pnorm = shard_dots(comm, up)
-
     natural = natural and ksp_type in NATURAL_TYPES
+    # the trace-time faults (resilience/faults.py) of the programs that have
+    # their sites: classic CG on the stencil fast path (PC none/jacobi) and
+    # on the general route; any other program raises while one is live
+    stencil_sites = (stencil_cg_eligible(ksp_type, pc, operator,
+                                         nullspace=nullspace, natural=natural)
+                     and pc.get_type() != "mg")
+    sites = _faults.NO_SITES
+    if _faults.trace_time_live():
+        if not (stencil_sites or (ksp_type == "cg" and nullspace is None
+                                  and not natural)):
+            raise NotImplementedError(
+                f"a trace-time fault (spmv.result/pc.apply/comm.psum) is "
+                f"armed, and the port wires their sites into the cg, pipecg "
+                f"and sstep programs only (guarded, and cg unguarded), not "
+                f"into KSP {ksp_type!r} with pc {pc.get_type()!r}")
+        sites = _faults.trace_sites(
+            {"spmv.result": ["A.init", "A.body"],
+             "pc.apply": [] if stencil_sites else ["M.init", "M.body"],
+             "comm.psum": (["P.bn", "P.rr0", "P.rr"] if stencil_sites else
+                           ["P.rz0", "P.bn", "P.rn0", "P.pAp", "P.rz",
+                            "P.rn"])})
+    pdot, pnorm = shard_dots(
+        _SitePsum(comm, sites, ["P.bn", "P.rr0"] if stencil_sites
+                  else ["P.rz0", "P.bn", "P.rn0"],
+                  ["P.rr"] if stencil_sites else ["P.pAp", "P.rz", "P.rn"])
+        if sites else comm, up)
+    plain_pnorm = shard_dots(comm, up)[1]
+
     plan = {"prec": prec} if prec.mixed else {}
     mon = {"monitor": monitor} if monitor is not None else {}
     spmv = operator.local_spmv(comm)
@@ -1499,7 +1554,8 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
 
     if stencil_cg_eligible(ksp_type, pc, operator, nullspace=nullspace,
                            natural=natural):
-        matvec_dot = operator.local_matvec_dot(comm)
+        matvec_dot = _site_calls(sites, operator.local_matvec_dot(comm),
+                                 ["A.init"], ["A.body"], pair=True)
         inv_diag = (1.0 if pc.get_type() == "none"
                     else 1.0 / operator.uniform_diagonal)
         # PC mg composes the V-cycle grid-shaped (None for none/jacobi)
@@ -1521,7 +1577,8 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
                 dtol=dtol, grid3d=operator.grid3d, **plan, **mon)
     else:
         pc_apply = pc.local_apply(comm, n)
-        A, M = spmv, pc_apply
+        A = _site_calls(sites, spmv, ["A.init"], ["A.body"])
+        M = _site_calls(sites, pc_apply, ["M.init"], ["M.body"])
         if project is not None:
             A = lambda v: project(spmv(v))
             M = lambda r: project(pc_apply(r))
@@ -1565,7 +1622,7 @@ def build_ksp_program(comm, ksp_type, pc, operator, restart=30,
         out = (x.reshape(-1), it, rnorm, reason, syncs)
         if true_res:
             # the true residual of the returned iterate against the raw b
-            trn, bn = _scalars(pnorm(b - spmv(x)), pnorm(b))
+            trn, bn = _scalars(plain_pnorm(b - spmv(x)), plain_pnorm(b))
             out = out[:4] + (syncs + 1, trn, bn)
         return out
 
@@ -1666,6 +1723,11 @@ def build_ksp_program_many(comm, ksp_type, pc, operator, true_res=False,
     if ksp_type not in BATCHED_TYPES:
         raise ValueError(f"KSP {ksp_type!r} has no batched program; "
                          "KSP.solve_many solves its columns one by one")
+    if _faults.trace_time_live():
+        raise NotImplementedError(
+            "a trace-time fault (spmv.result/pc.apply/comm.psum) is armed, "
+            "and the port wires their sites into the guarded batched "
+            "programs only (-ksp_abft / -ksp_residual_replacement)")
     prec = _precision(ksp_type, operator)
     up = prec.up
     pdot, pnorm = shard_dots(comm, up, cols=True)
@@ -1709,5 +1771,499 @@ def build_ksp_program_many(comm, ksp_type, pc, operator, true_res=False,
                                                 maxit)
         trn, bn = torch.stack([pnorm(B - spmv(X)), pnorm(B)]).tolist()
         return X, iters, rnorms, reasons, syncs + 1, trn, bn
+
+    return run
+
+
+# ---- the silent-corruption guard: bundles and programs ----------------------
+#
+# JAX ``krylov.py:265-540`` (``GUARDED_TYPES``, ``_make_guard``,
+# ``_make_pipe_guard``, ``_make_sstep_guard``, ``cg_kernel_guarded``,
+# ``cg_stencil_kernel_guarded``, the pipelined and s-step guarded kernels
+# and their batched forms) and the program wiring (``:2332-2446``,
+# ``:2870-2914``). The ABFT partials are torch reductions per shard, stacked
+# with the dots the loop already makes into ONE ``psum`` per phase, so the
+# reductions an iteration does not grow (JAX: 2 sites against 3 for the
+# classic plan). The replacement's verifier always sums through a plain
+# reduction: a corrupted verifier would lie about recovery.
+
+# KSP types with a guarded loop
+GUARDED_TYPES = ("cg", "pipecg", "sstep")
+
+
+def _site_calls(sites, fn, init, body, pair=False):
+    """``fn`` with the trace-time fault of its sites applied: call ``k``
+    is site ``init[k]`` while ``k < len(init)``, then the body's sites in
+    turn (one loop body of the JAX program traces each once; every
+    iteration's call from a corrupted site carries the corruption).
+    ``pair``: ``fn`` returns ``(y, d)`` and only ``y`` is corrupted (the
+    fused kernel's dot stays clean, as in JAX). Without a hit site, ``fn``
+    itself."""
+    if not sites:
+        return fn
+    count = [0]
+
+    def call(v):
+        k = count[0]
+        count[0] += 1
+        name = init[k] if k < len(init) else body[(k - len(init))
+                                                  % len(body)]
+        fault = sites.hit(name)
+        out = fn(v)
+        if pair:
+            return _abft.apply_silent_fault(fault, out[0]), out[1]
+        return _abft.apply_silent_fault(fault, out)
+
+    return call
+
+
+def _guard_sites(ksp_type, s=4, stencil=False, cs=False):
+    """A guarded program's trace-time sites in the JAX package's trace
+    order (``faults.trace_sites``)."""
+    if ksp_type == "sstep":
+        return {"spmv.result": (["A.init"] + [f"A.p{i}" for i in range(s)]
+                                + [f"A.r{i}" for i in range(s - 1)]
+                                + ["A.rr", "A.final"]),
+                "pc.apply": (["M.init"] + [f"M.p{i}" for i in range(s)]
+                             + ["M.z"] + [f"M.r{i}" for i in range(s - 1)]
+                             + ["M.rr"]),
+                "comm.psum": ["P.init", "P.rn0", "P.gram"]}
+    if ksp_type == "pipecg":
+        return {"spmv.result": ["A.init0", "A.init1", "A.body", "A.rr",
+                                "A.rr2", "A.final"],
+                "pc.apply": ["M.init", "M.body", "M.rr"],
+                "comm.psum": ["P.init", "P.rn0", "P.fused"]}
+    if stencil:
+        return {"spmv.result": ["A.init", "A.body", "A.rr"],
+                "comm.psum": (["P.init", "P.p2"] if cs
+                              else ["P.init", "P.init2", "P.p2"])}
+    return {"spmv.result": ["A.init", "A.body", "A.rr"],
+            "pc.apply": ["M.init", "M.body", "M.rr"],
+            "comm.psum": ["P.init", "P.p2init", "P.p1", "P.p2"]}
+
+
+class _GuardSums:
+    """The per-shard partial sums a guard stacks, for one RHS (a shard's
+    block ``(lsize,)`` or grid) or a column block (``(k, lsize)``, ``cols``:
+    one value per column), each lifted by ``up``; ``stack(site, fn)`` sums
+    ``fn(i)``'s list of partials of every local shard ``i`` in ONE
+    reduction, with the ``comm.psum`` fault of ``site``."""
+
+    def __init__(self, comm, up, cols, sdt, sites):
+        self.comm, self.up, self.cols, self.sdt = comm, up, cols, sdt
+        self.sites = sites
+
+    def dot(self, u, v):
+        up = self.up
+        if self.cols:
+            return torch.stack([torch.vdot(up(u[j]).reshape(-1),
+                                           up(v[j]).reshape(-1))
+                                for j in range(u.shape[0])])
+        return torch.vdot(up(u).reshape(-1), up(v).reshape(-1))
+
+    def tsum(self, u):
+        u = self.up(u)
+        return u.sum(-1) if self.cols else u.sum()
+
+    def tasum(self, u):
+        u = self.up(u)
+        if self.cols:
+            return torch.linalg.vector_norm(u, 1, dim=-1).to(u.dtype)
+        return torch.linalg.vector_norm(u, 1).to(u.dtype)
+
+    def cmul(self, c, v):
+        return self.up(c) * self.up(v)
+
+    def stack(self, site, fn, plain=False):
+        parts = [torch.stack([q.to(self.sdt) for q in fn(i)])
+                 for i in range(self.comm.local_shards)]
+        total = self.comm.psum(parts)
+        if plain or not self.sites:
+            return total
+        return _abft.corrupt_psum(self.sites.hit(site), total, parts)
+
+
+def _bad(diff, scale, tol_eps):
+    """The ABFT verdict ``|diff| > tol * eps * scale``."""
+    return torch.abs(diff) > tol_eps * _re(scale)
+
+
+def _make_guard(sums, cs, csM, abft_tol, rr_n, eps):
+    """The classic plan's guard bundle (JAX ``_make_guard``, ``:278``) on the
+    general route: ``init`` (``||b||`` with the initial apply's check),
+    ``p1`` (``<p, A p>`` with the operator's), ``p2`` (``<r, z>``,
+    ``||r||^2`` with the PC's), each one stacked reduction, and the plain
+    verifier ``vpair``. ``cs``/``csM`` are the shard-stacked checksums or
+    None."""
+    te = abft_tol * eps
+    calls = [0]
+
+    def init(b, r, x0):
+        if cs is None:
+            s = sums.stack("P.init", lambda i: [sums.dot(b[i], b[i])])
+            return torch.sqrt(torch.clamp_min(_re(s[0]), 0.0)), None
+
+        def parts(i):
+            cx = sums.cmul(cs[i], x0[i])
+            return [sums.dot(b[i], b[i]), sums.tsum(r[i]), sums.tsum(b[i]),
+                    sums.tsum(cx), sums.tasum(r[i]), sums.tasum(b[i]),
+                    sums.tasum(cx)]
+        s = sums.stack("P.init", parts)
+        return (torch.sqrt(torch.clamp_min(_re(s[0]), 0.0)),
+                _bad(s[1] - s[2] + s[3], _re(s[4]) + _re(s[5]) + _re(s[6]),
+                     te))
+
+    def p1(p, Ap):
+        """``(<p, A p>, the operator's check sums)`` (``cg_plans._bad4``)."""
+        if cs is None:
+            return sums.stack("P.p1", lambda i: [sums.dot(p[i], Ap[i])])[0], \
+                None
+
+        def parts(i):
+            cp = sums.cmul(cs[i], p[i])
+            return [sums.dot(p[i], Ap[i]), sums.tsum(Ap[i]), sums.tsum(cp),
+                    sums.tasum(Ap[i]), sums.tasum(cp)]
+        s = sums.stack("P.p1", parts)
+        return s[0], s[1:5]
+
+    # PC none's checksum is all ones: <c_M, r> is then the sum of r itself
+    ones = csM is not None and bool(torch.all(csM == 1))
+
+    def p2(r, z):
+        """``(<r, z>, ||r||^2, the PC's check sums)``."""
+        site = "P.p2init" if calls[0] == 0 else "P.p2"
+        calls[0] += 1
+        if csM is None:
+            s = sums.stack(site, lambda i: [sums.dot(r[i], z[i]),
+                                            sums.dot(r[i], r[i])])
+            return s[0], _re(s[1]), None
+
+        def parts(i):
+            cr = r[i] if ones else sums.cmul(csM[i], r[i])
+            return [sums.dot(r[i], z[i]), sums.dot(r[i], r[i]),
+                    sums.tsum(z[i]), sums.tsum(cr), sums.tasum(z[i]),
+                    sums.tasum(cr)]
+        s = sums.stack(site, parts)
+        return s[0], _re(s[1]), s[2:6]
+
+    def vpair(rt, zt):
+        s = sums.stack(None, lambda i: [sums.dot(rt[i], rt[i]),
+                                        sums.dot(rt[i], zt[i])], plain=True)
+        return _re(s[0]), s[1]
+
+    def vnorm2(rt):
+        return _re(sums.stack(None, lambda i: [sums.dot(rt[i], rt[i])],
+                              plain=True)[0])
+
+    def pnorm(u):
+        s = sums.stack("P.rn0", lambda i: [sums.dot(u[i], u[i])])
+        return torch.sqrt(torch.clamp_min(_re(s[0]), 0.0))
+
+    return types.SimpleNamespace(init=init, p1=p1, p2=p2, vpair=vpair,
+                                 vnorm2=vnorm2, pnorm=pnorm, rr_n=int(rr_n),
+                                 eps=eps, abft_tol=abft_tol, te=te, cs=cs,
+                                 csM=csM)
+
+
+def _make_stencil_guard(sums, boundary, abft_tol, rr_n, eps):
+    """The stencil fast path's guard bundle (JAX ``:2390-2430``): the fused
+    kernel psums ``<p, A p>`` itself, so the operator's ABFT partials ride
+    the phase-2 reduction with ``||r||^2`` (``p2_stencil``); ``<c, p>`` and
+    ``sum |c p|`` read the boundary shells only (``boundary``, from
+    ``StencilPoisson3D.checksum_boundary``; None: no checksum)."""
+    te = abft_tol * eps
+    up = sums.up
+
+    def cdot(u, i):
+        v = up(u).reshape(-1)[boundary[i]]
+        return v.sum(), v.abs().sum()
+
+    def init(b, r, x):
+        """``(||b||, ||r||^2, the operator's check flag)``: the squared
+        norm, as the unguarded loop takes ``<r, z> = ||r||^2 / d`` from it
+        (JAX squares the norm again, one rounding apart)."""
+        if boundary is None:
+            bn = sums.stack("P.init", lambda i: [sums.dot(b[i], b[i])])[0]
+            rn = sums.stack("P.init2", lambda i: [sums.dot(r[i], r[i])])[0]
+            return (torch.sqrt(torch.clamp_min(bn, 0.0)),
+                    torch.clamp_min(rn, 0.0), None)
+
+        def parts(i):
+            cx, acx = cdot(x[i], i)
+            ru, bu = up(r[i]), up(b[i])
+            return [sums.dot(b[i], b[i]), sums.dot(r[i], r[i]), ru.sum(),
+                    bu.sum(), cx, torch.linalg.vector_norm(ru, 1),
+                    torch.linalg.vector_norm(bu, 1), acx]
+        s = sums.stack("P.init", parts)
+        return (torch.sqrt(torch.clamp_min(s[0], 0.0)),
+                torch.clamp_min(s[1], 0.0),
+                _bad(s[2] - s[3] + s[4], s[5] + s[6] + s[7], te))
+
+    def p2_stencil(r, p, Ap):
+        """``(||r||^2, the operator's check sums)`` (``cg_plans._bad4``)."""
+        if boundary is None:
+            s = sums.stack("P.p2", lambda i: [sums.dot(r[i], r[i])])
+            return torch.clamp_min(s[0], 0.0), None
+
+        def parts(i):
+            cp, acp = cdot(p[i], i)
+            a = up(Ap[i])
+            return [sums.dot(r[i], r[i]), a.sum(), cp,
+                    torch.linalg.vector_norm(a, 1), acp]
+        s = sums.stack("P.p2", parts)
+        return torch.clamp_min(s[0], 0.0), s[1:5]
+
+    def vnorm2(rt):
+        return sums.stack(None, lambda i: [sums.dot(rt[i], rt[i])],
+                          plain=True)[0]
+
+    return types.SimpleNamespace(init=init, p2_stencil=p2_stencil,
+                                 vnorm2=vnorm2, rr_n=int(rr_n), eps=eps,
+                                 te=te)
+
+
+def _make_pipe_guard(sums, cs, csM, abft_tol, rr_n, eps):
+    """The pipelined plan's guard bundle (JAX ``_make_pipe_guard``,
+    ``:357``): the checksum partials of a body's fresh applies ``m = M w``,
+    ``n = A m`` (``chk_parts``, per shard) ride the NEXT body's one reduction
+    (``fused``); ``vpair2`` verifies the true residual against the CURRENT
+    recurrence residual through a plain reduction."""
+    base = _make_guard(sums, cs, csM, abft_tol, rr_n, eps)
+    te = abft_tol * eps
+    L = sums.comm.local_shards
+
+    def chk_parts(mv, nv, wv):
+        out = []
+        for i in range(L):
+            q = []
+            if cs is not None:
+                cm = sums.cmul(cs[i], mv[i])
+                q += [sums.tsum(nv[i]), sums.tsum(cm), sums.tasum(nv[i]),
+                      sums.tasum(cm)]
+            if csM is not None:
+                cw = sums.cmul(csM[i], wv[i])
+                q += [sums.tsum(mv[i]), sums.tsum(cw), sums.tasum(mv[i]),
+                      sums.tasum(cw)]
+            out.append(q)
+        return out
+
+    def chk_init(r0, u0, w0):
+        return chk_parts(u0, w0, r0)
+
+    def fused(r, u, w, chk):
+        s = sums.stack("P.fused", lambda i: [
+            sums.dot(r[i], u[i]), sums.dot(w[i], u[i]),
+            sums.dot(r[i], r[i])] + chk[i])
+        badA = badM = None
+        i = 3
+        if cs is not None:
+            badA = _bad(s[i] - s[i + 1], _re(s[i + 2]) + _re(s[i + 3]), te)
+            i += 4
+        if csM is not None:
+            badM = _bad(s[i] - s[i + 1], _re(s[i + 2]) + _re(s[i + 3]), te)
+        return s[0], s[1], s[2], badA, badM
+
+    def vpair2(rt, rc):
+        s = sums.stack(None, lambda i: [sums.dot(rt[i], rt[i]),
+                                        sums.dot(rc[i], rc[i])], plain=True)
+        return _re(s[0]), _re(s[1])
+
+    return types.SimpleNamespace(init=base.init, pnorm=base.pnorm,
+                                 fused=fused, chk_parts=chk_parts,
+                                 chk_init=chk_init, vnorm2=base.vnorm2,
+                                 vpair2=vpair2, rr_n=int(rr_n), eps=eps)
+
+
+def _make_sstep_guard(sums, cs, csM, abft_tol, rr_n, eps, s):
+    """The s-step plan's guard bundle (JAX ``_make_sstep_guard``, ``:446``):
+    ``greduce(C)`` reduces the block's Gram matrix of the rows of ``C`` and
+    the column sums of the basis build's applies in ONE reduction and
+    returns them to the host (numpy); the loop judges them
+    (``cg_plans._sstep_guard_flags``)."""
+    base = _make_guard(sums, cs, csM, abft_tol, rr_n, eps)
+    m = 2 * s + 1
+    cols = sums.cols
+
+    def greduce(Cup):
+        shapes = []
+
+        def parts(i):
+            Ci = Cup[i]
+            if cols:
+                E = torch.stack([Ci[:, j].conj() @ Ci[:, j].T
+                                 for j in range(Ci.shape[1])], dim=-1)
+            else:
+                E = Ci.conj() @ Ci.T
+            Bz, Bw, r = Ci[:m], Ci[m:2 * m], Ci[2 * m]
+            q = [E]
+            if cs is not None:
+                cB = cs[i] * Bz
+                q += [Bw.sum(-1), cB.sum(-1), Bw.abs().sum(-1).to(Bw.dtype),
+                      cB.abs().sum(-1).to(Bw.dtype)]
+            if csM is not None:
+                cW = csM[i] * Bw
+                cr = csM[i] * r
+                q += [Bz.sum(-1), cW.sum(-1), Bz.abs().sum(-1).to(Bz.dtype),
+                      cW.abs().sum(-1).to(Bz.dtype), cr.sum(-1),
+                      cr.abs().sum(-1).to(cr.dtype)]
+            if i == 0:
+                shapes.extend(t.shape for t in q)
+            return [torch.cat([t.reshape(-1) for t in q])]
+        flat = sums.stack("P.gram", parts)[0]
+        host = flat.cpu().numpy()
+        out, k = [], 0
+        for shp in shapes:
+            n = int(np.prod(shp))
+            out.append(host[k:k + n].reshape(shp))
+            k += n
+        return out[0], out[1:]
+
+    return types.SimpleNamespace(
+        init=base.init, pnorm=base.pnorm, vpair=base.vpair,
+        vnorm2=base.vnorm2, greduce=greduce, rr_n=int(rr_n), eps=eps,
+        abft_tol=abft_tol, cs=cs, csM=csM)
+
+
+def guarded_stencil_eligible(ksp_type, pc, operator, many=False) -> bool:
+    """Whether a guarded solve takes the stencil fast path: cg on one RHS
+    with PC none/jacobi on a stencil operator that can read its checksum on
+    the boundary shells."""
+    return (not many and stencil_cg_eligible(ksp_type, pc, operator)
+            and pc.get_type() in ("none", "jacobi")
+            and hasattr(operator, "checksum_boundary"))
+
+
+def build_guarded_program(comm, ksp_type, pc, operator, *, abft_tol, rr_n,
+                          cs=None, csM=None, max_repl=3, true_res=False,
+                          monitor=None, sstep_s=4, many=False):
+    """The guarded solve program of a cg/pipecg/sstep KSP (JAX
+    ``build_ksp_program``/``build_ksp_program_many`` with ``abft``/
+    ``abft_pc``/``rr``): ``prog(b, x0, rtol, atol, dtol, maxit) -> (x, it,
+    rnorm, reason, host_syncs, det, rrc, xv)`` on flat padded data (``many``:
+    ``(size, k, lsize)`` blocks and per-column lists), with the true-residual
+    epilogue's ``(trn, bn)`` appended under ``true_res``.
+
+    ``cs``/``csM`` are the placed column checksums (this process's padded
+    rows) or None; on the stencil fast path (cg, PC none/jacobi on a
+    :class:`..models.stencil.StencilPoisson3D`, one RHS) ``cs`` is
+    ``"boundary"``: the analytic checksum read on the boundary shells. A
+    guarded stencil solve launches row 1 (``stencil7_dot``) once a step and
+    at set-up and row 2 (``stencil7_apply``) for each replacement's ``b - A
+    x``; the batched one and pipecg/sstep take the general route, row 9
+    (``stencil7_apply_many``) for a column block (JAX ``:2823-2831``,
+    ``:2286``)."""
+    if ksp_type not in GUARDED_TYPES:
+        raise ValueError(f"KSP {ksp_type!r} has no guarded loop")
+    prec = _precision(ksp_type, operator)
+    up = prec.up
+    sdt = prec.reduce if prec.mixed else operator.dtype
+    eps = _abft.checksum_tolerance_dtype(operator.dtype)
+    size = comm.local_shards
+    n = operator.shape[0]
+    plan = {"prec": prec} if prec.mixed else {}
+    s = max(1, int(sstep_s))
+    # the stencil fast path keeps the scalar-Jacobi identities only: PC mg
+    # under the guard takes the general route (JAX :2271-2274)
+    stencil = guarded_stencil_eligible(ksp_type, pc, operator, many)
+    if cs == "boundary" and not stencil:
+        raise ValueError("the boundary checksum is the stencil fast path's")
+    sites = _faults.trace_sites(_guard_sites(ksp_type, s, stencil,
+                                             cs is not None))
+    sums = _GuardSums(comm, up, many, sdt, sites)
+    plain_pdot, plain_pnorm = shard_dots(comm, up, cols=many)
+    if stencil:
+        matvec_dot = operator.local_matvec_dot(comm)
+        apply3 = operator.local_apply_grid3(comm)
+        inv_diag = (1.0 if pc.get_type() == "none"
+                    else 1.0 / operator.uniform_diagonal)
+        boundary = (operator.checksum_boundary(comm) if cs is not None
+                    else None)
+        g = _make_stencil_guard(sums, boundary, abft_tol, rr_n, eps)
+        g.A_rr = _site_calls(sites, apply3, ["A.rr"], ["A.rr"])
+        Adot = _site_calls(sites, matvec_dot, ["A.init"], ["A.body"],
+                           pair=True)
+        grid = (size,) + tuple(operator.grid3d)
+
+        def prog(b, x0, rtol, atol, dtol, maxit):
+            out = _plans.guarded_cg_loop(
+                b=b.reshape(grid), x0=x0.reshape(grid), rtol=rtol,
+                atol=atol, maxit=maxit, g=g, dtol=dtol, Adot=Adot,
+                inv_diag=inv_diag, monitor=monitor, **plan)
+            return ((out[0].reshape(b.shape),) + out[1:7]
+                    + (out[7].reshape(b.shape),))
+        spmv = operator.local_spmv(comm)
+    else:
+        if many:
+            spmv = operator.local_spmv_many(comm)
+            pc_apply = pc.local_apply_many(comm, n)
+            if pc_apply is None:
+                raise ValueError(f"pc {pc.get_type()!r} has no batched "
+                                 "apply; KSP.solve_many solves its columns "
+                                 "one by one")
+        else:
+            spmv = operator.local_spmv(comm)
+            pc_apply = pc.local_apply(comm, n)
+        bp = _plans.ManyBatch("cols") if many else None
+        if ksp_type == "cg":
+            g = _make_guard(sums, cs, csM, abft_tol, rr_n, eps)
+            A = _site_calls(sites, spmv, ["A.init"], ["A.body"])
+            M = _site_calls(sites, pc_apply, ["M.init"], ["M.body"])
+            g.A_rr = _site_calls(sites, spmv, ["A.rr"], ["A.rr"])
+            g.M_rr = _site_calls(sites, pc_apply, ["M.rr"], ["M.rr"])
+
+            def prog(b, x0, rtol, atol, dtol, maxit):
+                return _plans.guarded_cg_loop(
+                    b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, g=g,
+                    dtol=dtol, A=A, M=M, bp=bp, monitor=monitor, **plan)
+        elif ksp_type == "pipecg":
+            g = _make_pipe_guard(sums, cs, csM, abft_tol, rr_n, eps)
+            A = _site_calls(sites, spmv, ["A.init0", "A.init1"], ["A.body"])
+            M = _site_calls(sites, pc_apply, ["M.init"], ["M.body"])
+            g.A_rr = _site_calls(sites, spmv, ["A.rr"], ["A.rr"])
+            g.A_rr2 = _site_calls(sites, spmv, ["A.rr2"], ["A.rr2"])
+            g.M_rr = _site_calls(sites, pc_apply, ["M.rr"], ["M.rr"])
+            g.A_final = _site_calls(sites, spmv, ["A.final"], ["A.final"])
+
+            def prog(b, x0, rtol, atol, dtol, maxit):
+                return _plans.guarded_pipelined_loop(
+                    b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, g=g,
+                    dtol=dtol, A=A, M=M, bp=bp, monitor=monitor, **plan)
+        else:
+            g = _make_sstep_guard(sums, cs, csM, abft_tol, rr_n, eps, s)
+            A = _site_calls(sites, spmv, ["A.init"],
+                            [f"A.p{i}" for i in range(s)]
+                            + [f"A.r{i}" for i in range(s - 1)])
+            M = _site_calls(sites, pc_apply, ["M.init"],
+                            [f"M.p{i}" for i in range(s)] + ["M.z"]
+                            + [f"M.r{i}" for i in range(s - 1)])
+            g.A_rr = _site_calls(sites, spmv, ["A.rr"], ["A.rr"])
+            g.M_rr = _site_calls(sites, pc_apply, ["M.rr"], ["M.rr"])
+            g.A_final = _site_calls(sites, spmv, ["A.final"], ["A.final"])
+
+            def prog(b, x0, rtol, atol, dtol, maxit):
+                return _plans.guarded_sstep_loop(
+                    b=b, x0=x0, rtol=rtol, atol=atol, maxit=maxit, s=s,
+                    g=g, combine=_combine, max_repl=int(max_repl), A=A,
+                    M=M, dtol=dtol, bp=bp, monitor=monitor, **plan)
+
+    def run(b, x0, rtol, atol, dtol, maxit):
+        shape = (size, b.shape[1], -1) if many else (size, -1)
+        b, x0 = b.view(shape), x0.view(shape)
+        out = prog(b, x0, rtol, atol, dtol, maxit)
+        x = out[0] if many else out[0].reshape(-1)
+        xv = out[7] if many else out[7].reshape(-1)
+        out = (x,) + tuple(out[1:7]) + (xv,)
+        if true_res:
+            # the epilogue's true residual, on the raw operator and plain
+            # reductions (JAX _true_res_tail)
+            xs = out[0].view(shape)
+            if many:
+                trn, bn = torch.stack([plain_pnorm(b - spmv(xs)),
+                                       plain_pnorm(b)]).tolist()
+            else:
+                trn, bn = _scalars(plain_pnorm(b - spmv(xs)),
+                                   plain_pnorm(b))
+            out = out[:4] + (out[4] + 1,) + out[5:] + (trn, bn)
+        return out
 
     return run

@@ -21,11 +21,25 @@ for gmres/fgmres/lgmres, or per ``ell`` steps for bcgsl, the iteration-0
 norm included. They add no host read;
 one that raises ends the solve with its exception.
 
-The silent-corruption guard (``-ksp_abft``, ``-ksp_residual_replacement``,
-and for pipecg/sstep ``-ksp_pipeline_auto_replacement``/
-``-ksp_sstep_auto_replacement``) is ROADMAP.md Queue A item 6: a solve that
-would arm it raises naming that item and its flag, and never runs the
-unguarded loop in its place.
+The silent-corruption guard (``-ksp_abft``, ``-ksp_abft_tol``,
+``-ksp_residual_replacement``, and for pipecg/sstep
+``-ksp_pipeline_auto_replacement``/``-ksp_sstep_auto_replacement`` with
+``-ksp_sstep_max_replacements``; JAX ``ksp.py:519-566``, ``:662-952``) runs
+the guarded loops of cg, pipecg and sstep (``solvers/cg_plans.py``), one RHS
+or batched; other types raise ``ValueError`` as JAX ``_check_guard`` does. A
+detection raises :class:`..utils.errors.SilentCorruptionError` with ``x``
+rolled back to the last verified iterate; an s-step solve that spends its
+basis-restart budget continues as classic CG from its trusted iterate
+(``SDC_DEMOTE``, a ``sstep_demote`` recovery event). The fused program's
+guarded modes are not ported: ``-ksp_megasolve`` with the guard raises
+(ROADMAP.md Queue A item 6.3).
+
+The fault points of ``resilience/faults.py`` sit where the JAX package has
+them: ``ksp.solve`` at the entry of every solve, ``ksp.program`` and
+``device.lost`` around the solve program (``iter=K`` leaves K iterations of
+real progress in ``x`` before the failure), ``ksp.result`` on the residual
+the solve reports; device failures surface as
+:class:`..utils.errors.DeviceExecutionError` with their failure class.
 
 ``-ksp_megasolve`` routes an eligible cg/pipecg/sstep solve (and
 ``solve_many`` block) through the fused program of ``solvers/megasolve.py``,
@@ -57,12 +71,18 @@ import torch
 
 from ..core.vec import Vec
 from ..parallel.mesh import numpy_dtype
-from ..utils.convergence import BatchedSolveResult, ConvergedReason, SolveResult
+from ..resilience import faults as _faults
+from ..resilience.abft import DEFAULT_ABFT_TOL
+from ..utils.convergence import (BatchedSolveResult, ConvergedReason,
+                                 RecoveryEvent, SolveResult)
 from ..utils.dtypes import host_dtype, tolerance_dtype
+from ..utils.errors import SilentCorruptionError, wrap_device_errors
 from ..utils.options import global_options
-from .krylov import (BATCHED_TYPES, NATURAL_TYPES, batched_pc_supported,
+from .cg_plans import SDC_DEMOTE, SDC_DETECTOR_NAMES, SDC_NONE
+from .krylov import (BATCHED_TYPES, GUARDED_TYPES, NATURAL_TYPES,
+                     batched_pc_supported, build_guarded_program,
                      build_ksp_program, build_ksp_program_many,
-                     check_ksp_type)
+                     check_ksp_type, guarded_stencil_eligible)
 from .pc import PC
 
 DEFAULT_RTOL = 1e-5   # PETSc's KSP default
@@ -83,22 +103,13 @@ _KERNEL_NORMS = {"gmres": "preconditioned", "lgmres": "preconditioned",
 # fixed-iteration contract (norm type 'none') for them (JAX ksp.py:312)
 _CYCLE_GRANULAR = ("gmres", "fgmres", "lgmres", "bcgsl")
 # the replacement interval pipecg and sstep arm when
-# -ksp_residual_replacement is unset (JAX ksp.py:520-531): the guard, item 6
-_AUTO_REPLACEMENT = {
-    "pipecg": ("pipeline_auto_replacement", "ksp_pipeline_auto_replacement",
-               6),
-    "sstep": ("sstep_auto_replacement", "ksp_sstep_auto_replacement", 6)}
+# -ksp_residual_replacement is unset (JAX ksp.py:520-531)
+_AUTO_REPLACEMENT = {"pipecg": "pipeline_auto_replacement",
+                     "sstep": "sstep_auto_replacement"}
 # re-entries of the true-residual gate before it reports a failure
 _MAX_REENTRIES = 3
 # petsc4py's default cap on the convergence history
 _HISTORY_LENGTH = 10000
-# the JAX flags whose modes would change a solve the port runs, and are not
-# ported: the attribute, its flag and the ROADMAP.md Queue A item that
-# brings the mode. A solve with one of them on raises.
-_UNPORTED_MODES = (
-    ("abft", "ksp_abft", 6),
-    ("residual_replacement", "ksp_residual_replacement", 6),
-)
 # the boolean flags of the ported modes: the fused program and the reduction
 # plan selection
 _MODE_FLAGS = ("megasolve", "megasolve_stencil_fastpath", "reduction_auto")
@@ -140,7 +151,9 @@ class KSP:
         self._history_length = _HISTORY_LENGTH
         self._history_reset = False
         self._prefix = ""             # set_options_prefix
-        # the JAX flags of the modes the port lacks (_UNPORTED_MODES)
+        # the silent-corruption guard: -ksp_abft (checksums) and
+        # -ksp_residual_replacement N (a true-residual replacement every N
+        # iterations)
         self.abft = False
         self.residual_replacement = 0
         # -ksp_megasolve, -ksp_megasolve_stencil_fastpath: the fused program
@@ -155,23 +168,32 @@ class KSP:
         self.bcgsl_ell = 2            # -ksp_bcgsl_ell
         self.sstep_s = 4              # -ksp_sstep_s: the s-step block size
         # the replacement interval of pipecg/sstep when
-        # -ksp_residual_replacement is unset: it arms the guard (item 6)
+        # -ksp_residual_replacement is unset: it arms the guard
         self.pipeline_auto_replacement = 0
         self.sstep_auto_replacement = 0
-        # read and stored as the JAX package stores them: -ksp_abft_tol and
-        # -ksp_sstep_max_replacements parameterise the guard, which raises
-        # when chosen; -ksp_reduction_probe_refresh re-measures the
-        # reduction probe of -ksp_reduction_auto. -ksp_unroll only
+        # -ksp_abft_tol: the ABFT threshold multiplier;
+        # -ksp_sstep_max_replacements: the s-step basis restarts before the
+        # demotion to classic CG; -ksp_reduction_probe_refresh re-measures
+        # the reduction probe of -ksp_reduction_auto. -ksp_unroll only
         # reschedules XLA's loop (JAX ksp.py:62-70) and has no effect here
         # but the megasolve routing, which it turns off as in JAX.
-        self.abft_tol = 256.0
+        self.abft_tol = DEFAULT_ABFT_TOL
         self.unroll = 1
         self.sstep_max_replacements = 3
         self.reduction_probe_refresh = False
         self.result = SolveResult()
         self.result_many = BatchedSolveResult()
+        self._abft_placed = None
         if comm is not None:
             self.create(comm)
+
+    def destroy(self):
+        """Release the operators and the PC (petsc4py ``KSP.destroy``; JAX
+        ``ksp.py:189``)."""
+        self._mat = None
+        self._pc = None
+        self._abft_placed = None
+        return self
 
     def create(self, comm=None):
         self.comm = comm
@@ -398,16 +420,13 @@ class KSP:
         ``-ksp_megasolve``, ``-ksp_megasolve_stencil_fastpath``,
         ``-ksp_reduction_auto`` and ``-ksp_reduction_probe_refresh`` choose
         the fused program and the reduction plan selection (module
-        docstring). The flags of the JAX modes the port lacks are read too:
-        a solve with ``-ksp_abft`` or ``-ksp_residual_replacement`` on raises
-        ``NotImplementedError``, and so does a pipecg solve with
-        ``-ksp_pipeline_auto_replacement`` or an sstep solve with
-        ``-ksp_sstep_auto_replacement`` above 0 (they arm the guard);
-        ``-ksp_abft_tol``, ``-ksp_sstep_max_replacements``,
-        ``-pc_gamg_threshold``, ``-pc_gamg_coarse_eq_limit`` and
-        ``-pc_mg_levels`` parameterise modes the port lacks and are stored;
-        ``-ksp_unroll`` is stored (above 1 it keeps a solve off the fused
-        program, as in JAX)."""
+        docstring). ``-ksp_abft``, ``-ksp_abft_tol``,
+        ``-ksp_residual_replacement``, ``-ksp_pipeline_auto_replacement``,
+        ``-ksp_sstep_auto_replacement`` and ``-ksp_sstep_max_replacements``
+        configure the silent-corruption guard. ``-pc_gamg_threshold``,
+        ``-pc_gamg_coarse_eq_limit`` and ``-pc_mg_levels`` parameterise modes
+        the port lacks and are stored; ``-ksp_unroll`` is stored (above 1 it
+        keeps a solve off the fused program, as in JAX)."""
         opt = global_options()
         p = self._prefix
         t = opt.get_string(p + "ksp_type")
@@ -427,10 +446,9 @@ class KSP:
             p + "ksp_true_residual_check", self._true_residual_check)
         self.true_residual_margin = opt.get_real(
             p + "ksp_true_residual_margin", self.true_residual_margin)
-        for attr, flag, _item in _UNPORTED_MODES:
-            read = (opt.get_int if attr == "residual_replacement"
-                    else opt.get_bool)
-            setattr(self, attr, read(p + flag, getattr(self, attr)))
+        self.abft = opt.get_bool(p + "ksp_abft", self.abft)
+        self.residual_replacement = opt.get_int(
+            p + "ksp_residual_replacement", self.residual_replacement)
         for attr in _MODE_FLAGS:
             setattr(self, attr, opt.get_bool(p + "ksp_" + attr,
                                              getattr(self, attr)))
@@ -490,7 +508,7 @@ class KSP:
         if self.residual_replacement > 0:
             return int(self.residual_replacement)
         if self._type in _AUTO_REPLACEMENT:
-            return int(getattr(self, _AUTO_REPLACEMENT[self._type][0]))
+            return int(getattr(self, _AUTO_REPLACEMENT[self._type]))
         return 0
 
     def _guard_requested(self) -> bool:
@@ -498,19 +516,42 @@ class KSP:
         ``ksp.py:533``)."""
         return bool(self.abft or self._effective_replacement() > 0)
 
-    def _check_modes(self):
-        """Raise ``NotImplementedError`` when a mode the port lacks is on
-        (``_UNPORTED_MODES``, or the guard armed by pipecg's or sstep's
-        automatic replacement), naming the Queue A item that brings it."""
-        modes = list(_UNPORTED_MODES)
-        if self._guard_requested() and self._type in _AUTO_REPLACEMENT:
-            modes.append(_AUTO_REPLACEMENT[self._type])
-        for attr, flag, item in modes:
-            if getattr(self, attr):
-                raise NotImplementedError(
-                    f"-{self._prefix}{flag}: this mode of the JAX package is "
-                    f"not ported (ROADMAP.md Queue A item {item}); unset it "
-                    "to run the plain solve")
+    def _check_guard(self):
+        """The guard's support rule (JAX ``ksp.py:535`` and ``krylov.py:
+        2191-2207``): cg, pipecg and sstep only, no null space, the
+        unpreconditioned norm."""
+        if not self._guard_requested():
+            return
+        if self._type not in GUARDED_TYPES:
+            raise ValueError(
+                f"-ksp_abft / -ksp_residual_replacement (the "
+                f"silent-corruption guard) support KSP "
+                f"{sorted(GUARDED_TYPES)}; KSP {self._type!r} has no "
+                "guarded kernel: disable the guard or use cg")
+        if self._mat is not None and self._nullspace_basis(
+                self._mat) is not None:
+            raise ValueError(
+                "the silent-corruption guard does not compose with a "
+                "null-space projection (the projected operator's column "
+                "checksum differs from the assembled one); disable "
+                "-ksp_abft/-ksp_residual_replacement for singular solves")
+        if self._norm_type == "natural":
+            raise ValueError(
+                "the silent-corruption guard monitors the unpreconditioned "
+                "residual norm; it does not compose with -ksp_norm_type "
+                "natural")
+
+    def _check_fused_guard(self):
+        """The fused program's guarded modes (``abft``, ``abft_pc``, ``rr``;
+        JAX ``megasolve.py:267-311``) are not ported: a fused solve with the
+        guard armed raises instead of running unguarded."""
+        if self._guard_requested():
+            raise NotImplementedError(
+                "-ksp_megasolve with the silent-corruption guard (-ksp_abft, "
+                "-ksp_residual_replacement, the auto-replacement flags): "
+                "the fused program's guarded modes are not ported "
+                "(ROADMAP.md Queue A item 6.3); unset -ksp_megasolve to run "
+                "the guarded loops")
 
     def set_up(self):
         """Set up the PC on its operator (the factor PCs factor here), then,
@@ -518,7 +559,6 @@ class KSP:
         first when a mode the port lacks was asked for."""
         if self._mat is None:
             raise RuntimeError("KSP.set_up: no operators set")
-        self._check_modes()
         pc = self.get_pc()
         pc.set_up(pc._mat if pc._mat is not None else self._mat)
         if self.reduction_auto:
@@ -567,6 +607,11 @@ class KSP:
 
     getConvergedReason = get_converged_reason
 
+    @property
+    def converged(self) -> bool:
+        """Whether the last solve converged (JAX ``ksp.py:1970``)."""
+        return self.result.converged
+
     def _run_tolerances(self):
         """``(norm_none, rtol, atol, divtol)`` as the loop takes them: the
         norm type none turns off the convergence test."""
@@ -583,6 +628,7 @@ class KSP:
                 "would stop looser than rtol and defeat the gate")
         return margin
 
+    @wrap_device_errors("KSPSolve")
     def solve(self, b, x, *, _rtol=None, _atol=None, _guess_nonzero=None,
               _no_reenter=False, _mon_offset=0) -> SolveResult:
         """Solve ``A x = b``; the solution is written into ``x``. The
@@ -615,7 +661,9 @@ class KSP:
         mat = self._mat
         if mat is None:
             raise RuntimeError("KSP.solve: no operators set")
+        _faults.check("ksp.solve")    # an injectable pre-solve failure
         self._check_norm_type()
+        self._check_guard()
         self.set_up()
         pc = self.get_pc()
         if pc.kind == "hostlu":
@@ -631,9 +679,11 @@ class KSP:
         # in-program (solvers/megasolve.py); other configurations run the
         # unfused path below (JAX ksp.py:650-656)
         if self._megasolve_eligible():
+            self._check_fused_guard()
             return self._solve_megasolve(b, x, rtol, atol, guess_nonzero)
         gate = (self._true_residual_check and self._type != "preonly"
                 and not norm_none)
+        guard = self._guard_requested()
         margin = self._margin() if gate else 1.0
         monitors = self._monitor_list()
         monitor = None
@@ -641,30 +691,62 @@ class KSP:
             def monitor(it, rn):
                 for m in monitors:
                     m(self, it + _mon_offset, rn)
-        prog = build_ksp_program(mat.comm, self._type, pc, mat,
-                                 restart=self.restart, true_res=gate,
-                                 nullspace=self._nullspace_basis(mat),
-                                 monitor=monitor,
-                                 natural=self._norm_type == "natural",
-                                 aug=self.lgmres_augment,
-                                 ell=self.bcgsl_ell, sstep_s=self.sstep_s)
+        pc_on = False
+        if guard:
+            cs, csM, pc_on = self._guard_checksums(mat, pc)
+            prog = build_guarded_program(
+                mat.comm, self._type, pc, mat, abft_tol=self.abft_tol,
+                rr_n=self._effective_replacement(), cs=cs, csM=csM,
+                max_repl=self.sstep_max_replacements, true_res=gate,
+                monitor=monitor, sstep_s=self.sstep_s)
+        else:
+            prog = build_ksp_program(mat.comm, self._type, pc, mat,
+                                     restart=self.restart, true_res=gate,
+                                     nullspace=self._nullspace_basis(mat),
+                                     monitor=monitor,
+                                     natural=self._norm_type == "natural",
+                                     aug=self.lgmres_augment,
+                                     ell=self.bcgsl_ell,
+                                     sstep_s=self.sstep_s)
         x0 = (x.data.clone() if guess_nonzero
               else torch.zeros_like(b.data))
+        self._program_fault(prog, b.data, x0, divtol, mat,
+                            lambda xd: setattr(x, "data", xd))
         t0 = time.perf_counter()
         out = prog(b.data, x0, *_tolerances(mat.dtype, rtol * margin,
                                             atol * margin, divtol),
                    self.max_it)
         xd, iters, rnorm, reason, syncs = out[:5]
         x.data = xd
+        rest = out[5:]
+        checks = rrc = 0
+        if guard:
+            det, rrc, xv = rest[:3]
+            rest = rest[3:]
+            # one init check, then one a step per checked channel (the
+            # stencil fast path has no PC channel: its Jacobi is a scalar)
+            checks = (1 + iters * (1 + int(pc_on))) if self.abft else 0
+            if det == SDC_DEMOTE:
+                return self._demote_sstep(b, x, rtol=rtol, atol=atol,
+                                          iters=iters, rrc=rrc,
+                                          checks=checks, t0=t0)
+            if det != SDC_NONE:
+                x.data = xv
+                raise SilentCorruptionError(
+                    "KSPSolve", SDC_DETECTOR_NAMES.get(det, f"det{det}"),
+                    iters, detail=f"{rrc} residual replacement(s) passed "
+                                  "before detection")
+        rnorm, iters = _result_fault(rnorm, iters)
         wall = time.perf_counter() - t0
         self.result = SolveResult(iters, rnorm,
                                   _final_reason(reason, rnorm, norm_none),
-                                  wall, syncs)
+                                  wall, syncs, abft_checks=checks,
+                                  residual_replacements=rrc)
         if not _no_reenter:
             self._last_reentries = 0
         if not gate:
             return self.result
-        true_rn, bnorm = out[5:]
+        true_rn, bnorm = rest
         self._last_true_res = (true_rn, bnorm)
         target = max(rtol * bnorm, atol)
         # the margin must never turn a truly converged solve into a failure
@@ -672,7 +754,8 @@ class KSP:
                 and true_rn <= target):
             self.result = SolveResult(iters, true_rn,
                                       ConvergedReason.CONVERGED_RTOL, wall,
-                                      syncs)
+                                      syncs, abft_checks=checks,
+                                      residual_replacements=rrc)
         if not _no_reenter and self.result.converged:
             self._reenter(b, x, target, true_rn, rnorm, _mon_offset)
         return self.result
@@ -712,6 +795,123 @@ class KSP:
             self.result = SolveResult(total[0], trn, reason, total[1],
                                       total[2])
             self._last_reentries = attempts
+
+    # ---- the silent-corruption guard ----------------------------------------
+    def _guard_checksums(self, mat, pc, many=False):
+        """``(cs, csM, pc_on)`` for a guarded program (JAX
+        ``ksp.py:544-566``): the operator's and the PC's column checksums
+        placed on this process's rows, or None; ``"boundary"`` for the
+        stencil fast path, which reads its analytic checksum on the
+        boundary shells and has no PC channel. Cached on the KSP, keyed by
+        the operator, the PC and their mutation counters."""
+        if not self.abft:
+            return None, None, False
+        if guarded_stencil_eligible(self._type, pc, mat, many):
+            return "boundary", None, False
+        from ..resilience import abft as abft_mod
+        pmat = pc._mat
+        key = (id(mat), getattr(mat, "_state", 0), pc.get_type(), id(pmat),
+               getattr(pmat, "_state", 0), str(mat.dtype), id(mat.comm))
+        if self._abft_placed is not None and self._abft_placed[0] == key:
+            return self._abft_placed[1]
+        comm = mat.comm
+        L = comm.local_shards
+        cs = comm.put_rows(np.asarray(abft_mod.column_checksum(mat)),
+                           mat.dtype).view(L, -1)
+        csM_h = abft_mod.pc_checksum(pc, mat)
+        csM = (None if csM_h is None else
+               comm.put_rows(np.asarray(csM_h), mat.dtype).view(L, -1))
+        placed = (cs, csM, csM is not None)
+        self._abft_placed = (key, placed)
+        return placed
+
+    def _program_fault(self, prog, b, x0, divtol, mat, keep):
+        """The ``ksp.program`` fault point and the ``device.lost`` check
+        around the solve program (JAX ``ksp.py:772-786``): a simulated
+        device failure during the solve. With ``iter=K`` the program first
+        runs K iterations (``maxit`` truncated, tolerances 0) and ``keep``
+        receives that real partial iterate, as after a mid-solve crash."""
+        fault = _faults.triggered("ksp.program")
+        if fault is None:
+            fault = _faults.mesh_fault("device.lost", mat.comm.device_ids)
+        if fault is None:
+            return
+        if fault.iter_k:
+            part = prog(b, x0.clone(), *_tolerances(mat.dtype, 0.0, 0.0,
+                                                    divtol),
+                        min(int(fault.iter_k), self.max_it))
+            keep(part[0])
+        raise fault.error()
+
+    def _demote_clone(self) -> "KSP":
+        """A classic-CG twin sharing the operator and the set-up PC: the
+        continuation of a demoted s-step solve (JAX ``ksp.py:1085``). It
+        keeps ABFT when armed, not the s-step replacement interval, which
+        would restart CG's direction chain every few iterations."""
+        k2 = KSP()
+        k2.comm = self.comm
+        k2._mat = self._mat
+        k2._pc = self._pc
+        k2._type = "cg"
+        k2.rtol, k2.atol = self.rtol, self.atol
+        k2.divtol, k2.max_it = self.divtol, self.max_it
+        k2.abft = self.abft
+        k2.abft_tol = self.abft_tol
+        k2.residual_replacement = 0
+        k2._monitors = list(self._monitors)
+        k2._monitor_flag = self._monitor_flag
+        k2._initial_guess_nonzero = True
+        return k2
+
+    def _demote_sstep(self, b, x, *, rtol, atol, iters, rrc, checks,
+                      t0) -> SolveResult:
+        """The ``SDC_DEMOTE`` exit of a guarded s-step solve (JAX
+        ``ksp.py:1108``): the drift gate restarted the basis
+        ``-ksp_sstep_max_replacements`` times and it still stalls, so the
+        solve continues as classic CG from its trusted iterate; the result
+        merges both and records a ``sstep_demote`` event."""
+        sub_ksp = self._demote_clone()
+        sub_ksp.max_it = max(self.max_it - iters, 1)
+        sub = sub_ksp.solve(b, x, _rtol=rtol, _atol=atol,
+                            _guess_nonzero=True, _mon_offset=iters)
+        res = SolveResult(iters + sub.iterations, sub.residual_norm,
+                          sub.reason, time.perf_counter() - t0,
+                          sub.host_syncs,
+                          abft_checks=checks + sub.abft_checks,
+                          residual_replacements=rrc
+                          + sub.residual_replacements)
+        res.recovery_events = [RecoveryEvent(
+            "sstep_demote", 1,
+            detail=(f"s={self.sstep_s}: {self.sstep_max_replacements} "
+                    "basis restart(s) exhausted; demoted to classic cg"),
+            iterations=iters, detector="drift")] + list(sub.recovery_events)
+        self.result = res
+        return res
+
+    def _demote_sstep_many(self, B, X, *, iters, rrc, checks, t0,
+                           demoted) -> BatchedSolveResult:
+        """Batched twin of :meth:`_demote_sstep` (JAX ``ksp.py:1129``): the
+        whole block continues as classic CG from its current iterates (a
+        converged column freezes at once), on the remaining iteration
+        budget."""
+        sub_ksp = self._demote_clone()
+        sub_ksp.max_it = max(self.max_it - (max(iters) if iters else 0), 1)
+        sub = sub_ksp.solve_many(B, X)
+        res = BatchedSolveResult(
+            [int(a) + int(c) for a, c in zip(iters, sub.iterations)],
+            sub.residual_norms, sub.reasons, time.perf_counter() - t0,
+            sub.X, sub.histories, sub.host_syncs,
+            abft_checks=checks + sub.abft_checks,
+            residual_replacements=rrc + sub.residual_replacements)
+        res.recovery_events = [RecoveryEvent(
+            "sstep_demote", 1,
+            detail=(f"s={self.sstep_s}: columns {sorted(demoted)} "
+                    "exhausted the basis-restart budget; block demoted to "
+                    "classic cg"),
+            iterations=max(iters) if iters else 0, detector="drift")] \
+            + list(sub.recovery_events)
+        self.result_many = res
+        return res
 
     # ---- megasolve: the fused whole-solve path --------------------------------
     def _megasolve_eligible(self, many: bool = False) -> bool:
@@ -833,6 +1033,7 @@ class KSP:
                                   time.perf_counter() - t0, 1)
         return self.result
 
+    @wrap_device_errors("KSPSolveMany")
     def solve_many(self, B, X=None) -> BatchedSolveResult:
         """Solve ``A X = B`` for a block of ``k`` right-hand sides (PETSc's
         ``KSPMatSolve``; JAX ``ksp.py:1471``), each from a zero guess, or
@@ -886,7 +1087,9 @@ class KSP:
         limit = int(self.batch_limit)
         if 0 < limit < k:
             return self._solve_many_chunked(B, X, k, limit, b_vecs, x_vecs)
+        _faults.check("ksp.solve")    # the one pre-solve fault point
         self._check_norm_type()
+        self._check_guard()
         self.set_up()
         pc = self.get_pc()
         if not (self._type in BATCHED_TYPES and batched_pc_supported(pc)
@@ -896,12 +1099,14 @@ class KSP:
             return self._solve_many_sequential(B, X, k, b_vecs, x_vecs)
         comm = mat.comm
         if self._megasolve_eligible(many=True):
+            self._check_fused_guard()
             Bd = (torch.stack([v.data.view(comm.local_shards, -1) for v in B],
                               dim=1).to(mat.dtype)
                   if b_vecs else comm.put_cols(B, mat.dtype))
             return self._solve_many_megasolve(Bd, X, n, x_vecs)
         norm_none, rtol, atol, divtol = self._run_tolerances()
         gate = self._true_residual_check and not norm_none
+        guard = self._guard_requested()
         margin = self._margin() if gate else 1.0
         monitored = bool(self._monitor_list())
         histories = [[] for _ in range(k)]
@@ -909,10 +1114,19 @@ class KSP:
         def record(j, it, rn):
             histories[j].append(float(rn))
 
-        prog = build_ksp_program_many(comm, self._type, pc, mat,
-                                      true_res=gate,
-                                      monitor=record if monitored else None,
-                                      sstep_s=self.sstep_s)
+        pc_on = False
+        if guard:
+            cs, csM, pc_on = self._guard_checksums(mat, pc, many=True)
+            build = lambda true_res, monitor=None: build_guarded_program(
+                comm, self._type, pc, mat, abft_tol=self.abft_tol,
+                rr_n=self._effective_replacement(), cs=cs, csM=csM,
+                max_repl=self.sstep_max_replacements, true_res=true_res,
+                monitor=monitor, sstep_s=self.sstep_s, many=True)
+        else:
+            build = lambda true_res, monitor=None: build_ksp_program_many(
+                comm, self._type, pc, mat, true_res=true_res,
+                monitor=monitor, sstep_s=self.sstep_s)
+        prog = build(gate, record if monitored else None)
         # one placement of each block: stacked on the card from Vecs, or
         # transposed on the host and copied once
         place = lambda blk, is_vecs: (
@@ -921,39 +1135,87 @@ class KSP:
             if is_vecs else comm.put_cols(blk, mat.dtype))
         Bd = place(B, b_vecs)
         tols = _tolerances(mat.dtype, rtol * margin, atol * margin, divtol)
+
+        def write(Xd):
+            if x_vecs:
+                for j, xv in enumerate(X):
+                    xv.data = Xd[:, j].reshape(-1).to(xv.dtype)
+            else:
+                X[...] = comm.fetch_cols(Xd, n)
+
         t0 = time.perf_counter()
         Xd = (place(X, x_vecs) if self._initial_guess_nonzero
               else torch.zeros_like(Bd))
+        self._program_fault(prog, Bd, Xd, divtol, mat, write)
         out = prog(Bd, Xd, *tols, self.max_it)
         Xd, iters, rnorms, reasons, syncs = out[:5]
+        rest = out[5:]
+        checks = rrc = 0
+        if guard:
+            det, rrc_l, Xv = rest[:3]
+            rest = rest[3:]
+            rrc = int(sum(rrc_l))
+            checks = ((k + sum(iters) * (1 + int(pc_on))) if self.abft
+                      else 0)
+            self._raise_many_sdc(det, iters, Xv, write)
+            demoted = [j for j in range(k) if det[j] == SDC_DEMOTE]
+            if demoted:
+                write(Xd)
+                return self._demote_sstep_many(
+                    B, X, iters=iters, rrc=rrc, checks=checks, t0=t0,
+                    demoted=demoted)
+
+        def demote(its, dem, Xcur):
+            write(Xcur)
+            return self._demote_sstep_many(B, X, iters=its, rrc=rrc,
+                                           checks=checks, t0=t0, demoted=dem)
+
         reasons = [_final_reason(r, rn, norm_none)
                    for r, rn in zip(reasons, rnorms)]
         self._last_reentries = 0
         if gate:
-            Xd, iters, rnorms, reasons, syncs = self._gate_many(
-                comm, pc, mat, Bd, Xd, iters, rnorms, reasons, syncs,
-                out[5], out[6], rtol, atol, tols)
-        if x_vecs:
-            for j, xv in enumerate(X):
-                xv.data = Xd[:, j].reshape(-1).to(xv.dtype)
-        else:
-            X[...] = comm.fetch_cols(Xd, n)
+            gated = self._gate_many(
+                comm, build, Bd, Xd, iters, rnorms, reasons, syncs,
+                rest[0], rest[1], rtol, atol, tols, guard, write, demote)
+            if isinstance(gated, BatchedSolveResult):
+                return gated
+            Xd, iters, rnorms, reasons, syncs = gated
+        write(Xd)
         wall = time.perf_counter() - t0
         if monitored:
             self._replay_many(histories)
         self.result_many = BatchedSolveResult(
-            iters, rnorms, reasons, wall, X, histories, syncs)
+            iters, rnorms, reasons, wall, X, histories, syncs,
+            abft_checks=checks, residual_replacements=rrc)
         return self.result_many
 
-    def _gate_many(self, comm, pc, mat, Bd, Xd, iters, rnorms, reasons,
-                   syncs, trn, bn, rtol, atol, tols):
+    def _raise_many_sdc(self, det, iters, Xv, write):
+        """A batched guarded solve's detection (JAX ``ksp.py:1709-1724``):
+        the whole block rolled back to its columns' verified iterates, then
+        ``SilentCorruptionError`` naming the first flagged column's
+        detector."""
+        bad = [j for j, d in enumerate(det) if d not in (SDC_NONE,
+                                                         SDC_DEMOTE)]
+        if not bad:
+            return
+        write(Xv)
+        raise SilentCorruptionError(
+            "KSPSolveMany", SDC_DETECTOR_NAMES.get(det[bad[0]],
+                                                   str(det[bad[0]])),
+            int(max(iters[j] for j in bad)), detail=f"columns {bad} flagged")
+
+    def _gate_many(self, comm, build, Bd, Xd, iters, rnorms, reasons,
+                   syncs, trn, bn, rtol, atol, tols, guard, write, demote):
         """The per-column true-residual gate of a batched solve (JAX
         ``ksp.py:1776-1875``): a column that claims convergence must meet
         ``max(rtol ||b_j||, atol)`` in its true residual; while one misses,
         the whole block re-enters from the current ``X`` (at most
         ``_MAX_REENTRIES`` times) and the passes' iterations add up per
         column. A column whose loop stopped short of the margin-tightened
-        tolerance but whose true residual meets the target has converged."""
+        tolerance but whose true residual meets the target has converged.
+        Guarded, a re-entry that detects corruption rolls the block back and
+        raises, and one that spends the s-step budget demotes the block
+        (the returned :class:`BatchedSolveResult`)."""
         k = len(iters)
         iters, rnorms, reasons = list(iters), list(rnorms), list(reasons)
         target = [max(rtol * v, atol) for v in bn]
@@ -976,12 +1238,18 @@ class KSP:
                 break
             self._last_reentries += 1
             if prog2 is None:
-                prog2 = build_ksp_program_many(comm, self._type, pc, mat,
-                                               true_res=True,
-                                               sstep_s=self.sstep_s)
-            Xd, it2, rn2, rs2, s2, trn, bn = prog2(Bd, Xd, *tols,
-                                                   self.max_it)
+                prog2 = build(True)
+            out = prog2(Bd, Xd, *tols, self.max_it)
+            Xd, it2, rn2, rs2, s2 = out[:5]
+            trn, bn = out[-2:]
             syncs += s2
+            if guard:
+                det2, Xv2 = out[5], out[7]
+                self._raise_many_sdc(det2, it2, Xv2, write)
+                dem2 = [j for j in range(k) if det2[j] == SDC_DEMOTE]
+                if dem2:
+                    return demote([a + b for a, b in zip(iters, it2)], dem2,
+                                  Xd)
             target = [max(rtol * v, atol) for v in bn]
             for j in range(k):
                 iters[j] += it2[j]
@@ -1050,6 +1318,19 @@ class KSP:
     def __repr__(self):
         return (f"KSP(type={self._type!r}, pc={self.get_pc().get_type()!r}, "
                 f"rtol={self.rtol:g}, max_it={self.max_it})")
+
+
+def _result_fault(rnorm, iters):
+    """The ``ksp.result`` fault point (JAX ``ksp.py:930``): poison the
+    reported residual with NaN/Inf (at ``iter=K``, reported at iteration
+    K), the stand-in for a recurrence blowing up."""
+    fault = _faults.triggered("ksp.result")
+    if fault is None:
+        return rnorm, iters
+    rnorm = math.nan if fault.kind == "nan" else math.inf
+    if fault.iter_k is not None:
+        iters = fault.iter_k
+    return rnorm, iters
 
 
 def _tolerances(dtype, *values) -> list:

@@ -65,7 +65,7 @@ tensors its closures read alive, so an address it captured is never
 reused under it.
 
 The guarded modes (``abft``, ``abft_pc``, ``rr``) are ROADMAP.md Queue A
-item 6 and raise. ``torch.cond`` under capture (CUDA graph conditional
+item 6.3 and raise. ``torch.cond`` under capture (CUDA graph conditional
 nodes) could skip the masked steps; it needs the ctypes launches as
 traceable custom ops, and is left to a later PR (``ROADMAP.md``).
 """
@@ -429,7 +429,7 @@ def _check_guard(abft, abft_pc, rr):
         raise NotImplementedError(
             "megasolve: the silent-corruption guard (-ksp_abft, "
             "-ksp_residual_replacement, the auto-replacement flags) is not "
-            "ported (ROADMAP.md Queue A item 6)")
+            "ported (ROADMAP.md Queue A item 6.3)")
 
 
 def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
@@ -533,7 +533,7 @@ def build_megasolve_program(comm, ksp_type, pc, inner_op, outer_op=None, *,
     inner operator) shares the operands: the uniform-precision gate.
     ``stencil_fastpath`` asks for the stencil fused-dot inner loop and
     raises ``ValueError`` where it is not eligible (JAX ``:236-241``); the
-    guard arguments raise ``NotImplementedError`` naming Queue A item 6."""
+    guard arguments raise ``NotImplementedError`` naming Queue A item 6.3."""
     return _build(comm, ksp_type, pc, inner_op, outer_op, nrhs=None,
                   abft=abft, abft_pc=abft_pc, rr=rr, sstep_s=sstep_s,
                   stencil_fastpath=stencil_fastpath)

@@ -31,7 +31,10 @@ JAX package's (``_megasolve_available``): a custom inner operator without an
 ``outer_op``, a null space, monitors or a history on the inner KSP, a norm
 type other than the default, and the types and PCs without a fused program
 run the host loop. Its telemetry spans wait for the port's telemetry
-(ROADMAP Queue A item 6).
+(ROADMAP Queue A item 6.2). The fault points of the JAX fused refinement
+(``ksp.solve``, ``ksp.program``/``device.lost``, ``ksp.result``,
+``refine.py:275-421``) sit in the fused path; the guarded inner solves of
+the host loop carry their own.
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ import torch
 from ..core.mat import Mat
 from ..core.vec import Vec
 from ..parallel.mesh import DeviceComm
+from ..resilience import faults as _faults
 from ..utils.convergence import ConvergedReason, SolveResult
+from ..utils.errors import wrap_device_errors
 from ..utils.dtypes import inner_precision_dtype, is_low_precision, real_eps
 from ..utils.options import global_options
 from .ksp import KSP, _megasolve_stats
@@ -181,8 +186,7 @@ class RefinedKSP:
         recurrences drift with the storage epsilon), and an sstep inner at
         any precision ``-ksp_sstep_auto_replacement 25`` (the monomial
         basis' conditioning can stall the correction solves). Both arm the
-        guarded loops, ROADMAP.md Queue A item 6, so those inner solves
-        raise ``NotImplementedError`` naming it; a pipecg inner at f32/f64
+        guarded loops (``solvers/cg_plans.py``); a pipecg inner at f32/f64
         runs unguarded, as in the JAX package."""
         if (self.inner.get_type() == "pipecg"
                 and is_low_precision(self.inner_dtype)
@@ -254,9 +258,11 @@ class RefinedKSP:
         ksp, op = self.inner, self._inner_op
         outer = self._outer_operator()
         comm = op.comm
+        _faults.check("ksp.solve")
+        ksp._check_guard()
         ksp.set_up()
         self._arm_inner_guards()
-        ksp._check_modes()            # an armed guard raises (item 6)
+        ksp._check_fused_guard()     # the fused guarded modes raise
         pc = ksp.get_pc()
         out_op = None if outer is op else outer
         if many:
@@ -270,6 +276,12 @@ class RefinedKSP:
             b = Vec.from_global(comm, B, dtype=torch.float64,
                                 layout=outer.layout).data.view(
                                     comm.local_shards, -1)
+        # the fault points around the fused program (JAX refine.py:304-311)
+        fault = _faults.triggered("ksp.program")
+        if fault is None:
+            fault = _faults.mesh_fault("device.lost", comm.device_ids)
+        if fault is not None:
+            raise fault.error()
         t0 = time.perf_counter()
         res = prog(b, None, self.rtol, self.atol,
                    self._effective_inner_rtol(), ksp.divtol, _INNER_MAX_IT,
@@ -284,6 +296,8 @@ class RefinedKSP:
         x = Vec(outer.comm, outer.shape[0], data=res.x.reshape(-1),
                 layout=outer.layout).to_numpy()
         reason = res.reason
+        if _faults.triggered("ksp.result") is not None:
+            res.rnorm = float("nan")
         if not np.isfinite(res.rnorm):
             reason = ConvergedReason.DIVERGED_NANORINF
         self.refine_steps = res.steps
@@ -324,6 +338,7 @@ class RefinedKSP:
                                   max_it=_INNER_MAX_IT)
         self._arm_inner_guards()
 
+    @wrap_device_errors("RefinedKSPSolve")
     def solve(self, b: np.ndarray) -> tuple[np.ndarray, SolveResult]:
         """Solve ``A x = b`` (fp64 in and out); returns ``(x, result)`` with
         the inner iterations summed over the outer steps
@@ -379,6 +394,7 @@ class RefinedKSP:
         return (ConvergedReason.CONVERGED_ATOL if rnorm <= self.atol
                 else ConvergedReason.CONVERGED_RTOL)
 
+    @wrap_device_errors("RefinedKSPSolveMany")
     def solve_many(self, B: np.ndarray) -> tuple[np.ndarray, SolveResult]:
         """Block refinement: solve ``A X = B`` for an fp64 ``(n, nrhs)``
         block. Each outer step computes the block's exact fp64 residual and

@@ -1,9 +1,11 @@
-"""Solver result reporting: the KSPConvergedReason codes and ``SolveResult``.
+"""Solver result reporting: the KSPConvergedReason codes, ``SolveResult``,
+``BatchedSolveResult`` and the resilience trail's ``RecoveryEvent``.
 
-The port's copy of ``mpi_petsc4py_example_tpu/utils/convergence.py``
-(``SolveResult`` and ``BatchedSolveResult`` without the resilience fields),
-with the same PETSc-compatible integer codes, so results of the two packages
-compare field by field.
+The port's copy of ``mpi_petsc4py_example_tpu/utils/convergence.py``, with
+the same PETSc-compatible integer codes and resilience fields (``attempts``,
+``recovery_events``, and the silent-error counters ``abft_checks``,
+``sdc_detections``, ``residual_replacements``), so results of the two
+packages compare field by field.
 """
 
 from __future__ import annotations
@@ -36,17 +38,57 @@ class ConvergedReason:
 
 
 @dataclass
+class RecoveryEvent:
+    """One entry in a resilient solve's recovery trail (``resilience/``).
+
+    The retry wrapper and the fallback chain record what they did:
+    checkpoint written, backoff slept, solve resumed, method escalated,
+    precision reduced, mesh shrunk or regrown (JAX ``convergence.py:39``).
+    """
+    kind: str            # 'fault' | 'checkpoint' | 'backoff' | 'resume'
+                         # | 'fallback' | 'precision' | 'rollback'
+                         # | 'verify' | 'mesh_shrink' | 'mesh_regrow'
+                         # | 'sstep_demote'
+    attempt: int         # 1-based attempt number the event belongs to
+    detail: str = ""     # specifics: checkpoint path, 'cg->bcgs', dtypes
+    error_class: str = ""  # DeviceExecutionError.failure_class or reason
+    delay: float = 0.0   # seconds slept ('backoff' events)
+    iterations: int = 0  # iterations completed when the event fired
+    detector: str = ""   # what detected a silent corruption, else empty
+    old_devices: int = 0  # mesh_shrink / mesh_regrow: shards before
+    new_devices: int = 0  # ... and after the rebuild
+
+    def __repr__(self):
+        extra = f", delay={self.delay:g}s" if self.kind == "backoff" else ""
+        if self.detector:
+            extra += f", detector={self.detector}"
+        if self.kind in ("mesh_shrink", "mesh_regrow"):
+            extra += f", {self.old_devices}->{self.new_devices} devices"
+        return (f"RecoveryEvent({self.kind}, attempt={self.attempt}, "
+                f"{self.detail or self.error_class}{extra})")
+
+
+@dataclass
 class SolveResult:
     """What a KSP solve reports: iterations, residual norm, reason, wall time.
 
     ``host_syncs`` counts the device-to-host reads the eager Krylov loop made
     (one at set-up, one per iteration for the loop condition).
+    ``attempts``/``recovery_events`` are the resilience trail (one attempt
+    and no event for a plain solve); ``abft_checks``, ``sdc_detections`` and
+    ``residual_replacements`` count the silent-error guard's checksum checks,
+    its detections and its true-residual replacements.
     """
     iterations: int = 0
     residual_norm: float = 0.0
     reason: int = ConvergedReason.ITERATING
     wall_time: float = 0.0
     host_syncs: int = 0
+    attempts: int = 1
+    recovery_events: list = field(default_factory=list)
+    abft_checks: int = 0
+    sdc_detections: int = 0
+    residual_replacements: int = 0
 
     @property
     def converged(self) -> bool:
@@ -59,7 +101,7 @@ class SolveResult:
     def __repr__(self):
         return (f"SolveResult(iters={self.iterations}, "
                 f"rnorm={self.residual_norm:.3e}, {self.reason_name}, "
-                f"{self.wall_time*1e3:.1f} ms)")
+                f"{self.wall_time*1e3:.1f} ms{_recovery(self)})")
 
 
 @dataclass
@@ -81,6 +123,11 @@ class BatchedSolveResult:
     X: object = None
     histories: list = field(default_factory=list)
     host_syncs: int = 0
+    attempts: int = 1
+    recovery_events: list = field(default_factory=list)
+    abft_checks: int = 0          # summed over the columns
+    sdc_detections: int = 0
+    residual_replacements: int = 0
 
     @property
     def nrhs(self) -> int:
@@ -108,4 +155,12 @@ class BatchedSolveResult:
                 f"iters={min(self.iterations)}-{max(self.iterations)}, "
                 f"max rnorm={max(self.residual_norms):.3e}, "
                 f"{'all converged' if self.converged else 'NOT converged'}, "
-                f"{self.wall_time*1e3:.1f} ms)")
+                f"{self.wall_time*1e3:.1f} ms{_recovery(self)})")
+
+
+def _recovery(res) -> str:
+    """The resilience part of a result's repr: empty for a plain solve."""
+    if res.attempts > 1 or res.recovery_events:
+        return (f", attempts={res.attempts}, "
+                f"{len(res.recovery_events)} recovery events")
+    return ""

@@ -13,6 +13,12 @@ flags ``RefinedKSP.set_from_options`` reads (``-ksp_inner_precision``,
 ``-ksp_refine_max``, ``-ksp_refine_inner_rtol``, ``-ksp_megasolve``). Each
 process has one database, built at its first use from the ``TPU_SOLVE_<KEY>``
 environment variables and seeded with :func:`init`.
+
+``Options.get``/``as_dict``/``unused`` are the JAX ``utils/options.py:322-360``
+surface: every getter marks its key queried, and ``unused`` lists the keys
+set but never queried (PETSc's ``-options_left`` report). :func:`env_value`
+reads one ``TPU_SOLVE_<KEY>`` variable as it is now (the fault plan of
+``resilience/faults.py`` reads ``TPU_SOLVE_FAULTS`` through it).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ class Options:
 
     def __init__(self):
         self._db: dict[str, str] = {}
+        self._queried: set[str] = set()
         self.load_env()
 
     def load_env(self):
@@ -74,16 +81,26 @@ class Options:
         self._db[key.lstrip("-")] = str(value)
 
     def has(self, key: str) -> bool:
-        return key.lstrip("-") in self._db
+        key = key.lstrip("-")
+        self._queried.add(key)        # a presence check is a use (PETSc too)
+        return key in self._db
 
     def clear(self, key: str | None = None):
         if key is None:
             self._db.clear()
+            self._queried.clear()
         else:
-            self._db.pop(key.lstrip("-"), None)
+            key = key.lstrip("-")
+            self._db.pop(key, None)
+            self._queried.discard(key)
+
+    def get(self, key: str, default=None):
+        key = key.lstrip("-")
+        self._queried.add(key)
+        return self._db.get(key, default)
 
     def get_string(self, key: str, default: str | None = None):
-        return self._db.get(key.lstrip("-"), default)
+        return self.get(key, default)
 
     def get_int(self, key: str, default: int | None = None):
         v = self.get_string(key)
@@ -99,8 +116,22 @@ class Options:
             return default
         return str(v).lower() not in ("0", "false", "no", "off")
 
+    def as_dict(self) -> dict:
+        return dict(self._db)
+
+    def unused(self) -> list[str]:
+        """Options set but never queried, sorted: PETSc's
+        ``-options_left`` report (a misspelled flag changes nothing; this
+        names it)."""
+        return sorted(k for k in self._db if k not in self._queried)
+
     def __repr__(self):
         return f"Options({self._db})"
+
+
+def env_value(key: str):
+    """The ``TPU_SOLVE_<KEY>`` environment variable as it is now, or None."""
+    return os.environ.get(_ENV_PREFIX + key.upper())
 
 
 _global_options: Options | None = None

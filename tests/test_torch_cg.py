@@ -349,6 +349,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_petsc4py_example_tpu_torch/facade/drivers/advanced.py",
             "mpi_petsc4py_example_tpu_torch/parallel/mesh.py",
             "mpi_petsc4py_example_tpu_torch/facade/drivers/parity.py",
+            # the resilience layer and the checkpoints
+            "mpi_petsc4py_example_tpu_torch/resilience/__init__.py",
+            "mpi_petsc4py_example_tpu_torch/resilience/faults.py",
+            "mpi_petsc4py_example_tpu_torch/resilience/abft.py",
+            "mpi_petsc4py_example_tpu_torch/resilience/retry.py",
+            "mpi_petsc4py_example_tpu_torch/resilience/fallback.py",
+            "mpi_petsc4py_example_tpu_torch/resilience/elastic.py",
+            "mpi_petsc4py_example_tpu_torch/utils/checkpoint.py",
+            "mpi_petsc4py_example_tpu_torch/utils/errors.py",
             } <= names
     assert not offenders, offenders
 

@@ -533,16 +533,42 @@ def _port_cfg3(ksp_type="cg", pc_type="jacobi", prefix=""):
     # the automatic replacement of pipecg and sstep arms the guard
     (["-ksp_pipeline_auto_replacement", "10", "-ksp_type", "pipecg"], 6),
     (["-ksp_sstep_auto_replacement", "10", "-ksp_type", "sstep"], 6)])
-def test_unported_mode_flag_raises_naming_its_item(flag, item):
+def test_unported_mode_flag_raises_naming_its_item(clean_jax_options, flag,
+                                                   item):
+    """The guard flags of ROADMAP.md Queue A item 6 (ported since): each
+    runs the guarded loop, single and batched, with the JAX package's
+    iterations, reason, checksum checks, replacements and iterate."""
+    assert item == 6
+    tps.init(["prog", *flag])
     pt.init(["prog", *flag])
+    A = OPERATORS["cfg3"]()
+    b = _rhs(A)
+    jcomm = tps.DeviceComm(n_devices=4)
+    M = tps.Mat.from_scipy(jcomm, A)
+    jksp = tps.KSP().create(jcomm)
+    jksp.set_operators(M)
+    jksp.set_type("cg")
+    jksp.get_pc().set_type("jacobi")
+    jksp.set_tolerances(rtol=1e-8, atol=0.0)
+    jksp.set_from_options()
+    jx, jb = M.get_vecs()
+    jb.set_global(b)
+    jres = jksp.solve(jb, jx)
     ksp, bv, xv = _port_cfg3()
     ksp.set_from_options()
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue A item {item}") as err:
-        ksp.solve(bv, xv)
-    assert flag[0] in str(err.value)
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        ksp.solve_many(np.ones((bv.n, 2)))
+    assert ksp._guard_requested()
+    res = ksp.solve(bv, xv)
+    _assert_same(jres, jx.to_numpy(), res, xv.to_numpy())
+    assert (res.abft_checks, res.residual_replacements) == (
+        jres.abft_checks, jres.residual_replacements)
+    B = np.stack([b, 2.0 * b], axis=1)
+    jmany = jksp.solve_many(B)
+    many = ksp.solve_many(B)
+    assert list(many.iterations) == list(jmany.iterations)
+    assert (many.abft_checks, many.residual_replacements) == (
+        jmany.abft_checks, jmany.residual_replacements)
+    np.testing.assert_allclose(many.X, jmany.X, rtol=0, atol=1e-12 * np.abs(
+        jmany.X).max())
 
 
 STORED = [("ksp_abft_tol", "64", "abft_tol", None),
@@ -578,7 +604,8 @@ def test_stored_flag_is_read_as_jax_reads_it(clean_jax_options, flag, value,
     assert getattr(obj, attr) != getattr(
         (pt.KSP().create(pt.DeviceComm(device="cpu")).get_pc() if owner
          else pt.KSP()), attr)
-    # the flag only parameterises a mode the port lacks: a solve runs
+    # a CG solve with the flag runs (the guard flags of pipecg/sstep and
+    # the guard's tolerance leave an unguarded cg as it was)
     solver, bv, xv = _port_cfg3()
     solver.set_from_options()
     assert solver.solve(bv, xv).reason == CR.CONVERGED_RTOL
@@ -651,39 +678,62 @@ def test_prefixed_refined_ksp_reads_the_inner_prefix(clean_jax_options):
     assert got == want == ("f32", 7, 1e-3, True, False, "cg", "jacobi")
 
 
-@pytest.mark.parametrize("prec,ksp_type,raises", [
+@pytest.mark.parametrize("prec,ksp_type,guarded", [
     ("bf16", "pipecg", True), ("f32", "sstep", True), ("bf16", "sstep", True),
-    ("f64", "pipecg", False), ("f32", "pipecg", False)])
-def test_refined_ksp_arms_the_inner_guards_like_jax(prec, ksp_type, raises):
+    ("f64", "sstep", True), ("f64", "pipecg", False),
+    ("f32", "pipecg", False)])
+def test_refined_ksp_arms_the_inner_guards_like_jax(prec, ksp_type, guarded):
     """``RefinedKSP._arm_inner_guards`` (JAX ``refine.py:177-201``): a bf16
     pipecg inner gets ``-ksp_pipeline_auto_replacement 25`` and an sstep
     inner at any precision ``-ksp_sstep_auto_replacement 25``, which arm the
-    guarded loops (Queue A item 6), so those solves raise naming it; a
-    pipecg inner at f32/f64 runs unguarded."""
+    guarded loops (``guarded``); a pipecg inner at f32/f64 runs unguarded.
+    Both packages solve the same system on 2 shards. At f64 the outer
+    steps and each inner solve's iterations, reason and residual
+    replacements are equal, and the iterates agree within 1e-12 (pipecg)
+    or 1e-10 (sstep: its monomial basis amplifies the summation order, the
+    spread ``tests/test_torch_pipecg_sstep.py`` holds the unguarded sstep
+    to; here the unguarded sstep parts by 2.1e-12 as well). At f32 and bf16 the
+    inner solves part after a few iterations (XLA contracts and fuses the
+    f32 arithmetic, the port rounds each torch op: the f32 replacement case
+    of ``tests/test_torch_sdc.py`` holds iterations within 2 for the same
+    reason), so there the spread is: the same reason, the guard replacing
+    in both packages or in neither, outer steps within 3, and the iterate
+    within 1e-8 of the JAX package's (the outer rtol 1e-10 times the
+    operator's condition number, about 60)."""
     from mpi_petsc4py_example_tpu.solvers.refine import (
         RefinedKSP as JaxRefinedKSP)
     A = poisson2d_csr(12)
     b = A @ np.ones(A.shape[0])
-    jrk = JaxRefinedKSP().create(tps.DeviceComm(n_devices=1))
-    jrk.set_inner_precision(prec)
-    jrk.set_type(ksp_type)
-    jrk._arm_inner_guards()
-    rk = pt.RefinedKSP().create(pt.DeviceComm(2, device="cpu"))
-    rk.set_inner_precision(prec)
-    rk.set_operators(A)
-    rk.set_type(ksp_type)
-    rk.get_pc().set_type("jacobi")
-    rk.set_tolerances(rtol=1e-10)
-    if raises:
-        with pytest.raises(NotImplementedError,
-                           match="Queue A item 6") as err:
-            rk.solve(b)
-        flag = ("-ksp_pipeline_auto_replacement" if ksp_type == "pipecg"
-                else "-ksp_sstep_auto_replacement")
-        assert flag in str(err.value)
-    else:
+    out = []
+    for rk in (JaxRefinedKSP().create(tps.DeviceComm(n_devices=2)),
+               pt.RefinedKSP().create(pt.DeviceComm(2, device="cpu"))):
+        rk.set_inner_precision(prec)
+        rk.set_operators(A)
+        rk.set_type(ksp_type)
+        rk.get_pc().set_type("jacobi")
+        rk.set_tolerances(rtol=1e-10)
+        steps = []
+
+        def record(*a, _solve=rk.inner.solve, **k):
+            r = _solve(*a, **k)
+            steps.append((r.iterations, int(r.reason),
+                          r.residual_replacements))
+            return r
+        rk.inner.solve = record
         x, res = rk.solve(b)
-        assert res.converged
-        np.testing.assert_allclose(x, np.ones(A.shape[0]), rtol=1e-8)
+        out.append((rk, res, steps, x))
+    (jrk, jres, jsteps, jx), (rk, res, steps, x) = out
+    assert res.converged and int(res.reason) == int(jres.reason)
+    assert rk.inner._guard_requested() == guarded
     for attr in ("pipeline_auto_replacement", "sstep_auto_replacement"):
         assert getattr(rk.inner, attr) == getattr(jrk.inner, attr)
+    if prec == "f64":
+        assert (rk.refine_steps, res.iterations, steps) == \
+            (jrk.refine_steps, jres.iterations, jsteps)
+        tol = 1e-10 if ksp_type == "sstep" else 1e-12
+        np.testing.assert_allclose(x, jx, rtol=0, atol=tol * np.abs(jx).max())
+    else:
+        assert (sum(s[2] for s in steps) > 0) == \
+            (sum(s[2] for s in jsteps) > 0)
+        assert abs(rk.refine_steps - jrk.refine_steps) <= 3
+        np.testing.assert_allclose(x, jx, rtol=0, atol=1e-8 * np.abs(jx).max())

@@ -242,7 +242,9 @@ def test_refined_megasolve_many_matches_jax(prec):
 
 def test_refined_sstep_inner_raises_naming_item_6():
     """An sstep inner solve arms -ksp_sstep_auto_replacement 25 (the guard,
-    as in JAX ``refine.py:177-201``): fused or not, it raises."""
+    as in JAX ``refine.py:177-201``): the fused program's guarded modes are
+    not ported, so the fused refinement raises (the unfused one runs the
+    guarded loop)."""
     rk = _refined(pt, 1, "f32", "jacobi", "sstep")
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         rk.solve(B)
