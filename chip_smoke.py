@@ -206,6 +206,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3130,7 +3131,7 @@ def phase_bf16_inner_512(nx=512):
         solvers = {m: cg_jacobi(comm, op, 0.0, max_it=m, norm_none=True)
                    for m in (20, 220)}
         torch.cuda.reset_peak_memory_stats()
-        per, samples = delta_per_iter(solvers, bv, x)
+        per, samples = delta_per_iter(solvers, bv, x, reps=1)
         peak_fixed = torch.cuda.max_memory_allocated() / 2 ** 30
         idle = profile_solve(lambda: zero_solve(solvers[20], bv, x),
                              f"512^3 {name} 20 fixed iterations")
@@ -3154,7 +3155,7 @@ def phase_bf16_inner_512(nx=512):
 def phase_bf16_many_512(nx=512, k=K_BATCH):
     """The batched twin of ``phase_bf16_inner_512``: CG + Jacobi on the 512^3
     stencil with k right-hand sides through ``KSP.solve_many``, bf16 storage
-    against f32 in the same run: the delta method over 20 and 220 fixed
+    against f32 in the same run: the delta method over 20 and 120 fixed
     lockstep iterations against the k x 11-pass bound (2 and 4 bytes a
     pass), one profiled 20-iteration window giving the stencil kernels'
     share of device time (``stencil7_dot_many`` and its partial sums, the
@@ -3178,21 +3179,19 @@ def phase_bf16_many_512(nx=512, k=K_BATCH):
         Bv = [pt.Vec(comm, n, data=b.to(dtype)) for b in B32]
         Xv = [op.get_vecs()[0] for _ in range(k)]
         solvers = {m: cg_jacobi(comm, op, 0.0, max_it=m, norm_none=True)
-                   for m in (20, 220)}
+                   for m in (20, 120)}
         solvers[20].solve_many(Bv, Xv)                # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        per_iter = []
-        for _ in range(2):      # two pairs: their spread was 0.2% (H100)
-            walls = {}
-            for m, ksp in solvers.items():
-                t0 = time.perf_counter()
-                r = ksp.solve_many(Bv, Xv)
-                walls[m] = (time.perf_counter() - t0, max(r.iterations))
-            (w_lo, i_lo), (w_hi, i_hi) = walls[20], walls[220]
-            per_iter.append((w_hi - w_lo) / (i_hi - i_lo))
+        walls = {}              # one pair: two pairs spread by 0.2% (H100)
+        for m, ksp in solvers.items():
+            t0 = time.perf_counter()
+            r = ksp.solve_many(Bv, Xv)
+            walls[m] = (time.perf_counter() - t0, max(r.iterations))
+        (w_lo, i_lo), (w_hi, i_hi) = walls[20], walls[120]
+        per = (w_hi - w_lo) / (i_hi - i_lo)
+        per_iter = [per]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        per = statistics.median(per_iter)
         prof = {}
         idle = profile_solve(
             lambda: max(solvers[20].solve_many(Bv, Xv).iterations),
@@ -3224,8 +3223,8 @@ def phase_refine():
     times = {n: phase_bf16_kernel_times(n) for n in (128, 512)}
     profile = phase_bf16_kernel_profile()
     t1 = time.perf_counter()
-    inner_512 = phase_bf16_inner_512()
-    many_512 = phase_bf16_many_512()
+    inner_512 = timed(phase_bf16_inner_512)
+    many_512 = timed(phase_bf16_many_512)
     routes = phase_refine_routes()
     t2 = time.perf_counter()
     launches_dot, runs = phase_refine_cfg11()
@@ -4897,7 +4896,7 @@ def phase_ksp_types_512(card):
         torch.cuda.empty_cache()
         solvers = {m: ksp_solver(comm, op, t, 0.0, max_it=m, norm_none=True,
                                  **attrs) for m in (20, 220)}
-        per, samples = delta_per_iter(solvers, bv, x)
+        per, samples = delta_per_iter(solvers, bv, x, reps=1)
         passes = KSP_PASSES[t]
         bound = passes * pass_ms
         out[label] = {"iterations": res.iterations, "reason": res.reason_name,
@@ -5084,7 +5083,7 @@ def phase_ksp_types(oracle=None):
     card = card_line()
     t0 = time.perf_counter()
     out = {"card": card, "128": phase_ksp_types_128(card, oracle),
-           "512": phase_ksp_types_512(card),
+           "512": timed(phase_ksp_types_512, card),
            "many": phase_ksp_types_many(card),
            "bf16": phase_ksp_types_bf16(card),
            "aij": phase_ksp_types_aij(card)}
@@ -6235,6 +6234,8 @@ def phase_megasolve(procs=None):
     launches, refine = phase_mg_bf16_refine()
     cfg13 = phase_cfg13()
     ksp = phase_ksp_megasolve()
+    guarded = timed(phase_guarded_fused)
+    guarded["g4"] = timed(phase_guarded_refine)
     t2 = time.perf_counter()
     auto = phase_autoselect_local()
     if procs is None:
@@ -6259,8 +6260,447 @@ def phase_megasolve(procs=None):
         if "two_3b_ms" in big:
             entries[-1]["two_3b_ms"] = big["two_3b_ms"]
     return entries, {"refine_mg": refine, "cfg13": cfg13,
-                     "ksp_megasolve": ksp, "autoselect": auto,
-                     "procs": procs}
+                     "ksp_megasolve": ksp, "guarded": guarded,
+                     "autoselect": auto, "procs": procs}
+
+
+# ---- the fused program's guarded modes (item 6.3) -----------------------------
+
+def all_launches():
+    """Every nonzero launch counter, the bf16 instantiations' by their own
+    names."""
+    out = dict(read_launches())
+    out.update(read_bf16_launches())
+    out.update(read_vcycle_bf16_launches())
+    return {k: v for k, v in out.items() if v}
+
+
+def fused_guarded_ksp(comm, op, guard=True, fused=True, rtol=KSP_RTOL):
+    """CG + Jacobi with ``-ksp_abft`` (``guard``) under ``-ksp_megasolve``
+    (``fused``): the fused guarded program takes the general route, row 2
+    (``stencil7_apply``; the stencil fast path stays off under the guard)."""
+    ksp = ksp_solver(comm, op, "cg", rtol=rtol, megasolve=fused)
+    ksp.abft = guard
+    return ksp
+
+
+def phase_guarded_fused(nx=128, k=K_BATCH):
+    """(g1)-(g3): 128^3 f32 CG + Jacobi, ``-ksp_megasolve -ksp_abft``. (g1)
+    clean: iterations and reason against the unfused guarded solve, the
+    ABFT checks against the JAX formula (steps + iterations x 2, both
+    channels), 0 detections, captured against uncaptured bit for bit, and
+    the warm ms/iter of fused guarded, fused unguarded and unfused guarded
+    in this one call; (g2) ``spmv.result=bitflip:at=2:times=1`` baked into
+    the captured pieces: ``SilentCorruptionError`` with detector ``abft``
+    and ``x`` the verified carry (the zero initial iterate), then
+    ``resilient_solve`` to an fp64 relres <= 10 rtol, then a clean solve
+    that replays the clean program and gives (g1)'s bits; (g3) k = 8
+    batched (row 9): captured against uncaptured, and the bitflip
+    detected."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    comm = pt.DeviceComm()
+    op, b = make_problem(comm, nx, torch.float32)
+    A = pt.poisson3d_csr(nx).tocsr()
+    bv = pt.Vec.from_global(comm, b, dtype=torch.float32)
+    x, _ = op.get_vecs()
+    out = {}
+
+    def warm(ksp, reps=3):
+        ksp.solve(bv, x)
+        walls = []
+        for _ in range(reps):
+            x.zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ksp.solve(bv, x)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return res, min(walls) / max(res.iterations, 1) * 1e3
+    # (g1)
+    rows = {}
+    for label, guard, fused in (("fused guarded", True, True),
+                                ("fused unguarded", False, True),
+                                ("unfused guarded", True, False)):
+        ksp = fused_guarded_ksp(comm, op, guard, fused)
+        reset_launches()
+        res, ms_it = warm(ksp)
+        launches = {kk: v for kk, v in read_launches().items() if v}
+        rows[label] = {"iterations": res.iterations, "reason": res.reason,
+                       "ms_per_iter": ms_it, "abft_checks": res.abft_checks,
+                       "host_reads": res.host_syncs,
+                       "steps": getattr(res, "megasolve_steps", None),
+                       "replays": getattr(res, "replays", None),
+                       "launches_4_solves": launches}
+        log(f"(g1) {nx}^3 f32 cg+jacobi {label}: {res.iterations} its, "
+            f"reason {res.reason}, {ms_it:.4f} ms/iter (warm best of 3), "
+            f"ABFT checks {res.abft_checks}, {res.host_syncs} host reads, "
+            f"launches over 4 solves {launches}")
+        if label == "fused guarded":
+            g = res
+            x_graph = x.to_numpy()
+            prog = ksp._megasolve_program(guard=ksp._megasolve_guard())
+            prog.capture = False
+            x.zero()
+            res_e = ksp.solve(bv, x)
+            prog.capture = True
+            same = bool(np.array_equal(x_graph, x.to_numpy()))
+            check(g.graph and not res_e.graph and same
+                  and res_e.iterations == g.iterations,
+                  f"(g1) captured {g.graph} / uncaptured {res_e.graph} "
+                  f"differ (bit-equal {same})")
+            check(g.abft_checks == g.megasolve_steps + 2 * g.iterations,
+                  f"(g1) ABFT checks {g.abft_checks}, JAX's formula "
+                  f"{g.megasolve_steps + 2 * g.iterations}")
+            check(launches.get("stencil7_apply", 0) > 0,
+                  "(g1) row 2 not launched on the fused guarded path")
+            rows[label].update(captured_equals_uncaptured=same,
+                               x_bits=x_graph)
+        del ksp
+    fg, ug = rows["fused guarded"], rows["unfused guarded"]
+    check(fg["reason"] == ug["reason"] > 0
+          and abs(fg["iterations"] - ug["iterations"])
+          <= 0.02 * ug["iterations"],
+          f"(g1) fused guarded {fg['iterations']} its / unfused "
+          f"{ug['iterations']}")
+    x_g1 = rows["fused guarded"].pop("x_bits")
+    out["g1"] = rows
+    # (g2)
+    ksp = fused_guarded_ksp(comm, op)
+    n_prog = len(ms._CACHE)
+    x.zero()
+    with pt.inject_faults("spmv.result=bitflip:at=2:times=1"):
+        try:
+            ksp.solve(bv, x)
+            detector = None
+        except pt.SilentCorruptionError as err:
+            detector, det_it = err.detector, err.iteration
+    carry_zero = bool(np.all(x.to_numpy() == 0))
+    check(detector == "abft" and carry_zero,
+          f"(g2) detector {detector}, x the zero carry {carry_zero}")
+    faulted = [p for p in ms._CACHE.values()][n_prog:]
+    check(len(faulted) == 1 and bool(faulted[0].graphs),
+          "(g2) the faulted program was not captured apart")
+    x.zero()
+    with pt.inject_faults("spmv.result=bitflip:at=2:times=1"):
+        rres = pt.resilient_solve(ksp, bv, x,
+                                  pt.RetryPolicy(sleep=lambda _d: None))
+    rel = true_relres(A, x.to_numpy(), b)
+    check(rres.converged and rel <= 10 * KSP_RTOL,
+          f"(g2) resilient solve {rres.reason}, relres {rel}")
+    x.zero()
+    clean = ksp.solve(bv, x)
+    same = bool(np.array_equal(x.to_numpy(), x_g1))
+    check(same and clean.graph, "(g2) the next clean solve did not give "
+                                "(g1)'s bits")
+    out["g2"] = {"detector": detector, "det_it": det_it,
+                 "carry_zero": carry_zero, "attempts": rres.attempts,
+                 "events": [e.kind for e in rres.recovery_events],
+                 "iterations": rres.iterations, "relres": rel,
+                 "clean_after_equals_g1": same}
+    log(f"(g2) bitflip under capture: detector {detector} at iteration "
+        f"{det_it}, x the zero carry {carry_zero}; resilient_solve "
+        f"{rres.attempts} attempts {out['g2']['events']}, {rres.iterations} "
+        f"its, fp64 relres {rel:.3e}; the next clean solve equals (g1) "
+        f"bit for bit {same}")
+    del ksp
+    ms.clear_cache()
+    # (g3)
+    rng = np.random.default_rng(5)
+    B = np.stack([b] + [op.mult(pt.Vec.from_global(
+        comm, rng.random(nx ** 3).astype(np.float32))).to_numpy()
+        for _ in range(k - 1)], axis=1)
+    ksp = fused_guarded_ksp(comm, op)
+    X = np.zeros_like(B)
+    ksp.solve_many(B, X)
+    reset_launches()
+    X = np.zeros_like(B)
+    res = ksp.solve_many(B, X)
+    launches = {kk: v for kk, v in read_launches().items() if v}
+    prog = ksp._megasolve_program(many_k=k,
+                                  guard=ksp._megasolve_guard(many=True))
+    prog.capture = False
+    X_e = np.zeros_like(B)
+    res_e = ksp.solve_many(B, X_e)
+    prog.capture = True
+    same = bool(np.array_equal(X, X_e))
+    check(res.graph and not res_e.graph and same and res.converged,
+          f"(g3) k={k}: captured {res.graph}, bit-equal {same}")
+    check(launches.get("stencil7_apply_many", 0) > 0,
+          "(g3) row 9 not launched")
+    with pt.inject_faults("spmv.result=bitflip:at=2:times=1"):
+        try:
+            ksp.solve_many(B, np.zeros_like(B))
+            det3 = None
+        except pt.SilentCorruptionError as err:
+            det3 = err.detector
+    check(det3 == "abft", f"(g3) bitflip detector {det3}")
+    out["g3"] = {"iterations": list(res.iterations),
+                 "abft_checks": res.abft_checks, "launches": launches,
+                 "captured_equals_uncaptured": same, "detector": det3}
+    log(f"(g3) k={k} guarded fused: its {list(res.iterations)}, ABFT checks "
+        f"{res.abft_checks}, launches {launches}, captured == uncaptured "
+        f"{same}; bitflip detector {det3}")
+    del ksp
+    ms.clear_cache()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_guarded_refine(nx=128):
+    """(g4) cfg13's 128^3 problem (``run_all.py:1387``): ``RefinedKSP``
+    under ``-ksp_megasolve`` with the inners that arm the guard (an sstep
+    inner at f32 and bf16, a bf16 pipecg inner), on a stencil inner with an
+    fp64 stencil outer, so the fused guarded program launches row 2 (f32)
+    and 2b (bf16); and the bf16 sstep inner with PC mg (rows 3b-6b). Per
+    run: the outcome (the refinement contract of PERF.md section 2:
+    relres <= 1.05 rtol, or bf16's breakdown; a guard detection is
+    reported as one), whether the fused program gave the answer (an s-step
+    demotion reruns the host loop, as in the JAX package), outer steps,
+    inner iterations, replacements and the launches of the solve."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    from mpi_petsc4py_example_tpu_torch.utils.dtypes import (
+        inner_precision_dtype)
+    A = pt.poisson3d_csr(nx).astype(np.float64).tocsr()
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    comm = pt.DeviceComm()
+    outer = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    out = {}
+    for label, prec, ksp_type, pc in (("sstep f32", "f32", "sstep", "jacobi"),
+                                      ("sstep bf16", "bf16", "sstep",
+                                       "jacobi"),
+                                      ("pipecg bf16", "bf16", "pipecg",
+                                       "jacobi"),
+                                      ("sstep bf16 mg", "bf16", "sstep",
+                                       "mg")):
+        inner = pt.StencilPoisson3D(comm, nx,
+                                    dtype=inner_precision_dtype(prec))
+        rk = pt.RefinedKSP().create(comm)
+        rk.set_inner_precision(prec)
+        rk.set_operators(A, inner_op=inner, outer_op=outer)
+        rk.set_type(ksp_type)
+        rk.get_pc().set_type(pc)
+        rk.set_tolerances(rtol=REFINE_RTOL)
+        rk.megasolve = True
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            x, res = rk.solve(b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rel = true_relres(A, x, b)
+            # a demotion of the s-step inner reruns the host loop (JAX
+            # refine.py:322-328): that result has no fused fields
+            fused = hasattr(res, "megasolve_steps")
+            row = {"outcome": ("parity" if res.converged else "breakdown"),
+                   "reason": res.reason, "steps": rk.refine_steps,
+                   "iterations": res.iterations,
+                   "replacements": res.residual_replacements,
+                   "relres": rel, "fused": fused,
+                   "graph": bool(getattr(res, "graph", False)),
+                   "wall_s": wall}
+            check(not fused or res.graph, f"(g4) {label}: not captured")
+            if res.converged:
+                check(rel <= 1.05 * REFINE_RTOL, f"(g4) {label}: {rel}")
+            else:
+                check(prec == "bf16" and res.reason == -5,
+                      f"(g4) {label}: reason {res.reason}")
+        except pt.SilentCorruptionError as err:
+            row = {"outcome": f"detected ({err.detector})",
+                   "iterations": err.iteration,
+                   "wall_s": time.perf_counter() - t0}
+            check(prec == "bf16", f"(g4) {label}: {err.detector}")
+        row["launches"] = all_launches()
+        log(f"(g4) cfg13 {nx}^3 RefinedKSP {label} inner, fused guarded: "
+            + ", ".join(f"{kk} {v}" for kk, v in row.items()))
+        need = ("stencil7_apply" if prec == "f32" else
+                "stencil7_smooth_bf16" if pc == "mg"
+                else "stencil7_apply_bf16")
+        check(row["launches"].get(need, 0) > 0,
+              f"(g4) {label}: {need} not launched")
+        out[label] = row
+        del rk, inner
+        ms.clear_cache()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- the telemetry layer (item 6.2, --telemetry) ------------------------------
+
+def telemetry_counts(comm):
+    """What arming telemetry must not change: every launch counter, the
+    communicator's collectives and the device memory allocated."""
+    import torch
+    torch.cuda.synchronize()
+    return (all_launches(), dict(comm.collectives),
+            torch.cuda.memory_allocated())
+
+
+def telemetry_batch(ksp, bv, x, nsolve):
+    """One of cfg12's batches (``run_all.py:1334-1354``): ``nsolve`` solves
+    from zero; its wall and the last result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(nsolve):
+        x.zero()
+        res = ksp.solve(bv, x)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, res
+
+
+def phase_telemetry(nsolve=10, reps=3, nx=128):
+    """(t1) cfg12 (``benchmarks/run_all.py:1300-1380``) at its own size: the
+    32^3 assembled f32 CG + Jacobi, ``nsolve`` solves a batch, best of
+    ``reps``, telemetry off and armed (flight ring 512); and bench.py's
+    128^3 stencil f32 CG + Jacobi, unfused and ``-ksp_megasolve``, the same
+    way, the off and armed batches in turns, each first in every other
+    round. Per cell: the wall overhead of
+    the best batches (JAX gates it under 2%), spans a solve, iterations off
+    and armed, p50/p99 of ``solve.per_iter_seconds``;
+    launches, collectives, host syncs and ``torch.cuda.memory_allocated()``
+    equal off and armed. (t2) ``log_view`` of a few solves (its dispatch,
+    sync and silent-error rows against the results' own counts), and a
+    ``profiling.trace`` of one 128^3 solve with the span export, each
+    loaded back as JSON."""
+    import io
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch import telemetry as tel
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    from mpi_petsc4py_example_tpu_torch.utils import profiling
+    comm = pt.DeviceComm()
+    out = {}
+    A32 = pt.poisson3d_csr(32).tocsr()
+    M = pt.Mat.from_scipy(comm, A32, dtype=torch.float32)
+    b32 = (A32 @ np.random.default_rng(0).random(A32.shape[0])).astype(
+        np.float32)
+    op, b = make_problem(comm, nx, torch.float32)
+    cells = (("cfg12 32^3 AIJ", M, b32, False),
+             (f"{nx}^3 stencil", op, b, False),
+             (f"{nx}^3 stencil -ksp_megasolve", op, b, True))
+    for label, mat, rhs, fused in cells:
+        ksp = ksp_solver(comm, mat, "cg", rtol=KSP_RTOL / 2,
+                         megasolve=fused)
+        x, bv = mat.get_vecs()
+        bv.set_global(rhs)
+        ksp.solve(bv, x)                  # set-up, capture: both sides
+        tel.disable()
+        tel.reset()
+        hist = tel.registry.histogram("solve.per_iter_seconds")
+        row = {side: {"wall_s": None, "per_iter": [], "spans": 0,
+                      "launches": {}, "collectives": {}, "host_syncs": 0,
+                      "mem_delta": 0} for side in ("off", "armed")}
+        # off and armed batches in turns, each side first in every other
+        # round, so neither the host's drift nor a round's first batch reads
+        # as overhead; the best batch a side
+        for rep in range(reps):
+            for side in (("off", "armed") if rep % 2 == 0
+                         else ("armed", "off")):
+                r = row[side]
+                if side == "armed":
+                    tel.enable(flight_len=512)
+                n_spans = len(tel.flight_recorder.spans())
+                n_obs = len(hist.reservoir())
+                syncs = tel.registry.counter("sync.count").total()
+                before = telemetry_counts(comm)
+                wall, res = telemetry_batch(ksp, bv, x, nsolve)
+                after = telemetry_counts(comm)
+                tel.disable()
+                r["wall_s"] = (wall if r["wall_s"] is None
+                               else min(r["wall_s"], wall))
+                r["iterations"] = res.iterations
+                r["per_iter"] += hist.reservoir()[n_obs:]
+                r["spans"] += len(tel.flight_recorder.spans()) - n_spans
+                r["host_syncs"] += int(
+                    tel.registry.counter("sync.count").total() - syncs)
+                for key, i in (("launches", 0), ("collectives", 1)):
+                    for k in after[i]:
+                        r[key][k] = (r[key].get(k, 0) + after[i][k]
+                                     - before[i].get(k, 0))
+                r["mem_delta"] += after[2] - before[2]
+                r["mem_allocated"] = after[2]
+        for r in row.values():
+            vals = sorted(r.pop("per_iter"))
+            r["per_iter_p50_us"] = tel.percentile(vals, 50) * 1e6
+            r["per_iter_p99_us"] = tel.percentile(vals, 99) * 1e6
+            r["spans_per_solve"] = r.pop("spans") / (nsolve * reps)
+        off, on = row["off"], row["armed"]
+        over = (on["wall_s"] - off["wall_s"]) / off["wall_s"]
+        row["overhead_pct"] = over * 100
+        log(f"(t1) {label} f32 cg+jacobi, {nsolve} solves best of {reps}: "
+            f"off {off['wall_s']:.4f} s, armed {on['wall_s']:.4f} s, "
+            f"overhead {over * 100:+.2f}%; {on['spans_per_solve']:.2f} "
+            f"ksp.solve spans a solve; iterations {off['iterations']} / "
+            f"{on['iterations']}; per-iteration p50 {on['per_iter_p50_us']:.2f}"
+            f" us, p99 {on['per_iter_p99_us']:.2f} us; launches "
+            f"{on['launches']}, collectives {on['collectives']}, host syncs "
+            f"{off['host_syncs']} / {on['host_syncs']}, memory allocated "
+            f"{off['mem_allocated']} / {on['mem_allocated']} B")
+        for key in ("iterations", "launches", "collectives", "host_syncs",
+                    "mem_allocated", "mem_delta"):
+            check(off[key] == on[key],
+                  f"(t1) {label}: {key} off {off[key]} != armed {on[key]}")
+        check(on["spans_per_solve"] == 1.0 and off["spans_per_solve"] == 0,
+              f"(t1) {label}: spans a solve {on['spans_per_solve']}")
+        out[label] = row
+        del ksp
+        ms.clear_cache()
+    # (t2) the log_view rows against the results' own counts
+    tel.reset()
+    profiling.clear_events()
+    results = []
+    for fused, guard in ((False, False), (True, False), (True, True)):
+        ksp = ksp_solver(comm, op, "cg", megasolve=fused)
+        ksp.abft = guard
+        x, bv = op.get_vecs()
+        bv.set_global(b)
+        results.append(ksp.solve(bv, x))
+    buf = io.StringIO()
+    profiling.log_view(file=buf)
+    text = buf.getvalue()
+    syncs = sum(r.host_syncs for r in results)
+    checks = sum(r.abft_checks for r in results)
+    want = (f"compiled-program dispatches: 3 [ksp: 1, megasolve: 2]",
+            f"KSP result fetch/solve: {syncs}",
+            f"silent-error detection: {checks} ABFT check(s), 0 "
+            "detection(s), 0 residual replacement(s)")
+    for line in text.splitlines():
+        log(f"(t2) log_view | {line}")
+    for w in want:
+        check(w in text, f"(t2) log_view lacks {w!r}")
+    tel.enable()
+    trace_dir = os.path.join("build", "telemetry_trace")
+    ksp = ksp_solver(comm, op, "cg")
+    x, bv = op.get_vecs()
+    bv.set_global(b)
+    with profiling.trace(trace_dir):
+        ksp.solve(bv, x)
+    tel.disable()
+    spans_doc = tel.export_trace(os.path.join(trace_dir, "spans.json"))
+    names = {e["name"] for e in spans_doc["traceEvents"]}
+    traces = sorted(p for p in os.listdir(trace_dir)
+                    if p.startswith("torch_trace_"))
+    with open(os.path.join(trace_dir, traces[-1])) as fh:
+        prof_doc = json.load(fh)
+    with open(os.path.join(trace_dir, "spans.json")) as fh:
+        json.load(fh)
+    kernels = sum(1 for e in prof_doc.get("traceEvents", ())
+                  if "stencil7" in str(e.get("name", "")))
+    check({"ksp.solve", "ksp.dispatch", "ksp.fetch"} <= names,
+          f"(t2) span export names {sorted(names)}")
+    check(kernels > 0, "(t2) the torch.profiler trace holds no stencil7 "
+                       "kernel")
+    out["t2"] = {"log_view": text.splitlines(), "span_names": sorted(names),
+                 "trace_stencil7_events": kernels}
+    log(f"(t2) torch.profiler trace {traces[-1]} ({kernels} stencil7 "
+        f"events) and span export {sorted(names)} load as JSON")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    tel.reset()
+    return out
 
 
 # ---- the resilience layer (item 6, first half) ------------------------------
@@ -6758,7 +7198,12 @@ RES_PROCS_CASES = [
     dict(name="sdc_spmv", kind="sdc", grid=[64] * 3,
          spec="spmv.result=bitflip:at=2:times=1", rr=CHAOS_RR),
     dict(name="sdc_pc_many", kind="sdc", grid=[64] * 3, k=4,
-         spec="pc.apply=bitflip:at=2:times=1", rr=CHAOS_RR)]
+         spec="pc.apply=bitflip:at=2:times=1", rr=CHAOS_RR),
+    # (g5) the fused guarded program: captured on NCCL 1 x 4 (one process),
+    # uncaptured on gloo 2 x 2, against DeviceComm(4) captured
+    dict(name="sdc_spmv_fused", kind="sdc", grid=[64] * 3,
+         spec="spmv.result=bitflip:at=2:times=1", rr=CHAOS_RR,
+         megasolve=True)]
 # the full run's procs launches carry (f)'s cases: label -> results
 _RES_PROCS_GOT: dict = {}
 
@@ -6783,6 +7228,12 @@ def phase_res_procs(shared=None):
                 backend)
         for c in base:
             g, w = got[c["name"]], ref[c["name"]]
+            if c.get("megasolve"):
+                graph = bool(np.asarray(g["graph"]))
+                check(graph == (backend == "nccl")
+                      and bool(np.asarray(w["graph"])),
+                      f"(g5) {label} {c['name']}: graph {graph}, "
+                      f"reference {w['graph']}")
             for key in ("detector", "det_it", "its", "events"):
                 check(np.array_equal(np.asarray(g[key]), np.asarray(w[key])),
                       f"(f) {label} {c['name']}: {key} {g[key]} != {w[key]}")
@@ -6963,6 +7414,17 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--telemetry"]:
+        # only the telemetry layer's phases (t1)-(t2), behind the checks
+        # of the kernels they launch (rows 1 and 2)
+        phase_kernel_checks()
+        print(json.dumps({"telemetry": timed(phase_telemetry)},
+                         default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--complex"]:
         # only the complex-scalar slice's phase (no kernel on its path)
         print(json.dumps({"complex": phase_complex()}, default=float))
@@ -7061,6 +7523,9 @@ def main():
     vcycle_entries, mega = phase_megasolve(procs=procs.pop("megasolve"))
     print(json.dumps({"megasolve": mega}, default=float))
     lap("bf16 V-cycle and fused program")
+    # the telemetry layer (item 6.2): no kernel of its own
+    print(json.dumps({"telemetry": timed(phase_telemetry)}, default=float))
+    lap("telemetry")
     # complex scalars (item 5.6): no kernel on the path, none may launch
     complex_ = phase_complex()
     print(json.dumps({"complex": complex_}, default=float))

@@ -21,7 +21,9 @@ rank (``python -m mpi_petsc4py_example_tpu_torch.run -n N --procs``).
 
 ``resilience`` holds fault injection, the silent-corruption guard's ABFT
 checksums, ``resilient_solve``, ``KSPFallbackChain`` and the elastic
-shrink; ``utils.checkpoint`` the mesh-portable checkpoints.
+shrink; ``utils.checkpoint`` the mesh-portable checkpoints; ``telemetry``
+the spans, metrics registry, flight recorder and trace export
+(``-telemetry``, ``-log_view``).
 """
 
 from .core.mat import Mat
@@ -36,7 +38,7 @@ from .parallel.mesh import (DeviceComm, ProcessComm, as_comm,
 from .parallel.partition import (RowLayout, concat_csr_blocks,
                                  ownership_range, partition_csr,
                                  row_partition, slice_csr_block)
-from . import resilience
+from . import resilience, telemetry
 from .resilience.faults import HealthMonitor, inject_faults
 from .solvers.cg_plans import PrecisionPlan, precision_plan
 from .solvers.eps import EPS, SVD
@@ -63,7 +65,7 @@ __all__ = ["DeviceComm", "ProcessComm", "init_multihost",
            "BatchedSolveResult",
            "DeviceExecutionError", "SilentCorruptionError",
            "Options", "global_options", "init",
-           "resilience", "inject_faults", "HealthMonitor", "RetryPolicy",
+           "resilience", "telemetry", "inject_faults", "HealthMonitor", "RetryPolicy",
            "resilient_solve", "resilient_solve_many", "KSPFallbackChain",
            "ElasticPolicy"]
 

@@ -513,8 +513,9 @@ def _case_sdc(comm, case):
     ``-ksp_abft`` and ``-ksp_residual_replacement rr``, the fault ``spec``
     armed; the detection (detector, iteration, the rolled-back iterate),
     then ``resilient_solve``'s recovery (iterations, attempts, the events,
-    the final iterate). ``k`` columns go through ``solve_many`` and
-    ``resilient_solve_many`` instead."""
+    the final iterate, and ``graph``: whether the fused program ran as CUDA
+    graphs, with ``megasolve``). ``k`` columns go through ``solve_many``
+    and ``resilient_solve_many`` instead."""
     from mpi_petsc4py_example_tpu_torch.resilience import faults
     geometry = tuple(case["grid"])
     dt = _DTYPES[case.get("dtype", "f64")]
@@ -549,7 +550,8 @@ def _case_sdc(comm, case):
             res = pt.resilient_solve(ksp, b, x, policy)
             out["x"] = x.to_numpy()
     out.update(its=np.asarray(res.iterations), attempts=res.attempts,
-               sdc=res.sdc_detections,
+               sdc=res.sdc_detections, graph=bool(getattr(res, "graph",
+                                                          False)),
                events=json.dumps([(e.kind, e.attempt, e.detector)
                                   for e in res.recovery_events]))
     return out

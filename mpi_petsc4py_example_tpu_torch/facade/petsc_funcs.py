@@ -16,6 +16,7 @@ which under the runner is this facade (as in the JAX package, whose
 
 import os
 
+from mpi_petsc4py_example_tpu_torch.utils.phases import stamp
 from petsc4py import PETSc
 from slepc4py import SLEPc
 
@@ -34,6 +35,7 @@ def createPETScMat(comm, shape, csr, backend=None):
     petsc, _ = _modules(backend)
     A = petsc.Mat().createAIJ(comm=comm, size=shape, csr=csr)
     A.assemble()
+    stamp("mat_assembled")
     return A
 
 
@@ -46,4 +48,5 @@ def solveSLEPcEigenvalues(comm, A, backend=None):
     E.setProblemType(slepc.EPS.ProblemType.HEP)
     E.setFromOptions()
     E.solve()
+    stamp("eps_solved")
     return E

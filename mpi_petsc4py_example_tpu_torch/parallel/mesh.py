@@ -91,6 +91,13 @@ def _resolve_device(device) -> torch.device:
                 "device='cpu' to run on the CPU")
         device = "cuda"
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_initialized():
+        # the first CUDA initialisation of the process (the JAX package
+        # stamps its first jax.devices() here)
+        from ..utils.phases import stamp
+        stamp("cuda_init_begin")
+        torch.cuda.init()
+        stamp("cuda_init_end")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device

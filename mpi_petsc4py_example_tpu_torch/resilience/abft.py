@@ -39,7 +39,7 @@ def _bitflip(y: torch.Tensor) -> torch.Tensor:
     local output). A zero word becomes 1.0, as in JAX (the flip of 0.0 is a
     denormal, and the init residual's ``A x0`` of a zero guess is all
     zeros); complex elements become ``-3 y`` (1.0 for a zero)."""
-    out = y.clone()
+    out = y.clone(memory_format=torch.contiguous_format)
     flat = out.view(out.shape[0], -1)
     v = flat[:, 0].clone()
     if v.is_complex():

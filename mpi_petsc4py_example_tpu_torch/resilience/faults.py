@@ -41,7 +41,9 @@ it is built (``solvers/krylov.py``).
 ``comm.delay``, ``exchange.put`` and ``rpc.*`` parse here; their sites come
 with the modules that own them (ROADMAP.md Queue A items 7 and 8).
 
-This module imports nothing of torch.
+This module imports nothing of torch. Every fired clause is recorded in the
+telemetry flight recorder (``Fault.flight_record``, JAX ``faults.py:208-233``,
+``:385``).
 """
 
 from __future__ import annotations
@@ -155,6 +157,7 @@ class Fault:
                 and self.hits >= self.at + self.times - 1)
 
     def error(self) -> XlaRuntimeError:
+        self.flight_record()
         msg = _KIND_MESSAGES[self.kind].format(point=self.point)
         if self.device is not None:
             # name the device: HealthMonitor attributes repeated failures
@@ -167,6 +170,16 @@ class Fault:
         # the true progress (retry.py records/resumes the iteration)
         err.iteration = int(self.iter_k or 0)
         return err
+
+    def flight_record(self):
+        """Record this fault in the telemetry flight recorder (JAX
+        ``faults.py:222-233``): every fired clause at every fault point
+        (``telemetry/names.FLIGHT_FAULT_POINTS``); recording never masks the
+        fault itself."""
+        from ..telemetry import flight as _flight
+        _flight.record_fault(self.point, self.kind, device=self.device,
+                             iteration=int(self.iter_k or 0),
+                             hits=self.hits)
 
     def __repr__(self):
         sched = (f"seed prob={self.prob}" if self._rng is not None else
@@ -312,6 +325,10 @@ def triggered(point: str, device: int | None = None):
             if fault.check():
                 fired = fault
                 break
+    if fired is not None and fired.kind not in RAISING_KINDS:
+        # the other kinds (poison, drops, silent corruption) never reach
+        # Fault.error(), which records the raising ones
+        fired.flight_record()
     return fired
 
 

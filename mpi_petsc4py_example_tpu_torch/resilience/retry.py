@@ -23,6 +23,14 @@ RecoveryEvent` on the result. After a silent corruption the answer is
 verified by an independent host fp64 apply of the operator before it is
 returned. With no failure, :func:`resilient_solve` is exactly one
 ``ksp.solve``.
+
+Telemetry (JAX ``retry.py:55-67``, ``:262-288``, ``:337-480``): each wrapper
+call is one ``resilient.solve`` span whose children are the ladder's stages
+(``resilient.rollback``, ``resilient.backoff``, ``resilient.rebuild``,
+``resilient.shrink``/``resilient.regrow``, ``resilient.verify``) beside the
+solves' own spans; every recovery event is mirrored into the flight ring,
+every executed shrink or regrow is recorded for ``-log_view``, and an error
+that escapes unrecovered dumps the ring (``telemetry.auto_dump``).
 """
 
 from __future__ import annotations
@@ -39,11 +47,21 @@ from ..utils.checkpoint import (load_solve_state, load_solve_state_many,
 from ..utils.convergence import (BatchedSolveResult, RecoveryEvent,
                                  SolveResult)
 from ..utils.errors import DeviceExecutionError, SilentCorruptionError
+from ..utils.profiling import record_mesh_regrow, record_mesh_shrink
+from ..telemetry import flight as _flight
+from ..telemetry import spans as _telemetry
 
 
 def _push(events: list, e: RecoveryEvent) -> RecoveryEvent:
-    """Append one recovery event to the trail."""
+    """Append one recovery event to the trail and, while telemetry is
+    armed, to the flight recorder's ring (JAX ``retry.py:55-67``)."""
     events.append(e)
+    if _telemetry.enabled():
+        _flight.recorder.record_event(
+            "recovery", stage=e.kind, attempt=e.attempt, detail=e.detail,
+            error_class=e.error_class, detector=e.detector,
+            iterations=e.iterations, old_devices=e.old_devices,
+            new_devices=e.new_devices, delay=e.delay)
     return e
 
 
@@ -221,8 +239,12 @@ class _ElasticEscalation:
         except ValueError:
             return False
         wall = time.perf_counter() - t0
-        if not growing and self.orig_comm is None:
-            self.orig_comm = old_comm
+        if growing:
+            record_mesh_regrow(old_n, comm_new.size, wall)
+        else:
+            if self.orig_comm is None:
+                self.orig_comm = old_comm
+            record_mesh_shrink(old_n, comm_new.size, wall)
         _push(events, RecoveryEvent(
             kind="mesh_regrow" if growing else "mesh_shrink",
             attempt=attempt,
@@ -266,27 +288,62 @@ def _recover(ksp, exc, policy, esc, events, attempt, mesh_attempt, path,
         _push(events, RecoveryEvent(kind="checkpoint", attempt=attempt,
                                     detail=path))
     if comm_new is not None:
-        if not reshard(comm_new, persisted):
+        old_n, new_n = int(ksp.comm.size), int(comm_new.size)
+        with _telemetry.span(
+                "resilient.regrow" if new_n > old_n else "resilient.shrink",
+                old_devices=old_n, new_devices=new_n) as shsp:
+            ok = reshard(comm_new, persisted)
+            if ok:
+                # the event carries the iteration the resumed solve
+                # continues from
+                shsp.set_attr("resumed_iteration", events[-1].iterations)
+        if not ok:
             raise exc
         return 0                        # a fresh budget on the new mesh
     if exc.failure_class == "detected_sdc":
-        _push(events, RecoveryEvent(
-            kind="rollback", attempt=attempt,
-            detail="re-entering from verified iterate", detector=detector))
+        with _telemetry.span("resilient.rollback", detector=detector):
+            _push(events, RecoveryEvent(
+                kind="rollback", attempt=attempt,
+                detail="re-entering from verified iterate",
+                detector=detector))
     else:
         delay = policy.delay(mesh_attempt - 1)
         _push(events, RecoveryEvent(kind="backoff", attempt=attempt,
                                     delay=delay,
                                     error_class=exc.failure_class))
-        policy.sleep(delay)
+        with _telemetry.span("resilient.backoff", delay=delay,
+                             error_class=exc.failure_class):
+            policy.sleep(delay)
         if persisted:
             # fresh device buffers from the checkpoint: nothing from before
             # the failure is trusted
-            try:
-                restore(path, mat.comm)
-            except Exception as rexc:  # noqa: BLE001 (classified below)
-                _reraise_if_rebuild_failed(rexc, exc)
+            with _telemetry.span("resilient.rebuild", checkpoint=path):
+                try:
+                    restore(path, mat.comm)
+                except Exception as rexc:  # noqa: BLE001 (classified below)
+                    _reraise_if_rebuild_failed(rexc, exc)
     return mesh_attempt
+
+
+def _wrapped(many, impl):
+    """The ``resilient.solve`` span of a wrapper (JAX ``retry.py:337``):
+    the recovery-ladder stages are its children; an error that escapes
+    unrecovered dumps the flight ring (``auto_dump``, after the span
+    closed, so the failed solve's tree is in the dump) and re-raises."""
+    sp = _telemetry.span("resilient.solve", many=many)
+    try:
+        with sp:
+            result = impl()
+            size = ({"nrhs": len(result.iterations)} if many
+                    else {"iterations": result.iterations})
+            sp.set_attrs(attempts=result.attempts,
+                         recoveries=len(result.recovery_events),
+                         **size, converged=result.converged)
+            return result
+    except Exception:  # noqa: BLE001 (dumped and re-raised at once)
+        _flight.auto_dump("unrecovered resilient_solve"
+                          + ("_many" if many else "") + " failure")
+        raise
 
 
 def resilient_solve(ksp, b, x, policy: RetryPolicy | None = None, *,
@@ -300,7 +357,13 @@ def resilient_solve(ksp, b, x, policy: RetryPolicy | None = None, *,
     original error. After a silent corruption the answer's true residual
     is verified on the host (a ``verify`` event; a miss raises
     :class:`..utils.errors.SilentCorruptionError`). Returns the converged
-    attempt's result with ``attempts`` and ``recovery_events``."""
+    attempt's result with ``attempts`` and ``recovery_events``; the call is
+    one ``resilient.solve`` span."""
+    return _wrapped(False, lambda: _resilient_solve(
+        ksp, b, x, policy, checkpoint_path, elastic))
+
+
+def _resilient_solve(ksp, b, x, policy, checkpoint_path, elastic):
     policy = policy or RetryPolicy()
     path = checkpoint_path or default_checkpoint_path(ksp)
     esc = _ElasticEscalation(elastic)
@@ -340,7 +403,9 @@ def resilient_solve(ksp, b, x, policy: RetryPolicy | None = None, *,
     result.recovery_events = events
     sdc = [e for e in events if e.kind == "fault" and e.detector]
     if sdc:
-        ok, rres = _verify_true_residual(ksp, b, x)
+        with _telemetry.span("resilient.verify") as vsp:
+            ok, rres = _verify_true_residual(ksp, b, x)
+            vsp.set_attrs(ok=ok, rel_residual=float(rres))
         if not ok:
             raise SilentCorruptionError(
                 "resilient_solve", "verify", result.iterations,
@@ -362,6 +427,11 @@ def resilient_solve_many(ksp, B, X=None, policy: RetryPolicy | None = None,
     checkpoint holds the whole ``(n, nrhs)`` blocks, a resumed block
     restarts every column from where it stood (converged columns freeze at
     once), and the verification is per column."""
+    return _wrapped(True, lambda: _resilient_solve_many(
+        ksp, B, X, policy, checkpoint_path, elastic))
+
+
+def _resilient_solve_many(ksp, B, X, policy, checkpoint_path, elastic):
     policy = policy or RetryPolicy()
     path = checkpoint_path or default_checkpoint_path(ksp)
     esc = _ElasticEscalation(elastic)
@@ -416,7 +486,9 @@ def resilient_solve_many(ksp, B, X=None, policy: RetryPolicy | None = None,
     result.recovery_events = events
     sdc = [e for e in events if e.kind == "fault" and e.detector]
     if sdc:
-        ok, rres = _verify_true_residual_many(ksp, B, result.X)
+        with _telemetry.span("resilient.verify") as vsp:
+            ok, rres = _verify_true_residual_many(ksp, B, result.X)
+            vsp.set_attrs(ok=ok, rel_residual=float(rres))
         if not ok:
             raise SilentCorruptionError(
                 "resilient_solve_many", "verify",

@@ -116,6 +116,8 @@ def main(argv=None) -> int:
     ap.add_argument("args", nargs=argparse.REMAINDER,
                     help="arguments passed to the driver")
     raw = list(sys.argv[1:] if argv is None else argv)
+    from mpi_petsc4py_example_tpu_torch.utils.phases import stamp
+    stamp("tpurun_main")
     opts = ap.parse_args(raw)
     if opts.np < 1:
         ap.error(f"-n must be >= 1, got {opts.np}")
@@ -149,6 +151,7 @@ def main(argv=None) -> int:
         code = compile(f.read(), opts.script, "exec")
 
     def run_script():
+        stamp("driver_exec")
         exec(code, {"__name__": "__main__", "__file__": opts.script,
                     "__builtins__": __builtins__})
 

@@ -36,8 +36,10 @@ each across the processes, the pace of the slowest, which sets a
 collective solve's) and all rank the same numbers. The JAX package runs
 one controller and has no such step.
 
-The JAX module also sets a telemetry gauge; the port's telemetry is ROADMAP
-Queue A item 6.2, and the numbers stay on the :class:`SelectionReport`.
+The measured (or probe-cached) reduction latency is also the telemetry
+gauge ``autoselect.psum_latency_us``, this process's own measurement, as in
+the JAX module; the numbers the processes agreed on stay on the
+:class:`SelectionReport`.
 """
 
 from __future__ import annotations
@@ -243,7 +245,9 @@ def select_reduction_plan(comm, operator, pc, *,
     latencies (JAX ``autoselect.py:227``), the same on every process: the
     report's latencies are those the processes agreed on (:func:`_agree`);
     ``probe_cached`` is this process's own."""
+    from ..telemetry.metrics import registry
     psum_us, cached = probe_psum_latency_us(comm, refresh=refresh)
+    registry.gauge("autoselect.psum_latency_us").set(psum_us)
     apply_us = measure_apply_latency_us(comm, operator, pc)
     psum_us, apply_us = _agree(comm, psum_us, apply_us)
     ranking = rank_reduction_plans(psum_us, apply_us, candidates)

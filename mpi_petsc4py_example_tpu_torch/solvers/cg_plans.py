@@ -1243,30 +1243,33 @@ def guarded_pipelined_loop(*, b, x0, rtol, atol, maxit, g, dtol=None, A=None,
 
 def _sstep_guard_flags(outs, g, s, m, many):
     """The ABFT verdicts of an s-block from the reduced guard partials
-    (numpy, JAX ``:1024-1050``): ``(badA, badM)``, each None when its
-    checksum is absent. Only the chain columns with an A-image are
-    checked; the PC channel checks each basis column against the M apply
-    that made it (column 0, the carried ``p``, against itself)."""
+    (numpy arrays, or device tensors in the fused program; JAX
+    ``:1024-1050``): ``(badA, badM)``, each None when its checksum is
+    absent. Only the chain columns with an A-image are checked; the PC
+    channel checks each basis column against the M apply that made it
+    (column 0, the carried ``p``, against itself)."""
+    dev = isinstance(outs[0], torch.Tensor) if outs else False
+    lib = torch if dev else np
     thr = lambda scale: g.abft_tol * g.eps * scale
     w_valid = np.zeros((m,), bool)
     w_valid[0:s] = True
     w_valid[s + 1:2 * s] = True
     vm = w_valid[:, None] if many else w_valid
+    if dev:
+        vm = torch.from_numpy(vm).to(outs[0].device)
     i = 0
     badA = badM = None
     if g.cs is not None:
         sW, cV, aW, aCV = outs[i:i + 4]
         i += 4
-        badA = np.any((np.abs(sW - cV) > thr(np.real(aW) + np.real(aCV)))
-                      & vm, axis=0)
+        badA = ((abs(sW - cV) > thr(aW.real + aCV.real)) & vm).any(0)
     if g.csM is not None:
         sV, cW, aV, aCW, cr, acr = outs[i:i + 6]
-        exp = np.concatenate([sV[0:1], cW[0:s], cr[None], cW[s + 1:2 * s]],
-                             axis=0)
-        aexp = np.concatenate([aV[0:1], aCW[0:s], acr[None],
-                               aCW[s + 1:2 * s]], axis=0)
-        badM = np.any(np.abs(sV - exp) > thr(np.real(aV) + np.real(aexp)),
-                      axis=0)
+        exp = lib.concatenate([sV[0:1], cW[0:s], cr[None],
+                               cW[s + 1:2 * s]], axis=0)
+        aexp = lib.concatenate([aV[0:1], aCW[0:s], acr[None],
+                                aCW[s + 1:2 * s]], axis=0)
+        badM = (abs(sV - exp) > thr(aV.real + aexp.real)).any(0)
     return badA, badM
 
 
@@ -1449,10 +1452,19 @@ class DevicePlan:
     state dict, ``step(state)`` one masked iteration (s-step: one block) as
     a new dict, ``live(state)`` the per-recurrence continue mask, and
     ``result(state)`` ``(x, it, reason)`` as device tensors. ``state["ls"]``
-    counts the steps in which some recurrence was live."""
+    counts the steps in which some recurrence was live.
 
-    def __init__(self, init, step, live, result):
+    A guarded plan (built with a guard bundle ``g``) also carries ``det``
+    (the first detector code, per recurrence), ``rrc`` (the replacements
+    that passed) and ``due``: a step after which the recurrence owes its
+    periodic true-residual replacement sets ``due``, which holds every
+    recurrence (``live`` is false) until ``replace(state)`` has run it; the
+    host runs ``replace`` between replays when the flag says so, so the
+    replacement's applies run only where one is due."""
+
+    def __init__(self, init, step, live, result, replace=None):
         self.init, self.step, self.live, self.result = init, step, live, result
+        self.replace = replace
 
 
 def _dmax_dev(rnorm0, dtol):
@@ -1487,18 +1499,94 @@ def _finish(x, st):
                                     st["brk"], st["dmax"])
 
 
+# ---- the guard on the device (the fused program's guarded modes) ------------
+#
+# The guarded loops above judge their checks on the host once a step. The
+# fused program cannot read the host inside a replay, so its guarded plans
+# keep every verdict on the device: the detector code ``det`` (sticky, per
+# recurrence) freezes a recurrence as the host loop's exit does, and the
+# replacement becomes a piece of its own that the host replays when ``due``
+# says one is owed. The guard bundles (``solvers/krylov.py``) are the unfused
+# programs'; only their site names are passed explicitly (a capture runs a
+# piece twice).
+
+def _guard_state(g, rn, bnorm, badA0, badM0):
+    """The guard's part of an initial state: the init detector code, the
+    replacement count, the best norm seen, the drift floor and the flags."""
+    false = torch.zeros(rn.shape, dtype=torch.bool, device=rn.device)
+    det = _det4(false if badA0 is None else badA0,
+                false if badM0 is None else badM0, ~torch.isfinite(rn),
+                false)
+    return dict(det=det, rrc=torch.zeros_like(det), rnb=rn.clone(),
+                dfl=_SDC_DRIFT_FLOOR_EPS * g.eps * bnorm, stp=false,
+                due=torch.zeros((), dtype=torch.bool, device=rn.device))
+
+
+def _guard_live(live, g):
+    """``live`` of a guarded plan: also clean, and not held for a due
+    replacement."""
+    if g is None:
+        return live
+    return lambda st: live(st) & (st["det"] == SDC_NONE) & ~st["due"]
+
+
+def _guard_step(g, st, new, cont, badA, badM, many):
+    """The sentinels and the ABFT verdicts of one masked step (the host
+    loops' per-step decisions): the NaN and monotonicity sentinels on the
+    new norm, the first detector code, and ``due`` when the step ends on a
+    replacement (every ``g.rr_n`` steps: the lockstep count of a block, the
+    iteration count of one clean, unconverged recurrence)."""
+    rn, rnb, det = new["rn"], st["rnb"], st["det"]
+    false = torch.zeros_like(cont)
+    fin = torch.isfinite(rn)
+    badnan = cont & ~fin
+    badmono = cont & fin & (rn > _SDC_MONO_FACTOR * rnb)
+    det = torch.where(det == SDC_NONE,
+                      _det4(false if badA is None else cont & badA,
+                            false if badM is None else cont & badM,
+                            badnan, badmono), det)
+    due = st["due"]                   # held steps keep it
+    if g.rr_n > 0:
+        hit = cont.any() & (new["ls"] % g.rr_n == 0)
+        if not many:
+            hit = hit & cont & (det == SDC_NONE) & (rn > st["tol"])
+        due = due | hit
+    return dict(new, det=det, stp=torch.where(st["due"], st["stp"], cont),
+                due=due,
+                rnb=torch.where(cont & fin, torch.minimum(rnb, rn), rnb))
+
+
+def _drift(rtn, rn, dfl):
+    return torch.abs(rtn - rn) > _SDC_DRIFT_REL * (rtn + rn) + dfl
+
+
+def _sq(t):
+    return torch.sqrt(torch.clamp_min(_re(t), 0.0))
+
+
 def classic_cg_device(*, rtol, atol, maxit, dtol, A=None, M=None, Adot=None,
                       inv_diag=None, pdot=None, pnorm=None, bp=None,
-                      prec=None) -> DevicePlan:
+                      prec=None, g=None, A0=None, M0=None) -> DevicePlan:
     """The classic CG recurrence as a :class:`DevicePlan`, on the general
     route (``A``, ``M``) or the stencil route (``Adot`` with the scalar
     ``inv_diag``), one RHS or a :class:`ManyBatch` block: the arithmetic of
     :func:`classic_cg_loop` and its ``_lockstep``, with every update
-    selected by the continue mask."""
+    selected by the continue mask.
+
+    With a guard bundle ``g`` (general route only) the reductions are the
+    guard's (``g.p1`` stacks ``<p, A p>`` with the operator's check sums,
+    ``g.p2`` ``<r, z>`` and ``||r||^2`` with the PC's), the verdicts are
+    :func:`guarded_cg_loop`'s, and ``replace`` is its periodic true-residual
+    replacement with the drift gate. ``A0``/``M0`` are the applies of the
+    initial residual (their own fault sites), by default ``A``/``M``."""
     stencil = Adot is not None
+    if stencil and g is not None:
+        raise ValueError("the guarded plans take the general route")
     mixed = prec is not None and prec.mixed
     st_ = _stc(prec)
-    ex = bp.ex if bp is not None else (lambda s: s)
+    many = bp is not None
+    ex = bp.ex if many else (lambda s: s)
+    A0, M0 = A0 or A, M0 or M
 
     def init(b):
         x = torch.zeros_like(b)
@@ -1510,6 +1598,13 @@ def classic_cg_device(*, rtol, atol, maxit, dtol, A=None, M=None, Adot=None,
             rz = rr0 * inv_diag
             p = st_(prec.up(r) * inv_diag) if mixed else r * inv_diag
             tol = torch.clamp_min(rtol * bnorm, atol)
+        elif g is not None:
+            r = b - A0(x)
+            bnorm, badA0 = g.init(b, r, x)
+            p = M0(r).clone()
+            rz, rn2, chkM0 = g.p2(r, p, site="P.p2init")
+            rn = _sq(rn2)
+            tol = torch.clamp_min(rtol * bnorm, atol)
         else:
             r = b - A(x)
             p = M(r).clone()
@@ -1517,13 +1612,18 @@ def classic_cg_device(*, rtol, atol, maxit, dtol, A=None, M=None, Adot=None,
             _, tol = _tol(pnorm, b, rtol, atol)
             rn = pnorm(r)
         it, brk = _zero_counts(rn)
-        return dict(x=x, r=r, p=p, rz=rz, rn=rn, tol=tol,
-                    atol=torch.zeros_like(rn) + atol, dmax=_dmax_dev(rn, dtol),
-                    it=it, brk=brk, ls=it.new_zeros(()))
+        st = dict(x=x, r=r, p=p, rz=rz, rn=rn, tol=tol,
+                  atol=torch.zeros_like(rn) + atol, dmax=_dmax_dev(rn, dtol),
+                  it=it, brk=brk, ls=it.new_zeros(()))
+        if g is not None:
+            st.update(_guard_state(
+                g, rn, bnorm, badA0,
+                None if chkM0 is None else _bad4(chkM0, g.te)), b=b)
+        return st
 
-    def live(st):
-        return _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
-                     st["brk"])
+    live = _guard_live(
+        lambda st: _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
+                         st["brk"]), g)
 
     def axpy(y, a, v):
         # store(up(y) + a up(v)) under a mixed plan, else y + a v (addcmul)
@@ -1533,8 +1633,12 @@ def classic_cg_device(*, rtol, atol, maxit, dtol, A=None, M=None, Adot=None,
         cont = live(st)
         cm = ex(cont)
         x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
+        chkA = chkM = None
         if stencil:
             Ap, pAp = Adot(p)
+        elif g is not None:
+            Ap = A(p)
+            pAp, chkA = g.p1(p, Ap)
         else:
             Ap = A(p)
             pAp = pdot(p, Ap)
@@ -1561,37 +1665,90 @@ def classic_cg_device(*, rtol, atol, maxit, dtol, A=None, M=None, Adot=None,
                 pn = torch.mul(p, beta).add_(r, alpha=inv_diag)
         else:
             z = M(r)
-            rz_new = pdot(r, z)
-            rn_new = pnorm(r)
+            if g is not None:
+                rz_new, rn2, chkM = g.p2(r, z, site="P.p2")
+                rn_new = _sq(rn2)
+            else:
+                rz_new = pdot(r, z)
+                rn_new = pnorm(r)
             beta = ex(_safe_div(rz_new, rz))
             pn = (_lifted_axpy(z, beta, p, out=torch.empty_like(p)) if mixed
                   else torch.mul(p, beta).add_(z))
-        return dict(st, x=x, r=r, p=torch.where(cm, pn, p),
-                    rz=torch.where(cont, rz_new, rz),
-                    rn=torch.where(cont, rn_new, st["rn"]),
-                    it=st["it"] + cont, brk=brk, ls=_live_steps(st, cont))
+        new = dict(st, x=x, r=r, p=torch.where(cm, pn, p),
+                   rz=torch.where(cont, rz_new, rz),
+                   rn=torch.where(cont, rn_new, st["rn"]),
+                   it=st["it"] + cont, brk=brk, ls=_live_steps(st, cont))
+        if g is None:
+            return new
+        return _guard_step(g, st, new, cont,
+                           None if chkA is None else _bad4(chkA, g.te),
+                           None if chkM is None else _bad4(chkM, g.te), many)
 
-    return DevicePlan(init, step, live, lambda st: _finish(st["x"], st))
+    def replace(st):
+        """The periodic true-residual replacement of the due recurrences
+        (``guarded_cg_loop``): ``r = b - A x`` verified by a plain
+        reduction, the direction restarted from ``M r``; a recurrence norm
+        more than 25% off the true one is a ``drift`` detection."""
+        rt = st["b"] - g.A_rr(st["x"])
+        zt = g.M_rr(rt)
+        rtn2, rzt = g.vpair(rt, zt)
+        rtn = _sq(rtn2)
+        clean = st["det"] == SDC_NONE
+        base = st["due"] & st["stp"] & clean
+        drift = _drift(rtn, st["rn"], st["dfl"])
+        ok = base & ~drift
+        okm = ex(ok)
+        return dict(st, r=torch.where(okm, rt, st["r"]),
+                    p=torch.where(okm, zt, st["p"]),
+                    rz=torch.where(ok, rzt, st["rz"]),
+                    rn=torch.where(ok, rtn, st["rn"]), rrc=st["rrc"] + ok,
+                    det=torch.where(base & drift, SDC_DRIFT, st["det"]),
+                    due=torch.zeros_like(st["due"]))
+
+    return DevicePlan(init, step, live, lambda st: _finish(st["x"], st),
+                      replace if g is not None and g.rr_n > 0 else None)
 
 
 def pipelined_cg_device(*, rtol, atol, maxit, dtol, A, M, pnorm, fused,
-                        bp=None, prec=None) -> DevicePlan:
+                        bp=None, prec=None, g=None, A0=None, M0=None
+                        ) -> DevicePlan:
     """The pipelined CG recurrence of :func:`pipelined_cg_loop` as a
     :class:`DevicePlan` (one RHS or a :class:`ManyBatch` block): the masked
-    branch of that loop's update, for every step."""
+    branch of that loop's update, for every step.
+
+    With a guard bundle ``g``, :func:`guarded_pipelined_loop`'s: the one
+    reduction ``g.fused`` also sums the ABFT partials of the previous
+    step's fresh applies (carried as ``chk``), and ``replace`` refills the
+    pipeline from the true residual. ``A0`` is the pair of initial applies
+    (``r = b - A x``, ``w = A u``), ``M0`` the initial PC apply."""
     mixed = prec is not None and prec.mixed
-    ex = bp.ex if bp is not None else (lambda s: s)
+    many = bp is not None
+    ex = bp.ex if many else (lambda s: s)
+    A0 = A0 or (A, A)
+    M0 = M0 or M
     consts = {}
+
+    def chk_stack(chk, sdt):
+        if not chk[0]:
+            return None
+        return torch.stack([torch.stack([q.to(sdt) for q in row])
+                            for row in chk])
 
     def init(b):
         sdt = prec.reduce if mixed else b.dtype
         x0 = torch.zeros_like(b)
-        r = b - A(x0)
-        bnorm = pnorm(b)
+        r = b - A0[0](x0)
+        if g is not None:
+            bnorm, badA0 = g.init(b, r, x0)
+            u = M0(r)
+            w = A0[1](u)
+            rn0 = g.pnorm(r)
+        else:
+            bnorm = pnorm(b)
+            u = M(r)
+            w = A(u)
+            rn0 = pnorm(r)
         tol = torch.clamp_min(rtol * bnorm, atol)
-        u = M(r)
-        w = A(u)
-        rn0 = pnorm(r)
         S = torch.stack([w, u, r, x0])
         if "sgn" not in consts:
             consts["sgn"] = torch.tensor(
@@ -1599,22 +1756,35 @@ def pipelined_cg_device(*, rtol, atol, maxit, dtol, A, M, pnorm, fused,
                 device=b.device).reshape((4,) + (1,) * b.ndim)
         it, brk = _zero_counts(rn0)
         gamma = torch.zeros(rn0.shape, dtype=sdt, device=b.device)
-        return dict(S=S, V=torch.zeros_like(S), gamma=gamma,
-                    alpha=torch.zeros_like(gamma), rn=rn0, tol=tol,
-                    atol=torch.zeros_like(rn0) + atol,
-                    dmax=_dmax_dev(rn0, dtol), it=it, brk=brk,
-                    ls=it.new_zeros(()))
+        st = dict(S=S, V=torch.zeros_like(S), gamma=gamma,
+                  alpha=torch.zeros_like(gamma), rn=rn0, tol=tol,
+                  atol=torch.zeros_like(rn0) + atol,
+                  dmax=_dmax_dev(rn0, dtol), it=it, brk=brk,
+                  ls=it.new_zeros(()))
+        if g is not None:
+            st.update(_guard_state(g, rn0, bnorm, badA0, None), b=b)
+            chk = chk_stack(g.chk_init(r, u, w), sdt)
+            if chk is not None:
+                st["chk"] = chk
+        return st
 
-    def live(st):
-        return _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
-                     st["brk"])
+    live = _guard_live(
+        lambda st: _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
+                         st["brk"]), g)
 
     def step(st):
         cont = live(st)
         cm = ex(cont)
         S, V, gamma, alpha = st["S"], st["V"], st["gamma"], st["alpha"]
         w, u, r = S[0], S[1], S[2]
-        g_new, delta, rr = fused(r, u, w)
+        badA = badM = None
+        if g is not None:
+            chk = st.get("chk")
+            rows = ([list(t.unbind(0)) for t in chk] if chk is not None
+                    else [[] for _ in range(S.shape[1])])
+            g_new, delta, rr, badA, badM = g.fused(r, u, w, rows)
+        else:
+            g_new, delta, rr = fused(r, u, w)
         m = M(w)
         n = A(m)
         first = gamma == 0
@@ -1629,15 +1799,46 @@ def pipelined_cg_device(*, rtol, atol, maxit, dtol, A, M, pnorm, fused,
                           for i, c in enumerate((n, m, w, u))])
         V = torch.where(cm, Vn, V)
         S = torch.where(cm, _mix_axpy(prec, S, V, al * consts["sgn"]), S)
-        rn_new = torch.sqrt(torch.clamp_min(_re(rr), 0.0))
-        return dict(st, S=S, V=V, gamma=torch.where(cont, g_new, gamma),
-                    alpha=torch.where(cont, a_new, alpha),
-                    rn=torch.where(cont, rn_new, st["rn"]),
-                    it=st["it"] + cont,
-                    brk=st["brk"] | (cont & (denom == 0)),
-                    ls=_live_steps(st, cont))
+        rn_new = _sq(rr)
+        new = dict(st, S=S, V=V, gamma=torch.where(cont, g_new, gamma),
+                   alpha=torch.where(cont, a_new, alpha),
+                   rn=torch.where(cont, rn_new, st["rn"]),
+                   it=st["it"] + cont,
+                   brk=st["brk"] | (cont & (denom == 0)),
+                   ls=_live_steps(st, cont))
+        if g is None:
+            return new
+        if "chk" in st:
+            new["chk"] = chk_stack(g.chk_parts(m, n, w), st["chk"].dtype)
+        return _guard_step(g, st, new, cont, badA, badM, many)
 
-    return DevicePlan(init, step, live, lambda st: _finish(st["S"][3], st))
+    def replace(st):
+        """``guarded_pipelined_loop``'s replacement: ``r = b - A x``, ``u =
+        M r``, ``w = A u``, the direction recurrences zeroed, the drift
+        gated against the current recurrence residual."""
+        S = st["S"]
+        x = S[3]
+        rt = st["b"] - g.A_rr(x)
+        ut = g.M_rr(rt)
+        wt = g.A_rr2(ut)
+        rtn2, rc2 = g.vpair2(rt, S[2])
+        rtn, rcur = _sq(rtn2), _sq(rc2)
+        clean = st["det"] == SDC_NONE
+        base = st["due"] & st["stp"] & clean
+        drift = _drift(rtn, rcur, st["dfl"])
+        ok = base & ~drift
+        okm = ex(ok)
+        zero = torch.zeros_like(st["gamma"])
+        return dict(st, S=torch.where(okm, torch.stack([wt, ut, rt, x]), S),
+                    V=torch.where(okm, 0.0, st["V"]),
+                    gamma=torch.where(ok, zero, st["gamma"]),
+                    alpha=torch.where(ok, zero, st["alpha"]),
+                    rn=torch.where(ok, rtn, st["rn"]), rrc=st["rrc"] + ok,
+                    det=torch.where(base & drift, SDC_DRIFT, st["det"]),
+                    due=torch.zeros_like(st["due"]))
+
+    return DevicePlan(init, step, live, lambda st: _finish(st["S"][3], st),
+                      replace if g is not None and g.rr_n > 0 else None)
 
 
 def _sstep_coefficients_dev(E, s, Sm, tol, dmax, maxit, it, rn, cont, brk):
@@ -1711,42 +1912,64 @@ def _sstep_coefficients_dev(E, s, Sm, tol, dmax, maxit, it, rn, cont, brk):
 
 
 def sstep_cg_device(*, rtol, atol, maxit, dtol, s, A, M, pnorm, gram,
-                    combine, bp=None, prec=None) -> DevicePlan:
+                    combine, bp=None, prec=None, g=None, A0=None, M0=None,
+                    max_repl=3) -> DevicePlan:
     """The s-step CG recurrence of :func:`sstep_cg_loop` as a
     :class:`DevicePlan`: one step is one block of ``s`` iterations around
     the one Gram reduction, its coefficient recurrences on the device
-    (:func:`_sstep_coefficients_dev`)."""
+    (:func:`_sstep_coefficients_dev`).
+
+    With a guard bundle ``g``, :func:`guarded_sstep_loop`'s: the basis
+    build's column sums ride the Gram reduction (``g.greduce``) and are
+    judged on the device (:func:`_sstep_guard_flags`); with a replacement
+    interval, a block that ends on it (every ``ceil(rr_n / s)`` blocks), or
+    whose block-start norm is NaN or blew up, owes ``replace``: the drift
+    gate against the true residual, with at most ``max_repl`` basis
+    restarts before ``SDC_DEMOTE``."""
     st_ = _stc(prec)
     mixed = prec is not None and prec.mixed
     up = prec.up if mixed else (lambda v: v)
-    ex = bp.ex if bp is not None else (lambda s_: s_)
+    many = bp is not None
+    ex = bp.ex if many else (lambda s_: s_)
     s = int(s)
     if s < 1:
         raise ValueError(f"-ksp_sstep_s must be >= 1, got {s}")
     m = 2 * s + 1
+    A0, M0 = A0 or A, M0 or M
+    gated = g is not None and g.rr_n > 0
+    interval = max((g.rr_n + s - 1) // s, 1) if gated else 0
     consts = {}
 
     def init(b):
         x = torch.zeros_like(b)
-        r = b - A(x)
-        bnorm = pnorm(b)
+        r = b - A0(x)
+        if g is not None:
+            bnorm, badA0 = g.init(b, r, x)
+            rn0 = g.pnorm(r)
+        else:
+            bnorm = pnorm(b)
+            rn0 = pnorm(r)
         tol = torch.clamp_min(rtol * bnorm, atol)
-        rn0 = pnorm(r)
-        p = M(r)
+        p = M0(r)
         if "Sm" not in consts:
             # in the Gram matrix's dtype (complex for a complex operator)
             consts["Sm"] = torch.from_numpy(sstep_shift(s, m)).to(
                 dtype=torch.promote_types(rn0.dtype, b.dtype),
                 device=b.device)
         it, brk = _zero_counts(rn0)
-        return dict(x=x, r=r, p=p, rn=rn0, tol=tol,
-                    atol=torch.zeros_like(rn0) + atol,
-                    dmax=_dmax_dev(rn0, dtol), it=it, brk=brk,
-                    ls=it.new_zeros(()))
+        st = dict(x=x, r=r, p=p, rn=rn0, tol=tol,
+                  atol=torch.zeros_like(rn0) + atol,
+                  dmax=_dmax_dev(rn0, dtol), it=it, brk=brk,
+                  ls=it.new_zeros(()))
+        if g is not None:
+            st.update(_guard_state(g, rn0, bnorm, badA0, None), b=b,
+                      xv=x.clone(), drc=torch.zeros_like(it),
+                      rn_rr=rn0.clone(), anom=torch.zeros_like(brk))
+        return st
 
-    def live(st):
-        return _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
-                     st["brk"])
+    live = _guard_live(
+        lambda st: _live(st["rn"], st["tol"], st["dmax"], st["it"], maxit,
+                         st["brk"]), g)
 
     def step(st):
         cont = live(st)
@@ -1763,7 +1986,11 @@ def sstep_cg_device(*, rtol, atol, maxit, dtol, s, A, M, pnorm, gram,
             C[:, m + s + 1 + i] = t
             C[:, s + 2 + i] = st_(M(t))
         C[:, 2 * m] = r
-        E = gram(up(C))
+        if g is not None:
+            E, outs = g.greduce(up(C), host=False)
+            rn_bs = torch.where(cont, _sq(E[2 * m, 2 * m]), st["rn"])
+        else:
+            E = gram(up(C))
         chat, phat, it, rn, brk = _sstep_coefficients_dev(
             E, s, consts["Sm"], st["tol"], st["dmax"], maxit, st["it"],
             st["rn"], cont, st["brk"])
@@ -1771,11 +1998,66 @@ def sstep_cg_device(*, rtol, atol, maxit, dtol, s, A, M, pnorm, gram,
         x_new = st_(up(x) + combine(chat, up(C[:, :m])))
         r_new = st_(up(r) - combine(chat, up(C[:, m:2 * m])))
         p_new = st_(combine(phat, up(C[:, :m])))
-        return dict(st, x=torch.where(cm, x_new, x),
-                    r=torch.where(cm, r_new, r), p=torch.where(cm, p_new, p),
-                    rn=rn.reshape(st["rn"].shape),
-                    it=it.reshape(st["it"].shape),
-                    brk=brk.reshape(st["brk"].shape),
-                    ls=_live_steps(st, cont))
+        new = dict(st, x=torch.where(cm, x_new, x),
+                   r=torch.where(cm, r_new, r), p=torch.where(cm, p_new, p),
+                   rn=rn.reshape(st["rn"].shape),
+                   it=it.reshape(st["it"].shape),
+                   brk=brk.reshape(st["brk"].shape),
+                   ls=_live_steps(st, cont))
+        if g is None:
+            return new
+        # the sentinels watch the exact block-start norm; with a
+        # replacement interval a NaN or blow-up is an anomaly the gate
+        # repairs, not a detection
+        badA, badM = _sstep_guard_flags(outs, g, s, m, many)
+        rnb = st["rnb"]
+        false = torch.zeros_like(cont)
+        fin = torch.isfinite(rn_bs)
+        badnan = cont & ~fin
+        badmono = cont & fin & (rn_bs > _SDC_MONO_FACTOR * rnb)
+        det = torch.where(
+            st["det"] == SDC_NONE,
+            _det4(false if badA is None else cont & badA,
+                  false if badM is None else cont & badM,
+                  badnan & (not gated), badmono & (not gated)), st["det"])
+        clean = det == SDC_NONE
+        anom = (badnan | badmono) & clean & gated
+        due = st["due"]               # held steps keep it
+        if gated:
+            due = due | ((cont & clean).any()
+                         & (new["ls"] % interval == 0)) | anom.any()
+        return dict(new, det=det, stp=torch.where(st["due"], st["stp"], cont),
+                    due=due, anom=torch.where(st["due"], st["anom"], anom),
+                    rnb=torch.where(cont & fin, torch.minimum(rnb, rn_bs),
+                                    rnb))
 
-    return DevicePlan(init, step, live, lambda st: _finish(st["x"], st))
+    def replace(st):
+        """``guarded_sstep_loop``'s gate: the true residual (from the
+        verified iterate after an anomaly) against the last check's; a
+        stall restarts the recurrence from it, past ``max_repl`` restarts
+        the code is ``SDC_DEMOTE``."""
+        x, anom, rn_rr = st["x"], st["anom"], st["rn_rr"]
+        am = ex(anom)
+        xr = torch.where(am, st["xv"], x)
+        rt = st["b"] - g.A_rr(xr)
+        zt = g.M_rr(rt)
+        rtn = _sq(g.vpair(rt, zt)[0])
+        stall = anom | ((rtn > st["tol"])
+                        & (rtn >= _SSTEP_STALL_FACTOR * rn_rr))
+        clean = st["det"] == SDC_NONE
+        base = st["due"] & st["stp"] & clean
+        ok = base & ~stall
+        restart = base & stall & (st["drc"] < max_repl)
+        demote = base & stall & (st["drc"] >= max_repl)
+        take = ex(ok | restart)
+        return dict(st, x=xr, r=torch.where(take, st_(rt), st["r"]),
+                    p=torch.where(take, st_(zt), st["p"]),
+                    rn=torch.where(ok | restart | demote, rtn, st["rn"]),
+                    xv=torch.where(ex(ok), x, st["xv"]),
+                    rrc=st["rrc"] + ok, drc=st["drc"] + restart,
+                    rn_rr=torch.where(ok | restart, rtn, rn_rr),
+                    det=torch.where(demote, SDC_DEMOTE, st["det"]),
+                    due=torch.zeros_like(st["due"]))
+
+    return DevicePlan(init, step, live, lambda st: _finish(st["x"], st),
+                      replace if gated else None)

@@ -68,6 +68,8 @@ from ..resilience import faults as _faults
 from ..utils.convergence import SolveResult
 from ..utils.errors import wrap_device_errors
 from ..utils.options import global_options
+from ..utils.profiling import record_event, record_sync
+from ..telemetry import spans as _telemetry
 from .krylov import _cgs2_step, _pmatdot, shardwise_matmul
 from .mg import _tf32_allowed
 from .st import ST
@@ -384,21 +386,32 @@ class EPS:
                 and self.st.sigma == 0.0):
             self.st.set_shift(self._target)
         t0 = time.perf_counter()
-        if self._type == "lapack":
-            self._solve_lapack()
-            syncs = 0
-        else:
-            if self._type == "lanczos" and self._problem_type not in (
-                    EPSProblemType.HEP, EPSProblemType.GHEP):
-                raise ValueError("EPS 'lanczos' needs a Hermitian "
-                                 "problem type (hep/ghep)")
-            syncs = self._solve_krylovschur()
-        self.result = SolveResult(
-            self._its,
-            float(self._residuals[0]) if len(self._residuals) else 0.0,
-            # nev > n cannot fail: min(nev, n) pairs exist at all
-            2 if self._nconv >= min(self.nev, mat.shape[0]) else -3,
-            time.perf_counter() - t0, syncs)
+        with _telemetry.span("eps.solve", eps_type=self._type,
+                             problem=str(self._problem_type),
+                             nev=int(self.nev), n=int(mat.shape[0]),
+                             devices=int(getattr(mat.comm, "size", 0)
+                                         or 0)) as sp:
+            if self._type == "lapack":
+                self._solve_lapack()
+                syncs = 0
+            else:
+                if self._type == "lanczos" and self._problem_type not in (
+                        EPSProblemType.HEP, EPSProblemType.GHEP):
+                    raise ValueError("EPS 'lanczos' needs a Hermitian "
+                                     "problem type (hep/ghep)")
+                syncs = self._solve_krylovschur()
+            wall = time.perf_counter() - t0
+            self.result = SolveResult(
+                self._its,
+                float(self._residuals[0]) if len(self._residuals) else 0.0,
+                # nev > n cannot fail: min(nev, n) pairs exist at all
+                2 if self._nconv >= min(self.nev, mat.shape[0]) else -3,
+                wall, syncs)
+            sp.set_attrs(iterations=int(self._its), nconv=int(self._nconv),
+                         reason=self.result.reason)
+        record_event(
+            f"EPSSolve({self._type},{self._problem_type},nev={self.nev})",
+            mat.shape[0], self._its, wall, self.result.reason)
         return self
 
     # ---- lapack (the dense host solve, SLEPc's EPSLAPACK) -------------------
@@ -547,6 +560,7 @@ class EPS:
             # basis stays on the device)
             Hh = H.cpu().numpy().astype(host_dtype(dtype))
             syncs += 1
+            record_sync("EPS H fetch/restart")
             beta, lam_t, S, order, rel, nconv = self._rayleigh_ritz(
                 Hh, ncv, nev, hermitian)
             if self._monitored():
@@ -611,6 +625,7 @@ class EPS:
         count = max(nev, 1)
         lam, vecs = self._extract(comm, V, S, lam_t, order, n, count)
         syncs += 1
+        record_sync("EPS basis fetch/solve")
         self._store(lam, vecs, rel[:count], nconv, restarts)
         return syncs
 

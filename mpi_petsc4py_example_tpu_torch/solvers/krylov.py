@@ -1929,9 +1929,12 @@ def _make_guard(sums, cs, csM, abft_tol, rr_n, eps):
     # PC none's checksum is all ones: <c_M, r> is then the sum of r itself
     ones = csM is not None and bool(torch.all(csM == 1))
 
-    def p2(r, z):
-        """``(<r, z>, ||r||^2, the PC's check sums)``."""
-        site = "P.p2init" if calls[0] == 0 else "P.p2"
+    def p2(r, z, site=None):
+        """``(<r, z>, ||r||^2, the PC's check sums)``; the first call is
+        site ``P.p2init`` unless ``site`` names it (the fused program's
+        pieces do: a capture runs a piece twice)."""
+        if site is None:
+            site = "P.p2init" if calls[0] == 0 else "P.p2"
         calls[0] += 1
         if csM is None:
             s = sums.stack(site, lambda i: [sums.dot(r[i], z[i]),
@@ -2079,12 +2082,13 @@ def _make_sstep_guard(sums, cs, csM, abft_tol, rr_n, eps, s):
     ``greduce(C)`` reduces the block's Gram matrix of the rows of ``C`` and
     the column sums of the basis build's applies in ONE reduction and
     returns them to the host (numpy); the loop judges them
-    (``cg_plans._sstep_guard_flags``)."""
+    (``cg_plans._sstep_guard_flags``). ``greduce(C, host=False)`` returns
+    them as device tensors (the fused program's masked steps)."""
     base = _make_guard(sums, cs, csM, abft_tol, rr_n, eps)
     m = 2 * s + 1
     cols = sums.cols
 
-    def greduce(Cup):
+    def greduce(Cup, host=True):
         shapes = []
 
         def parts(i):
@@ -2110,11 +2114,12 @@ def _make_sstep_guard(sums, cs, csM, abft_tol, rr_n, eps, s):
                 shapes.extend(t.shape for t in q)
             return [torch.cat([t.reshape(-1) for t in q])]
         flat = sums.stack("P.gram", parts)[0]
-        host = flat.cpu().numpy()
+        if host:
+            flat = flat.cpu().numpy()
         out, k = [], 0
         for shp in shapes:
             n = int(np.prod(shp))
-            out.append(host[k:k + n].reshape(shp))
+            out.append(flat[k:k + n].reshape(shp))
             k += n
         return out[0], out[1:]
 

@@ -30,9 +30,20 @@ or batched; other types raise ``ValueError`` as JAX ``_check_guard`` does. A
 detection raises :class:`..utils.errors.SilentCorruptionError` with ``x``
 rolled back to the last verified iterate; an s-step solve that spends its
 basis-restart budget continues as classic CG from its trusted iterate
-(``SDC_DEMOTE``, a ``sstep_demote`` recovery event). The fused program's
-guarded modes are not ported: ``-ksp_megasolve`` with the guard raises
-(ROADMAP.md Queue A item 6.3).
+(``SDC_DEMOTE``, a ``sstep_demote`` recovery event). Under
+``-ksp_megasolve`` the guard runs inside the fused program
+(``solvers/megasolve.py``): a detection raises the same error with ``x``
+set to the fused loop's verified carry, and a demotion continues as classic
+CG from the outer carry, as JAX ``ksp.py:1280-1308`` does.
+
+Telemetry (``telemetry/``, JAX ``ksp.py:578-607``): each ``solve`` is one
+``ksp.solve`` span (gate re-entries nest as child ``ksp.solve`` spans) with
+``ksp.setup``, ``ksp.dispatch``, ``ksp.fetch`` and ``ksp.verify`` children,
+each ``solve_many`` a ``ksp.solve_many`` span; one
+``record_program_dispatch`` per solve program run, at the JAX package's
+sites; ``record_sync`` with the host reads the solve made (the sum over a
+solve equals its result's ``host_syncs``); ``record_sdc`` with the guard's
+checks, detections and replacements; ``record_event`` for ``-log_view``.
 
 The fault points of ``resilience/faults.py`` sit where the JAX package has
 them: ``ksp.solve`` at the entry of every solve, ``ksp.program`` and
@@ -78,11 +89,15 @@ from ..utils.convergence import (BatchedSolveResult, ConvergedReason,
 from ..utils.dtypes import host_dtype, tolerance_dtype
 from ..utils.errors import SilentCorruptionError, wrap_device_errors
 from ..utils.options import global_options
+from ..utils.profiling import record_event, record_sdc, record_sync
+from ..telemetry import spans as _telemetry
+from ..telemetry.metrics import registry
 from .cg_plans import SDC_DEMOTE, SDC_DETECTOR_NAMES, SDC_NONE
 from .krylov import (BATCHED_TYPES, GUARDED_TYPES, NATURAL_TYPES,
                      batched_pc_supported, build_guarded_program,
                      build_ksp_program, build_ksp_program_many,
-                     check_ksp_type, guarded_stencil_eligible)
+                     check_ksp_type, guarded_stencil_eligible,
+                     stencil_cg_eligible)
 from .pc import PC
 
 DEFAULT_RTOL = 1e-5   # PETSc's KSP default
@@ -541,18 +556,6 @@ class KSP:
                 "residual norm; it does not compose with -ksp_norm_type "
                 "natural")
 
-    def _check_fused_guard(self):
-        """The fused program's guarded modes (``abft``, ``abft_pc``, ``rr``;
-        JAX ``megasolve.py:267-311``) are not ported: a fused solve with the
-        guard armed raises instead of running unguarded."""
-        if self._guard_requested():
-            raise NotImplementedError(
-                "-ksp_megasolve with the silent-corruption guard (-ksp_abft, "
-                "-ksp_residual_replacement, the auto-replacement flags): "
-                "the fused program's guarded modes are not ported "
-                "(ROADMAP.md Queue A item 6.3); unset -ksp_megasolve to run "
-                "the guarded loops")
-
     def set_up(self):
         """Set up the PC on its operator (the factor PCs factor here), then,
         with ``-ksp_reduction_auto``, choose the reduction plan. Raises
@@ -581,14 +584,19 @@ class KSP:
         if self._autoselect_key == key:
             return
         from . import autoselect
-        report = autoselect.select_reduction_plan(
-            mat.comm, mat, self.get_pc(),
-            refresh=self.reduction_probe_refresh)
-        self._type = report.ksp_type
-        if report.ksp_type == "sstep":
-            self.sstep_s = int(report.s)
-        self._reduction_report = report
-        self._autoselect_key = key
+        with _telemetry.span("ksp.autoselect", starting_type=self._type) as sp:
+            report = autoselect.select_reduction_plan(
+                mat.comm, mat, self.get_pc(),
+                refresh=self.reduction_probe_refresh)
+            self._type = report.ksp_type
+            if report.ksp_type == "sstep":
+                self.sstep_s = int(report.s)
+            self._reduction_report = report
+            self._autoselect_key = key
+            sp.set_attrs(choice=report.ksp_type, s=int(report.s or 0),
+                         psum_us=float(report.psum_us),
+                         apply_us=float(report.apply_us),
+                         probe_cached=bool(report.probe_cached))
 
     setUp = set_up
 
@@ -628,6 +636,32 @@ class KSP:
                 "would stop looser than rtol and defeat the gate")
         return margin
 
+    # reductions an iteration of the CG family makes, by (type, guarded)
+    # (per s-block for sstep): the JAX package's span attribute; the port's
+    # loops make the same count but on an unguarded stencil fast path, whose
+    # fused kernel folds <p, A p> into its own reduction (2, not 3)
+    _REDUCE_SITES = {("cg", False): 3, ("cg", True): 2,
+                     ("pipecg", False): 1, ("pipecg", True): 1,
+                     ("sstep", False): 1, ("sstep", True): 1}
+
+    def _reduce_sites(self):
+        """The ``reduce_sites`` span attribute, or None where the port's
+        plan makes another count than JAX's."""
+        guard = self._guard_requested()
+        sites = self._REDUCE_SITES.get((self._type, guard))
+        mat, pc = self._mat, self._pc
+        if sites is None or guard or mat is None or pc is None:
+            return sites
+        if self._megasolve_eligible():
+            from .megasolve import megasolve_stencil_supported
+            fast = (self.megasolve_stencil_fastpath
+                    and megasolve_stencil_supported(self._type, pc, mat))
+        else:
+            fast = stencil_cg_eligible(self._type, pc, mat,
+                                       nullspace=self._nullspace_basis(mat),
+                                       natural=self._norm_type == "natural")
+        return None if fast else sites
+
     @wrap_device_errors("KSPSolve")
     def solve(self, b, x, *, _rtol=None, _atol=None, _guess_nonzero=None,
               _no_reenter=False, _mon_offset=0) -> SolveResult:
@@ -636,9 +670,26 @@ class KSP:
         tolerances, the current ``x`` as the initial guess, and the
         iterations already spent, by which the monitors' iteration numbers
         are offset. With ``-ksp_converged_reason`` the outcome is printed,
-        and with ``-ksp_view`` the configuration, as PETSc does."""
-        res = self._solve(b, x, _rtol, _atol, _guess_nonzero, _no_reenter,
-                          _mon_offset)
+        and with ``-ksp_view`` the configuration, as PETSc does. The call
+        is one ``ksp.solve`` span."""
+        mat = self._mat
+        sp = _telemetry.span(
+            "ksp.solve", ksp_type=self._type,
+            pc=self._pc.get_type() if self._pc is not None else "",
+            operator=type(mat).__name__ if mat is not None else "",
+            n=int(mat.shape[0]) if mat is not None else 0,
+            precision=_dtype_name(mat),
+            devices=int(getattr(self.comm, "size", 0) or 0),
+            reentry=bool(_no_reenter))
+        if sp is not _telemetry.NOOP:
+            sites = self._reduce_sites()
+            if sites is not None:
+                sp.set_attr("reduce_sites", sites)
+        with sp:
+            res = self._solve(b, x, _rtol, _atol, _guess_nonzero,
+                              _no_reenter, _mon_offset)
+            sp.set_attrs(iterations=res.iterations, reason=res.reason,
+                         converged=res.converged, rnorm=res.residual_norm)
         if not _no_reenter and self._prints():
             if self._view_flag:
                 self.view()
@@ -664,7 +715,8 @@ class KSP:
         _faults.check("ksp.solve")    # an injectable pre-solve failure
         self._check_norm_type()
         self._check_guard()
-        self.set_up()
+        with _telemetry.span("ksp.setup"):
+            self.set_up()
         pc = self.get_pc()
         if pc.kind == "hostlu":
             return self._solve_hostlu(b, x)
@@ -679,7 +731,6 @@ class KSP:
         # in-program (solvers/megasolve.py); other configurations run the
         # unfused path below (JAX ksp.py:650-656)
         if self._megasolve_eligible():
-            self._check_fused_guard()
             return self._solve_megasolve(b, x, rtol, atol, guess_nonzero)
         gate = (self._true_residual_check and self._type != "preonly"
                 and not norm_none)
@@ -694,30 +745,34 @@ class KSP:
         pc_on = False
         if guard:
             cs, csM, pc_on = self._guard_checksums(mat, pc)
-            prog = build_guarded_program(
-                mat.comm, self._type, pc, mat, abft_tol=self.abft_tol,
-                rr_n=self._effective_replacement(), cs=cs, csM=csM,
-                max_repl=self.sstep_max_replacements, true_res=gate,
-                monitor=monitor, sstep_s=self.sstep_s)
-        else:
-            prog = build_ksp_program(mat.comm, self._type, pc, mat,
-                                     restart=self.restart, true_res=gate,
-                                     nullspace=self._nullspace_basis(mat),
-                                     monitor=monitor,
-                                     natural=self._norm_type == "natural",
-                                     aug=self.lgmres_augment,
-                                     ell=self.bcgsl_ell,
-                                     sstep_s=self.sstep_s)
+        with _telemetry.span("ksp.setup"):
+            if guard:
+                prog = build_guarded_program(
+                    mat.comm, self._type, pc, mat, abft_tol=self.abft_tol,
+                    rr_n=self._effective_replacement(), cs=cs, csM=csM,
+                    max_repl=self.sstep_max_replacements, true_res=gate,
+                    monitor=monitor, sstep_s=self.sstep_s)
+            else:
+                prog = build_ksp_program(
+                    mat.comm, self._type, pc, mat, restart=self.restart,
+                    true_res=gate, nullspace=self._nullspace_basis(mat),
+                    monitor=monitor, natural=self._norm_type == "natural",
+                    aug=self.lgmres_augment, ell=self.bcgsl_ell,
+                    sstep_s=self.sstep_s)
         x0 = (x.data.clone() if guess_nonzero
               else torch.zeros_like(b.data))
         self._program_fault(prog, b.data, x0, divtol, mat,
                             lambda xd: setattr(x, "data", xd))
         t0 = time.perf_counter()
-        out = prog(b.data, x0, *_tolerances(mat.dtype, rtol * margin,
-                                            atol * margin, divtol),
-                   self.max_it)
-        xd, iters, rnorm, reason, syncs = out[:5]
-        x.data = xd
+        with _telemetry.span("ksp.dispatch"):
+            _telemetry.record_program_dispatch("ksp")
+            out = prog(b.data, x0, *_tolerances(mat.dtype, rtol * margin,
+                                                atol * margin, divtol),
+                       self.max_it)
+        with _telemetry.span("ksp.fetch"):
+            xd, iters, rnorm, reason, syncs = out[:5]
+            x.data = xd
+        record_sync("KSP result fetch/solve", syncs)
         rest = out[5:]
         checks = rrc = 0
         if guard:
@@ -727,21 +782,26 @@ class KSP:
             # stencil fast path has no PC channel: its Jacobi is a scalar)
             checks = (1 + iters * (1 + int(pc_on))) if self.abft else 0
             if det == SDC_DEMOTE:
+                record_sdc(checks, 0, rrc)
                 return self._demote_sstep(b, x, rtol=rtol, atol=atol,
                                           iters=iters, rrc=rrc,
-                                          checks=checks, t0=t0)
+                                          checks=checks, t0=t0, syncs=syncs)
             if det != SDC_NONE:
+                record_sdc(checks, 1, rrc)
                 x.data = xv
                 raise SilentCorruptionError(
                     "KSPSolve", SDC_DETECTOR_NAMES.get(det, f"det{det}"),
                     iters, detail=f"{rrc} residual replacement(s) passed "
                                   "before detection")
+            record_sdc(checks, 0, rrc)
         rnorm, iters = _result_fault(rnorm, iters)
         wall = time.perf_counter() - t0
         self.result = SolveResult(iters, rnorm,
                                   _final_reason(reason, rnorm, norm_none),
                                   wall, syncs, abft_checks=checks,
                                   residual_replacements=rrc)
+        record_event(f"KSPSolve({self._type}+{pc.get_type()})", mat.shape[0],
+                     self.result.iterations, wall, self.result.reason)
         if not _no_reenter:
             self._last_reentries = 0
         if not gate:
@@ -757,7 +817,11 @@ class KSP:
                                       syncs, abft_checks=checks,
                                       residual_replacements=rrc)
         if not _no_reenter and self.result.converged:
-            self._reenter(b, x, target, true_rn, rnorm, _mon_offset)
+            with _telemetry.span("ksp.verify", true_rnorm=float(true_rn),
+                                 bnorm=float(bnorm)) as vsp:
+                self._reenter(b, x, target, true_rn, rnorm, _mon_offset)
+                vsp.set_attrs(reentries=self._last_reentries,
+                              passed=self._last_true_res[0] <= target)
         return self.result
 
     def _reenter(self, b, x, target, trn, last_mon_rn, mon_offset):
@@ -797,16 +861,17 @@ class KSP:
             self._last_reentries = attempts
 
     # ---- the silent-corruption guard ----------------------------------------
-    def _guard_checksums(self, mat, pc, many=False):
+    def _guard_checksums(self, mat, pc, many=False, fused=False):
         """``(cs, csM, pc_on)`` for a guarded program (JAX
         ``ksp.py:544-566``): the operator's and the PC's column checksums
         placed on this process's rows, or None; ``"boundary"`` for the
         stencil fast path, which reads its analytic checksum on the
-        boundary shells and has no PC channel. Cached on the KSP, keyed by
-        the operator, the PC and their mutation counters."""
+        boundary shells and has no PC channel (never for the ``fused``
+        program, whose guard takes the general route). Cached on the KSP,
+        keyed by the operator, the PC and their mutation counters."""
         if not self.abft:
             return None, None, False
-        if guarded_stencil_eligible(self._type, pc, mat, many):
+        if not fused and guarded_stencil_eligible(self._type, pc, mat, many):
             return "boundary", None, False
         from ..resilience import abft as abft_mod
         pmat = pc._mat
@@ -837,6 +902,7 @@ class KSP:
         if fault is None:
             return
         if fault.iter_k:
+            _telemetry.record_program_dispatch("ksp")
             part = prog(b, x0.clone(), *_tolerances(mat.dtype, 0.0, 0.0,
                                                     divtol),
                         min(int(fault.iter_k), self.max_it))
@@ -864,19 +930,21 @@ class KSP:
         return k2
 
     def _demote_sstep(self, b, x, *, rtol, atol, iters, rrc, checks,
-                      t0) -> SolveResult:
+                      t0, syncs=0) -> SolveResult:
         """The ``SDC_DEMOTE`` exit of a guarded s-step solve (JAX
         ``ksp.py:1108``): the drift gate restarted the basis
         ``-ksp_sstep_max_replacements`` times and it still stalls, so the
         solve continues as classic CG from its trusted iterate; the result
-        merges both and records a ``sstep_demote`` event."""
+        merges both (``syncs``: the s-step part's host reads) and records a
+        ``sstep_demote`` event."""
+        registry.counter("sstep.demotions").inc()
         sub_ksp = self._demote_clone()
         sub_ksp.max_it = max(self.max_it - iters, 1)
         sub = sub_ksp.solve(b, x, _rtol=rtol, _atol=atol,
                             _guess_nonzero=True, _mon_offset=iters)
         res = SolveResult(iters + sub.iterations, sub.residual_norm,
                           sub.reason, time.perf_counter() - t0,
-                          sub.host_syncs,
+                          syncs + sub.host_syncs,
                           abft_checks=checks + sub.abft_checks,
                           residual_replacements=rrc
                           + sub.residual_replacements)
@@ -889,18 +957,19 @@ class KSP:
         return res
 
     def _demote_sstep_many(self, B, X, *, iters, rrc, checks, t0,
-                           demoted) -> BatchedSolveResult:
+                           demoted, syncs=0) -> BatchedSolveResult:
         """Batched twin of :meth:`_demote_sstep` (JAX ``ksp.py:1129``): the
         whole block continues as classic CG from its current iterates (a
         converged column freezes at once), on the remaining iteration
         budget."""
+        registry.counter("sstep.demotions").inc(len(demoted))
         sub_ksp = self._demote_clone()
         sub_ksp.max_it = max(self.max_it - (max(iters) if iters else 0), 1)
         sub = sub_ksp.solve_many(B, X)
         res = BatchedSolveResult(
             [int(a) + int(c) for a, c in zip(iters, sub.iterations)],
             sub.residual_norms, sub.reasons, time.perf_counter() - t0,
-            sub.X, sub.histories, sub.host_syncs,
+            sub.X, sub.histories, syncs + sub.host_syncs,
             abft_checks=checks + sub.abft_checks,
             residual_replacements=rrc + sub.residual_replacements)
         res.recovery_events = [RecoveryEvent(
@@ -932,35 +1001,76 @@ class KSP:
         return megasolve_supported(self._type, self.get_pc(), self._mat,
                                    nrhs=2 if many else None)
 
-    def _megasolve_program(self, many_k=None):
+    def _megasolve_guard(self, many=False) -> dict:
+        """The guard's arguments of the fused program (JAX ``ksp.py:1205-
+        1217``): ``abft``/``abft_pc``/``rr``, the placed checksums of the
+        general route, the ``-ksp_abft_tol`` multiplier, the replacement
+        interval and the s-step restart budget; empty without a guard."""
+        if not self._guard_requested():
+            return {}
+        cs, csM, pc_on = self._guard_checksums(self._mat, self.get_pc(),
+                                               many=many, fused=True)
+        rr_n = self._effective_replacement()
+        return dict(abft=bool(self.abft), abft_pc=pc_on, rr=rr_n > 0,
+                    cs=cs, csM=csM, abft_tol=float(self.abft_tol),
+                    rr_n=rr_n, max_repl=int(self.sstep_max_replacements))
+
+    def _megasolve_program(self, many_k=None, guard=None):
         from .megasolve import (build_megasolve_program,
                                 build_megasolve_program_many,
                                 megasolve_stencil_supported)
         mat, pc = self._mat, self.get_pc()
+        guard = guard or {}
         sf = (self.megasolve_stencil_fastpath
               and megasolve_stencil_supported(self._type, pc, mat,
-                                              nrhs=many_k))
-        if many_k is None:
-            return build_megasolve_program(mat.comm, self._type, pc, mat,
-                                           sstep_s=self.sstep_s,
-                                           stencil_fastpath=sf)
-        return build_megasolve_program_many(mat.comm, self._type, pc, mat,
-                                            nrhs=many_k,
-                                            sstep_s=self.sstep_s,
-                                            stencil_fastpath=sf)
+                                              nrhs=many_k,
+                                              guard=bool(guard)))
+        with _telemetry.span("ksp.setup"):
+            if many_k is None:
+                return build_megasolve_program(
+                    mat.comm, self._type, pc, mat, sstep_s=self.sstep_s,
+                    stencil_fastpath=sf, **guard)
+            return build_megasolve_program_many(
+                mat.comm, self._type, pc, mat, nrhs=many_k,
+                sstep_s=self.sstep_s, stencil_fastpath=sf, **guard)
 
-    def _megasolve_run(self, prog, b, x0, rtol, atol):
+    def _megasolve_run(self, prog, b, x0, rtol, atol, kind, keep):
         """One fused solve with the uniform-gate semantics: the unfused
         gate's step cap and its DIVERGED_MAX_IT for a drift stall (an inner
-        breakdown still reports DIVERGED_BREAKDOWN)."""
+        breakdown still reports DIVERGED_BREAKDOWN). The fault points around
+        the program come first (JAX ``ksp.py:1224-1249``): with ``iter=K``
+        one outer step of K inner iterations runs, and ``keep`` receives
+        its iterate."""
         from .megasolve import GATE_REFINE_MAX
+        fault = _faults.triggered("ksp.program")
+        if fault is None:
+            fault = _faults.mesh_fault("device.lost",
+                                       self._mat.comm.device_ids)
+        if fault is not None:
+            if fault.iter_k:
+                _telemetry.record_program_dispatch(kind)
+                part = prog(b, x0, 0.0, 0.0, 0.0, self.divtol,
+                            min(int(fault.iter_k), self.max_it), 1,
+                            ConvergedReason.DIVERGED_MAX_IT)
+                keep(part.x)
+            raise fault.error()
         t0 = time.perf_counter()
         # the program holds the scalars in the operator's tolerance dtype
-        res = prog(b, x0, rtol, atol, rtol, self.divtol, self.max_it,
-                   GATE_REFINE_MAX, ConvergedReason.DIVERGED_MAX_IT)
+        with _telemetry.span("ksp.dispatch"):
+            _telemetry.record_program_dispatch(kind)
+            res = prog(b, x0, rtol, atol, rtol, self.divtol, self.max_it,
+                       GATE_REFINE_MAX, ConvergedReason.DIVERGED_MAX_IT)
         self._last_reentries = 0      # in-program re-entries are no host
         #                               gate re-entries
-        return res, time.perf_counter() - t0
+        return res, t0
+
+    def _fused_checks(self, guard, steps, iters):
+        """ABFT checks of a fused guarded solve (JAX ``ksp.py:1282``): one
+        init check an outer step (a column), one an inner iteration a
+        checked channel."""
+        if not guard.get("abft"):
+            return 0
+        return steps + iters * (1 + int(guard["abft_pc"]))
 
     def _solve_megasolve(self, b, x, rtol, atol, guess_nonzero):
         """The ``-ksp_megasolve`` path (JAX ``ksp.py:1188``): the fused
@@ -968,47 +1078,117 @@ class KSP:
         ``max(rtol ||b||, atol)`` passes, so the reported norm is the
         verified ``||b - A x||``. The result also carries the outer steps
         (``megasolve_steps``), the graph replays, the masked inner steps
-        and whether CUDA graphs ran."""
+        and whether CUDA graphs ran. Under the guard a detection raises
+        ``SilentCorruptionError`` with ``x`` the fused loop's verified
+        carry, and a demotion continues as classic CG from the outer
+        carry."""
         mat = self._mat
         L = mat.comm.local_shards
-        prog = self._megasolve_program()
+        guard = self._megasolve_guard()
+        prog = self._megasolve_program(guard=guard)
         x0 = x.data.view(L, -1).to(mat.dtype) if guess_nonzero else None
-        res, wall = self._megasolve_run(prog, b.data.view(L, -1), x0, rtol,
-                                        atol)
-        x.data = res.x.reshape(-1)
+        keep = lambda xd: setattr(x, "data", xd.reshape(-1))
+        res, t0 = self._megasolve_run(prog, b.data.view(L, -1), x0, rtol,
+                                      atol, "megasolve", keep)
+        with _telemetry.span("ksp.fetch"):
+            keep(res.x)
+        record_sync("KSP result fetch/solve", res.host_reads)
+        checks = rrc = 0
+        if guard:
+            rrc = res.rrc
+            checks = self._fused_checks(guard, res.steps, res.iters)
+            if res.det == SDC_DEMOTE:
+                record_sdc(checks, 0, rrc)
+                return self._demote_sstep(
+                    b, x, rtol=rtol, atol=atol, iters=res.iters, rrc=rrc,
+                    checks=checks, t0=t0, syncs=res.host_reads)
+            if res.det != SDC_NONE:
+                record_sdc(checks, 1, rrc)
+                keep(res.xv)
+                raise SilentCorruptionError(
+                    "KSPSolve", SDC_DETECTOR_NAMES.get(res.det,
+                                                       f"det{res.det}"),
+                    res.iters,
+                    detail=f"detected inside the fused megasolve loop "
+                           f"({rrc} residual replacement(s) passed before "
+                           "detection)")
+            record_sdc(checks, 0, rrc)
+        rnorm, iters = _result_fault(res.rnorm, res.iters)
         reason = res.reason
-        if not math.isfinite(res.rnorm):
+        if not math.isfinite(rnorm):
             reason = ConvergedReason.DIVERGED_NANORINF
-        self.result = SolveResult(res.iters, res.rnorm, int(reason), wall,
-                                  res.host_reads)
+        wall = time.perf_counter() - t0
+        self.result = SolveResult(iters, rnorm, int(reason), wall,
+                                  res.host_reads, abft_checks=checks,
+                                  residual_replacements=rrc)
         _megasolve_stats(self.result, res)
+        record_event(f"KSPSolve({self._type}+{self.get_pc().get_type()}"
+                     "+mega)", mat.shape[0], iters, wall, int(reason))
         return self.result
 
-    def _solve_many_megasolve(self, Bd, X, n, x_vecs):
+    def _solve_many_megasolve(self, Bd, X, n, x_vecs, B):
         """The batched fused path (JAX ``ksp.py:1336``): the whole block's
         gate recurrence in one fused program, per-column results as the
-        unfused batched path reports them."""
+        unfused batched path reports them; under the guard a detection
+        writes the block's verified carry into ``X`` and raises, a demotion
+        continues the block as classic CG."""
         mat = self._mat
         comm = mat.comm
-        prog = self._megasolve_program(many_k=int(Bd.shape[1]))
+        k = int(Bd.shape[1])
+        guard = self._megasolve_guard(many=True)
+        prog = self._megasolve_program(many_k=k, guard=guard)
         X0 = None
         if self._initial_guess_nonzero:
             X0 = (torch.stack([v.data.view(comm.local_shards, -1) for v in X],
                               dim=1).to(mat.dtype)
                   if x_vecs else comm.put_cols(X, mat.dtype))
-        res, wall = self._megasolve_run(prog, Bd, X0, self.rtol, self.atol)
-        if x_vecs:
-            for j, xv in enumerate(X):
-                xv.data = res.x[:, j].reshape(-1).to(xv.dtype)
-        else:
-            X[...] = comm.fetch_cols(res.x, n)
+
+        def write(Xd):
+            if x_vecs:
+                for j, xv in enumerate(X):
+                    xv.data = Xd[:, j].reshape(-1).to(xv.dtype)
+            else:
+                X[...] = comm.fetch_cols(Xd, n)
+
+        res, t0 = self._megasolve_run(prog, Bd, X0, self.rtol, self.atol,
+                                      "megasolve_many", write)
+        with _telemetry.span("ksp.fetch"):
+            write(res.x)
+        record_sync("KSP solve_many result fetch", res.host_reads)
+        checks = rrc = 0
+        if guard:
+            rrc = int(sum(res.rrc))
+            checks = self._fused_checks(guard, k * res.steps,
+                                        sum(res.iters))
+            bad = [j for j, d in enumerate(res.det)
+                   if d not in (SDC_NONE, SDC_DEMOTE)]
+            record_sdc(checks, len(bad), rrc)
+            if bad:
+                write(res.xv)
+                raise SilentCorruptionError(
+                    "KSPSolveMany", SDC_DETECTOR_NAMES.get(
+                        res.det[bad[0]], str(res.det[bad[0]])),
+                    int(max(res.iters[j] for j in bad)),
+                    detail=f"columns {bad} flagged inside the fused "
+                           "megasolve loop")
+            demoted = [j for j, d in enumerate(res.det) if d == SDC_DEMOTE]
+            if demoted:
+                return self._demote_sstep_many(
+                    B, X, iters=list(res.iters), rrc=rrc, checks=checks,
+                    t0=t0, demoted=demoted, syncs=res.host_reads)
         reasons = [ConvergedReason.DIVERGED_NANORINF
                    if not math.isfinite(rn) else int(r)
                    for rn, r in zip(res.rnorm, res.reason)]
+        wall = time.perf_counter() - t0
         self.result_many = BatchedSolveResult(
             list(res.iters), list(res.rnorm), reasons, wall, X,
-            [[] for _ in reasons], res.host_reads)
+            [[] for _ in reasons], res.host_reads, abft_checks=checks,
+            residual_replacements=rrc)
         _megasolve_stats(self.result_many, res)
+        conv = self.result_many.converged
+        record_event(f"KSPSolveMany({self._type}+{self.get_pc().get_type()}"
+                     f"+mega,k={k})", n, max(res.iters, default=0), wall,
+                     max(reasons) if conv else min(reasons))
         return self.result_many
 
     def _solve_hostlu(self, b, x) -> SolveResult:
@@ -1031,6 +1211,9 @@ class KSP:
         rnorm = float(np.linalg.norm(bh - A64 @ xh))
         self.result = SolveResult(1, rnorm, ConvergedReason.CONVERGED_ITS,
                                   time.perf_counter() - t0, 1)
+        record_sync("KSP hostlu gather/scatter", 1)
+        record_event("KSPSolve(preonly+hostlu)", self._mat.shape[0], 1,
+                     self.result.wall_time, self.result.reason)
         return self.result
 
     @wrap_device_errors("KSPSolveMany")
@@ -1057,8 +1240,25 @@ class KSP:
         configurations (PC mg, shell or composite, host LU, the other KSP
         types, a null space) solve the columns one by one. ``batch_limit``
         (``-ksp_batch_limit``) splits a wider block into batched solves of
-        at most that many columns.
+        at most that many columns. The call is one ``ksp.solve_many``
+        span.
         """
+        mat = self._mat
+        sp = _telemetry.span(
+            "ksp.solve_many", ksp_type=self._type,
+            pc=self._pc.get_type() if self._pc is not None else "",
+            operator=type(mat).__name__ if mat is not None else "",
+            n=int(mat.shape[0]) if mat is not None else 0,
+            precision=_dtype_name(mat),
+            devices=int(getattr(self.comm, "size", 0) or 0))
+        with sp:
+            res = self._solve_many(B, X)
+            its = res.iterations
+            sp.set_attrs(nrhs=len(its), iterations=max(its) if its else 0,
+                         converged=res.converged)
+            return res
+
+    def _solve_many(self, B, X):
         mat = self._mat
         if mat is None:
             raise RuntimeError("KSP.solve_many: no operators set")
@@ -1090,7 +1290,8 @@ class KSP:
         _faults.check("ksp.solve")    # the one pre-solve fault point
         self._check_norm_type()
         self._check_guard()
-        self.set_up()
+        with _telemetry.span("ksp.setup"):
+            self.set_up()
         pc = self.get_pc()
         if not (self._type in BATCHED_TYPES and batched_pc_supported(pc)
                 and self._norm_type in ("default", "none")
@@ -1099,11 +1300,10 @@ class KSP:
             return self._solve_many_sequential(B, X, k, b_vecs, x_vecs)
         comm = mat.comm
         if self._megasolve_eligible(many=True):
-            self._check_fused_guard()
             Bd = (torch.stack([v.data.view(comm.local_shards, -1) for v in B],
                               dim=1).to(mat.dtype)
                   if b_vecs else comm.put_cols(B, mat.dtype))
-            return self._solve_many_megasolve(Bd, X, n, x_vecs)
+            return self._solve_many_megasolve(Bd, X, n, x_vecs, B)
         norm_none, rtol, atol, divtol = self._run_tolerances()
         gate = self._true_residual_check and not norm_none
         guard = self._guard_requested()
@@ -1126,7 +1326,8 @@ class KSP:
             build = lambda true_res, monitor=None: build_ksp_program_many(
                 comm, self._type, pc, mat, true_res=true_res,
                 monitor=monitor, sstep_s=self.sstep_s)
-        prog = build(gate, record if monitored else None)
+        with _telemetry.span("ksp.setup"):
+            prog = build(gate, record if monitored else None)
         # one placement of each block: stacked on the card from Vecs, or
         # transposed on the host and copied once
         place = lambda blk, is_vecs: (
@@ -1147,8 +1348,12 @@ class KSP:
         Xd = (place(X, x_vecs) if self._initial_guess_nonzero
               else torch.zeros_like(Bd))
         self._program_fault(prog, Bd, Xd, divtol, mat, write)
-        out = prog(Bd, Xd, *tols, self.max_it)
-        Xd, iters, rnorms, reasons, syncs = out[:5]
+        with _telemetry.span("ksp.dispatch"):
+            _telemetry.record_program_dispatch("ksp_many")
+            out = prog(Bd, Xd, *tols, self.max_it)
+        with _telemetry.span("ksp.fetch"):
+            Xd, iters, rnorms, reasons, syncs = out[:5]
+        record_sync("KSP solve_many result fetch", syncs)
         rest = out[5:]
         checks = rrc = 0
         if guard:
@@ -1157,13 +1362,16 @@ class KSP:
             rrc = int(sum(rrc_l))
             checks = ((k + sum(iters) * (1 + int(pc_on))) if self.abft
                       else 0)
+            bad = [j for j in range(k) if det[j] not in (SDC_NONE,
+                                                         SDC_DEMOTE)]
+            record_sdc(checks, len(bad), rrc)
             self._raise_many_sdc(det, iters, Xv, write)
             demoted = [j for j in range(k) if det[j] == SDC_DEMOTE]
             if demoted:
                 write(Xd)
                 return self._demote_sstep_many(
                     B, X, iters=iters, rrc=rrc, checks=checks, t0=t0,
-                    demoted=demoted)
+                    demoted=demoted, syncs=syncs)
 
         def demote(its, dem, Xcur):
             write(Xcur)
@@ -1187,6 +1395,10 @@ class KSP:
         self.result_many = BatchedSolveResult(
             iters, rnorms, reasons, wall, X, histories, syncs,
             abft_checks=checks, residual_replacements=rrc)
+        conv = self.result_many.converged
+        record_event(f"KSPSolveMany({self._type}+{pc.get_type()},k={k})", n,
+                     max(iters, default=0), wall,
+                     max(reasons) if conv else min(reasons))
         return self.result_many
 
     def _raise_many_sdc(self, det, iters, Xv, write):
@@ -1239,12 +1451,18 @@ class KSP:
             self._last_reentries += 1
             if prog2 is None:
                 prog2 = build(True)
+            _telemetry.record_program_dispatch("ksp_many")
             out = prog2(Bd, Xd, *tols, self.max_it)
             Xd, it2, rn2, rs2, s2 = out[:5]
             trn, bn = out[-2:]
             syncs += s2
+            record_sync("KSP solve_many result fetch", s2)
             if guard:
                 det2, Xv2 = out[5], out[7]
+                bad2 = [j for j in range(k) if det2[j] not in (SDC_NONE,
+                                                               SDC_DEMOTE)]
+                if bad2:
+                    record_sdc(0, len(bad2), int(sum(out[6])))
                 self._raise_many_sdc(det2, it2, Xv2, write)
                 dem2 = [j for j in range(k) if det2[j] == SDC_DEMOTE]
                 if dem2:
@@ -1359,6 +1577,12 @@ def _final_reason(reason, rnorm, norm_none):
     if norm_none and reason != ConvergedReason.DIVERGED_BREAKDOWN:
         return ConvergedReason.CONVERGED_ITS
     return reason
+
+
+def _dtype_name(mat) -> str:
+    """The operator's dtype as the JAX package names it ("float64",
+    "bfloat16", ...), for span attributes; "" without an operator."""
+    return "" if mat is None else str(mat.dtype).removeprefix("torch.")
 
 
 def _is_vec_list(block) -> bool:

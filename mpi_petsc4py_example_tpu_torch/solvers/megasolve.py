@@ -64,10 +64,27 @@ new program and a repeated solve the same one; a cached program keeps the
 tensors its closures read alive, so an address it captured is never
 reused under it.
 
-The guarded modes (``abft``, ``abft_pc``, ``rr``) are ROADMAP.md Queue A
-item 6.3 and raise. ``torch.cond`` under capture (CUDA graph conditional
-nodes) could skip the masked steps; it needs the ctypes launches as
-traceable custom ops, and is left to a later PR (``ROADMAP.md``).
+**The guarded modes** (``abft``, ``abft_pc``, ``rr``; JAX
+``megasolve.py:227-229``, ``:314-422``, batched ``:519-521``, ``:612-720``)
+run the guarded plans of ``solvers/cg_plans.py`` (``g=`` on the device
+plans, with the guard bundles of ``solvers/krylov.py``), so every verdict
+stays on the device: a detection freezes its recurrence with its code, and
+the ``outer`` piece keeps the verified carry ``xv`` and applies ``x <-
+where(detected, x, x + dx)``; the outer loop goes on while no code is set.
+The periodic replacement is a fourth piece, ``rr``, which the host replays
+when the flag tensor's third entry says one is due (the plan holds every
+recurrence until then); the chunk length divides the replacement interval
+where it can (:func:`replacement_chunk`), so a due replacement follows no
+masked step. The trace-time fault sites (``spmv.result``,
+``pc.apply``, ``comm.psum``) are resolved when the program is built and sit
+in the captured pieces, so a corrupted site is baked into the graph as JAX
+bakes it into its trace; the cache key carries the set of hit sites, so a
+faulted graph never serves a clean solve, nor a clean one a faulted solve.
+The stencil fast path stays off under the guard (``:114-127``).
+
+``torch.cond`` under capture (CUDA graph conditional nodes) could skip the
+masked steps; it needs the ctypes launches as traceable custom ops, and is
+left to a later PR (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -77,10 +94,14 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import stencil as _st
+from ..resilience import abft as _abft
+from ..resilience import faults as _faults
 from ..utils.convergence import ConvergedReason as CR
 from ..utils.dtypes import reduce_dtype, tolerance_dtype
 from . import cg_plans as _plans
-from .krylov import (_combine, batched_pc_supported, fused_dots, gram_psum,
+from .krylov import (_GuardSums, _combine, _guard_sites, _make_guard,
+                     _make_pipe_guard, _make_sstep_guard, _site_calls,
+                     batched_pc_supported, fused_dots, gram_psum,
                      shard_dots)
 
 #: KSP types with a fused whole-solve program (the plan-built CG family)
@@ -95,6 +116,18 @@ GATE_REFINE_MAX = 4
 MEGASOLVE_CHUNK = 8
 
 _CACHE: dict = {}
+
+
+def replacement_chunk(interval: int, chunk: int = MEGASOLVE_CHUNK) -> int:
+    """The chunk length of a guarded plan whose replacement falls due every
+    ``interval`` steps: the divisor of ``interval`` nearest ``chunk`` (from
+    ``chunk / 2`` to ``2 chunk``), so a chunk ends where a replacement
+    falls due and no masked step follows it; ``chunk`` when none does."""
+    for c in sorted(range(max(1, chunk // 2), 2 * chunk + 1),
+                    key=lambda c: abs(c - chunk)):
+        if interval % c == 0:
+            return c
+    return chunk
 
 
 def clear_cache():
@@ -172,7 +205,9 @@ class MegasolveResult:
     the steps (per column for a block), the final true residual norm(s),
     the reason(s), and what the solve cost: host reads (flag reads and the
     result read), graph replays (or uncaptured runs of the pieces), the
-    masked inner steps, and whether CUDA graphs ran."""
+    masked inner steps, and whether CUDA graphs ran. A guarded program also
+    returns the detector code(s) ``det``, the replacements ``rrc`` and the
+    verified carry ``xv`` (flat, as ``x``)."""
     x: torch.Tensor
     steps: int
     iters: object
@@ -182,6 +217,9 @@ class MegasolveResult:
     replays: int
     masked_steps: int
     graph: bool
+    det: object = None
+    rrc: object = None
+    xv: torch.Tensor | None = None
 
 
 def _tensor_ptrs(obj) -> tuple:
@@ -244,8 +282,10 @@ class MegasolveProgram:
     scalars, which travel to static device buffers before each solve, so
     that changing them never re-captures."""
 
-    def __init__(self, comm, A_out, onorm, in_dt, out_dt, shape, many, chunk):
+    def __init__(self, comm, A_out, onorm, in_dt, out_dt, shape, many, chunk,
+                 guard=False):
         self.comm = comm
+        self.guard = guard
         self.A_out, self.onorm = A_out, onorm
         self.in_dt, self.out_dt = in_dt, out_dt
         # the inner plan and the views between the flat outer layout and
@@ -272,7 +312,12 @@ class MegasolveProgram:
                         brk=z(torch.bool, rn_shape),
                         ibrk=z(torch.bool, rn_shape),
                         lsum=z(torch.int64))
-        self.flags = z(torch.int32, (2,))
+        if guard:
+            self.out.update(det=z(torch.int64, rn_shape),
+                            rrc=z(torch.int64, rn_shape),
+                            xv=z(out_dt, shape))
+        # (inner loop live, outer loop live, replacement due)
+        self.flags = z(torch.int32, (3,))
         self.inner = None              # the inner plan's state, static
         self.graphs, self.captured = {}, {}
 
@@ -282,13 +327,18 @@ class MegasolveProgram:
 
     def _active(self):
         o = self.out
-        return (o["rn"] > o["tol"]) & ~o["brk"]
+        act = (o["rn"] > o["tol"]) & ~o["brk"]
+        if self.guard:
+            act = act & (o["det"] == _plans.SDC_NONE)
+        return act
 
     def _set_flags(self):
         o = self.out
         olive = self._active().any() & (o["it"] < self.scal["rmax"])
         ilive = self.plan.live(self.inner).any() & olive
-        self.flags.copy_(torch.stack([ilive, olive]).to(torch.int32))
+        due = (self.inner["due"] & olive if self.plan.replace is not None
+               else torch.zeros_like(olive))
+        self.flags.copy_(torch.stack([ilive, olive, due]).to(torch.int32))
 
     def _init_inner(self):
         st = self.plan.init(self.to_inner(self.out["r"].to(self.in_dt)))
@@ -306,8 +356,11 @@ class MegasolveProgram:
         o["rn"].copy_(self.onorm(r))
         o["tol"].copy_(tol)
         s["iatol"].copy_(tol)
-        for k in ("it", "ii", "brk", "ibrk", "lsum"):
+        for k in ("it", "ii", "brk", "ibrk", "lsum") + (
+                ("det", "rrc") if self.guard else ()):
             o[k].zero_()
+        if self.guard:
+            o["xv"].copy_(o["x"])
         self._init_inner()
         self._set_flags()
 
@@ -319,12 +372,25 @@ class MegasolveProgram:
             self.inner[k].copy_(v)
         self._set_flags()
 
+    def _rr(self):
+        st = self.plan.replace(dict(self.inner))
+        for k, v in st.items():
+            self.inner[k].copy_(v)
+        self._set_flags()
+
     def _outer(self):
         o = self.out
         act = self._active()
         dx, it_i, reason_i = self.plan.result(self.inner)
         x = o["x"]
-        x_new = torch.where(self._ex(act),
+        apply = act
+        if self.guard:
+            # a poisoned correction is never applied: the carry stays at the
+            # last iterate whose true residual was measured
+            det_i = self.inner["det"]
+            detected = act & (det_i != _plans.SDC_NONE)
+            apply = act & ~detected
+        x_new = torch.where(self._ex(apply),
                             x + self.from_inner(dx).to(self.out_dt), x)
         r_new = o["b"] - self.A_out(x_new)
         rn_new = self.onorm(r_new)
@@ -336,6 +402,10 @@ class MegasolveProgram:
         o["ibrk"].logical_or_(stag & (reason_i == CR.DIVERGED_BREAKDOWN))
         o["brk"].logical_or_(stag)
         o["it"].add_(1)
+        if self.guard:
+            o["det"].copy_(torch.where(detected, det_i, o["det"]))
+            o["rrc"].add_(torch.where(act, self.inner["rrc"], 0))
+            o["xv"].copy_(torch.where(self._ex(detected), o["xv"], x_new))
         x.copy_(x_new)
         o["r"].copy_(r_new)
         o["rn"].copy_(rn_new)
@@ -391,55 +461,67 @@ class MegasolveProgram:
         else:
             o["x"].copy_(x0)
         self._run("start", self._start)
-        ilive, olive = self.flags.tolist()
+        ilive, olive, due = self.flags.tolist()
         reads = runs = 1
         chunks = 0
         while olive:
-            while ilive:
-                self._run("chunk", self._chunk)
-                chunks += 1
-                ilive, olive = self.flags.tolist()
+            while ilive or due:
+                if due:
+                    self._run("rr", self._rr)
+                else:
+                    self._run("chunk", self._chunk)
+                    chunks += 1
+                ilive, olive, due = self.flags.tolist()
                 reads, runs = reads + 1, runs + 1
             self._run("outer", self._outer)
-            ilive, olive = self.flags.tolist()
+            ilive, olive, due = self.flags.tolist()
             reads, runs = reads + 1, runs + 1
         conv = o["rn"] <= o["tol"]
         reason = _reason_outer(conv, o["rn"], s["atol"], o["brk"], o["ibrk"],
                                s["stag"])
+        cols = [o["ii"], o["rn"], reason] + (
+            [o["det"], o["rrc"]] if self.guard else [])
         head = torch.stack([o["it"], o["lsum"]]).double()
-        vals = torch.cat([head, o["ii"].reshape(-1).double(),
-                          o["rn"].reshape(-1).double(),
-                          reason.reshape(-1).double()]).tolist()
+        vals = torch.cat([head] + [c.reshape(-1).double()
+                                   for c in cols]).tolist()
         reads += 1
         steps, lsum = int(vals[0]), int(vals[1])
-        k = (len(vals) - 2) // 3
-        ii = [int(v) for v in vals[2:2 + k]]
-        rn = vals[2 + k:2 + 2 * k]
-        rs = [int(v) for v in vals[2 + 2 * k:]]
+        k = (len(vals) - 2) // len(cols)
+        per = [vals[2 + i * k:2 + (i + 1) * k] for i in range(len(cols))]
+        ii, rn, rs = ([int(v) for v in per[0]], per[1],
+                      [int(v) for v in per[2]])
+        det = rrc = xv = None
+        if self.guard:
+            det, rrc = [int(v) for v in per[3]], [int(v) for v in per[4]]
+            xv = o["xv"].clone()
         if not self.many:
             ii, rn, rs = ii[0], rn[0], rs[0]
+            if self.guard:
+                det, rrc = det[0], rrc[0]
         return MegasolveResult(
             x=o["x"].clone(), steps=steps, iters=ii, rnorm=rn, reason=rs,
             host_reads=reads, replays=runs,
-            masked_steps=chunks * self.chunk - lsum, graph=self.capture)
-
-
-def _check_guard(abft, abft_pc, rr):
-    if abft or abft_pc or rr:
-        raise NotImplementedError(
-            "megasolve: the silent-corruption guard (-ksp_abft, "
-            "-ksp_residual_replacement, the auto-replacement flags) is not "
-            "ported (ROADMAP.md Queue A item 6.3)")
+            masked_steps=chunks * self.chunk - lsum, graph=self.capture,
+            det=det, rrc=rrc, xv=xv)
 
 
 def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
-           abft_pc=False, rr=False, sstep_s=4, stencil_fastpath=False,
-           chunk=MEGASOLVE_CHUNK):
+           abft_pc=False, rr=False, cs=None, csM=None,
+           abft_tol=_abft.DEFAULT_ABFT_TOL, rr_n=0, max_repl=3, sstep_s=4,
+           stencil_fastpath=False, chunk=MEGASOLVE_CHUNK):
     """The program for one configuration, built or from the cache; ``chunk``
     other than ``MEGASOLVE_CHUNK`` is for tests that hold the masked steps
     to changing no bit."""
-    _check_guard(abft, abft_pc, rr)
     many = nrhs is not None
+    guard_k = bool(abft or rr)
+    if abft and cs is None:
+        raise ValueError("megasolve: -ksp_abft needs the operator's column "
+                         "checksum (cs)")
+    if rr and int(rr_n) <= 0:
+        raise ValueError("megasolve: the replacement mode needs rr_n > 0")
+    if guard_k and stencil_fastpath:
+        raise ValueError("megasolve: the stencil fast path stays off under "
+                         "the silent-corruption guard")
     if not megasolve_supported(ksp_type, pc, inner_op, nrhs=nrhs):
         raise ValueError(f"megasolve: KSP {ksp_type!r} with pc "
                          f"{pc.get_type()!r} on {type(inner_op).__name__} "
@@ -461,13 +543,39 @@ def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
             "megasolve: stencil fast path requested for an ineligible "
             "(type, PC, operator) configuration; gate the routing on "
             "megasolve_stencil_supported")
+    gkey = ()
+    sites = _faults.NO_SITES
+    if not guard_k and _faults.trace_time_live():
+        raise NotImplementedError(
+            "a trace-time fault (spmv.result/pc.apply/comm.psum) is armed, "
+            "and the port wires their sites into the fused program's "
+            "guarded modes only, not into its unguarded plans (ROADMAP.md "
+            "Queue A item 6.5)")
+    if guard_k:
+        cs_k = cs if abft else None
+        csM_k = csM if abft and abft_pc else None
+        rr_k = int(rr_n) if rr else 0
+        # the trace-time faults of this build: baked into its pieces, so
+        # the key carries the sites they hit (JAX keys on trace_key())
+        sites = _faults.trace_sites(_guard_sites(
+            ksp_type, sstep_k or 4, cs=cs_k is not None))
+        if rr_k > 0:
+            # sstep's replacement falls due every ceil(rr_n / s) blocks
+            chunk = replacement_chunk(
+                -(-rr_k // sstep_k) if ksp_type == "sstep" else rr_k,
+                int(chunk))
+        gkey = (cs_k is not None, csM_k is not None, rr_k, float(abft_tol),
+                int(max_repl) if ksp_type == "sstep" else 0,
+                tuple(t.data_ptr() for t in (cs_k, csM_k) if t is not None),
+                tuple(sorted((k, f.kind, f.mag)
+                             for k, f in sites.hits.items())))
     key = (id(comm), ksp_type, pc.program_key(), pc._tunables_key(), id(pc),
            n, prec.key(), str(out_dt), shared, nrhs, id(inner_op),
            id(out_op), inner_op.program_key(), out_op.program_key(),
            getattr(inner_op, "_state", 0), getattr(out_op, "_state", 0),
            getattr(inner_op, "force_plain", False), sstep_k, stencil_k,
            int(chunk), _tensor_ptrs(inner_op), _tensor_ptrs(out_op),
-           () if stencil_k else _pc_state(pc))
+           () if stencil_k else _pc_state(pc), gkey)
     prog = _CACHE.get(key)
     if prog is not None:
         return prog
@@ -488,7 +596,7 @@ def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
     flat = lambda v: v.reshape(shape)
     to_inner = flat
     prog = MegasolveProgram(comm, A_out, onorm, in_dt, out_dt, shape, many,
-                            chunk)
+                            chunk, guard=guard_k)
     s = prog.scal
     kw = dict(rtol=s["irtol"], atol=s["iatol"], maxit=s["maxit"],
               dtol=s["dtol"], prec=prec if prec.mixed else None,
@@ -507,7 +615,11 @@ def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
         A = (inner_op.local_spmv_many(comm) if many
              else inner_op.local_spmv(comm))
         M = pc.local_apply_many(comm, n) if many else pc.local_apply(comm, n)
-        if ksp_type == "pipecg":
+        if guard_k:
+            plan = _guarded_plan(comm, ksp_type, A, M, many, prec, sites,
+                                 in_dt, cs_k, csM_k, abft_tol, rr_k, sstep_k,
+                                 max_repl, kw)
+        elif ksp_type == "pipecg":
             fd = fused_dots(comm, up, cols=many)
             plan = _plans.pipelined_cg_device(
                 A=A, M=M, pnorm=pnorm,
@@ -525,30 +637,84 @@ def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
     return prog
 
 
+def _guarded_plan(comm, ksp_type, A, M, many, prec, sites, in_dt, cs, csM,
+                  abft_tol, rr_n, sstep_k, max_repl, kw):
+    """The guarded inner plan: the guard bundle of the unfused guarded
+    programs (``solvers/krylov.py``) on the inner precision, each apply
+    bound to its trace-time fault site (the JAX package's trace order,
+    ``krylov._guard_sites``) by name, not by call count, since a capture
+    runs each piece twice."""
+    sdt = prec.reduce if prec.mixed else in_dt
+    eps = _abft.checksum_tolerance_dtype(in_dt)
+    sums = _GuardSums(comm, prec.up, many, sdt, sites)
+
+    def at(fn, *names):
+        return _site_calls(sites, fn, [], list(names))
+
+    if ksp_type == "pipecg":
+        g = _make_pipe_guard(sums, cs, csM, abft_tol, rr_n, eps)
+        g.A_rr, g.A_rr2, g.M_rr = (at(A, "A.rr"), at(A, "A.rr2"),
+                                   at(M, "M.rr"))
+        return _plans.pipelined_cg_device(
+            A=at(A, "A.body"), M=at(M, "M.body"), pnorm=None, fused=None,
+            g=g, A0=(at(A, "A.init0"), at(A, "A.init1")),
+            M0=at(M, "M.init"), **kw)
+    if ksp_type == "sstep":
+        s = sstep_k
+        g = _make_sstep_guard(sums, cs, csM, abft_tol, rr_n, eps, s)
+        g.A_rr, g.M_rr = at(A, "A.rr"), at(M, "M.rr")
+        return _plans.sstep_cg_device(
+            s=s, A=at(A, *[f"A.p{i}" for i in range(s)],
+                      *[f"A.r{i}" for i in range(s - 1)]),
+            M=at(M, *[f"M.p{i}" for i in range(s)], "M.z",
+                 *[f"M.r{i}" for i in range(s - 1)]),
+            pnorm=None, gram=None, combine=_combine, g=g,
+            A0=at(A, "A.init"), M0=at(M, "M.init"), max_repl=int(max_repl),
+            **kw)
+    g = _make_guard(sums, cs, csM, abft_tol, rr_n, eps)
+    g.A_rr, g.M_rr = at(A, "A.rr"), at(M, "M.rr")
+    return _plans.classic_cg_device(A=at(A, "A.body"), M=at(M, "M.body"),
+                                    g=g, A0=at(A, "A.init"),
+                                    M0=at(M, "M.init"), **kw)
+
+
 def build_megasolve_program(comm, ksp_type, pc, inner_op, outer_op=None, *,
-                            abft=False, abft_pc=False, rr=False, sstep_s=4,
+                            abft=False, abft_pc=False, rr=False, cs=None,
+                            csM=None, abft_tol=_abft.DEFAULT_ABFT_TOL,
+                            rr_n=0, max_repl=3, sstep_s=4,
                             stencil_fastpath=False) -> MegasolveProgram:
     """The fused single-RHS program for this configuration, built or taken
     from the cache (JAX ``megasolve.py:179``). ``outer_op`` None (or the
     inner operator) shares the operands: the uniform-precision gate.
     ``stencil_fastpath`` asks for the stencil fused-dot inner loop and
-    raises ``ValueError`` where it is not eligible (JAX ``:236-241``); the
-    guard arguments raise ``NotImplementedError`` naming Queue A item 6.3."""
+    raises ``ValueError`` where it is not eligible (JAX ``:236-241``).
+
+    The guard (JAX's ``abft``, ``abft_pc``, ``rr``): ``cs``/``csM`` are the
+    shard-stacked column checksums (``KSP._guard_checksums``), ``abft_tol``
+    the ``-ksp_abft_tol`` multiplier, ``rr_n`` the replacement interval and
+    ``max_repl`` the s-step basis-restart budget, all part of the program
+    (JAX passes them as runtime scalars); the result then carries ``det``,
+    ``rrc`` and the verified carry ``xv``."""
     return _build(comm, ksp_type, pc, inner_op, outer_op, nrhs=None,
-                  abft=abft, abft_pc=abft_pc, rr=rr, sstep_s=sstep_s,
-                  stencil_fastpath=stencil_fastpath)
+                  abft=abft, abft_pc=abft_pc, rr=rr, cs=cs, csM=csM,
+                  abft_tol=abft_tol, rr_n=rr_n, max_repl=max_repl,
+                  sstep_s=sstep_s, stencil_fastpath=stencil_fastpath)
 
 
 def build_megasolve_program_many(comm, ksp_type, pc, inner_op, outer_op=None,
                                  *, nrhs, abft=False, abft_pc=False, rr=False,
-                                 sstep_s=4, stencil_fastpath=False
-                                 ) -> MegasolveProgram:
+                                 cs=None, csM=None,
+                                 abft_tol=_abft.DEFAULT_ABFT_TOL, rr_n=0,
+                                 max_repl=3, sstep_s=4,
+                                 stencil_fastpath=False) -> MegasolveProgram:
     """The batched fused program (JAX ``megasolve.py:478``): ``nrhs``
     refinement recurrences in lockstep over a ``(local_shards, nrhs,
     lsize)`` block, with per-column freezing at both levels (a column whose
     true residual meets its target freezes in the outer recurrence, and its
     inner loop, whose target is floored at that tolerance, at once) and
-    per-column stagnation (JAX ``:499-508``)."""
+    per-column stagnation (JAX ``:499-508``); the guard's arguments as
+    :func:`build_megasolve_program`'s, its outputs per column."""
     return _build(comm, ksp_type, pc, inner_op, outer_op, nrhs=int(nrhs),
-                  abft=abft, abft_pc=abft_pc, rr=rr, sstep_s=sstep_s,
-                  stencil_fastpath=stencil_fastpath)
+                  abft=abft, abft_pc=abft_pc, rr=rr, cs=cs, csM=csM,
+                  abft_tol=abft_tol, rr_n=rr_n, max_repl=max_repl,
+                  sstep_s=sstep_s, stencil_fastpath=stencil_fastpath)

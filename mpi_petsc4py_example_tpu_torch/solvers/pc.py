@@ -298,6 +298,14 @@ class PC:
         key = (mat, getattr(mat, "_state", 0), self._tunables_key())
         if self._built_for == key:
             return self
+        from ..telemetry import spans as _telemetry
+        with _telemetry.span("pc.setup", pc_type=self._type,
+                             n=int(mat.shape[0])):
+            return self._set_up_build(mat, key)
+
+    def _set_up_build(self, mat, key):
+        """The build itself (the ``pc.setup`` span's body; JAX
+        ``pc.py:238-243``): for PC mg the hierarchy."""
         self._hostlu = None
         self.setup_mode = None
         self.setup_breakdown = None

@@ -30,11 +30,21 @@ fp64 Mat assembled from the host CSR when first needed. The routing is the
 JAX package's (``_megasolve_available``): a custom inner operator without an
 ``outer_op``, a null space, monitors or a history on the inner KSP, a norm
 type other than the default, and the types and PCs without a fused program
-run the host loop. Its telemetry spans wait for the port's telemetry
-(ROADMAP Queue A item 6.2). The fault points of the JAX fused refinement
+run the host loop. The fault points of the JAX fused refinement
 (``ksp.solve``, ``ksp.program``/``device.lost``, ``ksp.result``,
 ``refine.py:275-421``) sit in the fused path; the guarded inner solves of
-the host loop carry their own.
+the host loop carry their own. An inner KSP with the silent-corruption guard
+(``-ksp_abft``, a replacement interval, or the drift bounds
+``_arm_inner_guards`` arms for an sstep inner and a bf16 pipecg inner) runs
+the fused program's guarded mode (JAX ``refine.py:276-337``): a detection
+raises ``SilentCorruptionError``, and a demotion of the s-step inner reruns
+the refinement through the host loop, whose inner solves demote per
+correction.
+
+Telemetry (JAX ``refine.py:499-589``): ``solve`` and ``solve_many`` are one
+``refine.outer`` span each; the host loop's outer steps are ``refine.step``
+children (the inner ``ksp.solve`` spans nest in them), the fused path's
+``ksp.setup``/``ksp.dispatch``/``ksp.fetch``.
 """
 
 from __future__ import annotations
@@ -50,9 +60,12 @@ from ..core.vec import Vec
 from ..parallel.mesh import DeviceComm
 from ..resilience import faults as _faults
 from ..utils.convergence import ConvergedReason, SolveResult
-from ..utils.errors import wrap_device_errors
+from ..utils.errors import SilentCorruptionError, wrap_device_errors
 from ..utils.dtypes import inner_precision_dtype, is_low_precision, real_eps
 from ..utils.options import global_options
+from ..utils.profiling import record_event, record_sdc, record_sync
+from ..telemetry import spans as _telemetry
+from .cg_plans import SDC_DEMOTE, SDC_DETECTOR_NAMES, SDC_NONE
 from .ksp import KSP, _megasolve_stats
 
 #: tightest per-correction inner target the storage precision can resolve:
@@ -252,7 +265,10 @@ class RefinedKSP:
         """The fused refinement on the fp64 vector or ``(n, k)`` block
         ``B``: one program with the refinement semantics (the storage-eps
         floored inner target, the inner iteration cap, ``max_refine``
-        steps, DIVERGED_BREAKDOWN on stagnation)."""
+        steps, DIVERGED_BREAKDOWN on stagnation). Returns the result, the
+        outer operator, the wall and the guard's checks and replacements;
+        a guarded program's detection raises ``SilentCorruptionError``,
+        and its demotion returns None for the host loop to rerun."""
         from .megasolve import (build_megasolve_program,
                                 build_megasolve_program_many)
         ksp, op = self.inner, self._inner_op
@@ -260,19 +276,24 @@ class RefinedKSP:
         comm = op.comm
         _faults.check("ksp.solve")
         ksp._check_guard()
-        ksp.set_up()
+        with _telemetry.span("ksp.setup"):
+            ksp.set_up()
         self._arm_inner_guards()
-        ksp._check_fused_guard()     # the fused guarded modes raise
+        guard = ksp._megasolve_guard(many=many)
         pc = ksp.get_pc()
         out_op = None if outer is op else outer
+        with _telemetry.span("ksp.setup"):
+            if many:
+                prog = build_megasolve_program_many(
+                    comm, ksp.get_type(), pc, op, out_op, nrhs=B.shape[1],
+                    sstep_s=ksp.sstep_s, **guard)
+            else:
+                prog = build_megasolve_program(comm, ksp.get_type(), pc, op,
+                                               out_op, sstep_s=ksp.sstep_s,
+                                               **guard)
         if many:
-            prog = build_megasolve_program_many(
-                comm, ksp.get_type(), pc, op, out_op, nrhs=B.shape[1],
-                sstep_s=ksp.sstep_s)
             b = comm.put_cols(B, torch.float64)
         else:
-            prog = build_megasolve_program(comm, ksp.get_type(), pc, op,
-                                           out_op, sstep_s=ksp.sstep_s)
             b = Vec.from_global(comm, B, dtype=torch.float64,
                                 layout=outer.layout).data.view(
                                     comm.local_shards, -1)
@@ -283,16 +304,47 @@ class RefinedKSP:
         if fault is not None:
             raise fault.error()
         t0 = time.perf_counter()
-        res = prog(b, None, self.rtol, self.atol,
-                   self._effective_inner_rtol(), ksp.divtol, _INNER_MAX_IT,
-                   self.max_refine, ConvergedReason.DIVERGED_BREAKDOWN)
-        return res, outer, time.perf_counter() - t0
+        with _telemetry.span("ksp.dispatch"):
+            _telemetry.record_program_dispatch(
+                "megasolve_many" if many else "megasolve")
+            res = prog(b, None, self.rtol, self.atol,
+                       self._effective_inner_rtol(), ksp.divtol,
+                       _INNER_MAX_IT, self.max_refine,
+                       ConvergedReason.DIVERGED_BREAKDOWN)
+        with _telemetry.span("ksp.fetch"):
+            wall = time.perf_counter() - t0
+        record_sync("KSP solve_many result fetch" if many
+                    else "KSP result fetch/solve", res.host_reads)
+        checks = rrc = 0
+        if guard:
+            dets = res.det if many else [res.det]
+            rrc = int(sum(res.rrc)) if many else res.rrc
+            iters = sum(res.iters) if many else res.iters
+            steps = res.steps * (len(dets) if many else 1)
+            checks = ksp._fused_checks(guard, steps, iters)
+            bad = [j for j, d in enumerate(dets)
+                   if d not in (SDC_NONE, SDC_DEMOTE)]
+            record_sdc(checks, len(bad), rrc)
+            if bad:
+                raise SilentCorruptionError(
+                    "KSPSolve", SDC_DETECTOR_NAMES.get(dets[bad[0]],
+                                                       f"det{dets[bad[0]]}"),
+                    iters, detail=f"detected inside the fused refinement "
+                                  f"loop at outer step {res.steps} ({rrc} "
+                                  "replacement(s) passed)")
+            if SDC_DEMOTE in dets:
+                return None
+        return res, outer, wall, checks, rrc
 
     def _solve_fused(self, b):
         """One fused program from the refinement loop to the verified answer
         (JAX ``refine.py:257``); the results as :meth:`solve` reports
-        them."""
-        res, outer, wall = self._run_fused(b, many=False)
+        them. A demotion of the s-step inner reruns the host loop (JAX
+        ``refine.py:322-328``)."""
+        run = self._run_fused(b, many=False)
+        if run is None:
+            return self._solve_host(b)
+        res, outer, wall, checks, rrc = run
         x = Vec(outer.comm, outer.shape[0], data=res.x.reshape(-1),
                 layout=outer.layout).to_numpy()
         reason = res.reason
@@ -302,8 +354,13 @@ class RefinedKSP:
             reason = ConvergedReason.DIVERGED_NANORINF
         self.refine_steps = res.steps
         self.result = SolveResult(res.iters, float(res.rnorm), int(reason),
-                                  wall, res.host_reads)
+                                  wall, res.host_reads, abft_checks=checks,
+                                  residual_replacements=rrc)
         _megasolve_stats(self.result, res)
+        ksp = self.inner
+        record_event(f"RefinedKSP({ksp.get_type()}+{ksp.get_pc().get_type()}"
+                     f"+mega,{self.inner_precision})", self._inner_op.shape[0],
+                     res.iters, wall, int(reason))
         return x, self.result
 
     def _solve_many_fused(self, B):
@@ -311,7 +368,10 @@ class RefinedKSP:
         freezing at both levels; the result reports the most inner
         iterations of a column, the worst column's residual and one
         reason for the block."""
-        res, outer, wall = self._run_fused(B, many=True)
+        run = self._run_fused(B, many=True)
+        if run is None:
+            return self._solve_many_host(B)
+        res, outer, wall, checks, rrc = run
         X = outer.comm.fetch_cols(res.x, outer.shape[0])
         rn = np.asarray(res.rnorm, dtype=float)
         reasons = np.asarray(res.reason)
@@ -327,8 +387,14 @@ class RefinedKSP:
         self.refine_steps = res.steps
         self.result = SolveResult(int(max(res.iters, default=0)),
                                   float(rn.max(initial=0.0)), int(reason),
-                                  wall, res.host_reads)
+                                  wall, res.host_reads, abft_checks=checks,
+                                  residual_replacements=rrc)
         _megasolve_stats(self.result, res)
+        ksp = self.inner
+        record_event(f"RefinedKSP({ksp.get_type()}+{ksp.get_pc().get_type()}"
+                     f"+mega,{self.inner_precision},k={B.shape[1]})",
+                     self._inner_op.shape[0], self.result.iterations, wall,
+                     int(reason))
         return X, self.result
 
     def _start(self):
@@ -342,12 +408,28 @@ class RefinedKSP:
     def solve(self, b: np.ndarray) -> tuple[np.ndarray, SolveResult]:
         """Solve ``A x = b`` (fp64 in and out); returns ``(x, result)`` with
         the inner iterations summed over the outer steps
-        (:attr:`refine_steps`) and the final fp64 residual norm."""
+        (:attr:`refine_steps`) and the final fp64 residual norm. The call
+        is one ``refine.outer`` span."""
         self._check_mode()
-        A = self._A_host
         b = np.asarray(b, dtype=np.float64)
-        if self._megasolve_available():
-            return self._solve_fused(b)
+        with _telemetry.span("refine.outer",
+                             inner_precision=self.inner_precision,
+                             ksp_type=self.inner.get_type(),
+                             n=int(self._A_host.shape[0]),
+                             rtol=self.rtol) as osp:
+            if self._megasolve_available():
+                x, res = self._solve_fused(b)
+            else:
+                x, res = self._solve_host(b)
+            osp.set_attrs(refine_steps=self.refine_steps,
+                          inner_iterations=res.iterations,
+                          reason=res.reason)
+            return x, res
+
+    def _solve_host(self, b):
+        """The Wilkinson loop on the host (JAX ``refine.py:515``), one
+        ``refine.step`` span an outer step."""
+        A = self._A_host
         bnorm = np.linalg.norm(b)
         tol = max(self.rtol * bnorm, self.atol)
         x = np.zeros_like(b)
@@ -366,12 +448,15 @@ class RefinedKSP:
             reason = self._converged(rnorm)
         else:
             for it in range(1, self.max_refine + 1):
-                rv.set_global(r)            # rounded to the inner dtype
-                res = self.inner.solve(rv, dx)
-                total_inner += res.iterations
-                x = x + dx.to_numpy().astype(np.float64)
-                r = b - A @ x
-                r_new = np.linalg.norm(r)
+                with _telemetry.span("refine.step", step=it) as ssp:
+                    rv.set_global(r)        # rounded to the inner dtype
+                    res = self.inner.solve(rv, dx)
+                    total_inner += res.iterations
+                    x = x + dx.to_numpy().astype(np.float64)
+                    r = b - A @ x
+                    r_new = np.linalg.norm(r)
+                    ssp.set_attrs(inner_iterations=res.iterations,
+                                  rnorm=float(r_new))
                 # checked AFTER the correction: a solve that lands on the
                 # tolerance at the max_refine-th step converges
                 if r_new <= tol:
@@ -402,15 +487,29 @@ class RefinedKSP:
         that already meet the tolerance contribute a zero residual and
         freeze at once. Returns ``(X, result)`` with the per-step maxima of
         the inner iterations summed and the worst column's final
-        residual."""
+        residual. The call is one ``refine.outer`` span."""
         self._check_mode()
-        A = self._A_host
         B = np.asarray(B, dtype=np.float64)
         if B.ndim != 2:
             raise ValueError(f"solve_many needs an (n, nrhs) block, got "
                              f"{B.shape}")
-        if self._megasolve_available(many=True):
-            return self._solve_many_fused(B)
+        with _telemetry.span("refine.outer",
+                             inner_precision=self.inner_precision,
+                             ksp_type=self.inner.get_type(),
+                             n=int(self._A_host.shape[0]),
+                             rtol=self.rtol) as osp:
+            if self._megasolve_available(many=True):
+                X, res = self._solve_many_fused(B)
+            else:
+                X, res = self._solve_many_host(B)
+            osp.set_attrs(refine_steps=self.refine_steps,
+                          inner_iterations=res.iterations,
+                          reason=res.reason, nrhs=int(X.shape[1]))
+            return X, res
+
+    def _solve_many_host(self, B):
+        """The block Wilkinson loop on the host (JAX ``refine.py:594``)."""
+        A = self._A_host
         bnorm = np.linalg.norm(B, axis=0)
         tol = np.maximum(self.rtol * bnorm, self.atol)
         X = np.zeros_like(B)

@@ -10,7 +10,11 @@ argv parsing and typed getters, for the flags ``KSP.set_from_options`` reads
 ``-pc_factor_mat_solver_type``, ``-pc_bjacobi_blocks``,
 ``-pc_setup_device``, ...: ``KSP.set_from_options`` lists them all) and the
 flags ``RefinedKSP.set_from_options`` reads (``-ksp_inner_precision``,
-``-ksp_refine_max``, ``-ksp_refine_inner_rtol``, ``-ksp_megasolve``). Each
+``-ksp_refine_max``, ``-ksp_refine_inner_rtol``, ``-ksp_megasolve``), and
+the observability flags: ``-log_view`` (the at-exit solve report of
+``utils/profiling.py``), ``-telemetry``, ``-telemetry_flight_len`` and
+``-telemetry_dump`` (``telemetry/__init__.py``), which :func:`init` applies
+as the JAX package's does (``utils/options.py:382-385``). Each
 process has one database, built at its first use from the ``TPU_SOLVE_<KEY>``
 environment variables and seeded with :func:`init`.
 
@@ -147,5 +151,8 @@ def global_options() -> Options:
 
 
 def init(argv=None):
-    """Seed the options database from argv (``petsc4py.init`` equivalent)."""
+    """Seed the options database from argv (``petsc4py.init`` equivalent)
+    and apply the ``-telemetry*`` flags."""
     global_options().parse_argv(argv)
+    from ..telemetry import configure_from_options
+    configure_from_options()

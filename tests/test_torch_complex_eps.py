@@ -292,15 +292,35 @@ def test_megasolve_complex_batched():
 
 def test_megasolve_complex_no_stencil_fastpath():
     """The stencil fast path stays off for complex operators (JAX
-    ``megasolve.py:127``); a guarded mode raises naming item 6."""
+    ``megasolve.py:127``); a guarded mode, which raised before the fused
+    guarded modes were ported, runs: ABFT without the checksums raises, and
+    with them the complex fused guarded solve equals the unfused guarded
+    one (iterations, checks) and adds no error."""
     comm = pt.DeviceComm(2, device="cpu")
     M = pt.Mat.from_scipy(comm, hermitian_spd(40), dtype=C128)
     pc = pt.PC()
     pc.set_type("jacobi")
     pc.set_up(M)
     assert not megasolve.megasolve_stencil_supported("cg", pc, M)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="checksum"):
         megasolve.build_megasolve_program(comm, "cg", pc, M, abft=True)
+    b = np.random.default_rng(8).standard_normal(40) * (1 + 1j)
+    out = []
+    for fused in (False, True):
+        ksp = pt.KSP().create(comm)
+        ksp.set_operators(M)
+        ksp.set_type("cg")
+        ksp.get_pc().set_type("jacobi")
+        ksp.set_tolerances(rtol=1e-10)
+        ksp.abft = True
+        ksp.megasolve = fused
+        x, bv = M.get_vecs()
+        bv.set_global(b)
+        res = ksp.solve(bv, x)
+        out.append((res.iterations, res.abft_checks, x.to_numpy()))
+    assert out[0][:2] == out[1][:2]
+    assert np.linalg.norm(out[0][2] - out[1][2]) <= 1e-9 * np.linalg.norm(
+        out[0][2])
 
 
 def test_refined_ksp_complex_matches_jax():

@@ -242,12 +242,16 @@ def test_refined_megasolve_many_matches_jax(prec):
 
 def test_refined_sstep_inner_raises_naming_item_6():
     """An sstep inner solve arms -ksp_sstep_auto_replacement 25 (the guard,
-    as in JAX ``refine.py:177-201``): the fused program's guarded modes are
-    not ported, so the fused refinement raises (the unfused one runs the
-    guarded loop)."""
-    rk = _refined(pt, 1, "f32", "jacobi", "sstep")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        rk.solve(B)
+    as in JAX ``refine.py:177-201``): the fused refinement, which raised
+    before the guarded modes were ported, runs the guarded program as the
+    JAX package does: the reason and the outer steps equal, the inner
+    iterations within 10% (fp32 sums), the fp64 relative residual at most
+    ``1.05 rtol``."""
+    j = _refined_run(tps, 1, "f32", "jacobi", "sstep")
+    p = _refined_run(pt, 1, "f32", "jacobi", "sstep")
+    assert p[1] == j[1] == CR.CONVERGED_RTOL and p[2] == j[2]
+    assert abs(p[0] - j[0]) <= 0.1 * j[0]
+    assert np.linalg.norm(B - A @ p[3]) / np.linalg.norm(B) <= 1.05e-10
 
 
 @pytest.mark.parametrize("chunk", [1, 7])
@@ -350,18 +354,29 @@ def test_forced_fastpath_on_flat_operator_raises():
     ["-ksp_abft"], ["-ksp_residual_replacement", "10"],
     ["-ksp_type", "pipecg", "-ksp_pipeline_auto_replacement", "10"]])
 def test_guard_flags_raise_naming_item_6_before_capture(flags):
-    pt.init(["prog", "-ksp_megasolve", *flags])
-    ksp, op = _ksp(pt, 1, "cg", "jacobi", "f64")
-    ksp.set_from_options()
-    assert ksp.megasolve
-    x, bv = op.get_vecs()
-    bv.set_global(B)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ksp.solve(bv, x)
-    assert not megasolve._CACHE
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        megasolve.build_megasolve_program(op.comm, "cg", ksp.get_pc(), op,
-                                          abft=True)
+    """The guard flags with ``-ksp_megasolve``, which raised before the
+    fused guarded modes were ported: the fused guarded program runs (one
+    program in the cache) and matches the JAX package's fp64 solve: the
+    iterations, reason and steps equal, the ABFT checks and replacements
+    equal, ``x`` within 1e-10 of its largest entry."""
+    out = []
+    for pkg in (tps, pt):
+        pkg.global_options().clear()
+        pkg.init(["prog", "-ksp_megasolve", *flags])
+        ksp, op = _ksp(pkg, 1, "cg", "jacobi", "f64")
+        ksp.set_from_options()
+        assert ksp.megasolve and ksp._guard_requested()
+        x, bv = op.get_vecs()
+        bv.set_global(B)
+        res = ksp.solve(bv, x)
+        out.append((res.iterations, int(res.reason), res.megasolve_steps,
+                    res.abft_checks, res.residual_replacements,
+                    x.to_numpy()))
+        pkg.global_options().clear()
+    j, p = out
+    assert p[:5] == j[:5] and p[1] > 0
+    assert np.abs(p[5] - j[5]).max() <= 1e-10 * np.abs(j[5]).max()
+    assert len(megasolve._CACHE) == 1
 
 
 def test_program_cache_follows_the_pc_operator():

@@ -194,6 +194,11 @@ FUSED_CASES = [
          prec="f32", pc="mg", megasolve=True)]
 AUTO_CASE = dict(name="reduction_auto", kind="cg", grid=[16, 16, 16],
                  pc="jacobi", reduction_auto=True)
+# the fused program's guarded mode under a trace-time fault (uncaptured on
+# gloo): the detection, the rolled-back iterate and the recovery
+GUARD_CASES = [dict(name="fused_sdc_spmv", kind="sdc", grid=[16, 16, 16],
+                    spec="spmv.result=bitflip:at=2:times=1", rr=8,
+                    megasolve=True)]
 
 
 def _env():
@@ -220,8 +225,8 @@ def worker_results(tmp_path_factory):
     """One launch of 2 processes x 2 local shards for every case."""
     tmp = tmp_path_factory.mktemp("procs")
     cases = [dict(c, local_shards=2) for c in _io_dir(
-        SOLVE_CASES + [COMM_CASE] + STACK_CASES + FUSED_CASES + [AUTO_CASE],
-        tmp / "io")]
+        SOLVE_CASES + [COMM_CASE] + STACK_CASES + FUSED_CASES + GUARD_CASES
+        + [AUTO_CASE], tmp / "io")]
     (tmp / "cases.json").write_text(json.dumps(cases))
     # -ksp_reduction_auto's probe cache goes to the test's directory
     proc = _runner("-n", "2", "--procs", "--device", "cpu", str(PARITY),
@@ -238,8 +243,8 @@ def virtual(tmp_path_factory):
     the workers' thread settings (LAPACK's inverses and the CPU's products
     may round differently on another thread count)."""
     tmp = tmp_path_factory.mktemp("virtual")
-    cases = _io_dir(SOLVE_CASES + [COMM_CASE] + STACK_CASES + FUSED_CASES,
-                    tmp / "io")
+    cases = _io_dir(SOLVE_CASES + [COMM_CASE] + STACK_CASES + FUSED_CASES
+                    + GUARD_CASES, tmp / "io")
     (tmp / "cases.json").write_text(json.dumps(cases))
     proc = subprocess.run(
         [sys.executable, str(PARITY), str(tmp / "cases.json"),
@@ -362,6 +367,21 @@ def test_fused_case_matches_virtual_mesh(worker_results, virtual, case):
         np.testing.assert_array_equal(got[key], want[key])
     assert not bool(got["graph"]) and all(r > 0 for r in _reasons(got))
     np.testing.assert_array_equal(got["x"], want["x"])
+
+
+@pytest.mark.parametrize("case", GUARD_CASES, ids=lambda c: c["name"])
+def test_fused_guarded_case_matches_virtual_mesh(worker_results, virtual,
+                                                 case):
+    """The fused guarded program on 2 gloo processes (uncaptured) against
+    the virtual mesh: the detector, its iteration, the rolled-back iterate,
+    the recovery's events and iterations and its iterate bit for bit."""
+    got, want = worker_results[case["name"]], virtual(case)
+    assert str(got["detector"]) == str(want["detector"]) == "abft"
+    for key in ("det_it", "its", "events", "attempts"):
+        np.testing.assert_array_equal(got[key], want[key])
+    for key in ("x", "x_rollback"):
+        np.testing.assert_array_equal(got[key], want[key])
+    assert not bool(got["graph"]) and not bool(want["graph"])
 
 
 @pytest.mark.parametrize("case", FUSED_CASES, ids=lambda c: c["name"])
