@@ -158,7 +158,22 @@ before each and read just after:
   rr 50 run, (b)'s 128^3 cell, (c)'s scale cases and batched cases but
   one, and (d)'s 512^3 timing, runs (e) at 64^3, and takes (f) from the
   process phases' launches.
+* the serving layer (``--serving``; no kernel of its own: served blocks
+  launch rows 9 and 10) at 128^3: (a) cfg9's shape
+  (``benchmarks/run_all.py:912-1030``), f32 CG + Jacobi through a
+  ``SolveServer``, 64 seeded Poisson arrivals at 50x the sequential rate,
+  ``max_k`` 8, one injected ``ksp.program`` crash; every answer's fp64 true
+  relres <= 1.05 rtol from the host workers, the ``stencil7_dot_many``
+  launches against the blocks' iterations, solves/s against sequential,
+  latency and queue-wait percentiles, batch widths; (b) the same session
+  fused (``megasolve``, the stencil fast path): the graphs captured on the
+  dispatcher thread, the served block bit-equal to the uncaptured run; (c)
+  cfg17's shape (``:2105-2221``) at fp64: 24 requests with their own rtols,
+  the persistent program (Q = 8) against per-batch fused dispatch, its
+  dispatches a request < 1, each answer within its own rtol.
 
+``python3 chip_smoke.py --serving`` builds the kernels, checks rows 9 and 10
+and runs only the serving phases (a)-(c).
 ``python3 chip_smoke.py --resilience`` builds the kernels, checks rows 1,
 2, 9 and 10, and runs only the resilience phases (a)-(f).
 ``python3 chip_smoke.py --megasolve`` builds the kernels and runs only the
@@ -5620,8 +5635,9 @@ def megasolve_procs_cases(nx=128):
     """The parity cases of the fused program on a process communicator at
     nx^3 f32: CG + Jacobi on the fast path, pipecg, sstep s = 4 and an f32
     refinement with PC mg; and the ``-ksp_reduction_auto`` case, whose
-    choice's solve is reported (where pipecg wins, f32 pipecg stops at
-    max_it here, as in the JAX package)."""
+    choice's solve is reported (where pipecg or sstep s = 8 wins, which
+    the card's load on the measured latencies decides, the f32 solve stops
+    at max_it here, as in the JAX package)."""
     base = dict(kind="cg", grid=[nx] * 3, pc="jacobi", dtype="f32",
                 rtol=1e-6, megasolve=True, keep_x=True)
     cases = [dict(base, name="fused_cg", fastpath=True),
@@ -5669,8 +5685,20 @@ def megasolve_procs_check(label, got, ref, cases, auto, captured):
         "ranking " + ", ".join(f"{r['ksp_type']}{r['s'] or ''} "
                                f"{r['model_cost_us']:.1f} us"
                                for r in row["ranking"]))
-    check(row["reason"] > 0 or row["choice"] == "pipecg",
-          f"{label} reduction_auto solve: {row}")
+    # the choice follows from the agreed latencies; the plan it names may be
+    # one that unguarded f32 does not take to 1e-6 on this problem (pipecg,
+    # sstep s = 8, as in the JAX package), which then stops at max_it
+    from mpi_petsc4py_example_tpu_torch.solvers import autoselect
+    best = autoselect.choose(row["ranking"], 0.25)
+    check(best["ksp_type"] == row["choice"]
+          and int(best.get("s", 0) or 0) == row["s"],
+          f"{label} reduction_auto choice {best} against the ranking: {row}")
+    if (row["choice"], row["s"]) in (("pipecg", 0), ("sstep", 8)):
+        check(row["reason"] > 0 or (row["reason"] == -3
+                                    and row["its"] == auto["max_it"]),
+              f"{label} reduction_auto solve: {row}")
+    else:
+        check(row["reason"] > 0, f"{label} reduction_auto solve: {row}")
     rows["autoselect"] = row
     return rows
 
@@ -7282,6 +7310,443 @@ def phase_resilience(full=False):
     return out
 
 
+# ---- the serving layer (ROADMAP Queue A item 7, first half) ----------------
+
+SERVING_NX = 128      # the repo's 128^3 width: 2,097,152 unknowns
+SERVING_RTOL = 1e-6   # each answer's fp64 true relres is held to this
+SERVING_REQUESTS = 64
+SERVING_MAX_K = 8
+PERSISTENT_REQUESTS = 24
+PERSISTENT_Q = 8
+
+
+def oracle_stencil_relres(nx, b_path, x_path, start, stop):
+    """fp64 true relative residuals ``||b - A x|| / ||b||`` of the ``nx^3``
+    7-point Dirichlet stencil on the host for requests ``start:stop``, one
+    a row of the ``.npy`` files at ``b_path``/``x_path`` (read through
+    ``mmap``): ``(list, seconds)``."""
+    t0 = time.perf_counter()
+    brows = np.load(b_path, mmap_mode="r")
+    xrows = np.load(x_path, mmap_mode="r")
+    out = []
+    for j in range(start, stop):
+        U = np.asarray(xrows[j], dtype=np.float64).reshape(nx, nx, nx)
+        Y = 6.0 * U
+        for ax in range(3):
+            lo = [slice(None)] * 3
+            hi = [slice(None)] * 3
+            lo[ax], hi[ax] = slice(1, None), slice(None, -1)
+            Y[tuple(lo)] -= U[tuple(hi)]
+            Y[tuple(hi)] -= U[tuple(lo)]
+        bb = np.asarray(brows[j], dtype=np.float64)
+        out.append(float(np.linalg.norm(bb - Y.reshape(-1))
+                         / np.linalg.norm(bb)))
+    return out, time.perf_counter() - t0
+
+
+def oracle_ready(i):
+    """Nothing: submitted once a worker, it starts the reference workers
+    early (``i`` keeps the calls apart)."""
+    return i, os.getpid()
+
+
+def served_relres(nx, brows, xrows, tag):
+    """:func:`oracle_stencil_relres` of every request, split over the host
+    reference workers; the rows travel through two files under
+    ``build/serving/`` (gitignored, deleted after), not through the
+    workers' pipes."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "serving")
+    os.makedirs(d, exist_ok=True)
+    paths = [os.path.join(d, f"{tag}_{name}.npy") for name in ("b", "x")]
+    try:
+        np.save(paths[0], np.ascontiguousarray(brows))
+        np.save(paths[1], np.ascontiguousarray(xrows))
+        bounds = np.linspace(0, len(brows), ORACLE_WORKERS + 1).astype(int)
+        futs = [host_oracle(oracle_stencil_relres, nx, *paths, int(a), int(b))
+                for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+        return [r for f in futs for r in f.result()[0]]
+    finally:
+        for p in paths:
+            if os.path.exists(p):
+                os.remove(p)
+
+
+def stencil_rows(comm, op, count, seed, dtype):
+    """``count`` right-hand sides ``b = A x`` of the stencil (``x`` seeded on
+    the host, the product on the card), one a row."""
+    import mpi_petsc4py_example_tpu_torch as pt
+    rng = np.random.default_rng(seed)
+    n = op.shape[0]
+    npdt = np.float32 if dtype.itemsize == 4 else np.float64
+    rows = np.empty((count, n), npdt)
+    for j in range(count):
+        rows[j] = op.mult(pt.Vec.from_global(
+            comm, rng.random(n, dtype=npdt), dtype=dtype)).to_numpy()
+    return rows
+
+
+def percentile_ms(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q / 100 * (len(v) - 1))))] * 1e3
+
+
+def phase_serving_cfg9(card, nx=SERVING_NX, requests=SERVING_REQUESTS,
+                       max_k=SERVING_MAX_K):
+    """(a) cfg9's shape (``benchmarks/run_all.py:912-1030``) on the 128^3
+    stencil: f32 CG + Jacobi at rtol 0.5e-6 (each answer held to 1e-6),
+    ``max_k`` 8 with pow2 padding, ``requests`` seeded Poisson arrivals at
+    50x the measured sequential rate, one injected
+    ``ksp.program=unavailable:at=3:iter=8``. Every future resolves and
+    converges with an fp64 true relres <= 1.05 rtol (host workers), at
+    least one request took a second attempt, and ``stencil7_dot_many``
+    launched the sum over blocks of (max iterations + 1) plus the faulted
+    attempt's iter + 1, counters zeroed just before the first submission."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.serving import SolveServer
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    t_rows = time.perf_counter()
+    rows = stencil_rows(comm, op, requests, 9, torch.float32)
+    t_rows = time.perf_counter() - t_rows
+    rtol_inner = 0.5 * SERVING_RTOL
+    # the sequential baseline: one KSP.solve a request (the first is warm-up)
+    ksp = cg_jacobi(comm, op, rtol=rtol_inner)
+    x, bv = op.get_vecs()
+    seq = min(8, requests)
+    for j in range(seq + 1):
+        bv = pt.Vec.from_global(comm, rows[j % seq], dtype=torch.float32)
+        if j == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ksp.solve(bv, x)
+        x.to_numpy()
+    seq_rate = seq / (time.perf_counter() - t0)
+    del ksp
+    srv = SolveServer(comm, window=0.003, max_k=max_k, pad_pow2=True,
+                      retry_policy=pt.RetryPolicy(base_delay=0.01,
+                                                  max_delay=0.1))
+    blocks = []
+    try:
+        widths = [1 << p for p in range(max_k.bit_length())
+                  if (1 << p) <= max_k]
+        srv.register_operator("poisson", op, pc_type="jacobi",
+                              rtol=rtol_inner, max_it=20000,
+                              warm_widths=widths)
+        srv._dispatch_hook = lambda reqs: blocks.append(
+            [id(r.future) for r in reqs])
+        rng = np.random.default_rng(9)
+        lam = max(50.0 * seq_rate, 100.0)
+        gaps = rng.exponential(1.0 / lam, requests)
+        t_sub, t_done, futs = {}, {}, []
+        torch.cuda.synchronize()
+        reset_launches()
+        with pt.inject_faults("ksp.program=unavailable:at=3:iter=8"):
+            t_start = time.monotonic()
+            nxt = t_start
+            for j in range(requests):
+                nxt += gaps[j]
+                delay = nxt - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                t_sub[j] = time.monotonic()
+                f = srv.submit("poisson", rows[j])
+                f.add_done_callback(
+                    lambda _f, i=j: t_done.__setitem__(i, time.monotonic()))
+                futs.append(f)
+            res = [f.result(600) for f in futs]
+            t_end = time.monotonic()
+        check(srv.drain(600), "serving (a): the server did not drain")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        stats = srv.stats()
+        on_card = all(s.operator.comm.device.type == "cuda"
+                      for s in srv._sessions.values())
+    finally:
+        srv.shutdown()
+    check(on_card, "serving (a): a session is not on the card")
+    check(all(r.converged for r in res),
+          f"serving (a): reasons {[r.reason for r in res]}")
+    t_rel = time.perf_counter()
+    rel = served_relres(nx, rows, np.stack([r.x for r in res]), "cfg9")
+    t_rel = time.perf_counter() - t_rel
+    check(max(rel) <= 1.05 * SERVING_RTOL,
+          f"serving (a): worst fp64 true relres {max(rel):.3e}")
+    retried = [j for j, r in enumerate(res) if r.attempts > 1]
+    check(retried, "serving (a): no request recovered from the fault")
+    by_future = {id(f): r for f, r in zip(futs, res)}
+    block_its = [max(by_future[i].iterations for i in b) for b in blocks]
+    fault_its = 8 + 1
+    want = sum(its + 1 for its in block_its) + fault_its
+    got = launches.get("stencil7_dot_many", 0)
+    check(got == want, f"serving (a): stencil7_dot_many launched {got}, "
+                       f"expected {want} (blocks {block_its} + the faulted "
+                       f"attempt's {fault_its})")
+    check(not launches.get("stencil7_dot"),
+          "serving (a): a served block took the single-RHS route")
+    wall = t_end - t_start
+    lat = [t_done[j] - t_sub[j] for j in range(requests)]
+    out = {"card": card, "requests": requests, "wall_s": wall,
+           "solves_per_s": requests / wall, "sequential_solves_per_s": seq_rate,
+           "speedup": requests / wall / seq_rate,
+           "p50_latency_ms": percentile_ms(lat, 50),
+           "p99_latency_ms": percentile_ms(lat, 99),
+           "mean_width": stats["mean_width"],
+           "max_width": max(stats["width_hist"]),
+           "width_hist": {str(k): v for k, v in stats["width_hist"].items()},
+           "queue_wait_p50_ms": stats["queue_wait_p50_s"] * 1e3,
+           "queue_wait_p99_ms": stats["queue_wait_p99_s"] * 1e3,
+           "queue_wait_max_ms": stats["queue_wait_max_s"] * 1e3,
+           "blocks": len(blocks), "block_max_iterations": block_its,
+           "retried_requests": len(retried),
+           "events": [e.kind for e in res[retried[0]].recovery_events],
+           "worst_relres": max(rel), "launches": launches,
+           "rhs_s": t_rows, "relres_s": t_rel}
+    log(f"serving (a) cfg9 shape, {nx}^3 f32 CG+jacobi, {requests} requests "
+        f"at {lam:.0f}/s ({card}): {out['solves_per_s']:.1f} solves/s "
+        f"against {seq_rate:.1f} sequential ({out['speedup']:.2f}x), p50 "
+        f"{out['p50_latency_ms']:.1f} ms, p99 {out['p99_latency_ms']:.1f} ms, "
+        f"width mean {out['mean_width']:.2f} max {out['max_width']} "
+        f"{out['width_hist']}, queue wait p50 {out['queue_wait_p50_ms']:.1f} "
+        f"/ p99 {out['queue_wait_p99_ms']:.1f} / max "
+        f"{out['queue_wait_max_ms']:.1f} ms; {len(blocks)} blocks, "
+        f"{len(retried)} requests retried ({out['events']}), worst fp64 "
+        f"relres {max(rel):.3e}; launches {launches} = sum(max its + 1) + "
+        f"{fault_its}; right-hand sides {t_rows:.1f} s, host relres "
+        f"{t_rel:.1f} s")
+    return out, rows
+
+
+def phase_serving_fused(card, rows, nx=SERVING_NX, k=SERVING_MAX_K):
+    """(b) The same session shape with ``megasolve=True`` and
+    ``-ksp_megasolve_stencil_fastpath``: ``k`` requests in one window ride
+    one fused block, whose graphs the dispatcher thread captures; the
+    served block is held bit for bit against the same program run
+    uncaptured on the caller's thread."""
+    import threading
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.serving import SolveServer
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    ms.clear_cache()
+    captures = []
+    capture = ms.MegasolveProgram._capture
+
+    def recording(self, name, fn):
+        captures.append((name, threading.current_thread().name))
+        return capture(self, name, fn)
+
+    ms.MegasolveProgram._capture = recording
+    opts = pt.global_options()
+    srv = SolveServer(comm, window=0.0, max_k=k, autostart=False)
+    try:
+        opts.set("ksp_megasolve_stencil_fastpath", "1")
+        try:
+            sess = srv.register_operator("fused", op, pc_type="jacobi",
+                                         rtol=0.5 * SERVING_RTOL,
+                                         max_it=20000, megasolve=True)
+        finally:
+            opts.clear("ksp_megasolve_stencil_fastpath")
+        futs = [srv.submit("fused", rows[j]) for j in range(k)]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        srv.start()
+        res = [f.result(600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = {kk: v for kk, v in read_launches().items() if v}
+        check(srv.drain(600), "serving (b): the server did not drain")
+        # a second block of the same width, its graphs captured: the window
+        # holds its first request until the other seven are submitted (each
+        # submit copies 8 MB), and the wall runs from the block's dispatch
+        # to its last result
+        srv.window = 0.5
+        t_disp, t_done = [], []
+        srv._dispatch_hook = lambda reqs: t_disp.append(time.perf_counter())
+        wfuts = [srv.submit("fused", rows[k + j]) for j in range(k)]
+        for f in wfuts:
+            f.add_done_callback(lambda _f: t_done.append(time.perf_counter()))
+        warm = [f.result(600) for f in wfuts]
+        wall_warm = max(t_done) - t_disp[0]
+        check(len(t_disp) == 1 and all(r.converged for r in warm)
+              and all(r.batch_width == k for r in warm),
+              f"serving (b): the warm burst took {len(t_disp)} blocks")
+    finally:
+        srv.shutdown()
+        ms.MegasolveProgram._capture = capture
+    prog = sess.ksp._megasolve_program(many_k=k)
+    threads = {t for _, t in captures}
+    check(sess.ksp.megasolve_stencil_fastpath, "serving (b): no fast path")
+    check({"start", "chunk", "outer"} == set(prog.graphs)
+          and len(captures) == 3 and threads == {"SolveServer-dispatch"},
+          f"serving (b): captures {captures}, graphs {sorted(prog.graphs)}")
+    B = np.stack(rows[:k], axis=1)
+    X = np.zeros_like(B)
+    prog.capture = False
+    try:
+        eager = sess.ksp.solve_many(B, X)
+    finally:
+        prog.capture = True
+    served = np.stack([r.x for r in res], axis=1)
+    same = bool(np.array_equal(served, X))
+    check(same and eager.iterations == [r.iterations for r in res],
+          "serving (b): the served block differs from the uncaptured run")
+    check(all(r.converged for r in res), "serving (b): not converged")
+    out = {"card": card, "wall_s": wall, "warm_wall_s": wall_warm,
+           "warm_ms_per_iter": wall_warm / max(r.iterations for r in warm)
+           * 1e3, "iterations": eager.iterations,
+           "steps": eager.megasolve_steps, "replays": eager.replays,
+           "captures": captures, "captured_equals_uncaptured": same,
+           "launches": launches}
+    log(f"serving (b) fused, {nx}^3 f32 k={k} ({card}): one block in "
+        f"{wall * 1e3:.1f} ms (graphs captured there), a second "
+        f"{wall_warm * 1e3:.1f} ms ({out['warm_ms_per_iter']:.4f} ms a "
+        f"lockstep iteration, dispatch to the last result), iterations "
+        f"{eager.iterations}, {eager.megasolve_steps} steps, captured by "
+        f"{sorted(threads)} ({len(captures)} pieces), served == uncaptured "
+        f"{same}; launches {launches}")
+    return out
+
+
+def phase_serving_persistent(card, nx=SERVING_NX, requests=PERSISTENT_REQUESTS,
+                             q=PERSISTENT_Q):
+    """(c) cfg17's shape (``benchmarks/run_all.py:2105-2221``) at 128^3
+    fp64: ``requests`` seeded Poisson arrivals, each with its own rtol near
+    1e-8, Q = 8 slots, the persistent program (fused, stencil fast path)
+    against per-batch fused dispatch. Checks: ``persistent_serve``
+    dispatches a request < 1, every answer's fp64 true relres within its
+    own rtol, the per-batch mode ``requests`` launches."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.serving import SolveServer
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    from mpi_petsc4py_example_tpu_torch.utils.profiling import dispatch_counts
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    rows = stencil_rows(comm, op, requests, 17, torch.float64)
+    rtol0 = 1e-8
+    rtols = [rtol0 * (1.0 + j / (2.0 * requests)) for j in range(requests)]
+    gaps = np.random.default_rng(17).exponential(0.0005, size=requests)
+    opts = pt.global_options()
+    out = {"card": card}
+
+    def run(persistent):
+        ms.clear_cache()
+        srv = SolveServer(comm, window=0.002, max_k=q)
+        try:
+            opts.set("ksp_megasolve_stencil_fastpath", "1")
+            try:
+                srv.register_operator("p", op, pc_type="jacobi", rtol=rtol0,
+                                      max_it=20000,
+                                      megasolve=not persistent,
+                                      persistent=persistent)
+            finally:
+                opts.clear("ksp_megasolve_stencil_fastpath")
+            # warm pre-burst: the slot widths (persistent) or the width-1
+            # block (per-batch) captured before the measured window
+            for w in (q, 3, 1):
+                ws = [srv.submit("p", rows[j % requests],
+                                 rtol=rtols[j % requests]) for j in range(w)]
+                [f.result(600) for f in ws]
+                srv.drain(600)
+            mid = dispatch_counts()
+            torch.cuda.synchronize()
+            reset_launches()
+            t_sub, t_done, futs = {}, {}, []
+            t0 = time.perf_counter()
+            for j in range(requests):
+                time.sleep(gaps[j])
+                t_sub[j] = time.perf_counter()
+                f = srv.submit("p", rows[j], rtol=rtols[j])
+                f.add_done_callback(
+                    lambda _f, i=j: t_done.__setitem__(
+                        i, time.perf_counter()))
+                futs.append(f)
+            served = [f.result(600) for f in futs]
+            check(srv.drain(600), "serving (c): the server did not drain")
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in read_launches().items() if v}
+            after = dispatch_counts()
+            stats = srv.stats()
+        finally:
+            srv.shutdown()
+        disp = {k: int(after.get(k, 0) - mid.get(k, 0)) for k in after
+                if after.get(k, 0) != mid.get(k, 0)}
+        lat = [t_done[j] - t_sub[j] for j in range(requests)]
+        row = {"wall_s": wall, "solves_per_s": requests / wall,
+               "p50_latency_ms": percentile_ms(lat, 50),
+               "p99_latency_ms": percentile_ms(lat, 99),
+               "dispatches": disp,
+               "dispatches_per_request": sum(disp.values()) / requests,
+               "batches": stats["batches"], "launches": launches,
+               "iterations": [r.iterations for r in served]}
+        if persistent:
+            row["persistent"] = dict(stats["persistent"]["p"])
+        check(all(r.converged for r in served),
+              f"serving (c): reasons {[r.reason for r in served]}")
+        return row, np.stack([r.x for r in served])
+
+    for mode in ("per_batch", "persistent"):
+        row, X = run(mode == "persistent")
+        t_rel = time.perf_counter()
+        rel = served_relres(nx, rows, X, mode)
+        row["relres_s"] = time.perf_counter() - t_rel
+        bad = [j for j in range(requests) if rel[j] > 1.05 * rtols[j]]
+        check(not bad, f"serving (c) {mode}: requests {bad} miss their rtol "
+                       f"({[rel[j] for j in bad]})")
+        row["worst_relres_over_rtol"] = max(
+            rel[j] / rtols[j] for j in range(requests))
+        out[mode] = row
+        log(f"serving (c) cfg17 shape {mode}, {nx}^3 fp64, {requests} "
+            f"requests, Q={q} ({card}): {row['dispatches']} dispatches "
+            f"({row['dispatches_per_request']:.3f} a request), "
+            f"{row['solves_per_s']:.1f} solves/s, p50 "
+            f"{row['p50_latency_ms']:.1f} / p99 {row['p99_latency_ms']:.1f} "
+            f"ms, worst relres/rtol {row['worst_relres_over_rtol']:.3f}, "
+            f"{row.get('persistent', '')}; launches {row['launches']}; host "
+            f"relres {row['relres_s']:.1f} s")
+    per, pers = out["per_batch"], out["persistent"]
+    check(per["dispatches"] == {"megasolve_many": requests},
+          f"serving (c): per-batch dispatches {per['dispatches']}")
+    check(set(pers["dispatches"]) == {"persistent_serve"}
+          and pers["dispatches_per_request"] < 1.0,
+          f"serving (c): persistent dispatches {pers['dispatches']}")
+    return out
+
+
+def phase_serving():
+    """The serving layer's phases (a)-(c) at the repo's 128^3 width, each
+    logged with the card's name and power limit; returns their records and
+    the launch counts of rows 9 and 10 on the served paths."""
+    import torch
+    card = card_line()
+    t0 = time.perf_counter()
+    for i in range(ORACLE_WORKERS):
+        host_oracle(oracle_ready, i)     # the workers start beside (a)
+    cfg9, rows = timed(phase_serving_cfg9, card)
+    fused = timed(phase_serving_fused, card, rows)
+    del rows
+    torch.cuda.empty_cache()
+    persistent = timed(phase_serving_persistent, card)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"serving phases: {wall:.1f} s ({card})")
+    launches = {
+        "stencil7_dot_many": (
+            cfg9["launches"]["stencil7_dot_many"],
+            f"128^3 f32 SolveServer, {SERVING_REQUESTS} requests, cfg9 "
+            "shape (the batched fast path)"),
+        "stencil7_apply_many": (
+            persistent["persistent"]["launches"].get("stencil7_apply_many", 0),
+            f"128^3 fp64 SolveServer, persistent program, "
+            f"{PERSISTENT_REQUESTS} requests (the outer true residual)")}
+    return {"cfg9": cfg9, "fused": fused, "persistent": persistent,
+            "wall_s": wall}, launches
+
+
 def main():
     try:
         import torch
@@ -7446,6 +7911,21 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--serving"]:
+        # only the serving layer's phases (a)-(c), behind the checks of the
+        # two kernels they launch (rows 9 and 10)
+        phase_many_kernel_checks()
+        serving, launches = phase_serving()
+        for name, (count, path) in launches.items():
+            check(count > 0, f"{name} was not launched on {path}")
+        print(json.dumps({"serving": serving, "launches_serving": {
+            name: count for name, (count, _) in launches.items()}},
+            default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -7534,6 +8014,10 @@ def main():
     res = phase_resilience(full=True)
     print(json.dumps({"resilience": res}, default=float))
     lap("resilience")
+    # the serving layer (item 7, first half): rows 9 and 10 on served blocks
+    serving, serving_launches = phase_serving()
+    print(json.dumps({"serving": serving}, default=float))
+    lap("serving")
     chaos = res["c_chaos"]
     guarded_launches = {
         "stencil7_dot": (res["a_guarded_512"]["abft"]["stencil7_dot"],
@@ -7625,6 +8109,12 @@ def main():
             kernels[-1]["launches_surface"] = count_s
             kernels[-1]["path_surface"] = path_s
     for entry in kernels:
+        if entry["name"] in serving_launches:
+            count_v, path_v = serving_launches[entry["name"]]
+            check(count_v > 0, f"{entry['name']} was not launched on "
+                               f"{path_v}")
+            entry["launches_serving"] = count_v
+            entry["path_serving"] = path_v
         if entry["name"] in guarded_launches:
             count_g, path_g = guarded_launches[entry["name"]]
             check(count_g > 0, f"{entry['name']} was not launched on "

@@ -19,6 +19,8 @@ its plain PyTorch version. ``init_multihost()`` joins a ``torch.distributed``
 group and returns a ``ProcessComm``, the same mesh with one process per
 rank (``python -m mpi_petsc4py_example_tpu_torch.run -n N --procs``).
 
+``serving`` holds the solve server (``SolveServer``: request coalescing, QoS,
+admission control, resilient dispatch, the persistent request queue).
 ``resilience`` holds fault injection, the silent-corruption guard's ABFT
 checksums, ``resilient_solve``, ``KSPFallbackChain`` and the elastic
 shrink; ``utils.checkpoint`` the mesh-portable checkpoints; ``telemetry``
@@ -48,7 +50,8 @@ from .solvers.refine import RefinedKSP
 from .solvers.st import ST
 from .utils.convergence import (BatchedSolveResult, ConvergedReason,
                                 RecoveryEvent, SolveResult)
-from .utils.errors import DeviceExecutionError, SilentCorruptionError
+from .utils.errors import (DeadlineExceededError, DeviceExecutionError,
+                           ServerOverloadedError, SilentCorruptionError)
 from .utils import checkpoint, petsc_io
 from .utils.options import Options, global_options, init
 
@@ -64,10 +67,12 @@ __all__ = ["DeviceComm", "ProcessComm", "init_multihost",
            "ConvergedReason", "RecoveryEvent", "SolveResult",
            "BatchedSolveResult",
            "DeviceExecutionError", "SilentCorruptionError",
+           "DeadlineExceededError", "ServerOverloadedError",
            "Options", "global_options", "init",
            "resilience", "telemetry", "inject_faults", "HealthMonitor", "RetryPolicy",
            "resilient_solve", "resilient_solve_many", "KSPFallbackChain",
-           "ElasticPolicy"]
+           "ElasticPolicy",
+           "SolveServer", "ServedSolveResult", "ServerClosedError"]
 
 
 def __getattr__(name):
@@ -75,4 +80,9 @@ def __getattr__(name):
     if name in ("RetryPolicy", "resilient_solve", "resilient_solve_many",
                 "KSPFallbackChain", "ElasticPolicy"):
         return getattr(resilience, name)
+    if name in ("SolveServer", "ServedSolveResult", "ServerClosedError"):
+        # the serving layer pulls in KSP and the resilience wrappers: lazy,
+        # as JAX __init__.py:116-121
+        from . import serving as _serving
+        return getattr(_serving, name)
     raise AttributeError(name)

@@ -86,6 +86,15 @@ class RetryPolicy:
     retriable_classes: tuple = ("unavailable", "detected_sdc")
     sleep: object = time.sleep
 
+    @classmethod
+    def serving(cls) -> "RetryPolicy":
+        """The solve server's default policy (JAX ``retry.py:98-104``):
+        clients wait on futures, so the backoff is two orders shorter than
+        the batch default (50 ms base, 1 s cap) and deterministic;
+        ``detected_sdc`` re-enters at once either way.
+        ``-solve_server_retry_delay`` overrides the base delay."""
+        return cls(max_attempts=3, base_delay=0.05, max_delay=1.0)
+
     def delay(self, retry_index: int) -> float:
         """Backoff before retry ``retry_index`` (0-based)."""
         d = min(self.base_delay * self.backoff_factor ** retry_index,

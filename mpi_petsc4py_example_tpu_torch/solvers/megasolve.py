@@ -82,6 +82,18 @@ bakes it into its trace; the cache key carries the set of hit sites, so a
 faulted graph never serves a clean solve, nor a clean one a faulted solve.
 The stencil fast path stays off under the guard (``:114-127``).
 
+**The persistent variant** (JAX ``megasolve.py:87-91``, ``:478-485``,
+``:534-538``): ``build_megasolve_program_many(..., persistent=True)`` is the
+same batched program with ``rtol``, ``atol`` and the inner rtol held as
+``(nrhs,)`` buffers, one tolerance a slot, in a cache of its own
+(``_PERSISTENT_CACHE``), so that requests of different tolerances share one
+launch (``serving/persistent.py``). A padding slot has ``rtol = atol = 0``
+and a zero right-hand side: its norm and target are 0, so it is frozen at
+outer step 0. The tolerances are refilled before each solve, so changing
+them never re-captures. :meth:`MegasolveProgram.launch` runs a solve and
+leaves its outputs on the device, unread, for the server to read in one
+copy.
+
 ``torch.cond`` under capture (CUDA graph conditional nodes) could skip the
 masked steps; it needs the ctypes launches as traceable custom ops, and is
 left to a later PR (``ROADMAP.md``).
@@ -116,6 +128,8 @@ GATE_REFINE_MAX = 4
 MEGASOLVE_CHUNK = 8
 
 _CACHE: dict = {}
+#: the persistent-serving programs: per-slot tolerance buffers
+_PERSISTENT_CACHE: dict = {}
 
 
 def replacement_chunk(interval: int, chunk: int = MEGASOLVE_CHUNK) -> int:
@@ -133,6 +147,7 @@ def replacement_chunk(interval: int, chunk: int = MEGASOLVE_CHUNK) -> int:
 def clear_cache():
     """Drop every cached program (and its CUDA graphs and their memory)."""
     _CACHE.clear()
+    _PERSISTENT_CACHE.clear()
 
 
 def megasolve_supported(ksp_type: str, pc, operator,
@@ -280,10 +295,12 @@ class MegasolveProgram:
     ``(local_shards, lsize)`` tensors of the outer dtype (``(local_shards,
     k, lsize)`` blocks when batched; ``x0`` None from zero), the rest host
     scalars, which travel to static device buffers before each solve, so
-    that changing them never re-captures."""
+    that changing them never re-captures. With ``per_slot`` (the persistent
+    variant) ``rtol``, ``atol`` and ``inner_rtol`` are ``(k,)`` sequences,
+    one a column."""
 
     def __init__(self, comm, A_out, onorm, in_dt, out_dt, shape, many, chunk,
-                 guard=False):
+                 guard=False, per_slot=False):
         self.comm = comm
         self.guard = guard
         self.A_out, self.onorm = A_out, onorm
@@ -297,9 +314,12 @@ class MegasolveProgram:
         otdt = tolerance_dtype(out_dt)
         itdt = tolerance_dtype(in_dt)
         rn_shape = (shape[1],) if many else ()
+        tol_shape = rn_shape if per_slot else ()
         z = lambda dt, sh=(): torch.zeros(sh, dtype=dt, device=dev)
-        # the runtime scalars, refilled before each solve
-        self.scal = dict(rtol=z(otdt), atol=z(otdt), irtol=z(itdt),
+        # the runtime scalars, refilled before each solve (the tolerances
+        # one a column in the persistent variant)
+        self.scal = dict(rtol=z(otdt, tol_shape), atol=z(otdt, tol_shape),
+                         irtol=z(itdt, tol_shape),
                          dtol=z(itdt), maxit=z(torch.int64),
                          rmax=z(torch.int64), stag=z(torch.int32),
                          iatol=z(itdt, rn_shape))
@@ -448,18 +468,25 @@ class MegasolveProgram:
         _set_counters(self.comm, {k: now[k] + d
                                   for k, d in self.captured[name].items()})
 
-    def __call__(self, b, x0, rtol, atol, inner_rtol, dtol, maxit,
-                 refine_max, stag_reason) -> MegasolveResult:
+    def _fill(self, b, x0, rtol, atol, inner_rtol, dtol, maxit, refine_max,
+              stag_reason):
         s, o = self.scal, self.out
         for k, v in (("rtol", rtol), ("atol", atol), ("irtol", inner_rtol),
                      ("dtol", dtol), ("maxit", maxit), ("rmax", refine_max),
                      ("stag", stag_reason)):
-            s[k].fill_(v)
+            if s[k].dim():
+                s[k].copy_(torch.as_tensor(v, dtype=s[k].dtype))
+            else:
+                s[k].fill_(v)
         o["b"].copy_(b)
         if x0 is None:
             o["x"].zero_()
         else:
             o["x"].copy_(x0)
+
+    def _drive(self):
+        """Run the pieces to the end of the outer loop: ``(host reads,
+        replays, chunks)``."""
         self._run("start", self._start)
         ilive, olive, due = self.flags.tolist()
         reads = runs = 1
@@ -476,14 +503,46 @@ class MegasolveProgram:
             self._run("outer", self._outer)
             ilive, olive, due = self.flags.tolist()
             reads, runs = reads + 1, runs + 1
-        conv = o["rn"] <= o["tol"]
-        reason = _reason_outer(conv, o["rn"], s["atol"], o["brk"], o["ibrk"],
-                               s["stag"])
+        return reads, runs, chunks
+
+    def _solve(self, *args):
+        """One solve (the arguments of ``__call__``) to the end of the outer
+        loop, its outputs left on the device: ``head`` (outer steps, live
+        inner steps), the per-column outputs (inner iterations, true
+        residual norms, reasons, and the guard's detections and
+        replacements), and the flag reads, replays and chunks."""
+        self._fill(*args)
+        reads, runs, chunks = self._drive()
+        o, s = self.out, self.scal
+        reason = _reason_outer(o["rn"] <= o["tol"], o["rn"], s["atol"],
+                               o["brk"], o["ibrk"], s["stag"])
         cols = [o["ii"], o["rn"], reason] + (
             [o["det"], o["rrc"]] if self.guard else [])
-        head = torch.stack([o["it"], o["lsum"]]).double()
-        vals = torch.cat([head] + [c.reshape(-1).double()
-                                   for c in cols]).tolist()
+        head = torch.stack([o["it"], o["lsum"]])
+        return head, cols, reads, runs, chunks
+
+    def launch(self, *args) -> dict:
+        """One unguarded solve (the arguments of ``__call__``) whose outputs
+        stay on the device, unread, for the persistent serving launch
+        (``serving/persistent.py``), which reads them in one copy: fresh
+        tensors (the next solve refills the static buffers) ``x``, ``head``
+        and ``cols`` (inner iterations, true residual norms, reasons; one
+        row each), with the flag reads and replays made so far."""
+        if self.guard:
+            raise ValueError("megasolve: launch() runs unguarded programs")
+        head, cols, reads, runs, chunks = self._solve(*args)
+        return dict(x=self.out["x"].clone(), head=head,
+                    cols=torch.stack([c.double() for c in cols]),
+                    host_reads=reads, replays=runs, chunks=chunks)
+
+    def __call__(self, b, x0, rtol, atol, inner_rtol, dtol, maxit,
+                 refine_max, stag_reason) -> MegasolveResult:
+        o = self.out
+        head, cols, reads, runs, chunks = self._solve(
+            b, x0, rtol, atol, inner_rtol, dtol, maxit, refine_max,
+            stag_reason)
+        vals = torch.cat([head.double()] + [c.reshape(-1).double()
+                                            for c in cols]).tolist()
         reads += 1
         steps, lsum = int(vals[0]), int(vals[1])
         k = (len(vals) - 2) // len(cols)
@@ -508,12 +567,15 @@ class MegasolveProgram:
 def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
            abft_pc=False, rr=False, cs=None, csM=None,
            abft_tol=_abft.DEFAULT_ABFT_TOL, rr_n=0, max_repl=3, sstep_s=4,
-           stencil_fastpath=False, chunk=MEGASOLVE_CHUNK):
+           stencil_fastpath=False, chunk=MEGASOLVE_CHUNK, persistent=False):
     """The program for one configuration, built or from the cache; ``chunk``
     other than ``MEGASOLVE_CHUNK`` is for tests that hold the masked steps
     to changing no bit."""
     many = nrhs is not None
     guard_k = bool(abft or rr)
+    if persistent and (guard_k or not many):
+        raise ValueError("megasolve: the persistent variant is a batched "
+                         "program without the silent-corruption guard")
     if abft and cs is None:
         raise ValueError("megasolve: -ksp_abft needs the operator's column "
                          "checksum (cs)")
@@ -576,7 +638,8 @@ def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
            getattr(inner_op, "force_plain", False), sstep_k, stencil_k,
            int(chunk), _tensor_ptrs(inner_op), _tensor_ptrs(out_op),
            () if stencil_k else _pc_state(pc), gkey)
-    prog = _CACHE.get(key)
+    cache = _PERSISTENT_CACHE if persistent else _CACHE
+    prog = cache.get(key)
     if prog is not None:
         return prog
 
@@ -596,7 +659,7 @@ def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
     flat = lambda v: v.reshape(shape)
     to_inner = flat
     prog = MegasolveProgram(comm, A_out, onorm, in_dt, out_dt, shape, many,
-                            chunk, guard=guard_k)
+                            chunk, guard=guard_k, per_slot=persistent)
     s = prog.scal
     kw = dict(rtol=s["irtol"], atol=s["iatol"], maxit=s["maxit"],
               dtol=s["dtol"], prec=prec if prec.mixed else None,
@@ -633,7 +696,7 @@ def _build(comm, ksp_type, pc, inner_op, outer_op, *, nrhs, abft=False,
             plan = _plans.classic_cg_device(A=A, M=M, pdot=pdot,
                                             pnorm=pnorm, **kw)
     prog.plan, prog.to_inner, prog.from_inner = plan, to_inner, flat
-    _CACHE[key] = prog
+    cache[key] = prog
     return prog
 
 
@@ -706,15 +769,19 @@ def build_megasolve_program_many(comm, ksp_type, pc, inner_op, outer_op=None,
                                  cs=None, csM=None,
                                  abft_tol=_abft.DEFAULT_ABFT_TOL, rr_n=0,
                                  max_repl=3, sstep_s=4,
-                                 stencil_fastpath=False) -> MegasolveProgram:
+                                 stencil_fastpath=False,
+                                 persistent=False) -> MegasolveProgram:
     """The batched fused program (JAX ``megasolve.py:478``): ``nrhs``
     refinement recurrences in lockstep over a ``(local_shards, nrhs,
     lsize)`` block, with per-column freezing at both levels (a column whose
     true residual meets its target freezes in the outer recurrence, and its
     inner loop, whose target is floored at that tolerance, at once) and
     per-column stagnation (JAX ``:499-508``); the guard's arguments as
-    :func:`build_megasolve_program`'s, its outputs per column."""
+    :func:`build_megasolve_program`'s, its outputs per column.
+    ``persistent`` gives the persistent-serving variant (module docstring):
+    per-slot tolerances, its own cache, no guard."""
     return _build(comm, ksp_type, pc, inner_op, outer_op, nrhs=int(nrhs),
                   abft=abft, abft_pc=abft_pc, rr=rr, cs=cs, csM=csM,
                   abft_tol=abft_tol, rr_n=rr_n, max_repl=max_repl,
-                  sstep_s=sstep_s, stencil_fastpath=stencil_fastpath)
+                  sstep_s=sstep_s, stencil_fastpath=stencil_fastpath,
+                  persistent=persistent)

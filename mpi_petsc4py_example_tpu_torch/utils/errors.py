@@ -12,7 +12,10 @@ own: a hand-written kernel whose launch the runtime refused
 memory`` (class ``oom``). The injected faults of ``resilience/faults.py``
 carry the JAX package's messages, so one spec gives one class in both
 packages. :class:`SilentCorruptionError` is the ``detected_sdc`` class the
-guarded Krylov loops raise.
+guarded Krylov loops raise. :class:`ServerOverloadedError` and
+:class:`DeadlineExceededError` are the solve server's typed admission
+outcomes (``serving/server.py``): plain ``RuntimeError`` subclasses outside
+the device classes, as in JAX.
 """
 
 from __future__ import annotations
@@ -119,6 +122,50 @@ class SilentCorruptionError(DeviceExecutionError):
         super().__init__(what, original)
         self.detector = detector
         self.iteration = int(iteration)
+
+
+class ServerOverloadedError(RuntimeError):
+    """A solve-server submission rejected by admission control (JAX
+    ``errors.py:125``).
+
+    ``SolveServer.submit`` raises it when the pending queue is at
+    ``-solve_server_max_queue``: a typed, immediate rejection lets callers
+    shed or redirect load instead of queueing without bound. The same type
+    resolves a pending request that the QoS admission tier shed
+    (``shed=True``) to admit a more urgent arrival (``serving/qos.py``).
+    Carries ``pending`` (queue depth at rejection), ``limit`` and
+    ``shed``."""
+
+    def __init__(self, pending: int, limit: int, shed: bool = False):
+        self.pending = int(pending)
+        self.limit = int(limit)
+        self.shed = bool(shed)
+        if shed:
+            msg = (f"solve server overloaded: this request was shed from "
+                   f"the queue ({pending} pending, admission limit "
+                   f"{limit}) to admit a more urgent arrival — resubmit, "
+                   "or raise its QoS class")
+        else:
+            msg = (f"solve server overloaded: {pending} request(s) "
+                   f"pending, admission limit {limit} "
+                   "(-solve_server_max_queue) — shed load, raise the "
+                   "limit, or add capacity")
+        super().__init__(msg)
+
+
+class DeadlineExceededError(RuntimeError):
+    """A solve request's server-side deadline expired before dispatch (JAX
+    ``errors.py:159``): the request resolves with this error instead of
+    occupying a batch column. ``waited`` is the seconds it sat queued,
+    ``deadline`` the budget it had."""
+
+    def __init__(self, waited: float, deadline: float):
+        self.waited = float(waited)
+        self.deadline = float(deadline)
+        super().__init__(
+            f"DEADLINE_EXCEEDED: request waited {waited:.3f}s in the "
+            f"solve-server queue, past its {deadline:.3f}s deadline — "
+            "never dispatched")
 
 
 def _is_device_failure(exc: BaseException) -> bool:

@@ -17,10 +17,12 @@ The port's counterpart of ``mpi_petsc4py_example_tpu/utils/profiling.py``:
 
 ``record_sync`` counts the host reads the port really makes (a solve's count
 equals its result's ``host_syncs``), which differ from the JAX package's
-one fetch per solve. ``log_view`` renders every row of the JAX package's,
-the serving, kernel-traffic and collective-latency rows included; their
-recorders come with the modules that call them (ROADMAP.md Queue A item 7
-and the port's benchmark), so those rows stay empty until then.
+one fetch per solve. ``log_view`` renders every row of the JAX package's:
+the serving rows from ``record_serving``, ``record_admission``,
+``record_qos`` and ``record_requests_per_launch`` (``serving/``); the
+migration, kernel-traffic and collective-latency rows stay empty until the
+fleet (ROADMAP.md Queue A item 7) and the port's benchmark bring their
+recorders.
 """
 
 from __future__ import annotations
@@ -91,6 +93,49 @@ def sdc_counts() -> dict:
             "detections": int(_REG.counter("abft.detections").total()),
             "replacements": int(
                 _REG.counter("abft.replacements").total())}
+
+
+# solve-server coalescing totals (serving/server.py): the process-wide twin
+# of SolveServer.stats(); both compute their wait statistics through the
+# registry's Histogram.summary
+def record_serving(width: int, waits=(), padded: int = 0):
+    """Accumulate one dispatched coalesced batch: ``width`` real requests
+    (padding excluded), their queue waits in seconds, and the zero columns
+    the pow2 padding added."""
+    _REG.counter("serving.requests").inc(int(width))
+    _REG.counter("serving.batches").inc()
+    if padded:
+        _REG.counter("serving.padded_cols").inc(int(padded))
+    _REG.counter("serving.width").inc(label=int(width))
+    h = _REG.histogram("serving.queue_wait_seconds")
+    for w in waits:
+        h.observe(float(w))
+
+
+def record_requests_per_launch(width: int):
+    """Accumulate one ``persistent_serve`` launch: ``width`` real request
+    slots riding it (slot padding excluded), the -log_view
+    requests-per-launch row (serving/persistent.py)."""
+    _REG.histogram("dispatch.requests_per_launch").observe(float(width))
+
+
+def record_admission(rejected: int = 0, expired: int = 0, shed: int = 0):
+    """Accumulate serving admission-control outcomes: submissions rejected
+    by the queue bound, requests expired by their deadline, and requests
+    shed (resolved with the typed overload error) to admit more urgent
+    traffic (serving/qos.py)."""
+    if rejected:
+        _REG.counter("serving.rejected").inc(int(rejected))
+    if expired:
+        _REG.counter("serving.expired").inc(int(expired))
+    if shed:
+        _REG.counter("serving.shed").inc(int(shed))
+
+
+def record_qos(qos_class: str):
+    """Count one admitted request by its QoS class ('default' for
+    unlabeled submissions)."""
+    _REG.counter("qos.requests").inc(label=str(qos_class or "default"))
 
 
 def serving_stats() -> dict:
@@ -381,8 +426,9 @@ def log_view(file=None):
 
 def dispatch_counts() -> dict[str, float]:
     """Compiled-program launches by program kind (ksp / ksp_many /
-    megasolve / megasolve_many) — the ``dispatch.programs`` registry
-    counter the per-root-span ``dispatches`` attribute mirrors."""
+    megasolve / megasolve_many / persistent_serve) — the
+    ``dispatch.programs`` registry counter the per-root-span
+    ``dispatches`` attribute mirrors."""
     return {str(k): v for k, v in
             _REG.counter("dispatch.programs").items().items()}
 
@@ -393,7 +439,7 @@ def program_count() -> int:
     programs of ``solvers/megasolve.py`` are cached (each with its captured
     CUDA graphs), so this is their count."""
     from ..solvers import megasolve
-    return len(megasolve._CACHE)
+    return len(megasolve._CACHE) + len(megasolve._PERSISTENT_CACHE)
 
 
 @contextlib.contextmanager
