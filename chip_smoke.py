@@ -171,9 +171,24 @@ before each and read just after:
   cfg17's shape (``:2105-2221``) at fp64: 24 requests with their own rtols,
   the persistent program (Q = 8) against per-batch fused dispatch, its
   dispatches a request < 1, each answer within its own rtol.
+* the fleet (``--fleet``; ``SolveRouter`` and ``FleetManager``, no kernel of
+  their own: routed stencil sessions launch rows 9 and 10; the replicas
+  share the one card, so rates against the replica count are comparisons):
+  (a1) cfg14's shape (``benchmarks/run_all.py:1614``) on the 128^3 f32
+  stencil, four sessions (one fused), 48 requests through fleets of 1 and 2
+  replicas; (a2) 32 bulk then 8 interactive requests, interactive p99 below
+  bulk's; (a3) a 64^3 f32 AIJ session migrated under load, the held
+  submissions replayed; (a4) a 64^3 f32 AIJ replica on ``DeviceComm(4)``
+  through a shard loss, ``heal()`` and ``heal_check()`` back to 4 shards;
+  (b) cfg18's shape (``:2244``) at 64^3 fp64 AIJ, rtol 1e-10: a 2-host
+  ``FleetManager`` over the loopback and the 127.0.0.1 socket transports,
+  4 sequential requests each (checkpoint refresh ms a request), then the
+  owner killed after a lease step and the failover resumed past iteration
+  0. Every answer's fp64 true relres is held to 1.05 rtol.
 
 ``python3 chip_smoke.py --serving`` builds the kernels, checks rows 9 and 10
-and runs only the serving phases (a)-(c).
+and runs only the serving phases (a)-(c). ``python3 chip_smoke.py --fleet``
+does the same for the fleet's phases (a1)-(a4) and (b).
 ``python3 chip_smoke.py --resilience`` builds the kernels, checks rows 1,
 2, 9 and 10, and runs only the resilience phases (a)-(f).
 ``python3 chip_smoke.py --megasolve`` builds the kernels and runs only the
@@ -7747,6 +7762,423 @@ def phase_serving():
             "wall_s": wall}, launches
 
 
+# ---- the fleet (ROADMAP Queue A item 7.2: fleet, transport, remote) --------
+
+FLEET_NX = 128          # cfg14's shape (run_all.py:1614) at the repo's width
+FLEET_REQUESTS = 48     # through fleets of 1 and 2 replicas (cfg14: 96)
+FLEET_QOS = (32, 8)     # bulk, then interactive (cfg14: 64 + 16)
+FLEET_ELASTIC = 16      # before and after the heal (cfg14: 32 + 32)
+# the assembled sessions (cfg14's: a 16^3 CSR): 64^3 keeps the migration's
+# checkpoint and the elastic rebuilds inside the phases' 60 s (at 128^3 the
+# elastic phase took 24.4 s on an H100 80GB HBM3 at 700 W)
+FLEET_AIJ_NX = 64
+REMOTE_NX = 64          # cfg18's shape (run_all.py:2244) in 3D: fp64 AIJ
+REMOTE_RTOL = 1e-10
+# sequential, a transport (cfg18: 32): each answer waits for the host's
+# checkpoint rewrite, 1.0-1.1 s at 64^3 fp64 on the H100 machine's CPU
+REMOTE_REQUESTS = 4
+
+
+def fleet_policy():
+    import mpi_petsc4py_example_tpu_torch as pt
+    return pt.RetryPolicy(base_delay=0.01, max_delay=0.1)
+
+
+def timed_futures(submit, items):
+    """Submit ``items`` through ``submit`` at once; ``(results, latencies,
+    wall)`` on the host monotonic clock, each latency from its submit to
+    its future's resolution."""
+    t_sub, t_done, futs = {}, {}, []
+    t0 = time.monotonic()
+    for j, item in enumerate(items):
+        t_sub[j] = time.monotonic()
+        f = submit(*item)
+        f.add_done_callback(
+            lambda _f, i=j: t_done.__setitem__(i, time.monotonic()))
+        futs.append(f)
+    res = [f.result(600) for f in futs]
+    wall = time.monotonic() - t0
+    while len(t_done) < len(futs):     # a callback may run after result()
+        time.sleep(0.001)
+    return res, [t_done[j] - t_sub[j] for j in range(len(futs))], wall
+
+
+def phase_fleet_routing(card, rows, nx=FLEET_NX, requests=FLEET_REQUESTS):
+    """(a1) cfg14's routing and scaling on the 128^3 f32 stencil: sessions
+    op0..op3 (op3 fused, ``megasolve=True`` with the stencil fast path, its
+    widths 4 and 8 captured at registration), CG + Jacobi at rtol 0.5e-6,
+    ``window`` 2 ms, ``max_k`` 8, ``requests`` submitted at once through a
+    ``SolveRouter`` of 1 and then 2 replicas (one card: a comparison, no
+    scaling claim). Every answer's fp64 true relres <= 1.05e-6; the launch
+    counters zeroed just before each fleet's traffic and read after. Returns
+    the records and the 2-replica router, left serving for (a2) and (a3)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.serving import SolveRouter
+    from mpi_petsc4py_example_tpu_torch.solvers import megasolve as ms
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float32)
+    names = [f"op{i}" for i in range(4)]
+    opts = pt.global_options()
+    out, keep = {}, None
+    for n in (1, 2):
+        ms.clear_cache()
+        rt = SolveRouter(n, comm, window=0.002, max_k=SERVING_MAX_K,
+                         retry_policy=fleet_policy())
+        try:
+            t_reg = time.perf_counter()
+            for i, name in enumerate(names):
+                fused = i == 3
+                if fused:
+                    opts.set("ksp_megasolve_stencil_fastpath", "1")
+                try:
+                    rt.register_operator(
+                        name, op, pc_type="jacobi", rtol=0.5 * SERVING_RTOL,
+                        max_it=20000, megasolve=fused,
+                        warm_widths=(4, SERVING_MAX_K) if fused else ())
+                finally:
+                    opts.clear("ksp_megasolve_stencil_fastpath")
+            t_reg = time.perf_counter() - t_reg
+            torch.cuda.synchronize()
+            reset_launches()
+            res, lat, wall = timed_futures(
+                rt.submit, [(names[j % 4], rows[j]) for j in range(requests)])
+            check(rt.drain(600), f"fleet (a1) n={n}: did not drain")
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in read_launches().items() if v}
+            stats = rt.stats()
+        except BaseException:
+            rt.shutdown(wait=False)
+            raise
+        if n == 2:
+            keep = rt
+        else:
+            rt.shutdown()
+        check(all(r.converged for r in res),
+              f"fleet (a1) n={n}: reasons {[r.reason for r in res]}")
+        t_rel = time.perf_counter()
+        rel = served_relres(nx, rows[:requests], np.stack([r.x for r in res]),
+                            f"fleet{n}")
+        t_rel = time.perf_counter() - t_rel
+        check(max(rel) <= 1.05 * SERVING_RTOL,
+              f"fleet (a1) n={n}: worst fp64 true relres {max(rel):.3e}")
+        per = stats["per_replica"]
+        row = {"replicas": n, "requests": requests, "wall_s": wall,
+               "solves_per_s": requests / wall,
+               "p50_latency_ms": percentile_ms(lat, 50),
+               "p99_latency_ms": percentile_ms(lat, 99),
+               "placement": stats["placement"],
+               "requests_by_replica": {k: v["requests"]
+                                       for k, v in per.items()},
+               "blocks_by_replica": {k: v["batches"] for k, v in per.items()},
+               "width_hist": {k: {str(w): c for w, c in
+                                  v["width_hist"].items()}
+                              for k, v in per.items()},
+               "worst_relres": max(rel), "launches": launches,
+               "register_s": t_reg, "relres_s": t_rel}
+        out[n] = row
+        log(f"fleet (a1) {nx}^3 f32, {n} replica(s), {requests} requests "
+            f"over op0..op3 (op3 fused) ({card}): {row['solves_per_s']:.1f} "
+            f"solves/s, p50 {row['p50_latency_ms']:.1f} / p99 "
+            f"{row['p99_latency_ms']:.1f} ms, placement {row['placement']}, "
+            f"blocks {row['blocks_by_replica']}, widths {row['width_hist']}, "
+            f"worst fp64 relres {max(rel):.3e}; launches {launches}; "
+            f"registration {t_reg:.1f} s, host relres {t_rel:.1f} s")
+        check(launches.get("stencil7_dot_many", 0) > 0
+              and launches.get("stencil7_apply_many", 0) > 0,
+              f"fleet (a1) n={n}: rows 9/10 not both launched: {launches}")
+    check(len(set(out[2]["placement"].values())) == 2,
+          f"fleet (a1): the 4 sessions on one of 2 replicas "
+          f"{out[2]['placement']}")
+    return out, keep
+
+
+def phase_fleet_qos(card, rt, rows, bulk=FLEET_QOS[0],
+                    interactive=FLEET_QOS[1]):
+    """(a2) cfg14's overload QoS on op0 of the 2-replica fleet: ``bulk``
+    requests, then ``interactive`` ones, submitted at once; interactive p99
+    latency below bulk's (cfg14 folds it into parity)."""
+    items = ([("op0", rows[j % len(rows)], "bulk") for j in range(bulk)]
+             + [("op0", rows[j % len(rows)], "interactive")
+                for j in range(interactive)])
+    res, lat, wall = timed_futures(
+        lambda op, b, q: rt.submit(op, b, qos=q), items)
+    check(all(r.converged for r in res), "fleet (a2): not converged")
+    lb, li = lat[:bulk], lat[bulk:]
+    out = {"bulk": bulk, "interactive": interactive, "wall_s": wall,
+           "bulk_p50_ms": percentile_ms(lb, 50),
+           "bulk_p99_ms": percentile_ms(lb, 99),
+           "interactive_p50_ms": percentile_ms(li, 50),
+           "interactive_p99_ms": percentile_ms(li, 99),
+           "qos_hist": rt.replica(rt.owner("op0")).stats()["qos_hist"]}
+    log(f"fleet (a2) QoS on op0, {bulk} bulk + {interactive} interactive "
+        f"({card}): interactive p50/p99 {out['interactive_p50_ms']:.1f}/"
+        f"{out['interactive_p99_ms']:.1f} ms, bulk "
+        f"{out['bulk_p50_ms']:.1f}/{out['bulk_p99_ms']:.1f} ms, "
+        f"{wall:.2f} s")
+    check(out["interactive_p99_ms"] < out["bulk_p99_ms"],
+          f"fleet (a2): interactive p99 {out['interactive_p99_ms']:.1f} ms "
+          f"not below bulk's {out['bulk_p99_ms']:.1f} ms")
+    return out
+
+
+def phase_fleet_migration(card, rt, nx=FLEET_AIJ_NX, load=8):
+    """(a3) migrate an assembled session under load: the ``nx^3`` f32 AIJ,
+    CG + Jacobi, on the 2-replica fleet; one request before, ``load``
+    queued when the move starts, ``load`` more submitted while it runs
+    (held, replayed on the destination), one after. Checks: every future
+    resolves with an fp64 true relres <= 1.05e-6, some were held, the
+    session moved, and the requests before and after the move (the same
+    right-hand side) take equal iterations."""
+    import threading
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    A = pt.poisson3d_csr(nx)
+    rng = np.random.default_rng(21)
+    B = np.stack([(A @ rng.random(A.shape[0])).astype(np.float32)
+                  for _ in range(load)])
+    t_reg = time.perf_counter()
+    rt.register_operator("mig", A, dtype=torch.float32, pc_type="jacobi",
+                         rtol=0.5 * SERVING_RTOL, max_it=20000)
+    t_reg = time.perf_counter() - t_reg
+    src = rt.owner("mig")
+    dst = next(r for r in rt.replicas() if r != src)
+    before = rt.solve("mig", B[0], timeout=600)
+    queued = [rt.submit("mig", b) for b in B]
+    t0 = time.perf_counter()
+    mig = threading.Thread(target=rt.migrate, args=("mig", dst))
+    mig.start()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and "mig" not in rt._migrating:
+        time.sleep(0.001)
+    held = [rt.submit("mig", b) for b in B]
+    with rt._lock:
+        n_held = len(rt._held.get("mig", []))
+    mig.join(600)
+    move_s = time.perf_counter() - t0
+    check(not mig.is_alive(), "fleet (a3): the migration did not end")
+    res = [f.result(600) for f in queued + held]
+    after = rt.solve("mig", B[0], timeout=600)
+    rel = [true_relres(A, r.x, b) for r, b in zip(res, list(B) * 2)]
+    rel += [true_relres(A, r.x, B[0]) for r in (before, after)]
+    out = {"nx": nx, "src": src, "dst": dst, "owner": rt.owner("mig"),
+           "held": n_held, "move_s": move_s, "register_s": t_reg,
+           "iterations_before": before.iterations,
+           "iterations_after": after.iterations,
+           "load_iterations": [r.iterations for r in res],
+           "worst_relres": max(rel)}
+    log(f"fleet (a3) migration of a {nx}^3 f32 AIJ session {src} -> {dst} "
+        f"under load ({card}): {n_held} of {load} mid-move submissions held "
+        f"and replayed, the move (drain, checkpoint, reload, register) "
+        f"{move_s:.2f} s, iterations before/after {before.iterations}/"
+        f"{after.iterations}, load {out['load_iterations']}, worst fp64 "
+        f"relres {max(rel):.3e}; registration {t_reg:.2f} s")
+    check(out["owner"] == dst and n_held > 0,
+          f"fleet (a3): owner {out['owner']}, held {n_held}")
+    check(before.iterations == after.iterations,
+          f"fleet (a3): iterations {before.iterations} before, "
+          f"{after.iterations} after the move")
+    check(all(r.converged for r in res) and max(rel) <= 1.05 * SERVING_RTOL,
+          f"fleet (a3): worst fp64 relres {max(rel):.3e}")
+    return out
+
+
+def phase_fleet_elastic(card, nx=FLEET_AIJ_NX, requests=FLEET_ELASTIC):
+    """(a4) cfg14's elastic round trip: one replica on ``DeviceComm(4)``
+    holding the ``nx^3`` f32 AIJ, CG + Jacobi; ``requests`` under
+    ``device.lost=unavailable:device=3:at=1:iter=6``, then ``heal()`` and
+    ``heal_check()``, then ``requests`` more. Checks: the shrink resumed
+    past iteration 0, the replica grew back to 4 shards, every future
+    resolves with an fp64 true relres <= 1.05e-6."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.resilience import faults
+    from mpi_petsc4py_example_tpu_torch.serving import SolveRouter
+    A = pt.poisson3d_csr(nx)
+    rng = np.random.default_rng(23)
+    B = np.stack([(A @ rng.random(A.shape[0])).astype(np.float32)
+                  for _ in range(requests)])
+    rt = SolveRouter(1, pt.DeviceComm(4), window=0.002, max_k=SERVING_MAX_K,
+                     retry_policy=fleet_policy())
+    try:
+        t_reg = time.perf_counter()
+        rt.register_operator("aij", A, dtype=torch.float32, pc_type="jacobi",
+                             rtol=0.5 * SERVING_RTOL, max_it=20000)
+        t_reg = time.perf_counter() - t_reg
+        t0 = time.perf_counter()
+        with faults.inject_faults("device.lost=unavailable:device=3:at=1"
+                                  ":iter=6"):
+            res1, lat1, wall1 = timed_futures(
+                rt.submit, [("aij", b) for b in B])
+        shrunk = rt.stats()
+        faults.heal()
+        t_heal = time.perf_counter()
+        grew = rt.heal_check()
+        heal_s = time.perf_counter() - t_heal
+        res2, lat2, wall2 = timed_futures(rt.submit, [("aij", b) for b in B])
+        grown = rt.stats()
+        wall = time.perf_counter() - t0
+    finally:
+        faults.heal()
+        rt.shutdown(wait=False)
+    rel = [true_relres(A, r.x, b) for r, b in zip(res1 + res2, list(B) * 2)]
+    sh = shrunk["per_replica"]["r0"]["mesh_shrinks"]
+    rg = grown["per_replica"]["r0"]["mesh_regrows"]
+    out = {"shrinks": [(e["old_devices"], e["new_devices"],
+                        e["resumed_iteration"]) for e in sh],
+           "regrows": [(e["old_devices"], e["new_devices"]) for e in rg],
+           "devices_after": grown["per_replica"]["r0"]["devices"],
+           "heal_check": grew, "heal_s": heal_s, "register_s": t_reg,
+           "p99_before_ms": percentile_ms(lat1, 99),
+           "p99_after_ms": percentile_ms(lat2, 99),
+           "wall_before_s": wall1, "wall_after_s": wall2,
+           "worst_relres": max(rel), "wall_s": wall,
+           "attempts": max(r.attempts for r in res1)}
+    log(f"fleet (a4) elastic {nx}^3 f32 AIJ on DeviceComm(4), {requests} + "
+        f"{requests} requests ({card}): shrinks {out['shrinks']} (old, new, "
+        f"resumed iteration), heal_check {grew} in {heal_s:.2f} s, regrows "
+        f"{out['regrows']}, {out['devices_after']} shards after; p99 "
+        f"{out['p99_before_ms']:.1f} ms under the loss, "
+        f"{out['p99_after_ms']:.1f} ms after; worst fp64 relres "
+        f"{max(rel):.3e}; {wall:.1f} s, registration {t_reg:.1f} s")
+    check(len(sh) == 1 and sh[0]["resumed_iteration"] > 0,
+          f"fleet (a4): shrinks {out['shrinks']}")
+    check(grew == 1 and out["regrows"] == [(sh[0]["new_devices"], 4)]
+          and out["devices_after"] == 4,
+          f"fleet (a4): regrows {out['regrows']}, heal_check {grew}")
+    check(all(r.converged for r in res1 + res2)
+          and max(rel) <= 1.05 * SERVING_RTOL,
+          f"fleet (a4): worst fp64 relres {max(rel):.3e}")
+    return out
+
+
+def phase_fleet_remote(card, transport, nx=REMOTE_NX,
+                       requests=REMOTE_REQUESTS):
+    """(b) cfg18's shape over one transport: a 2-host ``FleetManager`` on
+    the card, the ``nx^3`` fp64 AIJ Poisson, CG + Jacobi at rtol 1e-10,
+    ``requests`` sequential solves, each followed by the host's checkpoint
+    rewrite; then one ``lease_step()``, the owner killed, and two of the
+    requests again, the first through the failover. Checks: every answer's fp64 true
+    relres <= 1.05 rtol, resumed past iteration 0 on the survivor, one
+    owner; logs the wall from the kill to the first re-homed answer."""
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.serving import FleetManager
+    A = pt.poisson3d_csr(nx)
+    rng = np.random.default_rng(18)
+    B = [A @ rng.random(A.shape[0]) for _ in range(requests)]
+    mgr = FleetManager(2, pt.DeviceComm(), transport=transport, window=0.0,
+                       max_k=SERVING_MAX_K, retry_policy=fleet_policy())
+    try:
+        t_reg = time.perf_counter()
+        mgr.register_operator("p", A, pc_type="jacobi", rtol=REMOTE_RTOL,
+                              max_it=20000)
+        t_reg = time.perf_counter() - t_reg
+        owner = mgr.router.owner("p")
+        lat, res = [], []
+        t0 = time.perf_counter()
+        for b in B:
+            t = time.perf_counter()
+            res.append(mgr.solve("p", b, timeout=600))
+            lat.append(time.perf_counter() - t)
+        wall = time.perf_counter() - t0
+        refresh = list(mgr.hosts[owner].refresh_seconds)
+        mgr.lease_step()
+        t_kill = time.perf_counter()
+        mgr.kill_host(owner)
+        first = mgr.solve("p", B[0], timeout=600)
+        failover_s = time.perf_counter() - t_kill
+        again = [first, mgr.solve("p", B[1], timeout=600)]
+        ev = mgr.failovers[0] if mgr.failovers else None
+        survivor = mgr.router.owner("p")
+        resident = {name: stub.client.call("resident", {}, deadline=30.0)
+                    for name, stub in mgr.stubs.items() if name != owner}
+        lease = mgr.lease_table()
+    finally:
+        mgr.shutdown(wait=False)
+    rel = [true_relres(A, r.x, b) for r, b in zip(res + again, B + B[:2])]
+    out = {"transport": transport, "requests": requests, "wall_s": wall,
+           "solves_per_s": requests / wall,
+           "p50_latency_ms": percentile_ms(lat, 50),
+           "p99_latency_ms": percentile_ms(lat, 99),
+           "refresh_ms_mean": 1e3 * sum(refresh) / max(1, len(refresh)),
+           "refresh_ms_max": 1e3 * max(refresh, default=0.0),
+           "refreshes": len(refresh), "register_s": t_reg,
+           "iterations": sorted({r.iterations for r in res}),
+           "owner": owner, "survivor": survivor,
+           "resumed_iteration": ev.resumed_iteration if ev else 0,
+           "failover_event_s": ev.wall_s if ev else None,
+           "kill_to_answer_s": failover_s,
+           "iterations_after": [r.iterations for r in again],
+           "worst_relres": max(rel)}
+    log(f"fleet (b) cfg18 shape, {nx}^3 fp64 AIJ, 2 hosts over {transport} "
+        f"({card}): {requests} sequential requests {out['solves_per_s']:.2f} "
+        f"solves/s, p50 {out['p50_latency_ms']:.1f} / p99 "
+        f"{out['p99_latency_ms']:.1f} ms, iterations {out['iterations']}, "
+        f"checkpoint refresh {out['refresh_ms_mean']:.1f} ms a request (max "
+        f"{out['refresh_ms_max']:.1f}, {len(refresh)} refreshes); owner "
+        f"{owner} killed after a lease step: first re-homed answer "
+        f"{failover_s * 1e3:.1f} ms after the kill (failover "
+        f"{(out['failover_event_s'] or 0) * 1e3:.1f} ms), resumed at "
+        f"iteration {out['resumed_iteration']} on {survivor}, iterations "
+        f"after {out['iterations_after']}; worst fp64 relres "
+        f"{max(rel):.3e}; registration {t_reg:.2f} s")
+    check(ev is not None and ev.resumed_iteration > 0
+          and ev.sessions == ("p",),
+          f"fleet (b) {transport}: failover {ev}")
+    check(survivor != owner and lease[owner]["status"] == "dead"
+          and [n for n, ops in resident.items() if "p" in ops] == [survivor],
+          f"fleet (b) {transport}: owner {survivor}, resident {resident}")
+    check(max(rel) <= 1.05 * REMOTE_RTOL,
+          f"fleet (b) {transport}: worst fp64 relres {max(rel):.3e}")
+    check(len(refresh) == requests,
+          f"fleet (b) {transport}: {len(refresh)} refreshes")
+    return out
+
+
+def phase_fleet():
+    """The fleet's phases (a1)-(a4) and (b), each logged with the card's
+    name and power limit and timed; returns their records and the launch
+    counts of rows 9 and 10 on the routed path ((a1), 2 replicas)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    card = card_line()
+    t0 = time.perf_counter()
+    for i in range(ORACLE_WORKERS):
+        host_oracle(oracle_ready, i)     # the workers start beside (a1)
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, FLEET_NX, dtype=torch.float32)
+    rows = stencil_rows(comm, op, FLEET_REQUESTS, 14, torch.float32)
+    del op
+    out = {}
+    routing, rt = timed(phase_fleet_routing, card, rows)
+    out["a1_routing"] = routing
+    try:
+        out["a2_qos"] = timed(phase_fleet_qos, card, rt, rows)
+        out["a3_migration"] = timed(phase_fleet_migration, card, rt)
+    finally:
+        rt.shutdown(wait=False)
+    del rows
+    torch.cuda.empty_cache()
+    out["a4_elastic"] = timed(phase_fleet_elastic, card)
+    torch.cuda.empty_cache()
+    out["b_remote"] = {tr: timed(phase_fleet_remote, card, tr)
+                       for tr in ("loopback", "socket")}
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"fleet phases: {out['wall_s']:.1f} s ({card})")
+    a1 = routing[2]["launches"]
+    launches = {
+        "stencil7_dot_many": (
+            a1.get("stencil7_dot_many", 0),
+            f"128^3 f32 SolveRouter of 2 replicas, {FLEET_REQUESTS} requests "
+            "over 4 sessions, cfg14 shape (the batched fast path)"),
+        "stencil7_apply_many": (
+            a1.get("stencil7_apply_many", 0),
+            "128^3 f32 SolveRouter of 2 replicas, the fused session op3's "
+            "blocks (megasolve, the outer true residual)")}
+    return out, launches
+
+
 def main():
     try:
         import torch
@@ -7926,6 +8358,21 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--fleet"]:
+        # only the fleet's phases (a1)-(a4) and (b), behind the checks of the
+        # two kernels the routed sessions launch (rows 9 and 10)
+        phase_many_kernel_checks()
+        fleet, launches = phase_fleet()
+        for name, (count, path) in launches.items():
+            check(count > 0, f"{name} was not launched on {path}")
+        print(json.dumps({"fleet": fleet, "launches_fleet": {
+            name: count for name, (count, _) in launches.items()}},
+            default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -8018,6 +8465,10 @@ def main():
     serving, serving_launches = phase_serving()
     print(json.dumps({"serving": serving}, default=float))
     lap("serving")
+    # the fleet (item 7.2): rows 9 and 10 on the routed sessions' blocks
+    fleet, fleet_launches = phase_fleet()
+    print(json.dumps({"fleet": fleet}, default=float))
+    lap("fleet")
     chaos = res["c_chaos"]
     guarded_launches = {
         "stencil7_dot": (res["a_guarded_512"]["abft"]["stencil7_dot"],
@@ -8115,6 +8566,12 @@ def main():
                                f"{path_v}")
             entry["launches_serving"] = count_v
             entry["path_serving"] = path_v
+        if entry["name"] in fleet_launches:
+            count_f, path_f = fleet_launches[entry["name"]]
+            check(count_f > 0, f"{entry['name']} was not launched on "
+                               f"{path_f}")
+            entry["launches_fleet"] = count_f
+            entry["path_fleet"] = path_f
         if entry["name"] in guarded_launches:
             count_g, path_g = guarded_launches[entry["name"]]
             check(count_g > 0, f"{entry['name']} was not launched on "

@@ -20,7 +20,10 @@ group and returns a ``ProcessComm``, the same mesh with one process per
 rank (``python -m mpi_petsc4py_example_tpu_torch.run -n N --procs``).
 
 ``serving`` holds the solve server (``SolveServer``: request coalescing, QoS,
-admission control, resilient dispatch, the persistent request queue).
+admission control, resilient dispatch, the persistent request queue) and the
+fleet in front of it (``SolveRouter``: sessions sharded over replicas,
+migration, autoscale, heal; ``FleetManager``: replicas behind the RPC
+transport, the lease failure detector, failover and reconcile).
 ``resilience`` holds fault injection, the silent-corruption guard's ABFT
 checksums, ``resilient_solve``, ``KSPFallbackChain`` and the elastic
 shrink; ``utils.checkpoint`` the mesh-portable checkpoints; ``telemetry``
@@ -53,7 +56,7 @@ from .utils.convergence import (BatchedSolveResult, ConvergedReason,
 from .utils.errors import (DeadlineExceededError, DeviceExecutionError,
                            ServerOverloadedError, SilentCorruptionError)
 from .utils import checkpoint, petsc_io
-from .utils.options import Options, global_options, init
+from .utils.options import Options, backend, global_options, init
 
 __all__ = ["DeviceComm", "ProcessComm", "init_multihost",
            "get_default_comm", "set_default_comm", "as_comm",
@@ -68,11 +71,12 @@ __all__ = ["DeviceComm", "ProcessComm", "init_multihost",
            "BatchedSolveResult",
            "DeviceExecutionError", "SilentCorruptionError",
            "DeadlineExceededError", "ServerOverloadedError",
-           "Options", "global_options", "init",
+           "Options", "global_options", "init", "backend",
            "resilience", "telemetry", "inject_faults", "HealthMonitor", "RetryPolicy",
            "resilient_solve", "resilient_solve_many", "KSPFallbackChain",
            "ElasticPolicy",
-           "SolveServer", "ServedSolveResult", "ServerClosedError"]
+           "SolveServer", "ServedSolveResult", "ServerClosedError",
+           "SolveRouter", "QoSClass", "AutoscalePolicy"]
 
 
 def __getattr__(name):
@@ -80,7 +84,8 @@ def __getattr__(name):
     if name in ("RetryPolicy", "resilient_solve", "resilient_solve_many",
                 "KSPFallbackChain", "ElasticPolicy"):
         return getattr(resilience, name)
-    if name in ("SolveServer", "ServedSolveResult", "ServerClosedError"):
+    if name in ("SolveServer", "ServedSolveResult", "ServerClosedError",
+                "SolveRouter", "QoSClass", "AutoscalePolicy"):
         # the serving layer pulls in KSP and the resilience wrappers: lazy,
         # as JAX __init__.py:116-121
         from . import serving as _serving

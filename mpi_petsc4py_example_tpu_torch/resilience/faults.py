@@ -38,8 +38,11 @@ of that solve. When no trace-time clause is live nothing is counted, as a
 cached JAX program traces nothing. The sites of each program are listed where
 it is built (``solvers/krylov.py``).
 
-``comm.delay``, ``exchange.put`` and ``rpc.*`` parse here; their sites come
-with the modules that own them (ROADMAP.md Queue A items 7 and 8).
+``rpc.send`` and ``rpc.recv`` fire in the RPC transport
+(``serving/transport.py``: the client before a request leaves, the host
+after its handler ran). ``comm.delay`` and ``exchange.put`` parse here;
+their sites come with the modules that own them (ROADMAP.md Queue A item
+7.4).
 
 This module imports nothing of torch. Every fired clause is recorded in the
 telemetry flight recorder (``Fault.flight_record``, JAX ``faults.py:208-233``,
@@ -86,10 +89,10 @@ FAULT_POINTS = {
     # (solvers/ksp.py mesh_fault site), so at=N picks the Nth solve and
     # iter=K leaves K iterations of real partial state, like ksp.program.
     "device.lost": ("unavailable",),         # permanent worker/chip loss
-    # The points below parse as in the JAX package; the port has no site
-    # for them yet (ROADMAP Queue A items 7 and 8): 'comm.delay' is an
-    # injected per-device latency, 'exchange.put' a stale-exchange publish,
-    # 'rpc.send'/'rpc.recv' the RPC transport's client and host sides.
+    # 'comm.delay' (an injected per-device latency) and 'exchange.put' (a
+    # stale-exchange publish) parse as in the JAX package; the port has no
+    # site for them yet (ROADMAP Queue A item 7.4). 'rpc.send'/'rpc.recv'
+    # are the RPC transport's client and host sides (serving/transport.py).
     "comm.delay":  ("delay",),               # per-device latency jitter
     "exchange.put": ("drop", "partition"),   # stale-exchange publish
     "rpc.send": ("drop", "delay", "duplicate", "reorder", "partition"),

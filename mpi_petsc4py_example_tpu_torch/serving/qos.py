@@ -18,9 +18,8 @@ logic like the coalescer:
   :class:`~..utils.errors.ServerOverloadedError` (``shed=True``).
 
 :class:`AutoscalePolicy` turns the servers' queue-wait percentiles into
-grow / shrink / rebalance decisions. It only decides; what executes a
-decision is the fleet router, which the port does not have yet (ROADMAP.md
-Queue A item 7).
+grow / shrink / rebalance decisions. It only decides; the fleet router
+executes a decision (``serving/fleet.py``, ``SolveRouter.autoscale_step``).
 """
 
 from __future__ import annotations

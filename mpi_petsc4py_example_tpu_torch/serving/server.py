@@ -57,7 +57,7 @@ import threading
 import time
 import warnings
 from concurrent.futures import Future
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -87,14 +87,13 @@ class ServedSolveResult(SolveResult):
     """A per-request :class:`SolveResult` out of the coalesced block it rode
     in (JAX ``server.py:108``): ``x`` the request's solution (a host copy of
     its column), ``batch_width`` the real requests of the block (padding
-    excluded), ``queue_wait`` the seconds between submission and dispatch,
-    ``history`` its residual history (empty unless the session monitors).
-    ``wall_time`` and the resilience trail are the block's."""
+    excluded), ``queue_wait`` the seconds between submission and dispatch;
+    the inherited ``history`` is its residual history (empty unless the
+    session monitors). ``wall_time`` and the resilience trail are the block's."""
     x: object = None
     op: str = ""
     batch_width: int = 1
     queue_wait: float = 0.0
-    history: list = field(default_factory=list)
 
 
 def _block(sess, reqs, width):
@@ -148,14 +147,16 @@ class SolveServer:
     and ``deadline`` (``-solve_server_deadline``, seconds, 0: none); the
     options database wins over the arguments. ``autostart=False`` lets a
     caller enqueue a known population, then :meth:`start`. ``comm=None``
-    takes the default communicator, which is the card's."""
+    takes the default communicator, which is the card's. ``session_lock``
+    (an ``RLock``) replaces the server's own session lock: servers of one
+    process that share a card share it (the fleet's replicas)."""
 
     def __init__(self, comm=None, *, window: float = 0.002,
                  max_k: int = 32, pad_pow2: bool = True,
                  resilient: bool = True,
                  retry_policy: RetryPolicy | None = None,
                  max_queue: int = 0, deadline: float = 0.0,
-                 autostart: bool = True):
+                 autostart: bool = True, session_lock=None):
         self.comm = as_comm(comm)
         if self.comm.multiprocess:
             raise NotImplementedError(
@@ -187,8 +188,11 @@ class SolveServer:
         # registration) and every CUDA call of the server against the
         # in-flight dispatch; the dispatcher holds it across _dispatch (an
         # RLock: its own shrink adoption re-enters). Lock order: this lock,
-        # then _cv.
-        self._session_lock = threading.RLock()
+        # then _cv. Servers that drive one card from one process (the
+        # fleet's replicas, serving/fleet.py) pass one shared RLock, so no
+        # graph capture of one meets another's CUDA work.
+        self._session_lock = (threading.RLock() if session_lock is None
+                              else session_lock)
         self._thread: threading.Thread | None = None
         self._dispatch_hook = None       # test seam: called per batch
         self._stats = {"requests": 0, "batches": 0, "padded_cols": 0,

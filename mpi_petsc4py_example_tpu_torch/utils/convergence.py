@@ -77,7 +77,11 @@ class SolveResult:
     ``attempts``/``recovery_events`` are the resilience trail (one attempt
     and no event for a plain solve); ``abft_checks``, ``sdc_detections`` and
     ``residual_replacements`` count the silent-error guard's checksum checks,
-    its detections and its true-residual replacements.
+    its detections and its true-residual replacements. ``history`` holds the
+    recorded residual norms of a column of a monitored batched solve
+    (:meth:`BatchedSolveResult.per_rhs`), empty otherwise (JAX
+    ``convergence.py:87``; it is the last field here, so that the positional
+    ``host_syncs`` keeps its place).
     """
     iterations: int = 0
     residual_norm: float = 0.0
@@ -89,6 +93,7 @@ class SolveResult:
     abft_checks: int = 0
     sdc_detections: int = 0
     residual_replacements: int = 0
+    history: list = field(default_factory=list)
 
     @property
     def converged(self) -> bool:
@@ -110,8 +115,8 @@ class BatchedSolveResult:
 
     ``iterations``/``residual_norms``/``reasons`` are per-column lists (a
     column that converges early keeps its own, smaller iteration count while
-    the others run on); ``histories`` holds k lists, empty (the port records
-    no history yet). ``X`` is the solution block the solve wrote: the
+    the others run on); ``histories`` holds each column's recorded residual
+    norms when monitoring was on (empty lists otherwise). ``X`` is the solution block the solve wrote: the
     ``(n, nrhs)`` host array, or the list of ``Vec``s passed as ``X``.
     ``wall_time`` covers the whole batched solve; ``host_syncs`` counts its
     device-to-host reads (one at set-up, one per lockstep iteration).
@@ -143,10 +148,13 @@ class BatchedSolveResult:
         return [ConvergedReason.name(r) for r in self.reasons]
 
     def per_rhs(self):
-        """Per-column :class:`SolveResult` views (shared wall time)."""
-        return [SolveResult(int(it), float(rn), int(rs), self.wall_time)
-                for it, rn, rs in zip(self.iterations, self.residual_norms,
-                                      self.reasons)]
+        """Per-column :class:`SolveResult` views (shared wall time), each
+        with its column's history (JAX ``convergence.py:156-162``)."""
+        return [SolveResult(int(it), float(rn), int(rs), self.wall_time,
+                            history=list(h) if h is not None else [])
+                for it, rn, rs, h in zip(
+                    self.iterations, self.residual_norms, self.reasons,
+                    self.histories or [None] * len(self.reasons))]
 
     def __repr__(self):
         if not self.reasons:

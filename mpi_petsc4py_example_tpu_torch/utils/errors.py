@@ -99,6 +99,12 @@ class DeviceExecutionError(RuntimeError):
         super().__init__(f"{what} failed on device: {msg}"
                          + (f" ({hint})" if hint else ""))
 
+    def __reduce__(self):
+        # the constructor's arguments, then the attributes: each error type
+        # of this module survives pickling (the RPC transport's replies,
+        # serving/transport.py), which the JAX package's do not
+        return (type(self), (self.what, self.original), self.__dict__)
+
 
 class SilentCorruptionError(DeviceExecutionError):
     """Silent data corruption detected during a solve (``detected_sdc``).
@@ -122,6 +128,11 @@ class SilentCorruptionError(DeviceExecutionError):
         super().__init__(what, original)
         self.detector = detector
         self.iteration = int(iteration)
+        self.detail = detail
+
+    def __reduce__(self):
+        return (type(self), (self.what, self.detector, self.iteration,
+                             self.detail), self.__dict__)
 
 
 class ServerOverloadedError(RuntimeError):
@@ -152,6 +163,10 @@ class ServerOverloadedError(RuntimeError):
                    "limit, or add capacity")
         super().__init__(msg)
 
+    def __reduce__(self):
+        return (type(self), (self.pending, self.limit, self.shed),
+                self.__dict__)
+
 
 class DeadlineExceededError(RuntimeError):
     """A solve request's server-side deadline expired before dispatch (JAX
@@ -166,6 +181,9 @@ class DeadlineExceededError(RuntimeError):
             f"DEADLINE_EXCEEDED: request waited {waited:.3f}s in the "
             f"solve-server queue, past its {deadline:.3f}s deadline — "
             "never dispatched")
+
+    def __reduce__(self):
+        return (type(self), (self.waited, self.deadline), self.__dict__)
 
 
 def _is_device_failure(exc: BaseException) -> bool:

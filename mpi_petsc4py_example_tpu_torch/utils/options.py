@@ -156,3 +156,14 @@ def init(argv=None):
     global_options().parse_argv(argv)
     from ..telemetry import configure_from_options
     configure_from_options()
+
+
+def backend() -> str:
+    """The device type the port's entry points run on (JAX ``options.py:392``
+    names its platform from ``TPU_SOLVE_BACKEND``, default ``tpu``): the
+    default communicator's, ``"cuda"`` unless a caller set a CPU one with
+    ``set_default_comm``. It only reports: the port selects its device by
+    the communicator, and ``TPU_SOLVE_BACKEND`` selects nothing here."""
+    from ..parallel import mesh
+    comm = mesh._default_comm
+    return "cuda" if comm is None else comm.device.type

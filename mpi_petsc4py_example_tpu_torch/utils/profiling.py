@@ -19,10 +19,10 @@ The port's counterpart of ``mpi_petsc4py_example_tpu/utils/profiling.py``:
 equals its result's ``host_syncs``), which differ from the JAX package's
 one fetch per solve. ``log_view`` renders every row of the JAX package's:
 the serving rows from ``record_serving``, ``record_admission``,
-``record_qos`` and ``record_requests_per_launch`` (``serving/``); the
-migration, kernel-traffic and collective-latency rows stay empty until the
-fleet (ROADMAP.md Queue A item 7) and the port's benchmark bring their
-recorders.
+``record_qos`` and ``record_requests_per_launch`` (``serving/``), the
+migration row from ``record_migration`` (``serving/fleet.py``); the
+kernel-traffic and collective-latency rows stay empty until the port's
+benchmark brings their recorders.
 """
 
 from __future__ import annotations
@@ -216,6 +216,17 @@ def admission_counts() -> dict:
 def qos_counts() -> dict[str, int]:
     return {str(k): int(v) for k, v in
             _REG.counter("qos.requests").items().items()}
+
+
+def record_migration(op: str, src: str, dst: str, seconds: float):
+    """Record one fleet session migration (``serving/fleet.py``; JAX
+    ``profiling.py:216``): operator ``op`` moved from replica ``src`` to
+    ``dst`` in ``seconds``."""
+    _REG.counter("fleet.migrations").inc()
+    if _spans.enabled():
+        _flight.recorder.record_event("fleet_migration", op=str(op),
+                                      src=str(src), dst=str(dst),
+                                      seconds=float(seconds))
 
 
 def migration_count() -> int:

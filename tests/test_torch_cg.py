@@ -358,6 +358,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_petsc4py_example_tpu_torch/resilience/elastic.py",
             "mpi_petsc4py_example_tpu_torch/utils/checkpoint.py",
             "mpi_petsc4py_example_tpu_torch/utils/errors.py",
+            # the serving layer
+            "mpi_petsc4py_example_tpu_torch/serving/server.py",
+            "mpi_petsc4py_example_tpu_torch/serving/fleet.py",
+            "mpi_petsc4py_example_tpu_torch/serving/transport.py",
+            "mpi_petsc4py_example_tpu_torch/serving/remote.py",
             } <= names
     assert not offenders, offenders
 

@@ -704,7 +704,8 @@ def test_serving_imports_neither_jax_nor_the_jax_package():
                    .glob("*.py"))
     assert {p.name for p in files} == {"__init__.py", "coalescer.py",
                                        "qos.py", "server.py",
-                                       "persistent.py"}
+                                       "persistent.py", "fleet.py",
+                                       "transport.py", "remote.py"}
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
