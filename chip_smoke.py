@@ -186,6 +186,27 @@ before each and read just after:
   owner killed after a lease step and the failover resumed past iteration
   0. Every answer's fp64 true relres is held to 1.05 rtol.
 
+* the other eigensolver types and SVD (``--eps-types``; no kernel of their
+  own: LOBPCG's and GD's block products launch row 9, ``compute_error``
+  row 2): row 9 at LOBPCG's shape (9 x 128^3 fp64) against its plain
+  version, cuDNN's conv3d and its bound; (a) LOBPCG on the 128^3 fp64
+  stencil, the 3 smallest pairs at tol 1e-8, against the closed form
+  (lambda(1,1,1), lambda(2,1,1) twice) within 1e-9, its host reads and
+  ``stencil7_apply_many`` launches against the formulas, the warm ms an
+  iteration and a profile of iterations 11-60 (two profiled solves
+  differenced); (b) the same at 32^3 on the plain path; (c) GD on the same
+  problem at ``GD_NX``^3 (20^3 in the no-argument run); (d) power,
+  subspace and arnoldi on ``tridiag_family(4096)`` as an fp64 Mat against
+  EPS lapack; (e) LOBPCG on the 64^2 GHEP (B a seeded diagonal) and the
+  complex128 phased 64^2 Laplacian against LAPACK's eigenvalues within
+  1e-9; (f) the SVD of the 64^3 gradient (sigma_max and the 3 smallest
+  against sqrt of the Laplacian's closed form, within 1e-8); (g) the
+  advanced tour's four lines. The dense references run in worker
+  processes meanwhile.
+
+``python3 chip_smoke.py --eps-types`` builds the kernels, checks rows 2, 9
+and 10 and runs only those phases (a)-(g); ``--gd-sizes`` runs GD on (c)'s
+problem at 128^3 down to 24^3, each under a 20 s budget.
 ``python3 chip_smoke.py --serving`` builds the kernels, checks rows 9 and 10
 and runs only the serving phases (a)-(c). ``python3 chip_smoke.py --fleet``
 does the same for the fleet's phases (a1)-(a4) and (b).
@@ -1643,13 +1664,14 @@ def oracle_eigvals(nx, beta):
     return np.linalg.eigvals(A), time.perf_counter() - t0
 
 
-def host_oracle(fn, *args):
+def host_oracle(fn, *args, threads=1):
     """``fn(*args)``, a host reference (scipy's fp64 CG, numpy's dense
     eigenvalues), as a future: it runs in one of ``ORACLE_WORKERS`` spawned
-    worker processes with one BLAS thread each, so that the card's phases
-    go on meanwhile. The same call again (the same arrays, by their bytes)
-    returns the same future: a reference started early
-    (:func:`start_host_oracles`) is waited for where its phase needs it."""
+    worker processes with one BLAS thread each (a pool of its own for each
+    other ``threads``), so that the card's phases go on meanwhile. The same
+    call again (the same arrays, by their bytes) returns the same future: a
+    reference started early (:func:`start_host_oracles`) is waited for
+    where its phase needs it."""
     import concurrent.futures
     import hashlib
     import multiprocessing
@@ -1659,13 +1681,16 @@ def host_oracle(fn, *args):
     if key not in _ORACLES:
         # a worker reads the variables when it starts (on a submit)
         saved = {k: os.environ.get(k) for k in _ONE_THREAD}
-        os.environ.update(_ONE_THREAD)
+        os.environ.update({k: str(threads) for k in _ONE_THREAD})
         try:
-            if not _ORACLE_POOL:
-                _ORACLE_POOL.append(concurrent.futures.ProcessPoolExecutor(
-                    max_workers=ORACLE_WORKERS,
-                    mp_context=multiprocessing.get_context("spawn")))
-            _ORACLES[key] = _ORACLE_POOL[0].submit(fn, *args)
+            pool = dict(_ORACLE_POOL).get(threads)
+            if pool is None:
+                pool = concurrent.futures.ProcessPoolExecutor(
+                    max_workers=ORACLE_WORKERS if threads == 1 else
+                    max(1, 6 // threads),
+                    mp_context=multiprocessing.get_context("spawn"))
+                _ORACLE_POOL.append((threads, pool))
+            _ORACLES[key] = pool.submit(fn, *args)
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -1709,7 +1734,7 @@ def stop_background():
     for launch in _LAUNCHES:
         launch.stop()
     while _ORACLE_POOL:
-        pool = _ORACLE_POOL.pop()
+        _, pool = _ORACLE_POOL.pop()
         if any(not f.done() for f in _ORACLES.values()):
             for proc in list(getattr(pool, "_processes", {}).values()):
                 proc.terminate()
@@ -2642,6 +2667,553 @@ def phase_eps(flows=True):
         f"stencil {t1 - t0:.1f} s, 128^3 AIJ {t2 - t1:.1f} s, the rest "
         f"{time.perf_counter() - t2:.1f} s)")
     return launches, times
+
+
+# ---- the other eigensolver types and SVD (ROADMAP Queue A items 7.5, 7.7) ---
+
+LOBPCG_NX = 128        # 2,097,152 rows, fp64
+LOBPCG_MAX_IT = 2500   # 1240-1242 iterations at 128^3 on the H100 (PERF.md)
+LOBPCG_K = 9           # LOBPCG's trial block at nev 3: [X; W; P], 3 x 3 rows
+GD_NX = 24             # the largest cube GD converges on in 20 s (--gd-sizes)
+GD_NX_FULL = 20        # the no-argument run's depth: 368 iterations, not 4131
+GD_MAX_IT = 8000
+POWER_MAX_IT = 1000    # chunks of 8 steps; 259 on the H100 (PERF.md)
+SVD_NX = 64
+SMALL_NX = 64          # (e)'s 2D problems: 64^2 = 4096 rows
+
+
+def stencil_smallest(nx):
+    """The 3 smallest eigenvalues of the 7-point Dirichlet Laplacian on
+    nx^3, in closed form: lambda(1,1,1), then lambda(2,1,1) twice, with
+    lambda(i,j,k) the sum over the axes of 4 sin^2(m pi / (2 (nx + 1)))."""
+    s = lambda m: 4.0 * float(np.sin(m * np.pi / (2 * (nx + 1)))) ** 2
+    return [3 * s(1), s(2) + 2 * s(1), s(2) + 2 * s(1)]
+
+
+def eps_smallest(comm, op, eps_type, max_it, nev=3, tol=1e-8, B=None):
+    import mpi_petsc4py_example_tpu_torch as pt
+    E = pt.EPS().create(comm).set_operators(op, B)
+    E.set_problem_type("ghep" if B is not None else "hep")
+    E.set_type(eps_type).set_which_eigenpairs("smallest_real")
+    return E.set_dimensions(nev=nev).set_tolerances(tol=tol, max_it=max_it)
+
+
+def lobpcg_syncs(its):
+    """The device route's host reads (``eps.py`` ``_lobpcg_device``): 3 an
+    iteration less the last's two, one for the eigenvectors."""
+    return 2 if its == 0 else 3 * its - 1
+
+
+def eps_types_problem(name):
+    """The assembled problems of phases (d) and (e), the same in the main
+    process and in the lapack worker: ``(A, B)`` scipy matrices."""
+    import scipy.sparse as sp
+    from mpi_petsc4py_example_tpu_torch.models.generators import (
+        tridiag_family)
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson2d_csr
+    if name == "tridiag4096":
+        return tridiag_family(4096), None
+    A = poisson2d_csr(SMALL_NX)
+    if name == "ghep64":
+        d = 1.0 + np.random.default_rng(22).random(A.shape[0])
+        return A, sp.diags(d).tocsr()
+    return phase_laplacian(A), None             # "chep64", complex128
+
+
+def oracle_lapack(name, which, nev):
+    """EPS 'lapack' (the port's dense host solve) on the problem ``name``
+    on the CPU: ``(eigenvalues, seconds)``."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    A, B = eps_types_problem(name)
+    if which == "smallest_eigvals":
+        # LAPACK's dense Hermitian solve, the eigenvalues alone (?heevr /
+        # ?sygvx): EPS 'lapack' also makes every eigenvector, which for the
+        # complex 4096-row problem took 108.6 s on two threads
+        import scipy.linalg
+        t0 = time.perf_counter()
+        lam = scipy.linalg.eigh(A.toarray(), None if B is None
+                                else B.toarray(), eigvals_only=True,
+                                subset_by_index=[0, nev - 1])
+        return lam, time.perf_counter() - t0
+    dt = torch.complex128 if np.iscomplexobj(A.data) else torch.float64
+    comm = pt.DeviceComm(device="cpu")
+    E = pt.EPS().create(comm).set_operators(
+        pt.Mat.from_scipy(comm, A, dtype=dt),
+        pt.Mat.from_scipy(comm, B, dtype=dt) if B is not None else None)
+    E.set_problem_type("ghep" if B is not None else "hep").set_type("lapack")
+    E.set_which_eigenpairs(which).set_dimensions(nev=nev)
+    t0 = time.perf_counter()
+    E.solve()
+    return np.asarray(E._eigenvalues), time.perf_counter() - t0
+
+
+LAPACK_ORACLES = (("tridiag4096", "largest_magnitude", 2),
+                  ("ghep64", "smallest_eigvals", 3),
+                  ("chep64", "smallest_eigvals", 3))
+
+
+def start_lapack_oracles():
+    """The dense references of phases (d) and (e), each a dense eigh of
+    4096 rows (5-15 s on two threads), in a pool of three worker processes
+    of two BLAS threads each."""
+    for args in LAPACK_ORACLES:
+        host_oracle(oracle_lapack, *args, threads=2)
+
+
+def phase_eps_apply_many_times(nx=LOBPCG_NX, k=LOBPCG_K):
+    """``stencil7_apply_many`` at the LOBPCG path's shape and dtype (k = 9
+    slabs of 128^3 fp64): kernel, plain and conv3d (batch k) times and the
+    bound, after a check against the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from mpi_petsc4py_example_tpu_torch.ops import stencil as st
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(23)
+    mk = lambda *s: torch.rand(s, generator=g, device="cuda",
+                               dtype=torch.float64)
+    U, lo, hi = mk(k, nx, nx, nx), mk(k, nx, nx), mk(k, nx, nx)
+    Y = torch.empty_like(U)
+    ref = st.stencil3d_apply_many_plain(U, lo, hi)
+    err = float((st.stencil3d_apply_many(U, lo, hi, out=Y) - ref).abs().max())
+    check(err <= Y_TOL["float64"] * float(ref.abs().max()),
+          f"apply_many k={k} {nx}^3 f64: {err}")
+    ext = torch.cat([lo[:, None], U, hi[:, None]], dim=1)[:, None]
+    w = torch.zeros((1, 1, 3, 3, 3), device="cuda", dtype=torch.float64)
+    w[0, 0, 1, 1, 1] = 6.0
+    for dz, dy, dx in [(0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1),
+                       (1, 1, 0), (1, 1, 2)]:
+        w[0, 0, dz, dy, dx] = -1.0
+    conv = lambda: F.conv3d(ext, w, padding=(0, 1, 1))
+    e_conv = float((conv()[:, 0] - ref).abs().max())
+    check(e_conv <= 1e-12 * float(ref.abs().max()),
+          f"conv3d yardstick k={k} {nx}^3 f64: {e_conv}")
+    del ref
+    b_ms, b_by = bound_ms(nx, nx, nx, 8, False, k)
+    out = {"ms": device_ms(lambda: st.stencil3d_apply_many(U, lo, hi, out=Y),
+                           20),
+           "plain_ms": device_ms(lambda: st.stencil3d_apply_many_plain(
+               U, lo, hi), 3, reps=10),
+           "library_ms": device_ms(conv, 3, reps=10), "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": err}
+    log(f"time stencil7_apply_many k={k} {nx}^3 f64 (the LOBPCG path's "
+        f"shape): kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
+        f"ms, conv3d {out['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {b_ms / out['ms'] * 100:.1f}% of it), max|err| "
+        f"{err:.3e}")
+    del U, lo, hi, Y, ext
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_eps_types_lobpcg(nx=LOBPCG_NX):
+    """(a) LOBPCG on the 128^3 fp64 stencil, the 3 smallest pairs at tol
+    1e-8: the eigenvalues against the closed form within 1e-9 relative,
+    compute_error <= 1e-6 each, host reads by the formula, the
+    ``stencil7_apply_many`` launches of the solve = its (the start block
+    once, then one trial block an iteration but the last) and no other
+    kernel; the warm wall and ms an iteration; a profile of iterations
+    11-60 (two profiled solves differenced: device busy, idle share, row
+    9's share, the GEMMs' and the copies')."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    want = stencil_smallest(nx)
+    E = eps_smallest(comm, op, "lobpcg", LOBPCG_MAX_IT)
+    torch.cuda.reset_peak_memory_stats()
+    launches, wall = eps_solve_counted(E)
+    its, res = E.get_iteration_number(), E.result
+    lam = np.sort(np.real(E._eigenvalues))
+    rel = np.abs(lam - want) / np.asarray(want)
+    reset_launches()
+    errs = [E.compute_error(i) for i in range(3)]
+    err_launches = read_launches()["stencil7_apply"]
+    log(f"eps-types (a) lobpcg {nx}^3 f64 smallest_real nev 3: {its} "
+        f"iterations, nconv {E.get_converged()}, {res.reason_name}, lambda "
+        f"{[repr(x) for x in lam]} (closed form {[repr(x) for x in want]}, "
+        f"rel err {rel.max():.3e}), compute_error "
+        f"{[f'{e:.3e}' for e in errs]}, host syncs {res.host_syncs}, wall "
+        f"{wall:.3f} s ({wall / max(its, 1) * 1e3:.3f} ms/iter), "
+        f"stencil7_apply_many launches {launches['stencil7_apply_many']} "
+        f"(expected {max(its, 1)}), {err_launches} stencil7_apply for "
+        f"compute_error, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(res.converged and E.get_converged() >= 3,
+          f"lobpcg {nx}^3 did not converge: {res}")
+    check(rel.max() <= 1e-9, f"lobpcg {nx}^3: lambda rel err {rel}")
+    check(max(errs) <= 1e-6, f"lobpcg {nx}^3: compute_error {errs}")
+    check(res.host_syncs == lobpcg_syncs(its),
+          f"lobpcg host syncs {res.host_syncs} != {lobpcg_syncs(its)}")
+    check(launches["stencil7_apply_many"] == max(its, 1),
+          f"lobpcg apply_many launches {launches['stencil7_apply_many']}")
+    check(sum(launches.values()) == launches["stencil7_apply_many"],
+          f"lobpcg launched other kernels: {launches}")
+    check(err_launches == 3, "compute_error did not apply once a pair")
+    E.solve()                # warm
+    warm = E.result.wall_time
+    log(f"eps-types (a) lobpcg warm: wall {warm:.3f} s, "
+        f"{warm / max(its, 1) * 1e3:.3f} ms/iter")
+    prof = profile_iterations(E, f"lobpcg {nx}^3")
+    out = {"iterations": its, "wall_s": wall, "warm_s": warm,
+           "ms_per_iter": warm / max(its, 1) * 1e3, "profile": prof,
+           "host_syncs": res.host_syncs, "lambda": lam.tolist(),
+           "rel_err": float(rel.max()), "compute_error": errs,
+           "launches": launches["stencil7_apply_many"],
+           "compute_error_launches": err_launches}
+    del E, op
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_rows(run):
+    """``run()`` under ``torch.profiler``: ``(wall_us, {device row: us})``,
+    the device rows (kernels, copies) only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            rows[e.key] = rows.get(e.key, 0.0) + e.self_device_time_total
+    return wall_us, rows
+
+
+def profile_iterations(E, label, short=10, long=60):
+    """The steady iteration of an eigensolve: two profiled solves capped at
+    ``short`` and ``long`` iterations, differenced, so that the set-up (the
+    start block made and placed) and the eigenvector read drop out (a first
+    profiled solve, thrown away, takes the profiler's own start-up). Their
+    copies of 50 MB to and from pageable host memory vary by milliseconds
+    from solve to solve, so the difference spans 50 iterations. Logs
+    and returns the wall and device busy us an iteration, the idle share,
+    and the shares of the busy time of row 9 (``stencil7``), the GEMMs
+    (the Gram and transform products), the elementwise and reduction
+    kernels, and the copies (device-to-host: the host reads)."""
+    E.set_tolerances(max_it=short)
+    profile_rows(lambda: E.solve())
+    w0, r0 = profile_rows(lambda: E.solve())
+    E.set_tolerances(max_it=long)
+    w1, r1 = profile_rows(lambda: E.solve())
+    n = long - short
+    rows = {k: (r1.get(k, 0.0) - r0.get(k, 0.0)) / n for k in r1}
+    busy = sum(rows.values())
+    if busy <= 0:
+        log(f"profile {label}: the profiler recorded no device time "
+            "(device breakdown not measured)")
+        return None
+    wall = (w1 - w0) / n
+
+    def share(pred):
+        return sum(v for k, v in rows.items() if pred(k)) / busy
+
+    gemm = lambda k: any(t in k.lower() for t in ("gemm", "xmma", "gemv"))
+    out = {"wall_us": wall, "busy_us": busy, "idle": 1 - busy / wall,
+           "row9": share(lambda k: "stencil7" in k), "gemm": share(gemm),
+           "dtoh": share(lambda k: "Memcpy DtoH" in k),
+           "copies": share(lambda k: k.startswith("Memcpy")),
+           "host_reads_per_iter": 3}
+    out["elementwise"] = 1 - out["row9"] - out["gemm"] - out["copies"]
+    log(f"profile {label}, iterations {short + 1}-{long} (differenced): "
+        f"wall {wall:.1f} us/iter, device busy {busy:.1f} us/iter, idle "
+        f"share {out['idle']:.3f}; of the busy time row 9 "
+        f"{out['row9'] * 100:.1f}%, GEMMs (Gram/transform products) "
+        f"{out['gemm'] * 100:.1f}%, copies {out['copies'] * 100:.1f}% (DtoH, "
+        f"the 3 host reads an iteration: {out['dtoh'] * 100:.1f}%), "
+        f"elementwise/reductions {out['elementwise'] * 100:.1f}%")
+    for key, us in sorted(rows.items(), key=lambda r: -r[1])[:10]:
+        log(f"  {us:9.2f} us/iter  {key[:110]}")
+    return out
+
+
+def phase_eps_types_plain(nx=32):
+    """(b) the same problem at 32^3 with ``force_plain``: the kernel path's
+    iterations, eigenvalues within 1e-12, and no launch."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    E = eps_smallest(comm, op, "lobpcg", LOBPCG_MAX_IT)
+    launches, _ = eps_solve_counted(E)
+    its, lam = E.get_iteration_number(), np.sort(np.real(E._eigenvalues))
+    op.force_plain = True
+    try:
+        plain_launches, _ = eps_solve_counted(E)
+    finally:
+        op.force_plain = False
+    p_its, p_lam = E.get_iteration_number(), np.sort(np.real(E._eigenvalues))
+    d = float(np.max(np.abs(p_lam - lam) / lam))
+    log(f"eps-types (b) lobpcg {nx}^3: kernel path {its} iterations, "
+        f"{launches['stencil7_apply_many']} launches; plain path {p_its} "
+        f"iterations, {sum(plain_launches.values())} launches, lambda rel "
+        f"diff {d:.3e}")
+    check(p_its == its and d <= 1e-12,
+          f"lobpcg plain path {p_its}, {p_lam} vs {its}, {lam}")
+    check(sum(plain_launches.values()) == 0, "the plain path launched")
+    check(launches["stencil7_apply_many"] == max(its, 1),
+          "lobpcg 32^3 kernel path launches")
+    return {"iterations": its, "lambda_rel_diff": d}
+
+
+def phase_eps_types_gd(nx=GD_NX):
+    """(c) GD on (a)'s problem at ``GD_NX``^3 (see PERF.md for the size):
+    the closed form within 1e-9, outer iterations, launches of
+    ``stencil7_apply_many`` (the start block and one correction block an
+    iteration but the last: its) and host reads (3 an iteration)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+    want = stencil_smallest(nx)
+    E = eps_smallest(comm, op, "gd", GD_MAX_IT)
+    launches, wall = eps_solve_counted(E)
+    its, res = E.get_iteration_number(), E.result
+    lam = np.sort(np.real(E._eigenvalues))
+    rel = np.abs(lam - want) / np.asarray(want)
+    reset_launches()
+    errs = [E.compute_error(i) for i in range(3)]
+    err_launches = read_launches()["stencil7_apply"]
+    log(f"eps-types (c) gd {nx}^3 f64 smallest_real nev 3: {its} outer "
+        f"iterations, {res.reason_name}, lambda rel err {rel.max():.3e}, "
+        f"compute_error max {max(errs):.3e}, host syncs {res.host_syncs}, "
+        f"wall {wall:.3f} s ({wall / max(its, 1) * 1e3:.3f} ms/iter), "
+        f"stencil7_apply_many launches {launches['stencil7_apply_many']}")
+    check(res.converged and rel.max() <= 1e-9, f"gd {nx}^3: {lam} {res}")
+    check(max(errs) <= 1e-6, f"gd {nx}^3: compute_error {errs}")
+    check(res.host_syncs == 3 * its, f"gd host syncs {res.host_syncs}")
+    check(launches["stencil7_apply_many"] == its
+          and sum(launches.values()) == its, f"gd launches {launches}")
+    return {"nx": nx, "iterations": its, "wall_s": wall,
+            "launches": launches["stencil7_apply_many"],
+            "compute_error_launches": err_launches,
+            "rel_err": float(rel.max())}
+
+
+class _OverBudget(Exception):
+    """A solve stopped by its wall budget (``phase_gd_sizes``)."""
+
+
+def phase_gd_sizes(sizes=(128, 64, 32, 28, 26, 24), budget_s=20.0):
+    """GD on phase (c)'s problem at each cube of ``sizes``, each with a
+    wall budget (a monitor stops the solve past it): outer iterations,
+    wall and the largest error estimate of the 3 pairs at the end. The
+    largest cube that converges within the budget is ``GD_NX``."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    out = {}
+    for nx in sizes:
+        op = pt.StencilPoisson3D(comm, nx, dtype=torch.float64)
+        E = eps_smallest(comm, op, "gd", 10 ** 7)
+        last = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+
+        def monitor(eps, its, nconv, eig, errest):
+            last.update(its=its, errest=float(np.max(errest[:3])))
+            if time.perf_counter() - t0 > budget_s:
+                raise _OverBudget
+        E.set_monitor(monitor)
+        try:
+            E.solve()
+            converged = E.result.converged
+        except _OverBudget:
+            converged = False
+        wall = time.perf_counter() - t0
+        out[nx] = {"converged": converged, "iterations": last.get("its"),
+                   "wall_s": wall, "errest": last.get("errest")}
+        log(f"gd sizes {nx}^3: {'converged' if converged else 'stopped'} "
+            f"after {last.get('its')} outer iterations, {wall:.2f} s, "
+            f"largest error estimate {last.get('errest'):.3e}")
+        del E, op
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_eps_types_mat():
+    """(d) power, subspace (nev 2, ncv 12) and arnoldi on
+    ``tridiag_family(4096)`` as an fp64 ``Mat``, the largest magnitude,
+    against EPS 'lapack' on the same matrix (a worker process) within 1e-8
+    (cfg2's limit)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    A, _ = eps_types_problem("tridiag4096")
+    comm = pt.DeviceComm()
+    m = pt.Mat.from_scipy(comm, A, dtype=torch.float64)
+    out = {}
+    for eps_type, nev, ncv, max_it in (("power", 1, None, POWER_MAX_IT),
+                                       ("subspace", 2, 12, 2000),
+                                       ("arnoldi", 2, None, 400)):
+        E = pt.EPS().create(comm).set_operators(m).set_problem_type("hep")
+        E.set_type(eps_type).set_dimensions(nev=nev, ncv=ncv)
+        E.set_tolerances(tol=1e-8, max_it=max_it)
+        launches, wall = eps_solve_counted(E)
+        lam = np.real(E._eigenvalues[:nev])
+        out[eps_type] = {"its": E.get_iteration_number(), "wall_s": wall,
+                         "host_syncs": E.result.host_syncs,
+                         "lambda": lam.tolist(),
+                         "launches": sum(launches.values())}
+        log(f"eps-types (d) {eps_type} tridiag_family(4096): "
+            f"{E.get_iteration_number()} iterations, "
+            f"{E.result.reason_name}, lambda {lam.tolist()}, host syncs "
+            f"{E.result.host_syncs}, wall {wall:.3f} s, launches "
+            f"{sum(launches.values())}")
+        check(E.result.converged, f"{eps_type}: {E.result}")
+        check(sum(launches.values()) == 0, f"{eps_type} launched a kernel")
+    ref, t_ref = host_oracle(oracle_lapack, *LAPACK_ORACLES[0],
+                             threads=2).result()
+    for eps_type, r in out.items():
+        rel = np.abs(np.asarray(r["lambda"]) - ref[:len(r["lambda"])]) \
+            / np.abs(ref[:len(r["lambda"])])
+        r["rel_err"] = float(rel.max())
+        log(f"eps-types (d) {eps_type}: rel err {rel.max():.3e} against "
+            f"lapack {ref.tolist()} ({t_ref:.1f} s in a worker process)")
+        check(rel.max() <= 1e-8, f"{eps_type}: lambda rel err {rel}")
+    return out
+
+
+def phase_eps_types_small():
+    """(e) LOBPCG against LAPACK's dense Hermitian eigenvalues (a worker
+    process, ``oracle_lapack``) within 1e-9: the
+    GHEP of the 64^2 2D Laplacian with B = diag(1 + U[0, 1)) (a seeded
+    numpy generator), and the complex128 HEP of the phased 64^2 Laplacian
+    (its x-bonds ``e^{i 0.3}``: the same sparsity, Hermitian)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    comm = pt.DeviceComm()
+    out = {}
+    for args in LAPACK_ORACLES[1:]:
+        name = args[0]
+        A, B = eps_types_problem(name)
+        dt = torch.complex128 if np.iscomplexobj(A.data) else torch.float64
+        MA = pt.Mat.from_scipy(comm, A, dtype=dt)
+        MB = pt.Mat.from_scipy(comm, B, dtype=dt) if B is not None else None
+        E = eps_smallest(comm, MA, "lobpcg", 2000, B=MB)
+        launches, wall = eps_solve_counted(E)
+        its = E.get_iteration_number()
+        lam = np.sort(np.real(E._eigenvalues))
+        ref, t_ref = host_oracle(oracle_lapack, *args, threads=2).result()
+        ref = np.sort(np.real(ref))
+        rel = np.abs(lam - ref) / np.abs(ref)
+        errs = [E.compute_error(i) for i in range(3)]
+        out[name] = {"its": its, "wall_s": wall, "rel_err": float(rel.max()),
+                     "host_syncs": E.result.host_syncs}
+        log(f"eps-types (e) lobpcg {name}: {its} iterations, "
+            f"{E.result.reason_name}, lambda {lam.tolist()}, lapack "
+            f"{ref.tolist()} ({t_ref:.1f} s in a worker), rel err "
+            f"{rel.max():.3e}, compute_error max {max(errs):.3e}, host syncs "
+            f"{E.result.host_syncs}, wall {wall:.3f} s")
+        check(E.result.converged and rel.max() <= 1e-9,
+              f"lobpcg {name}: {lam} vs {ref}")
+        check(E.result.host_syncs == lobpcg_syncs(its),
+              f"lobpcg {name} host syncs")
+        check(sum(launches.values()) == 0, f"lobpcg {name} launched")
+    return out
+
+
+def gradient3d(nx):
+    """The 3D forward-difference gradient with Dirichlet ends,
+    ``(3 (nx+1) nx^2, nx^3)``: ``G^T G`` is the 7-point Laplacian."""
+    import scipy.sparse as sp
+    D = sp.diags([np.ones(nx), -np.ones(nx)], [0, -1], shape=(nx + 1, nx))
+    eye = sp.identity(nx, format="csr")
+    return sp.vstack([sp.kron(sp.kron(eye, eye), D),
+                      sp.kron(sp.kron(eye, D), eye),
+                      sp.kron(sp.kron(D, eye), eye)]).tocsr()
+
+
+def phase_eps_types_svd(nx=SVD_NX):
+    """(f) SVD of the 3D gradient at 64^3: sigma = sqrt(lambda) of the
+    Laplacian, so sigma_max and the 3 smallest are known in closed form
+    (within 1e-8 relative); the u/v residuals (the side opposite the
+    constructed vector, relative in sigma) at most 1e-6 and ``A v = sigma
+    u`` checked on the host."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    G = gradient3d(nx)
+    comm = pt.DeviceComm()
+    t0 = time.perf_counter()
+    M = pt.Mat.from_scipy(comm, G, dtype=torch.float64)
+    t_asm = time.perf_counter() - t0
+    s = lambda m: 4.0 * float(np.sin(m * np.pi / (2 * (nx + 1)))) ** 2
+    out = {"assembly_s": t_asm}
+    for which, nsv, want in (("largest", 1, [np.sqrt(3 * s(nx))]),
+                             ("smallest", 3,
+                              np.sqrt(stencil_smallest(nx)).tolist())):
+        svd = pt.SVD().create(comm).set_operator(M)
+        svd.set_which_singular_triplets(which).set_dimensions(nsv=nsv)
+        svd.set_tolerances(tol=1e-10, max_it=3000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svd.solve()
+        wall = time.perf_counter() - t0
+        sig = np.array([svd.get_value(i) for i in range(nsv)])
+        rel = np.abs(np.sort(sig) - np.sort(want)) / np.asarray(sorted(want))
+        vres = [float(np.linalg.norm(G @ svd._V[i] - sig[i] * svd._U[i])
+                      / sig[i]) for i in range(nsv)]
+        out[which] = {"its": svd.get_iteration_number(), "wall_s": wall,
+                      "sigma": sig.tolist(), "rel_err": float(rel.max()),
+                      "residuals": svd._residuals.tolist(),
+                      "host_syncs": svd.result.host_syncs}
+        log(f"eps-types (f) svd gradient {nx}^3 {which} {nsv}: "
+            f"{svd.get_iteration_number()} iterations, sigma {sig.tolist()} "
+            f"(closed form {want}, rel err {rel.max():.3e}), residuals "
+            f"{svd._residuals.tolist()}, |G v - sigma u|/sigma "
+            f"{max(vres):.3e}, host syncs {svd.result.host_syncs}, wall "
+            f"{wall:.3f} s")
+        check(svd.get_converged() >= nsv and rel.max() <= 1e-8,
+              f"svd {which}: {sig} vs {want}")
+        check(max(svd._residuals) <= 1e-6 and max(vres) <= 1e-6,
+              f"svd {which} residuals {svd._residuals} {vres}")
+    del M
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_eps_types(advanced=True, gd_nx=GD_NX):
+    """Every phase of the other eigensolver types and SVD, (a)-(g) ((g)
+    only with ``advanced``: the no-argument run's surface phases run it;
+    (c) at ``gd_nx``^3): returns the record and the launches of rows 9 and
+    2 on this path."""
+    import torch
+    t0 = time.perf_counter()
+    start_lapack_oracles()
+    out = {"apply_many_f64": phase_eps_apply_many_times()}
+    t1 = time.perf_counter()
+    out["a_lobpcg"] = phase_eps_types_lobpcg()
+    t2 = time.perf_counter()
+    out["b_plain"] = phase_eps_types_plain()
+    out["c_gd"] = phase_eps_types_gd(gd_nx)
+    t3 = time.perf_counter()
+    out["d_mat"] = phase_eps_types_mat()
+    out["e_small"] = phase_eps_types_small()
+    t4 = time.perf_counter()
+    out["f_svd"] = phase_eps_types_svd()
+    t5 = time.perf_counter()
+    if advanced:
+        out["g_advanced"] = phase_surface_advanced()
+    torch.cuda.empty_cache()
+    log(f"timing: eps-types phases {time.perf_counter() - t0:.1f} s (times "
+        f"{t1 - t0:.1f}, (a) {t2 - t1:.1f}, (b)-(c) {t3 - t2:.1f}, (d)-(e) "
+        f"{t4 - t3:.1f}, (f) {t5 - t4:.1f}, (g) "
+        f"{time.perf_counter() - t5:.1f} s)")
+    a, c = out["a_lobpcg"], out["c_gd"]
+    launches = {
+        "stencil7_apply_many": (
+            a["launches"], f"{LOBPCG_NX}^3 fp64 LOBPCG nev 3 (its "
+                           f"{a['iterations']})"),
+        "stencil7_apply": (
+            a["compute_error_launches"] + c["compute_error_launches"],
+            f"compute_error of the {LOBPCG_NX}^3 LOBPCG and the "
+            f"{c['nx']}^3 GD pairs")}
+    return out, launches
 
 
 # ---- the mixed-precision refinement slice (RefinedKSP, bf16 storage) ----------
@@ -3972,7 +4544,8 @@ def phase_surface_petsc_io(AD, b, its_orig, rtol=1e-8):
 
 def phase_surface_advanced():
     """``facade/drivers/advanced.py`` on the card: three converged scenarios,
-    the errors of 1 and 3 at most 1e-8."""
+    the errors of 1 and 3 at most 1e-8, and the fourth line LOBPCG's: 3
+    pairs, the worst residual at most its tolerance 1e-8."""
     import contextlib
     import io
     from mpi_petsc4py_example_tpu_torch.facade.drivers import advanced
@@ -3986,10 +4559,13 @@ def phase_surface_advanced():
         log(f"surface advanced.py: {line}")
     errs = [float(line.split("max err")[1]) for line in lines
             if "max err" in line]
-    check(rc == 0 and len(lines) == 3
-          and all("CONVERGED" in line for line in lines),
-          "advanced.py did not converge in its three scenarios")
+    check(rc == 0 and len(lines) == 4
+          and all("CONVERGED" in line for line in lines[:3]),
+          "advanced.py did not converge in its first three scenarios")
     check(len(errs) == 2 and max(errs) <= 1e-8, f"advanced.py errors {errs}")
+    check(lines[3].startswith("4. lobpcg: 3 pairs, lambda_min=")
+          and float(lines[3].split("worst residual")[1]) <= 1e-8,
+          f"advanced.py's LOBPCG line: {lines[3]}")
     log(f"surface advanced.py: {wall:.2f} s")
     return {"lines": lines, "wall_s": wall}
 
@@ -8220,6 +8796,29 @@ def main():
         check(launches_eps > 0, "stencil7_apply never launched on the EPS path")
         print(card_line())
         return
+    if sys.argv[1:] == ["--eps-types"]:
+        # only the other eigensolver types' and SVD's phases (a)-(g),
+        # behind the checks of the two kernels they launch (rows 2 and 9)
+        start_lapack_oracles()
+        phase_kernel_checks()
+        phase_many_kernel_checks()
+        eps_types, launches = phase_eps_types()
+        for name, (count, path) in launches.items():
+            check(count > 0, f"{name} was not launched on {path}")
+        print(json.dumps({"eps_types": eps_types, "launches_eps_types": {
+            name: count for name, (count, _) in launches.items()}},
+            default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--gd-sizes"]:
+        # GD's convergence against the cube's size, each under a 20 s
+        # budget: the evidence for GD_NX
+        print(json.dumps({"gd_sizes": phase_gd_sizes()}, default=float))
+        print(card_line())
+        return
     if sys.argv[1:] == ["--kernels"]:
         # every kernel's resources, against its plain version, and its
         # times, no solve; e.g. to compare another checkout's csrc/ with this
@@ -8422,9 +9021,16 @@ def main():
     timed(phase_aij_reference_flow, flows=False)
     log(f"assembled-matrix phases: {time.perf_counter() - t_aij:.1f} s")
     lap("assembled matrices")
-    # the eigensolver slice: its operator applies are stencil7_apply's
+    # the eigensolver slice: its operator applies are stencil7_apply's; the
+    # dense references of the next slice's phases start beside it
+    start_lapack_oracles()
     launches_eps, apply_f64 = timed(phase_eps, flows=False)
     lap("eigensolver")
+    # the other eigensolver types and SVD (items 7.5, 7.7): rows 9 and 2
+    eps_types, eps_types_launches = phase_eps_types(advanced=False,
+                                                    gd_nx=GD_NX_FULL)
+    print(json.dumps({"eps_types": eps_types}, default=float))
+    lap("eigensolver types and SVD")
     # the mixed-precision slice: the bfloat16 instantiations of four kernels
     bf16_entries, _ = timed(phase_refine)
     lap("mixed precision")
@@ -8572,6 +9178,14 @@ def main():
                                f"{path_f}")
             entry["launches_fleet"] = count_f
             entry["path_fleet"] = path_f
+        if entry["name"] in eps_types_launches:
+            count_e, path_e = eps_types_launches[entry["name"]]
+            check(count_e > 0, f"{entry['name']} was not launched on "
+                               f"{path_e}")
+            entry["launches_eps_types"] = count_e
+            entry["path_eps_types"] = path_e
+            if entry["name"] == "stencil7_apply_many":
+                entry["eps_types_128_f64_k9"] = eps_types["apply_many_f64"]
         if entry["name"] in guarded_launches:
             count_g, path_g = guarded_launches[entry["name"]]
             check(count_g > 0, f"{entry['name']} was not launched on "

@@ -7,8 +7,8 @@ package never imports): ``parallel`` (communicator, layout, CSR row blocks),
 stencil, the CSR model problems), ``ops`` (hand-written CUDA kernels in
 ``csrc/``, their plain PyTorch versions, the nvcc build; the ELL/DIA SpMV),
 ``solvers`` (KSP, PC, the Krylov loops and their precision plans, the
-mixed-precision refinement ``RefinedKSP``, the eigensolver EPS and its
-spectral transformations ST), ``utils`` (the options database, the PETSc
+mixed-precision refinement ``RefinedKSP``, the eigensolver EPS, its
+spectral transformations ST and the singular value solver SVD), ``utils`` (the options database, the PETSc
 binary format ``petsc_io``), and ``facade`` (the petsc4py/mpi4py/slepc4py
 facade that ``python -m mpi_petsc4py_example_tpu_torch.run`` puts first on
 ``sys.path``).
@@ -46,11 +46,12 @@ from .parallel.partition import (RowLayout, concat_csr_blocks,
 from . import resilience, telemetry
 from .resilience.faults import HealthMonitor, inject_faults
 from .solvers.cg_plans import PrecisionPlan, precision_plan
-from .solvers.eps import EPS, SVD
+from .solvers.eps import EPS
 from .solvers.ksp import KSP
 from .solvers.pc import PC
 from .solvers.refine import RefinedKSP
 from .solvers.st import ST
+from .solvers.svd import SVD
 from .utils.convergence import (BatchedSolveResult, ConvergedReason,
                                 RecoveryEvent, SolveResult)
 from .utils.errors import (DeadlineExceededError, DeviceExecutionError,

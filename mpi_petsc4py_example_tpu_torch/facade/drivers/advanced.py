@@ -1,7 +1,8 @@
 """Advanced-feature tour on the port: a matrix-free operator, PC
-composition, PETSc binary I/O.
+composition, PETSc binary I/O, LOBPCG.
 
-The port's counterpart of scenarios 1-3 of ``examples/advanced.py``, on the
+The port's counterpart of the four scenarios of ``examples/advanced.py``, on
+the
 same problem (the 24^2 Laplacian plus a variable diagonal, ``x_true`` from
 ``default_rng(7)``, rtol 1e-10), printing the same lines:
 
@@ -10,6 +11,8 @@ same problem (the 24^2 Laplacian plus a variable diagonal, ``x_true`` from
 2. PC ``composite``: multiplicative jacobi then sor, under FGMRES.
 3. PETSc binary: the system written to one file (Mat, then Vec), read back
    and solved with CG + Jacobi.
+4. LOBPCG: the 3 smallest eigenpairs of the operator (tol 1e-8, max_it
+   300), with their true residuals.
 
 Run::
 
@@ -43,7 +46,7 @@ def laplacian2d(nx):
 
 
 def main(argv=None, device=None, comm=None, verbose=True):
-    """Run the three scenarios on ``comm`` (default: one shard on
+    """Run the four scenarios on ``comm`` (default: one shard on
     ``device``, None being the card), printing their lines when
     ``verbose``; returns 0."""
     argv = list(sys.argv if argv is None else argv)
@@ -114,6 +117,20 @@ def main(argv=None, device=None, comm=None, verbose=True):
     res3 = ksp3.solve(b3, x3)
     print_(f"3. petsc-binary round trip: {res3.reason_name}, "
           f"max err {np.abs(x3.to_numpy() - x_true).max():.2e}")
+
+    # -- 4. LOBPCG smallest eigenpairs --------------------------------------
+    eps = pt.EPS().create(comm)
+    eps.set_operators(M)
+    eps.set_problem_type("hep")
+    eps.set_type("lobpcg")
+    eps.set_which_eigenpairs("smallest_real")
+    eps.set_dimensions(nev=3)
+    eps.set_tolerances(tol=1e-8, max_it=300)
+    eps.solve()
+    lams = [eps.get_eigenvalue(i).real for i in range(eps.get_converged())]
+    errs = [eps.compute_error(i) for i in range(eps.get_converged())]
+    print_(f"4. lobpcg: {eps.get_converged()} pairs, "
+           f"lambda_min={min(lams):.6f}, worst residual {max(errs):.1e}")
     return 0
 
 

@@ -1,6 +1,6 @@
-"""slepc4py-shaped facade over the PyTorch port: ``EPS`` and ``ST``.
+"""slepc4py-shaped facade over the PyTorch port: ``EPS``, ``ST`` and ``SVD``.
 
-The port's counterpart of the EPS and ST part of ``compat/slepc4py/SLEPc.py``
+The port's counterpart of ``compat/slepc4py/SLEPc.py``
 (the surface of ``petsc_funcs.py:13-20`` and ``test2.py:88-96``). ``solve``
 is collective. Under thread ranks (the runner's ``-n N``) the rank-0 thread
 runs the eigensolve on the port's virtual mesh and every rank shares its
@@ -10,7 +10,8 @@ queries, ``getEigenpair`` included, read host-replicated results and make no
 collective call, so a driver may call them on one rank only, as the
 reference ``test2.py`` does under ``if rank == 0``; ``computeError`` is
 collective under rank processes (the operator's product and one
-reduction), so every rank calls it.
+reduction), so every rank calls it. ``SVD.solve`` is collective in the same
+way, and its queries read host-replicated triplets.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from mpi_petsc4py_example_tpu_torch.solvers.eps import EPS as _CoreEPS
 from mpi_petsc4py_example_tpu_torch.solvers.eps import (EPSProblemType,
                                                         EPSWhich)
 from mpi_petsc4py_example_tpu_torch.solvers.st import ST as _CoreST
+from mpi_petsc4py_example_tpu_torch.solvers.svd import SVD as _CoreSVD
 
 from mpi4py import MPI as _MPI
 from petsc4py.PETSc import Mat as _Mat
@@ -172,6 +174,67 @@ class EPS:
         """Collective under rank processes: every rank calls it (one
         product of the operator and one reduction)."""
         return self._core.compute_error(i, etype)
+
+    def destroy(self):
+        return self
+
+    @property
+    def core(self):
+        return self._core
+
+
+class SVD:
+    """Singular value solver handle (fronts the port's ``SVD``)."""
+
+    Which = _CoreSVD.Which
+
+    def __init__(self):
+        self._core = _CoreSVD()
+        self._comm = None
+
+    def create(self, comm=None):
+        self._comm = _mpi_comm(comm)
+        self._core.create(self._comm.device_comm)
+        return self
+
+    def setOperator(self, A: _Mat):
+        self._core.set_operator(A.core)
+
+    def setDimensions(self, nsv=None, ncv=None, mpd=None):
+        self._core.set_dimensions(nsv=nsv, ncv=ncv)
+
+    def setTolerances(self, tol=None, max_it=None):
+        self._core.set_tolerances(tol=tol, max_it=max_it)
+
+    def setWhichSingularTriplets(self, which):
+        self._core.set_which_singular_triplets(which)
+
+    def setFromOptions(self):
+        self._core.set_from_options()
+
+    def solve(self):
+        """Collective, as ``EPS.solve``."""
+        comm = self._comm or _MPI.COMM_WORLD
+
+        def build(_):
+            self._core.solve()
+            return self._core
+
+        self._core = comm._collective("svd_solve", None, build)
+
+    def getConverged(self):
+        return self._core.get_converged()
+
+    def getValue(self, i):
+        return self._core.get_value(i)
+
+    def getSingularTriplet(self, i, U=None, V=None):
+        return self._core.get_singular_triplet(
+            i, U.core if isinstance(U, _Vec) else U,
+            V.core if isinstance(V, _Vec) else V)
+
+    def getIterationNumber(self):
+        return self._core.get_iteration_number()
 
     def destroy(self):
         return self

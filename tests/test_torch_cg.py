@@ -327,8 +327,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           if n.split(".")[0] in forbidden]
     sources = _port_sources()
     assert len(sources) > 15
-    # the facade, its drivers, the runner, the eigensolver and the
-    # shell/null-space/binary-I/O modules are port files too
+    # the facade, its drivers, the runner, the eigensolver, the SVD and
+    # the shell/null-space/binary-I/O modules are port files too
     names = {p.relative_to(REPO).as_posix() for p in sources}
     assert {"mpi_petsc4py_example_tpu_torch/run.py",
             "mpi_petsc4py_example_tpu_torch/facade/petsc4py/PETSc.py",
@@ -339,6 +339,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_petsc4py_example_tpu_torch/facade/slepc4py/SLEPc.py",
             "mpi_petsc4py_example_tpu_torch/facade/petsc_funcs.py",
             "mpi_petsc4py_example_tpu_torch/solvers/eps.py",
+            "mpi_petsc4py_example_tpu_torch/solvers/svd.py",
             "mpi_petsc4py_example_tpu_torch/solvers/st.py",
             "mpi_petsc4py_example_tpu_torch/solvers/refine.py",
             "mpi_petsc4py_example_tpu_torch/solvers/tridiag.py",

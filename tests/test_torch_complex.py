@@ -13,7 +13,8 @@ the norms and ``residual_norm`` are ``float``s, ``mult_transpose`` is the
 plain transpose. The real path is held bit for bit: on real tensors every
 reduction this slice changed (``vdot``, the conjugated Gram and basis
 projections, the complex Givens rotation) equals the real one it replaced.
-Unported complex features (SVD, gamg) raise naming ROADMAP.md item 7.
+Gamg, not ported yet, raises naming ROADMAP.md item 7; the complex SVD is
+held in ``tests/test_torch_svd.py``.
 """
 
 import os
@@ -476,12 +477,6 @@ def test_complex_stencil_raises_naming_item_5_8(dtype):
     raises, naming its ROADMAP.md item, and never runs elsewhere."""
     with pytest.raises(NotImplementedError, match="item 5.8"):
         pt.StencilPoisson3D(pt.DeviceComm(2, device="cpu"), 8, dtype=dtype)
-
-
-def test_svd_raises_naming_item_7():
-    """The JAX package's complex SVD (``TestComplexSVD``) has no port yet."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.SVD().create(pt.DeviceComm(8, device="cpu"))
 
 
 # ---- cyclic reduction -------------------------------------------------------

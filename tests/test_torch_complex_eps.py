@@ -9,8 +9,8 @@ problems, lanczos and lapack, ST shift/sinvert/cayley, the complex
 ``compute_error``; each against the JAX package's host loop
 (``TPU_SOLVE_EPS_FUSED=0``; complex never takes its fused program anyway)
 on the same shard count: restarts and nconv equal, eigenvalues within
-1e-10. The complex types the port lacks (lobpcg, power, subspace, arnoldi,
-gd) raise naming ROADMAP.md item 7.
+1e-10. LOBPCG, power, subspace and GD on complex operators are held in
+``tests/test_torch_eps_lobpcg.py`` and ``tests/test_torch_eps_types.py``.
 
 The fused program (``-ksp_megasolve``) on complex operators: its general
 plan against the unfused loop of the port (cg and pipecg bit for bit) and
@@ -218,16 +218,6 @@ def test_complex_eigenpair_extraction():
     assert np.linalg.norm(np.imag(v)) > 0
     assert np.allclose(vi.to_numpy(), 0)
     assert np.linalg.norm(H @ v - lam.real * v) < 1e-8
-
-
-@pytest.mark.parametrize("eps_type", ["lobpcg", "power", "subspace",
-                                      "arnoldi", "gd"])
-def test_unported_types_raise_naming_item_7(eps_type):
-    """The JAX package runs these on complex operators
-    (``test_eps_lobpcg_complex_hermitian``, ``_ghep``,
-    ``test_power_subspace_complex_dominant``); the port does not yet."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.EPS().set_type(eps_type)
 
 
 # ---- the fused program ------------------------------------------------------

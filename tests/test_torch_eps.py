@@ -1,5 +1,9 @@
-"""The PyTorch port's eigensolver (EPS) and spectral transformations (ST)
-against the JAX package, on the CPU.
+"""The PyTorch port's eigensolver (EPS: Krylov-Schur, lanczos and lapack)
+and spectral transformations (ST) against the JAX package, on the CPU. The
+other five types, each with its routes (lobpcg and Hermitian subspace: the
+device route against the JAX package's fused loop, the host route against
+its host loop), are held in ``tests/test_torch_eps_lobpcg.py`` and
+``tests/test_torch_eps_types.py``, the SVD in ``tests/test_torch_svd.py``.
 
 Both packages solve the same numpy problem: the JAX side on the forced
 8-device CPU mesh of ``conftest.py``, the port on its CPU virtual mesh with
@@ -33,6 +37,7 @@ import jax.numpy as jnp  # noqa: E402
 import mpi_petsc4py_example_tpu as tps  # noqa: E402
 from mpi_petsc4py_example_tpu.models.stencil import (  # noqa: E402
     StencilPoisson3D as JaxStencil)
+from mpi_petsc4py_example_tpu.solvers import eps as jax_eps  # noqa: E402
 from mpi_petsc4py_example_tpu.solvers.st import ST as JaxST  # noqa: E402
 
 import mpi_petsc4py_example_tpu_torch as pt  # noqa: E402
@@ -599,15 +604,15 @@ def test_options_drive_a_solve():
     assert out[1].get_converged() >= 4
 
 
-@pytest.mark.parametrize("eps_type", port_eps.UNPORTED_TYPES)
-def test_unported_types_raise(eps_type):
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        pt.EPS().set_type(eps_type)
-    pt.init(["prog", "-eps_type", eps_type])
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        pt.EPS().set_from_options()
+def test_unknown_type_raises():
+    """A type neither package has raises in both, naming it."""
+    for pkg in (tps, pt):
+        with pytest.raises(ValueError, match="unknown EPS type 'jd'"):
+            pkg.EPS().set_type("jd")
+    pt.init(["prog", "-eps_type", "jd"])
     with pytest.raises(ValueError, match="unknown EPS type"):
-        pt.EPS().set_type("jd")
+        pt.EPS().set_from_options()
+    assert set(port_eps.EPS_TYPES) == set(jax_eps.EPS_TYPES)
 
 
 def test_defaults_match_jax():

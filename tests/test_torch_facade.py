@@ -369,22 +369,30 @@ ADVANCED = DRIVERS / "advanced.py"
 
 def test_advanced_flow_prints_what_the_jax_example_prints(monkeypatch,
                                                           capsys):
-    """Scenarios 1-3 of ``examples/advanced.py`` (a ShellMat, composite
-    jacobi+sor under FGMRES, a PETSc binary round trip): the port's driver
-    prints the JAX example's lines, reasons, iteration counts and errors;
-    the errors are at most 1e-8."""
+    """The four scenarios of ``examples/advanced.py`` (a ShellMat,
+    composite jacobi+sor under FGMRES, a PETSc binary round trip, LOBPCG's
+    3 smallest pairs): the port's driver prints the JAX example's lines,
+    reasons, iteration counts, errors, pairs and smallest eigenvalue; the
+    errors are at most 1e-8. The worst residual is the third pair's, which
+    LOBPCG stops just under its tolerance 1e-8 at an iteration that turns on
+    rounding (the JAX example prints 9.5e-09, 9.4e-09, 9.1e-09 and 9.0e-09
+    on 1, 2, 4 and 8 devices), so both are held below 1e-8 instead."""
     import runpy
     monkeypatch.setattr(sys, "argv", ["advanced.py"])
     with pytest.raises(SystemExit) as done:
         runpy.run_path(str(REPO / "examples" / "advanced.py"),
                        run_name="__main__")
     assert done.value.code == 0
-    jax_lines = capsys.readouterr().out.strip().splitlines()[:3]
+    jax_lines = capsys.readouterr().out.strip().splitlines()[:4]
     from mpi_petsc4py_example_tpu_torch.facade.drivers import advanced
     assert advanced.main(["advanced.py"], device="cpu") == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines == jax_lines
-    assert all("CONVERGED" in line for line in lines)
+    assert lines[:3] == jax_lines[:3]
+    assert all("CONVERGED" in line for line in lines[:3])
+    head, worst = lines[3].split("worst residual")
+    jhead, jworst = jax_lines[3].split("worst residual")
+    assert head == jhead and head.startswith("4. lobpcg: 3 pairs, lambda_m")
+    assert float(worst) <= 1e-8 and float(jworst) <= 1e-8
     errs = [float(line.split("max err")[1]) for line in lines
             if "max err" in line]
     assert len(errs) == 2 and max(errs) <= 1e-8
