@@ -100,7 +100,9 @@ before each and read just after:
   with a null space, CGNE on ``convdiff2d(1024)`` and PC lu crtri at 2^20);
   the ``test.py`` and ``test2.py`` flows through ``run.py --procs`` at -n 1
   (NCCL), 2 and 4 (gloo), and the 128^3 f32 CG + Jacobi as cg, pipecg and
-  sstep s = 4 on both (psums and shifts an iteration);
+  sstep s = 4 on both (psums and shifts an iteration); the no-argument run
+  takes these process cases at 64^3 and 128^3 (``PROCS_NX_FULL``,
+  ``PROCS_BIG_FULL``), ``--procs`` at 128^3 and 512^3;
 * the Krylov types of ROADMAP Queue A item 5 (no kernel of their own; they
   launch rows 1, 2, 9, 2b and 9b): every type at 128^3 f32 with PC jacobi
   beside cg (iterations, reason, the fp64 true relres held to bench.py's
@@ -203,7 +205,25 @@ before each and read just after:
   against sqrt of the Laplacian's closed form, within 1e-8); (g) the
   advanced tour's four lines. The dense references run in worker
   processes meanwhile.
+* PC gamg (``--gamg``; no kernel of its own: the V-cycle's products are
+  torch gathers and row sums): CG + gamg and CG + Jacobi on the 64^3 AIJ
+  Poisson in fp64 at rtol 1e-8 (levels, iterations and their ratio under a
+  third, fp64 relres against scipy's CG, warm ms an iteration, host syncs,
+  the set-up split, peak memory), the same solve on a CPU ``DeviceComm``
+  within one iteration, one V-cycle bit-equal twice and on
+  ``DeviceComm(4)``, and the complex128 Hermitian Laplacian at 32^2;
+  ``--gamg-128`` runs the 128^3 AIJ instead (not in the no-argument run).
+* the asynchronous multisplit tier (``--multisplit``; no kernel of its
+  own): (a) cfg16's shape (``benchmarks/run_all.py:1931-2080``), n = 4096,
+  4 blocks on one card, the synchronous cg/pipecg/sstep walls and the async
+  solve under seeded ``comm.delay`` jitter of 0, 5, 20 and 50 ms, the
+  modelled synchronous walls and the jitter crossover, every fp64 relres
+  <= 1e-10; (b) a served ``multisplit=True`` session with a QoS-interactive
+  request under the tightened bound; (c) ``device.lost`` on a block's id
+  mid-solve: re-homed, no version back to 0, ``multisplit.block_lost`` 1.
 
+``python3 chip_smoke.py --gamg`` (``--gamg-128``) and ``--multisplit`` run
+only those phases, with no kernel check (neither path launches one).
 ``python3 chip_smoke.py --eps-types`` builds the kernels, checks rows 2, 9
 and 10 and runs only those phases (a)-(g); ``--gd-sizes`` runs GD on (c)'s
 problem at 128^3 down to 24^3, each under a 20 s budget.
@@ -4593,6 +4613,12 @@ def phase_surface():
 # ---- the process communicator (one process per rank, torch.distributed) ----
 
 PROCS_RTOL = 1e-6
+# the no-argument run's depth of the process phases (``--procs``: 128, 512;
+# (c), the 2 x 1 case, at 128 beside the others' 64): the gloo ranks'
+# iterations are latency-bound (10-15 ms a psum), so halving the grid halves
+# their walls; the paths and checks are the same
+PROCS_NX_FULL = 64
+PROCS_BIG_FULL = 128
 
 
 # every rank launch of this run, stopped at its end (:func:`stop_background`)
@@ -4793,8 +4819,8 @@ def bits_or_close(label, got, want, key="x", tol=1e-12):
     return same, diff
 
 
-def procs_eps(label, got, ref, local_shards, card):
-    """The 128^3 EPS on a process comm against ``DeviceComm`` in this
+def procs_eps(label, got, ref, local_shards, card, nx=EPS_NX):
+    """The ``nx``^3 EPS on a process comm against ``DeviceComm`` in this
     process: restarts and reason equal, lambda within 1e-9 of the closed
     form, the pairs bit for bit (or within 1e-12, reported), and
     ``stencil7_apply`` launched ``local_shards`` times the Krylov-Schur
@@ -4804,7 +4830,7 @@ def procs_eps(label, got, ref, local_shards, card):
           int(ref["reason"]) > 0,
           f"{label}: restarts {restarts} reason {int(got['reason'])} != "
           f"{int(ref['its'])} {int(ref['reason'])}")
-    want = stencil_extremes(EPS_NX)[0]
+    want = stencil_extremes(nx)[0]
     lam = float(np.real(got["lam"][0]))
     rel = abs(lam - want) / want
     check(rel <= 1e-9, f"{label}: lambda {lam!r} rel err {rel} vs the "
@@ -4825,7 +4851,7 @@ def procs_eps(label, got, ref, local_shards, card):
            "psums_per_restart": int(got["calls_psum"]) / restarts,
            "shifts_per_restart": int(got["calls_shift"]) / restarts,
            "host_copies": int(got["host_copies_total"])}
-    log(f"{label}, 128^3 fp64 Krylov-Schur ncv 16: {restarts} "
+    log(f"{label}, {nx}^3 fp64 Krylov-Schur ncv 16: {restarts} "
         f"restarts (= DeviceComm), lambda {lam!r} (closed form {want!r}, "
         f"rel err {rel:.3e}), lambda bit-equal {lam_bits} (diff "
         f"{lam_diff:.3e}), vector bit-equal {vec_bits} (diff "
@@ -4862,11 +4888,11 @@ def procs_stack(label, got, ref, card, extra=""):
     return out
 
 
-def refine_relres(x):
-    """cfg11's fp64 relative residual of the 128^3 refinement case (its
+def refine_relres(x, nx=EPS_NX):
+    """cfg11's fp64 relative residual of the ``nx``^3 refinement case (its
     right-hand side as the parity driver makes it)."""
     import mpi_petsc4py_example_tpu_torch as pt
-    A = pt.poisson3d_csr(EPS_NX).astype(np.float64).tocsr()
+    A = pt.poisson3d_csr(nx).astype(np.float64).tocsr()
     b = A @ np.random.default_rng(4).random(A.shape[0])
     return true_relres(A, x, b)
 
@@ -4949,7 +4975,7 @@ def finish_flows(started, note):
     return out
 
 
-def phase_procs(res_cases=(), mega=False, flows=()):
+def phase_procs(res_cases=(), mega=False, flows=(), nx=128, big=512):
     """The process communicator on the card (``--procs``): (a) one process
     over NCCL holding 4 shards against DeviceComm(4), 128^3 f32 CG + jacobi;
     (b) two processes over gloo on the one card, 2 shards each, against
@@ -4967,7 +4993,9 @@ def phase_procs(res_cases=(), mega=False, flows=()):
     and (b); their results go to ``_RES_PROCS_GOT``. With ``mega`` the
     fused program's process cases (``megasolve_procs_cases``) ride them
     too, checked here (``out["megasolve"]``). ``flows``: more flows (see
-    :func:`flow_specs`) started with (d).
+    :func:`flow_specs`) started with (d). ``nx`` and ``big`` are the grids
+    written 128^3 and 512^3 above, and 128^3 the fused cases' grid: the
+    no-argument run takes ``PROCS_NX_FULL`` and ``PROCS_BIG_FULL``.
 
     The launches start at once: (a), and (b) split over four gloo launches
     of 2 processes; the DeviceComm references run in this process
@@ -4982,26 +5010,27 @@ def phase_procs(res_cases=(), mega=False, flows=()):
              for c in res_cases]
     res_b = [dict(c, name="b_" + c["name"], local_shards=2)
              for c in res_cases]
-    mega_cases, auto = megasolve_procs_cases() if mega else ([], None)
+    mega_cases, auto = megasolve_procs_cases(nx) if mega else ([], None)
     mega_a = [dict(c, name="a_mega_" + c["name"], local_shards=4)
               for c in mega_cases + [auto]] if mega else []
     mega_b = [dict(c, name="b_mega_" + c["name"], local_shards=2)
               for c in mega_cases + [auto]] if mega else []
     # solved twice, the second timed: a rank process starts cold
-    cg128 = dict(kind="cg", grid=[128] * 3, pc="jacobi", dtype="f32",
+    cg128 = dict(kind="cg", grid=[nx] * 3, pc="jacobi", dtype="f32",
                  rtol=PROCS_RTOL, time_psum=True, repeat=2)
     # (a) one process, NCCL, world size 1, 4 local shards
     case_a = dict(cg128, name="a_cg128", local_shards=4)
-    eps_a = dict(EPS_PROCS, name="a_eps128", local_shards=4)
+    eps_a = dict(EPS_PROCS, name="a_eps128", grid=[nx] * 3,
+                 local_shards=4)
     plans_a = plan_cases(cg128, "a", 4)
     cx_a = complex_procs_cases(4, "a")
     # (b) two processes over gloo, 2 shards each, against DeviceComm(4);
     # (c) rides the second launch: 512^3 on 2 processes x 1 shard
     cases_b = [dict(cg128, name="b_cg128", local_shards=2),
-               dict(kind="many", name="b_many_fast", grid=[128] * 3,
+               dict(kind="many", name="b_many_fast", grid=[nx] * 3,
                     pc="jacobi", dtype="f32", rtol=PROCS_RTOL, k=K_BATCH,
                     route="fast", local_shards=2),
-               dict(kind="many", name="b_many_general", grid=[128] * 3,
+               dict(kind="many", name="b_many_general", grid=[nx] * 3,
                     pc="jacobi", dtype="f32", rtol=PROCS_RTOL, k=K_BATCH,
                     route="general", local_shards=2),
                dict(kind="cg", name="b_mg64", grid=[64] * 3, pc="mg",
@@ -5010,18 +5039,19 @@ def phase_procs(res_cases=(), mega=False, flows=()):
                dict(kind="aij", name="b_cfg4_bjacobi", op="cfg4",
                     ksp="bcgs", pc="bjacobi", local_shards=2)]
     # the rest of the stack (ROADMAP item 4b)
-    stack_b = [dict(EPS_PROCS, name="b_eps128", local_shards=2)] + [
-        dict(kind="refine", name=f"b_refine_{prec}", grid=[EPS_NX] * 3,
+    stack_b = [dict(EPS_PROCS, name="b_eps128", grid=[nx] * 3,
+                    local_shards=2)] + [
+        dict(kind="refine", name=f"b_refine_{prec}", grid=[nx] * 3,
              prec=prec, rtol=1e-10, local_shards=2)
         for prec in ("f32", "bf16")] + [
-        dict(kind="aij", name="b_neumann128", op="neumann128", ksp="cg",
+        dict(kind="aij", name="b_neumann128", op=f"neumann{nx}", ksp="cg",
              pc="jacobi", nullspace=True, rtol=1e-8, local_shards=2),
         dict(kind="aij", name="b_cgne_convdiff1024", op="convdiff1024",
              ksp="cgne", pc="jacobi", rtol=1e-6, max_it=300,
              local_shards=2),
         dict(kind="aij", name="b_lu_crtri_2p20", op="tri2p20",
              ksp="preonly", pc="lu", local_shards=2)]
-    case_c = dict(kind="cg", name="c_cg512", grid=[512] * 3, pc="jacobi",
+    case_c = dict(kind="cg", name="c_cg512", grid=[big] * 3, pc="jacobi",
                   dtype="f32", rtol=PROCS_RTOL, local_shards=1,
                   true_res=True, keep_x=False, time_psum=True)
     plans_b = plan_cases(cg128, "b", 2)
@@ -5029,12 +5059,13 @@ def phase_procs(res_cases=(), mega=False, flows=()):
     flow_specs_all = [s for flow in ("test.py", "test2.py")
                       for s in flow_specs(flow, procs=True)] + list(flows)
     # gloo is bound by its latency: (b) runs as four launches of 2
-    # processes; the fault-injecting cases last in their launches
+    # processes, the complex case beside (c), the fault-injecting cases one
+    # at the end of each of the first three launches
     started_a = start_parity(1, [case_a, eps_a] + plans_a + cx_a + mega_a
                              + res_a)
     started_b = [start_parity(2, cases, backend="gloo") for cases in (
-        cases_b + plans_b + cx_b + res_b, stack_b, [case_c], mega_b)
-        if cases]
+        cases_b + plans_b + res_b[:1], stack_b + res_b[1:2],
+        [case_c] + cx_b + res_b[2:], mega_b) if cases]
     # the references on DeviceComm(4): one run of each case, under the
     # names of both launches
     twins = [(case_a, cases_b[0]), (eps_a, stack_b[0])] + list(
@@ -5051,7 +5082,7 @@ def phase_procs(res_cases=(), mega=False, flows=()):
                                   for c in res_cases}
     ref = refs_a["a_cg128"]
     got = got_a["a_cg128"]
-    its, _ = procs_compare("(a) 128^3 CG+jacobi, nccl 1 x 4", got, ref)
+    its, _ = procs_compare(f"(a) {nx}^3 CG+jacobi, nccl 1 x 4", got, ref)
     check(str(got["backend"]) == "nccl", f"(a) backend {got['backend']}")
     dots = int(got["launches_stencil3d_dot"])
     check(dots == 4 * (its[0] + 1),
@@ -5063,7 +5094,7 @@ def phase_procs(res_cases=(), mega=False, flows=()):
                 "psum_us": float(got["psum_us"]),
                 "psum_us_virtual": float(ref["psum_us"]),
                 "launch_wall_s": wall}
-    log(f"procs (a) nccl, 1 process x 4 shards, 128^3 f32 CG+jacobi: "
+    log(f"procs (a) nccl, 1 process x 4 shards, {nx}^3 f32 CG+jacobi: "
         f"{its[0]} iterations (= DeviceComm(4), x bit-equal), "
         f"stencil7_dot {dots} = 4 x (its + 1), "
         f"{out['a']['ms_per_iter']:.4f} ms/iter vs "
@@ -5071,7 +5102,7 @@ def phase_procs(res_cases=(), mega=False, flows=()):
         f"{out['a']['psum_us']:.1f} us vs {out['a']['psum_us_virtual']:.1f} "
         f"us (ended by a host read; the launches share the card); {card}")
     out["a"]["eps"] = procs_eps("procs (a) nccl 1 x 4", got_a["a_eps128"],
-                                refs_a["a_eps128"], 4, card)
+                                refs_a["a_eps128"], 4, card, nx)
     out["a"]["plans"] = procs_plans("(a) nccl 1 x 4", got_a, refs_a,
                                     plans_a, card)
     out["a"]["complex"] = complex_procs_check("(a) nccl 1 x 4", got_a,
@@ -5126,12 +5157,12 @@ def phase_procs(res_cases=(), mega=False, flows=()):
                                               got, refs, cx_b, card)
     out["b"]["eps"] = procs_eps(f"procs (b) gloo 2 x 2 ({one})",
                                 got["b_eps128"],
-                                refs["b_eps128"], 2, card)
+                                refs["b_eps128"], 2, card, nx)
     for c in stack_b[1:]:
         g, r = got[c["name"]], refs[c["name"]]
         extra = ""
         if c["kind"] == "refine":
-            rr = refine_relres(g["x"])
+            rr = refine_relres(g["x"], nx)
             extra = (f", {int(g['steps'])} outer steps, fp64 relres "
                      f"{rr:.3e}")
             if c["prec"] == "f32":
@@ -5139,7 +5170,7 @@ def phase_procs(res_cases=(), mega=False, flows=()):
             else:
                 check(int(g["launches_stencil3d_dot_bf16"]) > 0,
                       f"{c['name']}: row 1b never launched")
-        if c.get("op") == "neumann128":
+        if c.get("op") == f"neumann{nx}":
             mean = float(np.mean(g["x"]))
             extra = f", mean(x) {mean:.3e}"
             check(abs(mean) <= 1e-10 * float(np.abs(g["x"]).max()),
@@ -5149,13 +5180,13 @@ def phase_procs(res_cases=(), mega=False, flows=()):
         if c["kind"] == "refine":
             out["b"][c["name"]]["relres"] = rr
     g = got["c_cg512"]
-    its, _ = procs_compare("(c) 512^3 CG+jacobi, gloo 2 x 1", g, ref_c,
+    its, _ = procs_compare(f"(c) {big}^3 CG+jacobi, gloo 2 x 1", g, ref_c,
                            bits=False)
     true_res, bnorm = float(g["true_res"]), float(g["bnorm"])
     check(true_res <= 10 * PROCS_RTOL * bnorm,
           f"(c) fp64 true residual {true_res} > 10 rtol ||b|| "
           f"({10 * PROCS_RTOL * bnorm})")
-    plane_bytes = 512 * 512 * 4
+    plane_bytes = big * big * 4
     out["c"] = {"iterations": its[0], "true_res": true_res, "bnorm": bnorm,
                 "ms_per_iter": ms_per_iter(g),
                 "ms_per_iter_virtual": ms_per_iter(ref_c),
@@ -5165,7 +5196,7 @@ def phase_procs(res_cases=(), mega=False, flows=()):
                 "psum_us_virtual": float(ref_c["psum_us"]),
                 "halo_bytes_per_exchange": 2 * plane_bytes}
     log(f"procs (c) gloo, 2 processes x 1 shard on ONE card (shared, not "
-        f"scaling), 512^3 f32 CG+jacobi: {its[0]} iterations (= "
+        f"scaling), {big}^3 f32 CG+jacobi: {its[0]} iterations (= "
         f"DeviceComm(2)), fp64 true residual {true_res:.3e} <= 10 rtol "
         f"||b|| = {10 * PROCS_RTOL * bnorm:.3e}, "
         f"{out['c']['ms_per_iter']:.4f} ms/iter with "
@@ -5184,7 +5215,7 @@ def phase_procs(res_cases=(), mega=False, flows=()):
             got_m = {c["name"]: got_m[prefix + c["name"]]
                      for c in mega_cases + [auto]}
             out["megasolve"][label] = megasolve_procs_check(
-                label, got_m, mega_ref, mega_cases, auto, captured)
+                label, got_m, mega_ref, mega_cases, auto, captured, nx)
             out["megasolve"][label]["launch_wall_s"] = wall_m
     # (d) the test.py and test2.py flows through the runner's process mode
     out["d"] = finish_flows(
@@ -5300,8 +5331,12 @@ KSP_TYPE_RUNS = [
     ("tfqmr", "tfqmr", {}, True), ("bcgsl", "bcgsl", {}, True),
     ("fbcgs", "fbcgs", {}, True), ("fbcgsr", "fbcgsr", {}, False)]
 KSP_MAX_IT = 2000
-# the cap of the runs that stagnate in f32 (reported, not held to rtol)
-KSP_MAX_IT_REPORTED = 1000
+# the cap of the runs that stagnate in f32 (reported, not held to rtol;
+# 1000 before PR 23)
+KSP_MAX_IT_REPORTED = 400
+# pipecg and sstep s = 4 stagnate in f32 at 512^3 and stop at this cap (600
+# before PR 23; their delta-method times do not depend on it)
+KSP_512_MAX_IT = 300
 # vector passes an iteration of the f32 Jacobi solves at 512^3, counted from
 # the code (each operand read once, each result written once; the stencil
 # apply 2): cg's fast path 14 (Adot 2, x and r updates 3 each, <r, r> 1,
@@ -5469,10 +5504,10 @@ def phase_ksp_types_128(card, oracle=None):
 
 def phase_ksp_types_512(card):
     """512^3 f32 (cfg5's grid), PC jacobi, rtol 1e-6: cg, pipecg and sstep
-    s = 4 to rtol or max_it 600 (fp64 true relres; cg's held to 10 rtol,
-    the other two, which stagnate in f32, reported), then the delta-method
-    ms an iteration against the passes counted from the code over the
-    11-pass bound; host syncs, launches, peak memory."""
+    s = 4 to rtol or max_it ``KSP_512_MAX_IT`` (fp64 true relres; cg's held
+    to 10 rtol, the other two, which stagnate in f32, reported), then the
+    delta-method ms an iteration against the passes counted from the code
+    over the 11-pass bound; host syncs, launches, peak memory."""
     import torch
     import mpi_petsc4py_example_tpu_torch as pt
     from mpi_petsc4py_example_tpu_torch.ops import stencil as st
@@ -5488,8 +5523,8 @@ def phase_ksp_types_512(card):
     out = {}
     for label, t, attrs in (("cg", "cg", {}), ("pipecg", "pipecg", {}),
                             ("sstep s=4", "sstep", {"sstep_s": 4})):
-        ksp = ksp_solver(comm, op, t, max_it=600 if t != "cg" else 1200,
-                         **attrs)
+        ksp = ksp_solver(comm, op, t, max_it=KSP_512_MAX_IT if t != "cg"
+                         else 1200, **attrs)
         x.zero()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6242,7 +6277,8 @@ def megasolve_procs_cases(nx=128):
     return cases, auto
 
 
-def megasolve_procs_check(label, got, ref, cases, auto, captured):
+def megasolve_procs_check(label, got, ref, cases, auto, captured,
+                          nx=128):
     """Each fused case bit-equal to the virtual mesh's, with its steps and
     replays, CUDA graphs where ``captured``; the autoselect case's
     latencies, ranking and choice. Returns the rows."""
@@ -6270,7 +6306,7 @@ def megasolve_procs_check(label, got, ref, cases, auto, captured):
            "ranking": json.loads(str(a["ranking"])),
            "its": int(np.atleast_1d(a["its"])[0]),
            "reason": int(np.atleast_1d(a["reason"])[0])}
-    log(f"autoselect {label} 128^3 f32 cg+jacobi: psum {row['psum_us']:.2f} "
+    log(f"autoselect {label} {nx}^3 f32 cg+jacobi: psum {row['psum_us']:.2f} "
         f"us, apply {row['apply_us']:.2f} us, choice {row['choice']} "
         f"s={row['s']} ({row['its']} iterations, reason {row['reason']}); "
         "ranking " + ", ".join(f"{r['ksp_type']}{r['s'] or ''} "
@@ -6308,7 +6344,7 @@ def phase_megasolve_procs(nx=128):
             nprocs, [dict(c, local_shards=local) for c in cases + [auto]],
             backend)
         out[label] = megasolve_procs_check(label, got, ref, cases, auto,
-                                           backend == "nccl")
+                                           backend == "nccl", nx)
         out[label]["launch_wall_s"] = wall
     return out
 
@@ -8755,6 +8791,424 @@ def phase_fleet():
     return out, launches
 
 
+# ---- PC gamg and the asynchronous multisplit tier (items 7.6, 7.4) ----------
+
+GAMG_NX = 64              # the 64^3 AIJ Poisson: 262,144 rows, fp64
+GAMG_RTOL = 1e-8
+GAMG_COMPLEX_NX = 32      # tests/test_complex.py:279's operator at 32^2
+MS_N = 4096               # cfg16's shape (benchmarks/run_all.py:1931-2080)
+MS_BLOCKS = 4
+MS_INNER_RTOL = 1e-4
+MS_RTOL = 1e-10
+MS_JITTER_US = (0, 5_000, 20_000, 50_000)
+
+
+def gamg_ksp(comm, mat, pc_type="gamg", rtol=GAMG_RTOL):
+    import mpi_petsc4py_example_tpu_torch as pt
+    ksp = pt.KSP().create(comm)
+    ksp.set_operators(mat)
+    ksp.set_type("cg")
+    ksp.get_pc().set_type(pc_type)
+    ksp.set_tolerances(rtol=rtol, atol=0.0, max_it=20000)
+    return ksp
+
+
+def gamg_solve(comm, mat, b, pc_type="gamg", rtol=GAMG_RTOL):
+    """CG + ``pc_type`` on ``mat``: (result, x, warm result, PC set-up s,
+    KSP); the warm solve repeats the first from zero."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    ksp = gamg_ksp(comm, mat, pc_type, rtol)
+    t0 = time.perf_counter()
+    ksp.set_up()
+    if comm.device.type == "cuda":
+        torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    bv = pt.Vec.from_global(comm, b, dtype=mat.dtype)
+    x, _ = mat.get_vecs()
+    res = ksp.solve(bv, x)
+    xh = x.to_numpy()
+    x.zero()
+    warm = ksp.solve(bv, x)
+    return res, xh, warm, setup, ksp
+
+
+def hermitian_poisson2d(n, theta=0.3):
+    """tests/test_complex.py:252: the gauge-phased 2D Laplacian, Hermitian
+    positive definite with complex off-diagonals."""
+    import scipy.sparse as sp
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson2d_csr
+    Pm = poisson2d_csr(n)
+    ph = np.exp(1j * theta)
+    U = sp.triu(Pm, 1)
+    return (sp.diags(Pm.diagonal()) + ph * U + np.conj(ph) * U.conj().T
+            ).tocsr()
+
+
+def vcycle_bits(comm, pc, r):
+    """One V-cycle of ``pc`` applied to the host vector ``r`` on ``comm``:
+    the host copy of ``z`` (its first ``n`` rows)."""
+    import torch
+    n = r.shape[0]
+    rd = comm.put_rows(r, torch.float64).view(comm.local_shards, -1)
+    z = pc.local_apply(comm, n)(rd)
+    return z.reshape(-1)[:n].cpu().numpy()
+
+
+def vcycle_profile(apply, r, calls=10):
+    """One V-cycle apply ``apply(r)``: its wall ms (host clock over
+    ``calls``, synced), its device busy ms and CUDA kernels a call
+    (``torch.profiler``), and the five kernels of most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    apply(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        apply(r)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            apply(r)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / calls / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall, "busy_ms": busy,
+            "kernels": sum(e.count for e in ev) / calls,
+            "top": [(e.key[:70], e.self_device_time_total / calls / 1e3)
+                    for e in top]}
+
+
+def phase_gamg(nx=GAMG_NX):
+    """PC gamg on the card (item 7.6; ``--gamg``): CG + gamg and CG + Jacobi
+    on the ``nx^3`` AIJ 7-point Poisson in fp64 at rtol 1e-8, in one call:
+    the levels and their sizes, iterations and their ratio (the JAX test
+    asks for under a third of Jacobi's), the fp64 true relres against
+    scipy's fp64 CG (bench.py:334's parity rule), warm ms an iteration, host
+    syncs, the set-up split (strength, aggregation, prolongator, Galerkin,
+    upload, coarse inverse) and the peak device memory. The same solve on a
+    CPU ``DeviceComm`` of the port takes the same iterations within 1. One
+    V-cycle on the card is bit-equal when applied twice and on
+    ``DeviceComm(4)`` and one shard. Then CG + gamg on the complex128
+    Hermitian Laplacian at 32^2 (tests/test_complex.py:279). No stencil
+    kernel is on this path: no launch counter may move."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson3d_csr
+    t_all = time.perf_counter()
+    card = card_line()
+    A = poisson3d_csr(nx).astype(np.float64)
+    n = A.shape[0]
+    b = A @ np.random.default_rng(23).random(n)
+    bnorm = float(np.linalg.norm(b))
+    comm = pt.DeviceComm()
+    m, assembly = assemble(comm, A, torch.float64)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res_g, x_g, warm_g, setup_g, ksp_g = gamg_solve(comm, m, b)
+    # what the gamg solve added to what the run held before it
+    peak = torch.cuda.max_memory_allocated() - base
+    pc = ksp_g.get_pc()
+    h = pc._amg
+    res_j, x_j, warm_j, _, _ = gamg_solve(comm, m, b, "jacobi")
+    moved = all_launches()
+    t0 = time.perf_counter()
+    x_ref, info = scipy_cg(A, b, GAMG_RTOL)
+    oracle_s = time.perf_counter() - t0
+    r_cpu = float(np.linalg.norm(b - A @ x_ref))
+    out = {"card": card, "n": n, "sizes": h.sizes, "levels": h.n_levels,
+           "assembly_s": assembly, "oracle_s": oracle_s}
+    for label, res, x, warm in (("gamg", res_g, x_g, warm_g),
+                                ("jacobi", res_j, x_j, warm_j)):
+        r = float(np.linalg.norm(b - A @ x))
+        parity = bool(r <= 10 * max(r_cpu, GAMG_RTOL * bnorm))
+        out[label] = {"iterations": res.iterations,
+                      "reason": res.reason_name, "relres": r / bnorm,
+                      "parity": parity, "host_syncs": res.host_syncs,
+                      "warm_ms_per_iter": warm.wall_time
+                      / max(warm.iterations, 1) * 1e3,
+                      "warm_iterations": warm.iterations}
+        check(res.converged, f"{nx}^3 CG+{label} did not converge: {res}")
+        check(parity, f"{nx}^3 CG+{label}: bench.py:334's parity rule "
+                      f"failed ({r:.3e} against scipy's {r_cpu:.3e})")
+        check(warm.iterations == res.iterations,
+              f"CG+{label}: the warm solve took {warm.iterations} "
+              f"iterations, the first {res.iterations}")
+    ratio = res_g.iterations / res_j.iterations
+    out.update(ratio=ratio, setup_s=setup_g,
+               setup_split=pc.setup_breakdown, peak_mib=peak / 2**20,
+               launches=moved, scipy_info=int(info),
+               scipy_relres=r_cpu / bnorm)
+    check(ratio < 1 / 3, f"gamg took {res_g.iterations} iterations, not "
+                         f"under a third of Jacobi's {res_j.iterations}")
+    check(not moved, f"a stencil kernel launched on the gamg path: {moved}")
+    log(f"gamg {nx}^3 fp64 AIJ ({card}): levels {h.sizes}, set-up "
+        f"{setup_g:.3f} s {pc.setup_breakdown}; CG+gamg {res_g.iterations} "
+        f"its ({res_g.reason_name}, relres {out['gamg']['relres']:.3e}, "
+        f"warm {out['gamg']['warm_ms_per_iter']:.4f} ms/iter, host syncs "
+        f"{res_g.host_syncs}); CG+jacobi {res_j.iterations} its (relres "
+        f"{out['jacobi']['relres']:.3e}, warm "
+        f"{out['jacobi']['warm_ms_per_iter']:.4f} ms/iter); ratio "
+        f"{ratio:.4f}; scipy fp64 CG relres {r_cpu / bnorm:.3e} in "
+        f"{oracle_s:.1f} s; peak device memory {peak / 2**20:.1f} MiB")
+    # the V-cycle's bits: twice on one shard, and on DeviceComm(4)
+    r = np.random.default_rng(24).standard_normal(n)
+    z1 = vcycle_bits(comm, pc, r)
+    z1b = vcycle_bits(comm, pc, r)
+    comm4 = pt.DeviceComm(4)
+    pc4 = pt.PC(comm4).set_type("gamg")
+    pc4.set_up(pt.Mat.from_scipy(comm4, A, dtype=torch.float64))
+    z4 = vcycle_bits(comm4, pc4, r)
+    check(pc4._amg.sizes == h.sizes, "DeviceComm(4) built other levels")
+    check(np.array_equal(z1, z1b), "one V-cycle twice: the bits differ")
+    check(np.array_equal(z1, z4), "one V-cycle on DeviceComm(4) and on one "
+          f"shard: bits differ (max {np.abs(z1 - z4).max():.3e})")
+    out["vcycle_bits_equal"] = {"twice": True, "shards_4_vs_1": True}
+    rd = comm.put_rows(r, torch.float64).view(comm.local_shards, -1)
+    out["vcycle"] = vcycle_profile(pc.local_apply(comm, n), rd)
+    log(f"gamg {nx}^3 one V-cycle: {out['vcycle']}")
+    # the same solve on the CPU, the port's plain route
+    comm_c = pt.DeviceComm(device="cpu")
+    mc = pt.Mat.from_scipy(comm_c, A, dtype=torch.float64)
+    t0 = time.perf_counter()
+    res_c, x_c, _, _, _ = gamg_solve(comm_c, mc, b)
+    out["cpu"] = {"iterations": res_c.iterations,
+                  "wall_s": time.perf_counter() - t0,
+                  "max_abs_diff_x": float(np.abs(x_c - x_g).max())}
+    check(abs(res_c.iterations - res_g.iterations) <= 1,
+          f"CG+gamg: {res_g.iterations} iterations on the card, "
+          f"{res_c.iterations} on the CPU")
+    log(f"gamg {nx}^3: V-cycle bit-equal twice and on DeviceComm(4); CPU "
+        f"DeviceComm {res_c.iterations} its, max|x_cpu - x_card| "
+        f"{out['cpu']['max_abs_diff_x']:.3e}")
+    # complex128: the Hermitian Laplacian at 32^2
+    Ah = hermitian_poisson2d(GAMG_COMPLEX_NX)
+    rng = np.random.default_rng(11)
+    xt = rng.random(Ah.shape[0]) + 1j * rng.random(Ah.shape[0])
+    bh = Ah @ xt
+    cx = {}
+    for label, cm in (("card", comm), ("cpu", comm_c)):
+        mh = pt.Mat.from_scipy(cm, Ah, dtype=torch.complex128)
+        res_h, x_h, _, _, _ = gamg_solve(cm, mh, bh, rtol=1e-10)
+        cx[label] = {"iterations": res_h.iterations,
+                     "reason": res_h.reason_name,
+                     "relres": float(np.linalg.norm(bh - Ah @ x_h)
+                                     / np.linalg.norm(bh)),
+                     "err": float(np.abs(x_h - xt).max())}
+        check(res_h.converged and cx[label]["relres"] <= 1e-10
+              and cx[label]["err"] <= 1e-7,
+              f"complex128 CG+gamg ({label}): {cx[label]}")
+    check(abs(cx["card"]["iterations"] - cx["cpu"]["iterations"]) <= 1,
+          f"complex128 CG+gamg iterations: {cx}")
+    out["complex128"] = cx
+    log(f"gamg complex128 Hermitian {GAMG_COMPLEX_NX}^2: {cx}")
+    out["wall_s"] = time.perf_counter() - t_all
+    check(not all_launches(), "a stencil kernel launched on the gamg path")
+    return out
+
+
+def phase_gamg_128(nx=128):
+    """``--gamg-128``: CG + gamg on the 128^3 AIJ Poisson (2,097,152 rows)
+    the AIJ phase builds, in fp64 at rtol 1e-8, with its set-up split (the
+    Python aggregation alone is tens of seconds here, so the no-argument run
+    leaves this out)."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.models.poisson import poisson3d_csr
+    A = poisson3d_csr(nx).astype(np.float64)
+    n = A.shape[0]
+    b = A @ np.random.default_rng(23).random(n)
+    comm = pt.DeviceComm()
+    m, assembly = assemble(comm, A, torch.float64)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, x, warm, setup, ksp = gamg_solve(comm, m, b)
+    pc = ksp.get_pc()
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    out = {"card": card_line(), "n": n, "sizes": pc._amg.sizes,
+           "iterations": res.iterations, "reason": res.reason_name,
+           "relres": relres, "setup_s": setup,
+           "setup_split": pc.setup_breakdown,
+           "warm_ms_per_iter": warm.wall_time / warm.iterations * 1e3,
+           "host_syncs": res.host_syncs,
+           "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+           "assembly_s": assembly}
+    check(res.converged and relres <= 10 * GAMG_RTOL,
+          f"{nx}^3 CG+gamg: {res}, relres {relres:.3e}")
+    log(f"gamg {nx}^3: {out}")
+    return out
+
+
+def ms_problem(n=MS_N):
+    """cfg16's operator and right-hand side: ``diags([-1, 4, -1])``, b = A x
+    with x from ``default_rng(16)``."""
+    import scipy.sparse as sp
+    A = sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1], shape=(n, n), format="csr")
+    return A, A @ np.random.default_rng(16).random(n)
+
+
+def phase_multisplit():
+    """The asynchronous tier on the card (item 7.4; ``--multisplit``), three
+    parts, on a ``DeviceComm`` of 4 ids, one block each, all on this card:
+
+    * (a) cfg16's shape: the synchronous walls of CG, pipecg and s-step
+      (s = 4) + Jacobi on the same ``Mat`` (the best of two warm solves),
+      then the async solve (4 blocks, inner rtol 1e-4, rtol 1e-10) under
+      ``comm.delay=delay:times=*:mean=J:seed=16`` for J in 0, 5, 20 and 50
+      ms; each synchronous wall modelled under jitter as cfg16 models it
+      (``J H_d`` a step, s-step ``J (1 + (H_d - 1)/sqrt(s))``), and the
+      jitter at which the async wall crosses the best modelled one. Every
+      solve's fp64 relres <= rtol. The blocks share one card: this is a
+      comparison, never a scaling claim;
+    * (b) a served multisplit session: ``SolveServer.register_operator(...,
+      multisplit=True)``, a default request and a QoS-interactive one, the
+      latter under the tightened ``-multisplit_urgent_stale`` bound;
+    * (c) the degrade: ``device.lost`` on block 2's id at its fourth inner
+      solve; no block's version returns to 0, the solve converges, and
+      ``multisplit.block_lost`` is 1."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.resilience import faults
+    from mpi_petsc4py_example_tpu_torch.solvers.multisplit import (
+        MultisplitSolver)
+    from mpi_petsc4py_example_tpu_torch.telemetry import metrics
+    t_all = time.perf_counter()
+    card = card_line()
+    A, b = ms_problem()
+    n = A.shape[0]
+    bnorm = float(np.linalg.norm(b))
+    comm = pt.DeviceComm(MS_BLOCKS)
+    ndev = comm.size
+    h_d = float(sum(1.0 / k for k in range(1, ndev + 1)))
+    reset_launches()
+    m = pt.Mat.from_scipy(comm, A, dtype=torch.float64)
+    bv = pt.Vec.from_global(comm, b, dtype=torch.float64)
+    sync = {}
+    for label, tp, s in (("cg", "cg", None), ("pipecg", "pipecg", None),
+                         ("sstep4", "sstep", 4)):
+        ksp = gamg_ksp(comm, m, "jacobi", MS_RTOL)
+        ksp.set_type(tp)
+        if s is not None:
+            ksp.sstep_s = s
+        x, _ = m.get_vecs()
+        ksp.solve(bv, x)                     # warm
+        best = float("inf")
+        for _ in range(2):
+            x.zero()
+            t0 = time.perf_counter()
+            res = ksp.solve(bv, x)
+            best = min(best, time.perf_counter() - t0)
+        rr = float(np.linalg.norm(b - A @ x.to_numpy()) / bnorm)
+        check(res.converged and rr <= 10 * MS_RTOL,
+              f"cfg16 {label}: {res}, relres {rr:.3e}")
+        factor = h_d if s is None else 1.0 + (h_d - 1.0) / float(s) ** 0.5
+        sync[label] = {"wall_s": best, "iters": res.iterations,
+                       "per_iter_us": best / res.iterations * 1e6,
+                       "relres": rr, "straggler_factor": factor}
+    ms = MultisplitSolver(comm, nblocks=MS_BLOCKS, rtol=MS_RTOL,
+                          inner_rtol=MS_INNER_RTOL).set_operator(A)
+    rows = {}
+    for j_us in MS_JITTER_US:
+        spec = f"comm.delay=delay:times=*:mean={j_us / 1e6}:seed=16"
+        with pt.inject_faults(spec):
+            t0 = time.perf_counter()
+            r = ms.solve(b)
+            wall = time.perf_counter() - t0
+        rr = float(np.linalg.norm(b - A @ r.x) / bnorm)
+        check(r.converged and rr <= MS_RTOL,
+              f"cfg16 async J={j_us} us: {r}, relres {rr:.3e}")
+        rows[str(j_us)] = {"wall_s": wall, "cut": r.cut_version,
+                           "outer_steps": list(r.block_steps),
+                           "resyncs": r.resyncs,
+                           "max_stale_seen": r.max_stale_seen,
+                           "relres": rr}
+    modelled = {label: {str(j): row["wall_s"] + row["iters"]
+                        * row["straggler_factor"] * j / 1e6
+                        for j in MS_JITTER_US}
+                for label, row in sync.items()}
+    diffs = [(j, rows[str(j)]["wall_s"]
+              - min(mm[str(j)] for mm in modelled.values()))
+             for j in MS_JITTER_US]
+    crossover = None
+    for (j0, d0), (j1, d1) in zip(diffs, diffs[1:]):
+        if d0 > 0 >= d1:
+            crossover = j0 + (j1 - j0) * d0 / (d0 - d1)
+            break
+    if crossover is None and diffs[0][1] <= 0:
+        crossover = 0.0
+    out = {"card": card, "n": n, "blocks": MS_BLOCKS, "h_d": h_d,
+           "sync": sync, "sync_modelled_wall_s": modelled, "async": rows,
+           "jitter_crossover_us": crossover,
+           "async_wins_at_top": diffs[-1][1] <= 0}
+    log(f"multisplit cfg16 n={n} ({card}): sync {sync}; async {rows}; "
+        f"modelled {modelled}; jitter_crossover_us {crossover}")
+    # (b) a served session, one default and one QoS-interactive request
+    srv = pt.SolveServer(comm, max_k=2)
+    bounds = []
+    try:
+        sess = srv.register_operator("ms", A, rtol=MS_RTOL, multisplit=True)
+        check(sess.schedule == "multisplit", "not the multisplit schedule")
+        solve = sess.multisplit.solve
+
+        def spy(*a, **kw):
+            bounds.append(kw.get("max_stale"))
+            return solve(*a, **kw)
+        sess.multisplit.solve = spy
+        served = {}
+        for qos in ("bulk", "interactive"):
+            t0 = time.perf_counter()
+            r = srv.submit("ms", b, qos=qos).result(timeout=60)
+            rr = float(np.linalg.norm(b - A @ r.x) / bnorm)
+            served[qos] = {"wall_s": time.perf_counter() - t0,
+                           "cut": r.iterations, "relres": rr,
+                           "reason": r.reason_name}
+            check(r.converged and rr <= MS_RTOL,
+                  f"served multisplit ({qos}): {r}, relres {rr:.3e}")
+    finally:
+        srv.shutdown(wait=True)
+    urgent = max(1, sess.multisplit.max_stale // 2)
+    check(bounds == [None, urgent], f"served staleness bounds {bounds}, "
+                                    f"not [None, {urgent}]")
+    out["served"] = dict(served, bounds=bounds)
+    log(f"multisplit served session: {out['served']}")
+    # (c) device.lost on block 2's id in the middle of a solve
+    metrics.registry.reset()
+    ms_d = MultisplitSolver(comm, nblocks=MS_BLOCKS, rtol=MS_RTOL,
+                            inner_rtol=MS_INNER_RTOL).set_operator(A)
+    victim = ms_d._blocks[2].device_id
+    try:
+        with pt.inject_faults(
+                f"device.lost=unavailable:device={victim}:at=4"):
+            t0 = time.perf_counter()
+            r = ms_d.solve(b)
+            wall = time.perf_counter() - t0
+    finally:
+        faults.heal()
+    versions = ms_d._exchange.versions()
+    lost = metrics.registry.counter("multisplit.block_lost").total()
+    rr = float(np.linalg.norm(b - A @ r.x) / bnorm)
+    out["degrade"] = {"wall_s": wall, "cut": r.cut_version,
+                      "versions": list(versions), "block_lost": lost,
+                      "rehomed_to": ms_d._blocks[2].device_id,
+                      "relres": rr,
+                      "reason": pt.ConvergedReason.name(r.reason)}
+    check(r.converged and rr <= MS_RTOL,
+          f"multisplit degrade: {r}, relres {rr:.3e}")
+    check(all(v >= r.cut_version > 0 for v in versions),
+          f"a block's version fell behind the cut: {versions}")
+    check(lost == 1, f"multisplit.block_lost is {lost}, not 1")
+    log(f"multisplit degrade: {out['degrade']}")
+    moved = all_launches()
+    check(not moved, f"a stencil kernel launched on the multisplit path: "
+                     f"{moved}")
+    out["wall_s"] = time.perf_counter() - t_all
+    return out
+
+
 def main():
     try:
         import torch
@@ -8972,6 +9426,17 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] in (["--gamg"], ["--gamg-128"], ["--multisplit"]):
+        # only PC gamg's phase (64^3, or the 128^3 AIJ with --gamg-128) or
+        # the asynchronous tier's; no kernel is on either path
+        phase = {"--gamg": phase_gamg, "--gamg-128": phase_gamg_128,
+                 "--multisplit": phase_multisplit}[sys.argv[1]]
+        print(json.dumps({sys.argv[1][2:]: timed(phase)}, default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--refine"]:
         # only the mixed-precision slice's phases
         entries, refine = phase_refine()
@@ -9045,7 +9510,8 @@ def main():
     # process cases, and start the thread-mode test.py/test2.py flows too
     procs = phase_procs(res_cases=RES_PROCS_CASES, mega=True,
                         flows=flow_specs("test.py", procs=False)
-                        + flow_specs("test2.py", procs=False))
+                        + flow_specs("test2.py", procs=False),
+                        nx=PROCS_NX_FULL, big=PROCS_BIG_FULL)
     print(json.dumps({"procs": procs}))
     lap("process communicator")
     # the Krylov types of item 5: rows 1, 2, 9, 2b and 9b
@@ -9075,6 +9541,11 @@ def main():
     fleet, fleet_launches = phase_fleet()
     print(json.dumps({"fleet": fleet}, default=float))
     lap("fleet")
+    # PC gamg (item 7.6) and the asynchronous tier (item 7.4): no kernel on
+    # either path, and no launch counter may move
+    print(json.dumps({"gamg": timed(phase_gamg)}, default=float))
+    print(json.dumps({"multisplit": timed(phase_multisplit)}, default=float))
+    lap("gamg and multisplit")
     chaos = res["c_chaos"]
     guarded_launches = {
         "stencil7_dot": (res["a_guarded_512"]["abft"]["stencil7_dot"],
@@ -9156,8 +9627,9 @@ def main():
             # the same Krylov-Schur on the process comm (NCCL, 1 process x
             # 4 shards): this process's launches
             kernels[-1]["launches_procs"] = procs["a"]["eps"]["launches"]
-            kernels[-1]["path_procs"] = ("128^3 fp64 Krylov-Schur ncv 16, "
-                                         "ProcessComm NCCL 1 x 4")
+            kernels[-1]["path_procs"] = (f"{PROCS_NX_FULL}^3 fp64 "
+                                         "Krylov-Schur ncv 16, ProcessComm "
+                                         "NCCL 1 x 4")
         if name == "stencil7_dot_many":
             kernels[-1]["dot_rel_err"] = worst["dot_many_rel"]
         if name in surface_launches:

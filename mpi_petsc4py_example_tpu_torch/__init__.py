@@ -24,6 +24,10 @@ admission control, resilient dispatch, the persistent request queue) and the
 fleet in front of it (``SolveRouter``: sessions sharded over replicas,
 migration, autoscale, heal; ``FleetManager``: replicas behind the RPC
 transport, the lease failure detector, failover and reconcile).
+``MultisplitSolver`` (``solvers/multisplit.py``) is the asynchronous
+two-stage multisplitting tier over the stale exchange (``StaleExchange``,
+``parallel/exchange.py``); the server's ``multisplit=True`` sessions run on
+it.
 ``resilience`` holds fault injection, the silent-corruption guard's ABFT
 checksums, ``resilient_solve``, ``KSPFallbackChain`` and the elastic
 shrink; ``utils.checkpoint`` the mesh-portable checkpoints; ``telemetry``
@@ -77,7 +81,8 @@ __all__ = ["DeviceComm", "ProcessComm", "init_multihost",
            "resilient_solve", "resilient_solve_many", "KSPFallbackChain",
            "ElasticPolicy",
            "SolveServer", "ServedSolveResult", "ServerClosedError",
-           "SolveRouter", "QoSClass", "AutoscalePolicy"]
+           "SolveRouter", "QoSClass", "AutoscalePolicy",
+           "MultisplitSolver", "MultisplitResult", "StaleExchange"]
 
 
 def __getattr__(name):
@@ -91,4 +96,11 @@ def __getattr__(name):
         # as JAX __init__.py:116-121
         from . import serving as _serving
         return getattr(_serving, name)
+    if name in ("MultisplitSolver", "MultisplitResult"):
+        # the asynchronous tier pulls in KSP: lazy, as JAX __init__.py:122
+        from .solvers import multisplit as _multisplit
+        return getattr(_multisplit, name)
+    if name == "StaleExchange":
+        from .parallel.exchange import StaleExchange
+        return StaleExchange
     raise AttributeError(name)

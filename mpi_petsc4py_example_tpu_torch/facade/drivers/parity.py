@@ -96,6 +96,7 @@ AIJ_OPERATORS = {
                       + 4.0 * sp.eye(64)).tocsr(),
     # the card's sizes
     "neumann128": lambda: _neumann3d(128),
+    "neumann64": lambda: _neumann3d(64),
     "convdiff1024": lambda: convdiff2d(1024),
     "tri2p20": lambda: poisson1d_csr(1 << 20),
     # complex128: the Helmholtz driver's operator

@@ -40,9 +40,10 @@ it is built (``solvers/krylov.py``).
 
 ``rpc.send`` and ``rpc.recv`` fire in the RPC transport
 (``serving/transport.py``: the client before a request leaves, the host
-after its handler ran). ``comm.delay`` and ``exchange.put`` parse here;
-their sites come with the modules that own them (ROADMAP.md Queue A item
-7.4).
+after its handler ran). ``exchange.put`` fires in the stale exchange's
+publish (``parallel/exchange.py``), and ``comm.delay``, the one timing
+point, is read through :func:`delay_seconds` by each multisplit block
+before its step (``solvers/multisplit.py``).
 
 This module imports nothing of torch. Every fired clause is recorded in the
 telemetry flight recorder (``Fault.flight_record``, JAX ``faults.py:208-233``,
@@ -89,10 +90,11 @@ FAULT_POINTS = {
     # (solvers/ksp.py mesh_fault site), so at=N picks the Nth solve and
     # iter=K leaves K iterations of real partial state, like ksp.program.
     "device.lost": ("unavailable",),         # permanent worker/chip loss
-    # 'comm.delay' (an injected per-device latency) and 'exchange.put' (a
-    # stale-exchange publish) parse as in the JAX package; the port has no
-    # site for them yet (ROADMAP Queue A item 7.4). 'rpc.send'/'rpc.recv'
-    # are the RPC transport's client and host sides (serving/transport.py).
+    # 'comm.delay' is a per-device latency (a TIMING fault: the multisplit
+    # blocks sleep what delay_seconds() returns before each step) and
+    # 'exchange.put' a stale-exchange publish (parallel/exchange.py).
+    # 'rpc.send'/'rpc.recv' are the RPC transport's client and host sides
+    # (serving/transport.py).
     "comm.delay":  ("delay",),               # per-device latency jitter
     "exchange.put": ("drop", "partition"),   # stale-exchange publish
     "rpc.send": ("drop", "delay", "duplicate", "reorder", "partition"),
@@ -341,6 +343,46 @@ def check(point: str):
     fault = triggered(point)
     if fault is not None and fault.kind in RAISING_KINDS:
         raise fault.error()
+
+
+def delay_seconds(point: str, device: int | None = None) -> float:
+    """Hot-path hook for TIMING fault points (``comm.delay``): seconds
+    of injected latency the caller must sleep before its communication
+    step — 0.0 with no armed delay clause (near-no-op, like
+    :func:`triggered`).
+
+    ``device`` is the id doing the communicating; a clause with
+    ``device=D:times=*`` is a STICKY slow device (only D's hits count,
+    every one fires), the straggler model asynchronous multisplitting
+    (``solvers/multisplit.py``) is built to absorb. A seeded clause draws
+    each delay from an exponential distribution with mean ``mean=``
+    seconds (``random.Random(seed).expovariate`` — reproducible jitter);
+    an unseeded clause injects exactly ``mean`` seconds. Hit windows
+    (``at``/``times``/``prob``) gate each draw like any other fault.
+    Multiple matching clauses add up.
+    """
+    plan = _active_plan()
+    if plan is None:
+        return 0.0
+    total = 0.0
+    fired = []
+    with _LOCK:
+        for fault in plan:
+            if fault.point != point or fault.kind != "delay":
+                continue
+            if (device is not None and fault.device is not None
+                    and fault.device != int(device)):
+                continue
+            if not fault.check():
+                continue
+            if fault._rng is not None and fault.mean > 0:
+                total += fault._rng.expovariate(1.0 / fault.mean)
+            else:
+                total += max(0.0, fault.mean)
+            fired.append(fault)
+    for fault in fired:
+        fault.flight_record()
+    return total
 
 
 # fault points whose effect applies while a program is being TRACED in the

@@ -24,7 +24,11 @@ iteration serve every column):
   which the server then adopts for every session, and :meth:`regrow` (or
   the dispatcher, after :func:`~..resilience.faults.heal`) grows it back;
 * ``persistent=True`` stages batches into the resident multi-request
-  program of ``serving/persistent.py``.
+  program of ``serving/persistent.py``;
+* ``multisplit=True`` is the asynchronous schedule class: each request is
+  one stale-tolerant outer solve of the session's ``MultisplitSolver``
+  (``solvers/multisplit.py``), QoS-``interactive`` batches under the
+  tighter ``-multisplit_urgent_stale`` bound.
 
 **No hidden fallback.** A block dispatched on the card runs on the card: a
 failure the retry policy cannot recover resolves the block's futures with
@@ -46,8 +50,7 @@ joining the graph.
 **One process.** The dispatcher drives every shard from one thread; a
 ``ProcessComm`` of several processes raises ``NotImplementedError``
 (serving across processes, with the dispatcher on one rank and the blocks on
-all ranks, is ROADMAP.md Queue A item 7.3), as does the multisplit schedule
-class (item 7.4).
+all ranks, is ROADMAP.md Queue A item 7.3).
 """
 
 from __future__ import annotations
@@ -112,9 +115,10 @@ class _OperatorSession:
     batch's, so the KSP's own drift with traffic."""
 
     __slots__ = ("name", "operator", "ksp", "dtype", "precision", "n",
-                 "rtol", "atol", "max_it", "persistent")
+                 "rtol", "atol", "max_it", "multisplit", "persistent")
 
-    def __init__(self, name, operator, ksp, persistent=None):
+    def __init__(self, name, operator, ksp, multisplit=None,
+                 persistent=None):
         self.name = name
         self.operator = operator
         self.ksp = ksp
@@ -124,12 +128,16 @@ class _OperatorSession:
         self.rtol = float(ksp.rtol)
         self.atol = float(ksp.atol)
         self.max_it = int(ksp.max_it)
+        self.multisplit = multisplit   # MultisplitSolver, or None
         self.persistent = persistent   # PersistentRunner, or None
 
     @property
     def schedule(self) -> str:
-        """The reduction-plan schedule ("cg", "pipecg", "sstep:<s>"), part of
-        every request's compatibility key."""
+        """The reduction-plan schedule ("cg", "pipecg", "sstep:<s>", or the
+        asynchronous class "multisplit"), part of every request's
+        compatibility key: blocks never mix schedules."""
+        if self.multisplit is not None:
+            return "multisplit"
         tp = self.ksp.get_type()
         return f"{tp}:{int(self.ksp.sstep_s)}" if tp == "sstep" else tp
 
@@ -255,17 +263,16 @@ class SolveServer:
         dispatch. ``warm_widths`` runs zero blocks of those widths now, so
         the first real request of a width finds its graphs captured. The
         session KSP then reads the options database (``-ksp_*``), which wins.
-        ``multisplit`` raises ``NotImplementedError`` (ROADMAP.md Queue A
-        item 7.4). The whole registration (placement, set-up, warm blocks:
-        CUDA work) runs under the session lock."""
+        ``multisplit`` routes the session to the asynchronous tier (JAX
+        ``server.py:344-353``): requests dispatch column by column through
+        its ``MultisplitSolver``, whose inner block solves take the
+        session's ``ksp_type``/``pc_type`` (a ``-multisplit_inner_type``
+        flag wins); it needs an assembled operator, and excludes
+        ``persistent``. The whole registration (placement, set-up, warm
+        blocks: CUDA work) runs under the session lock."""
         with self._session_lock:
             if name in self._sessions:
                 raise ValueError(f"operator {name!r} already registered")
-            if multisplit:
-                raise NotImplementedError(
-                    f"operator {name!r}: the multisplit schedule class "
-                    "(solvers/multisplit.py) is not ported yet (ROADMAP.md "
-                    "Queue A item 7.4)")
             op = A
             if not hasattr(op, "program_key"):
                 import scipy.sparse as sp
@@ -284,7 +291,8 @@ class SolveServer:
             # into per-column sequential solves: right, but without the
             # batching; say so
             from ..solvers.krylov import BATCHED_TYPES, batched_pc_supported
-            if (ksp.get_type() not in BATCHED_TYPES
+            if not multisplit and (
+                    ksp.get_type() not in BATCHED_TYPES
                     or not batched_pc_supported(ksp.get_pc())):
                 warnings.warn(
                     f"SolveServer operator {name!r}: configuration "
@@ -293,8 +301,17 @@ class SolveServer:
                     "per-column sequential solves (check for stray global "
                     "-ksp_type/-pc_type options)", stacklevel=2)
             ksp.set_up()                      # the PC set up now, once
+            ms = None
+            if multisplit:
+                ms = self._multisplit_solver(name, op, ksp, rtol, atol,
+                                             dtype)
             persistent = global_options().get_bool("solve_server_persistent",
                                                    persistent)
+            if persistent and ms is not None:
+                raise ValueError(
+                    f"operator {name!r}: persistent and multisplit are "
+                    "mutually exclusive schedule classes — the async tier "
+                    "has no coalesced block program to keep resident")
             if persistent:
                 from ..solvers.megasolve import megasolve_supported
                 guard = bool(ksp.abft) or int(ksp.residual_replacement) > 0
@@ -310,7 +327,7 @@ class SolveServer:
                     # the recovery path (serving/persistent.py) dispatches
                     # through the session KSP: keep it on the fused program
                     ksp.megasolve = True
-            sess = _OperatorSession(name, op, ksp)
+            sess = _OperatorSession(name, op, ksp, multisplit=ms)
             if persistent:
                 from .persistent import PersistentRunner
                 sess.persistent = PersistentRunner(self, sess)
@@ -321,6 +338,23 @@ class SolveServer:
             return sess
 
     registerOperator = register_operator
+
+    def _multisplit_solver(self, name, op, ksp, rtol, atol, dtype):
+        """The session's asynchronous solver (JAX ``server.py:388-404``):
+        the session's KSP type and PC seed the inner block solves unless
+        ``-multisplit_inner_type`` is set (the options database wins)."""
+        from ..solvers.multisplit import MultisplitSolver
+        if not hasattr(op, "to_scipy"):
+            raise ValueError(
+                f"operator {name!r}: the multisplit schedule class needs a "
+                "host-reconstructible operator (Mat) — matrix-free "
+                "stencils have no row splitting")
+        inner = (None if global_options().has("multisplit_inner_type")
+                 else ksp.get_type())
+        ms = MultisplitSolver(self.comm, inner_type=inner,
+                              pc_type=ksp.get_pc().get_type(), rtol=rtol,
+                              atol=atol, dtype=dtype)
+        return ms.set_operator(op)
 
     def register_session(self, name: str, operator, *,
                          ksp_type: str = "cg", pc_type: str = "jacobi",
@@ -632,7 +666,9 @@ class SolveServer:
             ksp.set_tolerances(rtol=reqs[0].rtol, atol=reqs[0].atol,
                                max_it=reqs[0].max_it)
             try:
-                if self.resilient:
+                if sess.multisplit is not None:
+                    res = self._multisplit_solve_many(sess, reqs, B)
+                elif self.resilient:
                     res = resilient_solve_many(ksp, B,
                                                policy=self.retry_policy)
                 else:
@@ -660,6 +696,35 @@ class SolveServer:
             bsp.set_attrs(attempts=res.attempts,
                           iterations=max(res.iterations, default=0))
         self._record(k, waits, kpad - k)
+
+    def _multisplit_solve_many(self, sess, reqs, B):
+        """One batch through the asynchronous tier (JAX ``server.py:907``):
+        a stale-tolerant outer solve per request instead of a coalesced
+        block. When any request is QoS-``interactive`` the staleness bound
+        tightens to ``-multisplit_urgent_stale`` (default: half the
+        session's bound, at least 1), trading straggler tolerance for
+        fresher exchanges on the traffic that waits."""
+        from ..utils.convergence import BatchedSolveResult
+        ms = sess.multisplit
+        bound = None
+        if any(r.qos == "interactive" for r in reqs):
+            bound = global_options().get_int(
+                "multisplit_urgent_stale", max(1, ms.max_stale // 2))
+        t0 = time.monotonic()
+        X = np.zeros((sess.n, len(reqs)), dtype=sess.dtype)
+        iters, rnorms, reasons, hists = [], [], [], []
+        for j, r in enumerate(reqs):
+            res = ms.solve(B[:, j], rtol=r.rtol, atol=r.atol,
+                           max_stale=bound)
+            X[:, j] = res.x
+            iters.append(int(res.iterations))
+            rnorms.append(float(res.residual_norm))
+            reasons.append(int(res.reason))
+            hists.append([rn for _v, rn in res.history])
+        return BatchedSolveResult(iterations=iters, residual_norms=rnorms,
+                                  reasons=reasons,
+                                  wall_time=time.monotonic() - t0, X=X,
+                                  histories=hists)
 
     def _resolve_block(self, reqs, res, waits, width, bsp):
         """Resolve each request's future from its column of a block result

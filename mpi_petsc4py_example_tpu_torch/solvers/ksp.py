@@ -439,9 +439,9 @@ class KSP:
         ``-ksp_residual_replacement``, ``-ksp_pipeline_auto_replacement``,
         ``-ksp_sstep_auto_replacement`` and ``-ksp_sstep_max_replacements``
         configure the silent-corruption guard. ``-pc_gamg_threshold``,
-        ``-pc_gamg_coarse_eq_limit`` and ``-pc_mg_levels`` parameterise modes
-        the port lacks and are stored; ``-ksp_unroll`` is stored (above 1 it
-        keeps a solve off the fused program, as in JAX)."""
+        ``-pc_gamg_coarse_eq_limit`` and ``-pc_mg_levels`` tune PC gamg's
+        hierarchy; ``-ksp_unroll`` is stored (above 1 it keeps a solve off
+        the fused program, as in JAX)."""
         opt = global_options()
         p = self._prefix
         t = opt.get_string(p + "ksp_type")

@@ -1,6 +1,6 @@
 """Preconditioners: PC ``none``, ``jacobi``, ``bjacobi``, ``sor``, ``ssor``,
-``ilu``, ``icc``, ``asm``, ``lu``, ``cholesky``, ``mg``, ``shell`` and
-``composite``.
+``ilu``, ``icc``, ``asm``, ``lu``, ``cholesky``, ``mg``, ``gamg`` (alias
+``amg``), ``shell`` and ``composite``.
 
 The port's counterpart of ``mpi_petsc4py_example_tpu/solvers/pc.py`` (``PC``,
 ``:67``). On a uniform-diagonal stencil operator the CG fast path never calls
@@ -19,6 +19,12 @@ The factor PCs work on an assembled :class:`..core.mat.Mat`:
 * ``asm`` (``-pc_asm_overlap``): restricted additive Schwarz; each shard
   inverts its rows widened by the overlap, takes its two halos from its
   neighbours (``comm.shift``) and keeps the owned interior.
+* ``gamg``/``amg`` (``-pc_gamg_threshold``, ``-pc_gamg_coarse_eq_limit``,
+  ``-pc_mg_levels``): smoothed-aggregation AMG (``solvers/amg.py``), the
+  hierarchy built on the host from the assembled operator and applied as
+  one V-cycle over ELL products; a matrix-free operator raises
+  ``ValueError``. It has no transpose and no batched apply, as in the JAX
+  package (``KSP.solve_many`` solves column by column).
 * ``lu`` / ``cholesky`` (the reference's MUMPS slot): the mode is decided as
   the JAX package decides it. ``dense`` ships the padded explicit inverse and
   applies it as one matrix product; past the dense cap ``crtri`` (a
@@ -61,7 +67,8 @@ On a complex operator the host factorizations run in complex128
 inverts complex blocks behind the same gate, cholesky requires a Hermitian
 operator (a complex-symmetric one raises ``ValueError``) and its
 cyclic-reduction transpose apply is ``conj(M(conj(r)))`` (JAX
-``pc.py:688-695``); gamg/amg raise as for real operators.
+``pc.py:688-695``); gamg's Galerkin product is the adjoint ``P^H A P`` and
+its restriction ``P^H``.
 """
 
 from __future__ import annotations
@@ -83,9 +90,8 @@ from .tridiag import (banded_to_blocks, bpcr_apply, bpcr_setup,
                       polished_inverse)
 
 PC_TYPES = ("none", "jacobi", "bjacobi", "lu", "cholesky", "mg",
-            "sor", "ssor", "ilu", "icc", "asm", "shell", "composite")
-# the JAX package's other types, and the ROADMAP.md Queue A item each awaits
-_UNPORTED = {"gamg": 7, "amg": 7}
+            "sor", "ssor", "ilu", "icc", "asm", "gamg", "amg", "shell",
+            "composite")
 _COMPOSITE_TYPES = ("additive", "multiplicative")
 # shell applies are numbered, so two PCs with different functions never
 # share a program key (as ShellMat's are)
@@ -128,12 +134,12 @@ class PC:
         self.setup_mode = None        # 'device' | 'host' once a factor PC
                                       # is set up
         self.setup_breakdown = None   # device set-up: extract_s, invert_s
-        # PC gamg's tunables (-pc_gamg_threshold, -pc_gamg_coarse_eq_limit,
-        # -pc_mg_levels), stored for the JAX package's gamg, which the port
-        # lacks (set_type('gamg') raises)
+        # PC gamg's tunables: -pc_gamg_threshold (PCGAMG default 0),
+        # -pc_gamg_coarse_eq_limit, -pc_mg_levels
         self.gamg_threshold = 0.0
         self.gamg_coarse_size = 64
         self.gamg_max_levels = 10
+        self._amg = None              # gamg: the solvers.amg.AMGHierarchy
         # PC shell: the user's apply (and transpose) on the whole vector
         self._shell_apply = None
         self._shell_apply_t = None
@@ -144,10 +150,6 @@ class PC:
 
     def set_type(self, pc_type: str):
         pc_type = str(pc_type).lower()
-        if pc_type in _UNPORTED:
-            raise NotImplementedError(
-                f"PC {pc_type!r} is not ported yet (ROADMAP.md Queue A item "
-                f"{_UNPORTED[pc_type]})")
         if pc_type not in PC_TYPES:
             raise ValueError(f"unknown PC type {pc_type!r}; available: "
                              f"{PC_TYPES}")
@@ -245,8 +247,10 @@ class PC:
         """The apply the solve program builds: the type, with lu/cholesky as
         their factor mode (``'lu'`` for dense, ``'crtri'``, ``'crband'``,
         ``'hostlu'``) and sor/ssor/ilu/icc as ``'bjacobi'``, whose apply
-        they share."""
+        they share, and amg as ``'gamg'``."""
         t = self._type
+        if t == "amg":
+            return "gamg"
         if t in ("lu", "cholesky"):
             return "lu" if self._factor_mode == "dense" else self._factor_mode
         if t in _BLOCK_TYPES:
@@ -256,8 +260,11 @@ class PC:
     def program_key(self) -> tuple:
         """The PC configuration as plain values, as the JAX ``PC.program_key``
         gives it: ``(kind,)``, ``("asm", overlap)``, ``("crtri", S)``,
-        ``("crband", arrays, S, N, b)`` or ``("mg", smoother)``."""
+        ``("crband", arrays, S, N, b)``, ``("mg", smoother)`` or ``("gamg",
+        sizes, shapes)``."""
         k = self.kind
+        if k == "gamg":
+            return self._amg.program_key()
         if k == "asm":
             return ("asm", int(self.asm_overlap))
         if k == "crtri":
@@ -283,6 +290,8 @@ class PC:
         composite children: the rebuild part of the set-up key."""
         return (self._type, self.bjacobi_blocks, self.sor_omega,
                 self.asm_overlap, self.factor_fill, self.setup_device,
+                self.gamg_threshold, self.gamg_coarse_size,
+                self.gamg_max_levels,
                 self.mg_smoother, self._shell_uid, self.composite_type,
                 tuple(c._tunables_key() for c in self._sub_pcs))
 
@@ -307,6 +316,7 @@ class PC:
         """The build itself (the ``pc.setup`` span's body; JAX
         ``pc.py:238-243``): for PC mg the hierarchy."""
         self._hostlu = None
+        self._amg = None
         self.setup_mode = None
         self.setup_breakdown = None
         t = self._type
@@ -324,6 +334,8 @@ class PC:
             self._arrays = _build_asm(mat, self.asm_overlap)
         elif t in ("lu", "cholesky"):
             self._set_up_factor(mat, t)
+        elif t in ("gamg", "amg"):
+            self._set_up_gamg(mat)
         elif t == "shell":
             if self._shell_apply is None:
                 raise RuntimeError(
@@ -359,6 +371,24 @@ class PC:
                 _build_banded_bcr(mat, bw, perm, A_perm, self.setup_device)
         else:
             self._hostlu = _build_host_splu(mat, t)
+
+    def _set_up_gamg(self, mat):
+        """PC gamg (JAX ``pc.py:328-340``): the SA hierarchy of the assembled
+        operator, its set-up split in ``setup_breakdown``."""
+        from .amg import AMGHierarchy
+        if not hasattr(mat, "to_scipy"):
+            raise ValueError(
+                "PC 'gamg' needs an assembled matrix (Mat) to build the "
+                "aggregation hierarchy; matrix-free stencil operators "
+                "should use the geometric 'mg'")
+        self._amg = AMGHierarchy(
+            mat.comm, mat.to_scipy(), mat.dtype,
+            threshold=self.gamg_threshold,
+            max_levels=self.gamg_max_levels,
+            coarse_size=self.gamg_coarse_size)
+        self._arrays = self._amg.arrays
+        self.setup_mode = "host"
+        self.setup_breakdown = self._amg.setup_breakdown
 
     def _jacobi_inverse(self):
         """The shard-stacked inverse diagonal ``(size, lsize)`` of the
@@ -420,6 +450,8 @@ class PC:
             return apply
         if k == "asm":
             return self._asm_apply(comm, n)
+        if k == "gamg":
+            return self._amg.local_apply(comm)
         if k in ("crtri", "crband"):
             return self._cr_apply(comm, n)
         if k == "shell":
@@ -462,7 +494,7 @@ class PC:
         cyclic-reduction solve; bjacobi and its block kinds and dense lu
         transpose their explicit inverses; composite additive sums its
         children's transposes; shell takes ``set_shell_apply_transpose``'s
-        function. asm, lu's cyclic-reduction modes and composite
+        function. asm, gamg, lu's cyclic-reduction modes and composite
         multiplicative have none. On a complex operator this is the plain
         transpose ``M^T``; the Krylov loops make the adjoint from it."""
         if self._type not in ("none", "mg"):
@@ -563,8 +595,8 @@ class PC:
 
     def local_apply_many(self, comm, n: int):
         """Batched ``Z = M R`` on ``(size, k, lsize)`` blocks (JAX
-        ``pc.py:601``), or None when the kind has no batched apply (mg, asm,
-        crtri, crband, hostlu: ``KSP.solve_many`` then solves column by
+        ``pc.py:601``), or None when the kind has no batched apply (mg, gamg,
+        asm, crtri, crband, hostlu: ``KSP.solve_many`` then solves column by
         column)."""
         if self._type == "none":
             return lambda R: R

@@ -3,8 +3,8 @@
 The port's own copy of ``mpi_petsc4py_example_tpu/telemetry/names.py``:
 ``NAMES`` maps every span, counter, gauge and histogram name to its kind and
 a one-line description, key for key and kind for kind the JAX package's (the
-multisplitting names are registered and unused until ROADMAP.md Queue A item
-7.4 brings their module). The spans module and
+multisplitting names are recorded by ``solvers/multisplit.py``). The spans
+module and
 the metrics registry validate against it at run time, so a misspelled name
 raises instead of recording into a parallel universe.
 

@@ -11,9 +11,10 @@ hands them over as plain values, never as JAX objects:
 * the vectors are numpy arrays from ``Vec.to_numpy()``;
 * the preconditioner's configuration is the tuple ``PC.program_key()``
   returns, ``(type,)`` (none, jacobi, bjacobi, sor, ssor, ilu, icc, lu,
-  cholesky), ``("asm", overlap)`` or ``("mg", smoother)``; the tunables that
-  key does not hold (``sor_omega``, ``factor_fill``, ``bjacobi_blocks``,
-  ``setup_device``) travel as keyword values.
+  cholesky), ``("asm", overlap)``, ``("mg", smoother)`` or ``("gamg", sizes,
+  shapes)``; the tunables that key does not hold (``sor_omega``,
+  ``factor_fill``, ``bjacobi_blocks``, ``setup_device``, ``gamg_threshold``,
+  ``gamg_coarse_size``, ``gamg_max_levels``) travel as keyword values.
 
 The grid and the CSR do not depend on the shard count, so the port's
 communicator may have another shard count than the JAX mesh had (a stencil's
@@ -85,11 +86,19 @@ def from_host_csr(comm: DeviceComm, shape, csr, b, x0=None,
 def configure_pc(pc, key, **tunables):
     """Set the port's ``pc`` to the configuration the JAX side's
     ``PC.program_key()`` describes, with ``tunables`` (any of
-    ``sor_omega``, ``factor_fill``, ``bjacobi_blocks``, ``setup_device``)
-    set on it. Returns ``pc``."""
+    ``sor_omega``, ``factor_fill``, ``bjacobi_blocks``, ``setup_device``,
+    and gamg's ``gamg_threshold``, ``gamg_coarse_size``,
+    ``gamg_max_levels``) set on it. A gamg key, ``("gamg", sizes,
+    shapes)``, describes the hierarchy its set-up builds; the tunables
+    decide that hierarchy, so a gamg PC set up on the same operator gives
+    the same key. Returns ``pc``."""
     kind = str(key[0])
     pc.set_type(kind)
-    if kind in ("mg", "asm"):
+    if kind == "gamg":
+        if len(key) != 3:
+            raise ValueError(f"a gamg configuration is ('gamg', sizes, "
+                             f"shapes), got {key!r}")
+    elif kind in ("mg", "asm"):
         if len(key) != 2:
             raise ValueError(f"an {kind} configuration is ({kind!r}, value), "
                              f"got {key!r}")
@@ -107,4 +116,5 @@ def configure_pc(pc, key, **tunables):
     return pc
 
 
-_TUNABLES = ("sor_omega", "factor_fill", "bjacobi_blocks", "setup_device")
+_TUNABLES = ("sor_omega", "factor_fill", "bjacobi_blocks", "setup_device",
+             "gamg_threshold", "gamg_coarse_size", "gamg_max_levels")

@@ -14,7 +14,8 @@ flags ``RefinedKSP.set_from_options`` reads (``-ksp_inner_precision``,
 the observability flags: ``-log_view`` (the at-exit solve report of
 ``utils/profiling.py``), ``-telemetry``, ``-telemetry_flight_len`` and
 ``-telemetry_dump`` (``telemetry/__init__.py``), which :func:`init` applies
-as the JAX package's does (``utils/options.py:382-385``). Each
+as the JAX package's does (``utils/options.py:382-385``), and the
+asynchronous tier's ``-multisplit_*`` flags (:data:`KNOWN_FLAGS`). Each
 process has one database, built at its first use from the ``TPU_SOLVE_<KEY>``
 environment variables and seeded with :func:`init`.
 
@@ -30,6 +31,38 @@ from __future__ import annotations
 import os
 
 _ENV_PREFIX = "TPU_SOLVE_"
+
+
+#: flags registered with a description, as the JAX package's ``KNOWN_FLAGS``
+#: (``utils/options.py:30``) holds them; the port registers the asynchronous
+#: tier's (JAX ``:110-135``), which its modules read through the getters below
+KNOWN_FLAGS = {
+    # ---- asynchronous multisplitting (solvers/multisplit.py) ----
+    "multisplit_blocks": "row blocks of the two-stage splitting (default: "
+                         "one per shard; each runs its own inner solve "
+                         "thread against stale boundaries)",
+    "multisplit_inner_max_it": "inner-solve iteration cap per async outer "
+                               "step (keeps steps short so exchanges stay "
+                               "fresh)",
+    "multisplit_inner_rtol": "inner-solve relative tolerance per outer "
+                             "step (loose: the outer iteration absorbs "
+                             "the slack)",
+    "multisplit_inner_type": "inner KSP type per block (any KSP type; the "
+                             "session's PC)",
+    "multisplit_max_outer": "outer async step cap per block before "
+                            "DIVERGED_MAX_IT",
+    "multisplit_max_stale": "bounded-staleness limit: versions a partner "
+                            "may trail before the reader re-syncs "
+                            "(convergence itself is only ever declared "
+                            "at a consistent version cut)",
+    "multisplit_resync_timeout": "seconds a re-syncing block waits for a "
+                                 "lagging partner before treating it as "
+                                 "lost-in-progress and continuing stale",
+    "multisplit_urgent_stale": "effective staleness bound for QoS-urgent "
+                               "(interactive) serving sessions — tighter "
+                               "than -multisplit_max_stale, so urgent "
+                               "requests ride fresher exchanges",
+}
 
 
 class Options:

@@ -176,18 +176,20 @@ def test_configure_pc_refuses_unknown_tunable():
         configure_pc(pt.PC(), ("sor",), omega=1.0)
 
 
-@pytest.mark.parametrize("pc_type,item", [("gamg", 7), ("amg", 7),
+@pytest.mark.parametrize("pc_type,item", [("gamg", 7.6), ("amg", 7.6),
                                           ("shell", 3), ("composite", 3)])
 def test_unported_pc_types_name_their_item(pc_type, item):
-    """Every JAX PC type is either ported (the Queue A items that landed:
-    shell and composite came with item 3) or refused with
-    ``NotImplementedError`` naming the item that brings it."""
+    """The JAX PC types the port once refused, each with the Queue A item
+    that brought it (shell and composite with item 3, gamg and its alias
+    amg with item 7.6), are ported: every JAX PC type is a port PC type, and
+    amg is gamg's kind as in the JAX package."""
     assert pc_type in tps.PC(None).set_type(pc_type).get_type()
-    if item <= 3:
-        assert pt.PC().set_type(pc_type).get_type() == pc_type
-        return
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        pt.PC().set_type(pc_type)
+    assert pt.PC().set_type(pc_type).get_type() == pc_type
+    assert pt.PC().set_type(pc_type).kind == tps.PC(None).set_type(
+        pc_type).kind
+    from mpi_petsc4py_example_tpu.solvers.pc import PC_TYPES as JAX_TYPES
+    from mpi_petsc4py_example_tpu_torch.solvers.pc import PC_TYPES
+    assert set(JAX_TYPES) <= set(PC_TYPES)
 
 
 def test_block_pc_refusals_like_jax():

@@ -343,6 +343,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_petsc4py_example_tpu_torch/solvers/st.py",
             "mpi_petsc4py_example_tpu_torch/solvers/refine.py",
             "mpi_petsc4py_example_tpu_torch/solvers/tridiag.py",
+            # PC gamg and the asynchronous tier
+            "mpi_petsc4py_example_tpu_torch/solvers/amg.py",
+            "mpi_petsc4py_example_tpu_torch/solvers/multisplit.py",
+            "mpi_petsc4py_example_tpu_torch/parallel/exchange.py",
             "mpi_petsc4py_example_tpu_torch/utils/dtypes.py",
             "mpi_petsc4py_example_tpu_torch/core/shell.py",
             "mpi_petsc4py_example_tpu_torch/core/nullspace.py",

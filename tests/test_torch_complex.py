@@ -466,11 +466,6 @@ def test_device_setup_complex(pc_type):
     assert rel(out[1][0], out[0][0]) <= 1e-11
 
 
-def test_gamg_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.PC().set_type("gamg")
-
-
 @pytest.mark.parametrize("dtype", [torch.complex64, C128])
 def test_complex_stencil_raises_naming_item_5_8(dtype):
     """No stencil kernel takes complex values: a complex StencilPoisson3D

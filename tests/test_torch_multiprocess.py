@@ -160,7 +160,10 @@ PC_CASES = [
     dict(name="pc_lu_crband", kind="aij", op="band", ksp="preonly",
          pc="lu", dense_cap=64),
     dict(name="pc_lu_crband_device_setup", kind="aij", op="band",
-         ksp="preonly", pc="lu", dense_cap=64, setup_device="1")]
+         ksp="preonly", pc="lu", dense_cap=64, setup_device="1"),
+    # PC gamg: the V-cycle's gathered products and R = P^H restriction
+    dict(name="pc_gamg", kind="aij", op="band", ksp="cg", pc="gamg"),
+    dict(name="pc_amg_fcg", kind="aij", op="cfg3", ksp="fcg", pc="amg")]
 SURFACE_CASES = [
     dict(name="shellmat_cg_jacobi", kind="aij", op="cfg3", ksp="cg",
          pc="jacobi", shellmat=True),

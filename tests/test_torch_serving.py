@@ -679,16 +679,6 @@ def test_multiprocess_comm_raises_naming_its_item():
         server.SolveServer(comm, autostart=False)
 
 
-def test_multisplit_raises_naming_its_item():
-    srv = server.SolveServer(_comm("torch"), autostart=False)
-    try:
-        with pytest.raises(NotImplementedError, match="item 7.4"):
-            srv.register_operator("p", A2D, multisplit=True)
-        assert srv.operators() == []
-    finally:
-        srv.shutdown()
-
-
 def test_default_comm_is_the_card():
     """``SolveServer()`` takes the default communicator, which is the
     card's: without CUDA it raises, as every entry point does."""

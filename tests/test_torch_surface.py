@@ -140,10 +140,9 @@ def test_options_get_as_dict_unused_match_jax():
 
 
 def test_top_level_names_match_jax():
-    """Every name of the JAX ``__init__.py`` the port's slices cover is
-    exported (the multisplitting names come with ROADMAP.md Queue A item
-    7.4)."""
-    later = {"MultisplitSolver", "MultisplitResult", "StaleExchange"}
+    """Every name of the JAX ``__init__.py`` is exported (the multisplitting
+    names, the last, came with ROADMAP.md Queue A item 7.4)."""
+    later = set()
     missing = [n for n in tps.__all__
                if n not in later and not hasattr(pt, n)]
     assert missing == []
