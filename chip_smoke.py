@@ -5309,6 +5309,23 @@ def phase_procs_cards():
     out["test2py_wall_s"] = wall
     log(f"procs-cards test2.py flow -n {cards} --procs (NCCL): printed "
         f"{stdout.strip()}, {wall:.1f} s; {card}")
+    # serving across processes (item 7.3): (a) over NCCL, one rank a card
+    got, wall = run_serving_procs([serving_procs_cases()[0]], nprocs=cards,
+                                  backend="nccl")
+    formula, per_rank, retried = served_load_check(
+        f"procs-cards serving (a) NCCL {cards} x {SP_LOCAL}", got["a_load"],
+        cards)
+    lead = got["a_load"][0]
+    out["serving_a"] = {"solves_per_s": lead["solves_per_s"],
+                        "p50_ms": lead["p50_ms"], "p99_ms": lead["p99_ms"],
+                        "worst_relres": float(max(lead["relres"])),
+                        "formula": formula, "launches_per_rank": per_rank,
+                        "retried": retried, "launch_wall_s": wall}
+    log(f"procs-cards serving (a) cfg9 shape over NCCL, {cards} ranks x "
+        f"{SP_LOCAL} shards: {lead['solves_per_s']:.1f} solves/s, p50 "
+        f"{lead['p50_ms']:.1f} ms, p99 {lead['p99_ms']:.1f} ms, worst relres "
+        f"{max(lead['relres']):.3e}, stencil7_dot_many on each rank "
+        f"{per_rank} = {SP_LOCAL} x {formula}; {card}")
     return out
 
 
@@ -8344,34 +8361,324 @@ def phase_serving_persistent(card, nx=SERVING_NX, requests=PERSISTENT_REQUESTS,
     return out
 
 
-def phase_serving():
+def phase_serving(persistent_requests=PERSISTENT_REQUESTS,
+                  cfg9_requests=SERVING_REQUESTS):
     """The serving layer's phases (a)-(c) at the repo's 128^3 width, each
-    logged with the card's name and power limit; returns their records and
-    the launch counts of rows 9 and 10 on the served paths."""
+    logged with the card's name and power limit ((a) with
+    ``cfg9_requests``, (c) with ``persistent_requests``); returns their
+    records and the launch counts of rows 9 and 10 on the served paths."""
     import torch
     card = card_line()
     t0 = time.perf_counter()
     for i in range(ORACLE_WORKERS):
         host_oracle(oracle_ready, i)     # the workers start beside (a)
-    cfg9, rows = timed(phase_serving_cfg9, card)
+    cfg9, rows = timed(phase_serving_cfg9, card, requests=cfg9_requests)
     fused = timed(phase_serving_fused, card, rows)
     del rows
     torch.cuda.empty_cache()
-    persistent = timed(phase_serving_persistent, card)
+    persistent = timed(phase_serving_persistent, card,
+                       requests=persistent_requests)
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
     log(f"serving phases: {wall:.1f} s ({card})")
     launches = {
         "stencil7_dot_many": (
             cfg9["launches"]["stencil7_dot_many"],
-            f"128^3 f32 SolveServer, {SERVING_REQUESTS} requests, cfg9 "
+            f"128^3 f32 SolveServer, {cfg9_requests} requests, cfg9 "
             "shape (the batched fast path)"),
         "stencil7_apply_many": (
             persistent["persistent"]["launches"].get("stencil7_apply_many", 0),
             f"128^3 fp64 SolveServer, persistent program, "
-            f"{PERSISTENT_REQUESTS} requests (the outer true residual)")}
+            f"{persistent_requests} requests (the outer true residual)")}
     return {"cfg9": cfg9, "fused": fused, "persistent": persistent,
             "wall_s": wall}, launches
+
+
+# ---- serving across processes (ROADMAP Queue A item 7.3) -------------------
+
+SP_REQUESTS = 64        # (a): cfg9's requests (run_all.py:912)
+SP_REQUESTS_FULL = 24   # (a) in the no-argument run (its time budget)
+SP_RATE = 400.0         # (a): Poisson arrivals a second, seeded
+SP_KNOWN = 8            # (a): the population held bit for bit
+SP_ROUTE = 16           # (b): the router's requests
+SP_AIJ_NX = 64          # (b): the migrated AIJ session's grid
+SP_LOCAL = 2            # local shards a rank: 2 ranks x 2 = 4 shards
+
+
+def serving_procs_cases(nx=SERVING_NX, requests=SP_REQUESTS):
+    """The cases of ``--serving-procs`` (``facade/drivers/serving_procs.py``
+    kinds), 2 local shards a rank; (a) with ``requests`` arrivals."""
+    stencil = {"name": "poisson", "grid": [nx] * 3, "dtype": "f32",
+               "reg": {"pc_type": "jacobi", "rtol": 0.5 * SERVING_RTOL,
+                       "max_it": 20000, "warm_widths": [1, 2, 4, 8]}}
+    small = dict(stencil, grid=[SP_AIJ_NX] * 3,
+                 reg=dict(stencil["reg"], warm_widths=[]))
+    aij = {"name": "a", "op": f"p3d{SP_AIJ_NX}",
+           "reg": {"pc_type": "jacobi", "rtol": 1e-8}}
+    tri = {"name": "t", "op": "tri4096",
+           "reg": {"pc_type": "jacobi", "rtol": MS_RTOL, "multisplit": True}}
+    cases = [
+        dict(name="a_load", kind="load", ops=[stencil], max_k=SERVING_MAX_K,
+             requests=requests, rate=SP_RATE,
+             faults="ksp.program=unavailable:at=3:iter=8"),
+        dict(name="a_known", kind="serve", ops=[stencil],
+             max_k=SERVING_MAX_K,
+             requests=[{"op": "poisson", "seed": 100 + j}
+                       for j in range(SP_KNOWN)]),
+        dict(name="b_route", kind="route", concurrent=True, max_k=8,
+             ops=[dict(small, name="s"), aij],
+             requests=[{"op": "s", "seed": 200 + j} for j in range(SP_ROUTE)]
+             + [{"op": "a", "seed": 300}],
+             after=[{"op": "a", "seed": 300}], migrate="a"),
+        dict(name="c_ms", kind="multisplit", op="tri4096", blocks=MS_BLOCKS,
+             rtol=MS_RTOL, inner_rtol=MS_INNER_RTOL, seed=16),
+        dict(name="c_served", kind="serve", ops=[tri],
+             requests=[{"op": "t", "seed": 16, "qos": "interactive"}]),
+        dict(name="d_rank0", kind="serve", ops=[small], max_k=2,
+             requests=[{"op": "poisson", "seed": 400 + j} for j in range(4)],
+             faults_rank0="ksp.program=unavailable:at=2:iter=5")]
+    return [dict(c, local_shards=SP_LOCAL) for c in cases]
+
+
+def run_serving_procs(cases, nprocs=2, backend="gloo", timeout=600):
+    """Run the cases of ``facade/drivers/serving_procs.py`` on ``nprocs``
+    rank processes on the card: each case's results on every rank, and the
+    launch's wall seconds (its start-up included)."""
+    import pickle
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, "mpi_petsc4py_example_tpu_torch", "facade",
+                          "drivers", "serving_procs.py")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cases.json")
+        with open(path, "w") as f:
+            json.dump(cases, f)
+        t_spawn = time.time()
+        _, wall = RankLaunch(nprocs, ["--backend", backend, script, path,
+                                      os.path.join(tmp, "out")]).finish(
+                                          timeout)
+        t_exit = time.time()
+        got = {}
+        for c in cases:
+            got[c["name"]] = []
+            for r in range(nprocs):
+                with open(os.path.join(tmp, "out",
+                                       f"{c['name']}.rank{r}.pkl"), "rb") as f:
+                    got[c["name"]].append(pickle.load(f))
+    first, last = got[cases[0]["name"]][0], got[cases[-1]["name"]][0]
+    log(f"timing: serving-procs launch {wall:.1f} s (run.py -n {nprocs} "
+        f"--procs --backend {backend}): start-up "
+        f"{first['t_main'] - t_spawn:.1f} s (spawn to the driver), cases "
+        f"{last['t_end'] - first['t_main']:.1f} s, teardown "
+        f"{t_exit - last['t_end']:.1f} s")
+    return got, wall
+
+
+def served_load_check(label, res, nprocs):
+    """(a)'s checks on one run of the ``load`` kind (every rank's record):
+    converged, fp64 relres <= 1.05 rtol, a retried request, and row 10's
+    launches on each rank = its local shards x (the sum over blocks of the
+    block's max iterations + 1, plus the faulted attempt's 8 + 1)."""
+    lead = res[0]
+    check(all(r > 0 for r in lead["reasons"]),
+          f"{label}: reasons {lead['reasons']}")
+    check(max(lead["relres"]) <= 1.05 * SERVING_RTOL,
+          f"{label}: worst fp64 true relres {max(lead['relres']):.3e}")
+    retried = [j for j, a in enumerate(lead["attempts"]) if a > 1]
+    check(retried, f"{label}: no request recovered from the fault")
+    its = lead["iterations"]
+    formula = sum(max(its[j] for j in b) + 1 for b in lead["blocks"]) + 9
+    per_rank = []
+    for r, rec in enumerate(res[:nprocs]):
+        got = (rec["launches"] or {}).get("stencil7_dot_many", 0)
+        want = rec["local_shards"] * formula
+        check(got == want, f"{label}: rank {r} launched stencil7_dot_many "
+                           f"{got} times, expected {rec['local_shards']} x "
+                           f"{formula}")
+        check(not (rec["launches"] or {}).get("stencil7_dot"),
+              f"{label}: rank {r}: a served block took the single-RHS route")
+        check(rec["cols_run"] == len(its),
+              f"{label}: rank {r} ran {rec['cols_run']} columns")
+        per_rank.append(dict(rec["launches"]))
+    return formula, per_rank, len(retried)
+
+
+def phase_serving_procs(requests=SP_REQUESTS):
+    """``--serving-procs``: serving and the asynchronous tier across
+    processes (item 7.3), one launch of ``run.py -n 2 --procs --backend
+    gloo`` with two local shards a rank, both ranks on this card, run after
+    its twins in this process:
+
+    * (a) cfg9's shape at full width (128^3 f32 CG + jacobi at rtol 0.5e-6,
+      ``max_k`` 8, ``requests`` seeded Poisson arrivals, 64 as cfg9's,
+      ``ksp.program=unavailable:at=3:iter=8`` armed on both ranks): every
+      fp64 true relres <= 1.05e-6, a request retried, row 10's launches on
+      each rank = 2 x the formula of :func:`phase_serving_cfg9`; the same
+      arrivals on a single-process ``SolveServer`` (``DeviceComm()``) for
+      the rates beside; and a known population (``autostart=False``) bit
+      for bit equal to ``SolveServer`` on ``DeviceComm(4)`` on the card.
+      Two processes share one card: a comparison, never a scaling claim;
+    * (b) a 2-replica ``SolveRouter``: 16 requests to the 64^3 f32
+      stencil session, and the 64^3 AIJ session migrated between
+      replicas;
+    * (c) cfg16's shape (``tri4096``, 4 blocks, two a rank, rtol 1e-10),
+      cold then warm, and one served ``multisplit=True`` request;
+    * (d) a fault armed on rank 0 alone: the retry is agreed, nothing
+      hangs."""
+    import torch
+    import mpi_petsc4py_example_tpu_torch as pt
+    from mpi_petsc4py_example_tpu_torch.facade.drivers import (
+        serving_procs as sp)
+    card = card_line()
+    t_all = time.perf_counter()
+    cases = serving_procs_cases(requests=requests)
+    by = {c["name"]: c for c in cases}
+    api = sp.port_api()
+    # the known population's twin on DeviceComm(4)
+    t0 = time.perf_counter()
+    known = sp.run_case(api, pt.DeviceComm(2 * SP_LOCAL), by["a_known"])
+    log(f"timing: serving-procs (a) known population on DeviceComm(4) "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # (a)'s single-process twin on the same arrivals
+    t0 = time.perf_counter()
+    twin = sp.run_case(api, pt.DeviceComm(), by["a_load"])
+    log(f"timing: serving-procs (a) single-process server "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    formula_1, launches_1, _ = served_load_check(
+        "serving-procs (a) single process", [twin], 1)
+    single = {"solves_per_s": twin["solves_per_s"],
+              "p50_ms": twin["p50_ms"], "p99_ms": twin["p99_ms"],
+              "wall_s": twin["wall_s"], "rate_per_s": SP_RATE,
+              "formula": formula_1, "launches": launches_1[0],
+              "width_hist": {str(k): v for k, v in
+                             twin["width_hist"].items()},
+              "source": "the same arrivals on SolveServer(DeviceComm())"}
+    got, wall = run_serving_procs(cases)
+    for c in cases:
+        log(f"timing: serving-procs {c['name']} "
+            f"{got[c['name']][0]['case_wall_s']:.1f} s "
+            f"{got[c['name']][0].get('steps_s', {})}")
+        check(not any(r["jax_imported"] for r in got[c["name"]]),
+              f"{c['name']}: a rank imported JAX")
+    out = {"card": card, "launch_wall_s": wall}
+    # (a) under load, and its single-process twin
+    formula, per_rank, retried = served_load_check(
+        "serving-procs (a) gloo 2 x 2", got["a_load"], 2)
+    lead = got["a_load"][0]
+    out["a"] = {
+        "requests": requests, "rate_per_s": SP_RATE,
+        "solves_per_s": lead["solves_per_s"], "p50_ms": lead["p50_ms"],
+        "p99_ms": lead["p99_ms"], "wall_s": lead["wall_s"],
+        "width_hist": {str(k): v for k, v in lead["width_hist"].items()},
+        "worst_relres": float(max(lead["relres"])), "retried": retried,
+        "formula": formula, "launches_per_rank": per_rank,
+        "single": single}
+    log(f"serving-procs (a) cfg9 shape, {SERVING_NX}^3 f32 CG+jacobi, "
+        f"{requests} requests at {SP_RATE:.0f}/s: gloo 2 x 2 "
+        f"{lead['solves_per_s']:.1f} solves/s, p50 {lead['p50_ms']:.1f} ms, "
+        f"p99 {lead['p99_ms']:.1f} ms, widths {out['a']['width_hist']}; "
+        f"single-process server ({single['source']}) "
+        f"{single['solves_per_s']:.1f} solves/s, p50 "
+        f"{single['p50_ms']:.1f} ms, p99 {single['p99_ms']:.1f} ms; worst "
+        f"fp64 relres {out['a']['worst_relres']:.3e}; {retried} requests "
+        f"retried; stencil7_dot_many on each rank {per_rank} = 2 x "
+        f"{formula}; two processes share one card: a comparison, not a "
+        f"scaling claim; {card}")
+    lk = got["a_known"][0]
+    for j, (g, w) in enumerate(zip(lk["outcomes"], known["outcomes"])):
+        check(g["status"] == w["status"] == "ok",
+              f"serving-procs (a) known {j}: {g['status']}/{w['status']}")
+        check((g["iterations"], g["reason"]) == (w["iterations"],
+                                                 w["reason"]),
+              f"serving-procs (a) known {j}: iterations/reasons differ")
+        check(np.array_equal(g["x"], w["x"]),
+              f"serving-procs (a) known {j}: x differs from DeviceComm(4) "
+              f"by {float(np.abs(g['x'] - w['x']).max())}")
+    rel = sp.stencil_relres([SERVING_NX] * 3, np.stack(
+        [sp.rhs(by["a_known"]["ops"][0], r["seed"])
+         for r in by["a_known"]["requests"]]),
+        np.stack([o["x"] for o in lk["outcomes"]]))
+    check(max(rel) <= 1.05 * SERVING_RTOL,
+          f"serving-procs (a) known: worst relres {max(rel):.3e}")
+    out["a"]["known_bit_equal"] = SP_KNOWN
+    out["a"]["known_iterations"] = [o["iterations"] for o in lk["outcomes"]]
+    log(f"serving-procs (a) known population of {SP_KNOWN}: bit for bit "
+        f"equal to SolveServer on DeviceComm(4) on the card, iterations "
+        f"{out['a']['known_iterations']}, worst relres {max(rel):.3e}; "
+        f"{card}")
+    # (b) the router
+    rb = got["b_route"][0]
+    src, dst, owner, on_dst, on_src = rb["placement"]
+    check(owner == dst and "a" in on_dst and "a" not in on_src,
+          f"serving-procs (b): placement {rb['placement']}")
+    s_rows = [r for r in by["b_route"]["requests"] if r["op"] == "s"]
+    s_out = [o for o, r in zip(rb["before"], by["b_route"]["requests"])
+             if r["op"] == "s"]
+    check(all(o["status"] == "ok" and o["reason"] > 0 for o in
+              rb["before"] + rb["after"]), "serving-procs (b): a request "
+                                           "failed or diverged")
+    rel_s = sp.stencil_relres([SP_AIJ_NX] * 3, np.stack(
+        [sp.rhs(dict(by["b_route"]["ops"][0]), r["seed"]) for r in s_rows]),
+        np.stack([o["x"] for o in s_out]))
+    A64 = sp.AIJ[f"p3d{SP_AIJ_NX}"]()
+    ba = sp.rhs(by["b_route"]["ops"][1], 300)
+    rel_a = [float(np.linalg.norm(ba - A64 @ o["x"]) / np.linalg.norm(ba))
+             for o, r in zip(rb["before"] + rb["after"],
+                             by["b_route"]["requests"]
+                             + by["b_route"]["after"]) if r["op"] == "a"]
+    check(max(rel_s) <= 1.05 * SERVING_RTOL and max(rel_a) <= 1.05e-8,
+          f"serving-procs (b): relres {max(rel_s):.3e} / {max(rel_a):.3e}")
+    out["b"] = {"wall_s": rb["case_wall_s"], "placement": list(
+        rb["placement"][:3]), "worst_relres_stencil": float(max(rel_s)),
+                "worst_relres_aij": max(rel_a)}
+    log(f"serving-procs (b) 2-replica SolveRouter: {SP_ROUTE} requests of "
+        f"{SP_AIJ_NX}^3 f32, AIJ {SP_AIJ_NX}^3 migrated {src} -> {dst}, worst "
+        f"relres {max(rel_s):.3e} / {max(rel_a):.3e}, "
+        f"{rb['case_wall_s']:.1f} s; {card}")
+    # (c) the asynchronous tier
+    rc = got["c_ms"]
+    for tag in ("cold", "warm"):
+        for r, rec in enumerate(rc):
+            check("error" not in rec, f"serving-procs (c): {rec.get('error')}")
+            check(rec[tag]["reason"] > 0 and rec[tag]["relres"] <= MS_RTOL,
+                  f"serving-procs (c) {tag} rank {r}: {rec[tag]['reason']}, "
+                  f"relres {rec[tag]['relres']:.3e}")
+    check(rc[0]["psum_calls"] == rc[0]["checks"],
+          f"serving-procs (c): {rc[0]['psum_calls']} psums for "
+          f"{rc[0]['checks']} checks")
+    served = got["c_served"][0]["outcomes"][0]
+    Atri = sp.AIJ["tri4096"]()
+    bt = sp.rhs(by["c_served"]["ops"][0], 16)
+    rel_t = float(np.linalg.norm(bt - Atri @ served["x"])
+                  / np.linalg.norm(bt))
+    check(served["status"] == "ok" and rel_t <= MS_RTOL,
+          f"serving-procs (c) served: {served['status']}, {rel_t:.3e}")
+    out["c"] = {k: {kk: rc[0][k][kk] for kk in ("cut", "relres", "steps")}
+                for k in ("cold", "warm")}
+    out["c"].update(psum_calls=rc[0]["psum_calls"],
+                    served_relres=rel_t, served_cut=served["iterations"],
+                    wall_s=rc[0]["case_wall_s"])
+    log(f"serving-procs (c) cfg16 shape on 2 ranks: {out['c']}; {card}")
+    # (d) a fault on rank 0 alone
+    lead_d, follower_d = got["d_rank0"]
+    att = [o["attempts"] for o in lead_d["outcomes"]]
+    check(att == [1, 1, 2, 2] and follower_d["blocks_run"]
+          == lead_d["blocks_run"] == 2,
+          f"serving-procs (d): attempts {att}, blocks "
+          f"{lead_d['blocks_run']}/{follower_d['blocks_run']}")
+    out["d"] = {"attempts": att, "wall_s": lead_d["case_wall_s"]}
+    log(f"serving-procs (d) ksp.program fault on rank 0 alone: attempts "
+        f"{att}, both ranks ran {lead_d['blocks_run']} blocks (the retry "
+        f"agreed, nothing hung); {card}")
+    out["wall_s"] = time.perf_counter() - t_all
+    log(f"timing: serving-procs phase {out['wall_s']:.1f} s")
+    launches = {"stencil7_dot_many": (
+        per_rank[0].get("stencil7_dot_many", 0),
+        f"{SERVING_NX}^3 f32 SolveServer across processes, gloo 2 x 2, rank "
+        f"0's launches ({requests} requests, cfg9 shape)")}
+    return out, launches
 
 
 # ---- the fleet (ROADMAP Queue A item 7.2: fleet, transport, remote) --------
@@ -8747,10 +9054,16 @@ def phase_fleet_remote(card, transport, nx=REMOTE_NX,
     return out
 
 
-def phase_fleet():
-    """The fleet's phases (a1)-(a4) and (b), each logged with the card's
-    name and power limit and timed; returns their records and the launch
-    counts of rows 9 and 10 on the routed path ((a1), 2 replicas)."""
+def phase_fleet(transports=("loopback", "socket"),
+                elastic_requests=FLEET_ELASTIC,
+                remote_requests=REMOTE_REQUESTS,
+                routing_requests=FLEET_REQUESTS):
+    """The fleet's phases (a1)-(a4) and (b) (over each of ``transports``),
+    each logged with the card's name and power limit and timed ((a1) with
+    ``routing_requests``, (a4) with ``elastic_requests``, (b) with
+    ``remote_requests``); returns their
+    records and the launch counts of rows 9 and 10 on the routed path
+    ((a1), 2 replicas)."""
     import torch
     import mpi_petsc4py_example_tpu_torch as pt
     card = card_line()
@@ -8762,7 +9075,8 @@ def phase_fleet():
     rows = stencil_rows(comm, op, FLEET_REQUESTS, 14, torch.float32)
     del op
     out = {}
-    routing, rt = timed(phase_fleet_routing, card, rows)
+    routing, rt = timed(phase_fleet_routing, card, rows,
+                        requests=routing_requests)
     out["a1_routing"] = routing
     try:
         out["a2_qos"] = timed(phase_fleet_qos, card, rt, rows)
@@ -8771,10 +9085,12 @@ def phase_fleet():
         rt.shutdown(wait=False)
     del rows
     torch.cuda.empty_cache()
-    out["a4_elastic"] = timed(phase_fleet_elastic, card)
+    out["a4_elastic"] = timed(phase_fleet_elastic, card,
+                              requests=elastic_requests)
     torch.cuda.empty_cache()
-    out["b_remote"] = {tr: timed(phase_fleet_remote, card, tr)
-                       for tr in ("loopback", "socket")}
+    out["b_remote"] = {tr: timed(phase_fleet_remote, card, tr,
+                                 requests=remote_requests)
+                       for tr in transports}
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
     log(f"fleet phases: {out['wall_s']:.1f} s ({card})")
@@ -8782,8 +9098,8 @@ def phase_fleet():
     launches = {
         "stencil7_dot_many": (
             a1.get("stencil7_dot_many", 0),
-            f"128^3 f32 SolveRouter of 2 replicas, {FLEET_REQUESTS} requests "
-            "over 4 sessions, cfg14 shape (the batched fast path)"),
+            f"128^3 f32 SolveRouter of 2 replicas, {routing_requests} "
+            "requests over 4 sessions, cfg14 shape (the batched fast path)"),
         "stencil7_apply_many": (
             a1.get("stencil7_apply_many", 0),
             "128^3 f32 SolveRouter of 2 replicas, the fused session op3's "
@@ -9426,6 +9742,19 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--serving-procs"]:
+        # only serving and the asynchronous tier across processes (item
+        # 7.3), behind the check of the kernel its blocks launch (row 10)
+        phase_many_kernel_checks()
+        procs_serving, launches = phase_serving_procs()
+        for name, (count, path) in launches.items():
+            check(count > 0, f"{name} was not launched on {path}")
+        print(json.dumps({"serving_procs": procs_serving}, default=float))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] in (["--gamg"], ["--gamg-128"], ["--multisplit"]):
         # only PC gamg's phase (64^3, or the 128^3 AIJ with --gamg-128) or
         # the asynchronous tier's; no kernel is on either path
@@ -9534,13 +9863,27 @@ def main():
     print(json.dumps({"resilience": res}, default=float))
     lap("resilience")
     # the serving layer (item 7, first half): rows 9 and 10 on served blocks
-    serving, serving_launches = phase_serving()
+    # ((a) at 32 requests and (c) at 16, --serving's 64 and 24, for the
+    # phase across processes)
+    serving, serving_launches = phase_serving(persistent_requests=16,
+                                              cfg9_requests=32)
     print(json.dumps({"serving": serving}, default=float))
     lap("serving")
-    # the fleet (item 7.2): rows 9 and 10 on the routed sessions' blocks
-    fleet, fleet_launches = phase_fleet()
+    # the fleet (item 7.2): rows 9 and 10 on the routed sessions' blocks;
+    # for the room of the phase across processes, (a1) at 24 requests, (a4)
+    # at 8 + 8 and (b) at 2 requests a transport (--fleet: 48, 16 + 16, 4)
+    fleet, fleet_launches = phase_fleet(elastic_requests=8,
+                                        remote_requests=2,
+                                        routing_requests=24)
     print(json.dumps({"fleet": fleet}, default=float))
     lap("fleet")
+    # serving and the asynchronous tier across processes (item 7.3): row 10
+    # on the served blocks of every gloo rank; (a) at SP_REQUESTS_FULL
+    # requests (--serving-procs: 64)
+    serving_procs, serving_procs_launches = phase_serving_procs(
+        requests=SP_REQUESTS_FULL)
+    print(json.dumps({"serving_procs": serving_procs}, default=float))
+    lap("serving across processes")
     # PC gamg (item 7.6) and the asynchronous tier (item 7.4): no kernel on
     # either path, and no launch counter may move
     print(json.dumps({"gamg": timed(phase_gamg)}, default=float))
@@ -9650,6 +9993,12 @@ def main():
                                f"{path_f}")
             entry["launches_fleet"] = count_f
             entry["path_fleet"] = path_f
+        if entry["name"] in serving_procs_launches:
+            count_p, path_p = serving_procs_launches[entry["name"]]
+            check(count_p > 0, f"{entry['name']} was not launched on "
+                               f"{path_p}")
+            entry["launches_serving_procs"] = count_p
+            entry["path_serving_procs"] = path_p
         if entry["name"] in eps_types_launches:
             count_e, path_e = eps_types_launches[entry["name"]]
             check(count_e > 0, f"{entry['name']} was not launched on "

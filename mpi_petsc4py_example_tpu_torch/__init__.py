@@ -27,7 +27,9 @@ transport, the lease failure detector, failover and reconcile).
 ``MultisplitSolver`` (``solvers/multisplit.py``) is the asynchronous
 two-stage multisplitting tier over the stale exchange (``StaleExchange``,
 ``parallel/exchange.py``); the server's ``multisplit=True`` sessions run on
-it.
+it. On a ``ProcessComm`` of several processes all of them run from rank 0
+through one ordered command stream that every rank executes
+(``parallel/control.py``): the script is SPMD, and rank 0 alone submits.
 ``resilience`` holds fault injection, the silent-corruption guard's ABFT
 checksums, ``resilient_solve``, ``KSPFallbackChain`` and the elastic
 shrink; ``utils.checkpoint`` the mesh-portable checkpoints; ``telemetry``

@@ -39,12 +39,29 @@ array and places only its own rows (:meth:`DeviceComm.put_rows`,
 
 :func:`full_vector_local_apply` lifts a callable on the whole vector (a
 ``ShellMat``'s ``mult``, a PC shell's apply) to the shard-stacked form.
+
+**The control group.** The serving layer and the asynchronous tier drive a
+:class:`ProcessComm` of several processes from rank 0 through one ordered
+command stream (``parallel/control.py``). Its host data crosses a gloo
+group of its own (:func:`control_group`), never the data group, so a
+control message cannot interleave with a solve's ``psum``/``shift``:
+:meth:`DeviceComm.bcast_obj` (an object from rank 0),
+:meth:`DeviceComm.gather_obj`, :meth:`DeviceComm.scatter_rows` (each
+process only its own rows of rank 0's host array),
+:meth:`DeviceComm.gather_to_root` and :meth:`DeviceComm.answers_to_root`
+(rows back to rank 0 alone), :meth:`DeviceComm.agree_error` and
+:meth:`DeviceComm.agree_fault` (one rank's failure, or its flag, taken by
+every rank). On the virtual mesh, and on a process comm of one process,
+each is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
+import pickle
+import threading
 
 import numpy as np
 import torch
@@ -54,6 +71,98 @@ from ..resilience import faults as _faults
 
 # a dead peer ends a process-group run after this long instead of hanging it
 TIMEOUT_S = 300.0
+# the idle group's (idle_group): a follower waits on it for the next
+# command while a server idles; a peer that died is ended by the launcher
+# (run.py kills the peers of a failed rank)
+IDLE_TIMEOUT_S = 7 * 86400.0
+
+# depth of command-stream execution on this thread (parallel/control.py):
+# inside a command, every rank runs the same code in the same order
+_STREAM = threading.local()
+
+
+def in_stream() -> bool:
+    """True on a thread executing a command of the stream (every rank is
+    then at the same point of the same command)."""
+    return getattr(_STREAM, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def stream_scope():
+    """Mark this thread as executing a command (``parallel/control.py``)."""
+    _STREAM.depth = getattr(_STREAM, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _STREAM.depth -= 1
+
+
+def _row_bytes(a: np.ndarray) -> torch.Tensor:
+    """A C-contiguous host array's bytes as a ``(rows, bytes)`` uint8 tensor
+    sharing its memory (what the control group sends and receives)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.uint8).reshape(max(a.shape[0], 0), -1)
+                            if a.ndim else a.reshape(1).view(np.uint8))
+
+
+def bind_thread(comm):
+    """Make ``comm``'s card the current CUDA device of the calling thread
+    (a new thread starts on card 0; a rank of a host of several cards works
+    on its own)."""
+    dev = getattr(comm, "device", None)
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+
+# (world group, control group, idle group, host key-value store) of this
+# process
+_CONTROL = None
+_CONTROL_LOCK = threading.Lock()
+
+
+def control_group():
+    """``(group, store)``: the gloo group of the command stream's host data
+    and agreements (:data:`TIMEOUT_S`, as the data group's) and a
+    ``torch.distributed.TCPStore`` hosted by rank 0 that every rank reaches
+    (``parallel/exchange.py``'s cross-process exchange). Made once a
+    process group, collectively, with :func:`idle_group`: every rank makes
+    its first call at the same point of its program (the first server or
+    solver built on a process comm of several processes, or the first
+    agreement of a resilient solve)."""
+    return _control()[1], _control()[3]
+
+
+def idle_group():
+    """The gloo group of one collective only: a command's header, which a
+    follower waits for while the leader idles (:data:`IDLE_TIMEOUT_S`)."""
+    return _control()[2]
+
+
+def _control():
+    global _CONTROL
+    with _CONTROL_LOCK:
+        world = dist.group.WORLD
+        if _CONTROL is not None and _CONTROL[0] is world:
+            return _CONTROL
+        group = dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        idle = dist.new_group(
+            backend="gloo",
+            timeout=datetime.timedelta(seconds=IDLE_TIMEOUT_S))
+        rank = dist.get_rank()
+        host = os.environ.get("MASTER_ADDR", "127.0.0.1")
+        store = None
+        if rank == 0:
+            store = dist.TCPStore(host, 0, dist.get_world_size(), True,
+                                  datetime.timedelta(seconds=TIMEOUT_S),
+                                  wait_for_workers=False)
+        box = [None if store is None else int(store.port)]
+        dist.broadcast_object_list(box, src=0, group=group)
+        if store is None:
+            store = dist.TCPStore(host, box[0], dist.get_world_size(), False,
+                                  datetime.timedelta(seconds=TIMEOUT_S))
+        _CONTROL = (world, group, idle, store)
+        return _CONTROL
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -133,6 +242,8 @@ class DeviceComm:
         self.device_ids = ids
         # calls of each collective, for the logs (the same on either comm)
         self.collectives = {"psum": 0, "shift": 0, "all_gather": 0}
+        # fetch_cols brings the rows to rank 0 alone (answers_to_root)
+        self._root_answers = False
 
     @property
     def size(self) -> int:
@@ -342,6 +453,54 @@ class DeviceComm:
         """Return once every process has reached it (nothing to wait for
         on the virtual mesh)."""
 
+    # ---- the control group (module docstring): identities here -------------
+    def bcast_obj(self, obj, idle: bool = False):
+        """Rank 0's picklable ``obj`` on every process; ``idle`` sends it
+        over the idle group (a command's header, :func:`idle_group`)."""
+        return obj
+
+    def gather_obj(self, obj) -> list:
+        """Every process's ``obj``, in rank order, on every process."""
+        return [obj]
+
+    def scatter_rows(self, arr):
+        """Rank 0's host array ``arr`` (``None`` elsewhere) -> an array of
+        its shape and dtype on every process holding this process's padded
+        row range (zeros elsewhere): each process receives only its own
+        rows."""
+        return arr
+
+    def gather_to_root(self, arr):
+        """This process's host block (the same shape on every process) ->
+        the blocks joined along axis 0 in rank order on rank 0, None on
+        the other ranks."""
+        return arr
+
+    def agree_error(self, exc):
+        """The outcome every process takes after a step that may have
+        failed on some ranks only: None when none failed, else the failure
+        of the first failing rank (this rank's own exception when it
+        failed alike)."""
+        return exc
+
+    def agree_fault(self, fault):
+        """A fault point's triggered :class:`..resilience.faults.Fault` (or
+        None), taken by every process when any process's fired (inside a
+        command of the stream only): a fault armed on one rank then stops
+        every rank at the same point instead of leaving its peers in a
+        collective."""
+        return fault
+
+    @contextlib.contextmanager
+    def answers_to_root(self):
+        """Within: :meth:`fetch_cols` brings the rows to rank 0 alone, and
+        the other ranks keep only their own (a served block's answers)."""
+        saved, self._root_answers = self._root_answers, True
+        try:
+            yield self
+        finally:
+            self._root_answers = saved
+
     def shard_map(self, fn):
         """Wrap a per-shard body: ``run(*stacked)`` calls ``fn`` on the
         ``i``-th block of every shard-stacked argument, for each local shard
@@ -465,6 +624,112 @@ class ProcessComm(DeviceComm):
         before every process has called it (on either backend)."""
         if self._nprocs > 1:
             self.gather_shards(torch.zeros(1, device=self.device)).cpu()
+
+    # ---- the control group (module docstring) -------------------------------
+    def bcast_obj(self, obj, idle: bool = False):
+        if self._nprocs == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=0, group=idle_group() if idle else control_group()[0])
+        return box[0]
+
+    def gather_obj(self, obj) -> list:
+        if self._nprocs == 1:
+            return [obj]
+        out = [None] * self._nprocs
+        dist.all_gather_object(out, obj, group=control_group()[0])
+        return out
+
+    def _row_span(self, n: int) -> tuple[int, int]:
+        """This process's unpadded rows ``[start, stop)`` of ``n``."""
+        start, stop = self.local_row_range(n)
+        return min(start, n), min(stop, n)
+
+    def scatter_rows(self, arr):
+        if self._nprocs == 1:
+            return arr
+        shape, dt = self.bcast_obj(
+            None if arr is None else (tuple(arr.shape), arr.dtype.str))
+        dt = np.dtype(dt)
+        lp = self.local_padded_size(shape[0])
+        # rows travel as their bytes: any dtype, complex included
+        mine = np.empty((lp,) + shape[1:], dt)
+        group = control_group()[0]
+        if self._rank == 0:
+            padded = self.pad_rows(np.asarray(arr, dt))
+            parts = [_row_bytes(padded[r * lp:(r + 1) * lp])
+                     for r in range(self._nprocs)]
+            dist.scatter(_row_bytes(mine), parts, src=0, group=group)
+            return arr
+        dist.scatter(_row_bytes(mine), None, src=0, group=group)
+        full = np.zeros(shape, dt)
+        start, stop = self._row_span(shape[0])
+        full[start:stop] = mine[:stop - start]
+        return full
+
+    def gather_to_root(self, arr):
+        if self._nprocs == 1:
+            return arr
+        arr = np.ascontiguousarray(arr)
+        group = control_group()[0]
+        if self._rank == 0:
+            bufs = [np.empty_like(arr) for _ in range(self._nprocs)]
+            dist.gather(_row_bytes(arr), [_row_bytes(b) for b in bufs],
+                        dst=0, group=group)
+            return np.concatenate(bufs)
+        dist.gather(_row_bytes(arr), None, dst=0, group=group)
+        return None
+
+    def fetch_cols(self, x: torch.Tensor, n: int) -> np.ndarray:
+        if not (self._root_answers and self._nprocs > 1):
+            return super().fetch_cols(x, n)
+        h = to_host(x.detach().to("cpu"))
+        k = h.shape[1]
+        mine = h.transpose(0, 2, 1).reshape(-1, k)   # this process's rows
+        got = self.gather_to_root(mine)
+        if got is not None:
+            return got[:n]
+        out = np.zeros((n, k), mine.dtype)
+        start, stop = self._row_span(n)
+        out[start:stop] = mine[:stop - start]
+        return out
+
+    def agree_error(self, exc):
+        if self._nprocs == 1:
+            return exc
+        blob = None
+        if exc is not None:
+            try:
+                blob = pickle.dumps(exc)
+            except Exception:  # noqa: BLE001 (an unpicklable error: its text)
+                blob = pickle.dumps(RuntimeError(
+                    f"{type(exc).__name__}: {exc}"))
+        first = next((b for b in self.gather_obj(blob) if b is not None),
+                     None)
+        if first is None:
+            return None
+        agreed = pickle.loads(first)
+        if (exc is not None and type(exc) is type(agreed)
+                and getattr(exc, "failure_class", None)
+                == getattr(agreed, "failure_class", None)):
+            return exc
+        return agreed
+
+    def agree_fault(self, fault):
+        if self._nprocs == 1 or not in_stream():
+            return fault
+        desc = (None if fault is None else
+                (fault.point, fault.kind, fault.iter_k, fault.device))
+        first = next((d for d in self.gather_obj(desc) if d is not None),
+                     None)
+        if first is None or fault is not None:
+            return fault
+        point, kind, iter_k, device = first
+        if point == "device.lost" and device is not None:
+            # the peer's loss is this mesh's loss too
+            _faults.mark_lost(device, "lost on a peer rank")
+        return _faults.Fault(point, kind, iter_k=iter_k, device=device)
 
     def shift(self, x: torch.Tensor, step: int = 1) -> torch.Tensor:
         """The ring shift across processes: a roll inside the local stack,

@@ -435,7 +435,10 @@ def resilient_solve_many(ksp, B, X=None, policy: RetryPolicy | None = None,
     batched twin of :func:`resilient_solve` (JAX ``retry.py:488``): the
     checkpoint holds the whole ``(n, nrhs)`` blocks, a resumed block
     restarts every column from where it stood (converged columns freeze at
-    once), and the verification is per column."""
+    once), and the verification is per column. On a comm of several
+    processes every attempt ends with the ranks agreeing on its outcome
+    (``DeviceComm.agree_error``): one rank's failure is every rank's, so a
+    retry is taken by all ranks or by none."""
     return _wrapped(True, lambda: _resilient_solve_many(
         ksp, B, X, policy, checkpoint_path, elastic))
 
@@ -472,23 +475,31 @@ def _resilient_solve_many(ksp, B, X, policy, checkpoint_path, elastic):
 
     try:
         while True:
+            exc = None
             try:
                 result = ksp.solve_many(B, X)
+            except Exception as e:  # noqa: BLE001 (agreed below)
+                exc = e
+            # on a comm of several processes every rank takes the first
+            # failing rank's outcome: a retry by all ranks or by none
+            exc = ksp.get_operators()[0].comm.agree_error(exc)
+            if exc is None:
                 break
-            except DeviceExecutionError as exc:
-                mesh_attempt = _recover(
-                    ksp, exc, policy, esc, events, attempt, mesh_attempt,
-                    path, save, restore,
-                    lambda c, persisted: esc.reshard(
-                        ksp, c, events, attempt, persisted=persisted,
-                        path=path, B=B, X=X, many=True))
-                ksp.set_initial_guess_nonzero(True)
-                attempt += 1
-                mesh_attempt += 1
-                _push(events, RecoveryEvent(
-                    kind="resume", attempt=attempt,
-                    detail="initial_guess_nonzero from restored iterate "
-                           "block"))
+            if not isinstance(exc, DeviceExecutionError):
+                raise exc
+            mesh_attempt = _recover(
+                ksp, exc, policy, esc, events, attempt, mesh_attempt,
+                path, save, restore,
+                lambda c, persisted: esc.reshard(
+                    ksp, c, events, attempt, persisted=persisted,
+                    path=path, B=B, X=X, many=True))
+            ksp.set_initial_guess_nonzero(True)
+            attempt += 1
+            mesh_attempt += 1
+            _push(events, RecoveryEvent(
+                kind="resume", attempt=attempt,
+                detail="initial_guess_nonzero from restored iterate "
+                       "block"))
     finally:
         ksp.set_initial_guess_nonzero(guess0)
     result.attempts = attempt
@@ -497,6 +508,9 @@ def _resilient_solve_many(ksp, B, X, policy, checkpoint_path, elastic):
     if sdc:
         with _telemetry.span("resilient.verify") as vsp:
             ok, rres = _verify_true_residual_many(ksp, B, result.X)
+            # rank 0's verdict: it holds the whole answer block when the
+            # answers come back to it alone (DeviceComm.answers_to_root)
+            ok, rres = ksp.get_operators()[0].comm.bcast_obj((ok, rres))
             vsp.set_attrs(ok=ok, rel_residual=float(rres))
         if not ok:
             raise SilentCorruptionError(

@@ -9,7 +9,9 @@ resident multi-request program), :mod:`.fleet` (``SolveRouter``:
 consistent-hash session sharding over replicas, migration, autoscale, heal),
 :mod:`.transport` (the deadline, retry and idempotency RPC layer; loopback
 and localhost-socket transports) and :mod:`.remote` (remote replicas, the
-lease failure detector, failover and reconcile: ``FleetManager``).
+lease failure detector, failover and reconcile: ``FleetManager``). Each
+runs on a ``ProcessComm`` of several processes too: rank 0 leads, and the
+other ranks run its ordered command stream (``parallel/control.py``).
 """
 
 from .coalescer import SolveRequest, coalesce, padded_width

@@ -30,9 +30,17 @@ replica's CUDA work (torch's ``capture_error_mode="global"``; ROADMAP.md
 Queue C). Replicas on one card serialize their device work anyway; rates
 against the replica count are comparisons, not scaling.
 
-**One process.** A ``ProcessComm`` of several processes raises
-``NotImplementedError``, as ``SolveServer`` does (serving across processes
-is ROADMAP.md Queue A item 7.3).
+**Across processes.** On a ``ProcessComm`` of several processes the
+router is built on every rank (the script is SPMD), and its replicas share
+the card lock and the one command stream of the process
+(``parallel/control.py``), each command tagged by its server. Routing,
+migration with the held queue, autoscale and :meth:`SolveRouter.
+heal_check` run on rank 0; a migration's checkpoint is written there (host
+data: the operator's CSR) and its reload, registration and departure are
+one command the router runs on every rank, as are a replica's arrival and
+departure. A router with a ``server_factory`` of its own (the
+:class:`~.remote.FleetManager`'s stubs) drives its replicas from rank 0
+alone: their device work is their hosts' commands.
 
 A stencil session cannot migrate: the checkpoint needs ``to_scipy``, which
 ``StencilPoisson3D`` lacks in both packages, so its ``migrate`` fails, rolls
@@ -52,6 +60,7 @@ from concurrent.futures import Future
 import numpy as np
 
 from ..parallel import mesh as _mesh
+from ..parallel.control import Mailbox, stream_for
 from ..telemetry import metrics as _metrics
 from ..telemetry import spans as _telemetry
 from ..utils.options import global_options
@@ -69,18 +78,11 @@ def _stable_hash(key: str) -> int:
         hashlib.md5(key.encode("utf-8")).digest()[:8], "big")
 
 
-def _refuse_multiprocess(comm, what: str):
-    """Raise on a ``ProcessComm`` of several processes: ``comm``, or the
-    default communicator when ``comm`` is None and one was set (the default
-    is not built here)."""
+def _comm_or_default(comm):
+    """``comm`` as a communicator, or the default one when ``comm`` is None
+    and one was set (the default is not built here); None otherwise."""
     c = comm if comm is not None else _mesh._default_comm
-    c = None if c is None else _mesh.as_comm(c)
-    if c is not None and c.multiprocess:
-        raise NotImplementedError(
-            f"{what} on a ProcessComm of {c.nprocs} "
-            "processes: serving across processes (the dispatcher on one "
-            "rank, the blocks on all ranks) is ROADMAP.md Queue A item 7.3; "
-            "serve from one process")
+    return None if c is None else _mesh.as_comm(c)
 
 
 class HashRing:
@@ -148,7 +150,6 @@ class SolveRouter:
                  vnodes: int | None = None, server_factory=None,
                  autoscale: _qos.AutoscalePolicy | None = None,
                  **server_kw):
-        _refuse_multiprocess(comm, "SolveRouter")
         opt = global_options()
         n = opt.get_int("fleet_replicas",
                         2 if replicas is None else int(replicas))
@@ -157,8 +158,16 @@ class SolveRouter:
         if n < 1 or self.vnodes < 1:
             raise ValueError(f"SolveRouter: {n} replicas and {self.vnodes} "
                              "vnodes; each must be at least 1")
-        # the replicas' shared session lock (module docstring)
-        self.card_lock = threading.RLock()
+        # the replicas' shared session lock (module docstring); across
+        # processes the command stream's, and a router of local replicas
+        # joins the stream for its membership changes and migrations
+        c = _comm_or_default(comm)
+        self._stream = stream_for(c)
+        self.card_lock = self._stream.lock
+        self._tag = None
+        self._mailbox = Mailbox()
+        if self._stream.multiprocess and server_factory is None:
+            self._tag = self._stream.attach(self, c)
         self._factory = (server_factory or (lambda: SolveServer(
             comm, session_lock=self.card_lock, **server_kw)))
         self.autoscale = autoscale or _qos.AutoscalePolicy.from_options()
@@ -184,7 +193,7 @@ class SolveRouter:
         self._held: dict[str, list] = {}
         self._closed = False
         for _ in range(n):
-            self._add_replica_locked()
+            self._add_replica_cmd()
 
     # ---- replica membership -------------------------------------------------
     def _new_name(self) -> str:
@@ -192,12 +201,25 @@ class SolveRouter:
         self._serial += 1
         return name
 
+    def _everywhere(self, method: str, *args):
+        """Run ``method`` on every rank's router (a command of the stream)
+        when the router drives local replicas across processes; here
+        otherwise."""
+        if self._tag is None:
+            return getattr(self, method)(*args)
+        return self._stream.call(self._tag, method, *args)
+
     def _add_replica_locked(self) -> str:
-        name = self._new_name()
-        self._replicas[name] = self._factory()
-        self._ring.add(name)
-        _metrics.registry.gauge("fleet.replicas").set(len(self._replicas))
-        return name
+        return self._everywhere("_add_replica_cmd")
+
+    def _add_replica_cmd(self) -> str:
+        with self._lock:
+            name = self._new_name()
+            self._replicas[name] = self._factory()
+            self._ring.add(name)
+            _metrics.registry.gauge("fleet.replicas").set(
+                len(self._replicas))
+            return name
 
     def replicas(self):
         with self._lock:
@@ -260,7 +282,7 @@ class SolveRouter:
                     raise ValueError("cannot remove the last replica")
                 srv = self._replicas[name]   # KeyError: unknown replica
                 saved_overrides = dict(self._overrides)
-                self._ring.remove(name)
+                self._everywhere("_ring_cmd", "remove", name)
                 # overrides pinned to the leaving replica fall back to the
                 # ring
                 self._overrides = {op: r
@@ -269,25 +291,55 @@ class SolveRouter:
                 try:
                     self._reconcile_locked()
                 except Exception:  # noqa: BLE001 (rolled back, re-raised)
-                    self._ring.add(name)
+                    self._everywhere("_ring_cmd", "add", name)
                     self._overrides = saved_overrides
                     raise
+                self._everywhere("_ring_cmd", "drop", name)
+        srv.shutdown(wait=True)
+
+    def _ring_cmd(self, action: str, name: str):
+        """A membership step on every rank's router: ring ``add`` or
+        ``remove``, or ``drop`` the replica from the table."""
+        with self._lock:
+            if action == "drop":
                 del self._replicas[name]
                 _metrics.registry.gauge("fleet.replicas").set(
                     len(self._replicas))
-        srv.shutdown(wait=True)
+            else:
+                getattr(self._ring, action)(name)
 
     # ---- session registry ---------------------------------------------------
     def register_operator(self, name: str, A, **kw):
         """Register ``name`` on its ring owner; the registration spec is
         kept so that a migration re-registers it elsewhere (same keyword
-        arguments, the checkpoint-reloaded operator)."""
+        arguments, the checkpoint-reloaded operator). Across processes
+        every rank calls it with its own ``A``, and rank 0's owner lookup
+        and the registration run as one command on every rank."""
+        if self._tag is not None:
+            if not self._stream.leader:
+                return self._mailbox.post_and_wait(name, (A, kw))
+            with self._lock:
+                self._check_new(name)
+                self._mailbox.post(name, (A, kw))
+                return self._stream.call(self._tag, "_register_cmd", name,
+                                         self._ring.owner(name))
         with self._lock:
-            if self._closed:
-                raise RuntimeError("SolveRouter is shut down")
-            if name in self._ops:
-                raise ValueError(f"operator {name!r} already registered")
-            owner = self._ring.owner(name)
+            self._check_new(name)
+            return self._register_on(name, self._ring.owner(name), A, kw)
+
+    def _check_new(self, name: str):
+        if self._closed:
+            raise RuntimeError("SolveRouter is shut down")
+        if name in self._ops:
+            raise ValueError(f"operator {name!r} already registered")
+
+    def _register_cmd(self, name: str, owner: str):
+        return self._mailbox.run(
+            name, lambda v: self._register_on(name, owner, *v),
+            hand_on=not self._stream.leader)
+
+    def _register_on(self, name: str, owner: str, A, kw: dict):
+        with self._lock:
             sess = self._replicas[owner].register_operator(name, A, **kw)
             # keep the placed operator (not the caller's raw A): a
             # migration's checkpoint needs the port operator's to_scipy
@@ -304,7 +356,13 @@ class SolveRouter:
     def submit(self, op: str, b, **kw) -> Future:
         """Route one solve to ``op``'s owner replica (QoS and tolerance
         keywords pass through to ``SolveServer.submit``). While ``op``
-        migrates the submission is held and replayed where it lands."""
+        migrates the submission is held and replayed where it lands.
+        Across processes rank 0 alone takes requests: another rank raises
+        ``ValueError``."""
+        if not self._stream.leader:
+            raise ValueError(
+                f"SolveRouter.submit on rank {self._stream.comm.rank}: rank "
+                "0 takes the requests of a fleet across processes")
         with self._lock:
             if self._closed:
                 raise RuntimeError("SolveRouter is shut down")
@@ -372,11 +430,13 @@ class SolveRouter:
         before the source one departs, so a failure at any step leaves the
         session serving somewhere and ``_placement`` truthful. The
         checkpoint's operator read and its reload onto the destination's
-        mesh are CUDA work: each runs under its replica's session lock."""
-        from ..utils.checkpoint import (load_solve_state_many,
-                                        save_solve_state_many)
+        mesh are CUDA work: each runs under its replica's session lock.
+        Across processes the checkpoint is written on rank 0 (the
+        operator's host CSR) and its bytes travel with the one command
+        that reloads, registers and departs on every rank."""
+        from ..utils.checkpoint import save_solve_state_many
         with self._lock:
-            src_srv, dst_srv = self._replicas[src], self._replicas[dst]
+            src_srv = self._replicas[src]
             spec = self._ops[op]
         t0 = time.perf_counter()
         fd, path = tempfile.mkstemp(suffix=".npz",
@@ -394,23 +454,13 @@ class SolveRouter:
                 z = np.zeros((n, 1), dtype=_mesh.numpy_dtype(mat.dtype))
                 with src_srv._session_lock:
                     save_solve_state_many(path, mat, z, z, iteration=0)
-                # 3. register on the destination from the reloaded operator;
-                # the source session is still live
-                with dst_srv._session_lock:
-                    mat2, _X, _B, _it = load_solve_state_many(
-                        path, dst_srv.comm)
-                dst_srv.register_session(op, mat2, **spec["kwargs"])
-                # 4. depart the source, then flip the placement; a failed
-                # departure undoes the destination registration, so exactly
-                # one live session remains, on the source
-                try:
-                    src_srv.unregister_operator(op)
-                except Exception:  # noqa: BLE001 (compensated, re-raised)
-                    dst_srv.unregister_operator(op)
-                    raise
-                with self._lock:
-                    spec["operator"] = mat2
-                    self._placement[op] = dst
+                if self._tag is None:
+                    self._land(op, src, dst, path)
+                else:
+                    with open(path, "rb") as f:
+                        blob = f.read()
+                    self._stream.call(self._tag, "_land_cmd", op, src, dst,
+                                      blob)
                 msp.set_attrs(wall_s=time.perf_counter() - t0)
         finally:
             try:
@@ -418,6 +468,42 @@ class SolveRouter:
             except OSError:
                 pass
         record_migration(op, src, dst, time.perf_counter() - t0)
+
+    def _land_cmd(self, op: str, src: str, dst: str, blob: bytes):
+        """:meth:`_land` from the checkpoint's bytes, on every rank."""
+        fd, path = tempfile.mkstemp(suffix=".npz",
+                                    prefix=f"tpu_solve_migrate_{op}_")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(blob)
+            self._land(op, src, dst, path)
+        finally:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+    def _land(self, op: str, src: str, dst: str, path: str):
+        """Steps 3 and 4 of a move: register on the destination from the
+        reloaded operator (the source session is still live), then depart
+        the source and flip the placement; a failed departure undoes the
+        destination registration, so exactly one live session remains, on
+        the source."""
+        from ..utils.checkpoint import load_solve_state_many
+        with self._lock:
+            src_srv, dst_srv = self._replicas[src], self._replicas[dst]
+            spec = self._ops[op]
+        with dst_srv._session_lock:
+            mat2, _X, _B, _it = load_solve_state_many(path, dst_srv.comm)
+        dst_srv.register_session(op, mat2, **spec["kwargs"])
+        try:
+            src_srv.unregister_operator(op)
+        except Exception:  # noqa: BLE001 (compensated, re-raised)
+            dst_srv.unregister_operator(op)
+            raise
+        with self._lock:
+            spec["operator"] = mat2
+            self._placement[op] = dst
 
     def rehome(self, op: str, dst: str):
         """Flip the placement of ``op`` to ``dst`` after a failover or a
@@ -508,12 +594,19 @@ class SolveRouter:
 
     def shutdown(self, wait: bool = True):
         """Shut every replica down (``wait`` as in
-        :meth:`SolveServer.shutdown`)."""
+        :meth:`SolveServer.shutdown`). Across processes rank 0's call ends
+        the replicas and the router on every rank, and another rank's call
+        waits for that."""
+        if self._tag is not None and not self._stream.leader:
+            self._stream.wait_closed(self._tag)
+            return
         with self._lock:
             self._closed = True
             servers = list(self._replicas.values())
         for srv in servers:
             srv.shutdown(wait=wait)
+        if self._tag is not None:
+            self._stream.close(self._tag)
 
     def __enter__(self):
         return self

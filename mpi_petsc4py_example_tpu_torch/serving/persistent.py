@@ -52,7 +52,6 @@ import numpy as np
 import torch
 
 from ..resilience import faults as _faults
-from ..resilience.retry import resilient_solve_many
 from ..telemetry import spans as _telemetry
 from ..utils.convergence import ConvergedReason
 from ..utils.profiling import record_requests_per_launch, record_sync
@@ -94,6 +93,7 @@ class PersistentRunner:
         self._server = server
         self._sess = sess
         self.capacity = int(capacity or server.max_k)
+        self._out = None               # the last launch's device outputs
         self._staged: list = []        # [(SolveRequest, wait_s), ...]
         self._rec: _Launch | None = None
         # requests owed a resolution: up at enqueue, down only after their
@@ -195,12 +195,46 @@ class PersistentRunner:
 
     def _launch_device(self, rec):
         """Stage the slots and run the persistent program on the session's
-        card (JAX ``persistent.py:247``); the outputs stay on the device."""
+        card (JAX ``persistent.py:247``), as one command of the server's
+        stream (:meth:`launch_program` on every rank, each receiving only
+        its own rows of the slots)."""
+        from .server import _block
+        B = _block(self._sess, rec.reqs, rec.kpad)
+        rt = np.zeros(rec.kpad)
+        at = np.zeros(rec.kpad)
+        for j, r in enumerate(rec.reqs):
+            rt[j] = r.rtol
+            at[j] = r.atol
+        # padding slots keep rtol = atol = 0 and a zero right-hand side:
+        # norm 0, target 0, frozen at outer step 0
+        maxit = max((r.max_it for r in rec.reqs), default=1)
+        srv = self._server
+        return srv._stream.call(srv._tag, "_persistent_launch",
+                                self._sess.name, rec.kpad, rt, at, maxit,
+                                rows=B)
+
+    def launch_program(self, kpad, rt, at, maxit, B):
+        """The launch command, on every rank: stage this rank's rows of the
+        slots and run the persistent program (JAX ``persistent.py:247``);
+        the outputs stay on the device. The ranks agree on its outcome, so
+        a launch that failed anywhere goes to the fallback everywhere."""
+        self._out = exc = None
+        comm = self._sess.ksp.get_operators()[0].comm
+        try:
+            self._out = self._run_program(kpad, rt, at, maxit, B)
+        except Exception as e:  # noqa: BLE001 (agreed, then raised)
+            exc = e
+        exc = comm.agree_error(exc)
+        if exc is not None:
+            self._out = None
+            raise exc
+        return True
+
+    def _run_program(self, kpad, rt, at, maxit, B):
         from ..solvers.megasolve import (GATE_REFINE_MAX,
                                          build_megasolve_program_many,
                                          megasolve_stencil_supported)
-        sess = self._sess
-        ksp = sess.ksp
+        ksp = self._sess.ksp
         mat = ksp.get_operators()[0]
         pc = ksp.get_pc()
         comm = mat.comm
@@ -211,24 +245,32 @@ class PersistentRunner:
         self._comm = comm
         sf = (ksp.megasolve_stencil_fastpath
               and megasolve_stencil_supported(ksp.get_type(), pc, mat,
-                                              nrhs=rec.kpad))
+                                              nrhs=kpad))
         prog = build_megasolve_program_many(
-            comm, ksp.get_type(), pc, mat, nrhs=rec.kpad,
+            comm, ksp.get_type(), pc, mat, nrhs=kpad,
             sstep_s=ksp.sstep_s, stencil_fastpath=sf, persistent=True)
-        from .server import _block
-        B = _block(sess, rec.reqs, rec.kpad)
-        rt = np.zeros(rec.kpad)
-        at = np.zeros(rec.kpad)
-        for j, r in enumerate(rec.reqs):
-            rt[j] = r.rtol
-            at[j] = r.atol
-        # padding slots keep rtol = atol = 0 and a zero right-hand side:
-        # norm 0, target 0, frozen at outer step 0
-        maxit = max((r.max_it for r in rec.reqs), default=1)
         Bd = comm.put_cols(B, mat.dtype)
         _telemetry.record_program_dispatch("persistent_serve")
         return prog.launch(Bd, None, rt, at, rt.copy(), ksp.divtol, maxit,
                            GATE_REFINE_MAX, ConvergedReason.DIVERGED_MAX_IT)
+
+    def fetch_launch(self):
+        """The fetch command, on every rank: the last launch's per-slot
+        results (the same on every rank) and its iterate, this rank's rows
+        in one copy, joined on rank 0 alone: ``(head, x, host_reads)``,
+        ``x`` ``(shards, slots, local_size)`` (``None`` off rank 0)."""
+        out, self._out = self._out, None
+        x = out["x"]
+        L, kp, lsize = x.shape
+        xr = torch.view_as_real(x) if x.is_complex() else x
+        head = torch.cat([out["head"].double(), out["cols"].reshape(-1)])
+        packed = torch.cat([head, xr.reshape(-1).double()]).cpu().numpy()
+        xs = packed[head.numel():]
+        if x.is_complex():
+            xs = xs.reshape(-1, 2) @ np.array([1.0, 1.0j])
+        comm = self._sess.ksp.get_operators()[0].comm
+        xs = comm.gather_to_root(xs.reshape(L, kp, lsize))
+        return packed[:head.numel()], xs, out["host_reads"]
 
     def _resolve(self, rec):
         """Resolve every slot's future from a launch; a failure goes to the
@@ -251,31 +293,25 @@ class PersistentRunner:
         """The one host read of a launch: its iterate and per-slot results
         in one copy."""
         from .server import ServedSolveResult, SolveServer
-        out = rec.out
-        x = out["x"]
-        L, kp, lsize = x.shape
-        xr = torch.view_as_real(x) if x.is_complex() else x
-        packed = torch.cat([out["head"].double(), out["cols"].reshape(-1),
-                            xr.reshape(-1).double()])
-        h = packed.cpu().numpy()
-        record_sync("persistent launch", out["host_reads"] + 1)
+        srv = self._server
+        h, xs, host_reads = srv._stream.call(srv._tag, "_persistent_fetch",
+                                             self._sess.name)
+        kp = xs.shape[1]
+        record_sync("persistent launch", host_reads + 1)
         wall = time.monotonic() - rec.t0
         iters = h[2:2 + kp].astype(np.int64)
         rnorms = h[2 + kp:2 + 2 * kp]
         reasons = h[2 + 2 * kp:2 + 3 * kp].astype(np.int64)
         reasons[~np.isfinite(rnorms)] = ConvergedReason.DIVERGED_NANORINF
-        xs = h[2 + 3 * kp:]
-        if x.is_complex():
-            xs = xs.reshape(-1, 2) @ np.array([1.0, 1.0j])
-        # one row a slot: (L, kp, lsize) -> (kp, L * lsize), padding dropped
-        XT = (xs.reshape(L, kp, lsize).transpose(1, 0, 2).reshape(kp, -1)
+        # one row a slot: (shards, kp, lsize) -> (kp, n), padding dropped
+        XT = (xs.transpose(1, 0, 2).reshape(kp, -1)
               [:, : rec.n].astype(self._sess.dtype))
         for j, r in enumerate(rec.reqs):
             res = ServedSolveResult(
                 iterations=int(iters[j]),
                 residual_norm=float(rnorms[j]),
                 reason=int(reasons[j]), wall_time=wall,
-                host_syncs=out["host_reads"] + 1,
+                host_syncs=host_reads + 1,
                 x=XT[j], op=r.op, batch_width=rec.k,
                 queue_wait=rec.waits[j])
             r.future.set_result(res)
@@ -293,17 +329,14 @@ class PersistentRunner:
         from .server import SolveServer, _block
         self.stats["fallbacks"] += 1
         sess = self._sess
-        ksp = sess.ksp
         reqs = rec.reqs
         t0 = time.monotonic()
         try:
-            ksp.set_tolerances(
-                rtol=min(r.rtol for r in reqs),
-                atol=min(r.atol for r in reqs),
-                max_it=max(r.max_it for r in reqs))
             B = _block(sess, reqs, rec.kpad)
-            res = resilient_solve_many(
-                ksp, B, policy=self._server.retry_policy)
+            res = self._server._solve_block_everywhere(
+                sess, reqs, B, True,
+                tol=(min(r.rtol for r in reqs), min(r.atol for r in reqs),
+                     max(r.max_it for r in reqs)))
         except Exception as exc:  # noqa: BLE001 (resolves every slot)
             rec.span.set_attr("error", type(exc).__name__)
             rec.span.set_attrs(outcome="error").end()

@@ -38,8 +38,16 @@ CUDA work. What crosses the wire is host data only: numpy arrays, the npz
 bytes of a checkpoint, plain values (``serving/transport.py`` refuses a
 ``torch.Tensor``).
 
-**One process.** A ``ProcessComm`` of several processes raises
-``NotImplementedError`` (ROADMAP.md Queue A item 7.3).
+**Across processes.** On a ``ProcessComm`` of several processes every
+rank builds the manager (the script is SPMD); the RPC handlers run on rank
+0, and a handler's device work (a registration from checkpoint bytes, its
+resumed warm solve) is one command of the process's command stream
+(``parallel/control.py``), which every rank runs on its copy of the host.
+The bytes travel with the command. Only rank 0 registers, submits and
+drives the lease loop: on another rank :meth:`FleetManager.register_operator`
+returns None (the registration reaches it through the stream),
+:meth:`FleetManager.submit` raises ``ValueError``, and
+:meth:`FleetManager.shutdown` waits for rank 0's.
 """
 
 from __future__ import annotations
@@ -55,11 +63,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..parallel.control import stream_for
 from ..parallel.mesh import numpy_dtype
 from ..telemetry import metrics as _metrics
 from ..telemetry import spans as _telemetry
 from ..utils.options import global_options
-from .fleet import SolveRouter, _refuse_multiprocess
+from .fleet import SolveRouter, _comm_or_default
 from .server import ServedSolveResult, SolveServer
 from .transport import (LoopbackTransport, RpcClient, RpcHost,
                         SocketHostServer, SocketTransport, TransportError)
@@ -111,6 +120,9 @@ class ReplicaHost:
         self.server = (server if server is not None
                        else SolveServer(comm, **server_kw))
         self.host_index = int(host_index)
+        # the handlers' device work: commands of the server's stream
+        self._stream = self.server._stream
+        self._tag = self._stream.attach(self, self.server.comm)
         self._lock = threading.RLock()
         # op -> {"bytes", "iteration", "epoch", "kwargs"}: the freshest
         # checkpoint of every resident session, what a failover on another
@@ -152,6 +164,10 @@ class ReplicaHost:
         ``resumed_iteration`` is the count the solve continued from. The
         whole handler (placement, registration, the warm solve, the new
         checkpoint) is CUDA work under the server's session lock."""
+        return self._stream.call(self._tag, "_register_cmd", p)
+
+    def _register_cmd(self, p):
+        """:meth:`_h_register`'s body, on every rank."""
         op = p["op"]
         kwargs = dict(p.get("kwargs") or {})
         epoch = int(p.get("epoch", 0))
@@ -251,8 +267,19 @@ class ReplicaHost:
         return bool(self.server.regrow())
 
     def _h_shutdown(self, p):
-        self.server.shutdown(wait=bool(p.get("wait", True)))
+        self.close(wait=bool(p.get("wait", True)))
         return True
+
+    def close(self, wait: bool = True):
+        """Shut the host's server down and leave the stream (rank 0; on
+        another rank: wait for rank 0's)."""
+        if not self._stream.leader:
+            self.server.shutdown()
+            self._stream.wait_closed(self._tag)
+            return
+        self.server.shutdown(wait=wait)
+        if self._stream.multiprocess:
+            self._stream.close(self._tag)
 
 
 class RemoteSession:
@@ -478,7 +505,6 @@ class FleetManager:
                  client_sleep=time.sleep, vnodes: int | None = None,
                  rpc_deadline: float | None = None,
                  rpc_retry_max: int | None = None, **server_kw):
-        _refuse_multiprocess(comm, "FleetManager")
         opt = global_options()
         self.transport_kind = opt.get_string(
             "fleet_transport", transport or "loopback")
@@ -499,7 +525,10 @@ class FleetManager:
                 "each must be positive")
         self._epochs = itertools.count(1)
         self._lock = threading.RLock()
-        self.card_lock = threading.RLock()
+        # the hosts' and stubs' shared lock: across processes the command
+        # stream's (serving/fleet.py)
+        self._stream = stream_for(_comm_or_default(comm))
+        self.card_lock = self._stream.lock
         self.hosts: dict[str, ReplicaHost] = {}
         self.stubs: dict[str, RemoteReplica] = {}
         self.transports: dict[str, object] = {}
@@ -543,7 +572,7 @@ class FleetManager:
         self.failovers: list[FailoverEvent] = []
         self._closed = False
         self._monitor = None
-        if monitor:
+        if monitor and self._stream.leader:
             self._monitor = threading.Thread(
                 target=self._monitor_loop, name="fleet-lease",
                 daemon=True)
@@ -557,13 +586,21 @@ class FleetManager:
 
     def register_operator(self, name: str, A, **kw):
         """Router registration and an immediate checkpoint pull, so that a
-        host lost before the first lease round is still re-homeable."""
+        host lost before the first lease round is still re-homeable. Rank
+        0's call registers across processes; another rank's returns None
+        (module docstring)."""
+        if not self._stream.leader:
+            return None
         sess = self.router.register_operator(name, A, **kw)
         owner = self.router.owner(name)
         self._pull_ckpt(name, owner)
         return sess
 
     def submit(self, op: str, b, **kw) -> Future:
+        if not self._stream.leader:
+            raise ValueError(
+                f"FleetManager.submit on rank {self._stream.comm.rank}: rank "
+                "0 takes the requests of a fleet across processes")
         return self.router.submit(op, b, **kw)
 
     def solve(self, op: str, b, *, timeout: float | None = None, **kw):
@@ -775,13 +812,17 @@ class FleetManager:
 
     def shutdown(self, wait: bool = True):
         self._closed = True
+        if not self._stream.leader:
+            for host in self.hosts.values():
+                host.close()
+            return
         self.router.shutdown(wait=wait)
         for srv in self._socket_servers:
             srv.close()
         # a host whose transport died never heard the router's shutdown:
         # its in-process server stops here
         for host in self.hosts.values():
-            host.server.shutdown(wait=False)
+            host.close(wait=False)
         if self._monitor is not None:
             self._monitor.join(timeout=max(1.0, 2 * self.lease_s))
 

@@ -47,10 +47,26 @@ capture. The capture keeps ``torch.cuda.graph``'s default
 run no CUDA work on other threads, which then fails loudly instead of
 joining the graph.
 
-**One process.** The dispatcher drives every shard from one thread; a
-``ProcessComm`` of several processes raises ``NotImplementedError``
-(serving across processes, with the dispatcher on one rank and the blocks on
-all ranks, is ROADMAP.md Queue A item 7.3).
+**Across processes.** On a ``ProcessComm`` of several processes the
+server is one leader and its followers (``parallel/control.py``): global
+rank 0 alone takes :meth:`submit`, coalesces, applies the QoS schedule,
+sheds, expires and cancels requests, decides retries and holds the
+futures; registration, unregistration, each block's solve, each persistent
+launch and :meth:`shutdown` reach every rank as commands of one ordered
+stream, which a follower thread on every other rank runs under the
+session lock (the process's card lock). A block sends each rank only its
+own rows of the right-hand sides and brings the answers back to rank 0
+alone (``DeviceComm.scatter_rows``, ``DeviceComm.answers_to_root``); each
+attempt of the resilient dispatch ends with the ranks agreeing on its
+outcome, so a fault seen by one rank alone makes every rank retry, or
+none. Expired and cancelled requests never reach a follower. The user's
+script is SPMD: every rank builds the comm, the server and the operators
+and calls :meth:`register_operator` and :meth:`shutdown`; only rank 0
+submits (:meth:`submit` elsewhere raises ``ValueError``), and
+:meth:`stats` reports from rank 0. A shard loss on such a comm resolves
+the block's futures with ``NotImplementedError`` (the elastic shrink
+across processes is ROADMAP.md Queue A item 6.4). On a ``DeviceComm``, and
+on a ``ProcessComm`` of one process, the stream is the identity.
 """
 
 from __future__ import annotations
@@ -65,7 +81,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.mat import Mat
-from ..parallel.mesh import as_comm, numpy_dtype
+from ..parallel.control import Mailbox, stream_for
+from ..parallel.mesh import as_comm, bind_thread, in_stream, numpy_dtype
 from ..resilience import faults as _faults
 from ..resilience.retry import RetryPolicy, resilient_solve_many
 from ..solvers.ksp import KSP
@@ -157,7 +174,9 @@ class SolveServer:
     caller enqueue a known population, then :meth:`start`. ``comm=None``
     takes the default communicator, which is the card's. ``session_lock``
     (an ``RLock``) replaces the server's own session lock: servers of one
-    process that share a card share it (the fleet's replicas)."""
+    process that share a card share it (the fleet's replicas); on a
+    ``ProcessComm`` of several processes it is the command stream's lock,
+    which every server of the process shares (module docstring)."""
 
     def __init__(self, comm=None, *, window: float = 0.002,
                  max_k: int = 32, pad_pow2: bool = True,
@@ -166,12 +185,10 @@ class SolveServer:
                  max_queue: int = 0, deadline: float = 0.0,
                  autostart: bool = True, session_lock=None):
         self.comm = as_comm(comm)
-        if self.comm.multiprocess:
-            raise NotImplementedError(
-                f"SolveServer on a ProcessComm of {self.comm.nprocs} "
-                "processes: serving across processes (the dispatcher on one "
-                "rank, the blocks on all ranks) is ROADMAP.md Queue A item "
-                "7.3; serve from one process")
+        # the ordered command stream (identity on one process) and its lock
+        self._stream = stream_for(self.comm, lock=(
+            threading.RLock() if session_lock is None else session_lock))
+        self._leader = self._stream.leader
         # the mesh the server was provisioned on: the regrow ceiling
         self._full_comm = self.comm
         self._heal_epoch_seen = _faults.heal_epoch()
@@ -199,8 +216,13 @@ class SolveServer:
         # then _cv. Servers that drive one card from one process (the
         # fleet's replicas, serving/fleet.py) pass one shared RLock, so no
         # graph capture of one meets another's CUDA work.
-        self._session_lock = (threading.RLock() if session_lock is None
-                              else session_lock)
+        self._session_lock = self._stream.lock
+        # where every rank's register_operator call meets the stream's
+        # command (a follower's waits there for the session it made)
+        self._mailbox = Mailbox()
+        # block commands run on this rank, and their columns
+        self._blocks_run = 0
+        self._cols_run = 0
         self._thread: threading.Thread | None = None
         self._dispatch_hook = None       # test seam: called per batch
         self._stats = {"requests": 0, "batches": 0, "padded_cols": 0,
@@ -212,6 +234,7 @@ class SolveServer:
         self._wait_hist = _metrics.Histogram(
             "serving.queue_wait_seconds", _metrics.QUEUE_WAIT_BUCKETS_S)
         self.set_from_options()
+        self._tag = self._stream.attach(self, self.comm)
         if autostart:
             self.start()
 
@@ -269,7 +292,51 @@ class SolveServer:
         session's ``ksp_type``/``pc_type`` (a ``-multisplit_inner_type``
         flag wins); it needs an assembled operator, and excludes
         ``persistent``. The whole registration (placement, set-up, warm
-        blocks: CUDA work) runs under the session lock."""
+        blocks: CUDA work) runs under the session lock. Across processes
+        every rank calls it with its own ``A`` (the same operator) and
+        the same keywords, and the registration runs as one command of
+        the stream on every rank (module docstring)."""
+        kw = dict(ksp_type=ksp_type, pc_type=pc_type, dtype=dtype,
+                  rtol=rtol, atol=atol, max_it=max_it, abft=abft,
+                  residual_replacement=residual_replacement,
+                  megasolve=megasolve, multisplit=multisplit,
+                  persistent=persistent, warm_widths=tuple(warm_widths))
+        if not self._stream.multiprocess or in_stream():
+            return self._register_local(name, A, **kw)
+        if not self._leader:
+            return self._mailbox.post_and_wait(name, (A, kw))
+        with self._session_lock:
+            if name in self._sessions:
+                raise ValueError(f"operator {name!r} already registered")
+            self._mailbox.post(name, (A, kw))
+            return self._stream.call(self._tag, "_register_cmd", name)
+
+    registerOperator = register_operator
+
+    def _register_cmd(self, name):
+        """The registration command, on every rank: this rank's own
+        operator and keywords (a follower's waits for its own call). The
+        ranks agree on its outcome: a registration that failed on any rank
+        raises on every rank, and no rank keeps the session."""
+        def register(value):
+            out = exc = None
+            try:
+                out = self._register_local(name, value[0], **value[1])
+            except Exception as e:  # noqa: BLE001 (agreed, then raised)
+                exc = e
+            agreed = self.comm.agree_error(exc)
+            if agreed is None:
+                return out
+            if exc is None:
+                self._unregister_local(name)
+            raise agreed
+        return self._mailbox.run(name, register, hand_on=not self._leader)
+
+    def _register_local(self, name, A, *, ksp_type, pc_type, dtype, rtol,
+                        atol, max_it, abft, residual_replacement, megasolve,
+                        multisplit, persistent, warm_widths):
+        """The registration itself, on this rank (:meth:`register_operator`
+        documents it)."""
         with self._session_lock:
             if name in self._sessions:
                 raise ValueError(f"operator {name!r} already registered")
@@ -337,8 +404,6 @@ class SolveServer:
                 ksp.solve_many(np.zeros((sess.n, w), sess.dtype))
             return sess
 
-    registerOperator = register_operator
-
     def _multisplit_solver(self, name, op, ksp, rtol, atol, dtype):
         """The session's asynchronous solver (JAX ``server.py:388-404``):
         the session's KSP type and PC seed the inner block solves unless
@@ -368,17 +433,23 @@ class SolveServer:
 
     def unregister_operator(self, name: str):
         """Remove a resident session; refuses while requests for it are
-        queued (drain first)."""
+        queued (drain first). Across processes rank 0's call removes it on
+        every rank; a follower's call does nothing."""
+        if self._stream.multiprocess and not in_stream() and not self._leader:
+            return None
         with self._session_lock, self._cv:
             if any(r.op == name for r in self._pending):
                 raise RuntimeError(
                     f"unregister_operator({name!r}): requests still "
                     "pending — drain() first")
-            sess = self._sessions.pop(name, None)
-        if sess is None:
-            raise ValueError(f"unknown operator {name!r}; registered: "
-                             f"{self.operators()}")
-        return sess
+            if name not in self._sessions:
+                raise ValueError(f"unknown operator {name!r}; registered: "
+                                 f"{self.operators()}")
+        return self._stream.call(self._tag, "_unregister_local", name)
+
+    def _unregister_local(self, name: str):
+        with self._session_lock, self._cv:
+            return self._sessions.pop(name)
 
     def operators(self):
         return sorted(self._sessions)
@@ -397,7 +468,13 @@ class SolveServer:
         urgent strictly-lower-priority pending request (its future resolves
         with :class:`ServerOverloadedError`, ``shed=True``), or else is
         rejected with :class:`ServerOverloadedError`. Host-only: ``b`` is
-        copied into numpy here."""
+        copied into numpy here. Across processes rank 0 alone takes
+        requests: another rank raises ``ValueError``."""
+        if not self._leader:
+            raise ValueError(
+                f"SolveServer.submit on rank {self.comm.rank}: rank 0 takes "
+                "the requests of a server across processes (module "
+                "docstring); submit from rank 0")
         sess = self._sessions.get(op)
         if sess is None:
             raise ValueError(f"unknown operator {op!r}; registered: "
@@ -471,8 +548,9 @@ class SolveServer:
 
     # ---- lifecycle ----------------------------------------------------------
     def start(self):
-        """Start the dispatcher thread (idempotent)."""
-        if self._thread is None:
+        """Start the dispatcher thread (idempotent; rank 0's alone across
+        processes, where the other ranks run the stream's commands)."""
+        if self._thread is None and self._leader:
             self._thread = threading.Thread(
                 target=self._loop, name="SolveServer-dispatch",
                 daemon=True)
@@ -481,7 +559,8 @@ class SolveServer:
 
     def drain(self, timeout: float | None = None) -> bool:
         """Block until every submitted request has resolved; False on
-        timeout. The server stays open."""
+        timeout. The server stays open. (A follower rank queues nothing:
+        True at once.)"""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while (self._pending or self._inflight
@@ -510,7 +589,17 @@ class SolveServer:
     def shutdown(self, wait: bool = True):
         """Stop the server. ``wait=True`` resolves every pending future
         first, then joins the dispatcher; ``wait=False`` fails the pending
-        futures with :class:`ServerClosedError`."""
+        futures with :class:`ServerClosedError`. Across processes rank 0's
+        call then ends the server on every rank, and another rank's call
+        waits for that."""
+        if not self._leader:
+            self._stream.wait_closed(self._tag)
+            return
+        self._shutdown_leader(wait)
+        if self._stream.multiprocess:
+            self._stream.close(self._tag)
+
+    def _shutdown_leader(self, wait):
         with self._cv:
             if self._closed and self._thread is None:
                 return
@@ -546,6 +635,7 @@ class SolveServer:
 
     # ---- dispatcher ---------------------------------------------------------
     def _loop(self):
+        bind_thread(self.comm)
         while True:
             with self._cv:
                 while (not self._pending and not self._stop
@@ -662,17 +752,9 @@ class SolveServer:
                               precision=reqs[0].precision)
         with bsp:
             B = _block(sess, reqs, kpad)
-            ksp = sess.ksp
-            ksp.set_tolerances(rtol=reqs[0].rtol, atol=reqs[0].atol,
-                               max_it=reqs[0].max_it)
             try:
-                if sess.multisplit is not None:
-                    res = self._multisplit_solve_many(sess, reqs, B)
-                elif self.resilient:
-                    res = resilient_solve_many(ksp, B,
-                                               policy=self.retry_policy)
-                else:
-                    res = ksp.solve_many(B)
+                res = self._solve_block_everywhere(sess, reqs, B,
+                                                   self.resilient)
             except Exception as exc:  # noqa: BLE001 (resolves the futures)
                 # whatever the dispatch raised reaches the waiting futures;
                 # the dispatcher must survive for every later request
@@ -697,7 +779,58 @@ class SolveServer:
                           iterations=max(res.iterations, default=0))
         self._record(k, waits, kpad - k)
 
-    def _multisplit_solve_many(self, sess, reqs, B):
+    def _persistent_launch(self, name, kpad, rt, at, maxit, B):
+        """A persistent launch, as a command (``serving/persistent.py``)."""
+        return self._sessions[name].persistent.launch_program(
+            kpad, rt, at, maxit, B)
+
+    def _persistent_fetch(self, name):
+        return self._sessions[name].persistent.fetch_launch()
+
+    def _solve_block_everywhere(self, sess, reqs, B, resilient, tol=None):
+        """One block's solve as a command of the stream: every rank runs
+        :meth:`_solve_block`; rank 0's result comes back. A coalesced block
+        sends each rank only its own rows of ``B``; the asynchronous class
+        sends the whole columns, which its blocks split by their own row
+        ranges. ``tol`` defaults to the batch's ``(rtol, atol, max_it)``."""
+        if tol is None:
+            tol = (reqs[0].rtol, reqs[0].atol, reqs[0].max_it)
+        cols = [(r.rtol, r.atol) for r in reqs]
+        urgent = any(r.qos == "interactive" for r in reqs)
+        if sess.multisplit is not None:
+            return self._stream.call(self._tag, "_solve_block", sess.name,
+                                     tol, cols, urgent, resilient, B)
+        return self._stream.call(self._tag, "_solve_block", sess.name, tol,
+                                 cols, urgent, resilient, rows=B)
+
+    def _solve_block(self, name, tol, cols, urgent, resilient, B):
+        """The block command, on every rank: set the batch's tolerances
+        and solve ``B`` (this rank's rows of it), the answers coming back
+        to rank 0 alone. The outcome is agreed: an attempt of the resilient
+        dispatch that failed on any rank fails on every rank
+        (``resilient_solve_many``), and so does the plain dispatch."""
+        self._blocks_run += 1
+        self._cols_run += len(cols)
+        sess = self._sessions[name]
+        ksp = sess.ksp
+        ksp.set_tolerances(rtol=tol[0], atol=tol[1], max_it=tol[2])
+        if sess.multisplit is not None:
+            return self._multisplit_solve_many(sess, cols, urgent, B)
+        comm = ksp.get_operators()[0].comm
+        with comm.answers_to_root():
+            if resilient:
+                return resilient_solve_many(ksp, B, policy=self.retry_policy)
+            exc = res = None
+            try:
+                res = ksp.solve_many(B)
+            except Exception as e:  # noqa: BLE001 (agreed, then raised)
+                exc = e
+            exc = comm.agree_error(exc)
+            if exc is not None:
+                raise exc
+            return res
+
+    def _multisplit_solve_many(self, sess, cols, urgent, B):
         """One batch through the asynchronous tier (JAX ``server.py:907``):
         a stale-tolerant outer solve per request instead of a coalesced
         block. When any request is QoS-``interactive`` the staleness bound
@@ -707,15 +840,14 @@ class SolveServer:
         from ..utils.convergence import BatchedSolveResult
         ms = sess.multisplit
         bound = None
-        if any(r.qos == "interactive" for r in reqs):
+        if urgent:
             bound = global_options().get_int(
                 "multisplit_urgent_stale", max(1, ms.max_stale // 2))
         t0 = time.monotonic()
-        X = np.zeros((sess.n, len(reqs)), dtype=sess.dtype)
+        X = np.zeros((sess.n, len(cols)), dtype=sess.dtype)
         iters, rnorms, reasons, hists = [], [], [], []
-        for j, r in enumerate(reqs):
-            res = ms.solve(B[:, j], rtol=r.rtol, atol=r.atol,
-                           max_stale=bound)
+        for j, (rtol, atol) in enumerate(cols):
+            res = ms.solve(B[:, j], rtol=rtol, atol=atol, max_stale=bound)
             X[:, j] = res.x
             iters.append(int(res.iterations))
             rnorms.append(float(res.residual_norm))
@@ -841,9 +973,13 @@ class SolveServer:
         over the healed shards (``-elastic_regrow``), never past the
         provisioned one; False when not degraded, disarmed, or no larger
         rung exists. Safe from any thread: it waits out an in-flight
-        dispatch on the session lock."""
+        dispatch on the session lock. A server across processes never
+        shrinks (ROADMAP.md Queue A item 6.4), so it has nothing to regrow:
+        False."""
         from ..resilience import elastic as _elastic
         from ..utils.profiling import record_mesh_regrow
+        if self.comm.multiprocess:
+            return False
         policy = _elastic.ElasticPolicy.from_options()
         if not (policy.enabled and policy.regrow):
             return False

@@ -712,7 +712,7 @@ class KSP:
         mat = self._mat
         if mat is None:
             raise RuntimeError("KSP.solve: no operators set")
-        _faults.check("ksp.solve")    # an injectable pre-solve failure
+        _agreed_check(mat.comm, "ksp.solve")   # a pre-solve failure
         self._check_norm_type()
         self._check_guard()
         with _telemetry.span("ksp.setup"):
@@ -899,6 +899,7 @@ class KSP:
         fault = _faults.triggered("ksp.program")
         if fault is None:
             fault = _faults.mesh_fault("device.lost", mat.comm.device_ids)
+        fault = mat.comm.agree_fault(fault)
         if fault is None:
             return
         if fault.iter_k:
@@ -1046,6 +1047,7 @@ class KSP:
         if fault is None:
             fault = _faults.mesh_fault("device.lost",
                                        self._mat.comm.device_ids)
+        fault = self._mat.comm.agree_fault(fault)
         if fault is not None:
             if fault.iter_k:
                 _telemetry.record_program_dispatch(kind)
@@ -1287,7 +1289,7 @@ class KSP:
         limit = int(self.batch_limit)
         if 0 < limit < k:
             return self._solve_many_chunked(B, X, k, limit, b_vecs, x_vecs)
-        _faults.check("ksp.solve")    # the one pre-solve fault point
+        _agreed_check(mat.comm, "ksp.solve")   # the one pre-solve point
         self._check_norm_type()
         self._check_guard()
         with _telemetry.span("ksp.setup"):
@@ -1536,6 +1538,14 @@ class KSP:
     def __repr__(self):
         return (f"KSP(type={self._type!r}, pc={self.get_pc().get_type()!r}, "
                 f"rtol={self.rtol:g}, max_it={self.max_it})")
+
+
+def _agreed_check(comm, point: str):
+    """A raising fault point taken by every rank of ``comm`` when it fires
+    on any (``DeviceComm.agree_fault``; ``faults.check`` on one process)."""
+    fault = comm.agree_fault(_faults.triggered(point))
+    if fault is not None and fault.kind in _faults.RAISING_KINDS:
+        raise fault.error()
 
 
 def _result_fault(rnorm, iters):

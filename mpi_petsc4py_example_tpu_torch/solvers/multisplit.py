@@ -48,10 +48,20 @@ unfused loops (``megasolve`` off), which capture no CUDA graph and keep no
 program cache, so no capture can meet another thread's launches; the
 thread-local span stacks keep each block's ``ksp.solve`` spans apart.
 
-**One controller.** The supervisor and the block threads live in one
-process. On a ``ProcessComm`` of several processes :class:`MultisplitSolver`
-raises ``NotImplementedError``: the blocks on every rank, driven from one,
-are ROADMAP.md Queue A item 7.3, with the server across processes.
+**Across processes.** On a ``ProcessComm`` of several processes block
+``i`` runs on the rank that owns global shard ``i % N``, as the JAX package
+places it on device ``i % N``; its inner KSP stays on a one-shard
+``DeviceComm`` of that rank, so block threads make no collective. The
+exchange is a :class:`..parallel.exchange.StoreExchange` over the host
+store every rank reaches. Rank 0 picks each cut from the store and
+scatters its rows, and every rank runs the one-``psum`` residual program
+in lockstep, so every rank reaches the same verdict; rank 0 also ends the
+solve when a block thread failed on any rank or every block spent its
+budget. The script is SPMD (every rank calls :meth:`MultisplitSolver.solve`
+with the same ``b``), or the server's asynchronous class runs it as a
+command of its stream. A ``device.lost`` there raises
+``NotImplementedError``: re-homing a block onto another rank's shard and
+shrinking the residual mesh are ROADMAP.md Queue A item 6.4.
 
 Convergence of the outer iteration needs the usual multisplitting
 hypotheses (block diagonally dominant, M-matrix style splittings); for a
@@ -60,6 +70,7 @@ general SPD system the synchronous tier stays the default.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 
@@ -67,8 +78,11 @@ import numpy as np
 
 from ..core.mat import Mat
 from ..core.vec import Vec
-from ..parallel.exchange import StaleExchange, check_staleness_bound
-from ..parallel.mesh import DeviceComm, as_comm, torch_dtype
+from ..parallel.control import live_targets
+from ..parallel.exchange import (StaleExchange, StoreExchange,
+                                 check_staleness_bound)
+from ..parallel.mesh import (DeviceComm, as_comm, bind_thread, control_group,
+                             in_stream, torch_dtype)
 from ..parallel.partition import row_partition
 from ..resilience import faults as _faults
 from ..telemetry import metrics as _metrics
@@ -87,6 +101,10 @@ DEFAULT_MAX_OUTER = 500
 DEFAULT_INNER_RTOL = 1e-2
 DEFAULT_INNER_MAX_IT = 50
 DEFAULT_RESYNC_TIMEOUT = 30.0
+
+# the solves of this process: the key prefix of a solve's exchange, the same
+# on every rank of an SPMD script
+_SOLVES = itertools.count()
 
 
 def build_multisplit_residual_program(comm: DeviceComm, A: Mat):
@@ -110,6 +128,14 @@ def build_multisplit_residual_program(comm: DeviceComm, A: Mat):
         return comm.psum([rr[i].sum() for i in range(comm.local_shards)])
 
     return run
+
+
+def _loss_across_processes(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"multisplit: a device of {what} was lost on a ProcessComm of "
+        "several processes; re-homing a block onto another rank's shard "
+        "and shrinking the residual mesh across processes are ROADMAP.md "
+        "Queue A item 6.4")
 
 
 class MultisplitResult:
@@ -206,12 +232,6 @@ class MultisplitSolver:
                  rtol: float = 1e-5, atol: float = 0.0, dtype=None):
         from .krylov import check_ksp_type
         self.comm = as_comm(comm)
-        if self.comm.multiprocess:
-            raise NotImplementedError(
-                f"MultisplitSolver on a ProcessComm of {self.comm.nprocs} "
-                "processes: the supervisor and its block threads run in one "
-                "process; the blocks on every rank, driven from one, are "
-                "ROADMAP.md Queue A item 7.3")
         opts = global_options()
         if nblocks is None:
             nblocks = opts.get_int("multisplit_blocks", self.comm.size)
@@ -282,9 +302,16 @@ class MultisplitSolver:
             off = sp.lil_matrix(A[rows, :])
             off[:, rows] = 0            # own-block coupling lives in A_ii
             st.A_off = sp.csr_matrix(off)
-            self._place_block(st, ids[i % len(ids)])
+            st.device_id = int(ids[i % len(ids)])
+            if self._mine(st):
+                self._place_block(st, st.device_id)
             self._blocks.append(st)
         return self
+
+    def _mine(self, st: _BlockState) -> bool:
+        """Does this process own block ``st`` (the shard ``i % N``)?"""
+        shard = st.index % self.comm.size
+        return shard // self.comm.local_shards == self.comm.rank
 
     set_operators = set_operator       # the KSP surface's spelling
 
@@ -339,7 +366,14 @@ class MultisplitSolver:
         self._x0 = x0.copy()
         # the history ring covers the staleness the bound tolerates, so the
         # consistent cut stays reconstructible (parallel/exchange.py)
-        self._exchange = StaleExchange(self.nblocks, history=bound + 4)
+        procs = self.comm.multiprocess
+        if procs:
+            self._check_procs()
+            self._exchange = StoreExchange(
+                control_group()[1], f"multisplit/{next(_SOLVES)}",
+                self.nblocks, history=bound + 4)
+        else:
+            self._exchange = StaleExchange(self.nblocks, history=bound + 4)
         self._stop.clear()
         self._worker_error = None
         self._b_dev = None
@@ -359,11 +393,15 @@ class MultisplitSolver:
                                         args=(st, bound),
                                         name=f"multisplit-b{st.index}",
                                         daemon=True)
-                       for st in self._blocks]
+                       for st in self._blocks if self._mine(st)]
             for t in threads:
                 t.start()
             try:
-                result = self._supervise(b, target, threads, t0, rtol)
+                if procs:
+                    result = self._supervise_procs(b, target, threads, t0,
+                                                   rtol)
+                else:
+                    result = self._supervise(b, target, threads, t0, rtol)
             finally:
                 # the workers are parked before this thread may raise: a
                 # worker still launching at interpreter teardown would
@@ -421,6 +459,94 @@ class MultisplitSolver:
             cut_version=last_cut,
             max_stale_seen=max(st.max_age for st in self._blocks))
 
+    def _check_procs(self):
+        """A direct solve across processes runs on the script's thread,
+        whose control-group calls would cross a server's follower thread:
+        refuse it while a server is open on this process."""
+        if not in_stream() and live_targets() > 0:
+            raise RuntimeError(
+                "MultisplitSolver.solve across processes while a server is "
+                "open on this process: serve it (multisplit=True) or shut "
+                "the server down first")
+
+    def _supervise_procs(self, b, target, threads, t0,
+                         rtol) -> MultisplitResult:
+        """:meth:`_supervise` across processes (module docstring): rank 0
+        polls the store for the next cut, a peer's error or the end and
+        broadcasts its pick; every rank then takes the cut's rows and runs
+        the residual program, so every rank reaches the same verdict."""
+        comm, exch = self.comm, self._exchange
+        leader = comm.rank == 0
+        history = []
+        last_cut = 0
+        rnorm = float("inf")
+        reason = ConvergedReason.ITERATING
+        payloads = None
+        while True:
+            msg = None
+            if leader:
+                msg, payloads = self._leader_pick(last_cut)
+            msg = comm.bcast_obj(msg)
+            if msg[0] == "cut":
+                last_cut = msg[1]
+                x_rows = comm.scatter_rows(
+                    self._assemble_cut(payloads) if leader else None)
+                rnorm = self._residual_norm(b, x_rows)
+                history.append((last_cut, rnorm))
+                if rnorm <= target:
+                    reason = (ConvergedReason.CONVERGED_RTOL
+                              if rnorm <= rtol * max(
+                                  float(np.linalg.norm(b)), 1e-300)
+                              else ConvergedReason.CONVERGED_ATOL)
+                    break
+                continue
+            if msg[0] == "error":
+                if self._worker_error is None:
+                    self._worker_error = msg[1]
+            else:
+                reason = ConvergedReason.DIVERGED_MAX_IT
+            break
+        self._stop.set()
+        for t in threads:
+            t.join()
+        # every rank's counts of its own blocks, once every block parked
+        mine = {st.index: (st.steps, st.resyncs, st.lost_count, st.max_age)
+                for st in self._blocks if self._mine(st)}
+        counts = {}
+        for part in comm.gather_obj(mine):
+            counts.update(part)
+        x = comm.bcast_obj(self._final_iterate(last_cut) if leader else None)
+        if leader:
+            exch.clear()
+        return MultisplitResult(
+            x=x, iterations=last_cut, residual_norm=rnorm,
+            reason=reason, wall_time=time.monotonic() - t0,
+            history=history,
+            resyncs=sum(c[1] for c in counts.values()),
+            blocks_lost=sum(c[2] for c in counts.values()),
+            block_steps=tuple(counts[i][0] for i in range(self.nblocks)),
+            cut_version=last_cut,
+            max_stale_seen=max(c[3] for c in counts.values()))
+
+    def _leader_pick(self, last_cut):
+        """Rank 0's next message: ``("cut", version)`` with the cut's
+        payloads, ``("error", exc)`` when a block thread failed on any
+        rank, or ``("end",)`` when every block spent its budget."""
+        exch = self._exchange
+        while True:
+            cut = exch.consistent_cut()
+            if cut is not None and cut[0] > last_cut:
+                return ("cut", cut[0]), cut[1]
+            err = self._worker_error or exch.error()
+            if err is not None:
+                return ("error", err), None
+            if exch.finished() >= self.nblocks:
+                cut = exch.consistent_cut()
+                if cut is not None and cut[0] > last_cut:
+                    continue
+                return ("end",), None
+            exch.wait_change(timeout=0.01)
+
     def _final_iterate(self, cut_version):
         """The iterate at the LAST verified cut when there is one, else the
         freshest per-block iterates (the diverged report)."""
@@ -446,7 +572,15 @@ class MultisplitSolver:
         the operator's dtype (fp64 for an fp64 operator). It runs on every
         id; when that mesh holds a LOST id, the check moves onto the
         surviving ids (the shrink the block workers make too) and retries
-        once."""
+        once. Across processes a loss one rank saw (a block's fault marks
+        its id lost there alone) is agreed before the collective, and every
+        rank raises naming item 6.4."""
+        if self.comm.multiprocess:
+            ids = set(self._residual_comm.device_ids)
+            seen = self.comm.gather_obj(
+                sorted(ids & set(_faults.lost_devices())))
+            if any(seen):
+                raise _loss_across_processes("the residual check's mesh")
         for attempt in (0, 1):
             try:
                 comm = self._residual_comm
@@ -468,6 +602,8 @@ class MultisplitSolver:
                 lost = _faults.lost_devices()
                 if attempt or not lost:
                     raise
+                if self.comm.multiprocess:
+                    raise _loss_across_processes("the residual check's mesh")
                 survivors = [d for d in self.comm.device_ids
                              if d not in lost]
                 if not survivors:
@@ -486,6 +622,7 @@ class MultisplitSolver:
 
     # ---- block worker -------------------------------------------------------
     def _block_worker(self, st: _BlockState, bound: int):
+        bind_thread(self.comm)
         exch = self._exchange
         registry = _metrics.registry
         try:
@@ -507,8 +644,8 @@ class MultisplitSolver:
                     registry.counter("multisplit.resyncs").inc()
                     floor = max(1, st.version - bound)
                     for nb in over:
-                        exch.wait_for(nb, floor,
-                                      timeout=self.resync_timeout)
+                        exch.wait_for(nb, floor, timeout=self.resync_timeout,
+                                      stop=self._stop)
                     reads = exch.read_all(st.index, st.version)
                 try:
                     self._inner_step(st, reads)
@@ -516,6 +653,10 @@ class MultisplitSolver:
                         _faults.XlaRuntimeError) as exc:
                     if not self._block_device_lost(st, exc):
                         self._worker_error = exc
+                        return
+                    if self.comm.multiprocess:
+                        self._worker_error = _loss_across_processes(
+                            f"block {st.index}")
                         return
                     self._rehome(st)
                     continue
@@ -528,6 +669,9 @@ class MultisplitSolver:
         except Exception as exc:  # noqa: BLE001 (solve() raises it)
             self._worker_error = exc
         finally:
+            # across processes rank 0's supervisor reads every rank's ends
+            # and errors
+            exch.finish(self._worker_error)
             exch.kick()        # wake the supervisor for a last look
 
     def _inner_step(self, st: _BlockState, reads):

@@ -559,36 +559,3 @@ def test_replicas_share_one_session_lock():
         assert rt.replica(name)._session_lock is rt.card_lock
     finally:
         rt.shutdown()
-
-
-def _multiprocess_comm():
-    from mpi_petsc4py_example_tpu_torch.parallel.mesh import ProcessComm
-    comm = ProcessComm.__new__(ProcessComm)
-    comm._nprocs, comm._rank, comm._local = 2, 0, 1
-    pt.DeviceComm.__init__(comm, 2, "cpu")
-    assert comm.multiprocess
-    return comm
-
-
-@pytest.mark.parametrize("what", ["SolveRouter", "FleetManager",
-                                  "default comm"])
-def test_multiprocess_comm_raises_naming_item_7_3(what):
-    """A ProcessComm of two processes (its state, without joining a group)
-    raises naming ROADMAP.md Queue A item 7.3, also with a server factory
-    that would never look at the comm, and through the default comm."""
-    from mpi_petsc4py_example_tpu_torch.serving.remote import FleetManager
-    comm = _multiprocess_comm()
-    built = []
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        if what == "SolveRouter":
-            fleet.SolveRouter(2, comm, server_factory=built.append)
-        elif what == "FleetManager":
-            FleetManager(2, comm)
-        else:
-            pt.set_default_comm(comm)
-            try:
-                fleet.SolveRouter(2, server_factory=built.append)
-            finally:
-                pt.set_default_comm(None)
-    assert built == []
-

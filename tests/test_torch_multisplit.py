@@ -515,15 +515,6 @@ def test_worker_error_surfaces(monkeypatch):
     assert all(st.steps == 0 for st in ms._blocks)
 
 
-def test_process_comm_raises_naming_its_item():
-    from mpi_petsc4py_example_tpu_torch.parallel.mesh import ProcessComm
-    comm = ProcessComm.__new__(ProcessComm)
-    comm._nprocs, comm._rank, comm._local = 2, 0, 1
-    pt.DeviceComm.__init__(comm, 2, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        MultisplitSolver(comm)
-
-
 # ---- degradation ------------------------------------------------------------
 
 # JAX's jitter (an exponential 4 ms draw a step, seed 7) and a sticky

@@ -666,19 +666,6 @@ def test_no_batched_kernel_warns(pkg):
 
 # ---- what the port raises ---------------------------------------------------
 
-def test_multiprocess_comm_raises_naming_its_item():
-    """A ProcessComm of two processes (its state, without joining a group:
-    the server refuses before any collective) raises naming ROADMAP.md
-    Queue A item 7.3."""
-    from mpi_petsc4py_example_tpu_torch.parallel.mesh import ProcessComm
-    comm = ProcessComm.__new__(ProcessComm)
-    comm._nprocs, comm._rank, comm._local = 2, 0, 1
-    pt.DeviceComm.__init__(comm, 2, "cpu")
-    assert comm.multiprocess
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        server.SolveServer(comm, autostart=False)
-
-
 def test_default_comm_is_the_card():
     """``SolveServer()`` takes the default communicator, which is the
     card's: without CUDA it raises, as every entry point does."""
